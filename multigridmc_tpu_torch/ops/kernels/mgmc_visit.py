@@ -1,0 +1,620 @@
+"""Fused MGMC level-visit kernels: the whole descend / ascend of one level in
+one CUDA kernel launch.
+
+Replaces ``descend_visit`` / ``ascend_visit`` / ``FusedVisitLevel`` of
+``multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py``.  One **descend visit** of
+level l is
+
+    c   = f + sqrt(D (2-omega)/omega) xi + B Sigma^{-1/2} xi'   (Gibbs noise)
+    x  <- colour-ordered SOR sweep(c, x)                        (pre direction)
+    x  <- x - B_bar (B^T x)                                     (Woodbury)
+    r   = f - A x            (A = stencil + B Sigma^{-1} B^T)
+    f_c = R r                (full-weighting restriction)
+
+and one **ascend visit** is
+
+    x  <- x + gamma * P x_c                                     (prolongate_add)
+    c   = f + noise                                             (as above)
+    x  <- colour-ordered SOR sweep(c, x)                        (post direction)
+    x  <- x - B_bar_post (B^T x)
+
+The CUDA source is ``csrc/mgmc_visit.cu`` (one thread block per chain; its
+header comment states the design).  It is compiled with ``nvcc`` for
+``sm_90a`` at first use into the package's ``build/`` directory and loaded
+with ``ctypes``.
+
+**Bound.**  A visit is bound by bytes: per chain it must read ``f`` (unless
+shared), ``x`` and ``x_c`` and write ``x`` and ``f_c`` once - for the descend
+visit of a 255^2 level with shared ``f`` that is ``C * (2 * 255^2 + 127^2) * 4``
+bytes, about 150 MB at 256 chains.  Everything else the kernel touches
+(coefficient planes, the scratch field, the few points where ``B`` and
+``M^{-1} B`` are nonzero) is meant to stay in L2.  The kernels are some ten
+times off that bound at 255^2 (``PERF.md``): the passes of one visit run one
+after the other over a field in L2, and on the small levels the host's launch
+cost exceeds the kernel's time.
+
+Beside each kernel stands its **plain PyTorch version**
+(:func:`descend_visit_plain`, :func:`ascend_visit_plain`), built from
+``sor_sweep``, ``restrict`` and ``prolongate_add`` and taking the noise as
+tensors.  The wrappers :func:`descend_visit` / :func:`ascend_visit` take the
+plain version only for tensors that lie on the CPU; for a CUDA tensor they
+launch the kernel or raise - there is no fallback.  The kernels update ``x`` in
+place; the plain versions return new tensors.
+
+The field noise of the kernels is an in-kernel Philox4x32-10 stream addressed
+by ``(seed, launch counter, chain, point group)`` (see
+:func:`philox_normals_reference`); alternatively the wrappers accept the field
+noise ``xi`` as a tensor, so kernel and plain version can be fed the same
+normals.  The ``m`` low-rank normals per chain are always drawn outside and
+passed in pre-scaled by ``Sigma^{-1/2}``.
+
+Supported by the kernels: 2d, float32, one directed sweep per visit (SOR), any
+reach-1 stencil (up to 9 offsets, per-point coefficient planes, up to 8
+colours), ``0 <= m <= 32`` with dense ``B``, ``f`` shared or per chain, noise
+on or off, any ``coarse_scaling``.  Two sweeps per visit (SSOR), 3d, reach-2
+stencils and reduced-precision transfers belong to later slices; the wrapper
+raises on them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ...smoothers import sor_sweep, woodbury_factors
+from ..intergrid import prolongate_add, restrict
+from ..stencil import StencilOperator, interior_mask
+
+MAX_OFFSETS = 9
+MAX_COLORS = 8
+MAX_LOWRANK = 32
+
+_PACKAGE_DIR = Path(__file__).resolve().parents[2]
+SOURCE = _PACKAGE_DIR / "csrc" / "mgmc_visit.cu"
+BUILD_DIR = _PACKAGE_DIR / "build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+#: kernel launches made by the wrappers (and only where they launch)
+launch_counts: Dict[str, int] = {"descend_visit": 0, "ascend_visit": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+class VisitParams(ctypes.Structure):
+    """Mirror of ``struct VisitParams`` in ``csrc/mgmc_visit.cu``."""
+
+    _fields_ = [
+        ("C", ctypes.c_int), ("H", ctypes.c_int), ("W", ctypes.c_int),
+        ("Hc", ctypes.c_int), ("Wc", ctypes.c_int),
+        ("K", ctypes.c_int), ("diag_index", ctypes.c_int),
+        ("dy", ctypes.c_int * MAX_OFFSETS),
+        ("dx", ctypes.c_int * MAX_OFFSETS),
+        ("coeff_const", ctypes.c_int * MAX_OFFSETS),
+        ("coeff_val", ctypes.c_float * MAX_OFFSETS),
+        ("n_colors", ctypes.c_int), ("w0", ctypes.c_int), ("w1", ctypes.c_int),
+        ("jstride", ctypes.c_int),
+        ("n_order", ctypes.c_int),
+        ("order", ctypes.c_int * MAX_COLORS),
+        ("omega", ctypes.c_float),
+        ("gamma", ctypes.c_float),
+        ("m", ctypes.c_int),
+        ("bbox", (ctypes.c_int * 4) * MAX_LOWRANK),
+        ("ybox", (ctypes.c_int * 4) * MAX_LOWRANK),
+        ("noise_mode", ctypes.c_int),
+        ("ns_const", ctypes.c_int),
+        ("ns_val", ctypes.c_float),
+        ("f_batched", ctypes.c_int),
+        ("seed", ctypes.c_ulonglong),
+        ("counter", ctypes.c_ulonglong),
+    ]
+
+
+# ------------------------------------------------------------------- the build
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found: the fused level-visit kernels are built from "
+            f"{SOURCE} at first use and need the CUDA toolkit")
+    return found
+
+
+def build_library(extra_flags: Tuple[str, ...] = ()) -> Path:
+    """Compile ``csrc/mgmc_visit.cu`` into ``build/`` (named by the source's
+    hash, so a stale library is never loaded) and return the library's path.
+    Raises when the compiler is missing or fails."""
+    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join(NVCC_FLAGS + extra_flags).encode())
+    out = BUILD_DIR / f"libmgmc_visit_{digest.hexdigest()[:12]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernels' shared library."""
+    lib = ctypes.CDLL(str(build_library()))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.mgmc_visit_params_size.argtypes = []
+    lib.mgmc_visit_params_size.restype = i32
+    if lib.mgmc_visit_params_size() != ctypes.sizeof(VisitParams):
+        raise RuntimeError("VisitParams layout differs between Python and CUDA")
+    # P, x, f, scratch, fc, coeffs, ns, B, Y, W, xilr, sinv, G, xi, threads, stream
+    lib.mgmc_descend_visit.argtypes = [ctypes.POINTER(VisitParams)] + [ptr] * 13 + [i32, ptr]
+    lib.mgmc_descend_visit.restype = i32
+    # P, x, f, scratch, xc, coeffs, ns, B, Y, W, xilr, xi, threads, stream
+    lib.mgmc_ascend_visit.argtypes = [ctypes.POINTER(VisitParams)] + [ptr] * 11 + [i32, ptr]
+    lib.mgmc_ascend_visit.restype = i32
+    return lib
+
+
+# ------------------------------------------------- resident-set compression
+def compress_plan(op: StencilOperator, omega: float):
+    """What the CUDA kernels need not read per point.
+
+    Returns ``(const_coeffs, ns_const, bbox)``:
+
+    * ``const_coeffs`` - per offset a float where the coefficient plane is
+      spatially constant on the region where it acts (``None`` where it
+      varies).  Constant-kappa FD priors have all planes constant;
+      Galerkin-coarsened levels generally do not.
+    * ``ns_const`` - the constant Gibbs noise scale ``sqrt(D (2-omega)/omega)``
+      when the stencil diagonal is constant (computed in float32), else None.
+    * ``bbox`` - per measurement column its support's bounding box
+      ``(i0, i1, j0, j1)``, half open; the kernel reads ``B_k`` only there.
+
+    Of the TPU kernel's ``compress_plan`` this keeps the two devices that save
+    L2 traffic here; one-hot columns become bounding boxes (which also cover
+    the 3x3 columns of coarser levels and degrade gracefully to dense ``B``).
+    """
+    coeffs = op.coeffs.detach().cpu().numpy()
+    cc = []
+    for k, off in enumerate(op.offsets):
+        vals = coeffs[k][interior_mask(op.vshape, off) > 0]
+        if vals.size and bool(np.all(vals == vals.flat[0])):
+            cc.append(float(vals.flat[0]))
+        else:
+            cc.append(None)
+    ns_const = None
+    dval = cc[op.diag_index]
+    if dval is not None:
+        ns_const = float(np.sqrt(np.float32(dval) * np.float32((2.0 - omega) / omega)))
+    bbox = () if op.lowrank is None else support_boxes(op.lowrank.B)
+    return tuple(cc), ns_const, bbox
+
+
+def support_boxes(fields: torch.Tensor) -> Tuple[Tuple[int, int, int, int], ...]:
+    """Per 2d field of ``(m, H, W)`` the bounding box ``(i0, i1, j0, j1)`` (half
+    open) of its nonzeros; an all-zero field gets the empty box."""
+    boxes = []
+    for col in fields.detach().cpu().numpy():
+        nz = np.nonzero(col)
+        if len(nz[0]) == 0:
+            boxes.append((0, 0, 0, 0))
+        else:
+            boxes.append((int(nz[0].min()), int(nz[0].max()) + 1,
+                          int(nz[1].min()), int(nz[1].max()) + 1))
+    return tuple(boxes)
+
+
+def kernel_support_error(op: StencilOperator, n_colors: int) -> Optional[str]:
+    """Why the CUDA kernels cannot take this level, or None if they can."""
+    if len(op.vshape) != 2:
+        return "the fused level-visit kernels are 2d only (3d: later slice)"
+    if len(op.offsets) > MAX_OFFSETS or any(abs(o) > 1 for off in op.offsets for o in off):
+        return "the fused level-visit kernels take reach-1 stencils only (reach 2: later slice)"
+    if n_colors > MAX_COLORS:
+        return f"more than {MAX_COLORS} colours"
+    if op.m_lowrank > MAX_LOWRANK:
+        return f"more than {MAX_LOWRANK} measurements"
+    return None
+
+
+def _default_threads(n: int) -> int:
+    """Threads per block (= per chain; one warp works on one row at a time).
+    Measured on an H100 with ``chip_smoke.py --phases threads`` at 256 chains."""
+    if n >= 16000:
+        return 1024
+    return 512 if n >= 3000 else 256
+
+
+class FusedVisitLevel:
+    """Per-level bundle of buffers and static configuration for the fused
+    visit kernels: ``coeffs``, ``noise_scale``, ``B``, ``B_bar`` (pre and post
+    direction - the Woodbury factor is direction dependent), ``lr_scale``,
+    ``sigma_inv`` and the Gram matrix ``G_pre`` of the residual shortcut.  The
+    plain versions apply ``B_bar``; the CUDA kernels its factors ``Y = M^{-1} B``
+    (compact support, ``ybox``) and ``W`` with ``B_bar_k = sum_l W[l, k] Y_l``."""
+
+    def __init__(self, op: StencilOperator, coloring, omega: float, pre_order, post_order,
+                 Bbar_pre, Bbar_post, coarse_scaling: float):
+        if len(op.vshape) != 2:
+            raise NotImplementedError(
+                "fused level visits are 2d only; the 3d (flat-storage) kernels "
+                "belong to a later slice of the port")
+        if pre_order and isinstance(pre_order[0], (tuple, list)):
+            raise NotImplementedError(
+                "two sweeps per visit (SSOR) are not ported yet (later slice)")
+        self.op = op
+        self.omega = float(omega)
+        self.coarse_scaling = float(coarse_scaling)
+        self.coloring = coloring
+        self.pre_order = tuple(int(c) for c in pre_order)
+        self.post_order = tuple(int(c) for c in post_order)
+        dt, dev = op.dtype, op.device
+        self.masks = torch.as_tensor(coloring.masks(), dtype=dt, device=dev)
+        self.coeffs = op.coeffs.contiguous()
+        self.noise_scale = torch.sqrt(
+            op.diag_stencil() * ((2.0 - self.omega) / self.omega)).contiguous()
+        self.vc = tuple(n // 2 for n in op.vshape)
+        m = op.m_lowrank
+        if m:
+            for name, bb in (("pre", Bbar_pre), ("post", Bbar_post)):
+                if bb is None or bb.shape[0] != m:
+                    raise ValueError(
+                        f"B_bar ({name}) must hold {m} fields, one direction's "
+                        "factor cannot stand in for the other's")
+            self.B = op.lowrank.B.contiguous()
+            self.Bbar_pre = Bbar_pre.to(device=dev, dtype=dt).contiguous()
+            self.Bbar_post = Bbar_post.to(device=dev, dtype=dt).contiguous()
+            self.lr_scale = 1.0 / torch.sqrt(op.lowrank.Sigma_diag)
+            self.sigma_inv = (1.0 / op.lowrank.Sigma_diag).contiguous()
+            # Gram matrix of the kernel's (I - G) B^T x residual shortcut
+            self.G_pre = (self.B.reshape(m, -1) @ self.Bbar_pre.reshape(m, -1).T).contiguous()
+            self._woodbury = {}
+            for order in {self.pre_order, self.post_order}:
+                Y, W = woodbury_factors(op, self.masks, self.omega, order)
+                self._woodbury[order] = (Y.contiguous(), W.contiguous(), support_boxes(Y))
+        else:
+            self.B = self.Bbar_pre = self.Bbar_post = None
+            self.lr_scale = self.sigma_inv = self.G_pre = None
+            self._woodbury = {self.pre_order: (None, None, ()), self.post_order: (None, None, ())}
+        self.const_coeffs, self.ns_const, self.bbox = compress_plan(op, self.omega)
+        self.threads = _default_threads(int(np.prod(op.vshape)))
+        self._params_cache = {}
+
+    # ------------------------------------------------------------ noise
+    def _draw(self, noise, x):
+        """(xi, xi_lr, philox) for one visit.  Draw order of the tensor path:
+        the field, then the low-rank scalars (as the composed sampler)."""
+        if noise is None:
+            return None, None, None
+        philox = noise.philox_stream() if x.is_cuda else None
+        xi = None if philox is not None else noise.normal(x.shape, x.dtype, x.device)
+        xi_lr = None
+        if self.B is not None:
+            m = self.B.shape[0]
+            xi_lr = noise.normal((x.shape[0], m), x.dtype, x.device) * self.lr_scale
+        return xi, xi_lr, philox
+
+    def descend(self, noise, f, x):
+        """One descend visit; returns ``(x, f_coarse)``.  ``noise`` is a noise
+        source or ``None`` for the deterministic data path.  On a CUDA device
+        ``x`` is updated in place."""
+        xi, xi_lr, philox = self._draw(noise, x)
+        return descend_visit(self, f, x, xi=xi, xi_lr=xi_lr, philox=philox)
+
+    def ascend(self, noise, f, x, x_coarse):
+        """One ascend visit; returns ``x``.  On a CUDA device ``x`` is updated
+        in place."""
+        xi, xi_lr, philox = self._draw(noise, x)
+        return ascend_visit(self, f, x, x_coarse, xi=xi, xi_lr=xi_lr, philox=philox)
+
+    # -------------------------------------------------- kernel parameters
+    def _params(self, C: int, order, f_batched: bool, noise_mode: int, philox) -> VisitParams:
+        """The kernel's parameter block; built once per launch configuration
+        (the host's share of a launch matters on the small levels), only the
+        Philox stream changes from launch to launch."""
+        key = (C, tuple(order), bool(f_batched), noise_mode)
+        P = self._params_cache.get(key)
+        if P is None:
+            P = self._params_cache[key] = self._build_params(*key)
+        P.seed, P.counter = philox if philox is not None else (0, 0)
+        return P
+
+    def _build_params(self, C: int, order, f_batched: bool, noise_mode: int) -> VisitParams:
+        op = self.op
+        err = kernel_support_error(op, self.coloring.n_colors)
+        if err is not None:
+            raise NotImplementedError(err)
+        P = VisitParams()
+        P.C = C
+        P.H, P.W = op.vshape
+        P.Hc, P.Wc = self.vc
+        P.K, P.diag_index = len(op.offsets), op.diag_index
+        for k, (off, cval) in enumerate(zip(op.offsets, self.const_coeffs)):
+            P.dy[k], P.dx[k] = off
+            P.coeff_const[k] = int(cval is not None)
+            P.coeff_val[k] = 0.0 if cval is None else cval
+        K = self.coloring.n_colors
+        P.n_colors = K
+        P.w0, P.w1 = (int(w) for w in self.coloring.weights)
+        P.jstride = K // math.gcd(P.w1, K)
+        P.n_order = len(order)
+        for o, c in enumerate(order):
+            P.order[o] = c
+        P.omega, P.gamma = self.omega, self.coarse_scaling
+        P.m = op.m_lowrank
+        for k, (box, ybox) in enumerate(zip(self.bbox, self._woodbury[tuple(order)][2])):
+            for q in range(4):
+                P.bbox[k][q] = box[q]
+                P.ybox[k][q] = ybox[q]
+        P.noise_mode = noise_mode
+        P.ns_const = int(self.ns_const is not None)
+        P.ns_val = 0.0 if self.ns_const is None else self.ns_const
+        P.f_batched = int(f_batched)
+        return P
+
+
+# ------------------------------------------------------------- plain versions
+def _noisy_rhs_plain(level: FusedVisitLevel, f, xi, xi_lr):
+    c = f + level.noise_scale * xi
+    if xi_lr is not None:
+        c = c + level.op.lowrank.expand(xi_lr)
+    return c
+
+
+def _woodbury_plain(level: FusedVisitLevel, Bbar, x):
+    bt_x = level.op.lowrank.bt(x)
+    m = bt_x.shape[-1]
+    return x - (bt_x @ Bbar.reshape(m, -1)).reshape(x.shape)
+
+
+def descend_visit_plain(level: FusedVisitLevel, f, x, xi=None, xi_lr=None):
+    """Plain PyTorch version of the descend kernel: noisy rhs, ``sor_sweep``,
+    Woodbury, residual, ``restrict``.  ``xi`` (shape of ``x``) and ``xi_lr``
+    (``(C, m)``, pre-scaled by ``Sigma^{-1/2}``) are the normals; both ``None``
+    runs the deterministic data path.  Returns new tensors ``(x, f_coarse)``."""
+    op = level.op
+    c = f if xi is None else _noisy_rhs_plain(level, f, xi, xi_lr)
+    x = sor_sweep(op, level.masks, level.omega, level.pre_order, c, x)
+    if level.B is not None:
+        x = _woodbury_plain(level, level.Bbar_pre, x)
+    r = f - op.apply(x)
+    return x, restrict(r, dim=2)
+
+
+def ascend_visit_plain(level: FusedVisitLevel, f, x, x_coarse, xi=None, xi_lr=None):
+    """Plain PyTorch version of the ascend kernel: ``prolongate_add``, noisy
+    rhs, ``sor_sweep`` in the post direction, Woodbury.  Returns a new ``x``."""
+    x = prolongate_add(level.coarse_scaling, x_coarse, x, dim=2)
+    c = f if xi is None else _noisy_rhs_plain(level, f, xi, xi_lr)
+    x = sor_sweep(level.op, level.masks, level.omega, level.post_order, c, x)
+    if level.B is not None:
+        x = _woodbury_plain(level, level.Bbar_post, x)
+    return x
+
+
+# ------------------------------------------------------------------ wrappers
+def _check_visit_args(level: FusedVisitLevel, f, x, xi, xi_lr, philox, x_coarse=None):
+    """Validate what goes to the kernel by pointer; returns (C, f_batched,
+    noise_mode)."""
+    vshape = level.op.vshape
+    if x.ndim != 3 or tuple(x.shape[1:]) != vshape:
+        raise ValueError(f"x must be (C, {vshape[0]}, {vshape[1]}), got {tuple(x.shape)}")
+    C = x.shape[0]
+    f_batched = f.ndim == 3
+    if tuple(f.shape) not in (vshape, (C,) + vshape):
+        raise ValueError(f"f must be {vshape} or {(C,) + vshape}, got {tuple(f.shape)}")
+    tensors = {"x": x, "f": f}
+    if x_coarse is not None:
+        if tuple(x_coarse.shape) != (C,) + level.vc:
+            raise ValueError(f"x_coarse must be {(C,) + level.vc}, got {tuple(x_coarse.shape)}")
+        tensors["x_coarse"] = x_coarse
+    if xi is not None and philox is not None:
+        raise ValueError("give the field noise as a tensor or as a Philox stream, not both")
+    noise_mode = 0
+    if philox is not None:
+        noise_mode = 1
+    elif xi is not None:
+        noise_mode = 2
+        if xi.shape != x.shape:
+            raise ValueError(f"xi must have the shape of x, got {tuple(xi.shape)}")
+        tensors["xi"] = xi
+    m = level.op.m_lowrank
+    if noise_mode and m:
+        if xi_lr is None or tuple(xi_lr.shape) != (C, m):
+            raise ValueError(f"xi_lr must be ({C}, {m}) when noise is on")
+        tensors["xi_lr"] = xi_lr
+    elif xi_lr is not None and not noise_mode:
+        raise ValueError("xi_lr given without field noise")
+    for name, t in tensors.items():
+        if t.device != level.coeffs.device:
+            raise ValueError(f"{name} lies on {t.device}, the level on {level.coeffs.device}")
+        if t.dtype != torch.float32 or level.coeffs.dtype != torch.float32:
+            raise TypeError("the fused level-visit kernels are float32 only "
+                            f"({name} is {t.dtype}, the level {level.coeffs.dtype})")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return C, f_batched, noise_mode
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def descend_visit(level: FusedVisitLevel, f, x, xi=None, xi_lr=None,
+                  philox: Optional[Tuple[int, int]] = None):
+    """One fused descend visit; returns ``(x, f_coarse)``.
+
+    ``f`` is ``(H, W)`` (shared) or ``(C, H, W)``; ``x`` is ``(C, H, W)``.  Field
+    noise: ``philox=(seed, counter)`` for the in-kernel generator (CUDA only) or
+    ``xi`` as a tensor; ``xi_lr`` is ``(C, m)`` pre-scaled by ``Sigma^{-1/2}``.
+    No noise argument runs the deterministic data path.
+
+    CPU tensors go to :func:`descend_visit_plain`.  CUDA tensors launch the
+    kernel, which updates ``x`` in place, or raise."""
+    if x.device.type == "cpu":
+        if philox is not None:
+            raise ValueError("the Philox stream exists in the CUDA kernel only")
+        return descend_visit_plain(level, f, x, xi, xi_lr)
+    C, f_batched, noise_mode = _check_visit_args(level, f, x, xi, xi_lr, philox)
+    P = level._params(C, level.pre_order, f_batched, noise_mode, philox)
+    lib = load_library()
+    Y, W, _ = level._woodbury[level.pre_order]
+    fc = torch.empty((C,) + level.vc, dtype=x.dtype, device=x.device)
+    scratch = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mgmc_descend_visit(
+            ctypes.byref(P), x.data_ptr(), f.data_ptr(), scratch.data_ptr(), fc.data_ptr(),
+            level.coeffs.data_ptr(), level.noise_scale.data_ptr(), _ptr(level.B),
+            _ptr(Y), _ptr(W), _ptr(xi_lr), _ptr(level.sigma_inv), _ptr(level.G_pre),
+            _ptr(xi), level.threads, stream)
+    launch_counts["descend_visit"] += 1
+    if err != 0:
+        raise RuntimeError(f"descend_visit kernel launch failed: CUDA error {err}")
+    return x, fc
+
+
+def ascend_visit(level: FusedVisitLevel, f, x, x_coarse, xi=None, xi_lr=None,
+                 philox: Optional[Tuple[int, int]] = None):
+    """One fused ascend visit: ``x += gamma P x_c`` then the post Gibbs sweep
+    and its Woodbury correction; returns ``x``.  Arguments as in
+    :func:`descend_visit`; ``x_coarse`` is ``(C, H // 2, W // 2)``.
+
+    CPU tensors go to :func:`ascend_visit_plain`.  CUDA tensors launch the
+    kernel, which updates ``x`` in place, or raise."""
+    if x.device.type == "cpu":
+        if philox is not None:
+            raise ValueError("the Philox stream exists in the CUDA kernel only")
+        return ascend_visit_plain(level, f, x, x_coarse, xi, xi_lr)
+    C, f_batched, noise_mode = _check_visit_args(level, f, x, xi, xi_lr, philox, x_coarse)
+    P = level._params(C, level.post_order, f_batched, noise_mode, philox)
+    lib = load_library()
+    Y, W, _ = level._woodbury[level.post_order]
+    scratch = torch.empty_like(x) if noise_mode else x  # unused without noise
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mgmc_ascend_visit(
+            ctypes.byref(P), x.data_ptr(), f.data_ptr(), scratch.data_ptr(),
+            x_coarse.data_ptr(), level.coeffs.data_ptr(), level.noise_scale.data_ptr(),
+            _ptr(level.B), _ptr(Y), _ptr(W), _ptr(xi_lr), _ptr(xi),
+            level.threads, stream)
+    launch_counts["ascend_visit"] += 1
+    if err != 0:
+        raise RuntimeError(f"ascend_visit kernel launch failed: CUDA error {err}")
+    return x
+
+
+# ---------------------------------------------------------------- the gating
+def _sweep_spec(obj):
+    """Normalise a smoother / sampler object into the fused-visit sweep spec
+    ``(order, B_bar, coloring, omega)``, or None if a visit of it is not one
+    directed SOR sweep."""
+    if hasattr(obj, "smoother"):  # SORSampler
+        return _sweep_spec(obj.smoother) if obj.nsmooth == 1 else None
+    if hasattr(obj, "order"):  # SORSmoother
+        if obj.nsmooth != 1:
+            return None
+        return obj.order, obj.B_bar, obj.coloring, obj.omega
+    return None
+
+
+def fused_levels_for(operators, presmoothers, postsmoothers, coarse_scaling,
+                     min_vertices: int, force: Optional[bool] = None) -> dict:
+    """Gating and construction of the per-level fused visits:
+    ``{level: FusedVisitLevel}`` for every non-coarsest level with at least
+    ``min_vertices`` unknowns.
+
+    ``force=None`` (auto): on when the operators lie on a CUDA device - the
+    kernels then serve batched chains - and off on the CPU.  In auto mode only
+    two kinds of level are left to the composed path on the card: 3d levels
+    (their kernels belong to a later slice) and levels in a dtype other than
+    float32, which the caller chose.  A 2d float32 level that exceeds the
+    kernels' own limits (measurements, colours, offsets, reach) raises
+    ``NotImplementedError``: it never runs through the plain path unasked.
+    ``force=True`` builds the levels on any device (on the CPU their plain
+    versions run; the tests use this) and raises on every level the kernels
+    cannot take; ``force=False`` turns them off."""
+    if force is False:
+        return {}
+    if force is None and operators[0].device.type != "cuda":
+        return {}
+    levels = {}
+    for level in range(len(operators) - 1):
+        op = operators[level]
+        pre = _sweep_spec(presmoothers[level])
+        post = _sweep_spec(postsmoothers[level])
+        if pre is None or post is None or op.lattice.nvertex < min_vertices:
+            continue
+        on_card = op.device.type == "cuda"
+        err = kernel_support_error(op, pre[2].n_colors)
+        if err is None and on_card and op.dtype != torch.float32:
+            err = "the fused level-visit kernels are float32 only"
+        if err is not None:
+            if force or (on_card and len(op.vshape) == 2 and op.dtype == torch.float32):
+                raise NotImplementedError(err)
+            continue
+        levels[level] = FusedVisitLevel(op, pre[2], pre[3], pre[0], post[0],
+                                        pre[1], post[1], coarse_scaling)
+    return levels
+
+
+# ------------------------------------------------- reference of the generator
+def philox_normals_reference(seed: int, counter: int, chains: int,
+                             vshape: Tuple[int, int]) -> np.ndarray:
+    """The kernels' field noise, recomputed on the host with numpy:
+    ``(chains, H, W)`` float32 normals of launch ``counter`` under ``seed``.
+
+    Philox4x32-10 with counter words ``(point group, chain, counter lo,
+    counter hi)`` and key ``(seed lo, seed hi)``.  Group ``g`` of row ``i`` has
+    the number ``i * ceil(W / 4) + g``; its four output words give the normals
+    of the points ``(i, 4g .. 4g+3)`` by two Box-Muller transforms (cosine,
+    sine, cosine, sine), ``u1 = ((w >> 8) + 1) / 2^24`` in (0, 1],
+    ``u2 = (w >> 8) / 2^24``.  Philox is a bijection of the counter for a fixed
+    key, so two launches, chains or groups never share a stream.  Agrees with
+    the kernel up to the last bits of ``log`` / ``sincos``."""
+    H, W = vshape
+    M0, M1 = np.uint64(0xD2511F53), np.uint64(0xCD9E8D57)
+    mask = np.uint64(0xFFFFFFFF)
+    ngroups = H * ((W + 3) // 4)
+    c0 = np.broadcast_to(np.arange(ngroups, dtype=np.uint64), (chains, ngroups)).copy()
+    c1 = np.broadcast_to(np.arange(chains, dtype=np.uint64)[:, None], (chains, ngroups)).copy()
+    c2 = np.full((chains, ngroups), counter & 0xFFFFFFFF, dtype=np.uint64)
+    c3 = np.full((chains, ngroups), (counter >> 32) & 0xFFFFFFFF, dtype=np.uint64)
+    k0, k1 = seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF
+    for _ in range(10):
+        p0, p1 = M0 * c0, M1 * c2
+        hi0, lo0 = p0 >> np.uint64(32), p0 & mask
+        hi1, lo1 = p1 >> np.uint64(32), p1 & mask
+        c0, c1, c2, c3 = hi1 ^ c1 ^ np.uint64(k0), lo1, hi0 ^ c3 ^ np.uint64(k1), lo0
+        k0, k1 = (k0 + 0x9E3779B9) & 0xFFFFFFFF, (k1 + 0xBB67AE85) & 0xFFFFFFFF
+    scale = np.float32(1.0 / 16777216.0)
+
+    def pair(a, b):
+        u1 = ((a >> np.uint64(8)) + np.uint64(1)).astype(np.float32) * scale
+        u2 = (b >> np.uint64(8)).astype(np.float32) * scale
+        r = np.sqrt(np.float32(-2.0) * np.log(u1))
+        ang = np.float32(2.0 * np.pi) * u2
+        return r * np.cos(ang), r * np.sin(ang)
+
+    z0, z1 = pair(c0, c1)
+    z2, z3 = pair(c2, c3)
+    z = np.stack([z0, z1, z2, z3], axis=-1).reshape(chains, H, -1)
+    return z[:, :, :W].astype(np.float32)

@@ -1,0 +1,181 @@
+"""Multigrid Monte Carlo sampler - the flagship algorithm.
+
+Counterpart of ``multigridmc_tpu/samplers/mgmc.py`` (Goodman & Sokal 1989): a
+stochastic multigrid V/W-cycle whose smoothers are multi-colour SOR Gibbs
+sweeps and whose coarse-level "solve" is an exact Cholesky sample.
+
+Per level a Galerkin-coarsened operator, a forward pre-sampler and a backward
+post-sampler; the coarsest level gets a dense Cholesky sampler.  The recursive
+cycle:
+
+    sample(level):
+        if coarsest:  x_L ~ coarse_sampler(f_L, x_L)
+        else, repeated ``cycle`` times on levels > 0:
+            x_l  ~ presampler(f_l, x_l)                     (forward Gibbs)
+            f_{l+1} = R (f_l - A_l x_l)
+            x_{l+1} = 0;  sample(level+1)
+            x_l += coarse_scaling * P x_{l+1}
+            x_l  ~ postsampler(f_l, x_l)                    (backward Gibbs)
+
+Chain-state semantics: the fine-level x is carried across calls (NOT zeroed),
+coarse-level states are zero-initialised at each visit.
+
+The cycle batches over leading chain dimensions, so many independent chains
+run in lockstep on one GPU.  For batched chains on a CUDA device each level
+visit of a fused level is ONE launch of a hand-written CUDA kernel
+(:mod:`multigridmc_tpu_torch.ops.kernels.mgmc_visit`); the remaining levels run
+the composed recursion in plain PyTorch.  ``apply`` may update the chain state
+it is given in place.
+
+Not ported yet (``NotImplementedError``): the SSOR smoother and coarse
+sampler, ``distill=True`` (affine-distilled coarse subtree),
+``sweep_schedule="alternating"``, fused 3d visits and the subtree kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..ops.intergrid import prolongate_add, restrict
+from ..ops.kernels.mgmc_visit import fused_levels_for
+from ..ops.stencil import StencilOperator
+from ..smoothers import BACKWARD, FORWARD
+from ..solvers.multigrid import MultigridHierarchy
+from .base import NoiseSource, Sampler
+from .cholesky import DenseCholeskySampler
+from .sor import SORSampler
+
+#: smallest level (vertex count) that runs as a fused kernel visit on a CUDA
+#: device.  0 = every non-coarsest level: measured on an H100 by
+#: ``chip_smoke.py`` (PERF.md), fusing all levels beats fusing level 0 only,
+#: because the composed visits of the small levels are launch-bound in eager
+#: PyTorch.
+DEFAULT_FUSED_MIN_VERTICES = 0
+
+
+class MultigridMCSampler(Sampler):
+    """Parameters mirror the JAX package's ``MultigridMCSampler``; ``device``
+    and ``dtype`` move the operator (default: where the operator already lies).
+
+    ``fused``: ``"auto"`` fuses level visits when the operator lies on a CUDA
+    device, ``True`` builds the fused levels on any device (on the CPU they run
+    their plain versions), ``False`` runs the composed recursion everywhere.
+    Under ``"auto"`` on a CUDA device only 3d levels and levels in a dtype
+    other than float32 run the composed recursion; a 2d float32 level beyond
+    the kernels' limits raises ``NotImplementedError`` (see
+    :func:`~multigridmc_tpu_torch.ops.kernels.mgmc_visit.fused_levels_for`).
+    """
+
+    def __init__(
+        self,
+        op: StencilOperator,
+        nlevel: int,
+        smoother: str = "SOR",
+        coarse_solver: str = "Cholesky",
+        npresmooth: int = 1,
+        npostsmooth: int = 1,
+        omega: float = 1.0,
+        cycle: int = 1,
+        coarse_scaling: float = 1.0,
+        hierarchy: Optional[MultigridHierarchy] = None,
+        distill: object = False,
+        fused: object = "auto",
+        fused_min_vertices: Optional[int] = None,
+        sweep_schedule: str = "fixed",
+        device=None,
+        dtype=None,
+    ):
+        op = op.to(device, dtype)
+        super().__init__(op)
+        sweep_schedule = sweep_schedule.lower()
+        if sweep_schedule not in ("fixed", "alternating"):
+            raise ValueError(f"invalid sweep_schedule '{sweep_schedule}'")
+        if sweep_schedule == "alternating":
+            raise NotImplementedError(
+                "sweep_schedule='alternating' is not ported yet (later slice: "
+                "SSOR and the alternating schedule)")
+        if distill not in (False, None):
+            raise NotImplementedError(
+                "the affine-distilled coarse subtree (samplers/distill.py) is "
+                "the next slice of the port; pass distill=False")
+        smoother = smoother.upper()
+        if smoother == "SSOR" or coarse_solver.upper() == "SSOR":
+            raise NotImplementedError(
+                "the SSOR sampler is not ported yet (later slice: SSOR and the "
+                "alternating schedule)")
+        if smoother != "SOR":
+            raise ValueError(f"invalid sampler '{smoother}'")
+        if coarse_solver.lower() != "cholesky":
+            raise ValueError(f"invalid coarse sampler '{coarse_solver}'")
+
+        self.hierarchy = hierarchy or MultigridHierarchy(op, nlevel)
+        if self.hierarchy.operators[0].device != op.device:
+            raise ValueError("hierarchy and operator lie on different devices")
+        self.nlevel = self.hierarchy.nlevel
+        self.cycle = int(cycle)
+        self.coarse_scaling = float(coarse_scaling)
+
+        self.presamplers = []
+        self.postsamplers = []
+        for level_op in self.hierarchy.operators:
+            self.presamplers.append(SORSampler(level_op, omega, npresmooth, FORWARD))
+            self.postsamplers.append(SORSampler(level_op, omega, npostsmooth, BACKWARD))
+        self.coarse_sampler = DenseCholeskySampler(self.hierarchy.operators[-1])
+
+        # one fused kernel call = one visit = one directed sweep
+        self.fused_levels = {}
+        if npresmooth == 1 and npostsmooth == 1:
+            self.fused_levels = fused_levels_for(
+                self.hierarchy.operators, self.presamplers, self.postsamplers,
+                self.coarse_scaling,
+                DEFAULT_FUSED_MIN_VERTICES if fused_min_vertices is None
+                else int(fused_min_vertices),
+                force=None if fused == "auto" else bool(fused),
+            )
+
+    def _sample(self, level: int, noise: NoiseSource, f: torch.Tensor,
+                x: torch.Tensor) -> torch.Tensor:
+        """Recursive stochastic cycle.  Noise is consumed in the order pre,
+        coarse, post per level and cycle index."""
+        if level == self.nlevel - 1:
+            return self.coarse_sampler.apply(noise, f, x)
+        op = self.hierarchy.operators[level]
+        vdim = len(op.vshape)
+        # the fused kernels take exactly one chain axis
+        fused = self.fused_levels.get(level) if x.ndim == vdim + 1 else None
+        ncycle = self.cycle if level > 0 else 1
+        for _ in range(ncycle):
+            if fused is not None:
+                x, f_coarse = fused.descend(noise, f, x)
+            else:
+                x = self.presamplers[level].apply(noise, f, x)
+                r = f - op.apply(x)
+                f_coarse = restrict(r, dim=vdim)
+            x_coarse = self._sample(level + 1, noise, f_coarse, torch.zeros_like(f_coarse))
+            if fused is not None:
+                x = fused.ascend(noise, f, x, x_coarse)
+            else:
+                x = prolongate_add(self.coarse_scaling, x_coarse, x, dim=vdim)
+                x = self.postsamplers[level].apply(noise, f, x)
+        return x
+
+    def apply(self, noise: NoiseSource, f: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """One MGMC step: chain state x is carried, not zeroed.  ``x`` is
+        ``(*batch, *vshape)``; ``f`` is ``vshape`` (shared) or batched like x.
+        With fused levels ``x`` may be updated in place; use the return value."""
+        vdim = len(self.op.vshape)
+        if self.fused_levels and x.ndim > vdim + 1:
+            # fused kernels take one flat chain axis; reshape around the cycle
+            batch = x.shape[: x.ndim - vdim]
+            xf = x.reshape((-1,) + self.op.vshape).contiguous()
+            ff = f
+            if f.ndim > vdim:
+                ff = torch.broadcast_to(f, x.shape).reshape(xf.shape)
+            out = self._sample(0, noise, ff, xf)
+            return out.reshape(batch + self.op.vshape)
+        if self.fused_levels and x.ndim == vdim + 1:
+            x = x.contiguous()
+            f = f.contiguous()
+        return self._sample(0, noise, f, x)
