@@ -3,31 +3,45 @@
 
     python3 chip_smoke.py
 
-drives the port's main path - batched float32 MGMC chains on the flagship
-problem (2d 256x256 lattice, shifted-Laplace prior, 8 near-exact point
-measurements, 5-level W-cycle, SOR, dense Cholesky on the coarsest level, 256
-chains) - on the card and checks, one phase after the other:
+drives the port's main paths on the flagship problem (2d 256x256 lattice,
+shifted-Laplace prior, 8 near-exact point measurements, 5-level W-cycle) - the
+batched float32 MGMC sampler (SOR, dense Cholesky on the coarsest level, 256
+chains) and the two config-file drivers - on the card and checks, one phase
+after the other:
 
 1. ``device``      the card (``nvidia-smi`` name and power limit);
-2. ``build``       ``nvcc`` builds the level-visit kernels from ``csrc/``;
+2. ``build``       ``nvcc`` builds the kernel sources of ``csrc/`` (one process
+                   per source, started together);
 3. ``kernels``     each kernel against its plain PyTorch version at the shapes
-                   the main path gives it (noise off, then the same noise
+                   the main paths give it (noise off, then the same noise
                    tensor fed to both; ``rtol = atol = 2e-5``: float32 with
-                   another summation order and FMA contraction), the
-                   in-kernel Philox normals (known-answer reference, moments,
-                   lag correlations, distinct streams), and the kernels'
-                   times beside their bounds;
+                   another summation order and FMA contraction) - the two
+                   level-visit kernels on every level of the flagship, the
+                   two sweep kernels in both directions on 2d 5- and 9-point,
+                   3d 7- and 27-point, space-varying and reach-2 operators -
+                   the in-kernel Philox normals (known-answer reference,
+                   moments, lag correlations, distinct streams), and the
+                   kernels' times beside their bounds;
 4. ``main_path``   the flagship sampler for a few tens of steps, with level 0
                    fused only and with every non-coarsest level fused: finite
                    samples, launch counters, samples/s and ms/step;
-5. ``statistics``  a 64x64 posterior whose exact moments are known: one step
+5. ``drivers``     ``drivers.mgmc`` (SSOR and MGMC time series, convergence
+                   tables over 256 replica chains, posterior statistics) and
+                   ``drivers.mg`` (SSOR-smoothed multigrid Richardson) from
+                   config files written to a temporary directory, at the
+                   flagship's size: output files, launch counters, the
+                   Richardson contraction rate and the MGMC time series'
+                   mean against the exact one;
+6. ``statistics``  a 64x64 posterior whose exact moments are known: one step
                    under replayed noise agrees between kernels and composed
-                   path, and the sample mean and variance of an observable
-                   agree with the exact ones within 4 standard errors, through
-                   the kernels and through the plain path.
+                   path; the sample mean and variance of an observable agree
+                   with the exact ones within 4 standard errors, through the
+                   visit kernels, the plain path and the SSOR sampler on the
+                   Gibbs sweep kernel; and a batched deterministic solve
+                   agrees with the float64 dense solve.
 
 One JSON object per line.  The line ``{"kernels": [...]}`` lists per kernel its
-launches on the main path, its error against the plain version, its time, the
+launches on the main paths, its error against the plain version, its time, the
 plain version's time and its bound.  The last line is
 ``{"ok": true, "device": {...}}``; any failing phase raises and the exit code
 is not 0.  Without a CUDA device the script exits with code 1 and prints no
@@ -38,9 +52,14 @@ result.  ``--phases`` runs a subset of the phases (and the block-size table
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -52,6 +71,7 @@ PEAK_FP32_FLOPS = 67e12
 
 TOL = 2e-5
 FLAGSHIP_SEED = 20260816
+ALL_PHASES = {"kernels", "main_path", "drivers", "statistics"}
 
 
 def emit(obj) -> None:
@@ -159,13 +179,15 @@ def phase_device():
 
 # ---------------------------------------------------------------- phase: build
 def phase_build():
-    from multigridmc_tpu_torch.ops.kernels import mgmc_visit
+    from multigridmc_tpu_torch.ops.kernels import common, mgmc_visit, sor_sweep
 
     t0 = time.perf_counter()
-    path = mgmc_visit.build_library()
+    paths = common.build_libraries([mgmc_visit.SOURCE_NAME, sor_sweep.SOURCE_NAME])
     mgmc_visit.load_library()
+    sor_sweep.load_library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": path.name, "source": "multigridmc_tpu_torch/csrc/mgmc_visit.cu"})
+          "libraries": {f"multigridmc_tpu_torch/csrc/{name}.cu": path.name
+                        for name, path in paths.items()}})
 
 
 # -------------------------------------------------------------- phase: kernels
@@ -363,6 +385,195 @@ def check_philox(device, nx, C):
             "max_stream_corr": max_corr, "known_answer_max_err": ka_err}
 
 
+# ------------------------------------------------- phase: kernels (the sweeps)
+def reach2_operator(nx, device):
+    """A synthetic 13-point (reach 2) operator on an nx x nx lattice: the
+    stencil of a shifted squared Laplacian with a diagonal that varies in
+    space; diagonally dominant."""
+    from multigridmc_tpu_torch.lattice import Lattice
+    from multigridmc_tpu_torch.ops.stencil import StencilOperator
+
+    lattice = Lattice((nx, nx))
+    weights = {(0, 0): 21.0, (0, 1): -8.0, (0, -1): -8.0, (1, 0): -8.0, (-1, 0): -8.0,
+               (1, 1): 2.0, (1, -1): 2.0, (-1, 1): 2.0, (-1, -1): 2.0,
+               (0, 2): 1.0, (0, -2): 1.0, (2, 0): 1.0, (-2, 0): 1.0}
+    offsets = tuple(weights)
+    coeffs = torch.stack([torch.full(lattice.vshape, w, device=device) for w in weights.values()])
+    ii, jj = torch.meshgrid(torch.arange(nx - 1, device=device),
+                            torch.arange(nx - 1, device=device), indexing="ij")
+    coeffs[0] += 30.0 + 5.0 * torch.sin(0.1 * ii) * torch.cos(0.07 * jj)
+    return StencilOperator(coeffs=coeffs, offsets=offsets, lattice=lattice).normalized()
+
+
+def sweep_cases(device):
+    """``(name, operator, chains, omega)``: the shapes the drivers give the sweep
+    kernels (255^2 5-point and its Galerkin levels, one chain and many) and
+    what else the port's operators produce."""
+    from multigridmc_tpu_torch.lattice import Lattice
+    from multigridmc_tpu_torch.models.correlation import (ConstantCorrelationLengthModel,
+                                                          PeriodicCorrelationLengthModel)
+    from multigridmc_tpu_torch.models.prior import shiftedlaplace_fd
+    from multigridmc_tpu_torch.ops.coarsen import galerkin_coarsen
+
+    const = ConstantCorrelationLengthModel(0.2)
+    fine = shiftedlaplace_fd(Lattice((256, 256)), const, device=device)
+    fine3 = shiftedlaplace_fd(Lattice((64, 64, 64)), const, device=device)
+    periodic = shiftedlaplace_fd(Lattice((128, 128)), PeriodicCorrelationLengthModel(0.2, 0.4),
+                                 device=device)
+    return [
+        ("2d_255_5pt", fine, 256, 1.0),
+        ("2d_127_9pt_galerkin", galerkin_coarsen(fine), 256, 1.3),
+        ("2d_255_5pt_one_chain", fine, 1, 1.3),
+        ("2d_127_5pt_varying", periodic, 64, 1.3),
+        ("3d_63_7pt", fine3, 32, 1.0),
+        ("3d_31_27pt_galerkin", galerkin_coarsen(fine3), 32, 1.3),
+        ("2d_63_13pt_reach2", reach2_operator(64, device), 64, 1.3),
+    ]
+
+
+def check_sweeps(device, gen):
+    """Both sweep kernels against their plain versions, forward and backward,
+    ``b`` shared and per chain: noise off, then the same ``xi`` fed to both."""
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+    from multigridmc_tpu_torch.smoothers import BACKWARD, FORWARD, SORSmoother
+
+    errs = {"sweep_batched": 0.0, "gibbs_sweep_batched": 0.0}
+    rows = []
+    for name, op, C, omega in sweep_cases(device):
+        for direction in (FORWARD, BACKWARD):
+            plan = SORSmoother(op, omega, 1, direction).plan
+            x = torch.randn((C,) + op.vshape, device=device, generator=gen)
+            xi = torch.randn((C,) + op.vshape, device=device, generator=gen)
+            row = {"case": name, "chains": C, "vshape": list(op.vshape), "omega": omega,
+                   "offsets": len(op.offsets), "colours": plan.coloring.n_colors,
+                   "direction": direction}
+            for b_batched in (False, True):
+                b = torch.randn(((C,) if b_batched else ()) + op.vshape, device=device,
+                                generator=gen)
+                tag = f"{name} {direction} {'b per chain' if b_batched else 'b shared'}"
+                want = ss.sweep_batched_plain(op, plan.masks, omega, plan.order, b, x)
+                got = ss.sweep_batched(plan, b, x.clone())
+                e = compare(f"sweep {tag}", got, want)
+                want = ss.gibbs_sweep_batched_plain(op, plan.masks, omega, plan.order, b, x, xi)
+                got = ss.gibbs_sweep_batched(plan, b, x.clone(), xi=xi)
+                g = compare(f"gibbs sweep {tag}", got, want)
+                row["sweep_err"] = max(row.get("sweep_err", 0.0), e)
+                row["gibbs_err"] = max(row.get("gibbs_err", 0.0), g)
+            errs["sweep_batched"] = max(errs["sweep_batched"], row["sweep_err"])
+            errs["gibbs_sweep_batched"] = max(errs["gibbs_sweep_batched"], row["gibbs_err"])
+            rows.append(row)
+    torch.cuda.synchronize()  # a fault during a launch surfaces here
+    return errs, rows
+
+
+def check_sweep_philox(device):
+    """The Gibbs kernel's in-kernel normals, read out through the kernel: on an
+    identity operator with f = 0, x = 0, omega = 1 the sweep returns x = xi.
+    Known answer (2d and 3d, counters above 2^32) and moments."""
+    from multigridmc_tpu_torch.lattice import Lattice
+    from multigridmc_tpu_torch.ops.kernels import common
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+    from multigridmc_tpu_torch.ops.stencil import StencilOperator
+    from multigridmc_tpu_torch.smoothers import SORSmoother
+
+    seed = 0x0FED_CBA9_8765_4321
+    out = {}
+    for shape, C in (((256, 256), 64), ((64, 64, 64), 8)):
+        lattice = Lattice(shape)
+        dim = len(shape)
+        offsets = [(0,) * dim]
+        for d in range(dim):
+            for o in (-1, 1):
+                offsets.append(tuple(o if a == d else 0 for a in range(dim)))
+        coeffs = torch.zeros((len(offsets),) + lattice.vshape, device=device)
+        coeffs[0] = 1.0
+        op = StencilOperator(coeffs=coeffs, offsets=tuple(offsets), lattice=lattice)
+        plan = SORSmoother(op, 1.0, 1).plan
+        f = torch.zeros(lattice.vshape, device=device)
+
+        def draw(counter):
+            x = torch.zeros((C,) + lattice.vshape, device=device)
+            return ss.gibbs_sweep_batched(plan, f, x, philox=(seed, counter))
+
+        z = draw(3)
+        if not torch.equal(z, draw(3)):
+            raise AssertionError("gibbs sweep: two launches with the same seed and counter differ")
+        if torch.equal(z, draw(4)):
+            raise AssertionError("gibbs sweep: two launch counters gave the same normals")
+        ka_err = 0.0
+        for counter in (3, (1 << 32) + 9):
+            zc = z if counter == 3 else draw(counter)
+            ref = common.philox_normals_reference(seed, counter, C, lattice.vshape)
+            ka_err = max(ka_err, float(np.abs(zc.cpu().numpy() - ref).max()))
+        if ka_err > 2e-5:
+            raise AssertionError(f"gibbs sweep: normals differ from the reference by {ka_err}")
+        zd = z.double()
+        N = zd.numel()
+        mean, var, m4 = float(zd.mean()), float(zd.var()), float((zd ** 4).mean())
+        if not (abs(mean) < 5 / np.sqrt(N) and abs(var - 1) < 5 * np.sqrt(2 / N)
+                and abs(m4 - 3) < 5 * np.sqrt(96 / N)):
+            raise AssertionError(f"gibbs sweep normals: mean={mean} var={var} m4={m4}")
+        out["x".join(map(str, lattice.vshape))] = {
+            "draws": N, "mean": mean, "var": var, "m4": m4, "known_answer_max_err": ka_err}
+    return out
+
+
+def sweep_bound(plan, C, b_batched):
+    """Least time of one sweep on the card: x read and written and b read once
+    per chain (b once for all when shared), plus the coefficient planes that
+    vary in space, over the memory rate, against the float32 operations over
+    the peak rate."""
+    from multigridmc_tpu_torch.ops.kernels.common import compress_plan
+
+    op = plan.op
+    n = int(np.prod(op.vshape))
+    K = len(op.offsets)
+    const_coeffs, _, _ = compress_plan(op, plan.omega)
+    words = C * n * (3 if b_batched else 2) + (0 if b_batched else n)
+    words += n * sum(c is None for c in const_coeffs)
+    flops = C * n * (2 * K + 4)
+    t_bytes = 4 * words / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), 4 * words
+
+
+def time_sweeps(device, noise):
+    """ms per launch of both sweep kernels (the Gibbs kernel with its
+    in-kernel noise, ``b`` per chain as the samplers of a posterior give it),
+    of their plain versions, and the bound, per case."""
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+    from multigridmc_tpu_torch.smoothers import SORSmoother
+
+    rows = []
+    for name, op, C, omega in sweep_cases(device):
+        plan = SORSmoother(op, omega, 1).plan
+        b = torch.rand((C,) + op.vshape, device=device)
+        x = torch.zeros((C,) + op.vshape, device=device)
+        bound, by, nbytes = sweep_bound(plan, C, True)
+        inner = 10 if C > 1 else 50
+        row = {"case": name, "chains": C, "vshape": list(op.vshape), "threads": plan.threads,
+               "bound_ms": bound, "bound_by": by, "bound_bytes": nbytes}
+
+        def det():
+            return ss.sweep_batched(plan, b, x)
+
+        def gibbs():
+            return ss.gibbs_sweep_batched(plan, b, x, philox=noise.philox_stream())
+
+        row["sweep_ms"] = cuda_ms(det, 5, inner)
+        row["gibbs_ms"] = cuda_ms(gibbs, 5, inner)
+        row["sweep_device_ms"] = device_ms_per_launch(det, "sor_sweep_kernel")
+        row["gibbs_device_ms"] = device_ms_per_launch(gibbs, "gibbs_sweep_kernel")
+        x.zero_()
+        row["sweep_plain_ms"] = cuda_ms(
+            lambda: ss.sweep_batched_plain(op, plan.masks, omega, plan.order, b, x), 3, 3)
+        row["gibbs_plain_ms"] = cuda_ms(
+            lambda: ss.gibbs_sweep_batched_plain(op, plan.masks, omega, plan.order, b, x,
+                                                 torch.randn_like(x)), 3, 3)
+        rows.append(row)
+    return rows
+
+
 def phase_kernels(device, nx, nlevel, C, n_meas):
     from multigridmc_tpu_torch.samplers.base import GeneratorNoise
     from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
@@ -398,9 +609,14 @@ def phase_kernels(device, nx, nlevel, C, n_meas):
             t[f"{kind}_bound_ms"], t[f"{kind}_bound_by"], t[f"{kind}_bytes"] = bound, by, nbytes
         timings.append({"level": li, "vshape": list(level.op.vshape), "chains": C,
                         "threads": level.threads, **t})
+    sweep_errs, sweep_checks = check_sweeps(device, gen)
+    errs.update(sweep_errs)
+    sweep_philox = check_sweep_philox(device)
+    sweep_timings = time_sweeps(device, noise)
     emit({"phase": "kernels", "tolerance": TOL, "max_abs_err": errs, "checks": by_level,
-          "philox": philox, "timings": timings})
-    return errs, timings
+          "philox": philox, "timings": timings, "sweep_checks": sweep_checks,
+          "sweep_philox": sweep_philox, "sweep_timings": sweep_timings})
+    return errs, timings, sweep_timings
 
 
 def phase_threads(device, nx, nlevel, C, n_meas):
@@ -474,14 +690,269 @@ def phase_main_path(device, nx, nlevel, C, n_meas, steps, smi):
     return counts_default, results
 
 
+# -------------------------------------------------------------- phase: drivers
+DRIVER_CONFIG = """
+general = {{
+    dim = 2;
+    do_cholesky = false;
+    do_ssor = true;
+    do_multigridmc = true;
+    save_posterior_statistics = true;
+    measure_convergence = true;
+    operator = "posterior";
+    mean_shift = "auto";
+}}
+lattice = {{ nx = {nx}; ny = {nx}; nz = {nx}; }}
+cholesky = {{ factorisation = "dense"; }}
+smoother = {{ nsmooth = 1; omega = 1.0; }}
+iterative_solver = {{ rtol = 1.0E-5; atol = 1.0E-2; maxiter = 100; verbose = 2; }}
+multigrid = {{
+    smoother = "{smoother}"; coarse_solver = "Cholesky";
+    npresmooth = 1; npostsmooth = 1; ncoarsesmooth = 1;
+    omega = 1.0; nlevel = {nlevel}; cycle = 2; coarse_scaling = 1.0; verbose = 0;
+}}
+sampling = {{
+    timeseries = {{ nsamples = {nsamples}; nwarmup = {nwarmup}; }}
+    convergence = {{ nsteps = 16; nsamples = {nchains}; }}
+}}
+prior = {{ pdemodel = "shiftedlaplace_fd"; correlationlengthmodel = "constant"; }}
+constantcorrelationlengthmodel = {{ Lambda = 0.2; }}
+periodiccorrelationlengthmodel = {{ Lambda_min = 0.2; Lambda_max = 0.4; }}
+measurements = {{
+    radius = 0.0;
+    sample_location = [0.5, 0.5];
+    variance_scaling = 1.0;
+    measure_global = false;
+    mean_global = 1.0;
+    variance_global = 0.01;
+    filename = "measurements.cfg";
+}}
+"""
+
+
+def write_driver_configs(directory, nx, nlevel, n_meas, nchains, nsamples, nwarmup):
+    """``params_mgmc.cfg`` (SOR multigrid), ``params_mg.cfg`` (SSOR multigrid)
+    and ``measurements.cfg`` with the flagship's measurements."""
+    rng = np.random.default_rng(FLAGSHIP_SEED)
+    locations = rng.uniform(0.1, 0.9, size=(n_meas, 2))
+    mean = rng.normal(2.0, 1.0, size=n_meas)
+    variance = 1e-6 * (1.0 + rng.uniform(size=n_meas))
+
+    def listing(values):
+        return "[" + ", ".join(repr(float(v)) for v in np.asarray(values).reshape(-1)) + "]"
+
+    with open(os.path.join(directory, "measurements.cfg"), "w") as out:
+        out.write(f"dim = 2;\nn = {n_meas};\nmeasurement_locations = {listing(locations)};\n"
+                  f"mean = {listing(mean)};\nvariance = {listing(variance)};\n")
+    for name, smoother in (("params_mgmc.cfg", "SOR"), ("params_mg.cfg", "SSOR")):
+        with open(os.path.join(directory, name), "w") as out:
+            out.write(DRIVER_CONFIG.format(nx=nx, nlevel=nlevel, smoother=smoother,
+                                           nchains=nchains, nsamples=nsamples, nwarmup=nwarmup))
+
+
+def read_vtk_scalars(path):
+    """``{label: values}`` of a legacy ASCII ``STRUCTURED_POINTS`` file."""
+    fields, label, npoints = {}, None, None
+    with open(path) as lines:
+        for line in lines:
+            if line.startswith("POINT_DATA"):
+                npoints = int(line.split()[1])
+            elif line.startswith("SCALARS"):
+                label = line.split()[1]
+                fields[label] = []
+            elif label is not None and not line.startswith("LOOKUP_TABLE") and line.strip():
+                fields[label].append(float(line))
+    for name, values in fields.items():
+        if len(values) != npoints:
+            raise AssertionError(f"{path}: field {name} has {len(values)} of {npoints} values")
+    return {name: np.asarray(values) for name, values in fields.items()}
+
+
+def integrated_autocorrelation_time(series, window=200):
+    """``1 + 2 sum_k rho_k`` with the sum cut at the first non-positive
+    autocorrelation (or at ``window``)."""
+    d = np.asarray(series) - np.mean(series)
+    var = float(np.mean(d * d))
+    tau = 1.0
+    for k in range(1, min(window, len(d) // 4)):
+        rho = float(np.mean(d[:-k] * d[k:])) / var
+        if rho <= 0:
+            break
+        tau += 2.0 * rho
+    return tau
+
+
+def richardson_table(text):
+    """The rows ``[iteration, ||r||, ||r||/||r_0||, rho]`` of the solver's
+    per-iteration table in a driver's output."""
+    return [[float(v) for v in line.split()] for line in text.splitlines()
+            if re.match(r"\s*\d+\s+\S+e[-+]\d+\s+\S+e[-+]\d+\s+\S+\s*$", line)]
+
+
+def run_driver(main, argv):
+    """Call a driver's ``main`` and return what it printed."""
+    captured = io.StringIO()
+    with contextlib.redirect_stdout(captured):
+        main(argv)
+    return captured.getvalue()
+
+
+def phase_drivers(device, nx, nlevel, n_meas, nchains, nsamples, nwarmup, smi):
+    from multigridmc_tpu_torch.drivers import mg as driver_mg
+    from multigridmc_tpu_torch.drivers import mgmc as driver_mgmc
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+
+    out = {"phase": "drivers", "card": smi, "lattice": [nx, nx], "nlevel": nlevel,
+           "measurements": n_meas, "timeseries": {"nsamples": nsamples, "nwarmup": nwarmup},
+           "convergence": {"nsteps": 16, "nsamples": nchains}, "dtype": "float32"}
+    n_vertices = (nx + 1) ** 2
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        write_driver_configs(work, nx, nlevel, n_meas, nchains, nsamples, nwarmup)
+        os.chdir(work)
+        try:
+            # ---- drivers.mgmc: SSOR and MGMC, SOR multigrid (the fused visits)
+            mv.reset_launch_counts()
+            ss.reset_launch_counts()
+            t0 = time.perf_counter()
+            text = run_driver(driver_mgmc.main, ["params_mgmc.cfg"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts_mgmc = {**mv.launch_counts, **ss.launch_counts}
+            report = [line for line in text.splitlines()
+                      if re.search(r"time per sample|mean  |variance =|setup time|zero-mean", line)]
+            print("\n".join(report), flush=True)
+            res = {"seconds": seconds, "launches": counts_mgmc}
+            for label in ("ssor", "multigridmc"):
+                ms = re.search(rf"{label} time per sample =\s+(\S+) ms", text)
+                mean = re.search(rf"{label} mean\s+=\s+(\S+) \+/-\s+(\S+)", text)
+                var = re.search(rf"{label} variance =\s+(\S+)", text)
+                series = np.loadtxt(f"timeseries_{label}.txt")
+                if series.shape != (nsamples,) or not np.isfinite(series).all():
+                    raise AssertionError(f"drivers: timeseries_{label}.txt is not {nsamples} "
+                                         "finite values")
+                table = [line for line in open(f"convergence_{label}.txt")
+                         if re.match(r"\s+(mean|variance)\s+\d+ :", line)]
+                numbers = [float(v) for line in table
+                           for v in re.findall(r"[-+]?\d+\.\d+(?:e[-+]?\d+)?", line)]
+                if len(table) != 2 * 17 or not np.isfinite(numbers).all():
+                    raise AssertionError(f"drivers: convergence_{label}.txt does not parse")
+                res[label] = {"ms_per_sample": float(ms.group(1)), "mean": float(mean.group(1)),
+                              "mean_error": float(mean.group(2)), "variance": float(var.group(1)),
+                              "iact": integrated_autocorrelation_time(series)}
+            exact_mean = float(re.search(r"exact mean\s+=\s+(\S+)", text).group(1))
+            exact_var = float(re.search(r"exact variance =\s+(\S+)", text).group(1))
+            res["exact"] = {"mean": exact_mean, "variance": exact_var}
+            res["setup_seconds"] = float(re.search(r"setup time .* = (\S+) s", text).group(1))
+            fields = read_vtk_scalars("posterior.vtk")
+            for name in ("mean", "variance", "mean_exact"):
+                if fields[name].shape != (n_vertices,) or not np.isfinite(fields[name]).all():
+                    raise AssertionError(f"drivers: posterior.vtk field {name} is not finite")
+            if not os.path.exists("sample_location.vtk"):
+                raise AssertionError("drivers: sample_location.vtk is missing")
+            for name in ("descend_visit", "ascend_visit", "gibbs_sweep_batched"):
+                if counts_mgmc[name] <= 0:
+                    raise AssertionError(f"drivers.mgmc: {name} was not launched: {counts_mgmc}")
+            # the MGMC time series against the exact mean: the driver's own
+            # standard error ignores the autocorrelation, so the bar is widened
+            # by the square root of the measured autocorrelation time
+            mg_res = res["multigridmc"]
+            bar = 5.0 * mg_res["mean_error"] * np.sqrt(max(mg_res["iact"], 1.0))
+            mg_res["mean_bar"] = bar
+            if abs(mg_res["mean"] - exact_mean) > bar:
+                raise AssertionError(f"drivers.mgmc: MGMC mean {mg_res['mean']} is further than "
+                                     f"{bar} from the exact mean {exact_mean}")
+            out["mgmc"] = res
+
+            # ---- drivers.mg: Richardson, SSOR multigrid (the deterministic sweeps)
+            mv.reset_launch_counts()
+            ss.reset_launch_counts()
+            t0 = time.perf_counter()
+            text = run_driver(driver_mg.main, ["params_mg.cfg"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts_mg = {**mv.launch_counts, **ss.launch_counts}
+            rows = richardson_table(text)
+            print("\n".join(line for line in text.splitlines()
+                            if re.search(r"setup time|solve time|converged|\|\|r\|\|", line)),
+                  flush=True)
+            if "Solver converged" not in text or not rows:
+                raise AssertionError("drivers.mg: the Richardson iteration did not converge:\n"
+                                     + text[-2000:])
+            # contraction per cycle while float32 rounding does not yet set the
+            # rate.  With near-exact measurements the W-cycle contracts at about
+            # 0.69 per cycle on this posterior in float64 (on the prior at
+            # 0.1-0.25), so the rates are held against the same iteration in
+            # float64 through the plain sweeps, run here beside it, and against
+            # a ceiling of 0.75.
+            rates = [r[3] for r in rows[1:] if r[2] > 1e-4]
+            from multigridmc_tpu_torch.utils.runtime import make_generator
+
+            b = torch.randn((nx - 1, nx - 1), dtype=torch.float32, device=device,
+                            generator=make_generator(1482817, device))  # the driver's rhs
+            with contextlib.redirect_stdout(io.StringIO()) as text64:
+                driver_mg.run(driver_mg.load_config("params_mg.cfg"), torch.device(device),
+                              torch.float64, b=b)
+            rates64 = [r[3] for r in richardson_table(text64.getvalue())[1:]][:len(rates)]
+            if (not rates or max(rates) >= 0.75 or len(rates64) != len(rates)
+                    or max(abs(a - b) for a, b in zip(rates, rates64)) > 0.02):
+                raise AssertionError(f"drivers.mg: contraction rates {rates}, in float64 "
+                                     f"through the plain sweeps {rates64}")
+            solution = read_vtk_scalars("solution.vtk")["solution"]
+            if solution.shape != (n_vertices,) or not np.isfinite(solution).all():
+                raise AssertionError("drivers.mg: solution.vtk is not finite")
+            if counts_mg["sweep_batched"] <= 0:
+                raise AssertionError(f"drivers.mg: the sweep kernel was not launched: {counts_mg}")
+            out["mg"] = {
+                "seconds": seconds, "launches": counts_mg, "iterations": len(rows) - 1,
+                "relative_residual": rows[-1][2], "contraction_rates": rates,
+                "contraction_rates_float64_plain": rates64,
+                "setup_seconds": float(re.search(r"multigrid setup time = (\S+) s", text).group(1)),
+                "solve_seconds": float(re.search(r"solve time = (\S+) s", text).group(1))}
+        finally:
+            os.chdir(cwd)
+    emit(out)
+    counts = {name: counts_mgmc[name] + counts_mg[name] for name in counts_mgmc}
+    return counts, out
+
+
 # ----------------------------------------------------------- phase: statistics
+#: the SSOR sampler alone mixes slowly (its autocorrelation time on the 64x64
+#: posterior is of the order of a hundred steps): warm-up, steps and thinning of
+#: its statistical gate
+SSOR_GATE = {"warmup": 2000, "steps": 4000, "thin": 10}
+
+
+def moments_gate(name, z, z_mean, z_var, C):
+    """Mean and variance of the observable ``z`` (steps, chains) against the
+    exact ones.  Independent chains: the spread of the per-chain time averages
+    carries the autocorrelation of the series."""
+    zbar = z.mean(axis=0)
+    vbar = ((z - z_mean) ** 2).mean(axis=0)
+    se_mean = zbar.std(ddof=1) / np.sqrt(C)
+    se_var = vbar.std(ddof=1) / np.sqrt(C)
+    res = {"mean": float(zbar.mean()), "mean_se": float(se_mean),
+           "variance": float(vbar.mean()), "variance_se": float(se_var)}
+    res["mean_sigmas"] = abs(res["mean"] - z_mean) / se_mean
+    res["variance_sigmas"] = abs(res["variance"] - z_var) / se_var
+    if not np.isfinite(z).all() or res["mean_sigmas"] > 4 or res["variance_sigmas"] > 4:
+        raise AssertionError(f"statistics ({name}): moments off: {res}, exact "
+                             f"mean {z_mean} variance {z_var}")
+    return res
+
+
 def phase_statistics(device, nx, C, warmup, steps):
     from multigridmc_tpu_torch.models.posterior import (measurement_vector,
                                                         observed_mean_and_variance,
                                                         posterior_mean)
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
     from multigridmc_tpu_torch.samplers.base import (GeneratorNoise, MeanShiftedSampler,
                                                      ReplayNoise)
     from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
+    from multigridmc_tpu_torch.samplers.sor import SSORSampler
+    from multigridmc_tpu_torch.solvers.loop import IterativeSolverParameters, LoopSolver
+    from multigridmc_tpu_torch.solvers.multigrid import MultigridPreconditioner
 
     out = {"phase": "statistics", "lattice": [nx, nx], "chains": C, "steps": steps}
 
@@ -522,29 +993,55 @@ def phase_statistics(device, nx, C, warmup, steps):
             x = sampler.apply(noise, None, x)
             zs.append((x.reshape(C, -1) @ wt).double())
         z = torch.stack(zs).cpu().numpy()  # (steps, C)
-        # independent chains: the spread of the per-chain time averages carries
-        # the autocorrelation of the series
-        zbar = z.mean(axis=0)
-        vbar = ((z - z_mean) ** 2).mean(axis=0)
-        se_mean = zbar.std(ddof=1) / np.sqrt(C)
-        se_var = vbar.std(ddof=1) / np.sqrt(C)
-        res = {"mean": float(zbar.mean()), "mean_se": float(se_mean),
-               "variance": float(vbar.mean()), "variance_se": float(se_var)}
-        res["mean_sigmas"] = abs(res["mean"] - z_mean) / se_mean
-        res["variance_sigmas"] = abs(res["variance"] - z_var) / se_var
-        out[name] = res
-        if not np.isfinite(z).all() or res["mean_sigmas"] > 4 or res["variance_sigmas"] > 4:
-            raise AssertionError(f"statistics ({name}): moments off: {res}, exact {out['exact']}")
+        out[name] = moments_gate(name, z, z_mean, z_var, C)
+
+    # (3) the same posterior through the SSOR sampler alone: every sweep is a
+    # launch of the Gibbs sweep kernel with its in-kernel noise
+    sampler = MeanShiftedSampler(SSORSampler(op, 1.0, 1), mean)
+    noise = GeneratorNoise(3000, device)
+    x = sampler.mean.expand((C,) + op.vshape).clone()
+    ss.reset_launch_counts()
+    zs = []
+    for k in range(SSOR_GATE["warmup"] + SSOR_GATE["steps"]):
+        x = sampler.apply(noise, None, x)
+        if k >= SSOR_GATE["warmup"] and (k - SSOR_GATE["warmup"]) % SSOR_GATE["thin"] == 0:
+            zs.append((x.reshape(C, -1) @ wt).double())
+    z = torch.stack(zs).cpu().numpy()
+    launches = ss.launch_counts["gibbs_sweep_batched"]
+    if launches != 2 * (SSOR_GATE["warmup"] + SSOR_GATE["steps"]):
+        raise AssertionError(f"statistics (ssor): {launches} Gibbs sweep launches")
+    out["ssor_kernel"] = {**SSOR_GATE, "launches": launches,
+                          **moments_gate("ssor_kernel", z, z_mean, z_var, C)}
+
+    # (4) a batched deterministic solve through the sweep kernel: Richardson
+    # with the SSOR-smoothed W-cycle, 64 right-hand sides as one system,
+    # against the float64 dense solve
+    op, _ = build_posterior(nx, 4, 77, "order_one", device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(21)
+    b = torch.randn((64,) + op.vshape, device=device, generator=gen)
+    precond = MultigridPreconditioner(op, 3, smoother="SSOR", cycle=2)
+    ss.reset_launch_counts()
+    result = LoopSolver(op, precond, IterativeSolverParameters(
+        rtol=1e-5, atol=1.0, maxiter=30)).solve_jit(b)
+    dense = torch.as_tensor(op.to(dtype=torch.float64).to_dense(), device=device)
+    want = torch.linalg.solve(dense, b.double().reshape(64, -1).T).T.reshape(b.shape)
+    rel = float((result.x.double() - want).norm() / want.norm())
+    out["batched_solve"] = {"rhs": 64, "iterations": result.niter, "converged": result.converged,
+                            "relative_error": rel,
+                            "sweep_launches": ss.launch_counts["sweep_batched"]}
+    if not result.converged or rel > 1e-4 or ss.launch_counts["sweep_batched"] <= 0:
+        raise AssertionError(f"statistics (batched solve): {out['batched_solve']}")
     emit(out)
 
 
 # ------------------------------------------------------------------------ main
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="kernels,main_path,statistics",
-                        help="comma-separated subset of kernels,main_path,statistics to run "
-                             "(device and build always run; 'threads' adds a block-size "
-                             "table); the ok line needs exactly the default three")
+    parser.add_argument("--phases", default=",".join(sorted(ALL_PHASES)),
+                        help="comma-separated subset of kernels,main_path,drivers,statistics "
+                             "to run (device and build always run; 'threads' adds a "
+                             "block-size table); the ok line needs exactly the default four")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -560,13 +1057,16 @@ def main(argv=None) -> int:
     if "threads" in phases:
         phase_threads(device, nx, nlevel, C, n_meas)
     if "kernels" in phases:
-        errs, timings = phase_kernels(device, nx, nlevel, C, n_meas)
+        errs, timings, sweep_timings = phase_kernels(device, nx, nlevel, C, n_meas)
     if "main_path" in phases:
         counts, _ = phase_main_path(device, nx, nlevel, C, n_meas, steps, smi)
+    if "drivers" in phases:
+        driver_counts, _ = phase_drivers(device, nx, nlevel, n_meas, C, nsamples=2000, nwarmup=200,
+                                         smi=smi)
     if "statistics" in phases:
         phase_statistics(device, 64, C, warmup=50, steps=300)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
-    if phases != {"kernels", "main_path", "statistics"}:
+    if phases != ALL_PHASES:
         print("partial run: no result line")
         return 0
 
@@ -583,6 +1083,22 @@ def main(argv=None) -> int:
             "bound_ms": t0[f"{kind}_bound_ms"], "bound_by": t0[f"{kind}_bound_by"],
             "bound_bytes": t0[f"{kind}_bytes"],
             "library_ms": None, "shape": {"chains": C, "vshape": t0["vshape"]},
+        })
+    # the sweep kernels at the shape of the drivers' batched route, 256 x 255^2;
+    # their launches are those of the two driver runs
+    st = sweep_timings[0]
+    for name, key, kernel_line in (("sweep_batched", "sweep", 194),
+                                   ("gibbs_sweep_batched", "gibbs", 246)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "multigridmc_tpu_torch/csrc/sor_sweep.cu",
+            "replaces": f"multigridmc_tpu/ops/kernels/sor_pallas_v2.py:{kernel_line}",
+            "launches": driver_counts[name], "max_abs_err": errs[name],
+            "ms": st[f"{key}_ms"], "device_ms": st[f"{key}_device_ms"],
+            "plain_ms": st[f"{key}_plain_ms"],
+            "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+            "bound_bytes": st["bound_bytes"],
+            "library_ms": None, "shape": {"chains": st["chains"], "vshape": st["vshape"]},
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

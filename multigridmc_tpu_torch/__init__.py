@@ -3,8 +3,10 @@
 Multigrid Monte Carlo sampling of lattice Gaussians
 ``pi(x) ~ exp(-1/2 x^T Q x + f^T x)`` on one NVIDIA Hopper GPU.  The layout
 and the names follow the JAX package module for module, so a reader finds the
-counterpart of every function; the tensor code is plain PyTorch and the fused
-level-visit kernels are CUDA C++ (``csrc/``, built at first use).
+counterpart of every function; the tensor code is plain PyTorch and the
+kernels - the fused level visits and the SOR / Gibbs sweeps - are CUDA C++
+(``csrc/``, built at first use).  The command-line programs are
+``python -m multigridmc_tpu_torch.drivers.mgmc`` and ``...drivers.mg``.
 
 The package imports ``torch``, numpy and scipy only - never ``jax`` and nothing
 of ``multigridmc_tpu``.  Entry points that create tensors default to
@@ -16,10 +18,11 @@ from .lattice import Lattice
 from .ops.stencil import LowRank, StencilOperator
 from .ops.intergrid import prolongate, prolongate_add, restrict
 from .ops.coarsen import galerkin_coarsen
-from .smoothers import SORSmoother
-from .solvers.multigrid import MultigridHierarchy
+from .smoothers import SORSmoother, SSORSmoother
+from .solvers.multigrid import MultigridHierarchy, MultigridPreconditioner
+from .solvers.loop import CGSolver, IterativeSolverParameters, LoopSolver
 from .samplers.base import GeneratorNoise, MeanShiftedSampler, ReplayNoise
-from .samplers.sor import SORSampler
+from .samplers.sor import SORSampler, SSORSampler
 from .samplers.cholesky import DenseCholeskySampler
 from .samplers.mgmc import MultigridMCSampler
 
@@ -34,11 +37,17 @@ __all__ = [
     "restrict",
     "galerkin_coarsen",
     "SORSmoother",
+    "SSORSmoother",
     "MultigridHierarchy",
+    "MultigridPreconditioner",
+    "LoopSolver",
+    "CGSolver",
+    "IterativeSolverParameters",
     "GeneratorNoise",
     "ReplayNoise",
     "MeanShiftedSampler",
     "SORSampler",
+    "SSORSampler",
     "DenseCholeskySampler",
     "MultigridMCSampler",
 ]

@@ -1,14 +1,18 @@
-"""State carried across from the JAX package: build the port's operators from
-plain numpy arrays.
+"""State carried across from the JAX package: build the port's operators,
+smoothers, preconditioners and configurations from plain numpy arrays and
+dictionaries.
 
 The parity tests call ``np.asarray`` on a JAX operator's ``coeffs``,
 ``lowrank.B`` and ``lowrank.Sigma_diag`` and pass ``offsets`` and
-``lattice.shape``, so both sides run on identical operators.  Nothing here
-imports the JAX package.
+``lattice.shape``, so both sides run on identical operators; a smoother takes
+the JAX smoother's ``B_bar`` (one per sweep direction), a preconditioner the
+JAX hierarchy's levels, a ``Config`` the ``dataclasses.asdict`` of the JAX
+package's.  Nothing here imports the JAX package.
 """
 
 from __future__ import annotations
 
+import typing
 from typing import Optional, Sequence
 
 import numpy as np
@@ -16,7 +20,9 @@ import torch
 
 from .lattice import Lattice
 from .ops.stencil import LowRank, StencilOperator
-from .solvers.multigrid import MultigridHierarchy
+from .smoothers import BACKWARD, FORWARD, SORSmoother, SSORSmoother
+from .solvers.multigrid import MultigridHierarchy, MultigridPreconditioner
+from .utils import config as config_module
 from .utils.runtime import resolve_device, resolve_dtype
 
 
@@ -60,3 +66,52 @@ def hierarchy_from_numpy(levels: Sequence[dict], device=None, dtype=None) -> Mul
     holding the arguments of :func:`operator_from_numpy` (finest first)."""
     ops = [operator_from_numpy(device=device, dtype=dtype, **lv) for lv in levels]
     return MultigridHierarchy(ops[0], len(ops), operators=ops)
+
+
+def _set_B_bar(smoother: SORSmoother, B_bar) -> None:
+    op = smoother.op
+    if (B_bar is None) != (op.lowrank is None):
+        raise ValueError("B_bar is given exactly when the operator has a low-rank term")
+    if B_bar is not None:
+        B_bar = np.asarray(B_bar)
+        if B_bar.shape != tuple(op.lowrank.B.shape):
+            raise ValueError(f"B_bar {B_bar.shape} does not match B {tuple(op.lowrank.B.shape)}")
+        smoother.B_bar = torch.tensor(B_bar, dtype=op.dtype, device=op.device)
+
+
+def smoother_from_numpy(op: StencilOperator, omega: float, nsmooth: int = 1,
+                        direction: str = FORWARD, B_bar=None) -> SORSmoother:
+    """An :class:`SORSmoother` on ``op`` that carries the given Woodbury factor
+    ``B_bar (m, *vshape)`` of its sweep direction instead of its own."""
+    smoother = SORSmoother(op, omega, nsmooth, direction)
+    _set_B_bar(smoother, B_bar)
+    return smoother
+
+
+def ssor_smoother_from_numpy(op: StencilOperator, omega: float, nsmooth: int = 1,
+                             B_bar_forward=None, B_bar_backward=None) -> SSORSmoother:
+    """An :class:`SSORSmoother` on ``op`` with the Woodbury factors of both
+    directions given; each goes to its own direction's sweep."""
+    smoother = SSORSmoother(op, omega, nsmooth)
+    _set_B_bar(smoother.forward, B_bar_forward)
+    _set_B_bar(smoother.backward, B_bar_backward)
+    return smoother
+
+
+def preconditioner_from_numpy(levels: Sequence[dict], device=None, dtype=None,
+                              **kwargs) -> MultigridPreconditioner:
+    """A :class:`MultigridPreconditioner` over the given levels (as
+    :func:`hierarchy_from_numpy` takes them); ``kwargs`` are the
+    preconditioner's own (smoother, omega, cycle, ...)."""
+    hierarchy = hierarchy_from_numpy(levels, device=device, dtype=dtype)
+    return MultigridPreconditioner(hierarchy.operators[0], hierarchy.nlevel,
+                                   hierarchy=hierarchy, **kwargs)
+
+
+def config_from_dict(groups: dict) -> config_module.Config:
+    """A :class:`~multigridmc_tpu_torch.utils.config.Config` from a nested
+    dictionary ``{group: {field: value}}``, e.g. ``dataclasses.asdict`` of a
+    parsed configuration.  Every group and every field must be present."""
+    classes = typing.get_type_hints(config_module.Config)
+    return config_module.Config(
+        **{name: cls(**groups[name]) for name, cls in classes.items()})

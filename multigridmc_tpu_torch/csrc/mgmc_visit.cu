@@ -36,10 +36,11 @@
 // widens it by the stencil once per colour), so the correction touches tens of
 // points per chain and not m whole planes.
 //
-// Field noise: Philox4x32-10, counter = (point group, chain, launch counter
-// lo, hi), key = seed (lo, hi); each call yields four normals (two
-// Box-Muller pairs, sine and cosine branch) for four consecutive points of a
-// row (group g of row i has the number i * ceil(W / 4) + g).
+// Field noise: the generator of philox.cuh (shared with sor_sweep.cu):
+// Philox4x32-10, counter = (point group, chain, launch counter lo, hi), key =
+// seed (lo, hi); each call yields four normals (two Box-Muller pairs, sine
+// and cosine branch) for four consecutive points of a row (group g of row i
+// has the number i * ceil(W / 4) + g).
 // noise_mode 2 reads xi from a tensor instead, so that the kernel and its
 // plain PyTorch version can be fed the same noise.
 //
@@ -49,6 +50,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "philox.cuh"
 
 #define MAX_OFFSETS 9
 #define MAX_COLORS 8
@@ -77,36 +80,6 @@ struct VisitParams {
     unsigned long long seed;
     unsigned long long counter;
 };
-
-// --------------------------------------------------------------------- Philox
-__device__ __forceinline__ void philox4x32_10(uint32_t c0, uint32_t c1, uint32_t c2,
-                                              uint32_t c3, uint32_t k0, uint32_t k1,
-                                              uint32_t out[4]) {
-    const uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
-    const uint32_t W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
-#pragma unroll
-    for (int r = 0; r < 10; ++r) {
-        uint32_t hi0 = __umulhi(M0, c0), lo0 = M0 * c0;
-        uint32_t hi1 = __umulhi(M1, c2), lo1 = M1 * c2;
-        uint32_t n0 = hi1 ^ c1 ^ k0;
-        uint32_t n2 = hi0 ^ c3 ^ k1;
-        c0 = n0; c1 = lo1; c2 = n2; c3 = lo0;
-        k0 += W0; k1 += W1;
-    }
-    out[0] = c0; out[1] = c1; out[2] = c2; out[3] = c3;
-}
-
-// two uniforms -> two normals; u1 in (0, 1], u2 in [0, 1)
-__device__ __forceinline__ void box_muller(uint32_t a, uint32_t b, float* z0, float* z1) {
-    const float S = 1.0f / 16777216.0f;
-    float u1 = (float)((a >> 8) + 1u) * S;
-    float u2 = (float)(b >> 8) * S;
-    float r = sqrtf(-2.0f * logf(u1));
-    float s, c;
-    sincospif(2.0f * u2, &s, &c);
-    *z0 = r * c;
-    *z1 = r * s;
-}
 
 // ------------------------------------------------------------------- helpers
 // deterministic block-wide sum (fixed shuffle tree, fixed warp order)
@@ -183,14 +156,8 @@ __device__ void rhs_phase(const VisitParams& P, int chain, const float* __restri
         const float wi = (i & 1) ? 1.0f : 0.5f;
         for (int g = lane; g < G; g += 32) {
             float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-            if (P.noise_mode == 1) {
-                uint32_t r[4];
-                philox4x32_10((uint32_t)(i * G + g), (uint32_t)chain, (uint32_t)P.counter,
-                              (uint32_t)(P.counter >> 32), (uint32_t)P.seed,
-                              (uint32_t)(P.seed >> 32), r);
-                box_muller(r[0], r[1], &z[0], &z[1]);
-                box_muller(r[2], r[3], &z[2], &z[3]);
-            }
+            if (P.noise_mode == 1)
+                philox_normals4((uint32_t)(i * G + g), (uint32_t)chain, P.seed, P.counter, z);
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
                 const int j = 4 * g + q;

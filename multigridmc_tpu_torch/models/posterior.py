@@ -26,7 +26,8 @@ from ..ops.quadrature import gauss_legendre
 from ..ops.stencil import LowRank, StencilOperator, _to_numpy
 from .prior import _phi
 
-#: largest lattice for which the exact-moment diagnostics densify the prior
+#: largest lattice for which the exact-moment diagnostics densify the prior;
+#: above it they solve with CG
 DENSE_SOLVE_MAX_N = 4096
 
 
@@ -101,20 +102,32 @@ def measurement_vector(lattice: Lattice, x0, radius: float) -> np.ndarray:
 
 
 def _default_stencil_solve(op: StencilOperator):
-    """Solver for the *stencil* (prior) part: dense Cholesky on the host.
-
-    The JAX package switches to its CG solver above 4096 unknowns; the
-    iterative solvers are not part of this slice of the port."""
+    """Solver for the *stencil* (prior) part, in float64 whatever the
+    operator's dtype: dense Cholesky on the host up to
+    :data:`DENSE_SOLVE_MAX_N` unknowns, unpreconditioned CG on the operator's
+    device above.  The returned ``solve(v)`` takes a field or a stack of
+    fields ``(k, *vshape)`` and returns a numpy array of the same shape."""
     n = op.lattice.nvertex
-    if n > DENSE_SOLVE_MAX_N:
-        raise NotImplementedError(
-            f"exact posterior moments for {n} > {DENSE_SOLVE_MAX_N} unknowns "
-            "need the CG solver (solvers/loop.py), which a later slice of the "
-            "port brings; pass solve= or use a lattice with n <= 4096")
-    factor = scipy.linalg.cho_factor(op.to_dense_stencil())
-    return lambda v: scipy.linalg.cho_solve(
-        factor, _to_numpy(v).astype(np.float64).reshape(-1)
-    ).reshape(op.lattice.vshape)
+    vshape = op.lattice.vshape
+    if n <= DENSE_SOLVE_MAX_N:
+        factor = scipy.linalg.cho_factor(op.to_dense_stencil())
+
+        def solve_dense(v):
+            v = _to_numpy(v).astype(np.float64)
+            return scipy.linalg.cho_solve(factor, v.reshape(-1, n).T).T.reshape(v.shape)
+
+        return solve_dense
+    from ..solvers.loop import CGSolver, IterativeSolverParameters
+
+    stencil_only = dataclasses.replace(op, lowrank=None).to(dtype=torch.float64)
+    solver = CGSolver(
+        stencil_only, params=IterativeSolverParameters(rtol=1e-12, atol=1e-30, maxiter=10000))
+
+    def solve_cg(v):
+        v = torch.as_tensor(_to_numpy(v), dtype=torch.float64, device=stencil_only.device)
+        return _to_numpy(solver.solve(v, batched=v.ndim > len(vshape)).x)
+
+    return solve_cg
 
 
 def _lowrank_numpy(op: StencilOperator):
@@ -124,18 +137,26 @@ def _lowrank_numpy(op: StencilOperator):
     return m, B, Sigma
 
 
+def _solve_columns(op: StencilOperator, solve, B: np.ndarray) -> np.ndarray:
+    """``Q^{-1} B_k`` for all columns, shape ``(m, n)``.  The default solvers
+    take the whole stack at once; a solver given by the caller is called
+    column by column."""
+    m = B.shape[0]
+    vshape = op.lattice.vshape
+    if solve is None:
+        return np.asarray(_default_stencil_solve(op)(B.reshape((m,) + vshape))).reshape(m, -1)
+    return np.stack([np.asarray(solve(B[k].reshape(vshape))).reshape(-1) for k in range(m)])
+
+
 def posterior_mean(op: StencilOperator, xbar, y, solve=None) -> np.ndarray:
     """Exact posterior mean
     ``x|y = xbar + Q^{-1} B (Sigma + B^T Q^{-1} B)^{-1} (y - B^T xbar)``
-    (Q is the *prior* stencil part).  Host float64."""
+    (Q is the *prior* stencil part).  Float64, returned on the host."""
     if op.lowrank is None:
         return _to_numpy(xbar)
-    solve = solve or _default_stencil_solve(op)
     vshape = op.lattice.vshape
     m, B, Sigma = _lowrank_numpy(op)
-    Bbar = np.stack(
-        [np.asarray(solve(B[k].reshape(vshape))).reshape(-1) for k in range(m)]
-    )  # (m, n)
+    Bbar = _solve_columns(op, solve, B)  # (m, n)
     S = Sigma + B @ Bbar.T
     xbar = _to_numpy(xbar).astype(np.float64).reshape(-1)
     rhs = np.asarray(y) - B @ xbar
@@ -145,21 +166,21 @@ def posterior_mean(op: StencilOperator, xbar, y, solve=None) -> np.ndarray:
 
 def observed_mean_and_variance(op: StencilOperator, xbar, y, b_obs, solve=None):
     """Exact mean and variance of the observation ``z = b^T x`` under the
-    posterior.  Host float64."""
-    solve = solve or _default_stencil_solve(op)
+    posterior.  Float64 on the host."""
     b_obs = _to_numpy(b_obs).astype(np.float64)
-    b_bar = np.asarray(solve(b_obs))  # Q^{-1} b
     xbar = _to_numpy(xbar).astype(np.float64)
+    cols = b_obs.reshape(1, -1)
+    if op.lowrank is not None:
+        m, B, Sigma = _lowrank_numpy(op)
+        cols = np.concatenate([cols, B])
+    solved = _solve_columns(op, solve, cols)  # Q^{-1} b, then Q^{-1} B_k
+    b_bar = solved[0]
     mean = float(np.vdot(b_obs, xbar))
     variance = float(np.vdot(b_obs, b_bar))
     if op.lowrank is not None:
-        vshape = op.lattice.vshape
-        m, B, Sigma = _lowrank_numpy(op)
-        Bbar = np.stack(
-            [np.asarray(solve(B[k].reshape(vshape))).reshape(-1) for k in range(m)]
-        )
+        Bbar = solved[1:]
         S_inv = np.linalg.inv(Sigma + B @ Bbar.T)
-        Bt_bbar = B @ b_bar.reshape(-1)
+        Bt_bbar = B @ b_bar
         rhs = np.asarray(y) - B @ xbar.reshape(-1)
         mean += float(Bt_bbar @ S_inv @ rhs)
         variance -= float(Bt_bbar @ S_inv @ Bt_bbar)

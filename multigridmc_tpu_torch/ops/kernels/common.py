@@ -1,0 +1,221 @@
+"""What the hand-written CUDA kernels of the port share on the host side.
+
+* **The build.**  Every kernel source of ``csrc/`` is compiled by ``nvcc`` for
+  ``sm_90a`` at first use into the package's ``build/`` directory as a shared
+  library with a plain C interface, and loaded with ``ctypes``
+  (:func:`build_library`, :func:`build_libraries`, :func:`open_library`).  A
+  library is named by the hash of its source, the headers it includes and the
+  compiler flags, so a stale one is never loaded.  A missing compiler or a
+  failing build raises; nothing falls back to another path.
+* **Resident-set compression** (:func:`compress_plan`, :func:`support_boxes`):
+  what a kernel need not read per point.
+* **The generator's reference** (:func:`philox_normals_reference`): the
+  in-kernel Philox4x32-10 field noise of ``csrc/philox.cuh``, recomputed with
+  numpy.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, Tuple
+
+import numpy as np
+import torch
+
+from ..stencil import StencilOperator, interior_mask
+
+_PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = _PACKAGE_DIR / "csrc"
+BUILD_DIR = _PACKAGE_DIR / "build"
+
+#: headers under ``csrc/`` that the kernel sources include
+HEADERS = ("philox.cuh",)
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+
+# ------------------------------------------------------------------- the build
+def source_path(name: str) -> Path:
+    """``csrc/<name>.cu``."""
+    return CSRC_DIR / f"{name}.cu"
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels are built from "
+            f"{CSRC_DIR} at first use and need the CUDA toolkit")
+    return found
+
+
+def library_path(name: str, extra_flags: Tuple[str, ...] = ()) -> Path:
+    """Where the library of ``csrc/<name>.cu`` goes: named by the hash of the
+    source, the shared headers and the flags."""
+    digest = hashlib.sha1(source_path(name).read_bytes())
+    for header in HEADERS:
+        digest.update((CSRC_DIR / header).read_bytes())
+    digest.update(" ".join(NVCC_FLAGS + tuple(extra_flags)).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
+
+
+def build_libraries(names: Iterable[str], extra_flags: Tuple[str, ...] = ()) -> Dict[str, Path]:
+    """Compile the named sources, one ``nvcc`` process each, all started
+    together; returns ``{name: library path}``.  Raises when the compiler is
+    missing or any build fails."""
+    jobs, paths = [], {}
+    for name in names:
+        out = paths[name] = library_path(name, extra_flags)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(source_path(name))]
+        jobs.append((cmd, tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failures = []
+    for cmd, tmp, out, proc in jobs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed ({' '.join(cmd)}):\n{stdout}\n{stderr}")
+        else:
+            os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return paths
+
+
+def build_library(name: str, extra_flags: Tuple[str, ...] = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` into ``build/`` and return the library's path."""
+    return build_libraries([name], extra_flags)[name]
+
+
+@functools.lru_cache(maxsize=None)
+def open_library(name: str) -> ctypes.CDLL:
+    """Build (at first use) and load the shared library of ``csrc/<name>.cu``.
+    The caller sets the argument types of the entry points it uses."""
+    return ctypes.CDLL(str(build_library(name)))
+
+
+def default_threads(n: int) -> int:
+    """Threads per block (= per chain; one warp works on one row at a time)
+    for a field of ``n`` points.  Measured on an H100 with
+    ``chip_smoke.py --phases threads`` at 256 chains."""
+    if n >= 16000:
+        return 1024
+    return 512 if n >= 3000 else 256
+
+
+def tensor_ptr(t):
+    """``data_ptr`` of a tensor, ``None`` (a null pointer) for ``None``."""
+    return None if t is None else t.data_ptr()
+
+
+# ------------------------------------------------- resident-set compression
+def compress_plan(op: StencilOperator, omega: float):
+    """What the CUDA kernels need not read per point.
+
+    Returns ``(const_coeffs, ns_const, bbox)``:
+
+    * ``const_coeffs`` - per offset a float where the coefficient plane is
+      spatially constant on the region where it acts (``None`` where it
+      varies).  Constant-kappa FD priors have all planes constant;
+      Galerkin-coarsened levels generally do not.
+    * ``ns_const`` - the constant Gibbs noise scale ``sqrt(D (2-omega)/omega)``
+      when the stencil diagonal is constant (computed in float32), else None.
+    * ``bbox`` - per measurement column of a 2d operator its support's bounding
+      box ``(i0, i1, j0, j1)``, half open; the visit kernels read ``B_k`` only
+      there.  Empty for 3d operators, whose low-rank terms stay outside the
+      kernels.
+
+    Of the TPU kernel's ``compress_plan`` this keeps the two devices that save
+    L2 traffic here; one-hot columns become bounding boxes (which also cover
+    the 3x3 columns of coarser levels and degrade gracefully to dense ``B``).
+    """
+    coeffs = op.coeffs.detach().cpu().numpy()
+    cc = []
+    for k, off in enumerate(op.offsets):
+        vals = coeffs[k][interior_mask(op.vshape, off) > 0]
+        if vals.size and bool(np.all(vals == vals.flat[0])):
+            cc.append(float(vals.flat[0]))
+        else:
+            cc.append(None)
+    ns_const = None
+    dval = cc[op.diag_index]
+    if dval is not None:
+        ns_const = float(np.sqrt(np.float32(dval) * np.float32((2.0 - omega) / omega)))
+    bbox = ()
+    if op.lowrank is not None and len(op.vshape) == 2:
+        bbox = support_boxes(op.lowrank.B)
+    return tuple(cc), ns_const, bbox
+
+
+def support_boxes(fields: torch.Tensor) -> Tuple[Tuple[int, int, int, int], ...]:
+    """Per 2d field of ``(m, H, W)`` the bounding box ``(i0, i1, j0, j1)`` (half
+    open) of its nonzeros; an all-zero field gets the empty box."""
+    boxes = []
+    for col in fields.detach().cpu().numpy():
+        nz = np.nonzero(col)
+        if len(nz[0]) == 0:
+            boxes.append((0, 0, 0, 0))
+        else:
+            boxes.append((int(nz[0].min()), int(nz[0].max()) + 1,
+                          int(nz[1].min()), int(nz[1].max()) + 1))
+    return tuple(boxes)
+
+
+# ------------------------------------------------- reference of the generator
+def philox_normals_reference(seed: int, counter: int, chains: int,
+                             vshape: Tuple[int, ...]) -> np.ndarray:
+    """The kernels' field noise, recomputed on the host with numpy:
+    ``(chains, *vshape)`` float32 normals of launch ``counter`` under ``seed``.
+
+    Philox4x32-10 with counter words ``(point group, chain, counter lo,
+    counter hi)`` and key ``(seed lo, seed hi)``.  A row is a line of the
+    field along its last (fastest) axis, rows numbered in storage order
+    (``i`` in 2d, ``z * Y + y`` in 3d).  Group ``g`` of row ``i`` has the
+    number ``i * ceil(W / 4) + g``; its four output words give the normals of
+    the points ``(i, 4g .. 4g+3)`` by two Box-Muller transforms (cosine, sine,
+    cosine, sine), ``u1 = ((w >> 8) + 1) / 2^24`` in (0, 1],
+    ``u2 = (w >> 8) / 2^24``.  Philox is a bijection of the counter for a fixed
+    key, so two launches, chains or groups never share a stream.  Agrees with
+    the kernel up to the last bits of ``log`` / ``sincos``."""
+    vshape = tuple(int(v) for v in vshape)
+    H, W = int(np.prod(vshape[:-1])), vshape[-1]
+    M0, M1 = np.uint64(0xD2511F53), np.uint64(0xCD9E8D57)
+    mask = np.uint64(0xFFFFFFFF)
+    ngroups = H * ((W + 3) // 4)
+    c0 = np.broadcast_to(np.arange(ngroups, dtype=np.uint64), (chains, ngroups)).copy()
+    c1 = np.broadcast_to(np.arange(chains, dtype=np.uint64)[:, None], (chains, ngroups)).copy()
+    c2 = np.full((chains, ngroups), counter & 0xFFFFFFFF, dtype=np.uint64)
+    c3 = np.full((chains, ngroups), (counter >> 32) & 0xFFFFFFFF, dtype=np.uint64)
+    k0, k1 = seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF
+    for _ in range(10):
+        p0, p1 = M0 * c0, M1 * c2
+        hi0, lo0 = p0 >> np.uint64(32), p0 & mask
+        hi1, lo1 = p1 >> np.uint64(32), p1 & mask
+        c0, c1, c2, c3 = hi1 ^ c1 ^ np.uint64(k0), lo1, hi0 ^ c3 ^ np.uint64(k1), lo0
+        k0, k1 = (k0 + 0x9E3779B9) & 0xFFFFFFFF, (k1 + 0xBB67AE85) & 0xFFFFFFFF
+    scale = np.float32(1.0 / 16777216.0)
+
+    def pair(a, b):
+        u1 = ((a >> np.uint64(8)) + np.uint64(1)).astype(np.float32) * scale
+        u2 = (b >> np.uint64(8)).astype(np.float32) * scale
+        r = np.sqrt(np.float32(-2.0) * np.log(u1))
+        ang = np.float32(2.0 * np.pi) * u2
+        return r * np.cos(ang), r * np.sin(ang)
+
+    z0, z1 = pair(c0, c1)
+    z2, z3 = pair(c2, c3)
+    z = np.stack([z0, z1, z2, z3], axis=-1).reshape(chains, H, -1)
+    return z[:, :, :W].astype(np.float32).reshape((chains,) + vshape)

@@ -21,7 +21,8 @@ and one **ascend visit** is
 The CUDA source is ``csrc/mgmc_visit.cu`` (one thread block per chain; its
 header comment states the design).  It is compiled with ``nvcc`` for
 ``sm_90a`` at first use into the package's ``build/`` directory and loaded
-with ``ctypes``.
+with ``ctypes`` (the mechanism of :mod:`.common`, shared with the sweep kernels
+of :mod:`.sor_sweep`).
 
 **Bound.**  A visit is bound by bytes: per chain it must read ``f`` (unless
 shared), ``x`` and ``x_c`` and write ``x`` and ``f_c`` once - for the descend
@@ -53,19 +54,15 @@ reach-1 stencil (up to 9 offsets, per-point coefficient planes, up to 8
 colours), ``0 <= m <= 32`` with dense ``B``, ``f`` shared or per chain, noise
 on or off, any ``coarse_scaling``.  Two sweeps per visit (SSOR), 3d, reach-2
 stencils and reduced-precision transfers belong to later slices; the wrapper
-raises on them.
+raises on them.  SSOR levels run the composed visit, whose sweeps are the
+kernels of :mod:`.sor_sweep`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -73,18 +70,17 @@ import torch
 
 from ...smoothers import sor_sweep, woodbury_factors
 from ..intergrid import prolongate_add, restrict
-from ..stencil import StencilOperator, interior_mask
+from ..stencil import StencilOperator
+from .common import (compress_plan, default_threads, open_library,  # noqa: F401
+                     philox_normals_reference, support_boxes)
+from .common import tensor_ptr as _ptr
 
 MAX_OFFSETS = 9
 MAX_COLORS = 8
 MAX_LOWRANK = 32
 
-_PACKAGE_DIR = Path(__file__).resolve().parents[2]
-SOURCE = _PACKAGE_DIR / "csrc" / "mgmc_visit.cu"
-BUILD_DIR = _PACKAGE_DIR / "build"
-
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+#: the CUDA source under ``csrc/`` (see :mod:`.common` for the build)
+SOURCE_NAME = "mgmc_visit"
 
 #: kernel launches made by the wrappers (and only where they launch)
 launch_counts: Dict[str, int] = {"descend_visit": 0, "ascend_visit": 0}
@@ -125,40 +121,10 @@ class VisitParams(ctypes.Structure):
 
 
 # ------------------------------------------------------------------- the build
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"), "/usr/local/cuda"):
-        if cand and (Path(cand) / "bin" / "nvcc").exists():
-            return str(Path(cand) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(
-            "nvcc not found: the fused level-visit kernels are built from "
-            f"{SOURCE} at first use and need the CUDA toolkit")
-    return found
-
-
-def build_library(extra_flags: Tuple[str, ...] = ()) -> Path:
-    """Compile ``csrc/mgmc_visit.cu`` into ``build/`` (named by the source's
-    hash, so a stale library is never loaded) and return the library's path.
-    Raises when the compiler is missing or fails."""
-    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join(NVCC_FLAGS + extra_flags).encode())
-    out = BUILD_DIR / f"libmgmc_visit_{digest.hexdigest()[:12]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
-
-
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernels' shared library."""
-    lib = ctypes.CDLL(str(build_library()))
+    lib = open_library(SOURCE_NAME)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mgmc_visit_params_size.argtypes = []
     lib.mgmc_visit_params_size.restype = i32
@@ -173,55 +139,6 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-# ------------------------------------------------- resident-set compression
-def compress_plan(op: StencilOperator, omega: float):
-    """What the CUDA kernels need not read per point.
-
-    Returns ``(const_coeffs, ns_const, bbox)``:
-
-    * ``const_coeffs`` - per offset a float where the coefficient plane is
-      spatially constant on the region where it acts (``None`` where it
-      varies).  Constant-kappa FD priors have all planes constant;
-      Galerkin-coarsened levels generally do not.
-    * ``ns_const`` - the constant Gibbs noise scale ``sqrt(D (2-omega)/omega)``
-      when the stencil diagonal is constant (computed in float32), else None.
-    * ``bbox`` - per measurement column its support's bounding box
-      ``(i0, i1, j0, j1)``, half open; the kernel reads ``B_k`` only there.
-
-    Of the TPU kernel's ``compress_plan`` this keeps the two devices that save
-    L2 traffic here; one-hot columns become bounding boxes (which also cover
-    the 3x3 columns of coarser levels and degrade gracefully to dense ``B``).
-    """
-    coeffs = op.coeffs.detach().cpu().numpy()
-    cc = []
-    for k, off in enumerate(op.offsets):
-        vals = coeffs[k][interior_mask(op.vshape, off) > 0]
-        if vals.size and bool(np.all(vals == vals.flat[0])):
-            cc.append(float(vals.flat[0]))
-        else:
-            cc.append(None)
-    ns_const = None
-    dval = cc[op.diag_index]
-    if dval is not None:
-        ns_const = float(np.sqrt(np.float32(dval) * np.float32((2.0 - omega) / omega)))
-    bbox = () if op.lowrank is None else support_boxes(op.lowrank.B)
-    return tuple(cc), ns_const, bbox
-
-
-def support_boxes(fields: torch.Tensor) -> Tuple[Tuple[int, int, int, int], ...]:
-    """Per 2d field of ``(m, H, W)`` the bounding box ``(i0, i1, j0, j1)`` (half
-    open) of its nonzeros; an all-zero field gets the empty box."""
-    boxes = []
-    for col in fields.detach().cpu().numpy():
-        nz = np.nonzero(col)
-        if len(nz[0]) == 0:
-            boxes.append((0, 0, 0, 0))
-        else:
-            boxes.append((int(nz[0].min()), int(nz[0].max()) + 1,
-                          int(nz[1].min()), int(nz[1].max()) + 1))
-    return tuple(boxes)
-
-
 def kernel_support_error(op: StencilOperator, n_colors: int) -> Optional[str]:
     """Why the CUDA kernels cannot take this level, or None if they can."""
     if len(op.vshape) != 2:
@@ -233,14 +150,6 @@ def kernel_support_error(op: StencilOperator, n_colors: int) -> Optional[str]:
     if op.m_lowrank > MAX_LOWRANK:
         return f"more than {MAX_LOWRANK} measurements"
     return None
-
-
-def _default_threads(n: int) -> int:
-    """Threads per block (= per chain; one warp works on one row at a time).
-    Measured on an H100 with ``chip_smoke.py --phases threads`` at 256 chains."""
-    if n >= 16000:
-        return 1024
-    return 512 if n >= 3000 else 256
 
 
 class FusedVisitLevel:
@@ -295,7 +204,7 @@ class FusedVisitLevel:
             self.lr_scale = self.sigma_inv = self.G_pre = None
             self._woodbury = {self.pre_order: (None, None, ()), self.post_order: (None, None, ())}
         self.const_coeffs, self.ns_const, self.bbox = compress_plan(op, self.omega)
-        self.threads = _default_threads(int(np.prod(op.vshape)))
+        self.threads = default_threads(int(np.prod(op.vshape)))
         self._params_cache = {}
 
     # ------------------------------------------------------------ noise
@@ -454,10 +363,6 @@ def _check_visit_args(level: FusedVisitLevel, f, x, xi, xi_lr, philox, x_coarse=
     return C, f_batched, noise_mode
 
 
-def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-    return None if t is None else t.data_ptr()
-
-
 def descend_visit(level: FusedVisitLevel, f, x, xi=None, xi_lr=None,
                   philox: Optional[Tuple[int, int]] = None):
     """One fused descend visit; returns ``(x, f_coarse)``.
@@ -574,47 +479,3 @@ def fused_levels_for(operators, presmoothers, postsmoothers, coarse_scaling,
         levels[level] = FusedVisitLevel(op, pre[2], pre[3], pre[0], post[0],
                                         pre[1], post[1], coarse_scaling)
     return levels
-
-
-# ------------------------------------------------- reference of the generator
-def philox_normals_reference(seed: int, counter: int, chains: int,
-                             vshape: Tuple[int, int]) -> np.ndarray:
-    """The kernels' field noise, recomputed on the host with numpy:
-    ``(chains, H, W)`` float32 normals of launch ``counter`` under ``seed``.
-
-    Philox4x32-10 with counter words ``(point group, chain, counter lo,
-    counter hi)`` and key ``(seed lo, seed hi)``.  Group ``g`` of row ``i`` has
-    the number ``i * ceil(W / 4) + g``; its four output words give the normals
-    of the points ``(i, 4g .. 4g+3)`` by two Box-Muller transforms (cosine,
-    sine, cosine, sine), ``u1 = ((w >> 8) + 1) / 2^24`` in (0, 1],
-    ``u2 = (w >> 8) / 2^24``.  Philox is a bijection of the counter for a fixed
-    key, so two launches, chains or groups never share a stream.  Agrees with
-    the kernel up to the last bits of ``log`` / ``sincos``."""
-    H, W = vshape
-    M0, M1 = np.uint64(0xD2511F53), np.uint64(0xCD9E8D57)
-    mask = np.uint64(0xFFFFFFFF)
-    ngroups = H * ((W + 3) // 4)
-    c0 = np.broadcast_to(np.arange(ngroups, dtype=np.uint64), (chains, ngroups)).copy()
-    c1 = np.broadcast_to(np.arange(chains, dtype=np.uint64)[:, None], (chains, ngroups)).copy()
-    c2 = np.full((chains, ngroups), counter & 0xFFFFFFFF, dtype=np.uint64)
-    c3 = np.full((chains, ngroups), (counter >> 32) & 0xFFFFFFFF, dtype=np.uint64)
-    k0, k1 = seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF
-    for _ in range(10):
-        p0, p1 = M0 * c0, M1 * c2
-        hi0, lo0 = p0 >> np.uint64(32), p0 & mask
-        hi1, lo1 = p1 >> np.uint64(32), p1 & mask
-        c0, c1, c2, c3 = hi1 ^ c1 ^ np.uint64(k0), lo1, hi0 ^ c3 ^ np.uint64(k1), lo0
-        k0, k1 = (k0 + 0x9E3779B9) & 0xFFFFFFFF, (k1 + 0xBB67AE85) & 0xFFFFFFFF
-    scale = np.float32(1.0 / 16777216.0)
-
-    def pair(a, b):
-        u1 = ((a >> np.uint64(8)) + np.uint64(1)).astype(np.float32) * scale
-        u2 = (b >> np.uint64(8)).astype(np.float32) * scale
-        r = np.sqrt(np.float32(-2.0) * np.log(u1))
-        ang = np.float32(2.0 * np.pi) * u2
-        return r * np.cos(ang), r * np.sin(ang)
-
-    z0, z1 = pair(c0, c1)
-    z2, z3 = pair(c2, c3)
-    z = np.stack([z0, z1, z2, z3], axis=-1).reshape(chains, H, -1)
-    return z[:, :, :W].astype(np.float32)

@@ -1,0 +1,317 @@
+"""Colour-ordered SOR and Gibbs sweep kernels: one sweep of all chains in one
+CUDA kernel launch.
+
+Replaces ``sweep_batched_v2`` / ``gibbs_sweep_batched_v2`` of
+``multigridmc_tpu/ops/kernels/sor_pallas_v2.py``.  One **deterministic sweep**
+is
+
+    for colour c in order:   x <- x + [colour == c] * omega * (b - A_stencil x) / diag
+
+and one **Gibbs sweep** is the same sweep on
+
+    c = f + sqrt(diag (2 - omega) / omega) * xi,      xi ~ N(0, I)
+
+with ``diag`` the stencil's diagonal *plane* (it varies in space when the
+coefficients do).  The low-rank noise term and the Woodbury correction of a
+posterior operator stay outside the kernel, in the callers
+(:mod:`multigridmc_tpu_torch.smoothers`, :mod:`multigridmc_tpu_torch.samplers.sor`).
+
+The CUDA source is ``csrc/sor_sweep.cu`` (one thread block per chain; its
+header comment states the design), compiled with ``nvcc`` for ``sm_90a`` at
+first use and loaded with ``ctypes`` (:mod:`.common`).
+
+**Bound.**  A sweep is bound by bytes: per chain it must read ``b`` (unless
+shared) and ``x`` and write ``x`` once - three passes over the field,
+``3 * C * n * 4`` bytes with ``b`` per chain - plus the coefficient planes that
+vary in space once.  The Gibbs kernel's scratch field for ``c`` and whatever
+the colour phases read again are traffic to L2 on top of that.
+
+Beside each kernel stands its **plain PyTorch version**
+(:func:`sweep_batched_plain`, which is ``smoothers.sor_sweep``, and
+:func:`gibbs_sweep_batched_plain`, which takes ``xi`` as a tensor).  The
+wrappers :func:`sweep_batched` / :func:`gibbs_sweep_batched` take the plain
+version only for tensors that lie on the CPU; for a CUDA tensor they launch the
+kernel or raise - there is no fallback.  The kernels update ``x`` in place; the
+plain versions return new tensors.
+
+The gate is the device, the dtype and the shape: float32, 2d or 3d, up to 27
+offsets of any reach, up to 8 colours; a single chain is a batch of one.  The
+Gibbs kernel draws ``xi`` from the Philox stream ``(seed, launch counter)`` of
+``csrc/philox.cuh`` (see :func:`~.common.philox_normals_reference`) or reads it
+from a tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..coloring import Coloring
+from ..stencil import StencilOperator
+from .common import compress_plan, default_threads, open_library, tensor_ptr
+
+MAX_OFFSETS = 27
+MAX_COLORS = 8
+
+#: the CUDA source under ``csrc/`` (see :mod:`.common` for the build)
+SOURCE_NAME = "sor_sweep"
+
+#: kernel launches made by the wrappers (and only where they launch)
+launch_counts: Dict[str, int] = {"sweep_batched": 0, "gibbs_sweep_batched": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+class SweepParams(ctypes.Structure):
+    """Mirror of ``struct SweepParams`` in ``csrc/sor_sweep.cu``."""
+
+    _fields_ = [
+        ("C", ctypes.c_int), ("Z", ctypes.c_int), ("Y", ctypes.c_int), ("X", ctypes.c_int),
+        ("K", ctypes.c_int), ("diag_index", ctypes.c_int),
+        ("dz", ctypes.c_int * MAX_OFFSETS),
+        ("dy", ctypes.c_int * MAX_OFFSETS),
+        ("dx", ctypes.c_int * MAX_OFFSETS),
+        ("coeff_const", ctypes.c_int * MAX_OFFSETS),
+        ("coeff_val", ctypes.c_float * MAX_OFFSETS),
+        ("n_colors", ctypes.c_int), ("wz", ctypes.c_int), ("wy", ctypes.c_int),
+        ("wx", ctypes.c_int), ("jstride", ctypes.c_int),
+        ("n_order", ctypes.c_int),
+        ("order", ctypes.c_int * MAX_COLORS),
+        ("omega", ctypes.c_float),
+        ("noise_mode", ctypes.c_int),
+        ("ns_const", ctypes.c_int),
+        ("ns_val", ctypes.c_float),
+        ("b_batched", ctypes.c_int),
+        ("seed", ctypes.c_ulonglong),
+        ("counter", ctypes.c_ulonglong),
+    ]
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (at first use) and load the sweep kernels' shared library."""
+    lib = open_library(SOURCE_NAME)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.sor_sweep_params_size.argtypes = []
+    lib.sor_sweep_params_size.restype = i32
+    if lib.sor_sweep_params_size() != ctypes.sizeof(SweepParams):
+        raise RuntimeError("SweepParams layout differs between Python and CUDA")
+    # P, x, b, coeffs, threads, stream
+    lib.sor_sweep_batched.argtypes = [ctypes.POINTER(SweepParams)] + [ptr] * 3 + [i32, ptr]
+    lib.sor_sweep_batched.restype = i32
+    # P, x, f, scratch, coeffs, ns, xi, threads, stream
+    lib.sor_gibbs_sweep_batched.argtypes = (
+        [ctypes.POINTER(SweepParams)] + [ptr] * 6 + [i32, ptr])
+    lib.sor_gibbs_sweep_batched.restype = i32
+    return lib
+
+
+def kernel_support_error(op: StencilOperator, n_colors: int) -> Optional[str]:
+    """Why the sweep kernels cannot take this operator, or None if they can."""
+    if len(op.vshape) not in (2, 3):
+        return "the sweep kernels take 2d and 3d fields only"
+    if len(op.offsets) > MAX_OFFSETS:
+        return f"more than {MAX_OFFSETS} stencil offsets"
+    if n_colors > MAX_COLORS:
+        return f"more than {MAX_COLORS} colours"
+    return None
+
+
+class SweepPlan:
+    """Static configuration of one sweep direction on one operator: the
+    coefficient planes, the colour order, the Gibbs noise scale and (built at
+    first launch) the kernels' parameter blocks."""
+
+    def __init__(self, op: StencilOperator, coloring: Coloring, omega: float,
+                 order: Tuple[int, ...], masks: Optional[torch.Tensor] = None):
+        self.op = op
+        self.coloring = coloring
+        self.omega = float(omega)
+        self.order = tuple(int(c) for c in order)
+        self.masks = masks if masks is not None else torch.as_tensor(
+            coloring.masks(), dtype=op.dtype, device=op.device)
+        self.coeffs = op.coeffs.contiguous()
+        self.noise_scale = noise_scale(op, self.omega).contiguous()
+        self.threads = default_threads(int(np.prod(op.vshape)))
+        self._compressed = None
+        self._params_cache = {}
+
+    def on_kernel_device(self) -> bool:
+        """Whether sweeps of this plan go through the CUDA kernels: the
+        operator is 2d or 3d and lies on a CUDA device in float32.  Everything
+        else (the CPU, float64 on the card) is the caller's explicit choice of
+        the plain version."""
+        return (self.op.device.type == "cuda" and self.op.dtype == torch.float32
+                and len(self.op.vshape) in (2, 3))
+
+    def params(self, C: int, b_batched: bool, noise_mode: int, philox) -> SweepParams:
+        """The kernel's parameter block; built once per launch configuration,
+        only the Philox stream changes from launch to launch."""
+        key = (C, bool(b_batched), noise_mode)
+        P = self._params_cache.get(key)
+        if P is None:
+            P = self._params_cache[key] = self._build_params(*key)
+        P.seed, P.counter = philox if philox is not None else (0, 0)
+        return P
+
+    def _build_params(self, C: int, b_batched: bool, noise_mode: int) -> SweepParams:
+        op = self.op
+        err = kernel_support_error(op, self.coloring.n_colors)
+        if err is not None:
+            raise NotImplementedError(err)
+        if self._compressed is None:
+            self._compressed = compress_plan(op, self.omega)[:2]
+        const_coeffs, ns_const = self._compressed
+        lead = 3 - len(op.vshape)  # 2d fields are 3d fields with Z = 1
+        P = SweepParams()
+        P.C = C
+        P.Z, P.Y, P.X = (1,) * lead + tuple(op.vshape)
+        P.K, P.diag_index = len(op.offsets), op.diag_index
+        for k, (off, cval) in enumerate(zip(op.offsets, const_coeffs)):
+            P.dz[k], P.dy[k], P.dx[k] = (0,) * lead + tuple(off)
+            P.coeff_const[k] = int(cval is not None)
+            P.coeff_val[k] = 0.0 if cval is None else cval
+        K = self.coloring.n_colors
+        P.n_colors = K
+        P.wz, P.wy, P.wx = (0,) * lead + tuple(int(w) for w in self.coloring.weights)
+        P.jstride = K // math.gcd(P.wx, K)
+        P.n_order = len(self.order)
+        for o, c in enumerate(self.order):
+            P.order[o] = c
+        P.omega = self.omega
+        P.noise_mode = noise_mode
+        P.ns_const = int(ns_const is not None)
+        P.ns_val = 0.0 if ns_const is None else ns_const
+        P.b_batched = int(b_batched)
+        return P
+
+
+def noise_scale(op: StencilOperator, omega: float) -> torch.Tensor:
+    """``sqrt(diag (2 - omega) / omega)`` as a grid field: the standard
+    deviation of the Gibbs sweep's diagonal noise term."""
+    return torch.sqrt(op.diag_stencil() * ((2.0 - omega) / omega))
+
+
+# ------------------------------------------------------------- plain versions
+def sweep_batched_plain(op: StencilOperator, masks: torch.Tensor, omega: float,
+                        order: Tuple[int, ...], b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the deterministic kernel: one multi-colour SOR
+    sweep on the stencil part, ``x[l] += omega*(b[l] - (Ax)[l]) / a_ll`` colour
+    by colour.  Any leading batch dims; returns a new tensor, ``x`` is not
+    modified."""
+    diag = op.diag_stencil()
+    for c in order:
+        ax = op.apply_stencil(x)
+        x = x + masks[c] * (omega * (b - ax) / diag)
+    return x
+
+
+def gibbs_sweep_batched_plain(op: StencilOperator, masks: torch.Tensor, omega: float,
+                              order: Tuple[int, ...], f: torch.Tensor, x: torch.Tensor,
+                              xi: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the Gibbs kernel: the sweep on
+    ``c = f + sqrt(diag (2 - omega) / omega) xi`` with the normals ``xi`` (shape
+    of ``x``) given.  Returns a new tensor."""
+    return sweep_batched_plain(op, masks, omega, order, f + noise_scale(op, omega) * xi, x)
+
+
+# ------------------------------------------------------------------ wrappers
+def flatten_chains(vshape: Tuple[int, ...], b: torch.Tensor, x: torch.Tensor):
+    """``(b, x, batch)`` in the kernels' layout: ``x`` with its leading chain
+    axes flattened to one (a single field becomes a batch of one), ``b`` shared
+    (``vshape``) or flattened like ``x``, both contiguous; ``batch`` is the
+    chain shape to restore with ``reshape(batch + vshape)``."""
+    vdim = len(vshape)
+    batch = tuple(x.shape[: x.ndim - vdim])
+    xf = x.reshape((-1,) + tuple(vshape)).contiguous()
+    if b.ndim == vdim:
+        bf = b.contiguous()
+    else:
+        bf = torch.broadcast_to(b, x.shape).reshape(xf.shape).contiguous()
+    return bf, xf, batch
+
+
+def _check_sweep_args(plan: SweepPlan, b, x, xi=None):
+    """Validate what goes to the kernel by pointer; returns ``(C, b_batched)``."""
+    vshape = plan.op.vshape
+    vdim = len(vshape)
+    if x.ndim != vdim + 1 or tuple(x.shape[1:]) != vshape:
+        raise ValueError(f"x must be (C, {', '.join(map(str, vshape))}), got {tuple(x.shape)}")
+    C = x.shape[0]
+    if tuple(b.shape) not in (vshape, (C,) + vshape):
+        raise ValueError(f"b must be {vshape} or {(C,) + vshape}, got {tuple(b.shape)}")
+    tensors = {"x": x, "b": b}
+    if xi is not None:
+        if xi.shape != x.shape:
+            raise ValueError(f"xi must have the shape of x, got {tuple(xi.shape)}")
+        tensors["xi"] = xi
+    for name, t in tensors.items():
+        if t.device != plan.coeffs.device:
+            raise ValueError(f"{name} lies on {t.device}, the operator on {plan.coeffs.device}")
+        if t.dtype != torch.float32 or plan.coeffs.dtype != torch.float32:
+            raise TypeError("the sweep kernels are float32 only "
+                            f"({name} is {t.dtype}, the operator {plan.coeffs.dtype})")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return C, b.ndim == vdim + 1
+
+
+def sweep_batched(plan: SweepPlan, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """One deterministic colour-ordered SOR sweep of all chains; returns ``x``.
+
+    ``x`` is ``(C, *vshape)``, ``b`` is ``vshape`` (shared) or ``(C, *vshape)``.
+    CPU tensors go to :func:`sweep_batched_plain`.  CUDA tensors launch the
+    kernel, which updates ``x`` in place, or raise."""
+    if x.device.type == "cpu":
+        return sweep_batched_plain(plan.op, plan.masks, plan.omega, plan.order, b, x)
+    C, b_batched = _check_sweep_args(plan, b, x)
+    P = plan.params(C, b_batched, 0, None)
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sor_sweep_batched(ctypes.byref(P), x.data_ptr(), b.data_ptr(),
+                                    plan.coeffs.data_ptr(), plan.threads, stream)
+    launch_counts["sweep_batched"] += 1
+    if err != 0:
+        raise RuntimeError(f"sor_sweep kernel launch failed: CUDA error {err}")
+    return x
+
+
+def gibbs_sweep_batched(plan: SweepPlan, f: torch.Tensor, x: torch.Tensor,
+                        xi: Optional[torch.Tensor] = None,
+                        philox: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """One colour-ordered Gibbs sweep of all chains on
+    ``c = f + sqrt(diag (2 - omega) / omega) xi``; returns ``x``.
+
+    The normals: ``philox=(seed, counter)`` for the in-kernel generator (CUDA
+    only) or ``xi`` as a tensor of the shape of ``x`` - exactly one of the two.
+    CPU tensors go to :func:`gibbs_sweep_batched_plain`.  CUDA tensors launch
+    the kernel, which updates ``x`` in place, or raise."""
+    if (xi is None) == (philox is None):
+        raise ValueError("give the field noise as a tensor or as a Philox stream, one of the two")
+    if x.device.type == "cpu":
+        if philox is not None:
+            raise ValueError("the Philox stream exists in the CUDA kernel only")
+        return gibbs_sweep_batched_plain(plan.op, plan.masks, plan.omega, plan.order, f, x, xi)
+    C, f_batched = _check_sweep_args(plan, f, x, xi)
+    P = plan.params(C, f_batched, 1 if philox is not None else 2, philox)
+    lib = load_library()
+    scratch = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sor_gibbs_sweep_batched(
+            ctypes.byref(P), x.data_ptr(), f.data_ptr(), scratch.data_ptr(),
+            plan.coeffs.data_ptr(), plan.noise_scale.data_ptr(), tensor_ptr(xi),
+            plan.threads, stream)
+    launch_counts["gibbs_sweep_batched"] += 1
+    if err != 0:
+        raise RuntimeError(f"gibbs_sweep kernel launch failed: CUDA error {err}")
+    return x

@@ -103,6 +103,20 @@ class Sampler:
         """Draw the next chain state given rhs f and current state x."""
         raise NotImplementedError
 
+    def apply_indexed(self, noise: NoiseSource, f: torch.Tensor, x: torch.Tensor,
+                      k: int) -> torch.Tensor:
+        """One chain step that also sees the step index ``k``.  Default: ignore
+        it.  Step-schedule-aware samplers override this so that driver loops
+        stay one step per iteration."""
+        del k
+        return self.apply(noise, f, x)
+
+    def fix_rhs(self, f: torch.Tensor) -> None:
+        """Cache f-dependent precomputations (no-op by default)."""
+
+    def unfix_rhs(self) -> None:
+        """Drop cached f-dependent state (no-op by default)."""
+
 
 class MeanShiftedSampler(Sampler):
     """Zero-mean float32 protocol as a sampler wrapper.
@@ -132,3 +146,14 @@ class MeanShiftedSampler(Sampler):
         del f  # the target mean is carried exactly; see class docstring
         e = self.inner.apply(noise, self._zero, x - self.mean)
         return self.mean + e
+
+    def apply_indexed(self, noise: NoiseSource, f, x: torch.Tensor, k: int) -> torch.Tensor:
+        del f
+        e = self.inner.apply_indexed(noise, self._zero, x - self.mean, k)
+        return self.mean + e
+
+    def fix_rhs(self, f) -> None:
+        self.inner.fix_rhs(self._zero)
+
+    def unfix_rhs(self) -> None:
+        self.inner.unfix_rhs()

@@ -1,12 +1,13 @@
 """Multigrid Monte Carlo sampler - the flagship algorithm.
 
 Counterpart of ``multigridmc_tpu/samplers/mgmc.py`` (Goodman & Sokal 1989): a
-stochastic multigrid V/W-cycle whose smoothers are multi-colour SOR Gibbs
-sweeps and whose coarse-level "solve" is an exact Cholesky sample.
+stochastic multigrid V/W-cycle whose smoothers are multi-colour SOR/SSOR Gibbs
+sweeps and whose coarse-level "solve" is an exact Cholesky (or SSOR Gibbs)
+sample.
 
 Per level a Galerkin-coarsened operator, a forward pre-sampler and a backward
-post-sampler; the coarsest level gets a dense Cholesky sampler.  The recursive
-cycle:
+post-sampler (SSOR: a forward-backward pair for both); the coarsest level gets
+a dense Cholesky or an SSOR sampler.  The recursive cycle:
 
     sample(level):
         if coarsest:  x_L ~ coarse_sampler(f_L, x_L)
@@ -21,15 +22,18 @@ Chain-state semantics: the fine-level x is carried across calls (NOT zeroed),
 coarse-level states are zero-initialised at each visit.
 
 The cycle batches over leading chain dimensions, so many independent chains
-run in lockstep on one GPU.  For batched chains on a CUDA device each level
-visit of a fused level is ONE launch of a hand-written CUDA kernel
-(:mod:`multigridmc_tpu_torch.ops.kernels.mgmc_visit`); the remaining levels run
-the composed recursion in plain PyTorch.  ``apply`` may update the chain state
-it is given in place.
+run in lockstep on one GPU.  On a CUDA device each visit of an SOR level is ONE
+launch of a hand-written fused CUDA kernel
+(:mod:`multigridmc_tpu_torch.ops.kernels.mgmc_visit`; a single chain is a batch
+of one).  The remaining levels (SSOR, 3d) run the composed visit, whose Gibbs
+sweeps are launches of the sweep kernel
+(:mod:`multigridmc_tpu_torch.ops.kernels.sor_sweep`) with the residual and the
+transfers in plain PyTorch.  ``apply`` may update the chain state it is given
+in place.
 
-Not ported yet (``NotImplementedError``): the SSOR smoother and coarse
-sampler, ``distill=True`` (affine-distilled coarse subtree),
-``sweep_schedule="alternating"``, fused 3d visits and the subtree kernel.
+Not ported yet (``NotImplementedError``): ``distill=True`` (affine-distilled
+coarse subtree), ``sweep_schedule="alternating"``, fused 3d and two-sweep
+(SSOR) visits and the subtree kernel.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ from ..smoothers import BACKWARD, FORWARD
 from ..solvers.multigrid import MultigridHierarchy
 from .base import NoiseSource, Sampler
 from .cholesky import DenseCholeskySampler
-from .sor import SORSampler
+from .sor import SORSampler, SSORSampler
 
 #: smallest level (vertex count) that runs as a fused kernel visit on a CUDA
 #: device.  0 = every non-coarsest level: measured on an H100 by
@@ -62,9 +66,10 @@ class MultigridMCSampler(Sampler):
     ``fused``: ``"auto"`` fuses level visits when the operator lies on a CUDA
     device, ``True`` builds the fused levels on any device (on the CPU they run
     their plain versions), ``False`` runs the composed recursion everywhere.
-    Under ``"auto"`` on a CUDA device only 3d levels and levels in a dtype
-    other than float32 run the composed recursion; a 2d float32 level beyond
-    the kernels' limits raises ``NotImplementedError`` (see
+    Under ``"auto"`` on a CUDA device only SSOR levels, 3d levels and levels in
+    a dtype other than float32 run the composed recursion (in float32 on the
+    sweep kernels); a 2d float32 SOR level beyond the visit kernels' limits
+    raises ``NotImplementedError`` (see
     :func:`~multigridmc_tpu_torch.ops.kernels.mgmc_visit.fused_levels_for`).
     """
 
@@ -76,14 +81,18 @@ class MultigridMCSampler(Sampler):
         coarse_solver: str = "Cholesky",
         npresmooth: int = 1,
         npostsmooth: int = 1,
+        ncoarsesmooth: int = 1,
         omega: float = 1.0,
         cycle: int = 1,
         coarse_scaling: float = 1.0,
+        cholesky_factorisation: str = "dense",
         hierarchy: Optional[MultigridHierarchy] = None,
+        verbose: int = 0,
         distill: object = False,
         fused: object = "auto",
         fused_min_vertices: Optional[int] = None,
         sweep_schedule: str = "fixed",
+        distill_precision: Optional[str] = None,
         device=None,
         dtype=None,
     ):
@@ -94,21 +103,23 @@ class MultigridMCSampler(Sampler):
             raise ValueError(f"invalid sweep_schedule '{sweep_schedule}'")
         if sweep_schedule == "alternating":
             raise NotImplementedError(
-                "sweep_schedule='alternating' is not ported yet (later slice: "
-                "SSOR and the alternating schedule)")
+                "sweep_schedule='alternating' is not ported yet (a later slice "
+                "of the port brings the alternating schedule)")
         if distill not in (False, None):
             raise NotImplementedError(
                 "the affine-distilled coarse subtree (samplers/distill.py) is "
                 "the next slice of the port; pass distill=False")
         smoother = smoother.upper()
-        if smoother == "SSOR" or coarse_solver.upper() == "SSOR":
-            raise NotImplementedError(
-                "the SSOR sampler is not ported yet (later slice: SSOR and the "
-                "alternating schedule)")
-        if smoother != "SOR":
+        if smoother not in ("SOR", "SSOR"):
             raise ValueError(f"invalid sampler '{smoother}'")
-        if coarse_solver.lower() != "cholesky":
+        if coarse_solver.lower() not in ("cholesky", "ssor"):
             raise ValueError(f"invalid coarse sampler '{coarse_solver}'")
+        # the coarse level is tiny and factorised densely on the device
+        # whichever factorisation the configuration names
+        del cholesky_factorisation
+        #: precision tier of the distilled subtree; without distillation it
+        #: selects nothing and is only carried for the configuration's sake
+        self.distill_precision = distill_precision
 
         self.hierarchy = hierarchy or MultigridHierarchy(op, nlevel)
         if self.hierarchy.operators[0].device != op.device:
@@ -120,13 +131,26 @@ class MultigridMCSampler(Sampler):
         self.presamplers = []
         self.postsamplers = []
         for level_op in self.hierarchy.operators:
-            self.presamplers.append(SORSampler(level_op, omega, npresmooth, FORWARD))
-            self.postsamplers.append(SORSampler(level_op, omega, npostsmooth, BACKWARD))
-        self.coarse_sampler = DenseCholeskySampler(self.hierarchy.operators[-1])
+            if smoother == "SOR":
+                self.presamplers.append(SORSampler(level_op, omega, npresmooth, FORWARD))
+                self.postsamplers.append(SORSampler(level_op, omega, npostsmooth, BACKWARD))
+            else:
+                self.presamplers.append(SSORSampler(level_op, omega, npresmooth))
+                self.postsamplers.append(SSORSampler(level_op, omega, npostsmooth))
+        coarse_op = self.hierarchy.operators[-1]
+        if coarse_solver.lower() == "cholesky":
+            self.coarse_sampler = DenseCholeskySampler(coarse_op)
+        else:
+            self.coarse_sampler = SSORSampler(coarse_op, omega, ncoarsesmooth)
 
-        # one fused kernel call = one visit = one directed sweep
+        if verbose > 0:
+            for level, level_op in enumerate(self.hierarchy.operators):
+                print(f"  level {level} lattice : {level_op.lattice.get_info()}")
+
+        # one fused kernel call = one visit = one directed sweep (SOR); SSOR
+        # levels run the composed visit on the sweep kernels
         self.fused_levels = {}
-        if npresmooth == 1 and npostsmooth == 1:
+        if smoother == "SOR" and npresmooth == 1 and npostsmooth == 1:
             self.fused_levels = fused_levels_for(
                 self.hierarchy.operators, self.presamplers, self.postsamplers,
                 self.coarse_scaling,
@@ -166,16 +190,24 @@ class MultigridMCSampler(Sampler):
         ``(*batch, *vshape)``; ``f`` is ``vshape`` (shared) or batched like x.
         With fused levels ``x`` may be updated in place; use the return value."""
         vdim = len(self.op.vshape)
-        if self.fused_levels and x.ndim > vdim + 1:
+        if self.fused_levels and x.ndim != vdim + 1:
             # fused kernels take one flat chain axis; reshape around the cycle
+            # (a single chain is a batch of one)
             batch = x.shape[: x.ndim - vdim]
             xf = x.reshape((-1,) + self.op.vshape).contiguous()
             ff = f
             if f.ndim > vdim:
                 ff = torch.broadcast_to(f, x.shape).reshape(xf.shape)
-            out = self._sample(0, noise, ff, xf)
+            out = self._sample(0, noise, ff.contiguous(), xf)
             return out.reshape(batch + self.op.vshape)
         if self.fused_levels and x.ndim == vdim + 1:
             x = x.contiguous()
             f = f.contiguous()
         return self._sample(0, noise, f, x)
+
+    def apply_indexed(self, noise: NoiseSource, f: torch.Tensor, x: torch.Tensor,
+                      k: int) -> torch.Tensor:
+        """One step that sees the step index ``k``.  Under the fixed sweep
+        schedule (the only one ported) every step is the same."""
+        del k
+        return self.apply(noise, f, x)

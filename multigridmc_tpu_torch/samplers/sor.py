@@ -1,4 +1,4 @@
-"""Multi-colour SOR Gibbs sampler.
+"""Multi-colour SOR and SSOR Gibbs samplers.
 
 Counterpart of ``multigridmc_tpu/samplers/sor.py``.  One stochastic sweep:
 
@@ -12,8 +12,16 @@ injected noise covariance ``M + M^T - A = D (2-omega)/omega + B Sigma^{-1} B^T``
 is exactly reproduced by the two noise terms, so the stationary distribution is
 the exact target ``N(A^{-1} f, A^{-1})`` for *any* colour order.
 
-All sweeps take arbitrary leading batch (chain) dimensions.  The SSOR sampler
-and the isolated Gibbs sweep kernels belong to a later slice of the port.
+All sweeps take arbitrary leading batch (chain) dimensions.  On a CUDA device
+in float32 every 2d or 3d sweep is one launch of the hand-written Gibbs sweep
+kernel (:mod:`multigridmc_tpu_torch.ops.kernels.sor_sweep`), which draws the
+field noise ``xi`` itself; the low-rank noise term and the Woodbury correction
+stay outside the kernel.  A single chain is a batch of one.  Where the kernel
+runs, ``apply`` updates the ``x`` it is given in place.
+
+The SSOR sampler is a forward Gibbs sweep followed by a backward one; the two
+sweeps draw independent noise (two launch counters of the Philox stream) and
+each applies the Woodbury factor of its own direction.
 """
 
 from __future__ import annotations
@@ -22,9 +30,10 @@ from typing import Optional
 
 import torch
 
-from ..ops.coloring import Coloring
+from ..ops.coloring import Coloring, coloring_for
+from ..ops.kernels.sor_sweep import flatten_chains, gibbs_sweep_batched
 from ..ops.stencil import StencilOperator
-from ..smoothers import FORWARD, SORSmoother
+from ..smoothers import BACKWARD, FORWARD, SORSmoother
 from .base import NoiseSource, Sampler
 
 
@@ -66,7 +75,70 @@ class SORSampler(Sampler):
             c = c + op.lowrank.expand(xi_lr * self.Sigma_inv_sqrt)
         return c
 
+    def _apply_kernel(self, noise: NoiseSource, f: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """One Gibbs sweep through the sweep kernel: the diagonal noise is
+        drawn inside the kernel (or, for a noise source without a Philox
+        stream, fed to it as a tensor); the low-rank noise term and the
+        Woodbury correction stay outside.  Draw order as :meth:`random_rhs`:
+        the field, then the low-rank scalars."""
+        op, sm = self.op, self.smoother
+        philox = noise.philox_stream()
+        xi = None if philox is not None else noise.normal(x.shape, x.dtype, x.device)
+        c = f
+        if op.lowrank is not None:
+            batch = x.shape[: x.ndim - len(op.vshape)]
+            xi_lr = noise.normal(batch + (op.m_lowrank,), x.dtype, x.device)
+            c = f + op.lowrank.expand(xi_lr * self.Sigma_inv_sqrt)
+        cf, xf, batch = flatten_chains(op.vshape, c, x)
+        if xi is not None:
+            xi = xi.reshape(xf.shape).contiguous()
+        x = gibbs_sweep_batched(sm.plan, cf, xf, xi=xi, philox=philox)
+        x = x.reshape(batch + op.vshape)
+        if sm.B_bar is not None:
+            x = sm._lowrank_correct(x)
+        return x
+
     def apply(self, noise: NoiseSource, f: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         for _ in range(self.nsmooth):
-            x = self.smoother.apply(self.random_rhs(noise, f, x), x)
+            if self.smoother.plan.on_kernel_device():
+                x = self._apply_kernel(noise, f, x)
+            else:
+                x = self.smoother.apply(self.random_rhs(noise, f, x), x)
         return x
+
+
+class SSORSampler(Sampler):
+    """Forward Gibbs sweep then backward Gibbs sweep per step."""
+
+    def __init__(
+        self,
+        op: StencilOperator,
+        omega: float = 1.0,
+        nsmooth: int = 1,
+        coloring: Optional[Coloring] = None,
+        device=None,
+        dtype=None,
+    ):
+        op = op.to(device, dtype)
+        super().__init__(op)
+        self.nsmooth = int(nsmooth)
+        coloring = coloring or coloring_for(op.offsets, op.vshape)
+        self.forward = SORSampler(op, omega, 1, FORWARD, coloring)
+        self.backward = SORSampler(op, omega, 1, BACKWARD, coloring)
+
+    def apply(self, noise: NoiseSource, f: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        for _ in range(self.nsmooth):
+            x = self.forward.apply(noise, f, x)
+            x = self.backward.apply(noise, f, x)
+        return x
+
+
+def sampler_factory(name: str, omega: float, nsmooth: int, direction: str = FORWARD):
+    """Returns a callable ``(op, coloring=None) -> sampler`` for per-level
+    instantiation."""
+    name = name.upper()
+    if name == "SOR":
+        return lambda op, coloring=None: SORSampler(op, omega, nsmooth, direction, coloring)
+    if name == "SSOR":
+        return lambda op, coloring=None: SSORSampler(op, omega, nsmooth, coloring)
+    raise ValueError(f"unknown sampler '{name}'")

@@ -21,8 +21,16 @@ therefore depends on the sweep direction.  ``M^{-1} B`` is computed at setup by
 colour-ordered forward substitution, exact because M is block-triangular in the
 colour order.
 
-The SSOR smoother and the isolated sweep kernels of the JAX package
-(``MGMC_PALLAS=1``) belong to a later slice of the port.
+On a CUDA device in float32 every 2d or 3d sweep is one launch of the
+hand-written deterministic sweep kernel
+(:mod:`multigridmc_tpu_torch.ops.kernels.sor_sweep`), a single field as a batch
+of one; the low-rank correction stays outside the kernel.  On the CPU, and in
+float64, the sweep is the plain masked stencil loop :func:`sor_sweep`.  Where
+the kernel runs, ``apply`` updates the ``x`` it is given in place; callers use
+the returned tensor.
+
+The SSOR smoother is a forward sweep followed by a backward sweep, each with
+the Woodbury factor of its own direction.
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ from typing import Optional, Tuple
 import torch
 
 from .ops.coloring import Coloring, coloring_for
+from .ops.kernels.sor_sweep import (SweepPlan, flatten_chains, sweep_batched,
+                                    sweep_batched_plain)
 from .ops.stencil import StencilOperator
 
 FORWARD = "forward"
@@ -60,22 +70,9 @@ def splitting_solve(
     return y
 
 
-def sor_sweep(
-    op: StencilOperator,
-    masks: torch.Tensor,
-    omega: float,
-    order: Tuple[int, ...],
-    b: torch.Tensor,
-    x: torch.Tensor,
-) -> torch.Tensor:
-    """One multi-colour SOR sweep on the stencil part:
-    ``x[l] += omega*(b[l] - (Ax)[l]) / a_ll`` colour by colour.  Returns a new
-    tensor; ``x`` is not modified."""
-    diag = op.diag_stencil()
-    for c in order:
-        ax = op.apply_stencil(x)
-        x = x + masks[c] * (omega * (b - ax) / diag)
-    return x
+#: one multi-colour SOR sweep on the stencil part, ``(op, masks, omega, order,
+#: b, x) -> x``: the plain version of the deterministic sweep kernel
+sor_sweep = sweep_batched_plain
 
 
 def woodbury_factors(
@@ -130,8 +127,15 @@ class SORSmoother:
             if op.lowrank is not None
             else None
         )
+        #: the sweep kernels' view of this smoother (one direction)
+        self.plan = SweepPlan(op, self.coloring, self.omega, self.order, self.masks)
 
     def sweep_stencil(self, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """One sweep on the stencil part.  On a CUDA device in float32 this is
+        one launch of the sweep kernel (``x`` is updated in place)."""
+        if self.plan.on_kernel_device():
+            bf, xf, batch = flatten_chains(self.op.vshape, b, x)
+            return sweep_batched(self.plan, bf, xf).reshape(batch + self.op.vshape)
         return sor_sweep(self.op, self.masks, self.omega, self.order, b, x)
 
     def _lowrank_correct(self, x: torch.Tensor) -> torch.Tensor:
@@ -149,13 +153,39 @@ class SORSmoother:
         return x
 
 
+class SSORSmoother:
+    """Symmetric SOR: one forward then one backward sweep per smoothing step.
+    Each direction carries its own Woodbury factor ``B_bar``; one direction's
+    factor is never applied to the other's sweep."""
+
+    def __init__(
+        self,
+        op: StencilOperator,
+        omega: float = 1.0,
+        nsmooth: int = 1,
+        coloring: Optional[Coloring] = None,
+        device=None,
+        dtype=None,
+    ):
+        op = op.to(device, dtype)
+        self.nsmooth = int(nsmooth)
+        coloring = coloring or coloring_for(op.offsets, op.vshape)
+        self.forward = SORSmoother(op, omega, 1, FORWARD, coloring)
+        self.backward = SORSmoother(op, omega, 1, BACKWARD, coloring)
+        self.op = op
+
+    def apply(self, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        for _ in range(self.nsmooth):
+            x = self.forward.apply(b, x)
+            x = self.backward.apply(b, x)
+        return x
+
+
 def smoother_factory(name: str, omega: float, nsmooth: int, direction: str = FORWARD):
     """Returns a callable ``op -> smoother`` for per-level instantiation."""
     name = name.upper()
     if name == "SOR":
         return lambda op: SORSmoother(op, omega, nsmooth, direction)
     if name == "SSOR":
-        raise NotImplementedError(
-            "the SSOR smoother is not ported yet (later slice: SSOR and the "
-            "alternating sweep schedule)")
+        return lambda op: SSORSmoother(op, omega, nsmooth)
     raise ValueError(f"unknown smoother '{name}'")

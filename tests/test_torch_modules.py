@@ -148,11 +148,19 @@ def test_exact_posterior_moments_match():
 
 
 def test_exact_moments_above_dense_limit_wait_for_cg():
-    big = prior.shiftedlaplace_fd(Lattice((128, 128)), ConstantCorrelationLengthModel(0.3),
-                                  device=CPU)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        posterior.observed_mean_and_variance(big, np.zeros(big.vshape), np.zeros(0),
-                                             np.ones(big.vshape))
+    """Above 4096 unknowns the moments come from the CG solver (they waited for
+    it in the first slice): float64 whatever the operator's dtype."""
+    big = prior.shiftedlaplace_fd(Lattice((80, 80)), ConstantCorrelationLengthModel(0.3),
+                                  device=CPU, dtype=torch.float64)
+    assert big.lattice.nvertex > posterior.DENSE_SOLVE_MAX_N
+    w = np.random.default_rng(5).normal(size=big.vshape)
+    mean, var = posterior.observed_mean_and_variance(big, np.ones(big.vshape), np.zeros(0), w)
+    q_inv_w = np.linalg.solve(big.to_dense_stencil(), w.reshape(-1))
+    np.testing.assert_allclose(mean, w.sum(), rtol=1e-12)
+    np.testing.assert_allclose(var, w.reshape(-1) @ q_inv_w, rtol=1e-9)
+    mean32, var32 = posterior.observed_mean_and_variance(
+        big.to(dtype=torch.float32), np.ones(big.vshape), np.zeros(0), w)
+    np.testing.assert_allclose(var32, var, rtol=1e-5)  # float32 coefficients, float64 solve
 
 
 # -------------------------------------------------------------------- intergrid

@@ -241,14 +241,22 @@ def test_default_device_without_a_gpu_raises():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(smoother="SSOR"), "SSOR"),
-    (dict(coarse_solver="SSOR"), "SSOR"),
+    (dict(smoother="SSOR"), None),
+    (dict(coarse_solver="SSOR"), None),
     (dict(distill=True), "distill"),
     (dict(distill="auto"), "distill"),
     (dict(sweep_schedule="alternating"), "alternating"),
 ], ids=["ssor", "ssor_coarse", "distill", "distill_auto", "alternating"])
 def test_unported_sampler_options_raise(kwargs, match):
+    """Options of a later slice raise; SSOR (``match=None``) is ported and must
+    construct and take a finite step."""
     op = shiftedlaplace_fd(Lattice((8, 8)), ConstantCorrelationLengthModel(0.3), device=CPU)
+    if match is None:
+        sampler = MultigridMCSampler(op, nlevel=2, **kwargs)
+        x = sampler.apply(GeneratorNoise(1, CPU), torch.zeros(op.vshape),
+                          torch.zeros((2,) + op.vshape))
+        assert x.shape == (2,) + op.vshape and bool(torch.isfinite(x).all())
+        return
     with pytest.raises(NotImplementedError, match=match):
         MultigridMCSampler(op, nlevel=2, **kwargs)
 
@@ -260,8 +268,10 @@ def test_unported_models_and_smoothers_raise():
             prior_operator(name, lattice, model, device=CPU)
     with pytest.raises(ValueError, match="unknown PDE model"):
         prior_operator("nonsense", lattice, model, device=CPU)
-    with pytest.raises(NotImplementedError, match="SSOR"):
-        smoother_factory("SSOR", 1.0, 1)
+    from multigridmc_tpu_torch.smoothers import SSORSmoother
+
+    ssor = smoother_factory("SSOR", 1.0, 1)(shiftedlaplace_fd(lattice, model, device=CPU))
+    assert isinstance(ssor, SSORSmoother)  # ported with the second slice
     with pytest.raises(ValueError, match="invalid"):
         MultigridMCSampler(shiftedlaplace_fd(lattice, model, device=CPU), 2, smoother="Jacobi")
 
