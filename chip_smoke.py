@@ -6,8 +6,9 @@
 drives the port's main paths on the flagship problem (2d 256x256 lattice,
 shifted-Laplace prior, 8 near-exact point measurements, 5-level W-cycle) - the
 batched float32 MGMC sampler (SOR, dense Cholesky on the coarsest level, 256
-chains) and the two config-file drivers - on the card and checks, one phase
-after the other:
+chains) with every level's visit fused, with its coarse subtree distilled and
+with the subtree in one kernel launch, and the two config-file drivers - on the
+card and checks, one phase after the other:
 
 1. ``device``      the card (``nvidia-smi`` name and power limit);
 2. ``build``       ``nvcc`` builds the kernel sources of ``csrc/`` (one process
@@ -21,32 +22,43 @@ after the other:
                    3d 7- and 27-point, space-varying and reach-2 operators -
                    the in-kernel Philox normals (known-answer reference,
                    moments, lag correlations, distinct streams), and the
-                   kernels' times beside their bounds;
-4. ``main_path``   the flagship sampler for a few tens of steps, with level 0
-                   fused only and with every non-coarsest level fused: finite
-                   samples, launch counters, samples/s and ms/step;
+                   kernels' times beside their bounds; then the third slice's
+                   kernels: the subtree kernel on the flagship's levels 1..4
+                   and on a 3-level 64x64 case (noise off, all normals from a
+                   tensor, the in-kernel generator with its normals recorded;
+                   ``1e-4``: one launch chains 28 sweeps and 8 coarse samples),
+                   the shared-memory probe, and the four raw-array sweep entry
+                   points with the short path that drives them;
+4. ``main_path``   the flagship sampler for a few tens of steps in four
+                   variants - every non-coarsest level's visit fused, the
+                   subtree from level 2 distilled (and once more with TF32
+                   allowed in its two products), the subtree below level 0 in
+                   one kernel launch, and level 0 fused only: finite samples,
+                   launch counters, samples/s, ms/step, set-up seconds;
 5. ``drivers``     ``drivers.mgmc`` (SSOR and MGMC time series, convergence
                    tables over 256 replica chains, posterior statistics) and
                    ``drivers.mg`` (SSOR-smoothed multigrid Richardson) from
                    config files written to a temporary directory, at the
-                   flagship's size: output files, launch counters, the
-                   Richardson contraction rate and the MGMC time series'
-                   mean against the exact one;
+                   flagship's size: output files, launch counters, the distill
+                   level ``"auto"`` chose, the Richardson contraction rate and
+                   the MGMC time series' mean against the exact one;
 6. ``statistics``  a 64x64 posterior whose exact moments are known: one step
                    under replayed noise agrees between kernels and composed
                    path; the sample mean and variance of an observable agree
                    with the exact ones within 4 standard errors, through the
-                   visit kernels, the plain path and the SSOR sampler on the
-                   Gibbs sweep kernel; and a batched deterministic solve
+                   visit kernels, the plain path, the distilled subtree, the
+                   subtree kernel with its in-kernel noise and the SSOR sampler
+                   on the Gibbs sweep kernel; and a batched deterministic solve
                    agrees with the float64 dense solve.
 
 One JSON object per line.  The line ``{"kernels": [...]}`` lists per kernel its
-launches on the main paths, its error against the plain version, its time, the
+launches on its path, its error against the plain version, its time, the
 plain version's time and its bound.  The last line is
 ``{"ok": true, "device": {...}}``; any failing phase raises and the exit code
 is not 0.  Without a CUDA device the script exits with code 1 and prints no
-result.  ``--phases`` runs a subset of the phases (and the block-size table
-``threads``) and prints no result line.
+result.  ``--phases`` runs a subset of the phases (``threads``: the visit
+kernels' block-size table; ``new``: the third slice's kernels alone) and prints
+no result line.
 """
 
 from __future__ import annotations
@@ -138,10 +150,11 @@ def device_ms_per_launch(fn, kernel, launches=20):
     return None
 
 
-def device_busy(step, nsteps):
+def device_busy(step, nsteps, pattern=r"trsm|triang"):
     """Device time of ``nsteps`` calls of ``step`` from ``torch.profiler``: ms of
-    kernel time per step and the three kernels that take most of it.  None when
-    the profiler shows no device time."""
+    kernel time per step, the kernels that take most of it, and the kernels
+    whose name matches ``pattern`` (the triangular solves of the coarse
+    sampler).  None when the profiler shows no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -163,7 +176,9 @@ def device_busy(step, nsteps):
     return {"kernel_ms_per_step": sum(r[1] for r in rows),
             "kernels_per_step": sum(r[2] for r in rows),
             "top": [{"name": r[0][:60], "ms_per_step": r[1], "calls_per_step": r[2]}
-                    for r in rows[:4]]}
+                    for r in rows[:4]],
+            "matching": [{"name": r[0][:60], "ms_per_step": r[1], "calls_per_step": r[2]}
+                         for r in rows if re.search(pattern, r[0])]}
 
 
 # --------------------------------------------------------------- phase: device
@@ -179,12 +194,14 @@ def phase_device():
 
 # ---------------------------------------------------------------- phase: build
 def phase_build():
-    from multigridmc_tpu_torch.ops.kernels import common, mgmc_visit, sor_sweep
+    from multigridmc_tpu_torch.ops.kernels import common, mgmc_subtree, mgmc_visit, sor_sweep
 
     t0 = time.perf_counter()
-    paths = common.build_libraries([mgmc_visit.SOURCE_NAME, sor_sweep.SOURCE_NAME])
+    paths = common.build_libraries(common.SOURCES)
     mgmc_visit.load_library()
     sor_sweep.load_library()
+    mgmc_subtree.load_library()
+    common.load_probe_library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {f"multigridmc_tpu_torch/csrc/{name}.cu": path.name
                         for name, path in paths.items()}})
@@ -226,11 +243,12 @@ def visit_bound(level, C, f_batched, kind):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), 4 * words
 
 
-def compare(name, got, want):
+def compare(name, got, want, tol=TOL):
     err = float((got - want).abs().max())
-    ok = bool(torch.allclose(got, want, rtol=TOL, atol=TOL))
+    ok = bool(torch.allclose(got, want, rtol=tol, atol=tol))
     if not ok or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"{name}: kernel and plain version disagree, max abs err {err}")
+        raise AssertionError(f"{name}: kernel and plain version disagree, max abs err {err} "
+                             f"(values up to {float(want.abs().max())})")
     return err
 
 
@@ -574,6 +592,355 @@ def time_sweeps(device, noise):
     return rows
 
 
+# ------------------------------------- phase: kernels (subtree, probe, v1 sweeps)
+#: the subtree kernel against its plain version.  One launch chains 28 sweeps,
+#: 14 residuals and transfers and 8 coarse samples of float32 arithmetic that
+#: the plain version does in another summation order, where a single visit
+#: (TOL) does one of each.
+SUBTREE_TOL = 1e-4
+
+
+def subtree_bound(kernel, C):
+    """Least time of one subtree launch on the card: ``f`` read and ``x``
+    written once per chain plus what the kernel is handed by pointer once
+    (planes that are not constant, ``B`` and ``Y`` inside their boxes, the small
+    matrices, the inverse factor and its transpose), over the memory rate,
+    against the float32 operations of every visit and coarse sample of the
+    schedule (per point as in ``visit_bound``; a coarse sample is two triangular
+    matrix-vector products, ``2 nc^2`` operations, and ``10 nc`` for its
+    normals) over the peak rate."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_subtree as st
+
+    def area(boxes):
+        return sum((i1 - i0) * (j1 - j0) for i0, i1, j0, j1 in boxes)
+
+    words = C * 2 * kernel.level_sizes[0] + 2 * kernel.nc ** 2
+    for lv, n in zip(kernel.levels, kernel.level_sizes):
+        m = lv.op.m_lowrank
+        words += n * sum(c is None for c in lv.const_coeffs) + (n if lv.ns_const is None else 0)
+        words += area(lv.bbox) + sum(area(lv._woodbury[o][2])
+                                     for o in {lv.pre_order, lv.post_order})
+        words += 2 * m * m + m * m + 2 * m
+    flops = 0
+    for op, li in kernel.schedule:
+        if op == st.OP_COARSE:
+            flops += 2 * kernel.nc ** 2 + 10 * kernel.nc
+            continue
+        lv, n = kernel.levels[li], kernel.level_sizes[li]
+        K, m = len(lv.op.offsets), lv.op.m_lowrank
+        per_point = 42 + 2 * m + 2 * K + 4 + 4 * m
+        if op == st.OP_ASCEND:
+            flops += n * (per_point + 8)
+        else:
+            flops += n * (per_point + 2 * K + 1 + 2 * m) + 18 * int(np.prod(lv.vc))
+    t_bytes = 4 * words / PEAK_BYTES_PER_S * 1e3
+    t_ops = C * flops / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), 4 * words
+
+
+def check_subtree(device, nx, nlevel, C, n_meas, gen):
+    """The subtree kernel against ``subtree_sample_plain``: the flagship's
+    levels 1 .. coarsest at ``C`` chains and a 3-level 64x64 case; noise off,
+    all normals from one tensor, and the in-kernel generator (its recorded
+    normals fed to the plain version, known answers of one field, one low-rank
+    and one coarse draw, equal seeds bitwise equal, and a placement with every
+    field in the global workspace bitwise equal to the one in shared memory)."""
+    from multigridmc_tpu_torch.ops.kernels import common
+    from multigridmc_tpu_torch.ops.kernels import mgmc_subtree as st
+    from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
+
+    rows, max_err = [], 0.0
+    seed = 0x5EED_0F_7E57
+    for name, (cx, cl, cm) in (("flagship_levels_1_to_4", (nx, nlevel, n_meas)),
+                               ("64x64_3_levels", (64, 3, 4))):
+        # O(1) measurement variances, as for the visits' elementwise checks
+        op, _ = build_posterior(cx, cm, FLAGSHIP_SEED, "order_one", device)
+        sampler = MultigridMCSampler(op, cl, cycle=2, subtree=True)
+        kernel = sampler.subtree
+        vshape = kernel.vshape
+        f = torch.randn((C,) + tuple(vshape), device=device, generator=gen)
+        K = kernel.count_noise()
+        xi = torch.randn((C, K), device=device, generator=gen)
+        row = {"case": name, "chains": C, "vshape": list(vshape), "normals_per_chain": K,
+               "draws": kernel.count_draws(), "schedule_ops": len(kernel.schedule),
+               "placement": kernel.placement}
+        row["err_noise_off"] = compare(
+            f"subtree {name} noise off", st.subtree_sample(kernel, f),
+            st.subtree_sample_plain(kernel, f), SUBTREE_TOL)
+        row["err_shared_noise"] = compare(
+            f"subtree {name} shared noise", st.subtree_sample(kernel, f, xi=xi),
+            st.subtree_sample_plain(kernel, f, xi), SUBTREE_TOL)
+        # the in-kernel generator
+        x1, rec = st.subtree_sample(kernel, f, philox=(seed, 100), record=True)
+        x2 = st.subtree_sample(kernel, f, philox=(seed, 100))
+        if not torch.equal(x1, x2):
+            raise AssertionError(f"subtree {name}: equal seeds and counters gave different output")
+        if torch.equal(x1, st.subtree_sample(kernel, f, philox=(seed, 100 + kernel.count_draws()))):
+            raise AssertionError(f"subtree {name}: another counter gave the same output")
+        row["err_philox_vs_plain_on_recorded_normals"] = compare(
+            f"subtree {name} in-kernel noise", x1, st.subtree_sample_plain(kernel, f, rec),
+            SUBTREE_TOL)
+        # known answers: draw d of the launch uses the counter 100 + d
+        shapes = kernel.draw_shapes(C)
+        offsets = np.concatenate([[0], np.cumsum([int(np.prod(sh[1:])) for sh in shapes])])
+        picks = {"field": 0, "lowrank": 1, "coarse": next(
+            d for d, sh in enumerate(shapes) if sh == (C, kernel.nc))}
+        chains = [0, 1, C - 1]
+        ka = {}
+        for what, d in picks.items():
+            width = int(np.prod(shapes[d][1:]))
+            got = rec[:, offsets[d]:offsets[d] + width].cpu().numpy()
+            ref_shape = shapes[d][1:] if what == "field" else (1, width)
+            ref = common.philox_normals_reference(seed, 100 + d, C, ref_shape).reshape(C, width)
+            ka[what] = float(np.abs(got[chains] - ref[chains]).max())
+            if ka[what] > 2e-5:
+                raise AssertionError(f"subtree {name}: {what} normals differ from the "
+                                     f"reference by {ka[what]}")
+        row["philox_known_answer_max_err"] = ka
+        zd = rec.double()
+        row["philox_moments"] = {"draws": zd.numel(), "mean": float(zd.mean()),
+                                 "var": float(zd.var()), "m4": float((zd ** 4).mean())}
+        N = zd.numel()
+        mom = row["philox_moments"]
+        if not (abs(mom["mean"]) < 5 / np.sqrt(N) and abs(mom["var"] - 1) < 5 * np.sqrt(2 / N)
+                and abs(mom["m4"] - 3) < 5 * np.sqrt(96 / N)):
+            raise AssertionError(f"subtree {name}: moments of the in-kernel normals {mom}")
+        # every field in the global workspace: the same arithmetic, bitwise
+        flat = st.SubtreeKernel(
+            sampler.hierarchy.operators[1:],
+            [p.smoother for p in sampler.presamplers[1:cl - 1]],
+            [p.smoother for p in sampler.postsamplers[1:cl - 1]],
+            sampler.coarse_sampler.L, 1.0, 2, 1.0, smem_budget=0)
+        if flat.placement["shared_bytes"] != 0:
+            raise AssertionError("subtree: smem_budget=0 still placed fields in shared memory")
+        if not torch.equal(st.subtree_sample(flat, f, xi=xi), st.subtree_sample(kernel, f, xi=xi)):
+            raise AssertionError(f"subtree {name}: the placement changed the result")
+        torch.cuda.synchronize()
+        max_err = max(max_err, row["err_noise_off"], row["err_shared_noise"],
+                      row["err_philox_vs_plain_on_recorded_normals"])
+        rows.append(row)
+    return max_err, rows
+
+
+def time_subtree(device, nx, nlevel, C, n_meas, noise):
+    """ms per launch of the subtree kernel at the flagship's shape (in-kernel
+    noise, the production operator), its device time, its plain version (the
+    normals drawn inside the timed region) and its bound."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_subtree as st
+    from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
+
+    op, _ = build_posterior(nx, n_meas, FLAGSHIP_SEED, "near_exact", device)
+    sampler = MultigridMCSampler(op, nlevel, cycle=2, subtree=True)
+    kernel = sampler.subtree
+    sub_ops = sampler.hierarchy.operators[1:]
+    pre = [p.smoother for p in sampler.presamplers[1:nlevel - 1]]
+    post = [p.smoother for p in sampler.postsamplers[1:nlevel - 1]]
+    L = sampler.coarse_sampler.L
+    f = torch.rand((C,) + tuple(kernel.vshape), device=device)
+    K = kernel.count_noise()
+    bound, by, nbytes = subtree_bound(kernel, C)
+    out = {"chains": C, "vshape": list(kernel.vshape), "threads": kernel.threads,
+           "placement": kernel.placement, "bound_ms": bound, "bound_by": by,
+           "bound_bytes": nbytes}
+    out["ms"] = cuda_ms(lambda: kernel.sample(noise, f), 5, 10)
+    out["device_ms"] = device_ms_per_launch(lambda: kernel.sample(noise, f), "mgmc_subtree_kernel")
+    out["plain_ms"] = cuda_ms(lambda: st.subtree_sample_plain(
+        kernel, f, torch.randn((C, K), device=device)), 3, 2)
+    # other block sizes and placements, the default among them
+    default_budget = kernel.smem_budget
+    out["variants"] = []
+    for threads, budget in ((256, None), (512, None), (1024, None), (512, 0), (1024, 0)):
+        k = st.SubtreeKernel(sub_ops, pre, post, L, 1.0, 2, 1.0, smem_budget=budget)
+        k.threads = threads
+        out["variants"].append({
+            "threads": threads, "shared_bytes": k.placement["shared_bytes"],
+            "default": threads == kernel.threads and k.smem_budget == default_budget,
+            "device_ms": device_ms_per_launch(lambda: k.sample(noise, f), "mgmc_subtree_kernel",
+                                              launches=10)})
+    return out
+
+
+def check_probe(device):
+    """The shared-memory probe: granted 232,448 bytes (the H100's opt-in
+    maximum), refused more, and its copy equals its input."""
+    from multigridmc_tpu_torch.ops.kernels import common
+
+    x = torch.randn(common.PROBE_SHAPE, device=device)
+    limit = common.dynamic_smem_limit(device)
+    got = common.smem_copy(x, limit)
+    err = float((got - common.smem_copy_plain(x)).abs().max())
+    granted = common.probe_dynamic_smem(232448, device)
+    refused_more = not common.probe_dynamic_smem(232448 + 1024, device)
+    small = common.probe_dynamic_smem(4096, device)
+    torch.cuda.synchronize()
+    out = {"limit_bytes": limit, "grants_232448": granted, "refuses_233472": refused_more,
+           "grants_4096": small, "max_abs_err": err}
+    if err != 0.0 or not granted or not refused_more or not small or limit != 232448:
+        raise AssertionError(f"shared-memory probe: {out}")
+    nbytes = 2 * 4 * x.numel()
+    out.update({"bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                "bound_bytes": nbytes,
+                "ms": cuda_ms(lambda: common.smem_copy(x, limit), 5, 50),
+                "device_ms": device_ms_per_launch(lambda: common.smem_copy(x, limit),
+                                                  "smem_probe_kernel"),
+                "plain_ms": cuda_ms(lambda: common.smem_copy_plain(x), 5, 50),
+                # the one PyTorch call that computes the same function
+                "library_ms": cuda_ms(lambda: x.clone(), 5, 50)})
+    return out
+
+
+V1_NAMES = ("fused_sor_sweep", "fused_sor_sweep_batched", "fused_gibbs_sweep_batched",
+            "fused_gibbs_sweep")
+V1_LINES = {"fused_sor_sweep": 230, "fused_sor_sweep_batched": 268,
+            "fused_gibbs_sweep_batched": 315, "fused_gibbs_sweep": 401}
+
+
+def v1_problem(device, nx):
+    """Raw arrays of the flagship's prior (5-point, 255^2) as the v1 entry
+    points take them."""
+    from multigridmc_tpu_torch.lattice import Lattice
+    from multigridmc_tpu_torch.models.correlation import ConstantCorrelationLengthModel
+    from multigridmc_tpu_torch.models.prior import shiftedlaplace_fd
+    from multigridmc_tpu_torch.ops.coloring import coloring_for
+
+    op = shiftedlaplace_fd(Lattice((nx, nx)), ConstantCorrelationLengthModel(0.2), device=device)
+    coloring = coloring_for(op.offsets, op.vshape)
+    kw = dict(offsets=op.offsets, diag_index=op.diag_index, omega=1.3,
+              color_weights=coloring.weights, n_colors=coloring.n_colors)
+    return op, coloring, kw
+
+
+def check_v1_sweeps(device, nx, C, gen, noise):
+    """The four raw-array entry points against their plain versions (both
+    directions; noise off and a shared ``xi``), the seeded Gibbs entry against
+    the plan-based wrapper on the same Philox stream, and their times."""
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+    from multigridmc_tpu_torch.smoothers import SORSmoother
+
+    op, coloring, kw = v1_problem(device, nx)
+    coeffs = op.coeffs.contiguous()
+    n, K = int(np.prod(op.vshape)), len(op.offsets)
+    errs = dict.fromkeys(V1_NAMES, 0.0)
+    x = torch.randn((C,) + op.vshape, device=device, generator=gen)
+    b = torch.randn((C,) + op.vshape, device=device, generator=gen)
+    xi = torch.randn((C,) + op.vshape, device=device, generator=gen)
+    for order in (tuple(range(coloring.n_colors)), tuple(reversed(range(coloring.n_colors)))):
+        k = dict(order=order, **kw)
+        errs["fused_sor_sweep_batched"] = max(errs["fused_sor_sweep_batched"], compare(
+            "v1 batched sweep", ss.fused_sor_sweep_batched(coeffs, b, x, **k),
+            ss.fused_sor_sweep_batched_plain(coeffs, b, x, **k)))
+        errs["fused_sor_sweep"] = max(errs["fused_sor_sweep"], compare(
+            "v1 single sweep", ss.fused_sor_sweep(coeffs, b[0], x[0], **k),
+            ss.fused_sor_sweep_plain(coeffs, b[0], x[0], **k)))
+        errs["fused_gibbs_sweep_batched"] = max(errs["fused_gibbs_sweep_batched"], compare(
+            "v1 batched Gibbs sweep",
+            ss.fused_gibbs_sweep_batched(None, coeffs, b, x, xi=xi, **k),
+            ss.fused_gibbs_sweep_batched_plain(xi, coeffs, b, x, **k)))
+        errs["fused_gibbs_sweep"] = max(errs["fused_gibbs_sweep"], compare(
+            "v1 single Gibbs sweep",
+            ss.fused_gibbs_sweep(None, coeffs, b[1], x[1], xi=xi[1], **k),
+            ss.fused_gibbs_sweep_plain(xi[1], coeffs, b[1], x[1], **k)))
+    # a seed is the Philox stream (seed, 0): the plan-based wrapper on the same stream
+    k = dict(order=tuple(range(coloring.n_colors)), **kw)
+    plan = SORSmoother(op, 1.3, 1).plan
+    seeded = ss.fused_gibbs_sweep_batched(77, coeffs, b, x, **k)
+    compare("v1 seeded Gibbs sweep against gibbs_sweep_batched",
+            seeded, ss.gibbs_sweep_batched(plan, b, x.clone(), philox=(77, 0)))
+    if not torch.equal(seeded, ss.fused_gibbs_sweep_batched(77, coeffs, b, x, **k)):
+        raise AssertionError("v1 Gibbs sweep: equal seeds gave different output")
+    drawn = seeded - ss.fused_sor_sweep_batched(coeffs, b, x, **k)  # the sweep of the noise alone
+    if torch.equal(drawn[0], drawn[1]):
+        raise AssertionError("v1 Gibbs sweep: two chains share a stream")
+    torch.cuda.synchronize()
+
+    # times: the batched entries at C chains, the single ones on one field; all
+    # coefficient planes are read from the tensor here
+    timings = {}
+    for name in V1_NAMES:
+        single = name in ("fused_sor_sweep", "fused_gibbs_sweep")
+        chains = 1 if single else C
+        bb, xx = (b[0], x[0]) if single else (b, x)
+        words = chains * n * 3 + K * n + (0 if "sor" in name else n)
+        flops = chains * n * (2 * K + 4 + (0 if "sor" in name else 42))
+        t_bytes, t_ops = 4 * words / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+        if "gibbs" in name:
+            def call():
+                return getattr(ss, name)(noise.philox_stream()[1] + 1, coeffs, bb, xx, **k)
+
+            def plain():
+                return getattr(ss, name + "_plain")(torch.randn_like(xx), coeffs, bb, xx, **k)
+            kernel_name = "gibbs_sweep_kernel"
+        else:
+            def call():
+                return getattr(ss, name)(coeffs, bb, xx, **k)
+
+            def plain():
+                return getattr(ss, name + "_plain")(coeffs, bb, xx, **k)
+            kernel_name = "sor_sweep_kernel"
+        timings[name] = {
+            "chains": chains, "vshape": list(op.vshape),
+            "ms": cuda_ms(call, 5, 10 if chains > 1 else 50),
+            "device_ms": device_ms_per_launch(call, kernel_name),
+            "plain_ms": cuda_ms(plain, 3, 3),
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": 4 * words}
+    return errs, timings
+
+
+def drive_v1_path(device, nx, C):
+    """The path of the four raw-array entry points: a few SSOR Gibbs steps of
+    ``C`` chains and of one chain on the flagship's prior, then SOR iterations
+    on ``A x = b`` for ``C`` right-hand sides and for one, whose residual must
+    fall.  Returns the launch counts of that run."""
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+
+    op, coloring, kw = v1_problem(device, nx)
+    coeffs = op.coeffs.contiguous()
+    fwd = tuple(range(coloring.n_colors))
+    bwd = tuple(reversed(fwd))
+    f = torch.zeros((C,) + op.vshape, device=device)
+    ss.reset_launch_counts()
+    x, x1 = torch.zeros_like(f), torch.zeros_like(f[0])
+    for step in range(10):
+        for order in (fwd, bwd):
+            x = ss.fused_gibbs_sweep_batched(1000 + 2 * step + (order == bwd), coeffs, f, x,
+                                             order=order, **kw)
+            x1 = ss.fused_gibbs_sweep(np.array([5, 6, step, order == bwd], dtype=np.uint32),
+                                      coeffs, f[0], x1, order=order, **kw)
+    b = torch.randn((C,) + op.vshape, device=device)
+    y, y1 = torch.zeros_like(b), torch.zeros_like(b[0])
+    r0 = float((b - op.apply_stencil(y)).norm())
+    for _ in range(10):
+        for order in (fwd, bwd):
+            y = ss.fused_sor_sweep_batched(coeffs, b, y, order=order, **kw)
+            y1 = ss.fused_sor_sweep(coeffs, b[0], y1, order=order, **kw)
+    torch.cuda.synchronize()
+    r = float((b - op.apply_stencil(y)).norm())
+    counts = {name: ss.launch_counts[name] for name in V1_NAMES}
+    ok = (bool(torch.isfinite(x).all()) and bool(torch.isfinite(x1).all()) and r < 0.5 * r0
+          and float((y[0] - y1).abs().max()) < 1e-4 and float(x.std()) > 0
+          and all(c == 20 for c in counts.values()))
+    out = {"gibbs_sample_std": float(x.std()), "residual_start": r0, "residual_after_10_ssor": r,
+           "single_vs_batched_max_abs": float((y[0] - y1).abs().max()), "launches": counts}
+    if not ok:
+        raise AssertionError(f"v1 path: {out}")
+    return counts, out
+
+
+def phase_new_kernels(device, nx, nlevel, C, n_meas, gen, noise):
+    """The kernels of the third slice: checks, times, and the v1 path."""
+    subtree_err, subtree_checks = check_subtree(device, nx, nlevel, C, n_meas, gen)
+    subtree_timing = time_subtree(device, nx, nlevel, C, n_meas, noise)
+    probe = check_probe(device)
+    v1_errs, v1_timings = check_v1_sweeps(device, nx, C, gen, noise)
+    v1_counts, v1_path = drive_v1_path(device, nx, C)
+    emit({"phase": "kernels_third_slice", "subtree_tolerance": SUBTREE_TOL,
+          "subtree_checks": subtree_checks, "subtree_timing": subtree_timing, "probe": probe,
+          "v1_max_abs_err": v1_errs, "v1_timings": v1_timings, "v1_path": v1_path})
+    return {"subtree_err": subtree_err, "subtree_timing": subtree_timing, "probe": probe,
+            "v1_errs": v1_errs, "v1_timings": v1_timings, "v1_counts": v1_counts}
+
+
 def phase_kernels(device, nx, nlevel, C, n_meas):
     from multigridmc_tpu_torch.samplers.base import GeneratorNoise
     from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
@@ -581,7 +948,8 @@ def phase_kernels(device, nx, nlevel, C, n_meas):
     # elementwise checks with O(1) measurement variances: with near-exact ones
     # both sides share a float32 cancellation that such a check cannot separate
     op, _ = build_posterior(nx, n_meas, FLAGSHIP_SEED, "order_one", device)
-    sampler = MultigridMCSampler(op, nlevel, cycle=2, fused=True, fused_min_vertices=0)
+    sampler = MultigridMCSampler(op, nlevel, cycle=2, fused=True, fused_min_vertices=0,
+                                 distill=False)
     gen = torch.Generator(device=device)
     gen.manual_seed(11)
     errs = {"descend_visit": 0.0, "ascend_visit": 0.0}
@@ -598,7 +966,8 @@ def phase_kernels(device, nx, nlevel, C, n_meas):
 
     # times at the production operator (near-exact measurements), all fused levels
     op, _ = build_posterior(nx, n_meas, FLAGSHIP_SEED, "near_exact", device)
-    sampler = MultigridMCSampler(op, nlevel, cycle=2, fused=True, fused_min_vertices=0)
+    sampler = MultigridMCSampler(op, nlevel, cycle=2, fused=True, fused_min_vertices=0,
+                                 distill=False)
     noise = GeneratorNoise(5, device)
     timings = []
     for li, level in sorted(sampler.fused_levels.items()):
@@ -616,7 +985,8 @@ def phase_kernels(device, nx, nlevel, C, n_meas):
     emit({"phase": "kernels", "tolerance": TOL, "max_abs_err": errs, "checks": by_level,
           "philox": philox, "timings": timings, "sweep_checks": sweep_checks,
           "sweep_philox": sweep_philox, "sweep_timings": sweep_timings})
-    return errs, timings, sweep_timings
+    third = phase_new_kernels(device, nx, nlevel, C, n_meas, gen, noise)
+    return errs, timings, sweep_timings, third
 
 
 def phase_threads(device, nx, nlevel, C, n_meas):
@@ -627,7 +997,8 @@ def phase_threads(device, nx, nlevel, C, n_meas):
     from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
 
     op, _ = build_posterior(nx, n_meas, FLAGSHIP_SEED, "near_exact", device)
-    sampler = MultigridMCSampler(op, nlevel, cycle=2, fused=True, fused_min_vertices=0)
+    sampler = MultigridMCSampler(op, nlevel, cycle=2, fused=True, fused_min_vertices=0,
+                                 distill=False)
     noise = GeneratorNoise(5, device)
     rows = []
     for li, level in sorted(sampler.fused_levels.items()):
@@ -642,8 +1013,28 @@ def phase_threads(device, nx, nlevel, C, n_meas):
 
 
 # ------------------------------------------------------------ phase: main_path
+class _FixedNoise:
+    """A noise source that hands out one stored tensor (for comparing two
+    precisions of one map on the same normals)."""
+
+    def __init__(self, xi):
+        self.xi = xi
+
+    def normal(self, shape, dtype, device):
+        return self.xi.reshape(shape)
+
+
 def phase_main_path(device, nx, nlevel, C, n_meas, steps, smi):
+    """The flagship at full width through four variants of the cycle below
+    level 0: every level's visit fused, the subtree from level 2 distilled, the
+    subtree below level 0 in one kernel launch, and level 0 fused only (at a
+    smaller depth).  Each variant is built and driven with the launch counts
+    set to 0 just before (the subtree variant's construction launches the
+    shared-memory probe) and read just after."""
+    from multigridmc_tpu_torch.ops.kernels import common
+    from multigridmc_tpu_torch.ops.kernels import mgmc_subtree as st
     from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
     from multigridmc_tpu_torch.samplers.base import GeneratorNoise
     from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
 
@@ -651,43 +1042,97 @@ def phase_main_path(device, nx, nlevel, C, n_meas, steps, smi):
     f = torch.as_tensor(np.random.default_rng(0).uniform(size=op.vshape),
                         dtype=torch.float32, device=device)
     n0 = op.lattice.nvertex
-    results = {}
-    counts_default = None
-    # level 0 fused only / every non-coarsest level fused (None = the default)
-    for name, min_vertices, nsteps in (("level0_fused", n0, max(steps // 3, 2)),
-                                       ("all_levels_fused", None, steps)):
+    results, counts_by_variant = {}, {}
+    variants = (
+        ("all_levels_fused", dict(distill=False), steps),
+        ("distilled", dict(distill=True), steps),
+        ("distilled_tf32", dict(distill=True, distill_precision="default"), steps),
+        ("subtree_kernel", dict(subtree=True), steps),
+        ("level0_fused", dict(distill=False, fused_min_vertices=n0), max(steps // 3, 2)),
+    )
+    for name, kwargs, nsteps in variants:
+        for module in (mv, ss, st, common):
+            module.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         sampler = MultigridMCSampler(op, nlevel, smoother="SOR", coarse_solver="Cholesky",
-                                     omega=1.0, cycle=2, fused_min_vertices=min_vertices)
+                                     omega=1.0, cycle=2, **kwargs)
+        torch.cuda.synchronize()
+        setup_seconds = time.perf_counter() - t0
+        setup_counts = {**mv.launch_counts, **ss.launch_counts, **st.launch_counts,
+                        **common.launch_counts}
+        coarse_calls = [0]
+        coarse_apply = sampler.coarse_sampler.apply
+
+        def counted_coarse(*args, _apply=coarse_apply, _calls=coarse_calls):
+            _calls[0] += 1
+            return _apply(*args)
+
+        sampler.coarse_sampler.apply = counted_coarse
         noise = GeneratorNoise(FLAGSHIP_SEED, device)
         x = torch.zeros((C,) + op.vshape, dtype=torch.float32, device=device)
         for _ in range(2):  # warm-up: caches, allocator, lazily built buffers
             x = sampler.apply(noise, f, x)
         torch.cuda.synchronize()
         mv.reset_launch_counts()
+        st.reset_launch_counts()
+        coarse_calls[0] = 0
         t0 = time.perf_counter()
         for _ in range(nsteps):
             x = sampler.apply(noise, f, x)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        counts = dict(mv.launch_counts)
+        counts = {**mv.launch_counts, **st.launch_counts,
+                  "smem_probe": setup_counts["smem_probe"]}
+        coarse_per_step = coarse_calls[0] / nsteps
         if tuple(x.shape) != (C,) + op.vshape or not bool(torch.isfinite(x).all()):
             raise AssertionError(f"main path ({name}): samples not finite or of wrong shape")
-        fused = sorted(sampler.fused_levels)
-        # the W-cycle visits level l 2^l times per step
-        expected = nsteps * sum(2 ** li for li in fused)
-        if counts["descend_visit"] != expected or counts["ascend_visit"] != expected:
-            raise AssertionError(f"main path ({name}): launches {counts}, expected {expected} each")
+        # the W-cycle visits level l 2^l times per step, down to where the
+        # distilled map or the subtree kernel takes over
+        below = sampler.distill_level if sampler.distilled is not None else (
+            1 if sampler.subtree is not None else nlevel)
+        visited = [li for li in sorted(sampler.fused_levels) if li < below]
+        expected = nsteps * sum(2 ** li for li in visited)
+        expected_subtree = nsteps if sampler.subtree is not None else 0
+        if (counts["descend_visit"] != expected or counts["ascend_visit"] != expected
+                or counts["subtree_sample"] != expected_subtree
+                or (sampler.subtree is not None and counts["smem_probe"] < 1)):
+            raise AssertionError(f"main path ({name}): launches {counts}, expected {expected} "
+                                 f"visits each and {expected_subtree} subtree launches")
         busy = device_busy(lambda: sampler.apply(noise, f, x), 3)
-        results[name] = {"fused_levels": fused, "device_busy": busy, "steps": nsteps,
-                         "ms_per_step": 1e3 * dt / nsteps,
-                         "samples_per_s": C * nsteps / dt, "launches": counts,
-                         "launches_per_step": expected // nsteps,
-                         "sample_std": float(x.std())}
-        if min_vertices is None:
-            counts_default = counts
+        res = {"fused_levels": sorted(sampler.fused_levels), "visited_levels": visited,
+               "distill_level": sampler.distill_level, "subtree": sampler.subtree is not None,
+               "setup_seconds": setup_seconds, "device_busy": busy, "steps": nsteps,
+               "ms_per_step": 1e3 * dt / nsteps, "samples_per_s": C * nsteps / dt,
+               "launches": counts, "setup_launches": setup_counts,
+               "visit_launches_per_step": 2 * expected // nsteps,
+               "coarse_sampler_calls_per_step": coarse_per_step,
+               "sample_std": float(x.std())}
+        if sampler.distilled is not None:
+            d = sampler.distilled
+            res["distilled"] = {**d.info, "vshape": list(d.vshape), "precision": d.precision,
+                                "T_bytes": d.Tm.numel() * d.Tm.element_size(),
+                                "S_bytes": d.S_T.numel() * d.S_T.element_size()}
+        if sampler.subtree is not None:
+            res["placement"] = sampler.subtree.placement
+        if name == "distilled_tf32":
+            # the map's perturbation by TF32 on the same f and the same normals
+            fc = torch.randn((C,) + d.vshape, device=device)
+            fixed = _FixedNoise(torch.randn((C, d.n), device=device))
+            x_tf32 = d.apply(fixed, fc)
+            d.precision = None
+            x_fp32 = d.apply(fixed, fc)
+            d.precision = "default"
+            res["tf32_map_perturbation"] = {
+                "max_abs": float((x_tf32 - x_fp32).abs().max()),
+                "sample_max_abs": float(x_fp32.abs().max()), "sample_std": float(x_fp32.std())}
+            if torch.backends.cuda.matmul.allow_tf32:
+                raise AssertionError("main path: the TF32 context leaked into the process")
+        results[name] = res
+        counts_by_variant[name] = counts
     emit({"phase": "main_path", "card": smi, "chains": C, "lattice": [nx, nx], "nlevel": nlevel,
           "cycle": 2, "dtype": "float32", **results})
-    return counts_default, results
+    return counts_by_variant, results
 
 
 # -------------------------------------------------------------- phase: drivers
@@ -821,7 +1266,8 @@ def phase_drivers(device, nx, nlevel, n_meas, nchains, nsamples, nwarmup, smi):
             seconds = time.perf_counter() - t0
             counts_mgmc = {**mv.launch_counts, **ss.launch_counts}
             report = [line for line in text.splitlines()
-                      if re.search(r"time per sample|mean  |variance =|setup time|zero-mean", line)]
+                      if re.search(r"time per sample|mean  |variance =|setup time|zero-mean"
+                                   r"|distilled subtree", line)]
             print("\n".join(report), flush=True)
             res = {"seconds": seconds, "launches": counts_mgmc}
             for label in ("ssor", "multigridmc"):
@@ -845,6 +1291,12 @@ def phase_drivers(device, nx, nlevel, n_meas, nchains, nsamples, nwarmup, smi):
             exact_var = float(re.search(r"exact variance =\s+(\S+)", text).group(1))
             res["exact"] = {"mean": exact_mean, "variance": exact_var}
             res["setup_seconds"] = float(re.search(r"setup time .* = (\S+) s", text).group(1))
+            chosen = re.search(r"multigridmc distilled subtree: level (\d+) \((\d+) vertices\)", text)
+            if chosen is None or int(chosen.group(1)) != 2:
+                raise AssertionError("drivers.mgmc: distill='auto' did not choose level 2 "
+                                     "on the card:\n" + text[-1500:])
+            res["distill_level"] = int(chosen.group(1))
+            res["distill_vertices"] = int(chosen.group(2))
             fields = read_vtk_scalars("posterior.vtk")
             for name in ("mean", "variance", "mean_exact"):
                 if fields[name].shape != (n_vertices,) or not np.isfinite(fields[name]).all():
@@ -910,6 +1362,10 @@ def phase_drivers(device, nx, nlevel, n_meas, nchains, nsamples, nwarmup, smi):
                 "contraction_rates_float64_plain": rates64,
                 "setup_seconds": float(re.search(r"multigrid setup time = (\S+) s", text).group(1)),
                 "solve_seconds": float(re.search(r"solve time = (\S+) s", text).group(1))}
+            chosen = re.search(r"distilled deterministic subtree: level (\d+)", text)
+            out["mg"]["distill_level"] = None if chosen is None else int(chosen.group(1))
+            if out["mg"]["distill_level"] != 2:
+                raise AssertionError("drivers.mg: distill='auto' did not choose level 2")
         finally:
             os.chdir(cwd)
     emit(out)
@@ -946,6 +1402,7 @@ def phase_statistics(device, nx, C, warmup, steps):
     from multigridmc_tpu_torch.models.posterior import (measurement_vector,
                                                         observed_mean_and_variance,
                                                         posterior_mean)
+    from multigridmc_tpu_torch.ops.kernels import mgmc_subtree as st
     from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
     from multigridmc_tpu_torch.samplers.base import (GeneratorNoise, MeanShiftedSampler,
                                                      ReplayNoise)
@@ -959,8 +1416,8 @@ def phase_statistics(device, nx, C, warmup, steps):
     # (1) one W-cycle step under the same noise: kernels (noise fed as tensors)
     # against the composed plain path; elementwise, so O(1) variances as above
     op, _ = build_posterior(nx, 4, 77, "order_one", device)
-    fused = MultigridMCSampler(op, 3, cycle=2, fused=True, fused_min_vertices=0)
-    composed = MultigridMCSampler(op, 3, cycle=2, fused=False)
+    fused = MultigridMCSampler(op, 3, cycle=2, fused=True, fused_min_vertices=0, distill=False)
+    composed = MultigridMCSampler(op, 3, cycle=2, fused=False, distill=False)
     rng = np.random.default_rng(3)
     f = torch.as_tensor(rng.normal(size=op.vshape), dtype=torch.float32, device=device)
     x0 = torch.as_tensor(rng.normal(size=(8,) + op.vshape), dtype=torch.float32, device=device)
@@ -981,10 +1438,19 @@ def phase_statistics(device, nx, C, warmup, steps):
     z_mean, z_var = observed_mean_and_variance(op, xbar, params.y(), w)
     wt = torch.as_tensor(w, dtype=torch.float32, device=device).reshape(-1)
     out["exact"] = {"mean": z_mean, "variance": z_var}
-    for name, use_fused in (("kernels", True), ("plain", False)):
-        inner = MultigridMCSampler(op, 3, cycle=2, fused=use_fused, fused_min_vertices=0)
+    # through the visit kernels, the plain path, the distilled subtree (31^2
+    # and 15^2 as one affine map) and the subtree kernel with its in-kernel noise
+    variants = (("kernels", dict(fused=True, distill=False), 1001),
+                ("plain", dict(fused=False, distill=False), 1000),
+                ("distilled", dict(distill=True), 1002),
+                ("subtree_kernel", dict(subtree=True), 1003))
+    for name, kwargs, seed in variants:
+        inner = MultigridMCSampler(op, 3, cycle=2, fused_min_vertices=0, **kwargs)
+        if (name == "distilled") != (inner.distilled is not None and inner.distill_level == 1):
+            raise AssertionError(f"statistics ({name}): distill level {inner.distill_level}")
+        st.reset_launch_counts()
         sampler = MeanShiftedSampler(inner, mean)
-        noise = GeneratorNoise(1000 + int(use_fused), device)
+        noise = GeneratorNoise(seed, device)
         x = sampler.mean.expand((C,) + op.vshape).clone()
         for _ in range(warmup):
             x = sampler.apply(noise, None, x)
@@ -994,6 +1460,10 @@ def phase_statistics(device, nx, C, warmup, steps):
             zs.append((x.reshape(C, -1) @ wt).double())
         z = torch.stack(zs).cpu().numpy()  # (steps, C)
         out[name] = moments_gate(name, z, z_mean, z_var, C)
+        if name == "subtree_kernel":
+            out[name]["launches"] = st.launch_counts["subtree_sample"]
+            if st.launch_counts["subtree_sample"] != warmup + steps:
+                raise AssertionError(f"statistics: {st.launch_counts} subtree launches")
 
     # (3) the same posterior through the SSOR sampler alone: every sweep is a
     # launch of the Gibbs sweep kernel with its in-kernel noise
@@ -1041,7 +1511,8 @@ def main(argv=None) -> int:
     parser.add_argument("--phases", default=",".join(sorted(ALL_PHASES)),
                         help="comma-separated subset of kernels,main_path,drivers,statistics "
                              "to run (device and build always run; 'threads' adds a "
-                             "block-size table); the ok line needs exactly the default four")
+                             "block-size table, 'new' the third slice's kernels alone); "
+                             "the ok line needs exactly the default four")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -1056,8 +1527,14 @@ def main(argv=None) -> int:
     phase_build()
     if "threads" in phases:
         phase_threads(device, nx, nlevel, C, n_meas)
+    if "new" in phases:  # the third slice's kernels alone
+        from multigridmc_tpu_torch.samplers.base import GeneratorNoise
+
+        gen = torch.Generator(device=device)
+        gen.manual_seed(11)
+        phase_new_kernels(device, nx, nlevel, C, n_meas, gen, GeneratorNoise(5, device))
     if "kernels" in phases:
-        errs, timings, sweep_timings = phase_kernels(device, nx, nlevel, C, n_meas)
+        errs, timings, sweep_timings, third = phase_kernels(device, nx, nlevel, C, n_meas)
     if "main_path" in phases:
         counts, _ = phase_main_path(device, nx, nlevel, C, n_meas, steps, smi)
     if "drivers" in phases:
@@ -1072,18 +1549,33 @@ def main(argv=None) -> int:
 
     t0 = timings[0]  # level 0: the shape that dominates the main path
     kernels = []
+    # launches of the visits: the flagship's steps with every level's visit fused
     for kind, line in (("descend", 700), ("ascend", 847)):
         kernels.append({
             "name": f"{kind}_visit", "route": "cuda",
             "source": "multigridmc_tpu_torch/csrc/mgmc_visit.cu",
             "replaces": f"multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py:{line}",
-            "launches": counts[f"{kind}_visit"], "max_abs_err": errs[f"{kind}_visit"],
+            "launches": counts["all_levels_fused"][f"{kind}_visit"],
+            "launches_by_variant": {name: c[f"{kind}_visit"] for name, c in counts.items()},
+            "max_abs_err": errs[f"{kind}_visit"],
             "ms": t0[f"{kind}_ms"], "device_ms": t0[f"{kind}_device_ms"],
             "plain_ms": t0[f"{kind}_plain_ms"],
             "bound_ms": t0[f"{kind}_bound_ms"], "bound_by": t0[f"{kind}_bound_by"],
             "bound_bytes": t0[f"{kind}_bytes"],
             "library_ms": None, "shape": {"chains": C, "vshape": t0["vshape"]},
         })
+    # the probe: launched where the subtree variant of the main path is built
+    probe = third["probe"]
+    kernels.append({
+        "name": "smem_probe", "route": "cuda",
+        "source": "multigridmc_tpu_torch/csrc/smem_probe.cu",
+        "replaces": "multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py:84",
+        "launches": counts["subtree_kernel"]["smem_probe"], "max_abs_err": probe["max_abs_err"],
+        "ms": probe["ms"], "device_ms": probe["device_ms"], "plain_ms": probe["plain_ms"],
+        "bound_ms": probe["bound_ms"], "bound_by": probe["bound_by"],
+        "bound_bytes": probe["bound_bytes"], "library_ms": probe["library_ms"],
+        "shape": {"copied": [8, 128], "shared_bytes": probe["limit_bytes"]},
+    })
     # the sweep kernels at the shape of the drivers' batched route, 256 x 255^2;
     # their launches are those of the two driver runs
     st = sweep_timings[0]
@@ -1100,6 +1592,34 @@ def main(argv=None) -> int:
             "bound_bytes": st["bound_bytes"],
             "library_ms": None, "shape": {"chains": st["chains"], "vshape": st["vshape"]},
         })
+    # the four raw-array entry points share those two kernels; their launches
+    # are those of their own path (drive_v1_path)
+    for name in V1_NAMES:
+        t = third["v1_timings"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "multigridmc_tpu_torch/csrc/sor_sweep.cu",
+            "replaces": f"multigridmc_tpu/ops/kernels/sor_pallas.py:{V1_LINES[name]}",
+            "launches": third["v1_counts"][name], "max_abs_err": third["v1_errs"][name],
+            "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "bound_bytes": t["bound_bytes"],
+            "library_ms": None, "shape": {"chains": t["chains"], "vshape": t["vshape"]},
+        })
+    # the subtree kernel: launched once per step of the main path's subtree variant
+    t = third["subtree_timing"]
+    kernels.append({
+        "name": "subtree_sample", "route": "cuda",
+        "source": "multigridmc_tpu_torch/csrc/mgmc_subtree.cu",
+        "replaces": "multigridmc_tpu/ops/kernels/mgmc_subtree_pallas.py:326",
+        "launches": counts["subtree_kernel"]["subtree_sample"],
+        "max_abs_err": third["subtree_err"],
+        "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "bound_bytes": t["bound_bytes"],
+        "library_ms": None, "shape": {"chains": t["chains"], "vshape": t["vshape"]},
+    })
+    for k in kernels:
+        if k["launches"] < 1:
+            raise AssertionError(f"kernel {k['name']} was launched no time on its path")
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

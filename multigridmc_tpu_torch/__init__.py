@@ -4,8 +4,9 @@ Multigrid Monte Carlo sampling of lattice Gaussians
 ``pi(x) ~ exp(-1/2 x^T Q x + f^T x)`` on one NVIDIA Hopper GPU.  The layout
 and the names follow the JAX package module for module, so a reader finds the
 counterpart of every function; the tensor code is plain PyTorch and the
-kernels - the fused level visits and the SOR / Gibbs sweeps - are CUDA C++
-(``csrc/``, built at first use).  The command-line programs are
+kernels - the fused level visits, the SOR / Gibbs sweeps, the coarse subtree
+in one launch and the shared-memory probe - are CUDA C++ (``csrc/``, built at
+first use).  The command-line programs are
 ``python -m multigridmc_tpu_torch.drivers.mgmc`` and ``...drivers.mg``.
 
 The package imports ``torch``, numpy and scipy only - never ``jax`` and nothing

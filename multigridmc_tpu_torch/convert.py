@@ -7,7 +7,9 @@ The parity tests call ``np.asarray`` on a JAX operator's ``coeffs``,
 ``lattice.shape``, so both sides run on identical operators; a smoother takes
 the JAX smoother's ``B_bar`` (one per sweep direction), a preconditioner the
 JAX hierarchy's levels, a ``Config`` the ``dataclasses.asdict`` of the JAX
-package's.  Nothing here imports the JAX package.
+package's; a distilled subtree takes the JAX package's ``(T, S^T)``, a
+subtree kernel the levels, each direction's ``B_bar`` and the coarse Cholesky
+factor.  Nothing here imports the JAX package.
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ import numpy as np
 import torch
 
 from .lattice import Lattice
+from .ops.kernels.mgmc_subtree import SubtreeKernel
 from .ops.stencil import LowRank, StencilOperator
+from .samplers.distill import DistilledSubtree
 from .smoothers import BACKWARD, FORWARD, SORSmoother, SSORSmoother
 from .solvers.multigrid import MultigridHierarchy, MultigridPreconditioner
 from .utils import config as config_module
@@ -106,6 +110,38 @@ def preconditioner_from_numpy(levels: Sequence[dict], device=None, dtype=None,
     hierarchy = hierarchy_from_numpy(levels, device=device, dtype=dtype)
     return MultigridPreconditioner(hierarchy.operators[0], hierarchy.nlevel,
                                    hierarchy=hierarchy, **kwargs)
+
+
+def distilled_from_numpy(Tm, S_T, vshape, device=None, dtype=None,
+                         precision: Optional[str] = None) -> DistilledSubtree:
+    """A :class:`~multigridmc_tpu_torch.samplers.distill.DistilledSubtree` from
+    the map's matrices: ``Tm (n, n)`` in the row-vector convention
+    ``x = f @ Tm`` and the upper factor ``S_T (n, n)`` (``None`` for a
+    deterministic map)."""
+    device, dtype = resolve_device(device), resolve_dtype(dtype)
+    Tm = np.asarray(Tm)
+    n = int(np.prod(vshape))
+    if Tm.shape != (n, n) or (S_T is not None and np.asarray(S_T).shape != (n, n)):
+        raise ValueError(f"T and S^T must be ({n}, {n}) for the vertex shape {tuple(vshape)}")
+    S = None if S_T is None else torch.tensor(np.asarray(S_T), dtype=dtype, device=device)
+    info = dict(n=n, K=None, noise=S_T is not None)
+    return DistilledSubtree(torch.tensor(Tm, dtype=dtype, device=device), S,
+                            tuple(int(v) for v in vshape), info, precision=precision)
+
+
+def subtree_kernel_from_numpy(levels: Sequence[dict], B_bar_pre: Sequence, B_bar_post: Sequence,
+                              coarse_L, omega: float, cycle: int, coarse_scaling: float,
+                              device=None, dtype=None, **kwargs) -> SubtreeKernel:
+    """A :class:`~multigridmc_tpu_torch.ops.kernels.mgmc_subtree.SubtreeKernel`
+    over the given levels (as :func:`hierarchy_from_numpy` takes them: the
+    hierarchy below its finest level, coarsest last), with the forward
+    (``B_bar_pre``) and backward (``B_bar_post``) Woodbury factors of every
+    level but the last and the coarsest level's Cholesky factor ``coarse_L``."""
+    ops = hierarchy_from_numpy(levels, device=device, dtype=dtype).operators
+    pre = [smoother_from_numpy(op, omega, 1, FORWARD, bb) for op, bb in zip(ops, B_bar_pre)]
+    post = [smoother_from_numpy(op, omega, 1, BACKWARD, bb) for op, bb in zip(ops, B_bar_post)]
+    return SubtreeKernel(ops, pre, post, np.asarray(coarse_L), omega, cycle, coarse_scaling,
+                         **kwargs)
 
 
 def config_from_dict(groups: dict) -> config_module.Config:

@@ -42,6 +42,8 @@ def run(config, device, dtype, b=None):
     )
     synchronize(op.device)
     print(f"multigrid setup time = {time.perf_counter() - t0:.3f} s")
+    if preconditioner.distilled is not None:
+        print(f"distilled deterministic subtree: level {preconditioner.distill_level}")
 
     it = config.iterative_solver
     solver = LoopSolver(

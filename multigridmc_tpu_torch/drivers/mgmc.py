@@ -70,7 +70,14 @@ def make_samplers(config, op):
             verbose=mg.verbose,
             sweep_schedule=mg.sweep_schedule,
             distill_precision=mg.distill_precision,
-        )
+        )  # distill="auto": on a CUDA device the coarse subtree is distilled
+        mgmc = samplers["multigridmc"]
+        if mgmc.distilled is not None:
+            level_op = mgmc.hierarchy.operators[mgmc.distill_level]
+            print(f"multigridmc distilled subtree: level {mgmc.distill_level} "
+                  f"({level_op.lattice.nvertex} vertices)")
+        else:
+            print("multigridmc distilled subtree: none")
     return samplers
 
 

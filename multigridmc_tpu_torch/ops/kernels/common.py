@@ -12,6 +12,12 @@
 * **The generator's reference** (:func:`philox_normals_reference`): the
   in-kernel Philox4x32-10 field noise of ``csrc/philox.cuh``, recomputed with
   numpy.
+* **The shared-memory probe** (:func:`smem_copy`, :func:`probe_dynamic_smem`,
+  :func:`dynamic_smem_limit`): a copy kernel (``csrc/smem_probe.cu``) that tells
+  how much dynamic shared memory the card grants a thread block.  Replaces
+  ``_probe_limit_compiles`` of
+  ``multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py``; the subtree kernel
+  sizes its shared-memory placement with it.
 """
 
 from __future__ import annotations
@@ -35,7 +41,11 @@ CSRC_DIR = _PACKAGE_DIR / "csrc"
 BUILD_DIR = _PACKAGE_DIR / "build"
 
 #: headers under ``csrc/`` that the kernel sources include
-HEADERS = ("philox.cuh",)
+HEADERS = ("philox.cuh", "visit_phases.cuh")
+
+#: every kernel source under ``csrc/`` (``<name>.cu``); :func:`build_libraries`
+#: compiles them in parallel
+SOURCES = ("mgmc_visit", "sor_sweep", "mgmc_subtree", "smem_probe")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -219,3 +229,107 @@ def philox_normals_reference(seed: int, counter: int, chains: int,
     z2, z3 = pair(c2, c3)
     z = np.stack([z0, z1, z2, z3], axis=-1).reshape(chains, H, -1)
     return z[:, :, :W].astype(np.float32).reshape((chains,) + vshape)
+
+
+# --------------------------------------------------- the shared-memory probe
+#: dynamic shared memory a block may use without asking (bytes)
+DEFAULT_SMEM_BYTES = 48 * 1024
+
+#: shape of the tensor the probe copies, as the TPU probe's
+PROBE_SHAPE = (8, 128)
+
+#: launches of the probe kernel made by :func:`smem_copy`
+launch_counts: Dict[str, int] = {"smem_probe": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+class SharedMemoryRefused(RuntimeError):
+    """The card does not grant a block the dynamic shared memory asked for."""
+
+
+@functools.lru_cache(maxsize=None)
+def load_probe_library() -> ctypes.CDLL:
+    lib = open_library("smem_probe")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.smem_probe.argtypes = [ptr, ptr, i32, i32, ptr]  # in, out, n, bytes, stream
+    lib.smem_probe.restype = i32
+    return lib
+
+
+def smem_copy_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the probe kernel: a copy."""
+    return x.clone()
+
+
+def smem_copy(x: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """Copy the float32 tensor ``x`` (shape :data:`PROBE_SHAPE`) through
+    ``nbytes`` of a block's dynamic shared memory and return the copy.
+
+    A CPU tensor goes to :func:`smem_copy_plain`.  A CUDA tensor launches the
+    probe kernel; when the card refuses the size, :class:`SharedMemoryRefused`
+    is raised (that answer is the probe's purpose), any other failure is a
+    ``RuntimeError``."""
+    if tuple(x.shape) != PROBE_SHAPE or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"the probe copies a contiguous float32 tensor of shape {PROBE_SHAPE}")
+    if nbytes < 4 * x.numel():
+        raise ValueError(f"the probe needs at least {4 * x.numel()} bytes of shared memory")
+    if x.device.type == "cpu":
+        return smem_copy_plain(x)
+    lib = load_probe_library()
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.smem_probe(x.data_ptr(), out.data_ptr(), x.numel(), int(nbytes), stream)
+    if err >= 1000:  # refused before any launch
+        raise SharedMemoryRefused(
+            f"{nbytes} bytes of dynamic shared memory refused: CUDA error {err - 1000}")
+    launch_counts["smem_probe"] += 1
+    if err != 0:
+        raise SharedMemoryRefused(
+            f"launch with {nbytes} bytes of dynamic shared memory refused: CUDA error {err}")
+    return out
+
+
+def probe_dynamic_smem(nbytes: int, device=None) -> bool:
+    """Whether a thread block on ``device`` (default: the current CUDA device)
+    is granted ``nbytes`` of dynamic shared memory: the probe kernel is
+    launched with that size and its copy compared with its input.  On the CPU
+    there is no shared memory; the answer is whether ``nbytes`` stays within
+    :data:`DEFAULT_SMEM_BYTES`."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cpu":
+        return nbytes <= DEFAULT_SMEM_BYTES
+    x = torch.arange(PROBE_SHAPE[0] * PROBE_SHAPE[1], dtype=torch.float32,
+                     device=device).reshape(PROBE_SHAPE)
+    try:
+        out = smem_copy(x, nbytes)
+    except SharedMemoryRefused:
+        return False
+    if not torch.equal(out, x):
+        raise RuntimeError(f"the shared-memory probe with {nbytes} bytes returned a wrong copy")
+    return True
+
+
+@functools.lru_cache(maxsize=None)
+def _dynamic_smem_limit(device: torch.device) -> int:
+    if device.type == "cpu":
+        return DEFAULT_SMEM_BYTES
+    props = torch.cuda.get_device_properties(device)
+    top = int(getattr(props, "shared_memory_per_block_optin", 0)) or 227 * 1024
+    return top if probe_dynamic_smem(top, device) else DEFAULT_SMEM_BYTES
+
+
+def dynamic_smem_limit(device=None) -> int:
+    """The largest dynamic shared memory (bytes) a block is granted on
+    ``device``, found once per device with :func:`probe_dynamic_smem`: what the
+    device reports as its opt-in maximum (227 KiB where it reports none) if the
+    probe is granted it, else :data:`DEFAULT_SMEM_BYTES`, which needs no
+    asking.  On the CPU: :data:`DEFAULT_SMEM_BYTES`."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _dynamic_smem_limit(device)

@@ -1,0 +1,469 @@
+"""The MGMC coarse subtree as one CUDA kernel launch.
+
+Replaces ``subtree_sample`` / ``SubtreeKernel`` of
+``multigridmc_tpu/ops/kernels/mgmc_subtree_pallas.py``.  One call runs, for all
+chains, everything below the finest level of an MGMC hierarchy: with the
+sub-levels ``l = 0 .. NL-1`` (the hierarchy's levels ``1 .. nlevel-2``) and the
+coarsest level ``NL``,
+
+    sample(l):   x_l = 0
+                 repeat ``cycle`` times:
+                     descend visit of level l   -> f_{l+1}
+                     sample(l + 1)
+                     ascend visit of level l    (x_l += gamma P x_{l+1}, ...)
+    sample(NL):  x = Linv^T (xi + Linv f)       (Linv the inverse Cholesky factor)
+
+where the visits are those of :mod:`.mgmc_visit` (forward Gibbs sweep, Woodbury,
+residual with the ``(I - G)`` shortcut, restriction; prolongate-add, backward
+Gibbs sweep, Woodbury).  The coarse sample by the inverse factor has the same
+law as the triangular solves of ``DenseCholeskySampler`` and, fed the same
+normals, the same value up to rounding; the factor is inverted in float64.
+
+The CUDA source is ``csrc/mgmc_subtree.cu`` (one thread block per chain walking
+a host-made schedule; its header comment states the design).  The host decides
+where each level's three fields (``x``, the rhs scratch, ``f``) lie
+(:func:`place_fields`): in dynamic shared memory from the coarsest level
+upwards while the granted size (:func:`~.common.dynamic_smem_limit`) allows, else
+in a global workspace; the size the placement needs is confirmed with the probe
+kernel (:func:`~.common.probe_dynamic_smem`) and :attr:`SubtreeKernel.placement`
+says what lies where.
+
+**Bound.**  By bytes the launch must read ``f`` and write ``x`` of the finest
+sub-level once per chain (``2 C n_0 4`` bytes); by operations it does
+``cycle^(l+1)`` visits of each level ``l``.  It is latency that the kernel
+pays: a visit of a 31^2 level is some twenty barrier-separated phases.
+
+Beside the kernel stands its **plain PyTorch version**
+(:func:`subtree_sample_plain`), the same schedule walked with
+``descend_visit_plain`` / ``ascend_visit_plain`` and two matrix products for the
+coarse sample, taking all normals as one tensor.  :func:`subtree_sample` takes
+the plain version only for tensors that lie on the CPU; for a CUDA tensor it
+launches the kernel or raises.
+
+Noise: off, the in-kernel Philox generator (``philox=(seed, first counter)``,
+one launch counter per draw, see ``csrc/mgmc_subtree.cu``), or all normals from
+one tensor ``xi`` of shape ``(C, K)`` with ``K = kernel.count_noise()`` normals
+per chain in draw order: per sweep the field (``n_l``) then the ``m`` low-rank
+scalars, per coarse sample ``n_c``.  That is the order in which the composed
+recursion draws, so the same draws give the same step.
+
+Supported: 2d, float32 on the card (the plain version runs in any dtype), SOR
+with one pre- and one post-sweep per visit, reach-1 stencils, ``m <= 32``, up
+to 8 sub-levels, a dense Cholesky factor of the coarsest level.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import scipy.linalg
+import torch
+
+from .common import (DEFAULT_SMEM_BYTES, default_threads, dynamic_smem_limit, open_library,
+                     probe_dynamic_smem)
+from .common import tensor_ptr as _ptr
+from .mgmc_visit import (FusedVisitLevel, VisitParams, ascend_visit_plain,
+                         descend_visit_plain)
+
+MAX_SUB_LEVELS = 8
+
+#: the CUDA source under ``csrc/`` (see :mod:`.common` for the build)
+SOURCE_NAME = "mgmc_subtree"
+
+#: operations of the schedule (``csrc/mgmc_subtree.cu``)
+OP_DESCEND, OP_DESCEND_ZERO, OP_COARSE, OP_ASCEND = 0, 1, 2, 3
+#: where a field lies
+LOC_SHARED, LOC_WORKSPACE, LOC_LAUNCH = 0, 1, 2
+LOC_NAMES = {LOC_SHARED: "shared", LOC_WORKSPACE: "workspace", LOC_LAUNCH: "launch tensor"}
+
+#: shared memory the kernel declares statically (the level's parameter block
+#: and the reduction scratch), kept out of the dynamic budget
+STATIC_SMEM_RESERVE = 4096
+
+#: largest block size.  Measured on an H100 with ``chip_smoke.py``
+#: (``subtree_timing.variants``) at 256 chains below a 255^2 level: 512 threads
+#: (two blocks per SM, all chains in one wave) take 2.06 ms per launch, 1024
+#: threads 2.54 ms, 256 threads 3.10 ms.
+MAX_THREADS = 512
+
+#: kernel launches made by the wrapper (and only where it launches)
+launch_counts: Dict[str, int] = {"subtree_sample": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+class FieldLoc(ctypes.Structure):
+    _fields_ = [("where", ctypes.c_int), ("pad", ctypes.c_int), ("off", ctypes.c_longlong)]
+
+
+class SubLevel(ctypes.Structure):
+    """Mirror of ``struct SubLevel`` in ``csrc/mgmc_subtree.cu``."""
+
+    _fields_ = [
+        ("coeffs", ctypes.c_void_p), ("ns", ctypes.c_void_p), ("B", ctypes.c_void_p),
+        ("Y", ctypes.c_void_p * 2), ("Wm", ctypes.c_void_p * 2),
+        ("sinv", ctypes.c_void_p), ("G", ctypes.c_void_p), ("lrscale", ctypes.c_void_p),
+        ("x", FieldLoc), ("scr", FieldLoc), ("f", FieldLoc),
+        ("n", ctypes.c_int), ("pad", ctypes.c_int),
+    ]
+
+
+class SubtreeParams(ctypes.Structure):
+    """Mirror of ``struct SubtreeParams`` in ``csrc/mgmc_subtree.cu``."""
+
+    _fields_ = [
+        ("C", ctypes.c_int), ("NL", ctypes.c_int), ("n_sched", ctypes.c_int),
+        ("noise_mode", ctypes.c_int), ("nc", ctypes.c_int), ("record", ctypes.c_int),
+        ("ws_stride", ctypes.c_longlong), ("xi_stride", ctypes.c_longlong),
+        ("seed", ctypes.c_ulonglong), ("counter", ctypes.c_ulonglong),
+        ("lv", SubLevel * MAX_SUB_LEVELS),
+        ("cx", FieldLoc), ("cscr", FieldLoc), ("cf", FieldLoc),
+    ]
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel's shared library."""
+    lib = open_library(SOURCE_NAME)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.mgmc_subtree_params_size, lib.mgmc_subtree_visit_params_size):
+        fn.argtypes = []
+        fn.restype = i32
+    if lib.mgmc_subtree_params_size() != ctypes.sizeof(SubtreeParams):
+        raise RuntimeError("SubtreeParams layout differs between Python and CUDA")
+    if lib.mgmc_subtree_visit_params_size() != ctypes.sizeof(VisitParams):
+        raise RuntimeError("VisitParams layout differs between Python and CUDA")
+    # S, plans, sched, Linv, LinvT, f, x, ws, xi, threads, smem_bytes, stream
+    lib.mgmc_subtree_sample.argtypes = (
+        [ctypes.POINTER(SubtreeParams)] + [ptr] * 8 + [i32, i32, ptr])
+    lib.mgmc_subtree_sample.restype = i32
+    return lib
+
+
+# ------------------------------------------------------------ host-side plans
+def subtree_schedule(n_sub: int, cycle: int) -> List[Tuple[int, int]]:
+    """The recursion below the finest level, flattened: ``[(operation,
+    sub-level), ...]`` in execution order."""
+    sched: List[Tuple[int, int]] = []
+
+    def sample(li: int) -> None:
+        if li == n_sub:
+            sched.append((OP_COARSE, li))
+            return
+        for j in range(cycle):
+            sched.append((OP_DESCEND_ZERO if j == 0 else OP_DESCEND, li))
+            sample(li + 1)
+            sched.append((OP_ASCEND, li))
+
+    sample(0)
+    return sched
+
+
+def place_fields(level_sizes: Sequence[int], nc: int, budget_bytes: int):
+    """Where the fields of one chain lie.  ``level_sizes`` are the sub-levels'
+    point counts (finest first), ``nc`` the coarsest level's; every level has
+    three fields (x, rhs scratch, f).  From the coarsest level upwards a
+    level's three fields go to dynamic shared memory while ``budget_bytes``
+    allows; the others go to the global workspace, except ``x`` and ``f`` of
+    the finest sub-level, which are then the launch's own tensors.
+
+    Returns ``(levels, coarse, smem_floats, ws_floats)``: per level and for
+    the coarsest the three ``(where, offset in floats)`` pairs."""
+    smem = ws = 0
+    budget = budget_bytes // 4
+
+    def take_shared(n):
+        nonlocal smem
+        off = smem
+        smem += n
+        return (LOC_SHARED, off)
+
+    def take_ws(n):
+        nonlocal ws
+        off = ws
+        ws += n
+        return (LOC_WORKSPACE, off)
+
+    shared_ok = 3 * nc <= budget
+    coarse = tuple((take_shared if shared_ok else take_ws)(nc) for _ in range(3))
+    levels: List[Optional[tuple]] = [None] * len(level_sizes)
+    for li in reversed(range(len(level_sizes))):
+        n = level_sizes[li]
+        shared_ok = shared_ok and smem + 3 * n <= budget  # no level above one that did not fit
+        if shared_ok:
+            levels[li] = tuple(take_shared(n) for _ in range(3))
+        elif li == 0:
+            levels[li] = ((LOC_LAUNCH, 0), take_ws(n), (LOC_LAUNCH, 0))
+        else:
+            levels[li] = tuple(take_ws(n) for _ in range(3))
+    return levels, coarse, smem, ws
+
+
+class SubtreeKernel:
+    """Precomputed arrays and statics of the subtree below the finest level.
+
+    ``operators``: the hierarchy's levels ``1 .. nlevel-1`` (coarsest last);
+    ``presmoothers`` / ``postsmoothers``: one directed ``SORSmoother`` per
+    operator but the last (forward / backward); ``coarse_L``: the Cholesky
+    factor of the coarsest level's full precision.  Per sub-level a
+    :class:`~.mgmc_visit.FusedVisitLevel` holds what the visits need: the
+    coefficient plan, the noise scale, ``B``, both directions' Woodbury factors
+    in factored form, ``G`` and ``1/Sigma``.  ``smem_budget`` (bytes; default:
+    what the card grants, less the kernel's static share) bounds the fields
+    placed in shared memory."""
+
+    def __init__(self, operators, presmoothers, postsmoothers, coarse_L, omega: float,
+                 cycle: int, coarse_scaling: float, smem_budget: Optional[int] = None):
+        if len(operators) < 2:
+            raise ValueError("the subtree needs at least one sub-level above the coarsest")
+        if len(operators) - 1 > MAX_SUB_LEVELS:
+            raise NotImplementedError(f"more than {MAX_SUB_LEVELS} sub-levels")
+        if len(presmoothers) != len(operators) - 1 or len(postsmoothers) != len(operators) - 1:
+            raise ValueError("one pre- and one post-smoother per sub-level")
+        self.cycle = int(cycle)
+        self.levels = [
+            FusedVisitLevel(op, pre.coloring, omega, pre.order, post.order,
+                            pre.B_bar, post.B_bar, coarse_scaling)
+            for op, pre, post in zip(operators[:-1], presmoothers, postsmoothers)]
+        top = operators[0]
+        self.vshape = top.vshape
+        self.device, self.dtype = top.device, top.dtype
+        self.coarse_vshape = operators[-1].vshape
+        self.nc = int(np.prod(self.coarse_vshape))
+        if self.levels[-1].vc != tuple(self.coarse_vshape):
+            raise ValueError("the coarsest operator is not the coarsening of the level above it")
+        L = np.asarray(coarse_L.detach().cpu().numpy() if isinstance(coarse_L, torch.Tensor)
+                       else coarse_L, dtype=np.float64)
+        if L.shape != (self.nc, self.nc):
+            raise ValueError(f"coarse_L must be ({self.nc}, {self.nc}), got {L.shape}")
+        Linv = scipy.linalg.solve_triangular(L, np.eye(self.nc), lower=True)
+        self.Linv = torch.as_tensor(Linv, dtype=self.dtype, device=self.device).contiguous()
+        self.LinvT = self.Linv.T.contiguous()
+        self.schedule = subtree_schedule(len(self.levels), self.cycle)
+        self.level_sizes = [int(np.prod(lv.op.vshape)) for lv in self.levels]
+        #: threads per block: by the finest sub-level's size, as the visit kernels
+        self.threads = min(default_threads(self.level_sizes[0]), MAX_THREADS)
+        # the placement under the card's limit; if the probe is refused the
+        # shared memory this placement needs, the one that needs no opt-in
+        budgets = [smem_budget] if smem_budget is not None else [
+            dynamic_smem_limit(self.device) - STATIC_SMEM_RESERVE,
+            DEFAULT_SMEM_BYTES - STATIC_SMEM_RESERVE]
+        for budget in budgets:
+            self.smem_budget = max(int(budget), 0)
+            (self._level_locs, self._coarse_locs, self._smem_floats,
+             self._ws_floats) = place_fields(self.level_sizes, self.nc, self.smem_budget)
+            if probe_dynamic_smem(max(4 * self._smem_floats + STATIC_SMEM_RESERVE, 4096),
+                                  self.device):
+                break
+        else:
+            raise RuntimeError(f"{4 * self._smem_floats} bytes of dynamic shared memory for "
+                               "the subtree kernel's fields were refused")
+        self._device_cache = {}
+
+    # ------------------------------------------------------------- statics
+    def count_noise(self) -> int:
+        """Normals one chain consumes in one call."""
+        return sum(self._draw_sizes())
+
+    def count_draws(self) -> int:
+        """Draws (= Philox launch counters) of one call: per sweep the field and,
+        with a low-rank term, its scalars; one per coarse sample."""
+        return len(self._draw_sizes())
+
+    def _draw_sizes(self) -> List[int]:
+        return [int(np.prod(shape[1:])) for shape in self.draw_shapes(1)]
+
+    def draw_shapes(self, C: int) -> List[Tuple[int, ...]]:
+        """The shapes of the draws of one call, in order, as the composed
+        recursion makes them."""
+        shapes = []
+        for op, li in self.schedule:
+            if op == OP_COARSE:
+                shapes.append((C, self.nc))
+            else:
+                shapes.append((C,) + tuple(self.levels[li].op.vshape))
+                m = self.levels[li].op.m_lowrank
+                if m:
+                    shapes.append((C, m))
+        return shapes
+
+    @property
+    def placement(self) -> dict:
+        """Where the kernel keeps each level's fields, and the bytes of
+        dynamic shared memory and workspace per chain."""
+        rows = [{"vshape": list(lv.op.vshape),
+                 **{name: LOC_NAMES[loc[0]] for name, loc in zip(("x", "scratch", "f"), locs)}}
+                for lv, locs in zip(self.levels, self._level_locs)]
+        rows.append({"vshape": list(self.coarse_vshape),
+                     **{name: LOC_NAMES[loc[0]]
+                        for name, loc in zip(("x", "scratch", "f"), self._coarse_locs)}})
+        return {"levels": rows, "shared_bytes": 4 * self._smem_floats,
+                "workspace_bytes_per_chain": 4 * self._ws_floats,
+                "shared_budget_bytes": self.smem_budget, "threads": self.threads}
+
+    # --------------------------------------------------------------- calls
+    def sample(self, noise, f: torch.Tensor) -> torch.Tensor:
+        """One subtree sample for ``f`` of shape ``(C, *vshape)``; ``noise`` is
+        a noise source or ``None`` for the deterministic data path.  On a CUDA
+        device a source with a Philox stream feeds the in-kernel generator;
+        otherwise the normals are drawn as tensors in the composed recursion's
+        order."""
+        if noise is None:
+            return subtree_sample(self, f)
+        philox = noise.philox_streams(self.count_draws()) if f.is_cuda else None
+        if philox is not None:
+            return subtree_sample(self, f, philox=philox)
+        C = f.shape[0]
+        xi = torch.cat([noise.normal(shape, f.dtype, f.device).reshape(C, -1)
+                        for shape in self.draw_shapes(C)], dim=1)
+        return subtree_sample(self, f, xi=xi)
+
+    # -------------------------------------------------- kernel parameters
+    def _device_plans(self, C: int):
+        """Per launch width: the levels' parameter blocks (descend, ascend per
+        level) and the schedule as device tensors."""
+        cached = self._device_cache.get(C)
+        if cached is None:
+            blocks = b"".join(
+                bytes(lv._build_params(C, order, True, 0))
+                for lv in self.levels for order in (lv.pre_order, lv.post_order))
+            plans = torch.frombuffer(bytearray(blocks), dtype=torch.uint8).to(self.device)
+            sched = torch.tensor(self.schedule, dtype=torch.int32).reshape(-1).to(self.device)
+            cached = self._device_cache[C] = (plans, sched)
+        return cached
+
+    def _params(self, C: int, noise_mode: int, record: bool, philox) -> SubtreeParams:
+        key = ("params", C, noise_mode, bool(record))
+        S = self._device_cache.get(key)
+        if S is None:
+            S = self._device_cache[key] = self._build_params(C, noise_mode, record)
+        S.seed, S.counter = philox if philox is not None else (0, 0)
+        return S
+
+    def _build_params(self, C: int, noise_mode: int, record: bool) -> SubtreeParams:
+        S = SubtreeParams()
+        S.C, S.NL, S.n_sched = C, len(self.levels), len(self.schedule)
+        S.noise_mode, S.nc, S.record = noise_mode, self.nc, int(record)
+        S.ws_stride, S.xi_stride = self._ws_floats, self.count_noise()
+        for li, (lv, locs) in enumerate(zip(self.levels, self._level_locs)):
+            D = S.lv[li]
+            D.coeffs, D.ns, D.B = _ptr(lv.coeffs), _ptr(lv.noise_scale), _ptr(lv.B)
+            for d, order in enumerate((lv.pre_order, lv.post_order)):
+                Y, W, _ = lv._woodbury[order]
+                D.Y[d], D.Wm[d] = _ptr(Y), _ptr(W)
+            D.sinv, D.G, D.lrscale = _ptr(lv.sigma_inv), _ptr(lv.G_pre), _ptr(lv.lr_scale)
+            for name, (where, off) in zip(("x", "scr", "f"), locs):
+                loc = getattr(D, name)
+                loc.where, loc.off = where, off
+            D.n = self.level_sizes[li]
+        for name, (where, off) in zip(("cx", "cscr", "cf"), self._coarse_locs):
+            loc = getattr(S, name)
+            loc.where, loc.off = where, off
+        return S
+
+
+# ------------------------------------------------------------- plain version
+def subtree_sample_plain(kernel: SubtreeKernel, f: torch.Tensor,
+                         xi: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of the subtree kernel: the schedule walked with
+    the visits' plain versions and ``x = (xi + f Linv^T) Linv`` on the coarsest
+    level.  ``xi`` is ``(C, kernel.count_noise())`` (see the module docstring)
+    or ``None`` for the deterministic data path.  Returns a new tensor."""
+    C = f.shape[0]
+    nsub = len(kernel.levels)
+    fs: List[Optional[torch.Tensor]] = [f] + [None] * nsub
+    xs: List[Optional[torch.Tensor]] = [None] * (nsub + 1)
+    cur = 0
+
+    def take(n):
+        nonlocal cur
+        if xi is None:
+            return None
+        out = xi[:, cur:cur + n]
+        cur += n
+        return out
+
+    for op, li in kernel.schedule:
+        if op == OP_COARSE:
+            g = fs[li].reshape(C, kernel.nc) @ kernel.Linv.T
+            z = take(kernel.nc)
+            if z is not None:
+                g = g + z
+            xs[li] = (g @ kernel.Linv).reshape((C,) + tuple(kernel.coarse_vshape))
+            continue
+        level = kernel.levels[li]
+        z = take(kernel.level_sizes[li])
+        z = None if z is None else z.reshape((C,) + tuple(level.op.vshape))
+        z_lr = None
+        if xi is not None and level.op.m_lowrank:
+            z_lr = take(level.op.m_lowrank) * level.lr_scale
+        if op == OP_DESCEND_ZERO:
+            xs[li] = torch.zeros_like(fs[li])
+        if op in (OP_DESCEND, OP_DESCEND_ZERO):
+            xs[li], fs[li + 1] = descend_visit_plain(level, fs[li], xs[li], z, z_lr)
+        else:
+            xs[li] = ascend_visit_plain(level, fs[li], xs[li], xs[li + 1], z, z_lr)
+    return xs[0]
+
+
+# ------------------------------------------------------------------ wrapper
+def subtree_sample(kernel: SubtreeKernel, f: torch.Tensor, xi: Optional[torch.Tensor] = None,
+                   philox: Optional[Tuple[int, int]] = None, record: bool = False):
+    """One subtree sample of all chains; ``f`` is ``(C, *kernel.vshape)``.
+
+    Noise: ``philox=(seed, first counter)`` for the in-kernel generator (CUDA
+    only; the call uses ``kernel.count_draws()`` consecutive counters) or all
+    normals as ``xi`` of shape ``(C, kernel.count_noise())``; neither runs the
+    deterministic data path.  With ``record=True`` (Philox only) the normals
+    the kernel drew come back too: ``(x, xi)``.
+
+    CPU tensors go to :func:`subtree_sample_plain`.  CUDA tensors launch the
+    kernel or raise."""
+    if xi is not None and philox is not None:
+        raise ValueError("give the normals as a tensor or as a Philox stream, not both")
+    if record and philox is None:
+        raise ValueError("record=True returns the in-kernel normals: it needs a Philox stream")
+    if f.ndim != 3 or tuple(f.shape[1:]) != tuple(kernel.vshape):
+        raise ValueError(f"f must be (C, {kernel.vshape[0]}, {kernel.vshape[1]}), "
+                         f"got {tuple(f.shape)}")
+    C, K = f.shape[0], kernel.count_noise()
+    if xi is not None and tuple(xi.shape) != (C, K):
+        raise ValueError(f"xi must be ({C}, {K}), got {tuple(xi.shape)}")
+    if f.device.type == "cpu":
+        if philox is not None:
+            raise ValueError("the Philox stream exists in the CUDA kernel only")
+        return subtree_sample_plain(kernel, f, xi)
+    tensors = {"f": f} if xi is None else {"f": f, "xi": xi}
+    for name, t in tensors.items():
+        if t.device != kernel.Linv.device:
+            raise ValueError(f"{name} lies on {t.device}, the kernel's arrays on "
+                             f"{kernel.Linv.device}")
+        if t.dtype != torch.float32 or kernel.dtype != torch.float32:
+            raise TypeError("the subtree kernel is float32 only "
+                            f"({name} is {t.dtype}, the levels {kernel.dtype})")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    noise_mode = 1 if philox is not None else (2 if xi is not None else 0)
+    S = kernel._params(C, noise_mode, record, philox)
+    plans, sched = kernel._device_plans(C)
+    lib = load_library()
+    x = torch.empty_like(f)
+    ws = torch.empty((C, max(kernel._ws_floats, 1)), dtype=torch.float32, device=f.device)
+    if record:
+        xi = torch.empty((C, K), dtype=torch.float32, device=f.device)
+    with torch.cuda.device(f.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mgmc_subtree_sample(
+            ctypes.byref(S), plans.data_ptr(), sched.data_ptr(), kernel.Linv.data_ptr(),
+            kernel.LinvT.data_ptr(), f.data_ptr(), x.data_ptr(), ws.data_ptr(), _ptr(xi),
+            kernel.threads, 4 * kernel._smem_floats, stream)
+    launch_counts["subtree_sample"] += 1
+    if err != 0:
+        raise RuntimeError(f"subtree kernel launch failed: CUDA error {err}")
+    return (x, xi) if record else x

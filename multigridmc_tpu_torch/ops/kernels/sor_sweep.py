@@ -2,8 +2,11 @@
 CUDA kernel launch.
 
 Replaces ``sweep_batched_v2`` / ``gibbs_sweep_batched_v2`` of
-``multigridmc_tpu/ops/kernels/sor_pallas_v2.py``.  One **deterministic sweep**
-is
+``multigridmc_tpu/ops/kernels/sor_pallas_v2.py`` and, through the raw-array
+entry points at the end of this module, the four first-generation kernels
+``fused_sor_sweep``, ``fused_sor_sweep_batched``, ``fused_gibbs_sweep_batched``
+and ``fused_gibbs_sweep`` of ``multigridmc_tpu/ops/kernels/sor_pallas.py``.  One
+**deterministic sweep** is
 
     for colour c in order:   x <- x + [colour == c] * omega * (b - A_stencil x) / diag
 
@@ -62,7 +65,11 @@ MAX_COLORS = 8
 SOURCE_NAME = "sor_sweep"
 
 #: kernel launches made by the wrappers (and only where they launch)
-launch_counts: Dict[str, int] = {"sweep_batched": 0, "gibbs_sweep_batched": 0}
+launch_counts: Dict[str, int] = {
+    "sweep_batched": 0, "gibbs_sweep_batched": 0,
+    "fused_sor_sweep": 0, "fused_sor_sweep_batched": 0,
+    "fused_gibbs_sweep_batched": 0, "fused_gibbs_sweep": 0,
+}
 
 
 def reset_launch_counts() -> None:
@@ -170,28 +177,40 @@ class SweepPlan:
         if self._compressed is None:
             self._compressed = compress_plan(op, self.omega)[:2]
         const_coeffs, ns_const = self._compressed
-        lead = 3 - len(op.vshape)  # 2d fields are 3d fields with Z = 1
-        P = SweepParams()
-        P.C = C
-        P.Z, P.Y, P.X = (1,) * lead + tuple(op.vshape)
-        P.K, P.diag_index = len(op.offsets), op.diag_index
-        for k, (off, cval) in enumerate(zip(op.offsets, const_coeffs)):
-            P.dz[k], P.dy[k], P.dx[k] = (0,) * lead + tuple(off)
-            P.coeff_const[k] = int(cval is not None)
-            P.coeff_val[k] = 0.0 if cval is None else cval
-        K = self.coloring.n_colors
-        P.n_colors = K
-        P.wz, P.wy, P.wx = (0,) * lead + tuple(int(w) for w in self.coloring.weights)
-        P.jstride = K // math.gcd(P.wx, K)
-        P.n_order = len(self.order)
-        for o, c in enumerate(self.order):
-            P.order[o] = c
-        P.omega = self.omega
-        P.noise_mode = noise_mode
-        P.ns_const = int(ns_const is not None)
-        P.ns_val = 0.0 if ns_const is None else ns_const
-        P.b_batched = int(b_batched)
-        return P
+        return build_sweep_params(
+            op.vshape, op.offsets, op.diag_index, self.coloring.n_colors,
+            self.coloring.weights, self.order, self.omega, const_coeffs, ns_const,
+            C, b_batched, noise_mode)
+
+
+def build_sweep_params(vshape, offsets, diag_index: int, n_colors: int, color_weights,
+                       order, omega: float, const_coeffs, ns_const: Optional[float],
+                       C: int, b_batched: bool, noise_mode: int) -> SweepParams:
+    """The kernels' parameter block from plain values.  ``const_coeffs`` holds
+    per offset a float where the coefficient plane travels as a scalar, else
+    ``None`` (the plane is then read from the coefficient tensor); ``ns_const``
+    likewise for the noise scale."""
+    lead = 3 - len(vshape)  # 2d fields are 3d fields with Z = 1
+    P = SweepParams()
+    P.C = C
+    P.Z, P.Y, P.X = (1,) * lead + tuple(vshape)
+    P.K, P.diag_index = len(offsets), diag_index
+    for k, (off, cval) in enumerate(zip(offsets, const_coeffs)):
+        P.dz[k], P.dy[k], P.dx[k] = (0,) * lead + tuple(off)
+        P.coeff_const[k] = int(cval is not None)
+        P.coeff_val[k] = 0.0 if cval is None else cval
+    P.n_colors = n_colors
+    P.wz, P.wy, P.wx = (0,) * lead + tuple(int(w) for w in color_weights)
+    P.jstride = n_colors // math.gcd(P.wx, n_colors)
+    P.n_order = len(order)
+    for o, c in enumerate(order):
+        P.order[o] = c
+    P.omega = omega
+    P.noise_mode = noise_mode
+    P.ns_const = int(ns_const is not None)
+    P.ns_val = 0.0 if ns_const is None else ns_const
+    P.b_batched = int(b_batched)
+    return P
 
 
 def noise_scale(op: StencilOperator, omega: float) -> torch.Tensor:
@@ -315,3 +334,196 @@ def gibbs_sweep_batched(plan: SweepPlan, f: torch.Tensor, x: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"gibbs_sweep kernel launch failed: CUDA error {err}")
     return x
+
+
+# ------------------------------------------- entry points on raw arrays (v1)
+# The JAX package's first-generation sweeps take the operator as raw arrays
+# (``coeffs``, ``offsets``, ``diag_index``, the linear colouring's weights) and
+# were four kernels because of the TPU's one-tile and chain-block limits.  On
+# this card they are entry points over the two kernels above: a single chain is
+# a batch of one, every coefficient plane is read from ``coeffs``, the noise
+# scale ``sqrt(diag (2 - omega) / omega)`` is a plane computed here, and a seed
+# becomes the Philox ``(seed, counter)`` pair; chains are told apart by the
+# chain index in the Philox counter, not by one seed per chain block.
+def _raw_masks(vshape, color_weights, n_colors: int, like: torch.Tensor) -> torch.Tensor:
+    """Colour masks ``(n_colors, *vshape)`` of the linear colouring
+    ``(sum_d w_d i_d) mod n_colors``."""
+    grids = torch.meshgrid(*[torch.arange(n, device=like.device) for n in vshape], indexing="ij")
+    color = sum(int(w) * g for w, g in zip(color_weights, grids)) % n_colors
+    return torch.stack([(color == c) for c in range(n_colors)]).to(like.dtype)
+
+
+def _raw_stencil(coeffs, offsets, x):
+    from ..stencil import shift
+
+    y = None
+    for k, off in enumerate(offsets):
+        t = coeffs[k] * shift(x, tuple(off))
+        y = t if y is None else y + t
+    return y
+
+
+def _raw_noise_scale(coeffs, diag_index: int, omega: float) -> torch.Tensor:
+    return torch.sqrt(coeffs[diag_index] * ((2.0 - omega) / omega))
+
+
+def philox_from_seed(seed) -> Tuple[int, int]:
+    """The Philox ``(seed, counter)`` pair of a v1 seed: an int is the seed
+    with counter 0; a sequence of 32-bit key words gives the seed from the
+    first two words and the counter from the next two."""
+    if isinstance(seed, torch.Tensor):
+        seed = seed.detach().cpu().numpy()
+    words = [int(w) & 0xFFFFFFFF for w in np.atleast_1d(np.asarray(seed)).reshape(-1)]
+    if np.ndim(seed) == 0:
+        return int(seed) & 0xFFFFFFFFFFFFFFFF, 0
+    if not 1 <= len(words) <= 4:
+        raise ValueError("a seed is an int or one to four 32-bit key words")
+    words += [0] * (4 - len(words))
+    return words[0] | (words[1] << 32), words[2] | (words[3] << 32)
+
+
+def fused_sor_sweep_batched_plain(coeffs, b, x, *, offsets, diag_index, omega, order,
+                                  color_weights, n_colors):
+    """Plain PyTorch version of :func:`fused_sor_sweep_batched` (and, on one
+    field, of :func:`fused_sor_sweep`).  Returns a new tensor."""
+    vshape = tuple(coeffs.shape[1:])
+    masks = _raw_masks(vshape, color_weights, n_colors, coeffs)
+    diag = coeffs[diag_index]
+    for c in order:
+        x = x + masks[c] * (omega * (b - _raw_stencil(coeffs, offsets, x)) / diag)
+    return x
+
+
+fused_sor_sweep_plain = fused_sor_sweep_batched_plain
+
+
+def fused_gibbs_sweep_batched_plain(xi, coeffs, f, x, *, offsets, diag_index, omega, order,
+                                    color_weights, n_colors):
+    """Plain PyTorch version of :func:`fused_gibbs_sweep_batched` (and of
+    :func:`fused_gibbs_sweep`): the sweep on ``f + sqrt(diag (2 - omega) /
+    omega) xi`` with the normals ``xi`` (shape of ``x``) given in place of the
+    seed."""
+    c = f + _raw_noise_scale(coeffs, diag_index, omega) * xi
+    return fused_sor_sweep_batched_plain(
+        coeffs, c, x, offsets=offsets, diag_index=diag_index, omega=omega, order=order,
+        color_weights=color_weights, n_colors=n_colors)
+
+
+fused_gibbs_sweep_plain = fused_gibbs_sweep_batched_plain
+
+
+def _launch_raw(name, coeffs, b, x, xi, philox, *, offsets, diag_index, omega, order,
+                color_weights, n_colors):
+    """Validate raw arrays, build the parameter block and launch
+    ``sor_sweep_kernel`` (``xi`` and ``philox`` both ``None``) or
+    ``gibbs_sweep_kernel``; ``x`` is ``(C, *vshape)`` and updated in place."""
+    vshape = tuple(coeffs.shape[1:])
+    if len(vshape) not in (2, 3) or coeffs.shape[0] != len(offsets):
+        raise ValueError(f"coeffs {tuple(coeffs.shape)} do not match {len(offsets)} offsets "
+                         "on a 2d or 3d field")
+    if len(offsets) > MAX_OFFSETS or n_colors > MAX_COLORS:
+        raise NotImplementedError(f"more than {MAX_OFFSETS} offsets or {MAX_COLORS} colours")
+    C = x.shape[0]
+    if tuple(x.shape[1:]) != vshape or tuple(b.shape) not in (vshape, (C,) + vshape):
+        raise ValueError(f"x {tuple(x.shape)} / b {tuple(b.shape)} do not match the "
+                         f"coefficients' field shape {vshape}")
+    tensors = {"coeffs": coeffs, "b": b, "x": x}
+    if xi is not None:
+        if xi.shape != x.shape:
+            raise ValueError(f"xi must have the shape of x, got {tuple(xi.shape)}")
+        tensors["xi"] = xi
+    for tname, t in tensors.items():
+        if t.device != x.device:
+            raise ValueError(f"{tname} lies on {t.device}, x on {x.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the sweep kernels are float32 only ({tname} is {t.dtype})")
+        if not t.is_contiguous():
+            raise ValueError(f"{tname} must be contiguous")
+    noise_mode = 0 if (xi is None and philox is None) else (1 if philox is not None else 2)
+    P = build_sweep_params(vshape, offsets, diag_index, n_colors, color_weights, order,
+                           float(omega), (None,) * len(offsets), None, C,
+                           b.ndim == len(vshape) + 1, noise_mode)
+    P.seed, P.counter = philox if philox is not None else (0, 0)
+    lib = load_library()
+    threads = default_threads(int(np.prod(vshape)))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if noise_mode == 0:
+            err = lib.sor_sweep_batched(ctypes.byref(P), x.data_ptr(), b.data_ptr(),
+                                        coeffs.data_ptr(), threads, stream)
+        else:
+            ns = _raw_noise_scale(coeffs, diag_index, omega).contiguous()
+            scratch = torch.empty_like(x)
+            err = lib.sor_gibbs_sweep_batched(
+                ctypes.byref(P), x.data_ptr(), b.data_ptr(), scratch.data_ptr(),
+                coeffs.data_ptr(), ns.data_ptr(), tensor_ptr(xi), threads, stream)
+    launch_counts[name] += 1
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err}")
+    return x
+
+
+def fused_sor_sweep_batched(coeffs, b, x, *, offsets, diag_index, omega, order,
+                            color_weights, n_colors):
+    """One deterministic colour-ordered SOR sweep of ``x (C, *vshape)`` on raw
+    arrays: ``coeffs (K, *vshape)``, ``b`` shaped like ``x``.  CPU tensors go to
+    :func:`fused_sor_sweep_batched_plain`; CUDA tensors launch
+    ``sor_sweep_kernel`` on a copy of ``x`` or raise.  Returns a new tensor."""
+    kw = dict(offsets=offsets, diag_index=diag_index, omega=omega, order=order,
+              color_weights=color_weights, n_colors=n_colors)
+    if x.device.type == "cpu":
+        return fused_sor_sweep_batched_plain(coeffs, b, x, **kw)
+    return _launch_raw("fused_sor_sweep_batched", coeffs, b, x.clone(), None, None, **kw)
+
+
+def fused_sor_sweep(coeffs, b, x, *, offsets, diag_index, omega, order, color_weights,
+                    n_colors):
+    """One deterministic sweep of one field ``x (*vshape)``: a batch of one
+    through ``sor_sweep_kernel``.  Returns a new tensor."""
+    kw = dict(offsets=offsets, diag_index=diag_index, omega=omega, order=order,
+              color_weights=color_weights, n_colors=n_colors)
+    if x.device.type == "cpu":
+        return fused_sor_sweep_plain(coeffs, b, x, **kw)
+    if x.ndim != coeffs.ndim - 1:
+        raise ValueError(f"x must be one field of shape {tuple(coeffs.shape[1:])}")
+    out = _launch_raw("fused_sor_sweep", coeffs, b, x.clone()[None], None, None, **kw)
+    return out[0]
+
+
+def fused_gibbs_sweep_batched(seed, coeffs, f, x, *, offsets, diag_index, omega, order,
+                              color_weights, n_colors, xi=None):
+    """One Gibbs sweep of ``x (C, *vshape)`` on raw arrays.  ``seed`` (an int
+    or up to four 32-bit key words, see :func:`philox_from_seed`) feeds the
+    in-kernel generator; alternatively ``seed=None`` and the normals ``xi``
+    (shape of ``x``).  CPU tensors go to the plain version, which needs ``xi``;
+    CUDA tensors launch ``gibbs_sweep_kernel`` on a copy of ``x`` or raise."""
+    kw = dict(offsets=offsets, diag_index=diag_index, omega=omega, order=order,
+              color_weights=color_weights, n_colors=n_colors)
+    if (seed is None) == (xi is None):
+        raise ValueError("give a seed or the normals xi, one of the two")
+    if x.device.type == "cpu":
+        if xi is None:
+            raise ValueError("the Philox stream exists in the CUDA kernel only: pass xi")
+        return fused_gibbs_sweep_batched_plain(xi, coeffs, f, x, **kw)
+    philox = None if seed is None else philox_from_seed(seed)
+    return _launch_raw("fused_gibbs_sweep_batched", coeffs, f, x.clone(), xi, philox, **kw)
+
+
+def fused_gibbs_sweep(seed, coeffs, f, x, *, offsets, diag_index, omega, order, color_weights,
+                      n_colors, xi=None):
+    """One Gibbs sweep of one field ``x (*vshape)``: a batch of one through
+    ``gibbs_sweep_kernel``.  Arguments as :func:`fused_gibbs_sweep_batched`."""
+    kw = dict(offsets=offsets, diag_index=diag_index, omega=omega, order=order,
+              color_weights=color_weights, n_colors=n_colors)
+    if (seed is None) == (xi is None):
+        raise ValueError("give a seed or the normals xi, one of the two")
+    if x.device.type == "cpu":
+        if xi is None:
+            raise ValueError("the Philox stream exists in the CUDA kernel only: pass xi")
+        return fused_gibbs_sweep_plain(xi, coeffs, f, x, **kw)
+    if x.ndim != coeffs.ndim - 1:
+        raise ValueError(f"x must be one field of shape {tuple(coeffs.shape[1:])}")
+    philox = None if seed is None else philox_from_seed(seed)
+    out = _launch_raw("fused_gibbs_sweep", coeffs, f, x.clone()[None],
+                      None if xi is None else xi[None].contiguous(), philox, **kw)
+    return out[0]

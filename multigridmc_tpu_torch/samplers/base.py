@@ -11,9 +11,11 @@ every ``apply`` a **noise source**:
 * :class:`GeneratorNoise` (production) wraps a ``torch.Generator`` on the
   sampler's device for the plain tensor path, and hands the fused kernels a
   Philox ``(seed, launch counter)`` pair.  The counter is a Python int that
-  advances by one per kernel launch, so every (step, level, visit, sweep) gets
-  its own stream without a device-to-host synchronisation; the kernel adds the
-  chain and the point index to the Philox counter.
+  advances by one per draw (a kernel that makes one draw per launch takes one
+  counter, the subtree kernel takes one per sweep, low-rank draw and coarse
+  sample of its launch), so every (step, level, visit, sweep) gets its own
+  stream without a device-to-host synchronisation; the kernel adds the chain
+  and the point index to the Philox counter.
 * :class:`ReplayNoise` (tests) returns arrays supplied from outside, in call
   order, so the port can be fed the very normals another implementation drew.
 
@@ -49,6 +51,12 @@ class NoiseSource:
         kernel is then fed the field noise through :meth:`normal`)."""
         return None
 
+    def philox_streams(self, n: int) -> Optional[Tuple[int, int]]:
+        """``(seed, first launch counter)`` of ``n`` consecutive launch
+        counters, for a kernel that makes ``n`` draws in one launch (draw ``d``
+        uses the counter ``first + d``), or ``None`` as :meth:`philox_stream`."""
+        return None
+
 
 class GeneratorNoise(NoiseSource):
     """Production noise: a seeded ``torch.Generator`` on ``device`` plus the
@@ -65,8 +73,13 @@ class GeneratorNoise(NoiseSource):
                            generator=self.generator)
 
     def philox_stream(self) -> Tuple[int, int]:
+        return self.philox_streams(1)
+
+    def philox_streams(self, n: int) -> Tuple[int, int]:
+        if n < 1:
+            raise ValueError("a launch takes at least one counter")
         counter = self.launches
-        self.launches += 1
+        self.launches += int(n)
         return self.seed, counter
 
 

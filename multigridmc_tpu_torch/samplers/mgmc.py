@@ -31,9 +31,18 @@ sweeps are launches of the sweep kernel
 transfers in plain PyTorch.  ``apply`` may update the chain state it is given
 in place.
 
-Not ported yet (``NotImplementedError``): ``distill=True`` (affine-distilled
-coarse subtree), ``sweep_schedule="alternating"``, fused 3d and two-sweep
-(SSOR) visits and the subtree kernel.
+Two ways to replace the recursion below a level by one call:
+
+* ``distill`` - everything from the distill level down becomes the exact
+  affine-Gaussian map ``x = T f + S xi`` of
+  :mod:`multigridmc_tpu_torch.samplers.distill`, two matrix products per
+  invocation.  The default ``"auto"`` distils on a CUDA device.
+* ``subtree=True`` - everything below level 0 is one launch of the subtree
+  kernel (:mod:`multigridmc_tpu_torch.ops.kernels.mgmc_subtree`).  It excludes
+  distillation.
+
+Not ported yet (``NotImplementedError``): ``sweep_schedule="alternating"``,
+fused 3d and two-sweep (SSOR) visits.
 """
 
 from __future__ import annotations
@@ -49,6 +58,8 @@ from ..smoothers import BACKWARD, FORWARD
 from ..solvers.multigrid import MultigridHierarchy
 from .base import NoiseSource, Sampler
 from .cholesky import DenseCholeskySampler
+from .distill import DEFAULT_DISTILL_MAX_N  # noqa: F401  (the other default, kept beside)
+from .distill import distill_subtree, resolve_distill_level
 from .sor import SORSampler, SSORSampler
 
 #: smallest level (vertex count) that runs as a fused kernel visit on a CUDA
@@ -71,6 +82,20 @@ class MultigridMCSampler(Sampler):
     sweep kernels); a 2d float32 SOR level beyond the visit kernels' limits
     raises ``NotImplementedError`` (see
     :func:`~multigridmc_tpu_torch.ops.kernels.mgmc_visit.fused_levels_for`).
+
+    ``distill``: ``False`` never; ``True`` distils the subtree rooted at
+    :func:`~multigridmc_tpu_torch.samplers.distill.pick_distill_level` on any
+    device; ``"auto"`` (default) does so on a CUDA device and not on the CPU.
+    ``distill_precision``: ``None``, ``"highest"`` and ``"high"`` run the two
+    products in full float32, ``"default"`` allows TF32 for them (opt-in).
+
+    ``subtree``: ``True`` runs everything below level 0 as one launch of the
+    subtree kernel for batched chains (on the CPU: its plain version).  It
+    needs SOR with one pre- and one post-sweep, a 2d operator, at least three
+    levels and a dense Cholesky coarse sampler, and float32 on a CUDA device;
+    anything else raises.  It excludes distillation: ``distill="auto"`` then
+    resolves to off and ``distill=True`` raises.  Off by default: on an H100
+    the distilled subtree is faster (``chip_smoke.py``, PERF.md).
     """
 
     def __init__(
@@ -88,11 +113,12 @@ class MultigridMCSampler(Sampler):
         cholesky_factorisation: str = "dense",
         hierarchy: Optional[MultigridHierarchy] = None,
         verbose: int = 0,
-        distill: object = False,
+        distill: object = "auto",
         fused: object = "auto",
         fused_min_vertices: Optional[int] = None,
         sweep_schedule: str = "fixed",
         distill_precision: Optional[str] = None,
+        subtree: bool = False,
         device=None,
         dtype=None,
     ):
@@ -105,10 +131,6 @@ class MultigridMCSampler(Sampler):
             raise NotImplementedError(
                 "sweep_schedule='alternating' is not ported yet (a later slice "
                 "of the port brings the alternating schedule)")
-        if distill not in (False, None):
-            raise NotImplementedError(
-                "the affine-distilled coarse subtree (samplers/distill.py) is "
-                "the next slice of the port; pass distill=False")
         smoother = smoother.upper()
         if smoother not in ("SOR", "SSOR"):
             raise ValueError(f"invalid sampler '{smoother}'")
@@ -117,8 +139,7 @@ class MultigridMCSampler(Sampler):
         # the coarse level is tiny and factorised densely on the device
         # whichever factorisation the configuration names
         del cholesky_factorisation
-        #: precision tier of the distilled subtree; without distillation it
-        #: selects nothing and is only carried for the configuration's sake
+        #: precision tier of the distilled subtree's two matrix products
         self.distill_precision = distill_precision
 
         self.hierarchy = hierarchy or MultigridHierarchy(op, nlevel)
@@ -158,6 +179,63 @@ class MultigridMCSampler(Sampler):
                 else int(fused_min_vertices),
                 force=None if fused == "auto" else bool(fused),
             )
+        self._build_subtree(bool(subtree), smoother, npresmooth, npostsmooth)
+        self._build_distilled(distill)
+
+    # ------------------------------------------------- the subtree kernel
+    def _build_subtree(self, subtree: bool, smoother: str, npresmooth: int,
+                       npostsmooth: int) -> None:
+        """One kernel launch for the whole coarse subtree (levels 1 ..
+        coarsest).  Asked for and not possible raises: the kernel is never
+        quietly replaced by the composed path."""
+        self.subtree = None
+        if not subtree:
+            return
+        sub_ops = self.hierarchy.operators[1:]
+        if smoother != "SOR" or npresmooth != 1 or npostsmooth != 1:
+            raise NotImplementedError(
+                "subtree=True needs SOR with one pre- and one post-sweep per visit "
+                "(two-sweep visits belong to a later slice)")
+        if not isinstance(self.coarse_sampler, DenseCholeskySampler):
+            raise NotImplementedError("subtree=True needs the dense Cholesky coarse sampler")
+        if self.nlevel < 3:
+            raise ValueError("subtree=True needs at least 3 levels: a level above the "
+                             "subtree, a sub-level and the coarsest")
+        if any(len(op.vshape) != 2 for op in sub_ops):
+            raise NotImplementedError("the subtree kernel is 2d only")
+        if self.op.device.type == "cuda" and self.op.dtype != torch.float32:
+            raise NotImplementedError("the subtree kernel is float32 only")
+        from ..ops.kernels.mgmc_subtree import SubtreeKernel
+
+        self.subtree = SubtreeKernel(
+            sub_ops,
+            [p.smoother for p in self.presamplers[1:self.nlevel - 1]],
+            [p.smoother for p in self.postsamplers[1:self.nlevel - 1]],
+            self.coarse_sampler.L, self.presamplers[0].omega, self.cycle,
+            self.coarse_scaling)
+
+    # ------------------------------------------------- the distilled subtree
+    def _build_distilled(self, distill) -> None:
+        """Affine distillation of the coarse subtree: below the distill level
+        the recursion is replaced by the subtree's *exact* affine-Gaussian map
+        ``x = T f + S xi`` - two matrix products per invocation."""
+        self.distilled = None
+        self.distill_level = None
+        if self.subtree is not None:
+            if distill is True:
+                raise ValueError("subtree=True already covers the sub-levels: it excludes "
+                                 "distill=True")
+            return
+        li = resolve_distill_level(distill, self.hierarchy.operators)
+        if li is None:
+            return
+        self.distilled = self._make_distilled(li, self.presamplers, self.postsamplers)
+        self.distill_level = li
+
+    def _make_distilled(self, li: int, pre, post):
+        return distill_subtree(
+            self.hierarchy.operators[li:], pre[li:], post[li:], self.coarse_sampler,
+            self.cycle, self.coarse_scaling, noise=True, precision=self.distill_precision)
 
     def _sample(self, level: int, noise: NoiseSource, f: torch.Tensor,
                 x: torch.Tensor) -> torch.Tensor:
@@ -177,7 +255,14 @@ class MultigridMCSampler(Sampler):
                 x = self.presamplers[level].apply(noise, f, x)
                 r = f - op.apply(x)
                 f_coarse = restrict(r, dim=vdim)
-            x_coarse = self._sample(level + 1, noise, f_coarse, torch.zeros_like(f_coarse))
+            if level == 0 and self.subtree is not None and f_coarse.ndim == vdim + 1:
+                x_coarse = self.subtree.sample(noise, f_coarse.contiguous())
+            elif (self.distilled is not None and level + 1 == self.distill_level
+                  and f_coarse.ndim > vdim):
+                x_coarse = self.distilled.apply(noise, f_coarse)
+            else:
+                x_coarse = self._sample(level + 1, noise, f_coarse,
+                                        torch.zeros_like(f_coarse))
             if fused is not None:
                 x = fused.ascend(noise, f, x, x_coarse)
             else:
@@ -190,7 +275,10 @@ class MultigridMCSampler(Sampler):
         ``(*batch, *vshape)``; ``f`` is ``vshape`` (shared) or batched like x.
         With fused levels ``x`` may be updated in place; use the return value."""
         vdim = len(self.op.vshape)
-        if self.fused_levels and x.ndim != vdim + 1:
+        one_chain_axis = bool(self.fused_levels) or self.subtree is not None
+        if self.distilled is not None and x.ndim == vdim:
+            one_chain_axis = True  # the distilled map serves batches: one chain is a batch of one
+        if one_chain_axis and x.ndim != vdim + 1:
             # fused kernels take one flat chain axis; reshape around the cycle
             # (a single chain is a batch of one)
             batch = x.shape[: x.ndim - vdim]
@@ -200,7 +288,7 @@ class MultigridMCSampler(Sampler):
                 ff = torch.broadcast_to(f, x.shape).reshape(xf.shape)
             out = self._sample(0, noise, ff.contiguous(), xf)
             return out.reshape(batch + self.op.vshape)
-        if self.fused_levels and x.ndim == vdim + 1:
+        if one_chain_axis:
             x = x.contiguous()
             f = f.contiguous()
         return self._sample(0, noise, f, x)

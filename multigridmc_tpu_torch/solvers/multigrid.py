@@ -12,7 +12,9 @@ level-visit kernels with the noise off
 through the deterministic sweep kernel
 (:mod:`multigridmc_tpu_torch.ops.kernels.sor_sweep`) and computes the residual
 and the transfers in plain PyTorch.  A single right-hand side is a batch of one.
-The distilled deterministic subtree of the JAX package belongs to a later slice.
+With ``distill`` the deterministic subtree below the distill level is one matrix
+(:mod:`multigridmc_tpu_torch.samplers.distill` with the noise off): one matrix
+product per invocation.
 """
 
 from __future__ import annotations
@@ -59,8 +61,9 @@ class MultigridPreconditioner:
 
     Parameters mirror the JAX package's: smoother ("SOR" forward-pre /
     backward-post, or "SSOR" both), npresmooth, npostsmooth, cycle (1=V, 2=W),
-    coarse_scaling.  ``distill`` may be ``False`` or ``"auto"`` (which resolves
-    to off: the distilled subtree is not ported); anything else raises.
+    coarse_scaling.  ``distill``: ``False`` never, ``True`` on any device,
+    ``"auto"`` (default) on a CUDA device, at
+    :func:`~multigridmc_tpu_torch.samplers.distill.pick_distill_level`.
     ``fused`` as in :class:`~multigridmc_tpu_torch.samplers.mgmc.MultigridMCSampler`.
     """
 
@@ -81,10 +84,6 @@ class MultigridPreconditioner:
         device=None,
         dtype=None,
     ):
-        if distill not in (False, None, "auto"):
-            raise NotImplementedError(
-                "the distilled deterministic coarse subtree (samplers/distill.py) "
-                "belongs to a later slice of the port; pass distill=False")
         op = op.to(device, dtype)
         self.hierarchy = hierarchy or MultigridHierarchy(op, nlevel)
         if self.hierarchy.operators[0].device != op.device:
@@ -115,6 +114,21 @@ class MultigridPreconditioner:
                 0 if fused_min_vertices is None else int(fused_min_vertices),
                 force=None if fused == "auto" else bool(fused),
             )
+        self._build_distilled(distill)
+
+    def _build_distilled(self, distill) -> None:
+        """Distil the deterministic coarse subtree into one matrix (the
+        noise-free variant of ``samplers/distill.py``); same gating as the
+        sampler."""
+        from ..samplers.distill import distill_subtree, resolve_distill_level
+
+        self.distilled = None
+        self.distill_level = resolve_distill_level(distill, self.hierarchy.operators)
+        li = self.distill_level
+        if li is not None:
+            self.distilled = distill_subtree(
+                self.hierarchy.operators[li:], self.presmoothers[li:], self.postsmoothers[li:],
+                self.coarse_solver, self.cycle, self.coarse_scaling, noise=False)
 
     def _solve(self, level: int, b: torch.Tensor) -> torch.Tensor:
         """Recursive cycle; x is zero-initialised at every level entry."""
@@ -133,7 +147,11 @@ class MultigridPreconditioner:
                 x = self.presmoothers[level].apply(b, x)
                 r = b - op.apply(x)
                 b_coarse = restrict(r, dim=vdim)
-            x_coarse = self._solve(level + 1, b_coarse)
+            if (self.distilled is not None and level + 1 == self.distill_level
+                    and b_coarse.ndim > vdim):
+                x_coarse = self.distilled.solve(b_coarse)
+            else:
+                x_coarse = self._solve(level + 1, b_coarse)
             if fused is not None:
                 x = fused.ascend(None, b, x, x_coarse)
             else:
@@ -145,7 +163,8 @@ class MultigridPreconditioner:
         """One multigrid cycle applied to b (x implicitly zero-initialised)."""
         vshape = self.hierarchy.operators[0].vshape
         vdim = len(vshape)
-        if self.fused_levels and b.ndim != vdim + 1:
+        if (self.fused_levels and b.ndim != vdim + 1) or (self.distilled is not None
+                                                          and b.ndim == vdim):
             # fused kernels take one flat batch axis (a single rhs is a batch of one)
             batch = b.shape[: b.ndim - vdim]
             out = self._solve(0, b.reshape((-1,) + vshape).contiguous())

@@ -28,7 +28,7 @@ def test_port_and_chip_smoke_import_no_jax():
     proc = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 35
+    assert int(proc.stdout.split()[0]) >= 37
 
 
 def test_every_module_of_the_port_is_importable_here():
@@ -46,6 +46,9 @@ def test_every_module_of_the_port_is_importable_here():
                  "solvers.loop", "utils.config", "utils.vtk", "utils.statistics", "qoi",
                  "drivers.common", "drivers.mgmc", "drivers.mg"):
         assert f"multigridmc_tpu_torch.{name}" in names
+    # the third slice: the distilled subtree and the subtree kernel
+    for name in ("samplers.distill", "ops.kernels.mgmc_subtree"):
+        assert f"multigridmc_tpu_torch.{name}" in names
 
 
 def test_no_source_of_the_port_names_jax():
@@ -55,7 +58,7 @@ def test_no_source_of_the_port_names_jax():
 
     pattern = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|multigridmc_tpu)(?:[.\s]|$)", re.M)
     sources = list((REPO / "multigridmc_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(sources) >= 35
+    assert len(sources) >= 37
     for path in sources:
         assert not pattern.search(path.read_text()), path
 

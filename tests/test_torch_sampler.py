@@ -243,16 +243,18 @@ def test_default_device_without_a_gpu_raises():
 @pytest.mark.parametrize("kwargs,match", [
     (dict(smoother="SSOR"), None),
     (dict(coarse_solver="SSOR"), None),
-    (dict(distill=True), "distill"),
-    (dict(distill="auto"), "distill"),
+    (dict(distill=True, nlevel=3), None),
+    (dict(distill="auto", nlevel=3), None),
     (dict(sweep_schedule="alternating"), "alternating"),
 ], ids=["ssor", "ssor_coarse", "distill", "distill_auto", "alternating"])
 def test_unported_sampler_options_raise(kwargs, match):
-    """Options of a later slice raise; SSOR (``match=None``) is ported and must
-    construct and take a finite step."""
+    """Options of a later slice raise; SSOR and the distilled subtree
+    (``match=None``) are ported and must construct and take a finite step."""
     op = shiftedlaplace_fd(Lattice((8, 8)), ConstantCorrelationLengthModel(0.3), device=CPU)
     if match is None:
-        sampler = MultigridMCSampler(op, nlevel=2, **kwargs)
+        sampler = MultigridMCSampler(op, **{"nlevel": 2, **kwargs})
+        if "distill" in kwargs:  # True distils on any device, "auto" not on the CPU
+            assert (sampler.distilled is not None) == (kwargs["distill"] is True)
         x = sampler.apply(GeneratorNoise(1, CPU), torch.zeros(op.vshape),
                           torch.zeros((2,) + op.vshape))
         assert x.shape == (2,) + op.vshape and bool(torch.isfinite(x).all())

@@ -86,8 +86,12 @@ def test_preconditioner_apply_matches_jax(smoother, cycle, batch):
 def test_preconditioner_options():
     op = to_port(jax_operator(16, False))
     assert MultigridPreconditioner(op, 2, distill="auto").fused_levels == {}
-    with pytest.raises(NotImplementedError, match="distill"):
-        MultigridPreconditioner(op, 2, distill=True)
+    # two levels are too shallow to distil; three distil the middle one when asked
+    assert MultigridPreconditioner(op, 2, distill=True).distilled is None
+    assert MultigridPreconditioner(op, 3, distill=True).distill_level == 1
+    assert MultigridPreconditioner(op, 3, distill="auto").distilled is None  # the CPU: off
+    with pytest.raises(ValueError, match="invalid distill"):
+        MultigridPreconditioner(op, 3, distill="yes")
     with pytest.raises(ValueError, match="unknown smoother"):
         MultigridPreconditioner(op, 2, smoother="Jacobi")
     with pytest.raises(ValueError, match="operators given"):

@@ -131,7 +131,8 @@ def test_wrappers_take_the_plain_version_on_the_cpu_only():
     out = ss.sweep_batched(plan, b, x)
     assert torch.equal(x, x0) and out is not x  # the plain version returns a new tensor
     ss.gibbs_sweep_batched(plan, b, x, xi=xi)
-    assert ss.launch_counts == {"sweep_batched": 0, "gibbs_sweep_batched": 0}
+    assert {"sweep_batched", "gibbs_sweep_batched"} <= set(ss.launch_counts)
+    assert all(count == 0 for count in ss.launch_counts.values())  # no launch on the CPU
     assert not plan.on_kernel_device()
     with pytest.raises(ValueError, match="Philox stream exists in the CUDA kernel only"):
         ss.gibbs_sweep_batched(plan, b, x, philox=(1, 2))
