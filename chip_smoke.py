@@ -16,8 +16,16 @@ card and checks, one phase after the other:
 3. ``kernels``     each kernel against its plain PyTorch version at the shapes
                    the main paths give it (noise off, then the same noise
                    tensor fed to both; ``rtol = atol = 2e-5``: float32 with
-                   another summation order and FMA contraction) - the two
-                   level-visit kernels on every level of the flagship, the
+                   another summation order and FMA contraction) - the
+                   level-visit kernels of both routes (the phase kernels and
+                   the row-wavefront stream kernels) on every level of the
+                   flagship (the phase kernels also at one chain), the two
+                   routes against each other under one in-kernel Philox
+                   stream, the stream kernels' shared-memory layout against the
+                   host's copy; their times at 1 .. 512 chains on the 255^2 and
+                   127^2 levels and at 132 .. 512 on the 511^2 and 255^2 levels
+                   of a 512x512 lattice (the ``visit_routes`` line, which must
+                   support the chain count from which the stream kernels run), the
                    two sweep kernels in both directions on 2d 5- and 9-point,
                    3d 7- and 27-point, space-varying and reach-2 operators -
                    the in-kernel Philox normals (known-answer reference,
@@ -34,7 +42,8 @@ card and checks, one phase after the other:
                    subtree from level 2 distilled (and once more with TF32
                    allowed in its two products), the subtree below level 0 in
                    one kernel launch, and level 0 fused only: finite samples,
-                   launch counters, samples/s, ms/step, set-up seconds;
+                   launch counters, the visit route each level took,
+                   samples/s, ms/step, set-up seconds;
 5. ``drivers``     ``drivers.mgmc`` (SSOR and MGMC time series, convergence
                    tables over 256 replica chains, posterior statistics) and
                    ``drivers.mg`` (SSOR-smoothed multigrid Richardson) from
@@ -57,7 +66,8 @@ plain version's time and its bound.  The last line is
 ``{"ok": true, "device": {...}}``; any failing phase raises and the exit code
 is not 0.  Without a CUDA device the script exits with code 1 and prints no
 result.  ``--phases`` runs a subset of the phases (``threads``: the visit
-kernels' block-size table; ``new``: the third slice's kernels alone) and prints
+kernels' block-size table; ``new``: the third slice's kernels alone;
+``visits``: the visit kernels of both routes alone) and prints
 no result line.
 """
 
@@ -199,6 +209,7 @@ def phase_build():
     t0 = time.perf_counter()
     paths = common.build_libraries(common.SOURCES)
     mgmc_visit.load_library()
+    mgmc_visit.load_stream_library()
     sor_sweep.load_library()
     mgmc_subtree.load_library()
     common.load_probe_library()
@@ -252,8 +263,20 @@ def compare(name, got, want, tol=TOL):
     return err
 
 
-def check_level(level, li, C, f_batched, gen):
-    """Kernel against plain version on one level: noise off, then shared noise."""
+#: the kernel names of the two visit routes (``mgmc_visit.ROUTES``)
+VISIT_KERNELS = {"phase": ("descend_visit", "ascend_visit"),
+                 "stream": ("descend_visit_stream", "ascend_visit_stream")}
+#: the kernels as torch.profiler names them
+PROFILER_NAMES = {"descend_visit": "descend_kernel", "ascend_visit": "ascend_kernel",
+                  "descend_visit_stream": "stream_visit_kernel<true",
+                  "ascend_visit_stream": "stream_visit_kernel<false"}
+
+
+def check_level(level, li, C, f_batched, gen, routes=("phase", "stream")):
+    """The visit kernels of ``routes`` against the plain version on one level:
+    noise off, then the same noise tensors; with both routes, then the two
+    kernels against each other under one in-kernel Philox stream, and the
+    stream kernel against itself (bitwise)."""
     from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
 
     dev = level.coeffs.device
@@ -265,29 +288,63 @@ def check_level(level, li, C, f_batched, gen):
     f = rand(*((C,) + vshape if f_batched else vshape))
     x = rand(C, *vshape)
     xc = rand(C, *level.vc)
-    errs = {"descend_visit": 0.0, "ascend_visit": 0.0}
+    errs = {name: 0.0 for route in routes for name in VISIT_KERNELS[route]}
     for noisy in (False, True):
         xi = rand(C, *vshape) if noisy else None
         xi_lr = rand(C, m) * level.lr_scale if (noisy and m) else None
-        tag = f"L{li} {'shared noise' if noisy else 'noise off'}"
+        tag = f"L{li} C={C} {'shared noise' if noisy else 'noise off'}"
         want_x, want_fc = mv.descend_visit_plain(level, f, x, xi, xi_lr)
-        got_x, got_fc = mv.descend_visit(level, f, x.clone(), xi=xi, xi_lr=xi_lr)
-        errs["descend_visit"] = max(errs["descend_visit"],
-                                    compare(f"descend x {tag}", got_x, want_x),
-                                    compare(f"descend f_c {tag}", got_fc, want_fc))
         want = mv.ascend_visit_plain(level, f, x, xc, xi, xi_lr)
-        got = mv.ascend_visit(level, f, x.clone(), xc, xi=xi, xi_lr=xi_lr)
-        errs["ascend_visit"] = max(errs["ascend_visit"], compare(f"ascend x {tag}", got, want))
+        for route in routes:
+            dname, aname = VISIT_KERNELS[route]
+            got_x, got_fc = mv.launch_descend(level, route, f, x.clone(), xi=xi, xi_lr=xi_lr)
+            errs[dname] = max(errs[dname], compare(f"{dname} x {tag}", got_x, want_x),
+                              compare(f"{dname} f_c {tag}", got_fc, want_fc))
+            got = mv.launch_ascend(level, route, f, x.clone(), xc, xi=xi, xi_lr=xi_lr)
+            errs[aname] = max(errs[aname], compare(f"{aname} x {tag}", got, want))
+    if len(routes) < 2:
+        torch.cuda.synchronize()
+        return errs, {}
+    # one Philox stream through both kernels
+    xi_lr = rand(C, m) * level.lr_scale if m else None
+    stream = (0x5EED_0000 + li, 7)
+    out = {}
+    for route in mv.ROUTES:
+        out[route] = (*mv.launch_descend(level, route, f, x.clone(), xi_lr=xi_lr, philox=stream),
+                      mv.launch_ascend(level, route, f, x.clone(), xc, xi_lr=xi_lr, philox=stream))
+    again = mv.launch_descend(level, "stream", f, x.clone(), xi_lr=xi_lr, philox=stream)
+    if not (torch.equal(again[0], out["stream"][0]) and torch.equal(again[1], out["stream"][1])):
+        raise AssertionError(f"L{li}: two stream launches with one seed and counter differ")
+    tag = f"L{li} one Philox stream, stream against phase kernel"
+    route_errs = {"descend_x": compare(f"descend x {tag}", out["stream"][0], out["phase"][0]),
+                  "descend_fc": compare(f"descend f_c {tag}", out["stream"][1], out["phase"][1]),
+                  "ascend_x": compare(f"ascend x {tag}", out["stream"][2], out["phase"][2])}
     torch.cuda.synchronize()  # a fault during a launch surfaces here
-    return errs
+    return errs, route_errs
 
 
-def time_level(level, C, f_batched, noise, plain=True):
-    """ms per launch of both kernels (in-kernel noise on, as the main path runs
-    them): CUDA events around back-to-back launches (``*_ms``) and the
-    profiler's device time of the kernel alone (``*_device_ms``); and of their
-    plain versions (noise tensors drawn inside the timed region), at one
-    level's shape."""
+def visit_fns(level, route, noise, f, x, xc):
+    """One descend and one ascend launch through ``route``, each drawing its
+    noise as the main path does (a fresh Philox counter per launch)."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+
+    def descend():
+        xi, xi_lr, philox = level._draw(noise, x)
+        return mv.launch_descend(level, route, f, x, xi, xi_lr, philox)
+
+    def ascend():
+        xi, xi_lr, philox = level._draw(noise, x)
+        return mv.launch_ascend(level, route, f, x, xc, xi, xi_lr, philox)
+
+    return descend, ascend
+
+
+def time_level(level, C, f_batched, noise, plain=True, routes=("phase", "stream")):
+    """ms per launch of the visit kernels of ``routes`` (in-kernel noise on, as
+    the main path runs them): CUDA events around back-to-back launches
+    (``<kernel>_ms``) and the profiler's device time of the kernel alone
+    (``<kernel>_device_ms``); and of the plain versions (noise tensors drawn
+    inside the timed region), at one level's shape."""
     from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
 
     dev = level.coeffs.device
@@ -301,20 +358,113 @@ def time_level(level, C, f_batched, noise, plain=True):
         return xi, xi_lr
 
     out = {}
-    out["descend_ms"] = cuda_ms(lambda: level.descend(noise, f, x), 5, 10)
-    out["ascend_ms"] = cuda_ms(lambda: level.ascend(noise, f, x, xc), 5, 10)
+    for route in routes:
+        for name, fn in zip(VISIT_KERNELS[route], visit_fns(level, route, noise, f, x, xc)):
+            out[f"{name}_ms"] = cuda_ms(fn, 5, 10)
+            out[f"{name}_device_ms"] = device_ms_per_launch(fn, PROFILER_NAMES[name])
+            if out[f"{name}_device_ms"] is None:
+                raise AssertionError(f"the profiler shows no {PROFILER_NAMES[name]}")
     if not plain:
         return out
-    out["descend_device_ms"] = device_ms_per_launch(
-        lambda: level.descend(noise, f, x), "descend_kernel")
-    out["ascend_device_ms"] = device_ms_per_launch(
-        lambda: level.ascend(noise, f, x, xc), "ascend_kernel")
     x.zero_()
     out["descend_plain_ms"] = cuda_ms(
         lambda: mv.descend_visit_plain(level, f, x, *plain_noise()), 3, 3)
     out["ascend_plain_ms"] = cuda_ms(
         lambda: mv.ascend_visit_plain(level, f, x, xc, *plain_noise()), 3, 3)
     return out
+
+
+#: chain counts of the ``visit_routes`` table on the flagship's 255^2 and 127^2
+#: levels, and on the 511^2 and 255^2 (9-point) levels of a 512x512 lattice
+ROUTE_CHAINS = (1, 16, 64, 132, 256, 512)
+WIDE_ROUTE_CHAINS = (132, 256, 512)
+
+
+def time_routes(levels, wide_levels, noise, smi):
+    """The ``visit_routes`` line: both visit kernels at every chain count of
+    :data:`ROUTE_CHAINS` on the flagship's levels 0 and 1 and of
+    :data:`WIDE_ROUTE_CHAINS` on levels 0 and 1 of the wider lattice, by device
+    ms per launch (descend plus ascend), beside the bound.  The threshold the
+    table supports is the least measured chain count from which on the stream
+    kernels are faster at every larger count on every level; the run fails
+    unless it is ``mgmc_visit.STREAM_MIN_CHAINS``."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+
+    rows = []
+    stream_wins = {}
+    cases = [(f"L{li}", levels[li], ROUTE_CHAINS) for li in (0, 1)]
+    cases += [(f"wide L{li}", wide_levels[li], WIDE_ROUTE_CHAINS) for li in (0, 1)]
+    for name, level, chains in cases:
+        if mv.visit_route(max(chains), level.stream_bytes) != "stream":
+            raise AssertionError(f"visit_routes: the stream kernels do not fit {name}")
+        f_batched = not name.endswith("L0")  # level 0 shares f, as on the main path
+        for C in chains:
+            t = time_level(level, C, f_batched, noise, plain=False)
+            row = {"level": name, "vshape": list(level.op.vshape), "chains": C,
+                   "stream_smem_bytes": level.stream_bytes, **t}
+            for kind in ("descend", "ascend"):
+                bound, by, _ = visit_bound(level, C, f_batched, kind)
+                row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound, by
+            pair = {route: sum(t[f"{kernel}_device_ms"] for kernel in VISIT_KERNELS[route])
+                    for route in mv.ROUTES}
+            row["pair_device_ms"] = pair
+            stream_wins[(name, C)] = pair["stream"] <= pair["phase"]
+            rows.append(row)
+    supported = None
+    for C in sorted(ROUTE_CHAINS, reverse=True):
+        if not all(w for (_, c), w in stream_wins.items() if c >= C):
+            break
+        supported = C
+    emit({"visit_routes": rows, "card": smi, "threshold_measured": supported,
+          "threshold_constant": mv.STREAM_MIN_CHAINS,
+          "stream_wins": {f"{name} C={C}": w for (name, C), w in stream_wins.items()}})
+    if supported != mv.STREAM_MIN_CHAINS:
+        raise AssertionError(f"visit_routes: the table supports a threshold of {supported} "
+                             f"chains, STREAM_MIN_CHAINS is {mv.STREAM_MIN_CHAINS}")
+
+
+def check_stream_layout(levels, C):
+    """The host's mirror of the stream kernels' shared-memory layout
+    (``mgmc_visit.stream_smem_bytes``, from which the route is chosen) against
+    the kernel source's (``mgmc_stream_smem_bytes``) on the flagship's fused
+    levels and on the two shapes whose rings do not fit a block (a 1023^2
+    5-point level, a 511^2 4-colour level); the card's opt-in limit and the
+    kernels' static shared memory against the constants the route uses."""
+    import ctypes
+
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+
+    lib = mv.load_stream_library()
+    optin = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_block_optin", None)
+    static = lib.mgmc_stream_static_smem_bytes()
+    if (optin is not None and optin != mv.SMEM_PER_BLOCK_OPTIN) or not (
+            0 <= static <= mv.STREAM_STATIC_SMEM):
+        raise AssertionError(f"stream layout: the card grants {optin} B a block, the kernels "
+                             f"hold {static} B static; the route assumes "
+                             f"{mv.SMEM_PER_BLOCK_OPTIN} and {mv.STREAM_STATIC_SMEM}")
+    cases = []
+    for li, level in sorted(levels.items()):
+        for order, ascend in ((level.pre_order, 0), (level.post_order, 1)):
+            S = level._params(C, order, False, 1, (0, 0), route="stream")
+            H, W = level.op.vshape
+            cases.append((f"L{li}", S, ascend, level.stream_threads, H, W, level.op.m_lowrank))
+    for name, H, max_lag in (("1023^2 5-point", 1023, 2), ("511^2 4-colour", 511, 6)):
+        for ascend in (0, 1):
+            S = mv.StreamParams()
+            S.v.H = S.v.W = H
+            S.v.Hc = S.v.Wc = H // 2
+            S.v.m, S.max_lag = 8, max_lag
+            cases.append((name, S, ascend, 256, H, H, 8))
+    out = []
+    for name, S, ascend, threads, H, W, m in cases:
+        got = lib.mgmc_stream_smem_bytes(ctypes.byref(S), ascend, threads)
+        want = mv.stream_smem_bytes(H, W, S.max_lag, m, threads, bool(ascend))
+        route = mv.visit_route(C, want)
+        if got != want or (route == "stream") != (name.startswith("L")):
+            raise AssertionError(f"stream layout {name}: kernel {got} B, host {want} B, "
+                                 f"route at {C} chains {route}")
+        out.append({"case": name, "ascend": bool(ascend), "bytes": got, "route": route})
+    return {"optin_bytes": optin, "static_bytes": static, "cases": out}
 
 
 class _TensorNoise:
@@ -354,24 +504,28 @@ def check_philox(device, nx, C):
     n = lattice.nvertex
     f = torch.zeros(lattice.vshape, device=device)
 
-    def draw(seed, counter):
+    def draw(seed, counter, route="phase"):
         x = torch.zeros((C,) + lattice.vshape, device=device)
-        x, _ = mv.descend_visit(level, f, x, philox=(seed, counter))
+        x, _ = mv.launch_descend(level, route, f, x, philox=(seed, counter))
         return x
 
     seed = 0x1234_5678_9ABC_DEF0
     z0 = draw(seed, 7)
     if not torch.equal(z0, draw(seed, 7)):
         raise AssertionError("philox: two launches with the same seed and counter differ")
-    # known answer: the host reference of the same generator, incl. high counter words
-    ka_err = 0.0
-    for counter in (7, (1 << 32) + 5):
-        z = z0 if counter == 7 else draw(seed, counter)
-        ref = mv.philox_normals_reference(seed, counter, C, lattice.vshape)
-        rows = [0, 1, C - 1]
-        ka_err = max(ka_err, float(np.abs(z[rows].cpu().numpy() - ref[rows]).max()))
-    if ka_err > 2e-5:
-        raise AssertionError(f"philox: kernel normals differ from the reference by {ka_err}")
+    # known answer: the host reference of the same generator, incl. high counter
+    # words, read out through both visit kernels
+    ka = {}
+    for route in mv.ROUTES:
+        ka[route] = 0.0
+        for counter in (7, (1 << 32) + 5):
+            z = z0 if (counter, route) == (7, "phase") else draw(seed, counter, route)
+            ref = mv.philox_normals_reference(seed, counter, C, lattice.vshape)
+            rows = [0, 1, C - 1]
+            ka[route] = max(ka[route], float(np.abs(z[rows].cpu().numpy() - ref[rows]).max()))
+    ka_err = ka["phase"]
+    if max(ka.values()) > 2e-5:
+        raise AssertionError(f"philox: kernel normals differ from the reference by {ka}")
     # moments and lag correlations over all draws of one launch
     z0 = z0.reshape(C, n)
     z = z0.double()
@@ -400,7 +554,8 @@ def check_philox(device, nx, C):
         raise AssertionError(f"philox statistics failed: {checks} mean={mean} var={var} "
                              f"m4={m4} lags={lags} max_corr={max_corr}")
     return {"draws": N, "mean": mean, "var": var, "m4": m4, "lags": lags,
-            "max_stream_corr": max_corr, "known_answer_max_err": ka_err}
+            "max_stream_corr": max_corr, "known_answer_max_err": ka_err,
+            "known_answer_max_err_stream": ka["stream"]}
 
 
 # ------------------------------------------------- phase: kernels (the sweeps)
@@ -784,8 +939,16 @@ def check_probe(device):
                 "device_ms": device_ms_per_launch(lambda: common.smem_copy(x, limit),
                                                   "smem_probe_kernel"),
                 "plain_ms": cuda_ms(lambda: common.smem_copy_plain(x), 5, 50),
-                # the one PyTorch call that computes the same function
+                # the one PyTorch call that computes the same function; its
+                # event time, like the probe's, holds a whole Python call (the
+                # probe's also the attribute call for the shared memory), so
+                # the device times are the pair to compare
                 "library_ms": cuda_ms(lambda: x.clone(), 5, 50)})
+    for name in ("Memcpy DtoD", "copy"):
+        out["library_device_ms"] = device_ms_per_launch(lambda: x.clone(), name)
+        if out["library_device_ms"] is not None:
+            out["library_device_kernel"] = name
+            break
     return out
 
 
@@ -941,7 +1104,13 @@ def phase_new_kernels(device, nx, nlevel, C, n_meas, gen, noise):
             "v1_errs": v1_errs, "v1_timings": v1_timings, "v1_counts": v1_counts}
 
 
-def phase_kernels(device, nx, nlevel, C, n_meas):
+def phase_visits(device, nx, nlevel, C, n_meas, gen, smi):
+    """The two level-visit kernels of both routes: against the plain versions
+    and against each other on every fused flagship level (the phase kernels also
+    at one chain), the stream kernels' shared-memory layout, the generator's
+    known answer and moments, their times beside the bound, and the route
+    table."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
     from multigridmc_tpu_torch.samplers.base import GeneratorNoise
     from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
 
@@ -950,18 +1119,23 @@ def phase_kernels(device, nx, nlevel, C, n_meas):
     op, _ = build_posterior(nx, n_meas, FLAGSHIP_SEED, "order_one", device)
     sampler = MultigridMCSampler(op, nlevel, cycle=2, fused=True, fused_min_vertices=0,
                                  distill=False)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(11)
-    errs = {"descend_visit": 0.0, "ascend_visit": 0.0}
+    errs = {name: 0.0 for names in VISIT_KERNELS.values() for name in names}
+    route_err = 0.0
     by_level = []
     for li, level in sorted(sampler.fused_levels.items()):
-        # the main path gives level 0 a shared f and the coarser levels one per chain
+        # the main path gives level 0 a shared f and the coarser levels one per
+        # chain; both routes at C chains, and the phase kernels at one chain,
+        # the shape of the drivers' time series, which is their path
         for f_batched in ((False, True) if li == 0 else (True,)):
-            e = check_level(level, li, C, f_batched, gen)
-            by_level.append({"level": li, "vshape": list(level.op.vshape),
-                             "f_batched": f_batched, **e})
-            for k in errs:
-                errs[k] = max(errs[k], e[k])
+            for chains, routes in ((C, mv.ROUTES), (1, ("phase",))):
+                e, route_errs = check_level(level, li, chains, f_batched, gen, routes)
+                by_level.append({"level": li, "vshape": list(level.op.vshape), "chains": chains,
+                                 "f_batched": f_batched, **e,
+                                 "stream_against_phase_one_philox_stream": route_errs})
+                for k in e:
+                    errs[k] = max(errs[k], e[k])
+                route_err = max(route_err, *route_errs.values(), 0.0)
+    layout = check_stream_layout(sampler.fused_levels, C)
     philox = check_philox(device, nx, C)
 
     # times at the production operator (near-exact measurements), all fused levels
@@ -977,22 +1151,36 @@ def phase_kernels(device, nx, nlevel, C, n_meas):
             bound, by, nbytes = visit_bound(level, C, f_batched, kind)
             t[f"{kind}_bound_ms"], t[f"{kind}_bound_by"], t[f"{kind}_bytes"] = bound, by, nbytes
         timings.append({"level": li, "vshape": list(level.op.vshape), "chains": C,
-                        "threads": level.threads, **t})
+                        "threads": level.threads, "stream_threads": level.stream_threads, **t})
+    emit({"phase": "visits", "tolerance": TOL, "max_abs_err": errs,
+          "stream_against_phase_max_abs_err": route_err, "checks": by_level,
+          "stream_layout": layout, "philox": philox, "timings": timings})
+    op, _ = build_posterior(2 * nx, n_meas, FLAGSHIP_SEED, "near_exact", device)
+    wide = MultigridMCSampler(op, 4, cycle=2, fused=True, fused_min_vertices=0, distill=False)
+    time_routes(sampler.fused_levels, wide.fused_levels, noise, smi)
+    return errs, timings, noise
+
+
+def phase_kernels(device, nx, nlevel, C, n_meas, smi):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(11)
+    errs, timings, noise = phase_visits(device, nx, nlevel, C, n_meas, gen, smi)
     sweep_errs, sweep_checks = check_sweeps(device, gen)
     errs.update(sweep_errs)
     sweep_philox = check_sweep_philox(device)
     sweep_timings = time_sweeps(device, noise)
-    emit({"phase": "kernels", "tolerance": TOL, "max_abs_err": errs, "checks": by_level,
-          "philox": philox, "timings": timings, "sweep_checks": sweep_checks,
-          "sweep_philox": sweep_philox, "sweep_timings": sweep_timings})
+    emit({"phase": "kernels", "tolerance": TOL, "max_abs_err": errs,
+          "sweep_checks": sweep_checks, "sweep_philox": sweep_philox,
+          "sweep_timings": sweep_timings})
     third = phase_new_kernels(device, nx, nlevel, C, n_meas, gen, noise)
     return errs, timings, sweep_timings, third
 
 
 def phase_threads(device, nx, nlevel, C, n_meas):
-    """Not part of the default run: ms per launch of both kernels on every
-    fused level of the flagship for several block sizes (the default comes from
-    ``mgmc_visit._default_threads``)."""
+    """Not part of the default run: ms per launch of both visit kernels of each
+    route on every fused level of the flagship for several block sizes (the
+    defaults come from ``common.default_threads`` and
+    ``mgmc_visit.stream_threads``)."""
     from multigridmc_tpu_torch.samplers.base import GeneratorNoise
     from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
 
@@ -1002,13 +1190,16 @@ def phase_threads(device, nx, nlevel, C, n_meas):
     noise = GeneratorNoise(5, device)
     rows = []
     for li, level in sorted(sampler.fused_levels.items()):
-        default = level.threads
-        for threads in (64, 128, 256, 512, 1024):
-            level.threads = threads
-            t = time_level(level, C, li > 0, noise, plain=False)
-            rows.append({"level": li, "threads": threads, "default": threads == default,
-                         "descend_ms": t["descend_ms"], "ascend_ms": t["ascend_ms"]})
-        level.threads = default
+        for route, attr, sizes in (("phase", "threads", (64, 128, 256, 512, 1024)),
+                                   ("stream", "stream_threads", (64, 128, 256))):
+            default = getattr(level, attr)
+            for threads in sizes:
+                setattr(level, attr, threads)
+                t = time_level(level, C, li > 0, noise, plain=False, routes=(route,))
+                rows.append({"level": li, "route": route, "threads": threads,
+                             "default": threads == default,
+                             **{k: v for k, v in t.items() if k.endswith("ms")}})
+            setattr(level, attr, default)
     emit({"phase": "threads", "chains": C, "rows": rows})
 
 
@@ -1094,17 +1285,32 @@ def phase_main_path(device, nx, nlevel, C, n_meas, steps, smi):
         visited = [li for li in sorted(sampler.fused_levels) if li < below]
         expected = nsteps * sum(2 ** li for li in visited)
         expected_subtree = nsteps if sampler.subtree is not None else 0
-        if (counts["descend_visit"] != expected or counts["ascend_visit"] != expected
+        visits = {kind: sum(counts[f"{kind}_visit{suffix}"] for suffix in ("", "_stream"))
+                  for kind in ("descend", "ascend")}
+        # the route of each visited level at this chain count; a route that no
+        # visited level takes must show no launch
+        routes = {li: sampler.fused_levels[li].route(C) for li in visited}
+        unused = [kernel for route in mv.ROUTES if route not in routes.values()
+                  for kernel in VISIT_KERNELS[route]]
+        if (visits["descend"] != expected or visits["ascend"] != expected
                 or counts["subtree_sample"] != expected_subtree
-                or (sampler.subtree is not None and counts["smem_probe"] < 1)):
+                or (sampler.subtree is not None and counts["smem_probe"] < 1)
+                or any(counts[kernel] for kernel in unused)):
             raise AssertionError(f"main path ({name}): launches {counts}, expected {expected} "
-                                 f"visits each and {expected_subtree} subtree launches")
-        busy = device_busy(lambda: sampler.apply(noise, f, x), 3)
+                                 f"visits each through the routes {routes} "
+                                 f"and {expected_subtree} subtree launches")
+        busy = device_busy(lambda: sampler.apply(noise, f, x), 3,
+                           pattern=r"trsm|triang|visit_kernel|descend_kernel|ascend_kernel")
+        if busy is not None:  # device ms per launch of each visit kernel (by level shape)
+            busy["visit_device_ms"] = {
+                r["name"]: r["ms_per_step"] / r["calls_per_step"] for r in busy["matching"]
+                if re.search("visit_kernel|descend_kernel|ascend_kernel", r["name"])}
         res = {"fused_levels": sorted(sampler.fused_levels), "visited_levels": visited,
                "distill_level": sampler.distill_level, "subtree": sampler.subtree is not None,
                "setup_seconds": setup_seconds, "device_busy": busy, "steps": nsteps,
                "ms_per_step": 1e3 * dt / nsteps, "samples_per_s": C * nsteps / dt,
                "launches": counts, "setup_launches": setup_counts,
+               "route_by_level": routes,
                "visit_launches_per_step": 2 * expected // nsteps,
                "coarse_sampler_calls_per_step": coarse_per_step,
                "sample_std": float(x.std())}
@@ -1303,7 +1509,10 @@ def phase_drivers(device, nx, nlevel, n_meas, nchains, nsamples, nwarmup, smi):
                     raise AssertionError(f"drivers: posterior.vtk field {name} is not finite")
             if not os.path.exists("sample_location.vtk"):
                 raise AssertionError("drivers: sample_location.vtk is missing")
-            for name in ("descend_visit", "ascend_visit", "gibbs_sweep_batched"):
+            # the one-chain time series takes the phase kernels, the 256 replica
+            # chains of the convergence tables the route of their chain count
+            replicas = VISIT_KERNELS[mv.visit_route(nchains)]
+            for name in ("descend_visit", "ascend_visit", "gibbs_sweep_batched") + replicas:
                 if counts_mgmc[name] <= 0:
                     raise AssertionError(f"drivers.mgmc: {name} was not launched: {counts_mgmc}")
             # the MGMC time series against the exact mean: the driver's own
@@ -1403,6 +1612,7 @@ def phase_statistics(device, nx, C, warmup, steps):
                                                         observed_mean_and_variance,
                                                         posterior_mean)
     from multigridmc_tpu_torch.ops.kernels import mgmc_subtree as st
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
     from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
     from multigridmc_tpu_torch.samplers.base import (GeneratorNoise, MeanShiftedSampler,
                                                      ReplayNoise)
@@ -1449,6 +1659,7 @@ def phase_statistics(device, nx, C, warmup, steps):
         if (name == "distilled") != (inner.distilled is not None and inner.distill_level == 1):
             raise AssertionError(f"statistics ({name}): distill level {inner.distill_level}")
         st.reset_launch_counts()
+        mv.reset_launch_counts()
         sampler = MeanShiftedSampler(inner, mean)
         noise = GeneratorNoise(seed, device)
         x = sampler.mean.expand((C,) + op.vshape).clone()
@@ -1460,6 +1671,15 @@ def phase_statistics(device, nx, C, warmup, steps):
             zs.append((x.reshape(C, -1) @ wt).double())
         z = torch.stack(zs).cpu().numpy()  # (steps, C)
         out[name] = moments_gate(name, z, z_mean, z_var, C)
+        if name == "kernels":  # the gate of the visit kernels of this chain count's route
+            route = mv.visit_route(C)
+            out[name]["route"] = route
+            out[name]["launches"] = dict(mv.launch_counts)
+            other = [n for r, names in VISIT_KERNELS.items() if r != route for n in names]
+            if (min(mv.launch_counts[n] for n in VISIT_KERNELS[route]) <= 0
+                    or any(mv.launch_counts[n] for n in other)):
+                raise AssertionError(f"statistics: visit launches {mv.launch_counts}, "
+                                     f"expected the {route} kernels only")
         if name == "subtree_kernel":
             out[name]["launches"] = st.launch_counts["subtree_sample"]
             if st.launch_counts["subtree_sample"] != warmup + steps:
@@ -1511,7 +1731,8 @@ def main(argv=None) -> int:
     parser.add_argument("--phases", default=",".join(sorted(ALL_PHASES)),
                         help="comma-separated subset of kernels,main_path,drivers,statistics "
                              "to run (device and build always run; 'threads' adds a "
-                             "block-size table, 'new' the third slice's kernels alone); "
+                             "block-size table, 'new' the third slice's kernels alone, "
+                             "'visits' the two visit kernels of both routes alone); "
                              "the ok line needs exactly the default four")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1533,8 +1754,12 @@ def main(argv=None) -> int:
         gen = torch.Generator(device=device)
         gen.manual_seed(11)
         phase_new_kernels(device, nx, nlevel, C, n_meas, gen, GeneratorNoise(5, device))
+    if "visits" in phases:  # the two visit kernels of both routes alone
+        gen = torch.Generator(device=device)
+        gen.manual_seed(11)
+        phase_visits(device, nx, nlevel, C, n_meas, gen, smi)
     if "kernels" in phases:
-        errs, timings, sweep_timings, third = phase_kernels(device, nx, nlevel, C, n_meas)
+        errs, timings, sweep_timings, third = phase_kernels(device, nx, nlevel, C, n_meas, smi)
     if "main_path" in phases:
         counts, _ = phase_main_path(device, nx, nlevel, C, n_meas, steps, smi)
     if "drivers" in phases:
@@ -1550,20 +1775,26 @@ def main(argv=None) -> int:
     t0 = timings[0]  # level 0: the shape that dominates the main path
     kernels = []
     # launches of the visits: the flagship's steps with every level's visit fused
-    for kind, line in (("descend", 700), ("ascend", 847)):
-        kernels.append({
-            "name": f"{kind}_visit", "route": "cuda",
-            "source": "multigridmc_tpu_torch/csrc/mgmc_visit.cu",
-            "replaces": f"multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py:{line}",
-            "launches": counts["all_levels_fused"][f"{kind}_visit"],
-            "launches_by_variant": {name: c[f"{kind}_visit"] for name, c in counts.items()},
-            "max_abs_err": errs[f"{kind}_visit"],
-            "ms": t0[f"{kind}_ms"], "device_ms": t0[f"{kind}_device_ms"],
-            "plain_ms": t0[f"{kind}_plain_ms"],
-            "bound_ms": t0[f"{kind}_bound_ms"], "bound_by": t0[f"{kind}_bound_by"],
-            "bound_bytes": t0[f"{kind}_bytes"],
-            "library_ms": None, "shape": {"chains": C, "vshape": t0["vshape"]},
-        })
+    # (256 chains: the route of that count); a visit kernel that the main path
+    # does not take counts its launches on its own path, the one-chain series
+    # of drivers.mgmc
+    for route, source in (("phase", "mgmc_visit.cu"), ("stream", "mgmc_visit_stream.cu")):
+        for name, kind, line in zip(VISIT_KERNELS[route], ("descend", "ascend"), (700, 847)):
+            on_main = counts["all_levels_fused"][name] > 0
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": f"multigridmc_tpu_torch/csrc/{source}",
+                "replaces": f"multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py:{line}",
+                "launches": counts["all_levels_fused"][name] if on_main else driver_counts[name],
+                "path": "main_path all_levels_fused" if on_main else "drivers",
+                "launches_by_variant": {v: c[name] for v, c in counts.items()},
+                "max_abs_err": errs[name],
+                "ms": t0[f"{name}_ms"], "device_ms": t0[f"{name}_device_ms"],
+                "plain_ms": t0[f"{kind}_plain_ms"],
+                "bound_ms": t0[f"{kind}_bound_ms"], "bound_by": t0[f"{kind}_bound_by"],
+                "bound_bytes": t0[f"{kind}_bytes"],
+                "library_ms": None, "shape": {"chains": C, "vshape": t0["vshape"]},
+            })
     # the probe: launched where the subtree variant of the main path is built
     probe = third["probe"]
     kernels.append({
@@ -1574,6 +1805,7 @@ def main(argv=None) -> int:
         "ms": probe["ms"], "device_ms": probe["device_ms"], "plain_ms": probe["plain_ms"],
         "bound_ms": probe["bound_ms"], "bound_by": probe["bound_by"],
         "bound_bytes": probe["bound_bytes"], "library_ms": probe["library_ms"],
+        "library_device_ms": probe["library_device_ms"],
         "shape": {"copied": [8, 128], "shared_bytes": probe["limit_bytes"]},
     })
     # the sweep kernels at the shape of the drivers' batched route, 256 x 255^2;

@@ -45,7 +45,7 @@ HEADERS = ("philox.cuh", "visit_phases.cuh")
 
 #: every kernel source under ``csrc/`` (``<name>.cu``); :func:`build_libraries`
 #: compiles them in parallel
-SOURCES = ("mgmc_visit", "sor_sweep", "mgmc_subtree", "smem_probe")
+SOURCES = ("mgmc_visit", "mgmc_visit_stream", "sor_sweep", "mgmc_subtree", "smem_probe")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

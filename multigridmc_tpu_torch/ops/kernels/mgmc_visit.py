@@ -18,21 +18,38 @@ and one **ascend visit** is
     x  <- colour-ordered SOR sweep(c, x)                        (post direction)
     x  <- x - B_bar_post (B^T x)
 
-The CUDA source is ``csrc/mgmc_visit.cu`` (one thread block per chain; its
-header comment states the design).  It is compiled with ``nvcc`` for
-``sm_90a`` at first use into the package's ``build/`` directory and loaded
-with ``ctypes`` (the mechanism of :mod:`.common`, shared with the sweep kernels
-of :mod:`.sor_sweep`).
+Two hand-written CUDA kernels compute each visit, and the launch takes one of
+them by the number of chains (:data:`STREAM_MIN_CHAINS`) and by whether the
+stream kernels' rings fit a block's shared memory at the level's width
+(:func:`visit_route`, :func:`stream_smem_bytes`):
+
+* the **phase kernels** of ``csrc/mgmc_visit.cu`` (one thread block per chain,
+  whole-field phases over a field in global memory, ``__syncthreads()``
+  between them; the phases live in ``csrc/visit_phases.cuh``, shared with the
+  subtree kernel) - for fewer chains, where 1024 threads per chain hide the
+  latency of a visit better than the stream kernels' 256;
+* the **stream kernels** of ``csrc/mgmc_visit_stream.cu`` (one thread block per
+  chain, the sweep as a wavefront of row blocks through a ring of rows in
+  shared memory, every colour phase of a step at once; :func:`wavefront_lags`
+  gives the schedule) - for many chains, where each chain's field crosses the
+  memory bus twice and not ten times.
+
+Both compute the same visit from the same Philox stream; the route is chosen
+from the level's shape and the chain count when a level builds its parameter
+block for a launch configuration (``FusedVisitLevel._params``), never after a
+launch, and a failing build or launch raises.  The sources are compiled with
+``nvcc`` for ``sm_90a`` at first use into the package's ``build/`` directory and
+loaded with ``ctypes`` (the mechanism of :mod:`.common`, shared with the sweep
+kernels of :mod:`.sor_sweep`).
 
 **Bound.**  A visit is bound by bytes: per chain it must read ``f`` (unless
 shared), ``x`` and ``x_c`` and write ``x`` and ``f_c`` once - for the descend
 visit of a 255^2 level with shared ``f`` that is ``C * (2 * 255^2 + 127^2) * 4``
-bytes, about 150 MB at 256 chains.  Everything else the kernel touches
-(coefficient planes, the scratch field, the few points where ``B`` and
-``M^{-1} B`` are nonzero) is meant to stay in L2.  The kernels are some ten
-times off that bound at 255^2 (``PERF.md``): the passes of one visit run one
-after the other over a field in L2, and on the small levels the host's launch
-cost exceeds the kernel's time.
+bytes, about 150 MB at 256 chains.  Everything else the kernels touch
+(coefficient planes, the few points where ``B`` and ``M^{-1} B`` are nonzero)
+is meant to stay in L2.  Both kernels are several times off that bound, the
+stream kernels by the instructions they issue (the Philox draws, an IEEE
+division per point) on few warps per SM; ``PERF.md`` has their times.
 
 Beside each kernel stands its **plain PyTorch version**
 (:func:`descend_visit_plain`, :func:`ascend_visit_plain`), built from
@@ -79,11 +96,43 @@ MAX_OFFSETS = 9
 MAX_COLORS = 8
 MAX_LOWRANK = 32
 
-#: the CUDA source under ``csrc/`` (see :mod:`.common` for the build)
+#: threads per block of the stream kernels (``MAX_STREAM_THREADS`` in the source)
+MAX_STREAM_THREADS = 256
+#: rows per step of the stream kernels' wavefront (``STREAM_ROWS`` in the source)
+STREAM_ROWS = 4
+#: the rest of the stream kernels' shared-memory layout (``STREAM_PREFETCH``,
+#: ``STREAM_TILE``, ``STREAM_COL0`` in the source; see :func:`stream_smem_bytes`)
+STREAM_PREFETCH = 1
+STREAM_TILE = 4
+STREAM_COL0 = 4
+#: shared memory a block may opt in to on an H100 (``sharedMemPerBlockOptin``)
+SMEM_PER_BLOCK_OPTIN = 232448
+#: the stream kernels' static shared memory (``s_btx``, ``s_lr``, ``s_u``, ``s_j0``)
+STREAM_STATIC_SMEM = 4 * (3 * 32 + 8 * 8)
+
+#: the CUDA sources under ``csrc/`` (see :mod:`.common` for the build)
 SOURCE_NAME = "mgmc_visit"
+STREAM_SOURCE_NAME = "mgmc_visit_stream"
+
+#: the two routes of a visit launch: the phase kernels of ``mgmc_visit.cu`` and
+#: the stream kernels of ``mgmc_visit_stream.cu``
+ROUTES = ("phase", "stream")
+
+#: Launches with at least this many chains take the stream kernels, fewer the
+#: phase kernels (where the stream kernels' rings fit a block: :func:`visit_route`).
+#: Set from the ``visit_routes`` table of ``chip_smoke.py``, which fails if the
+#: table supports another value: both kernels' device time per descend plus
+#: ascend at 1, 16, 64, 132, 256 and 512 chains on the 255^2 and 127^2 flagship
+#: levels, and at 132, 256 and 512 on the 511^2 and 255^2 (9-point) levels of a
+#: 512x512 lattice, NVIDIA H100 80GB HBM3, 700.00 W.  The stream kernels win at
+#: 256 and 512 chains on every level, at 132 on all but the 127^2 level, and lose
+#: at 1-64; wider levels and more chains than that were not measured.  PERF.md
+#: section 6 holds the table.
+STREAM_MIN_CHAINS = 256
 
 #: kernel launches made by the wrappers (and only where they launch)
-launch_counts: Dict[str, int] = {"descend_visit": 0, "ascend_visit": 0}
+launch_counts: Dict[str, int] = {"descend_visit": 0, "ascend_visit": 0,
+                                 "descend_visit_stream": 0, "ascend_visit_stream": 0}
 
 
 def reset_launch_counts() -> None:
@@ -120,6 +169,101 @@ class VisitParams(ctypes.Structure):
     ]
 
 
+class StreamParams(ctypes.Structure):
+    """Mirror of ``struct StreamParams`` in ``csrc/mgmc_visit_stream.cu``: the
+    phase kernels' parameter block and the wavefront's lag table."""
+
+    _fields_ = [
+        ("v", VisitParams),
+        ("lag", ctypes.c_int * MAX_COLORS),
+        ("max_lag", ctypes.c_int),
+    ]
+
+
+def visit_route(C: int, stream_bytes: int = 0) -> str:
+    """The kernel a visit of ``C`` chains launches: ``"stream"`` from
+    :data:`STREAM_MIN_CHAINS` chains on where the stream kernels' shared memory
+    (``stream_bytes``, :func:`stream_smem_bytes`) fits a block, ``"phase"``
+    otherwise.  Both are known before any launch."""
+    fits = stream_bytes + STREAM_STATIC_SMEM <= SMEM_PER_BLOCK_OPTIN
+    return "stream" if C >= STREAM_MIN_CHAINS and fits else "phase"
+
+
+def stream_pitch(w: int) -> int:
+    return (w + STREAM_COL0 + 4) & ~3
+
+
+def stream_smem_bytes(H: int, W: int, max_lag: int, m: int, threads: int,
+                      ascend: bool) -> int:
+    """Dynamic shared memory of one stream-kernel launch, as ``stream_layout``
+    in ``csrc/mgmc_visit_stream.cu`` lays it out (``mgmc_stream_smem_bytes``
+    there gives the same number): the x and c rings of rows of ``W`` points,
+    their length the least power of two that holds the live row blocks of a
+    step (``max_lag`` grows it), reused by pass 2's tiles; a zero row; the
+    coarse rows of an ascend visit; a word per row; the per-warp partial sums
+    of ``B^T x``."""
+    pitch = stream_pitch(W)
+    nring = STREAM_ROWS
+    while nring < (max_lag + STREAM_PREFETCH + 5) * STREAM_ROWS:
+        nring *= 2
+    rows = 2 * nring
+    if not ascend:
+        rows = max(rows, 2 * ((2 * STREAM_TILE + 3) + (2 * STREAM_TILE + 1)))
+    floats = (rows + 1) * pitch
+    if ascend:
+        floats += (STREAM_PREFETCH + 2) * (STREAM_ROWS // 2 + 2) * stream_pitch(W // 2)
+    floats += H + m * (threads // 32)
+    return 4 * floats
+
+
+def stream_threads(W: int) -> int:
+    """Threads per block of the stream kernels for rows of ``W`` points: half of
+    them sweep, the other half form the entering row block (Philox point
+    groups); 256 from 97 points a row on."""
+    return min(MAX_STREAM_THREADS, 64 * max(1, -(-W // 32)))
+
+
+def wavefront_lags(offsets, weights, n_colors: int, order) -> Tuple[int, ...]:
+    """The stream kernels' schedule: the rows are taken :data:`STREAM_ROWS` at a
+    time (a row block), and at step ``s`` colour phase ``o`` (the ``o``-th
+    colour of ``order``) runs on row block ``s - lag[o]``, all phases of a step
+    at once.
+
+    Returns the least non-negative lags for which that is the colour-ordered
+    sweep: a point of phase ``o`` that reads a neighbour of the colour of phase
+    ``o'`` in row block ``b + db`` must find it updated (``o' < o``:
+    ``lag[o] >= lag[o'] + db + 1``) or not yet updated (``o' > o``:
+    ``lag[o'] >= lag[o] - db + 1``), and two phases of one step then never share
+    a point.  A neighbour ``dy`` rows away lies in the block ``db = dy`` or in
+    the same block.  Colours ``c = (w0 i + w1 j) mod K``; reach-1 stencils
+    (``|dy| <= 1``), for which ``lag[o] = 2 o`` always satisfies the
+    constraints."""
+    w0, w1 = (int(w) for w in weights)
+    pos = {int(c): o for o, c in enumerate(order)}
+    constraints = []  # (a, b, w): lag[a] >= lag[b] + w
+    for o, c in enumerate(order):
+        for dy, dx in offsets:
+            if dy == 0 and dx == 0:
+                continue
+            other = pos.get((int(c) + w0 * dy + w1 * dx) % n_colors)
+            if other is None:
+                continue
+            if other == o:
+                raise ValueError(f"offset {(dy, dx)} couples colour {c} to itself: "
+                                 "the colouring is not proper")
+            for db in {dy, 0}:
+                constraints.append((o, other, db + 1) if other < o else (other, o, 1 - db))
+    lag = [0] * len(order)
+    for _ in range(len(order) + 1):
+        changed = False
+        for a, b, w in constraints:
+            if lag[a] < lag[b] + w:
+                lag[a], changed = lag[b] + w, True
+        if not changed:
+            return tuple(lag)
+    raise ValueError("the wavefront constraints have no solution (a stencil of reach > 1?)")
+
+
 # ------------------------------------------------------------------- the build
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
@@ -136,6 +280,28 @@ def load_library() -> ctypes.CDLL:
     # P, x, f, scratch, xc, coeffs, ns, B, Y, W, xilr, xi, threads, stream
     lib.mgmc_ascend_visit.argtypes = [ctypes.POINTER(VisitParams)] + [ptr] * 11 + [i32, ptr]
     lib.mgmc_ascend_visit.restype = i32
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_stream_library() -> ctypes.CDLL:
+    """Build (at first use) and load the stream kernels' shared library."""
+    lib = open_library(STREAM_SOURCE_NAME)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.mgmc_stream_params_size.argtypes = []
+    lib.mgmc_stream_params_size.restype = i32
+    if lib.mgmc_stream_params_size() != ctypes.sizeof(StreamParams):
+        raise RuntimeError("StreamParams layout differs between Python and CUDA")
+    lib.mgmc_stream_smem_bytes.argtypes = [ctypes.POINTER(StreamParams), i32, i32]
+    lib.mgmc_stream_smem_bytes.restype = i32
+    lib.mgmc_stream_static_smem_bytes.argtypes = []
+    lib.mgmc_stream_static_smem_bytes.restype = i32
+    # P, x, f, fc, coeffs, ns, B, Y, W, xilr, sinv, G, xi, threads, stream
+    lib.mgmc_stream_descend.argtypes = [ctypes.POINTER(StreamParams)] + [ptr] * 12 + [i32, ptr]
+    lib.mgmc_stream_descend.restype = i32
+    # P, x, f, xc, coeffs, ns, B, Y, W, xilr, xi, threads, stream
+    lib.mgmc_stream_ascend.argtypes = [ctypes.POINTER(StreamParams)] + [ptr] * 10 + [i32, ptr]
+    lib.mgmc_stream_ascend.restype = i32
     return lib
 
 
@@ -205,7 +371,9 @@ class FusedVisitLevel:
             self._woodbury = {self.pre_order: (None, None, ()), self.post_order: (None, None, ())}
         self.const_coeffs, self.ns_const, self.bbox = compress_plan(op, self.omega)
         self.threads = default_threads(int(np.prod(op.vshape)))
+        self.stream_threads = stream_threads(op.vshape[-1])
         self._params_cache = {}
+        self._stream_bytes = None
 
     # ------------------------------------------------------------ noise
     def _draw(self, noise, x):
@@ -235,16 +403,59 @@ class FusedVisitLevel:
         return ascend_visit(self, f, x, x_coarse, xi=xi, xi_lr=xi_lr, philox=philox)
 
     # -------------------------------------------------- kernel parameters
-    def _params(self, C: int, order, f_batched: bool, noise_mode: int, philox) -> VisitParams:
-        """The kernel's parameter block; built once per launch configuration
-        (the host's share of a launch matters on the small levels), only the
-        Philox stream changes from launch to launch."""
-        key = (C, tuple(order), bool(f_batched), noise_mode)
+    @property
+    def stream_bytes(self) -> int:
+        """Dynamic shared memory of this level's larger stream launch (the
+        descend in the pre order or the ascend in the post order)."""
+        if self._stream_bytes is None:
+            err = kernel_support_error(self.op, self.coloring.n_colors)
+            if err is not None:
+                raise NotImplementedError(err)
+            H, W = self.op.vshape
+            self._stream_bytes = max(
+                stream_smem_bytes(H, W, max(self._lags(order)), self.op.m_lowrank,
+                                  self.stream_threads, ascend)
+                for order, ascend in ((self.pre_order, False), (self.post_order, True)))
+        return self._stream_bytes
+
+    def route(self, C: int) -> str:
+        """The kernel a visit of ``C`` chains on this level launches
+        (:func:`visit_route`): from the chain count and the level's shape."""
+        return visit_route(C, self.stream_bytes)
+
+    def _lags(self, order) -> Tuple[int, ...]:
+        return wavefront_lags(self.op.offsets, self.coloring.weights,
+                              self.coloring.n_colors, order)
+
+    def _params(self, C: int, order, f_batched: bool, noise_mode: int, philox,
+                route: Optional[str] = None):
+        """The kernel's parameter block: a ``VisitParams`` for the phase kernels,
+        a ``StreamParams`` for the stream kernels.  ``route`` defaults to
+        :meth:`route` of ``C``, so the kernel is chosen here, before the launch,
+        once per launch configuration (the host's share of a launch matters on
+        the small levels); only the Philox stream changes from launch to
+        launch."""
+        route = self.route(C) if route is None else route
+        if route not in ROUTES:
+            raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+        key = (route, C, tuple(order), bool(f_batched), noise_mode)
         P = self._params_cache.get(key)
         if P is None:
-            P = self._params_cache[key] = self._build_params(*key)
-        P.seed, P.counter = philox if philox is not None else (0, 0)
+            build = self._build_stream_params if route == "stream" else self._build_params
+            P = self._params_cache[key] = build(*key[1:])
+        visit = P.v if route == "stream" else P
+        visit.seed, visit.counter = philox if philox is not None else (0, 0)
         return P
+
+    def _build_stream_params(self, C: int, order, f_batched: bool,
+                             noise_mode: int) -> StreamParams:
+        S = StreamParams()
+        S.v = self._build_params(C, order, f_batched, noise_mode)
+        lags = self._lags(order)
+        for o, lag in enumerate(lags):
+            S.lag[o] = lag
+        S.max_lag = max(lags)
+        return S
 
     def _build_params(self, C: int, order, f_batched: bool, noise_mode: int) -> VisitParams:
         op = self.op
@@ -373,28 +584,12 @@ def descend_visit(level: FusedVisitLevel, f, x, xi=None, xi_lr=None,
     No noise argument runs the deterministic data path.
 
     CPU tensors go to :func:`descend_visit_plain`.  CUDA tensors launch the
-    kernel, which updates ``x`` in place, or raise."""
+    kernel of ``level.route(C)``, which updates ``x`` in place, or raise."""
     if x.device.type == "cpu":
         if philox is not None:
             raise ValueError("the Philox stream exists in the CUDA kernel only")
         return descend_visit_plain(level, f, x, xi, xi_lr)
-    C, f_batched, noise_mode = _check_visit_args(level, f, x, xi, xi_lr, philox)
-    P = level._params(C, level.pre_order, f_batched, noise_mode, philox)
-    lib = load_library()
-    Y, W, _ = level._woodbury[level.pre_order]
-    fc = torch.empty((C,) + level.vc, dtype=x.dtype, device=x.device)
-    scratch = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mgmc_descend_visit(
-            ctypes.byref(P), x.data_ptr(), f.data_ptr(), scratch.data_ptr(), fc.data_ptr(),
-            level.coeffs.data_ptr(), level.noise_scale.data_ptr(), _ptr(level.B),
-            _ptr(Y), _ptr(W), _ptr(xi_lr), _ptr(level.sigma_inv), _ptr(level.G_pre),
-            _ptr(xi), level.threads, stream)
-    launch_counts["descend_visit"] += 1
-    if err != 0:
-        raise RuntimeError(f"descend_visit kernel launch failed: CUDA error {err}")
-    return x, fc
+    return launch_descend(level, level.route(x.shape[0]), f, x, xi, xi_lr, philox)
 
 
 def ascend_visit(level: FusedVisitLevel, f, x, x_coarse, xi=None, xi_lr=None,
@@ -404,26 +599,79 @@ def ascend_visit(level: FusedVisitLevel, f, x, x_coarse, xi=None, xi_lr=None,
     :func:`descend_visit`; ``x_coarse`` is ``(C, H // 2, W // 2)``.
 
     CPU tensors go to :func:`ascend_visit_plain`.  CUDA tensors launch the
-    kernel, which updates ``x`` in place, or raise."""
+    kernel of ``level.route(C)``, which updates ``x`` in place, or raise."""
     if x.device.type == "cpu":
         if philox is not None:
             raise ValueError("the Philox stream exists in the CUDA kernel only")
         return ascend_visit_plain(level, f, x, x_coarse, xi, xi_lr)
-    C, f_batched, noise_mode = _check_visit_args(level, f, x, xi, xi_lr, philox, x_coarse)
-    P = level._params(C, level.post_order, f_batched, noise_mode, philox)
-    lib = load_library()
-    Y, W, _ = level._woodbury[level.post_order]
-    scratch = torch.empty_like(x) if noise_mode else x  # unused without noise
+    return launch_ascend(level, level.route(x.shape[0]), f, x, x_coarse, xi, xi_lr, philox)
+
+
+def _on_card(x):
+    if x.device.type != "cuda":
+        raise ValueError("a visit kernel runs on a CUDA device; CPU tensors go to "
+                         "the plain versions (descend_visit / ascend_visit choose)")
+
+
+def launch_descend(level: FusedVisitLevel, route: str, f, x, xi=None, xi_lr=None,
+                   philox: Optional[Tuple[int, int]] = None):
+    """One descend visit through the kernel of ``route`` (``"phase"`` or
+    ``"stream"``), on CUDA tensors only; :func:`descend_visit` takes
+    ``level.route(C)``, ``chip_smoke.py`` names it to hold the two kernels
+    against each other.  Updates ``x`` in place; returns ``(x, f_coarse)``."""
+    _on_card(x)
+    C, f_batched, noise_mode = _check_visit_args(level, f, x, xi, xi_lr, philox)
+    P = level._params(C, level.pre_order, f_batched, noise_mode, philox, route)
+    Y, W, _ = level._woodbury[level.pre_order]
+    fc = torch.empty((C,) + level.vc, dtype=x.dtype, device=x.device)
+    common = (level.coeffs.data_ptr(), level.noise_scale.data_ptr(), _ptr(level.B), _ptr(Y),
+              _ptr(W), _ptr(xi_lr), _ptr(level.sigma_inv), _ptr(level.G_pre), _ptr(xi))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mgmc_ascend_visit(
-            ctypes.byref(P), x.data_ptr(), f.data_ptr(), scratch.data_ptr(),
-            x_coarse.data_ptr(), level.coeffs.data_ptr(), level.noise_scale.data_ptr(),
-            _ptr(level.B), _ptr(Y), _ptr(W), _ptr(xi_lr), _ptr(xi),
-            level.threads, stream)
-    launch_counts["ascend_visit"] += 1
+        if route == "stream":
+            lib = load_stream_library()
+            err = lib.mgmc_stream_descend(ctypes.byref(P), x.data_ptr(), f.data_ptr(),
+                                          fc.data_ptr(), *common, level.stream_threads, stream)
+        else:
+            lib = load_library()
+            scratch = torch.empty_like(x)
+            err = lib.mgmc_descend_visit(ctypes.byref(P), x.data_ptr(), f.data_ptr(),
+                                         scratch.data_ptr(), fc.data_ptr(), *common,
+                                         level.threads, stream)
+    name = "descend_visit_stream" if route == "stream" else "descend_visit"
+    launch_counts[name] += 1
     if err != 0:
-        raise RuntimeError(f"ascend_visit kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return x, fc
+
+
+def launch_ascend(level: FusedVisitLevel, route: str, f, x, x_coarse, xi=None, xi_lr=None,
+                  philox: Optional[Tuple[int, int]] = None):
+    """One ascend visit through the kernel of ``route``, as
+    :func:`launch_descend`.  Updates ``x`` in place and returns it."""
+    _on_card(x)
+    C, f_batched, noise_mode = _check_visit_args(level, f, x, xi, xi_lr, philox, x_coarse)
+    P = level._params(C, level.post_order, f_batched, noise_mode, philox, route)
+    Y, W, _ = level._woodbury[level.post_order]
+    common = (level.coeffs.data_ptr(), level.noise_scale.data_ptr(), _ptr(level.B), _ptr(Y),
+              _ptr(W), _ptr(xi_lr))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == "stream":
+            lib = load_stream_library()
+            err = lib.mgmc_stream_ascend(ctypes.byref(P), x.data_ptr(), f.data_ptr(),
+                                         x_coarse.data_ptr(), *common, _ptr(xi),
+                                         level.stream_threads, stream)
+        else:
+            lib = load_library()
+            scratch = torch.empty_like(x) if noise_mode else x  # unused without noise
+            err = lib.mgmc_ascend_visit(ctypes.byref(P), x.data_ptr(), f.data_ptr(),
+                                        scratch.data_ptr(), x_coarse.data_ptr(), *common,
+                                        _ptr(xi), level.threads, stream)
+    name = "ascend_visit_stream" if route == "stream" else "ascend_visit"
+    launch_counts[name] += 1
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return x
 
 
