@@ -38,7 +38,7 @@
 //
 // Field noise: the generator of philox.cuh (shared with sor_sweep.cu):
 // Philox4x32-10, counter = (point group, chain, launch counter lo, hi), key =
-// seed (lo, hi); each call yields four normals (two Box-Muller pairs, sine
+// seed ^ PHILOX_KEY_MIX (lo, hi); each call yields four normals (two Box-Muller pairs, sine
 // and cosine branch) for four consecutive points of a row (group g of row i
 // has the number i * ceil(W / 4) + g).
 // noise_mode 2 reads xi from a tensor instead, so that the kernel and its

@@ -3,15 +3,26 @@
 //
 // One call of philox_normals4 yields the four normals of one POINT GROUP: four
 // consecutive points of one row of a chain's field.  The Philox counter is
-// (point group, chain, launch counter lo, launch counter hi), the key is the
-// seed (lo, hi).  Philox is a bijection of the counter for a fixed key, so no
-// two launches, chains or groups share a stream.  The host reference of the
-// same generator is philox_normals_reference (ops/kernels/common.py).
+// (point group, chain, launch counter lo, launch counter hi), the key is
+// seed XOR PHILOX_KEY_MIX (lo, hi).  Philox is a bijection of the counter for a
+// fixed key, so no two launches, chains or groups share a stream.  The host
+// reference of the same generator is philox_normals_reference
+// (ops/kernels/common.py).
+//
+// Why the mix: torch's CUDA generator seeded with `seed` runs the same
+// Philox4x32-10 under the key `seed`, with the counter (offset / 4, 0, thread,
+// 0).  Under that key the kernels' counter (group g, chain 0, launch L, 0)
+// would be torch's draw at offset 4g from thread L: the one-chain series would
+// reuse, as field noise, the normals that torch drew for the same run.  The
+// fixed mix gives the kernels a key of their own.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// "MGMC_KEY" in ASCII; PHILOX_KEY_MIX in ops/kernels/common.py
+#define PHILOX_KEY_MIX 0x4D474D435F4B4559ULL
 
 __device__ __forceinline__ void philox4x32_10(uint32_t c0, uint32_t c1, uint32_t c2,
                                               uint32_t c3, uint32_t k0, uint32_t k1,
@@ -47,9 +58,10 @@ __device__ __forceinline__ void box_muller(uint32_t a, uint32_t b, float* z0, fl
 __device__ __forceinline__ void philox_normals4(uint32_t group, uint32_t chain,
                                                 unsigned long long seed,
                                                 unsigned long long counter, float z[4]) {
+    const unsigned long long key = seed ^ PHILOX_KEY_MIX;
     uint32_t r[4];
-    philox4x32_10(group, chain, (uint32_t)counter, (uint32_t)(counter >> 32), (uint32_t)seed,
-                  (uint32_t)(seed >> 32), r);
+    philox4x32_10(group, chain, (uint32_t)counter, (uint32_t)(counter >> 32), (uint32_t)key,
+                  (uint32_t)(key >> 32), r);
     box_muller(r[0], r[1], &z[0], &z[1]);
     box_muller(r[2], r[3], &z[2], &z[3]);
 }

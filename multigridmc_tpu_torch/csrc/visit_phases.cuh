@@ -16,7 +16,7 @@
 // so equal seeds and counters give bitwise equal fields.
 //
 // Field noise: the generator of philox.cuh, counter = (point group, chain,
-// launch counter lo, hi), key = seed; each call yields four normals for four
+// launch counter lo, hi), key = seed ^ PHILOX_KEY_MIX; each call yields four normals for four
 // consecutive points of a row (group g of row i has the number
 // i * ceil(W / 4) + g).  noise_mode 2 reads xi from memory instead, so that a
 // kernel and its plain PyTorch version can be fed the same noise.

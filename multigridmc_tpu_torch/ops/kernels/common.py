@@ -29,7 +29,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -185,13 +185,28 @@ def support_boxes(fields: torch.Tensor) -> Tuple[Tuple[int, int, int, int], ...]
 
 
 # ------------------------------------------------- reference of the generator
+#: the kernels' Philox key is ``seed ^ PHILOX_KEY_MIX`` ("MGMC_KEY" in ASCII;
+#: ``PHILOX_KEY_MIX`` in ``csrc/philox.cuh``).  torch's CUDA generator seeded with
+#: ``seed`` runs the same Philox4x32-10 under the key ``seed`` with the counter
+#: ``(offset / 4, 0, thread, 0)``; under that key the kernels' normals of chain 0
+#: would be torch's own draws of the same run.
+PHILOX_KEY_MIX = 0x4D474D435F4B4559
+
+
+def philox_key(seed: int) -> int:
+    """The kernels' 64-bit Philox key for ``seed``."""
+    return (int(seed) & 0xFFFFFFFFFFFFFFFF) ^ PHILOX_KEY_MIX
+
+
 def philox_normals_reference(seed: int, counter: int, chains: int,
-                             vshape: Tuple[int, ...]) -> np.ndarray:
+                             vshape: Tuple[int, ...], key: Optional[int] = None) -> np.ndarray:
     """The kernels' field noise, recomputed on the host with numpy:
     ``(chains, *vshape)`` float32 normals of launch ``counter`` under ``seed``.
 
     Philox4x32-10 with counter words ``(point group, chain, counter lo,
-    counter hi)`` and key ``(seed lo, seed hi)``.  A row is a line of the
+    counter hi)`` and key ``(key lo, key hi)``, ``key = philox_key(seed)``
+    unless given (``key=seed`` is torch's own generator's key, against which
+    ``chip_smoke.py`` shows why the kernels mix theirs).  A row is a line of the
     field along its last (fastest) axis, rows numbered in storage order
     (``i`` in 2d, ``z * Y + y`` in 3d).  Group ``g`` of row ``i`` has the
     number ``i * ceil(W / 4) + g``; its four output words give the normals of
@@ -209,7 +224,8 @@ def philox_normals_reference(seed: int, counter: int, chains: int,
     c1 = np.broadcast_to(np.arange(chains, dtype=np.uint64)[:, None], (chains, ngroups)).copy()
     c2 = np.full((chains, ngroups), counter & 0xFFFFFFFF, dtype=np.uint64)
     c3 = np.full((chains, ngroups), (counter >> 32) & 0xFFFFFFFF, dtype=np.uint64)
-    k0, k1 = seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF
+    key = philox_key(seed) if key is None else int(key)
+    k0, k1 = key & 0xFFFFFFFF, (key >> 32) & 0xFFFFFFFF
     for _ in range(10):
         p0, p1 = M0 * c0, M1 * c2
         hi0, lo0 = p0 >> np.uint64(32), p0 & mask

@@ -88,8 +88,8 @@ import torch
 from ...smoothers import sor_sweep, woodbury_factors
 from ..intergrid import prolongate_add, restrict
 from ..stencil import StencilOperator
-from .common import (compress_plan, default_threads, open_library,  # noqa: F401
-                     philox_normals_reference, support_boxes)
+from .common import (compress_plan, default_threads, dynamic_smem_limit,  # noqa: F401
+                     open_library, philox_normals_reference, support_boxes)
 from .common import tensor_ptr as _ptr
 
 MAX_OFFSETS = 9
@@ -105,7 +105,9 @@ STREAM_ROWS = 4
 STREAM_PREFETCH = 1
 STREAM_TILE = 4
 STREAM_COL0 = 4
-#: shared memory a block may opt in to on an H100 (``sharedMemPerBlockOptin``)
+#: shared memory a block may opt in to on an H100 (``sharedMemPerBlockOptin``);
+#: the route asks the probe (:func:`~.common.dynamic_smem_limit`), and
+#: ``chip_smoke.py`` holds the probe's answer against this value
 SMEM_PER_BLOCK_OPTIN = 232448
 #: the stream kernels' static shared memory (``s_btx``, ``s_lr``, ``s_u``, ``s_j0``)
 STREAM_STATIC_SMEM = 4 * (3 * 32 + 8 * 8)
@@ -180,12 +182,17 @@ class StreamParams(ctypes.Structure):
     ]
 
 
-def visit_route(C: int, stream_bytes: int = 0) -> str:
+def visit_route(C: int, stream_bytes: int = 0, device=None,
+                smem_limit: Optional[int] = None) -> str:
     """The kernel a visit of ``C`` chains launches: ``"stream"`` from
     :data:`STREAM_MIN_CHAINS` chains on where the stream kernels' shared memory
     (``stream_bytes``, :func:`stream_smem_bytes`) fits a block, ``"phase"``
-    otherwise.  Both are known before any launch."""
-    fits = stream_bytes + STREAM_STATIC_SMEM <= SMEM_PER_BLOCK_OPTIN
+    otherwise.  A block is granted ``smem_limit`` bytes, by default what the
+    probe finds on ``device`` (:func:`~.common.dynamic_smem_limit`; on the CPU
+    its default).  Both are known before any launch."""
+    if smem_limit is None:
+        smem_limit = dynamic_smem_limit(device)
+    fits = stream_bytes + STREAM_STATIC_SMEM <= smem_limit
     return "stream" if C >= STREAM_MIN_CHAINS and fits else "phase"
 
 
@@ -421,7 +428,7 @@ class FusedVisitLevel:
     def route(self, C: int) -> str:
         """The kernel a visit of ``C`` chains on this level launches
         (:func:`visit_route`): from the chain count and the level's shape."""
-        return visit_route(C, self.stream_bytes)
+        return visit_route(C, self.stream_bytes, self.op.device)
 
     def _lags(self, order) -> Tuple[int, ...]:
         return wavefront_lags(self.op.offsets, self.coloring.weights,

@@ -17,6 +17,11 @@ from multigridmc_tpu.models.prior import shiftedlaplace_fd
 
 from multigridmc_tpu_torch.convert import operator_from_numpy
 
+# Every test worker imports this helper when it collects.  Several workers run
+# at once, and torch's default intra-op thread pool per worker oversubscribes
+# the cores: the small tensors of these tests run hundreds of times slower so.
+torch.set_num_threads(1)
+
 CPU = "cpu"
 #: float64 parity: only the summation order differs between the two packages
 F64 = dict(rtol=1e-10, atol=1e-12)

@@ -50,7 +50,7 @@ from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
 from multigridmc_tpu_torch.ops.kernels.sor_sweep import sweep_batched_plain
 from multigridmc_tpu_torch.smoothers import SORSmoother, color_order
 
-from test_torch_common import F32, assert_close, jax_operator, to_port, tt
+from test_torch_common import CPU, F32, assert_close, jax_operator, to_port, tt
 
 GAMMA = 0.75
 F64_TIGHT = dict(rtol=1e-12, atol=1e-12)
@@ -281,7 +281,7 @@ def test_route_is_chosen_from_the_chain_count_alone():
     _, _, _, port = _jax_levels(0, True, torch.float32, 16)
     for C in (1, 2, mv.STREAM_MIN_CHAINS - 1, mv.STREAM_MIN_CHAINS, 256, 1000):
         want = "stream" if C >= mv.STREAM_MIN_CHAINS else "phase"
-        assert mv.visit_route(C) == want
+        assert mv.visit_route(C, device=CPU) == want
         assert port.route(C) == want  # a 15^2 level: the stream kernels' rings fit
         for order in (port.pre_order, port.post_order):
             for f_batched in (False, True):
@@ -337,8 +337,23 @@ def test_route_takes_the_phase_kernels_where_the_rings_do_not_fit(case):
               for ascend in (False, True))
     assert got == want_bytes
     assert (got + mv.STREAM_STATIC_SMEM <= mv.SMEM_PER_BLOCK_OPTIN) == (want_route == "stream")
-    assert mv.visit_route(256, got) == want_route
-    assert mv.visit_route(mv.STREAM_MIN_CHAINS - 1, got) == "phase"
+    assert mv.visit_route(256, got, smem_limit=mv.SMEM_PER_BLOCK_OPTIN) == want_route
+    assert mv.visit_route(mv.STREAM_MIN_CHAINS - 1, got,
+                          smem_limit=mv.SMEM_PER_BLOCK_OPTIN) == "phase"
+
+
+@pytest.mark.parametrize("limit", [48 * 1024, 100 * 1024, mv.SMEM_PER_BLOCK_OPTIN])
+def test_route_compares_with_the_granted_shared_memory(limit):
+    # the flagship's 255^2 stream launch needs 75,212 B plus the static part:
+    # it takes the stream kernels only where a block is granted that much
+    need = 75212 + mv.STREAM_STATIC_SMEM
+    want = "stream" if need <= limit else "phase"
+    assert mv.visit_route(256, 75212, smem_limit=limit) == want
+    assert mv.visit_route(256, limit - mv.STREAM_STATIC_SMEM, smem_limit=limit) == "stream"
+    assert mv.visit_route(256, limit - mv.STREAM_STATIC_SMEM + 4, smem_limit=limit) == "phase"
+    # without a limit the route asks the device: on the CPU its default, 48 KiB
+    assert mv.visit_route(256, 75212, device=CPU) == "phase"
+    assert mv.visit_route(256, 40000, device=CPU) == "stream"
 
 
 def test_level_route_follows_its_layout():
