@@ -19,7 +19,9 @@
 // BLOCK PER CHAIN, the field in global memory (it stays in the 50 MB L2 for the
 // blocks in flight), one warp per row of the field with the lanes along the
 // row, and __syncthreads() between the colour phases.  A single chain is a
-// batch of one: one block, bound by latency and not by bytes.
+// batch of one: one block, bound by latency and not by bytes; for few chains
+// the host takes sor_sweep_cluster.cu instead, which splits each chain over a
+// thread-block cluster (ops/kernels/sor_sweep.py, sweep_route).
 //
 // A sweep is bound by bytes: per chain it must read b (unless shared) and x
 // and write x once, plus the coefficient planes once for all chains.  What the
@@ -43,39 +45,11 @@
 #include <stdint.h>
 
 #include "philox.cuh"
-
-#define MAX_OFFSETS 27
-#define MAX_COLORS 8
-#define MAX_THREADS 1024
-
-struct SweepParams {
-    int C, Z, Y, X;  // chains and the field's extents, slowest axis first; Z = 1 in 2d
-    int K, diag_index;
-    int dz[MAX_OFFSETS];
-    int dy[MAX_OFFSETS];
-    int dx[MAX_OFFSETS];
-    int coeff_const[MAX_OFFSETS];
-    float coeff_val[MAX_OFFSETS];
-    int n_colors, wz, wy, wx, jstride;
-    int n_order;
-    int order[MAX_COLORS];
-    float omega;
-    int noise_mode;  // 0 off, 1 in-kernel Philox, 2 xi read from a tensor
-    int ns_const;
-    float ns_val;
-    int b_batched;
-    unsigned long long seed;
-    unsigned long long counter;
-};
+#include "sor_sweep.cuh"
 
 // one warp per row of the field (lanes along the row)
 #define WARP_ROWS(r, nrows) \
     for (int r = threadIdx.x >> 5; r < (nrows); r += blockDim.x >> 5)
-
-__device__ __forceinline__ float coeff_at(const SweepParams& P, const float* __restrict__ coeffs,
-                                          int k, int n, int p) {
-    return P.coeff_const[k] ? P.coeff_val[k] : coeffs[(size_t)k * n + p];
-}
 
 // all colour phases of one sweep of one chain; ends with a barrier
 __device__ void sweep_phases(const SweepParams& P, const float* __restrict__ coeffs,

@@ -41,11 +41,12 @@ CSRC_DIR = _PACKAGE_DIR / "csrc"
 BUILD_DIR = _PACKAGE_DIR / "build"
 
 #: headers under ``csrc/`` that the kernel sources include
-HEADERS = ("philox.cuh", "visit_phases.cuh")
+HEADERS = ("philox.cuh", "visit_phases.cuh", "sor_sweep.cuh")
 
 #: every kernel source under ``csrc/`` (``<name>.cu``); :func:`build_libraries`
 #: compiles them in parallel
-SOURCES = ("mgmc_visit", "mgmc_visit_stream", "sor_sweep", "mgmc_subtree", "smem_probe")
+SOURCES = ("mgmc_visit", "mgmc_visit_stream", "sor_sweep", "sor_sweep_cluster", "mgmc_subtree",
+           "smem_probe")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

@@ -19,9 +19,28 @@ coefficients do).  The low-rank noise term and the Woodbury correction of a
 posterior operator stay outside the kernel, in the callers
 (:mod:`multigridmc_tpu_torch.smoothers`, :mod:`multigridmc_tpu_torch.samplers.sor`).
 
-The CUDA source is ``csrc/sor_sweep.cu`` (one thread block per chain; its
-header comment states the design), compiled with ``nvcc`` for ``sm_90a`` at
-first use and loaded with ``ctypes`` (:mod:`.common`).
+Two hand-written CUDA implementations compute the same sweep, and the launch
+takes one of them by its **route** (:func:`sweep_route`):
+
+* ``"block"``: ``csrc/sor_sweep.cu``, one thread block per chain, the field in
+  global memory, a block barrier between colour phases - for many chains,
+  where one block per chain fills the card;
+* ``"split"``: ``csrc/sor_sweep_cluster.cu``, each chain split over a
+  thread-block cluster of ``S`` blocks, each block's band of rows (2d) or
+  planes (3d) in shared memory, the halo read from the neighbouring blocks'
+  shared memory, a cluster barrier between colour phases - for few chains
+  (at most :data:`SPLIT_MAX_CHAINS`), where one block per chain leaves the
+  card idle and a sweep is latency.
+
+The route is chosen before any launch, when a plan builds its parameter block
+for a launch configuration (:meth:`SweepPlan.params`), from the chain count,
+the shape, whether the bands fit a block's shared memory
+(:func:`split_smem_bytes`, the host's mirror of the kernel's layout, against
+:func:`~.common.dynamic_smem_limit`) and whether such a cluster schedules
+(``cudaOccupancyMaxActiveClusters``, asked once per configuration).  Both
+agree bitwise under one Philox stream.  The sources are compiled with
+``nvcc`` for ``sm_90a`` at first use and loaded with ``ctypes``
+(:mod:`.common`); their header comments state the designs.
 
 **Bound.**  A sweep is bound by bytes: per chain it must read ``b`` (unless
 shared) and ``x`` and write ``x`` once - three passes over the field,
@@ -56,17 +75,44 @@ import torch
 
 from ..coloring import Coloring
 from ..stencil import StencilOperator
-from .common import compress_plan, default_threads, open_library, tensor_ptr
+from .common import (compress_plan, default_threads, dynamic_smem_limit, open_library,
+                     tensor_ptr)
 
 MAX_OFFSETS = 27
 MAX_COLORS = 8
 
-#: the CUDA source under ``csrc/`` (see :mod:`.common` for the build)
+#: the CUDA sources under ``csrc/`` (see :mod:`.common` for the build): one
+#: thread block per chain, and each chain split over a thread-block cluster
 SOURCE_NAME = "sor_sweep"
+SPLIT_SOURCE_NAME = "sor_sweep_cluster"
 
-#: kernel launches made by the wrappers (and only where they launch)
+#: the one-block route; the split route is ``("split", S)``
+BLOCK_ROUTE = ("block", 1)
+ROUTES = ("block", "split")
+#: cluster sizes of the split route, largest first (``MAX_CLUSTER`` = 16 in the
+#: source; above 8 a cluster is not portable and needs the card's consent)
+SPLIT_SIZES = (16, 8, 4, 2)
+#: ints of the split kernels' first-point table before the bands
+#: (``SPLIT_TABLE_INTS`` in the source)
+SPLIT_TABLE_INTS = MAX_COLORS * MAX_COLORS
+
+#: Launches of at most this many chains take the split route where its bands
+#: fit and its cluster schedules, more take one block per chain.  The cluster
+#: size is the largest of :data:`SPLIT_SIZES` that keeps ``C * S`` blocks within
+#: :data:`SPLIT_MAX_BLOCKS`.  Set from the ``sweep_routes`` table of
+#: ``chip_smoke.py``, which fails if the table supports other values: device
+#: time per sweep of both routes (the split route at every cluster size that
+#: fits) at 1 .. 256 chains on 255^2 5-point and 127^2 9-point fields and at one
+#: chain on a 63^3 7-point field, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
+#: section 6 holds the table.
+SPLIT_MAX_CHAINS = 64
+SPLIT_MAX_BLOCKS = 132
+
+#: kernel launches made by the wrappers (and only where they launch); the
+#: ``_split`` entries count the split route
 launch_counts: Dict[str, int] = {
     "sweep_batched": 0, "gibbs_sweep_batched": 0,
+    "sweep_batched_split": 0, "gibbs_sweep_batched_split": 0,
     "fused_sor_sweep": 0, "fused_sor_sweep_batched": 0,
     "fused_gibbs_sweep_batched": 0, "fused_gibbs_sweep": 0,
 }
@@ -121,6 +167,125 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def load_split_library() -> ctypes.CDLL:
+    """Build (at first use) and load the split route's shared library."""
+    lib = open_library(SPLIT_SOURCE_NAME)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.sor_sweep_cluster_smem_bytes.argtypes = [i32] * 6  # Z, Y, X, S, reach, noise_mode
+    lib.sor_sweep_cluster_smem_bytes.restype = i32
+    # gibbs, S, threads, bytes, out clusters
+    lib.sor_sweep_cluster_max_active.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
+    lib.sor_sweep_cluster_max_active.restype = i32
+    # P, x, b, coeffs, S, threads, stream
+    lib.sor_sweep_cluster.argtypes = [ctypes.POINTER(SweepParams)] + [ptr] * 3 + [i32, i32, ptr]
+    lib.sor_sweep_cluster.restype = i32
+    # P, x, f, coeffs, ns, xi, S, threads, stream
+    lib.sor_gibbs_sweep_cluster.argtypes = (
+        [ctypes.POINTER(SweepParams)] + [ptr] * 5 + [i32, i32, ptr])
+    lib.sor_gibbs_sweep_cluster.restype = i32
+    return lib
+
+
+# ------------------------------------------------------------ the two routes
+def split_layout(vshape) -> Tuple[int, int, int]:
+    """How the split route cuts a field into bands: ``(units, points per unit,
+    axis)``, the units being planes of the slowest axis in 3d and rows in 2d
+    (a 3d field of one plane splits by rows), as ``split_layout`` in
+    ``csrc/sor_sweep_cluster.cu``."""
+    Z, Y, X = (1,) * (3 - len(vshape)) + tuple(int(v) for v in vshape)
+    if Z > 1:
+        return Z, Y * X, 0
+    return Y, X, len(vshape) - 2
+
+
+def slow_reach(offsets, vshape) -> int:
+    """Reach of the stencil along the axis the bands split."""
+    axis = split_layout(vshape)[2]
+    return max(abs(int(off[axis])) for off in offsets)
+
+
+def split_smem_bytes(vshape, S: int, reach: int, noise_mode: int) -> int:
+    """Dynamic shared memory of one block of the split route with clusters of
+    ``S`` blocks: the first-point table, the widest band of ``x`` and, for the
+    Gibbs kernel (``noise_mode`` 1 or 2), the band of ``c``.  The host's mirror
+    of ``sor_sweep_cluster_smem_bytes`` in the source; ``ValueError`` where the
+    field cannot be split so (a band narrower than ``reach`` units, more blocks
+    than units, ``S`` outside 2 .. 16)."""
+    L, plane, _ = split_layout(vshape)
+    if not 2 <= S <= SPLIT_SIZES[0] or S > L or L // S < reach:
+        raise ValueError(f"a field of {L} units at reach {reach} does not split over {S} blocks")
+    nb_max = -(-L // S)
+    return 4 * (SPLIT_TABLE_INTS + nb_max * plane * (2 if noise_mode else 1))
+
+
+def split_threads(vshape, S: int) -> int:
+    """Threads per block of the split route: about four points of the band per
+    thread, 64 to 1024."""
+    L, plane, _ = split_layout(vshape)
+    band = -(-L // S) * plane
+    return min(1024, max(64, 32 * -(-band // 128)))
+
+
+@functools.lru_cache(maxsize=None)
+def max_active_clusters(device: torch.device, gibbs: bool, S: int, threads: int,
+                        nbytes: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the split kernel for clusters of
+    ``S`` blocks of ``threads`` threads and ``nbytes`` of shared memory, asked
+    once per configuration; 0 where such a cluster never schedules (a refused
+    configuration included)."""
+    lib = load_split_library()
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.sor_sweep_cluster_max_active(int(gibbs), S, threads, nbytes, ctypes.byref(out))
+    return int(out.value) if err == 0 else 0
+
+
+def cluster_schedulable(device, noise_mode: int, S: int, threads: int, nbytes: int) -> bool:
+    """Whether a cluster of the split kernel schedules on ``device``.  On the
+    CPU there is no card to ask, and every size is taken to schedule: a CPU
+    plan's route then follows from the shape and the shared memory alone."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return True
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return max_active_clusters(device, noise_mode != 0, S, threads, nbytes) > 0
+
+
+def split_route(C: int, vshape, offsets, noise_mode: int, device,
+                smem_limit: Optional[int] = None) -> Tuple[str, int]:
+    """The route of a sweep of ``C`` chains of fields ``vshape``: ``("split",
+    S)`` for at most :data:`SPLIT_MAX_CHAINS` chains, with ``S`` the largest
+    cluster size of :data:`SPLIT_SIZES` that keeps ``C * S`` within
+    :data:`SPLIT_MAX_BLOCKS`, leaves every band at least the stencil's reach
+    wide, fits its bands in ``smem_limit`` (default: what the probe grants a
+    block on ``device``) and schedules; :data:`BLOCK_ROUTE` otherwise."""
+    if C > SPLIT_MAX_CHAINS:
+        return BLOCK_ROUTE
+    L = split_layout(vshape)[0]
+    reach = slow_reach(offsets, vshape)
+    if smem_limit is None:
+        smem_limit = dynamic_smem_limit(device)
+    for S in SPLIT_SIZES:
+        if C * S > SPLIT_MAX_BLOCKS or S > L or L // S < reach:
+            continue
+        nbytes = split_smem_bytes(vshape, S, reach, noise_mode)
+        if nbytes <= smem_limit and cluster_schedulable(
+                device, noise_mode, S, split_threads(vshape, S), nbytes):
+            return ("split", S)
+    return BLOCK_ROUTE
+
+
+def sweep_route(C: int, plan: "SweepPlan", noise_mode: int = 0,
+                smem_limit: Optional[int] = None) -> Tuple[str, int]:
+    """The route a sweep of ``C`` chains on ``plan`` launches
+    (:func:`split_route` at the plan's shape and device); ``noise_mode`` 0 is
+    the deterministic kernel, 1 and 2 the Gibbs kernel."""
+    return split_route(C, plan.op.vshape, plan.op.offsets, noise_mode, plan.op.device,
+                       smem_limit)
+
+
 def kernel_support_error(op: StencilOperator, n_colors: int) -> Optional[str]:
     """Why the sweep kernels cannot take this operator, or None if they can."""
     if len(op.vshape) not in (2, 3):
@@ -150,6 +315,7 @@ class SweepPlan:
         self.threads = default_threads(int(np.prod(op.vshape)))
         self._compressed = None
         self._params_cache = {}
+        self._routes = {}
 
     def on_kernel_device(self) -> bool:
         """Whether sweeps of this plan go through the CUDA kernels: the
@@ -160,14 +326,24 @@ class SweepPlan:
                 and len(self.op.vshape) in (2, 3))
 
     def params(self, C: int, b_batched: bool, noise_mode: int, philox) -> SweepParams:
-        """The kernel's parameter block; built once per launch configuration,
-        only the Philox stream changes from launch to launch."""
+        """The kernels' parameter block (both routes take the same); built once
+        per launch configuration, together with the configuration's route
+        (:meth:`route`); only the Philox stream changes from launch to launch."""
         key = (C, bool(b_batched), noise_mode)
         P = self._params_cache.get(key)
         if P is None:
             P = self._params_cache[key] = self._build_params(*key)
+            self.route(C, noise_mode)
         P.seed, P.counter = philox if philox is not None else (0, 0)
         return P
+
+    def route(self, C: int, noise_mode: int = 0) -> Tuple[str, int]:
+        """The route a sweep of ``C`` chains launches (:func:`sweep_route`),
+        decided once per chain count and kernel."""
+        key = (C, noise_mode != 0)
+        if key not in self._routes:
+            self._routes[key] = sweep_route(C, self, noise_mode)
+        return self._routes[key]
 
     def _build_params(self, C: int, b_batched: bool, noise_mode: int) -> SweepParams:
         op = self.op
@@ -288,20 +464,10 @@ def sweep_batched(plan: SweepPlan, b: torch.Tensor, x: torch.Tensor) -> torch.Te
 
     ``x`` is ``(C, *vshape)``, ``b`` is ``vshape`` (shared) or ``(C, *vshape)``.
     CPU tensors go to :func:`sweep_batched_plain`.  CUDA tensors launch the
-    kernel, which updates ``x`` in place, or raise."""
+    kernel of ``plan.route(C)``, which updates ``x`` in place, or raise."""
     if x.device.type == "cpu":
         return sweep_batched_plain(plan.op, plan.masks, plan.omega, plan.order, b, x)
-    C, b_batched = _check_sweep_args(plan, b, x)
-    P = plan.params(C, b_batched, 0, None)
-    lib = load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sor_sweep_batched(ctypes.byref(P), x.data_ptr(), b.data_ptr(),
-                                    plan.coeffs.data_ptr(), plan.threads, stream)
-    launch_counts["sweep_batched"] += 1
-    if err != 0:
-        raise RuntimeError(f"sor_sweep kernel launch failed: CUDA error {err}")
-    return x
+    return launch_sweep(plan, plan.route(x.shape[0]), b, x)
 
 
 def gibbs_sweep_batched(plan: SweepPlan, f: torch.Tensor, x: torch.Tensor,
@@ -313,26 +479,82 @@ def gibbs_sweep_batched(plan: SweepPlan, f: torch.Tensor, x: torch.Tensor,
     The normals: ``philox=(seed, counter)`` for the in-kernel generator (CUDA
     only) or ``xi`` as a tensor of the shape of ``x`` - exactly one of the two.
     CPU tensors go to :func:`gibbs_sweep_batched_plain`.  CUDA tensors launch
-    the kernel, which updates ``x`` in place, or raise."""
+    the kernel of ``plan.route(C)``, which updates ``x`` in place, or raise."""
     if (xi is None) == (philox is None):
         raise ValueError("give the field noise as a tensor or as a Philox stream, one of the two")
     if x.device.type == "cpu":
         if philox is not None:
             raise ValueError("the Philox stream exists in the CUDA kernel only")
         return gibbs_sweep_batched_plain(plan.op, plan.masks, plan.omega, plan.order, f, x, xi)
-    C, f_batched = _check_sweep_args(plan, f, x, xi)
-    P = plan.params(C, f_batched, 1 if philox is not None else 2, philox)
-    lib = load_library()
-    scratch = torch.empty_like(x)
+    return launch_gibbs_sweep(plan, plan.route(x.shape[0], 1), f, x, xi, philox)
+
+
+def _check_route(route, x: torch.Tensor) -> Tuple[str, int]:
+    if x.device.type != "cuda":
+        raise ValueError("a kernel launch takes tensors on a CUDA device")
+    kind, S = route
+    if kind not in ROUTES or (kind == "block") != (S == 1):
+        raise ValueError(f"route must be {BLOCK_ROUTE} or ('split', S), got {route!r}")
+    return kind, int(S)
+
+
+def launch_sweep(plan: SweepPlan, route: Tuple[str, int], b: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    """One deterministic sweep through the kernel of ``route``
+    (:data:`BLOCK_ROUTE` or ``("split", S)``); :func:`sweep_batched` takes
+    ``plan.route(C)``, ``chip_smoke.py`` names the route to hold the two
+    against each other.  Updates ``x`` in place and returns it, or raises."""
+    kind, S = _check_route(route, x)
+    C, b_batched = _check_sweep_args(plan, b, x)
+    P = plan.params(C, b_batched, 0, None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sor_gibbs_sweep_batched(
-            ctypes.byref(P), x.data_ptr(), f.data_ptr(), scratch.data_ptr(),
-            plan.coeffs.data_ptr(), plan.noise_scale.data_ptr(), tensor_ptr(xi),
-            plan.threads, stream)
-    launch_counts["gibbs_sweep_batched"] += 1
+        if kind == "block":
+            name = "sweep_batched"
+            err = load_library().sor_sweep_batched(
+                ctypes.byref(P), x.data_ptr(), b.data_ptr(), plan.coeffs.data_ptr(),
+                plan.threads, stream)
+        else:
+            name = "sweep_batched_split"
+            err = load_split_library().sor_sweep_cluster(
+                ctypes.byref(P), x.data_ptr(), b.data_ptr(), plan.coeffs.data_ptr(), S,
+                split_threads(plan.op.vshape, S), stream)
+    launch_counts[name] += 1
     if err != 0:
-        raise RuntimeError(f"gibbs_sweep kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err}")
+    return x
+
+
+def launch_gibbs_sweep(plan: SweepPlan, route: Tuple[str, int], f: torch.Tensor,
+                       x: torch.Tensor, xi: Optional[torch.Tensor] = None,
+                       philox: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """One Gibbs sweep through the kernel of ``route``, as :func:`launch_sweep`;
+    the normals as :func:`gibbs_sweep_batched` takes them.  The one-block
+    kernel writes ``c`` to a scratch field, the split kernel forms it in shared
+    memory."""
+    if (xi is None) == (philox is None):
+        raise ValueError("give the field noise as a tensor or as a Philox stream, one of the two")
+    kind, S = _check_route(route, x)
+    C, f_batched = _check_sweep_args(plan, f, x, xi)
+    P = plan.params(C, f_batched, 1 if philox is not None else 2, philox)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if kind == "block":
+            name = "gibbs_sweep_batched"
+            scratch = torch.empty_like(x)
+            err = load_library().sor_gibbs_sweep_batched(
+                ctypes.byref(P), x.data_ptr(), f.data_ptr(), scratch.data_ptr(),
+                plan.coeffs.data_ptr(), plan.noise_scale.data_ptr(), tensor_ptr(xi),
+                plan.threads, stream)
+        else:
+            name = "gibbs_sweep_batched_split"
+            err = load_split_library().sor_gibbs_sweep_cluster(
+                ctypes.byref(P), x.data_ptr(), f.data_ptr(), plan.coeffs.data_ptr(),
+                plan.noise_scale.data_ptr(), tensor_ptr(xi), S,
+                split_threads(plan.op.vshape, S), stream)
+    launch_counts[name] += 1
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err}")
     return x
 
 
@@ -414,9 +636,10 @@ fused_gibbs_sweep_plain = fused_gibbs_sweep_batched_plain
 
 def _launch_raw(name, coeffs, b, x, xi, philox, *, offsets, diag_index, omega, order,
                 color_weights, n_colors):
-    """Validate raw arrays, build the parameter block and launch
-    ``sor_sweep_kernel`` (``xi`` and ``philox`` both ``None``) or
-    ``gibbs_sweep_kernel``; ``x`` is ``(C, *vshape)`` and updated in place."""
+    """Validate raw arrays, build the parameter block and launch the
+    deterministic kernel (``xi`` and ``philox`` both ``None``) or the Gibbs
+    kernel of the route of ``C`` chains (:func:`split_route`); ``x`` is
+    ``(C, *vshape)`` and updated in place."""
     vshape = tuple(coeffs.shape[1:])
     if len(vshape) not in (2, 3) or coeffs.shape[0] != len(offsets):
         raise ValueError(f"coeffs {tuple(coeffs.shape)} do not match {len(offsets)} offsets "
@@ -444,19 +667,30 @@ def _launch_raw(name, coeffs, b, x, xi, philox, *, offsets, diag_index, omega, o
                            float(omega), (None,) * len(offsets), None, C,
                            b.ndim == len(vshape) + 1, noise_mode)
     P.seed, P.counter = philox if philox is not None else (0, 0)
-    lib = load_library()
-    threads = default_threads(int(np.prod(vshape)))
+    kind, S = split_route(C, vshape, offsets, noise_mode, x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if noise_mode == 0:
-            err = lib.sor_sweep_batched(ctypes.byref(P), x.data_ptr(), b.data_ptr(),
-                                        coeffs.data_ptr(), threads, stream)
-        else:
+        if noise_mode != 0:
             ns = _raw_noise_scale(coeffs, diag_index, omega).contiguous()
-            scratch = torch.empty_like(x)
-            err = lib.sor_gibbs_sweep_batched(
-                ctypes.byref(P), x.data_ptr(), b.data_ptr(), scratch.data_ptr(),
-                coeffs.data_ptr(), ns.data_ptr(), tensor_ptr(xi), threads, stream)
+        if kind == "split":
+            lib, threads = load_split_library(), split_threads(vshape, S)
+            if noise_mode == 0:
+                err = lib.sor_sweep_cluster(ctypes.byref(P), x.data_ptr(), b.data_ptr(),
+                                            coeffs.data_ptr(), S, threads, stream)
+            else:
+                err = lib.sor_gibbs_sweep_cluster(
+                    ctypes.byref(P), x.data_ptr(), b.data_ptr(), coeffs.data_ptr(),
+                    ns.data_ptr(), tensor_ptr(xi), S, threads, stream)
+        else:
+            lib, threads = load_library(), default_threads(int(np.prod(vshape)))
+            if noise_mode == 0:
+                err = lib.sor_sweep_batched(ctypes.byref(P), x.data_ptr(), b.data_ptr(),
+                                            coeffs.data_ptr(), threads, stream)
+            else:
+                scratch = torch.empty_like(x)
+                err = lib.sor_gibbs_sweep_batched(
+                    ctypes.byref(P), x.data_ptr(), b.data_ptr(), scratch.data_ptr(),
+                    coeffs.data_ptr(), ns.data_ptr(), tensor_ptr(xi), threads, stream)
     launch_counts[name] += 1
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err}")
@@ -467,8 +701,8 @@ def fused_sor_sweep_batched(coeffs, b, x, *, offsets, diag_index, omega, order,
                             color_weights, n_colors):
     """One deterministic colour-ordered SOR sweep of ``x (C, *vshape)`` on raw
     arrays: ``coeffs (K, *vshape)``, ``b`` shaped like ``x``.  CPU tensors go to
-    :func:`fused_sor_sweep_batched_plain`; CUDA tensors launch
-    ``sor_sweep_kernel`` on a copy of ``x`` or raise.  Returns a new tensor."""
+    :func:`fused_sor_sweep_batched_plain`; CUDA tensors launch the deterministic
+    kernel of their route on a copy of ``x`` or raise.  Returns a new tensor."""
     kw = dict(offsets=offsets, diag_index=diag_index, omega=omega, order=order,
               color_weights=color_weights, n_colors=n_colors)
     if x.device.type == "cpu":
@@ -479,7 +713,7 @@ def fused_sor_sweep_batched(coeffs, b, x, *, offsets, diag_index, omega, order,
 def fused_sor_sweep(coeffs, b, x, *, offsets, diag_index, omega, order, color_weights,
                     n_colors):
     """One deterministic sweep of one field ``x (*vshape)``: a batch of one
-    through ``sor_sweep_kernel``.  Returns a new tensor."""
+    through the deterministic kernel.  Returns a new tensor."""
     kw = dict(offsets=offsets, diag_index=diag_index, omega=omega, order=order,
               color_weights=color_weights, n_colors=n_colors)
     if x.device.type == "cpu":
@@ -496,7 +730,8 @@ def fused_gibbs_sweep_batched(seed, coeffs, f, x, *, offsets, diag_index, omega,
     or up to four 32-bit key words, see :func:`philox_from_seed`) feeds the
     in-kernel generator; alternatively ``seed=None`` and the normals ``xi``
     (shape of ``x``).  CPU tensors go to the plain version, which needs ``xi``;
-    CUDA tensors launch ``gibbs_sweep_kernel`` on a copy of ``x`` or raise."""
+    CUDA tensors launch the Gibbs kernel of their route on a copy of ``x`` or
+    raise."""
     kw = dict(offsets=offsets, diag_index=diag_index, omega=omega, order=order,
               color_weights=color_weights, n_colors=n_colors)
     if (seed is None) == (xi is None):
@@ -512,7 +747,7 @@ def fused_gibbs_sweep_batched(seed, coeffs, f, x, *, offsets, diag_index, omega,
 def fused_gibbs_sweep(seed, coeffs, f, x, *, offsets, diag_index, omega, order, color_weights,
                       n_colors, xi=None):
     """One Gibbs sweep of one field ``x (*vshape)``: a batch of one through
-    ``gibbs_sweep_kernel``.  Arguments as :func:`fused_gibbs_sweep_batched`."""
+    the Gibbs kernel.  Arguments as :func:`fused_gibbs_sweep_batched`."""
     kw = dict(offsets=offsets, diag_index=diag_index, omega=omega, order=order,
               color_weights=color_weights, n_colors=n_colors)
     if (seed is None) == (xi is None):

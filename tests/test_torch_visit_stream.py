@@ -342,20 +342,6 @@ def test_route_takes_the_phase_kernels_where_the_rings_do_not_fit(case):
                           smem_limit=mv.SMEM_PER_BLOCK_OPTIN) == "phase"
 
 
-@pytest.mark.parametrize("limit", [48 * 1024, 100 * 1024, mv.SMEM_PER_BLOCK_OPTIN])
-def test_route_compares_with_the_granted_shared_memory(limit):
-    # the flagship's 255^2 stream launch needs 75,212 B plus the static part:
-    # it takes the stream kernels only where a block is granted that much
-    need = 75212 + mv.STREAM_STATIC_SMEM
-    want = "stream" if need <= limit else "phase"
-    assert mv.visit_route(256, 75212, smem_limit=limit) == want
-    assert mv.visit_route(256, limit - mv.STREAM_STATIC_SMEM, smem_limit=limit) == "stream"
-    assert mv.visit_route(256, limit - mv.STREAM_STATIC_SMEM + 4, smem_limit=limit) == "phase"
-    # without a limit the route asks the device: on the CPU its default, 48 KiB
-    assert mv.visit_route(256, 75212, device=CPU) == "phase"
-    assert mv.visit_route(256, 40000, device=CPU) == "stream"
-
-
 def test_level_route_follows_its_layout():
     # a level's route takes its own shape: a wide synthetic level (no
     # measurements) takes the phase kernels at any chain count
