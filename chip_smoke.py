@@ -26,11 +26,18 @@ card and checks, one phase after the other:
                    127^2 levels and at 132 .. 512 on the 511^2 and 255^2 levels
                    of a 512x512 lattice (the ``visit_routes`` line, which must
                    support the chain count from which the stream kernels run), the
-                   two sweep kernels in both directions on 2d 5- and 9-point,
-                   3d 7- and 27-point, space-varying and reach-2 operators -
-                   the in-kernel Philox normals (known-answer reference,
-                   moments, lag correlations, distinct streams), and the
-                   kernels' times beside their bounds; then the third slice's
+                   two sweep kernels of both routes (one block per chain, and
+                   each chain split over a thread-block cluster) in both
+                   directions on 2d 5- and 9-point, 3d 7- and 27-point,
+                   space-varying and reach-2 operators, the split route at one
+                   chain and at a few and against the one-block route under one
+                   Philox stream (``1e-6``) - the in-kernel Philox normals
+                   (known-answer reference through every route, moments, lag
+                   correlations, distinct streams, and whether they are torch's
+                   own normals of the same seed), the split layout's host mirror,
+                   the kernels' times beside their bounds, and the
+                   ``sweep_routes`` table (both routes at 1 .. 256 chains, which
+                   must support the split route's constants); then the third slice's
                    kernels: the subtree kernel on the flagship's levels 1..4
                    and on a 3-level 64x64 case (noise off, all normals from a
                    tensor, the in-kernel generator with its normals recorded;
@@ -57,7 +64,8 @@ card and checks, one phase after the other:
                    with the exact ones within 4 standard errors, through the
                    visit kernels, the plain path, the distilled subtree, the
                    subtree kernel with its in-kernel noise and the SSOR sampler
-                   on the Gibbs sweep kernel; and a batched deterministic solve
+                   on the Gibbs sweep kernel (256 chains on the one-block route,
+                   32 on the split route); and a batched deterministic solve
                    agrees with the float64 dense solve.
 
 One JSON object per line.  The line ``{"kernels": [...]}`` lists per kernel its
@@ -67,8 +75,8 @@ plain version's time and its bound.  The last line is
 is not 0.  Without a CUDA device the script exits with code 1 and prints no
 result.  ``--phases`` runs a subset of the phases (``threads``: the visit
 kernels' block-size table; ``new``: the third slice's kernels alone;
-``visits``: the visit kernels of both routes alone) and prints
-no result line.
+``visits``: the visit kernels of both routes alone; ``sweeps``: the sweep
+kernels of both routes alone) and prints no result line.
 """
 
 from __future__ import annotations
@@ -211,6 +219,7 @@ def phase_build():
     mgmc_visit.load_library()
     mgmc_visit.load_stream_library()
     sor_sweep.load_library()
+    sor_sweep.load_split_library()
     mgmc_subtree.load_library()
     common.load_probe_library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -605,8 +614,9 @@ def sweep_cases(device):
 
 
 def check_sweeps(device, gen):
-    """Both sweep kernels against their plain versions, forward and backward,
-    ``b`` shared and per chain: noise off, then the same ``xi`` fed to both."""
+    """Both sweep kernels of the one-block route against their plain versions,
+    forward and backward, ``b`` shared and per chain: noise off, then the same
+    ``xi`` fed to both."""
     from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
     from multigridmc_tpu_torch.smoothers import BACKWARD, FORWARD, SORSmoother
 
@@ -625,10 +635,10 @@ def check_sweeps(device, gen):
                                 generator=gen)
                 tag = f"{name} {direction} {'b per chain' if b_batched else 'b shared'}"
                 want = ss.sweep_batched_plain(op, plan.masks, omega, plan.order, b, x)
-                got = ss.sweep_batched(plan, b, x.clone())
+                got = ss.launch_sweep(plan, ss.BLOCK_ROUTE, b, x.clone())
                 e = compare(f"sweep {tag}", got, want)
                 want = ss.gibbs_sweep_batched_plain(op, plan.masks, omega, plan.order, b, x, xi)
-                got = ss.gibbs_sweep_batched(plan, b, x.clone(), xi=xi)
+                got = ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, b, x.clone(), xi=xi)
                 g = compare(f"gibbs sweep {tag}", got, want)
                 row["sweep_err"] = max(row.get("sweep_err", 0.0), e)
                 row["gibbs_err"] = max(row.get("gibbs_err", 0.0), g)
@@ -640,9 +650,11 @@ def check_sweeps(device, gen):
 
 
 def check_sweep_philox(device):
-    """The Gibbs kernel's in-kernel normals, read out through the kernel: on an
-    identity operator with f = 0, x = 0, omega = 1 the sweep returns x = xi.
-    Known answer (2d and 3d, counters above 2^32) and moments."""
+    """The Gibbs kernels' in-kernel normals, read out through the kernels of
+    both routes: on an identity operator with f = 0, x = 0, omega = 1 the sweep
+    returns x = xi.  Known answer (2d and 3d, counters above 2^32) and moments;
+    the split route at its one-chain cluster size, bitwise equal to the
+    one-block route."""
     from multigridmc_tpu_torch.lattice import Lattice
     from multigridmc_tpu_torch.ops.kernels import common
     from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
@@ -664,22 +676,32 @@ def check_sweep_philox(device):
         plan = SORSmoother(op, 1.0, 1).plan
         f = torch.zeros(lattice.vshape, device=device)
 
-        def draw(counter):
+        split = plan.route(1, 1)
+        if split[0] != "split":
+            raise AssertionError(f"gibbs sweep: one chain of {shape} takes {split}")
+
+        def draw(counter, route=ss.BLOCK_ROUTE):
             x = torch.zeros((C,) + lattice.vshape, device=device)
-            return ss.gibbs_sweep_batched(plan, f, x, philox=(seed, counter))
+            return ss.launch_gibbs_sweep(plan, route, f, x, philox=(seed, counter))
 
         z = draw(3)
         if not torch.equal(z, draw(3)):
             raise AssertionError("gibbs sweep: two launches with the same seed and counter differ")
         if torch.equal(z, draw(4)):
             raise AssertionError("gibbs sweep: two launch counters gave the same normals")
-        ka_err = 0.0
-        for counter in (3, (1 << 32) + 9):
-            zc = z if counter == 3 else draw(counter)
-            ref = common.philox_normals_reference(seed, counter, C, lattice.vshape)
-            ka_err = max(ka_err, float(np.abs(zc.cpu().numpy() - ref).max()))
-        if ka_err > 2e-5:
-            raise AssertionError(f"gibbs sweep: normals differ from the reference by {ka_err}")
+        ka = {}
+        for route in (ss.BLOCK_ROUTE, split):
+            ka[route[0]] = 0.0
+            for counter in (3, (1 << 32) + 9):
+                zc = z if (counter, route) == (3, ss.BLOCK_ROUTE) else draw(counter, route)
+                ref = common.philox_normals_reference(seed, counter, C, lattice.vshape)
+                ka[route[0]] = max(ka[route[0]], float(np.abs(zc.cpu().numpy() - ref).max()))
+                if route != ss.BLOCK_ROUTE and not torch.equal(zc, draw(counter)):
+                    raise AssertionError("gibbs sweep: the split route's normals differ from "
+                                         "the one-block route's")
+        ka_err = ka["block"]
+        if max(ka.values()) > 2e-5:
+            raise AssertionError(f"gibbs sweep: normals differ from the reference by {ka}")
         zd = z.double()
         N = zd.numel()
         mean, var, m4 = float(zd.mean()), float(zd.var()), float((zd ** 4).mean())
@@ -687,7 +709,65 @@ def check_sweep_philox(device):
                 and abs(m4 - 3) < 5 * np.sqrt(96 / N)):
             raise AssertionError(f"gibbs sweep normals: mean={mean} var={var} m4={m4}")
         out["x".join(map(str, lattice.vshape))] = {
-            "draws": N, "mean": mean, "var": var, "m4": m4, "known_answer_max_err": ka_err}
+            "draws": N, "mean": mean, "var": var, "m4": m4, "known_answer_max_err": ka_err,
+            "known_answer_max_err_split": ka["split"], "split_cluster": split[1]}
+    return out
+
+
+def check_philox_collision(device):
+    """Whether the kernels' normals are torch's own.  torch's CUDA generator
+    seeded with ``s`` runs Philox4x32-10 under the key ``s`` with the counter
+    ``(offset / 4, 0, thread, 0)``, and ``torch.randn(N)[L]`` is the first
+    normal of thread ``L``; its ``g``-th small draw starts at offset ``4 g``.
+    The kernels' counter of point group ``g``, chain 0, launch ``L`` is
+    ``(g, 0, L, 0)``.  Under the bare key ``s`` the two coincide up to rounding
+    (torch forms its uniforms from 32 bits, the kernels from 24) and the
+    order of sine and cosine; the kernels' key ``s ^ PHILOX_KEY_MIX`` keeps
+    them apart.  Prints both; fails if the kernels' normals are torch's."""
+    from multigridmc_tpu_torch.lattice import Lattice
+    from multigridmc_tpu_torch.ops.kernels import common
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+    from multigridmc_tpu_torch.ops.stencil import StencilOperator
+    from multigridmc_tpu_torch.smoothers import SORSmoother
+    from multigridmc_tpu_torch.utils.runtime import make_generator
+
+    seed, N, groups = 20260816, 256, 2
+    launches = (0, 1, 2, 7, 100, 255)
+    gen = make_generator(seed, device)
+    torch_draws = [torch.randn(N, device=device, generator=gen).cpu().numpy()
+                   for _ in range(groups)]  # draw g at generator offset 4 g
+    lattice = Lattice((4 * groups + 1, 2))  # one row of 4 * groups points
+    coeffs = torch.zeros((5,) + lattice.vshape, device=device)
+    coeffs[0] = 1.0
+    op = StencilOperator(coeffs=coeffs, offsets=((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1)),
+                         lattice=lattice)
+    plan = SORSmoother(op, 1.0, 1).plan
+    f = torch.zeros(lattice.vshape, device=device)
+
+    def nearest(value, four):  # the closest of a group's four normals (sine or cosine)
+        return float(np.abs(four - value).min())
+
+    bare, kernel = [], []
+    for L in launches:
+        ref = common.philox_normals_reference(seed, L, 1, lattice.vshape, key=seed)[0, 0]
+        z = ss.gibbs_sweep_batched(plan, f, torch.zeros((1,) + lattice.vshape, device=device),
+                                   philox=(seed, L))[0, 0].cpu().numpy()
+        for g in range(groups):
+            t = torch_draws[g][L]
+            bare.append(nearest(t, ref[4 * g:4 * g + 4]))
+            kernel.append(nearest(t, z[4 * g:4 * g + 4]))
+    torch.cuda.synchronize()
+    # a collision: every one of the len(launches) * groups draws is a normal of
+    # the same counter (a chance match of one draw is about 4 * 2 tol * 0.4)
+    tol = 1e-3
+    out = {"seed": seed, "launches": list(launches), "groups": groups, "tolerance": tol,
+           "bare_key_max_diff": max(bare), "bare_key_matches": sum(d < tol for d in bare),
+           "bare_key_collides": max(bare) < tol,
+           "kernel_key_min_diff": min(kernel), "kernel_key_matches": sum(d < tol for d in kernel),
+           "kernel_key_collides": max(kernel) < tol, "draws": len(bare)}
+    emit({"philox_collision": out})
+    if out["kernel_key_collides"]:
+        raise AssertionError(f"philox: the kernels' normals are torch's own: {out}")
     return out
 
 
@@ -710,10 +790,17 @@ def sweep_bound(plan, C, b_batched):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), 4 * words
 
 
+#: the sweep kernels as torch.profiler names them, by route
+SWEEP_KERNELS = {("block", "sweep"): "sor_sweep_kernel", ("block", "gibbs"): "gibbs_sweep_kernel",
+                 ("split", "sweep"): "cluster_sweep_kernel<false",
+                 ("split", "gibbs"): "cluster_sweep_kernel<true"}
+
+
 def time_sweeps(device, noise):
     """ms per launch of both sweep kernels (the Gibbs kernel with its
-    in-kernel noise, ``b`` per chain as the samplers of a posterior give it),
-    of their plain versions, and the bound, per case."""
+    in-kernel noise, ``b`` per chain as the samplers of a posterior give it)
+    through the one-block route and, where the case's chain count takes it,
+    the split route; their plain versions' ms and the bound, per case."""
     from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
     from multigridmc_tpu_torch.smoothers import SORSmoother
 
@@ -726,17 +813,26 @@ def time_sweeps(device, noise):
         inner = 10 if C > 1 else 50
         row = {"case": name, "chains": C, "vshape": list(op.vshape), "threads": plan.threads,
                "bound_ms": bound, "bound_by": by, "bound_bytes": nbytes}
+        routes = {"": ss.BLOCK_ROUTE}
+        if plan.route(C, 0)[0] == "split":
+            routes["split_"] = plan.route(C, 0)
+            row["split_cluster"] = plan.route(C, 0)[1]
+            row["split_threads"] = ss.split_threads(op.vshape, plan.route(C, 0)[1])
+        for prefix, route in routes.items():
+            gibbs_route = plan.route(C, 1) if prefix else route
 
-        def det():
-            return ss.sweep_batched(plan, b, x)
+            def det():
+                return ss.launch_sweep(plan, route, b, x)
 
-        def gibbs():
-            return ss.gibbs_sweep_batched(plan, b, x, philox=noise.philox_stream())
+            def gibbs():
+                return ss.launch_gibbs_sweep(plan, gibbs_route, b, x, philox=noise.philox_stream())
 
-        row["sweep_ms"] = cuda_ms(det, 5, inner)
-        row["gibbs_ms"] = cuda_ms(gibbs, 5, inner)
-        row["sweep_device_ms"] = device_ms_per_launch(det, "sor_sweep_kernel")
-        row["gibbs_device_ms"] = device_ms_per_launch(gibbs, "gibbs_sweep_kernel")
+            row[f"{prefix}sweep_ms"] = cuda_ms(det, 5, inner)
+            row[f"{prefix}gibbs_ms"] = cuda_ms(gibbs, 5, inner)
+            row[f"{prefix}sweep_device_ms"] = device_ms_per_launch(
+                det, SWEEP_KERNELS[(route[0], "sweep")])
+            row[f"{prefix}gibbs_device_ms"] = device_ms_per_launch(
+                gibbs, SWEEP_KERNELS[(gibbs_route[0], "gibbs")])
         x.zero_()
         row["sweep_plain_ms"] = cuda_ms(
             lambda: ss.sweep_batched_plain(op, plan.masks, omega, plan.order, b, x), 3, 3)
@@ -744,6 +840,228 @@ def time_sweeps(device, noise):
             lambda: ss.gibbs_sweep_batched_plain(op, plan.masks, omega, plan.order, b, x,
                                                  torch.randn_like(x)), 3, 3)
         rows.append(row)
+    return rows
+
+
+#: the few-chain count at which the split route is checked besides one chain
+SPLIT_CHECK_CHAINS = 4
+#: the split route against the one-block route under one Philox stream: the
+#: same arithmetic on the same values (bitwise equal where nvcc contracts both alike)
+ROUTE_TOL = 1e-6
+
+
+def check_split_sweeps(device, gen):
+    """The split route's two kernels against their plain versions on every
+    sweep case at one chain and at :data:`SPLIT_CHECK_CHAINS` (the cluster
+    size of the route), forward and backward, ``b`` shared and per chain:
+    noise off, then the same ``xi`` fed to both (TOL); and against the
+    one-block route on the same inputs, the Gibbs kernel under one in-kernel
+    Philox stream (ROUTE_TOL)."""
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+    from multigridmc_tpu_torch.smoothers import BACKWARD, FORWARD, SORSmoother
+
+    errs = {"sweep_batched_split": 0.0, "gibbs_sweep_batched_split": 0.0}
+    route_err = 0.0
+    rows = []
+    for name, op, _, omega in sweep_cases(device):
+        for C in (1, SPLIT_CHECK_CHAINS):
+            for direction in (FORWARD, BACKWARD):
+                plan = SORSmoother(op, omega, 1, direction).plan
+                det_route, gibbs_route = plan.route(C, 0), plan.route(C, 1)
+                if det_route[0] != "split" or gibbs_route[0] != "split":
+                    raise AssertionError(f"split sweeps: {name} at {C} chains takes "
+                                         f"{det_route} / {gibbs_route}")
+                x = torch.randn((C,) + op.vshape, device=device, generator=gen)
+                xi = torch.randn((C,) + op.vshape, device=device, generator=gen)
+                row = {"case": name, "chains": C, "vshape": list(op.vshape),
+                       "direction": direction, "cluster": det_route[1],
+                       "gibbs_cluster": gibbs_route[1], "sweep_err": 0.0, "gibbs_err": 0.0,
+                       "against_block": 0.0}
+                for b_batched in (False, True):
+                    b = torch.randn(((C,) if b_batched else ()) + op.vshape, device=device,
+                                    generator=gen)
+                    tag = f"{name} C={C} {direction} {'b per chain' if b_batched else 'b shared'}"
+                    want = ss.sweep_batched_plain(op, plan.masks, omega, plan.order, b, x)
+                    got = ss.launch_sweep(plan, det_route, b, x.clone())
+                    row["sweep_err"] = max(row["sweep_err"], compare(f"split sweep {tag}", got, want))
+                    block = ss.launch_sweep(plan, ss.BLOCK_ROUTE, b, x.clone())
+                    row["against_block"] = max(row["against_block"],
+                                               float((got - block).abs().max()))
+                    want = ss.gibbs_sweep_batched_plain(op, plan.masks, omega, plan.order, b, x, xi)
+                    got = ss.launch_gibbs_sweep(plan, gibbs_route, b, x.clone(), xi=xi)
+                    row["gibbs_err"] = max(row["gibbs_err"],
+                                           compare(f"split gibbs sweep {tag}", got, want))
+                    stream = (0xC0FFEE + C, 7 + b_batched)
+                    got = ss.launch_gibbs_sweep(plan, gibbs_route, b, x.clone(), philox=stream)
+                    block = ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, b, x.clone(), philox=stream)
+                    row["against_block"] = max(row["against_block"],
+                                               float((got - block).abs().max()))
+                if row["against_block"] > ROUTE_TOL:
+                    raise AssertionError(f"split sweeps: {name} C={C} {direction}: the split and "
+                                         f"one-block routes differ by {row['against_block']}")
+                errs["sweep_batched_split"] = max(errs["sweep_batched_split"], row["sweep_err"])
+                errs["gibbs_sweep_batched_split"] = max(errs["gibbs_sweep_batched_split"],
+                                                        row["gibbs_err"])
+                route_err = max(route_err, row["against_block"])
+                rows.append(row)
+    torch.cuda.synchronize()
+    return errs, route_err, rows
+
+
+def check_split_layout(device):
+    """The host's mirror of the split kernels' shared-memory layout
+    (``sor_sweep.split_smem_bytes``, from which the route is chosen) against the
+    kernel source's (``sor_sweep_cluster_smem_bytes``), including the shapes it
+    refuses, and the clusters the card schedules at the drivers' shape."""
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+
+    lib = ss.load_split_library()
+    shapes = [((255, 255), 1), ((127, 127), 1), ((63, 63), 2), ((15, 15), 1), ((1023, 1023), 1),
+              ((63, 63, 63), 1), ((31, 31, 31), 1), ((1, 9, 11), 1)]
+    cases = []
+    for vshape, reach in shapes:
+        Z, Y, X = (1,) * (3 - len(vshape)) + vshape
+        for S in (1,) + ss.SPLIT_SIZES + (32,):
+            for noise_mode in (0, 1):
+                got = lib.sor_sweep_cluster_smem_bytes(Z, Y, X, S, reach, noise_mode)
+                try:
+                    want = ss.split_smem_bytes(vshape, S, reach, noise_mode)
+                except ValueError:
+                    want = -1
+                if got != want:
+                    raise AssertionError(f"split layout {vshape} S={S}: kernel {got} B, "
+                                         f"host {want} B")
+                cases.append({"vshape": list(vshape), "S": S, "noise_mode": noise_mode,
+                              "bytes": got})
+    clusters = {}
+    for S in ss.SPLIT_SIZES:
+        for noise_mode in (0, 1):
+            nbytes = ss.split_smem_bytes((255, 255), S, 1, noise_mode)
+            clusters[f"255^2 S={S} noise_mode={noise_mode}"] = ss.max_active_clusters(
+                torch.device("cuda", torch.cuda.current_device()), noise_mode != 0, S,
+                ss.split_threads((255, 255), S), nbytes)
+    return {"cases": len(cases), "max_active_clusters": clusters,
+            "smem_limit": ss.dynamic_smem_limit(device)}
+
+
+#: chain counts of the ``sweep_routes`` table (63^3: one chain only)
+SWEEP_ROUTE_CHAINS = (1, 2, 4, 8, 16, 32, 64, 132, 256)
+#: the rule's cluster size stands if its time is within this factor of the
+#: best cluster size measured at the same chain count
+SPLIT_SIZE_SLACK = 1.10
+#: the split route counts as the faster one below this share of the one-block
+#: route's time: the measured threshold does not move with a few per cent of noise
+SPLIT_CLEAR_WIN = 0.90
+
+
+def time_sweep_routes(device, noise, smi):
+    """The ``sweep_routes`` line: device ms per launch (torch.profiler) of both
+    sweep kernels through the one-block route and through the split route at
+    every cluster size that fits and schedules, at every chain count of
+    :data:`SWEEP_ROUTE_CHAINS` on a 255^2 5-point field, its 127^2 9-point
+    Galerkin level and a 127^2 5-point field whose coefficients vary in space
+    (read per point), and at one chain on a 63^3 7-point field.
+
+    The table supports the code's constants when (1) wherever the route takes
+    the split route it beats one block per chain, (2) its cluster size (the
+    least ``split_cost``, from ``SPLIT_WAVE_FIXED`` and the clusters the card
+    holds at once) is within :data:`SPLIT_SIZE_SLACK` of the best one measured
+    there, and (3) ``SPLIT_MAX_CHAINS`` is the largest chain count of the table
+    up to which the split route at the rule's cluster size takes less than
+    :data:`SPLIT_CLEAR_WIN` of the one-block route's time on every field and
+    kernel (the measured threshold).  The run fails otherwise."""
+    from multigridmc_tpu_torch.lattice import Lattice
+    from multigridmc_tpu_torch.models.correlation import (ConstantCorrelationLengthModel,
+                                                          PeriodicCorrelationLengthModel)
+    from multigridmc_tpu_torch.models.prior import shiftedlaplace_fd
+    from multigridmc_tpu_torch.ops.coarsen import galerkin_coarsen
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+    from multigridmc_tpu_torch.smoothers import SORSmoother
+
+    const = ConstantCorrelationLengthModel(0.2)
+    fine = shiftedlaplace_fd(Lattice((256, 256)), const, device=device)
+    varying = shiftedlaplace_fd(Lattice((128, 128)), PeriodicCorrelationLengthModel(0.2, 0.4),
+                                device=device)
+    shapes = [("255^2 5-point", fine, SWEEP_ROUTE_CHAINS),
+              ("127^2 9-point Galerkin", galerkin_coarsen(fine), SWEEP_ROUTE_CHAINS),
+              ("127^2 5-point varying", varying, SWEEP_ROUTE_CHAINS),
+              ("63^3 7-point", shiftedlaplace_fd(Lattice((64, 64, 64)), const, device=device),
+               (1,))]
+    limit = ss.dynamic_smem_limit(device)
+    rows = []
+    for label, op, counts in shapes:
+        plan = SORSmoother(op, 1.0, 1).plan
+        reach = ss.slow_reach(op.offsets, op.vshape)
+        L = ss.split_layout(op.vshape)[0]
+        for C in counts:
+            b = torch.rand((C,) + op.vshape, device=device)
+            x = torch.zeros((C,) + op.vshape, device=device)
+            for kernel, noise_mode in (("sweep", 0), ("gibbs", 1)):
+                def run(route):
+                    if noise_mode == 0:
+                        return lambda: ss.launch_sweep(plan, route, b, x)
+                    return lambda: ss.launch_gibbs_sweep(plan, route, b, x,
+                                                         philox=noise.philox_stream())
+
+                def device_ms(route):  # asked twice where a profile shows no kernel
+                    name = SWEEP_KERNELS[(route[0], kernel)]
+                    t = device_ms_per_launch(run(route), name, 10)
+                    return t if t is not None else device_ms_per_launch(run(route), name, 10)
+
+                row = {"shape": label, "chains": C, "kernel": kernel,
+                       "block_ms": device_ms(ss.BLOCK_ROUTE)}
+                split, active = {}, {}
+                for S in ss.SPLIT_SIZES:
+                    if S > L or L // S < reach:
+                        continue
+                    nbytes = ss.split_smem_bytes(op.vshape, S, reach, noise_mode)
+                    if nbytes > limit:
+                        continue
+                    active[S] = ss.active_clusters(device, noise_mode, S,
+                                                   ss.split_threads(op.vshape, S), nbytes)
+                    if active[S] > 0:
+                        split[S] = device_ms(("split", S))
+                row["split_ms"] = {str(S): t for S, t in split.items()}
+                row["active_clusters"] = {str(S): a for S, a in active.items()}
+                timed = {S: t for S, t in split.items() if t is not None}
+                row["best_cluster"] = min(timed, key=timed.get) if timed else None
+                # the rule's cluster size, whatever the chain count
+                row["rule_cluster"] = ss.split_size(C, op.vshape, op.offsets, noise_mode, device)
+                row["rule_ms"] = split.get(row["rule_cluster"])
+                row["route"] = list(plan.route(C, noise_mode))
+                rows.append(row)
+    # what the table supports
+    faults = []
+    wins = {}
+    for r in rows:
+        tag = f"{r['shape']} {r['kernel']} C={r['chains']}"
+        if r["block_ms"] is None or None in r["split_ms"].values():
+            faults.append(f"{tag}: the profiler showed no device time")
+            wins.setdefault(r["chains"], []).append(False)
+            continue
+        if r["route"][0] == "split" and not r["rule_ms"] < r["block_ms"]:
+            faults.append(f"{tag}: the split route ({r['rule_ms']}) loses to one block "
+                          f"({r['block_ms']})")
+        if r["route"][0] == "split":
+            best = r["split_ms"][str(r["best_cluster"])]
+            if r["rule_ms"] > SPLIT_SIZE_SLACK * best:
+                faults.append(f"{tag}: cluster size {r['rule_cluster']} ({r['rule_ms']}) against "
+                              f"{r['best_cluster']} ({best})")
+        wins.setdefault(r["chains"], []).append(
+            r["rule_ms"] is not None and r["rule_ms"] < SPLIT_CLEAR_WIN * r["block_ms"])
+    measured = None
+    for C in SWEEP_ROUTE_CHAINS:
+        if not all(wins[C]):
+            break
+        measured = C
+    if measured != ss.SPLIT_MAX_CHAINS:
+        faults.append(f"the table supports a threshold of {measured} chains, SPLIT_MAX_CHAINS "
+                      f"is {ss.SPLIT_MAX_CHAINS}")
+    emit({"sweep_routes": rows, "card": smi, "smem_limit": limit,
+          "threshold_measured": measured, "threshold_constant": ss.SPLIT_MAX_CHAINS,
+          "wave_fixed_constant": ss.SPLIT_WAVE_FIXED, "faults": faults})
+    if faults:
+        raise AssertionError("sweep_routes: " + "; ".join(faults))
     return rows
 
 
@@ -1026,22 +1344,23 @@ def check_v1_sweeps(device, nx, C, gen, noise):
         words = chains * n * 3 + K * n + (0 if "sor" in name else n)
         flops = chains * n * (2 * K + 4 + (0 if "sor" in name else 42))
         t_bytes, t_ops = 4 * words / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+        noise_mode = 1 if "gibbs" in name else 0
+        route = ss.split_route(chains, op.vshape, op.offsets, noise_mode, x.device)
+        kernel_name = SWEEP_KERNELS[(route[0], "gibbs" if noise_mode else "sweep")]
         if "gibbs" in name:
             def call():
                 return getattr(ss, name)(noise.philox_stream()[1] + 1, coeffs, bb, xx, **k)
 
             def plain():
                 return getattr(ss, name + "_plain")(torch.randn_like(xx), coeffs, bb, xx, **k)
-            kernel_name = "gibbs_sweep_kernel"
         else:
             def call():
                 return getattr(ss, name)(coeffs, bb, xx, **k)
 
             def plain():
                 return getattr(ss, name + "_plain")(coeffs, bb, xx, **k)
-            kernel_name = "sor_sweep_kernel"
         timings[name] = {
-            "chains": chains, "vshape": list(op.vshape),
+            "chains": chains, "vshape": list(op.vshape), "route": list(route),
             "ms": cuda_ms(call, 5, 10 if chains > 1 else 50),
             "device_ms": device_ms_per_launch(call, kernel_name),
             "plain_ms": cuda_ms(plain, 3, 3),
@@ -1161,17 +1480,33 @@ def phase_visits(device, nx, nlevel, C, n_meas, gen, smi):
     return errs, timings, noise
 
 
+def phase_sweeps(device, gen, noise, smi):
+    """The sweep kernels of both routes: against their plain versions and
+    against each other, the generator through both and against torch's own,
+    the split layout's host mirror, their times, and the route table."""
+    errs, sweep_checks = check_sweeps(device, gen)
+    split_errs, route_err, split_checks = check_split_sweeps(device, gen)
+    errs.update(split_errs)
+    sweep_philox = check_sweep_philox(device)
+    collision = check_philox_collision(device)
+    layout = check_split_layout(device)
+    sweep_timings = time_sweeps(device, noise)
+    emit({"phase": "sweeps", "tolerance": TOL, "route_tolerance": ROUTE_TOL,
+          "max_abs_err": errs, "split_against_block_max_abs_err": route_err,
+          "sweep_checks": sweep_checks, "split_checks": split_checks,
+          "sweep_philox": sweep_philox, "philox_collision": collision, "split_layout": layout,
+          "sweep_timings": sweep_timings})
+    time_sweep_routes(device, noise, smi)
+    return errs, sweep_timings
+
+
 def phase_kernels(device, nx, nlevel, C, n_meas, smi):
     gen = torch.Generator(device=device)
     gen.manual_seed(11)
     errs, timings, noise = phase_visits(device, nx, nlevel, C, n_meas, gen, smi)
-    sweep_errs, sweep_checks = check_sweeps(device, gen)
+    sweep_errs, sweep_timings = phase_sweeps(device, gen, noise, smi)
     errs.update(sweep_errs)
-    sweep_philox = check_sweep_philox(device)
-    sweep_timings = time_sweeps(device, noise)
-    emit({"phase": "kernels", "tolerance": TOL, "max_abs_err": errs,
-          "sweep_checks": sweep_checks, "sweep_philox": sweep_philox,
-          "sweep_timings": sweep_timings})
+    emit({"phase": "kernels", "tolerance": TOL, "max_abs_err": errs})
     third = phase_new_kernels(device, nx, nlevel, C, n_meas, gen, noise)
     return errs, timings, sweep_timings, third
 
@@ -1448,6 +1783,34 @@ def run_driver(main, argv):
     return captured.getvalue()
 
 
+def time_one_chain_ssor(device, nx, n_meas, steps=200):
+    """One step of the one-chain SSOR sampler on the flagship posterior (the
+    drivers' SSOR time series: two Gibbs sweeps, each with the low-rank draw
+    and the Woodbury correction around it): host ms per step, with a
+    synchronisation only at the end, against the device's kernel ms and
+    launches per step (torch.profiler) - what bounds the series."""
+    from multigridmc_tpu_torch.samplers.base import GeneratorNoise
+    from multigridmc_tpu_torch.samplers.sor import SSORSampler
+
+    op, _ = build_posterior(nx, n_meas, FLAGSHIP_SEED, "near_exact", device)
+    sampler = SSORSampler(op, 1.0, 1)
+    noise = GeneratorNoise(17, device)
+    f = torch.zeros(op.vshape, device=device)
+    x = torch.zeros((1,) + op.vshape, device=device)
+    for _ in range(20):
+        x = sampler.apply(noise, f, x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        x = sampler.apply(noise, f, x)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / steps * 1e3
+    busy = device_busy(lambda: sampler.apply(noise, f, x), 20) or {}
+    return {"host_ms_per_step": host_ms, "kernel_ms_per_step": busy.get("kernel_ms_per_step"),
+            "kernels_per_step": busy.get("kernels_per_step"), "top": busy.get("top"),
+            "route": list(sampler.forward.smoother.plan.route(1, 1))}
+
+
 def phase_drivers(device, nx, nlevel, n_meas, nchains, nsamples, nwarmup, smi):
     from multigridmc_tpu_torch.drivers import mg as driver_mg
     from multigridmc_tpu_torch.drivers import mgmc as driver_mgmc
@@ -1509,10 +1872,12 @@ def phase_drivers(device, nx, nlevel, n_meas, nchains, nsamples, nwarmup, smi):
                     raise AssertionError(f"drivers: posterior.vtk field {name} is not finite")
             if not os.path.exists("sample_location.vtk"):
                 raise AssertionError("drivers: sample_location.vtk is missing")
-            # the one-chain time series takes the phase kernels, the 256 replica
-            # chains of the convergence tables the route of their chain count
+            # the one-chain time series takes the phase visit kernels and the
+            # split sweep route, the 256 replica chains of the convergence
+            # tables the routes of their chain count
             replicas = VISIT_KERNELS[mv.visit_route(nchains)]
-            for name in ("descend_visit", "ascend_visit", "gibbs_sweep_batched") + replicas:
+            for name in ("descend_visit", "ascend_visit", "gibbs_sweep_batched",
+                         "gibbs_sweep_batched_split") + replicas:
                 if counts_mgmc[name] <= 0:
                     raise AssertionError(f"drivers.mgmc: {name} was not launched: {counts_mgmc}")
             # the MGMC time series against the exact mean: the driver's own
@@ -1563,8 +1928,10 @@ def phase_drivers(device, nx, nlevel, n_meas, nchains, nsamples, nwarmup, smi):
             solution = read_vtk_scalars("solution.vtk")["solution"]
             if solution.shape != (n_vertices,) or not np.isfinite(solution).all():
                 raise AssertionError("drivers.mg: solution.vtk is not finite")
-            if counts_mg["sweep_batched"] <= 0:
-                raise AssertionError(f"drivers.mg: the sweep kernel was not launched: {counts_mg}")
+            # one right-hand side: every sweep of the solve takes the split route
+            if counts_mg["sweep_batched_split"] <= 0:
+                raise AssertionError(f"drivers.mg: the split sweep kernel was not launched: "
+                                     f"{counts_mg}")
             out["mg"] = {
                 "seconds": seconds, "launches": counts_mg, "iterations": len(rows) - 1,
                 "relative_residual": rows[-1][2], "contraction_rates": rates,
@@ -1577,6 +1944,7 @@ def phase_drivers(device, nx, nlevel, n_meas, nchains, nsamples, nwarmup, smi):
                 raise AssertionError("drivers.mg: distill='auto' did not choose level 2")
         finally:
             os.chdir(cwd)
+    out["one_chain_ssor_step"] = time_one_chain_ssor(device, nx, n_meas)
     emit(out)
     counts = {name: counts_mgmc[name] + counts_mg[name] for name in counts_mgmc}
     return counts, out
@@ -1587,6 +1955,8 @@ def phase_drivers(device, nx, nlevel, n_meas, nchains, nsamples, nwarmup, smi):
 #: posterior is of the order of a hundred steps): warm-up, steps and thinning of
 #: its statistical gate
 SSOR_GATE = {"warmup": 2000, "steps": 4000, "thin": 10}
+#: chains of the SSOR gate through the split sweep route
+SSOR_SPLIT_CHAINS = 32
 
 
 def moments_gate(name, z, z_mean, z_var, C):
@@ -1702,10 +2072,31 @@ def phase_statistics(device, nx, C, warmup, steps):
         raise AssertionError(f"statistics (ssor): {launches} Gibbs sweep launches")
     out["ssor_kernel"] = {**SSOR_GATE, "launches": launches,
                           **moments_gate("ssor_kernel", z, z_mean, z_var, C)}
+    # the same gate through the split route, at a chain count that takes it
+    Cs = SSOR_SPLIT_CHAINS
+    route = sampler.inner.forward.smoother.plan.route(Cs, 1)
+    if route[0] != "split":
+        raise AssertionError(f"statistics (ssor, split): {Cs} chains take {route}")
+    noise = GeneratorNoise(3001, device)
+    x = sampler.mean.expand((Cs,) + op.vshape).clone()
+    ss.reset_launch_counts()
+    zs = []
+    for k in range(SSOR_GATE["warmup"] + SSOR_GATE["steps"]):
+        x = sampler.apply(noise, None, x)
+        if k >= SSOR_GATE["warmup"] and (k - SSOR_GATE["warmup"]) % SSOR_GATE["thin"] == 0:
+            zs.append((x.reshape(Cs, -1) @ wt).double())
+    z = torch.stack(zs).cpu().numpy()
+    launches = ss.launch_counts["gibbs_sweep_batched_split"]
+    if launches != 2 * (SSOR_GATE["warmup"] + SSOR_GATE["steps"]) or ss.launch_counts[
+            "gibbs_sweep_batched"]:
+        raise AssertionError(f"statistics (ssor, split): launches {ss.launch_counts}")
+    out["ssor_kernel_split"] = {**SSOR_GATE, "chains": Cs, "route": list(route),
+                                "launches": launches,
+                                **moments_gate("ssor_kernel_split", z, z_mean, z_var, Cs)}
 
-    # (4) a batched deterministic solve through the sweep kernel: Richardson
-    # with the SSOR-smoothed W-cycle, 64 right-hand sides as one system,
-    # against the float64 dense solve
+    # (4) a batched deterministic solve through the sweep kernels: Richardson
+    # with the SSOR-smoothed W-cycle, 64 right-hand sides as one system (the
+    # route of 64 chains), against the float64 dense solve
     op, _ = build_posterior(nx, 4, 77, "order_one", device)
     gen = torch.Generator(device=device)
     gen.manual_seed(21)
@@ -1717,10 +2108,11 @@ def phase_statistics(device, nx, C, warmup, steps):
     dense = torch.as_tensor(op.to(dtype=torch.float64).to_dense(), device=device)
     want = torch.linalg.solve(dense, b.double().reshape(64, -1).T).T.reshape(b.shape)
     rel = float((result.x.double() - want).norm() / want.norm())
+    sweeps = ss.launch_counts["sweep_batched"] + ss.launch_counts["sweep_batched_split"]
     out["batched_solve"] = {"rhs": 64, "iterations": result.niter, "converged": result.converged,
-                            "relative_error": rel,
-                            "sweep_launches": ss.launch_counts["sweep_batched"]}
-    if not result.converged or rel > 1e-4 or ss.launch_counts["sweep_batched"] <= 0:
+                            "relative_error": rel, "sweep_launches": sweeps,
+                            "split_launches": ss.launch_counts["sweep_batched_split"]}
+    if not result.converged or rel > 1e-4 or sweeps <= 0:
         raise AssertionError(f"statistics (batched solve): {out['batched_solve']}")
     emit(out)
 
@@ -1732,7 +2124,8 @@ def main(argv=None) -> int:
                         help="comma-separated subset of kernels,main_path,drivers,statistics "
                              "to run (device and build always run; 'threads' adds a "
                              "block-size table, 'new' the third slice's kernels alone, "
-                             "'visits' the two visit kernels of both routes alone); "
+                             "'visits' the two visit kernels of both routes alone, "
+                             "'sweeps' the sweep kernels of both routes alone); "
                              "the ok line needs exactly the default four")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1758,6 +2151,12 @@ def main(argv=None) -> int:
         gen = torch.Generator(device=device)
         gen.manual_seed(11)
         phase_visits(device, nx, nlevel, C, n_meas, gen, smi)
+    if "sweeps" in phases:  # the sweep kernels of both routes alone
+        from multigridmc_tpu_torch.samplers.base import GeneratorNoise
+
+        gen = torch.Generator(device=device)
+        gen.manual_seed(11)
+        phase_sweeps(device, gen, GeneratorNoise(5, device), smi)
     if "kernels" in phases:
         errs, timings, sweep_timings, third = phase_kernels(device, nx, nlevel, C, n_meas, smi)
     if "main_path" in phases:
@@ -1808,29 +2207,42 @@ def main(argv=None) -> int:
         "library_device_ms": probe["library_device_ms"],
         "shape": {"copied": [8, 128], "shared_bytes": probe["limit_bytes"]},
     })
-    # the sweep kernels at the shape of the drivers' batched route, 256 x 255^2;
-    # their launches are those of the two driver runs
-    st = sweep_timings[0]
+    # the sweep kernels of both routes at the drivers' shape, one chain of
+    # 255^2, with the one-block route's 256-chain figures beside; their
+    # launches are those of the two driver runs (the split route: the
+    # one-chain SSOR series and the solve; the one-block route: the replica
+    # chains of the convergence tables and the distillation's set-up)
+    st = next(t for t in sweep_timings if t["case"] == "2d_255_5pt_one_chain")
+    wide = next(t for t in sweep_timings if t["case"] == "2d_255_5pt")
     for name, key, kernel_line in (("sweep_batched", "sweep", 194),
                                    ("gibbs_sweep_batched", "gibbs", 246)):
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "multigridmc_tpu_torch/csrc/sor_sweep.cu",
-            "replaces": f"multigridmc_tpu/ops/kernels/sor_pallas_v2.py:{kernel_line}",
-            "launches": driver_counts[name], "max_abs_err": errs[name],
-            "ms": st[f"{key}_ms"], "device_ms": st[f"{key}_device_ms"],
-            "plain_ms": st[f"{key}_plain_ms"],
-            "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
-            "bound_bytes": st["bound_bytes"],
-            "library_ms": None, "shape": {"chains": st["chains"], "vshape": st["vshape"]},
-        })
-    # the four raw-array entry points share those two kernels; their launches
-    # are those of their own path (drive_v1_path)
+        for route, source in (("", "sor_sweep.cu"), ("split_", "sor_sweep_cluster.cu")):
+            entry = name + ("_split" if route else "")
+            kernels.append({
+                "name": entry, "route": "cuda",
+                "source": f"multigridmc_tpu_torch/csrc/{source}",
+                "replaces": f"multigridmc_tpu/ops/kernels/sor_pallas_v2.py:{kernel_line}",
+                "launches": driver_counts[entry], "max_abs_err": errs[entry],
+                "ms": st[f"{route}{key}_ms"], "device_ms": st[f"{route}{key}_device_ms"],
+                "plain_ms": st[f"{key}_plain_ms"],
+                "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+                "bound_bytes": st["bound_bytes"],
+                "library_ms": None, "shape": {"chains": st["chains"], "vshape": st["vshape"],
+                                              "cluster": st.get("split_cluster") if route else 1},
+            })
+            if not route:
+                kernels[-1]["at_256_chains"] = {
+                    "ms": wide[f"{key}_ms"], "device_ms": wide[f"{key}_device_ms"],
+                    "plain_ms": wide[f"{key}_plain_ms"], "bound_ms": wide["bound_ms"],
+                    "bound_by": wide["bound_by"], "bound_bytes": wide["bound_bytes"]}
+    # the four raw-array entry points share those kernels (one chain: the
+    # split route); their launches are those of their own path (drive_v1_path)
     for name in V1_NAMES:
         t = third["v1_timings"][name]
+        source = "sor_sweep_cluster.cu" if t["route"][0] == "split" else "sor_sweep.cu"
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "multigridmc_tpu_torch/csrc/sor_sweep.cu",
+            "source": f"multigridmc_tpu_torch/csrc/{source}",
             "replaces": f"multigridmc_tpu/ops/kernels/sor_pallas.py:{V1_LINES[name]}",
             "launches": third["v1_counts"][name], "max_abs_err": third["v1_errs"][name],
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],

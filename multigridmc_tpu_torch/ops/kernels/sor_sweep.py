@@ -97,16 +97,24 @@ SPLIT_SIZES = (16, 8, 4, 2)
 SPLIT_TABLE_INTS = MAX_COLORS * MAX_COLORS
 
 #: Launches of at most this many chains take the split route where its bands
-#: fit and its cluster schedules, more take one block per chain.  The cluster
-#: size is the largest of :data:`SPLIT_SIZES` that keeps ``C * S`` blocks within
-#: :data:`SPLIT_MAX_BLOCKS`.  Set from the ``sweep_routes`` table of
+#: fit and its cluster schedules, more take one block per chain.  Of the
+#: cluster sizes that fit, the route takes the one of least
+#: ``waves * (1 / S + SPLIT_WAVE_FIXED)``: a launch of ``C`` chains runs in
+#: ``waves = ceil(C / active)`` waves of clusters (``active``: the clusters of
+#: that size the card holds at once, ``cudaOccupancyMaxActiveClusters``), and a
+#: wave lasts as long as a block takes for its band, about ``1 / S`` of a field,
+#: plus a fixed part (the load, the barriers, the launch), here a 25th of a
+#: whole field's time.  Both constants come from the ``sweep_routes`` table of
 #: ``chip_smoke.py``, which fails if the table supports other values: device
 #: time per sweep of both routes (the split route at every cluster size that
-#: fits) at 1 .. 256 chains on 255^2 5-point and 127^2 9-point fields and at one
-#: chain on a 63^3 7-point field, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
-#: section 6 holds the table.
-SPLIT_MAX_CHAINS = 64
-SPLIT_MAX_BLOCKS = 132
+#: fits) at 1 .. 256 chains on 255^2 5-point, 127^2 9-point and 127^2 5-point
+#: (space-varying) fields and at one chain on a 63^3 7-point field, NVIDIA H100
+#: 80GB HBM3, 700.00 W (the split route is at least 10% faster on every field up
+#: to 32 chains, not on the varying field at 64, and loses everywhere from 132; a
+#: cluster of 16 takes 13 us for a 255^2 sweep alone, and 7 such clusters run at
+#: once); PERF.md section 6 holds the table.
+SPLIT_MAX_CHAINS = 32
+SPLIT_WAVE_FIXED = 0.04
 
 #: kernel launches made by the wrappers (and only where they launch); the
 #: ``_split`` entries count the split route
@@ -241,40 +249,58 @@ def max_active_clusters(device: torch.device, gibbs: bool, S: int, threads: int,
     return int(out.value) if err == 0 else 0
 
 
-def cluster_schedulable(device, noise_mode: int, S: int, threads: int, nbytes: int) -> bool:
-    """Whether a cluster of the split kernel schedules on ``device``.  On the
-    CPU there is no card to ask, and every size is taken to schedule: a CPU
-    plan's route then follows from the shape and the shared memory alone."""
+def active_clusters(device, noise_mode: int, S: int, threads: int, nbytes: int) -> int:
+    """How many clusters of the split kernel ``device`` holds at once (0: such
+    a cluster never schedules).  On the CPU there is no card to ask, and every
+    cluster is taken to run at once: a CPU plan's route then follows from the
+    shape and the shared memory alone."""
     device = torch.device(device)
     if device.type != "cuda":
-        return True
+        return 1 << 30
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    return max_active_clusters(device, noise_mode != 0, S, threads, nbytes) > 0
+    return max_active_clusters(device, noise_mode != 0, S, threads, nbytes)
+
+
+def split_cost(C: int, S: int, active: int) -> float:
+    """The route's measure of a launch of ``C`` chains over clusters of ``S``
+    blocks of which ``active`` run at once (see :data:`SPLIT_WAVE_FIXED`)."""
+    return -(-C // active) * (1.0 / S + SPLIT_WAVE_FIXED)
+
+
+def split_size(C: int, vshape, offsets, noise_mode: int, device,
+               smem_limit: Optional[int] = None) -> Optional[int]:
+    """The cluster size of :data:`SPLIT_SIZES` of least :func:`split_cost` for
+    ``C`` chains of fields ``vshape`` among those that leave every band at
+    least the stencil's reach wide, fit their bands in ``smem_limit`` (default:
+    what the probe grants a block on ``device``) and schedule; ``None`` where
+    none does."""
+    L = split_layout(vshape)[0]
+    reach = slow_reach(offsets, vshape)
+    if smem_limit is None:
+        smem_limit = dynamic_smem_limit(device)
+    best, best_cost = None, None
+    for S in SPLIT_SIZES:
+        if S > L or L // S < reach:
+            continue
+        nbytes = split_smem_bytes(vshape, S, reach, noise_mode)
+        if nbytes > smem_limit:
+            continue
+        active = active_clusters(device, noise_mode, S, split_threads(vshape, S), nbytes)
+        if active > 0 and (best is None or split_cost(C, S, active) < best_cost):
+            best, best_cost = S, split_cost(C, S, active)
+    return best
 
 
 def split_route(C: int, vshape, offsets, noise_mode: int, device,
                 smem_limit: Optional[int] = None) -> Tuple[str, int]:
     """The route of a sweep of ``C`` chains of fields ``vshape``: ``("split",
-    S)`` for at most :data:`SPLIT_MAX_CHAINS` chains, with ``S`` the largest
-    cluster size of :data:`SPLIT_SIZES` that keeps ``C * S`` within
-    :data:`SPLIT_MAX_BLOCKS`, leaves every band at least the stencil's reach
-    wide, fits its bands in ``smem_limit`` (default: what the probe grants a
-    block on ``device``) and schedules; :data:`BLOCK_ROUTE` otherwise."""
+    S)`` for at most :data:`SPLIT_MAX_CHAINS` chains where :func:`split_size`
+    finds a cluster size ``S``, :data:`BLOCK_ROUTE` otherwise."""
     if C > SPLIT_MAX_CHAINS:
         return BLOCK_ROUTE
-    L = split_layout(vshape)[0]
-    reach = slow_reach(offsets, vshape)
-    if smem_limit is None:
-        smem_limit = dynamic_smem_limit(device)
-    for S in SPLIT_SIZES:
-        if C * S > SPLIT_MAX_BLOCKS or S > L or L // S < reach:
-            continue
-        nbytes = split_smem_bytes(vshape, S, reach, noise_mode)
-        if nbytes <= smem_limit and cluster_schedulable(
-                device, noise_mode, S, split_threads(vshape, S), nbytes):
-            return ("split", S)
-    return BLOCK_ROUTE
+    S = split_size(C, vshape, offsets, noise_mode, device, smem_limit)
+    return BLOCK_ROUTE if S is None else ("split", S)
 
 
 def sweep_route(C: int, plan: "SweepPlan", noise_mode: int = 0,
@@ -498,27 +524,45 @@ def _check_route(route, x: torch.Tensor) -> Tuple[str, int]:
     return kind, int(S)
 
 
+def _launch(P: SweepParams, route: Tuple[str, int], vshape, threads: int, x: torch.Tensor,
+            b: torch.Tensor, coeffs: torch.Tensor, ns: Optional[torch.Tensor] = None,
+            xi: Optional[torch.Tensor] = None) -> int:
+    """Launch the deterministic kernel (``P.noise_mode == 0``) or the Gibbs
+    kernel of ``route`` on the current stream of ``x``'s device; returns the
+    CUDA error.  ``threads`` is the one-block route's block size."""
+    kind, S = route
+    gibbs = P.noise_mode != 0
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if kind == "split":
+            lib, t = load_split_library(), split_threads(vshape, S)
+            if gibbs:
+                return lib.sor_gibbs_sweep_cluster(
+                    ctypes.byref(P), x.data_ptr(), b.data_ptr(), coeffs.data_ptr(),
+                    ns.data_ptr(), tensor_ptr(xi), S, t, stream)
+            return lib.sor_sweep_cluster(ctypes.byref(P), x.data_ptr(), b.data_ptr(),
+                                         coeffs.data_ptr(), S, t, stream)
+        lib = load_library()
+        if gibbs:
+            scratch = torch.empty_like(x)  # c, written before the first phase
+            return lib.sor_gibbs_sweep_batched(
+                ctypes.byref(P), x.data_ptr(), b.data_ptr(), scratch.data_ptr(),
+                coeffs.data_ptr(), ns.data_ptr(), tensor_ptr(xi), threads, stream)
+        return lib.sor_sweep_batched(ctypes.byref(P), x.data_ptr(), b.data_ptr(),
+                                     coeffs.data_ptr(), threads, stream)
+
+
 def launch_sweep(plan: SweepPlan, route: Tuple[str, int], b: torch.Tensor,
                  x: torch.Tensor) -> torch.Tensor:
     """One deterministic sweep through the kernel of ``route``
     (:data:`BLOCK_ROUTE` or ``("split", S)``); :func:`sweep_batched` takes
     ``plan.route(C)``, ``chip_smoke.py`` names the route to hold the two
     against each other.  Updates ``x`` in place and returns it, or raises."""
-    kind, S = _check_route(route, x)
+    route = _check_route(route, x)
     C, b_batched = _check_sweep_args(plan, b, x)
     P = plan.params(C, b_batched, 0, None)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if kind == "block":
-            name = "sweep_batched"
-            err = load_library().sor_sweep_batched(
-                ctypes.byref(P), x.data_ptr(), b.data_ptr(), plan.coeffs.data_ptr(),
-                plan.threads, stream)
-        else:
-            name = "sweep_batched_split"
-            err = load_split_library().sor_sweep_cluster(
-                ctypes.byref(P), x.data_ptr(), b.data_ptr(), plan.coeffs.data_ptr(), S,
-                split_threads(plan.op.vshape, S), stream)
+    err = _launch(P, route, plan.op.vshape, plan.threads, x, b, plan.coeffs)
+    name = "sweep_batched_split" if route[0] == "split" else "sweep_batched"
     launch_counts[name] += 1
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err}")
@@ -534,24 +578,12 @@ def launch_gibbs_sweep(plan: SweepPlan, route: Tuple[str, int], f: torch.Tensor,
     memory."""
     if (xi is None) == (philox is None):
         raise ValueError("give the field noise as a tensor or as a Philox stream, one of the two")
-    kind, S = _check_route(route, x)
+    route = _check_route(route, x)
     C, f_batched = _check_sweep_args(plan, f, x, xi)
     P = plan.params(C, f_batched, 1 if philox is not None else 2, philox)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if kind == "block":
-            name = "gibbs_sweep_batched"
-            scratch = torch.empty_like(x)
-            err = load_library().sor_gibbs_sweep_batched(
-                ctypes.byref(P), x.data_ptr(), f.data_ptr(), scratch.data_ptr(),
-                plan.coeffs.data_ptr(), plan.noise_scale.data_ptr(), tensor_ptr(xi),
-                plan.threads, stream)
-        else:
-            name = "gibbs_sweep_batched_split"
-            err = load_split_library().sor_gibbs_sweep_cluster(
-                ctypes.byref(P), x.data_ptr(), f.data_ptr(), plan.coeffs.data_ptr(),
-                plan.noise_scale.data_ptr(), tensor_ptr(xi), S,
-                split_threads(plan.op.vshape, S), stream)
+    err = _launch(P, route, plan.op.vshape, plan.threads, x, f, plan.coeffs,
+                  plan.noise_scale, xi)
+    name = "gibbs_sweep_batched_split" if route[0] == "split" else "gibbs_sweep_batched"
     launch_counts[name] += 1
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err}")
@@ -667,30 +699,9 @@ def _launch_raw(name, coeffs, b, x, xi, philox, *, offsets, diag_index, omega, o
                            float(omega), (None,) * len(offsets), None, C,
                            b.ndim == len(vshape) + 1, noise_mode)
     P.seed, P.counter = philox if philox is not None else (0, 0)
-    kind, S = split_route(C, vshape, offsets, noise_mode, x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if noise_mode != 0:
-            ns = _raw_noise_scale(coeffs, diag_index, omega).contiguous()
-        if kind == "split":
-            lib, threads = load_split_library(), split_threads(vshape, S)
-            if noise_mode == 0:
-                err = lib.sor_sweep_cluster(ctypes.byref(P), x.data_ptr(), b.data_ptr(),
-                                            coeffs.data_ptr(), S, threads, stream)
-            else:
-                err = lib.sor_gibbs_sweep_cluster(
-                    ctypes.byref(P), x.data_ptr(), b.data_ptr(), coeffs.data_ptr(),
-                    ns.data_ptr(), tensor_ptr(xi), S, threads, stream)
-        else:
-            lib, threads = load_library(), default_threads(int(np.prod(vshape)))
-            if noise_mode == 0:
-                err = lib.sor_sweep_batched(ctypes.byref(P), x.data_ptr(), b.data_ptr(),
-                                            coeffs.data_ptr(), threads, stream)
-            else:
-                scratch = torch.empty_like(x)
-                err = lib.sor_gibbs_sweep_batched(
-                    ctypes.byref(P), x.data_ptr(), b.data_ptr(), scratch.data_ptr(),
-                    coeffs.data_ptr(), ns.data_ptr(), tensor_ptr(xi), threads, stream)
+    route = split_route(C, vshape, offsets, noise_mode, x.device)
+    ns = _raw_noise_scale(coeffs, diag_index, omega).contiguous() if noise_mode else None
+    err = _launch(P, route, vshape, default_threads(int(np.prod(vshape))), x, b, coeffs, ns, xi)
     launch_counts[name] += 1
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err}")

@@ -219,13 +219,33 @@ def test_drivers_shapes_take_the_split_route(limit):
     # fields keep one block per chain
     for C in (256, 28529):
         assert ss.sweep_route(C, fine, 1, limit) == ss.BLOCK_ROUTE
-    # the cluster size keeps C * S within the measured budget
+    # on the CPU every cluster is taken to run at once: the largest size that fits
     for C in range(1, ss.SPLIT_MAX_CHAINS + 1):
-        kind, S = ss.sweep_route(C, coarse, 0, limit)
-        if kind == "split":
-            assert C * S <= ss.SPLIT_MAX_BLOCKS
-            assert all(C * s2 > ss.SPLIT_MAX_BLOCKS for s2 in ss.SPLIT_SIZES if s2 > S)
+        assert ss.sweep_route(C, coarse, 0, limit) == ("split", 16)
     assert ss.sweep_route(ss.SPLIT_MAX_CHAINS + 1, coarse, 0, limit) == ss.BLOCK_ROUTE
+
+
+#: clusters of a 255^2 sweep that an H100 holds at once, by cluster size (the
+#: split_layout line of chip_smoke.py; the Gibbs kernel's S = 2 does not fit)
+ACTIVE_255 = {16: 7, 8: 15, 4: 30, 2: 66}
+
+
+@pytest.mark.parametrize("C,deterministic,gibbs", [
+    (1, 16, 16), (4, 16, 16), (8, 8, 8), (16, 4, 4), (32, 8, 8), (64, 2, 8)])
+def test_cluster_size_minimises_the_waves(monkeypatch, C, deterministic, gibbs):
+    # the cluster sizes the 255^2 rows of the sweep_routes table measured best
+    # (or within a few per cent of it) at these chain counts
+    def active(device, noise_mode, S, threads, nbytes):
+        return 0 if (noise_mode and S == 2) else ACTIVE_255[S]
+
+    monkeypatch.setattr(ss, "active_clusters", active)
+    fine = _driver_plan(256)
+    args = (fine.op.vshape, fine.op.offsets)
+    assert ss.split_size(C, *args, 0, "cuda", H100_SMEM) == deterministic
+    assert ss.split_size(C, *args, 1, "cuda", H100_SMEM) == gibbs
+    want = ("split", deterministic) if C <= ss.SPLIT_MAX_CHAINS else ss.BLOCK_ROUTE
+    assert ss.sweep_route(C, fine, 0, H100_SMEM) == want
+    assert ss.split_cost(8, 16, 7) == 2 * (1 / 16 + ss.SPLIT_WAVE_FIXED)
 
 
 def test_wide_and_deep_fields_take_the_route_their_bands_allow():
