@@ -1003,10 +1003,15 @@ def time_sweep_routes(device, noise, smi):
                     return lambda: ss.launch_gibbs_sweep(plan, route, b, x,
                                                          philox=noise.philox_stream())
 
-                def device_ms(route):  # asked twice where a profile shows no kernel
-                    name = SWEEP_KERNELS[(route[0], kernel)]
-                    t = device_ms_per_launch(run(route), name, 10)
-                    return t if t is not None else device_ms_per_launch(run(route), name, 10)
+                def device_ms(route):
+                    # a profile now and then shows no kernel at all: ask again
+                    # after a pause, up to four times
+                    for _ in range(4):
+                        t = device_ms_per_launch(run(route), SWEEP_KERNELS[(route[0], kernel)], 10)
+                        if t is not None:
+                            return t
+                        time.sleep(0.2)
+                    return None
 
                 row = {"shape": label, "chains": C, "kernel": kernel,
                        "block_ms": device_ms(ss.BLOCK_ROUTE)}
