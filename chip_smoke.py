@@ -17,15 +17,20 @@ card and checks, one phase after the other:
                    the main paths give it (noise off, then the same noise
                    tensor fed to both; ``rtol = atol = 2e-5``: float32 with
                    another summation order and FMA contraction) - the
-                   level-visit kernels of both routes (the phase kernels and
-                   the row-wavefront stream kernels) on every level of the
-                   flagship (the phase kernels also at one chain), the two
-                   routes against each other under one in-kernel Philox
-                   stream, the stream kernels' shared-memory layout against the
-                   host's copy; their times at 1 .. 512 chains on the 255^2 and
-                   127^2 levels and at 132 .. 512 on the 511^2 and 255^2 levels
+                   level-visit kernels of the three routes (the phase kernels,
+                   the row-wavefront stream kernels and the split kernels, each
+                   chain over a thread-block cluster) on every level of the
+                   flagship (the split kernels at 1 and 16 chains, and on a
+                   24x24 lattice's levels, whose bands begin on odd rows), the
+                   stream and the split kernels against the phase kernels under
+                   one in-kernel Philox stream, the stream and the split
+                   kernels' shared-memory layouts against the host's copies;
+                   their times at 1 .. 512 chains on the 255^2 and 127^2 levels
+                   (the split kernels up to 132 chains at every cluster size
+                   that fits) and at 132 .. 512 on the 511^2 and 255^2 levels
                    of a 512x512 lattice (the ``visit_routes`` line, which must
-                   support the chain count from which the stream kernels run), the
+                   support the chain counts up to which the split kernels and
+                   from which the stream kernels run), the
                    two sweep kernels of both routes (one block per chain, and
                    each chain split over a thread-block cluster) in both
                    directions on 2d 5- and 9-point, 3d 7- and 27-point,
@@ -47,7 +52,8 @@ card and checks, one phase after the other:
 4. ``main_path``   the flagship sampler for a few tens of steps in four
                    variants - every non-coarsest level's visit fused, the
                    subtree from level 2 distilled (and once more with TF32
-                   allowed in its two products), the subtree below level 0 in
+                   allowed in its two products, and once at 128 chains, whose
+                   visits take the phase kernels), the subtree below level 0 in
                    one kernel launch, and level 0 fused only: finite samples,
                    launch counters, the visit route each level took,
                    samples/s, ms/step, set-up seconds;
@@ -57,13 +63,17 @@ card and checks, one phase after the other:
                    config files written to a temporary directory, at the
                    flagship's size: output files, launch counters, the distill
                    level ``"auto"`` chose, the Richardson contraction rate and
-                   the MGMC time series' mean against the exact one;
+                   the MGMC time series' mean against the exact one; one step
+                   of the one-chain SSOR and MGMC samplers, host ms against
+                   kernel ms and launches;
 6. ``statistics``  a 64x64 posterior whose exact moments are known: one step
                    under replayed noise agrees between kernels and composed
                    path; the sample mean and variance of an observable agree
                    with the exact ones within 4 standard errors, through the
-                   visit kernels, the plain path, the distilled subtree, the
-                   subtree kernel with its in-kernel noise and the SSOR sampler
+                   visit kernels (256 chains: the stream route; 1 and 32
+                   chains: the split route), the plain path, the distilled
+                   subtree, the subtree kernel with its in-kernel noise and the
+                   SSOR sampler
                    on the Gibbs sweep kernel (256 chains on the one-block route,
                    32 on the split route); and a batched deterministic solve
                    agrees with the float64 dense solve.
@@ -75,7 +85,7 @@ plain version's time and its bound.  The last line is
 is not 0.  Without a CUDA device the script exits with code 1 and prints no
 result.  ``--phases`` runs a subset of the phases (``threads``: the visit
 kernels' block-size table; ``new``: the third slice's kernels alone;
-``visits``: the visit kernels of both routes alone; ``sweeps``: the sweep
+``visits``: the visit kernels of the three routes alone; ``sweeps``: the sweep
 kernels of both routes alone) and prints no result line.
 """
 
@@ -218,6 +228,7 @@ def phase_build():
     paths = common.build_libraries(common.SOURCES)
     mgmc_visit.load_library()
     mgmc_visit.load_stream_library()
+    mgmc_visit.load_split_library()
     sor_sweep.load_library()
     sor_sweep.load_split_library()
     mgmc_subtree.load_library()
@@ -272,20 +283,26 @@ def compare(name, got, want, tol=TOL):
     return err
 
 
-#: the kernel names of the two visit routes (``mgmc_visit.ROUTES``)
+#: the kernel names of the three visit routes (``mgmc_visit.ROUTES``)
 VISIT_KERNELS = {"phase": ("descend_visit", "ascend_visit"),
-                 "stream": ("descend_visit_stream", "ascend_visit_stream")}
+                 "stream": ("descend_visit_stream", "ascend_visit_stream"),
+                 "split": ("descend_visit_split", "ascend_visit_split")}
 #: the kernels as torch.profiler names them
 PROFILER_NAMES = {"descend_visit": "descend_kernel", "ascend_visit": "ascend_kernel",
                   "descend_visit_stream": "stream_visit_kernel<true",
-                  "ascend_visit_stream": "stream_visit_kernel<false"}
+                  "ascend_visit_stream": "stream_visit_kernel<false",
+                  "descend_visit_split": "split_visit_kernel<true",
+                  "ascend_visit_split": "split_visit_kernel<false"}
 
 
-def check_level(level, li, C, f_batched, gen, routes=("phase", "stream")):
+def check_level(level, li, C, f_batched, gen, routes=("phase", "stream"), cluster=None):
     """The visit kernels of ``routes`` against the plain version on one level:
-    noise off, then the same noise tensors; with both routes, then the two
-    kernels against each other under one in-kernel Philox stream, and the
-    stream kernel against itself (bitwise)."""
+    noise off, then the same noise tensors; with the phase kernels and another
+    route, then every other route against the phase kernels under one
+    in-kernel Philox stream, and against itself (bitwise).  ``cluster`` sets
+    the split route's cluster size (default: the level's rule).  Returns the
+    errors against the plain versions and, per other route, against the phase
+    kernels."""
     from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
 
     dev = level.coeffs.device
@@ -306,46 +323,67 @@ def check_level(level, li, C, f_batched, gen, routes=("phase", "stream")):
         want = mv.ascend_visit_plain(level, f, x, xc, xi, xi_lr)
         for route in routes:
             dname, aname = VISIT_KERNELS[route]
-            got_x, got_fc = mv.launch_descend(level, route, f, x.clone(), xi=xi, xi_lr=xi_lr)
+            got_x, got_fc = mv.launch_descend(level, route, f, x.clone(), xi=xi, xi_lr=xi_lr,
+                                              cluster=cluster)
             errs[dname] = max(errs[dname], compare(f"{dname} x {tag}", got_x, want_x),
                               compare(f"{dname} f_c {tag}", got_fc, want_fc))
-            got = mv.launch_ascend(level, route, f, x.clone(), xc, xi=xi, xi_lr=xi_lr)
+            got = mv.launch_ascend(level, route, f, x.clone(), xc, xi=xi, xi_lr=xi_lr,
+                                   cluster=cluster)
             errs[aname] = max(errs[aname], compare(f"{aname} x {tag}", got, want))
-    if len(routes) < 2:
+    others = [route for route in routes if route != "phase"]
+    if "phase" not in routes or not others:
         torch.cuda.synchronize()
         return errs, {}
-    # one Philox stream through both kernels
+    # one Philox stream through every route's kernels
     xi_lr = rand(C, m) * level.lr_scale if m else None
     stream = (0x5EED_0000 + li, 7)
     out = {}
-    for route in mv.ROUTES:
-        out[route] = (*mv.launch_descend(level, route, f, x.clone(), xi_lr=xi_lr, philox=stream),
-                      mv.launch_ascend(level, route, f, x.clone(), xc, xi_lr=xi_lr, philox=stream))
-    again = mv.launch_descend(level, "stream", f, x.clone(), xi_lr=xi_lr, philox=stream)
-    if not (torch.equal(again[0], out["stream"][0]) and torch.equal(again[1], out["stream"][1])):
-        raise AssertionError(f"L{li}: two stream launches with one seed and counter differ")
-    tag = f"L{li} one Philox stream, stream against phase kernel"
-    route_errs = {"descend_x": compare(f"descend x {tag}", out["stream"][0], out["phase"][0]),
-                  "descend_fc": compare(f"descend f_c {tag}", out["stream"][1], out["phase"][1]),
-                  "ascend_x": compare(f"ascend x {tag}", out["stream"][2], out["phase"][2])}
+    for route in routes:
+        kw = dict(xi_lr=xi_lr, philox=stream, cluster=cluster)
+        out[route] = (*mv.launch_descend(level, route, f, x.clone(), **kw),
+                      mv.launch_ascend(level, route, f, x.clone(), xc, **kw))
+    route_errs = {}
+    for route in others:
+        again = mv.launch_descend(level, route, f, x.clone(), xi_lr=xi_lr, philox=stream,
+                                  cluster=cluster)
+        if not (torch.equal(again[0], out[route][0]) and torch.equal(again[1], out[route][1])):
+            raise AssertionError(f"L{li}: two {route} launches with one seed and counter differ")
+        tag = f"L{li} C={C} one Philox stream, {route} against phase kernel"
+        route_errs[route] = {
+            "descend_x": compare(f"descend x {tag}", out[route][0], out["phase"][0]),
+            "descend_fc": compare(f"descend f_c {tag}", out[route][1], out["phase"][1]),
+            "ascend_x": compare(f"ascend x {tag}", out[route][2], out["phase"][2])}
     torch.cuda.synchronize()  # a fault during a launch surfaces here
     return errs, route_errs
 
 
-def visit_fns(level, route, noise, f, x, xc):
-    """One descend and one ascend launch through ``route``, each drawing its
-    noise as the main path does (a fresh Philox counter per launch)."""
+def visit_fns(level, route, noise, f, x, xc, cluster=None):
+    """One descend and one ascend launch through ``route`` (the split route
+    with clusters of ``cluster`` blocks, by default the level's rule), each
+    drawing its noise as the main path does (a fresh Philox counter per
+    launch)."""
     from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
 
     def descend():
         xi, xi_lr, philox = level._draw(noise, x)
-        return mv.launch_descend(level, route, f, x, xi, xi_lr, philox)
+        return mv.launch_descend(level, route, f, x, xi, xi_lr, philox, cluster)
 
     def ascend():
         xi, xi_lr, philox = level._draw(noise, x)
-        return mv.launch_ascend(level, route, f, x, xc, xi, xi_lr, philox)
+        return mv.launch_ascend(level, route, f, x, xc, xi, xi_lr, philox, cluster)
 
     return descend, ascend
+
+
+def device_ms_retried(fn, kernel, launches=10):
+    """:func:`device_ms_per_launch`, asked up to four times: a profile now and
+    then shows no kernel at all."""
+    for _ in range(4):
+        t = device_ms_per_launch(fn, kernel, launches)
+        if t is not None:
+            return t
+        time.sleep(0.2)
+    return None
 
 
 def time_level(level, C, f_batched, noise, plain=True, routes=("phase", "stream")):
@@ -369,8 +407,8 @@ def time_level(level, C, f_batched, noise, plain=True, routes=("phase", "stream"
     out = {}
     for route in routes:
         for name, fn in zip(VISIT_KERNELS[route], visit_fns(level, route, noise, f, x, xc)):
-            out[f"{name}_ms"] = cuda_ms(fn, 5, 10)
-            out[f"{name}_device_ms"] = device_ms_per_launch(fn, PROFILER_NAMES[name])
+            out[f"{name}_ms"] = cuda_ms(fn, 5, 10 if C > 1 else 50)
+            out[f"{name}_device_ms"] = device_ms_retried(fn, PROFILER_NAMES[name], 20)
             if out[f"{name}_device_ms"] is None:
                 raise AssertionError(f"the profiler shows no {PROFILER_NAMES[name]}")
     if not plain:
@@ -384,52 +422,153 @@ def time_level(level, C, f_batched, noise, plain=True, routes=("phase", "stream"
 
 
 #: chain counts of the ``visit_routes`` table on the flagship's 255^2 and 127^2
-#: levels, and on the 511^2 and 255^2 (9-point) levels of a 512x512 lattice
-ROUTE_CHAINS = (1, 16, 64, 132, 256, 512)
+#: levels (all three routes; the split route up to 132 chains, at every
+#: cluster size that fits), and on the 511^2 and 255^2 (9-point) levels of a
+#: 512x512 lattice (the phase and the stream kernels)
+ROUTE_CHAINS = (1, 4, 8, 16, 32, 64, 132, 256, 512)
+SPLIT_ROUTE_CHAINS = (1, 4, 8, 16, 32, 64, 132)
 WIDE_ROUTE_CHAINS = (132, 256, 512)
 
 
 def time_routes(levels, wide_levels, noise, smi):
-    """The ``visit_routes`` line: both visit kernels at every chain count of
-    :data:`ROUTE_CHAINS` on the flagship's levels 0 and 1 and of
-    :data:`WIDE_ROUTE_CHAINS` on levels 0 and 1 of the wider lattice, by device
-    ms per launch (descend plus ascend), beside the bound.  The threshold the
-    table supports is the least measured chain count from which on the stream
-    kernels are faster at every larger count on every level; the run fails
-    unless it is ``mgmc_visit.STREAM_MIN_CHAINS``."""
-    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+    """The ``visit_routes`` line: device ms per launch (torch.profiler) of the
+    visit kernels, descend plus ascend, beside the bound: the phase and the
+    stream kernels at every chain count of :data:`ROUTE_CHAINS` on the
+    flagship's levels 0 and 1 and of :data:`WIDE_ROUTE_CHAINS` on levels 0 and
+    1 of the wider lattice; the split kernels on the flagship's levels at every
+    count of :data:`SPLIT_ROUTE_CHAINS` and every cluster size that fits and
+    schedules.
 
-    rows = []
-    stream_wins = {}
+    The table supports the code's constants when (1) ``STREAM_MIN_CHAINS`` is
+    the least measured chain count from which on the stream kernels are faster
+    than the phase kernels at every larger count on every level, (2)
+    ``SPLIT_MAX_CHAINS`` is the largest count of :data:`SPLIT_ROUTE_CHAINS` up
+    to which the split kernels at the rule's cluster size take less than
+    :data:`SPLIT_CLEAR_WIN` of the phase kernels' time on both levels, and (3)
+    wherever the route takes the split kernels, the rule's cluster size is
+    within :data:`SPLIT_SIZE_SLACK` of the best one measured there.  The run
+    fails otherwise."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+
+    limit = mv.dynamic_smem_limit()
+    rows, faults = [], []
+    stream_wins, split_wins = {}, {}
     cases = [(f"L{li}", levels[li], ROUTE_CHAINS) for li in (0, 1)]
     cases += [(f"wide L{li}", wide_levels[li], WIDE_ROUTE_CHAINS) for li in (0, 1)]
     for name, level, chains in cases:
         if mv.visit_route(max(chains), level.stream_bytes) != "stream":
             raise AssertionError(f"visit_routes: the stream kernels do not fit {name}")
+        H, W = level.op.vshape
         f_batched = not name.endswith("L0")  # level 0 shares f, as on the main path
         for C in chains:
-            t = time_level(level, C, f_batched, noise, plain=False)
-            row = {"level": name, "vshape": list(level.op.vshape), "chains": C,
-                   "stream_smem_bytes": level.stream_bytes, **t}
+            dev = level.coeffs.device
+            f = torch.rand((C,) + level.op.vshape if f_batched else level.op.vshape, device=dev)
+            x = torch.zeros((C,) + level.op.vshape, device=dev)
+            xc = torch.randn((C,) + level.vc, device=dev)
+
+            def pair_ms(route, cluster=None):
+                fns = visit_fns(level, route, noise, f, x, xc, cluster)
+                times = [device_ms_retried(fn, PROFILER_NAMES[kernel])
+                         for kernel, fn in zip(VISIT_KERNELS[route], fns)]
+                return None if None in times else times
+
+            row = {"level": name, "vshape": [H, W], "chains": C,
+                   "stream_smem_bytes": level.stream_bytes, "route": level.route(C)}
             for kind in ("descend", "ascend"):
                 bound, by, _ = visit_bound(level, C, f_batched, kind)
                 row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound, by
-            pair = {route: sum(t[f"{kernel}_device_ms"] for kernel in VISIT_KERNELS[route])
-                    for route in mv.ROUTES}
+            times = {route: pair_ms(route) for route in ("phase", "stream")}
+            if not name.startswith("wide") and C in SPLIT_ROUTE_CHAINS:
+                split, active = {}, {}
+                for S in ss.SPLIT_SIZES:
+                    if S > H or mv.split_smem_bytes(H, W, S) + mv.SPLIT_STATIC_SMEM > limit:
+                        continue
+                    active[S] = mv.split_active_clusters(S, level.op.vshape)
+                    if active[S] > 0:
+                        split[S] = pair_ms("split", S)
+                rule = mv.split_cluster(C, level.op.vshape, capped=False)
+                row["split_by_cluster"] = {str(S): t for S, t in split.items()}
+                row["split_active_clusters"] = {str(S): a for S, a in active.items()}
+                timed = {S: sum(t) for S, t in split.items() if t is not None}
+                row["rule_cluster"] = rule
+                row["best_cluster"] = min(timed, key=timed.get) if timed else None
+                times["split"] = split.get(rule)
+            if None in times.values():
+                faults.append(f"{name} C={C}: the profiler showed no device time {times}")
+                continue
+            for route, t in times.items():
+                for kernel, ms in zip(VISIT_KERNELS[route], t):
+                    row[f"{kernel}_device_ms"] = ms
+            pair = {route: sum(t) for route, t in times.items()}
             row["pair_device_ms"] = pair
             stream_wins[(name, C)] = pair["stream"] <= pair["phase"]
+            if "split" in pair:
+                split_wins[(name, C)] = pair["split"] < SPLIT_CLEAR_WIN * pair["phase"]
+                best = timed[row["best_cluster"]]
+                if row["route"] == "split" and (pair["split"] >= pair["phase"]
+                                                or pair["split"] > SPLIT_SIZE_SLACK * best):
+                    faults.append(f"{name} C={C}: the split kernels at S={rule} take "
+                                  f"{pair['split']} ms, S={row['best_cluster']} {best}, "
+                                  f"the phase kernels {pair['phase']}")
             rows.append(row)
     supported = None
     for C in sorted(ROUTE_CHAINS, reverse=True):
         if not all(w for (_, c), w in stream_wins.items() if c >= C):
             break
         supported = C
-    emit({"visit_routes": rows, "card": smi, "threshold_measured": supported,
-          "threshold_constant": mv.STREAM_MIN_CHAINS,
-          "stream_wins": {f"{name} C={C}": w for (name, C), w in stream_wins.items()}})
+    split_measured = None
+    for C in SPLIT_ROUTE_CHAINS:
+        if not all(w for (_, c), w in split_wins.items() if c == C):
+            break
+        split_measured = C
     if supported != mv.STREAM_MIN_CHAINS:
-        raise AssertionError(f"visit_routes: the table supports a threshold of {supported} "
-                             f"chains, STREAM_MIN_CHAINS is {mv.STREAM_MIN_CHAINS}")
+        faults.append(f"the table supports a stream threshold of {supported} chains, "
+                      f"STREAM_MIN_CHAINS is {mv.STREAM_MIN_CHAINS}")
+    if split_measured != mv.SPLIT_MAX_CHAINS:
+        faults.append(f"the table supports a split threshold of {split_measured} chains, "
+                      f"SPLIT_MAX_CHAINS is {mv.SPLIT_MAX_CHAINS}")
+    emit({"visit_routes": rows, "card": smi, "smem_limit": limit,
+          "threshold_measured": supported, "threshold_constant": mv.STREAM_MIN_CHAINS,
+          "split_threshold_measured": split_measured,
+          "split_threshold_constant": mv.SPLIT_MAX_CHAINS,
+          "stream_wins": {f"{name} C={C}": w for (name, C), w in stream_wins.items()},
+          "split_wins": {f"{name} C={C}": w for (name, C), w in split_wins.items()},
+          "faults": faults})
+    if faults:
+        raise AssertionError("visit_routes: " + "; ".join(faults))
+
+
+def check_split_visit_layout(levels):
+    """The host's mirror of the split kernels' shared-memory layout
+    (``mgmc_visit.split_smem_bytes``, from which the route is chosen) against
+    the kernel source's (``mgmc_split_smem_bytes``), the shapes it refuses
+    included, and the kernels' static shared memory against the constant the
+    route adds; the clusters the card holds at once at the flagship's levels."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+
+    lib = mv.load_split_library()
+    static = lib.mgmc_split_static_smem_bytes()
+    if static != mv.SPLIT_STATIC_SMEM:
+        raise AssertionError(f"split layout: the kernels hold {static} B static, the route "
+                             f"adds {mv.SPLIT_STATIC_SMEM}")
+    cases = 0
+    for H, W in ((255, 255), (127, 127), (23, 23), (15, 15), (9, 1031), (1023, 1023)):
+        for S in (1,) + ss.SPLIT_SIZES + (17, 32):
+            got = lib.mgmc_split_smem_bytes(H, W, S)
+            try:
+                want = mv.split_smem_bytes(H, W, S)
+            except ValueError:
+                want = -1
+            if got != want:
+                raise AssertionError(f"split layout {H}x{W} S={S}: kernel {got} B, host {want} B")
+            cases += 1
+    active = {f"L{li} S={S}": mv.split_active_clusters(S, level.op.vshape)
+              for li, level in sorted(levels.items()) if li < 2 for S in ss.SPLIT_SIZES
+              if mv.split_smem_bytes(*level.op.vshape, S) + mv.SPLIT_STATIC_SMEM
+              <= mv.dynamic_smem_limit()}
+    return {"cases": cases, "static_bytes": static, "max_active_clusters": active}
 
 
 def check_stream_layout(levels, C):
@@ -514,8 +653,9 @@ def check_philox(device, nx, C):
     f = torch.zeros(lattice.vshape, device=device)
 
     def draw(seed, counter, route="phase"):
+        # the split kernels of all C chains in clusters of 16 (several waves)
         x = torch.zeros((C,) + lattice.vshape, device=device)
-        x, _ = mv.launch_descend(level, route, f, x, philox=(seed, counter))
+        x, _ = mv.launch_descend(level, route, f, x, philox=(seed, counter), cluster=16)
         return x
 
     seed = 0x1234_5678_9ABC_DEF0
@@ -523,7 +663,7 @@ def check_philox(device, nx, C):
     if not torch.equal(z0, draw(seed, 7)):
         raise AssertionError("philox: two launches with the same seed and counter differ")
     # known answer: the host reference of the same generator, incl. high counter
-    # words, read out through both visit kernels
+    # words, read out through every route's descend kernel
     ka = {}
     for route in mv.ROUTES:
         ka[route] = 0.0
@@ -564,7 +704,8 @@ def check_philox(device, nx, C):
                              f"m4={m4} lags={lags} max_corr={max_corr}")
     return {"draws": N, "mean": mean, "var": var, "m4": m4, "lags": lags,
             "max_stream_corr": max_corr, "known_answer_max_err": ka_err,
-            "known_answer_max_err_stream": ka["stream"]}
+            "known_answer_max_err_stream": ka["stream"],
+            "known_answer_max_err_split": ka["split"]}
 
 
 # ------------------------------------------------- phase: kernels (the sweeps)
@@ -1004,14 +1145,7 @@ def time_sweep_routes(device, noise, smi):
                                                          philox=noise.philox_stream())
 
                 def device_ms(route):
-                    # a profile now and then shows no kernel at all: ask again
-                    # after a pause, up to four times
-                    for _ in range(4):
-                        t = device_ms_per_launch(run(route), SWEEP_KERNELS[(route[0], kernel)], 10)
-                        if t is not None:
-                            return t
-                        time.sleep(0.2)
-                    return None
+                    return device_ms_retried(run(route), SWEEP_KERNELS[(route[0], kernel)])
 
                 row = {"shape": label, "chains": C, "kernel": kernel,
                        "block_ms": device_ms(ss.BLOCK_ROUTE)}
@@ -1428,12 +1562,37 @@ def phase_new_kernels(device, nx, nlevel, C, n_meas, gen, noise):
             "v1_errs": v1_errs, "v1_timings": v1_timings, "v1_counts": v1_counts}
 
 
+#: chain counts at which the split kernels are checked against the plain
+#: versions and the phase kernels: one chain (the drivers' time series) and 16
+#: (where the rule takes smaller clusters at 255^2)
+SPLIT_CHECK_VISIT_CHAINS = (1, 16)
+#: chains of the main-path variant that takes the phase kernels: above
+#: ``SPLIT_MAX_CHAINS``, below ``STREAM_MIN_CHAINS``
+PHASE_CHAINS = 128
+
+
+def timed_visits(level, C, f_batched, noise, routes):
+    """:func:`time_level` of ``routes`` with the plain versions, and the bound
+    of both visits, at ``C`` chains on one level."""
+    t = time_level(level, C, f_batched, noise, routes=routes)
+    for kind in ("descend", "ascend"):
+        bound, by, nbytes = visit_bound(level, C, f_batched, kind)
+        t[f"{kind}_bound_ms"], t[f"{kind}_bound_by"], t[f"{kind}_bytes"] = bound, by, nbytes
+    return {"vshape": list(level.op.vshape), "chains": C, "threads": level.threads,
+            "stream_threads": level.stream_threads,
+            "split_cluster": level.split_cluster(C), **t}
+
+
 def phase_visits(device, nx, nlevel, C, n_meas, gen, smi):
-    """The two level-visit kernels of both routes: against the plain versions
-    and against each other on every fused flagship level (the phase kernels also
-    at one chain), the stream kernels' shared-memory layout, the generator's
-    known answer and moments, their times beside the bound, and the route
-    table."""
+    """The level-visit kernels of the three routes: against the plain versions
+    and against each other on every fused flagship level (the phase and the
+    stream kernels at ``C`` chains, the phase and the split kernels at the
+    counts of :data:`SPLIT_CHECK_VISIT_CHAINS`, and on the levels of a 24x24
+    lattice, whose bands begin on even and odd rows), the stream and the split
+    kernels' shared-memory layouts, the generator's known answer (through every
+    route) and moments, their times beside the bound (``C`` chains; one chain
+    for the split kernels; :data:`PHASE_CHAINS` for the phase kernels' main
+    path), and the route table."""
     from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
     from multigridmc_tpu_torch.samplers.base import GeneratorNoise
     from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
@@ -1443,23 +1602,34 @@ def phase_visits(device, nx, nlevel, C, n_meas, gen, smi):
     op, _ = build_posterior(nx, n_meas, FLAGSHIP_SEED, "order_one", device)
     sampler = MultigridMCSampler(op, nlevel, cycle=2, fused=True, fused_min_vertices=0,
                                  distill=False)
+    op, _ = build_posterior(24, 3, FLAGSHIP_SEED, "order_one", device)
+    small = MultigridMCSampler(op, 3, cycle=2, fused=True, fused_min_vertices=0, distill=False)
     errs = {name: 0.0 for names in VISIT_KERNELS.values() for name in names}
-    route_err = 0.0
+    route_err = {"stream": 0.0, "split": 0.0}
     by_level = []
-    for li, level in sorted(sampler.fused_levels.items()):
-        # the main path gives level 0 a shared f and the coarser levels one per
-        # chain; both routes at C chains, and the phase kernels at one chain,
-        # the shape of the drivers' time series, which is their path
-        for f_batched in ((False, True) if li == 0 else (True,)):
-            for chains, routes in ((C, mv.ROUTES), (1, ("phase",))):
-                e, route_errs = check_level(level, li, chains, f_batched, gen, routes)
-                by_level.append({"level": li, "vshape": list(level.op.vshape), "chains": chains,
-                                 "f_batched": f_batched, **e,
-                                 "stream_against_phase_one_philox_stream": route_errs})
-                for k in e:
-                    errs[k] = max(errs[k], e[k])
-                route_err = max(route_err, *route_errs.values(), 0.0)
+    # the main path gives level 0 a shared f and the coarser levels one per chain
+    cases = [(f"L{li}", level, chains, f_batched, routes, None)
+             for li, level in sorted(sampler.fused_levels.items())
+             for f_batched in ((False, True) if li == 0 else (True,))
+             for chains, routes in ([(C, ("phase", "stream"))]
+                                    + [(c, ("phase", "split")) for c in SPLIT_CHECK_VISIT_CHAINS])]
+    # 23^2 and 11^2: bands of one to three rows, at the rule's size and at 4 blocks
+    cases += [(f"24x24 L{li}", level, 2, True, ("phase", "split"), cluster)
+              for li, level in sorted(small.fused_levels.items()) for cluster in (None, 4)]
+    for name, level, chains, f_batched, routes, cluster in cases:
+        li = int(name[-1])
+        e, route_errs = check_level(level, li, chains, f_batched, gen, routes, cluster)
+        if "split" in routes:
+            cluster = level.split_cluster(chains) if cluster is None else cluster
+        by_level.append({"level": name, "vshape": list(level.op.vshape), "chains": chains,
+                         "f_batched": f_batched, "cluster": cluster, **e,
+                         "against_phase_one_philox_stream": route_errs})
+        for k in e:
+            errs[k] = max(errs[k], e[k])
+        for route, d in route_errs.items():
+            route_err[route] = max(route_err[route], *d.values())
     layout = check_stream_layout(sampler.fused_levels, C)
+    split_layout = check_split_visit_layout(sampler.fused_levels)
     philox = check_philox(device, nx, C)
 
     # times at the production operator (near-exact measurements), all fused levels
@@ -1467,22 +1637,22 @@ def phase_visits(device, nx, nlevel, C, n_meas, gen, smi):
     sampler = MultigridMCSampler(op, nlevel, cycle=2, fused=True, fused_min_vertices=0,
                                  distill=False)
     noise = GeneratorNoise(5, device)
-    timings = []
-    for li, level in sorted(sampler.fused_levels.items()):
-        f_batched = li > 0
-        t = time_level(level, C, f_batched, noise)
-        for kind in ("descend", "ascend"):
-            bound, by, nbytes = visit_bound(level, C, f_batched, kind)
-            t[f"{kind}_bound_ms"], t[f"{kind}_bound_by"], t[f"{kind}_bytes"] = bound, by, nbytes
-        timings.append({"level": li, "vshape": list(level.op.vshape), "chains": C,
-                        "threads": level.threads, "stream_threads": level.stream_threads, **t})
+    timings = [{"level": li, **timed_visits(level, C, li > 0, noise, ("phase", "stream"))}
+               for li, level in sorted(sampler.fused_levels.items())]
+    one_chain = [{"level": li, **timed_visits(sampler.fused_levels[li], 1, li > 0, noise,
+                                              ("phase", "split"))} for li in (0, 1)]
+    phase_chains = {"level": 0, **timed_visits(sampler.fused_levels[0], PHASE_CHAINS, False,
+                                                noise, ("phase",))}
     emit({"phase": "visits", "tolerance": TOL, "max_abs_err": errs,
-          "stream_against_phase_max_abs_err": route_err, "checks": by_level,
-          "stream_layout": layout, "philox": philox, "timings": timings})
+          "stream_against_phase_max_abs_err": route_err["stream"],
+          "split_against_phase_max_abs_err": route_err["split"], "checks": by_level,
+          "stream_layout": layout, "split_layout": split_layout, "philox": philox,
+          "timings": timings, "one_chain_timings": one_chain,
+          "phase_chains_timing": phase_chains})
     op, _ = build_posterior(2 * nx, n_meas, FLAGSHIP_SEED, "near_exact", device)
     wide = MultigridMCSampler(op, 4, cycle=2, fused=True, fused_min_vertices=0, distill=False)
     time_routes(sampler.fused_levels, wide.fused_levels, noise, smi)
-    return errs, timings, noise
+    return errs, {"at_C": timings, "one_chain": one_chain, "phase_chains": phase_chains}, noise
 
 
 def phase_sweeps(device, gen, noise, smi):
@@ -1559,9 +1729,11 @@ def phase_main_path(device, nx, nlevel, C, n_meas, steps, smi):
     """The flagship at full width through four variants of the cycle below
     level 0: every level's visit fused, the subtree from level 2 distilled, the
     subtree below level 0 in one kernel launch, and level 0 fused only (at a
-    smaller depth).  Each variant is built and driven with the launch counts
-    set to 0 just before (the subtree variant's construction launches the
-    shared-memory probe) and read just after."""
+    smaller depth); and the distilled variant once more at
+    :data:`PHASE_CHAINS` chains, the count whose visits take the phase
+    kernels.  Each variant is built and driven with the launch counts set to 0
+    just before (the subtree variant's construction launches the shared-memory
+    probe) and read just after."""
     from multigridmc_tpu_torch.ops.kernels import common
     from multigridmc_tpu_torch.ops.kernels import mgmc_subtree as st
     from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
@@ -1575,13 +1747,14 @@ def phase_main_path(device, nx, nlevel, C, n_meas, steps, smi):
     n0 = op.lattice.nvertex
     results, counts_by_variant = {}, {}
     variants = (
-        ("all_levels_fused", dict(distill=False), steps),
-        ("distilled", dict(distill=True), steps),
-        ("distilled_tf32", dict(distill=True, distill_precision="default"), steps),
-        ("subtree_kernel", dict(subtree=True), steps),
-        ("level0_fused", dict(distill=False, fused_min_vertices=n0), max(steps // 3, 2)),
+        ("all_levels_fused", dict(distill=False), steps, C),
+        ("distilled", dict(distill=True), steps, C),
+        ("distilled_tf32", dict(distill=True, distill_precision="default"), steps, C),
+        ("subtree_kernel", dict(subtree=True), steps, C),
+        ("level0_fused", dict(distill=False, fused_min_vertices=n0), max(steps // 3, 2), C),
+        (f"distilled_{PHASE_CHAINS}_chains", dict(distill=True), steps, PHASE_CHAINS),
     )
-    for name, kwargs, nsteps in variants:
+    for name, kwargs, nsteps, C in variants:
         for module in (mv, ss, st, common):
             module.reset_launch_counts()
         torch.cuda.synchronize()
@@ -1625,7 +1798,7 @@ def phase_main_path(device, nx, nlevel, C, n_meas, steps, smi):
         visited = [li for li in sorted(sampler.fused_levels) if li < below]
         expected = nsteps * sum(2 ** li for li in visited)
         expected_subtree = nsteps if sampler.subtree is not None else 0
-        visits = {kind: sum(counts[f"{kind}_visit{suffix}"] for suffix in ("", "_stream"))
+        visits = {kind: sum(counts[mv.KERNEL_NAMES[(route, kind)]] for route in mv.ROUTES)
                   for kind in ("descend", "ascend")}
         # the route of each visited level at this chain count; a route that no
         # visited level takes must show no launch
@@ -1645,7 +1818,8 @@ def phase_main_path(device, nx, nlevel, C, n_meas, steps, smi):
             busy["visit_device_ms"] = {
                 r["name"]: r["ms_per_step"] / r["calls_per_step"] for r in busy["matching"]
                 if re.search("visit_kernel|descend_kernel|ascend_kernel", r["name"])}
-        res = {"fused_levels": sorted(sampler.fused_levels), "visited_levels": visited,
+        res = {"chains": C, "fused_levels": sorted(sampler.fused_levels),
+               "visited_levels": visited,
                "distill_level": sampler.distill_level, "subtree": sampler.subtree is not None,
                "setup_seconds": setup_seconds, "device_busy": busy, "steps": nsteps,
                "ms_per_step": 1e3 * dt / nsteps, "samples_per_s": C * nsteps / dt,
@@ -1676,7 +1850,8 @@ def phase_main_path(device, nx, nlevel, C, n_meas, steps, smi):
                 raise AssertionError("main path: the TF32 context leaked into the process")
         results[name] = res
         counts_by_variant[name] = counts
-    emit({"phase": "main_path", "card": smi, "chains": C, "lattice": [nx, nx], "nlevel": nlevel,
+    emit({"phase": "main_path", "card": smi, "chains": variants[0][3], "lattice": [nx, nx],
+          "nlevel": nlevel,
           "cycle": 2, "dtype": "float32", **results})
     return counts_by_variant, results
 
@@ -1816,6 +1991,41 @@ def time_one_chain_ssor(device, nx, n_meas, steps=200):
             "route": list(sampler.forward.smoother.plan.route(1, 1))}
 
 
+def time_one_chain_mgmc(device, nx, nlevel, n_meas, steps=200):
+    """One step of the one-chain MGMC sampler on the flagship posterior as
+    ``drivers.mgmc`` builds it (SOR W-cycle, the subtree from level 2 distilled,
+    levels 0 and 1 fused): host ms per step, with a synchronisation only at the
+    end, against the device's kernel ms and launches per step
+    (torch.profiler), and the visit route of each fused level."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+    from multigridmc_tpu_torch.samplers.base import GeneratorNoise
+    from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
+
+    op, _ = build_posterior(nx, n_meas, FLAGSHIP_SEED, "near_exact", device)
+    sampler = MultigridMCSampler(op, nlevel, smoother="SOR", coarse_solver="Cholesky",
+                                 omega=1.0, cycle=2)
+    noise = GeneratorNoise(19, device)
+    f = torch.zeros(op.vshape, device=device)
+    x = torch.zeros(op.vshape, device=device)
+    for _ in range(20):
+        x = sampler.apply(noise, f, x)
+    torch.cuda.synchronize()
+    mv.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        x = sampler.apply(noise, f, x)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / steps * 1e3
+    visits = {k: v / steps for k, v in mv.launch_counts.items() if v}
+    busy = device_busy(lambda: sampler.apply(noise, f, x), 20,
+                       pattern=r"visit_kernel|descend_kernel|ascend_kernel") or {}
+    return {"host_ms_per_step": host_ms, "kernel_ms_per_step": busy.get("kernel_ms_per_step"),
+            "kernels_per_step": busy.get("kernels_per_step"), "top": busy.get("top"),
+            "visit_kernels": busy.get("matching"), "visit_launches_per_step": visits,
+            "distill_level": sampler.distill_level,
+            "route_by_level": {li: level.route(1) for li, level in sampler.fused_levels.items()}}
+
+
 def phase_drivers(device, nx, nlevel, n_meas, nchains, nsamples, nwarmup, smi):
     from multigridmc_tpu_torch.drivers import mg as driver_mg
     from multigridmc_tpu_torch.drivers import mgmc as driver_mgmc
@@ -1877,12 +2087,15 @@ def phase_drivers(device, nx, nlevel, n_meas, nchains, nsamples, nwarmup, smi):
                     raise AssertionError(f"drivers: posterior.vtk field {name} is not finite")
             if not os.path.exists("sample_location.vtk"):
                 raise AssertionError("drivers: sample_location.vtk is missing")
-            # the one-chain time series takes the phase visit kernels and the
-            # split sweep route, the 256 replica chains of the convergence
-            # tables the routes of their chain count
+            # the one-chain time series takes the visit kernels of one chain's
+            # route (the split kernels) and the split sweep route, the 256
+            # replica chains of the convergence tables the routes of their
+            # chain count
+            one_chain = VISIT_KERNELS[mv.visit_route(1, vshape=(nx - 1, nx - 1))]
             replicas = VISIT_KERNELS[mv.visit_route(nchains)]
-            for name in ("descend_visit", "ascend_visit", "gibbs_sweep_batched",
-                         "gibbs_sweep_batched_split") + replicas:
+            if one_chain != VISIT_KERNELS["split"]:
+                raise AssertionError(f"drivers.mgmc: one chain takes {one_chain}")
+            for name in ("gibbs_sweep_batched", "gibbs_sweep_batched_split") + one_chain + replicas:
                 if counts_mgmc[name] <= 0:
                     raise AssertionError(f"drivers.mgmc: {name} was not launched: {counts_mgmc}")
             # the MGMC time series against the exact mean: the driver's own
@@ -1950,6 +2163,7 @@ def phase_drivers(device, nx, nlevel, n_meas, nchains, nsamples, nwarmup, smi):
         finally:
             os.chdir(cwd)
     out["one_chain_ssor_step"] = time_one_chain_ssor(device, nx, n_meas)
+    out["one_chain_mgmc_step"] = time_one_chain_mgmc(device, nx, nlevel, n_meas)
     emit(out)
     counts = {name: counts_mgmc[name] + counts_mg[name] for name in counts_mgmc}
     return counts, out
@@ -1962,6 +2176,10 @@ def phase_drivers(device, nx, nlevel, n_meas, nchains, nsamples, nwarmup, smi):
 SSOR_GATE = {"warmup": 2000, "steps": 4000, "thin": 10}
 #: chains of the SSOR gate through the split sweep route
 SSOR_SPLIT_CHAINS = 32
+#: the MGMC gate through the split visit kernels at one chain: steps, and the
+#: batches whose means stand in for independent chains (the W-cycle's
+#: autocorrelation time on the 64x64 posterior is a few steps)
+SPLIT_GATE = {"steps": 3000, "batches": 30}
 
 
 def moments_gate(name, z, z_mean, z_var, C):
@@ -2025,11 +2243,16 @@ def phase_statistics(device, nx, C, warmup, steps):
     out["exact"] = {"mean": z_mean, "variance": z_var}
     # through the visit kernels, the plain path, the distilled subtree (31^2
     # and 15^2 as one affine map) and the subtree kernel with its in-kernel noise
-    variants = (("kernels", dict(fused=True, distill=False), 1001),
-                ("plain", dict(fused=False, distill=False), 1000),
-                ("distilled", dict(distill=True), 1002),
-                ("subtree_kernel", dict(subtree=True), 1003))
-    for name, kwargs, seed in variants:
+    # and through the split visit kernels at one chain (batch means over its
+    # time series) and at 32 chains
+    variants = (("kernels", dict(fused=True, distill=False), 1001, C, steps),
+                ("plain", dict(fused=False, distill=False), 1000, C, steps),
+                ("distilled", dict(distill=True), 1002, C, steps),
+                ("subtree_kernel", dict(subtree=True), 1003, C, steps),
+                ("kernels_split_one_chain", dict(fused=True, distill=False), 1004, 1,
+                 SPLIT_GATE["steps"]),
+                ("kernels_split_32_chains", dict(fused=True, distill=False), 1005, 32, steps))
+    for name, kwargs, seed, Cv, nsteps in variants:
         inner = MultigridMCSampler(op, 3, cycle=2, fused_min_vertices=0, **kwargs)
         if (name == "distilled") != (inner.distilled is not None and inner.distill_level == 1):
             raise AssertionError(f"statistics ({name}): distill level {inner.distill_level}")
@@ -2037,27 +2260,33 @@ def phase_statistics(device, nx, C, warmup, steps):
         mv.reset_launch_counts()
         sampler = MeanShiftedSampler(inner, mean)
         noise = GeneratorNoise(seed, device)
-        x = sampler.mean.expand((C,) + op.vshape).clone()
+        x = sampler.mean.expand((Cv,) + op.vshape).clone()
         for _ in range(warmup):
             x = sampler.apply(noise, None, x)
         zs = []
-        for _ in range(steps):
+        for _ in range(nsteps):
             x = sampler.apply(noise, None, x)
-            zs.append((x.reshape(C, -1) @ wt).double())
-        z = torch.stack(zs).cpu().numpy()  # (steps, C)
-        out[name] = moments_gate(name, z, z_mean, z_var, C)
-        if name == "kernels":  # the gate of the visit kernels of this chain count's route
-            route = mv.visit_route(C)
+            zs.append((x.reshape(Cv, -1) @ wt).double())
+        z = torch.stack(zs).cpu().numpy()  # (steps, Cv)
+        if Cv == 1:  # one chain: its series in batches, whose means are nearly independent
+            z = z[:, 0].reshape(SPLIT_GATE["batches"], -1).T
+        out[name] = moments_gate(name, z, z_mean, z_var, z.shape[1])
+        out[name]["chains"] = Cv
+        if name.startswith("kernels"):  # the visit kernels of this chain count's route
+            routes = {level.route(Cv) for level in inner.fused_levels.values()}
+            route = routes.pop()
+            want = "split" if name.startswith("kernels_split") else mv.visit_route(Cv)
             out[name]["route"] = route
             out[name]["launches"] = dict(mv.launch_counts)
             other = [n for r, names in VISIT_KERNELS.items() if r != route for n in names]
-            if (min(mv.launch_counts[n] for n in VISIT_KERNELS[route]) <= 0
+            if (routes or route != want
+                    or min(mv.launch_counts[n] for n in VISIT_KERNELS[route]) <= 0
                     or any(mv.launch_counts[n] for n in other)):
-                raise AssertionError(f"statistics: visit launches {mv.launch_counts}, "
-                                     f"expected the {route} kernels only")
+                raise AssertionError(f"statistics ({name}): visit launches {mv.launch_counts}, "
+                                     f"expected the {want} kernels only")
         if name == "subtree_kernel":
             out[name]["launches"] = st.launch_counts["subtree_sample"]
-            if st.launch_counts["subtree_sample"] != warmup + steps:
+            if st.launch_counts["subtree_sample"] != warmup + nsteps:
                 raise AssertionError(f"statistics: {st.launch_counts} subtree launches")
 
     # (3) the same posterior through the SSOR sampler alone: every sweep is a
@@ -2129,7 +2358,7 @@ def main(argv=None) -> int:
                         help="comma-separated subset of kernels,main_path,drivers,statistics "
                              "to run (device and build always run; 'threads' adds a "
                              "block-size table, 'new' the third slice's kernels alone, "
-                             "'visits' the two visit kernels of both routes alone, "
+                             "'visits' the visit kernels of the three routes alone, "
                              "'sweeps' the sweep kernels of both routes alone); "
                              "the ok line needs exactly the default four")
     args = parser.parse_args(argv)
@@ -2152,7 +2381,7 @@ def main(argv=None) -> int:
         gen = torch.Generator(device=device)
         gen.manual_seed(11)
         phase_new_kernels(device, nx, nlevel, C, n_meas, gen, GeneratorNoise(5, device))
-    if "visits" in phases:  # the two visit kernels of both routes alone
+    if "visits" in phases:  # the visit kernels of the three routes alone
         gen = torch.Generator(device=device)
         gen.manual_seed(11)
         phase_visits(device, nx, nlevel, C, n_meas, gen, smi)
@@ -2176,28 +2405,34 @@ def main(argv=None) -> int:
         print("partial run: no result line")
         return 0
 
-    t0 = timings[0]  # level 0: the shape that dominates the main path
     kernels = []
-    # launches of the visits: the flagship's steps with every level's visit fused
-    # (256 chains: the route of that count); a visit kernel that the main path
-    # does not take counts its launches on its own path, the one-chain series
-    # of drivers.mgmc
-    for route, source in (("phase", "mgmc_visit.cu"), ("stream", "mgmc_visit_stream.cu")):
+    # the visits at level 0, the shape that dominates each path, and their
+    # launches on the path of each route: the stream kernels in the flagship's
+    # steps with every level's visit fused (256 chains), the phase kernels in
+    # its distilled steps at PHASE_CHAINS chains, the split kernels in the
+    # one-chain MGMC series of drivers.mgmc
+    paths = {"phase": (f"main_path distilled_{PHASE_CHAINS}_chains",
+                       counts[f"distilled_{PHASE_CHAINS}_chains"], timings["phase_chains"]),
+             "stream": ("main_path all_levels_fused", counts["all_levels_fused"],
+                        timings["at_C"][0]),
+             "split": ("drivers", driver_counts, timings["one_chain"][0])}
+    for route, source in (("phase", "mgmc_visit.cu"), ("stream", "mgmc_visit_stream.cu"),
+                          ("split", "mgmc_visit_split.cu")):
+        path, launches, t = paths[route]
         for name, kind, line in zip(VISIT_KERNELS[route], ("descend", "ascend"), (700, 847)):
-            on_main = counts["all_levels_fused"][name] > 0
             kernels.append({
                 "name": name, "route": "cuda",
                 "source": f"multigridmc_tpu_torch/csrc/{source}",
                 "replaces": f"multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py:{line}",
-                "launches": counts["all_levels_fused"][name] if on_main else driver_counts[name],
-                "path": "main_path all_levels_fused" if on_main else "drivers",
+                "launches": launches[name], "path": path,
                 "launches_by_variant": {v: c[name] for v, c in counts.items()},
                 "max_abs_err": errs[name],
-                "ms": t0[f"{name}_ms"], "device_ms": t0[f"{name}_device_ms"],
-                "plain_ms": t0[f"{kind}_plain_ms"],
-                "bound_ms": t0[f"{kind}_bound_ms"], "bound_by": t0[f"{kind}_bound_by"],
-                "bound_bytes": t0[f"{kind}_bytes"],
-                "library_ms": None, "shape": {"chains": C, "vshape": t0["vshape"]},
+                "ms": t[f"{name}_ms"], "device_ms": t[f"{name}_device_ms"],
+                "plain_ms": t[f"{kind}_plain_ms"],
+                "bound_ms": t[f"{kind}_bound_ms"], "bound_by": t[f"{kind}_bound_by"],
+                "bound_bytes": t[f"{kind}_bytes"], "library_ms": None,
+                "shape": {"chains": t["chains"], "vshape": t["vshape"],
+                          "cluster": t["split_cluster"] if route == "split" else 1},
             })
     # the probe: launched where the subtree variant of the main path is built
     probe = third["probe"]

@@ -45,8 +45,8 @@ HEADERS = ("philox.cuh", "visit_phases.cuh", "sor_sweep.cuh")
 
 #: every kernel source under ``csrc/`` (``<name>.cu``); :func:`build_libraries`
 #: compiles them in parallel
-SOURCES = ("mgmc_visit", "mgmc_visit_stream", "sor_sweep", "sor_sweep_cluster", "mgmc_subtree",
-           "smem_probe")
+SOURCES = ("mgmc_visit", "mgmc_visit_stream", "mgmc_visit_split", "sor_sweep",
+           "sor_sweep_cluster", "mgmc_subtree", "smem_probe")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

@@ -18,26 +18,34 @@ and one **ascend visit** is
     x  <- colour-ordered SOR sweep(c, x)                        (post direction)
     x  <- x - B_bar_post (B^T x)
 
-Two hand-written CUDA kernels compute each visit, and the launch takes one of
-them by the number of chains (:data:`STREAM_MIN_CHAINS`) and by whether the
-stream kernels' rings fit a block's shared memory at the level's width
-(:func:`visit_route`, :func:`stream_smem_bytes`):
+Three hand-written CUDA kernels compute each visit, and the launch takes one
+of them by the number of chains (:data:`SPLIT_MAX_CHAINS`,
+:data:`STREAM_MIN_CHAINS`), by the level's shape and by whether the kernel's
+shared memory fits a block and its cluster schedules (:func:`visit_route`,
+:func:`split_smem_bytes`, :func:`stream_smem_bytes`):
 
+* the **split kernels** of ``csrc/mgmc_visit_split.cu`` (each chain's level
+  split over a thread-block cluster of ``S`` blocks, each block's band of rows
+  of ``x`` and of the rhs / residual in shared memory, halo rows and the
+  partial sums of ``B^T x`` read from the neighbouring blocks' shared memory, a
+  cluster barrier between phases; :func:`split_cluster` picks ``S``) - for
+  few chains (at most :data:`SPLIT_MAX_CHAINS`), where one block per chain
+  leaves the card idle and a visit is latency;
 * the **phase kernels** of ``csrc/mgmc_visit.cu`` (one thread block per chain,
   whole-field phases over a field in global memory, ``__syncthreads()``
   between them; the phases live in ``csrc/visit_phases.cuh``, shared with the
-  subtree kernel) - for fewer chains, where 1024 threads per chain hide the
-  latency of a visit better than the stream kernels' 256;
+  subtree kernel) - for the chain counts between the two thresholds, and for
+  levels the other two do not fit;
 * the **stream kernels** of ``csrc/mgmc_visit_stream.cu`` (one thread block per
   chain, the sweep as a wavefront of row blocks through a ring of rows in
   shared memory, every colour phase of a step at once; :func:`wavefront_lags`
   gives the schedule) - for many chains, where each chain's field crosses the
   memory bus twice and not ten times.
 
-Both compute the same visit from the same Philox stream; the route is chosen
-from the level's shape and the chain count when a level builds its parameter
-block for a launch configuration (``FusedVisitLevel._params``), never after a
-launch, and a failing build or launch raises.  The sources are compiled with
+All three compute the same visit from the same Philox stream; the route is
+chosen from the level's shape and the chain count when a level builds its
+parameter block for a launch configuration (``FusedVisitLevel._params``), never
+after a launch, and a failing build or launch raises.  The sources are compiled with
 ``nvcc`` for ``sm_90a`` at first use into the package's ``build/`` directory and
 loaded with ``ctypes`` (the mechanism of :mod:`.common`, shared with the sweep
 kernels of :mod:`.sor_sweep`).
@@ -88,6 +96,7 @@ import torch
 from ...smoothers import sor_sweep, woodbury_factors
 from ..intergrid import prolongate_add, restrict
 from ..stencil import StencilOperator
+from . import sor_sweep as ss
 from .common import (compress_plan, default_threads, dynamic_smem_limit,  # noqa: F401
                      open_library, philox_normals_reference, support_boxes)
 from .common import tensor_ptr as _ptr
@@ -115,10 +124,19 @@ STREAM_STATIC_SMEM = 4 * (3 * 32 + 8 * 8)
 #: the CUDA sources under ``csrc/`` (see :mod:`.common` for the build)
 SOURCE_NAME = "mgmc_visit"
 STREAM_SOURCE_NAME = "mgmc_visit_stream"
+SPLIT_SOURCE_NAME = "mgmc_visit_split"
 
-#: the two routes of a visit launch: the phase kernels of ``mgmc_visit.cu`` and
-#: the stream kernels of ``mgmc_visit_stream.cu``
-ROUTES = ("phase", "stream")
+#: the three routes of a visit launch: the phase kernels of ``mgmc_visit.cu``,
+#: the stream kernels of ``mgmc_visit_stream.cu`` and the split kernels of
+#: ``mgmc_visit_split.cu``
+ROUTES = ("phase", "stream", "split")
+
+#: ints of the split kernels' first-point table before the bands
+#: (``SPLIT_TABLE_INTS`` in the source)
+SPLIT_TABLE_INTS = MAX_COLORS * MAX_COLORS
+#: the split kernels' static shared memory (``s_part``, ``s_all``, ``s_btx``,
+#: ``s_lr``, ``s_u``; ``MAX_CLUSTER`` = 16 in the source)
+SPLIT_STATIC_SMEM = 4 * (MAX_LOWRANK + 16 * MAX_LOWRANK + 3 * MAX_LOWRANK)
 
 #: Launches with at least this many chains take the stream kernels, fewer the
 #: phase kernels (where the stream kernels' rings fit a block: :func:`visit_route`).
@@ -132,9 +150,38 @@ ROUTES = ("phase", "stream")
 #: section 6 holds the table.
 STREAM_MIN_CHAINS = 256
 
+#: Launches of at most this many chains take the split kernels where their bands
+#: fit a block and their cluster schedules (:func:`split_cluster`).  Set from the
+#: split column of the ``visit_routes`` table of ``chip_smoke.py``, which fails
+#: if the table supports another value: device time per descend plus ascend of
+#: all three routes at 1, 4, 8, 16, 32, 64 and 132 chains on the flagship's 255^2
+#: and 127^2 levels, the split kernels at every cluster size that fits, NVIDIA
+#: H100 80GB HBM3, 700.00 W (the split kernels at the rule's cluster size take at
+#: most 0.84 of the phase kernels' time up to 64 chains on both levels, and lose
+#: at 132).  PERF.md section 6 holds the table.
+SPLIT_MAX_CHAINS = 64
+
+#: The fixed part of a wave of split visit clusters (the load, the cluster
+#: barriers, the launch) lasts about as long as a band of this many points takes
+#: to visit: the rule's cost (``sor_sweep.split_cost``) takes ``fixed =
+#: SPLIT_WAVE_POINTS / (H * W)``.  From the same table: one chain (one wave) at
+#: every cluster size fits ``a + b / S`` with ``a / b`` = 0.067 of a 255^2 field
+#: and 0.28 of a 127^2 field (4,376 and 4,509 points), so the share is a number
+#: of points, not a constant share as the sweeps' 0.04 (which picks clusters of
+#: 16 at 64 chains on 127^2, where clusters of 2 run in one wave and take 0.75 of
+#: the time).  Every value from about 2,530 to 4,060 points picks the best measured
+#: size at every count the route splits (1-64) on both levels; 4,400 would pick
+#: 4 for 8 at 64 chains on 255^2 (5% slower).
+SPLIT_WAVE_POINTS = 3300
+
 #: kernel launches made by the wrappers (and only where they launch)
 launch_counts: Dict[str, int] = {"descend_visit": 0, "ascend_visit": 0,
-                                 "descend_visit_stream": 0, "ascend_visit_stream": 0}
+                                 "descend_visit_stream": 0, "ascend_visit_stream": 0,
+                                 "descend_visit_split": 0, "ascend_visit_split": 0}
+
+#: the kernel counted by each launch, by route and kind
+KERNEL_NAMES = {(route, kind): f"{kind}_visit" + ("" if route == "phase" else f"_{route}")
+                for route in ROUTES for kind in ("descend", "ascend")}
 
 
 def reset_launch_counts() -> None:
@@ -183,17 +230,91 @@ class StreamParams(ctypes.Structure):
 
 
 def visit_route(C: int, stream_bytes: int = 0, device=None,
-                smem_limit: Optional[int] = None) -> str:
+                smem_limit: Optional[int] = None, vshape=None) -> str:
     """The kernel a visit of ``C`` chains launches: ``"stream"`` from
     :data:`STREAM_MIN_CHAINS` chains on where the stream kernels' shared memory
-    (``stream_bytes``, :func:`stream_smem_bytes`) fits a block, ``"phase"``
-    otherwise.  A block is granted ``smem_limit`` bytes, by default what the
-    probe finds on ``device`` (:func:`~.common.dynamic_smem_limit`; on the CPU
-    its default).  Both are known before any launch."""
+    (``stream_bytes``, :func:`stream_smem_bytes`) fits a block; ``"split"`` for
+    a level of shape ``vshape`` where :func:`split_cluster` finds a cluster size
+    (at most :data:`SPLIT_MAX_CHAINS` chains); ``"phase"`` otherwise (and
+    always without a shape below the stream threshold).  A block is granted
+    ``smem_limit`` bytes, by default what the probe finds on ``device``
+    (:func:`~.common.dynamic_smem_limit`; on the CPU its default).  All of it
+    is known before any launch."""
     if smem_limit is None:
         smem_limit = dynamic_smem_limit(device)
-    fits = stream_bytes + STREAM_STATIC_SMEM <= smem_limit
-    return "stream" if C >= STREAM_MIN_CHAINS and fits else "phase"
+    if C >= STREAM_MIN_CHAINS and stream_bytes + STREAM_STATIC_SMEM <= smem_limit:
+        return "stream"
+    if vshape is not None and split_cluster(C, vshape, device, smem_limit) is not None:
+        return "split"
+    return "phase"
+
+
+def split_smem_bytes(H: int, W: int, S: int) -> int:
+    """Dynamic shared memory of one block of a split launch with clusters of
+    ``S`` blocks on an ``H x W`` level: the first-point table, the widest band
+    of ``x`` and the scratch band of the rhs and the residual.  The host's
+    mirror of ``mgmc_split_smem_bytes`` in ``csrc/mgmc_visit_split.cu``;
+    ``ValueError`` where the level cannot be split so (``S`` outside 2 .. 16,
+    more blocks than rows)."""
+    if not 2 <= S <= ss.SPLIT_SIZES[0] or S > H:
+        raise ValueError(f"a level of {H} rows does not split over {S} blocks")
+    widest = max(u1 - u0 for u0, u1 in split_bands(H, S))
+    return 4 * (SPLIT_TABLE_INTS + 2 * widest * W)
+
+
+def split_bands(H: int, S: int) -> Tuple[Tuple[int, int], ...]:
+    """The rows ``[u0, u1)`` of each block of a cluster of ``S`` on an ``H``-row
+    level, rank by rank: the first ``H % S`` ranks take one row more
+    (``band_of`` in ``csrc/mgmc_visit_split.cu``).  Coarse row ``I`` belongs to
+    the rank whose band holds fine row ``2I + 1``."""
+    base, rem = divmod(H, S)
+    bands, u0 = [], 0
+    for k in range(S):
+        u1 = u0 + base + (k < rem)
+        bands.append((u0, u1))
+        u0 = u1
+    return tuple(bands)
+
+
+def _split_occupancy_query():
+    """The split kernels' ``cudaOccupancyMaxActiveClusters`` entry point."""
+    return load_split_library().mgmc_split_max_active
+
+
+def split_active_clusters(S: int, vshape, device=None) -> int:
+    """How many clusters of ``S`` blocks of the split kernels on a level of
+    shape ``vshape`` the card holds at once, the fewer of the descend and the
+    ascend kernel's (``sor_sweep.active_clusters`` through the split kernels'
+    own ``cudaOccupancyMaxActiveClusters`` entry point; on the CPU every
+    cluster counts as running at once); 0 where such a cluster never
+    schedules."""
+    H, W = (int(v) for v in vshape)
+    nbytes = split_smem_bytes(H, W, S)
+    threads = ss.split_threads((H, W), S)
+    device = "cuda" if device is None else device
+    # kind 1 asks for the descend kernel, 0 for the ascend kernel
+    return min(ss.active_clusters(device, kind, S, threads, nbytes, _split_occupancy_query)
+               for kind in (1, 0))
+
+
+def split_cluster(C: int, vshape, device=None, smem_limit: Optional[int] = None,
+                  capped: bool = True) -> Optional[int]:
+    """The cluster size of a split launch of ``C`` chains on a level of shape
+    ``vshape``: for at most :data:`SPLIT_MAX_CHAINS` chains (any number with
+    ``capped=False``), of the sizes of ``sor_sweep.SPLIT_SIZES`` whose bands
+    (and the static part) fit ``smem_limit`` (default: what the probe grants a
+    block on ``device``) and whose clusters schedule, the one of least
+    wave-counted cost (``sor_sweep.cheapest_cluster`` over
+    :func:`split_active_clusters`, the fixed share of a wave
+    :data:`SPLIT_WAVE_POINTS` over the level's points); ``None`` otherwise."""
+    if capped and C > SPLIT_MAX_CHAINS:
+        return None
+    H, W = (int(v) for v in vshape)
+    if smem_limit is None:
+        smem_limit = dynamic_smem_limit(device)
+    active = {S: split_active_clusters(S, vshape, device) for S in ss.SPLIT_SIZES
+              if S <= H and split_smem_bytes(H, W, S) + SPLIT_STATIC_SMEM <= smem_limit}
+    return ss.cheapest_cluster(C, active, SPLIT_WAVE_POINTS / (H * W))
 
 
 def stream_pitch(w: int) -> int:
@@ -312,6 +433,31 @@ def load_stream_library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def load_split_library() -> ctypes.CDLL:
+    """Build (at first use) and load the split kernels' shared library."""
+    lib = open_library(SPLIT_SOURCE_NAME)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.mgmc_split_params_size.argtypes = []
+    lib.mgmc_split_params_size.restype = i32
+    if lib.mgmc_split_params_size() != ctypes.sizeof(VisitParams):
+        raise RuntimeError("VisitParams layout differs between Python and CUDA")
+    lib.mgmc_split_smem_bytes.argtypes = [i32] * 3  # H, W, S
+    lib.mgmc_split_smem_bytes.restype = i32
+    lib.mgmc_split_static_smem_bytes.argtypes = []
+    lib.mgmc_split_static_smem_bytes.restype = i32
+    # descend, S, threads, bytes, out clusters
+    lib.mgmc_split_max_active.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
+    lib.mgmc_split_max_active.restype = i32
+    # P, x, f, fc, coeffs, ns, B, Y, W, xilr, sinv, G, xi, S, threads, stream
+    lib.mgmc_split_descend.argtypes = [ctypes.POINTER(VisitParams)] + [ptr] * 12 + [i32, i32, ptr]
+    lib.mgmc_split_descend.restype = i32
+    # P, x, f, xc, coeffs, ns, B, Y, W, xilr, xi, S, threads, stream
+    lib.mgmc_split_ascend.argtypes = [ctypes.POINTER(VisitParams)] + [ptr] * 10 + [i32, i32, ptr]
+    lib.mgmc_split_ascend.restype = i32
+    return lib
+
+
 def kernel_support_error(op: StencilOperator, n_colors: int) -> Optional[str]:
     """Why the CUDA kernels cannot take this level, or None if they can."""
     if len(op.vshape) != 2:
@@ -381,6 +527,8 @@ class FusedVisitLevel:
         self.stream_threads = stream_threads(op.vshape[-1])
         self._params_cache = {}
         self._stream_bytes = None
+        self._routes = {}
+        self._split_launches = {}
 
     # ------------------------------------------------------------ noise
     def _draw(self, noise, x):
@@ -427,8 +575,21 @@ class FusedVisitLevel:
 
     def route(self, C: int) -> str:
         """The kernel a visit of ``C`` chains on this level launches
-        (:func:`visit_route`): from the chain count and the level's shape."""
-        return visit_route(C, self.stream_bytes, self.op.device)
+        (:func:`visit_route`): from the chain count and the level's shape,
+        decided once per chain count."""
+        return self._route(C)[0]
+
+    def split_cluster(self, C: int) -> Optional[int]:
+        """The cluster size of this level's split launches of ``C`` chains
+        (:func:`split_cluster`); ``None`` where the route is not split."""
+        return self._route(C)[1]
+
+    def _route(self, C: int) -> Tuple[str, Optional[int]]:
+        if C not in self._routes:
+            route = visit_route(C, self.stream_bytes, self.op.device, vshape=self.op.vshape)
+            S = split_cluster(C, self.op.vshape, self.op.device) if route == "split" else None
+            self._routes[C] = (route, S)
+        return self._routes[C]
 
     def _lags(self, order) -> Tuple[int, ...]:
         return wavefront_lags(self.op.offsets, self.coloring.weights,
@@ -436,8 +597,8 @@ class FusedVisitLevel:
 
     def _params(self, C: int, order, f_batched: bool, noise_mode: int, philox,
                 route: Optional[str] = None):
-        """The kernel's parameter block: a ``VisitParams`` for the phase kernels,
-        a ``StreamParams`` for the stream kernels.  ``route`` defaults to
+        """The kernel's parameter block: a ``VisitParams`` for the phase and the
+        split kernels, a ``StreamParams`` for the stream kernels.  ``route`` defaults to
         :meth:`route` of ``C``, so the kernel is chosen here, before the launch,
         once per launch configuration (the host's share of a launch matters on
         the small levels); only the Philox stream changes from launch to
@@ -620,12 +781,30 @@ def _on_card(x):
                          "the plain versions (descend_visit / ascend_visit choose)")
 
 
+def _split_launch(level: FusedVisitLevel, C: int, cluster: Optional[int]) -> Tuple[int, int]:
+    """``(S, threads)`` of a split launch of ``C`` chains: the level's rule
+    unless ``cluster`` names the size; raises where the level does not split
+    so.  Kept per launch configuration: the host's share of a launch matters
+    at one chain."""
+    key = (C, cluster)
+    if key not in level._split_launches:
+        S = level.split_cluster(C) if cluster is None else int(cluster)
+        if S is None:
+            raise ValueError(f"the split route takes no launch of {C} chains on a "
+                             f"{level.op.vshape} level; name the cluster size")
+        split_smem_bytes(*level.op.vshape, S)  # raises where the level does not split so
+        level._split_launches[key] = (S, ss.split_threads(level.op.vshape, S))
+    return level._split_launches[key]
+
+
 def launch_descend(level: FusedVisitLevel, route: str, f, x, xi=None, xi_lr=None,
-                   philox: Optional[Tuple[int, int]] = None):
-    """One descend visit through the kernel of ``route`` (``"phase"`` or
-    ``"stream"``), on CUDA tensors only; :func:`descend_visit` takes
-    ``level.route(C)``, ``chip_smoke.py`` names it to hold the two kernels
-    against each other.  Updates ``x`` in place; returns ``(x, f_coarse)``."""
+                   philox: Optional[Tuple[int, int]] = None, cluster: Optional[int] = None):
+    """One descend visit through the kernel of ``route`` (one of
+    :data:`ROUTES`), on CUDA tensors only; :func:`descend_visit` takes
+    ``level.route(C)``, ``chip_smoke.py`` names it to hold the kernels against
+    each other.  ``cluster`` sets the split route's cluster size (default: the
+    level's rule, :meth:`FusedVisitLevel.split_cluster`).  Updates ``x`` in
+    place; returns ``(x, f_coarse)``."""
     _on_card(x)
     C, f_batched, noise_mode = _check_visit_args(level, f, x, xi, xi_lr, philox)
     P = level._params(C, level.pre_order, f_batched, noise_mode, philox, route)
@@ -639,13 +818,18 @@ def launch_descend(level: FusedVisitLevel, route: str, f, x, xi=None, xi_lr=None
             lib = load_stream_library()
             err = lib.mgmc_stream_descend(ctypes.byref(P), x.data_ptr(), f.data_ptr(),
                                           fc.data_ptr(), *common, level.stream_threads, stream)
+        elif route == "split":
+            S, threads = _split_launch(level, C, cluster)
+            err = load_split_library().mgmc_split_descend(
+                ctypes.byref(P), x.data_ptr(), f.data_ptr(), fc.data_ptr(), *common, S, threads,
+                stream)
         else:
             lib = load_library()
             scratch = torch.empty_like(x)
             err = lib.mgmc_descend_visit(ctypes.byref(P), x.data_ptr(), f.data_ptr(),
                                          scratch.data_ptr(), fc.data_ptr(), *common,
                                          level.threads, stream)
-    name = "descend_visit_stream" if route == "stream" else "descend_visit"
+    name = KERNEL_NAMES[(route, "descend")]
     launch_counts[name] += 1
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
@@ -653,7 +837,7 @@ def launch_descend(level: FusedVisitLevel, route: str, f, x, xi=None, xi_lr=None
 
 
 def launch_ascend(level: FusedVisitLevel, route: str, f, x, x_coarse, xi=None, xi_lr=None,
-                  philox: Optional[Tuple[int, int]] = None):
+                  philox: Optional[Tuple[int, int]] = None, cluster: Optional[int] = None):
     """One ascend visit through the kernel of ``route``, as
     :func:`launch_descend`.  Updates ``x`` in place and returns it."""
     _on_card(x)
@@ -669,13 +853,18 @@ def launch_ascend(level: FusedVisitLevel, route: str, f, x, x_coarse, xi=None, x
             err = lib.mgmc_stream_ascend(ctypes.byref(P), x.data_ptr(), f.data_ptr(),
                                          x_coarse.data_ptr(), *common, _ptr(xi),
                                          level.stream_threads, stream)
+        elif route == "split":
+            S, threads = _split_launch(level, C, cluster)
+            err = load_split_library().mgmc_split_ascend(
+                ctypes.byref(P), x.data_ptr(), f.data_ptr(), x_coarse.data_ptr(), *common,
+                _ptr(xi), S, threads, stream)
         else:
             lib = load_library()
             scratch = torch.empty_like(x) if noise_mode else x  # unused without noise
             err = lib.mgmc_ascend_visit(ctypes.byref(P), x.data_ptr(), f.data_ptr(),
                                         scratch.data_ptr(), x_coarse.data_ptr(), *common,
                                         _ptr(xi), level.threads, stream)
-    name = "ascend_visit_stream" if route == "stream" else "ascend_visit"
+    name = KERNEL_NAMES[(route, "ascend")]
     launch_counts[name] += 1
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

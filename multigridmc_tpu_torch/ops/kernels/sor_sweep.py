@@ -237,35 +237,57 @@ def split_threads(vshape, S: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def max_active_clusters(device: torch.device, gibbs: bool, S: int, threads: int,
-                        nbytes: int) -> int:
+                        nbytes: int, query=None) -> int:
     """``cudaOccupancyMaxActiveClusters`` of the split kernel for clusters of
     ``S`` blocks of ``threads`` threads and ``nbytes`` of shared memory, asked
     once per configuration; 0 where such a cluster never schedules (a refused
-    configuration included)."""
-    lib = load_split_library()
+    configuration included).  ``query``, a function without arguments that
+    loads and returns another kernel's entry point of the same signature
+    (first argument an int that picks one of two kernels, here ``gibbs``),
+    asks that kernel instead: the split visit kernels pass theirs, whose first
+    argument picks the descend kernel."""
+    entry = load_split_library().sor_sweep_cluster_max_active if query is None else query()
     out = ctypes.c_int(0)
     with torch.cuda.device(device):
-        err = lib.sor_sweep_cluster_max_active(int(gibbs), S, threads, nbytes, ctypes.byref(out))
+        err = entry(int(gibbs), S, threads, nbytes, ctypes.byref(out))
     return int(out.value) if err == 0 else 0
 
 
-def active_clusters(device, noise_mode: int, S: int, threads: int, nbytes: int) -> int:
-    """How many clusters of the split kernel ``device`` holds at once (0: such
-    a cluster never schedules).  On the CPU there is no card to ask, and every
-    cluster is taken to run at once: a CPU plan's route then follows from the
-    shape and the shared memory alone."""
+def active_clusters(device, noise_mode: int, S: int, threads: int, nbytes: int,
+                    query=None) -> int:
+    """How many clusters of the split kernel (or of ``query``'s, see
+    :func:`max_active_clusters`) ``device`` holds at once (0: such a cluster
+    never schedules).  On the CPU there is no card to ask, and every cluster
+    is taken to run at once: a CPU plan's route then follows from the shape
+    and the shared memory alone."""
     device = torch.device(device)
     if device.type != "cuda":
         return 1 << 30
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    return max_active_clusters(device, noise_mode != 0, S, threads, nbytes)
+    return max_active_clusters(device, noise_mode != 0, S, threads, nbytes, query)
 
 
-def split_cost(C: int, S: int, active: int) -> float:
+def split_cost(C: int, S: int, active: int, fixed: float = SPLIT_WAVE_FIXED) -> float:
     """The route's measure of a launch of ``C`` chains over clusters of ``S``
-    blocks of which ``active`` run at once (see :data:`SPLIT_WAVE_FIXED`)."""
-    return -(-C // active) * (1.0 / S + SPLIT_WAVE_FIXED)
+    blocks of which ``active`` run at once: waves times a wave's length, ``1 /
+    S`` of a whole field's time plus the ``fixed`` share (see
+    :data:`SPLIT_WAVE_FIXED`, the sweeps' value)."""
+    return -(-C // active) * (1.0 / S + fixed)
+
+
+def cheapest_cluster(C: int, active: Dict[int, int],
+                     fixed: float = SPLIT_WAVE_FIXED) -> Optional[int]:
+    """Of the cluster sizes ``{S: clusters the card holds at once}`` (largest
+    first), the one of least :func:`split_cost` (with the fixed share
+    ``fixed``) for ``C`` chains, the larger on a tie; ``None`` where none
+    schedules."""
+    best = None
+    for S, a in active.items():
+        if a > 0 and (best is None or split_cost(C, S, a, fixed)
+                      < split_cost(C, best, active[best], fixed)):
+            best = S
+    return best
 
 
 def split_size(C: int, vshape, offsets, noise_mode: int, device,
@@ -279,17 +301,14 @@ def split_size(C: int, vshape, offsets, noise_mode: int, device,
     reach = slow_reach(offsets, vshape)
     if smem_limit is None:
         smem_limit = dynamic_smem_limit(device)
-    best, best_cost = None, None
+    active = {}
     for S in SPLIT_SIZES:
         if S > L or L // S < reach:
             continue
         nbytes = split_smem_bytes(vshape, S, reach, noise_mode)
-        if nbytes > smem_limit:
-            continue
-        active = active_clusters(device, noise_mode, S, split_threads(vshape, S), nbytes)
-        if active > 0 and (best is None or split_cost(C, S, active) < best_cost):
-            best, best_cost = S, split_cost(C, S, active)
-    return best
+        if nbytes <= smem_limit:
+            active[S] = active_clusters(device, noise_mode, S, split_threads(vshape, S), nbytes)
+    return cheapest_cluster(C, active)
 
 
 def split_route(C: int, vshape, offsets, noise_mode: int, device,

@@ -279,9 +279,12 @@ def test_stream_visit_emulation_matches_interpreted_pallas_kernels(level_index):
 # ------------------------------------------------------------ (c) the route
 def test_route_is_chosen_from_the_chain_count_alone():
     _, _, _, port = _jax_levels(0, True, torch.float32, 16)
-    for C in (1, 2, mv.STREAM_MIN_CHAINS - 1, mv.STREAM_MIN_CHAINS, 256, 1000):
+    for C in (1, 2, mv.SPLIT_MAX_CHAINS, mv.SPLIT_MAX_CHAINS + 1, mv.STREAM_MIN_CHAINS - 1,
+              mv.STREAM_MIN_CHAINS, 256, 1000):
         want = "stream" if C >= mv.STREAM_MIN_CHAINS else "phase"
-        assert mv.visit_route(C, device=CPU) == want
+        assert mv.visit_route(C, device=CPU) == want  # without a shape: never split
+        if C <= mv.SPLIT_MAX_CHAINS:  # a 15^2 level: the split kernels' bands fit
+            want = "split"
         assert port.route(C) == want  # a 15^2 level: the stream kernels' rings fit
         for order in (port.pre_order, port.post_order):
             for f_batched in (False, True):
@@ -344,13 +347,15 @@ def test_route_takes_the_phase_kernels_where_the_rings_do_not_fit(case):
 
 def test_level_route_follows_its_layout():
     # a level's route takes its own shape: a wide synthetic level (no
-    # measurements) takes the phase kernels at any chain count
+    # measurements) takes the phase kernels at any chain count above the split
+    # kernels' (whose bands of two rows fit it)
     level = _synthetic_level((9, 1031), OFFSETS5, seed=5)
     H, W = level.op.vshape
     lags = mv.wavefront_lags(OFFSETS5, level.coloring.weights, 2, level.post_order)
     assert level.stream_bytes == mv.stream_smem_bytes(H, W, max(lags), 0, 256, True)
     assert level.stream_bytes + mv.STREAM_STATIC_SMEM > mv.SMEM_PER_BLOCK_OPTIN
-    for C in (1, mv.STREAM_MIN_CHAINS, 4 * mv.STREAM_MIN_CHAINS):
+    assert level.route(1) == "split"
+    for C in (mv.SPLIT_MAX_CHAINS + 1, mv.STREAM_MIN_CHAINS, 4 * mv.STREAM_MIN_CHAINS):
         assert level.route(C) == "phase"
         assert isinstance(level._params(C, level.pre_order, False, 0, None), mv.VisitParams)
     narrow = _synthetic_level((1031, 9), OFFSETS5, seed=5)
