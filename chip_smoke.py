@@ -1358,6 +1358,18 @@ def time_subtree(device, nx, nlevel, C, n_meas, noise):
     out["device_ms"] = device_ms_per_launch(lambda: kernel.sample(noise, f), "mgmc_subtree_kernel")
     out["plain_ms"] = cuda_ms(lambda: st.subtree_sample_plain(
         kernel, f, torch.randn((C, K), device=device)), 3, 2)
+    # where the launch's time goes: thread 0 of each block stamps the card's
+    # global timer after each operation of the schedule (the last of three
+    # launches); the operations' sum must agree with the profiler's time
+    stamps = torch.zeros((C, len(kernel.schedule) + 1), dtype=torch.int64, device=device)
+    for _ in range(3):
+        st.subtree_sample(kernel, f, philox=noise.philox_streams(kernel.count_draws()),
+                          stamps=stamps)
+    out["per_operation"] = st.operation_times(kernel, stamps)
+    ratio = out["per_operation"]["sum_us"] / 1e3 / out["device_ms"]
+    out["per_operation"]["sum_over_device_ms"] = ratio
+    if not 0.9 <= ratio <= 1.1:
+        raise AssertionError(f"subtree stamps: the operations sum to {ratio} of the device time")
     # other block sizes and placements, the default among them
     default_budget = kernel.smem_budget
     out["variants"] = []

@@ -92,6 +92,9 @@ struct SubtreeParams {
     unsigned long long counter;
     SubLevel lv[MAX_SUB_LEVELS];
     FieldLoc cx, cscr, cf;  // the coarsest level's vectors
+    // null, or (C, n_sched + 1): per block the %globaltimer (ns) before the
+    // first operation and after each, written by thread 0
+    unsigned long long* stamps;
 };
 
 extern __shared__ float dyn_smem[];
@@ -100,6 +103,14 @@ __device__ __forceinline__ float* locate(const FieldLoc& L, float* ws, float* la
     if (L.where == LOC_SHARED) return dyn_smem + L.off;
     if (L.where == LOC_WORKSPACE) return ws + L.off;
     return launch;
+}
+
+__device__ __forceinline__ void stamp(const SubtreeParams& S, int chain, int slot) {
+    if (S.stamps != nullptr && threadIdx.x == 0) {
+        unsigned long long t;
+        asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+        S.stamps[(size_t)chain * (S.n_sched + 1) + slot] = t;
+    }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -174,6 +185,7 @@ mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const VisitParams* 
         for (int p = threadIdx.x; p < n0; p += blockDim.x) f0[p] = f_launch[p];
         __syncthreads();
     }
+    stamp(S, chain, 0);
 
     for (int s = 0; s < S.n_sched; ++s) {
         const int op = sched[2 * s], li = sched[2 * s + 1];
@@ -181,6 +193,7 @@ mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const VisitParams* 
             coarse_sample(S, chain, Linv, LinvT, locate(S.cf, ws, nullptr),
                           locate(S.cscr, ws, nullptr), locate(S.cx, ws, nullptr), xi, cur, draw);
             if (S.noise_mode) { cur += S.nc; draw += 1; }
+            stamp(S, chain, s + 1);
             continue;
         }
         const SubLevel& L = S.lv[li];
@@ -232,6 +245,7 @@ mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const VisitParams* 
         }
         __syncthreads();
         if (S.noise_mode) { cur += n + m; draw += m ? 2 : 1; }
+        stamp(S, chain, s + 1);
     }
 
     if (S.lv[0].x.where != LOC_LAUNCH) {

@@ -78,6 +78,8 @@ OP_DESCEND, OP_DESCEND_ZERO, OP_COARSE, OP_ASCEND = 0, 1, 2, 3
 #: where a field lies
 LOC_SHARED, LOC_WORKSPACE, LOC_LAUNCH = 0, 1, 2
 LOC_NAMES = {LOC_SHARED: "shared", LOC_WORKSPACE: "workspace", LOC_LAUNCH: "launch tensor"}
+OP_NAMES = {OP_DESCEND: "descend", OP_DESCEND_ZERO: "descend", OP_COARSE: "coarse",
+            OP_ASCEND: "ascend"}
 
 #: shared memory the kernel declares statically (the level's parameter block
 #: and the reduction scratch), kept out of the dynamic budget
@@ -124,6 +126,7 @@ class SubtreeParams(ctypes.Structure):
         ("seed", ctypes.c_ulonglong), ("counter", ctypes.c_ulonglong),
         ("lv", SubLevel * MAX_SUB_LEVELS),
         ("cx", FieldLoc), ("cscr", FieldLoc), ("cf", FieldLoc),
+        ("stamps", ctypes.c_void_p),
     ]
 
 
@@ -368,6 +371,25 @@ class SubtreeKernel:
         return S
 
 
+def operation_times(kernel: "SubtreeKernel", stamps) -> dict:
+    """Where one launch's time went, from the ``stamps`` it wrote (see
+    :func:`subtree_sample`): per (operation, level shape) of the schedule the
+    number of such operations, the median over them of their time (each the
+    median over the blocks) and the sum of those, in microseconds; ``sum_us``
+    over every operation, and the median over the blocks of the time from the
+    first stamp to the last (``block_span_us``)."""
+    t = np.asarray(torch.as_tensor(stamps).cpu().numpy(), dtype=np.float64)
+    per_op = np.median(np.diff(t, axis=1), axis=0) / 1e3
+    groups: Dict[str, List[float]] = {}
+    for s, (op, li) in enumerate(kernel.schedule):
+        shape = kernel.coarse_vshape if op == OP_COARSE else kernel.levels[li].op.vshape
+        groups.setdefault(f"{OP_NAMES[op]} {'x'.join(map(str, shape))}", []).append(per_op[s])
+    return {"operations": {key: {"count": len(v), "median_us": float(np.median(v)),
+                                 "total_us": float(np.sum(v))} for key, v in groups.items()},
+            "sum_us": float(per_op.sum()),
+            "block_span_us": float(np.median(t[:, -1] - t[:, 0]) / 1e3)}
+
+
 # ------------------------------------------------------------- plain version
 def subtree_sample_plain(kernel: SubtreeKernel, f: torch.Tensor,
                          xi: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -414,7 +436,8 @@ def subtree_sample_plain(kernel: SubtreeKernel, f: torch.Tensor,
 
 # ------------------------------------------------------------------ wrapper
 def subtree_sample(kernel: SubtreeKernel, f: torch.Tensor, xi: Optional[torch.Tensor] = None,
-                   philox: Optional[Tuple[int, int]] = None, record: bool = False):
+                   philox: Optional[Tuple[int, int]] = None, record: bool = False,
+                   stamps: Optional[torch.Tensor] = None):
     """One subtree sample of all chains; ``f`` is ``(C, *kernel.vshape)``.
 
     Noise: ``philox=(seed, first counter)`` for the in-kernel generator (CUDA
@@ -422,6 +445,11 @@ def subtree_sample(kernel: SubtreeKernel, f: torch.Tensor, xi: Optional[torch.Te
     normals as ``xi`` of shape ``(C, kernel.count_noise())``; neither runs the
     deterministic data path.  With ``record=True`` (Philox only) the normals
     the kernel drew come back too: ``(x, xi)``.
+
+    ``stamps`` (CUDA only, a measurement aid): an int64 tensor of shape
+    ``(C, len(kernel.schedule) + 1)`` that receives, per chain, the card's
+    global timer in ns before the first operation of the schedule and after
+    each (:func:`operation_times`); ``None`` on every production call.
 
     CPU tensors go to :func:`subtree_sample_plain`.  CUDA tensors launch the
     kernel or raise."""
@@ -436,9 +464,14 @@ def subtree_sample(kernel: SubtreeKernel, f: torch.Tensor, xi: Optional[torch.Te
     if xi is not None and tuple(xi.shape) != (C, K):
         raise ValueError(f"xi must be ({C}, {K}), got {tuple(xi.shape)}")
     if f.device.type == "cpu":
-        if philox is not None:
-            raise ValueError("the Philox stream exists in the CUDA kernel only")
+        if philox is not None or stamps is not None:
+            raise ValueError("the Philox stream and the stamps exist in the CUDA kernel only")
         return subtree_sample_plain(kernel, f, xi)
+    if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != f.device
+                               or tuple(stamps.shape) != (C, len(kernel.schedule) + 1)
+                               or not stamps.is_contiguous()):
+        raise ValueError(f"stamps must be a contiguous int64 ({C}, {len(kernel.schedule) + 1}) "
+                         f"tensor on {f.device}")
     tensors = {"f": f} if xi is None else {"f": f, "xi": xi}
     for name, t in tensors.items():
         if t.device != kernel.Linv.device:
@@ -451,6 +484,7 @@ def subtree_sample(kernel: SubtreeKernel, f: torch.Tensor, xi: Optional[torch.Te
             raise ValueError(f"{name} must be contiguous")
     noise_mode = 1 if philox is not None else (2 if xi is not None else 0)
     S = kernel._params(C, noise_mode, record, philox)
+    S.stamps = _ptr(stamps)
     plans, sched = kernel._device_plans(C)
     lib = load_library()
     x = torch.empty_like(f)
