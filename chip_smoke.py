@@ -1250,6 +1250,26 @@ def subtree_bound(kernel, C):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), 4 * words
 
 
+def subtree_barriers(kernel):
+    """Block barriers of one launch of the subtree kernel with noise on, as
+    ``csrc/subtree_phases.cuh`` places them: the table copy, per descend the
+    rhs pass, one per colour, ``B^T x``, the Woodbury pass, the residual and
+    the restriction, per ascend the same without the last two, per coarse
+    sample two."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_subtree as st
+
+    count = 1
+    for op, li in kernel.schedule:
+        if op == st.OP_COARSE:
+            count += 2
+            continue
+        lv = kernel.levels[li]
+        colours = len(lv.pre_order if op != st.OP_ASCEND else lv.post_order)
+        lowrank = 2 if lv.op.m_lowrank else 0
+        count += 1 + colours + lowrank + (2 if op != st.OP_ASCEND else 0)
+    return count
+
+
 def check_subtree(device, nx, nlevel, C, n_meas, gen):
     """The subtree kernel against ``subtree_sample_plain``: the flagship's
     levels 1 .. coarsest at ``C`` chains and a 3-level 64x64 case; noise off,
@@ -1360,16 +1380,21 @@ def time_subtree(device, nx, nlevel, C, n_meas, noise):
         kernel, f, torch.randn((C, K), device=device)), 3, 2)
     # where the launch's time goes: thread 0 of each block stamps the card's
     # global timer after each operation of the schedule (the last of three
-    # launches); the operations' sum must agree with the profiler's time
+    # launches).  The stamps' span over all blocks must agree with the
+    # profiler's time; the operations' medians sum to the median block, which
+    # ends before the slowest one
     stamps = torch.zeros((C, len(kernel.schedule) + 1), dtype=torch.int64, device=device)
     for _ in range(3):
         st.subtree_sample(kernel, f, philox=noise.philox_streams(kernel.count_draws()),
                           stamps=stamps)
-    out["per_operation"] = st.operation_times(kernel, stamps)
-    ratio = out["per_operation"]["sum_us"] / 1e3 / out["device_ms"]
-    out["per_operation"]["sum_over_device_ms"] = ratio
+    po = out["per_operation"] = st.operation_times(kernel, stamps)
+    po["sum_over_device_ms"] = po["sum_us"] / 1e3 / out["device_ms"]
+    ratio = po["span_over_device_ms"] = po["launch_span_us"] / 1e3 / out["device_ms"]
     if not 0.9 <= ratio <= 1.1:
-        raise AssertionError(f"subtree stamps: the operations sum to {ratio} of the device time")
+        raise AssertionError(f"subtree stamps: the launch spans {ratio} of the device time")
+    out["barriers_per_launch"] = subtree_barriers(kernel)
+    lib = st.load_library()
+    out["blocks_per_sm"] = lib.mgmc_subtree_blocks_per_sm(kernel.threads, kernel.smem_bytes)
     # other block sizes and placements, the default among them
     default_budget = kernel.smem_budget
     out["variants"] = []
@@ -1378,6 +1403,8 @@ def time_subtree(device, nx, nlevel, C, n_meas, noise):
         k.threads = threads
         out["variants"].append({
             "threads": threads, "shared_bytes": k.placement["shared_bytes"],
+            "dynamic_shared_bytes": k.smem_bytes,
+            "blocks_per_sm": lib.mgmc_subtree_blocks_per_sm(threads, k.smem_bytes),
             "default": threads == kernel.threads and k.smem_budget == default_budget,
             "device_ms": device_ms_per_launch(lambda: k.sample(noise, f), "mgmc_subtree_kernel",
                                               launches=10)})
@@ -2512,6 +2539,10 @@ def main(argv=None) -> int:
         "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "bound_bytes": t["bound_bytes"],
         "library_ms": None, "shape": {"chains": t["chains"], "vshape": t["vshape"]},
+        "design": "launch tables in shared memory, each low-rank term in one pass",
+        "barriers_per_launch": t["barriers_per_launch"], "blocks_per_sm": t["blocks_per_sm"],
+        "per_operation_us": {key: v["total_us"]
+                             for key, v in t["per_operation"]["operations"].items()},
     })
     for k in kernels:
         if k["launches"] < 1:

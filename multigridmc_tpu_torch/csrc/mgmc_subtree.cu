@@ -15,18 +15,24 @@
 //                                             Gibbs sweep, Woodbury)
 //   sample(NL):  x = Linv^T (xi + Linv f)    (coarsest level, exact sample)
 //
-// Design.  One thread block per chain, as the level-visit kernels; the visits
-// ARE the bodies of those kernels (visit_phases.cuh).  The recursion is
-// flattened by the host into a schedule of (operation, level) pairs that the
-// block walks, with __syncthreads() between operations, so the host launches
-// once per step where the composed path launches once per visit and several
-// times per coarse sample.  Each level's x, rhs scratch and f are fields of
-// this chain; where a field lies is decided by the host and handed over as a
-// location: dynamic shared memory (the small levels, where the granted size
-// allows), a global workspace that the L2 holds, or, for the finest
-// sub-level, the launch's own f and x tensors.  The arithmetic is the same.
-// The per-level parameter block (stencil, colours, bounding boxes) is copied
-// into shared memory when the block moves to that level.
+// Design.  One thread block per chain.  The recursion is flattened by the
+// host into a schedule of (operation, level) pairs that the block walks, so
+// the host launches once per step where the composed path launches once per
+// visit and several times per coarse sample.  The visits are those of
+// subtree_phases.cuh: the arithmetic of the level-visit kernels
+// (visit_phases.cuh, whose colour sweep they call), with each low-rank term
+// in one pass.  Each level's x, rhs scratch and f are fields of this chain;
+// where a field lies is decided by the host and handed over as a location:
+// dynamic shared memory (the small levels, where the granted size allows), a
+// global workspace that the L2 holds, or, for the finest sub-level, the
+// launch's own f and x tensors.  The arithmetic is the same.
+//
+// Tables.  At launch start the block copies the host-made tables
+// (mgmc_subtree.py::launch_tables) into the front of its dynamic shared
+// memory: every sub-level's VisitParams of both directions, B and both
+// directions' Y inside their bounding boxes, W, G, 1/Sigma and Sigma^-1/2,
+// and one slot of m floats per warp.  No operation reads a parameter or a
+// low-rank value from device memory after that.
 //
 // The coarse sample is two nc x nc matrix-vector products per chain against
 // the inverse Cholesky factor (Linv and its transpose, both row major, shared
@@ -35,8 +41,11 @@
 //
 // Bound: by bytes the launch must read f and write x of the finest sub-level
 // once per chain; everything else is meant to stay on the chip.  The work is
-// latency: a visit of a 31^2 level is some twenty barrier-separated phases of
-// 961 points.
+// latency: barrier-separated phases of a few hundred to 16,129 points.  A
+// descend has n_order + 5 barriers, an ascend n_order + 3, a coarse sample 2:
+// with the flagship's three 4-colour sub-levels (14 descends, 14 ascends, 8
+// coarse samples) 241 a launch with the table copy, where the column-after-
+// column loops of visit_phases.cuh took 1,564.
 //
 // Noise.  Mode 0 off.  Mode 1: the generator of philox.cuh; every draw of the
 // launch (the field of one sweep, the m low-rank scalars of one sweep, the
@@ -51,7 +60,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "visit_phases.cuh"
+#include "subtree_phases.cuh"
 
 #define MAX_SUB_LEVELS 8
 
@@ -60,7 +69,7 @@
 #define OP_COARSE 2
 #define OP_ASCEND 3
 
-#define LOC_SHARED 0     // dynamic shared memory, offset in floats
+#define LOC_SHARED 0     // dynamic shared memory after the tables, offset in floats
 #define LOC_WORKSPACE 1  // this chain's slice of the global workspace, offset in floats
 #define LOC_LAUNCH 2     // the launch's own tensor (f or x of the finest sub-level)
 
@@ -70,18 +79,19 @@ struct FieldLoc {
     long long off;
 };
 
+// Per sub-level: the planes read per point, where its fields lie, and where
+// its tables lie in shared memory (word offsets from the start of the staged
+// tables; direction 0 the pre / descend sweep, 1 the post / ascend sweep).
 struct SubLevel {
     const float* coeffs;
     const float* ns;
-    const float* B;
-    const float* Y[2];   // pre, post direction
-    const float* Wm[2];
-    const float* sinv;
-    const float* G;
-    const float* lrscale;  // Sigma^-1/2
     FieldLoc x, scr, f;
     int n;
-    int pad;
+    int plan[2];  // VisitParams
+    int bval, boff;
+    int yval[2], yoff[2];
+    int wm[2];
+    int g, sinv, lrscale;
 };
 
 struct SubtreeParams {
@@ -92,15 +102,20 @@ struct SubtreeParams {
     unsigned long long counter;
     SubLevel lv[MAX_SUB_LEVELS];
     FieldLoc cx, cscr, cf;  // the coarsest level's vectors
+    int table_words;        // staged tables at the start of dynamic shared memory (a multiple of 4)
+    int warp_vec;           // word offset of the warps' slots (32 of warp_stride words)
+    int warp_stride;
+    int pad;
     // null, or (C, n_sched + 1): per block the %globaltimer (ns) before the
     // first operation and after each, written by thread 0
     unsigned long long* stamps;
 };
 
-extern __shared__ float dyn_smem[];
+extern __shared__ __align__(16) float dyn_smem[];
 
-__device__ __forceinline__ float* locate(const FieldLoc& L, float* ws, float* launch) {
-    if (L.where == LOC_SHARED) return dyn_smem + L.off;
+__device__ __forceinline__ float* locate(const SubtreeParams& S, const FieldLoc& L, float* ws,
+                                         float* launch) {
+    if (L.where == LOC_SHARED) return dyn_smem + S.table_words + L.off;
     if (L.where == LOC_WORKSPACE) return ws + L.off;
     return launch;
 }
@@ -113,143 +128,124 @@ __device__ __forceinline__ void stamp(const SubtreeParams& S, int chain, int slo
     }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    return v;
+__device__ __forceinline__ LowRank level_tables(const SubLevel& L, int dir) {
+    const float* t = dyn_smem;
+    return {t + L.bval, reinterpret_cast<const int*>(t + L.boff), t + L.yval[dir],
+            reinterpret_cast<const int*>(t + L.yoff[dir]), t + L.wm[dir], t + L.g, t + L.sinv,
+            t + L.lrscale};
 }
 
-// x = Linv^T (xi + Linv f) for one chain; g holds xi, then xi + Linv f.
-// Ends with a barrier.
+// x = Linv^T (xi + Linv f) for one chain; g takes xi + Linv f.  One warp per
+// output row, lanes along the row, only the triangle that is nonzero; the
+// normal of row i is drawn by lane t of the warp that owns it (its t-th row)
+// and handed to lane 0 by a shuffle.  Two barriers.
 __device__ void coarse_sample(const SubtreeParams& S, int chain, const float* __restrict__ Linv,
                               const float* __restrict__ LinvT, const float* f, float* g,
                               float* x, float* xi, long long cur, unsigned long long draw) {
     const int nc = S.nc;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-    if (S.noise_mode == 1) {
-        for (int q4 = threadIdx.x; q4 < (nc + 3) >> 2; q4 += blockDim.x) {
-            float z[4];
-            philox_normals4((uint32_t)q4, (uint32_t)chain, S.seed, S.counter + draw, z);
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-                const int j = 4 * q4 + q;
-                if (j >= nc) break;
-                g[j] = z[q];
-                if (S.record) xi[cur + j] = z[q];
+    for (int i0 = warp; i0 < nc; i0 += 32 * nwarps) {
+        float z = 0.0f;  // the normal of row i0 + lane * nwarps
+        const int iz = i0 + lane * nwarps;
+        if (iz < nc) {
+            if (S.noise_mode == 1) {
+                float z4[4];
+                philox_normals4((uint32_t)(iz >> 2), (uint32_t)chain, S.seed, S.counter + draw, z4);
+                const int q = iz & 3;
+                z = q == 0 ? z4[0] : (q == 1 ? z4[1] : (q == 2 ? z4[2] : z4[3]));
+                if (S.record) xi[cur + iz] = z;
+            } else if (S.noise_mode == 2) {
+                z = xi[cur + iz];
             }
         }
-    } else {
-        for (int j = threadIdx.x; j < nc; j += blockDim.x)
-            g[j] = (S.noise_mode == 2) ? xi[cur + j] : 0.0f;
-    }
-    __syncthreads();
-    // g[i] += sum_{j <= i} Linv[i, j] f[j]
-    for (int i = warp; i < nc; i += nwarps) {
-        float acc = 0.0f;
-        for (int j = lane; j <= i; j += 32) acc += Linv[(size_t)i * nc + j] * f[j];
-        acc = warp_sum(acc);
-        if (lane == 0) g[i] = g[i] + acc;
+        for (int t = 0; t < 32; ++t) {
+            const int i = i0 + t * nwarps;
+            if (i >= nc) break;  // the same for the whole warp
+            // g[i] = z_i + sum_{j <= i} Linv[i, j] f[j]
+            float acc = 0.0f;
+            for (int j = lane; j <= i; j += 32) acc += Linv[(size_t)i * nc + j] * f[j];
+            acc = warp_total(acc);
+            const float zi = __shfl_sync(0xffffffffu, z, t);
+            if (lane == 0) g[i] = zi + acc;
+        }
     }
     __syncthreads();
     // x[j] = sum_{i >= j} Linv[i, j] g[i], read from the transpose's row j
     for (int j = warp; j < nc; j += nwarps) {
         float acc = 0.0f;
         for (int i = j + lane; i < nc; i += 32) acc += LinvT[(size_t)j * nc + i] * g[i];
-        acc = warp_sum(acc);
+        acc = warp_total(acc);
         if (lane == 0) x[j] = acc;
     }
     __syncthreads();
 }
 
 __global__ void __launch_bounds__(MAX_THREADS)
-mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const VisitParams* __restrict__ plans,
+mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const int4* __restrict__ tables,
                     const int* __restrict__ sched, const float* __restrict__ Linv,
                     const float* __restrict__ LinvT, const float* f_all, float* x_all,
                     float* ws_all, float* xi_all) {
-    __shared__ VisitParams sP;
-    __shared__ float s_red[33];
     __shared__ float s_btx[MAX_LOWRANK];
-    __shared__ float s_lr[MAX_LOWRANK];
-    __shared__ float s_u[MAX_LOWRANK];
     const int chain = blockIdx.x;
     const int n0 = S.lv[0].n;
     float* ws = ws_all + (size_t)chain * S.ws_stride;
     float* f_launch = const_cast<float*>(f_all) + (size_t)chain * n0;  // only read
     float* x_launch = x_all + (size_t)chain * n0;
     float* xi = xi_all ? xi_all + (size_t)chain * S.xi_stride : nullptr;
+    float* wv = dyn_smem + S.warp_vec + (threadIdx.x >> 5) * S.warp_stride;  // this warp's slot
     long long cur = 0;            // normals this chain has consumed
     unsigned long long draw = 0;  // draws of the launch so far
 
+    // the launch's tables, once
+    int4* tab = reinterpret_cast<int4*>(dyn_smem);
+    for (int q = threadIdx.x; q < S.table_words / 4; q += blockDim.x) tab[q] = tables[q];
     if (S.lv[0].f.where != LOC_LAUNCH) {
-        float* f0 = locate(S.lv[0].f, ws, nullptr);
+        float* f0 = locate(S, S.lv[0].f, ws, nullptr);
         for (int p = threadIdx.x; p < n0; p += blockDim.x) f0[p] = f_launch[p];
-        __syncthreads();
     }
+    __syncthreads();
     stamp(S, chain, 0);
 
     for (int s = 0; s < S.n_sched; ++s) {
         const int op = sched[2 * s], li = sched[2 * s + 1];
         if (op == OP_COARSE) {
-            coarse_sample(S, chain, Linv, LinvT, locate(S.cf, ws, nullptr),
-                          locate(S.cscr, ws, nullptr), locate(S.cx, ws, nullptr), xi, cur, draw);
+            coarse_sample(S, chain, Linv, LinvT, locate(S, S.cf, ws, nullptr),
+                          locate(S, S.cscr, ws, nullptr), locate(S, S.cx, ws, nullptr), xi, cur,
+                          draw);
             if (S.noise_mode) { cur += S.nc; draw += 1; }
             stamp(S, chain, s + 1);
             continue;
         }
         const SubLevel& L = S.lv[li];
         const int dir = (op == OP_ASCEND) ? 1 : 0;
-        {   // this level's parameter block, then this visit's stream
-            const int* src = reinterpret_cast<const int*>(plans + 2 * li + dir);
-            int* dst = reinterpret_cast<int*>(&sP);
-            for (int q = threadIdx.x; q < (int)(sizeof(VisitParams) / sizeof(int)); q += blockDim.x)
-                dst[q] = src[q];
-        }
-        __syncthreads();
-        if (threadIdx.x == 0) {
-            sP.noise_mode = S.noise_mode;
-            sP.seed = S.seed;
-            sP.counter = S.counter + draw;
-        }
-        const int n = L.n, m = sP.m;
-        float* x = locate(L.x, ws, x_launch);
-        float* scr = locate(L.scr, ws, nullptr);
-        const float* f = locate(L.f, ws, f_launch);
-        if (op == OP_DESCEND_ZERO)
-            for (int p = threadIdx.x; p < n; p += blockDim.x) x[p] = 0.0f;
-        if (S.noise_mode && threadIdx.x < m) {  // the m low-rank normals of this sweep
-            float z;
-            if (S.noise_mode == 1) {
-                float z4[4];
-                philox_normals4((uint32_t)(threadIdx.x >> 2), (uint32_t)chain, S.seed,
-                                S.counter + draw + 1, z4);
-                const int q = threadIdx.x & 3;
-                z = q == 0 ? z4[0] : (q == 1 ? z4[1] : (q == 2 ? z4[2] : z4[3]));
-                if (S.record) xi[cur + n + threadIdx.x] = z;
-            } else {
-                z = xi[cur + n + threadIdx.x];
-            }
-            s_lr[threadIdx.x] = L.lrscale[threadIdx.x] * z;
-        }
-        __syncthreads();
+        const VisitParams& P = *reinterpret_cast<const VisitParams*>(dyn_smem + L.plan[dir]);
+        const LowRank T = level_tables(L, dir);
+        const int n = L.n, m = P.m;
+        float* x = locate(S, L.x, ws, x_launch);
+        float* scr = locate(S, L.scr, ws, nullptr);
+        const float* f = locate(S, L.f, ws, f_launch);
         const float* xi_in = (S.noise_mode == 2) ? xi + cur : nullptr;
         float* xi_rec = (S.noise_mode == 1 && S.record) ? xi + cur : nullptr;
+        if (S.noise_mode && m)  // the m low-rank normals of this sweep, after its field
+            lowrank_normals(T, m, chain, S.noise_mode, S.seed, S.counter + draw + 1,
+                            xi_in ? xi_in + n : nullptr, xi_rec ? xi_rec + n : nullptr, wv);
         const bool last = li + 1 == S.NL;
         if (dir == 0) {
-            float* fc = locate(last ? S.cf : S.lv[li + 1].f, ws, nullptr);
-            descend_body(sP, chain, x, f, scr, fc, L.coeffs, L.ns, L.B, L.Y[0], L.Wm[0], L.sinv,
-                         L.G, xi_in, xi_rec, s_red, s_btx, s_lr, s_u);
+            float* fc = locate(S, last ? S.cf : S.lv[li + 1].f, ws, nullptr);
+            subtree_descend(P, T, chain, S.noise_mode, S.seed, S.counter + draw,
+                            op == OP_DESCEND_ZERO, x, f, scr, fc, L.coeffs, L.ns, xi_in, xi_rec,
+                            wv, s_btx);
         } else {
-            const float* xc = locate(last ? S.cx : S.lv[li + 1].x, ws, nullptr);
-            ascend_body(sP, chain, x, f, scr, xc, L.coeffs, L.ns, L.B, L.Y[1], L.Wm[1], xi_in,
-                        xi_rec, s_red, s_btx, s_lr, s_u);
+            const float* xc = locate(S, last ? S.cx : S.lv[li + 1].x, ws, nullptr);
+            subtree_ascend(P, T, chain, S.noise_mode, S.seed, S.counter + draw, x, f, scr, xc,
+                           L.coeffs, L.ns, xi_in, xi_rec, wv, s_btx);
         }
-        __syncthreads();
         if (S.noise_mode) { cur += n + m; draw += m ? 2 : 1; }
         stamp(S, chain, s + 1);
     }
 
     if (S.lv[0].x.where != LOC_LAUNCH) {
-        const float* x0 = locate(S.lv[0].x, ws, nullptr);
+        const float* x0 = locate(S, S.lv[0].x, ws, nullptr);
         for (int p = threadIdx.x; p < n0; p += blockDim.x) x_launch[p] = x0[p];
     }
 }
@@ -259,10 +255,38 @@ extern "C" int mgmc_subtree_params_size() { return (int)sizeof(SubtreeParams); }
 
 extern "C" int mgmc_subtree_visit_params_size() { return (int)sizeof(VisitParams); }
 
-extern "C" int mgmc_subtree_sample(const SubtreeParams* S, const VisitParams* plans,
-                                   const int* sched, const float* Linv, const float* LinvT,
-                                   const float* f, float* x, float* ws, float* xi, int threads,
-                                   int smem_bytes, void* stream) {
+// the kernel's static shared memory in bytes, or -1
+extern "C" int mgmc_subtree_static_smem() {
+    cudaFuncAttributes a;
+    if (cudaFuncGetAttributes(&a, mgmc_subtree_kernel) != cudaSuccess) {
+        cudaGetLastError();
+        return -1;
+    }
+    return (int)a.sharedSizeBytes;
+}
+
+// blocks of `threads` with `smem_bytes` of dynamic shared memory that one SM
+// holds at once, or -1
+extern "C" int mgmc_subtree_blocks_per_sm(int threads, int smem_bytes) {
+    if (smem_bytes > 48 * 1024 &&
+        cudaFuncSetAttribute(mgmc_subtree_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes) != cudaSuccess) {
+        cudaGetLastError();
+        return -1;
+    }
+    int blocks = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mgmc_subtree_kernel, threads,
+                                                      smem_bytes) != cudaSuccess) {
+        cudaGetLastError();
+        return -1;
+    }
+    return blocks;
+}
+
+extern "C" int mgmc_subtree_sample(const SubtreeParams* S, const void* tables, const int* sched,
+                                   const float* Linv, const float* LinvT, const float* f, float* x,
+                                   float* ws, float* xi, int threads, int smem_bytes,
+                                   void* stream) {
     if (smem_bytes > 48 * 1024) {  // above what needs no opt-in
         cudaError_t e = cudaFuncSetAttribute(
             mgmc_subtree_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -272,6 +296,6 @@ extern "C" int mgmc_subtree_sample(const SubtreeParams* S, const VisitParams* pl
         }
     }
     mgmc_subtree_kernel<<<S->C, threads, smem_bytes, (cudaStream_t)stream>>>(
-        *S, plans, sched, Linv, LinvT, f, x, ws, xi);
+        *S, static_cast<const int4*>(tables), sched, Linv, LinvT, f, x, ws, xi);
     return (int)cudaGetLastError();
 }

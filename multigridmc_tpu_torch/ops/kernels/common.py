@@ -41,7 +41,7 @@ CSRC_DIR = _PACKAGE_DIR / "csrc"
 BUILD_DIR = _PACKAGE_DIR / "build"
 
 #: headers under ``csrc/`` that the kernel sources include
-HEADERS = ("philox.cuh", "visit_phases.cuh", "sor_sweep.cuh")
+HEADERS = ("philox.cuh", "visit_phases.cuh", "subtree_phases.cuh", "sor_sweep.cuh")
 
 #: every kernel source under ``csrc/`` (``<name>.cu``); :func:`build_libraries`
 #: compiles them in parallel

@@ -19,19 +19,28 @@ Gibbs sweep, Woodbury).  The coarse sample by the inverse factor has the same
 law as the triangular solves of ``DenseCholeskySampler`` and, fed the same
 normals, the same value up to rounding; the factor is inverted in float64.
 
-The CUDA source is ``csrc/mgmc_subtree.cu`` (one thread block per chain walking
-a host-made schedule; its header comment states the design).  The host decides
-where each level's three fields (``x``, the rhs scratch, ``f``) lie
-(:func:`place_fields`): in dynamic shared memory from the coarsest level
-upwards while the granted size (:func:`~.common.dynamic_smem_limit`) allows, else
-in a global workspace; the size the placement needs is confirmed with the probe
-kernel (:func:`~.common.probe_dynamic_smem`) and :attr:`SubtreeKernel.placement`
-says what lies where.
+The CUDA source is ``csrc/mgmc_subtree.cu`` with the visits of
+``csrc/subtree_phases.cuh`` (one thread block per chain walking a host-made
+schedule; the header comments state the design).  At launch start the block
+copies the tables of :func:`launch_tables` (the levels' parameter blocks, ``B``
+and both directions' ``Y`` inside their bounding boxes, ``W``, ``G``,
+``1/Sigma``, ``Sigma^-1/2``) into its shared memory, and each low-rank term is
+one pass in which the owner of a point adds the columns that hold it, in
+column order.  The host decides where each level's three fields (``x``, the
+rhs scratch, ``f``) lie (:func:`place_fields`): in dynamic shared memory after
+the tables, from the coarsest level upwards while the granted size
+(:func:`~.common.dynamic_smem_limit`, less :func:`field_budget`'s shares)
+allows, else in a global workspace; the size the launch needs is confirmed with
+the probe kernel (:func:`~.common.probe_dynamic_smem`) and
+:attr:`SubtreeKernel.placement` says what lies where.
 
 **Bound.**  By bytes the launch must read ``f`` and write ``x`` of the finest
 sub-level once per chain (``2 C n_0 4`` bytes); by operations it does
 ``cycle^(l+1)`` visits of each level ``l``.  It is latency that the kernel
-pays: a visit of a 31^2 level is some twenty barrier-separated phases.
+pays: a descend is ``n_order + 5`` barrier-separated phases, an ascend
+``n_order + 3``, a coarse sample 2 (241 a launch on the flagship's
+4-colour sub-levels, where column-after-column low-rank loops took 1,564).
+:func:`operation_times` reads where a launch's time went from its ``stamps``.
 
 Beside the kernel stands its **plain PyTorch version**
 (:func:`subtree_sample_plain`), the same schedule walked with
@@ -105,14 +114,17 @@ class FieldLoc(ctypes.Structure):
 
 
 class SubLevel(ctypes.Structure):
-    """Mirror of ``struct SubLevel`` in ``csrc/mgmc_subtree.cu``."""
+    """Mirror of ``struct SubLevel`` in ``csrc/mgmc_subtree.cu``: the planes read
+    per point, where the fields lie, and the word offsets of the level's
+    tables in shared memory (:func:`launch_tables`)."""
 
     _fields_ = [
-        ("coeffs", ctypes.c_void_p), ("ns", ctypes.c_void_p), ("B", ctypes.c_void_p),
-        ("Y", ctypes.c_void_p * 2), ("Wm", ctypes.c_void_p * 2),
-        ("sinv", ctypes.c_void_p), ("G", ctypes.c_void_p), ("lrscale", ctypes.c_void_p),
+        ("coeffs", ctypes.c_void_p), ("ns", ctypes.c_void_p),
         ("x", FieldLoc), ("scr", FieldLoc), ("f", FieldLoc),
-        ("n", ctypes.c_int), ("pad", ctypes.c_int),
+        ("n", ctypes.c_int), ("plan", ctypes.c_int * 2), ("bval", ctypes.c_int),
+        ("boff", ctypes.c_int), ("yval", ctypes.c_int * 2), ("yoff", ctypes.c_int * 2),
+        ("wm", ctypes.c_int * 2), ("g", ctypes.c_int), ("sinv", ctypes.c_int),
+        ("lrscale", ctypes.c_int),
     ]
 
 
@@ -126,6 +138,8 @@ class SubtreeParams(ctypes.Structure):
         ("seed", ctypes.c_ulonglong), ("counter", ctypes.c_ulonglong),
         ("lv", SubLevel * MAX_SUB_LEVELS),
         ("cx", FieldLoc), ("cscr", FieldLoc), ("cf", FieldLoc),
+        ("table_words", ctypes.c_int), ("warp_vec", ctypes.c_int),
+        ("warp_stride", ctypes.c_int), ("pad", ctypes.c_int),
         ("stamps", ctypes.c_void_p),
     ]
 
@@ -135,14 +149,21 @@ def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel's shared library."""
     lib = open_library(SOURCE_NAME)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.mgmc_subtree_params_size, lib.mgmc_subtree_visit_params_size):
+    for fn in (lib.mgmc_subtree_params_size, lib.mgmc_subtree_visit_params_size,
+               lib.mgmc_subtree_static_smem):
         fn.argtypes = []
         fn.restype = i32
     if lib.mgmc_subtree_params_size() != ctypes.sizeof(SubtreeParams):
         raise RuntimeError("SubtreeParams layout differs between Python and CUDA")
     if lib.mgmc_subtree_visit_params_size() != ctypes.sizeof(VisitParams):
         raise RuntimeError("VisitParams layout differs between Python and CUDA")
-    # S, plans, sched, Linv, LinvT, f, x, ws, xi, threads, smem_bytes, stream
+    static = lib.mgmc_subtree_static_smem()
+    if not 0 <= static <= STATIC_SMEM_RESERVE:
+        raise RuntimeError(f"the subtree kernel declares {static} bytes of static shared "
+                           f"memory, more than the {STATIC_SMEM_RESERVE} kept for it")
+    lib.mgmc_subtree_blocks_per_sm.argtypes = [i32, i32]
+    lib.mgmc_subtree_blocks_per_sm.restype = i32
+    # S, tables, sched, Linv, LinvT, f, x, ws, xi, threads, smem_bytes, stream
     lib.mgmc_subtree_sample.argtypes = (
         [ctypes.POINTER(SubtreeParams)] + [ptr] * 8 + [i32, i32, ptr])
     lib.mgmc_subtree_sample.restype = i32
@@ -208,6 +229,73 @@ def place_fields(level_sizes: Sequence[int], nc: int, budget_bytes: int):
     return levels, coarse, smem, ws
 
 
+def _staged_boxes(fields, boxes) -> Tuple[np.ndarray, np.ndarray]:
+    """The values of each 2d field ``fields[k]`` inside ``boxes[k]`` (row major,
+    column after column) as float32, and the ``m + 1`` starts of the columns."""
+    vals = [np.zeros(0, np.float32)]
+    if fields is not None:
+        F = fields.detach().cpu().to(torch.float32).numpy()
+        vals += [F[k, i0:i1, j0:j1].reshape(-1) for k, (i0, i1, j0, j1) in enumerate(boxes)]
+    starts = np.cumsum([0] + [v.size for v in vals[1:]]).astype(np.int32)
+    return np.concatenate(vals), starts
+
+
+def _small(t) -> np.ndarray:
+    return np.zeros(0, np.float32) if t is None else (
+        t.detach().cpu().to(torch.float32).numpy().reshape(-1))
+
+
+def launch_tables(levels: Sequence[FusedVisitLevel]):
+    """What the kernel copies into shared memory once per launch, as 32-bit
+    words: per sub-level the ``VisitParams`` of both directions (the pre sweep
+    of the descend, the post sweep of the ascend; their chain count is not
+    read), ``B_k`` inside ``bbox_k`` and ``Y_k`` of both directions inside
+    their ``ybox_k`` (each box row major, column after column, with the ``m +
+    1`` starts of the columns), ``W`` of both directions, ``G``, ``1 / Sigma``
+    and ``Sigma^-1/2``; then 32 warps' slots of the largest ``m`` words each.
+
+    Returns ``(words, offsets, warp_vec, warp_stride)``: ``words`` an int32
+    array whose length is a multiple of 4, ``offsets`` per level a dict of the
+    word offsets that ``SubLevel`` holds (``plan``, ``yval``, ``yoff`` and
+    ``wm`` per direction)."""
+    parts: List[np.ndarray] = []
+    n = 0
+
+    def put(a: np.ndarray) -> int:
+        nonlocal n
+        a = np.ascontiguousarray(a).view(np.int32).reshape(-1)
+        parts.append(a)
+        n += a.size
+        return n - a.size
+
+    offsets = [{} for _ in levels]
+    for lv, off in zip(levels, offsets):  # first the parameter blocks: 8-byte aligned
+        off["plan"] = [put(np.frombuffer(bytes(lv._build_params(1, order, True, 0)), np.int32))
+                       for order in (lv.pre_order, lv.post_order)]
+    for lv, off in zip(levels, offsets):
+        bval, boff = _staged_boxes(lv.B, lv.bbox)
+        off["bval"], off["boff"] = put(bval), put(boff)
+        off["yval"], off["yoff"], off["wm"] = [], [], []
+        for order in (lv.pre_order, lv.post_order):
+            Y, W, ybox = lv._woodbury[order]
+            yval, yoff = _staged_boxes(Y, ybox)
+            off["yval"].append(put(yval))
+            off["yoff"].append(put(yoff))
+            off["wm"].append(put(_small(W)))
+        off["g"], off["sinv"] = put(_small(lv.G_pre)), put(_small(lv.sigma_inv))
+        off["lrscale"] = put(_small(lv.lr_scale))
+    warp_stride = max([lv.op.m_lowrank for lv in levels] + [1])
+    warp_vec = put(np.zeros(32 * warp_stride, np.float32))
+    put(np.zeros(-n % 4, np.int32))
+    return np.concatenate(parts), offsets, warp_vec, warp_stride
+
+
+def field_budget(limit_bytes: int, table_words: int) -> int:
+    """Bytes of dynamic shared memory left for the fields when a block may
+    have ``limit_bytes``: less the kernel's static share and the tables."""
+    return max(int(limit_bytes) - STATIC_SMEM_RESERVE - 4 * int(table_words), 0)
+
+
 class SubtreeKernel:
     """Precomputed arrays and statics of the subtree below the finest level.
 
@@ -217,9 +305,9 @@ class SubtreeKernel:
     factor of the coarsest level's full precision.  Per sub-level a
     :class:`~.mgmc_visit.FusedVisitLevel` holds what the visits need: the
     coefficient plan, the noise scale, ``B``, both directions' Woodbury factors
-    in factored form, ``G`` and ``1/Sigma``.  ``smem_budget`` (bytes; default:
-    what the card grants, less the kernel's static share) bounds the fields
-    placed in shared memory."""
+    in factored form, ``G`` and ``1/Sigma``; :func:`launch_tables` stages them.
+    ``smem_budget`` (bytes; default: what the card grants, less the kernel's
+    static share and the tables) bounds the fields placed in shared memory."""
 
     def __init__(self, operators, presmoothers, postsmoothers, coarse_L, omega: float,
                  cycle: int, coarse_scaling: float, smem_budget: Optional[int] = None):
@@ -252,21 +340,23 @@ class SubtreeKernel:
         self.level_sizes = [int(np.prod(lv.op.vshape)) for lv in self.levels]
         #: threads per block: by the finest sub-level's size, as the visit kernels
         self.threads = min(default_threads(self.level_sizes[0]), MAX_THREADS)
+        self._tables, self._table_offsets, self._warp_vec, self._warp_stride = (
+            launch_tables(self.levels))
         # the placement under the card's limit; if the probe is refused the
         # shared memory this placement needs, the one that needs no opt-in
+        table_words = self._tables.size
         budgets = [smem_budget] if smem_budget is not None else [
-            dynamic_smem_limit(self.device) - STATIC_SMEM_RESERVE,
-            DEFAULT_SMEM_BYTES - STATIC_SMEM_RESERVE]
+            field_budget(dynamic_smem_limit(self.device), table_words),
+            field_budget(DEFAULT_SMEM_BYTES, table_words)]
         for budget in budgets:
             self.smem_budget = max(int(budget), 0)
             (self._level_locs, self._coarse_locs, self._smem_floats,
              self._ws_floats) = place_fields(self.level_sizes, self.nc, self.smem_budget)
-            if probe_dynamic_smem(max(4 * self._smem_floats + STATIC_SMEM_RESERVE, 4096),
-                                  self.device):
+            if probe_dynamic_smem(self.smem_bytes + STATIC_SMEM_RESERVE, self.device):
                 break
         else:
-            raise RuntimeError(f"{4 * self._smem_floats} bytes of dynamic shared memory for "
-                               "the subtree kernel's fields were refused")
+            raise RuntimeError(f"{self.smem_bytes} bytes of dynamic shared memory for the "
+                               "subtree kernel's tables and fields were refused")
         self._device_cache = {}
 
     # ------------------------------------------------------------- statics
@@ -297,6 +387,12 @@ class SubtreeKernel:
         return shapes
 
     @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of a launch: the tables, then the fields
+        placed there."""
+        return 4 * (self._tables.size + self._smem_floats)
+
+    @property
     def placement(self) -> dict:
         """Where the kernel keeps each level's fields, and the bytes of
         dynamic shared memory and workspace per chain."""
@@ -307,6 +403,7 @@ class SubtreeKernel:
                      **{name: LOC_NAMES[loc[0]]
                         for name, loc in zip(("x", "scratch", "f"), self._coarse_locs)}})
         return {"levels": rows, "shared_bytes": 4 * self._smem_floats,
+                "table_bytes": 4 * self._tables.size, "dynamic_shared_bytes": self.smem_bytes,
                 "workspace_bytes_per_chain": 4 * self._ws_floats,
                 "shared_budget_bytes": self.smem_budget, "threads": self.threads}
 
@@ -328,18 +425,13 @@ class SubtreeKernel:
         return subtree_sample(self, f, xi=xi)
 
     # -------------------------------------------------- kernel parameters
-    def _device_plans(self, C: int):
-        """Per launch width: the levels' parameter blocks (descend, ascend per
-        level) and the schedule as device tensors."""
-        cached = self._device_cache.get(C)
-        if cached is None:
-            blocks = b"".join(
-                bytes(lv._build_params(C, order, True, 0))
-                for lv in self.levels for order in (lv.pre_order, lv.post_order))
-            plans = torch.frombuffer(bytearray(blocks), dtype=torch.uint8).to(self.device)
-            sched = torch.tensor(self.schedule, dtype=torch.int32).reshape(-1).to(self.device)
-            cached = self._device_cache[C] = (plans, sched)
-        return cached
+    def _device_tables(self):
+        """The launch tables and the schedule as device tensors."""
+        if "tables" not in self._device_cache:
+            self._device_cache["tables"] = (
+                torch.from_numpy(self._tables).to(self.device),
+                torch.tensor(self.schedule, dtype=torch.int32).reshape(-1).to(self.device))
+        return self._device_cache["tables"]
 
     def _params(self, C: int, noise_mode: int, record: bool, philox) -> SubtreeParams:
         key = ("params", C, noise_mode, bool(record))
@@ -354,13 +446,17 @@ class SubtreeKernel:
         S.C, S.NL, S.n_sched = C, len(self.levels), len(self.schedule)
         S.noise_mode, S.nc, S.record = noise_mode, self.nc, int(record)
         S.ws_stride, S.xi_stride = self._ws_floats, self.count_noise()
-        for li, (lv, locs) in enumerate(zip(self.levels, self._level_locs)):
+        S.table_words, S.warp_vec, S.warp_stride = (
+            self._tables.size, self._warp_vec, self._warp_stride)
+        for li, (lv, locs, offs) in enumerate(zip(self.levels, self._level_locs,
+                                                  self._table_offsets)):
             D = S.lv[li]
-            D.coeffs, D.ns, D.B = _ptr(lv.coeffs), _ptr(lv.noise_scale), _ptr(lv.B)
-            for d, order in enumerate((lv.pre_order, lv.post_order)):
-                Y, W, _ = lv._woodbury[order]
-                D.Y[d], D.Wm[d] = _ptr(Y), _ptr(W)
-            D.sinv, D.G, D.lrscale = _ptr(lv.sigma_inv), _ptr(lv.G_pre), _ptr(lv.lr_scale)
+            D.coeffs, D.ns = _ptr(lv.coeffs), _ptr(lv.noise_scale)
+            for name, value in offs.items():
+                if isinstance(value, list):
+                    getattr(D, name)[:] = value
+                else:
+                    setattr(D, name, value)
             for name, (where, off) in zip(("x", "scr", "f"), locs):
                 loc = getattr(D, name)
                 loc.where, loc.off = where, off
@@ -376,8 +472,9 @@ def operation_times(kernel: "SubtreeKernel", stamps) -> dict:
     :func:`subtree_sample`): per (operation, level shape) of the schedule the
     number of such operations, the median over them of their time (each the
     median over the blocks) and the sum of those, in microseconds; ``sum_us``
-    over every operation, and the median over the blocks of the time from the
-    first stamp to the last (``block_span_us``)."""
+    over every operation, the median over the blocks of the time from the
+    first stamp to the last (``block_span_us``) and the time from the first
+    block's first stamp to the last block's last (``launch_span_us``)."""
     t = np.asarray(torch.as_tensor(stamps).cpu().numpy(), dtype=np.float64)
     per_op = np.median(np.diff(t, axis=1), axis=0) / 1e3
     groups: Dict[str, List[float]] = {}
@@ -387,7 +484,8 @@ def operation_times(kernel: "SubtreeKernel", stamps) -> dict:
     return {"operations": {key: {"count": len(v), "median_us": float(np.median(v)),
                                  "total_us": float(np.sum(v))} for key, v in groups.items()},
             "sum_us": float(per_op.sum()),
-            "block_span_us": float(np.median(t[:, -1] - t[:, 0]) / 1e3)}
+            "block_span_us": float(np.median(t[:, -1] - t[:, 0]) / 1e3),
+            "launch_span_us": float((t[:, -1].max() - t[:, 0].min()) / 1e3)}
 
 
 # ------------------------------------------------------------- plain version
@@ -485,7 +583,7 @@ def subtree_sample(kernel: SubtreeKernel, f: torch.Tensor, xi: Optional[torch.Te
     noise_mode = 1 if philox is not None else (2 if xi is not None else 0)
     S = kernel._params(C, noise_mode, record, philox)
     S.stamps = _ptr(stamps)
-    plans, sched = kernel._device_plans(C)
+    tables, sched = kernel._device_tables()
     lib = load_library()
     x = torch.empty_like(f)
     ws = torch.empty((C, max(kernel._ws_floats, 1)), dtype=torch.float32, device=f.device)
@@ -494,9 +592,9 @@ def subtree_sample(kernel: SubtreeKernel, f: torch.Tensor, xi: Optional[torch.Te
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mgmc_subtree_sample(
-            ctypes.byref(S), plans.data_ptr(), sched.data_ptr(), kernel.Linv.data_ptr(),
+            ctypes.byref(S), tables.data_ptr(), sched.data_ptr(), kernel.Linv.data_ptr(),
             kernel.LinvT.data_ptr(), f.data_ptr(), x.data_ptr(), ws.data_ptr(), _ptr(xi),
-            kernel.threads, 4 * kernel._smem_floats, stream)
+            kernel.threads, kernel.smem_bytes, stream)
     launch_counts["subtree_sample"] += 1
     if err != 0:
         raise RuntimeError(f"subtree kernel launch failed: CUDA error {err}")

@@ -205,14 +205,19 @@ def test_kernel_parameter_blocks(samplers):
 
     kernel = samplers[(True, False)].subtree
     assert ctypes.sizeof(st.FieldLoc) == 16
-    assert ctypes.sizeof(st.SubLevel) == 10 * 8 + 3 * 16 + 8
-    assert ctypes.sizeof(st.SubtreeParams) == 56 + 8 * ctypes.sizeof(st.SubLevel) + 48 + 8
+    assert ctypes.sizeof(st.SubLevel) == 2 * 8 + 3 * 16 + 14 * 4
+    assert ctypes.sizeof(st.SubtreeParams) == 56 + 8 * ctypes.sizeof(st.SubLevel) + 48 + 16 + 8
     S = kernel._build_params(3, 2, False)
     assert (S.C, S.NL, S.n_sched, S.noise_mode, S.nc) == (3, 2, len(kernel.schedule), 2, 9)
     assert S.xi_stride == kernel.count_noise() and S.lv[0].n == 225 and S.lv[1].n == 49
     assert S.lv[0].x.where == st.LOC_SHARED  # 45 KB budget on the CPU: everything fits
-    plans, sched = kernel._device_plans(3)
-    assert plans.numel() == 4 * ctypes.sizeof(st.VisitParams) and sched.numel() == 2 * S.n_sched
+    tables, sched = kernel._device_tables()
+    assert tables.numel() == S.table_words and S.table_words % 4 == 0
+    assert sched.numel() == 2 * S.n_sched
+    # the parameter blocks come first, one per level and direction, 8-byte aligned
+    words = ctypes.sizeof(st.VisitParams) // 4
+    assert [list(S.lv[li].plan) for li in range(2)] == [[0, words], [2 * words, 3 * words]]
+    assert S.warp_stride == 4 and S.warp_vec + 32 * 4 <= S.table_words
     placement = kernel.placement
     assert placement["threads"] == 256 and placement["workspace_bytes_per_chain"] == 0
     assert [row["vshape"] for row in placement["levels"]] == [[15, 15], [7, 7], [3, 3]]
