@@ -20,8 +20,8 @@
 // the host launches once per step where the composed path launches once per
 // visit and several times per coarse sample.  The visits are those of
 // subtree_phases.cuh: the arithmetic of the level-visit kernels
-// (visit_phases.cuh, whose colour sweep they call), with each low-rank term
-// in one pass.  Each level's x, rhs scratch and f are fields of this chain;
+// (visit_phases.cuh), with each low-rank term in one pass, the 3x3 stencil in
+// registers and the sweep's rows balanced over the warps.  Each level's x, rhs scratch and f are fields of this chain;
 // where a field lies is decided by the host and handed over as a location:
 // dynamic shared memory (the small levels, where the granted size allows), a
 // global workspace that the L2 holds, or, for the finest sub-level, the
@@ -31,8 +31,9 @@
 // (mgmc_subtree.py::launch_tables) into the front of its dynamic shared
 // memory: every sub-level's VisitParams of both directions, B and both
 // directions' Y inside their bounding boxes, W, G, 1/Sigma and Sigma^-1/2,
-// and one slot of m floats per warp.  No operation reads a parameter or a
-// low-rank value from device memory after that.
+// the rows that hold each colour of each sweep, and one slot of m floats per
+// warp.  No operation reads a parameter or a low-rank value from device
+// memory after that.
 //
 // The coarse sample is two nc x nc matrix-vector products per chain against
 // the inverse Cholesky factor (Linv and its transpose, both row major, shared
@@ -40,12 +41,14 @@
 // row, a shuffle tree, only the triangle that is nonzero.
 //
 // Bound: by bytes the launch must read f and write x of the finest sub-level
-// once per chain; everything else is meant to stay on the chip.  The work is
-// latency: barrier-separated phases of a few hundred to 16,129 points.  A
-// descend has n_order + 5 barriers, an ascend n_order + 3, a coarse sample 2:
-// with the flagship's three 4-colour sub-levels (14 descends, 14 ascends, 8
-// coarse samples) 241 a launch with the table copy, where the column-after-
-// column loops of visit_phases.cuh took 1,564.
+// once per chain; everything else is meant to stay on the chip.  What the
+// kernel pays is the instructions it issues per point on 32 warps of an SM
+// (two blocks of 512 threads) and, on the finest sub-level, whose fields lie
+// in device memory, the L2's latency.  Barriers: a descend has n_order + 5,
+// an ascend n_order + 3, a coarse sample 2; with the flagship's three
+// 4-colour sub-levels (14 descends, 14 ascends, 8 coarse samples) 241 a
+// launch with the table copy, where the column-after-column loops of
+// visit_phases.cuh took 1,564.
 //
 // Noise.  Mode 0 off.  Mode 1: the generator of philox.cuh; every draw of the
 // launch (the field of one sweep, the m low-rank scalars of one sweep, the
@@ -92,6 +95,7 @@ struct SubLevel {
     int yval[2], yoff[2];
     int wm[2];
     int g, sinv, lrscale;
+    int rows[2];  // the colours' rows of each direction's sweep
 };
 
 struct SubtreeParams {
@@ -128,17 +132,18 @@ __device__ __forceinline__ void stamp(const SubtreeParams& S, int chain, int slo
     }
 }
 
-__device__ __forceinline__ LowRank level_tables(const SubLevel& L, int dir) {
+__device__ __forceinline__ LevelTables level_tables(const SubLevel& L, int dir) {
     const float* t = dyn_smem;
     return {t + L.bval, reinterpret_cast<const int*>(t + L.boff), t + L.yval[dir],
             reinterpret_cast<const int*>(t + L.yoff[dir]), t + L.wm[dir], t + L.g, t + L.sinv,
-            t + L.lrscale};
+            t + L.lrscale, reinterpret_cast<const int*>(t + L.rows[dir])};
 }
 
 // x = Linv^T (xi + Linv f) for one chain; g takes xi + Linv f.  One warp per
-// output row, lanes along the row, only the triangle that is nonzero; the
-// normal of row i is drawn by lane t of the warp that owns it (its t-th row)
-// and handed to lane 0 by a shuffle.  Two barriers.
+// output row, lanes along the row, only the triangle that is nonzero (the
+// second product two rows of a warp at a time, their L2 reads interleaved);
+// the normal of row i is drawn by lane t of the warp that owns it (its t-th
+// row) and handed to lane 0 by a shuffle.  Two barriers.
 __device__ void coarse_sample(const SubtreeParams& S, int chain, const float* __restrict__ Linv,
                               const float* __restrict__ LinvT, const float* f, float* g,
                               float* x, float* xi, long long cur, unsigned long long draw) {
@@ -170,12 +175,21 @@ __device__ void coarse_sample(const SubtreeParams& S, int chain, const float* __
         }
     }
     __syncthreads();
-    // x[j] = sum_{i >= j} Linv[i, j] g[i], read from the transpose's row j
-    for (int j = warp; j < nc; j += nwarps) {
-        float acc = 0.0f;
-        for (int i = j + lane; i < nc; i += 32) acc += LinvT[(size_t)j * nc + i] * g[i];
+    // x[j] = sum_{i >= j} Linv[i, j] g[i], read from the transpose's row j;
+    // two rows at a time
+    for (int j = warp; j < nc; j += 2 * nwarps) {
+        const int j2 = j + nwarps;
+        float acc = 0.0f, acc2 = 0.0f;
+        for (int k = lane; j + k < nc; k += 32) {
+            acc += LinvT[(size_t)j * nc + j + k] * g[j + k];
+            if (j2 + k < nc) acc2 += LinvT[(size_t)j2 * nc + j2 + k] * g[j2 + k];
+        }
         acc = warp_total(acc);
-        if (lane == 0) x[j] = acc;
+        acc2 = warp_total(acc2);
+        if (lane == 0) {
+            x[j] = acc;
+            if (j2 < nc) x[j2] = acc2;
+        }
     }
     __syncthreads();
 }
@@ -219,7 +233,7 @@ mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const int4* __restr
         const SubLevel& L = S.lv[li];
         const int dir = (op == OP_ASCEND) ? 1 : 0;
         const VisitParams& P = *reinterpret_cast<const VisitParams*>(dyn_smem + L.plan[dir]);
-        const LowRank T = level_tables(L, dir);
+        const LevelTables T = level_tables(L, dir);
         const int n = L.n, m = P.m;
         float* x = locate(S, L.x, ws, x_launch);
         float* scr = locate(S, L.scr, ws, nullptr);

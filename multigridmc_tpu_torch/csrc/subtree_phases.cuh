@@ -1,6 +1,7 @@
 // The level visits of the subtree kernel (mgmc_subtree.cu): float32, 2d, one
-// thread block per chain, the same function as the visits of
-// visit_phases.cuh with the low-rank terms done in one pass each.
+// thread block per chain, the same function and the same arithmetic as the
+// visits of visit_phases.cuh (whose generic colour sweep and stencil they fall
+// back on for any stencil but the 3x3 box).
 //
 //   descend: c  = f + sqrt(D(2-w)/w) xi + sum_k s_k B_k     (Gibbs rhs)
 //            x <- colour-ordered SOR sweep(c, x)
@@ -9,23 +10,30 @@
 //            f_c = R r                                     (full weighting)
 //   ascend:  x <- x + gamma P x_c, then c, sweep, Woodbury as above
 //
-// What differs from visit_phases.cuh is where the low-rank terms happen.
-// There each is a loop over the m columns, one barrier after each column, and
-// B^T x is m block-wide reductions of three barriers each.  Here:
+// What differs from visit_phases.cuh, measured by the subtree kernel's timer
+// stamps (chip_smoke.py, subtree_timing.per_operation):
 //
-// * the tables live in shared memory for the whole launch: the level's
-//   VisitParams of both directions, B_k inside its bounding box and Y_k of
-//   both directions inside theirs (each box row major, column after column),
-//   W, G, 1/Sigma and Sigma^-1/2 (struct LowRank);
-// * sum_k s_k B_k joins the rhs pass, sum_k t_k B_k the residual pass, and
-//   the Woodbury correction is one pass: the thread that owns a point adds
-//   the columns whose box holds it, in column order, so each point ends with
-//   the value of the column-after-column loops, without atomics;
-// * B^T x is one pass, one warp per column (lanes along its box, a shuffle
-//   tree), and one barrier;
-// * the m scalars a pass needs (s, u or t) are computed by each warp for
-//   itself into its own slot of shared memory, so no block barrier waits for
-//   them.
+// * The low-rank terms.  There each is a loop over the m columns with a
+//   barrier after each column, and B^T x is m block-wide reductions of three
+//   barriers each.  Here the tables live in shared memory for the whole
+//   launch (struct LevelTables: B_k inside its bounding box and Y_k of both
+//   directions inside theirs, each box row major, column after column; W, G,
+//   1/Sigma, Sigma^-1/2); sum_k s_k B_k joins the rhs pass and sum_k t_k B_k
+//   the residual pass, and the Woodbury correction is one pass: the thread
+//   that owns a point adds the columns whose box holds it, in column order,
+//   so each point ends with the value of the column-after-column loops,
+//   without atomics.  B^T x is one warp per column (lanes along its box, a
+//   shuffle tree) and one barrier.  The m scalars a pass needs (s, u or t)
+//   each warp computes for itself into its own slot of shared memory.
+// * The stencil.  stencil_at walks the offsets in a loop that reads the
+//   parameter block for every term; the 3x3 box of the Galerkin levels is
+//   read here with its coefficients in registers (Box9).
+// * The sweep's rows.  sweep_phase gives warp w the rows w, w + nwarps, ...;
+//   under the 4-colour order (i + 2j) mod 4 those all have w's parity and hold
+//   only two of the colours, so half the warps wait in each colour phase.
+//   Here the warps take the rows that hold the colour in turn (T.rows).
+// * The rhs pass takes the field's noise groups over the whole block, not a
+//   warp per row (a row of 31 points has 8 groups for 32 lanes).
 //
 // Barriers: a descend has n_order + 5 (rhs, colours, B^T x, Woodbury,
 // residual, restriction), an ascend n_order + 3; with 4 colours 9 and 7.
@@ -41,8 +49,8 @@ __device__ __forceinline__ float warp_total(float v) {
     return v;
 }
 
-// One level's low-rank tables for one sweep direction, in shared memory.
-struct LowRank {
+// One level's tables for one sweep direction, in shared memory.
+struct LevelTables {
     const float* bval;     // B_k inside bbox_k, column after column, each box row major
     const int* boff;       // m + 1 starts of the columns in bval
     const float* yval;     // Y_k = M^-1 B_k of this direction inside ybox_k, likewise
@@ -51,7 +59,89 @@ struct LowRank {
     const float* g;        // G[k, l] = <B_k, (Y W)_l> of the pre direction, m x m
     const float* sinv;     // 1 / Sigma
     const float* lrscale;  // Sigma^-1/2
+    // per colour of the sweep order, 1 + 2 n_colors words: the number R of
+    // row residues mod n_colors whose rows hold the colour, then R pairs
+    // (residue, first column of the colour in such a row), residues ascending
+    const int* rows;
 };
+
+// The level's stencil where it is the 3x3 box in raster order (the Galerkin
+// levels): its coefficients held in registers, the neighbours outside the
+// field skipped by predicates, each term added in offset order as stencil_at
+// adds it, so the two agree bitwise.  stencil_at walks the offsets in a loop
+// that reads the parameter block per term; on these levels that loop, not the
+// low-rank terms, was what the visits spent their time on.
+struct Box9 {
+    bool on;     // the stencil is the raster 3x3 box
+    int planes;  // bit k: coefficient k varies in space and is read per point
+    float c[9];
+};
+
+__device__ __forceinline__ Box9 box9(const VisitParams& P) {
+    Box9 b;
+    b.on = P.K == 9;
+    b.planes = 0;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+        b.on = b.on && P.dy[k] == k / 3 - 1 && P.dx[k] == k % 3 - 1;
+        b.c[k] = P.coeff_val[k];
+        if (!P.coeff_const[k]) b.planes |= 1 << k;
+    }
+    return b;
+}
+
+// (A_stencil x)[i, j] for a Box9 stencil, zero-Dirichlet
+__device__ __forceinline__ float stencil_box9(const Box9& b, const float* __restrict__ coeffs,
+                                              const float* x, int H, int W, int i, int j, int n,
+                                              int p) {
+    const bool up = i > 0, dn = i < H - 1, lf = j > 0, rt = j < W - 1;
+    const bool in[9] = {up && lf, up, up && rt, lf, true, rt, dn && lf, dn, dn && rt};
+    // the rows above, at and below the point: the neighbours at fixed offsets
+    const float* row[3] = {x + p - W, x + p, x + p + W};
+    float ax = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 9; ++k)
+        if (in[k])
+            ax += (((b.planes >> k) & 1) ? coeffs[(size_t)k * n + p] : b.c[k]) *
+                  row[k / 3][k % 3 - 1];
+    return ax;
+}
+
+// One colour-ordered SOR sweep, the arithmetic of sweep_phase
+// (visit_phases.cuh), which it calls for any stencil but the 3x3 box.  The
+// warps take the rows that hold the colour in turn (T.rows), so every warp has
+// rows in every colour: sweep_phase gives warp w the rows w, w + nwarps, ...,
+// which under the 4-colour order (i + 2j) mod 4 all have w's parity and hold
+// only two of the colours.  Ends with a barrier.
+__device__ void subtree_sweep(const VisitParams& P, const Box9& b, const LevelTables& T,
+                              const float* __restrict__ coeffs, const float* __restrict__ c,
+                              float* x) {
+    if (!b.on) {
+        sweep_phase(P, coeffs, c, x);
+        return;
+    }
+    const int H = P.H, W = P.W, n = H * W, lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+    const int s = P.jstride, K = P.n_colors, d = P.diag_index;
+    const bool dplane = !P.coeff_const[d];
+    const float dval = P.coeff_val[d], omega = P.omega;
+    for (int o = 0; o < P.n_order; ++o) {
+        const int* cr = T.rows + o * (1 + 2 * K);
+        const int R = cr[0];
+        for (int r = warp; R > 0; r += nwarps) {
+            const int q = r / R, t = r - q * R;
+            const int i = q * K + cr[1 + 2 * t];
+            if (i >= H) break;
+            for (int j = cr[2 + 2 * t] + s * lane; j < W; j += 32 * s) {
+                const int p = i * W + j;
+                const float ax = stencil_box9(b, coeffs, x, H, W, i, j, n, p);
+                const float diag = dplane ? coeffs[(size_t)d * n + p] : dval;
+                x[p] = x[p] + omega * (c[p] - ax) / diag;
+            }
+        }
+        __syncthreads();
+    }
+}
 
 // [lo, hi): the columns that the boxes holding row i span (lo >= hi: none)
 __device__ __forceinline__ void row_span(const int (*box)[4], int m, int i, int& lo, int& hi) {
@@ -80,7 +170,7 @@ __device__ __forceinline__ float add_columns(const int (*box)[4], int m, const f
 // This warp's s = Sigma^-1/2 z: the m low-rank normals of a sweep (mode 1:
 // the generator under `counter`, point groups 0 .. ceil(m / 4) - 1; mode 2:
 // read from xi), recorded by warp 0 where xi_rec is set.  m <= 32.
-__device__ __forceinline__ void lowrank_normals(const LowRank& T, int m, int chain, int noise_mode,
+__device__ __forceinline__ void lowrank_normals(const LevelTables& T, int m, int chain, int noise_mode,
                                                 unsigned long long seed,
                                                 unsigned long long counter, const float* xi,
                                                 float* xi_rec, float* wv) {
@@ -101,60 +191,61 @@ __device__ __forceinline__ void lowrank_normals(const LowRank& T, int m, int cha
     __syncwarp();
 }
 
-// The pass before the sweep, one warp per row: x = 0 (zero), x += gamma P x_c
-// (xc not null: an ascend) and, with noise, the Gibbs rhs
-// c = f + ns xi + sum_k s_k B_k into scr (wv: this warp's s).  Noise group g of
-// row i holds the points (i, 4g .. 4g+3); xi_rec receives the normals used.
-// No barrier.
-__device__ void rhs_pass(const VisitParams& P, const LowRank& T, int chain, int noise_mode,
+// The pass before the sweep: x = 0 (zero), x += gamma P x_c (xc not null: an
+// ascend) and, with noise, the Gibbs rhs c = f + ns xi + sum_k s_k B_k into
+// scr (wv: this warp's s).  Noise group g of row i holds the points
+// (i, 4g .. 4g+3); the block's threads take the groups of the whole field in
+// turn (a row of a small level has fewer groups than a warp has lanes);
+// xi_rec receives the normals used.  No barrier.
+__device__ void rhs_pass(const VisitParams& P, const LevelTables& T, int chain, int noise_mode,
                          unsigned long long seed, unsigned long long counter,
                          const float* __restrict__ f, const float* __restrict__ ns,
-                         const float* __restrict__ xi, float* xi_rec, const float* wv,
-                         float* scr, float* x, const float* __restrict__ xc, bool zero) {
-    const int lane = threadIdx.x & 31;
-    const int G = (P.W + 3) >> 2;
-    WARP_ROWS(i, P.H) {
+                         const float* __restrict__ xi, float* __restrict__ xi_rec,
+                         const float* wv, float* __restrict__ scr, float* __restrict__ x,
+                         const float* __restrict__ xc, bool zero) {
+    const int H = P.H, W = P.W, Hc = P.Hc, Wc = P.Wc, m = P.m;
+    const int G = (W + 3) >> 2;
+    const bool ns_const = P.ns_const;
+    const float ns_val = P.ns_val, gamma = P.gamma;
+    for (int q4 = threadIdx.x; q4 < H * G; q4 += blockDim.x) {
+        const int i = q4 / G, g = q4 - i * G;
         int lo = 0, hi = 0;  // the columns that B's boxes span in this row
-        if (noise_mode) row_span(P.bbox, P.m, i, lo, hi);
+        if (noise_mode) row_span(P.bbox, m, i, lo, hi);
         // (P x_c)[i, j]: an odd fine index 2I+1 takes coarse I with weight 1, an
         // even one takes its two coarse neighbours with 0.5 each
         const int nI = (i & 1) ? 1 : 2, Ia = (i >> 1) - (nI - 1);
         const float wi = (i & 1) ? 1.0f : 0.5f;
-        for (int g = lane; g < G; g += 32) {
-            float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-            if (noise_mode == 1)
-                philox_normals4((uint32_t)(i * G + g), (uint32_t)chain, seed, counter, z);
+        float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (noise_mode == 1) philox_normals4((uint32_t)q4, (uint32_t)chain, seed, counter, z);
 #pragma unroll
-            for (int q = 0; q < 4; ++q) {
-                const int j = 4 * g + q;
-                if (j >= P.W) break;
-                const int p = i * P.W + j;
-                if (zero) x[p] = 0.0f;
-                if (xc != nullptr) {
-                    const int nJ = (j & 1) ? 1 : 2, Ja = (j >> 1) - (nJ - 1);
-                    const float wj = (j & 1) ? 1.0f : 0.5f;
-                    float px = 0.0f;
-                    for (int a = 0; a < nI; ++a) {
-                        int I = Ia + a;
-                        if (I < 0 || I >= P.Hc) continue;
-                        float row = 0.0f;
-                        for (int b = 0; b < nJ; ++b) {
-                            int J = Ja + b;
-                            if (J < 0 || J >= P.Wc) continue;
-                            row += wj * xc[I * P.Wc + J];
-                        }
-                        px += wi * row;
+        for (int q = 0; q < 4; ++q) {
+            const int j = 4 * g + q;
+            if (j >= W) break;
+            const int p = i * W + j;
+            if (zero) x[p] = 0.0f;
+            if (xc != nullptr) {
+                const int nJ = (j & 1) ? 1 : 2, Ja = (j >> 1) - (nJ - 1);
+                const float wj = (j & 1) ? 1.0f : 0.5f;
+                float px = 0.0f;
+                for (int a = 0; a < nI; ++a) {
+                    int I = Ia + a;
+                    if (I < 0 || I >= Hc) continue;
+                    float row = 0.0f;
+                    for (int b = 0; b < nJ; ++b) {
+                        int J = Ja + b;
+                        if (J < 0 || J >= Wc) continue;
+                        row += wj * xc[I * Wc + J];
                     }
-                    x[p] = x[p] + P.gamma * px;
+                    px += wi * row;
                 }
-                if (noise_mode) {
-                    float zq = (noise_mode == 2) ? xi[p] : z[q];
-                    if (xi_rec != nullptr) xi_rec[p] = zq;
-                    float c = f[p] + (P.ns_const ? P.ns_val : ns[p]) * zq;
-                    if (j >= lo && j < hi)
-                        c = add_columns(P.bbox, P.m, T.bval, T.boff, wv, 1.0f, i, j, c);
-                    scr[p] = c;
-                }
+                x[p] = x[p] + gamma * px;
+            }
+            if (noise_mode) {
+                float zq = (noise_mode == 2) ? xi[p] : z[q];
+                if (xi_rec != nullptr) xi_rec[p] = zq;
+                float c = f[p] + (ns_const ? ns_val : ns[p]) * zq;
+                if (j >= lo && j < hi) c = add_columns(P.bbox, m, T.bval, T.boff, wv, 1.0f, i, j, c);
+                scr[p] = c;
             }
         }
     }
@@ -162,7 +253,7 @@ __device__ void rhs_pass(const VisitParams& P, const LowRank& T, int chain, int 
 
 // s_btx[k] = <B_k, x> over column k's box: one warp per column, lanes along
 // the box, a shuffle tree.  Ends with a barrier.
-__device__ void btx_pass(const VisitParams& P, const LowRank& T, const float* x, float* s_btx) {
+__device__ void btx_pass(const VisitParams& P, const LevelTables& T, const float* x, float* s_btx) {
     const int lane = threadIdx.x & 31;
     for (int k = threadIdx.x >> 5; k < P.m; k += blockDim.x >> 5) {
         const int i0 = P.bbox[k][0], j0 = P.bbox[k][2];
@@ -178,7 +269,7 @@ __device__ void btx_pass(const VisitParams& P, const LowRank& T, const float* x,
 
 // x -= sum_l u_l Y_l with u = W B^T x (this warp's copy in wv), one warp per
 // row over the columns that Y's boxes span.  Ends with a barrier.
-__device__ void woodbury_pass(const VisitParams& P, const LowRank& T, const float* s_btx,
+__device__ void woodbury_pass(const VisitParams& P, const LevelTables& T, const float* s_btx,
                               float* wv, float* x) {
     const int lane = threadIdx.x & 31;
     if (lane < P.m) {
@@ -198,18 +289,39 @@ __device__ void woodbury_pass(const VisitParams& P, const LowRank& T, const floa
     __syncthreads();
 }
 
+// r = f - A x - sum_k t_k B_k into scr (wv: this warp's t), one warp per row.
+// Ends with a barrier.
+__device__ void residual_pass(const VisitParams& P, const Box9& b, const LevelTables& T,
+                              const float* __restrict__ coeffs, const float* wv,
+                              const float* __restrict__ f, const float* __restrict__ x,
+                              float* __restrict__ scr) {
+    const int lane = threadIdx.x & 31, H = P.H, W = P.W, n = H * W;
+    WARP_ROWS(i, H) {
+        int lo = 0, hi = 0;
+        if (P.m) row_span(P.bbox, P.m, i, lo, hi);
+        for (int j = lane; j < W; j += 32) {
+            const int p = i * W + j;
+            float r = f[p] - (b.on ? stencil_box9(b, coeffs, x, H, W, i, j, n, p)
+                                   : stencil_at(P, coeffs, x, i, j, n, p));
+            if (j >= lo && j < hi) r = add_columns(P.bbox, P.m, T.bval, T.boff, wv, -1.0f, i, j, r);
+            scr[p] = r;
+        }
+    }
+    __syncthreads();
+}
+
 // --------------------------------------------------------------- whole visits
 // One descend visit of one chain (arguments as descend_body of
 // visit_phases.cuh; T the level's tables in the pre direction, wv this warp's
 // m scalars, holding s when noise is on, s_btx shared).  `zero` sets x = 0
 // first.  Ends with a barrier.
-__device__ void subtree_descend(const VisitParams& P, const LowRank& T, int chain,
+__device__ void subtree_descend(const VisitParams& P, const LevelTables& T, int chain,
                                 int noise_mode, unsigned long long seed,
                                 unsigned long long counter, bool zero, float* x, const float* f,
                                 float* scr, float* fc, const float* __restrict__ coeffs,
                                 const float* __restrict__ ns, const float* __restrict__ xi,
                                 float* xi_rec, float* wv, float* s_btx) {
-    const int n = P.H * P.W;
+    const Box9 box = box9(P);
     const float* c = f;
     if (noise_mode || zero) {
         rhs_pass(P, T, chain, noise_mode, seed, counter, f, ns, xi, xi_rec, wv, scr, x, nullptr,
@@ -217,7 +329,7 @@ __device__ void subtree_descend(const VisitParams& P, const LowRank& T, int chai
         __syncthreads();
         if (noise_mode) c = scr;
     }
-    sweep_phase(P, coeffs, c, x);
+    subtree_sweep(P, box, T, coeffs, c, x);
     if (P.m) {
         btx_pass(P, T, x, s_btx);
         woodbury_pass(P, T, s_btx, wv, x);
@@ -231,19 +343,8 @@ __device__ void subtree_descend(const VisitParams& P, const LowRank& T, int chai
         }
         __syncwarp();
     }
-    // r = f - A x - sum_k t_k B_k (c is dead: scr takes r)
+    residual_pass(P, box, T, coeffs, wv, f, x, scr);
     const int lane = threadIdx.x & 31;
-    WARP_ROWS(i, P.H) {
-        int lo = 0, hi = 0;
-        if (P.m) row_span(P.bbox, P.m, i, lo, hi);
-        for (int j = lane; j < P.W; j += 32) {
-            const int p = i * P.W + j;
-            float r = f[p] - stencil_at(P, coeffs, x, i, j, n, p);
-            if (j >= lo && j < hi) r = add_columns(P.bbox, P.m, T.bval, T.boff, wv, -1.0f, i, j, r);
-            scr[p] = r;
-        }
-    }
-    __syncthreads();
     // f_c[I, J] = sum_{a, b} w_a w_b r[2I+1+a, 2J+1+b], w = {0.5, 1, 0.5}
     WARP_ROWS(I, P.Hc) {
         for (int J = lane; J < P.Wc; J += 32) {
@@ -267,7 +368,7 @@ __device__ void subtree_descend(const VisitParams& P, const LowRank& T, int chai
 
 // One ascend visit of one chain; T in the post direction, xc the coarse
 // state.  Ends with a barrier.
-__device__ void subtree_ascend(const VisitParams& P, const LowRank& T, int chain, int noise_mode,
+__device__ void subtree_ascend(const VisitParams& P, const LevelTables& T, int chain, int noise_mode,
                                unsigned long long seed, unsigned long long counter, float* x,
                                const float* f, float* scr, const float* xc,
                                const float* __restrict__ coeffs, const float* __restrict__ ns,
@@ -275,7 +376,7 @@ __device__ void subtree_ascend(const VisitParams& P, const LowRank& T, int chain
                                float* s_btx) {
     rhs_pass(P, T, chain, noise_mode, seed, counter, f, ns, xi, xi_rec, wv, scr, x, xc, false);
     __syncthreads();
-    sweep_phase(P, coeffs, noise_mode ? scr : f, x);
+    subtree_sweep(P, box9(P), T, coeffs, noise_mode ? scr : f, x);
     if (P.m) {
         btx_pass(P, T, x, s_btx);
         woodbury_pass(P, T, s_btx, wv, x);

@@ -24,9 +24,11 @@ The CUDA source is ``csrc/mgmc_subtree.cu`` with the visits of
 schedule; the header comments state the design).  At launch start the block
 copies the tables of :func:`launch_tables` (the levels' parameter blocks, ``B``
 and both directions' ``Y`` inside their bounding boxes, ``W``, ``G``,
-``1/Sigma``, ``Sigma^-1/2``) into its shared memory, and each low-rank term is
-one pass in which the owner of a point adds the columns that hold it, in
-column order.  The host decides where each level's three fields (``x``, the
+``1/Sigma``, ``Sigma^-1/2``, the sweeps' :func:`colour_rows`) into its shared
+memory; each low-rank term is one pass in which the owner of a point adds the
+columns that hold it, in column order, the 3x3 stencil of the Galerkin levels
+is read with its coefficients in registers, and the warps take the rows of
+each colour in turn.  The host decides where each level's three fields (``x``, the
 rhs scratch, ``f``) lie (:func:`place_fields`): in dynamic shared memory after
 the tables, from the coarsest level upwards while the granted size
 (:func:`~.common.dynamic_smem_limit`, less :func:`field_budget`'s shares)
@@ -36,11 +38,12 @@ the probe kernel (:func:`~.common.probe_dynamic_smem`) and
 
 **Bound.**  By bytes the launch must read ``f`` and write ``x`` of the finest
 sub-level once per chain (``2 C n_0 4`` bytes); by operations it does
-``cycle^(l+1)`` visits of each level ``l``.  It is latency that the kernel
-pays: a descend is ``n_order + 5`` barrier-separated phases, an ascend
-``n_order + 3``, a coarse sample 2 (241 a launch on the flagship's
-4-colour sub-levels, where column-after-column low-rank loops took 1,564).
-:func:`operation_times` reads where a launch's time went from its ``stamps``.
+``cycle^(l+1)`` visits of each level ``l``.  The kernel pays the instructions
+it issues per point and, on the finest sub-level, the L2's latency.  A descend
+is ``n_order + 5`` barrier-separated phases, an ascend ``n_order + 3``, a
+coarse sample 2 (241 a launch on the flagship's 4-colour sub-levels, where
+column-after-column low-rank loops took 1,564).  :func:`operation_times` reads
+where a launch's time went from its ``stamps``.
 
 Beside the kernel stands its **plain PyTorch version**
 (:func:`subtree_sample_plain`), the same schedule walked with
@@ -124,7 +127,7 @@ class SubLevel(ctypes.Structure):
         ("n", ctypes.c_int), ("plan", ctypes.c_int * 2), ("bval", ctypes.c_int),
         ("boff", ctypes.c_int), ("yval", ctypes.c_int * 2), ("yoff", ctypes.c_int * 2),
         ("wm", ctypes.c_int * 2), ("g", ctypes.c_int), ("sinv", ctypes.c_int),
-        ("lrscale", ctypes.c_int),
+        ("lrscale", ctypes.c_int), ("rows", ctypes.c_int * 2),
     ]
 
 
@@ -245,6 +248,23 @@ def _small(t) -> np.ndarray:
         t.detach().cpu().to(torch.float32).numpy().reshape(-1))
 
 
+def colour_rows(P: VisitParams) -> np.ndarray:
+    """Which rows of a sweep hold each colour: per colour of ``P.order``, ``1 +
+    2 n_colors`` int32 words, the number ``R`` of row residues ``rho`` mod
+    ``n_colors`` whose rows hold it, then ``R`` pairs ``(rho, first column of
+    the colour in such a row)``, residues ascending.  The colour of ``(i, j)``
+    is ``(w0 i + w1 j) mod n_colors``, as in the kernels' sweeps."""
+    K, s = P.n_colors, P.jstride
+    out = np.zeros((P.n_order, 1 + 2 * K), np.int32)
+    for o in range(P.n_order):
+        pairs = [(rho, next(jj for jj in range(s) if (P.w0 * rho + P.w1 * jj) % K == P.order[o]))
+                 for rho in range(K)
+                 if any((P.w0 * rho + P.w1 * jj) % K == P.order[o] for jj in range(s))]
+        out[o, 0] = len(pairs)
+        out[o, 1:1 + 2 * len(pairs)] = np.asarray(pairs, np.int32).reshape(-1)
+    return out
+
+
 def launch_tables(levels: Sequence[FusedVisitLevel]):
     """What the kernel copies into shared memory once per launch, as 32-bit
     words: per sub-level the ``VisitParams`` of both directions (the pre sweep
@@ -252,12 +272,13 @@ def launch_tables(levels: Sequence[FusedVisitLevel]):
     read), ``B_k`` inside ``bbox_k`` and ``Y_k`` of both directions inside
     their ``ybox_k`` (each box row major, column after column, with the ``m +
     1`` starts of the columns), ``W`` of both directions, ``G``, ``1 / Sigma``
-    and ``Sigma^-1/2``; then 32 warps' slots of the largest ``m`` words each.
+    and ``Sigma^-1/2``, and both directions' :func:`colour_rows`; then 32
+    warps' slots of the largest ``m`` words each.
 
     Returns ``(words, offsets, warp_vec, warp_stride)``: ``words`` an int32
     array whose length is a multiple of 4, ``offsets`` per level a dict of the
-    word offsets that ``SubLevel`` holds (``plan``, ``yval``, ``yoff`` and
-    ``wm`` per direction)."""
+    word offsets that ``SubLevel`` holds (``plan``, ``yval``, ``yoff``, ``wm``
+    and ``rows`` per direction)."""
     parts: List[np.ndarray] = []
     n = 0
 
@@ -269,10 +290,12 @@ def launch_tables(levels: Sequence[FusedVisitLevel]):
         return n - a.size
 
     offsets = [{} for _ in levels]
-    for lv, off in zip(levels, offsets):  # first the parameter blocks: 8-byte aligned
-        off["plan"] = [put(np.frombuffer(bytes(lv._build_params(1, order, True, 0)), np.int32))
-                       for order in (lv.pre_order, lv.post_order)]
-    for lv, off in zip(levels, offsets):
+    plans = [[lv._build_params(1, order, True, 0) for order in (lv.pre_order, lv.post_order)]
+             for lv in levels]
+    for P2, off in zip(plans, offsets):  # first the parameter blocks: 8-byte aligned
+        off["plan"] = [put(np.frombuffer(bytes(P), np.int32)) for P in P2]
+    for lv, P2, off in zip(levels, plans, offsets):
+        off["rows"] = [put(colour_rows(P)) for P in P2]
         bval, boff = _staged_boxes(lv.B, lv.bbox)
         off["bval"], off["boff"] = put(bval), put(boff)
         off["yval"], off["yoff"], off["wm"] = [], [], []

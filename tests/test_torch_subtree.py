@@ -205,7 +205,7 @@ def test_kernel_parameter_blocks(samplers):
 
     kernel = samplers[(True, False)].subtree
     assert ctypes.sizeof(st.FieldLoc) == 16
-    assert ctypes.sizeof(st.SubLevel) == 2 * 8 + 3 * 16 + 14 * 4
+    assert ctypes.sizeof(st.SubLevel) == 2 * 8 + 3 * 16 + 16 * 4
     assert ctypes.sizeof(st.SubtreeParams) == 56 + 8 * ctypes.sizeof(st.SubLevel) + 48 + 16 + 8
     S = kernel._build_params(3, 2, False)
     assert (S.C, S.NL, S.n_sched, S.noise_mode, S.nc) == (3, 2, len(kernel.schedule), 2, 9)

@@ -34,6 +34,7 @@ from multigridmc_tpu_torch.models.posterior import MeasurementParameters, measur
 from multigridmc_tpu_torch.models.prior import shiftedlaplace_fd
 from multigridmc_tpu_torch.ops.kernels import mgmc_subtree as st
 from multigridmc_tpu_torch.ops.kernels.mgmc_visit import VisitParams
+from multigridmc_tpu_torch.ops.stencil import shift
 from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
 
 from test_torch_common import CPU, jax_operator, to_port
@@ -131,6 +132,32 @@ def test_tables_against_the_levels(sampler):
     assert kernel._warp_vec + 32 * kernel._warp_stride <= kernel._tables.size
 
 
+def test_colour_rows_cover_each_colour_once(sampler):
+    """The sweep's rows of each colour (the kernel's warps take them in turn):
+    every point of the colour once, in both directions' orders."""
+    kernel = sampler.subtree
+    words = kernel._tables
+    for lv, off, tab in zip(kernel.levels, kernel._table_offsets, decode(kernel)):
+        H, W = lv.op.vshape
+        masks = lv.masks.numpy()
+        for d, P in enumerate(tab["plans"]):
+            K, s = P.n_colors, P.jstride
+            rows = words[off["rows"][d]:off["rows"][d] + P.n_order * (1 + 2 * K)].reshape(
+                P.n_order, 1 + 2 * K)
+            assert np.array_equal(rows, st.colour_rows(P))
+            for o in range(P.n_order):
+                R = rows[o, 0]
+                got = np.zeros((H, W), int)
+                for r in range(R * (H // K + 1)):  # the kernel's r = warp, warp + nwarps, ...
+                    i = (r // R) * K + rows[o, 1 + 2 * (r % R)]
+                    if i >= H:
+                        break
+                    got[i, rows[o, 2 + 2 * (r % R)]::s] += 1
+                assert np.array_equal(got, masks[P.order[o]].astype(int)), (d, o)
+            # under the flagship's colouring each colour lies on every other row
+            assert all(rows[o, 0] == K // 2 for o in range(P.n_order))
+
+
 # ------------------------------------------------ the kernel's order, replayed
 def row_span(box, i):
     spans = [(j0, j1) for i0, i1, j0, j1 in box if i0 <= i < i1]
@@ -214,6 +241,40 @@ def test_warp_per_column_btx_matches_the_plain_sum(sampler):
         got = btx_replay(lv.bbox, tab["bval"].astype(np.float64), tab["boff"], x)
         B = lv.B.double()
         want = (B * torch.as_tensor(x)).reshape(B.shape[0], -1).sum(dim=1).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+
+
+def stencil_box9_replay(P, coeffs, x):
+    """``stencil_box9`` of ``subtree_phases.cuh`` on a whole field: the nine
+    raster offsets in order, a neighbour outside the field skipped, the
+    coefficient a constant unless its plane varies."""
+    H, W = x.shape
+    ax = np.zeros((H, W))
+    for k in range(9):
+        dy, dx = k // 3 - 1, k % 3 - 1
+        i0, i1, j0, j1 = max(0, -dy), H - max(0, dy), max(0, -dx), W - max(0, dx)
+        c = coeffs[k, i0:i1, j0:j1] if not P.coeff_const[k] else np.float64(P.coeff_val[k])
+        ax[i0:i1, j0:j1] += c * x[i0 + dy:i1 + dy, j0 + dx:j1 + dx]
+    return ax
+
+
+def test_levels_take_the_register_stencil(sampler):
+    """Every sub-level of both cases is the 3x3 box in raster order, the case
+    in which the kernel's sweep and residual hold the stencil in registers;
+    its replay is the level's own stencil."""
+    kernel = sampler.subtree
+    rng = np.random.default_rng(6)
+    for lv, tab in zip(kernel.levels, decode(kernel)):
+        for P in tab["plans"]:
+            assert P.K == 9
+            assert [(P.dy[k], P.dx[k]) for k in range(9)] == [
+                (k // 3 - 1, k % 3 - 1) for k in range(9)]
+            assert P.diag_index == 4
+        x = rng.normal(size=lv.op.vshape)
+        got = stencil_box9_replay(tab["plans"][0], lv.coeffs.double().numpy(), x)
+        # the level's stencil as the port's operator applies it, in float64
+        want = sum(c.double() * shift(torch.as_tensor(x), off)
+                   for c, off in zip(lv.coeffs, lv.op.offsets)).numpy()
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
 
 
