@@ -47,7 +47,9 @@ card and checks, one phase after the other:
                    and on a 3-level 64x64 case (noise off, all normals from a
                    tensor, the in-kernel generator with its normals recorded;
                    ``1e-4``: one launch chains 28 sweeps and 8 coarse samples),
-                   the shared-memory probe, and the four raw-array sweep entry
+                   its time broken down by operation of the schedule from the
+                   kernel's timer stamps (their span within 10% of the
+                   profiler's time), the shared-memory probe, and the four raw-array sweep entry
                    points with the short path that drives them;
 4. ``main_path``   the flagship sampler for a few tens of steps in four
                    variants - every non-coarsest level's visit fused, the
@@ -2539,7 +2541,8 @@ def main(argv=None) -> int:
         "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "bound_bytes": t["bound_bytes"],
         "library_ms": None, "shape": {"chains": t["chains"], "vshape": t["vshape"]},
-        "design": "launch tables in shared memory, each low-rank term in one pass",
+        "design": "launch tables in shared memory, each low-rank term in one pass, the 3x3 "
+                  "stencil in registers, each colour's rows over all warps",
         "barriers_per_launch": t["barriers_per_launch"], "blocks_per_sm": t["blocks_per_sm"],
         "per_operation_us": {key: v["total_us"]
                              for key, v in t["per_operation"]["operations"].items()},

@@ -28,9 +28,9 @@ and both directions' ``Y`` inside their bounding boxes, ``W``, ``G``,
 memory; each low-rank term is one pass in which the owner of a point adds the
 columns that hold it, in column order, the 3x3 stencil of the Galerkin levels
 is read with its coefficients in registers, and the warps take the rows of
-each colour in turn.  The host decides where each level's three fields (``x``, the
-rhs scratch, ``f``) lie (:func:`place_fields`): in dynamic shared memory after
-the tables, from the coarsest level upwards while the granted size
+each colour in turn.  The host decides where each level's three fields (``x``,
+the rhs scratch, ``f``) lie (:func:`place_fields`): in dynamic shared memory
+after the tables, from the coarsest level upwards while the granted size
 (:func:`~.common.dynamic_smem_limit`, less :func:`field_budget`'s shares)
 allows, else in a global workspace; the size the launch needs is confirmed with
 the probe kernel (:func:`~.common.probe_dynamic_smem`) and

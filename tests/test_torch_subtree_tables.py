@@ -312,6 +312,14 @@ def test_budget_zero_puts_every_field_in_the_workspace(sampler):
     assert np.array_equal(flat._tables, sampler.subtree._tables)
 
 
+def test_stamps_are_for_the_card_only():
+    kernel = small_subtree().subtree
+    f = torch.zeros((2,) + kernel.vshape)
+    stamps = torch.zeros((2, len(kernel.schedule) + 1), dtype=torch.int64)
+    with pytest.raises(ValueError, match="stamps exist in the CUDA kernel only"):
+        st.subtree_sample(kernel, f, stamps=stamps)
+
+
 def test_operation_times_from_stamps():
     kernel = small_subtree().subtree
     n = len(kernel.schedule)
