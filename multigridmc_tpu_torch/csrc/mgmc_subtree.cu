@@ -42,7 +42,7 @@
 //
 // Bound: by bytes the launch must read f and write x of the finest sub-level
 // once per chain; everything else is meant to stay on the chip.  What the
-// kernel pays is the instructions it issues per point on 32 warps of an SM
+// kernel pays is the instructions it executes per point on 32 warps of an SM
 // (two blocks of 512 threads) and, on the finest sub-level, whose fields lie
 // in device memory, the L2's latency.  Barriers: a descend has n_order + 5,
 // an ascend n_order + 3, a coarse sample 2; with the flagship's three

@@ -39,7 +39,7 @@ the probe kernel (:func:`~.common.probe_dynamic_smem`) and
 **Bound.**  By bytes the launch must read ``f`` and write ``x`` of the finest
 sub-level once per chain (``2 C n_0 4`` bytes); by operations it does
 ``cycle^(l+1)`` visits of each level ``l``.  The kernel pays the instructions
-it issues per point and, on the finest sub-level, the L2's latency.  A descend
+it executes per point and, on the finest sub-level, the L2's latency.  A descend
 is ``n_order + 5`` barrier-separated phases, an ascend ``n_order + 3``, a
 coarse sample 2 (241 a launch on the flagship's 4-colour sub-levels, where
 column-after-column low-rank loops took 1,564).  :func:`operation_times` reads
@@ -97,10 +97,13 @@ OP_NAMES = {OP_DESCEND: "descend", OP_DESCEND_ZERO: "descend", OP_COARSE: "coars
 #: and the reduction scratch), kept out of the dynamic budget
 STATIC_SMEM_RESERVE = 4096
 
-#: largest block size.  Measured on an H100 with ``chip_smoke.py``
-#: (``subtree_timing.variants``) at 256 chains below a 255^2 level: 512 threads
-#: (two blocks per SM, all chains in one wave) take 2.06 ms per launch, 1024
-#: threads 2.54 ms, 256 threads 3.10 ms.
+#: largest block size.  Measured on an NVIDIA H100 80GB HBM3 (700 W) with
+#: ``chip_smoke.py`` (``subtree_timing.variants``) at 256 chains below a 255^2
+#: level: 512 threads (two blocks per SM, all chains in one wave) take 1.17 ms
+#: per launch, 1024 threads (one block per SM) 1.46 ms, 256 threads 1.62 ms.
+#: The kernel's ``__launch_bounds__`` admit 1024 (``MAX_THREADS`` of
+#: ``csrc/visit_phases.cuh``), which caps a thread at 64 registers, as two
+#: blocks of 512 do.
 MAX_THREADS = 512
 
 #: kernel launches made by the wrapper (and only where it launches)
