@@ -215,6 +215,14 @@ __device__ void rhs_pass(const VisitParams& P, const LevelTables& T, int chain, 
         // even one takes its two coarse neighbours with 0.5 each
         const int nI = (i & 1) ? 1 : 2, Ia = (i >> 1) - (nI - 1);
         const float wi = (i & 1) ? 1.0f : 0.5f;
+        // the group's loads first, so that they are in flight during the draw
+        float fv[4], xv[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const int j = 4 * g + q, p = i * W + j;
+            fv[q] = (noise_mode && j < W) ? f[p] : 0.0f;
+            xv[q] = (xc != nullptr && j < W) ? x[p] : 0.0f;
+        }
         float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
         if (noise_mode == 1) philox_normals4((uint32_t)q4, (uint32_t)chain, seed, counter, z);
 #pragma unroll
@@ -238,12 +246,12 @@ __device__ void rhs_pass(const VisitParams& P, const LevelTables& T, int chain, 
                     }
                     px += wi * row;
                 }
-                x[p] = x[p] + gamma * px;
+                x[p] = xv[q] + gamma * px;
             }
             if (noise_mode) {
                 float zq = (noise_mode == 2) ? xi[p] : z[q];
                 if (xi_rec != nullptr) xi_rec[p] = zq;
-                float c = f[p] + (ns_const ? ns_val : ns[p]) * zq;
+                float c = fv[q] + (ns_const ? ns_val : ns[p]) * zq;
                 if (j >= lo && j < hi) c = add_columns(P.bbox, m, T.bval, T.boff, wv, 1.0f, i, j, c);
                 scr[p] = c;
             }
