@@ -99,8 +99,8 @@ STATIC_SMEM_RESERVE = 4096
 
 #: largest block size.  Measured on an NVIDIA H100 80GB HBM3 (700 W) with
 #: ``chip_smoke.py`` (``subtree_timing.variants``) at 256 chains below a 255^2
-#: level: 512 threads (two blocks per SM, all chains in one wave) take 1.17 ms
-#: per launch, 1024 threads (one block per SM) 1.46 ms, 256 threads 1.62 ms.
+#: level: 512 threads (two blocks per SM, all chains in one wave) take 1.13 ms
+#: per launch, 1024 threads (one block per SM) 1.42 ms, 256 threads 1.54 ms.
 #: The kernel's ``__launch_bounds__`` admit 1024 (``MAX_THREADS`` of
 #: ``csrc/visit_phases.cuh``), which caps a thread at 64 registers, as two
 #: blocks of 512 do.
