@@ -43,13 +43,16 @@ card and checks, one phase after the other:
                    the kernels' times beside their bounds, and the
                    ``sweep_routes`` table (both routes at 1 .. 256 chains, which
                    must support the split route's constants); then the third slice's
-                   kernels: the subtree kernel on the flagship's levels 1..4
-                   and on a 3-level 64x64 case (noise off, all normals from a
+                   kernels: the subtree kernel on the flagship's levels 1..4,
+                   on a 3-level 64x64 case and on a 4-level 64x64 case whose
+                   levels are 5-point stencils (noise off, all normals from a
                    tensor, the in-kernel generator with its normals recorded;
                    ``1e-4``: one launch chains 28 sweeps and 8 coarse samples),
                    its time broken down by operation of the schedule from the
-                   kernel's timer stamps (their span within 10% of the
-                   profiler's time), the shared-memory probe, and the four raw-array sweep entry
+                   kernel's timer stamps (their sum 0.8 - 1.05 of the profiler's
+                   time, their span within 10%), the barriers each block passed
+                   against the count from the source and the blocks one SM ran
+                   at once, the shared-memory probe, and the four raw-array sweep entry
                    points with the short path that drives them;
 4. ``main_path``   the flagship sampler for a few tens of steps in four
                    variants - every non-coarsest level's visit fused, the
@@ -1252,24 +1255,18 @@ def subtree_bound(kernel, C):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), 4 * words
 
 
-def subtree_barriers(kernel):
-    """Block barriers of one launch of the subtree kernel with noise on, as
-    ``csrc/subtree_phases.cuh`` places them: the table copy, per descend the
-    rhs pass, one per colour, ``B^T x``, the Woodbury pass, the residual and
-    the restriction, per ascend the same without the last two, per coarse
-    sample two."""
-    from multigridmc_tpu_torch.ops.kernels import mgmc_subtree as st
+def rediscretised_sampler(nx, nlevel, n_meas, device):
+    """A subtree sampler whose levels are given by the caller: the posterior of
+    ``build_posterior`` discretised anew on each level's lattice (the same
+    measurements), so every sub-level has the prior's 5-point stencil, not the
+    3x3 box of the Galerkin levels."""
+    from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
+    from multigridmc_tpu_torch.solvers.multigrid import MultigridHierarchy
 
-    count = 1
-    for op, li in kernel.schedule:
-        if op == st.OP_COARSE:
-            count += 2
-            continue
-        lv = kernel.levels[li]
-        colours = len(lv.pre_order if op != st.OP_ASCEND else lv.post_order)
-        lowrank = 2 if lv.op.m_lowrank else 0
-        count += 1 + colours + lowrank + (2 if op != st.OP_ASCEND else 0)
-    return count
+    ops = [build_posterior(nx >> level, n_meas, FLAGSHIP_SEED, "order_one", device)[0]
+           for level in range(nlevel)]
+    return MultigridMCSampler(ops[0], nlevel, cycle=2, subtree=True,
+                              hierarchy=MultigridHierarchy(ops[0], nlevel, operators=ops))
 
 
 def check_subtree(device, nx, nlevel, C, n_meas, gen):
@@ -1285,11 +1282,16 @@ def check_subtree(device, nx, nlevel, C, n_meas, gen):
 
     rows, max_err = [], 0.0
     seed = 0x5EED_0F_7E57
-    for name, (cx, cl, cm) in (("flagship_levels_1_to_4", (nx, nlevel, n_meas)),
-                               ("64x64_3_levels", (64, 3, 4))):
-        # O(1) measurement variances, as for the visits' elementwise checks
-        op, _ = build_posterior(cx, cm, FLAGSHIP_SEED, "order_one", device)
-        sampler = MultigridMCSampler(op, cl, cycle=2, subtree=True)
+    # O(1) measurement variances, as for the visits' elementwise checks; the
+    # last case's sub-levels are 5-point stencils (not the 3x3 box)
+    cases = (("flagship_levels_1_to_4", (nx, nlevel, n_meas)), ("64x64_3_levels", (64, 3, 4)),
+             ("64x64_4_levels_5_point", (64, 4, 4)))
+    for name, (cx, cl, cm) in cases:
+        if name.endswith("5_point"):
+            sampler = rediscretised_sampler(cx, cl, cm, device)
+        else:
+            op, _ = build_posterior(cx, cm, FLAGSHIP_SEED, "order_one", device)
+            sampler = MultigridMCSampler(op, cl, cycle=2, subtree=True)
         kernel = sampler.subtree
         vshape = kernel.vshape
         f = torch.randn((C,) + tuple(vshape), device=device, generator=gen)
@@ -1297,7 +1299,10 @@ def check_subtree(device, nx, nlevel, C, n_meas, gen):
         xi = torch.randn((C, K), device=device, generator=gen)
         row = {"case": name, "chains": C, "vshape": list(vshape), "normals_per_chain": K,
                "draws": kernel.count_draws(), "schedule_ops": len(kernel.schedule),
+               "stencil_points": [len(lv.op.offsets) for lv in kernel.levels],
                "placement": kernel.placement}
+        if name.endswith("5_point") and any(len(lv.op.offsets) != 5 for lv in kernel.levels):
+            raise AssertionError(f"subtree {name}: a sub-level is not a 5-point stencil")
         row["err_noise_off"] = compare(
             f"subtree {name} noise off", st.subtree_sample(kernel, f),
             st.subtree_sample_plain(kernel, f), SUBTREE_TOL)
@@ -1381,22 +1386,40 @@ def time_subtree(device, nx, nlevel, C, n_meas, noise):
     out["plain_ms"] = cuda_ms(lambda: st.subtree_sample_plain(
         kernel, f, torch.randn((C, K), device=device)), 3, 2)
     # where the launch's time goes: thread 0 of each block stamps the card's
-    # global timer after each operation of the schedule (the last of three
-    # launches).  The stamps' span over all blocks must agree with the
-    # profiler's time; the operations' medians sum to the median block, which
-    # ends before the slowest one
-    stamps = torch.zeros((C, len(kernel.schedule) + 1), dtype=torch.int64, device=device)
+    # global timer at entry, after the table copy, after each operation of the
+    # schedule and at exit, and counts the barriers it passes (the last of
+    # three launches).  The breakdown (medians over the blocks) sums to the
+    # median block, which ends before the slowest one (of the two blocks an SM
+    # runs, one ends some 120 us after the other): 0.89 - 0.90 of the device
+    # time on this kernel, 0.84 - 0.92 on the earlier versions the bound was
+    # set from.  The span from the first entry to the last exit must agree
+    # with the profiler's time.
+    stamps = torch.zeros((C, len(kernel.schedule) + 1 + st.STAMP_EXTRA), dtype=torch.int64,
+                         device=device)
     for _ in range(3):
         st.subtree_sample(kernel, f, philox=noise.philox_streams(kernel.count_draws()),
                           stamps=stamps)
     po = out["per_operation"] = st.operation_times(kernel, stamps)
-    po["sum_over_device_ms"] = po["sum_us"] / 1e3 / out["device_ms"]
+    ratio = po["sum_over_device_ms"] = po["sum_us"] / 1e3 / out["device_ms"]
+    if not 0.8 <= ratio <= 1.05:
+        raise AssertionError(f"subtree stamps: the operations sum to {ratio} of the device time")
     ratio = po["span_over_device_ms"] = po["launch_span_us"] / 1e3 / out["device_ms"]
     if not 0.9 <= ratio <= 1.1:
         raise AssertionError(f"subtree stamps: the launch spans {ratio} of the device time")
-    out["barriers_per_launch"] = subtree_barriers(kernel)
+    # measured on the card: the barriers each block passed (held against the
+    # count from the source, st.barrier_count) and the blocks one SM ran at
+    # once (held against the occupancy calculator's answer)
+    out["barriers_per_launch_from_source"] = st.barrier_count(kernel)
+    if po["barriers_per_block"] != [out["barriers_per_launch_from_source"]]:
+        raise AssertionError(f"subtree: the blocks passed {po['barriers_per_block']} barriers, "
+                             f"the source places {out['barriers_per_launch_from_source']}")
     lib = st.load_library()
-    out["blocks_per_sm"] = lib.mgmc_subtree_blocks_per_sm(kernel.threads, kernel.smem_bytes)
+    out["blocks_per_sm_occupancy_api"] = lib.mgmc_subtree_blocks_per_sm(kernel.threads,
+                                                                        kernel.smem_bytes)
+    if not 1 <= po["blocks_per_sm"] <= out["blocks_per_sm_occupancy_api"]:
+        raise AssertionError(f"subtree: {po['blocks_per_sm']} blocks ran on one SM at once, "
+                             f"the occupancy calculator allows "
+                             f"{out['blocks_per_sm_occupancy_api']}")
     # other block sizes and placements, the default among them
     default_budget = kernel.smem_budget
     out["variants"] = []
@@ -1406,7 +1429,7 @@ def time_subtree(device, nx, nlevel, C, n_meas, noise):
         out["variants"].append({
             "threads": threads, "shared_bytes": k.placement["shared_bytes"],
             "dynamic_shared_bytes": k.smem_bytes,
-            "blocks_per_sm": lib.mgmc_subtree_blocks_per_sm(threads, k.smem_bytes),
+            "blocks_per_sm_occupancy_api": lib.mgmc_subtree_blocks_per_sm(threads, k.smem_bytes),
             "default": threads == kernel.threads and k.smem_budget == default_budget,
             "device_ms": device_ms_per_launch(lambda: k.sample(noise, f), "mgmc_subtree_kernel",
                                               launches=10)})
@@ -2543,7 +2566,8 @@ def main(argv=None) -> int:
         "library_ms": None, "shape": {"chains": t["chains"], "vshape": t["vshape"]},
         "design": "launch tables in shared memory, each low-rank term in one pass, the 3x3 "
                   "stencil in registers, each colour's rows over all warps",
-        "barriers_per_launch": t["barriers_per_launch"], "blocks_per_sm": t["blocks_per_sm"],
+        "barriers_per_launch": t["per_operation"]["barriers_per_block"][0],
+        "blocks_per_sm": t["per_operation"]["blocks_per_sm"],
         "per_operation_us": {key: v["total_us"]
                              for key, v in t["per_operation"]["operations"].items()},
     })

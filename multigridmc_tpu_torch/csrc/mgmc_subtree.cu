@@ -44,11 +44,9 @@
 // once per chain; everything else is meant to stay on the chip.  What the
 // kernel pays is the instructions it executes per point on 32 warps of an SM
 // (two blocks of 512 threads) and, on the finest sub-level, whose fields lie
-// in device memory, the L2's latency.  Barriers: a descend has n_order + 5,
-// an ascend n_order + 3, a coarse sample 2; with the flagship's three
-// 4-colour sub-levels (14 descends, 14 ascends, 8 coarse samples) 241 a
-// launch with the table copy, where the column-after-column loops of
-// visit_phases.cuh took 1,564.
+// in device memory, the L2's latency.  Barriers: the table copy 1, a descend
+// n_order + 5, an ascend n_order + 3 (each 2 fewer where m = 0), a coarse
+// sample 2.
 //
 // Noise.  Mode 0 off.  Mode 1: the generator of philox.cuh; every draw of the
 // launch (the field of one sweep, the m low-rank scalars of one sweep, the
@@ -110,10 +108,14 @@ struct SubtreeParams {
     int warp_vec;           // word offset of the warps' slots (32 of warp_stride words)
     int warp_stride;
     int pad;
-    // null, or (C, n_sched + 1): per block the %globaltimer (ns) before the
-    // first operation and after each, written by thread 0
+    // null, or (C, n_sched + 1 + STAMP_EXTRA), written by thread 0 of each
+    // block: the %globaltimer (ns) before the first operation and after each,
+    // then at kernel entry (before the table copy), at exit, the barriers the
+    // block passed and the SM it ran on
     unsigned long long* stamps;
 };
+
+#define STAMP_EXTRA 4
 
 extern __shared__ __align__(16) float dyn_smem[];
 
@@ -124,11 +126,17 @@ __device__ __forceinline__ float* locate(const SubtreeParams& S, const FieldLoc&
     return launch;
 }
 
+// thread 0 writes v into its block's stamps
+__device__ __forceinline__ void stamp_value(const SubtreeParams& S, int chain, int slot,
+                                            unsigned long long v) {
+    if (threadIdx.x == 0) S.stamps[(size_t)chain * (S.n_sched + 1 + STAMP_EXTRA) + slot] = v;
+}
+
 __device__ __forceinline__ void stamp(const SubtreeParams& S, int chain, int slot) {
-    if (S.stamps != nullptr && threadIdx.x == 0) {
+    if (threadIdx.x == 0) {
         unsigned long long t;
         asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-        S.stamps[(size_t)chain * (S.n_sched + 1) + slot] = t;
+        stamp_value(S, chain, slot, t);
     }
 }
 
@@ -144,6 +152,7 @@ __device__ __forceinline__ LevelTables level_tables(const SubLevel& L, int dir) 
 // second product two rows of a warp at a time, their L2 reads interleaved);
 // the normal of row i is drawn by lane t of the warp that owns it (its t-th
 // row) and handed to lane 0 by a shuffle.  Two barriers.
+template <bool COUNT>
 __device__ void coarse_sample(const SubtreeParams& S, int chain, const float* __restrict__ Linv,
                               const float* __restrict__ LinvT, const float* f, float* g,
                               float* x, float* xi, long long cur, unsigned long long draw) {
@@ -174,7 +183,7 @@ __device__ void coarse_sample(const SubtreeParams& S, int chain, const float* __
             if (lane == 0) g[i] = zi + acc;
         }
     }
-    __syncthreads();
+    block_sync<COUNT>();
     // x[j] = sum_{i >= j} Linv[i, j] g[i], read from the transpose's row j;
     // two rows at a time
     for (int j = warp; j < nc; j += 2 * nwarps) {
@@ -191,9 +200,12 @@ __device__ void coarse_sample(const SubtreeParams& S, int chain, const float* __
             if (j2 < nc) x[j2] = acc2;
         }
     }
-    __syncthreads();
+    block_sync<COUNT>();
 }
 
+// STAMPS: the measurement build, which writes the stamps (S.stamps not null)
+// and counts the barriers; production launches take the other one.
+template <bool STAMPS>
 __global__ void __launch_bounds__(MAX_THREADS)
 mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const int4* __restrict__ tables,
                     const int* __restrict__ sched, const float* __restrict__ Linv,
@@ -209,6 +221,10 @@ mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const int4* __restr
     float* wv = dyn_smem + S.warp_vec + (threadIdx.x >> 5) * S.warp_stride;  // this warp's slot
     long long cur = 0;            // normals this chain has consumed
     unsigned long long draw = 0;  // draws of the launch so far
+    if (STAMPS) {
+        stamp(S, chain, S.n_sched + 1);
+        if (threadIdx.x == 0) subtree_sync_count = 0;
+    }
 
     // the launch's tables, once
     int4* tab = reinterpret_cast<int4*>(dyn_smem);
@@ -217,17 +233,17 @@ mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const int4* __restr
         float* f0 = locate(S, S.lv[0].f, ws, nullptr);
         for (int p = threadIdx.x; p < n0; p += blockDim.x) f0[p] = f_launch[p];
     }
-    __syncthreads();
-    stamp(S, chain, 0);
+    block_sync<STAMPS>();
+    if (STAMPS) stamp(S, chain, 0);
 
     for (int s = 0; s < S.n_sched; ++s) {
         const int op = sched[2 * s], li = sched[2 * s + 1];
         if (op == OP_COARSE) {
-            coarse_sample(S, chain, Linv, LinvT, locate(S, S.cf, ws, nullptr),
+            coarse_sample<STAMPS>(S, chain, Linv, LinvT, locate(S, S.cf, ws, nullptr),
                           locate(S, S.cscr, ws, nullptr), locate(S, S.cx, ws, nullptr), xi, cur,
                           draw);
             if (S.noise_mode) { cur += S.nc; draw += 1; }
-            stamp(S, chain, s + 1);
+            if (STAMPS) stamp(S, chain, s + 1);
             continue;
         }
         const SubLevel& L = S.lv[li];
@@ -246,21 +262,28 @@ mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const int4* __restr
         const bool last = li + 1 == S.NL;
         if (dir == 0) {
             float* fc = locate(S, last ? S.cf : S.lv[li + 1].f, ws, nullptr);
-            subtree_descend(P, T, chain, S.noise_mode, S.seed, S.counter + draw,
-                            op == OP_DESCEND_ZERO, x, f, scr, fc, L.coeffs, L.ns, xi_in, xi_rec,
-                            wv, s_btx);
+            subtree_descend<STAMPS>(P, T, chain, S.noise_mode, S.seed, S.counter + draw,
+                                    op == OP_DESCEND_ZERO, x, f, scr, fc, L.coeffs, L.ns, xi_in,
+                                    xi_rec, wv, s_btx);
         } else {
             const float* xc = locate(S, last ? S.cx : S.lv[li + 1].x, ws, nullptr);
-            subtree_ascend(P, T, chain, S.noise_mode, S.seed, S.counter + draw, x, f, scr, xc,
-                           L.coeffs, L.ns, xi_in, xi_rec, wv, s_btx);
+            subtree_ascend<STAMPS>(P, T, chain, S.noise_mode, S.seed, S.counter + draw, x, f,
+                                   scr, xc, L.coeffs, L.ns, xi_in, xi_rec, wv, s_btx);
         }
         if (S.noise_mode) { cur += n + m; draw += m ? 2 : 1; }
-        stamp(S, chain, s + 1);
+        if (STAMPS) stamp(S, chain, s + 1);
     }
 
     if (S.lv[0].x.where != LOC_LAUNCH) {
         const float* x0 = locate(S, S.lv[0].x, ws, nullptr);
         for (int p = threadIdx.x; p < n0; p += blockDim.x) x_launch[p] = x0[p];
+    }
+    if (STAMPS) {
+        unsigned sm;
+        asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+        stamp(S, chain, S.n_sched + 2);
+        stamp_value(S, chain, S.n_sched + 3, subtree_sync_count);
+        stamp_value(S, chain, S.n_sched + 4, sm);
     }
 }
 
@@ -269,28 +292,30 @@ extern "C" int mgmc_subtree_params_size() { return (int)sizeof(SubtreeParams); }
 
 extern "C" int mgmc_subtree_visit_params_size() { return (int)sizeof(VisitParams); }
 
-// the kernel's static shared memory in bytes, or -1
+// the static shared memory in bytes of the larger of the two builds, or -1
 extern "C" int mgmc_subtree_static_smem() {
-    cudaFuncAttributes a;
-    if (cudaFuncGetAttributes(&a, mgmc_subtree_kernel) != cudaSuccess) {
+    cudaFuncAttributes a, b;
+    if (cudaFuncGetAttributes(&a, mgmc_subtree_kernel<false>) != cudaSuccess ||
+        cudaFuncGetAttributes(&b, mgmc_subtree_kernel<true>) != cudaSuccess) {
         cudaGetLastError();
         return -1;
     }
-    return (int)a.sharedSizeBytes;
+    return (int)(a.sharedSizeBytes > b.sharedSizeBytes ? a.sharedSizeBytes : b.sharedSizeBytes);
 }
 
 // blocks of `threads` with `smem_bytes` of dynamic shared memory that one SM
-// holds at once, or -1
+// holds at once in the production build, or -1
 extern "C" int mgmc_subtree_blocks_per_sm(int threads, int smem_bytes) {
     if (smem_bytes > 48 * 1024 &&
-        cudaFuncSetAttribute(mgmc_subtree_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        cudaFuncSetAttribute(mgmc_subtree_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_bytes) != cudaSuccess) {
         cudaGetLastError();
         return -1;
     }
     int blocks = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mgmc_subtree_kernel, threads,
-                                                      smem_bytes) != cudaSuccess) {
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mgmc_subtree_kernel<false>,
+                                                      threads, smem_bytes) != cudaSuccess) {
         cudaGetLastError();
         return -1;
     }
@@ -301,15 +326,24 @@ extern "C" int mgmc_subtree_sample(const SubtreeParams* S, const void* tables, c
                                    const float* Linv, const float* LinvT, const float* f, float* x,
                                    float* ws, float* xi, int threads, int smem_bytes,
                                    void* stream) {
+    const bool stamps = S->stamps != nullptr;
     if (smem_bytes > 48 * 1024) {  // above what needs no opt-in
-        cudaError_t e = cudaFuncSetAttribute(
-            mgmc_subtree_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+        cudaError_t e =
+            stamps ? cudaFuncSetAttribute(mgmc_subtree_kernel<true>,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes)
+                   : cudaFuncSetAttribute(mgmc_subtree_kernel<false>,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
         if (e != cudaSuccess) {
             cudaGetLastError();
             return (int)e;
         }
     }
-    mgmc_subtree_kernel<<<S->C, threads, smem_bytes, (cudaStream_t)stream>>>(
-        *S, static_cast<const int4*>(tables), sched, Linv, LinvT, f, x, ws, xi);
+    const int4* tab = static_cast<const int4*>(tables);
+    if (stamps)
+        mgmc_subtree_kernel<true><<<S->C, threads, smem_bytes, (cudaStream_t)stream>>>(
+            *S, tab, sched, Linv, LinvT, f, x, ws, xi);
+    else
+        mgmc_subtree_kernel<false><<<S->C, threads, smem_bytes, (cudaStream_t)stream>>>(
+            *S, tab, sched, Linv, LinvT, f, x, ws, xi);
     return (int)cudaGetLastError();
 }

@@ -1,7 +1,6 @@
 // The level visits of the subtree kernel (mgmc_subtree.cu): float32, 2d, one
-// thread block per chain, the same function and the same arithmetic as the
-// visits of visit_phases.cuh (whose generic colour sweep and stencil they fall
-// back on for any stencil but the 3x3 box).
+// thread block per chain, the same function and the same arithmetic per point
+// as the visits of visit_phases.cuh.
 //
 //   descend: c  = f + sqrt(D(2-w)/w) xi + sum_k s_k B_k     (Gibbs rhs)
 //            x <- colour-ordered SOR sweep(c, x)
@@ -10,37 +9,43 @@
 //            f_c = R r                                     (full weighting)
 //   ascend:  x <- x + gamma P x_c, then c, sweep, Woodbury as above
 //
-// What differs from visit_phases.cuh, measured by the subtree kernel's timer
-// stamps (chip_smoke.py, subtree_timing.per_operation):
+// What the passes rely on:
 //
-// * The low-rank terms.  There each is a loop over the m columns with a
-//   barrier after each column, and B^T x is m block-wide reductions of three
-//   barriers each.  Here the tables live in shared memory for the whole
-//   launch (struct LevelTables: B_k inside its bounding box and Y_k of both
-//   directions inside theirs, each box row major, column after column; W, G,
-//   1/Sigma, Sigma^-1/2); sum_k s_k B_k joins the rhs pass and sum_k t_k B_k
-//   the residual pass, and the Woodbury correction is one pass: the thread
-//   that owns a point adds the columns whose box holds it, in column order,
-//   so each point ends with the value of the column-after-column loops,
-//   without atomics.  B^T x is one warp per column (lanes along its box, a
-//   shuffle tree) and one barrier.  The m scalars a pass needs (s, u or t)
-//   each warp computes for itself into its own slot of shared memory.
-// * The stencil.  stencil_at walks the offsets in a loop that reads the
-//   parameter block for every term; the 3x3 box of the Galerkin levels is
-//   read here with its coefficients in registers (Box9).
-// * The sweep's rows.  sweep_phase gives warp w the rows w, w + nwarps, ...;
-//   under the 4-colour order (i + 2j) mod 4 those all have w's parity and hold
-//   only two of the colours, so half the warps wait in each colour phase.
-//   Here the warps take the rows that hold the colour in turn (T.rows).
-// * The rhs pass takes the field's noise groups over the whole block, not a
-//   warp per row (a row of 31 points has 8 groups for 32 lanes).
+// * The tables lie in shared memory for the whole launch (struct LevelTables:
+//   B_k inside its bounding box and Y_k of both directions inside theirs, each
+//   box row major, column after column; W, G, 1/Sigma, Sigma^-1/2).
+// * Each low-rank term is one pass: sum_k s_k B_k joins the rhs pass, sum_k
+//   t_k B_k the residual pass, and the Woodbury correction is one pass.  Every
+//   point has one owner thread, which adds the columns whose box holds it in
+//   column order; the boxes overlap, so that order, not atomics, makes each
+//   point's sum the same as a loop over the columns.  B^T x is one warp per
+//   column (lanes along its box, a fixed shuffle tree).  The m scalars a pass
+//   needs (s, u or t) each warp computes for itself into its own slot.
+// * The sweep's warps take the rows that hold the colour in turn (T.rows), so
+//   every warp has rows in every colour phase; within a colour no point reads
+//   another, so the order of the rows does not change the result.  The 3x3 box
+//   of the Galerkin levels is read with its coefficients in registers (Box9),
+//   any other reach-1 stencil term by term from the parameter block
+//   (stencil_at); both over the same rows.
 //
-// Barriers: a descend has n_order + 5 (rhs, colours, B^T x, Woodbury,
-// residual, restriction), an ascend n_order + 3; with 4 colours 9 and 7.
+// Barriers (block_sync; COUNT, the kernel's stamps mode, counts them): a
+// descend has n_order + 5 (rhs, colours, B^T x, Woodbury, residual,
+// restriction), an ascend n_order + 3, each without the two low-rank ones
+// where m = 0.
 
 #pragma once
 
 #include "visit_phases.cuh"
+
+// Barriers this block has passed, counted by thread 0 where COUNT is set (the
+// kernel's stamps mode, which zeroes it at launch start and reports it).
+__shared__ unsigned subtree_sync_count;
+
+template <bool COUNT>
+__device__ __forceinline__ void block_sync() {
+    __syncthreads();
+    if (COUNT && threadIdx.x == 0) ++subtree_sync_count;
+}
 
 // sum over the warp, the total in lane 0 (a fixed shuffle tree)
 __device__ __forceinline__ float warp_total(float v) {
@@ -68,9 +73,7 @@ struct LevelTables {
 // The level's stencil where it is the 3x3 box in raster order (the Galerkin
 // levels): its coefficients held in registers, the neighbours outside the
 // field skipped by predicates, each term added in offset order as stencil_at
-// adds it, so the two agree bitwise.  stencil_at walks the offsets in a loop
-// that reads the parameter block per term; on these levels that loop, not the
-// low-rank terms, was what the visits spent their time on.
+// adds it, so the two agree bitwise.
 struct Box9 {
     bool on;     // the stencil is the raster 3x3 box
     int planes;  // bit k: coefficient k varies in space and is read per point
@@ -108,18 +111,13 @@ __device__ __forceinline__ float stencil_box9(const Box9& b, const float* __rest
 }
 
 // One colour-ordered SOR sweep, the arithmetic of sweep_phase
-// (visit_phases.cuh), which it calls for any stencil but the 3x3 box.  The
-// warps take the rows that hold the colour in turn (T.rows), so every warp has
-// rows in every colour: sweep_phase gives warp w the rows w, w + nwarps, ...,
-// which under the 4-colour order (i + 2j) mod 4 all have w's parity and hold
-// only two of the colours.  Ends with a barrier.
-__device__ void subtree_sweep(const VisitParams& P, const Box9& b, const LevelTables& T,
-                              const float* __restrict__ coeffs, const float* __restrict__ c,
-                              float* x) {
-    if (!b.on) {
-        sweep_phase(P, coeffs, c, x);
-        return;
-    }
+// (visit_phases.cuh) per point.  The warps take the rows that hold the colour
+// in turn (T.rows); BOX: the stencil is the 3x3 box (Box9), else stencil_at.
+template <bool BOX, bool COUNT>
+__device__ __forceinline__ void sweep_colours(const VisitParams& P, const Box9& b,
+                                              const LevelTables& T,
+                                              const float* __restrict__ coeffs,
+                                              const float* __restrict__ c, float* x) {
     const int H = P.H, W = P.W, n = H * W, lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
     const int s = P.jstride, K = P.n_colors, d = P.diag_index;
@@ -134,13 +132,25 @@ __device__ void subtree_sweep(const VisitParams& P, const Box9& b, const LevelTa
             if (i >= H) break;
             for (int j = cr[2 + 2 * t] + s * lane; j < W; j += 32 * s) {
                 const int p = i * W + j;
-                const float ax = stencil_box9(b, coeffs, x, H, W, i, j, n, p);
+                const float ax = BOX ? stencil_box9(b, coeffs, x, H, W, i, j, n, p)
+                                     : stencil_at(P, coeffs, x, i, j, n, p);
                 const float diag = dplane ? coeffs[(size_t)d * n + p] : dval;
                 x[p] = x[p] + omega * (c[p] - ax) / diag;
             }
         }
-        __syncthreads();
+        block_sync<COUNT>();
     }
+}
+
+// Ends with a barrier.
+template <bool COUNT>
+__device__ void subtree_sweep(const VisitParams& P, const Box9& b, const LevelTables& T,
+                              const float* __restrict__ coeffs, const float* __restrict__ c,
+                              float* x) {
+    if (b.on)
+        sweep_colours<true, COUNT>(P, b, T, coeffs, c, x);
+    else
+        sweep_colours<false, COUNT>(P, b, T, coeffs, c, x);
 }
 
 // [lo, hi): the columns that the boxes holding row i span (lo >= hi: none)
@@ -261,6 +271,7 @@ __device__ void rhs_pass(const VisitParams& P, const LevelTables& T, int chain, 
 
 // s_btx[k] = <B_k, x> over column k's box: one warp per column, lanes along
 // the box, a shuffle tree.  Ends with a barrier.
+template <bool COUNT>
 __device__ void btx_pass(const VisitParams& P, const LevelTables& T, const float* x, float* s_btx) {
     const int lane = threadIdx.x & 31;
     for (int k = threadIdx.x >> 5; k < P.m; k += blockDim.x >> 5) {
@@ -272,11 +283,12 @@ __device__ void btx_pass(const VisitParams& P, const LevelTables& T, const float
         acc = warp_total(acc);
         if (lane == 0) s_btx[k] = acc;
     }
-    __syncthreads();
+    block_sync<COUNT>();
 }
 
 // x -= sum_l u_l Y_l with u = W B^T x (this warp's copy in wv), one warp per
 // row over the columns that Y's boxes span.  Ends with a barrier.
+template <bool COUNT>
 __device__ void woodbury_pass(const VisitParams& P, const LevelTables& T, const float* s_btx,
                               float* wv, float* x) {
     const int lane = threadIdx.x & 31;
@@ -294,11 +306,12 @@ __device__ void woodbury_pass(const VisitParams& P, const LevelTables& T, const 
             x[p] = add_columns(P.ybox, P.m, T.yval, T.yoff, wv, -1.0f, i, j, x[p]);
         }
     }
-    __syncthreads();
+    block_sync<COUNT>();
 }
 
 // r = f - A x - sum_k t_k B_k into scr (wv: this warp's t), one warp per row.
 // Ends with a barrier.
+template <bool COUNT>
 __device__ void residual_pass(const VisitParams& P, const Box9& b, const LevelTables& T,
                               const float* __restrict__ coeffs, const float* wv,
                               const float* __restrict__ f, const float* __restrict__ x,
@@ -315,7 +328,7 @@ __device__ void residual_pass(const VisitParams& P, const Box9& b, const LevelTa
             scr[p] = r;
         }
     }
-    __syncthreads();
+    block_sync<COUNT>();
 }
 
 // --------------------------------------------------------------- whole visits
@@ -323,6 +336,7 @@ __device__ void residual_pass(const VisitParams& P, const Box9& b, const LevelTa
 // visit_phases.cuh; T the level's tables in the pre direction, wv this warp's
 // m scalars, holding s when noise is on, s_btx shared).  `zero` sets x = 0
 // first.  Ends with a barrier.
+template <bool COUNT>
 __device__ void subtree_descend(const VisitParams& P, const LevelTables& T, int chain,
                                 int noise_mode, unsigned long long seed,
                                 unsigned long long counter, bool zero, float* x, const float* f,
@@ -334,13 +348,13 @@ __device__ void subtree_descend(const VisitParams& P, const LevelTables& T, int 
     if (noise_mode || zero) {
         rhs_pass(P, T, chain, noise_mode, seed, counter, f, ns, xi, xi_rec, wv, scr, x, nullptr,
                  zero);
-        __syncthreads();
+        block_sync<COUNT>();
         if (noise_mode) c = scr;
     }
-    subtree_sweep(P, box, T, coeffs, c, x);
+    subtree_sweep<COUNT>(P, box, T, coeffs, c, x);
     if (P.m) {
-        btx_pass(P, T, x, s_btx);
-        woodbury_pass(P, T, s_btx, wv, x);
+        btx_pass<COUNT>(P, T, x, s_btx);
+        woodbury_pass<COUNT>(P, T, s_btx, wv, x);
         // t = Sigma^-1 (I - G) B^T x: B^T x after the correction without a
         // second reduction, from the one before it
         const int k = threadIdx.x & 31;
@@ -351,7 +365,7 @@ __device__ void subtree_descend(const VisitParams& P, const LevelTables& T, int 
         }
         __syncwarp();
     }
-    residual_pass(P, box, T, coeffs, wv, f, x, scr);
+    residual_pass<COUNT>(P, box, T, coeffs, wv, f, x, scr);
     const int lane = threadIdx.x & 31;
     // f_c[I, J] = sum_{a, b} w_a w_b r[2I+1+a, 2J+1+b], w = {0.5, 1, 0.5}
     WARP_ROWS(I, P.Hc) {
@@ -371,11 +385,12 @@ __device__ void subtree_descend(const VisitParams& P, const LevelTables& T, int 
             fc[I * P.Wc + J] = acc;
         }
     }
-    __syncthreads();
+    block_sync<COUNT>();
 }
 
 // One ascend visit of one chain; T in the post direction, xc the coarse
 // state.  Ends with a barrier.
+template <bool COUNT>
 __device__ void subtree_ascend(const VisitParams& P, const LevelTables& T, int chain, int noise_mode,
                                unsigned long long seed, unsigned long long counter, float* x,
                                const float* f, float* scr, const float* xc,
@@ -383,10 +398,10 @@ __device__ void subtree_ascend(const VisitParams& P, const LevelTables& T, int c
                                const float* __restrict__ xi, float* xi_rec, float* wv,
                                float* s_btx) {
     rhs_pass(P, T, chain, noise_mode, seed, counter, f, ns, xi, xi_rec, wv, scr, x, xc, false);
-    __syncthreads();
-    subtree_sweep(P, box9(P), T, coeffs, noise_mode ? scr : f, x);
+    block_sync<COUNT>();
+    subtree_sweep<COUNT>(P, box9(P), T, coeffs, noise_mode ? scr : f, x);
     if (P.m) {
-        btx_pass(P, T, x, s_btx);
-        woodbury_pass(P, T, s_btx, wv, x);
+        btx_pass<COUNT>(P, T, x, s_btx);
+        woodbury_pass<COUNT>(P, T, s_btx, wv, x);
     }
 }

@@ -40,10 +40,22 @@ the probe kernel (:func:`~.common.probe_dynamic_smem`) and
 sub-level once per chain (``2 C n_0 4`` bytes); by operations it does
 ``cycle^(l+1)`` visits of each level ``l``.  The kernel pays the instructions
 it executes per point and, on the finest sub-level, the L2's latency.  A descend
-is ``n_order + 5`` barrier-separated phases, an ascend ``n_order + 3``, a
-coarse sample 2 (241 a launch on the flagship's 4-colour sub-levels, where
-column-after-column low-rank loops took 1,564).  :func:`operation_times` reads
-where a launch's time went from its ``stamps``.
+is ``n_order + 5`` barrier-separated phases, an ascend ``n_order + 3`` (2 fewer
+each without a low-rank term), a coarse sample 2, the table copy 1
+(:func:`barrier_count`).  :func:`operation_times` reads where a launch's time
+went from its ``stamps``, with the barriers each block passed and the SM it
+ran on.
+
+**Shared memory.**  The tables stay in shared memory whatever the placement of
+the fields, so the tables and the kernel's static share must fit a block's
+limit: 20,160 B on the flagship's sub-levels (m = 8); at m = 32 (the most the
+kernel takes) 26-28 KB a sub-level, most of it the part that does not depend
+on the level's size (two ``W``, ``G``, the two parameter blocks), so some
+206 KB at 8 sub-levels (205,840 B for a 1024^2 lattice of 10 levels with 32
+point measurements, the case of ``tests/test_torch_subtree_tables.py``), under
+the H100's 232,448 B with the 4,096 B static share.  A
+card with less raises at construction; on the CPU nothing is launched and the
+placement is not probed.
 
 Beside the kernel stands its **plain PyTorch version**
 (:func:`subtree_sample_plain`), the same schedule walked with
@@ -105,6 +117,10 @@ STATIC_SMEM_RESERVE = 4096
 #: ``csrc/visit_phases.cuh``), which caps a thread at 64 registers, as two
 #: blocks of 512 do.
 MAX_THREADS = 512
+
+#: words the kernel's stamps hold per block after the schedule's times: the
+#: timer at kernel entry and at exit, the barriers passed, the SM
+STAMP_EXTRA = 4
 
 #: kernel launches made by the wrapper (and only where it launches)
 launch_counts: Dict[str, int] = {"subtree_sample": 0}
@@ -378,11 +394,15 @@ class SubtreeKernel:
             self.smem_budget = max(int(budget), 0)
             (self._level_locs, self._coarse_locs, self._smem_floats,
              self._ws_floats) = place_fields(self.level_sizes, self.nc, self.smem_budget)
-            if probe_dynamic_smem(self.smem_bytes + STATIC_SMEM_RESERVE, self.device):
+            # on the CPU the plain version runs: nothing to probe
+            if self.device.type == "cpu" or probe_dynamic_smem(
+                    self.smem_bytes + STATIC_SMEM_RESERVE, self.device):
                 break
         else:
-            raise RuntimeError(f"{self.smem_bytes} bytes of dynamic shared memory for the "
-                               "subtree kernel's tables and fields were refused")
+            raise RuntimeError(
+                f"{self.smem_bytes} bytes of dynamic shared memory for the subtree kernel's "
+                f"tables ({4 * table_words} bytes, which stay in shared memory) and fields "
+                "were refused")
         self._device_cache = {}
 
     # ------------------------------------------------------------- statics
@@ -493,25 +513,79 @@ class SubtreeKernel:
         return S
 
 
+def barrier_count(kernel: "SubtreeKernel", noise: bool = True) -> int:
+    """Block barriers of one launch as ``csrc/subtree_phases.cuh`` places them:
+    the table copy, per descend the rhs pass (where noise is on or x is
+    zeroed), one per colour, ``B^T x`` and the Woodbury pass (where m > 0),
+    the residual and the restriction, per ascend the same without the last
+    two (its rhs pass always), per coarse sample two.  The kernel counts the
+    barriers it passes into its stamps; ``chip_smoke.py`` holds the two
+    equal."""
+    count = 1
+    for op, li in kernel.schedule:
+        if op == OP_COARSE:
+            count += 2
+            continue
+        lv = kernel.levels[li]
+        colours = len(lv.post_order if op == OP_ASCEND else lv.pre_order)
+        lowrank = 2 if lv.op.m_lowrank else 0
+        if op == OP_ASCEND:
+            count += 1 + colours + lowrank
+        else:
+            count += int(noise or op == OP_DESCEND_ZERO) + colours + lowrank + 2
+    return count
+
+
 def operation_times(kernel: "SubtreeKernel", stamps) -> dict:
     """Where one launch's time went, from the ``stamps`` it wrote (see
-    :func:`subtree_sample`): per (operation, level shape) of the schedule the
-    number of such operations, the median over them of their time (each the
-    median over the blocks) and the sum of those, in microseconds; ``sum_us``
-    over every operation, the median over the blocks of the time from the
-    first stamp to the last (``block_span_us``) and the time from the first
-    block's first stamp to the last block's last (``launch_span_us``)."""
-    t = np.asarray(torch.as_tensor(stamps).cpu().numpy(), dtype=np.float64)
+    :func:`subtree_sample`), in microseconds.
+
+    ``operations``: per (operation, level shape) of the schedule the number of
+    such operations, the median over them of their time (each the median over
+    the blocks) and the sum of those; ``table_copy_us`` / ``copy_out_us`` the
+    medians of the time before the first operation and after the last;
+    ``sum_us`` the sum of all of these, the breakdown's total.  Per block the
+    time from entry to exit: its median (``block_span_us``, what ``sum_us``
+    breaks down) and its largest (``slowest_block_us``), and by the number k
+    of blocks its SM ran in the launch (``block_span_by_sm_share_us``: per k
+    the number of such SMs and, per rank on the SM from the shortest, the
+    median span); ``start_skew_us`` from the first block's entry to the last
+    one's, ``launch_span_us`` from the first entry to the last exit.  Measured, not modelled: ``barriers_per_block`` (the distinct
+    counts the blocks report), ``blocks_per_sm`` (the most blocks that ran on
+    one SM at once) and ``sms`` (the SMs used)."""
+    raw = np.asarray(torch.as_tensor(stamps).cpu().numpy())
+    n = len(kernel.schedule)
+    t = raw[:, :n + 1].astype(np.float64)
+    entry, exit_ = raw[:, n + 1].astype(np.float64), raw[:, n + 2].astype(np.float64)
+    barriers, sm = raw[:, n + 3], raw[:, n + 4]
     per_op = np.median(np.diff(t, axis=1), axis=0) / 1e3
     groups: Dict[str, List[float]] = {}
     for s, (op, li) in enumerate(kernel.schedule):
         shape = kernel.coarse_vshape if op == OP_COARSE else kernel.levels[li].op.vshape
         groups.setdefault(f"{OP_NAMES[op]} {'x'.join(map(str, shape))}", []).append(per_op[s])
+    table_copy = float(np.median(t[:, 0] - entry) / 1e3)
+    copy_out = float(np.median(exit_ - t[:, -1]) / 1e3)
+    span = (exit_ - entry) / 1e3
+    at_once = 0
+    by_share: Dict[int, List[np.ndarray]] = {}
+    for q in np.unique(sm):
+        ev = sorted([(e, 1) for e in entry[sm == q]] + [(e, -1) for e in exit_[sm == q]],
+                    key=lambda v: (v[0], v[1]))
+        at_once = max(at_once, int(np.max(np.cumsum([d for _, d in ev]))))
+        by_share.setdefault(int(np.sum(sm == q)), []).append(np.sort(span[sm == q]))
     return {"operations": {key: {"count": len(v), "median_us": float(np.median(v)),
                                  "total_us": float(np.sum(v))} for key, v in groups.items()},
-            "sum_us": float(per_op.sum()),
-            "block_span_us": float(np.median(t[:, -1] - t[:, 0]) / 1e3),
-            "launch_span_us": float((t[:, -1].max() - t[:, 0].min()) / 1e3)}
+            "table_copy_us": table_copy, "copy_out_us": copy_out,
+            "sum_us": float(per_op.sum()) + table_copy + copy_out,
+            "block_span_us": float(np.median(span)),
+            "slowest_block_us": float(span.max()),
+            "block_span_by_sm_share_us": {
+                str(k): {"sms": len(v), "median_by_rank": np.median(v, axis=0).tolist()}
+                for k, v in sorted(by_share.items())},
+            "start_skew_us": float((entry.max() - entry.min()) / 1e3),
+            "launch_span_us": float((exit_.max() - entry.min()) / 1e3),
+            "barriers_per_block": sorted(int(v) for v in np.unique(barriers)),
+            "blocks_per_sm": at_once, "sms": int(np.unique(sm).size)}
 
 
 # ------------------------------------------------------------- plain version
@@ -571,9 +645,11 @@ def subtree_sample(kernel: SubtreeKernel, f: torch.Tensor, xi: Optional[torch.Te
     the kernel drew come back too: ``(x, xi)``.
 
     ``stamps`` (CUDA only, a measurement aid): an int64 tensor of shape
-    ``(C, len(kernel.schedule) + 1)`` that receives, per chain, the card's
-    global timer in ns before the first operation of the schedule and after
-    each (:func:`operation_times`); ``None`` on every production call.
+    ``(C, len(kernel.schedule) + 1 + STAMP_EXTRA)`` that receives, per chain,
+    the card's global timer in ns before the first operation of the schedule
+    and after each, then at kernel entry and at exit, the barriers the block
+    passed and the SM it ran on (:func:`operation_times`); ``None`` on every
+    production call.
 
     CPU tensors go to :func:`subtree_sample_plain`.  CUDA tensors launch the
     kernel or raise."""
@@ -591,11 +667,11 @@ def subtree_sample(kernel: SubtreeKernel, f: torch.Tensor, xi: Optional[torch.Te
         if philox is not None or stamps is not None:
             raise ValueError("the Philox stream and the stamps exist in the CUDA kernel only")
         return subtree_sample_plain(kernel, f, xi)
+    width = len(kernel.schedule) + 1 + STAMP_EXTRA
     if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != f.device
-                               or tuple(stamps.shape) != (C, len(kernel.schedule) + 1)
+                               or tuple(stamps.shape) != (C, width)
                                or not stamps.is_contiguous()):
-        raise ValueError(f"stamps must be a contiguous int64 ({C}, {len(kernel.schedule) + 1}) "
-                         f"tensor on {f.device}")
+        raise ValueError(f"stamps must be a contiguous int64 ({C}, {width}) tensor on {f.device}")
     tensors = {"f": f} if xi is None else {"f": f, "xi": xi}
     for name, t in tensors.items():
         if t.device != kernel.Linv.device:

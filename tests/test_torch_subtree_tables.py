@@ -8,18 +8,23 @@ term in one pass: the thread that owns a point adds the columns whose box
 holds it, in column order, and ``B^T x`` is one warp per column.  Here:
 
 * the tables, decoded from the words the kernel receives, against the
-  levels' ``B``, ``_woodbury`` and boxes, on the flagship's sub-levels and on a
-  3-level 64x64 case built from the JAX package's operator;
+  levels' ``B``, ``_woodbury`` and boxes, on the flagship's sub-levels, on a
+  3-level 64x64 case built from the JAX package's operator and on a 4-level
+  64x64 case whose levels the caller gives (5-point stencils, not the 3x3 box);
 * a replay of the kernel's per-point order (rows, the columns that the boxes
   span in a row, the columns holding a point in column order) reading the
   staged values: bitwise equal to the column-after-column loops for the
   rhs and residual terms and the Woodbury correction (float32, as on the card);
   the warp-per-column ``B^T x`` (lanes along the box, a shuffle tree) within
   ``1e-12`` of the plain sum in float64;
+* the sweep over each colour's rows with the stencil read term by term, as the
+  kernel runs it on levels that are not the 3x3 box, against the plain sweep;
 * the host's shared-memory layout: the flagship's 63^2 level and below in
   shared memory beside the tables, two blocks per SM under the card's limit,
-  and a budget of 0 placing every field in the workspace;
-* the breakdown of a launch by operation from the timer stamps.
+  a budget of 0 placing every field in the workspace, and the tables at the
+  most low-rank columns and sub-levels the kernel takes within the card's limit;
+* the barriers of a launch counted from the source, and the breakdown of a
+  launch by operation from the timer stamps.
 """
 
 import ctypes
@@ -36,6 +41,8 @@ from multigridmc_tpu_torch.ops.kernels import mgmc_subtree as st
 from multigridmc_tpu_torch.ops.kernels.mgmc_visit import VisitParams
 from multigridmc_tpu_torch.ops.stencil import shift
 from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
+from multigridmc_tpu_torch.smoothers import sor_sweep
+from multigridmc_tpu_torch.solvers.multigrid import MultigridHierarchy
 
 from test_torch_common import CPU, jax_operator, to_port
 
@@ -45,18 +52,24 @@ BLOCK_RESERVED_BYTES = 1024
 H100_BLOCK_LIMIT = 232448
 
 
+def posterior(nx, n_meas, seed, near_exact=True):
+    """Shifted-Laplace prior on an nx x nx lattice (Lambda = 0.2) plus
+    ``n_meas`` point measurements drawn from ``seed``, float32."""
+    prior = shiftedlaplace_fd(Lattice((nx, nx)), ConstantCorrelationLengthModel(0.2),
+                              device=CPU, dtype=torch.float32)
+    rng = np.random.default_rng(seed)
+    locations = rng.uniform(0.1, 0.9, size=(n_meas, 2))
+    mean = rng.normal(2.0, 1.0, size=n_meas)
+    u = rng.uniform(size=n_meas)
+    var = 1e-6 * (1.0 + u) if near_exact else 0.5 + u
+    return measured_operator(prior, MeasurementParameters(
+        measurement_locations=locations, mean=mean, variance=var))
+
+
 def flagship_subtree():
     """The flagship's subtree (``bench.py::build_problem``: 256x256, Lambda =
     0.2, 8 near-exact measurements, seed 20260816, 5 levels, W-cycle), float32."""
-    prior = shiftedlaplace_fd(Lattice((256, 256)), ConstantCorrelationLengthModel(0.2),
-                              device=CPU, dtype=torch.float32)
-    rng = np.random.default_rng(20260816)
-    locations = rng.uniform(0.1, 0.9, size=(8, 2))
-    mean = rng.normal(2.0, 1.0, size=8)
-    var = 1e-6 * (1.0 + rng.uniform(size=8))
-    op = measured_operator(prior, MeasurementParameters(
-        measurement_locations=locations, mean=mean, variance=var))
-    return MultigridMCSampler(op, 5, cycle=2, subtree=True)
+    return MultigridMCSampler(posterior(256, 8, 20260816), 5, cycle=2, subtree=True)
 
 
 def small_subtree():
@@ -65,9 +78,28 @@ def small_subtree():
     return MultigridMCSampler(op, 3, cycle=2, subtree=True)
 
 
-@pytest.fixture(scope="module", params=["flagship", "64x64_3_levels"])
+def five_point_subtree():
+    """A 4-level 64x64 posterior (4 measurements, O(1) variances) with levels
+    the caller gives: the posterior discretised anew on each level's lattice,
+    so every sub-level has the prior's 5-point stencil and a red-black
+    colouring."""
+    ops = [posterior(64 >> level, 4, 7, near_exact=False) for level in range(4)]
+    return MultigridMCSampler(ops[0], 4, cycle=2, subtree=True,
+                              hierarchy=MultigridHierarchy(ops[0], 4, operators=ops))
+
+
+BUILDERS = {"flagship": flagship_subtree, "64x64_3_levels": small_subtree,
+            "64x64_5_point": five_point_subtree}
+
+
+@pytest.fixture(scope="module", params=list(BUILDERS))
 def sampler(request):
-    return flagship_subtree() if request.param == "flagship" else small_subtree()
+    return BUILDERS[request.param]()
+
+
+@pytest.fixture(scope="module", params=["flagship", "64x64_3_levels"])
+def galerkin_sampler(request):
+    return BUILDERS[request.param]()
 
 
 def decode(kernel):
@@ -154,8 +186,9 @@ def test_colour_rows_cover_each_colour_once(sampler):
                         break
                     got[i, rows[o, 2 + 2 * (r % R)]::s] += 1
                 assert np.array_equal(got, masks[P.order[o]].astype(int)), (d, o)
-            # under the flagship's colouring each colour lies on every other row
-            assert all(rows[o, 0] == K // 2 for o in range(P.n_order))
+            # each colour lies on every other row of the 4-colour Galerkin
+            # levels, on every row under red-black
+            assert all(rows[o, 0] == (K // 2 if K == 4 else K) for o in range(P.n_order))
 
 
 # ------------------------------------------------ the kernel's order, replayed
@@ -258,11 +291,11 @@ def stencil_box9_replay(P, coeffs, x):
     return ax
 
 
-def test_levels_take_the_register_stencil(sampler):
-    """Every sub-level of both cases is the 3x3 box in raster order, the case
-    in which the kernel's sweep and residual hold the stencil in registers;
-    its replay is the level's own stencil."""
-    kernel = sampler.subtree
+def test_levels_take_the_register_stencil(galerkin_sampler):
+    """Every sub-level of both Galerkin cases is the 3x3 box in raster order,
+    the case in which the kernel's sweep and residual hold the stencil in
+    registers; its replay is the level's own stencil."""
+    kernel = galerkin_sampler.subtree
     rng = np.random.default_rng(6)
     for lv, tab in zip(kernel.levels, decode(kernel)):
         for P in tab["plans"]:
@@ -276,6 +309,61 @@ def test_levels_take_the_register_stencil(sampler):
         want = sum(c.double() * shift(torch.as_tensor(x), off)
                    for c, off in zip(lv.coeffs, lv.op.offsets)).numpy()
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+
+
+def box9_on(P):
+    """``box9(P).on`` of ``subtree_phases.cuh``."""
+    return P.K == 9 and all((P.dy[k], P.dx[k]) == (k // 3 - 1, k % 3 - 1) for k in range(9))
+
+
+def colour_sweep_replay(P, rows, coeffs, c, x):
+    """``sweep_colours<false>`` of ``subtree_phases.cuh``: per colour phase the
+    points of the rows ``colour_rows`` names, each updated from the field as
+    the phase found it (no point of a colour reads another), the stencil term
+    by term in offset order as ``stencil_at`` reads it."""
+    H, W = x.shape
+    K, s = P.n_colors, P.jstride
+    x = x.copy()
+    coef = [np.full((H, W), np.float64(P.coeff_val[k])) if P.coeff_const[k]
+            else coeffs[k] for k in range(P.K)]
+    for o in range(P.n_order):
+        R = rows[o, 0]
+        pts = [((q * K + rows[o, 1 + 2 * t]), j) for q in range(H // K + 1) for t in range(R)
+               for j in range(rows[o, 2 + 2 * t], W, s) if q * K + rows[o, 1 + 2 * t] < H]
+        new = {}
+        for i, j in pts:
+            ax = 0.0
+            for k in range(P.K):
+                ii, jj = i + P.dy[k], j + P.dx[k]
+                if 0 <= ii < H and 0 <= jj < W:
+                    ax += coef[k][i, j] * x[ii, jj]
+            new[i, j] = x[i, j] + P.omega * (c[i, j] - ax) / coef[P.diag_index][i, j]
+        for (i, j), v in new.items():
+            x[i, j] = v
+    return x
+
+
+def test_other_stencils_take_the_generic_sweep_over_the_colour_rows():
+    """The caller's 5-point levels are not the 3x3 box, so the kernel's sweep
+    reads their stencil term by term over the same colour rows as the
+    register stencil; the replay of that sweep in both directions is the
+    plain sweep (float64)."""
+    kernel = five_point_subtree().subtree
+    rng = np.random.default_rng(8)
+    for lv, off in zip(kernel.levels, kernel._table_offsets):
+        assert len(lv.op.offsets) == 5
+        coeffs = lv.coeffs.double().numpy()
+        for d, order in enumerate((lv.pre_order, lv.post_order)):
+            P = lv._build_params(1, order, True, 0)
+            assert not box9_on(P) and P.K == 5
+            rows = kernel._tables[off["rows"][d]:off["rows"][d] + P.n_order * (1 + 2 * P.n_colors)]
+            rows = rows.reshape(P.n_order, 1 + 2 * P.n_colors)
+            c, x = rng.normal(size=(2,) + lv.op.vshape)
+            got = colour_sweep_replay(P, rows, coeffs, c, x)
+            want = sor_sweep(lv.op.to(CPU, torch.float64), lv.masks.double(), lv.omega, order,
+                             torch.as_tensor(c), torch.as_tensor(x)).numpy()
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+            assert not np.allclose(got, x)
 
 
 # ----------------------------------------------------------- the host's layout
@@ -312,10 +400,45 @@ def test_budget_zero_puts_every_field_in_the_workspace(sampler):
     assert np.array_equal(flat._tables, sampler.subtree._tables)
 
 
+def test_tables_fit_the_card_at_the_most_lowrank_columns():
+    """The tables stay in shared memory whatever the fields' placement: at m =
+    32 (the most the kernel takes) and 8 sub-levels (a 1024^2 lattice of 10
+    levels) they and the kernel's static share fit a block of the H100, and on
+    the CPU, where nothing is launched, such a hierarchy builds and samples."""
+    kernel = MultigridMCSampler(posterior(1024, 32, 11), 10, cycle=2, subtree=True).subtree
+    assert len(kernel.levels) == st.MAX_SUB_LEVELS
+    assert all(lv.op.m_lowrank == 32 for lv in kernel.levels)
+    table_bytes = kernel.placement["table_bytes"]
+    assert table_bytes + st.STATIC_SMEM_RESERVE <= H100_BLOCK_LIMIT, table_bytes
+    # more than the CPU's nominal 48 KB, and the plain version runs all the same
+    small = MultigridMCSampler(posterior(64, 32, 12), 4, cycle=2, subtree=True).subtree
+    assert small.placement["table_bytes"] > 48 * 1024
+    f = torch.randn((2,) + small.vshape, generator=torch.Generator().manual_seed(0))
+    x = st.subtree_sample(small, f, xi=torch.randn(2, small.count_noise()))
+    assert x.shape == f.shape and torch.isfinite(x).all()
+
+
+def test_barrier_count_from_the_source(sampler):
+    """The barriers of a launch as ``subtree_phases.cuh`` places them: the
+    table copy, a descend n_order + 5, an ascend n_order + 3, a coarse sample
+    2.  The flagship's three 4-colour sub-levels: 1 + 14 * 9 + 14 * 7 + 8 * 2;
+    one 4-colour sub-level: 1 + 2 * 9 + 2 * 7 + 2 * 2; two red-black ones: 1 +
+    6 * 7 + 6 * 5 + 4 * 2.  Without noise a descend that does not zero x has
+    no rhs pass."""
+    kernel = sampler.subtree
+    want = {"flagship": 241, "64x64_3_levels": 37, "64x64_5_point": 81}
+    n_colours = len(kernel.levels[0].pre_order)
+    name = ("flagship" if kernel.vshape == (127, 127) else
+            "64x64_3_levels" if n_colours == 4 else "64x64_5_point")
+    assert st.barrier_count(kernel) == want[name]
+    plain_descends = sum(op == st.OP_DESCEND for op, _ in kernel.schedule)
+    assert st.barrier_count(kernel, noise=False) == want[name] - plain_descends
+
+
 def test_stamps_are_for_the_card_only():
     kernel = small_subtree().subtree
     f = torch.zeros((2,) + kernel.vshape)
-    stamps = torch.zeros((2, len(kernel.schedule) + 1), dtype=torch.int64)
+    stamps = torch.zeros((2, len(kernel.schedule) + 1 + st.STAMP_EXTRA), dtype=torch.int64)
     with pytest.raises(ValueError, match="stamps exist in the CUDA kernel only"):
         st.subtree_sample(kernel, f, stamps=stamps)
 
@@ -323,15 +446,29 @@ def test_stamps_are_for_the_card_only():
 def test_operation_times_from_stamps():
     kernel = small_subtree().subtree
     n = len(kernel.schedule)
-    # block b spends (s + 1) * (b + 1) us on operation s, after a start at 5 us
+    # block b spends (s + 1) * (b + 1) us on operation s, after a start at 5 us;
+    # it enters 2 us before its first stamp and leaves 1 us after its last;
+    # blocks 0 and 2 share SM 7, block 1 runs alone on SM 3
     steps = np.array([[(s + 1) * (b + 1) * 1000 for s in range(n)] for b in range(3)])
-    stamps = torch.as_tensor(np.concatenate([np.full((3, 1), 5000), 5000 + np.cumsum(
-        steps, axis=1)], axis=1), dtype=torch.int64)
+    times = np.concatenate([np.full((3, 1), 5000), 5000 + np.cumsum(steps, axis=1)], axis=1)
+    extra = np.stack([times[:, 0] - 2000, times[:, -1] + 1000, [241, 241, 241], [7, 3, 7]], 1)
+    stamps = torch.as_tensor(np.concatenate([times, extra], axis=1), dtype=torch.int64)
     out = st.operation_times(kernel, stamps)
     med = [(s + 1) * 2.0 for s in range(n)]  # the median block is b = 1
-    assert out["sum_us"] == pytest.approx(sum(med))
-    assert out["block_span_us"] == pytest.approx(sum(med))
-    assert out["launch_span_us"] == pytest.approx(sum((s + 1) * 3.0 for s in range(n)))
+    assert out["table_copy_us"] == pytest.approx(2.0)
+    assert out["copy_out_us"] == pytest.approx(1.0)
+    assert out["sum_us"] == pytest.approx(sum(med) + 3.0)
+    assert out["block_span_us"] == pytest.approx(sum(med) + 3.0)
+    assert out["slowest_block_us"] == pytest.approx(sum((s + 1) * 3.0 for s in range(n)) + 3.0)
+    assert out["launch_span_us"] == pytest.approx(sum((s + 1) * 3.0 for s in range(n)) + 3.0)
+    assert out["start_skew_us"] == 0.0
+    assert out["barriers_per_block"] == [241]
+    assert out["blocks_per_sm"] == 2 and out["sms"] == 2
+    share = out["block_span_by_sm_share_us"]
+    assert set(share) == {"1", "2"} and share["1"]["sms"] == share["2"]["sms"] == 1
+    assert share["1"]["median_by_rank"] == pytest.approx([sum(med) + 3.0])
+    assert share["2"]["median_by_rank"] == pytest.approx(
+        [sum(med) / 2 + 3.0, sum(med) * 3 / 2 + 3.0])
     ops = out["operations"]
     assert set(ops) == {"descend 31x31", "ascend 31x31", "coarse 15x15"}
     assert sum(v["count"] for v in ops.values()) == n
