@@ -1647,6 +1647,63 @@ def timed_visits(level, C, f_batched, noise, routes):
             "split_cluster": level.split_cluster(C), **t}
 
 
+#: chain counts of the phase kernels' breakdown by pass: the main-path
+#: variant's and one chain
+PASS_CHAINS = (PHASE_CHAINS, 1)
+
+
+def time_phase_passes(levels, noise):
+    """The phase kernels' launches by pass, from their stamps build (the
+    in-kernel noise of the main path), on the flagship's levels 0 and 1 at the
+    counts of :data:`PASS_CHAINS`, beside the profiler's device ms of the
+    production build: per pass the median over the blocks, their sum, the
+    span from the first entry to the last exit, the barriers each block
+    passed and the blocks one SM ran at once (the last of three launches)."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+
+    rows = []
+    for li in (0, 1):
+        level = levels[li]
+        dev = level.coeffs.device
+        for C in PASS_CHAINS:
+            f = torch.rand((C,) + level.op.vshape if li else level.op.vshape, device=dev)
+            x = torch.zeros((C,) + level.op.vshape, device=dev)
+            xc = torch.randn((C,) + level.vc, device=dev)
+            row = {"level": li, "vshape": list(level.op.vshape), "chains": C,
+                   "threads": level.threads}
+            fns = visit_fns(level, "phase", noise, f, x, xc)
+            for kind, fn, name in zip(("descend", "ascend"), fns, VISIT_KERNELS["phase"]):
+                device_ms = device_ms_retried(fn, PROFILER_NAMES[name])
+                stamps = torch.zeros((C, mv.PHASE_STAMP_WIDTH), dtype=torch.int64, device=dev)
+                for _ in range(3):
+                    xi, xi_lr, philox = level._draw(noise, x)
+                    if kind == "descend":
+                        mv.launch_descend(level, "phase", f, x, xi, xi_lr, philox, stamps=stamps)
+                    else:
+                        mv.launch_ascend(level, "phase", f, x, xc, xi, xi_lr, philox,
+                                         stamps=stamps)
+                torch.cuda.synchronize()
+                pt = mv.pass_times(level, kind, stamps)
+                pt["device_ms"] = device_ms
+                pt["sum_over_device_ms"] = pt["sum_us"] / 1e3 / device_ms
+                pt["span_over_device_ms"] = pt["launch_span_us"] / 1e3 / device_ms
+                row[kind] = pt
+            rows.append(row)
+    return rows
+
+
+def phase_passes(device, nx, nlevel, n_meas, smi):
+    """Not part of the default run: :func:`time_phase_passes` alone."""
+    from multigridmc_tpu_torch.samplers.base import GeneratorNoise
+    from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
+
+    op, _ = build_posterior(nx, n_meas, FLAGSHIP_SEED, "near_exact", device)
+    sampler = MultigridMCSampler(op, nlevel, cycle=2, fused=True, fused_min_vertices=0,
+                                 distill=False)
+    emit({"phase": "passes", "card": smi,
+          "rows": time_phase_passes(sampler.fused_levels, GeneratorNoise(5, device))})
+
+
 def phase_visits(device, nx, nlevel, C, n_meas, gen, smi):
     """The level-visit kernels of the three routes: against the plain versions
     and against each other on every fused flagship level (the phase and the
@@ -2439,6 +2496,8 @@ def main(argv=None) -> int:
     phase_build()
     if "threads" in phases:
         phase_threads(device, nx, nlevel, C, n_meas)
+    if "passes" in phases:  # the phase kernels' breakdown by pass alone
+        phase_passes(device, nx, nlevel, n_meas, smi)
     if "new" in phases:  # the third slice's kernels alone
         from multigridmc_tpu_torch.samplers.base import GeneratorNoise
 

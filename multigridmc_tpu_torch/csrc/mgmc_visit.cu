@@ -54,8 +54,30 @@
 #include "visit_phases.cuh"
 
 // ------------------------------------------------------------------- kernels
-// The phases and the two visit bodies are in visit_phases.cuh, shared with the
-// subtree kernel (mgmc_subtree.cu).
+// The phases and the two visit bodies are in visit_phases.cuh.
+//
+// STAMPS: the measurement build, taken only where the host passes a stamps
+// tensor, (C, PHASE_STAMP_WIDTH) int64: per block the timer (ns) at entry,
+// after each pass, at exit, then the barriers passed and the SM it ran on.
+#define PHASE_STAMP_WIDTH (1 + MAX_COLORS + 5 + 3)
+
+__device__ __forceinline__ unsigned long long global_timer() {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+}
+
+__device__ __forceinline__ void stamp_exit(unsigned long long* srow, unsigned barriers) {
+    if (threadIdx.x == 0) {
+        unsigned sm;
+        asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+        srow[PHASE_STAMP_WIDTH - 3] = global_timer();
+        srow[PHASE_STAMP_WIDTH - 2] = barriers;
+        srow[PHASE_STAMP_WIDTH - 1] = sm;
+    }
+}
+
+template <bool STAMPS>
 __global__ void __launch_bounds__(MAX_THREADS)
 descend_kernel(const __grid_constant__ VisitParams P, float* x_all,
                const float* __restrict__ f_all, float* scr_all, float* fc_all,
@@ -63,12 +85,14 @@ descend_kernel(const __grid_constant__ VisitParams P, float* x_all,
                const float* __restrict__ B, const float* __restrict__ Y,
                const float* __restrict__ Wm, const float* __restrict__ xilr,
                const float* __restrict__ sinv, const float* __restrict__ G,
-               const float* __restrict__ xi_all) {
+               const float* __restrict__ xi_all, unsigned long long* stamps) {
     __shared__ float s_red[33];
     __shared__ float s_btx[MAX_LOWRANK];
     __shared__ float s_lr[MAX_LOWRANK];
     __shared__ float s_u[MAX_LOWRANK];
     const int chain = blockIdx.x;
+    unsigned long long* srow = STAMPS ? stamps + (size_t)chain * PHASE_STAMP_WIDTH : nullptr;
+    if (STAMPS && threadIdx.x == 0) srow[0] = global_timer();
     const int n = P.H * P.W, nc = P.Hc * P.Wc;
     float* x = x_all + (size_t)chain * n;
     const float* f = f_all + (P.f_batched ? (size_t)chain * n : 0);
@@ -81,21 +105,26 @@ descend_kernel(const __grid_constant__ VisitParams P, float* x_all,
     }
     descend_body(P, chain, x, f, scr, fc, coeffs, ns, B, Y, Wm, sinv, G,
                  xi_all ? xi_all + (size_t)chain * n : nullptr, nullptr,
-                 s_red, s_btx, s_lr, s_u);
+                 s_red, s_btx, s_lr, s_u, srow);
+    if (STAMPS) stamp_exit(srow, 0);
 }
 
+template <bool STAMPS>
 __global__ void __launch_bounds__(MAX_THREADS)
 ascend_kernel(const __grid_constant__ VisitParams P, float* x_all,
               const float* __restrict__ f_all, float* scr_all,
               const float* __restrict__ xc_all, const float* __restrict__ coeffs,
               const float* __restrict__ ns, const float* __restrict__ B,
               const float* __restrict__ Y, const float* __restrict__ Wm,
-              const float* __restrict__ xilr, const float* __restrict__ xi_all) {
+              const float* __restrict__ xilr, const float* __restrict__ xi_all,
+              unsigned long long* stamps) {
     __shared__ float s_red[33];
     __shared__ float s_btx[MAX_LOWRANK];
     __shared__ float s_lr[MAX_LOWRANK];
     __shared__ float s_u[MAX_LOWRANK];
     const int chain = blockIdx.x;
+    unsigned long long* srow = STAMPS ? stamps + (size_t)chain * PHASE_STAMP_WIDTH : nullptr;
+    if (STAMPS && threadIdx.x == 0) srow[0] = global_timer();
     const int n = P.H * P.W, nc = P.Hc * P.Wc;
     float* x = x_all + (size_t)chain * n;
     const float* f = f_all + (P.f_batched ? (size_t)chain * n : 0);
@@ -107,28 +136,41 @@ ascend_kernel(const __grid_constant__ VisitParams P, float* x_all,
     __syncthreads();
     ascend_body(P, chain, x, f, scr, xc, coeffs, ns, B, Y, Wm,
                 xi_all ? xi_all + (size_t)chain * n : nullptr, nullptr,
-                s_red, s_btx, s_lr, s_u);
+                s_red, s_btx, s_lr, s_u, srow);
+    if (STAMPS) stamp_exit(srow, 0);
 }
 
 // ------------------------------------------------------------ C entry points
 extern "C" int mgmc_visit_params_size() { return (int)sizeof(VisitParams); }
 
+extern "C" int mgmc_visit_stamp_width() { return PHASE_STAMP_WIDTH; }
+
 extern "C" int mgmc_descend_visit(const VisitParams* P, float* x, const float* f, float* scratch,
                                   float* fc, const float* coeffs, const float* ns,
                                   const float* B, const float* Y, const float* Wm,
                                   const float* xilr, const float* sinv, const float* G,
-                                  const float* xi, int threads, void* stream) {
-    descend_kernel<<<P->C, threads, 0, (cudaStream_t)stream>>>(
-        *P, x, f, scratch, fc, coeffs, ns, B, Y, Wm, xilr, sinv, G, xi);
+                                  const float* xi, int threads, void* stamps, void* stream) {
+    unsigned long long* st = static_cast<unsigned long long*>(stamps);
+    if (st != nullptr)
+        descend_kernel<true><<<P->C, threads, 0, (cudaStream_t)stream>>>(
+            *P, x, f, scratch, fc, coeffs, ns, B, Y, Wm, xilr, sinv, G, xi, st);
+    else
+        descend_kernel<false><<<P->C, threads, 0, (cudaStream_t)stream>>>(
+            *P, x, f, scratch, fc, coeffs, ns, B, Y, Wm, xilr, sinv, G, xi, st);
     return (int)cudaGetLastError();
 }
 
 extern "C" int mgmc_ascend_visit(const VisitParams* P, float* x, const float* f, float* scratch,
                                  const float* xc, const float* coeffs, const float* ns,
                                  const float* B, const float* Y, const float* Wm,
-                                 const float* xilr, const float* xi, int threads,
+                                 const float* xilr, const float* xi, int threads, void* stamps,
                                  void* stream) {
-    ascend_kernel<<<P->C, threads, 0, (cudaStream_t)stream>>>(
-        *P, x, f, scratch, xc, coeffs, ns, B, Y, Wm, xilr, xi);
+    unsigned long long* st = static_cast<unsigned long long*>(stamps);
+    if (st != nullptr)
+        ascend_kernel<true><<<P->C, threads, 0, (cudaStream_t)stream>>>(
+            *P, x, f, scratch, xc, coeffs, ns, B, Y, Wm, xilr, xi, st);
+    else
+        ascend_kernel<false><<<P->C, threads, 0, (cudaStream_t)stream>>>(
+            *P, x, f, scratch, xc, coeffs, ns, B, Y, Wm, xilr, xi, st);
     return (int)cudaGetLastError();
 }

@@ -98,6 +98,17 @@ __device__ __forceinline__ float stencil_at(const VisitParams& P, const float* _
     return ax;
 }
 
+// The stamps build of the phase kernels: thread 0 writes the card's timer
+// (ns) into srow[1 + q] after pass q of a visit (srow null: nothing)
+__device__ __forceinline__ void stamp_pass(unsigned long long* srow, int& q) {
+    if (srow != nullptr && threadIdx.x == 0) {
+        unsigned long long t;
+        asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+        srow[1 + q] = t;
+    }
+    ++q;
+}
+
 // All loops over a field run one warp per row (lanes along the row), so no
 // thread divides by the row length.
 #define WARP_ROWS(i, nrows) \
@@ -176,7 +187,8 @@ __device__ void rhs_phase(const VisitParams& P, int chain, const float* __restri
 // points of the current colour, colour by colour; colour = (w0 i + w1 j) mod K.
 // Within a row the points of one colour are j0, j0 + s, j0 + 2s, ...
 __device__ void sweep_phase(const VisitParams& P, const float* __restrict__ coeffs,
-                            const float* c, float* x) {
+                            const float* c, float* x, unsigned long long* srow = nullptr,
+                            int* q = nullptr) {
     const int n = P.H * P.W;
     const int lane = threadIdx.x & 31;
     const int s = P.jstride;
@@ -196,6 +208,7 @@ __device__ void sweep_phase(const VisitParams& P, const float* __restrict__ coef
             }
         }
         __syncthreads();
+        if (srow != nullptr) stamp_pass(srow, *q);
     }
 }
 
@@ -204,7 +217,8 @@ __device__ void sweep_phase(const VisitParams& P, const float* __restrict__ coef
 // supports may overlap)
 __device__ void woodbury_phase(const VisitParams& P, const float* __restrict__ B,
                                const float* __restrict__ Y, const float* __restrict__ Wm,
-                               float* x, float* s_btx, float* s_u, float* s_red) {
+                               float* x, float* s_btx, float* s_u, float* s_red,
+                               unsigned long long* srow = nullptr, int* q = nullptr) {
     const int n = P.H * P.W;
     for (int k = 0; k < P.m; ++k) {
         const int i0 = P.bbox[k][0], j0 = P.bbox[k][2];
@@ -226,6 +240,7 @@ __device__ void woodbury_phase(const VisitParams& P, const float* __restrict__ B
         s_u[l] = u;
     }
     __syncthreads();
+    if (srow != nullptr) stamp_pass(srow, *q);
     for (int l = 0; l < P.m; ++l) {
         const int i0 = P.ybox[l][0], j0 = P.ybox[l][2];
         const int bh = P.ybox[l][1] - i0, bw = P.ybox[l][3] - j0;
@@ -236,6 +251,7 @@ __device__ void woodbury_phase(const VisitParams& P, const float* __restrict__ B
         }
         __syncthreads();
     }
+    if (srow != nullptr) stamp_pass(srow, *q);
 }
 
 // --------------------------------------------------------------- whole visits
@@ -250,16 +266,19 @@ __device__ void descend_body(const VisitParams& P, int chain, float* x, const fl
                              const float* __restrict__ Y, const float* __restrict__ Wm,
                              const float* __restrict__ sinv, const float* __restrict__ G,
                              const float* __restrict__ xi, float* xi_rec, float* s_red,
-                             float* s_btx, float* s_lr, float* s_u) {
+                             float* s_btx, float* s_lr, float* s_u,
+                             unsigned long long* srow = nullptr) {
     const int n = P.H * P.W;
     const float* c = f;
+    int q = 0;
     if (P.noise_mode) {
         rhs_phase(P, chain, f, ns, B, s_lr, xi, xi_rec, scr, nullptr, nullptr);
+        stamp_pass(srow, q);
         c = scr;
     }
-    sweep_phase(P, coeffs, c, x);
+    sweep_phase(P, coeffs, c, x, srow, &q);
     if (P.m) {
-        woodbury_phase(P, B, Y, Wm, x, s_btx, s_u, s_red);
+        woodbury_phase(P, B, Y, Wm, x, s_btx, s_u, s_red, srow, &q);
         // B^T x after the correction without a second reduction: (I - G) B^T x,
         // G[k, l] = <B_k, (Y W)_l>; scaled by Sigma^-1 for the residual
         if (threadIdx.x < P.m) {
@@ -280,6 +299,7 @@ __device__ void descend_body(const VisitParams& P, int chain, float* x, const fl
     }
     __syncthreads();
     if (P.m) add_lowrank(P, B, s_lr, -1.0f, scr);
+    stamp_pass(srow, q);
     // f_c[I, J] = sum_{a, b} w_a w_b r[2I+1+a, 2J+1+b], w = {0.5, 1, 0.5}
     WARP_ROWS(I, P.Hc) {
         for (int J = lane; J < P.Wc; J += 32) {
@@ -298,6 +318,10 @@ __device__ void descend_body(const VisitParams& P, int chain, float* x, const fl
             fc[I * P.Wc + J] = acc;
         }
     }
+    if (srow != nullptr) {  // the stamps build: the restriction's end
+        __syncthreads();
+        stamp_pass(srow, q);
+    }
 }
 
 // One ascend visit of one chain; arguments as descend_body, xc the coarse
@@ -307,8 +331,11 @@ __device__ void ascend_body(const VisitParams& P, int chain, float* x, const flo
                             const float* __restrict__ ns, const float* __restrict__ B,
                             const float* __restrict__ Y, const float* __restrict__ Wm,
                             const float* __restrict__ xi, float* xi_rec, float* s_red,
-                            float* s_btx, float* s_lr, float* s_u) {
+                            float* s_btx, float* s_lr, float* s_u,
+                            unsigned long long* srow = nullptr) {
+    int q = 0;
     rhs_phase(P, chain, f, ns, B, s_lr, xi, xi_rec, scr, x, xc);
-    sweep_phase(P, coeffs, P.noise_mode ? scr : f, x);
-    if (P.m) woodbury_phase(P, B, Y, Wm, x, s_btx, s_u, s_red);
+    stamp_pass(srow, q);
+    sweep_phase(P, coeffs, P.noise_mode ? scr : f, x, srow, &q);
+    if (P.m) woodbury_phase(P, B, Y, Wm, x, s_btx, s_u, s_red, srow, &q);
 }

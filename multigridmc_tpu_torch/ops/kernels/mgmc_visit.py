@@ -174,6 +174,11 @@ SPLIT_MAX_CHAINS = 64
 #: 4 for 8 at 64 chains on 255^2 (5% slower).
 SPLIT_WAVE_POINTS = 3300
 
+#: int64 words per block of the phase kernels' stamps (``PHASE_STAMP_WIDTH``
+#: in ``csrc/mgmc_visit.cu``): the timer at entry, after each of up to
+#: ``MAX_COLORS + 5`` passes and at exit, the barriers passed, the SM
+PHASE_STAMP_WIDTH = 1 + MAX_COLORS + 5 + 3
+
 #: kernel launches made by the wrappers (and only where they launch)
 launch_counts: Dict[str, int] = {"descend_visit": 0, "ascend_visit": 0,
                                  "descend_visit_stream": 0, "ascend_visit_stream": 0,
@@ -402,11 +407,15 @@ def load_library() -> ctypes.CDLL:
     lib.mgmc_visit_params_size.restype = i32
     if lib.mgmc_visit_params_size() != ctypes.sizeof(VisitParams):
         raise RuntimeError("VisitParams layout differs between Python and CUDA")
-    # P, x, f, scratch, fc, coeffs, ns, B, Y, W, xilr, sinv, G, xi, threads, stream
-    lib.mgmc_descend_visit.argtypes = [ctypes.POINTER(VisitParams)] + [ptr] * 13 + [i32, ptr]
+    lib.mgmc_visit_stamp_width.argtypes = []
+    lib.mgmc_visit_stamp_width.restype = i32
+    if lib.mgmc_visit_stamp_width() != PHASE_STAMP_WIDTH:
+        raise RuntimeError("the phase kernels' stamps differ in width between Python and CUDA")
+    # P, x, f, scratch, fc, coeffs, ns, B, Y, W, xilr, sinv, G, xi, threads, stamps, stream
+    lib.mgmc_descend_visit.argtypes = [ctypes.POINTER(VisitParams)] + [ptr] * 13 + [i32, ptr, ptr]
     lib.mgmc_descend_visit.restype = i32
-    # P, x, f, scratch, xc, coeffs, ns, B, Y, W, xilr, xi, threads, stream
-    lib.mgmc_ascend_visit.argtypes = [ctypes.POINTER(VisitParams)] + [ptr] * 11 + [i32, ptr]
+    # P, x, f, scratch, xc, coeffs, ns, B, Y, W, xilr, xi, threads, stamps, stream
+    lib.mgmc_ascend_visit.argtypes = [ctypes.POINTER(VisitParams)] + [ptr] * 11 + [i32, ptr, ptr]
     lib.mgmc_ascend_visit.restype = i32
     return lib
 
@@ -797,15 +806,33 @@ def _split_launch(level: FusedVisitLevel, C: int, cluster: Optional[int]) -> Tup
     return level._split_launches[key]
 
 
+def _check_stamps(route: str, stamps, x) -> None:
+    if stamps is None:
+        return
+    C = x.shape[0]
+    if route != "phase":
+        raise ValueError("only the phase kernels have a stamps build")
+    if (stamps.dtype != torch.int64 or stamps.device != x.device
+            or tuple(stamps.shape) != (C, PHASE_STAMP_WIDTH) or not stamps.is_contiguous()):
+        raise ValueError(f"stamps must be a contiguous int64 ({C}, {PHASE_STAMP_WIDTH}) "
+                         f"tensor on {x.device}")
+
+
 def launch_descend(level: FusedVisitLevel, route: str, f, x, xi=None, xi_lr=None,
-                   philox: Optional[Tuple[int, int]] = None, cluster: Optional[int] = None):
+                   philox: Optional[Tuple[int, int]] = None, cluster: Optional[int] = None,
+                   stamps: Optional[torch.Tensor] = None):
     """One descend visit through the kernel of ``route`` (one of
     :data:`ROUTES`), on CUDA tensors only; :func:`descend_visit` takes
     ``level.route(C)``, ``chip_smoke.py`` names it to hold the kernels against
     each other.  ``cluster`` sets the split route's cluster size (default: the
-    level's rule, :meth:`FusedVisitLevel.split_cluster`).  Updates ``x`` in
-    place; returns ``(x, f_coarse)``."""
+    level's rule, :meth:`FusedVisitLevel.split_cluster`).  ``stamps`` (the
+    phase route only, a measurement aid; ``None`` on every production call)
+    takes the kernel's stamps build: an int64 tensor of shape ``(C,
+    PHASE_STAMP_WIDTH)`` that receives per chain the timer at entry, after
+    each pass and at exit, the barriers passed and the SM
+    (:func:`pass_times`).  Updates ``x`` in place; returns ``(x, f_coarse)``."""
     _on_card(x)
+    _check_stamps(route, stamps, x)
     C, f_batched, noise_mode = _check_visit_args(level, f, x, xi, xi_lr, philox)
     P = level._params(C, level.pre_order, f_batched, noise_mode, philox, route)
     Y, W, _ = level._woodbury[level.pre_order]
@@ -828,7 +855,7 @@ def launch_descend(level: FusedVisitLevel, route: str, f, x, xi=None, xi_lr=None
             scratch = torch.empty_like(x)
             err = lib.mgmc_descend_visit(ctypes.byref(P), x.data_ptr(), f.data_ptr(),
                                          scratch.data_ptr(), fc.data_ptr(), *common,
-                                         level.threads, stream)
+                                         level.threads, _ptr(stamps), stream)
     name = KERNEL_NAMES[(route, "descend")]
     launch_counts[name] += 1
     if err != 0:
@@ -837,10 +864,12 @@ def launch_descend(level: FusedVisitLevel, route: str, f, x, xi=None, xi_lr=None
 
 
 def launch_ascend(level: FusedVisitLevel, route: str, f, x, x_coarse, xi=None, xi_lr=None,
-                  philox: Optional[Tuple[int, int]] = None, cluster: Optional[int] = None):
+                  philox: Optional[Tuple[int, int]] = None, cluster: Optional[int] = None,
+                  stamps: Optional[torch.Tensor] = None):
     """One ascend visit through the kernel of ``route``, as
     :func:`launch_descend`.  Updates ``x`` in place and returns it."""
     _on_card(x)
+    _check_stamps(route, stamps, x)
     C, f_batched, noise_mode = _check_visit_args(level, f, x, xi, xi_lr, philox, x_coarse)
     P = level._params(C, level.post_order, f_batched, noise_mode, philox, route)
     Y, W, _ = level._woodbury[level.post_order]
@@ -863,12 +892,54 @@ def launch_ascend(level: FusedVisitLevel, route: str, f, x, x_coarse, xi=None, x
             scratch = torch.empty_like(x) if noise_mode else x  # unused without noise
             err = lib.mgmc_ascend_visit(ctypes.byref(P), x.data_ptr(), f.data_ptr(),
                                         scratch.data_ptr(), x_coarse.data_ptr(), *common,
-                                        _ptr(xi), level.threads, stream)
+                                        _ptr(xi), level.threads, _ptr(stamps), stream)
     name = KERNEL_NAMES[(route, "ascend")]
     launch_counts[name] += 1
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return x
+
+
+def pass_names(level: FusedVisitLevel, kind: str):
+    """The passes of a phase visit with noise on, in the order the kernel's
+    stamps time them (each ends with a barrier)."""
+    order = level.pre_order if kind == "descend" else level.post_order
+    names = ["rhs" if kind == "descend" else "prolongation + rhs"]
+    names += [f"colour {c}" for c in order]
+    if level.op.m_lowrank:
+        names += ["B^T x", "Woodbury"]
+    if kind == "descend":
+        names += ["residual", "restriction"]
+    return names
+
+
+def pass_times(level: FusedVisitLevel, kind: str, stamps) -> dict:
+    """Where one phase launch (noise on) went, from the ``stamps`` it wrote,
+    in microseconds: per pass the median over the blocks (``passes``; the
+    first pass from the block's entry), ``exit_us`` after the last, ``sum_us``
+    their sum; per block the span from entry to exit, its median
+    (``block_span_us``) and the largest; ``launch_span_us`` from the first
+    entry to the last exit; measured on the card, not modelled: the barriers
+    each block passed (``barriers_per_block``, the distinct counts), the most
+    blocks one SM ran at once and the SMs used."""
+    raw = np.asarray(torch.as_tensor(stamps).cpu().numpy())
+    names = pass_names(level, kind)
+    t = raw[:, :1 + len(names)].astype(np.float64)
+    exit_ = raw[:, PHASE_STAMP_WIDTH - 3].astype(np.float64)
+    barriers, sm = raw[:, PHASE_STAMP_WIDTH - 2], raw[:, PHASE_STAMP_WIDTH - 1]
+    per_pass = np.median(np.diff(t, axis=1), axis=0) / 1e3
+    span = (exit_ - t[:, 0]) / 1e3
+    at_once = 0
+    for q in np.unique(sm):
+        ev = sorted([(e, 1) for e in t[sm == q, 0]] + [(e, -1) for e in exit_[sm == q]])
+        at_once = max(at_once, int(np.max(np.cumsum([d for _, d in ev]))))
+    exit_us = float(np.median(exit_ - t[:, -1]) / 1e3)
+    return {"passes": dict(zip(names, per_pass.tolist())), "exit_us": exit_us,
+            "sum_us": float(per_pass.sum()) + exit_us,
+            "block_span_us": float(np.median(span)), "slowest_block_us": float(span.max()),
+            "launch_span_us": float((exit_.max() - t[:, 0].min()) / 1e3),
+            "barriers_per_block": sorted(int(v) for v in np.unique(barriers)),
+            "blocks_per_sm": at_once, "sms": int(np.unique(sm).size)}
 
 
 # ---------------------------------------------------------------- the gating
