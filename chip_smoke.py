@@ -25,6 +25,13 @@ card and checks, one phase after the other:
                    stream and the split kernels against the phase kernels under
                    one in-kernel Philox stream, the stream and the split
                    kernels' shared-memory layouts against the host's copies;
+                   the phase kernels at 128 chains on the flagship's levels 0
+                   and 1, on the 511^2 4-colour level of a 1024x1024 lattice
+                   and on a 255^2 level with dense measurement columns (noise
+                   off, from a tensor, and in-kernel against the host's
+                   reference normals), their registers and spills, and their
+                   launch by pass from their stamps build (the barriers each
+                   block passed against the count from the source);
                    their times at 1 .. 512 chains on the 255^2 and 127^2 levels
                    (the split kernels up to 132 chains at every cluster size
                    that fits) and at 132 .. 512 on the 511^2 and 255^2 levels
@@ -75,8 +82,9 @@ card and checks, one phase after the other:
                    under replayed noise agrees between kernels and composed
                    path; the sample mean and variance of an observable agree
                    with the exact ones within 4 standard errors, through the
-                   visit kernels (256 chains: the stream route; 1 and 32
-                   chains: the split route), the plain path, the distilled
+                   visit kernels (1 and 16 chains: the split route; 128 and
+                   256 chains: the phase route), the
+                   plain path, the distilled
                    subtree, the subtree kernel with its in-kernel noise and the
                    SSOR sampler
                    on the Gibbs sweep kernel (256 chains on the one-block route,
@@ -89,7 +97,9 @@ plain version's time and its bound.  The last line is
 ``{"ok": true, "device": {...}}``; any failing phase raises and the exit code
 is not 0.  Without a CUDA device the script exits with code 1 and prints no
 result.  ``--phases`` runs a subset of the phases (``threads``: the visit
-kernels' block-size table; ``new``: the third slice's kernels alone;
+kernels' block-size table; ``passes``: the phase kernels' checks and their
+breakdown by pass alone; ``compare``: the phase kernels' times and the main
+path, which a parent tree runs too; ``new``: the third slice's kernels alone;
 ``visits``: the visit kernels of the three routes alone; ``sweeps``: the sweep
 kernels of both routes alone) and prints no result line.
 """
@@ -362,20 +372,22 @@ def check_level(level, li, C, f_batched, gen, routes=("phase", "stream"), cluste
     return errs, route_errs
 
 
-def visit_fns(level, route, noise, f, x, xc, cluster=None):
+def visit_fns(level, route, noise, f, x, xc, cluster=None, threads=None):
     """One descend and one ascend launch through ``route`` (the split route
-    with clusters of ``cluster`` blocks, by default the level's rule), each
-    drawing its noise as the main path does (a fresh Philox counter per
-    launch)."""
+    with clusters of ``cluster`` blocks, by default the level's rule; the
+    phase route with ``threads`` per block, by default its rule), each drawing
+    its noise as the main path does (a fresh Philox counter per launch)."""
     from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+
+    kw = {"threads": threads} if threads is not None else {}
 
     def descend():
         xi, xi_lr, philox = level._draw(noise, x)
-        return mv.launch_descend(level, route, f, x, xi, xi_lr, philox, cluster)
+        return mv.launch_descend(level, route, f, x, xi, xi_lr, philox, cluster, **kw)
 
     def ascend():
         xi, xi_lr, philox = level._draw(noise, x)
-        return mv.launch_ascend(level, route, f, x, xc, xi, xi_lr, philox, cluster)
+        return mv.launch_ascend(level, route, f, x, xc, xi, xi_lr, philox, cluster, **kw)
 
     return descend, ascend
 
@@ -446,7 +458,8 @@ def time_routes(levels, wide_levels, noise, smi):
 
     The table supports the code's constants when (1) ``STREAM_MIN_CHAINS`` is
     the least measured chain count from which on the stream kernels are faster
-    than the phase kernels at every larger count on every level, (2)
+    than the phase kernels at every larger count on every level, or ``None``
+    where no measured count is one (the route then takes them nowhere), (2)
     ``SPLIT_MAX_CHAINS`` is the largest count of :data:`SPLIT_ROUTE_CHAINS` up
     to which the split kernels at the rule's cluster size take less than
     :data:`SPLIT_CLEAR_WIN` of the phase kernels' time on both levels, and (3)
@@ -462,7 +475,7 @@ def time_routes(levels, wide_levels, noise, smi):
     cases = [(f"L{li}", levels[li], ROUTE_CHAINS) for li in (0, 1)]
     cases += [(f"wide L{li}", wide_levels[li], WIDE_ROUTE_CHAINS) for li in (0, 1)]
     for name, level, chains in cases:
-        if mv.visit_route(max(chains), level.stream_bytes) != "stream":
+        if level.stream_bytes + mv.STREAM_STATIC_SMEM > limit:
             raise AssertionError(f"visit_routes: the stream kernels do not fit {name}")
         H, W = level.op.vshape
         f_batched = not name.endswith("L0")  # level 0 shares f, as on the main path
@@ -528,7 +541,8 @@ def time_routes(levels, wide_levels, noise, smi):
             break
         split_measured = C
     if supported != mv.STREAM_MIN_CHAINS:
-        faults.append(f"the table supports a stream threshold of {supported} chains, "
+        faults.append("the table supports a stream threshold of "
+                      f"{'none' if supported is None else f'{supported} chains'}, "
                       f"STREAM_MIN_CHAINS is {mv.STREAM_MIN_CHAINS}")
     if split_measured != mv.SPLIT_MAX_CHAINS:
         faults.append(f"the table supports a split threshold of {split_measured} chains, "
@@ -609,14 +623,16 @@ def check_stream_layout(levels, C):
             S.v.m, S.max_lag = 8, max_lag
             cases.append((name, S, ascend, 256, H, H, 8))
     out = []
+    limit = mv.dynamic_smem_limit()
     for name, S, ascend, threads, H, W, m in cases:
         got = lib.mgmc_stream_smem_bytes(ctypes.byref(S), ascend, threads)
         want = mv.stream_smem_bytes(H, W, S.max_lag, m, threads, bool(ascend))
-        route = mv.visit_route(C, want)
-        if got != want or (route == "stream") != (name.startswith("L")):
+        fits = want + mv.STREAM_STATIC_SMEM <= limit
+        if got != want or fits != name.startswith("L"):
             raise AssertionError(f"stream layout {name}: kernel {got} B, host {want} B, "
-                                 f"route at {C} chains {route}")
-        out.append({"case": name, "ascend": bool(ascend), "bytes": got, "route": route})
+                                 f"fits a block's {limit} B: {fits}")
+        out.append({"case": name, "ascend": bool(ascend), "bytes": got, "fits": fits,
+                    "route": mv.visit_route(C, want)})
     return {"optin_bytes": optin, "static_bytes": static, "cases": out}
 
 
@@ -1630,8 +1646,9 @@ def phase_new_kernels(device, nx, nlevel, C, n_meas, gen, noise):
 #: versions and the phase kernels: one chain (the drivers' time series) and 16
 #: (where the rule takes smaller clusters at 255^2)
 SPLIT_CHECK_VISIT_CHAINS = (1, 16)
-#: chains of the main-path variant that takes the phase kernels: above
-#: ``SPLIT_MAX_CHAINS``, below ``STREAM_MIN_CHAINS``
+#: chains of the main-path variant that takes the phase kernels (above
+#: ``SPLIT_MAX_CHAINS``; the 256-chain variants take them too, as the route
+#: takes the stream kernels nowhere)
 PHASE_CHAINS = 128
 
 
@@ -1642,14 +1659,14 @@ def timed_visits(level, C, f_batched, noise, routes):
     for kind in ("descend", "ascend"):
         bound, by, nbytes = visit_bound(level, C, f_batched, kind)
         t[f"{kind}_bound_ms"], t[f"{kind}_bound_by"], t[f"{kind}_bytes"] = bound, by, nbytes
-    return {"vshape": list(level.op.vshape), "chains": C, "threads": level.threads,
+    return {"vshape": list(level.op.vshape), "chains": C, "threads": level.phase_threads(C),
             "stream_threads": level.stream_threads,
             "split_cluster": level.split_cluster(C), **t}
 
 
-#: chain counts of the phase kernels' breakdown by pass: the main-path
-#: variant's and one chain
-PASS_CHAINS = (PHASE_CHAINS, 1)
+#: chain counts of the phase kernels' breakdown by pass: the two main-path
+#: counts (1024 and 512 threads) and one chain
+PASS_CHAINS = (PHASE_CHAINS, 256, 1)
 
 
 def time_phase_passes(levels, noise):
@@ -1658,9 +1675,12 @@ def time_phase_passes(levels, noise):
     counts of :data:`PASS_CHAINS`, beside the profiler's device ms of the
     production build: per pass the median over the blocks, their sum, the
     span from the first entry to the last exit, the barriers each block
-    passed and the blocks one SM ran at once (the last of three launches)."""
+    passed (held against ``mgmc_visit.phase_barrier_count``, the count from
+    the source) and the blocks one SM ran at once (against the occupancy
+    calculator); the last of three launches."""
     from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
 
+    lib = mv.load_library()
     rows = []
     for li in (0, 1):
         level = levels[li]
@@ -1669,8 +1689,9 @@ def time_phase_passes(levels, noise):
             f = torch.rand((C,) + level.op.vshape if li else level.op.vshape, device=dev)
             x = torch.zeros((C,) + level.op.vshape, device=dev)
             xc = torch.randn((C,) + level.vc, device=dev)
-            row = {"level": li, "vshape": list(level.op.vshape), "chains": C,
-                   "threads": level.threads}
+            threads = level.phase_threads(C)
+            row = {"level": li, "vshape": list(level.op.vshape), "chains": C, "threads": threads,
+                   "stencil_form": level.stencil_form}
             fns = visit_fns(level, "phase", noise, f, x, xc)
             for kind, fn, name in zip(("descend", "ascend"), fns, VISIT_KERNELS["phase"]):
                 device_ms = device_ms_retried(fn, PROFILER_NAMES[name])
@@ -1687,20 +1708,147 @@ def time_phase_passes(levels, noise):
                 pt["device_ms"] = device_ms
                 pt["sum_over_device_ms"] = pt["sum_us"] / 1e3 / device_ms
                 pt["span_over_device_ms"] = pt["launch_span_us"] / 1e3 / device_ms
+                pt["barriers_from_source"] = mv.phase_barrier_count(level, kind)
+                smem = level.phase_launch(level.pre_order if kind == "descend"
+                                          else level.post_order, kind == "descend", threads)[2]
+                pt["tables_in_shared_memory"] = smem > 0
+                pt["blocks_per_sm_occupancy_api"] = lib.mgmc_visit_blocks_per_sm(
+                    int(kind == "descend"), level.stencil_form, threads, smem)
+                if pt["barriers_per_block"] != [pt["barriers_from_source"]]:
+                    raise AssertionError(f"phase L{li} C={C} {kind}: the blocks passed "
+                                         f"{pt['barriers_per_block']} barriers, the source places "
+                                         f"{pt['barriers_from_source']}")
+                if not 1 <= pt["blocks_per_sm"] <= pt["blocks_per_sm_occupancy_api"]:
+                    raise AssertionError(f"phase L{li} C={C} {kind}: {pt['blocks_per_sm']} blocks "
+                                         "on one SM at once, the occupancy calculator allows "
+                                         f"{pt['blocks_per_sm_occupancy_api']}")
+                if not 0.9 <= pt["span_over_device_ms"] <= 1.1:
+                    raise AssertionError(f"phase L{li} C={C} {kind}: the stamps span "
+                                         f"{pt['span_over_device_ms']} of the device time")
                 row[kind] = pt
             rows.append(row)
     return rows
 
 
+def phase_kernel_attributes():
+    """Registers and local (spill) bytes per thread and static shared bytes of
+    the production phase kernels of every stencil form, as the card's loader
+    reports them."""
+    import ctypes
+
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+
+    lib = mv.load_library()
+    out = {}
+    for form in range(mv.STENCIL_FORMS):
+        for kind, descend in (("descend", 1), ("ascend", 0)):
+            vals = (ctypes.c_int * 3)()
+            err = lib.mgmc_visit_kernel_attributes(descend, form, vals)
+            if err:
+                raise AssertionError(f"phase {kind} kernel attributes: CUDA error {err}")
+            out[f"{kind} form {form}"] = {"registers": vals[0], "local_bytes": vals[1],
+                                          "static_shared_bytes": vals[2]}
+    return out
+
+
+def check_phase_level(level, name, C, f_batched, gen):
+    """The phase kernels against their plain versions on one level at ``C``
+    chains: noise off and the same noise tensors (:func:`check_level`), then
+    the in-kernel generator against the plain versions fed its normals as the
+    host's reference recomputes them (``philox_normals_reference``)."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+
+    errs, _ = check_level(level, 0, C, f_batched, gen, routes=("phase",))
+    dev = level.coeffs.device
+    vshape, m = level.op.vshape, level.op.m_lowrank
+    f = torch.randn((C,) + vshape if f_batched else vshape, device=dev, generator=gen)
+    x = torch.randn((C,) + vshape, device=dev, generator=gen)
+    xc = torch.randn((C,) + level.vc, device=dev, generator=gen)
+    xi_lr = torch.randn((C, m), device=dev, generator=gen) * level.lr_scale if m else None
+    seed = 0x5EED_0009
+
+    def reference(counter):
+        return torch.as_tensor(mv.philox_normals_reference(seed, counter, C, vshape), device=dev)
+
+    got_x, got_fc = mv.launch_descend(level, "phase", f, x.clone(), xi_lr=xi_lr,
+                                      philox=(seed, 11))
+    want_x, want_fc = mv.descend_visit_plain(level, f, x, reference(11), xi_lr)
+    tag = f"{name} C={C} in-kernel noise"
+    errs["descend_visit_philox"] = max(compare(f"descend_visit x {tag}", got_x, want_x),
+                                       compare(f"descend_visit f_c {tag}", got_fc, want_fc))
+    got = mv.launch_ascend(level, "phase", f, x.clone(), xc, xi_lr=xi_lr, philox=(seed, 12))
+    want = mv.ascend_visit_plain(level, f, x, xc, reference(12), xi_lr)
+    errs["ascend_visit_philox"] = compare(f"ascend_visit x {tag}", got, want)
+    torch.cuda.synchronize()
+    T = {kind: level.phase_launch(order, kind == "descend", level.phase_threads(C))[1]
+         for kind, order in (("descend", level.pre_order), ("ascend", level.post_order))}
+    return {"level": name, "vshape": list(vshape), "chains": C, "m": m,
+            "threads": level.phase_threads(C),
+            "table_bytes": {k: 4 * t.words for k, t in T.items()},
+            "tables_in_shared_memory": {k: bool(t.shared) for k, t in T.items()}, **errs}
+
+
+def dense_b_level(nx, m, device):
+    """Level 0 of a posterior on an ``nx x nx`` lattice whose ``m`` measurement
+    columns are dense (each column nonzero at every point, seed 9): its tables
+    (``B`` and ``Y`` whole fields) do not fit a block's shared memory."""
+    import dataclasses
+
+    from multigridmc_tpu_torch.lattice import Lattice
+    from multigridmc_tpu_torch.models.correlation import ConstantCorrelationLengthModel
+    from multigridmc_tpu_torch.models.prior import shiftedlaplace_fd
+    from multigridmc_tpu_torch.ops.stencil import LowRank
+    from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
+
+    prior = shiftedlaplace_fd(Lattice((nx, nx)), ConstantCorrelationLengthModel(0.2),
+                              device=device)
+    rng = np.random.default_rng(9)
+    B = torch.as_tensor(1e-3 * rng.normal(size=(m,) + prior.vshape), dtype=torch.float32,
+                        device=device)
+    op = dataclasses.replace(prior, lowrank=LowRank(B=B, Sigma_diag=torch.ones(m, device=device)))
+    sampler = MultigridMCSampler(op, 3, cycle=2, fused=True, fused_min_vertices=0, distill=False)
+    return sampler.fused_levels[0]
+
+
+def phase_checks(levels, wide_level, device, gen):
+    """The phase kernels against their plain versions at :data:`PHASE_CHAINS`
+    chains (:func:`check_phase_level`) on the flagship's levels 0 and 1, on the
+    511^2 4-colour level of a 1024x1024 lattice (which no other route fits) and
+    on a 255^2 level with 8 dense measurement columns (whose tables are read
+    from device memory)."""
+    dense = dense_b_level(256, 8, device)
+    cases = (("L0", levels[0], False), ("L1", levels[1], True),
+             ("1024 L1 (511^2, 4 colours)", wide_level, True), ("dense B 255^2", dense, True))
+    rows = [check_phase_level(level, name, PHASE_CHAINS, f_batched, gen)
+            for name, level, f_batched in cases]
+    if rows[-1]["tables_in_shared_memory"]["descend"] or not rows[0]["tables_in_shared_memory"][
+            "descend"]:
+        raise AssertionError(f"phase tables: the dense-B level's tables must lie in device "
+                             f"memory, the flagship's in shared memory: {rows}")
+    return rows
+
+
 def phase_passes(device, nx, nlevel, n_meas, smi):
-    """Not part of the default run: :func:`time_phase_passes` alone."""
+    """Not part of the default run: the phase kernels' checks
+    (:func:`phase_checks`), their registers and their breakdown by pass
+    (:func:`time_phase_passes`) alone."""
     from multigridmc_tpu_torch.samplers.base import GeneratorNoise
     from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
 
+    gen = torch.Generator(device=device)
+    gen.manual_seed(11)
+    op, _ = build_posterior(nx, n_meas, FLAGSHIP_SEED, "order_one", device)
+    checked = MultigridMCSampler(op, nlevel, cycle=2, fused=True, fused_min_vertices=0,
+                                 distill=False)
+    op, _ = build_posterior(4 * nx, n_meas, FLAGSHIP_SEED, "order_one", device)
+    wide = MultigridMCSampler(op, nlevel, cycle=2, fused=True, fused_min_vertices=0,
+                              distill=False)
+    checks = phase_checks(checked.fused_levels, wide.fused_levels[1], device, gen)
     op, _ = build_posterior(nx, n_meas, FLAGSHIP_SEED, "near_exact", device)
     sampler = MultigridMCSampler(op, nlevel, cycle=2, fused=True, fused_min_vertices=0,
                                  distill=False)
-    emit({"phase": "passes", "card": smi,
+    emit({"phase": "passes", "card": smi, "checks": checks,
+          "kernel_attributes": phase_kernel_attributes(),
           "rows": time_phase_passes(sampler.fused_levels, GeneratorNoise(5, device))})
 
 
@@ -1752,6 +1900,17 @@ def phase_visits(device, nx, nlevel, C, n_meas, gen, smi):
     layout = check_stream_layout(sampler.fused_levels, C)
     split_layout = check_split_visit_layout(sampler.fused_levels)
     philox = check_philox(device, nx, C)
+    # the phase kernels at the main path's count: the flagship's levels, the
+    # 511^2 4-colour level of a 1024x1024 lattice, a dense-B level
+    op, _ = build_posterior(4 * nx, n_meas, FLAGSHIP_SEED, "order_one", device)
+    wide = MultigridMCSampler(op, nlevel, cycle=2, fused=True, fused_min_vertices=0,
+                              distill=False)
+    phase = phase_checks(sampler.fused_levels, wide.fused_levels[1], device, gen)
+    for row in phase:
+        for kind in ("descend", "ascend"):
+            name = f"{kind}_visit"
+            errs[name] = max(errs[name], row[name], row[f"{name}_philox"])
+    del wide
 
     # times at the production operator (near-exact measurements), all fused levels
     op, _ = build_posterior(nx, n_meas, FLAGSHIP_SEED, "near_exact", device)
@@ -1762,18 +1921,21 @@ def phase_visits(device, nx, nlevel, C, n_meas, gen, smi):
                for li, level in sorted(sampler.fused_levels.items())]
     one_chain = [{"level": li, **timed_visits(sampler.fused_levels[li], 1, li > 0, noise,
                                               ("phase", "split"))} for li in (0, 1)]
-    phase_chains = {"level": 0, **timed_visits(sampler.fused_levels[0], PHASE_CHAINS, False,
-                                                noise, ("phase",))}
+    phase_chains = [{"level": li, **timed_visits(sampler.fused_levels[li], PHASE_CHAINS, li > 0,
+                                                 noise, ("phase",))} for li in (0, 1)]
+    passes = time_phase_passes(sampler.fused_levels, noise)
     emit({"phase": "visits", "tolerance": TOL, "max_abs_err": errs,
           "stream_against_phase_max_abs_err": route_err["stream"],
           "split_against_phase_max_abs_err": route_err["split"], "checks": by_level,
+          "phase_checks": phase, "phase_kernel_attributes": phase_kernel_attributes(),
           "stream_layout": layout, "split_layout": split_layout, "philox": philox,
           "timings": timings, "one_chain_timings": one_chain,
-          "phase_chains_timing": phase_chains})
+          "phase_chains_timing": phase_chains, "phase_passes": passes})
     op, _ = build_posterior(2 * nx, n_meas, FLAGSHIP_SEED, "near_exact", device)
     wide = MultigridMCSampler(op, 4, cycle=2, fused=True, fused_min_vertices=0, distill=False)
     time_routes(sampler.fused_levels, wide.fused_levels, noise, smi)
-    return errs, {"at_C": timings, "one_chain": one_chain, "phase_chains": phase_chains}, noise
+    return errs, {"at_C": timings, "one_chain": one_chain, "phase_chains": phase_chains,
+                  "phase_passes": passes}, noise
 
 
 def phase_sweeps(device, gen, noise, smi):
@@ -1807,10 +1969,16 @@ def phase_kernels(device, nx, nlevel, C, n_meas, smi):
     return errs, timings, sweep_timings, third
 
 
-def phase_threads(device, nx, nlevel, C, n_meas):
-    """Not part of the default run: ms per launch of both visit kernels of each
-    route on every fused level of the flagship for several block sizes (the
-    defaults come from ``common.default_threads`` and
+#: chain counts of the phase kernels' block-size table
+THREAD_CHAINS = (64, 128, 132, 200, 256)
+
+
+def phase_threads(device, nx, nlevel, C, n_meas, smi):
+    """Not part of the default run: device ms per descend plus ascend of the
+    phase kernels on the flagship's levels 0 and 1 at the counts of
+    :data:`THREAD_CHAINS` for 256, 512 and 1024 threads (the block-size rule,
+    ``mgmc_visit.phase_threads``, marked), and of the stream kernels on every
+    fused level at ``C`` chains for 64, 128 and 256 threads (the default from
     ``mgmc_visit.stream_threads``)."""
     from multigridmc_tpu_torch.samplers.base import GeneratorNoise
     from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
@@ -1819,19 +1987,65 @@ def phase_threads(device, nx, nlevel, C, n_meas):
     sampler = MultigridMCSampler(op, nlevel, cycle=2, fused=True, fused_min_vertices=0,
                                  distill=False)
     noise = GeneratorNoise(5, device)
-    rows = []
+    rows, stream_rows = [], []
+    for li in (0, 1):
+        level = sampler.fused_levels[li]
+        for chains in THREAD_CHAINS:
+            f = torch.rand((chains,) + level.op.vshape if li else level.op.vshape, device=device)
+            x = torch.zeros((chains,) + level.op.vshape, device=device)
+            xc = torch.randn((chains,) + level.vc, device=device)
+            by_threads = {}
+            for threads in (256, 512, 1024):
+                fns = visit_fns(level, "phase", noise, f, x, xc, threads=threads)
+                by_threads[threads] = [device_ms_retried(fn, PROFILER_NAMES[name])
+                                       for name, fn in zip(VISIT_KERNELS["phase"], fns)]
+            pair = {t: sum(v) for t, v in by_threads.items() if None not in v}
+            rule = level.phase_threads(chains)
+            rows.append({"level": li, "vshape": list(level.op.vshape), "chains": chains,
+                         "rule_threads": rule, "best_threads": min(pair, key=pair.get),
+                         "pair_device_ms": {str(t): v for t, v in pair.items()},
+                         "device_ms": {str(t): v for t, v in by_threads.items()}})
     for li, level in sorted(sampler.fused_levels.items()):
-        for route, attr, sizes in (("phase", "threads", (64, 128, 256, 512, 1024)),
-                                   ("stream", "stream_threads", (64, 128, 256))):
-            default = getattr(level, attr)
-            for threads in sizes:
-                setattr(level, attr, threads)
-                t = time_level(level, C, li > 0, noise, plain=False, routes=(route,))
-                rows.append({"level": li, "route": route, "threads": threads,
-                             "default": threads == default,
-                             **{k: v for k, v in t.items() if k.endswith("ms")}})
-            setattr(level, attr, default)
-    emit({"phase": "threads", "chains": C, "rows": rows})
+        default = level.stream_threads
+        for threads in (64, 128, 256):
+            level.stream_threads = threads
+            t = time_level(level, C, li > 0, noise, plain=False, routes=("stream",))
+            stream_rows.append({"level": li, "threads": threads, "default": threads == default,
+                                **{k: v for k, v in t.items() if k.endswith("ms")}})
+        level.stream_threads = default
+    emit({"phase": "threads", "card": smi, "phase_kernels": rows,
+          "stream_kernels": {"chains": C, "rows": stream_rows}})
+
+
+def phase_compare(device, nx, nlevel, C, n_meas, steps, smi):
+    """Not part of the default run: what both a tree and its parent can run,
+    for timing the two in one call (copy this script into the parent's
+    checkout and run it there too): the phase kernels' device ms per launch
+    at :data:`PHASE_CHAINS` and ``C`` chains on the flagship's levels 0 and 1
+    (through the launch call both trees have, in-kernel noise, each tree's own
+    block size), beside the bound, then :func:`phase_main_path`."""
+    from multigridmc_tpu_torch.samplers.base import GeneratorNoise
+    from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
+
+    op, _ = build_posterior(nx, n_meas, FLAGSHIP_SEED, "near_exact", device)
+    sampler = MultigridMCSampler(op, nlevel, cycle=2, fused=True, fused_min_vertices=0,
+                                 distill=False)
+    noise = GeneratorNoise(5, device)
+    rows = []
+    for li in (0, 1):
+        level = sampler.fused_levels[li]
+        for chains in (PHASE_CHAINS, C):
+            f = torch.rand((chains,) + level.op.vshape if li else level.op.vshape, device=device)
+            x = torch.zeros((chains,) + level.op.vshape, device=device)
+            xc = torch.randn((chains,) + level.vc, device=device)
+            row = {"level": li, "vshape": list(level.op.vshape), "chains": chains}
+            fns = visit_fns(level, "phase", noise, f, x, xc)
+            for kind, name, fn in zip(("descend", "ascend"), VISIT_KERNELS["phase"], fns):
+                row[f"{name}_device_ms"] = device_ms_retried(fn, PROFILER_NAMES[name], 20)
+                row[f"{kind}_bound_ms"] = visit_bound(level, chains, li > 0, kind)[0]
+            rows.append(row)
+    emit({"phase": "compare", "card": smi, "phase_kernels": rows})
+    phase_main_path(device, nx, nlevel, C, n_meas, steps, smi)
 
 
 # ------------------------------------------------------------ phase: main_path
@@ -2297,6 +2511,10 @@ def phase_drivers(device, nx, nlevel, n_meas, nchains, nsamples, nwarmup, smi):
 SSOR_GATE = {"warmup": 2000, "steps": 4000, "thin": 10}
 #: chains of the SSOR gate through the split sweep route
 SSOR_SPLIT_CHAINS = 32
+#: chains of the MGMC gate through the split visit kernels beside the one-chain
+#: gate: the most the route splits (``mgmc_visit.SPLIT_MAX_CHAINS``; 32 before
+#: the phase kernels ran the passes of ``csrc/level_passes.cuh``)
+SPLIT_GATE_CHAINS = 16
 #: the MGMC gate through the split visit kernels at one chain: steps, and the
 #: batches whose means stand in for independent chains (the W-cycle's
 #: autocorrelation time on the 64x64 posterior is a few steps)
@@ -2365,14 +2583,17 @@ def phase_statistics(device, nx, C, warmup, steps):
     # through the visit kernels, the plain path, the distilled subtree (31^2
     # and 15^2 as one affine map) and the subtree kernel with its in-kernel noise
     # and through the split visit kernels at one chain (batch means over its
-    # time series) and at 32 chains
+    # time series) and at the most chains the route splits, and through the
+    # phase kernels at the main-path variant's count
     variants = (("kernels", dict(fused=True, distill=False), 1001, C, steps),
                 ("plain", dict(fused=False, distill=False), 1000, C, steps),
                 ("distilled", dict(distill=True), 1002, C, steps),
                 ("subtree_kernel", dict(subtree=True), 1003, C, steps),
                 ("kernels_split_one_chain", dict(fused=True, distill=False), 1004, 1,
                  SPLIT_GATE["steps"]),
-                ("kernels_split_32_chains", dict(fused=True, distill=False), 1005, 32, steps))
+                (f"kernels_split_{SPLIT_GATE_CHAINS}_chains", dict(fused=True, distill=False),
+                 1005, SPLIT_GATE_CHAINS, steps),
+                ("kernels_phase", dict(fused=True, distill=False), 1006, PHASE_CHAINS, steps))
     for name, kwargs, seed, Cv, nsteps in variants:
         inner = MultigridMCSampler(op, 3, cycle=2, fused_min_vertices=0, **kwargs)
         if (name == "distilled") != (inner.distilled is not None and inner.distill_level == 1):
@@ -2396,7 +2617,8 @@ def phase_statistics(device, nx, C, warmup, steps):
         if name.startswith("kernels"):  # the visit kernels of this chain count's route
             routes = {level.route(Cv) for level in inner.fused_levels.values()}
             route = routes.pop()
-            want = "split" if name.startswith("kernels_split") else mv.visit_route(Cv)
+            want = ("split" if name.startswith("kernels_split") else
+                    "phase" if name == "kernels_phase" else mv.visit_route(Cv))
             out[name]["route"] = route
             out[name]["launches"] = dict(mv.launch_counts)
             other = [n for r, names in VISIT_KERNELS.items() if r != route for n in names]
@@ -2478,7 +2700,10 @@ def main(argv=None) -> int:
     parser.add_argument("--phases", default=",".join(sorted(ALL_PHASES)),
                         help="comma-separated subset of kernels,main_path,drivers,statistics "
                              "to run (device and build always run; 'threads' adds a "
-                             "block-size table, 'new' the third slice's kernels alone, "
+                             "block-size table, 'passes' the phase kernels' checks and "
+                             "breakdown by pass, 'compare' the phase kernels' times and "
+                             "the main path (runs on a parent tree too), 'new' the third "
+                             "slice's kernels alone, "
                              "'visits' the visit kernels of the three routes alone, "
                              "'sweeps' the sweep kernels of both routes alone); "
                              "the ok line needs exactly the default four")
@@ -2495,9 +2720,11 @@ def main(argv=None) -> int:
     smi = phase_device()
     phase_build()
     if "threads" in phases:
-        phase_threads(device, nx, nlevel, C, n_meas)
+        phase_threads(device, nx, nlevel, C, n_meas, smi)
     if "passes" in phases:  # the phase kernels' breakdown by pass alone
         phase_passes(device, nx, nlevel, n_meas, smi)
+    if "compare" in phases:  # what a tree and its parent both run
+        phase_compare(device, nx, nlevel, C, n_meas, steps, smi)
     if "new" in phases:  # the third slice's kernels alone
         from multigridmc_tpu_torch.samplers.base import GeneratorNoise
 
@@ -2528,16 +2755,23 @@ def main(argv=None) -> int:
         print("partial run: no result line")
         return 0
 
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+
     kernels = []
     # the visits at level 0, the shape that dominates each path, and their
     # launches on the path of each route: the stream kernels in the flagship's
     # steps with every level's visit fused (256 chains), the phase kernels in
     # its distilled steps at PHASE_CHAINS chains, the split kernels in the
     # one-chain MGMC series of drivers.mgmc
+    # (the route takes the stream kernels from STREAM_MIN_CHAINS on; where that
+    # is None, on no path: their row says so, with the launches of the
+    # 256-chain variant, 0, and the visits phase still holds them against
+    # their plain versions and the phase kernels)
+    stream_path = ("main_path all_levels_fused" if mv.STREAM_MIN_CHAINS is not None
+                   else None)
     paths = {"phase": (f"main_path distilled_{PHASE_CHAINS}_chains",
-                       counts[f"distilled_{PHASE_CHAINS}_chains"], timings["phase_chains"]),
-             "stream": ("main_path all_levels_fused", counts["all_levels_fused"],
-                        timings["at_C"][0]),
+                       counts[f"distilled_{PHASE_CHAINS}_chains"], timings["phase_chains"][0]),
+             "stream": (stream_path, counts["all_levels_fused"], timings["at_C"][0]),
              "split": ("drivers", driver_counts, timings["one_chain"][0])}
     for route, source in (("phase", "mgmc_visit.cu"), ("stream", "mgmc_visit_stream.cu"),
                           ("split", "mgmc_visit_split.cu")):
@@ -2557,6 +2791,24 @@ def main(argv=None) -> int:
                 "shape": {"chains": t["chains"], "vshape": t["vshape"],
                           "cluster": t["split_cluster"] if route == "split" else 1},
             })
+            if route == "phase":  # level 1 beside, and the stamps' breakdown by pass
+                t1 = timings["phase_chains"][1]
+                passes = next(r[kind] for r in timings["phase_passes"]
+                              if r["level"] == 0 and r["chains"] == PHASE_CHAINS)
+                kernels[-1].update({
+                    "design": "the passes of level_passes.cuh shared with the subtree kernel: "
+                              "one level's tables in shared memory where they fit, each "
+                              "low-rank term in one pass, every reach-1 stencil in registers "
+                              "with several points per lane in flight, the colour rows over "
+                              "all warps, the block size by chain count",
+                    "threads": t["threads"],
+                    "at_level_1": {"vshape": t1["vshape"], "chains": t1["chains"],
+                                   "ms": t1[f"{name}_ms"], "device_ms": t1[f"{name}_device_ms"],
+                                   "plain_ms": t1[f"{kind}_plain_ms"],
+                                   "bound_ms": t1[f"{kind}_bound_ms"],
+                                   "bound_by": t1[f"{kind}_bound_by"]},
+                    "barriers_per_launch": passes["barriers_per_block"][0],
+                    "per_pass_us": passes["passes"]})
     # the probe: launched where the subtree variant of the main path is built
     probe = third["probe"]
     kernels.append({
@@ -2631,7 +2883,7 @@ def main(argv=None) -> int:
                              for key, v in t["per_operation"]["operations"].items()},
     })
     for k in kernels:
-        if k["launches"] < 1:
+        if k.get("path", "") is not None and k["launches"] < 1:
             raise AssertionError(f"kernel {k['name']} was launched no time on its path")
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -18,10 +18,10 @@
 // Design.  One thread block per chain.  The recursion is flattened by the
 // host into a schedule of (operation, level) pairs that the block walks, so
 // the host launches once per step where the composed path launches once per
-// visit and several times per coarse sample.  The visits are those of
-// subtree_phases.cuh: the arithmetic of the level-visit kernels
-// (visit_phases.cuh), with each low-rank term in one pass, the 3x3 stencil in
-// registers and the sweep's rows balanced over the warps.  Each level's x, rhs scratch and f are fields of this chain;
+// visit and several times per coarse sample.  The visits are the passes of
+// level_passes.cuh, which the phase visit kernels (mgmc_visit.cu) run too:
+// each low-rank term in one pass, the stencil in registers and the sweep's
+// rows balanced over the warps.  Each level's x, rhs scratch and f are fields of this chain;
 // where a field lies is decided by the host and handed over as a location:
 // dynamic shared memory (the small levels, where the granted size allows), a
 // global workspace that the L2 holds, or, for the finest sub-level, the
@@ -61,7 +61,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "subtree_phases.cuh"
+#include "level_passes.cuh"
 
 #define MAX_SUB_LEVELS 8
 
@@ -133,18 +133,16 @@ __device__ __forceinline__ void stamp_value(const SubtreeParams& S, int chain, i
 }
 
 __device__ __forceinline__ void stamp(const SubtreeParams& S, int chain, int slot) {
-    if (threadIdx.x == 0) {
-        unsigned long long t;
-        asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-        stamp_value(S, chain, slot, t);
-    }
+    if (threadIdx.x == 0) stamp_value(S, chain, slot, global_timer());
 }
 
 __device__ __forceinline__ LevelTables level_tables(const SubLevel& L, int dir) {
     const float* t = dyn_smem;
+    const VisitParams& P = *reinterpret_cast<const VisitParams*>(t + L.plan[dir]);
     return {t + L.bval, reinterpret_cast<const int*>(t + L.boff), t + L.yval[dir],
             reinterpret_cast<const int*>(t + L.yoff[dir]), t + L.wm[dir], t + L.g, t + L.sinv,
-            t + L.lrscale, reinterpret_cast<const int*>(t + L.rows[dir])};
+            t + L.lrscale, P.bbox, P.ybox, nullptr, nullptr,
+            reinterpret_cast<const int*>(t + L.rows[dir])};
 }
 
 // x = Linv^T (xi + Linv f) for one chain; g takes xi + Linv f.  One warp per
@@ -223,7 +221,10 @@ mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const int4* __restr
     unsigned long long draw = 0;  // draws of the launch so far
     if (STAMPS) {
         stamp(S, chain, S.n_sched + 1);
-        if (threadIdx.x == 0) subtree_sync_count = 0;
+        if (threadIdx.x == 0) {
+            pass_sync_count = 0;
+            pass_stamp_row = nullptr;  // the stamps of this kernel are per operation
+        }
     }
 
     // the launch's tables, once
@@ -262,13 +263,13 @@ mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const int4* __restr
         const bool last = li + 1 == S.NL;
         if (dir == 0) {
             float* fc = locate(S, last ? S.cf : S.lv[li + 1].f, ws, nullptr);
-            subtree_descend<STAMPS>(P, T, chain, S.noise_mode, S.seed, S.counter + draw,
-                                    op == OP_DESCEND_ZERO, x, f, scr, fc, L.coeffs, L.ns, xi_in,
-                                    xi_rec, wv, s_btx);
+            level_descend<-1, STAMPS>(P, T, T, chain, S.noise_mode, S.seed, S.counter + draw,
+                                  op == OP_DESCEND_ZERO, false, x, f, scr, fc, L.coeffs, L.ns,
+                                  xi_in, xi_rec, wv, s_btx, nullptr);
         } else {
             const float* xc = locate(S, last ? S.cx : S.lv[li + 1].x, ws, nullptr);
-            subtree_ascend<STAMPS>(P, T, chain, S.noise_mode, S.seed, S.counter + draw, x, f,
-                                   scr, xc, L.coeffs, L.ns, xi_in, xi_rec, wv, s_btx);
+            level_ascend<-1, STAMPS>(P, T, T, chain, S.noise_mode, S.seed, S.counter + draw, x, f,
+                                 scr, xc, L.coeffs, L.ns, xi_in, xi_rec, wv, s_btx, nullptr);
         }
         if (S.noise_mode) { cur += n + m; draw += m ? 2 : 1; }
         if (STAMPS) stamp(S, chain, s + 1);
@@ -282,7 +283,7 @@ mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const int4* __restr
         unsigned sm;
         asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
         stamp(S, chain, S.n_sched + 2);
-        stamp_value(S, chain, S.n_sched + 3, subtree_sync_count);
+        stamp_value(S, chain, S.n_sched + 3, pass_sync_count);
         stamp_value(S, chain, S.n_sched + 4, sm);
     }
 }

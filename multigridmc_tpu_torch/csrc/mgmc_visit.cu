@@ -1,4 +1,5 @@
-// Fused MGMC level-visit kernels for NVIDIA Hopper (sm_90a), float32, 2d.
+// Fused MGMC level-visit kernels for NVIDIA Hopper (sm_90a), float32, 2d: the
+// phase route.
 //
 // Replaces the Pallas kernels descend_visit / ascend_visit of
 // multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py.  One launch is one visit
@@ -15,162 +16,289 @@
 //
 // Design.  The colour phases are Gauss-Seidel: phase c must see what phase
 // c-1 wrote everywhere in that chain's field, so a field cannot be tiled over
-// blocks with stale halos.  One 255^2 float32 field (260 KB) does not fit the
-// 227 KB of shared memory of a block either.  Hence: ONE THREAD BLOCK PER
-// CHAIN, the field in global memory (it stays in the 50 MB L2 for the blocks
-// in flight), block-stride loops over the points of the current colour and
-// __syncthreads() between phases.  No atomics and a fixed reduction tree, so
-// two launches with the same seed and counter are bitwise equal.
+// blocks with stale halos, and a 255^2 float32 field (260 KB) does not fit a
+// block's shared memory.  Hence one thread block per chain, the fields in
+// device memory, whole-field passes with a barrier between them: the passes of
+// level_passes.cuh, which the subtree kernel runs too.  Each low-rank term is
+// one pass, the stencil is held in registers, the colour rows are spread over
+// all warps, and a lane has several points' loads in flight.
 //
-// The visit is bound by bytes: per chain it must read f, x (and x_c) and
-// write x (and f_c) once.  What the design spends on top of that is traffic
-// to L2 (a scratch field for c and r, the coefficient planes that all chains
-// share).  Two of the TPU kernel's resident-set compressions are kept because
-// they cut that traffic: spatially constant coefficient planes and a constant
-// noise scale travel as scalars, and each measurement column B_k is only read
-// inside its bounding box (a radius-0 column is one-hot; its restrictions are
-// 3x3), which also shortens the B^T x reductions.  The Woodbury correction is
-// applied in the factored form x -= sum_l (W B^T x)_l Y_l for the same reason:
-// a column of B_bar = Y W is dense wherever any measurement is, while Y_l =
-// M^-1 B_l stays within a few points of B_l's support (the splitting solve
-// widens it by the stencil once per colour), so the correction touches tens of
-// points per chain and not m whole planes.
+// Tables.  The host makes one level's tables for one sweep direction
+// (mgmc_visit.py::phase_tables: B inside its boxes, this direction's Y inside
+// its boxes, both sets of boxes and the columns they span in each row, W, G
+// and 1/Sigma for the descend, the colour rows) and uploads
+// them once.  Where they and the kernel's static share fit the block's share
+// of shared memory, each block copies them into its dynamic shared memory at
+// entry; the first pass (the rhs, which reads only B and its boxes) reads them from the
+// tensor meanwhile, and its barrier publishes the copy.  Otherwise (a level
+// with dense B columns, say) every pass reads them from the tensor.
 //
-// Field noise: the generator of philox.cuh (shared with sor_sweep.cu):
-// Philox4x32-10, counter = (point group, chain, launch counter lo, hi), key =
-// seed ^ PHILOX_KEY_MIX (lo, hi); each call yields four normals (two Box-Muller pairs, sine
-// and cosine branch) for four consecutive points of a row (group g of row i
-// has the number i * ceil(W / 4) + g).
-// noise_mode 2 reads xi from a tensor instead, so that the kernel and its
-// plain PyTorch version can be fed the same noise.
+// Block size.  Chosen by the host from the chain count
+// (mgmc_visit.py::phase_threads): 1024 threads while the chains fit one wave
+// of one block per SM, 512 (two blocks per SM) above.  __launch_bounds__(1024)
+// caps a thread at 64 registers, what two blocks of 512 leave it too.
 //
-// Restriction and prolongation are the {0.5, 1, 0.5} stencils computed
-// directly (no banded matmul); stencil reads are bounds-checked
-// (zero-Dirichlet), not rolled and masked.
+// Bound: by bytes, per chain f (unless shared), x and x_c read and x and f_c
+// written once.  What the kernels pay on top of that is the passes' traffic
+// to the L2 and device memory (the scratch of the rhs and the residual, x read
+// by each colour) and, on the L2-resident levels, its latency.
+//
+// Field noise: the generator of philox.cuh: Philox4x32-10, counter = (point
+// group, chain, launch counter lo, hi), key = seed ^ PHILOX_KEY_MIX; each call
+// yields four normals for four consecutive points of a row (group g of row i
+// has the number i * ceil(W / 4) + g), the stream and the split kernels'
+// addressing, so the three routes agree under one stream.  noise_mode 2 reads
+// xi from a tensor instead, so that a kernel and its plain PyTorch version can
+// be fed the same noise.  The m low-rank normals come in pre-scaled by
+// Sigma^-1/2 (xilr).  No atomics and a fixed reduction tree, so two launches
+// with the same seed and counter are bitwise equal.
+//
+// STAMPS: the measurement build, taken only where the host passes a stamps
+// tensor, (C, PHASE_STAMP_WIDTH) int64: per block the timer (ns) at entry and
+// after each barrier (one per pass), at exit, then the barriers passed and the
+// SM it ran on.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "visit_phases.cuh"
+#include "level_passes.cuh"
 
-// ------------------------------------------------------------------- kernels
-// The phases and the two visit bodies are in visit_phases.cuh.
-//
-// STAMPS: the measurement build, taken only where the host passes a stamps
-// tensor, (C, PHASE_STAMP_WIDTH) int64: per block the timer (ns) at entry,
-// after each pass, at exit, then the barriers passed and the SM it ran on.
 #define PHASE_STAMP_WIDTH (1 + MAX_COLORS + 5 + 3)
 
-__device__ __forceinline__ unsigned long long global_timer() {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    return t;
+// Word offsets of one level's tables for one sweep direction
+// (mgmc_visit.py::phase_tables).
+struct PhaseTables {
+    int bval, boff, yval, yoff, wm, g, sinv, bbox, ybox, bspan, yspan, rows;
+    int words;   // a multiple of 4
+    int shared;  // 1: each block copies them into its dynamic shared memory
+};
+
+extern __shared__ __align__(16) float phase_smem[];
+
+__device__ __forceinline__ LevelTables tables_at(const PhaseTables& L, const float* t) {
+    return {t + L.bval,
+            reinterpret_cast<const int*>(t + L.boff),
+            t + L.yval,
+            reinterpret_cast<const int*>(t + L.yoff),
+            t + L.wm,
+            t + L.g,
+            t + L.sinv,
+            nullptr,
+            reinterpret_cast<const int(*)[4]>(t + L.bbox),
+            reinterpret_cast<const int(*)[4]>(t + L.ybox),
+            reinterpret_cast<const int*>(t + L.bspan),
+            reinterpret_cast<const int*>(t + L.yspan),
+            reinterpret_cast<const int*>(t + L.rows)};
 }
 
-__device__ __forceinline__ void stamp_exit(unsigned long long* srow, unsigned barriers) {
-    if (threadIdx.x == 0) {
+// The block's start: the stamps opened (STAMPS), the tables copied into shared
+// memory where they lie there (no barrier: the first pass reads them from the
+// tensor), this warp's m low-rank scalars into its slot.  Returns the tables
+// as the passes after the first read them.
+template <bool STAMPS>
+__device__ __forceinline__ LevelTables phase_start(const VisitParams& P, const PhaseTables& L,
+                                                   const int4* __restrict__ tables, int chain,
+                                                   const float* __restrict__ xilr, float* wv,
+                                                   unsigned long long* srow) {
+    if (STAMPS && threadIdx.x == 0) {
+        srow[0] = global_timer();
+        pass_sync_count = 0;
+        pass_stamp_row = srow;
+    }
+    if (L.shared) {
+        int4* dst = reinterpret_cast<int4*>(phase_smem);
+        for (int q = threadIdx.x; q < L.words / 4; q += blockDim.x) dst[q] = tables[q];
+    }
+    const int lane = threadIdx.x & 31;
+    if (P.noise_mode && lane < P.m) wv[lane] = xilr[(size_t)chain * P.m + lane];
+    __syncwarp();
+    return tables_at(L, L.shared ? phase_smem : reinterpret_cast<const float*>(tables));
+}
+
+template <bool STAMPS>
+__device__ __forceinline__ void phase_exit(unsigned long long* srow) {
+    if (STAMPS && threadIdx.x == 0) {
         unsigned sm;
         asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
         srow[PHASE_STAMP_WIDTH - 3] = global_timer();
-        srow[PHASE_STAMP_WIDTH - 2] = barriers;
+        srow[PHASE_STAMP_WIDTH - 2] = pass_sync_count;
         srow[PHASE_STAMP_WIDTH - 1] = sm;
     }
 }
 
-template <bool STAMPS>
+// FORM: the stencil's form (level_passes.cuh, STENCIL_DISPATCH), one kernel
+// each, so that the registers of one form's passes are allocated for it alone.
+template <int FORM, bool STAMPS>
 __global__ void __launch_bounds__(MAX_THREADS)
-descend_kernel(const __grid_constant__ VisitParams P, float* x_all,
-               const float* __restrict__ f_all, float* scr_all, float* fc_all,
-               const float* __restrict__ coeffs, const float* __restrict__ ns,
-               const float* __restrict__ B, const float* __restrict__ Y,
-               const float* __restrict__ Wm, const float* __restrict__ xilr,
-               const float* __restrict__ sinv, const float* __restrict__ G,
+descend_kernel(const __grid_constant__ VisitParams P, const __grid_constant__ PhaseTables L,
+               const int4* __restrict__ tables, float* x_all, const float* __restrict__ f_all,
+               float* scr_all, float* fc_all, const float* __restrict__ coeffs,
+               const float* __restrict__ ns, const float* __restrict__ xilr,
                const float* __restrict__ xi_all, unsigned long long* stamps) {
-    __shared__ float s_red[33];
     __shared__ float s_btx[MAX_LOWRANK];
-    __shared__ float s_lr[MAX_LOWRANK];
-    __shared__ float s_u[MAX_LOWRANK];
+    __shared__ float s_wv[32 * MAX_LOWRANK];  // one slot of m scalars per warp
+    __shared__ float s_stage[32 * 128];       // each warp's rhs stores, staged
     const int chain = blockIdx.x;
-    unsigned long long* srow = STAMPS ? stamps + (size_t)chain * PHASE_STAMP_WIDTH : nullptr;
-    if (STAMPS && threadIdx.x == 0) srow[0] = global_timer();
     const int n = P.H * P.W, nc = P.Hc * P.Wc;
-    float* x = x_all + (size_t)chain * n;
-    const float* f = f_all + (P.f_batched ? (size_t)chain * n : 0);
-    float* scr = scr_all + (size_t)chain * n;
-    float* fc = fc_all + (size_t)chain * nc;
-
-    if (P.noise_mode) {
-        if (threadIdx.x < P.m) s_lr[threadIdx.x] = xilr[(size_t)chain * P.m + threadIdx.x];
-        __syncthreads();
-    }
-    descend_body(P, chain, x, f, scr, fc, coeffs, ns, B, Y, Wm, sinv, G,
-                 xi_all ? xi_all + (size_t)chain * n : nullptr, nullptr,
-                 s_red, s_btx, s_lr, s_u, srow);
-    if (STAMPS) stamp_exit(srow, 0);
+    unsigned long long* srow = STAMPS ? stamps + (size_t)chain * PHASE_STAMP_WIDTH : nullptr;
+    float* wv = s_wv + (threadIdx.x >> 5) * MAX_LOWRANK;
+    const LevelTables T = phase_start<STAMPS>(P, L, tables, chain, xilr, wv, srow);
+    level_descend<FORM, STAMPS>(P, tables_at(L, reinterpret_cast<const float*>(tables)), T,
+                                chain, P.noise_mode, P.seed, P.counter, false, true,
+                                x_all + (size_t)chain * n,
+                                f_all + (P.f_batched ? (size_t)chain * n : 0),
+                                scr_all + (size_t)chain * n, fc_all + (size_t)chain * nc,
+                                coeffs, ns, xi_all ? xi_all + (size_t)chain * n : nullptr,
+                                nullptr, wv, s_btx, s_stage + (threadIdx.x >> 5) * 128);
+    phase_exit<STAMPS>(srow);
 }
 
-template <bool STAMPS>
+template <int FORM, bool STAMPS>
 __global__ void __launch_bounds__(MAX_THREADS)
-ascend_kernel(const __grid_constant__ VisitParams P, float* x_all,
-              const float* __restrict__ f_all, float* scr_all,
-              const float* __restrict__ xc_all, const float* __restrict__ coeffs,
-              const float* __restrict__ ns, const float* __restrict__ B,
-              const float* __restrict__ Y, const float* __restrict__ Wm,
-              const float* __restrict__ xilr, const float* __restrict__ xi_all,
-              unsigned long long* stamps) {
-    __shared__ float s_red[33];
+ascend_kernel(const __grid_constant__ VisitParams P, const __grid_constant__ PhaseTables L,
+              const int4* __restrict__ tables, float* x_all, const float* __restrict__ f_all,
+              float* scr_all, const float* __restrict__ xc_all, const float* __restrict__ coeffs,
+              const float* __restrict__ ns, const float* __restrict__ xilr,
+              const float* __restrict__ xi_all, unsigned long long* stamps) {
     __shared__ float s_btx[MAX_LOWRANK];
-    __shared__ float s_lr[MAX_LOWRANK];
-    __shared__ float s_u[MAX_LOWRANK];
+    __shared__ float s_wv[32 * MAX_LOWRANK];
+    __shared__ float s_stage[32 * 128];
     const int chain = blockIdx.x;
-    unsigned long long* srow = STAMPS ? stamps + (size_t)chain * PHASE_STAMP_WIDTH : nullptr;
-    if (STAMPS && threadIdx.x == 0) srow[0] = global_timer();
     const int n = P.H * P.W, nc = P.Hc * P.Wc;
-    float* x = x_all + (size_t)chain * n;
-    const float* f = f_all + (P.f_batched ? (size_t)chain * n : 0);
-    float* scr = scr_all + (size_t)chain * n;
-    const float* xc = xc_all + (size_t)chain * nc;
+    unsigned long long* srow = STAMPS ? stamps + (size_t)chain * PHASE_STAMP_WIDTH : nullptr;
+    float* wv = s_wv + (threadIdx.x >> 5) * MAX_LOWRANK;
+    const LevelTables T = phase_start<STAMPS>(P, L, tables, chain, xilr, wv, srow);
+    level_ascend<FORM, STAMPS>(P, tables_at(L, reinterpret_cast<const float*>(tables)), T, chain,
+                               P.noise_mode, P.seed, P.counter, x_all + (size_t)chain * n,
+                               f_all + (P.f_batched ? (size_t)chain * n : 0),
+                               scr_all + (size_t)chain * n, xc_all + (size_t)chain * nc, coeffs,
+                               ns, xi_all ? xi_all + (size_t)chain * n : nullptr, nullptr, wv,
+                               s_btx, s_stage + (threadIdx.x >> 5) * 128);
+    phase_exit<STAMPS>(srow);
+}
 
-    if (P.noise_mode && threadIdx.x < P.m)
-        s_lr[threadIdx.x] = xilr[(size_t)chain * P.m + threadIdx.x];
-    __syncthreads();
-    ascend_body(P, chain, x, f, scr, xc, coeffs, ns, B, Y, Wm,
-                xi_all ? xi_all + (size_t)chain * n : nullptr, nullptr,
-                s_red, s_btx, s_lr, s_u, srow);
-    if (STAMPS) stamp_exit(srow, 0);
+// the kernel of a stencil form, a direction and a build; null for another form
+template <bool STAMPS>
+static const void* form_kernel(int descend, int form) {
+#define FORM_KERNEL(F) \
+    (descend ? (const void*)descend_kernel<F, STAMPS> : (const void*)ascend_kernel<F, STAMPS>)
+    switch (form) {
+        case 0: return FORM_KERNEL(0);
+        case 1: return FORM_KERNEL(1);
+        case 2: return FORM_KERNEL(2);
+        case 3: return FORM_KERNEL(3);
+        case 4: return FORM_KERNEL(4);
+        case 5: return FORM_KERNEL(5);
+        default: return nullptr;
+    }
+#undef FORM_KERNEL
+}
+
+static const void* phase_kernel(int descend, int form, bool stamps) {
+    return stamps ? form_kernel<true>(descend, form) : form_kernel<false>(descend, form);
 }
 
 // ------------------------------------------------------------ C entry points
 extern "C" int mgmc_visit_params_size() { return (int)sizeof(VisitParams); }
 
+extern "C" int mgmc_visit_tables_size() { return (int)sizeof(PhaseTables); }
+
 extern "C" int mgmc_visit_stamp_width() { return PHASE_STAMP_WIDTH; }
 
-extern "C" int mgmc_descend_visit(const VisitParams* P, float* x, const float* f, float* scratch,
-                                  float* fc, const float* coeffs, const float* ns,
-                                  const float* B, const float* Y, const float* Wm,
-                                  const float* xilr, const float* sinv, const float* G,
-                                  const float* xi, int threads, void* stamps, void* stream) {
-    unsigned long long* st = static_cast<unsigned long long*>(stamps);
-    if (st != nullptr)
-        descend_kernel<true><<<P->C, threads, 0, (cudaStream_t)stream>>>(
-            *P, x, f, scratch, fc, coeffs, ns, B, Y, Wm, xilr, sinv, G, xi, st);
-    else
-        descend_kernel<false><<<P->C, threads, 0, (cudaStream_t)stream>>>(
-            *P, x, f, scratch, fc, coeffs, ns, B, Y, Wm, xilr, sinv, G, xi, st);
-    return (int)cudaGetLastError();
+extern "C" int mgmc_visit_stencil_forms() { return STENCIL_FORMS; }
+
+// the largest static shared memory (bytes) of the kernels, or -1
+extern "C" int mgmc_visit_static_smem() {
+    int most = 0;
+    for (int k = 0; k < 4 * STENCIL_FORMS; ++k) {
+        cudaFuncAttributes a;
+        if (cudaFuncGetAttributes(&a, phase_kernel(k & 1, (k >> 2) % STENCIL_FORMS,
+                                                   (k >> 1) & 1)) != cudaSuccess) {
+            cudaGetLastError();
+            return -1;
+        }
+        most = a.sharedSizeBytes > (size_t)most ? (int)a.sharedSizeBytes : most;
+    }
+    return most;
 }
 
-extern "C" int mgmc_ascend_visit(const VisitParams* P, float* x, const float* f, float* scratch,
-                                 const float* xc, const float* coeffs, const float* ns,
-                                 const float* B, const float* Y, const float* Wm,
-                                 const float* xilr, const float* xi, int threads, void* stamps,
-                                 void* stream) {
+// registers per thread, local (spill) bytes per thread and static shared bytes
+// of the production kernel of `descend` (1) or the ascend (0) and a stencil
+// form; 0 or an error
+extern "C" int mgmc_visit_kernel_attributes(int descend, int form, int* out) {
+    const void* fn = phase_kernel(descend, form, false);
+    if (fn == nullptr) return (int)cudaErrorInvalidValue;
+    cudaFuncAttributes a;
+    cudaError_t e = cudaFuncGetAttributes(&a, fn);
+    if (e != cudaSuccess) {
+        cudaGetLastError();
+        return (int)e;
+    }
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+    out[2] = (int)a.sharedSizeBytes;
+    return 0;
+}
+
+// blocks of `threads` with `smem_bytes` of dynamic shared memory that one SM
+// holds at once (the production kernel of a direction and a form), or -1
+extern "C" int mgmc_visit_blocks_per_sm(int descend, int form, int threads, int smem_bytes) {
+    const void* fn = phase_kernel(descend, form, false);
+    if (fn == nullptr) return -1;
+    if (smem_bytes > 48 * 1024 &&
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes) !=
+            cudaSuccess) {
+        cudaGetLastError();
+        return -1;
+    }
+    int blocks = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, smem_bytes) !=
+        cudaSuccess) {
+        cudaGetLastError();
+        return -1;
+    }
+    return blocks;
+}
+
+// one launch of the kernel of (descend, form, build) with the arguments args
+static int launch(int descend, int form, bool stamps, int C, int threads, int smem_bytes,
+                  void** args, void* stream) {
+    const void* fn = phase_kernel(descend, form, stamps);
+    if (fn == nullptr) return (int)cudaErrorInvalidValue;
+    if (smem_bytes > 48 * 1024) {  // above what needs no opt-in
+        cudaError_t e =
+            cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+        if (e != cudaSuccess) {
+            cudaGetLastError();
+            return (int)e;
+        }
+    }
+    cudaError_t e = cudaLaunchKernel(fn, dim3(C), dim3(threads), args, (size_t)smem_bytes,
+                                     (cudaStream_t)stream);
+    if (e != cudaSuccess) cudaGetLastError();
+    return (int)e;
+}
+
+extern "C" int mgmc_descend_visit(const VisitParams* P, const PhaseTables* L, const void* tables,
+                                  float* x, const float* f, float* scratch, float* fc,
+                                  const float* coeffs, const float* ns, const float* xilr,
+                                  const float* xi, int form, int threads, int smem_bytes,
+                                  void* stamps, void* stream) {
+    const int4* tab = static_cast<const int4*>(tables);
     unsigned long long* st = static_cast<unsigned long long*>(stamps);
-    if (st != nullptr)
-        ascend_kernel<true><<<P->C, threads, 0, (cudaStream_t)stream>>>(
-            *P, x, f, scratch, xc, coeffs, ns, B, Y, Wm, xilr, xi, st);
-    else
-        ascend_kernel<false><<<P->C, threads, 0, (cudaStream_t)stream>>>(
-            *P, x, f, scratch, xc, coeffs, ns, B, Y, Wm, xilr, xi, st);
-    return (int)cudaGetLastError();
+    void* args[] = {(void*)P, (void*)L, &tab, &x, &f, &scratch, &fc, &coeffs, &ns, &xilr, &xi,
+                    &st};
+    return launch(1, form, st != nullptr, P->C, threads, smem_bytes, args, stream);
+}
+
+extern "C" int mgmc_ascend_visit(const VisitParams* P, const PhaseTables* L, const void* tables,
+                                 float* x, const float* f, float* scratch, const float* xc,
+                                 const float* coeffs, const float* ns, const float* xilr,
+                                 const float* xi, int form, int threads, int smem_bytes,
+                                 void* stamps, void* stream) {
+    const int4* tab = static_cast<const int4*>(tables);
+    unsigned long long* st = static_cast<unsigned long long*>(stamps);
+    void* args[] = {(void*)P, (void*)L, &tab, &x, &f, &scratch, &xc, &coeffs, &ns, &xilr, &xi,
+                    &st};
+    return launch(0, form, st != nullptr, P->C, threads, smem_bytes, args, stream);
 }

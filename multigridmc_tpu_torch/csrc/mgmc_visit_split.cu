@@ -5,7 +5,7 @@
 // Replace, like mgmc_visit.cu and mgmc_visit_stream.cu, the Pallas kernels
 // descend_visit and ascend_visit of
 // multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py, and compute what
-// descend_body / ascend_body of visit_phases.cuh compute, from the same
+// level_descend / level_ascend of level_passes.cuh compute, from the same
 // parameter block (VisitParams) and the same noise modes (0 off, 1 in-kernel
 // Philox, 2 xi read from memory):
 //
@@ -18,9 +18,10 @@
 //
 // Why a third design.  The phase kernels run one block per chain: at one
 // chain (the drivers' time series) 131 of the 132 SMs are idle, and the block
-// walks whole-field phases from L2 with a block barrier after each - some
-// 0.16-0.21 ms per visit at 255^2 whatever the chain count up to 64, which is
-// latency, against a byte bound under a microsecond.  The stream kernels
+// walks whole-field passes from L2 with a block barrier after each - some
+// 0.16-0.21 ms per visit at 255^2 whatever the chain count up to 64 (their
+// design before the passes of level_passes.cuh), which is latency, against a
+// byte bound under a microsecond.  The stream kernels
 // (one block per chain as well) pay off only where many chains fill the card.
 //
 // Design: the band scheme of sor_sweep_cluster.cu carried over to the whole
@@ -31,7 +32,7 @@
 //   1. it copies its band of x into dynamic shared memory once (4-byte
 //      cp.async: rows of 255 floats start only 4-byte aligned) and forms the
 //      rhs c in a scratch band beside it, by Philox point groups with the
-//      counter layout of rhs_phase (group i * ceil(W / 4) + g, then chain, then
+//      counter layout of rhs_pass (group i * ceil(W / 4) + g, then chain, then
 //      launch counter, key seed ^ PHILOX_KEY_MIX; a group lies in one row, so
 //      in one band: the same normals as the other two routes); the ascend
 //      adds gamma P x_c to its band first (x_c read from global memory); the
@@ -45,7 +46,7 @@
 //      order and sums them in that order, then forms u = W B^T x itself, so
 //      every block holds the same u bit for bit, without atomics; it patches
 //      x -= u_l Y_l over band and ybox[l], column after column as
-//      woodbury_phase (each point has one owner, so the order of its updates
+//      woodbury_pass (each point has one owner, so the order of its updates
 //      is kept), and writes its band back to global memory once, coalesced;
 //   4. descend: after a cluster.sync() the residual r = f - A x (halo rows of
 //      x from the neighbours) replaces c in the scratch band, with its
@@ -57,7 +58,7 @@
 //      another still reads its shared memory.
 // Cluster barriers per visit: descend n_order + 4, ascend n_order + 2 (one
 // fewer each without measurements).  Each point does the arithmetic of
-// visit_phases.cuh on the same values, in the same order; only B^T x is summed
+// level_passes.cuh on the same values, in the same order; only B^T x is summed
 // in another order (per band, then over the bands), so under one Philox stream
 // the routes agree to float32 rounding.
 //
@@ -199,7 +200,7 @@ split_visit_kernel(const __grid_constant__ VisitParams P, float* x_all,
     cp_async_wait_all();
     __syncthreads();
 
-    //    the rhs (rhs_phase): ascend x += gamma P x_c, then c = f + ns xi
+    //    the rhs (rhs_pass): ascend x += gamma P x_c, then c = f + ns xi
     const int G4 = (W + 3) >> 2;
     const float* xc = DESCEND ? nullptr : xc_all + (size_t)chain * P.Hc * P.Wc;
     for (int t = tid; t < nb * G4; t += nthreads) {
@@ -250,7 +251,7 @@ split_visit_kernel(const __grid_constant__ VisitParams P, float* x_all,
     const float* xlo = cluster.map_shared_rank(xs, rank > 0 ? rank - 1 : rank);
     const float* xhi = cluster.map_shared_rank(xs, rank + 1 < S ? rank + 1 : rank);
 
-    // 2. the colour phases on the band (sweep_phase)
+    // 2. the colour phases on the band (sweep_colours)
     const int s = P.jstride;
     const int Gs = (W + s - 1) / s;  // candidate points of a colour per row
     for (int o = 0; o < P.n_order; ++o) {

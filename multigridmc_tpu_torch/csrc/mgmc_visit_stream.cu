@@ -3,8 +3,8 @@
 //
 // Replaces, like mgmc_visit.cu, the Pallas kernels descend_visit and
 // ascend_visit of multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py, and
-// computes what the phase kernels of mgmc_visit.cu compute (the visit of
-// visit_phases.cuh):
+// computes what the phase kernels of mgmc_visit.cu compute (the passes of
+// level_passes.cuh):
 //
 //   descend:  c   = f + sqrt(D(2-w)/w) xi + sum_k xi'_k B_k     (Gibbs rhs)
 //             x  <- colour-ordered SOR sweep(c, x)
@@ -14,7 +14,7 @@
 //   ascend:   x  <- x + gamma P x_c,  then c, sweep, Woodbury (post direction)
 //
 // Why another design.  The phase kernels keep the field in global memory and
-// run whole-field phases between barriers: about ten passes over a 260 KB
+// run whole-field passes between barriers: about ten passes over a 260 KB
 // field per descend visit, and at 256 chains (133 MB with the scratch field)
 // most of them reach HBM.  Here each chain's field streams through the block
 // twice (descend) or once (ascend), and nothing but x, f_c and the few
@@ -29,7 +29,7 @@
 // phases of one step touch no common point (wavefront_lags in
 // ops/kernels/mgmc_visit.py: two colours give lags 0, 2; the 4-colour 9-point
 // levels 0, 2, 4, 6).  Every point is updated by the arithmetic of
-// sweep_phase (visit_phases.cuh) from the same values, so the result is the
+// sweep_colours (level_passes.cuh) from the same values, so the result is the
 // colour-ordered SOR sweep, and under the same Philox stream the field of
 // the phase kernels (a neighbour outside the field adds c * 0 here where the
 // phase kernel skips it: the same value).
@@ -48,11 +48,12 @@
 // later.  c is never written to memory.
 // Woodbury.  After the last row: B^T x from the partial sums in a fixed order,
 // u = W B^T x, x -= u_l Y_l on the Y bounding boxes in global memory, one
-// column after the other, as woodbury_phase.
+// column after the other: each point's columns in column order, as
+// woodbury_pass (level_passes.cuh).
 // Pass 2 (descend only).  The corrected x streams through the block again in
 // tiles of STREAM_TILE coarse rows, with f, double-buffered by cp.async: the
 // residual rows 2I .. 2I+2 of coarse row I are formed in shared memory
-// (r = f - A x, then the low-rank term, as descend_body), and f_c is written.
+// (r = f - A x, then the low-rank term, as residual_pass), and f_c is written.
 //
 // Bound.  By bytes a descend visit must read x and f once and write x and f_c
 // once per chain (it reads x twice: pass 2 re-reads the corrected field, which
@@ -61,7 +62,7 @@
 // quarter of a four-normal group), the stencil, an IEEE division and the
 // ring's bookkeeping, with few warps per SM (one block per chain).  No
 // atomics, fixed reduction orders: equal seeds and counters give bitwise
-// equal fields.  Noise addressing is that of rhs_phase: group g of row i has
+// equal fields.  Noise addressing is that of rhs_pass: group g of row i has
 // the Philox counter word i * ceil(W / 4) + g.
 
 #include <cuda_runtime.h>
@@ -269,7 +270,7 @@ stream_visit_kernel(const __grid_constant__ StreamParams S, float* x_all,
     };
 
     // Point group g of row i gets its final c (and, ascending, x += gamma P x_c):
-    // the arithmetic of rhs_phase and add_lowrank, point for point; four
+    // the arithmetic of rhs_pass (level_passes.cuh), point for point; four
     // points read and written as one vector (the points past the row's end
     // stay zero).  z: the group's normals; lo, buf: the row block's coarse rows.
     auto form_group = [&](int i, int g, const float* z, int lo, const float* buf) {
@@ -496,7 +497,7 @@ stream_visit_kernel(const __grid_constant__ StreamParams S, float* x_all,
             }
             __syncthreads();
         }
-        if (DESCEND) {  // t = Sigma^-1 (I - G) B^T x, as descend_body
+        if (DESCEND) {  // t = Sigma^-1 (I - G) B^T x, as level_descend
             if (tid < P.m) {
                 const int k = tid;
                 float v = s_btx[k];

@@ -41,7 +41,7 @@ CSRC_DIR = _PACKAGE_DIR / "csrc"
 BUILD_DIR = _PACKAGE_DIR / "build"
 
 #: headers under ``csrc/`` that the kernel sources include
-HEADERS = ("philox.cuh", "visit_phases.cuh", "subtree_phases.cuh", "sor_sweep.cuh")
+HEADERS = ("philox.cuh", "visit_phases.cuh", "level_passes.cuh", "sor_sweep.cuh")
 
 #: every kernel source under ``csrc/`` (``<name>.cu``); :func:`build_libraries`
 #: compiles them in parallel
@@ -125,6 +125,27 @@ def default_threads(n: int) -> int:
     if n >= 16000:
         return 1024
     return 512 if n >= 3000 else 256
+
+
+#: streaming multiprocessors of an H100 SXM, the card the port targets: what
+#: :func:`sm_count` answers on the CPU, where nothing is launched
+H100_SMS = 132
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    if device.type == "cpu":
+        return H100_SMS
+    return int(torch.cuda.get_device_properties(device).multi_processor_count)
+
+
+def sm_count(device=None) -> int:
+    """Streaming multiprocessors of ``device`` (default: the current CUDA
+    device); :data:`H100_SMS` on the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _sm_count(device)
 
 
 def tensor_ptr(t):

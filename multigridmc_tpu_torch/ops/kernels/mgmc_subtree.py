@@ -20,15 +20,16 @@ law as the triangular solves of ``DenseCholeskySampler`` and, fed the same
 normals, the same value up to rounding; the factor is inverted in float64.
 
 The CUDA source is ``csrc/mgmc_subtree.cu`` with the visits of
-``csrc/subtree_phases.cuh`` (one thread block per chain walking a host-made
-schedule; the header comments state the design).  At launch start the block
+``csrc/level_passes.cuh`` (one thread block per chain walking a host-made
+schedule; the header comments state the design), the passes the phase visit
+kernels run too.  At launch start the block
 copies the tables of :func:`launch_tables` (the levels' parameter blocks, ``B``
 and both directions' ``Y`` inside their bounding boxes, ``W``, ``G``,
 ``1/Sigma``, ``Sigma^-1/2``, the sweeps' :func:`colour_rows`) into its shared
 memory; each low-rank term is one pass in which the owner of a point adds the
-columns that hold it, in column order, the 3x3 stencil of the Galerkin levels
-is read with its coefficients in registers, and the warps take the rows of
-each colour in turn.  The host decides where each level's three fields (``x``,
+columns that hold it, in column order, the stencil (any reach-1 stencil) is
+read with its coefficients in registers, and the warps take the rows of each
+colour in turn.  The host decides where each level's three fields (``x``,
 the rhs scratch, ``f``) lie (:func:`place_fields`): in dynamic shared memory
 after the tables, from the coarsest level upwards while the granted size
 (:func:`~.common.dynamic_smem_limit`, less :func:`field_budget`'s shares)
@@ -89,8 +90,8 @@ import torch
 from .common import (DEFAULT_SMEM_BYTES, default_threads, dynamic_smem_limit, open_library,
                      probe_dynamic_smem)
 from .common import tensor_ptr as _ptr
-from .mgmc_visit import (FusedVisitLevel, VisitParams, ascend_visit_plain,
-                         descend_visit_plain)
+from .mgmc_visit import (FusedVisitLevel, TableWords, VisitParams,  # noqa: F401
+                         ascend_visit_plain, colour_rows, descend_visit_plain, stage_level)
 
 MAX_SUB_LEVELS = 8
 
@@ -251,85 +252,33 @@ def place_fields(level_sizes: Sequence[int], nc: int, budget_bytes: int):
     return levels, coarse, smem, ws
 
 
-def _staged_boxes(fields, boxes) -> Tuple[np.ndarray, np.ndarray]:
-    """The values of each 2d field ``fields[k]`` inside ``boxes[k]`` (row major,
-    column after column) as float32, and the ``m + 1`` starts of the columns."""
-    vals = [np.zeros(0, np.float32)]
-    if fields is not None:
-        F = fields.detach().cpu().to(torch.float32).numpy()
-        vals += [F[k, i0:i1, j0:j1].reshape(-1) for k, (i0, i1, j0, j1) in enumerate(boxes)]
-    starts = np.cumsum([0] + [v.size for v in vals[1:]]).astype(np.int32)
-    return np.concatenate(vals), starts
-
-
-def _small(t) -> np.ndarray:
-    return np.zeros(0, np.float32) if t is None else (
-        t.detach().cpu().to(torch.float32).numpy().reshape(-1))
-
-
-def colour_rows(P: VisitParams) -> np.ndarray:
-    """Which rows of a sweep hold each colour: per colour of ``P.order``, ``1 +
-    2 n_colors`` int32 words, the number ``R`` of row residues ``rho`` mod
-    ``n_colors`` whose rows hold it, then ``R`` pairs ``(rho, first column of
-    the colour in such a row)``, residues ascending.  The colour of ``(i, j)``
-    is ``(w0 i + w1 j) mod n_colors``, as in the kernels' sweeps."""
-    K, s = P.n_colors, P.jstride
-    out = np.zeros((P.n_order, 1 + 2 * K), np.int32)
-    for o in range(P.n_order):
-        pairs = [(rho, next(jj for jj in range(s) if (P.w0 * rho + P.w1 * jj) % K == P.order[o]))
-                 for rho in range(K)
-                 if any((P.w0 * rho + P.w1 * jj) % K == P.order[o] for jj in range(s))]
-        out[o, 0] = len(pairs)
-        out[o, 1:1 + 2 * len(pairs)] = np.asarray(pairs, np.int32).reshape(-1)
-    return out
-
-
 def launch_tables(levels: Sequence[FusedVisitLevel]):
     """What the kernel copies into shared memory once per launch, as 32-bit
     words: per sub-level the ``VisitParams`` of both directions (the pre sweep
     of the descend, the post sweep of the ascend; their chain count is not
-    read), ``B_k`` inside ``bbox_k`` and ``Y_k`` of both directions inside
-    their ``ybox_k`` (each box row major, column after column, with the ``m +
-    1`` starts of the columns), ``W`` of both directions, ``G``, ``1 / Sigma``
-    and ``Sigma^-1/2``, and both directions' :func:`colour_rows`; then 32
-    warps' slots of the largest ``m`` words each.
+    read), then per sub-level its tables for both directions as the phase
+    visit kernels stage one (``mgmc_visit.stage_level``): both directions'
+    ``colour_rows``, ``B_k`` inside ``bbox_k`` and ``Y_k`` of both directions
+    inside their ``ybox_k`` (each box row major, column after column, with the
+    ``m + 1`` starts of the columns), ``W`` of both directions, ``G``, ``1 /
+    Sigma`` and ``Sigma^-1/2``; then 32 warps' slots of the largest ``m`` words
+    each.
 
     Returns ``(words, offsets, warp_vec, warp_stride)``: ``words`` an int32
     array whose length is a multiple of 4, ``offsets`` per level a dict of the
     word offsets that ``SubLevel`` holds (``plan``, ``yval``, ``yoff``, ``wm``
     and ``rows`` per direction)."""
-    parts: List[np.ndarray] = []
-    n = 0
-
-    def put(a: np.ndarray) -> int:
-        nonlocal n
-        a = np.ascontiguousarray(a).view(np.int32).reshape(-1)
-        parts.append(a)
-        n += a.size
-        return n - a.size
-
-    offsets = [{} for _ in levels]
+    words = TableWords()
     plans = [[lv._build_params(1, order, True, 0) for order in (lv.pre_order, lv.post_order)]
              for lv in levels]
-    for P2, off in zip(plans, offsets):  # first the parameter blocks: 8-byte aligned
-        off["plan"] = [put(np.frombuffer(bytes(P), np.int32)) for P in P2]
-    for lv, P2, off in zip(levels, plans, offsets):
-        off["rows"] = [put(colour_rows(P)) for P in P2]
-        bval, boff = _staged_boxes(lv.B, lv.bbox)
-        off["bval"], off["boff"] = put(bval), put(boff)
-        off["yval"], off["yoff"], off["wm"] = [], [], []
-        for order in (lv.pre_order, lv.post_order):
-            Y, W, ybox = lv._woodbury[order]
-            yval, yoff = _staged_boxes(Y, ybox)
-            off["yval"].append(put(yval))
-            off["yoff"].append(put(yoff))
-            off["wm"].append(put(_small(W)))
-        off["g"], off["sinv"] = put(_small(lv.G_pre)), put(_small(lv.sigma_inv))
-        off["lrscale"] = put(_small(lv.lr_scale))
+    # first the parameter blocks: 8-byte aligned
+    offsets = [{"plan": [words.put(np.frombuffer(bytes(P), np.int32)) for P in P2]}
+               for P2 in plans]
+    for lv, off in zip(levels, offsets):
+        off.update(stage_level(words, lv, (lv.pre_order, lv.post_order)))
     warp_stride = max([lv.op.m_lowrank for lv in levels] + [1])
-    warp_vec = put(np.zeros(32 * warp_stride, np.float32))
-    put(np.zeros(-n % 4, np.int32))
-    return np.concatenate(parts), offsets, warp_vec, warp_stride
+    warp_vec = words.put(np.zeros(32 * warp_stride, np.float32))
+    return words.words(), offsets, warp_vec, warp_stride
 
 
 def field_budget(limit_bytes: int, table_words: int) -> int:
@@ -514,7 +463,7 @@ class SubtreeKernel:
 
 
 def barrier_count(kernel: "SubtreeKernel", noise: bool = True) -> int:
-    """Block barriers of one launch as ``csrc/subtree_phases.cuh`` places them:
+    """Block barriers of one launch as ``csrc/level_passes.cuh`` places them:
     the table copy, per descend the rhs pass (where noise is on or x is
     zeroed), one per colour, ``B^T x`` and the Woodbury pass (where m > 0),
     the residual and the restriction, per ascend the same without the last

@@ -31,16 +31,23 @@ shared memory fits a block and its cluster schedules (:func:`visit_route`,
   cluster barrier between phases; :func:`split_cluster` picks ``S``) - for
   few chains (at most :data:`SPLIT_MAX_CHAINS`), where one block per chain
   leaves the card idle and a visit is latency;
-* the **phase kernels** of ``csrc/mgmc_visit.cu`` (one thread block per chain,
-  whole-field phases over a field in global memory, ``__syncthreads()``
-  between them; the phases live in ``csrc/visit_phases.cuh``, shared with the
-  subtree kernel) - for the chain counts between the two thresholds, and for
-  levels the other two do not fit;
+* the **phase kernels** of ``csrc/mgmc_visit.cu`` (one thread block per
+  chain, whole-field passes over fields in device memory with a barrier
+  between them: the passes of ``csrc/level_passes.cuh``, which the subtree
+  kernel runs too - each low-rank term in one pass, the stencil in registers,
+  each colour's rows over all warps; the level's tables of the launch's
+  direction, :func:`phase_tables`, in each block's shared memory where they
+  fit (:func:`phase_tables_fit`), else read from the device; the block size
+  by the chain count, :func:`phase_threads`) - for the chain counts between
+  the two thresholds, and for levels the other two do not fit;
 * the **stream kernels** of ``csrc/mgmc_visit_stream.cu`` (one thread block per
   chain, the sweep as a wavefront of row blocks through a ring of rows in
   shared memory, every colour phase of a step at once; :func:`wavefront_lags`
-  gives the schedule) - for many chains, where each chain's field crosses the
-  memory bus twice and not ten times.
+  gives the schedule) - from :data:`STREAM_MIN_CHAINS` chains, where each
+  chain's field crosses the memory bus twice and not ten times; since the
+  phase kernels run the passes of ``level_passes.cuh`` no measured chain count
+  is one from which on the stream kernels win on every level, so the
+  threshold is ``None`` and the route takes them nowhere.
 
 All three compute the same visit from the same Philox stream; the route is
 chosen from the level's shape and the chain count when a level builds its
@@ -57,7 +64,9 @@ bytes, about 150 MB at 256 chains.  Everything else the kernels touch
 (coefficient planes, the few points where ``B`` and ``M^{-1} B`` are nonzero)
 is meant to stay in L2.  Both kernels are several times off that bound, the
 stream kernels by the instructions they issue (the Philox draws, an IEEE
-division per point) on few warps per SM; ``PERF.md`` has their times.
+division per point) on few warps per SM, the phase kernels by the traffic of
+their passes; ``PERF.md`` has their times.  The phase kernels have a stamps
+build that times each pass (:func:`pass_times`).
 
 Beside each kernel stands its **plain PyTorch version**
 (:func:`descend_visit_plain`, :func:`ascend_visit_plain`), built from
@@ -98,7 +107,7 @@ from ..intergrid import prolongate_add, restrict
 from ..stencil import StencilOperator
 from . import sor_sweep as ss
 from .common import (compress_plan, default_threads, dynamic_smem_limit,  # noqa: F401
-                     open_library, philox_normals_reference, support_boxes)
+                     open_library, philox_normals_reference, sm_count, support_boxes)
 from .common import tensor_ptr as _ptr
 
 MAX_OFFSETS = 9
@@ -138,17 +147,52 @@ SPLIT_TABLE_INTS = MAX_COLORS * MAX_COLORS
 #: ``s_lr``, ``s_u``; ``MAX_CLUSTER`` = 16 in the source)
 SPLIT_STATIC_SMEM = 4 * (MAX_LOWRANK + 16 * MAX_LOWRANK + 3 * MAX_LOWRANK)
 
+#: the phase kernels' static shared memory (``s_btx``, per warp a slot of
+#: ``MAX_LOWRANK`` floats and 128 floats that stage the rhs pass's stores, the
+#: barrier count and the stamps pointer); the library refuses to load where
+#: the kernels declare more
+PHASE_STATIC_SMEM = 4 * (MAX_LOWRANK + 32 * MAX_LOWRANK + 32 * 128) + 16
+#: an H100 SM's shared memory and what the card keeps of it per block
+SM_SHARED_BYTES = 233472
+BLOCK_RESERVED_BYTES = 1024
+
+#: Threads per block of the phase kernels above one wave of one block per SM:
+#: two blocks per SM, so that up to twice the SMs' chains run in one wave (264
+#: on an H100); :func:`phase_threads` takes 1024 at and below 132 chains.
+#: Measured with ``chip_smoke.py --phases threads``: device ms per descend plus
+#: ascend on the flagship's 255^2 / 127^2 levels, 256 / 512 / 1024 threads,
+#: NVIDIA H100 80GB HBM3, 700.00 W:
+#:
+#: ======  =========================  =========================
+#: chains  255^2                      127^2
+#: ======  =========================  =========================
+#:     64  0.5382 / 0.3298 / 0.2657   0.1486 / 0.0988 / 0.0839
+#:    128  0.6563 / 0.4199 / 0.3442   0.1493 / 0.1000 / 0.0850
+#:    132  0.6604 / 0.4244 / 0.3491   0.1489 / 0.0992 / 0.0846
+#:    200  0.7769 / 0.6007 / 0.6108   0.2030 / 0.1654 / 0.1680
+#:    256  0.8275 / 0.6551 / 0.6745   0.2176 / 0.1709 / 0.1729
+#: ======  =========================  =========================
+#:
+#: 1024 is fastest up to 132 chains, 512 at 200 and 256, on both levels.
+PHASE_WAVE_THREADS = 512
+
 #: Launches with at least this many chains take the stream kernels, fewer the
-#: phase kernels (where the stream kernels' rings fit a block: :func:`visit_route`).
-#: Set from the ``visit_routes`` table of ``chip_smoke.py``, which fails if the
-#: table supports another value: both kernels' device time per descend plus
-#: ascend at 1, 16, 64, 132, 256 and 512 chains on the 255^2 and 127^2 flagship
-#: levels, and at 132, 256 and 512 on the 511^2 and 255^2 (9-point) levels of a
-#: 512x512 lattice, NVIDIA H100 80GB HBM3, 700.00 W.  The stream kernels win at
-#: 256 and 512 chains on every level, at 132 on all but the 127^2 level, and lose
-#: at 1-64; wider levels and more chains than that were not measured.  PERF.md
-#: section 6 holds the table.
-STREAM_MIN_CHAINS = 256
+#: phase kernels (where the stream kernels' rings fit a block: :func:`visit_route`);
+#: ``None``: no launch takes them.  Set from the ``visit_routes`` table of
+#: ``chip_smoke.py``, which fails if the table supports another value: both
+#: kernels' device time per descend plus ascend at 1-512 chains on the 255^2 and
+#: 127^2 flagship levels, and at 132, 256 and 512 on the 511^2 and 255^2 (9-point)
+#: levels of a 512x512 lattice, NVIDIA H100 80GB HBM3, 700.00 W.  Since the phase
+#: kernels run the passes of ``csrc/level_passes.cuh`` the stream kernels win
+#: only on the flagship's 255^2 level from 256 chains (0.5984 against 0.6440 ms;
+#: at 512 1.188 against 1.246) and lose everywhere else: on 127^2 at 256 chains
+#: 0.3312 against 0.1592, on the 511^2 5-point level at 256 2.9276 against 2.6000.
+#: So no count is one from which on they win everywhere, and the route takes
+#: them nowhere.  The stream
+#: kernels stay, held against their plain versions and the phase kernels by
+#: ``chip_smoke.py``; a threshold per level shape would take their wins (the
+#: roadmap's P5).  PERF.md section 6 holds the table.
+STREAM_MIN_CHAINS: Optional[int] = None
 
 #: Launches of at most this many chains take the split kernels where their bands
 #: fit a block and their cluster schedules (:func:`split_cluster`).  Set from the
@@ -156,10 +200,12 @@ STREAM_MIN_CHAINS = 256
 #: if the table supports another value: device time per descend plus ascend of
 #: all three routes at 1, 4, 8, 16, 32, 64 and 132 chains on the flagship's 255^2
 #: and 127^2 levels, the split kernels at every cluster size that fits, NVIDIA
-#: H100 80GB HBM3, 700.00 W (the split kernels at the rule's cluster size take at
-#: most 0.84 of the phase kernels' time up to 64 chains on both levels, and lose
-#: at 132).  PERF.md section 6 holds the table.
-SPLIT_MAX_CHAINS = 64
+#: H100 80GB HBM3, 700.00 W.  With the phase kernels on the passes of
+#: ``csrc/level_passes.cuh`` the split kernels at the rule's cluster size take
+#: less than 0.90 of their time up to 16 chains on both levels (127^2 at 16:
+#: 0.0658 against 0.0832 ms) and not from 32 (127^2: 0.1102 against 0.0836; at
+#: 64 they lose on both).  PERF.md section 6 holds the table.
+SPLIT_MAX_CHAINS = 16
 
 #: The fixed part of a wave of split visit clusters (the load, the cluster
 #: barriers, the launch) lasts about as long as a band of this many points takes
@@ -234,20 +280,193 @@ class StreamParams(ctypes.Structure):
     ]
 
 
+class PhaseTables(ctypes.Structure):
+    """Mirror of ``struct PhaseTables`` in ``csrc/mgmc_visit.cu``: the word
+    offsets of one level's tables for one sweep direction (:func:`phase_tables`)
+    and whether each block copies them into its shared memory."""
+
+    _fields_ = [(name, ctypes.c_int) for name in
+                ("bval", "boff", "yval", "yoff", "wm", "g", "sinv", "bbox", "ybox", "bspan",
+                 "yspan", "rows", "words", "shared")]
+
+
+def phase_threads(C: int, n: int, sms: int) -> int:
+    """Threads per block of a phase launch of ``C`` chains on a level of ``n``
+    points, on a card of ``sms`` SMs: ``default_threads(n)`` (1024 from 16,000
+    points) while the chains fit one wave of one block per SM, at most
+    :data:`PHASE_WAVE_THREADS` (two blocks per SM) above that."""
+    threads = default_threads(n)
+    return threads if C <= sms else min(threads, PHASE_WAVE_THREADS)
+
+
+#: the stencil forms the phase kernels are compiled for, one kernel each
+#: (``STENCIL_FORMS`` in ``csrc/level_passes.cuh``): :func:`stencil_form`
+STENCIL_FORMS = 6
+
+
+def stencil_form(offsets, const_coeffs) -> int:
+    """The phase kernel a level's stencil takes (``stencil_form`` in
+    ``csrc/level_passes.cuh``): 0 up to 5 offsets, 2 the 3x3 box in raster
+    order, 4 any other of up to 9; one more where a coefficient varies in
+    space (``const_coeffs`` holds ``None`` for it, :func:`~.common.compress_plan`)."""
+    offsets = tuple(tuple(int(v) for v in off) for off in offsets)
+    raster = offsets == tuple((k // 3 - 1, k % 3 - 1) for k in range(9))
+    base = 0 if len(offsets) <= 5 else (2 if raster else 4)
+    return base + int(any(c is None for c in const_coeffs))
+
+
+def phase_tables_fit(table_bytes: int, threads: int, smem_limit: int) -> bool:
+    """Whether a phase launch of ``threads`` per block keeps its tables
+    (``table_bytes``) in each block's shared memory: they and the kernel's
+    static share must fit both the block's limit ``smem_limit`` and the share
+    of an SM's shared memory that leaves room for the blocks per SM the block
+    size allows (a thread holds at most 64 registers: 1024 threads per SM)."""
+    blocks = max(1, 1024 // threads)
+    share = min(int(smem_limit), SM_SHARED_BYTES // blocks - BLOCK_RESERVED_BYTES)
+    return table_bytes + PHASE_STATIC_SMEM <= share
+
+
+# ----------------------------------------------------------------- the tables
+class TableWords:
+    """32-bit words of staged tables, put one part after the other; the offset
+    of each part in words is what the kernels are handed."""
+
+    def __init__(self):
+        self.parts: list = []
+        self.size = 0
+
+    def put(self, a: np.ndarray) -> int:
+        a = np.ascontiguousarray(a).view(np.int32).reshape(-1)
+        self.parts.append(a)
+        self.size += a.size
+        return self.size - a.size
+
+    def words(self) -> np.ndarray:
+        """All words, padded to a multiple of 4 (the kernels copy int4s)."""
+        self.put(np.zeros(-self.size % 4, np.int32))
+        return np.concatenate(self.parts)
+
+
+def staged_boxes(fields, boxes) -> Tuple[np.ndarray, np.ndarray]:
+    """The values of each 2d field ``fields[k]`` inside ``boxes[k]`` (row major,
+    column after column) as float32, and the ``m + 1`` starts of the columns."""
+    vals = [np.zeros(0, np.float32)]
+    if fields is not None:
+        F = fields.detach().cpu().to(torch.float32).numpy()
+        vals += [F[k, i0:i1, j0:j1].reshape(-1) for k, (i0, i1, j0, j1) in enumerate(boxes)]
+    starts = np.cumsum([0] + [v.size for v in vals[1:]]).astype(np.int32)
+    return np.concatenate(vals), starts
+
+
+def small_table(t) -> np.ndarray:
+    """A small matrix or vector as float32 words (none for ``None``)."""
+    return np.zeros(0, np.float32) if t is None else (
+        t.detach().cpu().to(torch.float32).numpy().reshape(-1))
+
+
+def colour_rows(P: "VisitParams") -> np.ndarray:
+    """Which rows of a sweep hold each colour: per colour of ``P.order``, ``1 +
+    2 n_colors`` int32 words, the number ``R`` of row residues ``rho`` mod
+    ``n_colors`` whose rows hold it, then ``R`` pairs ``(rho, first column of
+    the colour in such a row)``, residues ascending.  The colour of ``(i, j)``
+    is ``(w0 i + w1 j) mod n_colors``, as in the kernels' sweeps."""
+    K, s = P.n_colors, P.jstride
+    out = np.zeros((P.n_order, 1 + 2 * K), np.int32)
+    for o in range(P.n_order):
+        pairs = [(rho, next(jj for jj in range(s) if (P.w0 * rho + P.w1 * jj) % K == P.order[o]))
+                 for rho in range(K)
+                 if any((P.w0 * rho + P.w1 * jj) % K == P.order[o] for jj in range(s))]
+        out[o, 0] = len(pairs)
+        out[o, 1:1 + 2 * len(pairs)] = np.asarray(pairs, np.int32).reshape(-1)
+    return out
+
+
+def stage_level(words: TableWords, level: "FusedVisitLevel", orders, residual: bool = True,
+                lrscale: bool = True) -> dict:
+    """Put one level's tables into ``words``: per sweep order of ``orders``
+    its :func:`colour_rows`, ``Y`` inside its boxes and ``W``; ``B`` inside its
+    boxes; with ``residual`` the descend's ``G`` and ``1 / Sigma``, with
+    ``lrscale`` ``Sigma^-1/2``.  Returns the word offsets: ``rows``, ``yval``,
+    ``yoff`` and ``wm`` as lists by order, ``bval``, ``boff``, ``g``, ``sinv``
+    and ``lrscale`` (0 where not put)."""
+    off = {"rows": [], "yval": [], "yoff": [], "wm": []}
+    for order in orders:
+        off["rows"].append(words.put(colour_rows(level._build_params(1, order, True, 0))))
+    bval, boff = staged_boxes(level.B, level.bbox)
+    off["bval"], off["boff"] = words.put(bval), words.put(boff)
+    for order in orders:
+        Y, W, ybox = level._woodbury[tuple(order)]
+        yval, yoff = staged_boxes(Y, ybox)
+        off["yval"].append(words.put(yval))
+        off["yoff"].append(words.put(yoff))
+        off["wm"].append(words.put(small_table(W)))
+    off["g"] = words.put(small_table(level.G_pre)) if residual else 0
+    off["sinv"] = words.put(small_table(level.sigma_inv)) if residual else 0
+    off["lrscale"] = words.put(small_table(level.lr_scale)) if lrscale else 0
+    return off
+
+
+def row_spans(boxes, H: int) -> np.ndarray:
+    """Per row ``i < H`` of a level the columns ``(lo, hi)`` that the boxes
+    holding the row span, ``(2^30, 0)`` where none does (``row_span`` in
+    ``csrc/level_passes.cuh`` finds the same from the boxes), as int32."""
+    out = np.tile(np.array([1 << 30, 0], np.int32), (H, 1))
+    for i0, i1, j0, j1 in boxes:
+        out[i0:i1, 0] = np.minimum(out[i0:i1, 0], j0)
+        out[i0:i1, 1] = np.maximum(out[i0:i1, 1], j1)
+    return out.reshape(-1)
+
+
+def phase_tables(level: "FusedVisitLevel", order, descend: bool):
+    """What a phase launch of ``level`` in the sweep ``order`` reads besides its
+    fields: :func:`stage_level` for that one order (``G`` and ``1 / Sigma`` for
+    the descend only), then ``B``'s and this order's ``Y`` boxes (``m x 4``
+    int32 each, as ``VisitParams.bbox`` / ``ybox``) and per row the columns
+    each set spans (:func:`row_spans`).  Returns ``(words, PhaseTables)``, the
+    offsets filled in and ``shared`` left 0."""
+    words = TableWords()
+    off = stage_level(words, level, (tuple(order),), residual=descend, lrscale=False)
+    T = PhaseTables()
+    H = level.op.vshape[0]
+    for name, boxes in (("b", level.bbox), ("y", level._woodbury[tuple(order)][2])):
+        setattr(T, f"{name}box", words.put(np.asarray(boxes, np.int32).reshape(-1)))
+        setattr(T, f"{name}span", words.put(row_spans(boxes, H)))
+    for name in ("rows", "yval", "yoff", "wm"):
+        setattr(T, name, off[name][0])
+    for name in ("bval", "boff", "g", "sinv"):
+        setattr(T, name, off[name])
+    out = words.words()
+    T.words = out.size
+    return out, T
+
+
+def phase_barrier_count(level: "FusedVisitLevel", kind: str) -> int:
+    """Barriers of one phase launch as ``csrc/level_passes.cuh`` places them (a
+    descend's first is there with or without noise: it publishes the table
+    copy): a descend ``n_order + 5``, an ascend ``n_order + 3``, each 2 fewer
+    where ``m = 0``; the stamps build counts them on the card."""
+    order = level.pre_order if kind == "descend" else level.post_order
+    lowrank = 2 if level.op.m_lowrank else 0
+    return len(order) + lowrank + (3 if kind == "descend" else 1)
+
+
 def visit_route(C: int, stream_bytes: int = 0, device=None,
-                smem_limit: Optional[int] = None, vshape=None) -> str:
+                smem_limit: Optional[int] = None, vshape=None,
+                stream_min: Optional[int] = STREAM_MIN_CHAINS) -> str:
     """The kernel a visit of ``C`` chains launches: ``"stream"`` from
-    :data:`STREAM_MIN_CHAINS` chains on where the stream kernels' shared memory
-    (``stream_bytes``, :func:`stream_smem_bytes`) fits a block; ``"split"`` for
-    a level of shape ``vshape`` where :func:`split_cluster` finds a cluster size
-    (at most :data:`SPLIT_MAX_CHAINS` chains); ``"phase"`` otherwise (and
-    always without a shape below the stream threshold).  A block is granted
+    ``stream_min`` chains on (:data:`STREAM_MIN_CHAINS`; ``None``: never) where
+    the stream kernels' shared memory (``stream_bytes``,
+    :func:`stream_smem_bytes`) fits a block; ``"split"`` for a level of shape
+    ``vshape`` where :func:`split_cluster` finds a cluster size (at most
+    :data:`SPLIT_MAX_CHAINS` chains); ``"phase"`` otherwise (and always
+    without a shape below the stream threshold).  A block is granted
     ``smem_limit`` bytes, by default what the probe finds on ``device``
     (:func:`~.common.dynamic_smem_limit`; on the CPU its default).  All of it
     is known before any launch."""
     if smem_limit is None:
         smem_limit = dynamic_smem_limit(device)
-    if C >= STREAM_MIN_CHAINS and stream_bytes + STREAM_STATIC_SMEM <= smem_limit:
+    if (stream_min is not None and C >= stream_min
+            and stream_bytes + STREAM_STATIC_SMEM <= smem_limit):
         return "stream"
     if vshape is not None and split_cluster(C, vshape, device, smem_limit) is not None:
         return "split"
@@ -407,15 +626,33 @@ def load_library() -> ctypes.CDLL:
     lib.mgmc_visit_params_size.restype = i32
     if lib.mgmc_visit_params_size() != ctypes.sizeof(VisitParams):
         raise RuntimeError("VisitParams layout differs between Python and CUDA")
-    lib.mgmc_visit_stamp_width.argtypes = []
-    lib.mgmc_visit_stamp_width.restype = i32
+    for fn in (lib.mgmc_visit_tables_size, lib.mgmc_visit_stamp_width,
+               lib.mgmc_visit_static_smem):
+        fn.argtypes = []
+        fn.restype = i32
+    if lib.mgmc_visit_tables_size() != ctypes.sizeof(PhaseTables):
+        raise RuntimeError("PhaseTables layout differs between Python and CUDA")
     if lib.mgmc_visit_stamp_width() != PHASE_STAMP_WIDTH:
         raise RuntimeError("the phase kernels' stamps differ in width between Python and CUDA")
-    # P, x, f, scratch, fc, coeffs, ns, B, Y, W, xilr, sinv, G, xi, threads, stamps, stream
-    lib.mgmc_descend_visit.argtypes = [ctypes.POINTER(VisitParams)] + [ptr] * 13 + [i32, ptr, ptr]
+    static = lib.mgmc_visit_static_smem()
+    if not 0 <= static <= PHASE_STATIC_SMEM:
+        raise RuntimeError(f"the phase kernels declare {static} bytes of static shared memory, "
+                           f"more than the {PHASE_STATIC_SMEM} the table placement keeps")
+    lib.mgmc_visit_stencil_forms.argtypes = []
+    lib.mgmc_visit_stencil_forms.restype = i32
+    if lib.mgmc_visit_stencil_forms() != STENCIL_FORMS:
+        raise RuntimeError("the phase kernels' stencil forms differ between Python and CUDA")
+    lib.mgmc_visit_kernel_attributes.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.mgmc_visit_kernel_attributes.restype = i32
+    lib.mgmc_visit_blocks_per_sm.argtypes = [i32] * 4
+    lib.mgmc_visit_blocks_per_sm.restype = i32
+    # P, L, tables, x, f, scratch, fc, coeffs, ns, xilr, xi, form, threads, smem, stamps, stream
+    lib.mgmc_descend_visit.argtypes = ([ctypes.POINTER(VisitParams), ctypes.POINTER(PhaseTables)]
+                                       + [ptr] * 9 + [i32, i32, i32, ptr, ptr])
     lib.mgmc_descend_visit.restype = i32
-    # P, x, f, scratch, xc, coeffs, ns, B, Y, W, xilr, xi, threads, stamps, stream
-    lib.mgmc_ascend_visit.argtypes = [ctypes.POINTER(VisitParams)] + [ptr] * 11 + [i32, ptr, ptr]
+    # P, L, tables, x, f, scratch, xc, coeffs, ns, xilr, xi, form, threads, smem, stamps, stream
+    lib.mgmc_ascend_visit.argtypes = ([ctypes.POINTER(VisitParams), ctypes.POINTER(PhaseTables)]
+                                      + [ptr] * 9 + [i32, i32, i32, ptr, ptr])
     lib.mgmc_ascend_visit.restype = i32
     return lib
 
@@ -532,9 +769,11 @@ class FusedVisitLevel:
             self.lr_scale = self.sigma_inv = self.G_pre = None
             self._woodbury = {self.pre_order: (None, None, ()), self.post_order: (None, None, ())}
         self.const_coeffs, self.ns_const, self.bbox = compress_plan(op, self.omega)
-        self.threads = default_threads(int(np.prod(op.vshape)))
+        #: the phase kernel of this level's stencil (:func:`stencil_form`)
+        self.stencil_form = stencil_form(op.offsets, self.const_coeffs)
         self.stream_threads = stream_threads(op.vshape[-1])
         self._params_cache = {}
+        self._phase_cache = {}
         self._stream_bytes = None
         self._routes = {}
         self._split_launches = {}
@@ -599,6 +838,27 @@ class FusedVisitLevel:
             S = split_cluster(C, self.op.vshape, self.op.device) if route == "split" else None
             self._routes[C] = (route, S)
         return self._routes[C]
+
+    def phase_threads(self, C: int) -> int:
+        """Threads per block of this level's phase launches of ``C`` chains
+        (:func:`phase_threads` on the card's SM count)."""
+        return phase_threads(C, int(np.prod(self.op.vshape)), sm_count(self.op.device))
+
+    def phase_launch(self, order, descend: bool, threads: int):
+        """``(tables, PhaseTables, dynamic shared bytes)`` of a phase launch in
+        the sweep ``order`` with ``threads`` per block: the tables of
+        :func:`phase_tables` as a device tensor, uploaded once, and whether
+        each block copies them into its shared memory
+        (:func:`phase_tables_fit` against what the card grants a block); all
+        decided before the launch and kept per launch configuration."""
+        key = (tuple(order), bool(descend), int(threads))
+        if key not in self._phase_cache:
+            words, T = phase_tables(self, order, descend)
+            tensor = torch.from_numpy(words).to(self.op.device)
+            T.shared = int(phase_tables_fit(4 * T.words, threads,
+                                             dynamic_smem_limit(self.op.device)))
+            self._phase_cache[key] = (tensor, T, 4 * T.words if T.shared else 0)
+        return self._phase_cache[key]
 
     def _lags(self, order) -> Tuple[int, ...]:
         return wavefront_lags(self.op.offsets, self.coloring.weights,
@@ -820,14 +1080,15 @@ def _check_stamps(route: str, stamps, x) -> None:
 
 def launch_descend(level: FusedVisitLevel, route: str, f, x, xi=None, xi_lr=None,
                    philox: Optional[Tuple[int, int]] = None, cluster: Optional[int] = None,
-                   stamps: Optional[torch.Tensor] = None):
+                   stamps: Optional[torch.Tensor] = None, threads: Optional[int] = None):
     """One descend visit through the kernel of ``route`` (one of
     :data:`ROUTES`), on CUDA tensors only; :func:`descend_visit` takes
     ``level.route(C)``, ``chip_smoke.py`` names it to hold the kernels against
     each other.  ``cluster`` sets the split route's cluster size (default: the
-    level's rule, :meth:`FusedVisitLevel.split_cluster`).  ``stamps`` (the
-    phase route only, a measurement aid; ``None`` on every production call)
-    takes the kernel's stamps build: an int64 tensor of shape ``(C,
+    level's rule, :meth:`FusedVisitLevel.split_cluster`).  The phase route
+    only, measurement aids that production calls leave ``None``: ``threads``
+    sets the block size (default: :meth:`FusedVisitLevel.phase_threads`);
+    ``stamps`` takes the kernel's stamps build, an int64 tensor of shape ``(C,
     PHASE_STAMP_WIDTH)`` that receives per chain the timer at entry, after
     each pass and at exit, the barriers passed and the SM
     (:func:`pass_times`).  Updates ``x`` in place; returns ``(x, f_coarse)``."""
@@ -841,21 +1102,24 @@ def launch_descend(level: FusedVisitLevel, route: str, f, x, xi=None, xi_lr=None
               _ptr(W), _ptr(xi_lr), _ptr(level.sigma_inv), _ptr(level.G_pre), _ptr(xi))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if route == "stream":
+        if route == "phase":
+            threads = level.phase_threads(C) if threads is None else int(threads)
+            tables, L, smem = level.phase_launch(level.pre_order, True, threads)
+            scratch = torch.empty_like(x)
+            err = load_library().mgmc_descend_visit(
+                ctypes.byref(P), ctypes.byref(L), tables.data_ptr(), x.data_ptr(), f.data_ptr(),
+                scratch.data_ptr(), fc.data_ptr(), level.coeffs.data_ptr(),
+                level.noise_scale.data_ptr(), _ptr(xi_lr), _ptr(xi), level.stencil_form,
+                threads, smem, _ptr(stamps), stream)
+        elif route == "stream":
             lib = load_stream_library()
             err = lib.mgmc_stream_descend(ctypes.byref(P), x.data_ptr(), f.data_ptr(),
                                           fc.data_ptr(), *common, level.stream_threads, stream)
-        elif route == "split":
-            S, threads = _split_launch(level, C, cluster)
-            err = load_split_library().mgmc_split_descend(
-                ctypes.byref(P), x.data_ptr(), f.data_ptr(), fc.data_ptr(), *common, S, threads,
-                stream)
         else:
-            lib = load_library()
-            scratch = torch.empty_like(x)
-            err = lib.mgmc_descend_visit(ctypes.byref(P), x.data_ptr(), f.data_ptr(),
-                                         scratch.data_ptr(), fc.data_ptr(), *common,
-                                         level.threads, _ptr(stamps), stream)
+            S, nthreads = _split_launch(level, C, cluster)
+            err = load_split_library().mgmc_split_descend(
+                ctypes.byref(P), x.data_ptr(), f.data_ptr(), fc.data_ptr(), *common, S, nthreads,
+                stream)
     name = KERNEL_NAMES[(route, "descend")]
     launch_counts[name] += 1
     if err != 0:
@@ -865,7 +1129,7 @@ def launch_descend(level: FusedVisitLevel, route: str, f, x, xi=None, xi_lr=None
 
 def launch_ascend(level: FusedVisitLevel, route: str, f, x, x_coarse, xi=None, xi_lr=None,
                   philox: Optional[Tuple[int, int]] = None, cluster: Optional[int] = None,
-                  stamps: Optional[torch.Tensor] = None):
+                  stamps: Optional[torch.Tensor] = None, threads: Optional[int] = None):
     """One ascend visit through the kernel of ``route``, as
     :func:`launch_descend`.  Updates ``x`` in place and returns it."""
     _on_card(x)
@@ -877,22 +1141,25 @@ def launch_ascend(level: FusedVisitLevel, route: str, f, x, x_coarse, xi=None, x
               _ptr(W), _ptr(xi_lr))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if route == "stream":
+        if route == "phase":
+            threads = level.phase_threads(C) if threads is None else int(threads)
+            tables, L, smem = level.phase_launch(level.post_order, False, threads)
+            scratch = torch.empty_like(x) if noise_mode else x  # unused without noise
+            err = load_library().mgmc_ascend_visit(
+                ctypes.byref(P), ctypes.byref(L), tables.data_ptr(), x.data_ptr(), f.data_ptr(),
+                scratch.data_ptr(), x_coarse.data_ptr(), level.coeffs.data_ptr(),
+                level.noise_scale.data_ptr(), _ptr(xi_lr), _ptr(xi), level.stencil_form,
+                threads, smem, _ptr(stamps), stream)
+        elif route == "stream":
             lib = load_stream_library()
             err = lib.mgmc_stream_ascend(ctypes.byref(P), x.data_ptr(), f.data_ptr(),
                                          x_coarse.data_ptr(), *common, _ptr(xi),
                                          level.stream_threads, stream)
-        elif route == "split":
-            S, threads = _split_launch(level, C, cluster)
+        else:
+            S, nthreads = _split_launch(level, C, cluster)
             err = load_split_library().mgmc_split_ascend(
                 ctypes.byref(P), x.data_ptr(), f.data_ptr(), x_coarse.data_ptr(), *common,
-                _ptr(xi), S, threads, stream)
-        else:
-            lib = load_library()
-            scratch = torch.empty_like(x) if noise_mode else x  # unused without noise
-            err = lib.mgmc_ascend_visit(ctypes.byref(P), x.data_ptr(), f.data_ptr(),
-                                        scratch.data_ptr(), x_coarse.data_ptr(), *common,
-                                        _ptr(xi), level.threads, _ptr(stamps), stream)
+                _ptr(xi), S, nthreads, stream)
     name = KERNEL_NAMES[(route, "ascend")]
     launch_counts[name] += 1
     if err != 0:

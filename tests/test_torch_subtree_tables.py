@@ -1,6 +1,6 @@
 """The subtree kernel's launch tables and its one-pass low-rank terms, on the CPU.
 
-The kernel (``csrc/mgmc_subtree.cu`` with ``csrc/subtree_phases.cuh``) copies
+The kernel (``csrc/mgmc_subtree.cu`` with ``csrc/level_passes.cuh``) copies
 per sub-level the visit parameter blocks, ``B`` and both directions' ``Y``
 inside their bounding boxes, ``W``, ``G``, ``1/Sigma`` and ``Sigma^-1/2`` into
 shared memory once per launch (:func:`launch_tables`), and does each low-rank
@@ -17,8 +17,9 @@ holds it, in column order, and ``B^T x`` is one warp per column.  Here:
   rhs and residual terms and the Woodbury correction (float32, as on the card);
   the warp-per-column ``B^T x`` (lanes along the box, a shuffle tree) within
   ``1e-12`` of the plain sum in float64;
-* the sweep over each colour's rows with the stencil read term by term, as the
-  kernel runs it on levels that are not the 3x3 box, against the plain sweep;
+* the sweep over each colour's rows with the stencil's terms in offset order,
+  as the kernel runs it on levels that are not the 3x3 box, against the plain
+  sweep;
 * the host's shared-memory layout: the flagship's 63^2 level and below in
   shared memory beside the tables, two blocks per SM under the card's limit,
   a budget of 0 placing every field in the workspace, and the tables at the
@@ -198,7 +199,7 @@ def row_span(box, i):
 
 
 def add_columns_replay(box, val, off, coef, sign, dst):
-    """``add_columns`` of ``subtree_phases.cuh`` for every point, one row after
+    """``add_columns`` of ``level_passes.cuh`` for every point, one row after
     the other: each point's columns in column order, in float32."""
     out = dst.copy()
     H, W = dst.shape
@@ -215,7 +216,8 @@ def add_columns_replay(box, val, off, coef, sign, dst):
 
 
 def column_after_column(box, fields, coef, sign, dst):
-    """The loops of ``visit_phases.cuh``: one column after the other over its box."""
+    """One column after the other over its box (the loops the kernels ran
+    before each low-rank term was one pass)."""
     out = torch.as_tensor(dst.copy())
     for k, (i0, i1, j0, j1) in enumerate(box):
         out[i0:i1, j0:j1] += sign * torch.tensor(coef[k]) * fields[k, i0:i1, j0:j1]
@@ -278,9 +280,9 @@ def test_warp_per_column_btx_matches_the_plain_sum(sampler):
 
 
 def stencil_box9_replay(P, coeffs, x):
-    """``stencil_box9`` of ``subtree_phases.cuh`` on a whole field: the nine
-    raster offsets in order, a neighbour outside the field skipped, the
-    coefficient a constant unless its plane varies."""
+    """The stencil in registers of ``level_passes.cuh`` on the 3x3 box, on a
+    whole field: the nine raster offsets in order, a neighbour outside the
+    field skipped, the coefficient a constant unless its plane varies."""
     H, W = x.shape
     ax = np.zeros((H, W))
     for k in range(9):
@@ -293,8 +295,8 @@ def stencil_box9_replay(P, coeffs, x):
 
 def test_levels_take_the_register_stencil(galerkin_sampler):
     """Every sub-level of both Galerkin cases is the 3x3 box in raster order,
-    the case in which the kernel's sweep and residual hold the stencil in
-    registers; its replay is the level's own stencil."""
+    which the kernel's sweep and residual hold in registers in its 9-offset
+    form; its replay is the level's own stencil."""
     kernel = galerkin_sampler.subtree
     rng = np.random.default_rng(6)
     for lv, tab in zip(kernel.levels, decode(kernel)):
@@ -312,15 +314,15 @@ def test_levels_take_the_register_stencil(galerkin_sampler):
 
 
 def box9_on(P):
-    """``box9(P).on`` of ``subtree_phases.cuh``."""
+    """Whether the stencil is the raster 3x3 box."""
     return P.K == 9 and all((P.dy[k], P.dx[k]) == (k // 3 - 1, k % 3 - 1) for k in range(9))
 
 
 def colour_sweep_replay(P, rows, coeffs, c, x):
-    """``sweep_colours<false>`` of ``subtree_phases.cuh``: per colour phase the
-    points of the rows ``colour_rows`` names, each updated from the field as
-    the phase found it (no point of a colour reads another), the stencil term
-    by term in offset order as ``stencil_at`` reads it."""
+    """``sweep_colours`` of ``level_passes.cuh``: per colour phase the points
+    of the rows ``colour_rows`` names, each updated from the field as the
+    phase found it (no point of a colour reads another), the stencil's terms
+    in offset order as ``stencil_at`` adds them."""
     H, W = x.shape
     K, s = P.n_colors, P.jstride
     x = x.copy()
@@ -344,10 +346,10 @@ def colour_sweep_replay(P, rows, coeffs, c, x):
 
 
 def test_other_stencils_take_the_generic_sweep_over_the_colour_rows():
-    """The caller's 5-point levels are not the 3x3 box, so the kernel's sweep
-    reads their stencil term by term over the same colour rows as the
-    register stencil; the replay of that sweep in both directions is the
-    plain sweep (float64)."""
+    """The caller's 5-point levels are not the 3x3 box; the kernel's sweep
+    holds their stencil in registers too (its 5-offset form) and runs over the
+    same colour rows; the replay of that sweep in both directions is the plain
+    sweep (float64)."""
     kernel = five_point_subtree().subtree
     rng = np.random.default_rng(8)
     for lv, off in zip(kernel.levels, kernel._table_offsets):
@@ -419,7 +421,7 @@ def test_tables_fit_the_card_at_the_most_lowrank_columns():
 
 
 def test_barrier_count_from_the_source(sampler):
-    """The barriers of a launch as ``subtree_phases.cuh`` places them: the
+    """The barriers of a launch as ``level_passes.cuh`` places them: the
     table copy, a descend n_order + 5, an ascend n_order + 3, a coarse sample
     2.  The flagship's three 4-colour sub-levels: 1 + 14 * 9 + 14 * 7 + 8 * 2;
     one 4-colour sub-level: 1 + 2 * 9 + 2 * 7 + 2 * 2; two red-black ones: 1 +

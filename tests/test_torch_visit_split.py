@@ -325,11 +325,15 @@ def test_drivers_levels_take_the_split_route(limit):
         assert mv.split_cluster(1, vshape, CPU, limit) == 16
         for C in (1, 4, mv.SPLIT_MAX_CHAINS):
             assert mv.visit_route(C, level.stream_bytes, CPU, limit, vshape) == "split"
-        for C in (mv.SPLIT_MAX_CHAINS + 1, 128, mv.STREAM_MIN_CHAINS - 1):
+        for C in (mv.SPLIT_MAX_CHAINS + 1, 128, 255):
             assert mv.visit_route(C, level.stream_bytes, CPU, limit, vshape) == "phase"
             assert mv.split_cluster(C, vshape, CPU, limit) is None
-    # 256 replica chains take the stream kernels where their rings fit
-    assert mv.visit_route(256, fine.stream_bytes, CPU, H100_SMEM, (255, 255)) == "stream"
+    # 256 replica chains: the stream kernels where their rings fit and the route
+    # has a stream threshold; the production route has none and takes the
+    # phase kernels
+    assert mv.visit_route(256, fine.stream_bytes, CPU, H100_SMEM, (255, 255),
+                          stream_min=256) == "stream"
+    assert mv.visit_route(256, fine.stream_bytes, CPU, H100_SMEM, (255, 255)) == "phase"
     # the level decides once per chain count, before any launch
     assert fine.route(1) == "split" and fine.split_cluster(1) == 16
     assert fine._routes[1] == ("split", 16)
@@ -356,7 +360,11 @@ def test_cluster_size_minimises_the_waves(monkeypatch, vshape, C, want):
         return ACTIVE[vshape][S]
 
     monkeypatch.setattr(ss, "active_clusters", active)
-    assert mv.split_cluster(C, vshape, "cuda", H100_SMEM) == want
+    # the rule's size at any count (capped=False); the route splits only up to
+    # SPLIT_MAX_CHAINS chains
+    assert mv.split_cluster(C, vshape, "cuda", H100_SMEM, capped=False) == want
+    assert mv.split_cluster(C, vshape, "cuda", H100_SMEM) == (
+        want if C <= mv.SPLIT_MAX_CHAINS else None)
     # both kernels are asked, through the split kernels' own entry point
     assert {a[0] for a in asked} == {0, 1}
     assert all(a[2] is mv._split_occupancy_query for a in asked)

@@ -277,12 +277,23 @@ def test_stream_visit_emulation_matches_interpreted_pallas_kernels(level_index):
 
 
 # ------------------------------------------------------------ (c) the route
+#: a stream threshold for the route's mechanics (the value the route had
+#: before the phase kernels ran the passes of level_passes.cuh; the
+#: production route has none, mv.STREAM_MIN_CHAINS)
+STREAM_MIN = 256
+
+
 def test_route_is_chosen_from_the_chain_count_alone():
     _, _, _, port = _jax_levels(0, True, torch.float32, 16)
-    for C in (1, 2, mv.SPLIT_MAX_CHAINS, mv.SPLIT_MAX_CHAINS + 1, mv.STREAM_MIN_CHAINS - 1,
-              mv.STREAM_MIN_CHAINS, 256, 1000):
-        want = "stream" if C >= mv.STREAM_MIN_CHAINS else "phase"
-        assert mv.visit_route(C, device=CPU) == want  # without a shape: never split
+    assert mv.STREAM_MIN_CHAINS is None  # the table supports no stream threshold
+    for C in (1, 2, mv.SPLIT_MAX_CHAINS, mv.SPLIT_MAX_CHAINS + 1, STREAM_MIN - 1,
+              STREAM_MIN, 256, 1000):
+        # with a threshold: the stream kernels from it on (without a shape: never split)
+        want = "stream" if C >= STREAM_MIN else "phase"
+        assert mv.visit_route(C, device=CPU, stream_min=STREAM_MIN) == want
+        # the production route: none
+        want = "phase"
+        assert mv.visit_route(C, device=CPU) == want
         if C <= mv.SPLIT_MAX_CHAINS:  # a 15^2 level: the split kernels' bands fit
             want = "split"
         assert port.route(C) == want  # a 15^2 level: the stream kernels' rings fit
@@ -340,9 +351,12 @@ def test_route_takes_the_phase_kernels_where_the_rings_do_not_fit(case):
               for ascend in (False, True))
     assert got == want_bytes
     assert (got + mv.STREAM_STATIC_SMEM <= mv.SMEM_PER_BLOCK_OPTIN) == (want_route == "stream")
-    assert mv.visit_route(256, got, smem_limit=mv.SMEM_PER_BLOCK_OPTIN) == want_route
-    assert mv.visit_route(mv.STREAM_MIN_CHAINS - 1, got,
-                          smem_limit=mv.SMEM_PER_BLOCK_OPTIN) == "phase"
+    assert mv.visit_route(256, got, smem_limit=mv.SMEM_PER_BLOCK_OPTIN,
+                          stream_min=STREAM_MIN) == want_route
+    assert mv.visit_route(STREAM_MIN - 1, got, smem_limit=mv.SMEM_PER_BLOCK_OPTIN,
+                          stream_min=STREAM_MIN) == "phase"
+    # the production route takes the stream kernels nowhere
+    assert mv.visit_route(256, got, smem_limit=mv.SMEM_PER_BLOCK_OPTIN) == "phase"
 
 
 def test_level_route_follows_its_layout():
@@ -355,11 +369,17 @@ def test_level_route_follows_its_layout():
     assert level.stream_bytes == mv.stream_smem_bytes(H, W, max(lags), 0, 256, True)
     assert level.stream_bytes + mv.STREAM_STATIC_SMEM > mv.SMEM_PER_BLOCK_OPTIN
     assert level.route(1) == "split"
-    for C in (mv.SPLIT_MAX_CHAINS + 1, mv.STREAM_MIN_CHAINS, 4 * mv.STREAM_MIN_CHAINS):
+    for C in (mv.SPLIT_MAX_CHAINS + 1, STREAM_MIN, 4 * STREAM_MIN):
         assert level.route(C) == "phase"
         assert isinstance(level._params(C, level.pre_order, False, 0, None), mv.VisitParams)
+        assert mv.visit_route(C, level.stream_bytes, CPU, mv.SMEM_PER_BLOCK_OPTIN,
+                              level.op.vshape, STREAM_MIN) == "phase"
+    # a narrow level's rings fit: with a threshold the stream kernels from it on,
+    # the production route takes the phase kernels
     narrow = _synthetic_level((1031, 9), OFFSETS5, seed=5)
-    assert narrow.route(mv.STREAM_MIN_CHAINS) == "stream"
+    assert mv.visit_route(STREAM_MIN, narrow.stream_bytes, CPU, mv.SMEM_PER_BLOCK_OPTIN,
+                          narrow.op.vshape, STREAM_MIN) == "stream"
+    assert narrow.route(STREAM_MIN) == "phase"
 
 
 def test_layout_mirror_constants_match_the_kernel_source():
