@@ -2759,14 +2759,14 @@ def main(argv=None) -> int:
 
     kernels = []
     # the visits at level 0, the shape that dominates each path, and their
-    # launches on the path of each route: the stream kernels in the flagship's
-    # steps with every level's visit fused (256 chains), the phase kernels in
-    # its distilled steps at PHASE_CHAINS chains, the split kernels in the
-    # one-chain MGMC series of drivers.mgmc
-    # (the route takes the stream kernels from STREAM_MIN_CHAINS on; where that
-    # is None, on no path: their row says so, with the launches of the
-    # 256-chain variant, 0, and the visits phase still holds them against
-    # their plain versions and the phase kernels)
+    # launches on the path of each route: the phase kernels in the flagship's
+    # distilled steps at PHASE_CHAINS chains (the 256-chain variants take them
+    # too: launches_by_variant), the split kernels in the one-chain MGMC series
+    # of drivers.mgmc, the stream kernels in the steps with every level's visit
+    # fused at 256 chains where the route takes them from STREAM_MIN_CHAINS on;
+    # where that is None, on no path: their row says so, with that variant's
+    # launches, 0, and the visits phase still holds them against their plain
+    # versions and the phase kernels
     stream_path = ("main_path all_levels_fused" if mv.STREAM_MIN_CHAINS is not None
                    else None)
     paths = {"phase": (f"main_path distilled_{PHASE_CHAINS}_chains",

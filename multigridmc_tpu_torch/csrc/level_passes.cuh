@@ -16,8 +16,9 @@
 // * One level's tables for one sweep direction (struct LevelTables: B_k
 //   inside its bounding box and Y_k inside its own, each box row major,
 //   column after column, and the boxes; W, G, 1/Sigma, Sigma^-1/2; the rows
-//   of each colour), made by the host.  Where they lie is a pointer: a block's shared memory
-//   where they fit, else the device tensor they were uploaded to.
+//   of each colour), made by the host.  Where they lie is a pointer: a
+//   block's shared memory where they fit, else the device tensor they were
+//   uploaded to.
 // * Each low-rank term is one pass: sum_k s_k B_k joins the rhs pass, sum_k
 //   t_k B_k the residual pass, and the Woodbury correction is one pass.  Every
 //   point has one owner thread, which adds the columns whose box holds it in
@@ -36,7 +37,8 @@
 //   once where the registers allow, so that several round trips to the L2 or
 //   to device memory are in flight; a neighbour outside the field is neither
 //   loaded nor added, and the terms are added in offset order, as stencil_at
-//   (visit_phases.cuh) adds them, so the two agree bitwise.
+//   (visit_phases.cuh) adds them, so the two agree bitwise.  The sweep and
+//   the residual are compiled per stencil form (STENCIL_DISPATCH).
 //
 // Barriers (block_sync; COUNT, a kernel's stamps build, counts them and, where
 // pass_stamp_row is set, stamps the timer after each): a descend has

@@ -36,7 +36,11 @@
 // Block size.  Chosen by the host from the chain count
 // (mgmc_visit.py::phase_threads): 1024 threads while the chains fit one wave
 // of one block per SM, 512 (two blocks per SM) above.  __launch_bounds__(1024)
-// caps a thread at 64 registers, what two blocks of 512 leave it too.
+// caps a thread at 64 registers, what two blocks of 512 leave it too.  One
+// kernel per stencil form (level_passes.cuh: 5-point, the raster 3x3 box, any
+// other of up to 9 offsets, each with or without coefficient planes), picked
+// by the host (mgmc_visit.py::stencil_form), so that each form's passes get
+// the registers to themselves.
 //
 // Bound: by bytes, per chain f (unless shared), x and x_c read and x and f_c
 // written once.  What the kernels pay on top of that is the passes' traffic
@@ -209,17 +213,19 @@ extern "C" int mgmc_visit_stencil_forms() { return STENCIL_FORMS; }
 
 // the largest static shared memory (bytes) of the kernels, or -1
 extern "C" int mgmc_visit_static_smem() {
-    int most = 0;
-    for (int k = 0; k < 4 * STENCIL_FORMS; ++k) {
-        cudaFuncAttributes a;
-        if (cudaFuncGetAttributes(&a, phase_kernel(k & 1, (k >> 2) % STENCIL_FORMS,
-                                                   (k >> 1) & 1)) != cudaSuccess) {
-            cudaGetLastError();
-            return -1;
-        }
-        most = a.sharedSizeBytes > (size_t)most ? (int)a.sharedSizeBytes : most;
-    }
-    return most;
+    size_t most = 0;
+    for (int form = 0; form < STENCIL_FORMS; ++form)
+        for (int descend = 0; descend < 2; ++descend)
+            for (int stamps = 0; stamps < 2; ++stamps) {
+                cudaFuncAttributes a;
+                if (cudaFuncGetAttributes(&a, phase_kernel(descend, form, stamps)) !=
+                    cudaSuccess) {
+                    cudaGetLastError();
+                    return -1;
+                }
+                most = a.sharedSizeBytes > most ? a.sharedSizeBytes : most;
+            }
+    return (int)most;
 }
 
 // registers per thread, local (spill) bytes per thread and static shared bytes

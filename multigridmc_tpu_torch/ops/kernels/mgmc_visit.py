@@ -774,6 +774,7 @@ class FusedVisitLevel:
         self.stream_threads = stream_threads(op.vshape[-1])
         self._params_cache = {}
         self._phase_cache = {}
+        self._phase_threads = {}
         self._stream_bytes = None
         self._routes = {}
         self._split_launches = {}
@@ -841,8 +842,12 @@ class FusedVisitLevel:
 
     def phase_threads(self, C: int) -> int:
         """Threads per block of this level's phase launches of ``C`` chains
-        (:func:`phase_threads` on the card's SM count)."""
-        return phase_threads(C, int(np.prod(self.op.vshape)), sm_count(self.op.device))
+        (:func:`phase_threads` on the card's SM count), decided once per chain
+        count."""
+        if C not in self._phase_threads:
+            self._phase_threads[C] = phase_threads(C, int(np.prod(self.op.vshape)),
+                                                   sm_count(self.op.device))
+        return self._phase_threads[C]
 
     def phase_launch(self, order, descend: bool, threads: int):
         """``(tables, PhaseTables, dynamic shared bytes)`` of a phase launch in
