@@ -240,8 +240,9 @@ def phase_build():
     from multigridmc_tpu_torch.ops.kernels import common, mgmc_subtree, mgmc_visit, sor_sweep
 
     t0 = time.perf_counter()
-    paths = common.build_libraries(common.SOURCES)
+    paths = common.build_libraries(common.BUILDS)
     mgmc_visit.load_library()
+    mgmc_visit.load_library(stamps=True)
     mgmc_visit.load_stream_library()
     mgmc_visit.load_split_library()
     sor_sweep.load_library()
@@ -249,8 +250,9 @@ def phase_build():
     mgmc_subtree.load_library()
     common.load_probe_library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": {f"multigridmc_tpu_torch/csrc/{name}.cu": path.name
-                        for name, path in paths.items()}})
+          "libraries": {(f"multigridmc_tpu_torch/csrc/{item}.cu" if isinstance(item, str) else
+                         f"multigridmc_tpu_torch/csrc/{item[0]}.cu {' '.join(item[1])}"): path.name
+                        for item, path in paths.items()}})
 
 
 # -------------------------------------------------------------- phase: kernels

@@ -57,10 +57,10 @@
 // Sigma^-1/2 (xilr).  No atomics and a fixed reduction tree, so two launches
 // with the same seed and counter are bitwise equal.
 //
-// STAMPS: the measurement build, taken only where the host passes a stamps
-// tensor, (C, PHASE_STAMP_WIDTH) int64: per block the timer (ns) at entry and
-// after each barrier (one per pass), at exit, then the barriers passed and the
-// SM it ran on.
+// STAMPS: the measurement build, a library of its own (PHASE_STAMPS_BUILD),
+// taken only where the host passes a stamps tensor, (C, PHASE_STAMP_WIDTH)
+// int64: per block the timer (ns) at entry and after each barrier (one per
+// pass), at exit, then the barriers passed and the SM it ran on.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,6 +68,13 @@
 #include "level_passes.cuh"
 
 #define PHASE_STAMP_WIDTH (1 + MAX_COLORS + 5 + 3)
+
+// 1: this library is the stamps build (mgmc_visit.py builds the source a
+// second time with -DPHASE_STAMPS_BUILD=1, beside the production library, so
+// that each holds the kernels of one build)
+#ifndef PHASE_STAMPS_BUILD
+#define PHASE_STAMPS_BUILD 0
+#endif
 
 // Word offsets of one level's tables for one sweep direction
 // (mgmc_visit.py::phase_tables).
@@ -181,11 +188,12 @@ ascend_kernel(const __grid_constant__ VisitParams P, const __grid_constant__ Pha
     phase_exit<STAMPS>(srow);
 }
 
-// the kernel of a stencil form, a direction and a build; null for another form
-template <bool STAMPS>
-static const void* form_kernel(int descend, int form) {
+// the kernel of a direction and a stencil form in this library's build; null
+// for another form
+static const void* phase_kernel(int descend, int form) {
+    constexpr bool S = PHASE_STAMPS_BUILD;
 #define FORM_KERNEL(F) \
-    (descend ? (const void*)descend_kernel<F, STAMPS> : (const void*)ascend_kernel<F, STAMPS>)
+    (descend ? (const void*)descend_kernel<F, S> : (const void*)ascend_kernel<F, S>)
     switch (form) {
         case 0: return FORM_KERNEL(0);
         case 1: return FORM_KERNEL(1);
@@ -198,10 +206,6 @@ static const void* form_kernel(int descend, int form) {
 #undef FORM_KERNEL
 }
 
-static const void* phase_kernel(int descend, int form, bool stamps) {
-    return stamps ? form_kernel<true>(descend, form) : form_kernel<false>(descend, form);
-}
-
 // ------------------------------------------------------------ C entry points
 extern "C" int mgmc_visit_params_size() { return (int)sizeof(VisitParams); }
 
@@ -211,28 +215,28 @@ extern "C" int mgmc_visit_stamp_width() { return PHASE_STAMP_WIDTH; }
 
 extern "C" int mgmc_visit_stencil_forms() { return STENCIL_FORMS; }
 
-// the largest static shared memory (bytes) of the kernels, or -1
+extern "C" int mgmc_visit_stamps_build() { return PHASE_STAMPS_BUILD; }
+
+// the largest static shared memory (bytes) of the library's kernels, or -1
 extern "C" int mgmc_visit_static_smem() {
     size_t most = 0;
     for (int form = 0; form < STENCIL_FORMS; ++form)
-        for (int descend = 0; descend < 2; ++descend)
-            for (int stamps = 0; stamps < 2; ++stamps) {
-                cudaFuncAttributes a;
-                if (cudaFuncGetAttributes(&a, phase_kernel(descend, form, stamps)) !=
-                    cudaSuccess) {
-                    cudaGetLastError();
-                    return -1;
-                }
-                most = a.sharedSizeBytes > most ? a.sharedSizeBytes : most;
+        for (int descend = 0; descend < 2; ++descend) {
+            cudaFuncAttributes a;
+            if (cudaFuncGetAttributes(&a, phase_kernel(descend, form)) != cudaSuccess) {
+                cudaGetLastError();
+                return -1;
             }
+            most = a.sharedSizeBytes > most ? a.sharedSizeBytes : most;
+        }
     return (int)most;
 }
 
 // registers per thread, local (spill) bytes per thread and static shared bytes
-// of the production kernel of `descend` (1) or the ascend (0) and a stencil
-// form; 0 or an error
+// of the kernel of `descend` (1) or the ascend (0) and a stencil form; 0 or an
+// error
 extern "C" int mgmc_visit_kernel_attributes(int descend, int form, int* out) {
-    const void* fn = phase_kernel(descend, form, false);
+    const void* fn = phase_kernel(descend, form);
     if (fn == nullptr) return (int)cudaErrorInvalidValue;
     cudaFuncAttributes a;
     cudaError_t e = cudaFuncGetAttributes(&a, fn);
@@ -247,9 +251,9 @@ extern "C" int mgmc_visit_kernel_attributes(int descend, int form, int* out) {
 }
 
 // blocks of `threads` with `smem_bytes` of dynamic shared memory that one SM
-// holds at once (the production kernel of a direction and a form), or -1
+// holds at once (the kernel of a direction and a form), or -1
 extern "C" int mgmc_visit_blocks_per_sm(int descend, int form, int threads, int smem_bytes) {
-    const void* fn = phase_kernel(descend, form, false);
+    const void* fn = phase_kernel(descend, form);
     if (fn == nullptr) return -1;
     if (smem_bytes > 48 * 1024 &&
         cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes) !=
@@ -266,11 +270,12 @@ extern "C" int mgmc_visit_blocks_per_sm(int descend, int form, int threads, int 
     return blocks;
 }
 
-// one launch of the kernel of (descend, form, build) with the arguments args
+// one launch of the kernel of (descend, form) with the arguments args; a
+// stamps tensor goes to the stamps build only
 static int launch(int descend, int form, bool stamps, int C, int threads, int smem_bytes,
                   void** args, void* stream) {
-    const void* fn = phase_kernel(descend, form, stamps);
-    if (fn == nullptr) return (int)cudaErrorInvalidValue;
+    const void* fn = phase_kernel(descend, form);
+    if (fn == nullptr || stamps != (bool)PHASE_STAMPS_BUILD) return (int)cudaErrorInvalidValue;
     if (smem_bytes > 48 * 1024) {  // above what needs no opt-in
         cudaError_t e =
             cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);

@@ -43,13 +43,22 @@ BUILD_DIR = _PACKAGE_DIR / "build"
 #: headers under ``csrc/`` that the kernel sources include
 HEADERS = ("philox.cuh", "visit_phases.cuh", "level_passes.cuh", "sor_sweep.cuh")
 
-#: every kernel source under ``csrc/`` (``<name>.cu``); :func:`build_libraries`
-#: compiles them in parallel
+#: every kernel source under ``csrc/`` (``<name>.cu``)
 SOURCES = ("mgmc_visit", "mgmc_visit_stream", "mgmc_visit_split", "sor_sweep",
            "sor_sweep_cluster", "mgmc_subtree", "smem_probe")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+
+#: the flags of the phase visit kernels' stamps build, a second library of
+#: ``csrc/mgmc_visit.cu`` (a measurement aid; production launches take the
+#: first)
+PHASE_STAMPS_FLAGS = ("-DPHASE_STAMPS_BUILD=1",)
+
+#: every library the port builds: each source of :data:`SOURCES`, and
+#: ``mgmc_visit`` once more as the stamps build; :func:`build_libraries`
+#: compiles them in parallel
+BUILDS = SOURCES + (("mgmc_visit", PHASE_STAMPS_FLAGS),)
 
 
 # ------------------------------------------------------------------- the build
@@ -80,18 +89,21 @@ def library_path(name: str, extra_flags: Tuple[str, ...] = ()) -> Path:
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 
-def build_libraries(names: Iterable[str], extra_flags: Tuple[str, ...] = ()) -> Dict[str, Path]:
-    """Compile the named sources, one ``nvcc`` process each, all started
-    together; returns ``{name: library path}``.  Raises when the compiler is
-    missing or any build fails."""
+def build_libraries(builds: Iterable, extra_flags: Tuple[str, ...] = ()) -> Dict:
+    """Compile the given sources, one ``nvcc`` process each, all started
+    together: each item a source's name, or ``(name, flags)`` for a source
+    compiled with flags of its own as well (:data:`BUILDS`); returns ``{item:
+    library path}``.  Raises when the compiler is missing or any build fails."""
     jobs, paths = [], {}
-    for name in names:
-        out = paths[name] = library_path(name, extra_flags)
+    for item in builds:
+        name, flags = (item, ()) if isinstance(item, str) else item
+        flags = tuple(extra_flags) + tuple(flags)
+        out = paths[item] = library_path(name, flags)
         if out.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(source_path(name))]
+        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(source_path(name))]
         jobs.append((cmd, tmp, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failures = []
@@ -112,10 +124,11 @@ def build_library(name: str, extra_flags: Tuple[str, ...] = ()) -> Path:
 
 
 @functools.lru_cache(maxsize=None)
-def open_library(name: str) -> ctypes.CDLL:
-    """Build (at first use) and load the shared library of ``csrc/<name>.cu``.
-    The caller sets the argument types of the entry points it uses."""
-    return ctypes.CDLL(str(build_library(name)))
+def open_library(name: str, extra_flags: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Build (at first use) and load the shared library of ``csrc/<name>.cu``
+    compiled with ``extra_flags``.  The caller sets the argument types of the
+    entry points it uses."""
+    return ctypes.CDLL(str(build_library(name, extra_flags)))
 
 
 def default_threads(n: int) -> int:

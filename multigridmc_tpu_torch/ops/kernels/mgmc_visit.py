@@ -106,8 +106,9 @@ from ...smoothers import sor_sweep, woodbury_factors
 from ..intergrid import prolongate_add, restrict
 from ..stencil import StencilOperator
 from . import sor_sweep as ss
-from .common import (compress_plan, default_threads, dynamic_smem_limit,  # noqa: F401
-                     open_library, philox_normals_reference, sm_count, support_boxes)
+from .common import (PHASE_STAMPS_FLAGS, compress_plan, default_threads,  # noqa: F401
+                     dynamic_smem_limit, open_library, philox_normals_reference, sm_count,
+                     support_boxes)
 from .common import tensor_ptr as _ptr
 
 MAX_OFFSETS = 9
@@ -618,9 +619,14 @@ def wavefront_lags(offsets, weights, n_colors: int, order) -> Tuple[int, ...]:
 
 # ------------------------------------------------------------------- the build
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernels' shared library."""
-    lib = open_library(SOURCE_NAME)
+def load_library(stamps: bool = False) -> ctypes.CDLL:
+    """Build (at first use) and load the phase kernels' shared library, or
+    with ``stamps`` their stamps build (``common.PHASE_STAMPS_FLAGS``)."""
+    lib = open_library(SOURCE_NAME, PHASE_STAMPS_FLAGS if stamps else ())
+    lib.mgmc_visit_stamps_build.argtypes = []
+    lib.mgmc_visit_stamps_build.restype = ctypes.c_int
+    if lib.mgmc_visit_stamps_build() != int(stamps):
+        raise RuntimeError("the phase kernels' library is not the build asked for")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mgmc_visit_params_size.argtypes = []
     lib.mgmc_visit_params_size.restype = i32
@@ -1111,7 +1117,7 @@ def launch_descend(level: FusedVisitLevel, route: str, f, x, xi=None, xi_lr=None
             threads = level.phase_threads(C) if threads is None else int(threads)
             tables, L, smem = level.phase_launch(level.pre_order, True, threads)
             scratch = torch.empty_like(x)
-            err = load_library().mgmc_descend_visit(
+            err = load_library(stamps is not None).mgmc_descend_visit(
                 ctypes.byref(P), ctypes.byref(L), tables.data_ptr(), x.data_ptr(), f.data_ptr(),
                 scratch.data_ptr(), fc.data_ptr(), level.coeffs.data_ptr(),
                 level.noise_scale.data_ptr(), _ptr(xi_lr), _ptr(xi), level.stencil_form,
@@ -1150,7 +1156,7 @@ def launch_ascend(level: FusedVisitLevel, route: str, f, x, x_coarse, xi=None, x
             threads = level.phase_threads(C) if threads is None else int(threads)
             tables, L, smem = level.phase_launch(level.post_order, False, threads)
             scratch = torch.empty_like(x) if noise_mode else x  # unused without noise
-            err = load_library().mgmc_ascend_visit(
+            err = load_library(stamps is not None).mgmc_ascend_visit(
                 ctypes.byref(P), ctypes.byref(L), tables.data_ptr(), x.data_ptr(), f.data_ptr(),
                 scratch.data_ptr(), x_coarse.data_ptr(), level.coeffs.data_ptr(),
                 level.noise_scale.data_ptr(), _ptr(xi_lr), _ptr(xi), level.stencil_form,

@@ -533,3 +533,18 @@ def test_rhs_stores_staged_span_by_span(vshape):
                 assert np.array_equal(stage[:n], np.arange(p0, p0 + n))
                 written[p0:p0 + n] += 1
         assert (written == 1).all()
+
+
+def test_the_stamps_build_is_a_library_of_its_own():
+    """The phase kernels' stamps build is ``csrc/mgmc_visit.cu`` compiled once
+    more with ``PHASE_STAMPS_BUILD`` set, a library beside the production one
+    (each holds one build's kernels, so each compiles in about half the
+    time, in parallel with the other sources); a launch with stamps takes it."""
+    assert common.BUILDS == common.SOURCES + (("mgmc_visit", common.PHASE_STAMPS_FLAGS),)
+    assert common.PHASE_STAMPS_FLAGS == ("-DPHASE_STAMPS_BUILD=1",)
+    production = common.library_path("mgmc_visit")
+    stamps = common.library_path("mgmc_visit", common.PHASE_STAMPS_FLAGS)
+    assert production != stamps and production.parent == stamps.parent == common.BUILD_DIR
+    src = common.source_path("mgmc_visit").read_text()
+    assert "#ifndef PHASE_STAMPS_BUILD\n#define PHASE_STAMPS_BUILD 0" in src
+    assert "stamps != (bool)PHASE_STAMPS_BUILD" in src
