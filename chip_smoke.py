@@ -2877,8 +2877,9 @@ def main(argv=None) -> int:
         "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "bound_bytes": t["bound_bytes"],
         "library_ms": None, "shape": {"chains": t["chains"], "vshape": t["vshape"]},
-        "design": "launch tables in shared memory, each low-rank term in one pass, the 3x3 "
-                  "stencil in registers, each colour's rows over all warps",
+        "design": "launch tables in shared memory; the passes of level_passes.cuh shared "
+                  "with the phase visit kernels: each low-rank term in one pass, every "
+                  "reach-1 stencil in registers, each colour's rows over all warps",
         "barriers_per_launch": t["per_operation"]["barriers_per_block"][0],
         "blocks_per_sm": t["per_operation"]["blocks_per_sm"],
         "per_operation_us": {key: v["total_us"]
