@@ -167,11 +167,11 @@ BLOCK_RESERVED_BYTES = 1024
 #: ======  =========================  =========================
 #: chains  255^2                      127^2
 #: ======  =========================  =========================
-#:     64  0.5382 / 0.3298 / 0.2657   0.1486 / 0.0988 / 0.0839
-#:    128  0.6563 / 0.4199 / 0.3442   0.1493 / 0.1000 / 0.0850
-#:    132  0.6604 / 0.4244 / 0.3491   0.1489 / 0.0992 / 0.0846
-#:    200  0.7769 / 0.6007 / 0.6108   0.2030 / 0.1654 / 0.1680
-#:    256  0.8275 / 0.6551 / 0.6745   0.2176 / 0.1709 / 0.1729
+#:     64  0.5125 / 0.3231 / 0.2621   0.1343 / 0.0921 / 0.0790
+#:    128  0.6587 / 0.4248 / 0.3356   0.1371 / 0.0933 / 0.0799
+#:    132  0.6580 / 0.4203 / 0.3413   0.1380 / 0.0929 / 0.0806
+#:    200  0.7622 / 0.5857 / 0.5952   0.1885 / 0.1572 / 0.1578
+#:    256  0.8054 / 0.6287 / 0.6602   0.2039 / 0.1603 / 0.1633
 #: ======  =========================  =========================
 #:
 #: 1024 is fastest up to 132 chains, 512 at 200 and 256, on both levels.
