@@ -57,7 +57,8 @@ PHASE_STAMPS_FLAGS = ("-DPHASE_STAMPS_BUILD=1",)
 
 #: every library the port builds: each source of :data:`SOURCES`, and
 #: ``mgmc_visit`` once more as the stamps build; :func:`build_libraries`
-#: compiles them in parallel
+#: compiles them in parallel (``chip_smoke.py`` checks the stamps by default,
+#: and beside the first ``mgmc_visit`` their build adds no wall time)
 BUILDS = SOURCES + (("mgmc_visit", PHASE_STAMPS_FLAGS),)
 
 

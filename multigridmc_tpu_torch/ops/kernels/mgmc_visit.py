@@ -452,10 +452,9 @@ def phase_barrier_count(level: "FusedVisitLevel", kind: str) -> int:
 
 
 def visit_route(C: int, stream_bytes: int = 0, device=None,
-                smem_limit: Optional[int] = None, vshape=None,
-                stream_min: Optional[int] = STREAM_MIN_CHAINS) -> str:
+                smem_limit: Optional[int] = None, vshape=None) -> str:
     """The kernel a visit of ``C`` chains launches: ``"stream"`` from
-    ``stream_min`` chains on (:data:`STREAM_MIN_CHAINS`; ``None``: never) where
+    :data:`STREAM_MIN_CHAINS` chains on (``None``: never) where
     the stream kernels' shared memory (``stream_bytes``,
     :func:`stream_smem_bytes`) fits a block; ``"split"`` for a level of shape
     ``vshape`` where :func:`split_cluster` finds a cluster size (at most
@@ -466,7 +465,7 @@ def visit_route(C: int, stream_bytes: int = 0, device=None,
     is known before any launch."""
     if smem_limit is None:
         smem_limit = dynamic_smem_limit(device)
-    if (stream_min is not None and C >= stream_min
+    if (STREAM_MIN_CHAINS is not None and C >= STREAM_MIN_CHAINS
             and stream_bytes + STREAM_STATIC_SMEM <= smem_limit):
         return "stream"
     if vshape is not None and split_cluster(C, vshape, device, smem_limit) is not None:

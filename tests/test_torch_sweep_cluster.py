@@ -25,7 +25,6 @@ the CPU, where it cannot run: a plain PyTorch emulation of its schedule, against
 against each other on the card.
 """
 
-import functools
 import re
 from pathlib import Path
 
@@ -343,17 +342,19 @@ def test_kernels_philox_key_is_not_the_seed():
 
 # ------------------------------------------------- (d) the visit route's limit
 @pytest.mark.parametrize("limit", [48 * 1024, 100 * 1024, H100_SMEM])
-def test_visit_route_compares_with_the_granted_shared_memory(limit):
-    # the flagship's 255^2 stream launch needs 75,212 B plus the static part:
-    # it takes the stream kernels only where a block is granted that much
-    # (with a stream threshold of 256 chains; the production route has none)
-    need = 75212 + mv.STREAM_STATIC_SMEM
-    route = functools.partial(mv.visit_route, stream_min=256)
-    assert route(256, 75212, smem_limit=limit) == ("stream" if need <= limit else "phase")
-    assert route(256, limit - mv.STREAM_STATIC_SMEM, smem_limit=limit) == "stream"
-    assert route(256, limit - mv.STREAM_STATIC_SMEM + 4, smem_limit=limit) == "phase"
-    assert route(255, 0, smem_limit=limit) == "phase"
+def test_visit_route_compares_with_the_granted_shared_memory(monkeypatch, limit):
+    # the production route has no stream threshold: the phase kernels
     assert mv.visit_route(256, 0, smem_limit=limit) == "phase"
+    # the flagship's 255^2 stream launch needs 75,212 B plus the static part:
+    # with a stream threshold of 256 chains it takes the stream kernels only
+    # where a block is granted that much
+    monkeypatch.setattr(mv, "STREAM_MIN_CHAINS", 256)
+    need = 75212 + mv.STREAM_STATIC_SMEM
+    assert mv.visit_route(256, 75212, smem_limit=limit) == (
+        "stream" if need <= limit else "phase")
+    assert mv.visit_route(256, limit - mv.STREAM_STATIC_SMEM, smem_limit=limit) == "stream"
+    assert mv.visit_route(256, limit - mv.STREAM_STATIC_SMEM + 4, smem_limit=limit) == "phase"
+    assert mv.visit_route(mv.STREAM_MIN_CHAINS - 1, 0, smem_limit=limit) == "phase"
     # without a limit the route asks the device: on the CPU its default, 48 KiB
-    assert route(256, 75212, device=CPU) == "phase"
-    assert route(256, 40000, device=CPU) == "stream"
+    assert mv.visit_route(256, 75212, device=CPU) == "phase"
+    assert mv.visit_route(256, 40000, device=CPU) == "stream"

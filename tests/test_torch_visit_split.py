@@ -314,7 +314,7 @@ def _driver_levels():
 
 
 @pytest.mark.parametrize("limit", [None, H100_SMEM])
-def test_drivers_levels_take_the_split_route(limit):
+def test_drivers_levels_take_the_split_route(monkeypatch, limit):
     fine, coarse = _driver_levels()
     assert (fine.op.vshape, coarse.op.vshape) == ((255, 255), (127, 127))
     for level in (fine, coarse):
@@ -331,8 +331,9 @@ def test_drivers_levels_take_the_split_route(limit):
     # 256 replica chains: the stream kernels where their rings fit and the route
     # has a stream threshold; the production route has none and takes the
     # phase kernels
-    assert mv.visit_route(256, fine.stream_bytes, CPU, H100_SMEM, (255, 255),
-                          stream_min=256) == "stream"
+    with monkeypatch.context() as m:
+        m.setattr(mv, "STREAM_MIN_CHAINS", 256)
+        assert mv.visit_route(256, fine.stream_bytes, CPU, H100_SMEM, (255, 255)) == "stream"
     assert mv.visit_route(256, fine.stream_bytes, CPU, H100_SMEM, (255, 255)) == "phase"
     # the level decides once per chain count, before any launch
     assert fine.route(1) == "split" and fine.split_cluster(1) == 16

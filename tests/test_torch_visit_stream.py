@@ -283,14 +283,16 @@ def test_stream_visit_emulation_matches_interpreted_pallas_kernels(level_index):
 STREAM_MIN = 256
 
 
-def test_route_is_chosen_from_the_chain_count_alone():
+def test_route_is_chosen_from_the_chain_count_alone(monkeypatch):
     _, _, _, port = _jax_levels(0, True, torch.float32, 16)
     assert mv.STREAM_MIN_CHAINS is None  # the table supports no stream threshold
     for C in (1, 2, mv.SPLIT_MAX_CHAINS, mv.SPLIT_MAX_CHAINS + 1, STREAM_MIN - 1,
               STREAM_MIN, 256, 1000):
         # with a threshold: the stream kernels from it on (without a shape: never split)
-        want = "stream" if C >= STREAM_MIN else "phase"
-        assert mv.visit_route(C, device=CPU, stream_min=STREAM_MIN) == want
+        with monkeypatch.context() as m:
+            m.setattr(mv, "STREAM_MIN_CHAINS", STREAM_MIN)
+            want = "stream" if C >= STREAM_MIN else "phase"
+            assert mv.visit_route(C, device=CPU) == want
         # the production route: none
         want = "phase"
         assert mv.visit_route(C, device=CPU) == want
@@ -342,7 +344,7 @@ LAYOUT_CASES = {
 
 
 @pytest.mark.parametrize("case", list(LAYOUT_CASES))
-def test_route_takes_the_phase_kernels_where_the_rings_do_not_fit(case):
+def test_route_takes_the_phase_kernels_where_the_rings_do_not_fit(monkeypatch, case):
     vshape, offsets, (weights, K), want_bytes, want_route = LAYOUT_CASES[case]
     order = tuple(range(K))
     lags = mv.wavefront_lags(offsets, weights, K, order)
@@ -351,15 +353,14 @@ def test_route_takes_the_phase_kernels_where_the_rings_do_not_fit(case):
               for ascend in (False, True))
     assert got == want_bytes
     assert (got + mv.STREAM_STATIC_SMEM <= mv.SMEM_PER_BLOCK_OPTIN) == (want_route == "stream")
-    assert mv.visit_route(256, got, smem_limit=mv.SMEM_PER_BLOCK_OPTIN,
-                          stream_min=STREAM_MIN) == want_route
-    assert mv.visit_route(STREAM_MIN - 1, got, smem_limit=mv.SMEM_PER_BLOCK_OPTIN,
-                          stream_min=STREAM_MIN) == "phase"
     # the production route takes the stream kernels nowhere
     assert mv.visit_route(256, got, smem_limit=mv.SMEM_PER_BLOCK_OPTIN) == "phase"
+    monkeypatch.setattr(mv, "STREAM_MIN_CHAINS", STREAM_MIN)
+    assert mv.visit_route(256, got, smem_limit=mv.SMEM_PER_BLOCK_OPTIN) == want_route
+    assert mv.visit_route(STREAM_MIN - 1, got, smem_limit=mv.SMEM_PER_BLOCK_OPTIN) == "phase"
 
 
-def test_level_route_follows_its_layout():
+def test_level_route_follows_its_layout(monkeypatch):
     # a level's route takes its own shape: a wide synthetic level (no
     # measurements) takes the phase kernels at any chain count above the split
     # kernels' (whose bands of two rows fit it)
@@ -372,14 +373,16 @@ def test_level_route_follows_its_layout():
     for C in (mv.SPLIT_MAX_CHAINS + 1, STREAM_MIN, 4 * STREAM_MIN):
         assert level.route(C) == "phase"
         assert isinstance(level._params(C, level.pre_order, False, 0, None), mv.VisitParams)
-        assert mv.visit_route(C, level.stream_bytes, CPU, mv.SMEM_PER_BLOCK_OPTIN,
-                              level.op.vshape, STREAM_MIN) == "phase"
-    # a narrow level's rings fit: with a threshold the stream kernels from it on,
-    # the production route takes the phase kernels
+    # a narrow level's rings fit: the production route takes the phase kernels,
+    # with a threshold the stream kernels from it on
     narrow = _synthetic_level((1031, 9), OFFSETS5, seed=5)
-    assert mv.visit_route(STREAM_MIN, narrow.stream_bytes, CPU, mv.SMEM_PER_BLOCK_OPTIN,
-                          narrow.op.vshape, STREAM_MIN) == "stream"
     assert narrow.route(STREAM_MIN) == "phase"
+    monkeypatch.setattr(mv, "STREAM_MIN_CHAINS", STREAM_MIN)
+    for C in (mv.SPLIT_MAX_CHAINS + 1, STREAM_MIN, 4 * STREAM_MIN):
+        assert mv.visit_route(C, level.stream_bytes, CPU, mv.SMEM_PER_BLOCK_OPTIN,
+                              level.op.vshape) == "phase"
+    assert mv.visit_route(STREAM_MIN, narrow.stream_bytes, CPU, mv.SMEM_PER_BLOCK_OPTIN,
+                          narrow.op.vshape) == "stream"
 
 
 def test_layout_mirror_constants_match_the_kernel_source():
