@@ -36,14 +36,23 @@ card and checks, one phase after the other:
                    (the split kernels up to 132 chains at every cluster size
                    that fits) and at 132 .. 512 on the 511^2 and 255^2 levels
                    of a 512x512 lattice (the ``visit_routes`` line, which must
-                   support the chain counts up to which the split kernels and
-                   from which the stream kernels run), the
+                   support the chain count up to which the split kernels run
+                   and, level by level, the one from which the stream kernels
+                   run), the
                    two sweep kernels of both routes (one block per chain, and
                    each chain split over a thread-block cluster) in both
                    directions on 2d 5- and 9-point, 3d 7- and 27-point,
-                   space-varying and reach-2 operators, the split route at one
+                   space-varying and reach-2 operators (the one-block route's
+                   passes body also with in-kernel noise against the host's
+                   reference normals, and against its generic body, ``1e-6``),
+                   the split route at one
                    chain and at a few and against the one-block route under one
-                   Philox stream (``1e-6``) - the in-kernel Philox normals
+                   Philox stream (``1e-6``), the one-block kernels' launch by
+                   pass from their stamps builds before (generic body) and
+                   after (passes body) on the 256-chain cases and the
+                   distillation set-up's shapes, the passes body's registers
+                   and its block-size table (which must support the rule) -
+                   the in-kernel Philox normals
                    (known-answer reference through every route, moments, lag
                    correlations, distinct streams, and whether they are torch's
                    own normals of the same seed), the split layout's host mirror,
@@ -98,10 +107,14 @@ plain version's time and its bound.  The last line is
 is not 0.  Without a CUDA device the script exits with code 1 and prints no
 result.  ``--phases`` runs a subset of the phases (``threads``: the visit
 kernels' block-size table; ``passes``: the phase kernels' checks and their
-breakdown by pass alone; ``compare``: the phase kernels' times and the main
-path, which a parent tree runs too; ``new``: the third slice's kernels alone;
-``visits``: the visit kernels of the three routes alone; ``sweeps``: the sweep
-kernels of both routes alone) and prints no result line.
+breakdown by pass alone; ``compare``: the phase kernels' and the one-block
+sweeps' times and the main path, which a parent tree runs too; ``new``: the
+third slice's kernels alone; ``visits``: the visit kernels of the three routes
+alone; ``sweeps``: the sweep kernels of both routes alone; ``sweep_check``:
+the one-block sweeps against their plain versions alone; ``sweep_stamps``: the
+generic one-block sweeps by pass, with ``sweep_passes`` the passes body too;
+``sweep_threads``: the passes body's block-size table) and prints no result
+line.
 """
 
 from __future__ import annotations
@@ -247,6 +260,10 @@ def phase_build():
     mgmc_visit.load_split_library()
     sor_sweep.load_library()
     sor_sweep.load_split_library()
+    if hasattr(sor_sweep, "load_passes_library"):  # (a parent tree of --phases compare lacks it)
+        sor_sweep.load_library(stamps=True)
+        sor_sweep.load_passes_library()
+        sor_sweep.load_passes_library(stamps=True)
     mgmc_subtree.load_library()
     common.load_probe_library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -405,6 +422,15 @@ def device_ms_retried(fn, kernel, launches=10):
     return None
 
 
+def device_ms_median(fn, kernel, launches=10, windows=3):
+    """The median over ``windows`` profiler windows of
+    :func:`device_ms_retried`: a table whose constants a run must support
+    takes it, so that one window the card ran slower in (a clock change)
+    does not decide; None where a window showed no such kernel."""
+    times = [device_ms_retried(fn, kernel, launches) for _ in range(windows)]
+    return None if None in times else float(np.median(times))
+
+
 def time_level(level, C, f_batched, noise, plain=True, routes=("phase", "stream")):
     """ms per launch of the visit kernels of ``routes`` (in-kernel noise on, as
     the main path runs them): CUDA events around back-to-back launches
@@ -458,10 +484,11 @@ def time_routes(levels, wide_levels, noise, smi):
     count of :data:`SPLIT_ROUTE_CHAINS` and every cluster size that fits and
     schedules.
 
-    The table supports the code's constants when (1) ``STREAM_MIN_CHAINS`` is
-    the least measured chain count from which on the stream kernels are faster
-    than the phase kernels at every larger count on every level, or ``None``
-    where no measured count is one (the route then takes them nowhere), (2)
+    The table supports the code's constants when (1) for every level it times
+    the threshold of its shape and stencil form (``STREAM_MIN_CHAINS``,
+    ``mgmc_visit.stream_min_chains``) is the least measured chain count from
+    which on the stream kernels are faster than the phase kernels at every
+    larger count on that level, or none where no measured count is one, (2)
     ``SPLIT_MAX_CHAINS`` is the largest count of :data:`SPLIT_ROUTE_CHAINS` up
     to which the split kernels at the rule's cluster size take less than
     :data:`SPLIT_CLEAR_WIN` of the phase kernels' time on both levels, and (3)
@@ -473,7 +500,7 @@ def time_routes(levels, wide_levels, noise, smi):
 
     limit = mv.dynamic_smem_limit()
     rows, faults = [], []
-    stream_wins, split_wins = {}, {}
+    stream_wins, split_wins, thresholds = {}, {}, {}
     cases = [(f"L{li}", levels[li], ROUTE_CHAINS) for li in (0, 1)]
     cases += [(f"wide L{li}", wide_levels[li], WIDE_ROUTE_CHAINS) for li in (0, 1)]
     for name, level, chains in cases:
@@ -493,8 +520,9 @@ def time_routes(levels, wide_levels, noise, smi):
                          for kernel, fn in zip(VISIT_KERNELS[route], fns)]
                 return None if None in times else times
 
-            row = {"level": name, "vshape": [H, W], "chains": C,
-                   "stream_smem_bytes": level.stream_bytes, "route": level.route(C)}
+            row = {"level": name, "vshape": [H, W], "stencil_form": level.stencil_form,
+                   "chains": C, "stream_smem_bytes": level.stream_bytes,
+                   "route": level.route(C)}
             for kind in ("descend", "ascend"):
                 bound, by, _ = visit_bound(level, C, f_batched, kind)
                 row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound, by
@@ -532,25 +560,30 @@ def time_routes(levels, wide_levels, noise, smi):
                                   f"{pair['split']} ms, S={row['best_cluster']} {best}, "
                                   f"the phase kernels {pair['phase']}")
             rows.append(row)
-    supported = None
-    for C in sorted(ROUTE_CHAINS, reverse=True):
-        if not all(w for (_, c), w in stream_wins.items() if c >= C):
-            break
-        supported = C
+    for name, level, chains in cases:  # per level: from which count on the stream kernels win
+        supported = None
+        for C in sorted(chains, reverse=True):
+            if not all(w for (lv, c), w in stream_wins.items() if lv == name and c >= C):
+                break
+            supported = C
+        constant = mv.stream_min_chains(level.op.vshape, level.stencil_form)
+        thresholds[name] = {"vshape": list(level.op.vshape), "stencil_form": level.stencil_form,
+                            "measured": supported, "constant": constant}
+        if supported != constant:
+            faults.append(f"{name}: the table supports a stream threshold of "
+                          f"{'none' if supported is None else f'{supported} chains'}, "
+                          f"STREAM_MIN_CHAINS holds {constant} for "
+                          f"{tuple(level.op.vshape) + (level.stencil_form,)}")
     split_measured = None
     for C in SPLIT_ROUTE_CHAINS:
         if not all(w for (_, c), w in split_wins.items() if c == C):
             break
         split_measured = C
-    if supported != mv.STREAM_MIN_CHAINS:
-        faults.append("the table supports a stream threshold of "
-                      f"{'none' if supported is None else f'{supported} chains'}, "
-                      f"STREAM_MIN_CHAINS is {mv.STREAM_MIN_CHAINS}")
     if split_measured != mv.SPLIT_MAX_CHAINS:
         faults.append(f"the table supports a split threshold of {split_measured} chains, "
                       f"SPLIT_MAX_CHAINS is {mv.SPLIT_MAX_CHAINS}")
     emit({"visit_routes": rows, "card": smi, "smem_limit": limit,
-          "threshold_measured": supported, "threshold_constant": mv.STREAM_MIN_CHAINS,
+          "stream_thresholds": thresholds,
           "split_threshold_measured": split_measured,
           "split_threshold_constant": mv.SPLIT_MAX_CHAINS,
           "stream_wins": {f"{name} C={C}": w for (name, C), w in stream_wins.items()},
@@ -780,37 +813,71 @@ def sweep_cases(device):
 def check_sweeps(device, gen):
     """Both sweep kernels of the one-block route against their plain versions,
     forward and backward, ``b`` shared and per chain: noise off, then the same
-    ``xi`` fed to both."""
+    ``xi`` fed to both, then (2d) the in-kernel generator against the plain
+    version fed the host's reference normals (TOL).  On 2d fields, whose
+    one-block route takes the passes body, the generic body of
+    ``sor_sweep.cu`` beside it on the same inputs and under one Philox stream
+    (ROUTE_TOL: the same terms in the same order)."""
+    from multigridmc_tpu_torch.ops.kernels import common
     from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
     from multigridmc_tpu_torch.smoothers import BACKWARD, FORWARD, SORSmoother
 
-    errs = {"sweep_batched": 0.0, "gibbs_sweep_batched": 0.0}
+    errs = {"sweep_batched": 0.0, "gibbs_sweep_batched": 0.0, "sweep_batched_generic": 0.0,
+            "gibbs_sweep_batched_generic": 0.0}
+    body_err = 0.0
     rows = []
     for name, op, C, omega in sweep_cases(device):
         for direction in (FORWARD, BACKWARD):
             plan = SORSmoother(op, omega, 1, direction).plan
             x = torch.randn((C,) + op.vshape, device=device, generator=gen)
             xi = torch.randn((C,) + op.vshape, device=device, generator=gen)
+            suffix = "" if plan.body == "passes" else "_generic"
             row = {"case": name, "chains": C, "vshape": list(op.vshape), "omega": omega,
                    "offsets": len(op.offsets), "colours": plan.coloring.n_colors,
-                   "direction": direction}
+                   "direction": direction, "body": plan.body, "sweep_err": 0.0,
+                   "gibbs_err": 0.0}
+            if plan.body == "passes":
+                row["stencil_form"] = plan.pass_launch(plan.params(C, True, 1, (0, 0))).form
+                row["against_generic"] = 0.0
             for b_batched in (False, True):
                 b = torch.randn(((C,) if b_batched else ()) + op.vshape, device=device,
                                 generator=gen)
                 tag = f"{name} {direction} {'b per chain' if b_batched else 'b shared'}"
                 want = ss.sweep_batched_plain(op, plan.masks, omega, plan.order, b, x)
-                got = ss.launch_sweep(plan, ss.BLOCK_ROUTE, b, x.clone())
-                e = compare(f"sweep {tag}", got, want)
+                got_det = ss.launch_sweep(plan, ss.BLOCK_ROUTE, b, x.clone())
+                row["sweep_err"] = max(row["sweep_err"], compare(f"sweep {tag}", got_det, want))
                 want = ss.gibbs_sweep_batched_plain(op, plan.masks, omega, plan.order, b, x, xi)
                 got = ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, b, x.clone(), xi=xi)
-                g = compare(f"gibbs sweep {tag}", got, want)
-                row["sweep_err"] = max(row.get("sweep_err", 0.0), e)
-                row["gibbs_err"] = max(row.get("gibbs_err", 0.0), g)
-            errs["sweep_batched"] = max(errs["sweep_batched"], row["sweep_err"])
-            errs["gibbs_sweep_batched"] = max(errs["gibbs_sweep_batched"], row["gibbs_err"])
+                row["gibbs_err"] = max(row["gibbs_err"], compare(f"gibbs sweep {tag}", got, want))
+                if plan.body != "passes":
+                    continue
+                runs = [(got_det, ss.launch_sweep(plan, ss.BLOCK_ROUTE, b, x.clone(),
+                                                  body="generic")),
+                        (got, ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, b, x.clone(), xi=xi,
+                                                    body="generic"))]
+                # the in-kernel generator against the reference normals
+                seed, counter = 0x5EED_0010 + C, 5 + b_batched
+                ref = torch.as_tensor(common.philox_normals_reference(seed, counter, C, op.vshape),
+                                      device=device)
+                want = ss.gibbs_sweep_batched_plain(op, plan.masks, omega, plan.order, b, x, ref)
+                got = ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, b, x.clone(),
+                                            philox=(seed, counter))
+                row["gibbs_err"] = max(row["gibbs_err"],
+                                       compare(f"gibbs sweep {tag} in-kernel noise", got, want))
+                runs.append((got, ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, b, x.clone(),
+                                                        philox=(seed, counter), body="generic")))
+                row["against_generic"] = max([row["against_generic"]] + [
+                    float((new - old).abs().max()) for new, old in runs])
+            if row.get("against_generic", 0.0) > ROUTE_TOL:
+                raise AssertionError(f"sweeps: {name} {direction}: the passes and the generic "
+                                     f"body differ by {row['against_generic']}")
+            body_err = max(body_err, row.get("against_generic", 0.0))
+            errs["sweep_batched" + suffix] = max(errs["sweep_batched" + suffix], row["sweep_err"])
+            errs["gibbs_sweep_batched" + suffix] = max(errs["gibbs_sweep_batched" + suffix],
+                                                       row["gibbs_err"])
             rows.append(row)
     torch.cuda.synchronize()  # a fault during a launch surfaces here
-    return errs, rows
+    return errs, body_err, rows
 
 
 def check_sweep_philox(device):
@@ -954,17 +1021,28 @@ def sweep_bound(plan, C, b_batched):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), 4 * words
 
 
-#: the sweep kernels as torch.profiler names them, by route
-SWEEP_KERNELS = {("block", "sweep"): "sor_sweep_kernel", ("block", "gibbs"): "gibbs_sweep_kernel",
+#: the sweep kernels as torch.profiler names them, by route or one-block body
+SWEEP_KERNELS = {("passes", "sweep"): "passes_sweep_kernel",
+                 ("passes", "gibbs"): "passes_gibbs_kernel",
+                 ("generic", "sweep"): "sor_sweep_kernel",
+                 ("generic", "gibbs"): "gibbs_sweep_kernel",
                  ("split", "sweep"): "cluster_sweep_kernel<false",
                  ("split", "gibbs"): "cluster_sweep_kernel<true"}
+
+
+def sweep_kernel(route, body, kind):
+    """The profiler's name of the sweep kernel of ``route`` (one-block: of
+    ``body``) and ``kind`` (``"sweep"`` or ``"gibbs"``)."""
+    return SWEEP_KERNELS[("split" if route[0] == "split" else body, kind)]
 
 
 def time_sweeps(device, noise):
     """ms per launch of both sweep kernels (the Gibbs kernel with its
     in-kernel noise, ``b`` per chain as the samplers of a posterior give it)
-    through the one-block route and, where the case's chain count takes it,
-    the split route; their plain versions' ms and the bound, per case."""
+    through the one-block route (on 2d fields the passes body and, in the same
+    call, the generic body of ``sor_sweep.cu`` beside it) and, where the case's
+    chain count takes it, the split route; their plain versions' ms and the
+    bound, per case."""
     from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
     from multigridmc_tpu_torch.smoothers import SORSmoother
 
@@ -975,28 +1053,34 @@ def time_sweeps(device, noise):
         x = torch.zeros((C,) + op.vshape, device=device)
         bound, by, nbytes = sweep_bound(plan, C, True)
         inner = 10 if C > 1 else 50
-        row = {"case": name, "chains": C, "vshape": list(op.vshape), "threads": plan.threads,
+        row = {"case": name, "chains": C, "vshape": list(op.vshape), "body": plan.body,
+               "threads": (plan.pass_launch(plan.params(C, True, 0, None)).threads
+                           if plan.body == "passes" else plan.threads),
+               "generic_threads": plan.threads,
                "bound_ms": bound, "bound_by": by, "bound_bytes": nbytes}
-        routes = {"": ss.BLOCK_ROUTE}
+        routes = {"": (ss.BLOCK_ROUTE, plan.body)}
+        if plan.body == "passes":
+            routes["generic_"] = (ss.BLOCK_ROUTE, "generic")
         if plan.route(C, 0)[0] == "split":
-            routes["split_"] = plan.route(C, 0)
+            routes["split_"] = (plan.route(C, 0), None)
             row["split_cluster"] = plan.route(C, 0)[1]
             row["split_threads"] = ss.split_threads(op.vshape, plan.route(C, 0)[1])
-        for prefix, route in routes.items():
-            gibbs_route = plan.route(C, 1) if prefix else route
+        for prefix, (route, body) in routes.items():
+            gibbs_route = plan.route(C, 1) if prefix == "split_" else route
 
             def det():
-                return ss.launch_sweep(plan, route, b, x)
+                return ss.launch_sweep(plan, route, b, x, body=body)
 
             def gibbs():
-                return ss.launch_gibbs_sweep(plan, gibbs_route, b, x, philox=noise.philox_stream())
+                return ss.launch_gibbs_sweep(plan, gibbs_route, b, x, philox=noise.philox_stream(),
+                                             body=body)
 
             row[f"{prefix}sweep_ms"] = cuda_ms(det, 5, inner)
             row[f"{prefix}gibbs_ms"] = cuda_ms(gibbs, 5, inner)
-            row[f"{prefix}sweep_device_ms"] = device_ms_per_launch(
-                det, SWEEP_KERNELS[(route[0], "sweep")])
-            row[f"{prefix}gibbs_device_ms"] = device_ms_per_launch(
-                gibbs, SWEEP_KERNELS[(gibbs_route[0], "gibbs")])
+            row[f"{prefix}sweep_device_ms"] = device_ms_retried(
+                det, sweep_kernel(route, body, "sweep"), 20)
+            row[f"{prefix}gibbs_device_ms"] = device_ms_retried(
+                gibbs, sweep_kernel(gibbs_route, body, "gibbs"), 20)
         x.zero_()
         row["sweep_plain_ms"] = cuda_ms(
             lambda: ss.sweep_batched_plain(op, plan.masks, omega, plan.order, b, x), 3, 3)
@@ -1005,6 +1089,178 @@ def time_sweeps(device, noise):
                                                  torch.randn_like(x)), 3, 3)
         rows.append(row)
     return rows
+
+
+def distill_sweep_shapes(device, nx, nlevel, n_meas):
+    """The sweeps the flagship's distillation set-up hands the one-block
+    kernels: the plans and chain counts of every deterministic sweep launch
+    while the default (distilled) sampler is built, counted by shape."""
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+    from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
+
+    op, _ = build_posterior(nx, n_meas, FLAGSHIP_SEED, "near_exact", device)
+    seen = {}
+    launch = ss.launch_sweep
+
+    def recording(plan, route, b, x, *args, **kwargs):
+        key = (tuple(plan.op.vshape), int(x.shape[0]), b.ndim == x.ndim, plan.order)
+        seen.setdefault(key, [plan, 0])[1] += 1
+        return launch(plan, route, b, x, *args, **kwargs)
+
+    ss.launch_sweep = recording
+    try:
+        t0 = time.perf_counter()
+        sampler = MultigridMCSampler(op, nlevel, smoother="SOR", coarse_solver="Cholesky",
+                                     omega=1.0, cycle=2, distill=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        ss.launch_sweep = launch
+    return sampler.distill_level, seconds, [
+        {"vshape": list(k[0]), "chains": k[1], "b_batched": k[2], "order": list(k[3]),
+         "launches": n, "plan": plan} for k, (plan, n) in seen.items()]
+
+
+def time_sweep_passes(device, noise, bodies, nx, nlevel, n_meas):
+    """The one-block sweep kernels' launches by pass, from the stamps builds
+    of the bodies ``bodies`` (``"generic"``: ``sor_sweep.cu``, the kernels before
+    the passes; ``"passes"``: ``sor_sweep_passes.cu``), on the 256-chain 2d
+    cases of :func:`sweep_cases` (both kernels, the Gibbs kernel with its
+    in-kernel noise, ``b`` per chain) and on the shapes the flagship's
+    distillation set-up hands the deterministic kernel: per pass the median
+    over the blocks, their sum and span against the profiler's device ms of
+    the production build, the barriers each block passed against the count
+    from the source (the rhs pass and one per colour) and the blocks one SM
+    ran at once; the last of three launches."""
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+    from multigridmc_tpu_torch.smoothers import SORSmoother
+
+    cases = [(name, SORSmoother(op, omega, 1).plan, C, ("sweep", "gibbs"))
+             for name, op, C, omega in sweep_cases(device) if C == 256 and len(op.vshape) == 2]
+    level, seconds, shapes = distill_sweep_shapes(device, nx, nlevel, n_meas)
+    cases += [(f"distill {'x'.join(map(str, d['vshape']))}", d["plan"], d["chains"], ("sweep",))
+              for d in shapes if d["b_batched"]]
+    rows = []
+    for name, plan, C, kinds in cases:
+        vshape = plan.op.vshape
+        b = torch.rand((C,) + vshape, device=device)
+        x = torch.zeros((C,) + vshape, device=device)
+        for kind in kinds:
+            for body in bodies:
+                def run(stamps=None):
+                    if kind == "sweep":
+                        return ss.launch_sweep(plan, ss.BLOCK_ROUTE, b, x, body=body,
+                                               stamps=stamps)
+                    return ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, b, x,
+                                                 philox=noise.philox_stream(), body=body,
+                                                 stamps=stamps)
+
+                device_ms = device_ms_retried(run, sweep_kernel(ss.BLOCK_ROUTE, body, kind), 10)
+                stamps = torch.zeros((C, ss.SWEEP_STAMP_WIDTH), dtype=torch.int64, device=device)
+                for _ in range(3):
+                    run(stamps)
+                torch.cuda.synchronize()
+                pt = ss.sweep_pass_times(plan.order, kind == "gibbs", stamps)
+                pt["device_ms"] = device_ms
+                pt["sum_over_device_ms"] = pt["sum_us"] / 1e3 / device_ms
+                pt["span_over_device_ms"] = pt["launch_span_us"] / 1e3 / device_ms
+                pt["barriers_from_source"] = ss.barrier_count(plan.order, kind == "gibbs")
+                P = plan.params(C, True, int(kind == "gibbs"), (0, 0))
+                threads = plan.pass_launch(P).threads if body == "passes" else plan.threads
+                row = {"case": name, "vshape": list(vshape), "chains": C, "kind": kind,
+                       "body": body, "threads": threads, **pt}
+                if pt["barriers_per_block"] != [pt["barriers_from_source"]]:
+                    raise AssertionError(f"sweep stamps {name} {kind} {body}: the blocks passed "
+                                         f"{pt['barriers_per_block']} barriers, the source "
+                                         f"places {pt['barriers_from_source']}")
+                if not 0.85 <= pt["span_over_device_ms"] <= 1.15:
+                    raise AssertionError(f"sweep stamps {name} {kind} {body}: the stamps span "
+                                         f"{pt['span_over_device_ms']} of the device time")
+                rows.append(row)
+        del b, x
+    return {"distill_level": level, "distill_setup_seconds": seconds,
+            "distill_shapes": [{k: v for k, v in d.items() if k != "plan"} for d in shapes],
+            "rows": rows}
+
+
+#: chain counts and block sizes of the passes body's block-size table
+SWEEP_THREAD_CHAINS = (64, 132, 200, 256, 512)
+SWEEP_THREADS = (256, 512, 1024)
+
+
+def time_sweep_threads(device, noise, nx, nlevel, n_meas):
+    """Device ms per launch of the passes body's two kernels at 256, 512 and
+    1024 threads per block (the block-size rule, ``sor_sweep.sweep_threads``,
+    marked) at the counts of :data:`SWEEP_THREAD_CHAINS` on the 2d fields of
+    :func:`sweep_cases` and on the flagship's 63^2 and 31^2 Galerkin levels,
+    and at the distillation set-up's own count on those two levels (the
+    deterministic kernel).  Returns the rows and the faults: where the rule's
+    block size takes more than :data:`SPLIT_SIZE_SLACK` times the best's."""
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+    from multigridmc_tpu_torch.smoothers import SORSmoother
+
+    _, _, shapes = distill_sweep_shapes(device, nx, nlevel, n_meas)
+    distill = {tuple(d["vshape"]): d for d in shapes if d["order"][0] == 0}
+    cases = [(name, op, omega) for name, op, C, omega in sweep_cases(device)
+             if len(op.vshape) == 2 and C > 1 and ss.sweep_body(op.vshape, op.offsets) == "passes"]
+    cases += [(f"{'x'.join(map(str, v))} 9-point Galerkin (distillation)", d["plan"].op, 1.0)
+              for v, d in sorted(distill.items(), reverse=True)]
+    rows, faults = [], []
+    for name, op, omega in cases:
+        plan = SORSmoother(op, omega, 1).plan
+        counts = SWEEP_THREAD_CHAINS
+        if "distillation" in name:
+            counts += (distill[tuple(op.vshape)]["chains"],)
+        for C in counts:
+            b = torch.rand((C,) + op.vshape, device=device)
+            x = torch.zeros((C,) + op.vshape, device=device)
+            kinds = ("sweep",) if C > 1000 else ("sweep", "gibbs")
+            for kind in kinds:
+                by_threads = {}
+                for t in SWEEP_THREADS:
+                    def run():
+                        if kind == "sweep":
+                            return ss.launch_sweep(plan, ss.BLOCK_ROUTE, b, x, threads=t)
+                        return ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, b, x,
+                                                     philox=noise.philox_stream(), threads=t)
+
+                    by_threads[t] = device_ms_median(run, sweep_kernel(ss.BLOCK_ROUTE, "passes",
+                                                                       kind))
+                timed = {t: v for t, v in by_threads.items() if v is not None}
+                rule = plan.pass_launch(plan.params(C, True, int(kind == "gibbs"), (0, 0))).threads
+                best = min(timed, key=timed.get) if timed else None
+                rows.append({"case": name, "vshape": list(op.vshape), "chains": C, "kind": kind,
+                             "rule_threads": rule, "best_threads": best,
+                             "device_ms": {str(t): v for t, v in by_threads.items()}})
+                if len(timed) < len(SWEEP_THREADS) or timed[rule] > SPLIT_SIZE_SLACK * timed[best]:
+                    faults.append(f"{name} C={C} {kind}: {rule} threads against {best}: "
+                                  f"{by_threads}")
+            del b, x
+    return rows, faults
+
+
+def sweep_kernel_attributes():
+    """Registers and local (spill) bytes per thread and static shared bytes of
+    the passes body's kernels of every stencil form, as the card's loader
+    reports them, and the blocks of 512 and 1024 threads one SM holds."""
+    import ctypes
+
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+
+    lib = ss.load_passes_library()
+    out = {}
+    for form in range(mv.STENCIL_FORMS):
+        for kind, gibbs in (("sweep", 0), ("gibbs", 1)):
+            vals = (ctypes.c_int * 3)()
+            err = lib.sor_passes_kernel_attributes(gibbs, form, vals)
+            if err:
+                raise AssertionError(f"passes {kind} kernel attributes: CUDA error {err}")
+            out[f"{kind} form {form}"] = {
+                "registers": vals[0], "local_bytes": vals[1], "static_shared_bytes": vals[2],
+                "blocks_per_sm": {t: lib.sor_passes_blocks_per_sm(gibbs, form, t)
+                                  for t in (256, 512, 1024)}}
+    return out
 
 
 #: the few-chain count at which the split route is checked besides one chain
@@ -1016,8 +1272,9 @@ ROUTE_TOL = 1e-6
 
 def check_split_sweeps(device, gen):
     """The split route's two kernels against their plain versions on every
-    sweep case at one chain and at :data:`SPLIT_CHECK_CHAINS` (the cluster
-    size of the route), forward and backward, ``b`` shared and per chain:
+    sweep case at one chain and at :data:`SPLIT_CHECK_CHAINS` (the rule's
+    cluster size, whether or not the route takes the split route there),
+    forward and backward, ``b`` shared and per chain:
     noise off, then the same ``xi`` fed to both (TOL); and against the
     one-block route on the same inputs, the Gibbs kernel under one in-kernel
     Philox stream (ROUTE_TOL)."""
@@ -1031,10 +1288,11 @@ def check_split_sweeps(device, gen):
         for C in (1, SPLIT_CHECK_CHAINS):
             for direction in (FORWARD, BACKWARD):
                 plan = SORSmoother(op, omega, 1, direction).plan
-                det_route, gibbs_route = plan.route(C, 0), plan.route(C, 1)
-                if det_route[0] != "split" or gibbs_route[0] != "split":
-                    raise AssertionError(f"split sweeps: {name} at {C} chains takes "
-                                         f"{det_route} / {gibbs_route}")
+                # the rule's cluster size, also where the route takes one block
+                sizes = [ss.split_size(C, op.vshape, op.offsets, mode, device) for mode in (0, 1)]
+                if None in sizes:
+                    raise AssertionError(f"split sweeps: {name} at {C} chains does not split")
+                det_route, gibbs_route = ("split", sizes[0]), ("split", sizes[1])
                 x = torch.randn((C,) + op.vshape, device=device, generator=gen)
                 xi = torch.randn((C,) + op.vshape, device=device, generator=gen)
                 row = {"case": name, "chains": C, "vshape": list(op.vshape),
@@ -1130,10 +1388,13 @@ def time_sweep_routes(device, noise, smi):
     the split route it beats one block per chain, (2) its cluster size (the
     least ``split_cost``, from ``SPLIT_WAVE_FIXED`` and the clusters the card
     holds at once) is within :data:`SPLIT_SIZE_SLACK` of the best one measured
-    there, and (3) ``SPLIT_MAX_CHAINS`` is the largest chain count of the table
-    up to which the split route at the rule's cluster size takes less than
-    :data:`SPLIT_CLEAR_WIN` of the one-block route's time on every field and
-    kernel (the measured threshold).  The run fails otherwise."""
+    there, and (3) each entry of ``SPLIT_MAX_CHAINS`` (the passes body's
+    thresholds by kernel and stencil size) is the largest chain count of the
+    table up to which the split route at the rule's cluster size takes less
+    than :data:`SPLIT_CLEAR_WIN` of the one-block route's time on every field
+    of that entry (0 where it does at no count), and the generic body's
+    ``SPLIT_MAX_CHAINS_GENERIC`` admits every count at which the split route
+    wins so on the 63^3 field.  The run fails otherwise."""
     from multigridmc_tpu_torch.lattice import Lattice
     from multigridmc_tpu_torch.models.correlation import (ConstantCorrelationLengthModel,
                                                           PeriodicCorrelationLengthModel)
@@ -1168,7 +1429,7 @@ def time_sweep_routes(device, noise, smi):
                                                          philox=noise.philox_stream())
 
                 def device_ms(route):
-                    return device_ms_retried(run(route), SWEEP_KERNELS[(route[0], kernel)])
+                    return device_ms_median(run(route), sweep_kernel(route, plan.body, kernel))
 
                 row = {"shape": label, "chains": C, "kernel": kernel,
                        "block_ms": device_ms(ss.BLOCK_ROUTE)}
@@ -1191,6 +1452,9 @@ def time_sweep_routes(device, noise, smi):
                 row["rule_cluster"] = ss.split_size(C, op.vshape, op.offsets, noise_mode, device)
                 row["rule_ms"] = split.get(row["rule_cluster"])
                 row["route"] = list(plan.route(C, noise_mode))
+                # the threshold that decides this row (sor_sweep.split_max_chains)
+                row["key"] = ("generic" if plan.body == "generic"
+                              else (kernel, len(op.offsets) <= 5))
                 rows.append(row)
     # what the table supports
     faults = []
@@ -1199,7 +1463,7 @@ def time_sweep_routes(device, noise, smi):
         tag = f"{r['shape']} {r['kernel']} C={r['chains']}"
         if r["block_ms"] is None or None in r["split_ms"].values():
             faults.append(f"{tag}: the profiler showed no device time")
-            wins.setdefault(r["chains"], []).append(False)
+            wins.setdefault(r["key"], {}).setdefault(r["chains"], []).append(False)
             continue
         if r["route"][0] == "split" and not r["rule_ms"] < r["block_ms"]:
             faults.append(f"{tag}: the split route ({r['rule_ms']}) loses to one block "
@@ -1209,18 +1473,24 @@ def time_sweep_routes(device, noise, smi):
             if r["rule_ms"] > SPLIT_SIZE_SLACK * best:
                 faults.append(f"{tag}: cluster size {r['rule_cluster']} ({r['rule_ms']}) against "
                               f"{r['best_cluster']} ({best})")
-        wins.setdefault(r["chains"], []).append(
+        wins.setdefault(r["key"], {}).setdefault(r["chains"], []).append(
             r["rule_ms"] is not None and r["rule_ms"] < SPLIT_CLEAR_WIN * r["block_ms"])
-    measured = None
-    for C in SWEEP_ROUTE_CHAINS:
-        if not all(wins[C]):
-            break
-        measured = C
-    if measured != ss.SPLIT_MAX_CHAINS:
-        faults.append(f"the table supports a threshold of {measured} chains, SPLIT_MAX_CHAINS "
-                      f"is {ss.SPLIT_MAX_CHAINS}")
+    thresholds = {}
+    for key, by_count in wins.items():  # per threshold: the largest count of clear wins
+        measured = 0
+        for C in sorted(by_count):
+            if not all(by_count[C]):
+                break
+            measured = C
+        constant = (ss.SPLIT_MAX_CHAINS_GENERIC if key == "generic"
+                    else ss.SPLIT_MAX_CHAINS[key])
+        thresholds[str(key)] = {"measured": measured, "constant": constant}
+        # the generic body is timed at one chain only: the table holds that it splits there
+        if (measured != constant) if key != "generic" else measured < 1:
+            faults.append(f"the table supports a split threshold of {measured} chains for "
+                          f"{key}, the constant is {constant}")
     emit({"sweep_routes": rows, "card": smi, "smem_limit": limit,
-          "threshold_measured": measured, "threshold_constant": ss.SPLIT_MAX_CHAINS,
+          "thresholds": thresholds,
           "wave_fixed_constant": ss.SPLIT_WAVE_FIXED, "faults": faults})
     if faults:
         raise AssertionError("sweep_routes: " + "; ".join(faults))
@@ -1567,7 +1837,8 @@ def check_v1_sweeps(device, nx, C, gen, noise):
         t_bytes, t_ops = 4 * words / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
         noise_mode = 1 if "gibbs" in name else 0
         route = ss.split_route(chains, op.vshape, op.offsets, noise_mode, x.device)
-        kernel_name = SWEEP_KERNELS[(route[0], "gibbs" if noise_mode else "sweep")]
+        kernel_name = sweep_kernel(route, ss.sweep_body(op.vshape, op.offsets),
+                                   "gibbs" if noise_mode else "sweep")
         if "gibbs" in name:
             def call():
                 return getattr(ss, name)(noise.philox_stream()[1] + 1, coeffs, bb, xx, **k)
@@ -1940,22 +2211,32 @@ def phase_visits(device, nx, nlevel, C, n_meas, gen, smi):
                   "phase_passes": passes}, noise
 
 
-def phase_sweeps(device, gen, noise, smi):
+def phase_sweeps(device, gen, noise, smi, nx, nlevel, n_meas):
     """The sweep kernels of both routes: against their plain versions and
-    against each other, the generator through both and against torch's own,
-    the split layout's host mirror, their times, and the route table."""
-    errs, sweep_checks = check_sweeps(device, gen)
+    against each other (the one-block route's two bodies, the two routes),
+    the generator through both and against torch's own, the split layout's
+    host mirror, their times, the one-block kernels' launches by pass before
+    (the generic body) and after (the passes body) with their registers, the
+    passes body's block-size table, and the route table."""
+    errs, body_err, sweep_checks = check_sweeps(device, gen)
     split_errs, route_err, split_checks = check_split_sweeps(device, gen)
     errs.update(split_errs)
     sweep_philox = check_sweep_philox(device)
     collision = check_philox_collision(device)
     layout = check_split_layout(device)
     sweep_timings = time_sweeps(device, noise)
+    stamps = time_sweep_passes(device, noise, ("generic", "passes"), nx, nlevel, n_meas)
+    thread_rows, thread_faults = time_sweep_threads(device, noise, nx, nlevel, n_meas)
     emit({"phase": "sweeps", "tolerance": TOL, "route_tolerance": ROUTE_TOL,
           "max_abs_err": errs, "split_against_block_max_abs_err": route_err,
+          "passes_against_generic_max_abs_err": body_err,
           "sweep_checks": sweep_checks, "split_checks": split_checks,
           "sweep_philox": sweep_philox, "philox_collision": collision, "split_layout": layout,
-          "sweep_timings": sweep_timings})
+          "sweep_timings": sweep_timings, "passes_kernel_attributes": sweep_kernel_attributes(),
+          "stamps": stamps, "passes_threads": thread_rows, "card": smi})
+    if thread_faults:
+        raise AssertionError("sweeps: the block-size rule's size is more than "
+                             f"{SPLIT_SIZE_SLACK} times the best's: " + "; ".join(thread_faults))
     time_sweep_routes(device, noise, smi)
     return errs, sweep_timings
 
@@ -1964,7 +2245,7 @@ def phase_kernels(device, nx, nlevel, C, n_meas, smi):
     gen = torch.Generator(device=device)
     gen.manual_seed(11)
     errs, timings, noise = phase_visits(device, nx, nlevel, C, n_meas, gen, smi)
-    sweep_errs, sweep_timings = phase_sweeps(device, gen, noise, smi)
+    sweep_errs, sweep_timings = phase_sweeps(device, gen, noise, smi, nx, nlevel, n_meas)
     errs.update(sweep_errs)
     emit({"phase": "kernels", "tolerance": TOL, "max_abs_err": errs})
     third = phase_new_kernels(device, nx, nlevel, C, n_meas, gen, noise)
@@ -2019,13 +2300,67 @@ def phase_threads(device, nx, nlevel, C, n_meas, smi):
           "stream_kernels": {"chains": C, "rows": stream_rows}})
 
 
+def device_ms_of(fn, candidates, launches=20):
+    """:func:`device_ms_per_launch` of the first of the kernel names
+    ``candidates`` that the profiler shows (a tree and its parent name their
+    kernels differently); None where it shows none of them."""
+    for _ in range(4):
+        for kernel in candidates:
+            t = device_ms_per_launch(fn, kernel, launches)
+            if t is not None:
+                return t
+        time.sleep(0.2)
+    return None
+
+
+def compare_sweeps(device, noise):
+    """Device ms per launch of the one-block sweep kernels on the 256-chain
+    cases of :func:`sweep_cases` (``b`` per chain, the Gibbs kernel with its
+    in-kernel noise) and of the two batched raw-array entry points at 256
+    chains on the flagship's prior, through calls that a tree and its parent
+    both have."""
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+    from multigridmc_tpu_torch.smoothers import SORSmoother
+
+    names = {"sweep": ("passes_sweep_kernel", "sor_sweep_kernel"),
+             "gibbs": ("passes_gibbs_kernel", "gibbs_sweep_kernel")}
+    rows = []
+    for name, op, C, omega in sweep_cases(device):
+        if C != 256:
+            continue
+        plan = SORSmoother(op, omega, 1).plan
+        b = torch.rand((C,) + op.vshape, device=device)
+        x = torch.zeros((C,) + op.vshape, device=device)
+        row = {"case": name, "chains": C, "vshape": list(op.vshape)}
+        row["sweep_device_ms"] = device_ms_of(
+            lambda: ss.launch_sweep(plan, ss.BLOCK_ROUTE, b, x), names["sweep"])
+        row["gibbs_device_ms"] = device_ms_of(
+            lambda: ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, b, x,
+                                          philox=noise.philox_stream()), names["gibbs"])
+        rows.append(row)
+    op, coloring, kw = v1_problem(device, 256)
+    coeffs = op.coeffs.contiguous()
+    k = dict(order=tuple(range(coloring.n_colors)), **kw)
+    b = torch.rand((256,) + op.vshape, device=device)
+    x = torch.zeros((256,) + op.vshape, device=device)
+    rows.append({"case": "v1 fused_sor_sweep_batched", "chains": 256,
+                 "device_ms": device_ms_of(lambda: ss.fused_sor_sweep_batched(coeffs, b, x, **k),
+                                           names["sweep"])})
+    rows.append({"case": "v1 fused_gibbs_sweep_batched", "chains": 256,
+                 "device_ms": device_ms_of(
+                     lambda: ss.fused_gibbs_sweep_batched(noise.philox_stream()[1] + 1, coeffs, b,
+                                                          x, **k), names["gibbs"])})
+    return rows
+
+
 def phase_compare(device, nx, nlevel, C, n_meas, steps, smi):
     """Not part of the default run: what both a tree and its parent can run,
     for timing the two in one call (copy this script into the parent's
     checkout and run it there too): the phase kernels' device ms per launch
     at :data:`PHASE_CHAINS` and ``C`` chains on the flagship's levels 0 and 1
     (through the launch call both trees have, in-kernel noise, each tree's own
-    block size), beside the bound, then :func:`phase_main_path`."""
+    block size), beside the bound, the one-block sweeps (:func:`compare_sweeps`),
+    then :func:`phase_main_path`."""
     from multigridmc_tpu_torch.samplers.base import GeneratorNoise
     from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
 
@@ -2046,7 +2381,8 @@ def phase_compare(device, nx, nlevel, C, n_meas, steps, smi):
                 row[f"{name}_device_ms"] = device_ms_retried(fn, PROFILER_NAMES[name], 20)
                 row[f"{kind}_bound_ms"] = visit_bound(level, chains, li > 0, kind)[0]
             rows.append(row)
-    emit({"phase": "compare", "card": smi, "phase_kernels": rows})
+    emit({"phase": "compare", "card": smi, "phase_kernels": rows,
+          "sweeps": compare_sweeps(device, noise)})
     phase_main_path(device, nx, nlevel, C, n_meas, steps, smi)
 
 
@@ -2149,6 +2485,10 @@ def phase_main_path(device, nx, nlevel, C, n_meas, steps, smi):
             raise AssertionError(f"main path ({name}): launches {counts}, expected {expected} "
                                  f"visits each through the routes {routes} "
                                  f"and {expected_subtree} subtree launches")
+        clocks = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+             "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+            check=True).stdout.strip()  # after the timed steps: the card's state for them
         busy = device_busy(lambda: sampler.apply(noise, f, x), 3,
                            pattern=r"trsm|triang|visit_kernel|descend_kernel|ascend_kernel")
         if busy is not None:  # device ms per launch of each visit kernel (by level shape)
@@ -2159,6 +2499,7 @@ def phase_main_path(device, nx, nlevel, C, n_meas, steps, smi):
                "visited_levels": visited,
                "distill_level": sampler.distill_level, "subtree": sampler.subtree is not None,
                "setup_seconds": setup_seconds, "device_busy": busy, "steps": nsteps,
+               "clocks_sm_power_temperature": clocks,
                "ms_per_step": 1e3 * dt / nsteps, "samples_per_s": C * nsteps / dt,
                "launches": counts, "setup_launches": setup_counts,
                "route_by_level": routes,
@@ -2707,7 +3048,10 @@ def main(argv=None) -> int:
                              "the main path (runs on a parent tree too), 'new' the third "
                              "slice's kernels alone, "
                              "'visits' the visit kernels of the three routes alone, "
-                             "'sweeps' the sweep kernels of both routes alone); "
+                             "'sweeps' the sweep kernels of both routes alone, "
+                             "'sweep_check', 'sweep_stamps' (with 'sweep_passes') and "
+                             "'sweep_threads' the one-block sweeps' checks, breakdown by "
+                             "pass and block-size table alone); "
                              "the ok line needs exactly the default four")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -2737,16 +3081,38 @@ def main(argv=None) -> int:
         gen = torch.Generator(device=device)
         gen.manual_seed(11)
         phase_visits(device, nx, nlevel, C, n_meas, gen, smi)
+    if "sweep_check" in phases:  # the one-block sweeps against their plain versions alone
+        gen = torch.Generator(device=device)
+        gen.manual_seed(11)
+        errs, body_err, rows = check_sweeps(device, gen)
+        emit({"phase": "sweep_check", "max_abs_err": errs,
+              "passes_against_generic_max_abs_err": body_err, "sweep_checks": rows})
+    if "sweep_threads" in phases:  # the passes body's block-size table alone
+        from multigridmc_tpu_torch.samplers.base import GeneratorNoise
+
+        rows, faults = time_sweep_threads(device, GeneratorNoise(5, device), nx, nlevel, n_meas)
+        emit({"phase": "sweep_threads", "card": smi, "rows": rows, "faults": faults})
+        if faults:
+            raise AssertionError("sweep_threads: the rule's block size is more than "
+                                 f"{SPLIT_SIZE_SLACK} times the best's: " + "; ".join(faults))
     if "sweeps" in phases:  # the sweep kernels of both routes alone
         from multigridmc_tpu_torch.samplers.base import GeneratorNoise
 
         gen = torch.Generator(device=device)
         gen.manual_seed(11)
-        phase_sweeps(device, gen, GeneratorNoise(5, device), smi)
+        phase_sweeps(device, gen, GeneratorNoise(5, device), smi, nx, nlevel, n_meas)
+    if "sweep_stamps" in phases:  # the one-block sweeps' launches by pass alone
+        from multigridmc_tpu_torch.samplers.base import GeneratorNoise
+
+        bodies = ("generic", "passes") if "sweep_passes" in phases else ("generic",)
+        emit({"phase": "sweep_stamps", "card": smi,
+              "passes_kernel_attributes": sweep_kernel_attributes(),
+              "stamps": time_sweep_passes(device, GeneratorNoise(5, device), bodies, nx, nlevel,
+                                          n_meas)})
     if "kernels" in phases:
         errs, timings, sweep_timings, third = phase_kernels(device, nx, nlevel, C, n_meas, smi)
     if "main_path" in phases:
-        counts, _ = phase_main_path(device, nx, nlevel, C, n_meas, steps, smi)
+        counts, main = phase_main_path(device, nx, nlevel, C, n_meas, steps, smi)
     if "drivers" in phases:
         driver_counts, _ = phase_drivers(device, nx, nlevel, n_meas, C, nsamples=2000, nwarmup=200,
                                          smi=smi)
@@ -2763,14 +3129,12 @@ def main(argv=None) -> int:
     # the visits at level 0, the shape that dominates each path, and their
     # launches on the path of each route: the phase kernels in the flagship's
     # distilled steps at PHASE_CHAINS chains (the 256-chain variants take them
-    # too: launches_by_variant), the split kernels in the one-chain MGMC series
-    # of drivers.mgmc, the stream kernels in the steps with every level's visit
-    # fused at 256 chains where the route takes them from STREAM_MIN_CHAINS on;
-    # where that is None, on no path: their row says so, with that variant's
-    # launches, 0, and the visits phase still holds them against their plain
-    # versions and the phase kernels
-    stream_path = ("main_path all_levels_fused" if mv.STREAM_MIN_CHAINS is not None
-                   else None)
+    # on 127^2: launches_by_variant), the split kernels in the one-chain MGMC
+    # series of drivers.mgmc, the stream kernels in the steps with every
+    # level's visit fused at 256 chains, whose 255^2 level takes them
+    # (STREAM_MIN_CHAINS); where it did not, on no path: their row says so
+    stream_path = ("main_path all_levels_fused"
+                   if "stream" in main["all_levels_fused"]["route_by_level"].values() else None)
     paths = {"phase": (f"main_path distilled_{PHASE_CHAINS}_chains",
                        counts[f"distilled_{PHASE_CHAINS}_chains"], timings["phase_chains"][0]),
              "stream": (stream_path, counts["all_levels_fused"], timings["at_C"][0]),
@@ -2827,36 +3191,54 @@ def main(argv=None) -> int:
     # the sweep kernels of both routes at the drivers' shape, one chain of
     # 255^2, with the one-block route's 256-chain figures beside; their
     # launches are those of the two driver runs (the split route: the
-    # one-chain SSOR series and the solve; the one-block route: the replica
-    # chains of the convergence tables and the distillation's set-up)
+    # one-chain SSOR series and the solve; the one-block route's passes body:
+    # the replica chains of the convergence tables and the distillation's
+    # set-up).  The one-block route's generic body (3d fields, wider
+    # stencils) runs on no path of this script: its rows give its 3d times
     st = next(t for t in sweep_timings if t["case"] == "2d_255_5pt_one_chain")
     wide = next(t for t in sweep_timings if t["case"] == "2d_255_5pt")
+    galerkin = next(t for t in sweep_timings if t["case"] == "2d_127_9pt_galerkin")
+    generic = next(t for t in sweep_timings if t["case"] == "3d_63_7pt")
     for name, key, kernel_line in (("sweep_batched", "sweep", 194),
                                    ("gibbs_sweep_batched", "gibbs", 246)):
-        for route, source in (("", "sor_sweep.cu"), ("split_", "sor_sweep_cluster.cu")):
-            entry = name + ("_split" if route else "")
+        for route, source in (("", "sor_sweep_passes.cu"), ("split_", "sor_sweep_cluster.cu"),
+                              ("generic_", "sor_sweep.cu")):
+            entry = name + ("_" + route[:-1] if route else "")
+            t = generic if route == "generic_" else st
+            prefix = "" if route == "generic_" else route
             kernels.append({
                 "name": entry, "route": "cuda",
                 "source": f"multigridmc_tpu_torch/csrc/{source}",
                 "replaces": f"multigridmc_tpu/ops/kernels/sor_pallas_v2.py:{kernel_line}",
                 "launches": driver_counts[entry], "max_abs_err": errs[entry],
-                "ms": st[f"{route}{key}_ms"], "device_ms": st[f"{route}{key}_device_ms"],
-                "plain_ms": st[f"{key}_plain_ms"],
-                "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
-                "bound_bytes": st["bound_bytes"],
-                "library_ms": None, "shape": {"chains": st["chains"], "vshape": st["vshape"],
-                                              "cluster": st.get("split_cluster") if route else 1},
+                "path": None if route == "generic_" else "drivers",
+                "ms": t[f"{prefix}{key}_ms"], "device_ms": t[f"{prefix}{key}_device_ms"],
+                "plain_ms": t[f"{key}_plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "bound_bytes": t["bound_bytes"],
+                "library_ms": None, "shape": {"chains": t["chains"], "vshape": t["vshape"],
+                                              "cluster": t.get("split_cluster") if route == "split_"
+                                              else 1},
             })
             if not route:
-                kernels[-1]["at_256_chains"] = {
-                    "ms": wide[f"{key}_ms"], "device_ms": wide[f"{key}_device_ms"],
-                    "plain_ms": wide[f"{key}_plain_ms"], "bound_ms": wide["bound_ms"],
-                    "bound_by": wide["bound_by"], "bound_bytes": wide["bound_bytes"]}
+                kernels[-1]["design"] = (
+                    "the passes of level_passes.cuh with no low-rank term: the stencil in "
+                    "registers with several points per lane in flight, each colour's rows over "
+                    "all warps from a rows table, the Gibbs rhs packed by colour, one kernel per "
+                    "stencil form, the block size by chain count")
+                for label, w in (("at_256_chains", wide), ("at_256_chains_127_9pt", galerkin)):
+                    kernels[-1][label] = {
+                        "vshape": w["vshape"], "threads": w["threads"],
+                        "ms": w[f"{key}_ms"], "device_ms": w[f"{key}_device_ms"],
+                        "generic_device_ms": w[f"generic_{key}_device_ms"],
+                        "plain_ms": w[f"{key}_plain_ms"], "bound_ms": w["bound_ms"],
+                        "bound_by": w["bound_by"], "bound_bytes": w["bound_bytes"]}
     # the four raw-array entry points share those kernels (one chain: the
-    # split route); their launches are those of their own path (drive_v1_path)
+    # split route, many: the passes body); their launches are those of their
+    # own path (drive_v1_path)
     for name in V1_NAMES:
         t = third["v1_timings"][name]
-        source = "sor_sweep_cluster.cu" if t["route"][0] == "split" else "sor_sweep.cu"
+        source = "sor_sweep_cluster.cu" if t["route"][0] == "split" else "sor_sweep_passes.cu"
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"multigridmc_tpu_torch/csrc/{source}",

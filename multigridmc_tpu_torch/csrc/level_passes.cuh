@@ -50,29 +50,8 @@
 
 #pragma once
 
+#include "block_stamps.cuh"
 #include "visit_phases.cuh"
-
-// Barriers this block has passed, counted by thread 0 where COUNT is set (a
-// kernel's stamps build, which zeroes it at launch start and reports it); in
-// that build thread 0 also writes the card's timer into
-// pass_stamp_row[count] after each barrier where pass_stamp_row is not null.
-__shared__ unsigned pass_sync_count;
-__shared__ unsigned long long* pass_stamp_row;
-
-__device__ __forceinline__ unsigned long long global_timer() {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    return t;
-}
-
-template <bool COUNT>
-__device__ __forceinline__ void block_sync() {
-    __syncthreads();
-    if (COUNT && threadIdx.x == 0) {
-        ++pass_sync_count;
-        if (pass_stamp_row != nullptr) pass_stamp_row[pass_sync_count] = global_timer();
-    }
-}
 
 // sum over the warp, the total in lane 0 (a fixed shuffle tree)
 __device__ __forceinline__ float warp_total(float v) {
@@ -202,22 +181,32 @@ __device__ __forceinline__ float apply_operands(const Stencil<KMAX, BOX>& s,
 }
 
 // ------------------------------------------------------------------- the sweep
+// Where c of point (i, j), of colour ci, lies in a rhs scratch packed by
+// colour (rhs_packed): colour after colour, each H rows of ceil(W / s)
+// values, point (i, j) at j / s in its row (a colour's first column in a row
+// is below s), so that a colour's points of a row are contiguous.
+__device__ __forceinline__ int packed_index(const VisitParams& P, int ci, int i, int j) {
+    const int s = P.jstride;
+    return (ci * P.H + i) * ((P.W + s - 1) / s) + j / s;
+}
+
 // One colour-ordered SOR sweep: x[p] += omega (c[p] - (A x)[p]) / diag[p] on
-// the points of the current colour, colour by colour; colour = (w0 i + w1 j)
-// mod n_colors.  The warps take the rows that hold the colour in turn
-// (T.rows); within a row a lane updates U points of the colour at a time, its
-// loads first, its stores last (no point of a colour reads another).
-template <int KMAX, bool BOX, int U, bool PLANES, bool COUNT>
+// the points of the current colour, colour by colour from the `first` of
+// the order on; colour = (w0 i + w1 j) mod n_colors.  The warps take the rows
+// that hold the colour in turn (T.rows); within a row a lane updates U points
+// of the colour at a time, its loads first, its stores last (no point of a
+// colour reads another).  PACKED: c lies packed by colour (packed_index).
+template <int KMAX, bool BOX, int U, bool PLANES, bool COUNT, bool PACKED>
 __device__ __forceinline__ void sweep_colours(const VisitParams& P, const LevelTables& T,
                                               const float* __restrict__ coeffs,
-                                              const float* __restrict__ c, float* x) {
+                                              const float* __restrict__ c, float* x, int first) {
     const Stencil<KMAX, BOX> st = stencil_regs<KMAX, BOX>(P);
     const int H = P.H, W = P.W, n = H * W, lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
     const int s = P.jstride, K = P.n_colors, d = P.diag_index;
     const bool dplane = !P.coeff_const[d];
     const float dval = P.coeff_val[d], omega = P.omega;
-    for (int o = 0; o < P.n_order; ++o) {
+    for (int o = first; o < P.n_order; ++o) {
         const int* cr = T.rows + o * (1 + 2 * K);
         const int R = cr[0];
         for (int r = warp; R > 0; r += nwarps) {
@@ -225,6 +214,37 @@ __device__ __forceinline__ void sweep_colours(const VisitParams& P, const LevelT
             const int i = q * K + cr[1 + 2 * t];
             if (i >= H) break;
             const unsigned rin = row_terms(st, i, H);
+            if constexpr (PACKED) {
+                // the row's k-th point of the colour is column jc + s k, its c at
+                // crow + k.  (The same body as below, stepping k rather than the
+                // column: each form measured faster where it is taken, PERF.md.)
+                const int jc = cr[2 + 2 * t];
+                const int crow = packed_index(P, P.order[o], i, jc);
+                for (int k0 = lane; jc + s * k0 < W; k0 += 32 * U) {
+                    int p[U];
+                    unsigned in[U];
+                    float cv[U], dv[U], xv[U];
+#pragma unroll
+                    for (int u = 0; u < U; ++u) {
+                        const int j = jc + s * (k0 + 32 * u);
+                        const bool ok = j < W;
+                        p[u] = i * W + (ok ? j : 0);
+                        in[u] = point_terms(st, rin, j, W);
+                        cv[u] = ok ? c[crow + k0 + 32 * u] : 0.0f;
+                        xv[u] = ok ? x[p[u]] : 0.0f;
+                        dv[u] = (ok && dplane) ? coeffs[(size_t)d * n + p[u]] : dval;
+                    }
+                    Operands<KMAX, U, PLANES> op;
+                    load_operands<KMAX, BOX, U, PLANES>(st, coeffs, x, n, p, in, op);
+#pragma unroll
+                    for (int u = 0; u < U; ++u) {
+                        const float ax = apply_operands<KMAX, BOX, U, PLANES>(st, op, in[u], u);
+                        if (jc + s * (k0 + 32 * u) < W)
+                            x[p[u]] = xv[u] + omega * (cv[u] - ax) / dv[u];
+                    }
+                }
+                continue;
+            }
             for (int j0 = cr[2 + 2 * t] + s * lane; j0 < W; j0 += 32 * s * U) {
                 int p[U];
                 unsigned in[U];
@@ -287,13 +307,15 @@ __device__ __forceinline__ int stencil_form(const VisitParams& P) {
         }                                                  \
     } while (0)
 
-// Ends with a barrier.
-template <int FORM, bool COUNT>
+// From the `first` colour of the order on (PACKED: c packed by colour); ends
+// with a barrier.
+template <int FORM, bool COUNT, bool PACKED = false>
 __device__ void level_sweep(const VisitParams& P, const LevelTables& T,
                             const float* __restrict__ coeffs, const float* __restrict__ c,
-                            float* x) {
-#define SWEEP(KMAX, BOX, PLANES) \
-    sweep_colours<KMAX, BOX, LANE_POINTS(KMAX, PLANES), PLANES, COUNT>(P, T, coeffs, c, x)
+                            float* x, int first = 0) {
+#define SWEEP(KMAX, BOX, PLANES)                                                          \
+    sweep_colours<KMAX, BOX, LANE_POINTS(KMAX, PLANES), PLANES, COUNT, PACKED>(P, T, coeffs, c, \
+                                                                               x, first)
     STENCIL_DISPATCH(FORM, P, SWEEP);
 #undef SWEEP
 }
@@ -489,6 +511,44 @@ __device__ void rhs_pass(const VisitParams& P, const LevelTables& T, int chain, 
             ++i;
         }
     }
+}
+
+// The Gibbs rhs of a sweep with no low-rank term into a scratch packed by
+// colour (packed_index), so that each colour reads whole sectors of it: c = f
+// + ns xi (noise group g of row i has the Philox counter (i * ceil(W / 4) +
+// g, chain, counter), as rhs_pass).  The block's threads take the groups in
+// turn, each group's f loaded before its draw; a lane's points of a colour
+// are contiguous in the scratch, and so are the lanes' (a warp's stores of a
+// colour cover whole sectors without staging).  Ends with a barrier.
+template <bool COUNT>
+__device__ void rhs_packed(const VisitParams& P, int chain, const float* __restrict__ f,
+                           const float* __restrict__ ns, const float* __restrict__ xi,
+                           float* __restrict__ cpk) {
+    const int H = P.H, W = P.W, G = (W + 3) >> 2, NG = H * G, K = P.n_colors;
+    const int di = blockDim.x / G, dg = blockDim.x - di * G;
+    int i = threadIdx.x / G, g = threadIdx.x - i * G;
+    for (int q4 = threadIdx.x; q4 < NG; q4 += blockDim.x) {
+        float fv[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) fv[q] = 4 * g + q < W ? f[i * W + 4 * g + q] : 0.0f;
+        float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (P.noise_mode == 1) philox_normals4((uint32_t)q4, (uint32_t)chain, P.seed, P.counter, z);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const int j = 4 * g + q, p = i * W + j;
+            if (j >= W) break;
+            const float zq = P.noise_mode == 2 ? xi[p] : z[q];
+            cpk[packed_index(P, (P.w0 * i + P.w1 * j) % K, i, j)] =
+                fv[q] + (P.ns_const ? P.ns_val : ns[p]) * zq;
+        }
+        i += di;
+        g += dg;
+        if (g >= G) {
+            g -= G;
+            ++i;
+        }
+    }
+    block_sync<COUNT>();
 }
 
 // ------------------------------------------------------------ B^T x, Woodbury

@@ -111,11 +111,7 @@ __device__ __forceinline__ LevelTables phase_start(const VisitParams& P, const P
                                                    const int4* __restrict__ tables, int chain,
                                                    const float* __restrict__ xilr, float* wv,
                                                    unsigned long long* srow) {
-    if (STAMPS && threadIdx.x == 0) {
-        srow[0] = global_timer();
-        pass_sync_count = 0;
-        pass_stamp_row = srow;
-    }
+    stamps_open<STAMPS>(srow);
     if (L.shared) {
         int4* dst = reinterpret_cast<int4*>(phase_smem);
         for (int q = threadIdx.x; q < L.words / 4; q += blockDim.x) dst[q] = tables[q];
@@ -128,13 +124,7 @@ __device__ __forceinline__ LevelTables phase_start(const VisitParams& P, const P
 
 template <bool STAMPS>
 __device__ __forceinline__ void phase_exit(unsigned long long* srow) {
-    if (STAMPS && threadIdx.x == 0) {
-        unsigned sm;
-        asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
-        srow[PHASE_STAMP_WIDTH - 3] = global_timer();
-        srow[PHASE_STAMP_WIDTH - 2] = pass_sync_count;
-        srow[PHASE_STAMP_WIDTH - 1] = sm;
-    }
+    stamps_close<STAMPS>(srow, PHASE_STAMP_WIDTH);
 }
 
 // FORM: the stencil's form (level_passes.cuh, STENCIL_DISPATCH), one kernel

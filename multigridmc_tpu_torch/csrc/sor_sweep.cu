@@ -40,18 +40,40 @@
 // noise_mode 2 reads xi from a tensor instead, so that the kernel and its plain
 // PyTorch version can be fed the same normals.  No atomics: two launches with
 // the same seed and counter are bitwise equal.
+//
+// Since the sweeps of 2d reach-1 stencils of at most 9 offsets run on the
+// passes of level_passes.cuh (sor_sweep_passes.cu), these kernels take what
+// those do not: 3d fields, reach-2 and wider stencils.  The host launches them
+// on 2d fields only to hold the two against each other.
+//
+// SWEEP_STAMPS_BUILD: the measurement build, a library of its own, taken only
+// where the host passes a stamps tensor, (C, SWEEP_STAMP_WIDTH) int64: per
+// block the timer (ns) at entry, after the Gibbs rhs pass and after each
+// colour phase, at exit, then the barriers passed and the SM (block_stamps.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "block_stamps.cuh"
 #include "philox.cuh"
 #include "sor_sweep.cuh"
+
+// the timer at entry, after up to 1 + MAX_COLORS barriers and at exit, the
+// barriers passed, the SM
+#define SWEEP_STAMP_WIDTH (2 + MAX_COLORS + 3)
+
+// 1: this library is the stamps build (sor_sweep.py builds the source a second
+// time with -DSWEEP_STAMPS_BUILD=1)
+#ifndef SWEEP_STAMPS_BUILD
+#define SWEEP_STAMPS_BUILD 0
+#endif
 
 // one warp per row of the field (lanes along the row)
 #define WARP_ROWS(r, nrows) \
     for (int r = threadIdx.x >> 5; r < (nrows); r += blockDim.x >> 5)
 
 // all colour phases of one sweep of one chain; ends with a barrier
+template <bool STAMPS>
 __device__ void sweep_phases(const SweepParams& P, const float* __restrict__ coeffs,
                              const float* c, float* x) {
     const int n = P.Z * P.Y * P.X;
@@ -79,26 +101,34 @@ __device__ void sweep_phases(const SweepParams& P, const float* __restrict__ coe
                 x[p] = x[p] + P.omega * (c[p] - ax) / diag;
             }
         }
-        __syncthreads();
+        block_sync<STAMPS>();
     }
 }
 
 // ------------------------------------------------------------------- kernels
+template <bool STAMPS>
 __global__ void __launch_bounds__(MAX_THREADS)
 sor_sweep_kernel(const __grid_constant__ SweepParams P, float* x_all,
-                 const float* __restrict__ b_all, const float* __restrict__ coeffs) {
+                 const float* __restrict__ b_all, const float* __restrict__ coeffs,
+                 unsigned long long* stamps) {
     const int chain = blockIdx.x;
     const size_t n = (size_t)P.Z * P.Y * P.X;
-    sweep_phases(P, coeffs, b_all + (P.b_batched ? chain * n : 0), x_all + chain * n);
+    unsigned long long* srow = STAMPS ? stamps + (size_t)chain * SWEEP_STAMP_WIDTH : nullptr;
+    stamps_open<STAMPS>(srow);
+    sweep_phases<STAMPS>(P, coeffs, b_all + (P.b_batched ? chain * n : 0), x_all + chain * n);
+    stamps_close<STAMPS>(srow, SWEEP_STAMP_WIDTH);
 }
 
+template <bool STAMPS>
 __global__ void __launch_bounds__(MAX_THREADS)
 gibbs_sweep_kernel(const __grid_constant__ SweepParams P, float* x_all,
                    const float* __restrict__ f_all, float* scr_all,
                    const float* __restrict__ coeffs, const float* __restrict__ ns,
-                   const float* __restrict__ xi_all) {
+                   const float* __restrict__ xi_all, unsigned long long* stamps) {
     const int chain = blockIdx.x;
     const size_t n = (size_t)P.Z * P.Y * P.X;
+    unsigned long long* srow = STAMPS ? stamps + (size_t)chain * SWEEP_STAMP_WIDTH : nullptr;
+    stamps_open<STAMPS>(srow);
     const float* f = f_all + (P.b_batched ? chain * n : 0);
     const float* xi = P.noise_mode == 2 ? xi_all + chain * n : nullptr;
     float* scr = scr_all + chain * n;
@@ -121,23 +151,35 @@ gibbs_sweep_kernel(const __grid_constant__ SweepParams P, float* x_all,
             }
         }
     }
-    __syncthreads();
-    sweep_phases(P, coeffs, scr, x_all + chain * n);
+    block_sync<STAMPS>();
+    sweep_phases<STAMPS>(P, coeffs, scr, x_all + chain * n);
+    stamps_close<STAMPS>(srow, SWEEP_STAMP_WIDTH);
 }
 
 // ------------------------------------------------------------ C entry points
 extern "C" int sor_sweep_params_size() { return (int)sizeof(SweepParams); }
 
+extern "C" int sor_sweep_stamp_width() { return SWEEP_STAMP_WIDTH; }
+
+extern "C" int sor_sweep_stamps_build() { return SWEEP_STAMPS_BUILD; }
+
+// a stamps tensor goes to the stamps build only
 extern "C" int sor_sweep_batched(const SweepParams* P, float* x, const float* b,
-                                 const float* coeffs, int threads, void* stream) {
-    sor_sweep_kernel<<<P->C, threads, 0, (cudaStream_t)stream>>>(*P, x, b, coeffs);
+                                 const float* coeffs, int threads, void* stamps, void* stream) {
+    unsigned long long* st = static_cast<unsigned long long*>(stamps);
+    if ((st != nullptr) != (bool)SWEEP_STAMPS_BUILD) return (int)cudaErrorInvalidValue;
+    sor_sweep_kernel<(bool)SWEEP_STAMPS_BUILD><<<P->C, threads, 0, (cudaStream_t)stream>>>(
+        *P, x, b, coeffs, st);
     return (int)cudaGetLastError();
 }
 
 extern "C" int sor_gibbs_sweep_batched(const SweepParams* P, float* x, const float* f,
                                        float* scratch, const float* coeffs, const float* ns,
-                                       const float* xi, int threads, void* stream) {
-    gibbs_sweep_kernel<<<P->C, threads, 0, (cudaStream_t)stream>>>(*P, x, f, scratch, coeffs,
-                                                                  ns, xi);
+                                       const float* xi, int threads, void* stamps,
+                                       void* stream) {
+    unsigned long long* st = static_cast<unsigned long long*>(stamps);
+    if ((st != nullptr) != (bool)SWEEP_STAMPS_BUILD) return (int)cudaErrorInvalidValue;
+    gibbs_sweep_kernel<(bool)SWEEP_STAMPS_BUILD><<<P->C, threads, 0, (cudaStream_t)stream>>>(
+        *P, x, f, scratch, coeffs, ns, xi, st);
     return (int)cudaGetLastError();
 }

@@ -41,11 +41,12 @@ CSRC_DIR = _PACKAGE_DIR / "csrc"
 BUILD_DIR = _PACKAGE_DIR / "build"
 
 #: headers under ``csrc/`` that the kernel sources include
-HEADERS = ("philox.cuh", "visit_phases.cuh", "level_passes.cuh", "sor_sweep.cuh")
+HEADERS = ("philox.cuh", "visit_phases.cuh", "level_passes.cuh", "sor_sweep.cuh",
+           "block_stamps.cuh")
 
 #: every kernel source under ``csrc/`` (``<name>.cu``)
 SOURCES = ("mgmc_visit", "mgmc_visit_stream", "mgmc_visit_split", "sor_sweep",
-           "sor_sweep_cluster", "mgmc_subtree", "smem_probe")
+           "sor_sweep_passes", "sor_sweep_cluster", "mgmc_subtree", "smem_probe")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -54,12 +55,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: ``csrc/mgmc_visit.cu`` (a measurement aid; production launches take the
 #: first)
 PHASE_STAMPS_FLAGS = ("-DPHASE_STAMPS_BUILD=1",)
+#: the flags of the sweep kernels' stamps builds, second libraries of
+#: ``csrc/sor_sweep_passes.cu`` and ``csrc/sor_sweep.cu``
+SWEEP_STAMPS_FLAGS = ("-DSWEEP_STAMPS_BUILD=1",)
 
-#: every library the port builds: each source of :data:`SOURCES`, and
-#: ``mgmc_visit`` once more as the stamps build; :func:`build_libraries`
-#: compiles them in parallel (``chip_smoke.py`` checks the stamps by default,
-#: and beside the first ``mgmc_visit`` their build adds no wall time)
-BUILDS = SOURCES + (("mgmc_visit", PHASE_STAMPS_FLAGS),)
+#: every library the port builds: each source of :data:`SOURCES`, and the
+#: stamps builds of ``mgmc_visit``, ``sor_sweep_passes`` and ``sor_sweep``;
+#: :func:`build_libraries` compiles them in parallel (``chip_smoke.py`` checks
+#: the stamps by default, and beside the production libraries their builds
+#: add no wall time)
+STAMPS_BUILDS = (("mgmc_visit", PHASE_STAMPS_FLAGS), ("sor_sweep_passes", SWEEP_STAMPS_FLAGS),
+                 ("sor_sweep", SWEEP_STAMPS_FLAGS))
+BUILDS = SOURCES + STAMPS_BUILDS
 
 
 # ------------------------------------------------------------------- the build
@@ -130,6 +137,37 @@ def open_library(name: str, extra_flags: Tuple[str, ...] = ()) -> ctypes.CDLL:
     compiled with ``extra_flags``.  The caller sets the argument types of the
     entry points it uses."""
     return ctypes.CDLL(str(build_library(name, extra_flags)))
+
+
+def stamp_breakdown(stamps, names, width: int) -> dict:
+    """Where one launch of a one-block-per-chain kernel went, from the timer
+    stamps of its stamps build (``csrc/block_stamps.cuh``: per block a row of
+    ``width`` words, the timer at entry, after each barrier and at exit, then
+    the barriers passed and the SM), in microseconds: per pass ``names[k]``
+    (the one that ends at barrier ``k + 1``) the median over the blocks
+    (``passes``; the first from the block's entry), ``exit_us`` after the
+    last, ``sum_us`` their sum; per block the span from entry to exit, its
+    median (``block_span_us``) and the largest; ``launch_span_us`` from the
+    first entry to the last exit; measured on the card, not modelled: the
+    barriers each block passed (``barriers_per_block``, the distinct counts),
+    the most blocks one SM ran at once and the SMs used."""
+    raw = np.asarray(torch.as_tensor(stamps).cpu().numpy())
+    t = raw[:, :1 + len(names)].astype(np.float64)
+    exit_ = raw[:, width - 3].astype(np.float64)
+    barriers, sm = raw[:, width - 2], raw[:, width - 1]
+    per_pass = np.median(np.diff(t, axis=1), axis=0) / 1e3
+    span = (exit_ - t[:, 0]) / 1e3
+    at_once = 0
+    for q in np.unique(sm):
+        ev = sorted([(e, 1) for e in t[sm == q, 0]] + [(e, -1) for e in exit_[sm == q]])
+        at_once = max(at_once, int(np.max(np.cumsum([d for _, d in ev]))))
+    exit_us = float(np.median(exit_ - t[:, -1]) / 1e3)
+    return {"passes": dict(zip(names, per_pass.tolist())), "exit_us": exit_us,
+            "sum_us": float(per_pass.sum()) + exit_us,
+            "block_span_us": float(np.median(span)), "slowest_block_us": float(span.max()),
+            "launch_span_us": float((exit_.max() - t[:, 0].min()) / 1e3),
+            "barriers_per_block": sorted(int(v) for v in np.unique(barriers)),
+            "blocks_per_sm": at_once, "sms": int(np.unique(sm).size)}
 
 
 def default_threads(n: int) -> int:

@@ -19,8 +19,8 @@ and one **ascend visit** is
     x  <- x - B_bar_post (B^T x)
 
 Three hand-written CUDA kernels compute each visit, and the launch takes one
-of them by the number of chains (:data:`SPLIT_MAX_CHAINS`,
-:data:`STREAM_MIN_CHAINS`), by the level's shape and by whether the kernel's
+of them by the number of chains (:data:`SPLIT_MAX_CHAINS`, and
+:data:`STREAM_MIN_CHAINS` per level shape), by the level's shape and by whether the kernel's
 shared memory fits a block and its cluster schedules (:func:`visit_route`,
 :func:`split_smem_bytes`, :func:`stream_smem_bytes`):
 
@@ -43,11 +43,11 @@ shared memory fits a block and its cluster schedules (:func:`visit_route`,
 * the **stream kernels** of ``csrc/mgmc_visit_stream.cu`` (one thread block per
   chain, the sweep as a wavefront of row blocks through a ring of rows in
   shared memory, every colour phase of a step at once; :func:`wavefront_lags`
-  gives the schedule) - from :data:`STREAM_MIN_CHAINS` chains, where each
-  chain's field crosses the memory bus twice and not ten times; since the
-  phase kernels run the passes of ``level_passes.cuh`` no measured chain count
-  is one from which on the stream kernels win on every level, so the
-  threshold is ``None`` and the route takes them nowhere.
+  gives the schedule) - from the chain count of :data:`STREAM_MIN_CHAINS` for
+  the level's shape and stencil form on, where each chain's field crosses the
+  memory bus twice and not ten times; since the phase kernels run the passes
+  of ``level_passes.cuh`` that is the flagship's 255^2 level from 256 chains,
+  and no other level.
 
 All three compute the same visit from the same Philox stream; the route is
 chosen from the level's shape and the chain count when a level builds its
@@ -108,7 +108,7 @@ from ..stencil import StencilOperator
 from . import sor_sweep as ss
 from .common import (PHASE_STAMPS_FLAGS, compress_plan, default_threads,  # noqa: F401
                      dynamic_smem_limit, open_library, philox_normals_reference, sm_count,
-                     support_boxes)
+                     stamp_breakdown, support_boxes)
 from .common import tensor_ptr as _ptr
 
 MAX_OFFSETS = 9
@@ -177,23 +177,21 @@ BLOCK_RESERVED_BYTES = 1024
 #: 1024 is fastest up to 132 chains, 512 at 200 and 256, on both levels.
 PHASE_WAVE_THREADS = 512
 
-#: Launches with at least this many chains take the stream kernels, fewer the
-#: phase kernels (where the stream kernels' rings fit a block: :func:`visit_route`);
-#: ``None``: no launch takes them.  Set from the ``visit_routes`` table of
-#: ``chip_smoke.py``, which fails if the table supports another value: both
-#: kernels' device time per descend plus ascend at 1-512 chains on the 255^2 and
-#: 127^2 flagship levels, and at 132, 256 and 512 on the 511^2 and 255^2 (9-point)
-#: levels of a 512x512 lattice, NVIDIA H100 80GB HBM3, 700.00 W.  Since the phase
-#: kernels run the passes of ``csrc/level_passes.cuh`` the stream kernels win
-#: only on the flagship's 255^2 level from 256 chains (0.5984 against 0.6440 ms;
-#: at 512 1.188 against 1.246) and lose everywhere else: on 127^2 at 256 chains
-#: 0.3312 against 0.1592, on the 511^2 5-point level at 256 2.9276 against 2.6000.
-#: So no count is one from which on they win everywhere, and the route takes
-#: them nowhere.  The stream
-#: kernels stay, held against their plain versions and the phase kernels by
-#: ``chip_smoke.py``; a threshold per level shape would take their wins (the
-#: roadmap's P5).  PERF.md section 6 holds the table.
-STREAM_MIN_CHAINS: Optional[int] = None
+#: Per level shape ``(H, W, stencil form)`` (:func:`stencil_form`) the least
+#: chain count from which on a visit takes the stream kernels (where their
+#: rings fit a block: :func:`visit_route`); a level shape not listed takes them
+#: at no chain count.  Set from the ``visit_routes`` table of ``chip_smoke.py``,
+#: which fails if the table supports another value for any level it times:
+#: both kernels' device time per descend plus ascend at 1-512 chains on the
+#: 255^2 and 127^2 flagship levels, and at 132, 256 and 512 on the 511^2 and
+#: 255^2 (9-point) levels of a 512x512 lattice, NVIDIA H100 80GB HBM3, 700.00 W.
+#: Since the phase kernels run the passes of ``csrc/level_passes.cuh`` the
+#: stream kernels win only on the flagship's 255^2 5-point level, from 256
+#: chains (0.6028 against 0.6479 ms, at 512 1.197 against 1.2526), and lose on
+#: 127^2 (256 chains: 0.3338 against 0.1608), on the 511^2 level (2.9472
+#: against 2.576) and on the 255^2 9-point level (1.3174 against 0.7702), so
+#: no single chain count serves every level.  PERF.md section 6 holds the table.
+STREAM_MIN_CHAINS: Dict[Tuple[int, int, int], int] = {(255, 255, 0): 256}
 
 #: Launches of at most this many chains take the split kernels where their bands
 #: fit a block and their cluster schedules (:func:`split_cluster`).  Set from the
@@ -451,21 +449,30 @@ def phase_barrier_count(level: "FusedVisitLevel", kind: str) -> int:
     return len(order) + lowrank + (3 if kind == "descend" else 1)
 
 
+def stream_min_chains(vshape, form: int) -> Optional[int]:
+    """The chain count from which on a visit of a level of shape ``vshape``
+    and stencil form ``form`` takes the stream kernels
+    (:data:`STREAM_MIN_CHAINS`); ``None``: at no count."""
+    H, W = (int(v) for v in vshape)
+    return STREAM_MIN_CHAINS.get((H, W, int(form)))
+
+
 def visit_route(C: int, stream_bytes: int = 0, device=None,
-                smem_limit: Optional[int] = None, vshape=None) -> str:
-    """The kernel a visit of ``C`` chains launches: ``"stream"`` from
-    :data:`STREAM_MIN_CHAINS` chains on (``None``: never) where
-    the stream kernels' shared memory (``stream_bytes``,
-    :func:`stream_smem_bytes`) fits a block; ``"split"`` for a level of shape
-    ``vshape`` where :func:`split_cluster` finds a cluster size (at most
-    :data:`SPLIT_MAX_CHAINS` chains); ``"phase"`` otherwise (and always
-    without a shape below the stream threshold).  A block is granted
-    ``smem_limit`` bytes, by default what the probe finds on ``device``
-    (:func:`~.common.dynamic_smem_limit`; on the CPU its default).  All of it
-    is known before any launch."""
+                smem_limit: Optional[int] = None, vshape=None,
+                form: Optional[int] = None) -> str:
+    """The kernel a visit of ``C`` chains launches: ``"stream"`` from the
+    threshold of the level's shape ``vshape`` and stencil form ``form`` on
+    (:func:`stream_min_chains`; without both, never) where the stream kernels'
+    shared memory (``stream_bytes``, :func:`stream_smem_bytes`) fits a block;
+    ``"split"`` for a level of shape ``vshape`` where :func:`split_cluster`
+    finds a cluster size (at most :data:`SPLIT_MAX_CHAINS` chains); ``"phase"``
+    otherwise.  A block is granted ``smem_limit`` bytes, by default what the
+    probe finds on ``device`` (:func:`~.common.dynamic_smem_limit`; on the CPU
+    its default).  All of it is known before any launch."""
     if smem_limit is None:
         smem_limit = dynamic_smem_limit(device)
-    if (STREAM_MIN_CHAINS is not None and C >= STREAM_MIN_CHAINS
+    threshold = None if vshape is None or form is None else stream_min_chains(vshape, form)
+    if (threshold is not None and C >= threshold
             and stream_bytes + STREAM_STATIC_SMEM <= smem_limit):
         return "stream"
     if vshape is not None and split_cluster(C, vshape, device, smem_limit) is not None:
@@ -840,7 +847,8 @@ class FusedVisitLevel:
 
     def _route(self, C: int) -> Tuple[str, Optional[int]]:
         if C not in self._routes:
-            route = visit_route(C, self.stream_bytes, self.op.device, vshape=self.op.vshape)
+            route = visit_route(C, self.stream_bytes, self.op.device, vshape=self.op.vshape,
+                                form=self.stencil_form)
             S = split_cluster(C, self.op.vshape, self.op.device) if route == "split" else None
             self._routes[C] = (route, S)
         return self._routes[C]
@@ -1199,24 +1207,7 @@ def pass_times(level: FusedVisitLevel, kind: str, stamps) -> dict:
     entry to the last exit; measured on the card, not modelled: the barriers
     each block passed (``barriers_per_block``, the distinct counts), the most
     blocks one SM ran at once and the SMs used."""
-    raw = np.asarray(torch.as_tensor(stamps).cpu().numpy())
-    names = pass_names(level, kind)
-    t = raw[:, :1 + len(names)].astype(np.float64)
-    exit_ = raw[:, PHASE_STAMP_WIDTH - 3].astype(np.float64)
-    barriers, sm = raw[:, PHASE_STAMP_WIDTH - 2], raw[:, PHASE_STAMP_WIDTH - 1]
-    per_pass = np.median(np.diff(t, axis=1), axis=0) / 1e3
-    span = (exit_ - t[:, 0]) / 1e3
-    at_once = 0
-    for q in np.unique(sm):
-        ev = sorted([(e, 1) for e in t[sm == q, 0]] + [(e, -1) for e in exit_[sm == q]])
-        at_once = max(at_once, int(np.max(np.cumsum([d for _, d in ev]))))
-    exit_us = float(np.median(exit_ - t[:, -1]) / 1e3)
-    return {"passes": dict(zip(names, per_pass.tolist())), "exit_us": exit_us,
-            "sum_us": float(per_pass.sum()) + exit_us,
-            "block_span_us": float(np.median(span)), "slowest_block_us": float(span.max()),
-            "launch_span_us": float((exit_.max() - t[:, 0].min()) / 1e3),
-            "barriers_per_block": sorted(int(v) for v in np.unique(barriers)),
-            "blocks_per_sm": at_once, "sms": int(np.unique(sm).size)}
+    return stamp_breakdown(stamps, pass_names(level, kind), PHASE_STAMP_WIDTH)
 
 
 # ---------------------------------------------------------------- the gating

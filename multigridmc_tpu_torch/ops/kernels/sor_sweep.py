@@ -22,15 +22,21 @@ posterior operator stay outside the kernel, in the callers
 Two hand-written CUDA implementations compute the same sweep, and the launch
 takes one of them by its **route** (:func:`sweep_route`):
 
-* ``"block"``: ``csrc/sor_sweep.cu``, one thread block per chain, the field in
-  global memory, a block barrier between colour phases - for many chains,
-  where one block per chain fills the card;
+* ``"block"``: one thread block per chain, the field in global memory, a
+  block barrier between colour phases - for many chains, where one block per
+  chain fills the card.  Its kernels have two bodies (:func:`sweep_body`): for
+  2d stencils of reach 1 with at most 9 offsets the passes of
+  ``csrc/level_passes.cuh`` (``csrc/sor_sweep_passes.cu``: the stencil in
+  registers, several points per lane in flight, each colour's rows over all
+  warps from a rows table, one kernel per stencil form, the block size by
+  chain count, :func:`sweep_threads`), for 3d fields and wider stencils the
+  generic body of ``csrc/sor_sweep.cu``;
 * ``"split"``: ``csrc/sor_sweep_cluster.cu``, each chain split over a
   thread-block cluster of ``S`` blocks, each block's band of rows (2d) or
   planes (3d) in shared memory, the halo read from the neighbouring blocks'
   shared memory, a cluster barrier between colour phases - for few chains
-  (at most :data:`SPLIT_MAX_CHAINS`), where one block per chain leaves the
-  card idle and a sweep is latency.
+  (at most :func:`split_max_chains`, by the kernel and the stencil), where
+  one block per chain leaves the card idle and a sweep is latency.
 
 The route is chosen before any launch, when a plan builds its parameter block
 for a launch configuration (:meth:`SweepPlan.params`), from the chain count,
@@ -47,6 +53,10 @@ shared) and ``x`` and write ``x`` once - three passes over the field,
 ``3 * C * n * 4`` bytes with ``b`` per chain - plus the coefficient planes that
 vary in space once.  The Gibbs kernel's scratch field for ``c`` and whatever
 the colour phases read again are traffic to L2 on top of that.
+
+Both one-block sources have a stamps build, a library of its own
+(``common.SWEEP_STAMPS_FLAGS``), that times the Gibbs rhs pass and each colour
+phase of a launch (:func:`sweep_pass_times`).
 
 Beside each kernel stands its **plain PyTorch version**
 (:func:`sweep_batched_plain`, which is ``smoothers.sor_sweep``, and
@@ -65,6 +75,7 @@ from a tensor.
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import functools
 import math
@@ -75,8 +86,8 @@ import torch
 
 from ..coloring import Coloring
 from ..stencil import StencilOperator
-from .common import (compress_plan, default_threads, dynamic_smem_limit, open_library,
-                     tensor_ptr)
+from .common import (SWEEP_STAMPS_FLAGS, compress_plan, default_threads, dynamic_smem_limit,
+                     open_library, sm_count, stamp_breakdown, tensor_ptr)
 
 MAX_OFFSETS = 27
 MAX_COLORS = 8
@@ -84,7 +95,56 @@ MAX_COLORS = 8
 #: the CUDA sources under ``csrc/`` (see :mod:`.common` for the build): one
 #: thread block per chain, and each chain split over a thread-block cluster
 SOURCE_NAME = "sor_sweep"
+PASSES_SOURCE_NAME = "sor_sweep_passes"
 SPLIT_SOURCE_NAME = "sor_sweep_cluster"
+
+#: the two bodies of the one-block route: the passes of ``level_passes.cuh``
+#: (``sor_sweep_passes.cu``) and the generic body (``sor_sweep.cu``)
+BODIES = ("passes", "generic")
+#: the most offsets the passes take (``MAX_OFFSETS`` of ``visit_phases.cuh``)
+PASSES_MAX_OFFSETS = 9
+#: int64 words per block of the one-block kernels' stamps (``SWEEP_STAMP_WIDTH``
+#: in both sources): the timer at entry, after the rhs pass and up to
+#: ``MAX_COLORS`` colour phases and at exit, the barriers passed, the SM
+SWEEP_STAMP_WIDTH = 2 + MAX_COLORS + 3
+
+#: Block sizes of the passes body (:func:`sweep_threads`), from ``chip_smoke.py
+#: --phases sweep_threads`` (device ms per launch at 256 / 512 / 1024 threads,
+#: the deterministic kernel, NVIDIA H100 80GB HBM3, 700.00 W; the Gibbs kernel
+#: picks the same within 4%):
+#:
+#: ======  ========================  ========================
+#: chains  255^2 5-point             127^2 9-point Galerkin
+#: ======  ========================  ========================
+#:     64  0.0853 / 0.0551 / 0.0460  0.0230 / 0.0174 / 0.0161
+#:    132  0.1136 / 0.0817 / 0.0771  0.0239 / 0.0178 / 0.0167
+#:    200  0.1389 / 0.1205 / 0.1224  0.0319 / 0.0280 / 0.0312
+#:    256  0.1559 / 0.1462 / 0.1458  0.0343 / 0.0287 / 0.0323
+#:    512  0.2945 / 0.2846 / 0.2826  0.0922 / 0.0660 / 0.0775
+#: ======  ========================  ========================
+#:
+#: ======  ========================  ========================
+#: chains  63^2 9-point Galerkin     31^2 9-point Galerkin
+#: ======  ========================  ========================
+#:     64  0.0121 / 0.0096 / 0.0093  0.0073 / 0.0061 / 0.0068
+#:    132  0.0122 / 0.0098 / 0.0096  0.0075 / 0.0063 / 0.0069
+#:    200  0.0154 / 0.0144 / 0.0173  0.0090 / 0.0086 / 0.0123
+#:    256  0.0155 / 0.0145 / 0.0175  0.0090 / 0.0086 / 0.0124
+#:    512  0.0256 / 0.0269 / 0.0334  0.0143 / 0.0159 / 0.0233
+#: 28,529  1.1562 / 1.4166 / 1.8432  0.6144 / 0.7680 / 1.3067
+#: ======  ========================  ========================
+#:
+#: A block of 1024 threads is one an SM (64 registers a thread), 512 two, 256
+#: four: the block size that holds the chains in one wave, no larger than
+#: :data:`SWEEP_MOST_THREADS` and no smaller than :data:`SWEEP_LEAST_THREADS`
+#: allow for the field's points.
+SWEEP_WAVE_THREADS = (1024, 512, 256)
+#: the largest block size by the field's points: (least points, threads),
+#: largest first (31^2: 32 warps leave most idle on its 8 rows a colour)
+SWEEP_MOST_THREADS = ((3000, 1024), (900, 512), (0, 256))
+#: the smallest block size by the field's points (127^2 at 512 chains: 256
+#: threads take 1.4 times as long as 512)
+SWEEP_LEAST_THREADS = ((16000, 512), (0, 256))
 
 #: the one-block route; the split route is ``("split", S)``
 BLOCK_ROUTE = ("block", 1)
@@ -97,29 +157,46 @@ SPLIT_SIZES = (16, 8, 4, 2)
 SPLIT_TABLE_INTS = MAX_COLORS * MAX_COLORS
 
 #: Launches of at most this many chains take the split route where its bands
-#: fit and its cluster schedules, more take one block per chain.  Of the
-#: cluster sizes that fit, the route takes the one of least
+#: fit and its cluster schedules, more take one block per chain: for the
+#: passes body (:func:`sweep_body`) by kernel and by whether the stencil has at
+#: most 5 offsets, for the generic body (3d fields, wider stencils)
+#: :data:`SPLIT_MAX_CHAINS_GENERIC` (:func:`split_max_chains`).  Of the cluster
+#: sizes that fit, the route takes the one of least
 #: ``waves * (1 / S + SPLIT_WAVE_FIXED)``: a launch of ``C`` chains runs in
 #: ``waves = ceil(C / active)`` waves of clusters (``active``: the clusters of
 #: that size the card holds at once, ``cudaOccupancyMaxActiveClusters``), and a
 #: wave lasts as long as a block takes for its band, about ``1 / S`` of a field,
-#: plus a fixed part (the load, the barriers, the launch), here a 25th of a
-#: whole field's time.  Both constants come from the ``sweep_routes`` table of
+#: plus a fixed part (the load, the barriers, the launch), here a 40th of a
+#: whole field's time (a 25th before the passes body: it took clusters of 4 at
+#: 16 chains of 255^2, where 16 measured 0.0417 against 0.0491 ms and 0.0420
+#: against 0.0429 in two runs).  The constants come from the ``sweep_routes`` table of
 #: ``chip_smoke.py``, which fails if the table supports other values: device
 #: time per sweep of both routes (the split route at every cluster size that
-#: fits) at 1 .. 256 chains on 255^2 5-point, 127^2 9-point and 127^2 5-point
-#: (space-varying) fields and at one chain on a 63^3 7-point field, NVIDIA H100
-#: 80GB HBM3, 700.00 W (the split route is at least 10% faster on every field up
-#: to 32 chains, not on the varying field at 64, and loses everywhere from 132; a
-#: cluster of 16 takes 13 us for a 255^2 sweep alone, and 7 such clusters run at
-#: once); PERF.md section 6 holds the table.
-SPLIT_MAX_CHAINS = 32
-SPLIT_WAVE_FIXED = 0.04
+#: fits) at 1 .. 256 chains on 255^2 5-point, 127^2 9-point Galerkin and 127^2
+#: 5-point (space-varying) fields and at one chain on a 63^3 7-point field,
+#: NVIDIA H100 80GB HBM3, 700.00 W.  Against the passes body the split route
+#: takes less than 0.9 of its time up to 16 chains for the 5-point sweep
+#: (255^2 at 16: 0.0382 against 0.0445 ms; at 32 0.0630 against 0.0447), up to
+#: 32 for the 5-point Gibbs sweep (255^2 at 32: 0.0707 against 0.0829), up to
+#: 16 for the 9-point Gibbs sweep (0.0218 against 0.0261), and at no count for
+#: the 9-point sweep (one chain: 0.0194 against 0.0159); PERF.md section 6
+#: holds the table.
+SPLIT_MAX_CHAINS: Dict[Tuple[str, bool], int] = {
+    ("sweep", True): 16, ("gibbs", True): 32, ("sweep", False): 0, ("gibbs", False): 16}
+#: the same for the generic body, measured against it before the passes body
+#: took the 2d reach-1 stencils (PR 6's table: the split route at least 10%
+#: faster up to 32 chains on every field); the table's 63^3 row holds it at
+#: one chain
+SPLIT_MAX_CHAINS_GENERIC = 32
+SPLIT_WAVE_FIXED = 0.025
 
 #: kernel launches made by the wrappers (and only where they launch); the
-#: ``_split`` entries count the split route
+#: ``_split`` entries count the split route, the ``_generic`` entries the
+#: one-block route's generic body (3d fields, wider stencils), the entries
+#: without a suffix its passes body
 launch_counts: Dict[str, int] = {
     "sweep_batched": 0, "gibbs_sweep_batched": 0,
+    "sweep_batched_generic": 0, "gibbs_sweep_batched_generic": 0,
     "sweep_batched_split": 0, "gibbs_sweep_batched_split": 0,
     "fused_sor_sweep": 0, "fused_sor_sweep_batched": 0,
     "fused_gibbs_sweep_batched": 0, "fused_gibbs_sweep": 0,
@@ -156,22 +233,67 @@ class SweepParams(ctypes.Structure):
     ]
 
 
+def _check_stamps_library(lib, prefix: str, stamps: bool) -> None:
+    """The library's build (stamps or production) and stamp width against
+    what the host expects."""
+    for fn in (getattr(lib, f"{prefix}_stamps_build"), getattr(lib, f"{prefix}_stamp_width")):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+    if getattr(lib, f"{prefix}_stamps_build")() != int(stamps):
+        raise RuntimeError(f"the {prefix} library is not the build asked for")
+    if getattr(lib, f"{prefix}_stamp_width")() != SWEEP_STAMP_WIDTH:
+        raise RuntimeError(f"the {prefix} kernels' stamps differ in width between Python and CUDA")
+
+
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build (at first use) and load the sweep kernels' shared library."""
-    lib = open_library(SOURCE_NAME)
+def load_library(stamps: bool = False) -> ctypes.CDLL:
+    """Build (at first use) and load the generic one-block sweep kernels'
+    shared library, or with ``stamps`` their stamps build."""
+    lib = open_library(SOURCE_NAME, SWEEP_STAMPS_FLAGS if stamps else ())
+    _check_stamps_library(lib, "sor_sweep", stamps)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.sor_sweep_params_size.argtypes = []
     lib.sor_sweep_params_size.restype = i32
     if lib.sor_sweep_params_size() != ctypes.sizeof(SweepParams):
         raise RuntimeError("SweepParams layout differs between Python and CUDA")
-    # P, x, b, coeffs, threads, stream
-    lib.sor_sweep_batched.argtypes = [ctypes.POINTER(SweepParams)] + [ptr] * 3 + [i32, ptr]
+    # P, x, b, coeffs, threads, stamps, stream
+    lib.sor_sweep_batched.argtypes = [ctypes.POINTER(SweepParams)] + [ptr] * 3 + [i32, ptr, ptr]
     lib.sor_sweep_batched.restype = i32
-    # P, x, f, scratch, coeffs, ns, xi, threads, stream
+    # P, x, f, scratch, coeffs, ns, xi, threads, stamps, stream
     lib.sor_gibbs_sweep_batched.argtypes = (
-        [ctypes.POINTER(SweepParams)] + [ptr] * 6 + [i32, ptr])
+        [ctypes.POINTER(SweepParams)] + [ptr] * 6 + [i32, ptr, ptr])
     lib.sor_gibbs_sweep_batched.restype = i32
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_passes_library(stamps: bool = False) -> ctypes.CDLL:
+    """Build (at first use) and load the one-block sweep kernels on the passes
+    of ``level_passes.cuh``, or with ``stamps`` their stamps build."""
+    from .mgmc_visit import STENCIL_FORMS, VisitParams
+
+    lib = open_library(PASSES_SOURCE_NAME, SWEEP_STAMPS_FLAGS if stamps else ())
+    _check_stamps_library(lib, "sor_passes", stamps)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.sor_passes_params_size, lib.sor_passes_stencil_forms):
+        fn.argtypes = []
+        fn.restype = i32
+    if lib.sor_passes_params_size() != ctypes.sizeof(VisitParams):
+        raise RuntimeError("VisitParams layout differs between Python and CUDA")
+    if lib.sor_passes_stencil_forms() != STENCIL_FORMS:
+        raise RuntimeError("the sweep kernels' stencil forms differ between Python and CUDA")
+    lib.sor_passes_kernel_attributes.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.sor_passes_kernel_attributes.restype = i32
+    lib.sor_passes_blocks_per_sm.argtypes = [i32] * 3
+    lib.sor_passes_blocks_per_sm.restype = i32
+    # P, rows, x, b, coeffs, form, threads, stamps, stream
+    lib.sor_passes_sweep.argtypes = ([ctypes.POINTER(VisitParams)] + [ptr] * 4
+                                     + [i32, i32, ptr, ptr])
+    lib.sor_passes_sweep.restype = i32
+    # P, rows, x, f, scratch, coeffs, ns, xi, form, threads, stamps, stream
+    lib.sor_passes_gibbs_sweep.argtypes = ([ctypes.POINTER(VisitParams)] + [ptr] * 7
+                                           + [i32, i32, ptr, ptr])
+    lib.sor_passes_gibbs_sweep.restype = i32
     return lib
 
 
@@ -311,12 +433,22 @@ def split_size(C: int, vshape, offsets, noise_mode: int, device,
     return cheapest_cluster(C, active)
 
 
+def split_max_chains(vshape, offsets, noise_mode: int) -> int:
+    """The most chains a sweep of fields ``vshape`` with a stencil of
+    ``offsets`` takes the split route for (:data:`SPLIT_MAX_CHAINS`,
+    :data:`SPLIT_MAX_CHAINS_GENERIC`); ``noise_mode`` 0 is the deterministic
+    kernel, 1 and 2 the Gibbs kernel."""
+    if sweep_body(vshape, offsets) == "generic":
+        return SPLIT_MAX_CHAINS_GENERIC
+    return SPLIT_MAX_CHAINS[("gibbs" if noise_mode else "sweep", len(offsets) <= 5)]
+
+
 def split_route(C: int, vshape, offsets, noise_mode: int, device,
                 smem_limit: Optional[int] = None) -> Tuple[str, int]:
     """The route of a sweep of ``C`` chains of fields ``vshape``: ``("split",
-    S)`` for at most :data:`SPLIT_MAX_CHAINS` chains where :func:`split_size`
+    S)`` for at most :func:`split_max_chains` chains where :func:`split_size`
     finds a cluster size ``S``, :data:`BLOCK_ROUTE` otherwise."""
-    if C > SPLIT_MAX_CHAINS:
+    if C > split_max_chains(vshape, offsets, noise_mode):
         return BLOCK_ROUTE
     S = split_size(C, vshape, offsets, noise_mode, device, smem_limit)
     return BLOCK_ROUTE if S is None else ("split", S)
@@ -329,6 +461,85 @@ def sweep_route(C: int, plan: "SweepPlan", noise_mode: int = 0,
     the deterministic kernel, 1 and 2 the Gibbs kernel."""
     return split_route(C, plan.op.vshape, plan.op.offsets, noise_mode, plan.op.device,
                        smem_limit)
+
+
+def sweep_body(vshape, offsets) -> str:
+    """The body of the one-block route's kernels for fields ``vshape`` and a
+    stencil of ``offsets``: ``"passes"`` (``csrc/sor_sweep_passes.cu``) for 2d
+    stencils of reach 1 with at most :data:`PASSES_MAX_OFFSETS` offsets, every
+    level of the flagship and of the drivers; ``"generic"``
+    (``csrc/sor_sweep.cu``) for 3d fields and wider stencils."""
+    if (len(vshape) == 2 and len(offsets) <= PASSES_MAX_OFFSETS
+            and all(abs(int(v)) <= 1 for off in offsets for v in off)):
+        return "passes"
+    return "generic"
+
+
+def sweep_threads(C: int, n: int, sms: int) -> int:
+    """Threads per block of a launch of the passes body of ``C`` chains of
+    ``n`` points, on a card of ``sms`` SMs: the largest of
+    :data:`SWEEP_WAVE_THREADS` whose blocks run all chains in one wave (the
+    smallest where none does), bounded by the field's
+    :data:`SWEEP_MOST_THREADS` and :data:`SWEEP_LEAST_THREADS`."""
+    wave = next((t for t in SWEEP_WAVE_THREADS if C <= sms * (1024 // t)), SWEEP_WAVE_THREADS[-1])
+    most = next(t for points, t in SWEEP_MOST_THREADS if n >= points)
+    least = next(t for points, t in SWEEP_LEAST_THREADS if n >= points)
+    return max(least, min(most, wave))
+
+
+def pass_params(P: SweepParams):
+    """The passes' parameter block (``VisitParams`` of ``visit_phases.cuh``)
+    of a 2d sweep: the sweep's own parameter block with no low-rank term
+    (``m = 0``) and no coarse level; ``f_batched`` says whether ``b`` is per
+    chain.  The Philox stream is set per launch."""
+    from .mgmc_visit import VisitParams
+
+    if P.Z != 1 or P.K > PASSES_MAX_OFFSETS:
+        raise ValueError("the passes take 2d stencils of reach 1 with at most "
+                         f"{PASSES_MAX_OFFSETS} offsets")
+    V = VisitParams()
+    V.C, V.H, V.W = P.C, P.Y, P.X
+    V.K, V.diag_index = P.K, P.diag_index
+    for k in range(P.K):
+        V.dy[k], V.dx[k] = P.dy[k], P.dx[k]
+        V.coeff_const[k], V.coeff_val[k] = P.coeff_const[k], P.coeff_val[k]
+    V.n_colors, V.w0, V.w1, V.jstride = P.n_colors, P.wy, P.wx, P.jstride
+    V.n_order = P.n_order
+    for o in range(P.n_order):
+        V.order[o] = P.order[o]
+    V.omega = P.omega
+    V.noise_mode, V.ns_const, V.ns_val = P.noise_mode, P.ns_const, P.ns_val
+    V.f_batched = P.b_batched
+    return V
+
+
+class PassLaunch:
+    """What a launch of the passes body takes besides the fields: the
+    parameter block (:func:`pass_params`), the rows table of the sweep's order
+    (``mgmc_visit.colour_rows``) on the device, the stencil form (one kernel
+    each) and the block size."""
+
+    def __init__(self, P: SweepParams, const_coeffs, device, threads: int):
+        from .mgmc_visit import colour_rows, stencil_form
+
+        self.params = pass_params(P)
+        # per colour of the order the row residues that hold it and its first column
+        self.rows = torch.from_numpy(colour_rows(self.params)).to(device)
+        offsets = [(P.dy[k], P.dx[k]) for k in range(P.K)]
+        self.form = stencil_form(offsets, const_coeffs)
+        self.threads = int(threads)
+
+    def scratch_floats(self) -> int:
+        """Floats of the Gibbs kernel's rhs scratch a chain, packed by colour:
+        ``n_colors`` fields of ``H`` rows of ``ceil(W / jstride)``
+        (``packed_index`` of ``level_passes.cuh``)."""
+        V = self.params
+        return V.n_colors * V.H * -(-V.W // V.jstride)
+
+    def at(self, P: SweepParams) -> "PassLaunch":
+        """This launch under ``P``'s Philox stream."""
+        self.params.seed, self.params.counter = P.seed, P.counter
+        return self
 
 
 def kernel_support_error(op: StencilOperator, n_colors: int) -> Optional[str]:
@@ -357,9 +568,13 @@ class SweepPlan:
             coloring.masks(), dtype=op.dtype, device=op.device)
         self.coeffs = op.coeffs.contiguous()
         self.noise_scale = noise_scale(op, self.omega).contiguous()
+        #: the one-block route's body (:func:`sweep_body`)
+        self.body = sweep_body(op.vshape, op.offsets)
+        #: threads per block of the generic body
         self.threads = default_threads(int(np.prod(op.vshape)))
         self._compressed = None
         self._params_cache = {}
+        self._pass_cache = {}
         self._routes = {}
 
     def on_kernel_device(self) -> bool:
@@ -389,6 +604,16 @@ class SweepPlan:
         if key not in self._routes:
             self._routes[key] = sweep_route(C, self, noise_mode)
         return self._routes[key]
+
+    def pass_launch(self, P: SweepParams) -> PassLaunch:
+        """The passes body's launch of the configuration of ``P`` (built by
+        :meth:`params`), kept per configuration; block size
+        :func:`sweep_threads` on the card's SM count."""
+        key = (P.C, bool(P.b_batched), P.noise_mode)
+        if key not in self._pass_cache:
+            threads = sweep_threads(P.C, int(np.prod(self.op.vshape)), sm_count(self.op.device))
+            self._pass_cache[key] = PassLaunch(P, self._compressed[0], self.op.device, threads)
+        return self._pass_cache[key].at(P)
 
     def _build_params(self, C: int, b_batched: bool, noise_mode: int) -> SweepParams:
         op = self.op
@@ -543,12 +768,33 @@ def _check_route(route, x: torch.Tensor) -> Tuple[str, int]:
     return kind, int(S)
 
 
+def _check_body(body: str, vshape, offsets, route, stamps, x) -> None:
+    """The one-block body asked for against what it takes; the stamps tensor
+    against the launch (the one-block route only)."""
+    if body not in BODIES:
+        raise ValueError(f"body must be one of {BODIES}, got {body!r}")
+    if body == "passes" and sweep_body(vshape, offsets) != "passes":
+        raise ValueError("the passes body takes 2d stencils of reach 1 with at most "
+                         f"{PASSES_MAX_OFFSETS} offsets")
+    if stamps is None:
+        return
+    if route[0] != "block":
+        raise ValueError("only the one-block route has a stamps build")
+    if (stamps.dtype != torch.int64 or stamps.device != x.device or not stamps.is_contiguous()
+            or tuple(stamps.shape) != (x.shape[0], SWEEP_STAMP_WIDTH)):
+        raise ValueError(f"stamps must be a contiguous int64 ({x.shape[0]}, "
+                         f"{SWEEP_STAMP_WIDTH}) tensor on {x.device}")
+
+
 def _launch(P: SweepParams, route: Tuple[str, int], vshape, threads: int, x: torch.Tensor,
             b: torch.Tensor, coeffs: torch.Tensor, ns: Optional[torch.Tensor] = None,
-            xi: Optional[torch.Tensor] = None) -> int:
+            xi: Optional[torch.Tensor] = None, passes: Optional[PassLaunch] = None,
+            stamps: Optional[torch.Tensor] = None) -> int:
     """Launch the deterministic kernel (``P.noise_mode == 0``) or the Gibbs
     kernel of ``route`` on the current stream of ``x``'s device; returns the
-    CUDA error.  ``threads`` is the one-block route's block size."""
+    CUDA error.  On the one-block route ``passes`` takes the passes body
+    (else the generic body, with ``threads`` per block); ``stamps`` takes the
+    body's stamps build."""
     kind, S = route
     gibbs = P.noise_mode != 0
     with torch.cuda.device(x.device):
@@ -561,27 +807,72 @@ def _launch(P: SweepParams, route: Tuple[str, int], vshape, threads: int, x: tor
                     ns.data_ptr(), tensor_ptr(xi), S, t, stream)
             return lib.sor_sweep_cluster(ctypes.byref(P), x.data_ptr(), b.data_ptr(),
                                          coeffs.data_ptr(), S, t, stream)
-        lib = load_library()
+        if passes is not None:
+            lib = load_passes_library(stamps is not None)
+            V, rows = ctypes.byref(passes.params), passes.rows.data_ptr()
+            if gibbs:
+                scratch = torch.empty((x.shape[0], passes.scratch_floats()), dtype=x.dtype,
+                                      device=x.device)
+                return lib.sor_passes_gibbs_sweep(
+                    V, rows, x.data_ptr(), b.data_ptr(), scratch.data_ptr(), coeffs.data_ptr(),
+                    ns.data_ptr(), tensor_ptr(xi), passes.form, passes.threads,
+                    tensor_ptr(stamps), stream)
+            return lib.sor_passes_sweep(V, rows, x.data_ptr(), b.data_ptr(), coeffs.data_ptr(),
+                                        passes.form, passes.threads, tensor_ptr(stamps), stream)
+        lib = load_library(stamps is not None)
         if gibbs:
             scratch = torch.empty_like(x)  # c, written before the first phase
             return lib.sor_gibbs_sweep_batched(
                 ctypes.byref(P), x.data_ptr(), b.data_ptr(), scratch.data_ptr(),
-                coeffs.data_ptr(), ns.data_ptr(), tensor_ptr(xi), threads, stream)
+                coeffs.data_ptr(), ns.data_ptr(), tensor_ptr(xi), threads, tensor_ptr(stamps),
+                stream)
         return lib.sor_sweep_batched(ctypes.byref(P), x.data_ptr(), b.data_ptr(),
-                                     coeffs.data_ptr(), threads, stream)
+                                     coeffs.data_ptr(), threads, tensor_ptr(stamps), stream)
+
+
+def _count_name(base: str, route, body: str) -> str:
+    """The launch count of ``base`` through ``route`` and ``body``."""
+    if route[0] == "split":
+        return base + "_split"
+    return base if body == "passes" else base + "_generic"
+
+
+def _passes_of(plan: SweepPlan, P: SweepParams, route, body: str,
+               threads: Optional[int]) -> Optional[PassLaunch]:
+    """The passes body's launch where the one-block route takes that body,
+    with ``threads`` per block where given (else :func:`sweep_threads`)."""
+    if body != "passes" or route[0] != "block":
+        return None
+    passes = plan.pass_launch(P)
+    if threads is not None:
+        passes = copy.copy(passes)
+        passes.threads = int(threads)
+    return passes
 
 
 def launch_sweep(plan: SweepPlan, route: Tuple[str, int], b: torch.Tensor,
-                 x: torch.Tensor) -> torch.Tensor:
+                 x: torch.Tensor, body: Optional[str] = None,
+                 stamps: Optional[torch.Tensor] = None,
+                 threads: Optional[int] = None) -> torch.Tensor:
     """One deterministic sweep through the kernel of ``route``
     (:data:`BLOCK_ROUTE` or ``("split", S)``); :func:`sweep_batched` takes
     ``plan.route(C)``, ``chip_smoke.py`` names the route to hold the two
-    against each other.  Updates ``x`` in place and returns it, or raises."""
+    against each other.  ``body`` names the one-block route's body (default:
+    ``plan.body``; ``chip_smoke.py`` holds the two against each other),
+    ``stamps`` takes its stamps build, an int64 tensor of shape ``(C,
+    SWEEP_STAMP_WIDTH)`` that the launch fills (:func:`sweep_pass_times`);
+    ``threads`` sets the passes body's block size (default:
+    :func:`sweep_threads`).  Updates ``x`` in place and returns it, or
+    raises."""
     route = _check_route(route, x)
+    body = plan.body if body is None else body
+    _check_body(body, plan.op.vshape, plan.op.offsets, route, stamps, x)
     C, b_batched = _check_sweep_args(plan, b, x)
     P = plan.params(C, b_batched, 0, None)
-    err = _launch(P, route, plan.op.vshape, plan.threads, x, b, plan.coeffs)
-    name = "sweep_batched_split" if route[0] == "split" else "sweep_batched"
+    passes = _passes_of(plan, P, route, body, threads)
+    err = _launch(P, route, plan.op.vshape, plan.threads, x, b, plan.coeffs, passes=passes,
+                  stamps=stamps)
+    name = _count_name("sweep_batched", route, body)
     launch_counts[name] += 1
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err}")
@@ -590,23 +881,48 @@ def launch_sweep(plan: SweepPlan, route: Tuple[str, int], b: torch.Tensor,
 
 def launch_gibbs_sweep(plan: SweepPlan, route: Tuple[str, int], f: torch.Tensor,
                        x: torch.Tensor, xi: Optional[torch.Tensor] = None,
-                       philox: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                       philox: Optional[Tuple[int, int]] = None, body: Optional[str] = None,
+                       stamps: Optional[torch.Tensor] = None,
+                       threads: Optional[int] = None) -> torch.Tensor:
     """One Gibbs sweep through the kernel of ``route``, as :func:`launch_sweep`;
     the normals as :func:`gibbs_sweep_batched` takes them.  The one-block
-    kernel writes ``c`` to a scratch field, the split kernel forms it in shared
-    memory."""
+    kernels write ``c`` to a scratch field, the split kernel forms it in shared
+    memory (the passes body packs it by colour)."""
     if (xi is None) == (philox is None):
         raise ValueError("give the field noise as a tensor or as a Philox stream, one of the two")
     route = _check_route(route, x)
+    body = plan.body if body is None else body
+    _check_body(body, plan.op.vshape, plan.op.offsets, route, stamps, x)
     C, f_batched = _check_sweep_args(plan, f, x, xi)
     P = plan.params(C, f_batched, 1 if philox is not None else 2, philox)
+    passes = _passes_of(plan, P, route, body, threads)
     err = _launch(P, route, plan.op.vshape, plan.threads, x, f, plan.coeffs,
-                  plan.noise_scale, xi)
-    name = "gibbs_sweep_batched_split" if route[0] == "split" else "gibbs_sweep_batched"
+                  plan.noise_scale, xi, passes, stamps)
+    name = _count_name("gibbs_sweep_batched", route, body)
     launch_counts[name] += 1
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err}")
     return x
+
+
+def sweep_pass_names(order, gibbs: bool):
+    """The passes of a one-block sweep in the order its stamps time them (each
+    ends with a barrier): the Gibbs rhs, then one per colour of ``order``."""
+    return (["rhs"] if gibbs else []) + [f"colour {c}" for c in order]
+
+
+def barrier_count(order, gibbs: bool) -> int:
+    """Barriers of one one-block sweep launch, as both bodies place them: one
+    after the Gibbs rhs pass, one after each colour of ``order``; the stamps
+    builds count them on the card."""
+    return len(order) + int(gibbs)
+
+
+def sweep_pass_times(order, gibbs: bool, stamps) -> dict:
+    """Where one one-block sweep launch went, from the ``stamps`` it wrote
+    (``common.stamp_breakdown``): us per pass, their sum, the spans, the
+    barriers each block passed and the blocks one SM ran at once."""
+    return stamp_breakdown(stamps, sweep_pass_names(order, gibbs), SWEEP_STAMP_WIDTH)
 
 
 # ------------------------------------------- entry points on raw arrays (v1)
@@ -720,7 +1036,13 @@ def _launch_raw(name, coeffs, b, x, xi, philox, *, offsets, diag_index, omega, o
     P.seed, P.counter = philox if philox is not None else (0, 0)
     route = split_route(C, vshape, offsets, noise_mode, x.device)
     ns = _raw_noise_scale(coeffs, diag_index, omega).contiguous() if noise_mode else None
-    err = _launch(P, route, vshape, default_threads(int(np.prod(vshape))), x, b, coeffs, ns, xi)
+    n = int(np.prod(vshape))
+    passes = None
+    if route[0] == "block" and sweep_body(vshape, offsets) == "passes":
+        # every coefficient plane is read from the tensor
+        passes = PassLaunch(P, (None,) * len(offsets), x.device,
+                            sweep_threads(C, n, sm_count(x.device))).at(P)
+    err = _launch(P, route, vshape, default_threads(n), x, b, coeffs, ns, xi, passes)
     launch_counts[name] += 1
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err}")

@@ -285,7 +285,8 @@ def test_shared_memory_probe_on_the_cpu():
     assert not common.probe_dynamic_smem(48 * 1024 + 4, CPU)
     assert common.launch_counts["smem_probe"] == 0  # no kernel was launched here
     assert set(common.SOURCES) == {"mgmc_visit", "mgmc_visit_stream", "mgmc_visit_split",
-                                   "sor_sweep", "sor_sweep_cluster", "mgmc_subtree",
+                                   "sor_sweep", "sor_sweep_passes", "sor_sweep_cluster",
+                                   "mgmc_subtree",
                                    "smem_probe"}
     for name in common.SOURCES:
         assert common.source_path(name).exists()

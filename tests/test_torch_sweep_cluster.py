@@ -211,18 +211,31 @@ def test_drivers_shapes_take_the_split_route(limit):
     fine, coarse = _driver_plan(256), _driver_plan(256, galerkin=True)
     assert fine.op.vshape == (255, 255) and coarse.op.vshape == (127, 127)
     # drivers.mgmc's one-chain SSOR series (Gibbs) and drivers.mg's solve
-    # (deterministic sweeps on 255^2 and its 127^2 Galerkin level)
+    # (deterministic sweeps on 255^2; on its 127^2 Galerkin level the passes
+    # body beats the split route at one chain, so one block)
     assert ss.sweep_route(1, fine, 1, limit) == ("split", 16)
     assert ss.sweep_route(1, fine, 0, limit) == ("split", 16)
-    assert ss.sweep_route(1, coarse, 0, limit) == ("split", 16)
+    assert ss.sweep_route(1, coarse, 0, limit) == ss.BLOCK_ROUTE
+    assert ss.sweep_route(1, coarse, 1, limit) == ("split", 16)
     # 256 replica chains (the convergence tables) and the distillation's basis
     # fields keep one block per chain
     for C in (256, 28529):
         assert ss.sweep_route(C, fine, 1, limit) == ss.BLOCK_ROUTE
-    # on the CPU every cluster is taken to run at once: the largest size that fits
-    for C in range(1, ss.SPLIT_MAX_CHAINS + 1):
-        assert ss.sweep_route(C, coarse, 0, limit) == ("split", 16)
-    assert ss.sweep_route(ss.SPLIT_MAX_CHAINS + 1, coarse, 0, limit) == ss.BLOCK_ROUTE
+    # the thresholds by kernel and stencil size (on the CPU every cluster is
+    # taken to run at once: the largest size that fits)
+    assert ss.SPLIT_MAX_CHAINS == {("sweep", True): 16, ("gibbs", True): 32,
+                                   ("sweep", False): 0, ("gibbs", False): 16}
+    for plan in (fine, coarse):
+        for noise_mode in (0, 1, 2):
+            most = ss.split_max_chains(plan.op.vshape, plan.op.offsets, noise_mode)
+            assert most == ss.SPLIT_MAX_CHAINS[("gibbs" if noise_mode else "sweep",
+                                                plan is fine)]
+            for C in range(1, most + 1):
+                assert ss.sweep_route(C, plan, noise_mode, limit) == ("split", 16)
+            assert ss.sweep_route(most + 1, plan, noise_mode, limit) == ss.BLOCK_ROUTE
+    # the generic body (3d, reach 2) keeps its own threshold
+    offsets3 = ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1))
+    assert ss.split_max_chains((63, 63, 63), offsets3, 0) == ss.SPLIT_MAX_CHAINS_GENERIC == 32
 
 
 #: clusters of a 255^2 sweep that an H100 holds at once, by cluster size (the
@@ -231,7 +244,7 @@ ACTIVE_255 = {16: 7, 8: 15, 4: 30, 2: 66}
 
 
 @pytest.mark.parametrize("C,deterministic,gibbs", [
-    (1, 16, 16), (4, 16, 16), (8, 8, 8), (16, 4, 4), (32, 8, 8), (64, 2, 8)])
+    (1, 16, 16), (4, 16, 16), (8, 8, 8), (16, 16, 16), (32, 16, 16), (64, 2, 8)])
 def test_cluster_size_minimises_the_waves(monkeypatch, C, deterministic, gibbs):
     # the cluster sizes the 255^2 rows of the sweep_routes table measured best
     # (or within a few per cent of it) at these chain counts
@@ -243,7 +256,8 @@ def test_cluster_size_minimises_the_waves(monkeypatch, C, deterministic, gibbs):
     args = (fine.op.vshape, fine.op.offsets)
     assert ss.split_size(C, *args, 0, "cuda", H100_SMEM) == deterministic
     assert ss.split_size(C, *args, 1, "cuda", H100_SMEM) == gibbs
-    want = ("split", deterministic) if C <= ss.SPLIT_MAX_CHAINS else ss.BLOCK_ROUTE
+    want = (("split", deterministic) if C <= ss.split_max_chains(*args, 0)
+            else ss.BLOCK_ROUTE)
     assert ss.sweep_route(C, fine, 0, H100_SMEM) == want
     assert ss.split_cost(8, 16, 7) == 2 * (1 / 16 + ss.SPLIT_WAVE_FIXED)
 
@@ -343,18 +357,22 @@ def test_kernels_philox_key_is_not_the_seed():
 # ------------------------------------------------- (d) the visit route's limit
 @pytest.mark.parametrize("limit", [48 * 1024, 100 * 1024, H100_SMEM])
 def test_visit_route_compares_with_the_granted_shared_memory(monkeypatch, limit):
-    # the production route has no stream threshold: the phase kernels
+    # without a level shape the route has no stream threshold: the phase kernels
     assert mv.visit_route(256, 0, smem_limit=limit) == "phase"
     # the flagship's 255^2 stream launch needs 75,212 B plus the static part:
-    # with a stream threshold of 256 chains it takes the stream kernels only
-    # where a block is granted that much
-    monkeypatch.setattr(mv, "STREAM_MIN_CHAINS", 256)
+    # at its threshold of 256 chains it takes the stream kernels only where a
+    # block is granted that much
+    assert mv.stream_min_chains((255, 255), 0) == 256
+    fine = {"vshape": (255, 255), "form": 0}
     need = 75212 + mv.STREAM_STATIC_SMEM
-    assert mv.visit_route(256, 75212, smem_limit=limit) == (
+    assert mv.visit_route(256, 75212, smem_limit=limit, **fine) == (
         "stream" if need <= limit else "phase")
-    assert mv.visit_route(256, limit - mv.STREAM_STATIC_SMEM, smem_limit=limit) == "stream"
-    assert mv.visit_route(256, limit - mv.STREAM_STATIC_SMEM + 4, smem_limit=limit) == "phase"
-    assert mv.visit_route(mv.STREAM_MIN_CHAINS - 1, 0, smem_limit=limit) == "phase"
+    assert mv.visit_route(256, limit - mv.STREAM_STATIC_SMEM, smem_limit=limit,
+                          **fine) == "stream"
+    assert mv.visit_route(256, limit - mv.STREAM_STATIC_SMEM + 4, smem_limit=limit,
+                          **fine) == "phase"
+    assert mv.visit_route(mv.stream_min_chains((255, 255), 0) - 1, 0, smem_limit=limit,
+                          **fine) == "phase"
     # without a limit the route asks the device: on the CPU its default, 48 KiB
-    assert mv.visit_route(256, 75212, device=CPU) == "phase"
-    assert mv.visit_route(256, 40000, device=CPU) == "stream"
+    assert mv.visit_route(256, 75212, device=CPU, **fine) == "phase"
+    assert mv.visit_route(256, 40000, device=CPU, **fine) == "stream"

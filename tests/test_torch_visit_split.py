@@ -328,13 +328,20 @@ def test_drivers_levels_take_the_split_route(monkeypatch, limit):
         for C in (mv.SPLIT_MAX_CHAINS + 1, 128, 255):
             assert mv.visit_route(C, level.stream_bytes, CPU, limit, vshape) == "phase"
             assert mv.split_cluster(C, vshape, CPU, limit) is None
-    # 256 replica chains: the stream kernels where their rings fit and the route
-    # has a stream threshold; the production route has none and takes the
-    # phase kernels
+    # 256 replica chains: the stream kernels on the 255^2 level, the one shape
+    # the table holds a stream threshold for (where their rings fit), the phase
+    # kernels on 127^2
+    assert (fine.stencil_form, coarse.stencil_form) == (0, 2)
+    assert mv.visit_route(256, fine.stream_bytes, CPU, H100_SMEM, (255, 255),
+                          fine.stencil_form) == "stream"
+    assert mv.visit_route(256, coarse.stream_bytes, CPU, H100_SMEM, (127, 127),
+                          coarse.stencil_form) == "phase"
+    assert mv.visit_route(255, fine.stream_bytes, CPU, H100_SMEM, (255, 255),
+                          fine.stencil_form) == "phase"
     with monkeypatch.context() as m:
-        m.setattr(mv, "STREAM_MIN_CHAINS", 256)
-        assert mv.visit_route(256, fine.stream_bytes, CPU, H100_SMEM, (255, 255)) == "stream"
-    assert mv.visit_route(256, fine.stream_bytes, CPU, H100_SMEM, (255, 255)) == "phase"
+        m.setattr(mv, "STREAM_MIN_CHAINS", {})
+        assert mv.visit_route(256, fine.stream_bytes, CPU, H100_SMEM, (255, 255),
+                              fine.stencil_form) == "phase"
     # the level decides once per chain count, before any launch
     assert fine.route(1) == "split" and fine.split_cluster(1) == 16
     assert fine._routes[1] == ("split", 16)

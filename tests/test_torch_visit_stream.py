@@ -277,28 +277,46 @@ def test_stream_visit_emulation_matches_interpreted_pallas_kernels(level_index):
 
 
 # ------------------------------------------------------------ (c) the route
-#: a stream threshold for the route's mechanics (the value the route had
-#: before the phase kernels ran the passes of level_passes.cuh; the
-#: production route has none, mv.STREAM_MIN_CHAINS)
+#: a stream threshold for the route's mechanics (the production table holds
+#: it for the flagship's 255^2 5-point level alone, mv.STREAM_MIN_CHAINS)
 STREAM_MIN = 256
 
 
 def test_route_is_chosen_from_the_chain_count_alone(monkeypatch):
+    """The chain count decides, against the threshold of the level's shape
+    and stencil form: the production table has one for the flagship's 255^2
+    5-point level only, so a 15^2 level never takes the stream kernels, unless
+    the table is given one for that shape too."""
     _, _, _, port = _jax_levels(0, True, torch.float32, 16)
-    assert mv.STREAM_MIN_CHAINS is None  # the table supports no stream threshold
+    key = port.op.vshape + (port.stencil_form,)
+    assert mv.STREAM_MIN_CHAINS == {(255, 255, 0): 256}  # what the table supports
+    assert mv.stream_min_chains((255, 255), 0) == 256
+    assert mv.stream_min_chains((255, 255), 2) is None  # the 9-point 255^2 level
+    assert mv.stream_min_chains(port.op.vshape, port.stencil_form) is None
     for C in (1, 2, mv.SPLIT_MAX_CHAINS, mv.SPLIT_MAX_CHAINS + 1, STREAM_MIN - 1,
               STREAM_MIN, 256, 1000):
-        # with a threshold: the stream kernels from it on (without a shape: never split)
+        # with a threshold for the shape: the stream kernels from it on; without
+        # a shape and a form: never
         with monkeypatch.context() as m:
-            m.setattr(mv, "STREAM_MIN_CHAINS", STREAM_MIN)
+            m.setattr(mv, "STREAM_MIN_CHAINS", {key: STREAM_MIN})
             want = "stream" if C >= STREAM_MIN else "phase"
-            assert mv.visit_route(C, device=CPU) == want
-        # the production route: none
+            assert mv.visit_route(C, device=CPU) == "phase"
+            if C > mv.SPLIT_MAX_CHAINS:
+                assert mv.visit_route(C, device=CPU, vshape=(1031, 9),
+                                      form=port.stencil_form) == "phase"
+                assert mv.visit_route(C, device=CPU, vshape=port.op.vshape,
+                                      form=port.stencil_form) == want
+        # the production table: the flagship's 255^2 level from 256 chains
+        assert mv.visit_route(C, device=CPU) == "phase"
+        want = "stream" if C >= 256 else "phase"
+        assert mv.visit_route(C, 0, CPU, vshape=(255, 255), form=0) == (
+            "split" if C <= mv.SPLIT_MAX_CHAINS else want)
+        assert mv.visit_route(C, 0, CPU, vshape=(255, 255), form=1) == (
+            "split" if C <= mv.SPLIT_MAX_CHAINS else "phase")
         want = "phase"
-        assert mv.visit_route(C, device=CPU) == want
         if C <= mv.SPLIT_MAX_CHAINS:  # a 15^2 level: the split kernels' bands fit
             want = "split"
-        assert port.route(C) == want  # a 15^2 level: the stream kernels' rings fit
+        assert port.route(C) == want  # a 15^2 level: no stream threshold
         for order in (port.pre_order, port.post_order):
             for f_batched in (False, True):
                 for noise_mode in (0, 1, 2):
@@ -353,11 +371,17 @@ def test_route_takes_the_phase_kernels_where_the_rings_do_not_fit(monkeypatch, c
               for ascend in (False, True))
     assert got == want_bytes
     assert (got + mv.STREAM_STATIC_SMEM <= mv.SMEM_PER_BLOCK_OPTIN) == (want_route == "stream")
-    # the production route takes the stream kernels nowhere
-    assert mv.visit_route(256, got, smem_limit=mv.SMEM_PER_BLOCK_OPTIN) == "phase"
-    monkeypatch.setattr(mv, "STREAM_MIN_CHAINS", STREAM_MIN)
-    assert mv.visit_route(256, got, smem_limit=mv.SMEM_PER_BLOCK_OPTIN) == want_route
-    assert mv.visit_route(STREAM_MIN - 1, got, smem_limit=mv.SMEM_PER_BLOCK_OPTIN) == "phase"
+    # the stream kernels where the table holds a threshold for the shape and
+    # their rings fit a block
+    form = mv.stencil_form(offsets, [1.0] * len(offsets))
+    monkeypatch.setattr(mv, "STREAM_MIN_CHAINS", {})
+    assert mv.visit_route(256, got, smem_limit=mv.SMEM_PER_BLOCK_OPTIN, vshape=vshape,
+                          form=form) == "phase"
+    monkeypatch.setattr(mv, "STREAM_MIN_CHAINS", {vshape + (form,): STREAM_MIN})
+    assert mv.visit_route(256, got, smem_limit=mv.SMEM_PER_BLOCK_OPTIN, vshape=vshape,
+                          form=form) == want_route
+    assert mv.visit_route(STREAM_MIN - 1, got, smem_limit=mv.SMEM_PER_BLOCK_OPTIN,
+                          vshape=vshape, form=form) == "phase"
 
 
 def test_level_route_follows_its_layout(monkeypatch):
@@ -373,16 +397,22 @@ def test_level_route_follows_its_layout(monkeypatch):
     for C in (mv.SPLIT_MAX_CHAINS + 1, STREAM_MIN, 4 * STREAM_MIN):
         assert level.route(C) == "phase"
         assert isinstance(level._params(C, level.pre_order, False, 0, None), mv.VisitParams)
-    # a narrow level's rings fit: the production route takes the phase kernels,
-    # with a threshold the stream kernels from it on
+    # a narrow level's rings fit: the production table holds no threshold for
+    # its shape, so the phase kernels; with one the stream kernels from it on
     narrow = _synthetic_level((1031, 9), OFFSETS5, seed=5)
     assert narrow.route(STREAM_MIN) == "phase"
-    monkeypatch.setattr(mv, "STREAM_MIN_CHAINS", STREAM_MIN)
+    monkeypatch.setattr(mv, "STREAM_MIN_CHAINS", {(9, 1031, level.stencil_form): STREAM_MIN,
+                                                  (1031, 9, narrow.stencil_form): STREAM_MIN})
     for C in (mv.SPLIT_MAX_CHAINS + 1, STREAM_MIN, 4 * STREAM_MIN):
         assert mv.visit_route(C, level.stream_bytes, CPU, mv.SMEM_PER_BLOCK_OPTIN,
-                              level.op.vshape) == "phase"
+                              level.op.vshape, level.stencil_form) == "phase"
     assert mv.visit_route(STREAM_MIN, narrow.stream_bytes, CPU, mv.SMEM_PER_BLOCK_OPTIN,
-                          narrow.op.vshape) == "stream"
+                          narrow.op.vshape, narrow.stencil_form) == "stream"
+    assert mv.visit_route(STREAM_MIN - 1, narrow.stream_bytes, CPU, mv.SMEM_PER_BLOCK_OPTIN,
+                          narrow.op.vshape, narrow.stencil_form) == "phase"
+    # another stencil form of the same shape has no threshold
+    assert mv.visit_route(STREAM_MIN, narrow.stream_bytes, CPU, mv.SMEM_PER_BLOCK_OPTIN,
+                          narrow.op.vshape, narrow.stencil_form ^ 1) == "phase"
 
 
 def test_layout_mirror_constants_match_the_kernel_source():

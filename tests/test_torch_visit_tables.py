@@ -463,7 +463,7 @@ def test_barriers_of_a_visit_from_the_source():
                         "level_ascend": 1}
     # the sweep's barrier is inside its loop over the colours
     sweep = function_body(src, "sweep_colours")
-    assert sweep.index("for (int o = 0; o < P.n_order; ++o)") < sweep.index(sync)
+    assert sweep.index("for (int o = first; o < P.n_order; ++o)") < sweep.index(sync)
     for lv in flagship().values():
         n = len(lv.pre_order)
         assert mv.phase_barrier_count(lv, "descend") == 1 + n + 2 + 1 + 1 == n + 5
@@ -540,7 +540,8 @@ def test_the_stamps_build_is_a_library_of_its_own():
     more with ``PHASE_STAMPS_BUILD`` set, a library beside the production one
     (each holds one build's kernels, so each compiles in about half the
     time, in parallel with the other sources); a launch with stamps takes it."""
-    assert common.BUILDS == common.SOURCES + (("mgmc_visit", common.PHASE_STAMPS_FLAGS),)
+    assert ("mgmc_visit", common.PHASE_STAMPS_FLAGS) in common.STAMPS_BUILDS
+    assert common.BUILDS == common.SOURCES + common.STAMPS_BUILDS
     assert common.PHASE_STAMPS_FLAGS == ("-DPHASE_STAMPS_BUILD=1",)
     production = common.library_path("mgmc_visit")
     stamps = common.library_path("mgmc_visit", common.PHASE_STAMPS_FLAGS)
