@@ -32,10 +32,10 @@
 // * the Gibbs rhs is rhs_packed: each group's f loaded before its draw, the
 //   Philox numbering of sor_sweep.cu (group g of row r is r * ceil(X / 4) +
 //   g, with chain and launch counter), c stored packed by colour
-//   (packed_index), so that each colour reads whole sectors of it (at 256
-//   chains of 255^2 the colours take 58 and 49 us against 73 and 68 with c a
-//   field; the first colour run in the rhs pass itself, its later colours'
-//   c packed, took 121 us for the two and lost, PERF.md);
+//   (packed_index), so that each colour reads whole sectors of it (on an
+//   NVIDIA H100 at 256 chains of 255^2 the colours take 58 and 49 us against
+//   73 and 68 with c a field; the first colour run in the rhs pass itself,
+//   its later colours' c packed, took 121 us for the two and lost, PERF.md);
 // * one kernel per stencil form (STENCIL_DISPATCH), chosen by the host, so
 //   that each form's passes get the registers to themselves; the block size
 //   by chain count (sor_sweep.py::sweep_threads).

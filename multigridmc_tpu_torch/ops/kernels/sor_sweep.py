@@ -184,8 +184,8 @@ SPLIT_TABLE_INTS = MAX_COLORS * MAX_COLORS
 SPLIT_MAX_CHAINS: Dict[Tuple[str, bool], int] = {
     ("sweep", True): 16, ("gibbs", True): 32, ("sweep", False): 0, ("gibbs", False): 16}
 #: the same for the generic body, measured against it before the passes body
-#: took the 2d reach-1 stencils (PR 6's table: the split route at least 10%
-#: faster up to 32 chains on every field); the table's 63^3 row holds it at
+#: took the 2d reach-1 stencils (the split route at least 10% faster up to 32
+#: chains on every field of the table then); the table's 63^3 row holds it at
 #: one chain
 SPLIT_MAX_CHAINS_GENERIC = 32
 SPLIT_WAVE_FIXED = 0.025
