@@ -810,14 +810,52 @@ def sweep_cases(device):
     ]
 
 
-def check_sweeps(device, gen):
+def distill_cases(device, nx, nlevel, n_meas):
+    """``(name, operator, chains, omega)``: the one-block sweeps of the
+    flagship's levels below the distillation level, each level at the chain
+    count that the distillation set-up hands it (every basis column a chain)
+    and at the main path's 256 chains, at which the level-0-fused variant's
+    composed visits sweep them (Gibbs with in-kernel noise)."""
+    _, _, shapes = distill_sweep_shapes(device, nx, nlevel, n_meas)
+    cases, seen = [], set()
+    for d in shapes:
+        tag = "x".join(map(str, d["vshape"]))
+        if tag in seen:
+            continue
+        seen.add(tag)
+        plan = d["plan"]
+        cases += [(f"distill_{tag}", plan.op, d["chains"], plan.omega),
+                  (f"level0_fused_{tag}", plan.op, 256, plan.omega)]
+    return cases
+
+
+#: chains at each end of a launch whose in-kernel normals are held against the
+#: host's reference where a launch has more than twice as many (the numpy
+#: reference of every chain of a distillation sweep would take minutes)
+NOISE_CHECK_CHAINS = 128
+
+
+def noise_check_chains(C):
+    """The chains of a ``C``-chain launch whose in-kernel normals are checked:
+    all of them, or the first and the last :data:`NOISE_CHECK_CHAINS` (the
+    first and the last wave of blocks)."""
+    if C <= 2 * NOISE_CHECK_CHAINS:
+        return [(0, C)]
+    return [(0, NOISE_CHECK_CHAINS), (C - NOISE_CHECK_CHAINS, NOISE_CHECK_CHAINS)]
+
+
+def check_sweeps(device, gen, nx, nlevel, n_meas):
     """Both sweep kernels of the one-block route against their plain versions,
-    forward and backward, ``b`` shared and per chain: noise off, then the same
+    forward and backward, ``b`` shared and per chain, on every case of
+    :func:`sweep_cases` and :func:`distill_cases`: noise off, then the same
     ``xi`` fed to both, then (2d) the in-kernel generator against the plain
-    version fed the host's reference normals (TOL).  On 2d fields, whose
-    one-block route takes the passes body, the generic body of
-    ``sor_sweep.cu`` beside it on the same inputs and under one Philox stream
-    (ROUTE_TOL: the same terms in the same order)."""
+    version fed the host's reference normals (TOL; at many chains on the chains
+    of :func:`noise_check_chains`).  On 2d fields, whose one-block route takes
+    the passes body, the generic body of ``sor_sweep.cu`` beside it on the same
+    inputs and under one Philox stream (ROUTE_TOL: the same terms in the same
+    order).  Each row gives the passes body's block sizes; the run fails unless
+    the checks launched it at every size :func:`sor_sweep.sweep_threads`
+    gives."""
     from multigridmc_tpu_torch.ops.kernels import common
     from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
     from multigridmc_tpu_torch.smoothers import BACKWARD, FORWARD, SORSmoother
@@ -826,7 +864,8 @@ def check_sweeps(device, gen):
             "gibbs_sweep_batched_generic": 0.0}
     body_err = 0.0
     rows = []
-    for name, op, C, omega in sweep_cases(device):
+    threads_checked = set()
+    for name, op, C, omega in sweep_cases(device) + distill_cases(device, nx, nlevel, n_meas):
         for direction in (FORWARD, BACKWARD):
             plan = SORSmoother(op, omega, 1, direction).plan
             x = torch.randn((C,) + op.vshape, device=device, generator=gen)
@@ -837,7 +876,11 @@ def check_sweeps(device, gen):
                    "direction": direction, "body": plan.body, "sweep_err": 0.0,
                    "gibbs_err": 0.0}
             if plan.body == "passes":
-                row["stencil_form"] = plan.pass_launch(plan.params(C, True, 1, (0, 0))).form
+                launches = [plan.pass_launch(plan.params(C, True, mode, (0, 0)))
+                            for mode in (0, 1)]
+                row["stencil_form"] = launches[0].form
+                row["threads"] = {"sweep": launches[0].threads, "gibbs": launches[1].threads}
+                threads_checked.update(row["threads"].values())
                 row["against_generic"] = 0.0
             for b_batched in (False, True):
                 b = torch.randn(((C,) if b_batched else ()) + op.vshape, device=device,
@@ -849,25 +892,35 @@ def check_sweeps(device, gen):
                 want = ss.gibbs_sweep_batched_plain(op, plan.masks, omega, plan.order, b, x, xi)
                 got = ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, b, x.clone(), xi=xi)
                 row["gibbs_err"] = max(row["gibbs_err"], compare(f"gibbs sweep {tag}", got, want))
+                del want
                 if plan.body != "passes":
                     continue
-                runs = [(got_det, ss.launch_sweep(plan, ss.BLOCK_ROUTE, b, x.clone(),
-                                                  body="generic")),
-                        (got, ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, b, x.clone(), xi=xi,
-                                                    body="generic"))]
+                against = [(got_det, ss.launch_sweep(plan, ss.BLOCK_ROUTE, b, x.clone(),
+                                                     body="generic")),
+                           (got, ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, b, x.clone(), xi=xi,
+                                                       body="generic"))]
+                row["against_generic"] = max([row["against_generic"]] + [
+                    float((new - old).abs().max()) for new, old in against])
+                del against, got_det
                 # the in-kernel generator against the reference normals
                 seed, counter = 0x5EED_0010 + C, 5 + b_batched
-                ref = torch.as_tensor(common.philox_normals_reference(seed, counter, C, op.vshape),
-                                      device=device)
-                want = ss.gibbs_sweep_batched_plain(op, plan.masks, omega, plan.order, b, x, ref)
                 got = ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, b, x.clone(),
                                             philox=(seed, counter))
-                row["gibbs_err"] = max(row["gibbs_err"],
-                                       compare(f"gibbs sweep {tag} in-kernel noise", got, want))
-                runs.append((got, ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, b, x.clone(),
-                                                        philox=(seed, counter), body="generic")))
-                row["against_generic"] = max([row["against_generic"]] + [
-                    float((new - old).abs().max()) for new, old in runs])
+                old = ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, b, x.clone(),
+                                            philox=(seed, counter), body="generic")
+                row["against_generic"] = max(row["against_generic"],
+                                             float((got - old).abs().max()))
+                del old
+                for first, n in noise_check_chains(C):
+                    part = slice(first, first + n)
+                    ref = torch.as_tensor(common.philox_normals_reference(
+                        seed, counter, n, op.vshape, first_chain=first), device=device)
+                    want = ss.gibbs_sweep_batched_plain(op, plan.masks, omega, plan.order,
+                                                        b[part] if b_batched else b, x[part], ref)
+                    row["gibbs_err"] = max(row["gibbs_err"], compare(
+                        f"gibbs sweep {tag} in-kernel noise, chains {first}..{first + n - 1}",
+                        got[part], want))
+                del got
             if row.get("against_generic", 0.0) > ROUTE_TOL:
                 raise AssertionError(f"sweeps: {name} {direction}: the passes and the generic "
                                      f"body differ by {row['against_generic']}")
@@ -876,7 +929,12 @@ def check_sweeps(device, gen):
             errs["gibbs_sweep_batched" + suffix] = max(errs["gibbs_sweep_batched" + suffix],
                                                        row["gibbs_err"])
             rows.append(row)
+            del x, xi, b
     torch.cuda.synchronize()  # a fault during a launch surfaces here
+    missing = set(ss.SWEEP_WAVE_THREADS) - threads_checked
+    if missing:
+        raise AssertionError(f"sweeps: the checks launched the passes body at no block of "
+                             f"{sorted(missing)} threads")
     return errs, body_err, rows
 
 
@@ -1121,6 +1179,12 @@ def distill_sweep_shapes(device, nx, nlevel, n_meas):
          "launches": n, "plan": plan} for k, (plan, n) in seen.items()]
 
 
+#: launches of a sweep's stamps build per row of the breakdown by pass: the
+#: row is the launch of median span (one launch in several runs slower, as a
+#: profiler window can)
+STAMP_LAUNCHES = 5
+
+
 def time_sweep_passes(device, noise, bodies, nx, nlevel, n_meas):
     """The one-block sweep kernels' launches by pass, from the stamps builds
     of the bodies ``bodies`` (``"generic"``: ``sor_sweep.cu``, the kernels before
@@ -1131,7 +1195,8 @@ def time_sweep_passes(device, noise, bodies, nx, nlevel, n_meas):
     over the blocks, their sum and span against the profiler's device ms of
     the production build, the barriers each block passed against the count
     from the source (the rhs pass and one per colour) and the blocks one SM
-    ran at once; the last of three launches."""
+    ran at once; of :data:`STAMP_LAUNCHES` launches the one of median span
+    (every launch's span beside)."""
     from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
     from multigridmc_tpu_torch.smoothers import SORSmoother
 
@@ -1156,11 +1221,15 @@ def time_sweep_passes(device, noise, bodies, nx, nlevel, n_meas):
                                                  stamps=stamps)
 
                 device_ms = device_ms_retried(run, sweep_kernel(ss.BLOCK_ROUTE, body, kind), 10)
-                stamps = torch.zeros((C, ss.SWEEP_STAMP_WIDTH), dtype=torch.int64, device=device)
-                for _ in range(3):
-                    run(stamps)
+                stamps = [torch.zeros((C, ss.SWEEP_STAMP_WIDTH), dtype=torch.int64, device=device)
+                          for _ in range(STAMP_LAUNCHES)]
+                for launch_stamps in stamps:  # back to back, as the profiler's launches
+                    run(launch_stamps)
                 torch.cuda.synchronize()
-                pt = ss.sweep_pass_times(plan.order, kind == "gibbs", stamps)
+                spans = [ss.sweep_pass_times(plan.order, kind == "gibbs", launch_stamps)
+                         for launch_stamps in stamps]
+                pt = sorted(spans, key=lambda t: t["launch_span_us"])[STAMP_LAUNCHES // 2]
+                pt["launch_spans_us"] = [t["launch_span_us"] for t in spans]
                 pt["device_ms"] = device_ms
                 pt["sum_over_device_ms"] = pt["sum_us"] / 1e3 / device_ms
                 pt["span_over_device_ms"] = pt["launch_span_us"] / 1e3 / device_ms
@@ -1366,7 +1435,7 @@ def check_split_layout(device):
             "smem_limit": ss.dynamic_smem_limit(device)}
 
 
-#: chain counts of the ``sweep_routes`` table (63^3: one chain only)
+#: chain counts of the ``sweep_routes`` table
 SWEEP_ROUTE_CHAINS = (1, 2, 4, 8, 16, 32, 64, 132, 256)
 #: the rule's cluster size stands if its time is within this factor of the
 #: best cluster size measured at the same chain count
@@ -1380,21 +1449,22 @@ def time_sweep_routes(device, noise, smi):
     """The ``sweep_routes`` line: device ms per launch (torch.profiler) of both
     sweep kernels through the one-block route and through the split route at
     every cluster size that fits and schedules, at every chain count of
-    :data:`SWEEP_ROUTE_CHAINS` on a 255^2 5-point field, its 127^2 9-point
-    Galerkin level and a 127^2 5-point field whose coefficients vary in space
-    (read per point), and at one chain on a 63^3 7-point field.
+    :data:`SWEEP_ROUTE_CHAINS` on two fields of each stencil class of
+    ``sor_sweep.SPLIT_MAX_CHAINS`` (``sor_sweep.split_stencil``): a 255^2
+    5-point field and a 127^2 5-point field whose coefficients vary in space
+    (read per point); the 255^2 and 127^2 9-point Galerkin levels of a 511^2
+    and a 255^2 field; a 63^3 7-point field and a 63^2 13-point field of reach
+    2 (the generic body).
 
     The table supports the code's constants when (1) wherever the route takes
     the split route it beats one block per chain, (2) its cluster size (the
     least ``split_cost``, from ``SPLIT_WAVE_FIXED`` and the clusters the card
     holds at once) is within :data:`SPLIT_SIZE_SLACK` of the best one measured
-    there, and (3) each entry of ``SPLIT_MAX_CHAINS`` (the passes body's
-    thresholds by kernel and stencil size) is the largest chain count of the
-    table up to which the split route at the rule's cluster size takes less
-    than :data:`SPLIT_CLEAR_WIN` of the one-block route's time on every field
-    of that entry (0 where it does at no count), and the generic body's
-    ``SPLIT_MAX_CHAINS_GENERIC`` admits every count at which the split route
-    wins so on the 63^3 field.  The run fails otherwise."""
+    there, and (3) each entry of ``SPLIT_MAX_CHAINS`` (by kernel and stencil
+    class) is the largest chain count of the table up to which the split route
+    at the rule's cluster size takes less than :data:`SPLIT_CLEAR_WIN` of the
+    one-block route's time on every field of that class (0 where it does at no
+    count).  The run fails otherwise."""
     from multigridmc_tpu_torch.lattice import Lattice
     from multigridmc_tpu_torch.models.correlation import (ConstantCorrelationLengthModel,
                                                           PeriodicCorrelationLengthModel)
@@ -1405,20 +1475,22 @@ def time_sweep_routes(device, noise, smi):
 
     const = ConstantCorrelationLengthModel(0.2)
     fine = shiftedlaplace_fd(Lattice((256, 256)), const, device=device)
+    wide = shiftedlaplace_fd(Lattice((512, 512)), const, device=device)
     varying = shiftedlaplace_fd(Lattice((128, 128)), PeriodicCorrelationLengthModel(0.2, 0.4),
                                 device=device)
-    shapes = [("255^2 5-point", fine, SWEEP_ROUTE_CHAINS),
-              ("127^2 9-point Galerkin", galerkin_coarsen(fine), SWEEP_ROUTE_CHAINS),
-              ("127^2 5-point varying", varying, SWEEP_ROUTE_CHAINS),
-              ("63^3 7-point", shiftedlaplace_fd(Lattice((64, 64, 64)), const, device=device),
-               (1,))]
+    shapes = [("255^2 5-point", fine),
+              ("127^2 5-point varying", varying),
+              ("255^2 9-point Galerkin", galerkin_coarsen(wide)),
+              ("127^2 9-point Galerkin", galerkin_coarsen(fine)),
+              ("63^3 7-point", shiftedlaplace_fd(Lattice((64, 64, 64)), const, device=device)),
+              ("63^2 13-point reach 2", reach2_operator(64, device))]
     limit = ss.dynamic_smem_limit(device)
     rows = []
-    for label, op, counts in shapes:
+    for label, op in shapes:
         plan = SORSmoother(op, 1.0, 1).plan
         reach = ss.slow_reach(op.offsets, op.vshape)
         L = ss.split_layout(op.vshape)[0]
-        for C in counts:
+        for C in SWEEP_ROUTE_CHAINS:
             b = torch.rand((C,) + op.vshape, device=device)
             x = torch.zeros((C,) + op.vshape, device=device)
             for kernel, noise_mode in (("sweep", 0), ("gibbs", 1)):
@@ -1453,8 +1525,7 @@ def time_sweep_routes(device, noise, smi):
                 row["rule_ms"] = split.get(row["rule_cluster"])
                 row["route"] = list(plan.route(C, noise_mode))
                 # the threshold that decides this row (sor_sweep.split_max_chains)
-                row["key"] = ("generic" if plan.body == "generic"
-                              else (kernel, len(op.offsets) <= 5))
+                row["key"] = (kernel, ss.split_stencil(op.vshape, op.offsets))
                 rows.append(row)
     # what the table supports
     faults = []
@@ -1482,13 +1553,13 @@ def time_sweep_routes(device, noise, smi):
             if not all(by_count[C]):
                 break
             measured = C
-        constant = (ss.SPLIT_MAX_CHAINS_GENERIC if key == "generic"
-                    else ss.SPLIT_MAX_CHAINS[key])
+        constant = ss.SPLIT_MAX_CHAINS[key]
         thresholds[str(key)] = {"measured": measured, "constant": constant}
-        # the generic body is timed at one chain only: the table holds that it splits there
-        if (measured != constant) if key != "generic" else measured < 1:
+        if measured != constant:
             faults.append(f"the table supports a split threshold of {measured} chains for "
                           f"{key}, the constant is {constant}")
+    for key in set(ss.SPLIT_MAX_CHAINS) - set(wins):
+        faults.append(f"no field of the table measures the split threshold of {key}")
     emit({"sweep_routes": rows, "card": smi, "smem_limit": limit,
           "thresholds": thresholds,
           "wave_fixed_constant": ss.SPLIT_WAVE_FIXED, "faults": faults})
@@ -2218,7 +2289,7 @@ def phase_sweeps(device, gen, noise, smi, nx, nlevel, n_meas):
     host mirror, their times, the one-block kernels' launches by pass before
     (the generic body) and after (the passes body) with their registers, the
     passes body's block-size table, and the route table."""
-    errs, body_err, sweep_checks = check_sweeps(device, gen)
+    errs, body_err, sweep_checks = check_sweeps(device, gen, nx, nlevel, n_meas)
     split_errs, route_err, split_checks = check_split_sweeps(device, gen)
     errs.update(split_errs)
     sweep_philox = check_sweep_philox(device)
@@ -3084,7 +3155,7 @@ def main(argv=None) -> int:
     if "sweep_check" in phases:  # the one-block sweeps against their plain versions alone
         gen = torch.Generator(device=device)
         gen.manual_seed(11)
-        errs, body_err, rows = check_sweeps(device, gen)
+        errs, body_err, rows = check_sweeps(device, gen, nx, nlevel, n_meas)
         emit({"phase": "sweep_check", "max_abs_err": errs,
               "passes_against_generic_max_abs_err": body_err, "sweep_checks": rows})
     if "sweep_threads" in phases:  # the passes body's block-size table alone

@@ -32,6 +32,17 @@ __device__ __forceinline__ void block_sync() {
 // A stamps row of a one-block sweep or visit: the timer at entry (word 0),
 // after each barrier (words 1, 2, ...), at exit (word width - 3), then the
 // barriers passed and the SM the block ran on.
+// The stamps row of the one-block sweeps (sor_sweep.cu, sor_sweep_passes.cu):
+// the timer at entry, after up to 1 + MAX_COLORS barriers (the Gibbs rhs pass,
+// each colour) and at exit, the barriers passed, the SM.
+#define SWEEP_STAMP_WIDTH (2 + MAX_COLORS + 3)
+
+// 1: the sweep library is its stamps build (sor_sweep.py builds each sweep
+// source a second time with -DSWEEP_STAMPS_BUILD=1)
+#ifndef SWEEP_STAMPS_BUILD
+#define SWEEP_STAMPS_BUILD 0
+#endif
+
 template <bool STAMPS>
 __device__ __forceinline__ void stamps_open(unsigned long long* srow) {
     if (STAMPS && threadIdx.x == 0) {

@@ -191,22 +191,22 @@ __device__ __forceinline__ int packed_index(const VisitParams& P, int ci, int i,
 }
 
 // One colour-ordered SOR sweep: x[p] += omega (c[p] - (A x)[p]) / diag[p] on
-// the points of the current colour, colour by colour from the `first` of
-// the order on; colour = (w0 i + w1 j) mod n_colors.  The warps take the rows
+// the points of the current colour, colour by colour in the order;
+// colour = (w0 i + w1 j) mod n_colors.  The warps take the rows
 // that hold the colour in turn (T.rows); within a row a lane updates U points
 // of the colour at a time, its loads first, its stores last (no point of a
 // colour reads another).  PACKED: c lies packed by colour (packed_index).
 template <int KMAX, bool BOX, int U, bool PLANES, bool COUNT, bool PACKED>
 __device__ __forceinline__ void sweep_colours(const VisitParams& P, const LevelTables& T,
                                               const float* __restrict__ coeffs,
-                                              const float* __restrict__ c, float* x, int first) {
+                                              const float* __restrict__ c, float* x) {
     const Stencil<KMAX, BOX> st = stencil_regs<KMAX, BOX>(P);
     const int H = P.H, W = P.W, n = H * W, lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
     const int s = P.jstride, K = P.n_colors, d = P.diag_index;
     const bool dplane = !P.coeff_const[d];
     const float dval = P.coeff_val[d], omega = P.omega;
-    for (int o = first; o < P.n_order; ++o) {
+    for (int o = 0; o < P.n_order; ++o) {
         const int* cr = T.rows + o * (1 + 2 * K);
         const int R = cr[0];
         for (int r = warp; R > 0; r += nwarps) {
@@ -307,15 +307,13 @@ __device__ __forceinline__ int stencil_form(const VisitParams& P) {
         }                                                  \
     } while (0)
 
-// From the `first` colour of the order on (PACKED: c packed by colour); ends
-// with a barrier.
+// PACKED: c packed by colour.  Ends with a barrier.
 template <int FORM, bool COUNT, bool PACKED = false>
 __device__ void level_sweep(const VisitParams& P, const LevelTables& T,
                             const float* __restrict__ coeffs, const float* __restrict__ c,
-                            float* x, int first = 0) {
-#define SWEEP(KMAX, BOX, PLANES)                                                          \
-    sweep_colours<KMAX, BOX, LANE_POINTS(KMAX, PLANES), PLANES, COUNT, PACKED>(P, T, coeffs, c, \
-                                                                               x, first)
+                            float* x) {
+#define SWEEP(KMAX, BOX, PLANES) \
+    sweep_colours<KMAX, BOX, LANE_POINTS(KMAX, PLANES), PLANES, COUNT, PACKED>(P, T, coeffs, c, x)
     STENCIL_DISPATCH(FORM, P, SWEEP);
 #undef SWEEP
 }

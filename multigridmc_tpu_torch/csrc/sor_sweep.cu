@@ -58,16 +58,6 @@
 #include "philox.cuh"
 #include "sor_sweep.cuh"
 
-// the timer at entry, after up to 1 + MAX_COLORS barriers and at exit, the
-// barriers passed, the SM
-#define SWEEP_STAMP_WIDTH (2 + MAX_COLORS + 3)
-
-// 1: this library is the stamps build (sor_sweep.py builds the source a second
-// time with -DSWEEP_STAMPS_BUILD=1)
-#ifndef SWEEP_STAMPS_BUILD
-#define SWEEP_STAMPS_BUILD 0
-#endif
-
 // one warp per row of the field (lanes along the row)
 #define WARP_ROWS(r, nrows) \
     for (int r = threadIdx.x >> 5; r < (nrows); r += blockDim.x >> 5)

@@ -49,19 +49,13 @@
 //
 // SWEEP_STAMPS_BUILD: the measurement build, a library of its own, taken only
 // where the host passes a stamps tensor, (C, SWEEP_STAMP_WIDTH) int64, laid out
-// as sor_sweep.cu's (block_stamps.cuh): the timer at entry, after the rhs
+// as sor_sweep.cu's (both in block_stamps.cuh): the timer at entry, after the rhs
 // pass and after each colour, at exit, the barriers passed, the SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "level_passes.cuh"
-
-#define SWEEP_STAMP_WIDTH (2 + MAX_COLORS + 3)
-
-#ifndef SWEEP_STAMPS_BUILD
-#define SWEEP_STAMPS_BUILD 0
-#endif
 
 // the rows table is all a sweep reads of a level's tables
 __device__ __forceinline__ LevelTables rows_only(const int* rows) {

@@ -273,9 +273,11 @@ def philox_key(seed: int) -> int:
 
 
 def philox_normals_reference(seed: int, counter: int, chains: int,
-                             vshape: Tuple[int, ...], key: Optional[int] = None) -> np.ndarray:
+                             vshape: Tuple[int, ...], key: Optional[int] = None,
+                             first_chain: int = 0) -> np.ndarray:
     """The kernels' field noise, recomputed on the host with numpy:
-    ``(chains, *vshape)`` float32 normals of launch ``counter`` under ``seed``.
+    ``(chains, *vshape)`` float32 normals of launch ``counter`` under ``seed``,
+    of the chains ``first_chain .. first_chain + chains - 1``.
 
     Philox4x32-10 with counter words ``(point group, chain, counter lo,
     counter hi)`` and key ``(key lo, key hi)``, ``key = philox_key(seed)``
@@ -295,7 +297,8 @@ def philox_normals_reference(seed: int, counter: int, chains: int,
     mask = np.uint64(0xFFFFFFFF)
     ngroups = H * ((W + 3) // 4)
     c0 = np.broadcast_to(np.arange(ngroups, dtype=np.uint64), (chains, ngroups)).copy()
-    c1 = np.broadcast_to(np.arange(chains, dtype=np.uint64)[:, None], (chains, ngroups)).copy()
+    c1 = np.broadcast_to(np.arange(first_chain, first_chain + chains, dtype=np.uint64)[:, None],
+                         (chains, ngroups)).copy()
     c2 = np.full((chains, ngroups), counter & 0xFFFFFFFF, dtype=np.uint64)
     c3 = np.full((chains, ngroups), (counter >> 32) & 0xFFFFFFFF, dtype=np.uint64)
     key = philox_key(seed) if key is None else int(key)

@@ -157,10 +157,10 @@ SPLIT_SIZES = (16, 8, 4, 2)
 SPLIT_TABLE_INTS = MAX_COLORS * MAX_COLORS
 
 #: Launches of at most this many chains take the split route where its bands
-#: fit and its cluster schedules, more take one block per chain: for the
-#: passes body (:func:`sweep_body`) by kernel and by whether the stencil has at
-#: most 5 offsets, for the generic body (3d fields, wider stencils)
-#: :data:`SPLIT_MAX_CHAINS_GENERIC` (:func:`split_max_chains`).  Of the cluster
+#: fit and its cluster schedules, more take one block per chain, by kernel and
+#: by the stencil's class (:func:`split_stencil`: the passes body's stencils of
+#: at most 5 offsets, its stencils of 6-9 offsets, and the generic body's 3d
+#: fields and wider stencils; :func:`split_max_chains`).  Of the cluster
 #: sizes that fit, the route takes the one of least
 #: ``waves * (1 / S + SPLIT_WAVE_FIXED)``: a launch of ``C`` chains runs in
 #: ``waves = ceil(C / active)`` waves of clusters (``active``: the clusters of
@@ -172,22 +172,23 @@ SPLIT_TABLE_INTS = MAX_COLORS * MAX_COLORS
 #: against 0.0429 in two runs).  The constants come from the ``sweep_routes`` table of
 #: ``chip_smoke.py``, which fails if the table supports other values: device
 #: time per sweep of both routes (the split route at every cluster size that
-#: fits) at 1 .. 256 chains on 255^2 5-point, 127^2 9-point Galerkin and 127^2
-#: 5-point (space-varying) fields and at one chain on a 63^3 7-point field,
-#: NVIDIA H100 80GB HBM3, 700.00 W.  Against the passes body the split route
-#: takes less than 0.9 of its time up to 16 chains for the 5-point sweep
-#: (255^2 at 16: 0.0382 against 0.0445 ms; at 32 0.0630 against 0.0447), up to
-#: 32 for the 5-point Gibbs sweep (255^2 at 32: 0.0707 against 0.0829), up to
-#: 16 for the 9-point Gibbs sweep (0.0218 against 0.0261), and at no count for
-#: the 9-point sweep (one chain: 0.0194 against 0.0159); PERF.md section 6
-#: holds the table.
-SPLIT_MAX_CHAINS: Dict[Tuple[str, bool], int] = {
-    ("sweep", True): 16, ("gibbs", True): 32, ("sweep", False): 0, ("gibbs", False): 16}
-#: the same for the generic body, measured against it before the passes body
-#: took the 2d reach-1 stencils (the split route at least 10% faster up to 32
-#: chains on every field of the table then); the table's 63^3 row holds it at
-#: one chain
-SPLIT_MAX_CHAINS_GENERIC = 32
+#: fits) at 1 .. 256 chains on two fields of each class (255^2 5-point and
+#: 127^2 5-point space-varying; 255^2 and 127^2 9-point Galerkin; 63^3
+#: 7-point and 63^2 13-point of reach 2), NVIDIA H100 80GB HBM3, 700.00 W.
+#: Against the passes body the split route takes less than 0.9 of its time up
+#: to 16 chains for the 5-point sweep (255^2 at 16: 0.0382 against 0.0445 ms;
+#: at 32 0.0630 against 0.0447), up to 32 for the 5-point Gibbs sweep (255^2 at
+#: 32: 0.0707 against 0.0829), up to 16 for the 9-point Gibbs sweep (127^2:
+#: 0.0218 against 0.0261), and at no count for the 9-point sweep (127^2, one
+#: chain: 0.0194 against 0.0159, where 255^2 takes 0.0244 against 0.0440: a
+#: class's threshold is the least of its fields'); against the generic body up
+#: to 64 chains for both kernels (63^3 at 64: 0.458 against 0.650 ms, at 132
+#: 0.829 against 0.664; 63^2 reach 2 at 132: 0.062 against 0.053); PERF.md
+#: section 6 holds the table.
+SPLIT_MAX_CHAINS: Dict[Tuple[str, str], int] = {
+    ("sweep", "5-point"): 16, ("gibbs", "5-point"): 32,
+    ("sweep", "9-point"): 0, ("gibbs", "9-point"): 16,
+    ("sweep", "generic"): 64, ("gibbs", "generic"): 64}
 SPLIT_WAVE_FIXED = 0.025
 
 #: kernel launches made by the wrappers (and only where they launch); the
@@ -433,14 +434,20 @@ def split_size(C: int, vshape, offsets, noise_mode: int, device,
     return cheapest_cluster(C, active)
 
 
+def split_stencil(vshape, offsets) -> str:
+    """The stencil's class in :data:`SPLIT_MAX_CHAINS`: ``"generic"`` where
+    the one-block route takes the generic body (:func:`sweep_body`), else
+    ``"5-point"`` for at most 5 offsets and ``"9-point"`` for more."""
+    if sweep_body(vshape, offsets) == "generic":
+        return "generic"
+    return "5-point" if len(offsets) <= 5 else "9-point"
+
+
 def split_max_chains(vshape, offsets, noise_mode: int) -> int:
     """The most chains a sweep of fields ``vshape`` with a stencil of
-    ``offsets`` takes the split route for (:data:`SPLIT_MAX_CHAINS`,
-    :data:`SPLIT_MAX_CHAINS_GENERIC`); ``noise_mode`` 0 is the deterministic
-    kernel, 1 and 2 the Gibbs kernel."""
-    if sweep_body(vshape, offsets) == "generic":
-        return SPLIT_MAX_CHAINS_GENERIC
-    return SPLIT_MAX_CHAINS[("gibbs" if noise_mode else "sweep", len(offsets) <= 5)]
+    ``offsets`` takes the split route for (:data:`SPLIT_MAX_CHAINS`);
+    ``noise_mode`` 0 is the deterministic kernel, 1 and 2 the Gibbs kernel."""
+    return SPLIT_MAX_CHAINS[("gibbs" if noise_mode else "sweep", split_stencil(vshape, offsets))]
 
 
 def split_route(C: int, vshape, offsets, noise_mode: int, device,

@@ -223,19 +223,25 @@ def test_drivers_shapes_take_the_split_route(limit):
         assert ss.sweep_route(C, fine, 1, limit) == ss.BLOCK_ROUTE
     # the thresholds by kernel and stencil size (on the CPU every cluster is
     # taken to run at once: the largest size that fits)
-    assert ss.SPLIT_MAX_CHAINS == {("sweep", True): 16, ("gibbs", True): 32,
-                                   ("sweep", False): 0, ("gibbs", False): 16}
+    assert ss.SPLIT_MAX_CHAINS == {("sweep", "5-point"): 16, ("gibbs", "5-point"): 32,
+                                   ("sweep", "9-point"): 0, ("gibbs", "9-point"): 16,
+                                   ("sweep", "generic"): 64, ("gibbs", "generic"): 64}
     for plan in (fine, coarse):
         for noise_mode in (0, 1, 2):
             most = ss.split_max_chains(plan.op.vshape, plan.op.offsets, noise_mode)
             assert most == ss.SPLIT_MAX_CHAINS[("gibbs" if noise_mode else "sweep",
-                                                plan is fine)]
+                                                "5-point" if plan is fine else "9-point")]
             for C in range(1, most + 1):
                 assert ss.sweep_route(C, plan, noise_mode, limit) == ("split", 16)
             assert ss.sweep_route(most + 1, plan, noise_mode, limit) == ss.BLOCK_ROUTE
-    # the generic body (3d, reach 2) keeps its own threshold
+    # the generic body (3d, reach 2) has thresholds of its own
     offsets3 = ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1))
-    assert ss.split_max_chains((63, 63, 63), offsets3, 0) == ss.SPLIT_MAX_CHAINS_GENERIC == 32
+    reach2 = ((0, 0), (0, 1), (0, -1), (1, 0), (-1, 0), (0, 2), (0, -2), (2, 0), (-2, 0))
+    for vshape, offsets in (((63, 63, 63), offsets3), ((63, 63), reach2)):
+        assert ss.split_stencil(vshape, offsets) == "generic"
+        for noise_mode, kernel in ((0, "sweep"), (1, "gibbs"), (2, "gibbs")):
+            assert (ss.split_max_chains(vshape, offsets, noise_mode)
+                    == ss.SPLIT_MAX_CHAINS[(kernel, "generic")])
 
 
 #: clusters of a 255^2 sweep that an H100 holds at once, by cluster size (the

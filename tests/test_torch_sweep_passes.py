@@ -354,7 +354,7 @@ def test_barriers_of_a_sweep_from_the_sources():
     assert kernel_text(level, "void rhs_packed").count("block_sync<COUNT>();") == 1
     sweep = kernel_text(level, "void sweep_colours")
     assert sweep.count("block_sync<COUNT>();") == 1
-    assert sweep.index("for (int o = first; o < P.n_order; ++o)") < sweep.index("block_sync")
+    assert sweep.index("for (int o = 0; o < P.n_order; ++o)") < sweep.index("block_sync")
     assert "level_sweep<FORM, STAMPS, true>(P, rows_only(rows), coeffs, cpk" in gibbs_kernel
     phases = kernel_text(generic, "void sweep_phases")
     assert phases.count("block_sync<STAMPS>();") == 1
@@ -395,8 +395,13 @@ def test_the_sweep_stamps_builds_are_libraries_of_their_own():
         stamps = common.library_path(name, common.SWEEP_STAMPS_FLAGS)
         assert production != stamps and stamps.parent == common.BUILD_DIR
         src = common.source_path(name).read_text()
-        assert "#ifndef SWEEP_STAMPS_BUILD\n#define SWEEP_STAMPS_BUILD 0" in src
-        assert "#define SWEEP_STAMP_WIDTH (2 + MAX_COLORS + 3)" in src
+        # the width and the build's default stand once, in the header both include
+        assert "#define SWEEP_STAMP" not in src
+        assert '#include "block_stamps.cuh"' in src or '#include "level_passes.cuh"' in src
+    header = (common.CSRC_DIR / "block_stamps.cuh").read_text()
+    assert "#ifndef SWEEP_STAMPS_BUILD\n#define SWEEP_STAMPS_BUILD 0" in header
+    assert "#define SWEEP_STAMP_WIDTH (2 + MAX_COLORS + 3)" in header
+    assert '#include "block_stamps.cuh"' in (common.CSRC_DIR / "level_passes.cuh").read_text()
     assert ss.SWEEP_STAMP_WIDTH == 2 + ss.MAX_COLORS + 3
     assert "block_stamps.cuh" in common.HEADERS
 
@@ -425,3 +430,13 @@ def test_launch_checks_on_the_cpu():
     ss._check_body("generic", plan.op.vshape, plan.op.offsets, ss.BLOCK_ROUTE, stamps, x)
     assert all(v == 0 for v in ss.launch_counts.values())
     assert {"sweep_batched_generic", "gibbs_sweep_batched_generic"} <= set(ss.launch_counts)
+
+
+def test_reference_normals_of_a_range_of_chains():
+    """The host's reference normals of chains ``first .. first + n - 1`` (the
+    chip check's in-kernel noise at many chains) are those rows of the
+    reference of every chain."""
+    whole = common.philox_normals_reference(7, 3, 12, (5, 9))
+    for first, n in ((0, 4), (5, 3), (9, 3)):
+        part = common.philox_normals_reference(7, 3, n, (5, 9), first_chain=first)
+        np.testing.assert_array_equal(part, whole[first:first + n])

@@ -463,7 +463,7 @@ def test_barriers_of_a_visit_from_the_source():
                         "level_ascend": 1}
     # the sweep's barrier is inside its loop over the colours
     sweep = function_body(src, "sweep_colours")
-    assert sweep.index("for (int o = first; o < P.n_order; ++o)") < sweep.index(sync)
+    assert sweep.index("for (int o = 0; o < P.n_order; ++o)") < sweep.index(sync)
     for lv in flagship().values():
         n = len(lv.pre_order)
         assert mv.phase_barrier_count(lv, "descend") == 1 + n + 2 + 1 + 1 == n + 5
