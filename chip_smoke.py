@@ -6,9 +6,10 @@
 drives the port's main paths on the flagship problem (2d 256x256 lattice,
 shifted-Laplace prior, 8 near-exact point measurements, 5-level W-cycle) - the
 batched float32 MGMC sampler (SOR, dense Cholesky on the coarsest level, 256
-chains) with every level's visit fused, with its coarse subtree distilled and
-with the subtree in one kernel launch, and the two config-file drivers - on the
-card and checks, one phase after the other:
+chains) with every level's visit fused, with its coarse subtree distilled,
+with the subtree in one kernel launch and on the alternating sweep schedule,
+the exact band-Cholesky sampler, and the two config-file drivers - on the card
+and checks, one phase after the other:
 
 1. ``device``      the card (``nvidia-smi`` name and power limit);
 2. ``build``       ``nvcc`` builds the kernel sources of ``csrc/`` (one process
@@ -70,35 +71,66 @@ card and checks, one phase after the other:
                    against the count from the source and the blocks one SM ran
                    at once, the shared-memory probe, and the four raw-array sweep entry
                    points with the short path that drives them;
-4. ``main_path``   the flagship sampler for a few tens of steps in four
+4. ``main_path``   the flagship sampler for a few tens of steps in five
                    variants - every non-coarsest level's visit fused, the
                    subtree from level 2 distilled (and once more with TF32
-                   allowed in its two products, and once at 128 chains, whose
-                   visits take the phase kernels), the subtree below level 0 in
-                   one kernel launch, and level 0 fused only: finite samples,
-                   launch counters, the visit route each level took,
-                   samples/s, ms/step, set-up seconds;
-5. ``drivers``     ``drivers.mgmc`` (SSOR and MGMC time series, convergence
-                   tables over 256 replica chains, posterior statistics) and
-                   ``drivers.mg`` (SSOR-smoothed multigrid Richardson) from
-                   config files written to a temporary directory, at the
-                   flagship's size: output files, launch counters, the distill
-                   level ``"auto"`` chose, the Richardson contraction rate and
-                   the MGMC time series' mean against the exact one; one step
-                   of the one-chain SSOR and MGMC samplers, host ms against
-                   kernel ms and launches;
-6. ``statistics``  a 64x64 posterior whose exact moments are known: one step
+                   allowed in its two products, once at 128 chains, whose
+                   visits take the phase kernels, and once on the alternating
+                   sweep schedule, with each parity's routes and distilled
+                   map), the subtree below level 0 in one kernel launch, and
+                   level 0 fused only: finite samples, launch counters, the
+                   visit route each level took, samples/s, ms/step, set-up
+                   seconds;
+5. ``band``        the exact band (``"sparse"``) Cholesky sampler on the
+                   flagship posterior at 255^2: host set-up seconds, the bytes
+                   of the doubling's level tensors, ms per sample at 1 and 256
+                   chains by recursive doubling and by the block scan (slope of
+                   two run lengths), their float32 residuals against the
+                   float64 band operator (``BAND_RESIDUAL_LIMIT``; the doubling
+                   within ``BAND_DOUBLING_FACTOR`` of the scan) and a 64x64
+                   posterior's mean and variance at 256 chains within 4
+                   standard errors of dense ``Q^-1``;
+6. ``alternating`` the alternating sweep schedule: parity 1's swapped-order
+                   visits against their plain versions on the three routes
+                   (phase 1, 16, 128 and 256 chains, split 1, 16 and 128,
+                   stream 256),
+                   stream and split against phase under one Philox stream,
+                   both parities' 255^2 visits at 256 chains on the stream and
+                   the phase kernels (the route must take the faster by device
+                   or by event ms), and the
+                   default (distilled) sampler at 256 chains: ms per step and
+                   kernel ms of parity 0, parity 1 and ``apply_pair``, each
+                   parity's routes, both distilled maps' set-up and bytes;
+7. ``drivers``     ``drivers.mgmc`` (SSOR and MGMC time series, convergence
+                   tables over 256 replica chains, posterior statistics), the
+                   same with the band sampler (the factorisation unset) and
+                   MGMC on the alternating schedule, and ``drivers.mg``
+                   (SSOR-smoothed multigrid Richardson) from config files
+                   written to a temporary directory, at the flagship's size:
+                   output files, launch counters, the distill level
+                   ``"auto"`` chose, the Richardson contraction rate and the
+                   time series' means against the exact one; one step of the
+                   one-chain SSOR and MGMC samplers, host ms against kernel ms
+                   and launches;
+8. ``statistics``  a 64x64 posterior whose exact moments are known: one step
                    under replayed noise agrees between kernels and composed
                    path; the sample mean and variance of an observable agree
                    with the exact ones within 4 standard errors, through the
                    visit kernels (1 and 16 chains: the split route; 128 and
-                   256 chains: the phase route), the
-                   plain path, the distilled
-                   subtree, the subtree kernel with its in-kernel noise and the
-                   SSOR sampler
-                   on the Gibbs sweep kernel (256 chains on the one-block route,
-                   32 on the split route); and a batched deterministic solve
-                   agrees with the float64 dense solve.
+                   256 chains: the phase route; the alternating schedule at
+                   omega = 1.4 on the phase route at 256 chains and the split
+                   route at one chain), the plain path, the distilled subtree,
+                   the subtree kernel with its in-kernel noise and the SSOR
+                   sampler on the Gibbs sweep kernel (256 chains on the
+                   one-block route, 32 on the split route); and a batched
+                   deterministic solve agrees with the float64 dense solve.
+
+Device times come from ``torch.profiler``: the kernel matched by its full name
+(:func:`names_kernel`), the median of three windows, each of which must have
+recorded at least half of the launches made in it; a launch that is bound by
+the device (above ``DEVICE_BOUND_MS`` by its CUDA events, enqueued by the host
+in less than ``HOST_SHARE`` of that) must agree with its device time within
+``EVENTS_FACTOR``, or the run fails.
 
 One JSON object per line.  The line ``{"kernels": [...]}`` lists per kernel its
 launches on its path, its error against the plain version, its time, the
@@ -139,7 +171,7 @@ PEAK_FP32_FLOPS = 67e12
 
 TOL = 2e-5
 FLAGSHIP_SEED = 20260816
-ALL_PHASES = {"kernels", "main_path", "drivers", "statistics"}
+ALL_PHASES = {"kernels", "main_path", "band", "alternating", "drivers", "statistics"}
 
 
 def emit(obj) -> None:
@@ -167,28 +199,79 @@ def build_posterior(nx, n_meas, seed, variance, device, dtype=torch.float32, Lam
     return measured_operator(prior, params), params
 
 
-def cuda_ms(fn, repeats, inner):
-    """Median over ``repeats`` of the CUDA-event time of ``inner`` calls, per call."""
+def cuda_ms(fn, repeats, inner, host=None):
+    """Median over ``repeats`` of the CUDA-event time of ``inner`` calls, per call.
+    ``host``, a dict, receives ``"ms"``: the median host time per call of
+    enqueuing them (the host clock before the synchronize)."""
     fn()
     torch.cuda.synchronize()
-    times = []
+    times, host_times = [], []
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
         start.record()
         for _ in range(inner):
             fn()
         end.record()
+        host_times.append((time.perf_counter() - t0) * 1e3 / inner)
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / inner)
+    if host is not None:
+        host["ms"] = float(np.median(host_times))
     return float(np.median(times))
 
 
-def device_ms_per_launch(fn, kernel, launches=20):
-    """Device time of one launch of the CUDA kernel whose name contains
-    ``kernel``, from ``torch.profiler`` (mean over ``launches`` calls of ``fn``).
-    Unlike the event time of back-to-back launches this does not contain the
-    host's launch rate.  None when the profiler shows no such kernel."""
+def profiler_kernel_name(key):
+    """``(function name, template arguments)`` of a profiler key, a demangled
+    signature such as ``void descend_kernel<0, false>(VisitParams, ...)``: the
+    return type and the parameter list cut off, the template arguments split
+    at the top level (``Memcpy DtoD (Device -> Device)`` gives ``Memcpy DtoD``)."""
+    name = key.strip()
+    if name.startswith("void "):
+        name = name[5:]
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            name = name[:i]
+            break
+    name = name.strip()
+    if "<" not in name:
+        return name, ()
+    base, args = name[: name.index("<")], name[name.index("<") + 1: name.rindex(">")]
+    parts, depth, start = [], 0, 0
+    for i, ch in enumerate(args):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "," and depth == 0:
+            parts.append(args[start:i].strip())
+            start = i + 1
+    parts.append(args[start:].strip())
+    return base.strip(), tuple(parts)
+
+
+def names_kernel(key, kernel):
+    """Whether the profiler key ``key`` is the kernel ``kernel`` in full: the
+    same function name, and where ``kernel`` gives template arguments
+    (``"stream_visit_kernel<true"``: the first of them) the same ones.  A key
+    that merely contains the name (``passes_gibbs_kernel`` for ``gibbs_kernel``)
+    is another kernel."""
+    base, args = profiler_kernel_name(key)
+    want = kernel.split("<", 1)
+    if base != want[0].strip():
+        return False
+    if len(want) == 1:
+        return True
+    given = tuple(a.strip() for a in want[1].rstrip(">").split(",") if a.strip())
+    return args[: len(given)] == given
+
+
+def device_window(fn, kernel, launches=20):
+    """One torch.profiler window of ``launches`` calls of ``fn``: the device
+    ms per launch of the kernel that :func:`names_kernel` matches, its launches
+    in the window, the device ms per call of every other kernel in it and their
+    names.  Fails where two distinct kernels match; ``ms`` is None where none
+    does."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -197,13 +280,22 @@ def device_ms_per_launch(fn, kernel, launches=20):
         for _ in range(launches):
             fn()
         torch.cuda.synchronize()
+    rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
-        if kernel in e.key and us and e.count:
-            return us / 1e3 / e.count
-    return None
+        if us and e.count:
+            rows.append((e.key, us / 1e3, e.count))
+    hits = [r for r in rows if names_kernel(r[0], kernel)]
+    if len({r[0] for r in hits}) > 1:
+        raise AssertionError(f"the profiler name {kernel!r} matches {len(hits)} kernels: "
+                             f"{[r[0][:80] for r in hits]}")
+    others = [r for r in rows if r not in hits]
+    return {"ms": hits[0][1] / hits[0][2] if hits else None, "key": hits[0][0] if hits else None,
+            "count": hits[0][2] if hits else 0,
+            "other_ms_per_call": sum(r[1] for r in others) / launches,
+            "other_kernels": sorted(r[0][:60] for r in others)}
 
 
 def device_busy(step, nsteps, pattern=r"trsm|triang"):
@@ -412,23 +504,63 @@ def visit_fns(level, route, noise, f, x, xc, cluster=None, threads=None):
 
 
 def device_ms_retried(fn, kernel, launches=10):
-    """:func:`device_ms_per_launch`, asked up to four times: a profile now and
-    then shows no kernel at all."""
+    """Device time of one launch of the CUDA kernel ``kernel`` (by its full
+    name, :func:`names_kernel`) over one :func:`device_window` of ``launches``
+    calls of ``fn``, each of which launches it once.  Unlike the event time of
+    back-to-back launches this does not contain the host's launch rate.  The
+    mean is over the launches the window recorded: a window of 20 often
+    records 19 (in a whole run, after some hundred windows, nearly always), now
+    and then 13.  A window that shows no such kernel, fewer than half of the
+    launches or more than were made is asked again, up to four times; None
+    after that."""
     for _ in range(4):
-        t = device_ms_per_launch(fn, kernel, launches)
-        if t is not None:
-            return t
+        w = device_window(fn, kernel, launches)
+        if launches // 2 <= w["count"] <= launches:
+            return w["ms"]
         time.sleep(0.2)
     return None
 
 
 def device_ms_median(fn, kernel, launches=10, windows=3):
     """The median over ``windows`` profiler windows of
-    :func:`device_ms_retried`: a table whose constants a run must support
-    takes it, so that one window the card ran slower in (a clock change)
-    does not decide; None where a window showed no such kernel."""
+    :func:`device_ms_retried`: every device time that a table or the
+    ``kernels`` line reports takes it, so that no single window (one the card
+    ran slower in, a clock change, one that recorded a part of its launches)
+    decides; None where a window showed no such kernel."""
     times = [device_ms_retried(fn, kernel, launches) for _ in range(windows)]
     return None if None in times else float(np.median(times))
+
+
+#: a launch is bound by the device where its event time is above this many ms
+#: and the host enqueues it in less than :data:`HOST_SHARE` of that time; its
+#: device ms must then agree with its event ms within :data:`EVENTS_FACTOR`
+DEVICE_BOUND_MS = 0.1
+#: a launch whose host enqueue takes this share of its event time or more is
+#: bound by the host (a one-chain split visit of 127^2: 0.034 device ms, 0.107
+#: by events, the Python launch path some 0.1 ms), and its events time the host
+HOST_SHARE = 0.5
+#: the largest ratio, either way, of a device-bound launch's event ms (back-to-
+#: back launches, CUDA events) to its device ms (profiler, median of three
+#: windows).  The events add the gap between two launches (some 2-10 us) and
+#: the profiler's windows read 5-15% off now and then, so single launches of
+#: the card's runs lie at 1.00-1.14 (PERF.md section 6); 1.25 leaves room for
+#: that and still catches a window that matched the wrong kernel or lost half
+#: the time (the 63^3 Gibbs row's old 0.414 against 0.877: 2.1).
+EVENTS_FACTOR = 1.25
+
+
+def check_events_against_device(name, ms, device_ms, host_ms):
+    """Fail where a device-bound launch's device ms and event ms disagree by
+    more than :data:`EVENTS_FACTOR`; returns their ratio."""
+    if device_ms is None:
+        raise AssertionError(f"{name}: the profiler shows no device time")
+    ratio = ms / device_ms
+    bound = ms > DEVICE_BOUND_MS and host_ms < HOST_SHARE * ms
+    if bound and not 1.0 / EVENTS_FACTOR <= ratio <= EVENTS_FACTOR:
+        raise AssertionError(f"{name}: event ms {ms} and device ms {device_ms} of a "
+                             f"device-bound launch (host {host_ms} ms) differ by {ratio} "
+                             f"(more than {EVENTS_FACTOR})")
+    return ratio
 
 
 def time_level(level, C, f_batched, noise, plain=True, routes=("phase", "stream")):
@@ -452,10 +584,13 @@ def time_level(level, C, f_batched, noise, plain=True, routes=("phase", "stream"
     out = {}
     for route in routes:
         for name, fn in zip(VISIT_KERNELS[route], visit_fns(level, route, noise, f, x, xc)):
-            out[f"{name}_ms"] = cuda_ms(fn, 5, 10 if C > 1 else 50)
-            out[f"{name}_device_ms"] = device_ms_retried(fn, PROFILER_NAMES[name], 20)
-            if out[f"{name}_device_ms"] is None:
-                raise AssertionError(f"the profiler shows no {PROFILER_NAMES[name]}")
+            host = {}
+            out[f"{name}_ms"] = cuda_ms(fn, 5, 10 if C > 1 else 50, host)
+            out[f"{name}_host_ms"] = host["ms"]
+            out[f"{name}_device_ms"] = device_ms_median(fn, PROFILER_NAMES[name], 20)
+            out[f"{name}_events_over_device"] = check_events_against_device(
+                f"{name} {tuple(vshape)} C={C}", out[f"{name}_ms"], out[f"{name}_device_ms"],
+                host["ms"])
     if not plain:
         return out
     x.zero_()
@@ -516,7 +651,7 @@ def time_routes(levels, wide_levels, noise, smi):
 
             def pair_ms(route, cluster=None):
                 fns = visit_fns(level, route, noise, f, x, xc, cluster)
-                times = [device_ms_retried(fn, PROFILER_NAMES[kernel])
+                times = [device_ms_median(fn, PROFILER_NAMES[kernel])
                          for kernel, fn in zip(VISIT_KERNELS[route], fns)]
                 return None if None in times else times
 
@@ -1104,7 +1239,7 @@ def time_sweeps(device, noise):
     from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
     from multigridmc_tpu_torch.smoothers import SORSmoother
 
-    rows = []
+    rows, faults = [], []
     for name, op, C, omega in sweep_cases(device):
         plan = SORSmoother(op, omega, 1).plan
         b = torch.rand((C,) + op.vshape, device=device)
@@ -1133,12 +1268,24 @@ def time_sweeps(device, noise):
                 return ss.launch_gibbs_sweep(plan, gibbs_route, b, x, philox=noise.philox_stream(),
                                              body=body)
 
-            row[f"{prefix}sweep_ms"] = cuda_ms(det, 5, inner)
-            row[f"{prefix}gibbs_ms"] = cuda_ms(gibbs, 5, inner)
-            row[f"{prefix}sweep_device_ms"] = device_ms_retried(
+            hosts = {"sweep": {}, "gibbs": {}}
+            row[f"{prefix}sweep_ms"] = cuda_ms(det, 5, inner, hosts["sweep"])
+            row[f"{prefix}gibbs_ms"] = cuda_ms(gibbs, 5, inner, hosts["gibbs"])
+            row[f"{prefix}sweep_device_ms"] = device_ms_median(
                 det, sweep_kernel(route, body, "sweep"), 20)
-            row[f"{prefix}gibbs_device_ms"] = device_ms_retried(
+            row[f"{prefix}gibbs_device_ms"] = device_ms_median(
                 gibbs, sweep_kernel(gibbs_route, body, "gibbs"), 20)
+            for kind, fn, r in (("sweep", det, route), ("gibbs", gibbs, gibbs_route)):
+                w = device_window(fn, sweep_kernel(r, body, kind), 20)
+                row[f"{prefix}{kind}_window"] = {"kernel": w["key"], "launches": w["count"],
+                                                 "other_kernels": w["other_kernels"]}
+                try:
+                    row[f"{prefix}{kind}_host_ms"] = hosts[kind]["ms"]
+                    row[f"{prefix}{kind}_events_over_device"] = check_events_against_device(
+                        f"{name} {prefix}{kind}", row[f"{prefix}{kind}_ms"],
+                        row[f"{prefix}{kind}_device_ms"], hosts[kind]["ms"])
+                except AssertionError as err:
+                    faults.append(str(err))
         x.zero_()
         row["sweep_plain_ms"] = cuda_ms(
             lambda: ss.sweep_batched_plain(op, plan.masks, omega, plan.order, b, x), 3, 3)
@@ -1146,6 +1293,9 @@ def time_sweeps(device, noise):
             lambda: ss.gibbs_sweep_batched_plain(op, plan.masks, omega, plan.order, b, x,
                                                  torch.randn_like(x)), 3, 3)
         rows.append(row)
+    if faults:
+        emit({"sweep_timings": rows})
+        raise AssertionError("sweep timings: " + "; ".join(faults))
     return rows
 
 
@@ -1220,7 +1370,7 @@ def time_sweep_passes(device, noise, bodies, nx, nlevel, n_meas):
                                                  philox=noise.philox_stream(), body=body,
                                                  stamps=stamps)
 
-                device_ms = device_ms_retried(run, sweep_kernel(ss.BLOCK_ROUTE, body, kind), 10)
+                device_ms = device_ms_median(run, sweep_kernel(ss.BLOCK_ROUTE, body, kind), 10)
                 stamps = [torch.zeros((C, ss.SWEEP_STAMP_WIDTH), dtype=torch.int64, device=device)
                           for _ in range(STAMP_LAUNCHES)]
                 for launch_stamps in stamps:  # back to back, as the profiler's launches
@@ -1740,8 +1890,12 @@ def time_subtree(device, nx, nlevel, C, n_meas, noise):
     out = {"chains": C, "vshape": list(kernel.vshape), "threads": kernel.threads,
            "placement": kernel.placement, "bound_ms": bound, "bound_by": by,
            "bound_bytes": nbytes}
-    out["ms"] = cuda_ms(lambda: kernel.sample(noise, f), 5, 10)
-    out["device_ms"] = device_ms_per_launch(lambda: kernel.sample(noise, f), "mgmc_subtree_kernel")
+    host = {}
+    out["ms"] = cuda_ms(lambda: kernel.sample(noise, f), 5, 10, host)
+    out["host_ms"] = host["ms"]
+    out["device_ms"] = device_ms_median(lambda: kernel.sample(noise, f), "mgmc_subtree_kernel")
+    out["events_over_device"] = check_events_against_device("subtree_sample", out["ms"],
+                                                            out["device_ms"], host["ms"])
     out["plain_ms"] = cuda_ms(lambda: st.subtree_sample_plain(
         kernel, f, torch.randn((C, K), device=device)), 3, 2)
     # where the launch's time goes: thread 0 of each block stamps the card's
@@ -1790,7 +1944,7 @@ def time_subtree(device, nx, nlevel, C, n_meas, noise):
             "dynamic_shared_bytes": k.smem_bytes,
             "blocks_per_sm_occupancy_api": lib.mgmc_subtree_blocks_per_sm(threads, k.smem_bytes),
             "default": threads == kernel.threads and k.smem_budget == default_budget,
-            "device_ms": device_ms_per_launch(lambda: k.sample(noise, f), "mgmc_subtree_kernel",
+            "device_ms": device_ms_median(lambda: k.sample(noise, f), "mgmc_subtree_kernel",
                                               launches=10)})
     return out
 
@@ -1816,7 +1970,7 @@ def check_probe(device):
     out.update({"bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
                 "bound_bytes": nbytes,
                 "ms": cuda_ms(lambda: common.smem_copy(x, limit), 5, 50),
-                "device_ms": device_ms_per_launch(lambda: common.smem_copy(x, limit),
+                "device_ms": device_ms_median(lambda: common.smem_copy(x, limit),
                                                   "smem_probe_kernel"),
                 "plain_ms": cuda_ms(lambda: common.smem_copy_plain(x), 5, 50),
                 # the one PyTorch call that computes the same function; its
@@ -1825,7 +1979,7 @@ def check_probe(device):
                 # the device times are the pair to compare
                 "library_ms": cuda_ms(lambda: x.clone(), 5, 50)})
     for name in ("Memcpy DtoD", "copy"):
-        out["library_device_ms"] = device_ms_per_launch(lambda: x.clone(), name)
+        out["library_device_ms"] = device_ms_median(lambda: x.clone(), name)
         if out["library_device_ms"] is not None:
             out["library_device_kernel"] = name
             break
@@ -1925,7 +2079,11 @@ def check_v1_sweeps(device, nx, C, gen, noise):
         timings[name] = {
             "chains": chains, "vshape": list(op.vshape), "route": list(route),
             "ms": cuda_ms(call, 5, 10 if chains > 1 else 50),
-            "device_ms": device_ms_per_launch(call, kernel_name),
+            "device_ms": device_ms_median(call, kernel_name),
+            # not a launch but a whole Python call, which also launches the
+            # kernels of the masks and the noise-scale plane: its event time
+            # is not held against the device time (check_events_against_device)
+            "other_kernels_per_call": device_window(call, kernel_name, 10)["other_kernels"],
             "plain_ms": cuda_ms(plain, 3, 3),
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_bytes": 4 * words}
@@ -2038,7 +2196,7 @@ def time_phase_passes(levels, noise):
                    "stencil_form": level.stencil_form}
             fns = visit_fns(level, "phase", noise, f, x, xc)
             for kind, fn, name in zip(("descend", "ascend"), fns, VISIT_KERNELS["phase"]):
-                device_ms = device_ms_retried(fn, PROFILER_NAMES[name])
+                device_ms = device_ms_median(fn, PROFILER_NAMES[name])
                 stamps = torch.zeros((C, mv.PHASE_STAMP_WIDTH), dtype=torch.int64, device=dev)
                 for _ in range(3):
                     xi, xi_lr, philox = level._draw(noise, x)
@@ -2351,7 +2509,7 @@ def phase_threads(device, nx, nlevel, C, n_meas, smi):
             by_threads = {}
             for threads in (256, 512, 1024):
                 fns = visit_fns(level, "phase", noise, f, x, xc, threads=threads)
-                by_threads[threads] = [device_ms_retried(fn, PROFILER_NAMES[name])
+                by_threads[threads] = [device_ms_median(fn, PROFILER_NAMES[name])
                                        for name, fn in zip(VISIT_KERNELS["phase"], fns)]
             pair = {t: sum(v) for t, v in by_threads.items() if None not in v}
             rule = level.phase_threads(chains)
@@ -2372,15 +2530,13 @@ def phase_threads(device, nx, nlevel, C, n_meas, smi):
 
 
 def device_ms_of(fn, candidates, launches=20):
-    """:func:`device_ms_per_launch` of the first of the kernel names
+    """:func:`device_ms_median` of the first of the kernel names
     ``candidates`` that the profiler shows (a tree and its parent name their
     kernels differently); None where it shows none of them."""
-    for _ in range(4):
-        for kernel in candidates:
-            t = device_ms_per_launch(fn, kernel, launches)
-            if t is not None:
-                return t
-        time.sleep(0.2)
+    for kernel in candidates:
+        t = device_ms_median(fn, kernel, launches)
+        if t is not None:
+            return t
     return None
 
 
@@ -2449,7 +2605,7 @@ def phase_compare(device, nx, nlevel, C, n_meas, steps, smi):
             row = {"level": li, "vshape": list(level.op.vshape), "chains": chains}
             fns = visit_fns(level, "phase", noise, f, x, xc)
             for kind, name, fn in zip(("descend", "ascend"), VISIT_KERNELS["phase"], fns):
-                row[f"{name}_device_ms"] = device_ms_retried(fn, PROFILER_NAMES[name], 20)
+                row[f"{name}_device_ms"] = device_ms_median(fn, PROFILER_NAMES[name], 20)
                 row[f"{kind}_bound_ms"] = visit_bound(level, chains, li > 0, kind)[0]
             rows.append(row)
     emit({"phase": "compare", "card": smi, "phase_kernels": rows,
@@ -2497,6 +2653,7 @@ def phase_main_path(device, nx, nlevel, C, n_meas, steps, smi):
         ("subtree_kernel", dict(subtree=True), steps, C),
         ("level0_fused", dict(distill=False, fused_min_vertices=n0), max(steps // 3, 2), C),
         (f"distilled_{PHASE_CHAINS}_chains", dict(distill=True), steps, PHASE_CHAINS),
+        ("alternating", dict(distill=True, sweep_schedule="alternating"), steps, C),
     )
     for name, kwargs, nsteps, C in variants:
         for module in (mv, ss, st, common):
@@ -2519,15 +2676,15 @@ def phase_main_path(device, nx, nlevel, C, n_meas, steps, smi):
         sampler.coarse_sampler.apply = counted_coarse
         noise = GeneratorNoise(FLAGSHIP_SEED, device)
         x = torch.zeros((C,) + op.vshape, dtype=torch.float32, device=device)
-        for _ in range(2):  # warm-up: caches, allocator, lazily built buffers
-            x = sampler.apply(noise, f, x)
+        for k in range(2):  # warm-up: caches, allocator, lazily built buffers
+            x = sampler.apply_indexed(noise, f, x, k)
         torch.cuda.synchronize()
         mv.reset_launch_counts()
         st.reset_launch_counts()
         coarse_calls[0] = 0
         t0 = time.perf_counter()
-        for _ in range(nsteps):
-            x = sampler.apply(noise, f, x)
+        for k in range(nsteps):  # the step index picks the alternating schedule's parity
+            x = sampler.apply_indexed(noise, f, x, k)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = {**mv.launch_counts, **st.launch_counts,
@@ -2547,7 +2704,9 @@ def phase_main_path(device, nx, nlevel, C, n_meas, steps, smi):
         # the route of each visited level at this chain count; a route that no
         # visited level takes must show no launch
         routes = {li: sampler.fused_levels[li].route(C) for li in visited}
-        unused = [kernel for route in mv.ROUTES if route not in routes.values()
+        routes_1 = {li: sampler._engine(1)[2][li].route(C) for li in visited}
+        unused = [kernel for route in mv.ROUTES
+                  if route not in set(routes.values()) | set(routes_1.values())
                   for kernel in VISIT_KERNELS[route]]
         if (visits["descend"] != expected or visits["ascend"] != expected
                 or counts["subtree_sample"] != expected_subtree
@@ -2560,7 +2719,10 @@ def phase_main_path(device, nx, nlevel, C, n_meas, steps, smi):
             ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
              "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
             check=True).stdout.strip()  # after the timed steps: the card's state for them
-        busy = device_busy(lambda: sampler.apply(noise, f, x), 3,
+        # four steps by the step index, as timed: under the alternating
+        # schedule two of each parity
+        ks = iter(range(4))
+        busy = device_busy(lambda: sampler.apply_indexed(noise, f, x, next(ks)), 4,
                            pattern=r"trsm|triang|visit_kernel|descend_kernel|ascend_kernel")
         if busy is not None:  # device ms per launch of each visit kernel (by level shape)
             busy["visit_device_ms"] = {
@@ -2582,6 +2744,12 @@ def phase_main_path(device, nx, nlevel, C, n_meas, steps, smi):
             res["distilled"] = {**d.info, "vshape": list(d.vshape), "precision": d.precision,
                                 "T_bytes": d.Tm.numel() * d.Tm.element_size(),
                                 "S_bytes": d.S_T.numel() * d.S_T.element_size()}
+        if sampler._alt is not None:  # the parity-1 engine: its routes and its own map
+            res["route_by_level_parity_1"] = routes_1
+            d1 = sampler._alt["distilled"]
+            res["distilled_parity_1"] = {
+                **d1.info, "T_bytes": d1.Tm.numel() * d1.Tm.element_size(),
+                "S_bytes": d1.S_T.numel() * d1.S_T.element_size()}
         if sampler.subtree is not None:
             res["placement"] = sampler.subtree.placement
         if name == "distilled_tf32":
@@ -2609,22 +2777,22 @@ def phase_main_path(device, nx, nlevel, C, n_meas, steps, smi):
 DRIVER_CONFIG = """
 general = {{
     dim = 2;
-    do_cholesky = false;
-    do_ssor = true;
+    do_cholesky = {do_cholesky};
+    do_ssor = {do_ssor};
     do_multigridmc = true;
-    save_posterior_statistics = true;
+    save_posterior_statistics = {do_ssor};
     measure_convergence = true;
     operator = "posterior";
     mean_shift = "auto";
 }}
 lattice = {{ nx = {nx}; ny = {nx}; nz = {nx}; }}
-cholesky = {{ factorisation = "dense"; }}
+{cholesky}
 smoother = {{ nsmooth = 1; omega = 1.0; }}
 iterative_solver = {{ rtol = 1.0E-5; atol = 1.0E-2; maxiter = 100; verbose = 2; }}
 multigrid = {{
     smoother = "{smoother}"; coarse_solver = "Cholesky";
     npresmooth = 1; npostsmooth = 1; ncoarsesmooth = 1;
-    omega = 1.0; nlevel = {nlevel}; cycle = 2; coarse_scaling = 1.0; verbose = 0;
+    omega = 1.0; nlevel = {nlevel}; cycle = 2; coarse_scaling = 1.0; verbose = 0;{schedule}
 }}
 sampling = {{
     timeseries = {{ nsamples = {nsamples}; nwarmup = {nwarmup}; }}
@@ -2646,8 +2814,10 @@ measurements = {{
 
 
 def write_driver_configs(directory, nx, nlevel, n_meas, nchains, nsamples, nwarmup):
-    """``params_mgmc.cfg`` (SOR multigrid), ``params_mg.cfg`` (SSOR multigrid)
-    and ``measurements.cfg`` with the flagship's measurements."""
+    """``params_mgmc.cfg`` (SOR multigrid), ``params_mg.cfg`` (SSOR multigrid),
+    ``params_band.cfg`` (the exact sampler with the factorisation unset, i.e.
+    the band sampler, beside SOR multigrid on the alternating schedule) and
+    ``measurements.cfg`` with the flagship's measurements."""
     rng = np.random.default_rng(FLAGSHIP_SEED)
     locations = rng.uniform(0.1, 0.9, size=(n_meas, 2))
     mean = rng.normal(2.0, 1.0, size=n_meas)
@@ -2659,10 +2829,17 @@ def write_driver_configs(directory, nx, nlevel, n_meas, nchains, nsamples, nwarm
     with open(os.path.join(directory, "measurements.cfg"), "w") as out:
         out.write(f"dim = 2;\nn = {n_meas};\nmeasurement_locations = {listing(locations)};\n"
                   f"mean = {listing(mean)};\nvariance = {listing(variance)};\n")
-    for name, smoother in (("params_mgmc.cfg", "SOR"), ("params_mg.cfg", "SSOR")):
+    dense = 'cholesky = { factorisation = "dense"; }'
+    for name, smoother, extra in (
+            ("params_mgmc.cfg", "SOR", dict(cholesky=dense)),
+            ("params_mg.cfg", "SSOR", dict(cholesky=dense)),
+            ("params_band.cfg", "SOR", dict(do_cholesky="true", do_ssor="false", cholesky="",
+                                            schedule=' sweep_schedule = "alternating";'))):
+        fields = {"do_cholesky": "false", "do_ssor": "true", "schedule": "", **extra}
         with open(os.path.join(directory, name), "w") as out:
             out.write(DRIVER_CONFIG.format(nx=nx, nlevel=nlevel, smoother=smoother,
-                                           nchains=nchains, nsamples=nsamples, nwarmup=nwarmup))
+                                           nchains=nchains, nsamples=nsamples, nwarmup=nwarmup,
+                                           **fields))
 
 
 def read_vtk_scalars(path):
@@ -2909,6 +3086,41 @@ def phase_drivers(device, nx, nlevel, n_meas, nchains, nsamples, nwarmup, smi):
             out["mg"]["distill_level"] = None if chosen is None else int(chosen.group(1))
             if out["mg"]["distill_level"] != 2:
                 raise AssertionError("drivers.mg: distill='auto' did not choose level 2")
+
+            # ---- drivers.mgmc: the band sampler (factorisation unset) and MGMC
+            # on the alternating schedule
+            mv.reset_launch_counts()
+            ss.reset_launch_counts()
+            t0 = time.perf_counter()
+            text = run_driver(driver_mgmc.main, ["params_band.cfg"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            print("\n".join(line for line in text.splitlines()
+                            if re.search(r"time per sample|mean  |variance =|factorisation", line)),
+                  flush=True)
+            res = {"seconds": seconds, "launches": {**mv.launch_counts, **ss.launch_counts},
+                   "factorisation_seconds": float(re.search(
+                       r"time for Cholesky factorisation = (\S+) s", text).group(1))}
+            exact_mean = float(re.search(r"exact mean\s+=\s+(\S+)", text).group(1))
+            for label in ("cholesky", "multigridmc"):
+                series = np.loadtxt(f"timeseries_{label}.txt")
+                if series.shape != (nsamples,) or not np.isfinite(series).all():
+                    raise AssertionError(f"drivers (band): timeseries_{label}.txt is not "
+                                         f"{nsamples} finite values")
+                ms = re.search(rf"{label} time per sample =\s+(\S+) ms", text)
+                mean = re.search(rf"{label} mean\s+=\s+(\S+) \+/-\s+(\S+)", text)
+                r = res[label] = {"ms_per_sample": float(ms.group(1)),
+                                  "mean": float(mean.group(1)),
+                                  "mean_error": float(mean.group(2)),
+                                  "iact": integrated_autocorrelation_time(series)}
+                r["mean_bar"] = 5.0 * r["mean_error"] * np.sqrt(max(r["iact"], 1.0))
+                if abs(r["mean"] - exact_mean) > r["mean_bar"]:
+                    raise AssertionError(f"drivers (band): {label} mean {r['mean']} is further "
+                                         f"than {r['mean_bar']} from the exact mean {exact_mean}")
+            if not all(res["launches"][n] > 0 for n in VISIT_KERNELS["split"]):
+                raise AssertionError(f"drivers (band): the one-chain MGMC series launched "
+                                     f"{res['launches']}")
+            out["band_alternating"] = res
         finally:
             os.chdir(cwd)
     out["one_chain_ssor_step"] = time_one_chain_ssor(device, nx, n_meas)
@@ -2916,6 +3128,394 @@ def phase_drivers(device, nx, nlevel, n_meas, nchains, nsamples, nwarmup, smi):
     emit(out)
     counts = {name: counts_mgmc[name] + counts_mg[name] for name in counts_mgmc}
     return counts, out
+
+
+# ----------------------------------------------------------------- phase: band
+#: chain counts at which the band sampler is timed
+BAND_CHAINS = (1, 256)
+#: the float32 residual ``||L g - v|| / ||v||`` of both solve strategies on the
+#: flagship's band, against the float64 host band operator: the JAX package's
+#: gate on its production-like band (tests/test_sampler.py, 32^2 FD prior)
+BAND_RESIDUAL_LIMIT = 5e-4
+#: the doubling's residual, and its distance from the scan, at most this many
+#: times the scan's own (its residual; its distance from the float64 solve)
+BAND_DOUBLING_FACTOR = 50.0
+#: the band solver's solution and the band sampler's mean (``fix_rhs`` unset)
+#: in float32 against an independent float64 host solve of the same rhs: at
+#: most this share of the solution's largest entry off.  Both solve in float64
+#: on the host and round once to float32 (6e-8); a float32 Woodbury step on the
+#: card is off by percents on a near-exact posterior.
+BAND_MEAN_TOL = 1e-6
+
+
+def band_lower_matvec(cb, g):
+    """``L g`` in float64 on the host for the lower band factor
+    ``cb[k, j] = L[j + k, j]`` and ``g`` of shape ``(K, n)``."""
+    n = cb.shape[1]
+    out = np.zeros_like(g)
+    for k in range(cb.shape[0]):
+        out[:, k:] += cb[k, : n - k] * g[:, : n - k]
+    return out
+
+
+def band_upper_solve(cb, v):
+    """``L^T x = v`` in float64 on the host (``v`` of shape ``(n, K)``)."""
+    import scipy.linalg
+
+    b, n = cb.shape[0] - 1, cb.shape[1]
+    ub = np.zeros_like(cb)
+    for k in range(b + 1):
+        ub[b - k, k:] = cb[k, : n - k]
+    return scipy.linalg.solve_banded((0, b), ub, v)
+
+
+def host_posterior_solve(op, F):
+    """``Q^-1 F`` in float64 on the host for ``F`` of shape ``(K, n)``: scipy's
+    own band factorisation of the stencil part (``solveh_banded``) and the
+    Woodbury step with ``A^-1 B`` solved alongside.  It shares no code with the
+    port's band solves but the band storage, which the CPU tests hold bitwise
+    against the JAX package's."""
+    import scipy.linalg
+
+    from multigridmc_tpu_torch.samplers import cholesky as pc
+
+    ab, _ = pc._band_matrix_stencil(op)
+    m = op.m_lowrank
+    B = op.lowrank.B.double().cpu().numpy().reshape(m, -1).T  # (n, m)
+    Sig = op.lowrank.Sigma_diag.double().cpu().numpy()
+    sol = scipy.linalg.solveh_banded(ab, np.concatenate([F.T, B], axis=1), lower=True)
+    t, AB = sol[:, : F.shape[0]], sol[:, F.shape[0]:]
+    return (t - AB @ np.linalg.solve(np.diag(Sig) + B.T @ AB, B.T @ t)).T
+
+
+def check_band_means(op, sampler, f, device):
+    """The float32 entry points' ``Q^-1 f`` on the near-exact posterior, where
+    the Woodbury step cancels almost completely: ``BandCholeskySolver.apply``
+    on two right-hand sides (the posterior's own, ``f``, and a uniform field),
+    and the sampler's ``apply`` with no rhs fixed, read from one draw of zero
+    normals; each against :func:`host_posterior_solve` (:data:`BAND_MEAN_TOL`).
+    For the record, the same Woodbury step in float32 on the card, which the
+    port does not take."""
+    from multigridmc_tpu_torch.samplers.base import ReplayNoise
+    from multigridmc_tpu_torch.solvers.cholesky import BandCholeskySolver
+
+    n = sampler.factor.n
+    F = torch.stack([f.reshape(n), torch.rand(n, generator=torch.Generator().manual_seed(3))
+                     .to(device)])
+    exact = host_posterior_solve(op, F.double().cpu().numpy())
+    t0 = time.perf_counter()
+    solver = BandCholeskySolver(op)
+    t1 = time.perf_counter()
+    got = {"solver": solver.apply(F.reshape((2,) + op.vshape)).reshape(2, n)}
+    t2 = time.perf_counter()
+    zeros = ReplayNoise([np.zeros((1, n), np.float32), np.zeros((1, op.m_lowrank), np.float32)])
+    got["sampler_rhs_unfixed"] = sampler.apply(zeros, f, torch.zeros((1,) + op.vshape,
+                                                                       device=device))
+    t = sampler.factor.solve(F)
+    got["float32_woodbury_on_the_card"] = t - (t @ sampler.B_flat) @ sampler.W.T
+    errs = {}
+    for name, g in got.items():
+        if g.dtype != torch.float32 or g.device.type != "cuda":
+            raise AssertionError(f"band means ({name}): {g.dtype} on {g.device}")
+        g = g.reshape(-1, n).double().cpu().numpy()
+        e = exact[: g.shape[0]]
+        errs[name] = float((np.abs(g - e).max(axis=1) / np.abs(e).max(axis=1)).max())
+    res = {"error_over_solution_max": errs, "solution_max_abs": np.abs(exact).max(axis=1).tolist(),
+           "tolerance": BAND_MEAN_TOL, "solver_setup_seconds": t1 - t0,
+           "solver_seconds_two_rhs": t2 - t1}
+    if max(errs["solver"], errs["sampler_rhs_unfixed"]) > BAND_MEAN_TOL:
+        raise AssertionError(f"band: float32 Q^-1 f off the float64 solve: {res}")
+    return res
+
+
+def slope_ms(fn, n1=2, n2=6, repeats=3):
+    """ms per call of ``fn`` from the difference of two run lengths (CUDA
+    events), the median over ``repeats``: what a call adds to a long run."""
+    fn()
+    torch.cuda.synchronize()
+
+    def run(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    return float(np.median([(run(n2) - run(n1)) / (n2 - n1) for _ in range(repeats)]))
+
+
+def phase_band(device, nx, n_meas, smi):
+    """The exact band (``"sparse"``) Cholesky sampler on the flagship posterior
+    at 255^2: its host set-up (band storage from the stencil, the float64
+    factorisation, the doubling's level tensors on the card), ms per sample at
+    1 and 256 chains by recursive doubling and by the block scan, the two
+    against each other and their float32 residuals against the float64 band
+    operator; the float32 solver's and the unfixed sampler's ``Q^-1 f``
+    against a float64 host solve (:func:`check_band_means`); then a 64x64
+    posterior's mean and variance against dense ``Q^-1`` (4 standard errors,
+    256 chains)."""
+    import copy
+
+    import scipy.linalg
+
+    from multigridmc_tpu_torch.models.posterior import (measurement_vector,
+                                                        observed_mean_and_variance,
+                                                        posterior_mean)
+    from multigridmc_tpu_torch.samplers import cholesky as pc
+    from multigridmc_tpu_torch.samplers.base import GeneratorNoise, MeanShiftedSampler
+
+    op, params = build_posterior(nx, n_meas, FLAGSHIP_SEED, "near_exact", device)
+    out = {"phase": "band", "card": smi, "lattice": [nx, nx], "dtype": "float32"}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sampler = pc.BandCholeskySampler(op)  # the entry point: parallel=None
+    torch.cuda.synchronize()
+    out["setup_seconds"] = time.perf_counter() - t0
+    factor = sampler.factor
+    if not factor.parallel:
+        raise AssertionError("band: parallel=None did not take the doubling on the card")
+    # the set-up's parts, once more
+    t0 = time.perf_counter()
+    ab, b = pc._band_matrix_stencil(op)
+    t1 = time.perf_counter()
+    cb = scipy.linalg.cholesky_banded(ab, lower=True)
+    t2 = time.perf_counter()
+    scan_factor = pc.BandFactor(cb, torch.float32, device, parallel=False)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    out.update({"n": factor.n, "bandwidth": b, "blocks": factor.nb, "block": factor.blk,
+                "levels": factor.n_levels, "level_bytes": factor.level_bytes(),
+                "band_storage_bytes": ab.nbytes, "band_storage_seconds": t1 - t0,
+                "host_factorisation_seconds": t2 - t1, "blocks_upload_seconds": t3 - t2})
+    del ab
+    scan = copy.copy(sampler)
+    scan.factor = scan_factor
+
+    # the two strategies on the same normals: residuals and distance
+    gen = torch.Generator(device=device)
+    gen.manual_seed(41)
+    K = 4
+    v = torch.randn((K, factor.n), device=device, generator=gen)
+    v64 = v.double().cpu().numpy()
+    res, sols = {}, {}
+    for name, fac in (("doubling", factor), ("scan", scan_factor)):
+        g = fac.solve_L(v).double().cpu().numpy()
+        r = band_lower_matvec(cb, g) - v64
+        res[name] = float(np.max(np.linalg.norm(r, axis=1) / np.linalg.norm(v64, axis=1)))
+        sols[name] = fac.solve_LT(v).double().cpu().numpy()
+    exact = band_upper_solve(cb, v64.T).T
+    scan_err = float(np.abs(sols["scan"] - exact).max())
+    dist = float(np.abs(sols["doubling"] - sols["scan"]).max())
+    out["solves"] = {"residual_L": res, "residual_limit": BAND_RESIDUAL_LIMIT,
+                     "scan_LT_against_float64_max_abs": scan_err,
+                     "doubling_LT_against_float64_max_abs":
+                         float(np.abs(sols["doubling"] - exact).max()),
+                     "doubling_against_scan_max_abs": dist,
+                     "solution_max_abs": float(np.abs(exact).max()),
+                     "factor": BAND_DOUBLING_FACTOR}
+    if (max(res.values()) > BAND_RESIDUAL_LIMIT
+            or res["doubling"] > BAND_DOUBLING_FACTOR * max(res["scan"], 1e-7)
+            or dist > BAND_DOUBLING_FACTOR * max(scan_err,
+                                                 1e-7 * out["solves"]["solution_max_abs"])):
+        raise AssertionError(f"band: the solves disagree: {out['solves']}")
+
+    f = op.apply(torch.as_tensor(posterior_mean(op, np.zeros(op.vshape), params.y()),
+                                 dtype=torch.float32, device=device))
+    out["means"] = check_band_means(op, sampler, f, device)
+
+    # ms per sample (the rhs fixed, as the driver fixes it)
+    noise = GeneratorNoise(FLAGSHIP_SEED, device)
+    out["timings"] = []
+    for C in BAND_CHAINS:
+        x = torch.zeros((C,) + op.vshape, device=device)
+        row = {"chains": C}
+        for name, s in (("doubling", sampler), ("scan", scan)):
+            s.fix_rhs(f)
+            ms = slope_ms(lambda: s.apply(noise, f, x))
+            row[f"{name}_ms_per_call"] = ms
+            row[f"{name}_ms_per_sample"] = ms / C
+            y = s.apply(noise, f, x)
+            if tuple(y.shape) != tuple(x.shape) or not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"band ({name}, {C} chains): samples not finite")
+            busy = device_busy(lambda: s.apply(noise, f, x), 3, pattern=r"gemm|trsm|triang")
+            row[f"{name}_kernel_ms_per_call"] = None if busy is None else busy["kernel_ms_per_step"]
+            row[f"{name}_kernels_per_call"] = None if busy is None else busy["kernels_per_step"]
+            s.unfix_rhs()
+        out["timings"].append(row)
+    del sampler, scan, factor, scan_factor
+
+    # the statistical gate: a 64x64 posterior, through the zero-mean protocol as
+    # every gate of phase statistics, and with the rhs fixed as the driver runs it
+    op, params = build_posterior(64, 4, 78, "near_exact", device)
+    mean = posterior_mean(op, np.zeros(op.vshape), params.y())
+    w = measurement_vector(op.lattice, np.array([0.45, 0.55]), 0.1)
+    z_mean, z_var = observed_mean_and_variance(op, np.zeros(op.vshape), params.y(), w)
+    wt = torch.as_tensor(w, dtype=torch.float32, device=device).reshape(-1)
+    C, nsteps = 256, 200
+    band = pc.BandCholeskySampler(op)
+    gate = {}
+    for name, s, fs in (("zero_mean_protocol", MeanShiftedSampler(band, mean), None),
+                        ("fix_rhs", band, op.apply(torch.as_tensor(mean, dtype=torch.float32,
+                                                                   device=device)))):
+        if fs is not None:
+            s.fix_rhs(fs)
+        noise = GeneratorNoise(4242 + len(gate), device)
+        x = torch.zeros((C,) + op.vshape, device=device)
+        zs = []
+        for _ in range(nsteps):
+            x = s.apply(noise, fs, x)
+            zs.append((x.reshape(C, -1) @ wt).double())
+        z = torch.stack(zs).cpu().numpy()
+        gate[name] = moments_gate(f"band, {name}", z, z_mean, z_var, C)
+        s.unfix_rhs()
+    out["statistics_64x64"] = {"chains": C, "steps": nsteps, "exact": {"mean": z_mean,
+                                                                       "variance": z_var},
+                               "doubling": band.factor.parallel, **gate}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------- phase: alternating
+#: chain counts at which the swapped-order visits are held against their plain
+#: versions, by route: the phase kernels at 1, 16, 128 and 256, the split
+#: kernels at 1, 16 and 128 (beyond the route's 16: at the cluster size the rule
+#: picks uncapped), the stream kernels at 256 (level 0, where the main path
+#: takes them)
+ALT_CHECKS = (("phase", 128), ("stream", 256), ("split", 1), ("split", 16), ("split", 128))
+
+
+def phase_alternating(device, nx, nlevel, C, n_meas, steps, smi):
+    """The alternating sweep schedule on the flagship: every visit in the
+    swapped orders of parity 1 against its plain version (2e-5) on the three
+    routes, stream and split against the phase kernels under one Philox stream;
+    both parities' 255^2 visits at ``C`` chains on the stream and the phase
+    kernels (the route must take the faster, by device or event ms); then the
+    default (distilled) sampler at ``C`` chains: ms per step and kernel ms of
+    parity 0, parity 1 and ``apply_pair``, each parity's route by level, the
+    set-up of both distilled maps."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+    from multigridmc_tpu_torch.samplers.base import GeneratorNoise
+    from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
+
+    out = {"phase": "alternating", "card": smi, "chains": C, "tolerance": TOL}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(12)
+    op, _ = build_posterior(nx, n_meas, FLAGSHIP_SEED, "order_one", device)
+    alt = MultigridMCSampler(op, nlevel, cycle=2, fused=True, fused_min_vertices=0,
+                             distill=False, sweep_schedule="alternating")
+    levels = alt._alt["fused_levels"]
+    for li, level in levels.items():
+        base = alt.fused_levels[li]
+        if (level.pre_order != base.post_order or level.post_order != base.pre_order
+                or not torch.equal(level.Bbar_pre, base.Bbar_post)):
+            raise AssertionError(f"alternating: level {li} of parity 1 is not the swapped level")
+    checks, errs, route_err = [], {}, {}
+    for li in (0, 1):
+        level = levels[li]
+        for route, chains in ALT_CHECKS:
+            if route == "stream" and li != 0:
+                continue
+            routes = ("phase",) if route == "phase" else ("phase", route)
+            cluster = (mv.split_cluster(chains, level.op.vshape, capped=False)
+                       if route == "split" else None)
+            e, against = check_level(level, li, chains, li > 0, gen, routes, cluster)
+            checks.append({"level": li, "vshape": list(level.op.vshape), "chains": chains,
+                           "pre_order": list(level.pre_order), "routes": list(routes),
+                           "cluster": cluster, **e,
+                           "against_phase_one_philox_stream": against})
+            for k, v in e.items():
+                errs[k] = max(errs.get(k, 0.0), v)
+            for r, d in against.items():
+                route_err[r] = max(route_err.get(r, 0.0), *d.values())
+    out.update({"max_abs_err": errs, "against_phase_max_abs_err": route_err,
+                "checks": checks, "stream_layout": check_stream_layout(levels, C)})
+
+    # both parities' 255^2 visits at C chains, stream against phase kernels
+    op, _ = build_posterior(nx, n_meas, FLAGSHIP_SEED, "near_exact", device)
+    alt = MultigridMCSampler(op, nlevel, cycle=2, fused=True, fused_min_vertices=0,
+                             distill=False, sweep_schedule="alternating")
+    noise = GeneratorNoise(6, device)
+    out["level0_by_parity"] = {}
+    for parity, lv in ((0, alt.fused_levels), (1, alt._alt["fused_levels"])):
+        level = lv[0]
+        t = timed_visits(level, C, False, noise, ("phase", "stream"))
+        # the pair by device ms and by event ms (launches bound by the device:
+        # check_events_against_device); the route must take the faster kernels
+        # by one of the two, so that one window that read a few % off (0.3727
+        # device ms against 0.3527 by events in one run) cannot decide a tie
+        pair, faster = {}, {}
+        for measure in ("device_ms", "ms"):
+            pair[measure] = {route: t[f"{VISIT_KERNELS[route][0]}_{measure}"]
+                             + t[f"{VISIT_KERNELS[route][1]}_{measure}"]
+                             for route in ("phase", "stream")}
+            faster[measure] = min(pair[measure], key=pair[measure].get)
+        out["level0_by_parity"][parity] = {**t, "pre_order": list(level.pre_order),
+                                           "pair": pair, "route": level.route(C),
+                                           "faster": faster}
+        if level.route(C) not in faster.values():
+            raise AssertionError(f"alternating: parity {parity}'s 255^2 level takes the "
+                                 f"{level.route(C)} kernels at {C} chains, the other kernels "
+                                 f"are faster: {pair}")
+    del alt
+
+    # the default sampler (distilled) under the alternating schedule
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sampler = MultigridMCSampler(op, nlevel, smoother="SOR", coarse_solver="Cholesky",
+                                 omega=1.0, cycle=2, sweep_schedule="alternating")
+    torch.cuda.synchronize()
+    out["setup_seconds"] = time.perf_counter() - t0
+    li = sampler.distill_level
+    if sampler.distilled is None or sampler._alt["distilled"] is None:
+        raise AssertionError("alternating: the default sampler did not distil both parities")
+    maps = {}
+    for parity, (pre, post) in ((0, (sampler.presamplers, sampler.postsamplers)),
+                                (1, (sampler.postsamplers, sampler.presamplers))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = sampler._make_distilled(li, pre, post)
+        torch.cuda.synchronize()
+        maps[parity] = {"setup_seconds": time.perf_counter() - t0, "level": li,
+                        "T_bytes": d.Tm.numel() * d.Tm.element_size(),
+                        "S_bytes": d.S_T.numel() * d.S_T.element_size()}
+        del d
+    out["distilled_by_parity"] = maps
+    f = torch.as_tensor(np.random.default_rng(0).uniform(size=op.vshape), dtype=torch.float32,
+                        device=device)
+    noise = GeneratorNoise(FLAGSHIP_SEED + 1, device)
+    x = torch.zeros((C,) + op.vshape, device=device)
+    for k in range(4):  # warm-up of both engines
+        x = sampler.apply_indexed(noise, f, x, k)
+    out["route_by_level"] = {
+        parity: {li: lv.route(C) for li, lv in sorted(sampler._engine(parity)[2].items())
+                 if li < sampler.distill_level} for parity in (0, 1)}
+    timed = {}
+    for name, fn, per in (("parity_0", lambda x: sampler.apply(noise, f, x, parity=0), 1),
+                          ("parity_1", lambda x: sampler.apply(noise, f, x, parity=1), 1),
+                          ("apply_pair", lambda x: sampler.apply_pair(noise, f, x), 2)):
+        n = max(steps // per, 2)
+        mv.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            x = fn(x)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"alternating ({name}): samples not finite")
+        busy = device_busy(lambda: fn(x), 3)
+        timed[name] = {"calls": n, "ms_per_call": 1e3 * dt / n,
+                       "ms_per_step": 1e3 * dt / (n * per),
+                       "samples_per_s": C * n * per / dt,
+                       "kernel_ms_per_call": None if busy is None else busy["kernel_ms_per_step"],
+                       "kernels_per_call": None if busy is None else busy["kernels_per_step"],
+                       "launches": {k: v for k, v in mv.launch_counts.items() if v}}
+    out["timings"] = timed
+    emit(out)
+    return out
 
 
 # ----------------------------------------------------------- phase: statistics
@@ -2933,6 +3533,9 @@ SPLIT_GATE_CHAINS = 16
 #: batches whose means stand in for independent chains (the W-cycle's
 #: autocorrelation time on the 64x64 posterior is a few steps)
 SPLIT_GATE = {"steps": 3000, "batches": 30}
+#: the alternating schedule's statistical gates: over-relaxed, as the reference's
+#: own warm-up diagnostic runs it
+ALTERNATING = {"sweep_schedule": "alternating", "omega": 1.4}
 
 
 def moments_gate(name, z, z_mean, z_var, C):
@@ -3007,7 +3610,15 @@ def phase_statistics(device, nx, C, warmup, steps):
                  SPLIT_GATE["steps"]),
                 (f"kernels_split_{SPLIT_GATE_CHAINS}_chains", dict(fused=True, distill=False),
                  1005, SPLIT_GATE_CHAINS, steps),
-                ("kernels_phase", dict(fused=True, distill=False), 1006, PHASE_CHAINS, steps))
+                ("kernels_phase", dict(fused=True, distill=False), 1006, PHASE_CHAINS, steps),
+                # the alternating schedule at omega = 1.4 (the reference's
+                # warm-up scan), both parities by step index: the phase kernels
+                # at C chains, the split kernels at one chain
+                ("kernels_alternating", dict(ALTERNATING, fused=True, distill=False), 1007, C,
+                 steps),
+                ("kernels_split_one_chain_alternating", dict(ALTERNATING, fused=True,
+                                                             distill=False), 1008, 1,
+                 SPLIT_GATE["steps"]))
     for name, kwargs, seed, Cv, nsteps in variants:
         inner = MultigridMCSampler(op, 3, cycle=2, fused_min_vertices=0, **kwargs)
         if (name == "distilled") != (inner.distilled is not None and inner.distill_level == 1):
@@ -3017,11 +3628,11 @@ def phase_statistics(device, nx, C, warmup, steps):
         sampler = MeanShiftedSampler(inner, mean)
         noise = GeneratorNoise(seed, device)
         x = sampler.mean.expand((Cv,) + op.vshape).clone()
-        for _ in range(warmup):
-            x = sampler.apply(noise, None, x)
+        for k in range(warmup):
+            x = sampler.apply_indexed(noise, None, x, k)
         zs = []
-        for _ in range(nsteps):
-            x = sampler.apply(noise, None, x)
+        for k in range(warmup, warmup + nsteps):
+            x = sampler.apply_indexed(noise, None, x, k)
             zs.append((x.reshape(Cv, -1) @ wt).double())
         z = torch.stack(zs).cpu().numpy()  # (steps, Cv)
         if Cv == 1:  # one chain: its series in batches, whose means are nearly independent
@@ -3029,7 +3640,8 @@ def phase_statistics(device, nx, C, warmup, steps):
         out[name] = moments_gate(name, z, z_mean, z_var, z.shape[1])
         out[name]["chains"] = Cv
         if name.startswith("kernels"):  # the visit kernels of this chain count's route
-            routes = {level.route(Cv) for level in inner.fused_levels.values()}
+            routes = {level.route(Cv) for engine in (0, 1)
+                      for level in inner._engine(engine)[2].values()}
             route = routes.pop()
             want = ("split" if name.startswith("kernels_split") else
                     "phase" if name == "kernels_phase" else mv.visit_route(Cv))
@@ -3112,7 +3724,8 @@ def phase_statistics(device, nx, C, warmup, steps):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(sorted(ALL_PHASES)),
-                        help="comma-separated subset of kernels,main_path,drivers,statistics "
+                        help="comma-separated subset of kernels,main_path,band,alternating,"
+                             "drivers,statistics "
                              "to run (device and build always run; 'threads' adds a "
                              "block-size table, 'passes' the phase kernels' checks and "
                              "breakdown by pass, 'compare' the phase kernels' times and "
@@ -3123,7 +3736,7 @@ def main(argv=None) -> int:
                              "'sweep_check', 'sweep_stamps' (with 'sweep_passes') and "
                              "'sweep_threads' the one-block sweeps' checks, breakdown by "
                              "pass and block-size table alone); "
-                             "the ok line needs exactly the default four")
+                             "the ok line needs exactly the default six")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -3184,6 +3797,10 @@ def main(argv=None) -> int:
         errs, timings, sweep_timings, third = phase_kernels(device, nx, nlevel, C, n_meas, smi)
     if "main_path" in phases:
         counts, main = phase_main_path(device, nx, nlevel, C, n_meas, steps, smi)
+    if "band" in phases:
+        phase_band(device, nx, n_meas, smi)
+    if "alternating" in phases:
+        alternating = phase_alternating(device, nx, nlevel, C, n_meas, steps, smi)
     if "drivers" in phases:
         driver_counts, _ = phase_drivers(device, nx, nlevel, n_meas, C, nsamples=2000, nwarmup=200,
                                          smi=smi)
@@ -3221,7 +3838,9 @@ def main(argv=None) -> int:
                 "launches": launches[name], "path": path,
                 "launches_by_variant": {v: c[name] for v, c in counts.items()},
                 "max_abs_err": errs[name],
+                "swapped_order_max_abs_err": alternating["max_abs_err"][name],
                 "ms": t[f"{name}_ms"], "device_ms": t[f"{name}_device_ms"],
+                "events_over_device": t[f"{name}_events_over_device"],
                 "plain_ms": t[f"{kind}_plain_ms"],
                 "bound_ms": t[f"{kind}_bound_ms"], "bound_by": t[f"{kind}_bound_by"],
                 "bound_bytes": t[f"{kind}_bytes"], "library_ms": None,
@@ -3284,6 +3903,7 @@ def main(argv=None) -> int:
                 "launches": driver_counts[entry], "max_abs_err": errs[entry],
                 "path": None if route == "generic_" else "drivers",
                 "ms": t[f"{prefix}{key}_ms"], "device_ms": t[f"{prefix}{key}_device_ms"],
+                "events_over_device": t[f"{prefix}{key}_events_over_device"],
                 "plain_ms": t[f"{key}_plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "bound_bytes": t["bound_bytes"],
@@ -3328,6 +3948,7 @@ def main(argv=None) -> int:
         "launches": counts["subtree_kernel"]["subtree_sample"],
         "max_abs_err": third["subtree_err"],
         "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+        "events_over_device": t["events_over_device"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "bound_bytes": t["bound_bytes"],
         "library_ms": None, "shape": {"chains": t["chains"], "vshape": t["vshape"]},
         "design": "launch tables in shared memory; the passes of level_passes.cuh shared "

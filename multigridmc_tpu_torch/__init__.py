@@ -24,7 +24,7 @@ from .solvers.multigrid import MultigridHierarchy, MultigridPreconditioner
 from .solvers.loop import CGSolver, IterativeSolverParameters, LoopSolver
 from .samplers.base import GeneratorNoise, MeanShiftedSampler, ReplayNoise
 from .samplers.sor import SORSampler, SSORSampler
-from .samplers.cholesky import DenseCholeskySampler
+from .samplers.cholesky import BandCholeskySampler, DenseCholeskySampler
 from .samplers.mgmc import MultigridMCSampler
 
 __version__ = "0.1.0"
@@ -50,5 +50,6 @@ __all__ = [
     "SORSampler",
     "SSORSampler",
     "DenseCholeskySampler",
+    "BandCholeskySampler",
     "MultigridMCSampler",
 ]

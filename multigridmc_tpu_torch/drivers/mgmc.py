@@ -24,7 +24,7 @@ from ..models.posterior import (
     posterior_mean,
 )
 from ..samplers.base import GeneratorNoise, MeanShiftedSampler
-from ..samplers.cholesky import DenseCholeskySampler
+from ..samplers.cholesky import BandCholeskySampler, DenseCholeskySampler
 from ..samplers.mgmc import MultigridMCSampler
 from ..samplers.sor import SSORSampler
 from ..utils.config import echo_config, load_config
@@ -43,11 +43,7 @@ def make_samplers(config, op):
         if config.cholesky.factorisation == "dense":
             samplers["cholesky"] = DenseCholeskySampler(op)
         else:
-            raise NotImplementedError(
-                "cholesky.factorisation = \"sparse\" needs the band-Cholesky sampler "
-                "(samplers/cholesky.py::BandCholeskySampler), which a later slice of "
-                "the port brings with the exact band samplers; use \"dense\" or "
-                "do_cholesky = false")
+            samplers["cholesky"] = BandCholeskySampler(op)
         synchronize(op.device)
         t1 = time.perf_counter()
         print(f"time for Cholesky factorisation = {t1 - t0:.4f} s")

@@ -191,6 +191,11 @@ PHASE_WAVE_THREADS = 512
 #: 127^2 (256 chains: 0.3338 against 0.1608), on the 511^2 level (2.9472
 #: against 2.576) and on the 255^2 9-point level (1.3174 against 0.7702), so
 #: no single chain count serves every level.  PERF.md section 6 holds the table.
+#: The threshold holds for both sweep orders: the alternating schedule's odd
+#: steps descend backward and ascend forward, and there the stream kernels win
+#: by as much (0.5975 against 0.6426 ms at 256 chains, where the fixed orders
+#: give 0.5977 against 0.6421; phase ``alternating``), so it is not keyed by
+#: order.
 STREAM_MIN_CHAINS: Dict[Tuple[int, int, int], int] = {(255, 255, 0): 256}
 
 #: Launches of at most this many chains take the split kernels where their bands

@@ -41,8 +41,13 @@ Two ways to replace the recursion below a level by one call:
   kernel (:mod:`multigridmc_tpu_torch.ops.kernels.mgmc_subtree`).  It excludes
   distillation.
 
-Not ported yet (``NotImplementedError``): ``sweep_schedule="alternating"``,
-fused 3d and two-sweep (SSOR) visits.
+``sweep_schedule="alternating"`` alternates the sweep directions from step to
+step: odd steps run the same hierarchy with the pre- and post-samplers swapped
+(their own fused levels, whose Woodbury factors follow the swapped directions,
+and their own distilled map); ``apply(..., parity=1)``, ``apply_pair`` and
+``apply_indexed`` select it.  It excludes ``subtree=True``.
+
+Not ported yet (``NotImplementedError``): fused 3d and two-sweep (SSOR) visits.
 """
 
 from __future__ import annotations
@@ -94,8 +99,9 @@ class MultigridMCSampler(Sampler):
     needs SOR with one pre- and one post-sweep, a 2d operator, at least three
     levels and a dense Cholesky coarse sampler, and float32 on a CUDA device;
     anything else raises.  It excludes distillation: ``distill="auto"`` then
-    resolves to off and ``distill=True`` raises.  Off by default: on an H100
-    the distilled subtree is faster (``chip_smoke.py``, PERF.md).
+    resolves to off and ``distill=True`` raises; with
+    ``sweep_schedule="alternating"`` it raises ``ValueError``.  Off by default:
+    on an H100 the distilled subtree is faster (``chip_smoke.py``, PERF.md).
     """
 
     def __init__(
@@ -127,10 +133,7 @@ class MultigridMCSampler(Sampler):
         sweep_schedule = sweep_schedule.lower()
         if sweep_schedule not in ("fixed", "alternating"):
             raise ValueError(f"invalid sweep_schedule '{sweep_schedule}'")
-        if sweep_schedule == "alternating":
-            raise NotImplementedError(
-                "sweep_schedule='alternating' is not ported yet (a later slice "
-                "of the port brings the alternating schedule)")
+        self.sweep_schedule = sweep_schedule
         smoother = smoother.upper()
         if smoother not in ("SOR", "SSOR"):
             raise ValueError(f"invalid sampler '{smoother}'")
@@ -170,17 +173,21 @@ class MultigridMCSampler(Sampler):
 
         # one fused kernel call = one visit = one directed sweep (SOR); SSOR
         # levels run the composed visit on the sweep kernels
-        self.fused_levels = {}
-        if smoother == "SOR" and npresmooth == 1 and npostsmooth == 1:
-            self.fused_levels = fused_levels_for(
-                self.hierarchy.operators, self.presamplers, self.postsamplers,
-                self.coarse_scaling,
-                DEFAULT_FUSED_MIN_VERTICES if fused_min_vertices is None
-                else int(fused_min_vertices),
-                force=None if fused == "auto" else bool(fused),
-            )
+        self._visits_fusable = smoother == "SOR" and npresmooth == 1 and npostsmooth == 1
+        self._fused_opts = dict(
+            min_vertices=(DEFAULT_FUSED_MIN_VERTICES if fused_min_vertices is None
+                          else int(fused_min_vertices)),
+            force=None if fused == "auto" else bool(fused))
+        self.fused_levels = (self._make_fused(self.presamplers, self.postsamplers)
+                             if self._visits_fusable else {})
         self._build_subtree(bool(subtree), smoother, npresmooth, npostsmooth)
         self._build_distilled(distill)
+        self._build_alternate()
+
+    def _make_fused(self, pre, post) -> dict:
+        return fused_levels_for(self.hierarchy.operators, pre, post, self.coarse_scaling,
+                                self._fused_opts["min_vertices"],
+                                force=self._fused_opts["force"])
 
     # ------------------------------------------------- the subtree kernel
     def _build_subtree(self, subtree: bool, smoother: str, npresmooth: int,
@@ -237,43 +244,79 @@ class MultigridMCSampler(Sampler):
             self.hierarchy.operators[li:], pre[li:], post[li:], self.coarse_sampler,
             self.cycle, self.coarse_scaling, noise=True, precision=self.distill_precision)
 
+    # ---------------------------------------------- the alternating schedule
+    def _build_alternate(self) -> None:
+        """The parity-1 engine of ``sweep_schedule="alternating"``: the same
+        hierarchy with the pre- and post-samplers swapped (odd steps presample
+        backward and postsample forward), with fused levels built for the
+        swapped directions - each level's Woodbury factors belong to its own
+        sweep orders - and a distilled map of the swapped subtree.  Either
+        parity leaves the target invariant, so their composition does too."""
+        self._alt = None
+        if self.sweep_schedule != "alternating":
+            return
+        if self.subtree is not None:
+            raise ValueError("sweep_schedule='alternating' excludes subtree=True: the "
+                             "subtree kernel runs the fixed schedule's directions only")
+        alt_fused = (self._make_fused(self.postsamplers, self.presamplers)
+                     if self._visits_fusable else {})
+        alt_distilled = None
+        if self.distilled is not None:
+            alt_distilled = self._make_distilled(self.distill_level, self.postsamplers,
+                                                 self.presamplers)
+        self._alt = dict(presamplers=self.postsamplers, postsamplers=self.presamplers,
+                         fused_levels=alt_fused, distilled=alt_distilled)
+
+    def _engine(self, parity: int):
+        """``(presamplers, postsamplers, fused_levels, distilled)`` of a step
+        parity; parity 1 differs from 0 under the alternating schedule only."""
+        if parity and self._alt is not None:
+            a = self._alt
+            return a["presamplers"], a["postsamplers"], a["fused_levels"], a["distilled"]
+        return self.presamplers, self.postsamplers, self.fused_levels, self.distilled
+
     def _sample(self, level: int, noise: NoiseSource, f: torch.Tensor,
-                x: torch.Tensor) -> torch.Tensor:
+                x: torch.Tensor, parity: int = 0) -> torch.Tensor:
         """Recursive stochastic cycle.  Noise is consumed in the order pre,
         coarse, post per level and cycle index."""
         if level == self.nlevel - 1:
             return self.coarse_sampler.apply(noise, f, x)
+        presamplers, postsamplers, fused_levels, distilled = self._engine(parity)
         op = self.hierarchy.operators[level]
         vdim = len(op.vshape)
         # the fused kernels take exactly one chain axis
-        fused = self.fused_levels.get(level) if x.ndim == vdim + 1 else None
+        fused = fused_levels.get(level) if x.ndim == vdim + 1 else None
         ncycle = self.cycle if level > 0 else 1
         for _ in range(ncycle):
             if fused is not None:
                 x, f_coarse = fused.descend(noise, f, x)
             else:
-                x = self.presamplers[level].apply(noise, f, x)
+                x = presamplers[level].apply(noise, f, x)
                 r = f - op.apply(x)
                 f_coarse = restrict(r, dim=vdim)
             if level == 0 and self.subtree is not None and f_coarse.ndim == vdim + 1:
                 x_coarse = self.subtree.sample(noise, f_coarse.contiguous())
-            elif (self.distilled is not None and level + 1 == self.distill_level
+            elif (distilled is not None and level + 1 == self.distill_level
                   and f_coarse.ndim > vdim):
-                x_coarse = self.distilled.apply(noise, f_coarse)
+                x_coarse = distilled.apply(noise, f_coarse)
             else:
                 x_coarse = self._sample(level + 1, noise, f_coarse,
-                                        torch.zeros_like(f_coarse))
+                                        torch.zeros_like(f_coarse), parity)
             if fused is not None:
                 x = fused.ascend(noise, f, x, x_coarse)
             else:
                 x = prolongate_add(self.coarse_scaling, x_coarse, x, dim=vdim)
-                x = self.postsamplers[level].apply(noise, f, x)
+                x = postsamplers[level].apply(noise, f, x)
         return x
 
-    def apply(self, noise: NoiseSource, f: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    def apply(self, noise: NoiseSource, f: torch.Tensor, x: torch.Tensor,
+              parity: int = 0) -> torch.Tensor:
         """One MGMC step: chain state x is carried, not zeroed.  ``x`` is
         ``(*batch, *vshape)``; ``f`` is ``vshape`` (shared) or batched like x.
-        With fused levels ``x`` may be updated in place; use the return value."""
+        With fused levels ``x`` may be updated in place; use the return value.
+        ``parity`` (0 or 1) selects the sweep directions under
+        ``sweep_schedule="alternating"`` and is ignored under the fixed one."""
+        parity = int(parity) & 1
         vdim = len(self.op.vshape)
         one_chain_axis = bool(self.fused_levels) or self.subtree is not None
         if self.distilled is not None and x.ndim == vdim:
@@ -286,16 +329,23 @@ class MultigridMCSampler(Sampler):
             ff = f
             if f.ndim > vdim:
                 ff = torch.broadcast_to(f, x.shape).reshape(xf.shape)
-            out = self._sample(0, noise, ff.contiguous(), xf)
+            out = self._sample(0, noise, ff.contiguous(), xf, parity)
             return out.reshape(batch + self.op.vshape)
         if one_chain_axis:
             x = x.contiguous()
             f = f.contiguous()
-        return self._sample(0, noise, f, x)
+        return self._sample(0, noise, f, x, parity)
+
+    def apply_pair(self, noise: NoiseSource, f: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """Two MGMC steps, parity 0 then parity 1 (under the fixed schedule two
+        ordinary steps), drawing from ``noise`` in that order."""
+        return self.apply(noise, f, self.apply(noise, f, x, parity=0), parity=1)
 
     def apply_indexed(self, noise: NoiseSource, f: torch.Tensor, x: torch.Tensor,
                       k: int) -> torch.Tensor:
-        """One step that sees the step index ``k``.  Under the fixed sweep
-        schedule (the only one ported) every step is the same."""
-        del k
-        return self.apply(noise, f, x)
+        """One step that sees the step index ``k``: under the alternating
+        schedule its parity ``k % 2`` picks the sweep directions (on the host,
+        before any launch); under the fixed schedule every step is the same."""
+        if self._alt is None:
+            return self.apply(noise, f, x)
+        return self.apply(noise, f, x, parity=int(k) % 2)

@@ -6,11 +6,18 @@ correction
 
     B_bar = A^{-1} B (Sigma + B^T A^{-1} B)^{-1},     x = y - B_bar B^T y,   y = A^{-1} b.
 
-Dense on-device factorisation: the right tool for the (tiny) coarsest
-multigrid level.  The factorisation and the solves are library calls
-(``torch.linalg``), as they are outside any kernel in the JAX package too.  The
-band solver for large standalone systems belongs to a later slice of the port
-(with the band-Cholesky sampler).
+Two backends, as for the samplers (:mod:`multigridmc_tpu_torch.samplers.cholesky`):
+
+* :class:`DenseCholeskySolver` - dense on-device factorisation, the right tool
+  for the (tiny) coarsest multigrid level;
+* :class:`BandCholeskySolver` - the lexicographic band factorisation of the
+  stencil part (its exact sparse factor: all fill-in stays inside the band),
+  factorised and solved in float64 on the host
+  (:class:`~multigridmc_tpu_torch.samplers.cholesky.BandWoodbury`), for large
+  standalone systems.
+
+The factorisations and the solves are library calls (``torch.linalg``,
+``scipy.linalg``), as they are outside any kernel in the JAX package too.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.stencil import StencilOperator
+from ..samplers.cholesky import BandWoodbury
 
 
 class DenseCholeskySolver:
@@ -44,3 +52,25 @@ class DenseCholeskySolver:
         if self.B_bar is not None:
             y = y - self.B_bar @ (self.B_flat.T @ y)
         return y.T.reshape(b.shape)
+
+
+class BandCholeskySolver:
+    """Band (``"sparse"``) direct solver for large lattice systems: the band
+    factor of the stencil part plus the Woodbury correction
+    ``x = y - B_bar (B^T y)``, ``y = A^-1 b``, all in float64 on the host
+    (:class:`~multigridmc_tpu_torch.samplers.cholesky.BandWoodbury`: with
+    near-exact measurements the correction cancels almost completely, which
+    float32 cannot resolve); the solution comes back in the operator's dtype on
+    its device.  ``B_bar`` is the float64 ``(n, m)`` array."""
+
+    def __init__(self, op: StencilOperator, device=None, dtype=None):
+        op = op.to(device, dtype)
+        self.op = op
+        self.host = BandWoodbury(op)
+        self.bandwidth = self.host.bandwidth
+        self.B_bar = self.host.W
+
+    def apply(self, b: torch.Tensor) -> torch.Tensor:
+        """Solve ``Q x = b`` for a grid field b, supporting leading batch dims."""
+        x = self.host.solve(b.reshape(-1, self.host.n), self.op.dtype, self.op.device)
+        return x.reshape(b.shape)

@@ -164,8 +164,7 @@ class MultigridParameters:
     * ``distill_precision`` - precision tier of the distilled coarse-subtree
       matmuls (``"highest"``, ``"high"``, ``"default"`` or unset).
 
-    Both are parsed so that existing files load; the port's samplers say which
-    values they support.
+    Both are parsed and reach the MGMC sampler, which runs every value.
     """
 
     smoother: str = "SOR"

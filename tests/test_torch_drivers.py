@@ -173,13 +173,49 @@ def test_drivers_need_a_gpu_unless_the_cpu_is_asked_for(config_dir, tmp_path):
 
 
 def test_band_cholesky_names_its_slice(config_dir):
+    """``cholesky.factorisation = "sparse"`` (the default) builds the band
+    sampler, as the JAX driver does."""
+    from multigridmc_tpu_torch.samplers.cholesky import BandCholeskySampler
+
     config = pconfig.load_config(config_dir / "params.cfg")
     config.cholesky.factorisation = "sparse"
     prior, op, mparams = pcommon.build_operators(config, "cpu", torch.float64)
-    with pytest.raises(NotImplementedError, match="BandCholeskySampler.*later slice"):
-        driver_mgmc.make_samplers(config, op)
+    samplers = driver_mgmc.make_samplers(config, op)
+    assert isinstance(samplers["cholesky"], BandCholeskySampler)
+    assert samplers["cholesky"].bandwidth == 7 and not samplers["cholesky"].factor.parallel
     assert pcommon.run_dtype(torch.device("cpu")) is torch.float64
     assert pcommon.run_dtype(torch.device("cuda")) is torch.float32
+
+
+def test_driver_band_cholesky_and_alternating_schedule(config_dir, tmp_path):
+    """A configuration that leaves the factorisation unset (the band sampler)
+    and asks for the alternating sweep schedule runs end to end; every time
+    series' mean lies within its error bars of the exact one."""
+    text = (config_dir / "params.cfg").read_text()
+    text = text.replace('cholesky = { factorisation = "dense"; }\n', "")
+    text = text.replace("cycle = 2;", 'cycle = 2; sweep_schedule = "alternating";')
+    assert "factorisation" not in text and "alternating" in text
+    (tmp_path / "params.cfg").write_text(text)
+    (tmp_path / "measurements.cfg").write_text(MEASUREMENTS)
+    config = pconfig.load_config(tmp_path / "params.cfg")
+    assert config.cholesky.factorisation == "sparse"
+    assert config.multigrid.sweep_schedule == "alternating"
+    r = run_driver("multigridmc_tpu_torch.drivers.mgmc",
+                   [str(tmp_path / "params.cfg"), "--device", "cpu"], tmp_path)
+    assert r.returncode == 0, r.stderr
+    assert "time for Cholesky factorisation" in r.stdout
+    jmean = float(re.search(r"exact mean     = +(\S+)", r.stdout).group(1))
+    jvar = float(re.search(r"exact variance = +(\S+)", r.stdout).group(1))
+    for label in ("cholesky", "ssor", "multigridmc"):
+        series = np.loadtxt(tmp_path / f"timeseries_{label}.txt")
+        assert series.shape == (50,) and np.isfinite(series).all()
+        mean, err = (float(v) for v in re.search(
+            rf"{label} mean     = +(\S+) \+/- +(\S+)", r.stdout).groups())
+        var = float(re.search(rf"{label} variance = +(\S+)", r.stdout).group(1))
+        assert abs(mean - jmean) < 5 * err * np.sqrt(3.0)  # successive states correlate
+        assert abs(var - jvar) < 5 * jvar * np.sqrt(2.0 / 50 * 3.0)
+    table = (tmp_path / "convergence_multigridmc.txt").read_text()
+    assert len(re.findall(r"^\s+(?:mean|variance)\s+\d+ :", table, flags=re.M)) == 2 * 5
 
 
 @pytest.mark.parametrize("shape", [(6, 4), (4, 6, 5)], ids=["2d", "3d"])

@@ -245,11 +245,12 @@ def test_default_device_without_a_gpu_raises():
     (dict(coarse_solver="SSOR"), None),
     (dict(distill=True, nlevel=3), None),
     (dict(distill="auto", nlevel=3), None),
-    (dict(sweep_schedule="alternating"), "alternating"),
+    (dict(sweep_schedule="alternating"), None),
 ], ids=["ssor", "ssor_coarse", "distill", "distill_auto", "alternating"])
 def test_unported_sampler_options_raise(kwargs, match):
-    """Options of a later slice raise; SSOR and the distilled subtree
-    (``match=None``) are ported and must construct and take a finite step."""
+    """Options of a later slice raise; SSOR, the distilled subtree and the
+    alternating schedule (``match=None``) are ported and must construct and take
+    a finite step."""
     op = shiftedlaplace_fd(Lattice((8, 8)), ConstantCorrelationLengthModel(0.3), device=CPU)
     if match is None:
         sampler = MultigridMCSampler(op, **{"nlevel": 2, **kwargs})
