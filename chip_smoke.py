@@ -8,8 +8,9 @@ shifted-Laplace prior, 8 near-exact point measurements, 5-level W-cycle) - the
 batched float32 MGMC sampler (SOR, dense Cholesky on the coarsest level, 256
 chains) with every level's visit fused, with its coarse subtree distilled,
 with the subtree in one kernel launch and on the alternating sweep schedule,
-the exact band-Cholesky sampler, and the two config-file drivers - on the card
-and checks, one phase after the other:
+the exact band-Cholesky sampler, and the two config-file drivers - and the
+same sampler on the squared shifted-Laplace (biharmonic) and the FEM priors,
+on the card and checks, one phase after the other:
 
 1. ``device``      the card (``nvidia-smi`` name and power limit);
 2. ``build``       ``nvcc`` builds the kernel sources of ``csrc/`` (one process
@@ -123,7 +124,26 @@ and checks, one phase after the other:
                    the subtree kernel with its in-kernel noise and the SSOR
                    sampler on the Gibbs sweep kernel (256 chains on the
                    one-block route, 32 on the split route); and a batched
-                   deterministic solve agrees with the float64 dense solve.
+                   deterministic solve agrees with the float64 dense solve;
+9. ``biharmonic``  the squared shifted-Laplace prior of
+                   ``native/bench_biharmonic_tpu.py`` (255^2, 8 near-exact
+                   measurements, 5 levels, 256 chains): the phase kernels'
+                   reach-2 build on its levels 0 (13-point, 5 colours) and 1
+                   (25-point Galerkin, 9 colours) against their plain versions
+                   (noise off, from a tensor, in-kernel against the host's
+                   reference normals; ``x`` within TOL, ``f_c`` within TOL of
+                   ``max(|f_c|, 1)``), their routes (the phase kernels at 1, 16
+                   and 256 chains; split and stream refuse), times, registers
+                   and spills; both sweep kernels on its 9-colour 63^2 level
+                   (one block at 256 chains, split at 1 and 4 chains); the
+                   sampler through ``MultigridMCSampler.apply`` (30 steps, the
+                   default distillation at 63^2, levels 0 and 1 on the reach-2
+                   kernels); the FEM prior under the flagship's measurements
+                   (10 steps); the 64x64 statistical gate of
+                   ``native/validate_biharmonic_tpu.py`` (zero-mean protocol,
+                   4 standard errors against the dense float64 inverse); and
+                   ``drivers.mgmc`` on a biharmonic (64^2) and a FEM (256^2)
+                   configuration, ``drivers.mg`` on the FEM one.
 
 Device times come from ``torch.profiler``: the kernel matched by its full name
 (:func:`names_kernel`), the median of three windows, each of which must have
@@ -145,7 +165,8 @@ third slice's kernels alone; ``visits``: the visit kernels of the three routes
 alone; ``sweeps``: the sweep kernels of both routes alone; ``sweep_check``:
 the one-block sweeps against their plain versions alone; ``sweep_stamps``: the
 generic one-block sweeps by pass, with ``sweep_passes`` the passes body too;
-``sweep_threads``: the passes body's block-size table) and prints no result
+``sweep_threads``: the passes body's block-size table; ``biharmonic_cg``: the
+drivers' exact-moment CG on the 255^2 squared operator) and prints no result
 line.
 """
 
@@ -171,7 +192,8 @@ PEAK_FP32_FLOPS = 67e12
 
 TOL = 2e-5
 FLAGSHIP_SEED = 20260816
-ALL_PHASES = {"kernels", "main_path", "band", "alternating", "drivers", "statistics"}
+ALL_PHASES = {"kernels", "main_path", "band", "alternating", "drivers", "statistics",
+              "biharmonic"}
 
 
 def emit(obj) -> None:
@@ -179,23 +201,30 @@ def emit(obj) -> None:
 
 
 # ------------------------------------------------------------------ problems
-def build_posterior(nx, n_meas, seed, variance, device, dtype=torch.float32, Lambda=0.2):
-    """Shifted-Laplace FD prior on an nx x nx lattice plus ``n_meas`` point
-    measurements, drawn as the flagship benchmark draws them."""
+def build_posterior(nx, n_meas, seed, variance, device, dtype=torch.float32, Lambda=0.2,
+                    pdemodel="shiftedlaplace_fd", mean=2.0):
+    """Shifted-Laplace FD prior (or the prior ``pdemodel`` names) on an nx x nx
+    lattice plus ``n_meas`` point measurements, drawn as the flagship benchmark
+    draws them: locations uniform in [0.1, 0.9]^2, means normal(``mean``, 1),
+    variances ``0.5 + u`` (``"order_one"``), ``1e-6 (1 + u)`` (``"near_exact"``)
+    or ``variance (1 + u)`` for a number (the biharmonic gate's 1e-2)."""
     from multigridmc_tpu_torch.lattice import Lattice
     from multigridmc_tpu_torch.models.correlation import ConstantCorrelationLengthModel
     from multigridmc_tpu_torch.models.posterior import MeasurementParameters, measured_operator
-    from multigridmc_tpu_torch.models.prior import shiftedlaplace_fd
+    from multigridmc_tpu_torch.models.prior import prior_operator
 
     lattice = Lattice((nx, nx))
-    prior = shiftedlaplace_fd(lattice, ConstantCorrelationLengthModel(Lambda),
-                              device=device, dtype=dtype)
+    prior = prior_operator(pdemodel, lattice, ConstantCorrelationLengthModel(Lambda),
+                           device=device, dtype=dtype)
     rng = np.random.default_rng(seed)
     locations = rng.uniform(0.1, 0.9, size=(n_meas, 2))
-    mean = rng.normal(2.0, 1.0, size=n_meas)
+    means = rng.normal(mean, 1.0, size=n_meas)
     u = rng.uniform(size=n_meas)
-    var = 1e-6 * (1.0 + u) if variance == "near_exact" else 0.5 + u
-    params = MeasurementParameters(measurement_locations=locations, mean=mean, variance=var)
+    if variance == "order_one":
+        var = 0.5 + u
+    else:
+        var = (1e-6 if variance == "near_exact" else float(variance)) * (1.0 + u)
+    params = MeasurementParameters(measurement_locations=locations, mean=means, variance=var)
     return measured_operator(prior, params), params
 
 
@@ -266,6 +295,25 @@ def names_kernel(key, kernel):
     return args[: len(given)] == given
 
 
+#: spin kernels launched at the start of every profiler window, before what it
+#: measures, and left out of its rows: late in a long run torch.profiler drops
+#: the first few kernel records of each window (the default run's last phase
+#: lost 3-4 of them a window), and these take that loss
+PROFILER_PRELUDE = 32
+
+
+def profiler_prelude():
+    """Launch the :data:`PROFILER_PRELUDE` spin kernels and wait for them."""
+    for _ in range(PROFILER_PRELUDE):
+        torch.cuda._sleep(100)
+    torch.cuda.synchronize()
+
+
+def prelude_record(key):
+    """Whether a profiler key is one of :func:`profiler_prelude`'s kernels."""
+    return "spin_kernel" in key
+
+
 def device_window(fn, kernel, launches=20):
     """One torch.profiler window of ``launches`` calls of ``fn``: the device
     ms per launch of the kernel that :func:`names_kernel` matches, its launches
@@ -277,6 +325,7 @@ def device_window(fn, kernel, launches=20):
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profiler_prelude()
         for _ in range(launches):
             fn()
         torch.cuda.synchronize()
@@ -285,7 +334,7 @@ def device_window(fn, kernel, launches=20):
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
-        if us and e.count:
+        if us and e.count and not prelude_record(e.key):
             rows.append((e.key, us / 1e3, e.count))
     hits = [r for r in rows if names_kernel(r[0], kernel)]
     if len({r[0] for r in hits}) > 1:
@@ -306,6 +355,7 @@ def device_busy(step, nsteps, pattern=r"trsm|triang"):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiler_prelude()
         for _ in range(nsteps):
             step()
         torch.cuda.synchronize()
@@ -316,7 +366,7 @@ def device_busy(step, nsteps, pattern=r"trsm|triang"):
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
-        if us:
+        if us and not prelude_record(e.key):
             rows.append((e.key, us / 1e3 / nsteps, e.count / nsteps))
     if not rows:
         return None
@@ -348,6 +398,8 @@ def phase_build():
     paths = common.build_libraries(common.BUILDS)
     mgmc_visit.load_library()
     mgmc_visit.load_library(stamps=True)
+    if hasattr(mgmc_visit, "WideVisitParams"):  # (a parent tree of --phases compare lacks it)
+        mgmc_visit.load_library(reach=2)
     mgmc_visit.load_stream_library()
     mgmc_visit.load_split_library()
     sor_sweep.load_library()
@@ -512,12 +564,15 @@ def device_ms_retried(fn, kernel, launches=10):
     records 19 (in a whole run, after some hundred windows, nearly always), now
     and then 13.  A window that shows no such kernel, fewer than half of the
     launches or more than were made is asked again, up to four times; None
-    after that."""
+    after that, with a line that shows what each window recorded."""
+    seen = []
     for _ in range(4):
         w = device_window(fn, kernel, launches)
         if launches // 2 <= w["count"] <= launches:
             return w["ms"]
+        seen.append({k: w[k] for k in ("count", "ms", "key", "other_kernels")})
         time.sleep(0.2)
+    emit({"profiler_miss": kernel, "launches": launches, "windows": seen})
     return None
 
 
@@ -951,7 +1006,7 @@ def distill_cases(device, nx, nlevel, n_meas):
     count that the distillation set-up hands it (every basis column a chain)
     and at the main path's 256 chains, at which the level-0-fused variant's
     composed visits sweep them (Gibbs with in-kernel noise)."""
-    _, _, shapes = distill_sweep_shapes(device, nx, nlevel, n_meas)
+    _, _, shapes = distill_sweep_shapes(flagship_posterior(device, nx, n_meas), nlevel)
     cases, seen = [], set()
     for d in shapes:
         tag = "x".join(map(str, d["vshape"]))
@@ -1299,20 +1354,26 @@ def time_sweeps(device, noise):
     return rows
 
 
-def distill_sweep_shapes(device, nx, nlevel, n_meas):
-    """The sweeps the flagship's distillation set-up hands the one-block
-    kernels: the plans and chain counts of every deterministic sweep launch
-    while the default (distilled) sampler is built, counted by shape."""
+def flagship_posterior(device, nx, n_meas):
+    """The flagship's posterior: the shifted-Laplace prior, near-exact
+    measurements from :data:`FLAGSHIP_SEED`."""
+    return build_posterior(nx, n_meas, FLAGSHIP_SEED, "near_exact", device)[0]
+
+
+def distill_sweep_shapes(op, nlevel):
+    """The sweeps the distillation set-up of ``op`` (the flagship's posterior,
+    or the biharmonic one) hands the sweep kernels: the plans, routes and
+    chain counts of every deterministic sweep launch while the default
+    (distilled) sampler is built, counted by shape."""
     from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
     from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
 
-    op, _ = build_posterior(nx, n_meas, FLAGSHIP_SEED, "near_exact", device)
     seen = {}
     launch = ss.launch_sweep
 
     def recording(plan, route, b, x, *args, **kwargs):
         key = (tuple(plan.op.vshape), int(x.shape[0]), b.ndim == x.ndim, plan.order)
-        seen.setdefault(key, [plan, 0])[1] += 1
+        seen.setdefault(key, [plan, 0, route])[1] += 1
         return launch(plan, route, b, x, *args, **kwargs)
 
     ss.launch_sweep = recording
@@ -1326,7 +1387,7 @@ def distill_sweep_shapes(device, nx, nlevel, n_meas):
         ss.launch_sweep = launch
     return sampler.distill_level, seconds, [
         {"vshape": list(k[0]), "chains": k[1], "b_batched": k[2], "order": list(k[3]),
-         "launches": n, "plan": plan} for k, (plan, n) in seen.items()]
+         "launches": n, "plan": plan, "route": route} for k, (plan, n, route) in seen.items()]
 
 
 #: launches of a sweep's stamps build per row of the breakdown by pass: the
@@ -1352,7 +1413,7 @@ def time_sweep_passes(device, noise, bodies, nx, nlevel, n_meas):
 
     cases = [(name, SORSmoother(op, omega, 1).plan, C, ("sweep", "gibbs"))
              for name, op, C, omega in sweep_cases(device) if C == 256 and len(op.vshape) == 2]
-    level, seconds, shapes = distill_sweep_shapes(device, nx, nlevel, n_meas)
+    level, seconds, shapes = distill_sweep_shapes(flagship_posterior(device, nx, n_meas), nlevel)
     cases += [(f"distill {'x'.join(map(str, d['vshape']))}", d["plan"], d["chains"], ("sweep",))
               for d in shapes if d["b_batched"]]
     rows = []
@@ -1371,7 +1432,7 @@ def time_sweep_passes(device, noise, bodies, nx, nlevel, n_meas):
                                                  stamps=stamps)
 
                 device_ms = device_ms_median(run, sweep_kernel(ss.BLOCK_ROUTE, body, kind), 10)
-                stamps = [torch.zeros((C, ss.SWEEP_STAMP_WIDTH), dtype=torch.int64, device=device)
+                stamps = [torch.zeros((C, ss.STAMP_WIDTHS[body]), dtype=torch.int64, device=device)
                           for _ in range(STAMP_LAUNCHES)]
                 for launch_stamps in stamps:  # back to back, as the profiler's launches
                     run(launch_stamps)
@@ -1418,7 +1479,7 @@ def time_sweep_threads(device, noise, nx, nlevel, n_meas):
     from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
     from multigridmc_tpu_torch.smoothers import SORSmoother
 
-    _, _, shapes = distill_sweep_shapes(device, nx, nlevel, n_meas)
+    _, _, shapes = distill_sweep_shapes(flagship_posterior(device, nx, n_meas), nlevel)
     distill = {tuple(d["vshape"]): d for d in shapes if d["order"][0] == 0}
     cases = [(name, op, omega) for name, op, C, omega in sweep_cases(device)
              if len(op.vshape) == 2 and C > 1 and ss.sweep_body(op.vshape, op.offsets) == "passes"]
@@ -3721,11 +3782,681 @@ def phase_statistics(device, nx, C, warmup, steps):
 
 
 # ------------------------------------------------------------------------ main
+
+# ------------------------------------------------------------ phase: biharmonic
+#: the problem of ``native/bench_biharmonic_tpu.py``: the squared shifted-Laplace
+#: (13-point, reach 2) prior with Lambda = 0.2 and 8 near-exact measurements
+#: drawn from this seed, 5 levels, W-cycle, SOR
+BIHARMONIC_SEED = 20260820
+#: :func:`build_posterior`'s arguments for that prior: zero-mean measurements
+BIHARMONIC = {"pdemodel": "squared_shiftedlaplace_fd", "mean": 0.0}
+#: the statistical gate of ``native/validate_biharmonic_tpu.py``: 64x64, 3
+#: levels, variances 1e-2 (1 + u) drawn from this seed, every non-coarsest level
+#: fused, 256 chains, the zero-mean protocol
+BIHARMONIC_GATE_SEED = 20260821
+BIHARMONIC_GATE = {"nx": 64, "nlevel": 3, "warmup": 80, "steps": 300}
+#: steps of the full-width biharmonic sampler and of the FEM flagship variant
+BIHARMONIC_STEPS = 30
+FEM_STEPS = 10
+#: chain counts at which a reach-2 level's route must be the phase kernels
+REACH2_ROUTE_CHAINS = (1, 16, 256)
+#: the chains at the start and at the end of a launch whose in-kernel normals
+#: are held against the host's reference (the first and the last wave)
+REACH2_NOISE_CHAINS = 32
+#: above this many chains a sweep is timed over fewer launches (the
+#: distillation set-up's batch, tens of thousands of chains)
+BIG_SWEEP_CHAINS = 1024
+#: profiler windows of the full-width samplers' kernel ms per step: taken
+#: until three record every visit launch of their steps, at most this many
+BUSY_WINDOWS = 6
+
+
+def compare_fc(name, got, want, tol=TOL):
+    """A restricted residual against its plain version: within ``tol`` times
+    ``max(|f_c|, 1)``.  A reach-2 level's diagonal is about 1.3e6 at h = 1/256,
+    and ``f - A x`` cancels in float32 (the rule of
+    ``tests/test_mgmc_visit.py::test_biharmonic_visits_match_composed``).
+    Returns the error over that scale."""
+    scale = max(float(want.abs().max()), 1.0)
+    err = float((got - want).abs().max())
+    if not err <= tol * scale or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: kernel and plain version disagree, max abs err {err} "
+                             f"(limit {tol} x {scale})")
+    return err / scale
+
+
+def check_reach2_level(level, name, C, gen):
+    """The phase kernels' reach-2 forms against their plain versions on one
+    level at ``C`` chains: noise off and the same noise tensors, then the
+    in-kernel generator against the plain versions fed the host's reference
+    normals (the first and the last :data:`REACH2_NOISE_CHAINS`); ``x`` elementwise
+    within TOL, ``f_c`` by :func:`compare_fc`.  The route must be the phase
+    kernels at every count of :data:`REACH2_ROUTE_CHAINS`, and the split and
+    stream routes must refuse the level before they launch."""
+    from multigridmc_tpu_torch.ops.kernels import common
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+
+    routes = {c: level.route(c) for c in REACH2_ROUTE_CHAINS}
+    if set(routes.values()) != {"phase"}:
+        raise AssertionError(f"biharmonic {name}: a reach-2 level takes the routes {routes}")
+    dev = level.coeffs.device
+    vshape, m = level.op.vshape, level.op.m_lowrank
+
+    def rand(*shape):
+        return torch.randn(*shape, device=dev, dtype=torch.float32, generator=gen)
+
+    f, x, xc = rand(*vshape), rand(C, *vshape), rand(C, *level.vc)
+    before = dict(mv.launch_counts)
+    for route in ("split", "stream"):
+        try:
+            mv.launch_descend(level, route, f, x.clone())
+        except NotImplementedError:
+            continue
+        raise AssertionError(f"biharmonic {name}: the {route} route took a reach-2 level")
+    if mv.launch_counts != before:
+        raise AssertionError(f"biharmonic {name}: a refused launch was counted")
+    errs = {"x": 0.0, "f_c_over_scale": 0.0, "ascend_x": 0.0}
+    for noisy in (False, True):
+        xi = rand(C, *vshape) if noisy else None
+        xi_lr = rand(C, m) * level.lr_scale if (noisy and m) else None
+        tag = f"biharmonic {name} C={C} {'shared noise' if noisy else 'noise off'}"
+        want_x, want_fc = mv.descend_visit_plain(level, f, x, xi, xi_lr)
+        got_x, got_fc = mv.launch_descend(level, "phase", f, x.clone(), xi=xi, xi_lr=xi_lr)
+        errs["x"] = max(errs["x"], compare(f"descend x {tag}", got_x, want_x))
+        errs["f_c_over_scale"] = max(errs["f_c_over_scale"],
+                                     compare_fc(f"descend f_c {tag}", got_fc, want_fc))
+        want = mv.ascend_visit_plain(level, f, x, xc, xi, xi_lr)
+        got = mv.launch_ascend(level, "phase", f, x.clone(), xc, xi=xi, xi_lr=xi_lr)
+        errs["ascend_x"] = max(errs["ascend_x"], compare(f"ascend x {tag}", got, want))
+        del want_x, want_fc, got_x, got_fc, want, got
+    xi_lr = rand(C, m) * level.lr_scale if m else None
+    seed = 0x5EED_0012
+    got_x, got_fc = mv.launch_descend(level, "phase", f, x.clone(), xi_lr=xi_lr, philox=(seed, 11))
+    got = mv.launch_ascend(level, "phase", f, x.clone(), xc, xi_lr=xi_lr, philox=(seed, 12))
+    for first, n in ((0, min(C, REACH2_NOISE_CHAINS)), (max(C - REACH2_NOISE_CHAINS, 0),
+                                                     min(C, REACH2_NOISE_CHAINS))):
+        part = slice(first, first + n)
+        tag = f"biharmonic {name} C={C} in-kernel noise, chains {first}..{first + n - 1}"
+        ref = [torch.as_tensor(common.philox_normals_reference(seed, counter, n, vshape,
+                                                               first_chain=first), device=dev)
+               for counter in (11, 12)]
+        lr = xi_lr[part] if m else None
+        want_x, want_fc = mv.descend_visit_plain(level, f, x[part], ref[0], lr)
+        errs["x"] = max(errs["x"], compare(f"descend x {tag}", got_x[part], want_x))
+        errs["f_c_over_scale"] = max(errs["f_c_over_scale"], compare_fc(
+            f"descend f_c {tag}", got_fc[part], want_fc))
+        want = mv.ascend_visit_plain(level, f, x[part], xc[part], ref[1], lr)
+        errs["ascend_x"] = max(errs["ascend_x"], compare(f"ascend x {tag}", got[part], want))
+    torch.cuda.synchronize()
+    return {"level": name, "vshape": list(vshape), "offsets": len(level.op.offsets),
+            "colours": level.coloring.n_colors, "stencil_form": level.stencil_form,
+            "chains": C, "threads": level.phase_threads(C), "routes": routes,
+            "coefficient_planes": sum(c is None for c in level.const_coeffs), **errs}
+
+
+def time_reach2_level(level, C, noise):
+    """ms per launch of the reach-2 phase kernels at ``C`` chains with
+    in-kernel noise, as the main path runs them: CUDA events around
+    back-to-back launches and the profiler's device time (the kernel of this
+    level's stencil form by its full name, the median of three windows, held
+    to the events), the plain versions' ms and the bound."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+
+    dev = level.coeffs.device
+    f = torch.rand(level.op.vshape, device=dev)
+    x = torch.zeros((C,) + level.op.vshape, device=dev)
+    xc = torch.randn((C,) + level.vc, device=dev)
+    out = {"vshape": list(level.op.vshape), "chains": C, "threads": level.phase_threads(C),
+           "stencil_form": level.stencil_form}
+    for kind, fn in zip(("descend", "ascend"), visit_fns(level, "phase", noise, f, x, xc)):
+        host = {}
+        out[f"{kind}_ms"] = cuda_ms(fn, 5, 10, host)
+        out[f"{kind}_device_ms"] = device_ms_median(
+            fn, f"{kind}_kernel<{level.stencil_form}", 20)
+        out[f"{kind}_events_over_device"] = check_events_against_device(
+            f"{kind} reach 2 {tuple(level.op.vshape)} C={C}", out[f"{kind}_ms"],
+            out[f"{kind}_device_ms"], host["ms"])
+        bound, by, nbytes = visit_bound(level, C, False, kind)
+        out[f"{kind}_bound_ms"], out[f"{kind}_bound_by"], out[f"{kind}_bytes"] = bound, by, nbytes
+    x.zero_()
+
+    def plain_noise():
+        xi, xi_lr, _ = level._draw(_TensorNoise(noise), x)
+        return xi, xi_lr
+
+    out["descend_plain_ms"] = cuda_ms(
+        lambda: mv.descend_visit_plain(level, f, x, *plain_noise()), 3, 3)
+    out["ascend_plain_ms"] = cuda_ms(
+        lambda: mv.ascend_visit_plain(level, f, x, xc, *plain_noise()), 3, 3)
+    return out
+
+
+def reach2_kernel_attributes():
+    """Registers, local (spill) bytes and static shared bytes per thread of the
+    reach-2 build's kernels, by stencil form."""
+    import ctypes
+
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+
+    lib = mv.load_library(reach=2)
+    out = {}
+    for form in range(mv.WIDE_FORM0, mv.WIDE_FORM0 + mv.WIDE_FORMS):
+        for kind, descend in (("descend", 1), ("ascend", 0)):
+            vals = (ctypes.c_int * 3)()
+            err = lib.mgmc_visit_kernel_attributes(descend, form, vals)
+            if err:
+                raise AssertionError(f"reach-2 {kind} kernel attributes: CUDA error {err}")
+            out[f"{kind} form {form}"] = {"registers": vals[0], "local_bytes": vals[1],
+                                          "static_shared_bytes": vals[2]}
+    return out
+
+
+def check_setup_sweeps(shapes, gen):
+    """Every deterministic sweep a distillation set-up launched
+    (:func:`distill_sweep_shapes`), at its own shape, chain count, colour
+    order, route and ``b`` (shared or per chain), against the plain sweep with
+    the noise off, as the set-up runs it (TOL).  One row per shape."""
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+
+    rows = []
+    for d in shapes:
+        plan, C = d["plan"], d["chains"]
+        op = plan.op
+        x = torch.randn((C,) + op.vshape, device=op.coeffs.device, generator=gen)
+        b = torch.randn(((C,) if d["b_batched"] else ()) + op.vshape, device=op.coeffs.device,
+                        generator=gen)
+        want = ss.sweep_batched_plain(op, plan.masks, plan.omega, plan.order, b, x)
+        got = ss.launch_sweep(plan, d["route"], b, x.clone())
+        tag = (f"set-up sweep {tuple(op.vshape)} C={C} order {d['order']} "
+               f"b_batched={d['b_batched']}")
+        rows.append({"vshape": d["vshape"], "chains": C, "b_batched": d["b_batched"],
+                     "order": d["order"], "route": list(d["route"]), "body": plan.body,
+                     "offsets": len(op.offsets), "colours": plan.coloring.n_colors,
+                     "launches": d["launches"], "max_abs_err": compare(tag, got, want)})
+        del x, b, want, got
+    torch.cuda.synchronize()
+    return rows
+
+
+def check_nine_colour_sweeps(op, C, gen):
+    """Both sweep kernels on a 9-colour level (the 25-point Galerkin level of
+    the biharmonic hierarchy) against their plain versions, forward and
+    backward, ``b`` shared and per chain, noise off and the same ``xi``: the
+    one-block route's generic body at ``C`` chains (and its in-kernel normals
+    against the host's reference), the split route at one chain and at
+    :data:`SPLIT_CHECK_CHAINS` (TOL), and the split against the one-block route
+    under one Philox stream (ROUTE_TOL)."""
+    from multigridmc_tpu_torch.ops.kernels import common
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+    from multigridmc_tpu_torch.smoothers import BACKWARD, FORWARD, SORSmoother
+
+    device = op.coeffs.device
+    errs = {"sweep_batched_generic": 0.0, "gibbs_sweep_batched_generic": 0.0,
+            "sweep_batched_split": 0.0, "gibbs_sweep_batched_split": 0.0}
+    route_err = 0.0
+    for direction in (FORWARD, BACKWARD):
+        plan = SORSmoother(op, 1.0, 1, direction).plan
+        if plan.coloring.n_colors != 9 or plan.body != "generic":
+            raise AssertionError(f"nine-colour sweeps: {plan.coloring.n_colors} colours, "
+                                 f"body {plan.body}")
+        for Cs, routes in ((C, (ss.BLOCK_ROUTE,)), (1, None), (SPLIT_CHECK_CHAINS, None)):
+            if routes is None:
+                sizes = [ss.split_size(Cs, op.vshape, op.offsets, mode, device) for mode in (0, 1)]
+                if None in sizes:
+                    raise AssertionError(f"nine-colour sweeps: {Cs} chains do not split")
+                routes = (("split", sizes[0]), ("split", sizes[1]))
+            det_route, gibbs_route = routes[0], routes[-1]
+            suffix = "_generic" if det_route[0] == "block" else "_split"
+            x = torch.randn((Cs,) + op.vshape, device=device, generator=gen)
+            xi = torch.randn((Cs,) + op.vshape, device=device, generator=gen)
+            for b_batched in (False, True):
+                b = torch.randn(((Cs,) if b_batched else ()) + op.vshape, device=device,
+                                generator=gen)
+                tag = f"nine colours {direction} C={Cs} {det_route[0]} b_batched={b_batched}"
+                want = ss.sweep_batched_plain(op, plan.masks, 1.0, plan.order, b, x)
+                got = ss.launch_sweep(plan, det_route, b, x.clone())
+                errs["sweep_batched" + suffix] = max(errs["sweep_batched" + suffix],
+                                                     compare(f"sweep {tag}", got, want))
+                want = ss.gibbs_sweep_batched_plain(op, plan.masks, 1.0, plan.order, b, x, xi)
+                got = ss.launch_gibbs_sweep(plan, gibbs_route, b, x.clone(), xi=xi)
+                errs["gibbs_sweep_batched" + suffix] = max(
+                    errs["gibbs_sweep_batched" + suffix], compare(f"gibbs sweep {tag}", got, want))
+                stream = (0x5EED_0013 + Cs, 3 + b_batched)
+                got = ss.launch_gibbs_sweep(plan, gibbs_route, b, x.clone(), philox=stream)
+                if det_route[0] == "split":
+                    block = ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, b, x.clone(),
+                                                  philox=stream)
+                    route_err = max(route_err, float((got - block).abs().max()))
+                    continue
+                for first, n in noise_check_chains(Cs):
+                    part = slice(first, first + n)
+                    ref = torch.as_tensor(common.philox_normals_reference(
+                        *stream, n, op.vshape, first_chain=first), device=device)
+                    want = ss.gibbs_sweep_batched_plain(op, plan.masks, 1.0, plan.order,
+                                                        b[part] if b_batched else b, x[part], ref)
+                    errs["gibbs_sweep_batched_generic"] = max(
+                        errs["gibbs_sweep_batched_generic"],
+                        compare(f"gibbs sweep {tag} in-kernel noise", got[part], want))
+    torch.cuda.synchronize()
+    if route_err > ROUTE_TOL:
+        raise AssertionError(f"nine-colour sweeps: the split and one-block routes differ by "
+                             f"{route_err}")
+    return errs, route_err
+
+
+def time_nine_colour_sweeps(op, C, b_batched, noise):
+    """ms per launch of both sweep kernels on a 9-colour level: at ``C``
+    chains with ``b`` per chain or shared (``b_batched``; the distillation
+    set-up's shape: the one-block route's generic body) and at one chain (the
+    split route, the rule's cluster size), events and device time (held to
+    each other), the plain versions and the bound."""
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+    from multigridmc_tpu_torch.smoothers import SORSmoother
+
+    device = op.coeffs.device
+    plan = SORSmoother(op, 1.0, 1).plan
+    rows = []
+    for Cs, bb in ((C, b_batched), (1, True)):
+        b = torch.rand(((Cs,) if bb else ()) + op.vshape, device=device)
+        x = torch.zeros((Cs,) + op.vshape, device=device)
+        bound, by, nbytes = sweep_bound(plan, Cs, bb)
+        routes = {"sweep": plan.route(Cs, 0), "gibbs": plan.route(Cs, 1)}
+        row = {"chains": Cs, "b_batched": bb, "vshape": list(op.vshape),
+               "offsets": len(op.offsets), "colours": plan.coloring.n_colors, "routes": routes,
+               "bound_ms": bound, "bound_by": by, "bound_bytes": nbytes}
+        fns = {"sweep": lambda: ss.launch_sweep(plan, routes["sweep"], b, x),
+               "gibbs": lambda: ss.launch_gibbs_sweep(plan, routes["gibbs"], b, x,
+                                                      philox=noise.philox_stream())}
+        # the set-up's tens of thousands of chains take tens of ms a launch
+        big = Cs > BIG_SWEEP_CHAINS
+        for kind, fn in fns.items():
+            host = {}
+            row[f"{kind}_ms"] = cuda_ms(fn, 5, 50 if Cs == 1 else (2 if big else 10), host)
+            row[f"{kind}_device_ms"] = device_ms_median(
+                fn, sweep_kernel(routes[kind], "generic", kind), 4 if big else 20)
+            row[f"{kind}_events_over_device"] = check_events_against_device(
+                f"nine-colour {kind} C={Cs}", row[f"{kind}_ms"], row[f"{kind}_device_ms"],
+                host["ms"])
+        x.zero_()
+        row["sweep_plain_ms"] = cuda_ms(
+            lambda: ss.sweep_batched_plain(op, plan.masks, 1.0, plan.order, b, x), 3,
+            1 if big else 3)
+        row["gibbs_plain_ms"] = cuda_ms(
+            lambda: ss.gibbs_sweep_batched_plain(op, plan.masks, 1.0, plan.order, b, x,
+                                                 torch.randn_like(x)), 3, 1 if big else 3)
+        rows.append(row)
+        del b, x
+    return rows
+
+
+def drive_sampler(op, f, C, steps, kwargs, reach2):
+    """Build the sampler with the launch counts set to 0, take two warm-up
+    steps, set the visit counts to 0 again and take ``steps`` timed steps:
+    set-up seconds and the sweep launches of the set-up, ms per step,
+    samples/s, the visit launches of the timed steps, the route of each visited
+    level, the device's kernel ms and launches per step (profiler windows of
+    four steps more: the median of three that recorded every visit launch).
+    ``reach2``: the visited levels are reach 2, so the reach-2 kernels' counts
+    must show every visit and no other visit kernel a launch."""
+    from multigridmc_tpu_torch.ops.kernels import common
+    from multigridmc_tpu_torch.ops.kernels import mgmc_subtree as st
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+    from multigridmc_tpu_torch.samplers.base import GeneratorNoise
+    from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
+
+    device = op.coeffs.device
+    for module in (mv, ss, st, common):
+        module.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sampler = MultigridMCSampler(op, **kwargs)
+    torch.cuda.synchronize()
+    setup_seconds = time.perf_counter() - t0
+    setup_sweeps = dict(ss.launch_counts)
+    noise = GeneratorNoise(BIHARMONIC_SEED, device)
+    x = torch.zeros((C,) + op.vshape, dtype=torch.float32, device=device)
+    for _ in range(2):
+        x = sampler.apply(noise, f, x)
+    torch.cuda.synchronize()
+    mv.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        x = sampler.apply(noise, f, x)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(mv.launch_counts)
+    if tuple(x.shape) != (C,) + op.vshape or not bool(torch.isfinite(x).all()):
+        raise AssertionError(f"{kwargs}: samples not finite or of wrong shape")
+    below = sampler.distill_level if sampler.distilled is not None else sampler.nlevel
+    visited = [li for li in sorted(sampler.fused_levels) if li < below]
+    routes = {li: sampler.fused_levels[li].route(C) for li in visited}
+    names = {li: {kind: mv.kernel_name(sampler.fused_levels[li], routes[li], kind)
+                  for kind in ("descend", "ascend")} for li in visited}
+    expected = {}
+    for li in visited:
+        for name in names[li].values():
+            expected[name] = expected.get(name, 0) + steps * 2 ** li
+    wrong = {name: n for name, n in counts.items() if n != expected.get(name, 0)}
+    if wrong or (reach2 and any(sampler.fused_levels[li].reach != 2 for li in visited)):
+        raise AssertionError(f"{kwargs}: visit launches {counts}, expected {expected}")
+    # a profiler window can record a part of its launches: only windows that
+    # show every visit launch of their steps count, the median of three
+    per_step = sum(expected.values()) / steps
+    windows, complete = [], []
+    while len(windows) < BUSY_WINDOWS and len(complete) < 3:
+        busy = device_busy(lambda: sampler.apply(noise, f, x), 4,
+                           pattern=r"trsm|triang|visit_kernel|descend_kernel|ascend_kernel")
+        if busy is None:
+            break
+        busy["visit_calls_per_step"] = sum(r["calls_per_step"] for r in busy["matching"]
+                                           if re.search(r"visit_kernel|descend_kernel|"
+                                                        r"ascend_kernel", r["name"]))
+        windows.append(busy)
+        if busy["visit_calls_per_step"] == per_step:
+            complete.append(busy)
+    if windows and not complete:
+        raise AssertionError(f"{kwargs}: no profiler window of {len(windows)} recorded the "
+                             f"{per_step} visit launches a step: "
+                             f"{[w['visit_calls_per_step'] for w in windows]}")
+    busy = None
+    if complete:
+        busy = sorted(complete, key=lambda w: w["kernel_ms_per_step"])[len(complete) // 2]
+        busy.update({"windows": len(windows), "complete_windows": len(complete),
+                     "kernel_ms_per_step_windows": [w["kernel_ms_per_step"] for w in windows]})
+    return sampler, {
+        "chains": C, "steps": steps, "setup_seconds": setup_seconds,
+        "setup_sweep_launches": {k: v for k, v in setup_sweeps.items() if v},
+        "distill_level": sampler.distill_level, "fused_levels": sorted(sampler.fused_levels),
+        "visited_levels": visited, "route_by_level": routes,
+        "stencil_form_by_level": {li: sampler.fused_levels[li].stencil_form for li in visited},
+        "colours_by_level": {li: sampler.fused_levels[li].coloring.n_colors for li in visited},
+        "ms_per_step": 1e3 * dt / steps, "samples_per_s": C * steps / dt,
+        "kernel_ms_per_step": None if busy is None else busy["kernel_ms_per_step"],
+        "launches_per_step": None if busy is None else busy["kernels_per_step"],
+        "device_busy": busy, "launches": {k: v for k, v in counts.items() if v},
+        "sample_std": float(x.std())}
+
+
+def biharmonic_gate(device):
+    """The statistical gate of ``native/validate_biharmonic_tpu.py`` on the
+    reach-2 phase kernels: the 64x64 biharmonic posterior (3 levels, variances
+    1e-2 (1 + u)), every non-coarsest level fused, 256 chains, the zero-mean
+    protocol (f = 0 from x = 0: the fluctuation about the posterior mean), the
+    mean and the variance of ``z = <w, x>`` within 4 standard errors of 0 and
+    of ``w^T Q^-1 w`` from the dense float64 inverse."""
+    from multigridmc_tpu_torch.models.posterior import measurement_vector
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+    from multigridmc_tpu_torch.samplers.base import GeneratorNoise
+    from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
+
+    g = BIHARMONIC_GATE
+    op, _ = build_posterior(g["nx"], 8, BIHARMONIC_GATE_SEED, 1e-2, device, **BIHARMONIC)
+    sampler = MultigridMCSampler(op, g["nlevel"], smoother="SOR", cycle=2, fused=True,
+                                 fused_min_vertices=0, distill=False)
+    if sorted(sampler.fused_levels) != list(range(g["nlevel"] - 1)):
+        raise AssertionError(f"biharmonic gate: fused levels {sorted(sampler.fused_levels)}")
+    w = measurement_vector(op.lattice, np.array([0.45, 0.55]), 0.1)
+    z_var = float(w.reshape(-1) @ np.linalg.solve(op.to_dense(), w.reshape(-1)))
+    wt = torch.as_tensor(w, dtype=torch.float32, device=device).reshape(-1)
+    C = 256
+    mv.reset_launch_counts()
+    noise = GeneratorNoise(BIHARMONIC_GATE_SEED, device)
+    fz = torch.zeros(op.vshape, device=device)
+    x = torch.zeros((C,) + op.vshape, device=device)
+    for _ in range(g["warmup"]):
+        x = sampler.apply(noise, fz, x)
+    zs = []
+    for _ in range(g["steps"]):
+        x = sampler.apply(noise, fz, x)
+        zs.append((x.reshape(C, -1) @ wt).double())
+    z = torch.stack(zs).cpu().numpy()
+    res = moments_gate("biharmonic 64x64", z, 0.0, z_var, C)
+    res.update({"lattice": [g["nx"], g["nx"]], "nlevel": g["nlevel"], "chains": C,
+                "warmup": g["warmup"], "steps": g["steps"], "exact_variance": z_var,
+                "launches": {k: v for k, v in mv.launch_counts.items() if v},
+                "colours_by_level": {li: lv.coloring.n_colors
+                                     for li, lv in sampler.fused_levels.items()}})
+    if not all(res["launches"].get(n, 0) > 0 for n in
+               ("descend_visit_reach2_13pt", "descend_visit_reach2_25pt")):
+        raise AssertionError(f"biharmonic gate: launches {res['launches']}")
+    return res
+
+
+def write_prior_configs(directory, nx_bih, nx_fem, nlevel, nchains, nsamples, nwarmup):
+    """``params_biharmonic.cfg`` (the squared shifted-Laplace prior, the
+    bench's 8 measurements, ``nx_bih``) and ``params_fem.cfg`` (the FEM prior,
+    the flagship's measurements, ``nx_fem``), SOR multigrid, each with its own
+    measurements file."""
+    rng = np.random.default_rng(BIHARMONIC_SEED)
+    bih = (rng.uniform(0.1, 0.9, size=(8, 2)), rng.normal(size=8),
+           1e-6 * (1.0 + rng.uniform(size=8)))
+    rng = np.random.default_rng(FLAGSHIP_SEED)
+    fem = (rng.uniform(0.1, 0.9, size=(8, 2)), rng.normal(2.0, 1.0, size=8),
+           1e-6 * (1.0 + rng.uniform(size=8)))
+
+    def listing(values):
+        return "[" + ", ".join(repr(float(v)) for v in np.asarray(values).reshape(-1)) + "]"
+
+    for name, nx, pdemodel, smoother, (loc, mean, var) in (
+            ("biharmonic", nx_bih, "squared_shiftedlaplace_fd", "SOR", bih),
+            ("fem", nx_fem, "shiftedlaplace_fem", "SOR", fem)):
+        with open(os.path.join(directory, f"measurements_{name}.cfg"), "w") as out:
+            out.write(f"dim = 2;\nn = 8;\nmeasurement_locations = {listing(loc)};\n"
+                      f"mean = {listing(mean)};\nvariance = {listing(var)};\n")
+        text = DRIVER_CONFIG.format(
+            nx=nx, nlevel=nlevel, smoother=smoother, nchains=nchains, nsamples=nsamples,
+            nwarmup=nwarmup, do_cholesky="false", do_ssor="false", schedule="",
+            cholesky='cholesky = { factorisation = "dense"; }')
+        text = text.replace('pdemodel = "shiftedlaplace_fd"', f'pdemodel = "{pdemodel}"')
+        text = text.replace('filename = "measurements.cfg"',
+                            f'filename = "measurements_{name}.cfg"')
+        with open(os.path.join(directory, f"params_{name}.cfg"), "w") as out:
+            out.write(text)
+
+
+#: the lattice of the biharmonic driver run: the drivers' exact moments solve
+#: with unpreconditioned float64 CG above 4096 unknowns, which does not reach
+#: its tolerance on the squared operator at 255^2 (PERF.md); at 64^2 they are
+#: dense
+BIHARMONIC_DRIVER_NX = 64
+
+
+def prior_drivers(device, nlevel, nchains):
+    """``mgmc-sample-torch`` on the biharmonic and the FEM configuration
+    (MGMC alone: the one-chain time series, the convergence table over
+    ``nchains`` replicas, the posterior statistics) and ``mgmc-solve-torch`` on
+    the FEM one: the report lines, the MGMC mean within 5 error bars (widened
+    by the autocorrelation time) of the exact one, the visit launches of each
+    prior's kernels; the solve converges."""
+    from multigridmc_tpu_torch.drivers import mg as driver_mg
+    from multigridmc_tpu_torch.drivers import mgmc as driver_mgmc
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+
+    out = {}
+    nsamples, nwarmup = 400, 100
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        write_prior_configs(work, BIHARMONIC_DRIVER_NX, 256, nlevel, nchains, nsamples, nwarmup)
+        os.chdir(work)
+        try:
+            # the one-chain series: the 13-point level 0 on the reach-2 phase
+            # kernels (the 25-point levels lie below the distilled level at
+            # 64^2), the FEM prior's on the split kernels; the replica chains
+            # of the FEM convergence table the phase kernels
+            for name, visits in (("biharmonic", ("descend_visit_reach2_13pt",)),
+                                 ("fem", ("descend_visit_split", "descend_visit"))):
+                mv.reset_launch_counts()
+                ss.reset_launch_counts()
+                t0 = time.perf_counter()
+                text = run_driver(driver_mgmc.main, [f"params_{name}.cfg"])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                print("\n".join(line for line in text.splitlines()
+                                if re.search(r"time per sample|mean  |variance =|setup time",
+                                             line)), flush=True)
+                series = np.loadtxt("timeseries_multigridmc.txt")
+                if series.shape != (nsamples,) or not np.isfinite(series).all():
+                    raise AssertionError(f"drivers ({name}): the time series is not {nsamples} "
+                                         "finite values")
+                ms = re.search(r"multigridmc time per sample =\s+(\S+) ms", text)
+                mean = re.search(r"multigridmc mean\s+=\s+(\S+) \+/-\s+(\S+)", text)
+                exact = float(re.search(r"exact mean\s+=\s+(\S+)", text).group(1))
+                res = {"lattice": BIHARMONIC_DRIVER_NX if name == "biharmonic" else 256,
+                       "seconds": seconds, "ms_per_sample": float(ms.group(1)),
+                       "mean": float(mean.group(1)), "mean_error": float(mean.group(2)),
+                       "exact_mean": exact, "iact": integrated_autocorrelation_time(series),
+                       "launches": {k: v for k, v in {**mv.launch_counts,
+                                                      **ss.launch_counts}.items() if v}}
+                res["mean_bar"] = 5.0 * res["mean_error"] * np.sqrt(max(res["iact"], 1.0))
+                if abs(res["mean"] - exact) > res["mean_bar"]:
+                    raise AssertionError(f"drivers ({name}): MGMC mean {res['mean']} is further "
+                                         f"than {res['mean_bar']} from the exact mean {exact}")
+                if not all(mv.launch_counts[v] > 0 for v in visits):
+                    raise AssertionError(f"drivers ({name}): visit launches {mv.launch_counts}")
+                out[f"mgmc_{name}"] = res
+            ss.reset_launch_counts()
+            t0 = time.perf_counter()
+            text = run_driver(driver_mg.main, ["params_fem.cfg"])
+            torch.cuda.synchronize()
+            rows = richardson_table(text)
+            if "Solver converged" not in text or not rows:
+                raise AssertionError("drivers.mg (fem): the Richardson iteration did not "
+                                     "converge:\n" + text[-2000:])
+            out["mg_fem"] = {"seconds": time.perf_counter() - t0, "iterations": len(rows) - 1,
+                             "relative_residual": rows[-1][2],
+                             "contraction_rates": [r[3] for r in rows[1:]],
+                             "launches": {k: v for k, v in ss.launch_counts.items() if v}}
+        finally:
+            os.chdir(cwd)
+    return out
+
+
+def phase_biharmonic_cg(device, smi):
+    """Not part of the default run: the drivers' exact-moment solve above
+    4096 unknowns (``models.posterior``: unpreconditioned float64 CG, ``rtol``
+    1e-12, ``maxiter`` 10,000) on the 255^2 biharmonic stencil, the 8
+    measurement columns batched: its iterations, whether it converged, each
+    column's relative residual ``||B_k - A x_k|| / ||B_k||`` and the seconds."""
+    import dataclasses
+
+    from multigridmc_tpu_torch.solvers.loop import CGSolver, IterativeSolverParameters
+
+    op, _ = build_posterior(256, 8, BIHARMONIC_SEED, "near_exact", device, **BIHARMONIC)
+    stencil = dataclasses.replace(op, lowrank=None).to(dtype=torch.float64)
+    B = op.lowrank.B.to(torch.float64)
+    solver = CGSolver(stencil, params=IterativeSolverParameters(rtol=1e-12, atol=1e-30,
+                                                                maxiter=10000))
+    t0 = time.perf_counter()
+    result = solver.solve(B, batched=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    m = B.shape[0]
+    rel = (torch.linalg.vector_norm((B - stencil.apply_stencil(result.x)).reshape(m, -1), dim=1)
+           / torch.linalg.vector_norm(B.reshape(m, -1), dim=1))
+    emit({"phase": "biharmonic_cg", "card": smi, "lattice": [256, 256], "columns": m,
+          "niter": result.niter, "converged": bool(result.converged), "seconds": seconds,
+          "relative_residuals": rel.tolist()})
+
+
+def phase_biharmonic(device, nlevel, C, n_meas, smi):
+    """The squared shifted-Laplace (biharmonic) and FEM priors on the card:
+
+    * the reach-2 phase kernels on the biharmonic posterior's levels 0 (255^2,
+      13-point, 5 colours) and 1 (127^2, 25-point Galerkin, 9 colours) at ``C``
+      chains against their plain versions (:func:`check_reach2_level`), their
+      times (:func:`time_reach2_level`), registers and spills;
+    * every sweep its distillation set-up launches, at the set-up's shapes
+      (:func:`check_setup_sweeps`: both 9-colour levels, 63^2 and 31^2), and
+      both sweep kernels on the 9-colour 63^2 level at the set-up's chain
+      count (:func:`check_nine_colour_sweeps`, :func:`time_nine_colour_sweeps`);
+    * the full-width sampler (5 levels, W-cycle, SOR, the default ``distill``,
+      ``C`` chains, :data:`BIHARMONIC_STEPS` steps) through
+      ``MultigridMCSampler.apply``: levels 0 and 1 on the reach-2 phase
+      kernels, the launches of each form, ms/step, samples/s, kernel ms and
+      launches per step, set-up seconds;
+    * the FEM prior under the flagship's measurements at ``C`` chains,
+      :data:`FEM_STEPS` steps;
+    * the 64x64 statistical gate (:func:`biharmonic_gate`);
+    * the drivers on both priors (:func:`prior_drivers`).
+
+    Returns the errors and the times the ``kernels`` line reports, and the
+    launches of the full-width run and of its set-up; the line is printed
+    also where a part fails, with what was found up to there."""
+    out = {"phase": "biharmonic", "card": smi}
+    try:
+        _biharmonic_parts(out, device, nlevel, C, n_meas)
+    except BaseException:
+        out["failed"] = True
+        raise
+    finally:
+        emit(out)
+    return out
+
+
+def _biharmonic_parts(out, device, nlevel, C, n_meas):
+    """The parts of :func:`phase_biharmonic`, each filling its key of ``out``."""
+    from multigridmc_tpu_torch.samplers.base import GeneratorNoise
+
+    t0 = time.perf_counter()
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(12)
+    op, _ = build_posterior(256, 8, BIHARMONIC_SEED, "near_exact", device, **BIHARMONIC)
+    f = torch.as_tensor(np.random.default_rng(0).uniform(size=op.vshape), dtype=torch.float32,
+                        device=device)
+    kwargs = dict(nlevel=nlevel, smoother="SOR", coarse_solver="Cholesky", omega=1.0, cycle=2)
+    sampler, main = drive_sampler(op, f, C, BIHARMONIC_STEPS, kwargs, reach2=True)
+    if main["distill_level"] != 2 or main["visited_levels"] != [0, 1] or set(
+            main["route_by_level"].values()) != {"phase"}:
+        raise AssertionError(f"biharmonic: {main}")
+    out["main_path"] = main
+    levels = sampler.fused_levels
+    out["kernel_attributes"] = reach2_kernel_attributes()
+    out["checks"] = [check_reach2_level(levels[li], f"L{li}", C, gen) for li in (0, 1)]
+    noise = GeneratorNoise(BIHARMONIC_SEED + 1, device)
+    out["timings"] = [time_reach2_level(levels[li], C, noise) for li in (0, 1)]
+    # the distillation set-up's sweeps: every shape it launched, on both
+    # 9-colour levels below the distilled level, at the set-up's chain counts
+    ops = sampler.hierarchy.operators
+    below = {tuple(o.vshape) for o in ops[main["distill_level"]:nlevel - 1]}
+    del sampler, levels
+    level, _, setup = distill_sweep_shapes(op, nlevel)
+    out["setup_sweeps"] = check_setup_sweeps(setup, gen)
+    counted = sum(v for k, v in main["setup_sweep_launches"].items()
+                  if k.startswith("sweep_batched"))
+    nine_shapes = {tuple(r["vshape"]) for r in out["setup_sweeps"] if r["colours"] == 9}
+    if (level != main["distill_level"] or sum(d["launches"] for d in setup) != counted
+            or nine_shapes != below):
+        raise AssertionError(f"biharmonic set-up sweeps: distilled at {level}, "
+                             f"{out['setup_sweeps']}, the main path's set-up {counted} launches")
+    nine = ops[main["distill_level"]]
+    at = max((d for d in setup if tuple(d["vshape"]) == tuple(nine.vshape)),
+             key=lambda d: d["launches"])
+    del setup
+    out["nine_colour_sweeps"] = {"vshape": list(nine.vshape), "offsets": len(nine.offsets),
+                                 "chains": at["chains"], "b_batched": at["b_batched"]}
+    errs, route_err = check_nine_colour_sweeps(nine, at["chains"], gen)
+    errs["sweep_batched_generic"] = max([errs["sweep_batched_generic"]] + [
+        r["max_abs_err"] for r in out["setup_sweeps"] if r["colours"] == 9])
+    out["nine_colour_sweeps"].update({
+        "max_abs_err": errs, "split_against_block": route_err,
+        "timings": time_nine_colour_sweeps(nine, at["chains"], at["b_batched"], noise)})
+    del ops, nine
+    fem, _ = build_posterior(256, n_meas, FLAGSHIP_SEED, "near_exact", device,
+                             pdemodel="shiftedlaplace_fem")
+    _, out["fem_main_path"] = drive_sampler(fem, f, C, FEM_STEPS, kwargs, reach2=False)
+    out["statistics"] = biharmonic_gate(device)
+    out["drivers"] = prior_drivers(device, nlevel, C)
+    out["seconds"] = time.perf_counter() - t0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(sorted(ALL_PHASES)),
                         help="comma-separated subset of kernels,main_path,band,alternating,"
-                             "drivers,statistics "
+                             "drivers,statistics,biharmonic "
                              "to run (device and build always run; 'threads' adds a "
                              "block-size table, 'passes' the phase kernels' checks and "
                              "breakdown by pass, 'compare' the phase kernels' times and "
@@ -3735,8 +4466,9 @@ def main(argv=None) -> int:
                              "'sweeps' the sweep kernels of both routes alone, "
                              "'sweep_check', 'sweep_stamps' (with 'sweep_passes') and "
                              "'sweep_threads' the one-block sweeps' checks, breakdown by "
-                             "pass and block-size table alone); "
-                             "the ok line needs exactly the default six")
+                             "pass and block-size table alone, 'biharmonic_cg' the drivers' "
+                             "exact-moment CG on the 255^2 squared operator); "
+                             "the ok line needs exactly the default seven")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -3806,6 +4538,10 @@ def main(argv=None) -> int:
                                          smi=smi)
     if "statistics" in phases:
         phase_statistics(device, 64, C, warmup=50, steps=300)
+    if "biharmonic" in phases:
+        biharmonic = phase_biharmonic(device, nlevel, C, n_meas, smi)
+    if "biharmonic_cg" in phases:  # the drivers' exact-moment CG on the squared operator
+        phase_biharmonic_cg(device, smi)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     if phases != ALL_PHASES:
         print("partial run: no result line")
@@ -3959,6 +4695,62 @@ def main(argv=None) -> int:
         "per_operation_us": {key: v["total_us"]
                              for key, v in t["per_operation"]["operations"].items()},
     })
+    # the reach-2 forms of the phase kernels (their own build of mgmc_visit.cu)
+    # on the biharmonic posterior's levels 0 (13-point) and 1 (25-point
+    # Galerkin) at C chains, launched by its full-width main path; and the
+    # sweep kernels on its 9-colour 63^2 level at the distillation set-up's
+    # shape: the deterministic sweep's generic body is launched by that
+    # set-up (on 63^2 and 31^2), the Gibbs sweep and the split route run on
+    # no path here
+    for li, size in ((0, "13pt"), (1, "25pt")):
+        t, chk = biharmonic["timings"][li], biharmonic["checks"][li]
+        for kind, line in (("descend", 700), ("ascend", 847)):
+            name = f"{kind}_visit_reach2_{size}"
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": "multigridmc_tpu_torch/csrc/mgmc_visit.cu",
+                "build": " ".join(mv.PHASE_REACH2_FLAGS),
+                "replaces": f"multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py:{line}",
+                "launches": biharmonic["main_path"]["launches"].get(name, 0),
+                "path": "biharmonic main_path",
+                "max_abs_err": chk["x"] if kind == "descend" else chk["ascend_x"],
+                "f_c_max_abs_err_over_scale": chk["f_c_over_scale"] if kind == "descend"
+                else None,
+                "ms": t[f"{kind}_ms"], "device_ms": t[f"{kind}_device_ms"],
+                "events_over_device": t[f"{kind}_events_over_device"],
+                "plain_ms": t[f"{kind}_plain_ms"],
+                "bound_ms": t[f"{kind}_bound_ms"], "bound_by": t[f"{kind}_bound_by"],
+                "bound_bytes": t[f"{kind}_bytes"], "library_ms": None,
+                "shape": {"chains": t["chains"], "vshape": t["vshape"],
+                          "offsets": chk["offsets"], "colours": chk["colours"]},
+                "stencil_form": t["stencil_form"], "threads": t["threads"],
+                "design": "the passes of level_passes.cuh at reach 2: a parameter block of 25 "
+                          "offsets and 9 colours in a build of its own, the stencil in "
+                          "registers with edge terms dropped two rows and columns deep, one "
+                          "point per lane, 512 threads a block at most"})
+    nine = biharmonic["nine_colour_sweeps"]
+    setup = biharmonic["main_path"]["setup_sweep_launches"]
+    for name, key, kernel_line in (("sweep_batched", "sweep", 194),
+                                   ("gibbs_sweep_batched", "gibbs", 246)):
+        for t in nine["timings"]:
+            route = t["routes"][key][0]
+            entry = f"{name}_{'generic' if route == 'block' else 'split'}"
+            on_path = route == "block" and key == "sweep"
+            kernels.append({
+                "name": f"{entry}_9_colours", "route": "cuda",
+                "source": "multigridmc_tpu_torch/csrc/" + (
+                    "sor_sweep.cu" if route == "block" else "sor_sweep_cluster.cu"),
+                "replaces": f"multigridmc_tpu/ops/kernels/sor_pallas_v2.py:{kernel_line}",
+                "launches": setup.get(entry, 0) if on_path else 0,
+                "path": "biharmonic main_path set-up" if on_path else None,
+                "max_abs_err": nine["max_abs_err"][entry],
+                "ms": t[f"{key}_ms"], "device_ms": t[f"{key}_device_ms"],
+                "events_over_device": t[f"{key}_events_over_device"],
+                "plain_ms": t[f"{key}_plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "bound_bytes": t["bound_bytes"], "library_ms": None,
+                "shape": {"chains": t["chains"], "b_batched": t["b_batched"],
+                          "vshape": t["vshape"], "offsets": t["offsets"],
+                          "colours": t["colours"], "cluster": t["routes"][key][1]}})
     for k in kernels:
         if k.get("path", "") is not None and k["launches"] < 1:
             raise AssertionError(f"kernel {k['name']} was launched no time on its path")

@@ -29,10 +29,11 @@
 // * The sweep's warps take the rows that hold the colour in turn (T.rows), so
 //   every warp has rows in every colour phase; within a colour no point reads
 //   another, so the order of the rows does not change the result.
-// * The stencil, any reach-1 stencil of at most 9 offsets, is held in
-//   registers for a pass (struct Stencil): each offset as an address offset
-//   and each constant coefficient read once, a coefficient that varies in
-//   space read per point.  A lane loads what its points read (neighbours,
+// * The stencil, any reach-1 stencil of at most 9 offsets (and, in the phase
+//   kernels' reach-2 build, a reach-2 stencil of at most 13 offsets or the
+//   5x5 box), is held in registers for a pass (struct Stencil): each offset as
+//   an address offset and each constant coefficient read once, a coefficient
+//   that varies in space read per point.  A lane loads what its points read (neighbours,
 //   planes, the rhs) together before their arithmetic, LANE_POINTS points at
 //   once where the registers allow, so that several round trips to the L2 or
 //   to device memory are in flight; a neighbour outside the field is neither
@@ -83,29 +84,35 @@ struct LevelTables {
 };
 
 // ------------------------------------------------------- the stencil in registers
-// A reach-1 stencil of at most KMAX offsets, read once per pass.  Bit k of
-// up / dn / lf / rt: offset k reads the row above / below, the column to the
-// left / right, so a point on the field's edge drops those terms.  BOX: the
-// stencil is the 3x3 box in raster order (the Galerkin levels), whose offsets
-// and edge bits the compiler knows.
-template <int KMAX, bool BOX>
+// A stencil of reach REACH (1, or 2 in the phase kernels' reach-2 build) and
+// at most KMAX offsets, read once per pass.  Bit k of up / dn / lf / rt:
+// offset k reads a row above / below, a column to the left / right, so a
+// point on the field's edge drops those terms; at reach 2, bit k of up2 / dn2
+// / lf2 / rt2: offset k reads two rows above / below, two columns to the left
+// / right, so a point one row or column in from the edge drops those.  BOX:
+// the stencil is the (2 REACH + 1)^2 box in raster order (the Galerkin
+// levels), whose offsets and edge bits the compiler knows.
+template <int KMAX, bool BOX, int REACH = 1>
 struct Stencil {
     unsigned all;                // bit k for every offset k < K
     unsigned planes;             // bit k: coefficient k varies in space, read per point
     unsigned up, dn, lf, rt;
+    unsigned up2, dn2, lf2, rt2;  // reach 2 only
     int off[KMAX];               // dy_k W + dx_k
     float c[KMAX];               // the constant coefficients
 };
 
-template <int KMAX, bool BOX>
-__device__ __forceinline__ Stencil<KMAX, BOX> stencil_regs(const VisitParams& P) {
-    Stencil<KMAX, BOX> s;
+template <int KMAX, bool BOX, int REACH = 1>
+__device__ __forceinline__ Stencil<KMAX, BOX, REACH> stencil_regs(const VisitParams& P) {
+    constexpr int SIDE = 2 * REACH + 1;
+    Stencil<KMAX, BOX, REACH> s;
     s.all = s.planes = s.up = s.dn = s.lf = s.rt = 0;
+    s.up2 = s.dn2 = s.lf2 = s.rt2 = 0;
 #pragma unroll
     for (int k = 0; k < KMAX; ++k) {
         const bool on = BOX || k < P.K;
-        const int dy = BOX ? k / 3 - 1 : (on ? P.dy[k] : 0);
-        const int dx = BOX ? k % 3 - 1 : (on ? P.dx[k] : 0);
+        const int dy = BOX ? k / SIDE - REACH : (on ? P.dy[k] : 0);
+        const int dx = BOX ? k % SIDE - REACH : (on ? P.dx[k] : 0);
         s.off[k] = dy * P.W + dx;
         s.c[k] = on ? P.coeff_val[k] : 0.0f;
         const unsigned bit = on ? 1u << k : 0u;
@@ -115,6 +122,12 @@ __device__ __forceinline__ Stencil<KMAX, BOX> stencil_regs(const VisitParams& P)
         s.dn |= dy > 0 ? bit : 0u;
         s.lf |= dx < 0 ? bit : 0u;
         s.rt |= dx > 0 ? bit : 0u;
+        if constexpr (REACH > 1) {
+            s.up2 |= dy < -1 ? bit : 0u;
+            s.dn2 |= dy > 1 ? bit : 0u;
+            s.lf2 |= dx < -1 ? bit : 0u;
+            s.rt2 |= dx > 1 ? bit : 0u;
+        }
     }
     return s;
 }
@@ -129,17 +142,21 @@ __device__ __forceinline__ bool raster_box(const VisitParams& P) {
 
 // the terms that a point of row i adds: every offset but those that leave the
 // field through the top or the bottom row
-template <int KMAX, bool BOX>
-__device__ __forceinline__ unsigned row_terms(const Stencil<KMAX, BOX>& s, int i, int H) {
-    return s.all & ~(i == 0 ? s.up : 0u) & ~(i == H - 1 ? s.dn : 0u);
+template <int KMAX, bool BOX, int REACH>
+__device__ __forceinline__ unsigned row_terms(const Stencil<KMAX, BOX, REACH>& s, int i, int H) {
+    unsigned t = s.all & ~(i == 0 ? s.up : 0u) & ~(i == H - 1 ? s.dn : 0u);
+    if constexpr (REACH > 1) t &= ~(i == 1 ? s.up2 : 0u) & ~(i == H - 2 ? s.dn2 : 0u);
+    return t;
 }
 
 // the terms that point j of a row with terms `row` adds; none where j >= W
-template <int KMAX, bool BOX>
-__device__ __forceinline__ unsigned point_terms(const Stencil<KMAX, BOX>& s, unsigned row, int j,
-                                                int W) {
+template <int KMAX, bool BOX, int REACH>
+__device__ __forceinline__ unsigned point_terms(const Stencil<KMAX, BOX, REACH>& s, unsigned row,
+                                                int j, int W) {
     if (j >= W) return 0u;
-    return row & ~(j == 0 ? s.lf : 0u) & ~(j == W - 1 ? s.rt : 0u);
+    unsigned t = row & ~(j == 0 ? s.lf : 0u) & ~(j == W - 1 ? s.rt : 0u);
+    if constexpr (REACH > 1) t &= ~(j == 1 ? s.lf2 : 0u) & ~(j == W - 2 ? s.rt2 : 0u);
+    return t;
 }
 
 // The operands of (A x)[p] for U points: the neighbours and, where a
@@ -151,8 +168,8 @@ struct Operands {
     float a[PLANES ? U : 1][KMAX];
 };
 
-template <int KMAX, bool BOX, int U, bool PLANES>
-__device__ __forceinline__ void load_operands(const Stencil<KMAX, BOX>& s,
+template <int KMAX, bool BOX, int U, bool PLANES, int REACH>
+__device__ __forceinline__ void load_operands(const Stencil<KMAX, BOX, REACH>& s,
                                               const float* __restrict__ coeffs, const float* x,
                                               int n, const int (&p)[U], const unsigned (&in)[U],
                                               Operands<KMAX, U, PLANES>& o) {
@@ -169,8 +186,8 @@ __device__ __forceinline__ void load_operands(const Stencil<KMAX, BOX>& s,
 }
 
 // (A x)[p_u], the terms in offset order as stencil_at adds them
-template <int KMAX, bool BOX, int U, bool PLANES>
-__device__ __forceinline__ float apply_operands(const Stencil<KMAX, BOX>& s,
+template <int KMAX, bool BOX, int U, bool PLANES, int REACH>
+__device__ __forceinline__ float apply_operands(const Stencil<KMAX, BOX, REACH>& s,
                                                 const Operands<KMAX, U, PLANES>& o, unsigned in,
                                                 int u) {
     float ax = 0.0f;
@@ -196,11 +213,11 @@ __device__ __forceinline__ int packed_index(const VisitParams& P, int ci, int i,
 // that hold the colour in turn (T.rows); within a row a lane updates U points
 // of the colour at a time, its loads first, its stores last (no point of a
 // colour reads another).  PACKED: c lies packed by colour (packed_index).
-template <int KMAX, bool BOX, int U, bool PLANES, bool COUNT, bool PACKED>
+template <int KMAX, bool BOX, int U, bool PLANES, bool COUNT, bool PACKED, int REACH = 1>
 __device__ __forceinline__ void sweep_colours(const VisitParams& P, const LevelTables& T,
                                               const float* __restrict__ coeffs,
                                               const float* __restrict__ c, float* x) {
-    const Stencil<KMAX, BOX> st = stencil_regs<KMAX, BOX>(P);
+    const Stencil<KMAX, BOX, REACH> st = stencil_regs<KMAX, BOX, REACH>(P);
     const int H = P.H, W = P.W, n = H * W, lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
     const int s = P.jstride, K = P.n_colors, d = P.diag_index;
@@ -307,6 +324,18 @@ __device__ __forceinline__ int stencil_form(const VisitParams& P) {
         }                                                  \
     } while (0)
 
+// The reach-2 forms, compiled only into the phase kernels' reach-2 build
+// (mgmc_visit.cu, VISIT_REACH 2), each a kernel of its own: 6 / 7 a reach-2
+// stencil of at most 13 offsets (the squared FD prior's diamond), 8 / 9 the
+// 5x5 box in raster order (its Galerkin levels); the odd ones read a
+// coefficient plane per point.  One point per lane at a time: the 25 operands
+// of the box (and as many coefficients) fill a thread's registers.
+#define WIDE_FORM0 6
+#define WIDE_FORMS 4
+#define WIDE_KMAX(FORM) ((FORM) < 8 ? 13 : 25)
+#define WIDE_BOX(FORM) ((FORM) >= 8)
+#define WIDE_PLANES(FORM) (((FORM) & 1) != 0)
+
 // PACKED: c packed by colour.  Ends with a barrier.
 template <int FORM, bool COUNT, bool PACKED = false>
 __device__ void level_sweep(const VisitParams& P, const LevelTables& T,
@@ -314,7 +343,12 @@ __device__ void level_sweep(const VisitParams& P, const LevelTables& T,
                             float* x) {
 #define SWEEP(KMAX, BOX, PLANES) \
     sweep_colours<KMAX, BOX, LANE_POINTS(KMAX, PLANES), PLANES, COUNT, PACKED>(P, T, coeffs, c, x)
-    STENCIL_DISPATCH(FORM, P, SWEEP);
+    if constexpr (FORM >= WIDE_FORM0) {
+        sweep_colours<WIDE_KMAX(FORM), WIDE_BOX(FORM), 1, WIDE_PLANES(FORM), COUNT, PACKED, 2>(
+            P, T, coeffs, c, x);
+    } else {
+        STENCIL_DISPATCH(FORM, P, SWEEP);
+    }
 #undef SWEEP
 }
 
@@ -593,13 +627,13 @@ __device__ void woodbury_pass(const VisitParams& P, const LevelTables& T, const 
 // ------------------------------------------------------------------ residual
 // r = f - A x - sum_k t_k B_k into scr (wv: this warp's t), one warp per row,
 // U points of a row per lane at a time, their loads first.  No barrier.
-template <int KMAX, bool BOX, int U, bool PLANES>
+template <int KMAX, bool BOX, int U, bool PLANES, int REACH = 1>
 __device__ __forceinline__ void residual_rows(const VisitParams& P, const LevelTables& T,
                                               const float* __restrict__ coeffs, const float* wv,
                                               const float* __restrict__ f,
                                               const float* __restrict__ x,
                                               float* __restrict__ scr) {
-    const Stencil<KMAX, BOX> st = stencil_regs<KMAX, BOX>(P);
+    const Stencil<KMAX, BOX, REACH> st = stencil_regs<KMAX, BOX, REACH>(P);
     const int lane = threadIdx.x & 31, H = P.H, W = P.W, n = H * W;
     WARP_ROWS(i, H) {
         int lo = 0, hi = 0;
@@ -643,7 +677,12 @@ __device__ void residual_pass(const VisitParams& P, const LevelTables& T,
                               float* __restrict__ scr) {
 #define RESIDUAL(KMAX, BOX, PLANES) \
     residual_rows<KMAX, BOX, RESIDUAL_POINTS(KMAX, PLANES), PLANES>(P, T, coeffs, wv, f, x, scr)
-    STENCIL_DISPATCH(FORM, P, RESIDUAL);
+    if constexpr (FORM >= WIDE_FORM0) {
+        residual_rows<WIDE_KMAX(FORM), WIDE_BOX(FORM), 1, WIDE_PLANES(FORM), 2>(P, T, coeffs, wv,
+                                                                                f, x, scr);
+    } else {
+        STENCIL_DISPATCH(FORM, P, RESIDUAL);
+    }
 #undef RESIDUAL
     block_sync<COUNT>();
 }

@@ -61,11 +61,45 @@
 // taken only where the host passes a stamps tensor, (C, PHASE_STAMP_WIDTH)
 // int64: per block the timer (ns) at entry and after each barrier (one per
 // pass), at exit, then the barriers passed and the SM it ran on.
+//
+// Reach 2: the squared shifted-Laplace prior's 13-point diamond and the 5x5
+// box of its Galerkin levels (9 colours) take a library of their own, this
+// source built with -DVISIT_REACH=2 (common.py::PHASE_REACH2_FLAGS): a
+// parameter block of 25 offsets and 9 colours and the reach-2 forms of
+// level_passes.cuh (WIDE_FORM0 ..), whose stencils drop the terms that leave
+// the field two rows and two columns deep, so that the reach-1 kernels keep
+// their parameter block, registers and stamps as they are.  A thread holds
+// the box's 25 operands and coefficients, so its kernels are bounded to 512
+// threads a block (128 registers a thread).  The split and stream kernels
+// take reach-1 stencils only; the host sends a reach-2 level here at every
+// chain count.
+
+#ifndef VISIT_REACH
+#define VISIT_REACH 1
+#endif
+#if VISIT_REACH == 2
+#define MAX_OFFSETS 25
+#define MAX_COLORS 9
+#elif VISIT_REACH != 1
+#error "VISIT_REACH is 1 or 2"
+#endif
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "level_passes.cuh"
+
+// the stencil forms of this build (level_passes.cuh) and the block size its
+// kernels are bounded to
+#if VISIT_REACH == 2
+#define PHASE_FORM0 WIDE_FORM0
+#define PHASE_FORMS WIDE_FORMS
+#define PHASE_MAX_THREADS 512
+#else
+#define PHASE_FORM0 0
+#define PHASE_FORMS STENCIL_FORMS
+#define PHASE_MAX_THREADS MAX_THREADS
+#endif
 
 #define PHASE_STAMP_WIDTH (1 + MAX_COLORS + 5 + 3)
 
@@ -130,7 +164,7 @@ __device__ __forceinline__ void phase_exit(unsigned long long* srow) {
 // FORM: the stencil's form (level_passes.cuh, STENCIL_DISPATCH), one kernel
 // each, so that the registers of one form's passes are allocated for it alone.
 template <int FORM, bool STAMPS>
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(PHASE_MAX_THREADS)
 descend_kernel(const __grid_constant__ VisitParams P, const __grid_constant__ PhaseTables L,
                const int4* __restrict__ tables, float* x_all, const float* __restrict__ f_all,
                float* scr_all, float* fc_all, const float* __restrict__ coeffs,
@@ -155,7 +189,7 @@ descend_kernel(const __grid_constant__ VisitParams P, const __grid_constant__ Ph
 }
 
 template <int FORM, bool STAMPS>
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(PHASE_MAX_THREADS)
 ascend_kernel(const __grid_constant__ VisitParams P, const __grid_constant__ PhaseTables L,
               const int4* __restrict__ tables, float* x_all, const float* __restrict__ f_all,
               float* scr_all, const float* __restrict__ xc_all, const float* __restrict__ coeffs,
@@ -185,12 +219,19 @@ static const void* phase_kernel(int descend, int form) {
 #define FORM_KERNEL(F) \
     (descend ? (const void*)descend_kernel<F, S> : (const void*)ascend_kernel<F, S>)
     switch (form) {
+#if VISIT_REACH == 2
+        case 6: return FORM_KERNEL(6);
+        case 7: return FORM_KERNEL(7);
+        case 8: return FORM_KERNEL(8);
+        case 9: return FORM_KERNEL(9);
+#else
         case 0: return FORM_KERNEL(0);
         case 1: return FORM_KERNEL(1);
         case 2: return FORM_KERNEL(2);
         case 3: return FORM_KERNEL(3);
         case 4: return FORM_KERNEL(4);
         case 5: return FORM_KERNEL(5);
+#endif
         default: return nullptr;
     }
 #undef FORM_KERNEL
@@ -203,14 +244,20 @@ extern "C" int mgmc_visit_tables_size() { return (int)sizeof(PhaseTables); }
 
 extern "C" int mgmc_visit_stamp_width() { return PHASE_STAMP_WIDTH; }
 
-extern "C" int mgmc_visit_stencil_forms() { return STENCIL_FORMS; }
+extern "C" int mgmc_visit_stencil_forms() { return PHASE_FORMS; }
+
+extern "C" int mgmc_visit_first_form() { return PHASE_FORM0; }
+
+extern "C" int mgmc_visit_reach() { return VISIT_REACH; }
+
+extern "C" int mgmc_visit_max_threads() { return PHASE_MAX_THREADS; }
 
 extern "C" int mgmc_visit_stamps_build() { return PHASE_STAMPS_BUILD; }
 
 // the largest static shared memory (bytes) of the library's kernels, or -1
 extern "C" int mgmc_visit_static_smem() {
     size_t most = 0;
-    for (int form = 0; form < STENCIL_FORMS; ++form)
+    for (int form = PHASE_FORM0; form < PHASE_FORM0 + PHASE_FORMS; ++form)
         for (int descend = 0; descend < 2; ++descend) {
             cudaFuncAttributes a;
             if (cudaFuncGetAttributes(&a, phase_kernel(descend, form)) != cudaSuccess) {
@@ -265,7 +312,8 @@ extern "C" int mgmc_visit_blocks_per_sm(int descend, int form, int threads, int 
 static int launch(int descend, int form, bool stamps, int C, int threads, int smem_bytes,
                   void** args, void* stream) {
     const void* fn = phase_kernel(descend, form);
-    if (fn == nullptr || stamps != (bool)PHASE_STAMPS_BUILD) return (int)cudaErrorInvalidValue;
+    if (fn == nullptr || stamps != (bool)PHASE_STAMPS_BUILD || threads > PHASE_MAX_THREADS)
+        return (int)cudaErrorInvalidValue;
     if (smem_bytes > 48 * 1024) {  // above what needs no opt-in
         cudaError_t e =
             cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);

@@ -9,7 +9,7 @@
 #include <stdint.h>
 
 #define MAX_OFFSETS 27
-#define MAX_COLORS 8
+#define MAX_COLORS 9
 #define MAX_THREADS 1024
 
 struct SweepParams {

@@ -137,8 +137,8 @@ cluster_sweep_kernel(const __grid_constant__ SweepParams P, float* x_all,
     // 1. the band of x into shared memory; the table of first points
     for (int i = threadIdx.x; i < count; i += blockDim.x) cp_async4(xs + i, x + first + i);
     cp_async_commit();
-    if (threadIdx.x < P.n_order * P.n_colors) {
-        const int o = threadIdx.x / P.n_colors, base = threadIdx.x - o * P.n_colors;
+    for (int q = threadIdx.x; q < P.n_order * P.n_colors; q += blockDim.x) {
+        const int o = q / P.n_colors, base = q - o * P.n_colors;
         const int ci = P.order[o];
         int j0 = -1;
         for (int jj = 0; jj < P.jstride; ++jj)
@@ -303,7 +303,8 @@ static int launch(const SweepParams* P, float* x, const float* b, const float* c
     const int bytes = sor_sweep_cluster_smem_bytes(P->Z, P->Y, P->X, S, slow_reach(*P),
                                                    GIBBS ? 1 : 0);
     if (bytes < 0 || threads < 64 || threads > MAX_THREADS || threads % 32 ||
-        P->n_order * P->n_colors > threads || P->C < 1 || P->K < 1 || P->K > MAX_OFFSETS)
+        P->n_order > MAX_COLORS || P->n_colors > MAX_COLORS || P->C < 1 || P->K < 1 ||
+        P->K > MAX_OFFSETS)
         return (int)cudaErrorInvalidValue;
     cudaError_t e = configure<GIBBS>(bytes);
     if (e == cudaSuccess) {

@@ -16,8 +16,15 @@
 
 #include "philox.cuh"
 
+// The limits of one build's parameter block: the reach-1 default (every
+// kernel), or what the phase kernels' reach-2 build sets before it includes
+// this header (mgmc_visit.cu, VISIT_REACH 2: 25 offsets, 9 colours).
+#ifndef MAX_OFFSETS
 #define MAX_OFFSETS 9
+#endif
+#ifndef MAX_COLORS
 #define MAX_COLORS 8
+#endif
 #define MAX_LOWRANK 32
 #define MAX_THREADS 1024
 

@@ -59,14 +59,21 @@ PHASE_STAMPS_FLAGS = ("-DPHASE_STAMPS_BUILD=1",)
 #: ``csrc/sor_sweep_passes.cu`` and ``csrc/sor_sweep.cu``
 SWEEP_STAMPS_FLAGS = ("-DSWEEP_STAMPS_BUILD=1",)
 
-#: every library the port builds: each source of :data:`SOURCES`, and the
-#: stamps builds of ``mgmc_visit``, ``sor_sweep_passes`` and ``sor_sweep``;
+#: the flags of the phase visit kernels' reach-2 build, a third library of
+#: ``csrc/mgmc_visit.cu``: a parameter block of 25 offsets and 9 colours and
+#: the reach-2 stencil forms (the squared shifted-Laplace prior's levels)
+PHASE_REACH2_FLAGS = ("-DVISIT_REACH=2",)
+
+#: every library the port builds: each source of :data:`SOURCES`, the stamps
+#: builds of ``mgmc_visit``, ``sor_sweep_passes`` and ``sor_sweep``, and the
+#: reach-2 build of ``mgmc_visit`` (:data:`VARIANT_BUILDS`);
 #: :func:`build_libraries` compiles them in parallel (``chip_smoke.py`` checks
 #: the stamps by default, and beside the production libraries their builds
 #: add no wall time)
 STAMPS_BUILDS = (("mgmc_visit", PHASE_STAMPS_FLAGS), ("sor_sweep_passes", SWEEP_STAMPS_FLAGS),
                  ("sor_sweep", SWEEP_STAMPS_FLAGS))
-BUILDS = SOURCES + STAMPS_BUILDS
+VARIANT_BUILDS = (("mgmc_visit", PHASE_REACH2_FLAGS),)
+BUILDS = SOURCES + STAMPS_BUILDS + VARIANT_BUILDS
 
 
 # ------------------------------------------------------------------- the build

@@ -313,6 +313,10 @@ class SubtreeKernel:
             FusedVisitLevel(op, pre.coloring, omega, pre.order, post.order,
                             pre.B_bar, post.B_bar, coarse_scaling)
             for op, pre, post in zip(operators[:-1], presmoothers, postsmoothers)]
+        reach = max(level.reach for level in self.levels)
+        if reach > 1:
+            raise NotImplementedError(
+                f"the subtree kernel takes reach-1 stencils only, a sub-level has reach {reach}")
         top = operators[0]
         self.vshape = top.vshape
         self.device, self.dtype = top.device, top.dtype

@@ -86,10 +86,15 @@ passed in pre-scaled by ``Sigma^{-1/2}``.
 Supported by the kernels: 2d, float32, one directed sweep per visit (SOR), any
 reach-1 stencil (up to 9 offsets, per-point coefficient planes, up to 8
 colours), ``0 <= m <= 32`` with dense ``B``, ``f`` shared or per chain, noise
-on or off, any ``coarse_scaling``.  Two sweeps per visit (SSOR), 3d, reach-2
-stencils and reduced-precision transfers belong to later slices; the wrapper
-raises on them.  SSOR levels run the composed visit, whose sweeps are the
-kernels of :mod:`.sor_sweep`.
+on or off, any ``coarse_scaling``.  Reach-2 stencils (the squared
+shifted-Laplace prior's 13-point diamond, up to 13 offsets, and the 5x5 box of
+its Galerkin levels, up to 9 colours) take the phase kernels alone, at every
+chain count, from a third build of ``csrc/mgmc_visit.cu``
+(``common.PHASE_REACH2_FLAGS``, :class:`WideVisitParams`, stencil forms 6-9); the split
+and stream kernels take reach 1 only.  Two sweeps per visit (SSOR), 3d, reach
+3 and reduced-precision transfers belong to later slices; the wrapper raises on
+them.  SSOR levels run the composed visit, whose sweeps are the kernels of
+:mod:`.sor_sweep`.
 """
 
 from __future__ import annotations
@@ -106,14 +111,20 @@ from ...smoothers import sor_sweep, woodbury_factors
 from ..intergrid import prolongate_add, restrict
 from ..stencil import StencilOperator
 from . import sor_sweep as ss
-from .common import (PHASE_STAMPS_FLAGS, compress_plan, default_threads,  # noqa: F401
-                     dynamic_smem_limit, open_library, philox_normals_reference, sm_count,
-                     stamp_breakdown, support_boxes)
+from .common import (PHASE_REACH2_FLAGS, PHASE_STAMPS_FLAGS,  # noqa: F401
+                     compress_plan, default_threads, dynamic_smem_limit, open_library,
+                     philox_normals_reference, sm_count, stamp_breakdown, support_boxes)
 from .common import tensor_ptr as _ptr
 
 MAX_OFFSETS = 9
 MAX_COLORS = 8
 MAX_LOWRANK = 32
+#: the limits of the phase kernels' reach-2 build (``VISIT_REACH 2`` in
+#: ``csrc/mgmc_visit.cu``): the 5x5 box and the 9 colours ``coloring_for``
+#: gives it, 512 threads a block
+WIDE_MAX_OFFSETS = 25
+WIDE_MAX_COLORS = 9
+WIDE_MAX_THREADS = 512
 
 #: threads per block of the stream kernels (``MAX_STREAM_THREADS`` in the source)
 MAX_STREAM_THREADS = 256
@@ -228,15 +239,25 @@ SPLIT_WAVE_POINTS = 3300
 #: in ``csrc/mgmc_visit.cu``): the timer at entry, after each of up to
 #: ``MAX_COLORS + 5`` passes and at exit, the barriers passed, the SM
 PHASE_STAMP_WIDTH = 1 + MAX_COLORS + 5 + 3
+#: the same in the reach-2 build (which has no stamps build of its own)
+WIDE_STAMP_WIDTH = 1 + WIDE_MAX_COLORS + 5 + 3
 
-#: kernel launches made by the wrappers (and only where they launch)
+#: kernel launches made by the wrappers (and only where they launch); the
+#: phase kernels' reach-2 forms count apart, by the size of their stencil
+#: (:data:`REACH2_NAMES`)
 launch_counts: Dict[str, int] = {"descend_visit": 0, "ascend_visit": 0,
                                  "descend_visit_stream": 0, "ascend_visit_stream": 0,
-                                 "descend_visit_split": 0, "ascend_visit_split": 0}
+                                 "descend_visit_split": 0, "ascend_visit_split": 0,
+                                 "descend_visit_reach2_13pt": 0, "ascend_visit_reach2_13pt": 0,
+                                 "descend_visit_reach2_25pt": 0, "ascend_visit_reach2_25pt": 0}
 
 #: the kernel counted by each launch, by route and kind
 KERNEL_NAMES = {(route, kind): f"{kind}_visit" + ("" if route == "phase" else f"_{route}")
                 for route in ROUTES for kind in ("descend", "ascend")}
+#: the kernel counted by a phase launch of a reach-2 level, by kind and
+#: whether the stencil is the 5x5 box (forms 8, 9) or of at most 13 offsets
+REACH2_NAMES = {(kind, box): f"{kind}_visit_reach2_{'25' if box else '13'}pt"
+                for kind in ("descend", "ascend") for box in (False, True)}
 
 
 def reset_launch_counts() -> None:
@@ -244,21 +265,19 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-class VisitParams(ctypes.Structure):
-    """Mirror of ``struct VisitParams`` in ``csrc/mgmc_visit.cu``."""
-
-    _fields_ = [
+def _visit_params_fields(max_offsets: int, max_colors: int):
+    return [
         ("C", ctypes.c_int), ("H", ctypes.c_int), ("W", ctypes.c_int),
         ("Hc", ctypes.c_int), ("Wc", ctypes.c_int),
         ("K", ctypes.c_int), ("diag_index", ctypes.c_int),
-        ("dy", ctypes.c_int * MAX_OFFSETS),
-        ("dx", ctypes.c_int * MAX_OFFSETS),
-        ("coeff_const", ctypes.c_int * MAX_OFFSETS),
-        ("coeff_val", ctypes.c_float * MAX_OFFSETS),
+        ("dy", ctypes.c_int * max_offsets),
+        ("dx", ctypes.c_int * max_offsets),
+        ("coeff_const", ctypes.c_int * max_offsets),
+        ("coeff_val", ctypes.c_float * max_offsets),
         ("n_colors", ctypes.c_int), ("w0", ctypes.c_int), ("w1", ctypes.c_int),
         ("jstride", ctypes.c_int),
         ("n_order", ctypes.c_int),
-        ("order", ctypes.c_int * MAX_COLORS),
+        ("order", ctypes.c_int * max_colors),
         ("omega", ctypes.c_float),
         ("gamma", ctypes.c_float),
         ("m", ctypes.c_int),
@@ -271,6 +290,19 @@ class VisitParams(ctypes.Structure):
         ("seed", ctypes.c_ulonglong),
         ("counter", ctypes.c_ulonglong),
     ]
+
+
+class VisitParams(ctypes.Structure):
+    """Mirror of ``struct VisitParams`` in ``csrc/visit_phases.cuh``."""
+
+    _fields_ = _visit_params_fields(MAX_OFFSETS, MAX_COLORS)
+
+
+class WideVisitParams(ctypes.Structure):
+    """Mirror of ``struct VisitParams`` in the phase kernels' reach-2 build
+    (:data:`WIDE_MAX_OFFSETS` offsets, :data:`WIDE_MAX_COLORS` colours)."""
+
+    _fields_ = _visit_params_fields(WIDE_MAX_OFFSETS, WIDE_MAX_COLORS)
 
 
 class StreamParams(ctypes.Structure):
@@ -294,28 +326,49 @@ class PhaseTables(ctypes.Structure):
                  "yspan", "rows", "words", "shared")]
 
 
-def phase_threads(C: int, n: int, sms: int) -> int:
+def phase_threads(C: int, n: int, sms: int, reach: int = 1) -> int:
     """Threads per block of a phase launch of ``C`` chains on a level of ``n``
     points, on a card of ``sms`` SMs: ``default_threads(n)`` (1024 from 16,000
     points) while the chains fit one wave of one block per SM, at most
-    :data:`PHASE_WAVE_THREADS` (two blocks per SM) above that."""
+    :data:`PHASE_WAVE_THREADS` (two blocks per SM) above that; at most
+    :data:`WIDE_MAX_THREADS` for a reach-2 level, whose kernels are bounded
+    to it."""
     threads = default_threads(n)
-    return threads if C <= sms else min(threads, PHASE_WAVE_THREADS)
+    threads = threads if C <= sms else min(threads, PHASE_WAVE_THREADS)
+    return threads if reach < 2 else min(threads, WIDE_MAX_THREADS)
 
 
 #: the stencil forms the phase kernels are compiled for, one kernel each
-#: (``STENCIL_FORMS`` in ``csrc/level_passes.cuh``): :func:`stencil_form`
+#: (``STENCIL_FORMS`` in ``csrc/level_passes.cuh``): :func:`stencil_form`;
+#: the reach-2 build's forms follow them (``WIDE_FORM0``, ``WIDE_FORMS``)
 STENCIL_FORMS = 6
+WIDE_FORM0 = 6
+WIDE_FORMS = 4
+
+
+def stencil_reach(offsets) -> int:
+    """The largest offset of a stencil along any axis."""
+    return max(abs(int(v)) for off in offsets for v in off)
+
+
+def raster_box(offsets, reach: int) -> bool:
+    """Whether ``offsets`` are the ``(2 reach + 1)^2`` box in raster order."""
+    side = 2 * reach + 1
+    return tuple(tuple(int(v) for v in off) for off in offsets) == tuple(
+        (k // side - reach, k % side - reach) for k in range(side * side))
 
 
 def stencil_form(offsets, const_coeffs) -> int:
-    """The phase kernel a level's stencil takes (``stencil_form`` in
-    ``csrc/level_passes.cuh``): 0 up to 5 offsets, 2 the 3x3 box in raster
-    order, 4 any other of up to 9; one more where a coefficient varies in
-    space (``const_coeffs`` holds ``None`` for it, :func:`~.common.compress_plan`)."""
-    offsets = tuple(tuple(int(v) for v in off) for off in offsets)
-    raster = offsets == tuple((k // 3 - 1, k % 3 - 1) for k in range(9))
-    base = 0 if len(offsets) <= 5 else (2 if raster else 4)
+    """The phase kernel a level's stencil takes (``stencil_form`` and the
+    reach-2 forms of ``csrc/level_passes.cuh``): reach 1, 0 up to 5 offsets, 2
+    the 3x3 box in raster order, 4 any other of up to 9; reach 2, 6 up to 13
+    offsets, 8 the 5x5 box in raster order; one more where a coefficient
+    varies in space (``const_coeffs`` holds ``None`` for it,
+    :func:`~.common.compress_plan`)."""
+    if stencil_reach(offsets) > 1:
+        base = 8 if raster_box(offsets, 2) else WIDE_FORM0
+    else:
+        base = 0 if len(offsets) <= 5 else (2 if raster_box(offsets, 1) else 4)
     return base + int(any(c is None for c in const_coeffs))
 
 
@@ -465,8 +518,10 @@ def stream_min_chains(vshape, form: int) -> Optional[int]:
 def visit_route(C: int, stream_bytes: int = 0, device=None,
                 smem_limit: Optional[int] = None, vshape=None,
                 form: Optional[int] = None) -> str:
-    """The kernel a visit of ``C`` chains launches: ``"stream"`` from the
-    threshold of the level's shape ``vshape`` and stencil form ``form`` on
+    """The kernel a visit of ``C`` chains launches: ``"phase"`` for a reach-2
+    stencil form (``form >= WIDE_FORM0``: the split and stream kernels are
+    reach-1); ``"stream"`` from the threshold of the level's shape ``vshape``
+    and stencil form ``form`` on
     (:func:`stream_min_chains`; without both, never) where the stream kernels'
     shared memory (``stream_bytes``, :func:`stream_smem_bytes`) fits a block;
     ``"split"`` for a level of shape ``vshape`` where :func:`split_cluster`
@@ -474,6 +529,8 @@ def visit_route(C: int, stream_bytes: int = 0, device=None,
     otherwise.  A block is granted ``smem_limit`` bytes, by default what the
     probe finds on ``device`` (:func:`~.common.dynamic_smem_limit`; on the CPU
     its default).  All of it is known before any launch."""
+    if form is not None and form >= WIDE_FORM0:
+        return "phase"
     if smem_limit is None:
         smem_limit = dynamic_smem_limit(device)
     threshold = None if vshape is None or form is None else stream_min_chains(vshape, form)
@@ -630,45 +687,53 @@ def wavefront_lags(offsets, weights, n_colors: int, order) -> Tuple[int, ...]:
 
 # ------------------------------------------------------------------- the build
 @functools.lru_cache(maxsize=None)
-def load_library(stamps: bool = False) -> ctypes.CDLL:
+def load_library(stamps: bool = False, reach: int = 1) -> ctypes.CDLL:
     """Build (at first use) and load the phase kernels' shared library, or
-    with ``stamps`` their stamps build (``common.PHASE_STAMPS_FLAGS``)."""
-    lib = open_library(SOURCE_NAME, PHASE_STAMPS_FLAGS if stamps else ())
-    lib.mgmc_visit_stamps_build.argtypes = []
-    lib.mgmc_visit_stamps_build.restype = ctypes.c_int
-    if lib.mgmc_visit_stamps_build() != int(stamps):
-        raise RuntimeError("the phase kernels' library is not the build asked for")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.mgmc_visit_params_size.argtypes = []
-    lib.mgmc_visit_params_size.restype = i32
-    if lib.mgmc_visit_params_size() != ctypes.sizeof(VisitParams):
-        raise RuntimeError("VisitParams layout differs between Python and CUDA")
-    for fn in (lib.mgmc_visit_tables_size, lib.mgmc_visit_stamp_width,
-               lib.mgmc_visit_static_smem):
+    with ``stamps`` their stamps build (``common.PHASE_STAMPS_FLAGS``), or
+    with ``reach=2`` their reach-2 build (``common.PHASE_REACH2_FLAGS``; it has no
+    stamps build)."""
+    if reach not in (1, 2) or (reach == 2 and stamps):
+        raise ValueError("the phase kernels have a reach-1 build, its stamps build and a "
+                         f"reach-2 build; asked for reach {reach}, stamps {stamps}")
+    wide = reach == 2
+    lib = open_library(SOURCE_NAME, PHASE_REACH2_FLAGS if wide else
+                       (PHASE_STAMPS_FLAGS if stamps else ()))
+    i32 = ctypes.c_int
+    for fn in (lib.mgmc_visit_stamps_build, lib.mgmc_visit_reach, lib.mgmc_visit_params_size,
+               lib.mgmc_visit_tables_size, lib.mgmc_visit_stamp_width, lib.mgmc_visit_static_smem,
+               lib.mgmc_visit_stencil_forms, lib.mgmc_visit_first_form,
+               lib.mgmc_visit_max_threads):
         fn.argtypes = []
         fn.restype = i32
+    if lib.mgmc_visit_stamps_build() != int(stamps) or lib.mgmc_visit_reach() != reach:
+        raise RuntimeError("the phase kernels' library is not the build asked for")
+    params = WideVisitParams if wide else VisitParams
+    if lib.mgmc_visit_params_size() != ctypes.sizeof(params):
+        raise RuntimeError(f"{params.__name__} layout differs between Python and CUDA")
     if lib.mgmc_visit_tables_size() != ctypes.sizeof(PhaseTables):
         raise RuntimeError("PhaseTables layout differs between Python and CUDA")
-    if lib.mgmc_visit_stamp_width() != PHASE_STAMP_WIDTH:
+    if lib.mgmc_visit_stamp_width() != (WIDE_STAMP_WIDTH if wide else PHASE_STAMP_WIDTH):
         raise RuntimeError("the phase kernels' stamps differ in width between Python and CUDA")
     static = lib.mgmc_visit_static_smem()
     if not 0 <= static <= PHASE_STATIC_SMEM:
         raise RuntimeError(f"the phase kernels declare {static} bytes of static shared memory, "
                            f"more than the {PHASE_STATIC_SMEM} the table placement keeps")
-    lib.mgmc_visit_stencil_forms.argtypes = []
-    lib.mgmc_visit_stencil_forms.restype = i32
-    if lib.mgmc_visit_stencil_forms() != STENCIL_FORMS:
+    forms = (WIDE_FORM0, WIDE_FORMS) if wide else (0, STENCIL_FORMS)
+    if (lib.mgmc_visit_first_form(), lib.mgmc_visit_stencil_forms()) != forms:
         raise RuntimeError("the phase kernels' stencil forms differ between Python and CUDA")
+    if lib.mgmc_visit_max_threads() != (WIDE_MAX_THREADS if wide else 1024):
+        raise RuntimeError("the phase kernels' block bound differs between Python and CUDA")
     lib.mgmc_visit_kernel_attributes.argtypes = [i32, i32, ctypes.POINTER(i32)]
     lib.mgmc_visit_kernel_attributes.restype = i32
     lib.mgmc_visit_blocks_per_sm.argtypes = [i32] * 4
     lib.mgmc_visit_blocks_per_sm.restype = i32
+    ptr = ctypes.c_void_p
     # P, L, tables, x, f, scratch, fc, coeffs, ns, xilr, xi, form, threads, smem, stamps, stream
-    lib.mgmc_descend_visit.argtypes = ([ctypes.POINTER(VisitParams), ctypes.POINTER(PhaseTables)]
+    lib.mgmc_descend_visit.argtypes = ([ctypes.POINTER(params), ctypes.POINTER(PhaseTables)]
                                        + [ptr] * 9 + [i32, i32, i32, ptr, ptr])
     lib.mgmc_descend_visit.restype = i32
     # P, L, tables, x, f, scratch, xc, coeffs, ns, xilr, xi, form, threads, smem, stamps, stream
-    lib.mgmc_ascend_visit.argtypes = ([ctypes.POINTER(VisitParams), ctypes.POINTER(PhaseTables)]
+    lib.mgmc_ascend_visit.argtypes = ([ctypes.POINTER(params), ctypes.POINTER(PhaseTables)]
                                       + [ptr] * 9 + [i32, i32, i32, ptr, ptr])
     lib.mgmc_ascend_visit.restype = i32
     return lib
@@ -722,15 +787,36 @@ def load_split_library() -> ctypes.CDLL:
 
 
 def kernel_support_error(op: StencilOperator, n_colors: int) -> Optional[str]:
-    """Why the CUDA kernels cannot take this level, or None if they can."""
+    """Why the CUDA kernels cannot take this level, or None if they can: 2d,
+    reach 1 (at most :data:`MAX_OFFSETS` offsets, :data:`MAX_COLORS` colours)
+    or reach 2 (at most 13 offsets or the 5x5 box in raster order, at most
+    :data:`WIDE_MAX_COLORS` colours; the phase kernels alone), at most
+    :data:`MAX_LOWRANK` measurements."""
     if len(op.vshape) != 2:
         return "the fused level-visit kernels are 2d only (3d: later slice)"
-    if len(op.offsets) > MAX_OFFSETS or any(abs(o) > 1 for off in op.offsets for o in off):
-        return "the fused level-visit kernels take reach-1 stencils only (reach 2: later slice)"
-    if n_colors > MAX_COLORS:
-        return f"more than {MAX_COLORS} colours"
+    reach = stencil_reach(op.offsets)
+    if reach > 2:
+        return ("the fused level-visit kernels take reach-1 and reach-2 stencils only "
+                f"(reach {reach})")
+    if reach == 1 and len(op.offsets) > MAX_OFFSETS:
+        return f"a reach-1 stencil of more than {MAX_OFFSETS} offsets"
+    if reach == 2 and len(op.offsets) > 13 and not raster_box(op.offsets, 2):
+        return "a reach-2 stencil of more than 13 offsets that is not the 5x5 box in raster order"
+    most = WIDE_MAX_COLORS if reach == 2 else MAX_COLORS
+    if n_colors > most:
+        return f"more than {most} colours at reach {reach}"
     if op.m_lowrank > MAX_LOWRANK:
         return f"more than {MAX_LOWRANK} measurements"
+    return None
+
+
+def route_support_error(level: "FusedVisitLevel", route: str) -> Optional[str]:
+    """Why the kernels of ``route`` cannot take ``level``, or None: the split
+    and stream kernels take reach-1 stencils only.  :func:`visit_route` never
+    gives them a reach-2 level; this holds a route a caller names to it."""
+    if route != "phase" and level.reach > 1:
+        return (f"the {route} kernels take reach-1 stencils only: a reach-2 level takes "
+                "the phase kernels")
     return None
 
 
@@ -786,6 +872,8 @@ class FusedVisitLevel:
             self.lr_scale = self.sigma_inv = self.G_pre = None
             self._woodbury = {self.pre_order: (None, None, ()), self.post_order: (None, None, ())}
         self.const_coeffs, self.ns_const, self.bbox = compress_plan(op, self.omega)
+        #: the stencil's reach: 2 takes the phase kernels' reach-2 build
+        self.reach = stencil_reach(op.offsets)
         #: the phase kernel of this level's stencil (:func:`stencil_form`)
         self.stencil_form = stencil_form(op.offsets, self.const_coeffs)
         self.stream_threads = stream_threads(op.vshape[-1])
@@ -864,7 +952,7 @@ class FusedVisitLevel:
         count."""
         if C not in self._phase_threads:
             self._phase_threads[C] = phase_threads(C, int(np.prod(self.op.vshape)),
-                                                   sm_count(self.op.device))
+                                                   sm_count(self.op.device), self.reach)
         return self._phase_threads[C]
 
     def phase_launch(self, order, descend: bool, threads: int):
@@ -901,6 +989,9 @@ class FusedVisitLevel:
         key = (route, C, tuple(order), bool(f_batched), noise_mode)
         P = self._params_cache.get(key)
         if P is None:
+            err = route_support_error(self, route)
+            if err is not None:
+                raise NotImplementedError(err)
             build = self._build_stream_params if route == "stream" else self._build_params
             P = self._params_cache[key] = build(*key[1:])
         visit = P.v if route == "stream" else P
@@ -917,12 +1008,12 @@ class FusedVisitLevel:
         S.max_lag = max(lags)
         return S
 
-    def _build_params(self, C: int, order, f_batched: bool, noise_mode: int) -> VisitParams:
+    def _build_params(self, C: int, order, f_batched: bool, noise_mode: int):
         op = self.op
         err = kernel_support_error(op, self.coloring.n_colors)
         if err is not None:
             raise NotImplementedError(err)
-        P = VisitParams()
+        P = WideVisitParams() if self.reach > 1 else VisitParams()
         P.C = C
         P.H, P.W = op.vshape
         P.Hc, P.Wc = self.vc
@@ -1089,16 +1180,24 @@ def _split_launch(level: FusedVisitLevel, C: int, cluster: Optional[int]) -> Tup
     return level._split_launches[key]
 
 
-def _check_stamps(route: str, stamps, x) -> None:
+def _check_stamps(level: FusedVisitLevel, route: str, stamps, x) -> None:
     if stamps is None:
         return
     C = x.shape[0]
-    if route != "phase":
-        raise ValueError("only the phase kernels have a stamps build")
+    if route != "phase" or level.reach > 1:
+        raise ValueError("only the phase kernels of reach-1 levels have a stamps build")
     if (stamps.dtype != torch.int64 or stamps.device != x.device
             or tuple(stamps.shape) != (C, PHASE_STAMP_WIDTH) or not stamps.is_contiguous()):
         raise ValueError(f"stamps must be a contiguous int64 ({C}, {PHASE_STAMP_WIDTH}) "
                          f"tensor on {x.device}")
+
+
+def kernel_name(level: FusedVisitLevel, route: str, kind: str) -> str:
+    """The kernel a launch of ``kind`` through ``route`` on ``level`` counts
+    (:data:`KERNEL_NAMES`; a reach-2 level's :data:`REACH2_NAMES`)."""
+    if level.reach > 1:
+        return REACH2_NAMES[(kind, level.stencil_form >= 8)]
+    return KERNEL_NAMES[(route, kind)]
 
 
 def launch_descend(level: FusedVisitLevel, route: str, f, x, xi=None, xi_lr=None,
@@ -1116,7 +1215,7 @@ def launch_descend(level: FusedVisitLevel, route: str, f, x, xi=None, xi_lr=None
     each pass and at exit, the barriers passed and the SM
     (:func:`pass_times`).  Updates ``x`` in place; returns ``(x, f_coarse)``."""
     _on_card(x)
-    _check_stamps(route, stamps, x)
+    _check_stamps(level, route, stamps, x)
     C, f_batched, noise_mode = _check_visit_args(level, f, x, xi, xi_lr, philox)
     P = level._params(C, level.pre_order, f_batched, noise_mode, philox, route)
     Y, W, _ = level._woodbury[level.pre_order]
@@ -1129,7 +1228,7 @@ def launch_descend(level: FusedVisitLevel, route: str, f, x, xi=None, xi_lr=None
             threads = level.phase_threads(C) if threads is None else int(threads)
             tables, L, smem = level.phase_launch(level.pre_order, True, threads)
             scratch = torch.empty_like(x)
-            err = load_library(stamps is not None).mgmc_descend_visit(
+            err = load_library(stamps is not None, level.reach).mgmc_descend_visit(
                 ctypes.byref(P), ctypes.byref(L), tables.data_ptr(), x.data_ptr(), f.data_ptr(),
                 scratch.data_ptr(), fc.data_ptr(), level.coeffs.data_ptr(),
                 level.noise_scale.data_ptr(), _ptr(xi_lr), _ptr(xi), level.stencil_form,
@@ -1143,7 +1242,7 @@ def launch_descend(level: FusedVisitLevel, route: str, f, x, xi=None, xi_lr=None
             err = load_split_library().mgmc_split_descend(
                 ctypes.byref(P), x.data_ptr(), f.data_ptr(), fc.data_ptr(), *common, S, nthreads,
                 stream)
-    name = KERNEL_NAMES[(route, "descend")]
+    name = kernel_name(level, route, "descend")
     launch_counts[name] += 1
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
@@ -1156,7 +1255,7 @@ def launch_ascend(level: FusedVisitLevel, route: str, f, x, x_coarse, xi=None, x
     """One ascend visit through the kernel of ``route``, as
     :func:`launch_descend`.  Updates ``x`` in place and returns it."""
     _on_card(x)
-    _check_stamps(route, stamps, x)
+    _check_stamps(level, route, stamps, x)
     C, f_batched, noise_mode = _check_visit_args(level, f, x, xi, xi_lr, philox, x_coarse)
     P = level._params(C, level.post_order, f_batched, noise_mode, philox, route)
     Y, W, _ = level._woodbury[level.post_order]
@@ -1168,7 +1267,7 @@ def launch_ascend(level: FusedVisitLevel, route: str, f, x, x_coarse, xi=None, x
             threads = level.phase_threads(C) if threads is None else int(threads)
             tables, L, smem = level.phase_launch(level.post_order, False, threads)
             scratch = torch.empty_like(x) if noise_mode else x  # unused without noise
-            err = load_library(stamps is not None).mgmc_ascend_visit(
+            err = load_library(stamps is not None, level.reach).mgmc_ascend_visit(
                 ctypes.byref(P), ctypes.byref(L), tables.data_ptr(), x.data_ptr(), f.data_ptr(),
                 scratch.data_ptr(), x_coarse.data_ptr(), level.coeffs.data_ptr(),
                 level.noise_scale.data_ptr(), _ptr(xi_lr), _ptr(xi), level.stencil_form,
@@ -1183,7 +1282,7 @@ def launch_ascend(level: FusedVisitLevel, route: str, f, x, x_coarse, xi=None, x
             err = load_split_library().mgmc_split_ascend(
                 ctypes.byref(P), x.data_ptr(), f.data_ptr(), x_coarse.data_ptr(), *common,
                 _ptr(xi), S, nthreads, stream)
-    name = KERNEL_NAMES[(route, "ascend")]
+    name = kernel_name(level, route, "ascend")
     launch_counts[name] += 1
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

@@ -67,7 +67,7 @@ kernel or raise - there is no fallback.  The kernels update ``x`` in place; the
 plain versions return new tensors.
 
 The gate is the device, the dtype and the shape: float32, 2d or 3d, up to 27
-offsets of any reach, up to 8 colours; a single chain is a batch of one.  The
+offsets of any reach, up to 9 colours; a single chain is a batch of one.  The
 Gibbs kernel draws ``xi`` from the Philox stream ``(seed, launch counter)`` of
 ``csrc/philox.cuh`` (see :func:`~.common.philox_normals_reference`) or reads it
 from a tensor.
@@ -90,7 +90,9 @@ from .common import (SWEEP_STAMPS_FLAGS, compress_plan, default_threads, dynamic
                      open_library, sm_count, stamp_breakdown, tensor_ptr)
 
 MAX_OFFSETS = 27
-MAX_COLORS = 8
+#: the most colours of a sweep: ``(s + 1)^2`` = 9, what ``coloring_for`` gives a
+#: 2d stencil of reach 2 (the 25-point Galerkin levels of the 13-point prior)
+MAX_COLORS = 9
 
 #: the CUDA sources under ``csrc/`` (see :mod:`.common` for the build): one
 #: thread block per chain, and each chain split over a thread-block cluster
@@ -101,12 +103,19 @@ SPLIT_SOURCE_NAME = "sor_sweep_cluster"
 #: the two bodies of the one-block route: the passes of ``level_passes.cuh``
 #: (``sor_sweep_passes.cu``) and the generic body (``sor_sweep.cu``)
 BODIES = ("passes", "generic")
-#: the most offsets the passes take (``MAX_OFFSETS`` of ``visit_phases.cuh``)
+#: the most offsets and colours the passes take (``MAX_OFFSETS``,
+#: ``MAX_COLORS`` of ``visit_phases.cuh``)
 PASSES_MAX_OFFSETS = 9
+PASSES_MAX_COLORS = 8
 #: int64 words per block of the one-block kernels' stamps (``SWEEP_STAMP_WIDTH``
-#: in both sources): the timer at entry, after the rhs pass and up to
-#: ``MAX_COLORS`` colour phases and at exit, the barriers passed, the SM
+#: of ``block_stamps.cuh``): the timer at entry, after the rhs pass and up to
+#: ``MAX_COLORS`` colour phases and at exit, the barriers passed, the SM; the
+#: generic body's (``sor_sweep.cuh``: 9 colours) and the passes body's
+#: (``visit_phases.cuh``: 8)
 SWEEP_STAMP_WIDTH = 2 + MAX_COLORS + 3
+PASSES_STAMP_WIDTH = 2 + PASSES_MAX_COLORS + 3
+#: the stamps width of each one-block body
+STAMP_WIDTHS = {"generic": SWEEP_STAMP_WIDTH, "passes": PASSES_STAMP_WIDTH}
 
 #: Block sizes of the passes body (:func:`sweep_threads`), from ``chip_smoke.py
 #: --phases sweep_threads`` (device ms per launch at 256 / 512 / 1024 threads,
@@ -234,7 +243,7 @@ class SweepParams(ctypes.Structure):
     ]
 
 
-def _check_stamps_library(lib, prefix: str, stamps: bool) -> None:
+def _check_stamps_library(lib, prefix: str, stamps: bool, width: int) -> None:
     """The library's build (stamps or production) and stamp width against
     what the host expects."""
     for fn in (getattr(lib, f"{prefix}_stamps_build"), getattr(lib, f"{prefix}_stamp_width")):
@@ -242,7 +251,7 @@ def _check_stamps_library(lib, prefix: str, stamps: bool) -> None:
         fn.restype = ctypes.c_int
     if getattr(lib, f"{prefix}_stamps_build")() != int(stamps):
         raise RuntimeError(f"the {prefix} library is not the build asked for")
-    if getattr(lib, f"{prefix}_stamp_width")() != SWEEP_STAMP_WIDTH:
+    if getattr(lib, f"{prefix}_stamp_width")() != width:
         raise RuntimeError(f"the {prefix} kernels' stamps differ in width between Python and CUDA")
 
 
@@ -251,7 +260,7 @@ def load_library(stamps: bool = False) -> ctypes.CDLL:
     """Build (at first use) and load the generic one-block sweep kernels'
     shared library, or with ``stamps`` their stamps build."""
     lib = open_library(SOURCE_NAME, SWEEP_STAMPS_FLAGS if stamps else ())
-    _check_stamps_library(lib, "sor_sweep", stamps)
+    _check_stamps_library(lib, "sor_sweep", stamps, SWEEP_STAMP_WIDTH)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.sor_sweep_params_size.argtypes = []
     lib.sor_sweep_params_size.restype = i32
@@ -274,7 +283,7 @@ def load_passes_library(stamps: bool = False) -> ctypes.CDLL:
     from .mgmc_visit import STENCIL_FORMS, VisitParams
 
     lib = open_library(PASSES_SOURCE_NAME, SWEEP_STAMPS_FLAGS if stamps else ())
-    _check_stamps_library(lib, "sor_passes", stamps)
+    _check_stamps_library(lib, "sor_passes", stamps, PASSES_STAMP_WIDTH)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.sor_passes_params_size, lib.sor_passes_stencil_forms):
         fn.argtypes = []
@@ -501,9 +510,9 @@ def pass_params(P: SweepParams):
     chain.  The Philox stream is set per launch."""
     from .mgmc_visit import VisitParams
 
-    if P.Z != 1 or P.K > PASSES_MAX_OFFSETS:
+    if P.Z != 1 or P.K > PASSES_MAX_OFFSETS or P.n_order > PASSES_MAX_COLORS:
         raise ValueError("the passes take 2d stencils of reach 1 with at most "
-                         f"{PASSES_MAX_OFFSETS} offsets")
+                         f"{PASSES_MAX_OFFSETS} offsets and {PASSES_MAX_COLORS} colours")
     V = VisitParams()
     V.C, V.H, V.W = P.C, P.Y, P.X
     V.K, V.diag_index = P.K, P.diag_index
@@ -787,10 +796,11 @@ def _check_body(body: str, vshape, offsets, route, stamps, x) -> None:
         return
     if route[0] != "block":
         raise ValueError("only the one-block route has a stamps build")
+    width = STAMP_WIDTHS[body]
     if (stamps.dtype != torch.int64 or stamps.device != x.device or not stamps.is_contiguous()
-            or tuple(stamps.shape) != (x.shape[0], SWEEP_STAMP_WIDTH)):
+            or tuple(stamps.shape) != (x.shape[0], width)):
         raise ValueError(f"stamps must be a contiguous int64 ({x.shape[0]}, "
-                         f"{SWEEP_STAMP_WIDTH}) tensor on {x.device}")
+                         f"{width}) tensor on {x.device}")
 
 
 def _launch(P: SweepParams, route: Tuple[str, int], vshape, threads: int, x: torch.Tensor,
@@ -867,7 +877,7 @@ def launch_sweep(plan: SweepPlan, route: Tuple[str, int], b: torch.Tensor,
     against each other.  ``body`` names the one-block route's body (default:
     ``plan.body``; ``chip_smoke.py`` holds the two against each other),
     ``stamps`` takes its stamps build, an int64 tensor of shape ``(C,
-    SWEEP_STAMP_WIDTH)`` that the launch fills (:func:`sweep_pass_times`);
+    STAMP_WIDTHS[body])`` that the launch fills (:func:`sweep_pass_times`);
     ``threads`` sets the passes body's block size (default:
     :func:`sweep_threads`).  Updates ``x`` in place and returns it, or
     raises."""
@@ -927,9 +937,10 @@ def barrier_count(order, gibbs: bool) -> int:
 
 def sweep_pass_times(order, gibbs: bool, stamps) -> dict:
     """Where one one-block sweep launch went, from the ``stamps`` it wrote
-    (``common.stamp_breakdown``): us per pass, their sum, the spans, the
-    barriers each block passed and the blocks one SM ran at once."""
-    return stamp_breakdown(stamps, sweep_pass_names(order, gibbs), SWEEP_STAMP_WIDTH)
+    (``common.stamp_breakdown``; either body's, by the width of its rows): us
+    per pass, their sum, the spans, the barriers each block passed and the
+    blocks one SM ran at once."""
+    return stamp_breakdown(stamps, sweep_pass_names(order, gibbs), int(stamps.shape[1]))
 
 
 # ------------------------------------------- entry points on raw arrays (v1)

@@ -183,8 +183,10 @@ def test_auto_gate_raises_on_the_card_where_the_kernels_cannot_go():
         gate(stub((31, 31), m=mv.MAX_LOWRANK + 1))
     with pytest.raises(NotImplementedError, match="colours"):
         gate(stub((31, 31)), n_colors=mv.MAX_COLORS + 1)
-    with pytest.raises(NotImplementedError, match="reach-1"):
-        gate(stub((31, 31), reach=2))
+    # reach 2 is admitted (the phase kernels' reach-2 build), reach 3 refused
+    assert mv.kernel_support_error(stub((31, 31), reach=2), 5) is None
+    with pytest.raises(NotImplementedError, match="reach 3"):
+        gate(stub((31, 31), reach=3))
     assert gate(stub((15, 15, 15))) == {}
     assert gate(stub((31, 31), dtype=torch.float64)) == {}
     with pytest.raises(NotImplementedError, match="float32 only"):

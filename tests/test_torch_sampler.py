@@ -266,9 +266,11 @@ def test_unported_sampler_options_raise(kwargs, match):
 
 def test_unported_models_and_smoothers_raise():
     lattice, model = Lattice((8, 8)), ConstantCorrelationLengthModel(0.3)
-    for name in ("shiftedlaplace_fem", "squared_shiftedlaplace_fd"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            prior_operator(name, lattice, model, device=CPU)
+    # every PDE model of the configuration files builds (the FEM and the
+    # squared finite-difference priors since the twelfth slice)
+    for name, n_offsets in (("shiftedlaplace_fem", 9), ("squared_shiftedlaplace_fd", 13)):
+        op = prior_operator(name, lattice, model, device=CPU)
+        assert len(op.offsets) == n_offsets and op.vshape == (7, 7)
     with pytest.raises(ValueError, match="unknown PDE model"):
         prior_operator("nonsense", lattice, model, device=CPU)
     from multigridmc_tpu_torch.smoothers import SSORSmoother

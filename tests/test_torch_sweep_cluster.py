@@ -270,16 +270,18 @@ def test_cluster_size_minimises_the_waves(monkeypatch, C, deterministic, gibbs):
 
 def test_wide_and_deep_fields_take_the_route_their_bands_allow():
     # 1023^2: 64 rows of 1023 floats at S = 16 exceed a block's shared memory
-    assert ss.split_smem_bytes((1023, 1023), 16, 1, 0) == 4 * (64 + 64 * 1023)
+    # (the first-point table before them: 9 x 9 ints, up to 9 colours)
+    assert ss.SPLIT_TABLE_INTS == 81
+    assert ss.split_smem_bytes((1023, 1023), 16, 1, 0) == 4 * (81 + 64 * 1023)
     assert ss.split_route(1, (1023, 1023), OFFSETS5, 0, CPU, H100_SMEM) == ss.BLOCK_ROUTE
-    # 63^3, 7-point: four planes of 63^2 per block, x and c: 127,264 B
+    # 63^3, 7-point: four planes of 63^2 per block, x and c: 127,332 B
     offsets3 = ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1))
-    assert ss.split_smem_bytes((63, 63, 63), 16, 1, 1) == 127264
+    assert ss.split_smem_bytes((63, 63, 63), 16, 1, 1) == 127332
     assert ss.split_route(1, (63, 63, 63), offsets3, 1, CPU, H100_SMEM) == ("split", 16)
     assert ss.split_route(1, (63, 63, 63), offsets3, 1, CPU) == ss.BLOCK_ROUTE  # 48 KiB
     # the shared memory a block is granted decides where the route allows it
     need = ss.split_smem_bytes((255, 255), 16, 1, 1)
-    assert need == 4 * (64 + 16 * 255 * 2) == 32896
+    assert need == 4 * (81 + 16 * 255 * 2) == 32964
     assert ss.split_route(1, (255, 255), OFFSETS5, 1, CPU, need) == ("split", 16)
     assert ss.split_route(1, (255, 255), OFFSETS5, 1, CPU, need - 4) == ss.BLOCK_ROUTE
 

@@ -437,16 +437,19 @@ def test_layout_mirror_constants_match_the_kernel_source():
 
 
 def test_every_route_rejects_what_the_kernels_do_not_take():
-    # a reach-2 (13-point) stencil: FusedVisitLevel builds, no kernel takes it
+    # a reach-2 (13-point) stencil: the split kernels refuse it, the phase
+    # kernels' reach-2 build takes it, at one chain too
     from test_torch_visit_stream import _synthetic_level
 
     offsets = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1), (-2, 0), (2, 0), (0, -2), (0, 2),
                (-1, -1), (-1, 1), (1, -1), (1, 1))
     level = _synthetic_level((9, 9), offsets, seed=4)
-    assert "reach-1" in mv.kernel_support_error(level.op, level.coloring.n_colors)
-    for route in mv.ROUTES:
+    assert mv.kernel_support_error(level.op, level.coloring.n_colors) is None
+    for route in ("split", "stream"):
         with pytest.raises(NotImplementedError, match="reach-1"):
             level._params(1, level.pre_order, False, 0, None, route=route)
+    assert level.route(1) == "phase" and level.split_cluster(1) is None
+    assert isinstance(level._params(1, level.pre_order, False, 0, None), mv.WideVisitParams)
     # the launches take CUDA tensors only: no CPU path behind any route
     fine = _small_level()
     x = torch.zeros((1,) + fine.op.vshape, dtype=torch.float64)
@@ -458,5 +461,5 @@ def test_every_route_rejects_what_the_kernels_do_not_take():
         with pytest.raises(ValueError, match="CUDA device"):
             mv.launch_ascend(fine, route, x[0], x, xc, cluster=8)
     assert all(v == 0 for v in mv.launch_counts.values())
-    assert {mv.KERNEL_NAMES[(r, k)] for r in mv.ROUTES for k in ("descend", "ascend")} == set(
-        mv.launch_counts)
+    assert ({mv.KERNEL_NAMES[(r, k)] for r in mv.ROUTES for k in ("descend", "ascend")}
+            | set(mv.REACH2_NAMES.values())) == set(mv.launch_counts)

@@ -329,14 +329,17 @@ def test_route_is_chosen_from_the_chain_count_alone(monkeypatch):
 
 
 def test_both_routes_reject_what_the_kernels_do_not_take():
-    # a reach-2 (13-point) stencil: FusedVisitLevel builds, no kernel takes it
+    # a reach-2 (13-point) stencil: the stream and split kernels refuse it,
+    # the phase kernels' reach-2 build takes it, at many chains too
     offsets = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1), (-2, 0), (2, 0), (0, -2), (0, 2),
                (-1, -1), (-1, 1), (1, -1), (1, 1))
     level = _synthetic_level((9, 9), offsets, seed=4)
-    assert "reach-1" in mv.kernel_support_error(level.op, level.coloring.n_colors)
-    for route in mv.ROUTES:
+    assert mv.kernel_support_error(level.op, level.coloring.n_colors) is None
+    for route in ("stream", "split"):
         with pytest.raises(NotImplementedError, match="reach-1"):
             level._params(300, level.pre_order, False, 0, None, route=route)
+    assert level.route(300) == "phase"
+    assert isinstance(level._params(300, level.pre_order, False, 0, None), mv.WideVisitParams)
     # the launches take CUDA tensors only: no CPU path behind either route
     _, _, _, port = _jax_levels(0, False, torch.float32, 16)
     x = torch.zeros((2,) + port.op.vshape)

@@ -541,7 +541,7 @@ def test_the_stamps_build_is_a_library_of_its_own():
     (each holds one build's kernels, so each compiles in about half the
     time, in parallel with the other sources); a launch with stamps takes it."""
     assert ("mgmc_visit", common.PHASE_STAMPS_FLAGS) in common.STAMPS_BUILDS
-    assert common.BUILDS == common.SOURCES + common.STAMPS_BUILDS
+    assert common.BUILDS == common.SOURCES + common.STAMPS_BUILDS + common.VARIANT_BUILDS
     assert common.PHASE_STAMPS_FLAGS == ("-DPHASE_STAMPS_BUILD=1",)
     production = common.library_path("mgmc_visit")
     stamps = common.library_path("mgmc_visit", common.PHASE_STAMPS_FLAGS)
