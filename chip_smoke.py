@@ -142,8 +142,25 @@ on the card and checks, one phase after the other:
                    (10 steps); the 64x64 statistical gate of
                    ``native/validate_biharmonic_tpu.py`` (zero-mean protocol,
                    4 standard errors against the dense float64 inverse); and
-                   ``drivers.mgmc`` on a biharmonic (64^2) and a FEM (256^2)
-                   configuration, ``drivers.mg`` on the FEM one.
+                   ``drivers.mgmc`` on a biharmonic and a FEM configuration at
+                   256^2 (the biharmonic one's exact moments by the band
+                   Cholesky, its residual held to ``BAND_SOLVE_RESIDUAL``),
+                   ``drivers.mg`` on the FEM one;
+10. ``volume``     the 3d posterior of ``native/bench_mgmc3d_tpu.py`` (64^3
+                   lattice, 63^3 unknowns, 8 near-exact measurements, 4
+                   levels, W-cycle, SOR): the sampler at 32 chains and one
+                   chain, distilled (the default) and with every level fused,
+                   levels 0 (7-point) and 1 (27-point Galerkin) on the phase
+                   kernels' 3d build, and composed (``fused=False``, the
+                   visits on the sweep kernels) as the "before"; the 3d
+                   kernels on both levels against their plain versions (noise
+                   off, a tensor, in-kernel against the host's reference
+                   normals) and against the composed visit under one Philox
+                   stream, their device times, registers and spills; the
+                   statistical gate of ``native/validate_mgmc3d_tpu.py`` (32
+                   chains, zero-mean protocol, 30 + 300 steps, 4 standard
+                   errors against the exact variance by converged float64 CG);
+                   ``drivers.mgmc`` and ``drivers.mg`` on a 32^3 config.
 
 Device times come from ``torch.profiler``: the kernel matched by its full name
 (:func:`names_kernel`), the median of three windows, each of which must have
@@ -165,9 +182,8 @@ third slice's kernels alone; ``visits``: the visit kernels of the three routes
 alone; ``sweeps``: the sweep kernels of both routes alone; ``sweep_check``:
 the one-block sweeps against their plain versions alone; ``sweep_stamps``: the
 generic one-block sweeps by pass, with ``sweep_passes`` the passes body too;
-``sweep_threads``: the passes body's block-size table; ``biharmonic_cg``: the
-drivers' exact-moment CG on the 255^2 squared operator) and prints no result
-line.
+``sweep_threads``: the passes body's block-size table; ``volume``: the 3d
+posterior alone) and prints no result line.
 """
 
 from __future__ import annotations
@@ -193,7 +209,7 @@ PEAK_FP32_FLOPS = 67e12
 TOL = 2e-5
 FLAGSHIP_SEED = 20260816
 ALL_PHASES = {"kernels", "main_path", "band", "alternating", "drivers", "statistics",
-              "biharmonic"}
+              "biharmonic", "volume"}
 
 
 def emit(obj) -> None:
@@ -400,6 +416,8 @@ def phase_build():
     mgmc_visit.load_library(stamps=True)
     if hasattr(mgmc_visit, "WideVisitParams"):  # (a parent tree of --phases compare lacks it)
         mgmc_visit.load_library(reach=2)
+    if hasattr(mgmc_visit, "VolumeVisitParams"):  # (nor this)
+        mgmc_visit.load_library(dim=3)
     mgmc_visit.load_stream_library()
     mgmc_visit.load_split_library()
     sor_sweep.load_library()
@@ -431,7 +449,7 @@ def visit_bound(level, C, f_batched, kind):
     order = level.pre_order if kind == "descend" else level.post_order
 
     def area(boxes):
-        return sum((i1 - i0) * (j1 - j0) for i0, i1, j0, j1 in boxes)
+        return sum(int(np.prod([b[a + 1] - b[a] for a in range(0, len(b), 2)])) for b in boxes)
 
     shared = 0 if f_batched else n
     shared += n * sum(c is None for c in level.const_coeffs)
@@ -442,11 +460,12 @@ def visit_bound(level, C, f_batched, kind):
     chain = 2 * n + nc + (n if f_batched else 0) + m  # x in and out, f_c or x_c, f, xi_lr
     words = shared + C * chain
     # per point: noisy rhs (Philox + Box-Muller about 40, 2 + 2m), sweep 2K + 4,
-    # Woodbury 4m; descend adds the residual 2K + 1 + 2m and 18 per coarse point,
-    # ascend the interpolation (about 8)
+    # Woodbury 4m; descend adds the residual 2K + 1 + 2m and 2 3^d per coarse
+    # point, ascend the interpolation (about 4 d)
+    dim = len(op.vshape)
     flops = 42 + 2 * m + 2 * K + 4 + 4 * m
-    flops_total = C * (n * (flops + (2 * K + 1 + 2 * m if kind == "descend" else 8))
-                       + (18 * nc if kind == "descend" else 0))
+    flops_total = C * (n * (flops + (2 * K + 1 + 2 * m if kind == "descend" else 4 * dim))
+                       + (2 * 3 ** dim * nc if kind == "descend" else 0))
     t_bytes = 4 * words / PEAK_BYTES_PER_S * 1e3
     t_ops = flops_total / PEAK_FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), 4 * words
@@ -582,8 +601,21 @@ def device_ms_median(fn, kernel, launches=10, windows=3):
     ``kernels`` line reports takes it, so that no single window (one the card
     ran slower in, a clock change, one that recorded a part of its launches)
     decides; None where a window showed no such kernel."""
-    times = [device_ms_retried(fn, kernel, launches) for _ in range(windows)]
-    return None if None in times else float(np.median(times))
+    return device_ms_medians({0: (fn, kernel)}, launches, windows)[0]
+
+
+def device_ms_medians(candidates, launches=10, windows=3):
+    """:func:`device_ms_median` of each ``{key: (fn, kernel)}`` of
+    ``candidates``, their windows interleaved (window 1 of every candidate,
+    then window 2, ...): where a table compares candidates with each other, a
+    spell in which the card runs faster or slower (a clock change lasting a
+    few windows) then falls on all of them alike instead of on the one that
+    happened to be timed in it."""
+    times = {key: [] for key in candidates}
+    for _ in range(windows):
+        for key, (fn, kernel) in candidates.items():
+            times[key].append(device_ms_retried(fn, kernel, launches))
+    return {key: None if None in t else float(np.median(t)) for key, t in times.items()}
 
 
 #: a launch is bound by the device where its event time is above this many ms
@@ -704,11 +736,16 @@ def time_routes(levels, wide_levels, noise, smi):
             x = torch.zeros((C,) + level.op.vshape, device=dev)
             xc = torch.randn((C,) + level.vc, device=dev)
 
-            def pair_ms(route, cluster=None):
+            candidates = {}
+
+            def add_pair(route, cluster=None):
                 fns = visit_fns(level, route, noise, f, x, xc, cluster)
-                times = [device_ms_median(fn, PROFILER_NAMES[kernel])
-                         for kernel, fn in zip(VISIT_KERNELS[route], fns)]
-                return None if None in times else times
+                for i, (kernel, fn) in enumerate(zip(VISIT_KERNELS[route], fns)):
+                    candidates[(route, cluster, i)] = (fn, PROFILER_NAMES[kernel])
+
+            def pair_ms(route, cluster=None):
+                pair = [medians[(route, cluster, i)] for i in range(2)]
+                return None if None in pair else pair
 
             row = {"level": name, "vshape": [H, W], "stencil_form": level.stencil_form,
                    "chains": C, "stream_smem_bytes": level.stream_bytes,
@@ -716,15 +753,23 @@ def time_routes(levels, wide_levels, noise, smi):
             for kind in ("descend", "ascend"):
                 bound, by, _ = visit_bound(level, C, f_batched, kind)
                 row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound, by
-            times = {route: pair_ms(route) for route in ("phase", "stream")}
-            if not name.startswith("wide") and C in SPLIT_ROUTE_CHAINS:
-                split, active = {}, {}
+            for route in ("phase", "stream"):
+                add_pair(route)
+            sizes, active = [], {}
+            split_table = not name.startswith("wide") and C in SPLIT_ROUTE_CHAINS
+            if split_table:
                 for S in ss.SPLIT_SIZES:
                     if S > H or mv.split_smem_bytes(H, W, S) + mv.SPLIT_STATIC_SMEM > limit:
                         continue
                     active[S] = mv.split_active_clusters(S, level.op.vshape)
                     if active[S] > 0:
-                        split[S] = pair_ms("split", S)
+                        sizes.append(S)
+                        add_pair("split", S)
+            # every route and cluster size in interleaved windows
+            medians = device_ms_medians(candidates)
+            times = {route: pair_ms(route) for route in ("phase", "stream")}
+            if split_table:
+                split = {S: pair_ms("split", S) for S in sizes}
                 rule = mv.split_cluster(C, level.op.vshape, capped=False)
                 row["split_by_cluster"] = {str(S): t for S, t in split.items()}
                 row["split_active_clusters"] = {str(S): a for S, a in active.items()}
@@ -1496,16 +1541,16 @@ def time_sweep_threads(device, noise, nx, nlevel, n_meas):
             x = torch.zeros((C,) + op.vshape, device=device)
             kinds = ("sweep",) if C > 1000 else ("sweep", "gibbs")
             for kind in kinds:
-                by_threads = {}
-                for t in SWEEP_THREADS:
-                    def run():
-                        if kind == "sweep":
-                            return ss.launch_sweep(plan, ss.BLOCK_ROUTE, b, x, threads=t)
-                        return ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, b, x,
-                                                     philox=noise.philox_stream(), threads=t)
+                def run(t):
+                    if kind == "sweep":
+                        return lambda: ss.launch_sweep(plan, ss.BLOCK_ROUTE, b, x, threads=t)
+                    return lambda: ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, b, x,
+                                                         philox=noise.philox_stream(), threads=t)
 
-                    by_threads[t] = device_ms_median(run, sweep_kernel(ss.BLOCK_ROUTE, "passes",
-                                                                       kind))
+                # every block size in interleaved windows
+                by_threads = device_ms_medians(
+                    {t: (run(t), sweep_kernel(ss.BLOCK_ROUTE, "passes", kind))
+                     for t in SWEEP_THREADS})
                 timed = {t: v for t, v in by_threads.items() if v is not None}
                 rule = plan.pass_launch(plan.params(C, True, int(kind == "gibbs"), (0, 0))).threads
                 best = min(timed, key=timed.get) if timed else None
@@ -1711,12 +1756,10 @@ def time_sweep_routes(device, noise, smi):
                     return lambda: ss.launch_gibbs_sweep(plan, route, b, x,
                                                          philox=noise.philox_stream())
 
-                def device_ms(route):
-                    return device_ms_median(run(route), sweep_kernel(route, plan.body, kernel))
+                def candidate(route):
+                    return run(route), sweep_kernel(route, plan.body, kernel)
 
-                row = {"shape": label, "chains": C, "kernel": kernel,
-                       "block_ms": device_ms(ss.BLOCK_ROUTE)}
-                split, active = {}, {}
+                candidates, active = {"block": candidate(ss.BLOCK_ROUTE)}, {}
                 for S in ss.SPLIT_SIZES:
                     if S > L or L // S < reach:
                         continue
@@ -1726,7 +1769,11 @@ def time_sweep_routes(device, noise, smi):
                     active[S] = ss.active_clusters(device, noise_mode, S,
                                                    ss.split_threads(op.vshape, S), nbytes)
                     if active[S] > 0:
-                        split[S] = device_ms(("split", S))
+                        candidates[S] = candidate(("split", S))
+                # one block and every cluster size in interleaved windows
+                split = device_ms_medians(candidates)
+                row = {"shape": label, "chains": C, "kernel": kernel,
+                       "block_ms": split.pop("block")}
                 row["split_ms"] = {str(S): t for S, t in split.items()}
                 row["active_clusters"] = {str(S): a for S, a in active.items()}
                 timed = {S: t for S, t in split.items() if t is not None}
@@ -3238,9 +3285,9 @@ def host_posterior_solve(op, F):
     against the JAX package's."""
     import scipy.linalg
 
-    from multigridmc_tpu_torch.samplers import cholesky as pc
+    from multigridmc_tpu_torch.ops.band import band_matrix_stencil
 
-    ab, _ = pc._band_matrix_stencil(op)
+    ab, _ = band_matrix_stencil(op)
     m = op.m_lowrank
     B = op.lowrank.B.double().cpu().numpy().reshape(m, -1).T  # (n, m)
     Sig = op.lowrank.Sigma_diag.double().cpu().numpy()
@@ -3325,6 +3372,7 @@ def phase_band(device, nx, n_meas, smi):
     from multigridmc_tpu_torch.models.posterior import (measurement_vector,
                                                         observed_mean_and_variance,
                                                         posterior_mean)
+    from multigridmc_tpu_torch.ops.band import band_matrix_stencil
     from multigridmc_tpu_torch.samplers import cholesky as pc
     from multigridmc_tpu_torch.samplers.base import GeneratorNoise, MeanShiftedSampler
 
@@ -3340,7 +3388,7 @@ def phase_band(device, nx, n_meas, smi):
         raise AssertionError("band: parallel=None did not take the doubling on the card")
     # the set-up's parts, once more
     t0 = time.perf_counter()
-    ab, b = pc._band_matrix_stencil(op)
+    ab, b = band_matrix_stencil(op)
     t1 = time.perf_counter()
     cb = scipy.linalg.cholesky_banded(ab, lower=True)
     t2 = time.perf_counter()
@@ -3599,9 +3647,10 @@ SPLIT_GATE = {"steps": 3000, "batches": 30}
 ALTERNATING = {"sweep_schedule": "alternating", "omega": 1.4}
 
 
-def moments_gate(name, z, z_mean, z_var, C):
+def moments_gate(name, z, z_mean, z_var, C, gated=True):
     """Mean and variance of the observable ``z`` (steps, chains) against the
-    exact ones.  Independent chains: the spread of the per-chain time averages
+    exact ones, within 4 standard errors unless ``gated`` is false (a
+    reading).  Independent chains: the spread of the per-chain time averages
     carries the autocorrelation of the series."""
     zbar = z.mean(axis=0)
     vbar = ((z - z_mean) ** 2).mean(axis=0)
@@ -3611,7 +3660,8 @@ def moments_gate(name, z, z_mean, z_var, C):
            "variance": float(vbar.mean()), "variance_se": float(se_var)}
     res["mean_sigmas"] = abs(res["mean"] - z_mean) / se_mean
     res["variance_sigmas"] = abs(res["variance"] - z_var) / se_var
-    if not np.isfinite(z).all() or res["mean_sigmas"] > 4 or res["variance_sigmas"] > 4:
+    if not np.isfinite(z).all() or gated and (res["mean_sigmas"] > 4
+                                              or res["variance_sigmas"] > 4):
         raise AssertionError(f"statistics ({name}): moments off: {res}, exact "
                              f"mean {z_mean} variance {z_var}")
     return res
@@ -3798,11 +3848,11 @@ BIHARMONIC_GATE = {"nx": 64, "nlevel": 3, "warmup": 80, "steps": 300}
 #: steps of the full-width biharmonic sampler and of the FEM flagship variant
 BIHARMONIC_STEPS = 30
 FEM_STEPS = 10
-#: chain counts at which a reach-2 level's route must be the phase kernels
-REACH2_ROUTE_CHAINS = (1, 16, 256)
+#: chain counts at which a reach-2 or 3d level's route must be the phase kernels
+PHASE_ONLY_CHAINS = (1, 16, 256)
 #: the chains at the start and at the end of a launch whose in-kernel normals
 #: are held against the host's reference (the first and the last wave)
-REACH2_NOISE_CHAINS = 32
+NOISE_CHECK_WAVE = 32
 #: above this many chains a sweep is timed over fewer launches (the
 #: distillation set-up's batch, tens of thousands of chains)
 BIG_SWEEP_CHAINS = 1024
@@ -3825,20 +3875,21 @@ def compare_fc(name, got, want, tol=TOL):
     return err / scale
 
 
-def check_reach2_level(level, name, C, gen):
-    """The phase kernels' reach-2 forms against their plain versions on one
-    level at ``C`` chains: noise off and the same noise tensors, then the
-    in-kernel generator against the plain versions fed the host's reference
-    normals (the first and the last :data:`REACH2_NOISE_CHAINS`); ``x`` elementwise
-    within TOL, ``f_c`` by :func:`compare_fc`.  The route must be the phase
-    kernels at every count of :data:`REACH2_ROUTE_CHAINS`, and the split and
-    stream routes must refuse the level before they launch."""
+def check_phase_only_level(level, name, C, gen, label="biharmonic"):
+    """The phase kernels' build for a level they take alone (the reach-2 and
+    the 3d forms) against their plain versions on one level at ``C`` chains:
+    noise off and the same noise tensors, then the in-kernel generator against
+    the plain versions fed the host's reference normals (the first and the
+    last :data:`NOISE_CHECK_WAVE`); ``x`` elementwise within TOL, ``f_c`` by
+    :func:`compare_fc`.  The route must be the phase kernels at every count of
+    :data:`PHASE_ONLY_CHAINS`, and the split and stream routes must refuse the
+    level before they launch.  ``label`` names the phase in messages."""
     from multigridmc_tpu_torch.ops.kernels import common
     from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
 
-    routes = {c: level.route(c) for c in REACH2_ROUTE_CHAINS}
+    routes = {c: level.route(c) for c in PHASE_ONLY_CHAINS}
     if set(routes.values()) != {"phase"}:
-        raise AssertionError(f"biharmonic {name}: a reach-2 level takes the routes {routes}")
+        raise AssertionError(f"{label} {name}: the level takes the routes {routes}")
     dev = level.coeffs.device
     vshape, m = level.op.vshape, level.op.m_lowrank
 
@@ -3852,14 +3903,14 @@ def check_reach2_level(level, name, C, gen):
             mv.launch_descend(level, route, f, x.clone())
         except NotImplementedError:
             continue
-        raise AssertionError(f"biharmonic {name}: the {route} route took a reach-2 level")
+        raise AssertionError(f"{label} {name}: the {route} route took the level")
     if mv.launch_counts != before:
-        raise AssertionError(f"biharmonic {name}: a refused launch was counted")
+        raise AssertionError(f"{label} {name}: a refused launch was counted")
     errs = {"x": 0.0, "f_c_over_scale": 0.0, "ascend_x": 0.0}
     for noisy in (False, True):
         xi = rand(C, *vshape) if noisy else None
         xi_lr = rand(C, m) * level.lr_scale if (noisy and m) else None
-        tag = f"biharmonic {name} C={C} {'shared noise' if noisy else 'noise off'}"
+        tag = f"{label} {name} C={C} {'shared noise' if noisy else 'noise off'}"
         want_x, want_fc = mv.descend_visit_plain(level, f, x, xi, xi_lr)
         got_x, got_fc = mv.launch_descend(level, "phase", f, x.clone(), xi=xi, xi_lr=xi_lr)
         errs["x"] = max(errs["x"], compare(f"descend x {tag}", got_x, want_x))
@@ -3873,10 +3924,10 @@ def check_reach2_level(level, name, C, gen):
     seed = 0x5EED_0012
     got_x, got_fc = mv.launch_descend(level, "phase", f, x.clone(), xi_lr=xi_lr, philox=(seed, 11))
     got = mv.launch_ascend(level, "phase", f, x.clone(), xc, xi_lr=xi_lr, philox=(seed, 12))
-    for first, n in ((0, min(C, REACH2_NOISE_CHAINS)), (max(C - REACH2_NOISE_CHAINS, 0),
-                                                     min(C, REACH2_NOISE_CHAINS))):
+    for first, n in ((0, min(C, NOISE_CHECK_WAVE)), (max(C - NOISE_CHECK_WAVE, 0),
+                                                   min(C, NOISE_CHECK_WAVE))):
         part = slice(first, first + n)
-        tag = f"biharmonic {name} C={C} in-kernel noise, chains {first}..{first + n - 1}"
+        tag = f"{label} {name} C={C} in-kernel noise, chains {first}..{first + n - 1}"
         ref = [torch.as_tensor(common.philox_normals_reference(seed, counter, n, vshape,
                                                                first_chain=first), device=dev)
                for counter in (11, 12)]
@@ -3894,9 +3945,9 @@ def check_reach2_level(level, name, C, gen):
             "coefficient_planes": sum(c is None for c in level.const_coeffs), **errs}
 
 
-def time_reach2_level(level, C, noise):
-    """ms per launch of the reach-2 phase kernels at ``C`` chains with
-    in-kernel noise, as the main path runs them: CUDA events around
+def time_phase_only_level(level, C, noise):
+    """ms per launch of the phase kernels' reach-2 or 3d build at ``C`` chains
+    with in-kernel noise, as the main path runs them: CUDA events around
     back-to-back launches and the profiler's device time (the kernel of this
     level's stencil form by its full name, the median of three windows, held
     to the events), the plain versions' ms and the bound."""
@@ -3914,7 +3965,7 @@ def time_reach2_level(level, C, noise):
         out[f"{kind}_device_ms"] = device_ms_median(
             fn, f"{kind}_kernel<{level.stencil_form}", 20)
         out[f"{kind}_events_over_device"] = check_events_against_device(
-            f"{kind} reach 2 {tuple(level.op.vshape)} C={C}", out[f"{kind}_ms"],
+            f"{kind} {tuple(level.op.vshape)} form {level.stencil_form} C={C}", out[f"{kind}_ms"],
             out[f"{kind}_device_ms"], host["ms"])
         bound, by, nbytes = visit_bound(level, C, False, kind)
         out[f"{kind}_bound_ms"], out[f"{kind}_bound_by"], out[f"{kind}_bytes"] = bound, by, nbytes
@@ -3931,21 +3982,22 @@ def time_reach2_level(level, C, noise):
     return out
 
 
-def reach2_kernel_attributes():
+def build_kernel_attributes(reach=2, dim=2):
     """Registers, local (spill) bytes and static shared bytes per thread of the
-    reach-2 build's kernels, by stencil form."""
+    kernels of the phase kernels' reach-2 (or 3d) build, by stencil form."""
     import ctypes
 
     from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
 
-    lib = mv.load_library(reach=2)
+    lib = mv.load_library(reach=reach, dim=dim)
+    _, _, form0, nforms, _, _ = mv.PHASE_BUILDS[(reach, dim)]
     out = {}
-    for form in range(mv.WIDE_FORM0, mv.WIDE_FORM0 + mv.WIDE_FORMS):
+    for form in range(form0, form0 + nforms):
         for kind, descend in (("descend", 1), ("ascend", 0)):
             vals = (ctypes.c_int * 3)()
             err = lib.mgmc_visit_kernel_attributes(descend, form, vals)
             if err:
-                raise AssertionError(f"reach-2 {kind} kernel attributes: CUDA error {err}")
+                raise AssertionError(f"form {form} {kind} kernel attributes: CUDA error {err}")
             out[f"{kind} form {form}"] = {"registers": vals[0], "local_bytes": vals[1],
                                           "static_shared_bytes": vals[2]}
     return out
@@ -3975,6 +4027,29 @@ def check_setup_sweeps(shapes, gen):
                      "launches": d["launches"], "max_abs_err": compare(tag, got, want)})
         del x, b, want, got
     torch.cuda.synchronize()
+    return rows
+
+
+def check_distill_setup(op, nlevel, sampler, main, gen, label):
+    """The distillation set-up's sweeps of ``op``'s default sampler
+    (``sampler``, whose main path ``main`` is :func:`drive_sampler`'s record)
+    at their own shapes (:func:`check_setup_sweeps`).  They must run on the
+    generic body, on the levels below the distilled one down to the coarsest
+    (exclusive), and their launches must be those of the main path's set-up.
+    Returns the rows."""
+    ops = sampler.hierarchy.operators
+    below = {tuple(o.vshape) for o in ops[main["distill_level"]:nlevel - 1]}
+    del ops
+    level, _, setup = distill_sweep_shapes(op, nlevel)
+    rows = check_setup_sweeps(setup, gen)
+    del setup
+    counted = sum(v for k, v in main["setup_sweep_launches"].items()
+                  if k.startswith("sweep_batched"))
+    if (level != main["distill_level"] or {r["body"] for r in rows} != {"generic"}
+            or {tuple(r["vshape"]) for r in rows} != below
+            or sum(r["launches"] for r in rows) != counted):
+        raise AssertionError(f"{label} set-up sweeps: distilled at {level}, {rows}, the main "
+                             f"path's set-up {counted} launches")
     return rows
 
 
@@ -4089,15 +4164,18 @@ def time_nine_colour_sweeps(op, C, b_batched, noise):
     return rows
 
 
-def drive_sampler(op, f, C, steps, kwargs, reach2):
-    """Build the sampler with the launch counts set to 0, take two warm-up
+def drive_sampler(op, f, C, steps, kwargs, levels_are=None, sampler=None, busy_steps=4):
+    """Build the sampler (unless ``sampler`` is given: then no set-up is
+    timed) with the launch counts set to 0, take two warm-up
     steps, set the visit counts to 0 again and take ``steps`` timed steps:
     set-up seconds and the sweep launches of the set-up, ms per step,
     samples/s, the visit launches of the timed steps, the route of each visited
     level, the device's kernel ms and launches per step (profiler windows of
-    four steps more: the median of three that recorded every visit launch).
-    ``reach2``: the visited levels are reach 2, so the reach-2 kernels' counts
-    must show every visit and no other visit kernel a launch."""
+    ``busy_steps`` steps more: the median of three that recorded every visit
+    launch).
+    The counts must show every visit of a visited level under its kernel's name
+    and no other visit kernel a launch; ``levels_are``, where given, must hold
+    for every visited level (the reach-2 or the 3d kernels took them)."""
     from multigridmc_tpu_torch.ops.kernels import common
     from multigridmc_tpu_torch.ops.kernels import mgmc_subtree as st
     from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
@@ -4108,12 +4186,14 @@ def drive_sampler(op, f, C, steps, kwargs, reach2):
     device = op.coeffs.device
     for module in (mv, ss, st, common):
         module.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sampler = MultigridMCSampler(op, **kwargs)
-    torch.cuda.synchronize()
-    setup_seconds = time.perf_counter() - t0
-    setup_sweeps = dict(ss.launch_counts)
+    setup_seconds, setup_sweeps = None, {}
+    if sampler is None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sampler = MultigridMCSampler(op, **kwargs)
+        torch.cuda.synchronize()
+        setup_seconds = time.perf_counter() - t0
+        setup_sweeps = dict(ss.launch_counts)
     noise = GeneratorNoise(BIHARMONIC_SEED, device)
     x = torch.zeros((C,) + op.vshape, dtype=torch.float32, device=device)
     for _ in range(2):
@@ -4138,14 +4218,14 @@ def drive_sampler(op, f, C, steps, kwargs, reach2):
         for name in names[li].values():
             expected[name] = expected.get(name, 0) + steps * 2 ** li
     wrong = {name: n for name, n in counts.items() if n != expected.get(name, 0)}
-    if wrong or (reach2 and any(sampler.fused_levels[li].reach != 2 for li in visited)):
+    if wrong or (levels_are and not all(levels_are(sampler.fused_levels[li]) for li in visited)):
         raise AssertionError(f"{kwargs}: visit launches {counts}, expected {expected}")
     # a profiler window can record a part of its launches: only windows that
     # show every visit launch of their steps count, the median of three
     per_step = sum(expected.values()) / steps
     windows, complete = [], []
     while len(windows) < BUSY_WINDOWS and len(complete) < 3:
-        busy = device_busy(lambda: sampler.apply(noise, f, x), 4,
+        busy = device_busy(lambda: sampler.apply(noise, f, x), busy_steps,
                            pattern=r"trsm|triang|visit_kernel|descend_kernel|ascend_kernel")
         if busy is None:
             break
@@ -4255,11 +4335,44 @@ def write_prior_configs(directory, nx_bih, nx_fem, nlevel, nchains, nsamples, nw
             out.write(text)
 
 
-#: the lattice of the biharmonic driver run: the drivers' exact moments solve
-#: with unpreconditioned float64 CG above 4096 unknowns, which does not reach
-#: its tolerance on the squared operator at 255^2 (PERF.md); at 64^2 they are
-#: dense
-BIHARMONIC_DRIVER_NX = 64
+#: the lattice of the biharmonic driver run, the bench's: the drivers' exact
+#: moments solve a 2d lattice above 4096 unknowns by a float64 band Cholesky
+#: on the host (bandwidth 2 x 255 at 255^2; CG did not converge there)
+BIHARMONIC_DRIVER_NX = 256
+#: the band solve of the exact moments: the largest relative residual
+#: ``||B_k - A x_k|| / ||B_k||`` it may leave on the measurement columns
+BAND_SOLVE_RESIDUAL = 1e-10
+
+
+def band_solve_residual(nx):
+    """The drivers' exact-moment solve (``models.posterior._default_stencil_solve``,
+    the solve the driver takes: above ``DENSE_SOLVE_MAX_N`` unknowns in 2d the
+    band Cholesky of ``ops.band``, float64 on the host) on the biharmonic
+    driver config's stencil, held to its float64 stencil: the largest relative
+    residual over the measurement columns, and the seconds of the
+    factorisation and solve."""
+    import dataclasses
+
+    from multigridmc_tpu_torch.models import posterior
+
+    op, _ = build_posterior(nx, 8, BIHARMONIC_SEED, "near_exact", "cpu", dtype=torch.float64,
+                            **BIHARMONIC)
+    m = op.m_lowrank
+    B = op.lowrank.B.numpy().reshape((m,) + op.vshape)
+    t0 = time.perf_counter()
+    solve = posterior._default_stencil_solve(op)
+    X = solve(B)
+    seconds = time.perf_counter() - t0
+    if op.lattice.nvertex <= posterior.DENSE_SOLVE_MAX_N or solve.__name__ != "solve_band":
+        raise AssertionError(f"exact moments at {nx - 1}^2: the driver's solve is "
+                             f"{solve.__name__}, not the band solve")
+    AX = dataclasses.replace(op, lowrank=None).apply(torch.as_tensor(X)).reshape(m, -1).numpy()
+    B = B.reshape(m, -1)
+    rel = float((np.linalg.norm(B - AX, axis=1) / np.linalg.norm(B, axis=1)).max())
+    if not rel <= BAND_SOLVE_RESIDUAL:
+        raise AssertionError(f"exact moments at {nx - 1}^2: the band solve leaves a relative "
+                             f"residual of {rel} (limit {BAND_SOLVE_RESIDUAL})")
+    return {"solve": solve.__name__, "relative_residual": rel, "seconds": seconds}
 
 
 def prior_drivers(device, nlevel, nchains):
@@ -4281,11 +4394,12 @@ def prior_drivers(device, nlevel, nchains):
         write_prior_configs(work, BIHARMONIC_DRIVER_NX, 256, nlevel, nchains, nsamples, nwarmup)
         os.chdir(work)
         try:
-            # the one-chain series: the 13-point level 0 on the reach-2 phase
-            # kernels (the 25-point levels lie below the distilled level at
-            # 64^2), the FEM prior's on the split kernels; the replica chains
-            # of the FEM convergence table the phase kernels
-            for name, visits in (("biharmonic", ("descend_visit_reach2_13pt",)),
+            # the one-chain series: the 13-point level 0 and the 25-point level
+            # 1 on the reach-2 phase kernels, the FEM prior's on the split
+            # kernels; the replica chains of the FEM convergence table the
+            # phase kernels
+            for name, visits in (("biharmonic", ("descend_visit_reach2_13pt",
+                                                 "descend_visit_reach2_25pt")),
                                  ("fem", ("descend_visit_split", "descend_visit"))):
                 mv.reset_launch_counts()
                 ss.reset_launch_counts()
@@ -4315,6 +4429,8 @@ def prior_drivers(device, nlevel, nchains):
                                          f"than {res['mean_bar']} from the exact mean {exact}")
                 if not all(mv.launch_counts[v] > 0 for v in visits):
                     raise AssertionError(f"drivers ({name}): visit launches {mv.launch_counts}")
+                if name == "biharmonic":
+                    res["exact_moments_band_solve"] = band_solve_residual(BIHARMONIC_DRIVER_NX)
                 out[f"mgmc_{name}"] = res
             ss.reset_launch_counts()
             t0 = time.perf_counter()
@@ -4333,40 +4449,13 @@ def prior_drivers(device, nlevel, nchains):
     return out
 
 
-def phase_biharmonic_cg(device, smi):
-    """Not part of the default run: the drivers' exact-moment solve above
-    4096 unknowns (``models.posterior``: unpreconditioned float64 CG, ``rtol``
-    1e-12, ``maxiter`` 10,000) on the 255^2 biharmonic stencil, the 8
-    measurement columns batched: its iterations, whether it converged, each
-    column's relative residual ``||B_k - A x_k|| / ||B_k||`` and the seconds."""
-    import dataclasses
-
-    from multigridmc_tpu_torch.solvers.loop import CGSolver, IterativeSolverParameters
-
-    op, _ = build_posterior(256, 8, BIHARMONIC_SEED, "near_exact", device, **BIHARMONIC)
-    stencil = dataclasses.replace(op, lowrank=None).to(dtype=torch.float64)
-    B = op.lowrank.B.to(torch.float64)
-    solver = CGSolver(stencil, params=IterativeSolverParameters(rtol=1e-12, atol=1e-30,
-                                                                maxiter=10000))
-    t0 = time.perf_counter()
-    result = solver.solve(B, batched=True)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    m = B.shape[0]
-    rel = (torch.linalg.vector_norm((B - stencil.apply_stencil(result.x)).reshape(m, -1), dim=1)
-           / torch.linalg.vector_norm(B.reshape(m, -1), dim=1))
-    emit({"phase": "biharmonic_cg", "card": smi, "lattice": [256, 256], "columns": m,
-          "niter": result.niter, "converged": bool(result.converged), "seconds": seconds,
-          "relative_residuals": rel.tolist()})
-
-
 def phase_biharmonic(device, nlevel, C, n_meas, smi):
     """The squared shifted-Laplace (biharmonic) and FEM priors on the card:
 
     * the reach-2 phase kernels on the biharmonic posterior's levels 0 (255^2,
       13-point, 5 colours) and 1 (127^2, 25-point Galerkin, 9 colours) at ``C``
-      chains against their plain versions (:func:`check_reach2_level`), their
-      times (:func:`time_reach2_level`), registers and spills;
+      chains against their plain versions (:func:`check_phase_only_level`), their
+      times (:func:`time_phase_only_level`), registers and spills;
     * every sweep its distillation set-up launches, at the set-up's shapes
       (:func:`check_setup_sweeps`: both 9-colour levels, 63^2 and 31^2), and
       both sweep kernels on the 9-colour 63^2 level at the set-up's chain
@@ -4407,34 +4496,24 @@ def _biharmonic_parts(out, device, nlevel, C, n_meas):
     f = torch.as_tensor(np.random.default_rng(0).uniform(size=op.vshape), dtype=torch.float32,
                         device=device)
     kwargs = dict(nlevel=nlevel, smoother="SOR", coarse_solver="Cholesky", omega=1.0, cycle=2)
-    sampler, main = drive_sampler(op, f, C, BIHARMONIC_STEPS, kwargs, reach2=True)
+    sampler, main = drive_sampler(op, f, C, BIHARMONIC_STEPS, kwargs,
+                                  levels_are=lambda lv: lv.reach == 2)
     if main["distill_level"] != 2 or main["visited_levels"] != [0, 1] or set(
             main["route_by_level"].values()) != {"phase"}:
         raise AssertionError(f"biharmonic: {main}")
     out["main_path"] = main
     levels = sampler.fused_levels
-    out["kernel_attributes"] = reach2_kernel_attributes()
-    out["checks"] = [check_reach2_level(levels[li], f"L{li}", C, gen) for li in (0, 1)]
+    out["kernel_attributes"] = build_kernel_attributes(reach=2)
+    out["checks"] = [check_phase_only_level(levels[li], f"L{li}", C, gen) for li in (0, 1)]
     noise = GeneratorNoise(BIHARMONIC_SEED + 1, device)
-    out["timings"] = [time_reach2_level(levels[li], C, noise) for li in (0, 1)]
+    out["timings"] = [time_phase_only_level(levels[li], C, noise) for li in (0, 1)]
     # the distillation set-up's sweeps: every shape it launched, on both
     # 9-colour levels below the distilled level, at the set-up's chain counts
-    ops = sampler.hierarchy.operators
-    below = {tuple(o.vshape) for o in ops[main["distill_level"]:nlevel - 1]}
+    out["setup_sweeps"] = check_distill_setup(op, nlevel, sampler, main, gen, "biharmonic")
+    nine = sampler.hierarchy.operators[main["distill_level"]]
     del sampler, levels
-    level, _, setup = distill_sweep_shapes(op, nlevel)
-    out["setup_sweeps"] = check_setup_sweeps(setup, gen)
-    counted = sum(v for k, v in main["setup_sweep_launches"].items()
-                  if k.startswith("sweep_batched"))
-    nine_shapes = {tuple(r["vshape"]) for r in out["setup_sweeps"] if r["colours"] == 9}
-    if (level != main["distill_level"] or sum(d["launches"] for d in setup) != counted
-            or nine_shapes != below):
-        raise AssertionError(f"biharmonic set-up sweeps: distilled at {level}, "
-                             f"{out['setup_sweeps']}, the main path's set-up {counted} launches")
-    nine = ops[main["distill_level"]]
-    at = max((d for d in setup if tuple(d["vshape"]) == tuple(nine.vshape)),
-             key=lambda d: d["launches"])
-    del setup
+    at = max((r for r in out["setup_sweeps"] if tuple(r["vshape"]) == tuple(nine.vshape)),
+             key=lambda r: r["launches"])
     out["nine_colour_sweeps"] = {"vshape": list(nine.vshape), "offsets": len(nine.offsets),
                                  "chains": at["chains"], "b_batched": at["b_batched"]}
     errs, route_err = check_nine_colour_sweeps(nine, at["chains"], gen)
@@ -4443,12 +4522,410 @@ def _biharmonic_parts(out, device, nlevel, C, n_meas):
     out["nine_colour_sweeps"].update({
         "max_abs_err": errs, "split_against_block": route_err,
         "timings": time_nine_colour_sweeps(nine, at["chains"], at["b_batched"], noise)})
-    del ops, nine
+    del nine
     fem, _ = build_posterior(256, n_meas, FLAGSHIP_SEED, "near_exact", device,
                              pdemodel="shiftedlaplace_fem")
-    _, out["fem_main_path"] = drive_sampler(fem, f, C, FEM_STEPS, kwargs, reach2=False)
+    _, out["fem_main_path"] = drive_sampler(fem, f, C, FEM_STEPS, kwargs)
     out["statistics"] = biharmonic_gate(device)
     out["drivers"] = prior_drivers(device, nlevel, C)
+    out["seconds"] = time.perf_counter() - t0
+
+
+# --------------------------------------------------------------- phase: volume
+#: the 3d posterior of ``native/bench_mgmc3d_tpu.py`` and
+#: ``native/validate_mgmc3d_tpu.py``: a 64^3 lattice (63^3 unknowns), the
+#: shifted-Laplace FD prior with Lambda = 0.2, 8 measurements drawn from this
+#: seed (locations uniform in [0.1, 0.9]^3, means normal(2, 1), variances
+#: 1e-6 (1 + u)), 4 levels, W-cycle, SOR, omega 1
+VOLUME_SEED = 7
+VOLUME_NX = 64
+VOLUME_NLEVEL = 4
+#: the chain counts of the bench, steps per timed variant
+VOLUME_CHAINS = (32, 1)
+VOLUME_STEPS = 10
+#: the gate of ``native/validate_mgmc3d_tpu.py``: zero-mean protocol, 32
+#: chains, 30 warm-up steps and 300 steps, the point observation at the centre
+VOLUME_GATE = {"chains": 32, "warmup": 30, "steps": 300}
+#: the 3d driver config: a 32^3 lattice (31^3 unknowns), one chain
+VOLUME_DRIVER_NX = 32
+
+
+def volume_posterior(nx, device, dtype=torch.float32, near_exact=True):
+    """The 3d posterior of the bench on an ``nx^3`` lattice, its measurements
+    and the bench's rhs ``f`` (uniform, drawn after the measurements); with
+    ``near_exact=False`` the variances are ``0.5 + u``, for the elementwise
+    checks.  With near-exact variances neither the kernel nor its plain version
+    holds ``f_c`` to float32 rounding, and each cancels its own way: the
+    residual's low-rank term ``Sigma^-1 B^T x'`` (``Sigma^-1`` about 1e6) is
+    formed by the kernel as ``Sigma^-1 (I - G) B^T x`` with ``G`` in float32
+    (the TPU kernel's shortcut, ``mgmc_visit_pallas.py:372``) and by the plain
+    version from ``B^T x'`` on the corrected field, where ``x'`` keeps a few
+    bits at a measured vertex; :func:`volume_near_exact_fc` reads both against
+    a float64 visit on the main path's levels."""
+    from multigridmc_tpu_torch.lattice import Lattice
+    from multigridmc_tpu_torch.models.correlation import ConstantCorrelationLengthModel
+    from multigridmc_tpu_torch.models.posterior import MeasurementParameters, measured_operator
+    from multigridmc_tpu_torch.models.prior import shiftedlaplace_fd
+
+    prior = shiftedlaplace_fd(Lattice((nx, nx, nx)), ConstantCorrelationLengthModel(0.2),
+                              device=device, dtype=dtype)
+    rng = np.random.default_rng(VOLUME_SEED)
+    locations, mean, u = (rng.uniform(0.1, 0.9, size=(8, 3)), rng.normal(2.0, 1.0, size=8),
+                          rng.uniform(size=8))
+    params = MeasurementParameters(measurement_locations=locations, mean=mean,
+                                   variance=1e-6 * (1.0 + u) if near_exact else 0.5 + u)
+    op = measured_operator(prior, params)
+    f = torch.as_tensor(rng.uniform(size=op.vshape), dtype=dtype, device=device)
+    return op, params, f
+
+
+def check_volume_composed(sampler, li, C, gen):
+    """A 3d level's visit kernels against the composed visit on the sweep
+    kernels under one Philox stream (``C`` chains): the descend against the
+    presampler's Gibbs sweep kernel with its Woodbury correction, then the
+    residual and the restriction; the ascend against the prolongation and the
+    postsampler's; the same low-rank normals.  ``x`` within TOL, ``f_c`` by
+    :func:`compare_fc`."""
+    from multigridmc_tpu_torch.ops.intergrid import prolongate_add, restrict
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+
+    level = sampler.fused_levels[li]
+    op, dev = level.op, level.coeffs.device
+    f = torch.randn(op.vshape, device=dev, generator=gen)
+    x = torch.randn((C,) + op.vshape, device=dev, generator=gen)
+    xc = torch.randn((C,) + level.vc, device=dev, generator=gen)
+    z = torch.randn((C, op.m_lowrank), device=dev, generator=gen)
+
+    class OneStream:
+        """One Philox launch counter and the low-rank normals ``z``."""
+
+        def __init__(self, counter):
+            self.counter = counter
+
+        def philox_stream(self):
+            return (0x5EED_0013, self.counter)
+
+        def normal(self, shape, dtype, device):
+            assert tuple(shape) == tuple(z.shape)
+            return z.clone()
+
+    before = dict(ss.launch_counts)
+    got_x, got_fc = mv.launch_descend(level, "phase", f, x.clone(), xi_lr=z * level.lr_scale,
+                                      philox=OneStream(5).philox_stream())
+    want_x = sampler.presamplers[li].apply(OneStream(5), f, x.clone())
+    want_fc = restrict(f - op.apply(want_x), dim=3)
+    got = mv.launch_ascend(level, "phase", f, x.clone(), xc, xi_lr=z * level.lr_scale,
+                           philox=OneStream(6).philox_stream())
+    want = sampler.postsamplers[li].apply(OneStream(6), f,
+                                          prolongate_add(level.coarse_scaling, xc, x, dim=3))
+    sweeps = {k: v - before.get(k, 0) for k, v in ss.launch_counts.items() if v != before.get(k, 0)}
+    if not any(k.startswith("gibbs_sweep_batched") for k in sweeps):
+        raise AssertionError(f"volume L{li}: the composed visit launched no Gibbs sweep kernel")
+    tag = f"volume L{li} C={C} against the composed visit under one Philox stream"
+    return {"level": li, "chains": C, "composed_sweeps": sweeps,
+            "descend_x": compare(f"descend x {tag}", got_x, want_x),
+            "descend_f_c_over_scale": compare_fc(f"descend f_c {tag}", got_fc, want_fc),
+            "ascend_x": compare(f"ascend x {tag}", got, want)}
+
+
+def volume_near_exact_fc(level, name, C, gen):
+    """A reading, not a check: the descend's ``f_c`` on a main-path 3d level
+    (the near-exact posterior, noise off, ``C`` chains) from the kernel, from
+    its float32 plain version and from the plain version with the residual's
+    low-rank term taken as ``t = u = W B^T x``, which equals the kernel's
+    ``Sigma^-1 (I - G) B^T x`` in exact arithmetic (``I - G = Sigma W``) and
+    needs no ``G``; each against the plain version of the same level in
+    float64, over that ``f_c``'s scale ``max(|f_c|, 1)``."""
+    from multigridmc_tpu_torch.ops.intergrid import restrict
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+    from multigridmc_tpu_torch.smoothers import compute_B_bar, sor_sweep
+
+    op, dev = level.op, level.coeffs.device
+    f = torch.randn(op.vshape, device=dev, generator=gen)
+    x = torch.randn((C,) + op.vshape, device=dev, generator=gen)
+    op64, masks64 = op.to(dtype=torch.float64), level.masks.double()
+    exact = mv.FusedVisitLevel(op64, level.coloring, level.omega, level.pre_order,
+                               level.post_order,
+                               *(compute_B_bar(op64, masks64, level.omega, order)
+                                 for order in (level.pre_order, level.post_order)),
+                               level.coarse_scaling)
+    _, want = mv.descend_visit_plain(exact, f.double(), x.double())
+    del exact
+    _, kernel = mv.launch_descend(level, "phase", f, x.clone())
+    _, plain = mv.descend_visit_plain(level, f, x)
+    Y, W, _ = level._woodbury[level.pre_order]
+    xs = sor_sweep(op, level.masks, level.omega, level.pre_order, f, x)
+    u = op.lowrank.bt(xs) @ W.T
+    xs = xs - torch.einsum("cl,l...->c...", u, Y)
+    with_u = restrict(f - op.apply_stencil(xs) - op.lowrank.expand(u), dim=3)
+    scale = max(float(want.abs().max()), 1.0)
+
+    def off(got):
+        return float((got.double() - want).abs().max()) / scale
+
+    torch.cuda.synchronize()
+    return {"level": name, "vshape": list(op.vshape), "chains": C, "f_c_scale": scale,
+            "kernel_against_float64": off(kernel), "plain_against_float64": off(plain),
+            "t_equals_u_against_float64": off(with_u),
+            "kernel_against_plain": float((kernel - plain).abs().max()) / scale}
+
+
+def volume_gate(sampler, op, device):
+    """The gate of ``native/validate_mgmc3d_tpu.py`` on the sampler of the
+    main path: the zero-mean protocol (f = 0 from x = 0) at 32 chains, 30
+    warm-up and 300 steps; the mean and variance of the point observation at
+    the centre within 4 standard errors of 0 and of the exact float64 variance
+    (``observed_mean_and_variance``: CG on the card, which must converge).
+    Beside it a reading, not gated: the same moments of the first
+    measurement's own functional ``B_0^T x``, whose variance (about its
+    Sigma, 1e-6) float32 does not resolve: the Gibbs rhs carries
+    ``Sigma^-1/2`` (1e3) times a normal at the measured vertex, and the
+    Woodbury correction cancels it down to 1e-3 in float32 (float64 holds
+    it)."""
+    from multigridmc_tpu_torch.models.posterior import (measurement_vector,
+                                                        observed_mean_and_variance)
+    from multigridmc_tpu_torch.samplers.base import GeneratorNoise
+
+    g = VOLUME_GATE
+    observations = {
+        "centre": torch.as_tensor(measurement_vector(op.lattice, np.array([0.5, 0.5, 0.5]), 0.0),
+                                  dtype=torch.float32, device=device),
+        "measurement_0": op.lowrank.B[0].float()}
+    exact, exact_seconds = {}, {}
+    for name, w in observations.items():
+        t0 = time.perf_counter()
+        exact[name] = observed_mean_and_variance(op.to(dtype=torch.float64),
+                                                 np.zeros(op.vshape), np.zeros(op.m_lowrank),
+                                                 w.double().cpu().numpy())[1]
+        exact_seconds[name] = time.perf_counter() - t0
+    W = torch.stack(list(observations.values())).reshape(len(observations), -1)
+    C = g["chains"]
+    noise = GeneratorNoise(VOLUME_SEED + 1, device)
+    fz = torch.zeros(op.vshape, device=device)
+    x = torch.zeros((C,) + op.vshape, device=device)
+    for _ in range(g["warmup"]):
+        x = sampler.apply(noise, fz, x)
+    zs = []
+    for _ in range(g["steps"]):
+        x = sampler.apply(noise, fz, x)
+        zs.append(x.reshape(C, -1).double() @ W.double().T)
+    z = torch.stack(zs).cpu().numpy()  # (steps, chains, observations)
+    out = {"chains": C, "warmup": g["warmup"], "steps": g["steps"]}
+    for k, name in enumerate(observations):
+        res = moments_gate(f"volume 64^3 {name}", z[:, :, k], 0.0, exact[name], C,
+                           gated=name == "centre")
+        res.update({"exact_variance": exact[name], "exact_variance_seconds": exact_seconds[name]})
+        out[name] = res
+    out["centre"]["observation"] = [0.5, 0.5, 0.5]
+    return out
+
+
+def write_volume_configs(directory, nx, nlevel, nchains, nsamples, nwarmup):
+    """``params_volume.cfg`` (the 3d posterior of the bench on an ``nx^3``
+    lattice, SOR multigrid, MGMC alone) and ``measurements_volume.cfg``."""
+    rng = np.random.default_rng(VOLUME_SEED)
+    loc, mean = rng.uniform(0.1, 0.9, size=(8, 3)), rng.normal(2.0, 1.0, size=8)
+    var = 1e-6 * (1.0 + rng.uniform(size=8))
+
+    def listing(values):
+        return "[" + ", ".join(repr(float(v)) for v in np.asarray(values).reshape(-1)) + "]"
+
+    with open(os.path.join(directory, "measurements_volume.cfg"), "w") as out:
+        out.write(f"dim = 3;\nn = 8;\nmeasurement_locations = {listing(loc)};\n"
+                  f"mean = {listing(mean)};\nvariance = {listing(var)};\n")
+    text = DRIVER_CONFIG.format(
+        nx=nx, nlevel=nlevel, smoother="SOR", nchains=nchains, nsamples=nsamples,
+        nwarmup=nwarmup, do_cholesky="false", do_ssor="false", schedule="",
+        cholesky='cholesky = { factorisation = "dense"; }')
+    for old, new in (("dim = 2;", "dim = 3;"), ("sample_location = [0.5, 0.5];",
+                                                 "sample_location = [0.5, 0.5, 0.5];"),
+                     ('filename = "measurements.cfg"', 'filename = "measurements_volume.cfg"')):
+        if old not in text:
+            raise AssertionError(f"the driver config has no {old!r}")
+        text = text.replace(old, new)
+    with open(os.path.join(directory, "params_volume.cfg"), "w") as out:
+        out.write(text)
+
+
+def volume_drivers(nlevel, nchains):
+    """``mgmc-sample-torch`` and ``mgmc-solve-torch`` on the 3d config
+    (:data:`VOLUME_DRIVER_NX`): the one-chain series and the convergence table
+    over ``nchains`` replicas on the 3d visit kernels, the exact moments (CG on
+    the card, which must converge), the MGMC mean within 5 error bars (widened
+    by the autocorrelation time) of the exact one; the Richardson solve on the
+    3d kernels with the noise off converges."""
+    from multigridmc_tpu_torch.drivers import mg as driver_mg
+    from multigridmc_tpu_torch.drivers import mgmc as driver_mgmc
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+
+    out = {}
+    nsamples, nwarmup = 400, 100
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        write_volume_configs(work, VOLUME_DRIVER_NX, nlevel, nchains, nsamples, nwarmup)
+        os.chdir(work)
+        try:
+            mv.reset_launch_counts()
+            t0 = time.perf_counter()
+            text = run_driver(driver_mgmc.main, ["params_volume.cfg"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            print("\n".join(line for line in text.splitlines()
+                            if re.search(r"time per sample|mean  |variance =|setup time", line)),
+                  flush=True)
+            series = np.loadtxt("timeseries_multigridmc.txt")
+            if series.shape != (nsamples,) or not np.isfinite(series).all():
+                raise AssertionError(f"drivers (volume): the time series is not {nsamples} "
+                                     "finite values")
+            ms = re.search(r"multigridmc time per sample =\s+(\S+) ms", text)
+            mean = re.search(r"multigridmc mean\s+=\s+(\S+) \+/-\s+(\S+)", text)
+            exact = float(re.search(r"exact mean\s+=\s+(\S+)", text).group(1))
+            res = {"lattice": [VOLUME_DRIVER_NX] * 3, "seconds": seconds,
+                   "ms_per_sample": float(ms.group(1)), "mean": float(mean.group(1)),
+                   "mean_error": float(mean.group(2)), "exact_mean": exact,
+                   "iact": integrated_autocorrelation_time(series),
+                   "launches": {k: v for k, v in mv.launch_counts.items() if v}}
+            res["mean_bar"] = 5.0 * res["mean_error"] * np.sqrt(max(res["iact"], 1.0))
+            if abs(res["mean"] - exact) > res["mean_bar"]:
+                raise AssertionError(f"drivers (volume): MGMC mean {res['mean']} is further than "
+                                     f"{res['mean_bar']} from the exact mean {exact}")
+            if not mv.launch_counts["descend_visit_3d_7pt"] > 0:
+                raise AssertionError(f"drivers (volume): visit launches {mv.launch_counts}")
+            out["mgmc_volume"] = res
+            mv.reset_launch_counts()
+            t0 = time.perf_counter()
+            text = run_driver(driver_mg.main, ["params_volume.cfg"])
+            torch.cuda.synchronize()
+            rows = richardson_table(text)
+            if "Solver converged" not in text or not rows:
+                raise AssertionError("drivers.mg (volume): the Richardson iteration did not "
+                                     "converge:\n" + text[-2000:])
+            if not mv.launch_counts["descend_visit_3d_7pt"] > 0:
+                raise AssertionError(f"drivers.mg (volume): visit launches {mv.launch_counts}")
+            out["mg_volume"] = {"seconds": time.perf_counter() - t0, "iterations": len(rows) - 1,
+                                "relative_residual": rows[-1][2],
+                                "contraction_rates": [r[3] for r in rows[1:]],
+                                "launches": {k: v for k, v in mv.launch_counts.items() if v}}
+        finally:
+            os.chdir(cwd)
+    return out
+
+
+def phase_volume(device, smi):
+    """The 3d posterior of ``native/bench_mgmc3d_tpu.py`` on the card
+    (:func:`volume_posterior`), through ``MultigridMCSampler.apply`` in
+    float32:
+
+    * the main path at 32 chains and at one chain with the default
+      ``distill="auto"`` (distilled at level 2, 15^3), and with
+      ``distill=False``: levels 0 (63^3, 7-point, 2 colours) and 1 (31^3,
+      27-point Galerkin, 8 colours) on the phase kernels' 3d build, every visit
+      one launch of it (the counts by name), ms/step, samples/s, kernel ms and
+      launches per step, routes by level; the same step with ``fused=False``,
+      the composed visits on the sweep kernels, as the "before";
+    * the 3d kernels on both levels at 32 chains and at one chain against
+      their plain versions (noise off, a tensor ``xi``, the in-kernel
+      generator against the host's reference normals; ``f_c`` within TOL of
+      its scale) and against the composed visit under one Philox stream
+      (:func:`check_volume_composed`), on the same lattice with order-one
+      measurement variances; the descend's ``f_c`` on the main path's
+      near-exact levels against a float64 visit (:func:`volume_near_exact_fc`,
+      a reading); their device ms on the main path's levels (the median of
+      three profiler windows, held to the events), registers and spills;
+    * every sweep the distillation set-up launches (the generic body on
+      15^3, 27-point, 8 colours), at its shapes, against the plain sweep
+      (:func:`check_setup_sweeps`), their launches those of the main path's
+      set-up;
+    * the statistical gate of ``native/validate_mgmc3d_tpu.py`` at the centre
+      and on the first measurement's functional (:func:`volume_gate`);
+    * ``drivers.mgmc`` and ``drivers.mg`` on a 32^3 config
+      (:func:`volume_drivers`).
+
+    The line is printed also where a part fails, with what was found up to
+    there."""
+    out = {"phase": "volume", "card": smi}
+    try:
+        _volume_parts(out, device)
+    except BaseException:
+        out["failed"] = True
+        raise
+    finally:
+        emit(out)
+    return out
+
+
+def _volume_parts(out, device):
+    """The parts of :func:`phase_volume`, each filling its key of ``out``."""
+    from multigridmc_tpu_torch.samplers.base import GeneratorNoise
+    from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(13)
+    op, _, f = volume_posterior(VOLUME_NX, device)
+    kwargs = dict(nlevel=VOLUME_NLEVEL, smoother="SOR", coarse_solver="Cholesky", omega=1.0,
+                  cycle=2)
+    variants = {"distilled": {}, "every_level_fused": {"distill": False},
+                "composed": {"fused": False, "distill": False}}
+    # the composed step's thousand launches make a profiler window of several
+    # steps slow to record: one step a window there
+    busy_steps = {"composed": 1}
+    out["main_path"] = {}
+    out["part_seconds"] = parts = {}
+    samplers = {}
+    for name, extra in variants.items():
+        sampler = None
+        for C in VOLUME_CHAINS:
+            sampler, res = drive_sampler(op, f, C, VOLUME_STEPS, {**kwargs, **extra},
+                                         levels_are=lambda lv: lv.dim == 3, sampler=sampler,
+                                         busy_steps=busy_steps.get(name, 4))
+            if C == VOLUME_CHAINS[0]:
+                setup = {"setup_seconds": res["setup_seconds"],
+                         "setup_sweep_launches": res["setup_sweep_launches"]}
+            res.update(setup)
+            out["main_path"][f"{name}_{C}"] = res
+        samplers[name] = sampler
+    parts["main_path"] = time.perf_counter() - t0
+    main = out["main_path"][f"distilled_{VOLUME_CHAINS[0]}"]
+    if (main["distill_level"] != 2 or main["fused_levels"] != [0, 1, 2]
+            or main["visited_levels"] != [0, 1]
+            or set(main["route_by_level"].values()) != {"phase"}
+            or set(main["launches"]) != {f"{k}_visit_3d_{s}pt" for k in ("descend", "ascend")
+                                         for s in (7, 27)}):
+        raise AssertionError(f"volume: the main path {main}")
+    if out["main_path"][f"composed_{VOLUME_CHAINS[0]}"]["launches"]:
+        raise AssertionError("volume: the composed variant launched visit kernels")
+    del samplers["every_level_fused"], samplers["composed"]
+    sampler = samplers["distilled"]
+    levels = sampler.fused_levels
+    out["kernel_attributes"] = build_kernel_attributes(reach=1, dim=3)
+    # the distillation set-up's sweeps: every shape it launched (15^3), at
+    # the set-up's chain counts
+    out["setup_sweeps"] = check_distill_setup(op, VOLUME_NLEVEL, sampler, main, gen, "volume")
+    parts["setup_sweeps"] = time.perf_counter() - t0 - sum(parts.values())
+    # the elementwise checks on the same lattice with order-one variances
+    checked = MultigridMCSampler(volume_posterior(VOLUME_NX, device, near_exact=False)[0],
+                                 nlevel=3, smoother="SOR", cycle=2, distill=False)
+    out["checks"] = [check_phase_only_level(checked.fused_levels[li], f"L{li}", C, gen,
+                                            label="volume")
+                     for li in (0, 1) for C in VOLUME_CHAINS]
+    out["against_composed"] = [check_volume_composed(checked, li, C, gen)
+                               for li in (0, 1) for C in VOLUME_CHAINS]
+    del checked
+    # and the reading of f_c on the main path's own near-exact levels
+    out["near_exact_f_c"] = [volume_near_exact_fc(levels[li], f"L{li}", VOLUME_CHAINS[0], gen)
+                             for li in (0, 1)]
+    parts["checks"] = time.perf_counter() - t0 - sum(parts.values())
+    noise = GeneratorNoise(VOLUME_SEED + 2, device)
+    out["timings"] = [time_phase_only_level(levels[li], C, noise)
+                      for li in (0, 1) for C in VOLUME_CHAINS]
+    parts["timings"] = time.perf_counter() - t0 - sum(parts.values())
+    out["statistics"] = volume_gate(sampler, op, device)
+    parts["statistics"] = time.perf_counter() - t0 - sum(parts.values())
+    del sampler, samplers, levels
+    out["drivers"] = volume_drivers(VOLUME_NLEVEL - 1, VOLUME_CHAINS[0])
+    parts["drivers"] = time.perf_counter() - t0 - sum(parts.values())
     out["seconds"] = time.perf_counter() - t0
 
 
@@ -4456,7 +4933,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(sorted(ALL_PHASES)),
                         help="comma-separated subset of kernels,main_path,band,alternating,"
-                             "drivers,statistics,biharmonic "
+                             "drivers,statistics,biharmonic,volume "
                              "to run (device and build always run; 'threads' adds a "
                              "block-size table, 'passes' the phase kernels' checks and "
                              "breakdown by pass, 'compare' the phase kernels' times and "
@@ -4466,9 +4943,8 @@ def main(argv=None) -> int:
                              "'sweeps' the sweep kernels of both routes alone, "
                              "'sweep_check', 'sweep_stamps' (with 'sweep_passes') and "
                              "'sweep_threads' the one-block sweeps' checks, breakdown by "
-                             "pass and block-size table alone, 'biharmonic_cg' the drivers' "
-                             "exact-moment CG on the 255^2 squared operator); "
-                             "the ok line needs exactly the default seven")
+                             "pass and block-size table alone); "
+                             "the ok line needs exactly the default eight")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -4479,8 +4955,15 @@ def main(argv=None) -> int:
 
     nx, nlevel, C, n_meas, steps = 256, 5, 256, 8, 30
     t_start = time.perf_counter()
+    laps = {}
+
+    def lap(name):
+        """Seconds since the last lap, kept under ``name`` for the total line."""
+        laps[name] = time.perf_counter() - t_start - sum(laps.values())
+
     smi = phase_device()
     phase_build()
+    lap("device and build")
     if "threads" in phases:
         phase_threads(device, nx, nlevel, C, n_meas, smi)
     if "passes" in phases:  # the phase kernels' breakdown by pass alone
@@ -4527,22 +5010,30 @@ def main(argv=None) -> int:
                                           n_meas)})
     if "kernels" in phases:
         errs, timings, sweep_timings, third = phase_kernels(device, nx, nlevel, C, n_meas, smi)
+        lap("kernels")
     if "main_path" in phases:
         counts, main = phase_main_path(device, nx, nlevel, C, n_meas, steps, smi)
+        lap("main_path")
     if "band" in phases:
         phase_band(device, nx, n_meas, smi)
+        lap("band")
     if "alternating" in phases:
         alternating = phase_alternating(device, nx, nlevel, C, n_meas, steps, smi)
+        lap("alternating")
     if "drivers" in phases:
         driver_counts, _ = phase_drivers(device, nx, nlevel, n_meas, C, nsamples=2000, nwarmup=200,
                                          smi=smi)
+        lap("drivers")
     if "statistics" in phases:
         phase_statistics(device, 64, C, warmup=50, steps=300)
+        lap("statistics")
     if "biharmonic" in phases:
         biharmonic = phase_biharmonic(device, nlevel, C, n_meas, smi)
-    if "biharmonic_cg" in phases:  # the drivers' exact-moment CG on the squared operator
-        phase_biharmonic_cg(device, smi)
-    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+        lap("biharmonic")
+    if "volume" in phases:
+        volume = phase_volume(device, smi)
+        lap("volume")
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start, "phase_seconds": laps})
     if phases != ALL_PHASES:
         print("partial run: no result line")
         return 0
@@ -4620,7 +5111,13 @@ def main(argv=None) -> int:
     # one-chain SSOR series and the solve; the one-block route's passes body:
     # the replica chains of the convergence tables and the distillation's
     # set-up).  The one-block route's generic body (3d fields, wider
-    # stencils) runs on no path of this script: its rows give its 3d times
+    # stencils): its rows give its times at 32 x 63^3; the deterministic
+    # sweep's launches are those of the 64^3 main path's distillation set-up
+    # (15^3, checked at its shapes: setup_sweeps), the Gibbs sweep's run on
+    # no path of this script (the composed "before" variant only)
+    vol_main = volume["main_path"][f"distilled_{VOLUME_CHAINS[0]}"]
+    vol_setup = [{k: r[k] for k in ("vshape", "chains", "b_batched", "offsets", "colours",
+                                    "launches", "max_abs_err")} for r in volume["setup_sweeps"]]
     st = next(t for t in sweep_timings if t["case"] == "2d_255_5pt_one_chain")
     wide = next(t for t in sweep_timings if t["case"] == "2d_255_5pt")
     galerkin = next(t for t in sweep_timings if t["case"] == "2d_127_9pt_galerkin")
@@ -4632,12 +5129,18 @@ def main(argv=None) -> int:
             entry = name + ("_" + route[:-1] if route else "")
             t = generic if route == "generic_" else st
             prefix = "" if route == "generic_" else route
+            launches, path, err = driver_counts[entry], "drivers", errs[entry]
+            if route == "generic_":
+                launches, path = 0, None
+                if key == "sweep":
+                    launches = vol_main["setup_sweep_launches"].get(entry, 0)
+                    path = "volume main_path set-up"
+                    err = max([err] + [r["max_abs_err"] for r in vol_setup])
             kernels.append({
                 "name": entry, "route": "cuda",
                 "source": f"multigridmc_tpu_torch/csrc/{source}",
                 "replaces": f"multigridmc_tpu/ops/kernels/sor_pallas_v2.py:{kernel_line}",
-                "launches": driver_counts[entry], "max_abs_err": errs[entry],
-                "path": None if route == "generic_" else "drivers",
+                "launches": launches, "max_abs_err": err, "path": path,
                 "ms": t[f"{prefix}{key}_ms"], "device_ms": t[f"{prefix}{key}_device_ms"],
                 "events_over_device": t[f"{prefix}{key}_events_over_device"],
                 "plain_ms": t[f"{key}_plain_ms"],
@@ -4647,6 +5150,8 @@ def main(argv=None) -> int:
                                               "cluster": t.get("split_cluster") if route == "split_"
                                               else 1},
             })
+            if route == "generic_" and key == "sweep":
+                kernels[-1]["at_volume_setup"] = vol_setup
             if not route:
                 kernels[-1]["design"] = (
                     "the passes of level_passes.cuh with no low-rank term: the stencil in "
@@ -4728,6 +5233,45 @@ def main(argv=None) -> int:
                           "offsets and 9 colours in a build of its own, the stencil in "
                           "registers with edge terms dropped two rows and columns deep, one "
                           "point per lane, 512 threads a block at most"})
+    # the 3d forms of the phase kernels (their own build of mgmc_visit.cu) on
+    # the 64^3 posterior's levels 0 (63^3, 7-point) and 1 (31^3, 27-point
+    # Galerkin) at 32 chains, launched by its main path (distilled at level 2)
+    for li, size in ((0, "7pt"), (1, "27pt")):
+        vshape = [VOLUME_NX // 2 ** li - 1] * 3
+        t, one = (next(r for r in volume["timings"] if r["chains"] == C and r["vshape"] == vshape)
+                  for C in VOLUME_CHAINS)
+        chk = [c for c in volume["checks"] if c["level"] == f"L{li}"]
+        comp = [c for c in volume["against_composed"] if c["level"] == li]
+        for kind, line in (("descend", 700), ("ascend", 847)):
+            name = f"{kind}_visit_3d_{size}"
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": "multigridmc_tpu_torch/csrc/mgmc_visit.cu",
+                "build": " ".join(mv.PHASE_DIM3_FLAGS),
+                "replaces": f"multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py:{line}",
+                "launches": vol_main["launches"].get(name, 0),
+                "path": f"volume main_path distilled_{VOLUME_CHAINS[0]}",
+                "max_abs_err": max(c["x"] if kind == "descend" else c["ascend_x"] for c in chk),
+                "f_c_max_abs_err_over_scale": max(c["f_c_over_scale"] for c in chk)
+                if kind == "descend" else None,
+                "against_composed_max_abs_err": max(c[f"{kind}_x"] for c in comp),
+                "near_exact_f_c": next(r for r in volume["near_exact_f_c"]
+                                       if r["level"] == f"L{li}") if kind == "descend" else None,
+                "ms": t[f"{kind}_ms"], "device_ms": t[f"{kind}_device_ms"],
+                "events_over_device": t[f"{kind}_events_over_device"],
+                "plain_ms": t[f"{kind}_plain_ms"],
+                "bound_ms": t[f"{kind}_bound_ms"], "bound_by": t[f"{kind}_bound_by"],
+                "bound_bytes": t[f"{kind}_bytes"], "library_ms": None,
+                "shape": {"chains": t["chains"], "vshape": t["vshape"],
+                          "offsets": chk[0]["offsets"], "colours": chk[0]["colours"]},
+                "one_chain": {"ms": one[f"{kind}_ms"], "device_ms": one[f"{kind}_device_ms"],
+                              "plain_ms": one[f"{kind}_plain_ms"],
+                              "bound_ms": one[f"{kind}_bound_ms"]},
+                "stencil_form": t["stencil_form"], "threads": t["threads"],
+                "design": "the passes of level_passes.cuh in 3d: the (C, Z, Y, X) fields row "
+                          "major, a row (z, y), the colour rows as (z, y) residue pairs, the "
+                          "stencil in registers with z edge bits, 3d measurement boxes, the "
+                          "3d transfers as passes; one block per chain, 512 threads at most"})
     nine = biharmonic["nine_colour_sweeps"]
     setup = biharmonic["main_path"]["setup_sweep_launches"]
     for name, key, kernel_line in (("sweep_batched", "sweep", 194),

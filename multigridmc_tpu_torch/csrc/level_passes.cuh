@@ -1,7 +1,7 @@
-// The passes of one MGMC level visit, float32, 2d, one thread block per chain,
-// run by the two level-visit kernels of the phase route (mgmc_visit.cu) and by
-// the subtree kernel (mgmc_subtree.cu).  One definition of each pass serves
-// both.
+// The passes of one MGMC level visit, float32, 2d (and, in the phase kernels'
+// 3d build, 3d), one thread block per chain, run by the two level-visit
+// kernels of the phase route (mgmc_visit.cu) and by the subtree kernel
+// (mgmc_subtree.cu).  One definition of each pass serves both.
 //
 //   descend: c  = f + sqrt(D(2-w)/w) xi + sum_k s_k B_k     (Gibbs rhs)
 //            x <- colour-ordered SOR sweep(c, x)
@@ -41,6 +41,15 @@
 //   (visit_phases.cuh) adds them, so the two agree bitwise.  The sweep and
 //   the residual are compiled per stencil form (STENCIL_DISPATCH).
 //
+// * 3d (VISIT_DIM 3, the phase kernels' 3d build): a level of Z planes of Y
+//   rows of W points is H = Z Y rows of W points, row r = z Y + y, so the
+//   passes that go row by row (the rhs, its Philox groups, the Woodbury
+//   correction, the residual) run unchanged; the stencil's offsets are
+//   dz Y W + dy W + dx with two more edge bits (z), a box is (k0, k1, i0, i1,
+//   j0, j1), a row's colours follow (wz z + w0 y) mod n_colors (the colour
+//   rows are (z, y) residue pairs), and the transfers are 3d (restrict_rows3,
+//   prolong_rows3).
+//
 // Barriers (block_sync; COUNT, a kernel's stamps build, counts them and, where
 // pass_stamp_row is set, stamps the timer after each): a descend has
 // n_order + 5 (rhs, colours, B^T x, Woodbury, residual, restriction), an
@@ -71,17 +80,28 @@ struct LevelTables {
     const float* g;        // G[k, l] = <B_k, (Y W)_l> of the pre direction, m x m
     const float* sinv;     // 1 / Sigma
     const float* lrscale;  // Sigma^-1/2 (the subtree kernel's draws)
-    const int (*bbox)[4];  // i0, i1, j0, j1 (half open) of B_k's box, as VisitParams::bbox
-    const int (*ybox)[4];  // the same for Y_k of this direction
+    const int (*bbox)[BOX_INTS];  // B_k's box (half open), as VisitParams::bbox
+    const int (*ybox)[BOX_INTS];  // the same for Y_k of this direction
     // per row i, (lo, hi): the columns that the boxes holding the row span
     // (lo >= hi: none), of B's and of Y's boxes; null: found from the boxes
     const int* bspan;
     const int* yspan;
-    // per colour of the sweep order, 1 + 2 n_colors words: the number R of
-    // row residues mod n_colors whose rows hold the colour, then R pairs
-    // (residue, first column of the colour in such a row), residues ascending
+    // per colour of the sweep order, COLOUR_ROW_WORDS(n_colors) words: the
+    // number R of row residues mod n_colors whose rows hold the colour, then R
+    // pairs (residue, first column of the colour in such a row), residues
+    // ascending; in 3d R triples (z residue, y residue, first column) of the
+    // rows (z, y) with z, y = those residues mod n_colors
     const int* rows;
 };
+
+#if VISIT_DIM == 3
+#define COLOUR_ROW_WORDS(K) (1 + 3 * (K) * (K))
+// a row's extent along y, where a pass that takes row r = z Y + y needs it
+#define ROW_NY(P) ((P).Y)
+#else
+#define COLOUR_ROW_WORDS(K) (1 + 2 * (K))
+#define ROW_NY(P) 0
+#endif
 
 // ------------------------------------------------------- the stencil in registers
 // A stencil of reach REACH (1, or 2 in the phase kernels' reach-2 build) and
@@ -91,14 +111,19 @@ struct LevelTables {
 // / lf2 / rt2: offset k reads two rows above / below, two columns to the left
 // / right, so a point one row or column in from the edge drops those.  BOX:
 // the stencil is the (2 REACH + 1)^2 box in raster order (the Galerkin
-// levels), whose offsets and edge bits the compiler knows.
+// levels), whose offsets and edge bits the compiler knows.  3d: bit k of fr /
+// bk: offset k reads a plane in front (z - 1) / behind (z + 1); BOX is the 3x3x3
+// box in raster order.
 template <int KMAX, bool BOX, int REACH = 1>
 struct Stencil {
     unsigned all;                // bit k for every offset k < K
     unsigned planes;             // bit k: coefficient k varies in space, read per point
     unsigned up, dn, lf, rt;
     unsigned up2, dn2, lf2, rt2;  // reach 2 only
-    int off[KMAX];               // dy_k W + dx_k
+#if VISIT_DIM == 3
+    unsigned fr, bk;
+#endif
+    int off[KMAX];               // dy_k W + dx_k (3d: dz_k Y W + dy_k W + dx_k)
     float c[KMAX];               // the constant coefficients
 };
 
@@ -108,12 +133,24 @@ __device__ __forceinline__ Stencil<KMAX, BOX, REACH> stencil_regs(const VisitPar
     Stencil<KMAX, BOX, REACH> s;
     s.all = s.planes = s.up = s.dn = s.lf = s.rt = 0;
     s.up2 = s.dn2 = s.lf2 = s.rt2 = 0;
+#if VISIT_DIM == 3
+    s.fr = s.bk = 0;
+#endif
 #pragma unroll
     for (int k = 0; k < KMAX; ++k) {
         const bool on = BOX || k < P.K;
+#if VISIT_DIM == 3
+        const int dz = BOX ? k / (SIDE * SIDE) - REACH : (on ? P.dz[k] : 0);
+        const int dy = BOX ? (k / SIDE) % SIDE - REACH : (on ? P.dy[k] : 0);
+        const int dx = BOX ? k % SIDE - REACH : (on ? P.dx[k] : 0);
+        s.off[k] = (dz * P.Y + dy) * P.W + dx;
+        s.fr |= (on && dz < 0) ? 1u << k : 0u;
+        s.bk |= (on && dz > 0) ? 1u << k : 0u;
+#else
         const int dy = BOX ? k / SIDE - REACH : (on ? P.dy[k] : 0);
         const int dx = BOX ? k % SIDE - REACH : (on ? P.dx[k] : 0);
         s.off[k] = dy * P.W + dx;
+#endif
         s.c[k] = on ? P.coeff_val[k] : 0.0f;
         const unsigned bit = on ? 1u << k : 0u;
         s.all |= bit;
@@ -148,6 +185,17 @@ __device__ __forceinline__ unsigned row_terms(const Stencil<KMAX, BOX, REACH>& s
     if constexpr (REACH > 1) t &= ~(i == 1 ? s.up2 : 0u) & ~(i == H - 2 ? s.dn2 : 0u);
     return t;
 }
+
+#if VISIT_DIM == 3
+// the terms that a point of row (z, y) adds: every offset but those that leave
+// the field through its first or last row or plane
+template <int KMAX, bool BOX, int REACH>
+__device__ __forceinline__ unsigned row_terms3(const Stencil<KMAX, BOX, REACH>& s,
+                                               const VisitParams& P, int z, int y) {
+    return s.all & ~(y == 0 ? s.up : 0u) & ~(y == P.Y - 1 ? s.dn : 0u) &
+           ~(z == 0 ? s.fr : 0u) & ~(z == P.Z - 1 ? s.bk : 0u);
+}
+#endif
 
 // the terms that point j of a row with terms `row` adds; none where j >= W
 template <int KMAX, bool BOX, int REACH>
@@ -213,6 +261,8 @@ __device__ __forceinline__ int packed_index(const VisitParams& P, int ci, int i,
 // that hold the colour in turn (T.rows); within a row a lane updates U points
 // of the colour at a time, its loads first, its stores last (no point of a
 // colour reads another).  PACKED: c lies packed by colour (packed_index).
+// 3d: slot r of a colour is (z block qz, y block qy, residue pair t), the row
+// z = qz K + zr_t, y = qy K + yr_t; slots past the field's edge are skipped.
 template <int KMAX, bool BOX, int U, bool PLANES, bool COUNT, bool PACKED, int REACH = 1>
 __device__ __forceinline__ void sweep_colours(const VisitParams& P, const LevelTables& T,
                                               const float* __restrict__ coeffs,
@@ -223,19 +273,32 @@ __device__ __forceinline__ void sweep_colours(const VisitParams& P, const LevelT
     const int s = P.jstride, K = P.n_colors, d = P.diag_index;
     const bool dplane = !P.coeff_const[d];
     const float dval = P.coeff_val[d], omega = P.omega;
+#if VISIT_DIM == 3
+    const int nqy = (P.Y + K - 1) / K;
+#endif
     for (int o = 0; o < P.n_order; ++o) {
-        const int* cr = T.rows + o * (1 + 2 * K);
+        const int* cr = T.rows + o * COLOUR_ROW_WORDS(K);
         const int R = cr[0];
         for (int r = warp; R > 0; r += nwarps) {
             const int q = r / R, t = r - q * R;
+#if VISIT_DIM == 3
+            const int qz = q / nqy, qy = q - qz * nqy;
+            if (qz * K >= P.Z) break;
+            const int z = qz * K + cr[1 + 3 * t], y = qy * K + cr[2 + 3 * t];
+            if (z >= P.Z || y >= P.Y) continue;
+            const int i = z * P.Y + y, jfirst = cr[3 + 3 * t];
+            const unsigned rin = row_terms3(st, P, z, y);
+#else
             const int i = q * K + cr[1 + 2 * t];
             if (i >= H) break;
+            const int jfirst = cr[2 + 2 * t];
             const unsigned rin = row_terms(st, i, H);
+#endif
             if constexpr (PACKED) {
                 // the row's k-th point of the colour is column jc + s k, its c at
                 // crow + k.  (The same body as below, stepping k rather than the
                 // column: each form measured faster where it is taken, PERF.md.)
-                const int jc = cr[2 + 2 * t];
+                const int jc = jfirst;
                 const int crow = packed_index(P, P.order[o], i, jc);
                 for (int k0 = lane; jc + s * k0 < W; k0 += 32 * U) {
                     int p[U];
@@ -262,7 +325,7 @@ __device__ __forceinline__ void sweep_colours(const VisitParams& P, const LevelT
                 }
                 continue;
             }
-            for (int j0 = cr[2 + 2 * t] + s * lane; j0 < W; j0 += 32 * s * U) {
+            for (int j0 = jfirst + s * lane; j0 < W; j0 += 32 * s * U) {
                 int p[U];
                 unsigned in[U];
                 float cv[U], dv[U], xv[U];
@@ -336,6 +399,19 @@ __device__ __forceinline__ int stencil_form(const VisitParams& P) {
 #define WIDE_BOX(FORM) ((FORM) >= 8)
 #define WIDE_PLANES(FORM) (((FORM) & 1) != 0)
 
+// The 3d forms, compiled only into the phase kernels' 3d build (mgmc_visit.cu,
+// VISIT_DIM 3), each a kernel of its own: 10 / 11 up to 7 offsets (the FD
+// prior's 7-point stencil), 12 / 13 the 3x3x3 box in raster order (its
+// Galerkin levels), 14 / 15 any other of up to 27 offsets; the odd ones read
+// a coefficient plane per point.  The 27-offset forms take one point per lane
+// (their operands fill a thread's registers), the 7-point form several.
+#define DIM3_FORM0 10
+#define DIM3_FORMS 6
+#define DIM3_KMAX(FORM) ((FORM) < 12 ? 7 : 27)
+#define DIM3_BOX(FORM) ((FORM) == 12 || (FORM) == 13)
+#define DIM3_PLANES(FORM) (((FORM) & 1) != 0)
+#define DIM3_POINTS(FORM) ((FORM) < 12 ? (DIM3_PLANES(FORM) ? 2 : 4) : 1)
+
 // PACKED: c packed by colour.  Ends with a barrier.
 template <int FORM, bool COUNT, bool PACKED = false>
 __device__ void level_sweep(const VisitParams& P, const LevelTables& T,
@@ -343,21 +419,27 @@ __device__ void level_sweep(const VisitParams& P, const LevelTables& T,
                             float* x) {
 #define SWEEP(KMAX, BOX, PLANES) \
     sweep_colours<KMAX, BOX, LANE_POINTS(KMAX, PLANES), PLANES, COUNT, PACKED>(P, T, coeffs, c, x)
+#if VISIT_DIM == 3
+    sweep_colours<DIM3_KMAX(FORM), DIM3_BOX(FORM), DIM3_POINTS(FORM), DIM3_PLANES(FORM), COUNT,
+                  PACKED>(P, T, coeffs, c, x);
+#else
     if constexpr (FORM >= WIDE_FORM0) {
         sweep_colours<WIDE_KMAX(FORM), WIDE_BOX(FORM), 1, WIDE_PLANES(FORM), COUNT, PACKED, 2>(
             P, T, coeffs, c, x);
     } else {
         STENCIL_DISPATCH(FORM, P, SWEEP);
     }
+#endif
 #undef SWEEP
 }
 
 // --------------------------------------------------------- the low-rank terms
 // [lo, hi): the columns that the boxes holding row i span (lo >= hi: none),
-// from the host's table of spans where there is one
-__device__ __forceinline__ void row_span(const int (*box)[4], const int* spans, int m, int i,
-                                         int& lo, int& hi) {
-    if (spans != nullptr) {
+// from the host's table of spans where there is one (the 3d build has one
+// always)
+__device__ __forceinline__ void row_span(const int (*box)[BOX_INTS], const int* spans, int m,
+                                         int i, int& lo, int& hi) {
+    if (VISIT_DIM == 3 || spans != nullptr) {
         lo = spans[2 * i];
         hi = spans[2 * i + 1];
         return;
@@ -372,15 +454,27 @@ __device__ __forceinline__ void row_span(const int (*box)[4], const int* spans, 
 }
 
 // v + sign * coef[k] * F_k[i, j] for each column k whose box holds (i, j), in
-// column order: F_k's values lie row major inside box k from val + off[k]
-__device__ __forceinline__ float add_columns(const int (*box)[4], int m, const float* val,
+// column order: F_k's values lie row major inside box k from val + off[k].
+// 3d: i is the row z ny + y, and box k holds (z, y, j).
+__device__ __forceinline__ float add_columns(const int (*box)[BOX_INTS], int m, const float* val,
                                              const int* off, const float* coef, float sign,
-                                             int i, int j, float v) {
+                                             int i, int j, float v, int ny) {
+#if VISIT_DIM == 3
+    const int z = i / ny, y = i - z * ny;
+    for (int k = 0; k < m; ++k) {
+        const int z0 = box[k][0], i0 = box[k][2], j0 = box[k][4];
+        if (z >= z0 && z < box[k][1] && y >= i0 && y < box[k][3] && j >= j0 && j < box[k][5])
+            v += sign * coef[k] *
+                 val[off[k] + ((z - z0) * (box[k][3] - i0) + (y - i0)) * (box[k][5] - j0) +
+                     (j - j0)];
+    }
+#else
     for (int k = 0; k < m; ++k) {
         const int i0 = box[k][0], j0 = box[k][2];
         if (i >= i0 && i < box[k][1] && j >= j0 && j < box[k][3])
             v += sign * coef[k] * val[off[k] + (i - i0) * (box[k][3] - j0) + (j - j0)];
     }
+#endif
     return v;
 }
 
@@ -527,7 +621,8 @@ __device__ void rhs_pass(const VisitParams& P, const LevelTables& T, int chain, 
                 float zq = (noise_mode == 2) ? xi[p] : z[q];
                 if (xi_rec != nullptr) xi_rec[p] = zq;
                 float c = fv[q] + (ns_const ? ns_val : ns[p]) * zq;
-                if (j >= lo && j < hi) c = add_columns(T.bbox, m, T.bval, T.boff, wv, 1.0f, i, j, c);
+                if (j >= lo && j < hi)
+                    c = add_columns(T.bbox, m, T.bval, T.boff, wv, 1.0f, i, j, c, ROW_NY(P));
                 co[q] = c;
                 if (stage == nullptr) scr[p] = c;
             }
@@ -590,11 +685,24 @@ template <bool COUNT>
 __device__ void btx_pass(const VisitParams& P, const LevelTables& T, const float* x, float* s_btx) {
     const int lane = threadIdx.x & 31;
     for (int k = threadIdx.x >> 5; k < P.m; k += blockDim.x >> 5) {
+#if VISIT_DIM == 3
+        // the box's rows (z, y) in turn: row q of the box is z0 + q / bh, i0 + q % bh
+        const int z0 = T.bbox[k][0], i0 = T.bbox[k][2], j0 = T.bbox[k][4];
+        const int bh = T.bbox[k][3] - i0, bw = T.bbox[k][5] - j0;
+        const int area = (T.bbox[k][1] - z0) * bh * bw;
+        const float* v = T.bval + T.boff[k];
+        float acc = 0.0f;
+        for (int q = lane; q < area; q += 32) {
+            const int row = q / bw, zq = row / bh;
+            acc += x[((z0 + zq) * P.Y + i0 + row - zq * bh) * P.W + j0 + q - row * bw] * v[q];
+        }
+#else
         const int i0 = T.bbox[k][0], j0 = T.bbox[k][2];
         const int bw = T.bbox[k][3] - j0, area = (T.bbox[k][1] - i0) * bw;
         const float* v = T.bval + T.boff[k];
         float acc = 0.0f;
         for (int q = lane; q < area; q += 32) acc += x[(i0 + q / bw) * P.W + j0 + q % bw] * v[q];
+#endif
         acc = warp_total(acc);
         if (lane == 0) s_btx[k] = acc;
     }
@@ -618,7 +726,7 @@ __device__ void woodbury_pass(const VisitParams& P, const LevelTables& T, const 
         row_span(T.ybox, T.yspan, P.m, i, lo, hi);
         for (int j = lo + lane; j < hi; j += 32) {
             const int p = i * P.W + j;
-            x[p] = add_columns(T.ybox, P.m, T.yval, T.yoff, wv, -1.0f, i, j, x[p]);
+            x[p] = add_columns(T.ybox, P.m, T.yval, T.yoff, wv, -1.0f, i, j, x[p], ROW_NY(P));
         }
     }
     block_sync<COUNT>();
@@ -638,7 +746,12 @@ __device__ __forceinline__ void residual_rows(const VisitParams& P, const LevelT
     WARP_ROWS(i, H) {
         int lo = 0, hi = 0;
         if (P.m) row_span(T.bbox, T.bspan, P.m, i, lo, hi);
+#if VISIT_DIM == 3
+        const int z = i / P.Y;
+        const unsigned rin = row_terms3(st, P, z, i - z * P.Y);
+#else
         const unsigned rin = row_terms(st, i, H);
+#endif
         for (int j0 = lane; j0 < W; j0 += 32 * U) {
             int p[U];
             unsigned in[U];
@@ -657,7 +770,8 @@ __device__ __forceinline__ void residual_rows(const VisitParams& P, const LevelT
                 const int j = j0 + 32 * u;
                 if (j >= W) break;
                 float r = fv[u] - apply_operands<KMAX, BOX, U, PLANES>(st, op, in[u], u);
-                if (j >= lo && j < hi) r = add_columns(T.bbox, P.m, T.bval, T.boff, wv, -1.0f, i, j, r);
+                if (j >= lo && j < hi)
+                    r = add_columns(T.bbox, P.m, T.bval, T.boff, wv, -1.0f, i, j, r, ROW_NY(P));
                 scr[p[u]] = r;
             }
         }
@@ -677,12 +791,17 @@ __device__ void residual_pass(const VisitParams& P, const LevelTables& T,
                               float* __restrict__ scr) {
 #define RESIDUAL(KMAX, BOX, PLANES) \
     residual_rows<KMAX, BOX, RESIDUAL_POINTS(KMAX, PLANES), PLANES>(P, T, coeffs, wv, f, x, scr)
+#if VISIT_DIM == 3
+    residual_rows<DIM3_KMAX(FORM), DIM3_BOX(FORM), DIM3_POINTS(FORM), DIM3_PLANES(FORM)>(
+        P, T, coeffs, wv, f, x, scr);
+#else
     if constexpr (FORM >= WIDE_FORM0) {
         residual_rows<WIDE_KMAX(FORM), WIDE_BOX(FORM), 1, WIDE_PLANES(FORM), 2>(P, T, coeffs, wv,
                                                                                 f, x, scr);
     } else {
         STENCIL_DISPATCH(FORM, P, RESIDUAL);
     }
+#endif
 #undef RESIDUAL
     block_sync<COUNT>();
 }
@@ -727,15 +846,96 @@ __device__ __forceinline__ void restrict_rows(const VisitParams& P, const float*
     }
 }
 
+#if VISIT_DIM == 3
+// f_c[Kz, I, J] = sum_{c, a, b} w_c w_a w_b r[2Kz+c, 2I+a, 2J+b], w = {0.5, 1,
+// 0.5}, one warp per coarse row (Kz, I), one coarse point per lane at a time,
+// its 27 loads first.
+__device__ __forceinline__ void restrict_rows3(const VisitParams& P, const float* __restrict__ r,
+                                               float* __restrict__ fc) {
+    const int lane = threadIdx.x & 31, W = P.W, Wc = P.Wc;
+    WARP_ROWS(R, P.Hc) {
+        const int Kz = R / P.Yc, I = R - Kz * P.Yc;
+        for (int J = lane; J < Wc; J += 32) {
+            float v[3][3][3];
+#pragma unroll
+            for (int c = 0; c < 3; ++c)
+#pragma unroll
+                for (int a = 0; a < 3; ++a)
+#pragma unroll
+                    for (int b = 0; b < 3; ++b) {
+                        const int z = 2 * Kz + c, i = 2 * I + a, j = 2 * J + b;
+                        const bool in = z < P.Z && i < P.Y && j < W;
+                        v[c][a][b] = in ? r[(z * P.Y + i) * W + j] : 0.0f;
+                    }
+            float acc = 0.0f;
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+                float plane = 0.0f;
+#pragma unroll
+                for (int a = 0; a < 3; ++a) {
+                    float row = 0.0f;
+#pragma unroll
+                    for (int b = 0; b < 3; ++b) row += (b == 1 ? 1.0f : 0.5f) * v[c][a][b];
+                    plane += (a == 1 ? 1.0f : 0.5f) * row;
+                }
+                acc += (c == 1 ? 1.0f : 0.5f) * plane;
+            }
+            fc[R * Wc + J] = acc;
+        }
+    }
+}
+
+// x += gamma P x_c, one warp per fine row (z, y), one point per lane at a
+// time: along each axis an odd fine index 2I + 1 takes coarse I with weight 1,
+// an even one 2I its coarse neighbours I - 1 and I with 0.5 each (a coarse
+// index outside the coarse field adds nothing).  No barrier.
+__device__ __forceinline__ void prolong_rows3(const VisitParams& P, float* __restrict__ x,
+                                              const float* __restrict__ xc) {
+    const int lane = threadIdx.x & 31, W = P.W, Wc = P.Wc;
+    WARP_ROWS(i, P.H) {
+        const int z = i / P.Y, y = i - z * P.Y;
+        const int nz = 2 - (z & 1), nyc = 2 - (y & 1);
+        const int z0 = (z >> 1) - (nz - 1), y0 = (y >> 1) - (nyc - 1);
+        const float wz = (z & 1) ? 1.0f : 0.5f, wy = (y & 1) ? 1.0f : 0.5f;
+        for (int j = lane; j < W; j += 32) {
+            const int nj = 2 - (j & 1), j0 = (j >> 1) - (nj - 1);
+            const float wj = (j & 1) ? 1.0f : 0.5f;
+            float px = 0.0f;
+            for (int a = 0; a < nz; ++a) {
+                const int Zc = z0 + a;
+                if (Zc < 0 || Zc >= P.Zc) continue;
+                float plane = 0.0f;
+                for (int b = 0; b < nyc; ++b) {
+                    const int Yc = y0 + b;
+                    if (Yc < 0 || Yc >= P.Yc) continue;
+                    float row = 0.0f;
+                    for (int c = 0; c < nj; ++c) {
+                        const int Jc = j0 + c;
+                        if (Jc >= 0 && Jc < Wc) row += wj * xc[(Zc * P.Yc + Yc) * Wc + Jc];
+                    }
+                    plane += wy * row;
+                }
+                px += wz * plane;
+            }
+            x[i * W + j] += P.gamma * px;
+        }
+    }
+}
+#endif
+
 // Two coarse points per lane where a coarse row has more than two warps'
-// width of points, one otherwise.  Ends with a barrier.
+// width of points, one otherwise (3d: restrict_rows3).  Ends with a barrier.
 template <bool COUNT>
 __device__ void restrict_pass(const VisitParams& P, const float* __restrict__ r,
                               float* __restrict__ fc) {
+#if VISIT_DIM == 3
+    restrict_rows3(P, r, fc);
+#else
     if (P.Wc > 64)
         restrict_rows<2>(P, r, fc);
     else
         restrict_rows<1>(P, r, fc);
+#endif
     block_sync<COUNT>();
 }
 
@@ -785,7 +985,9 @@ __device__ void level_descend(const VisitParams& P, const LevelTables& Trhs, con
 }
 
 // One ascend visit of one chain; T in the post direction, xc the coarse
-// state, the rest as level_descend.  Ends with a barrier.
+// state, the rest as level_descend (3d: the prolongation in a loop of its own
+// before the rhs, in the same pass: the two write different fields).  Ends
+// with a barrier.
 template <int FORM, bool COUNT>
 __device__ void level_ascend(const VisitParams& P, const LevelTables& Trhs, const LevelTables& T,
                              int chain, int noise_mode, unsigned long long seed,
@@ -793,8 +995,15 @@ __device__ void level_ascend(const VisitParams& P, const LevelTables& Trhs, cons
                              const float* xc, const float* __restrict__ coeffs,
                              const float* __restrict__ ns, const float* __restrict__ xi,
                              float* xi_rec, float* wv, float* s_btx, float* stage) {
+#if VISIT_DIM == 3
+    prolong_rows3(P, x, xc);
+    if (noise_mode)
+        rhs_pass(P, Trhs, chain, noise_mode, seed, counter, f, ns, xi, xi_rec, wv, scr, x, nullptr,
+                 false, stage);
+#else
     rhs_pass(P, Trhs, chain, noise_mode, seed, counter, f, ns, xi, xi_rec, wv, scr, x, xc, false,
              stage);
+#endif
     block_sync<COUNT>();
     level_sweep<FORM, COUNT>(P, T, coeffs, noise_mode ? scr : f, x);
     if (P.m) {

@@ -1,5 +1,5 @@
-// Fused MGMC level-visit kernels for NVIDIA Hopper (sm_90a), float32, 2d: the
-// phase route.
+// Fused MGMC level-visit kernels for NVIDIA Hopper (sm_90a), float32, 2d and
+// (a build of its own) 3d: the phase route.
 //
 // Replaces the Pallas kernels descend_visit / ascend_visit of
 // multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py.  One launch is one visit
@@ -73,9 +73,33 @@
 // threads a block (128 registers a thread).  The split and stream kernels
 // take reach-1 stencils only; the host sends a reach-2 level here at every
 // chain count.
+//
+// 3d: the 7-point and 27-point levels of a 3d lattice take a library of their
+// own, this source built with -DVISIT_DIM=3 (common.py::PHASE_DIM3_FLAGS): a
+// parameter block of 27 offsets with the z extents, offsets and colour weight
+// (visit_phases.cuh), and the 3d passes and forms of level_passes.cuh
+// (DIM3_FORM0 ..).  A field (Z, Y, W) is stored row major as on the host, so a
+// pass that goes row by row takes its Z Y rows as it takes a 2d field's, the
+// Philox groups included (group g of row z Y + y has the number (z Y + y)
+// ceil(W / 4) + g, as the 3d sweeps number theirs); the transfers are 3d and
+// the measurement columns 3d boxes.  A thread holds the 27 operands and
+// coefficients of the box, so its kernels are bounded to 512 threads a block,
+// as the reach-2 build's.  The split and stream kernels take 2d levels only;
+// the host sends a 3d level here at every chain count.
 
 #ifndef VISIT_REACH
 #define VISIT_REACH 1
+#endif
+#ifndef VISIT_DIM
+#define VISIT_DIM 2
+#endif
+#if VISIT_DIM == 3
+#if VISIT_REACH != 1
+#error "the 3d build takes reach-1 stencils"
+#endif
+#define MAX_OFFSETS 27
+#elif VISIT_DIM != 2
+#error "VISIT_DIM is 2 or 3"
 #endif
 #if VISIT_REACH == 2
 #define MAX_OFFSETS 25
@@ -94,6 +118,10 @@
 #if VISIT_REACH == 2
 #define PHASE_FORM0 WIDE_FORM0
 #define PHASE_FORMS WIDE_FORMS
+#define PHASE_MAX_THREADS 512
+#elif VISIT_DIM == 3
+#define PHASE_FORM0 DIM3_FORM0
+#define PHASE_FORMS DIM3_FORMS
 #define PHASE_MAX_THREADS 512
 #else
 #define PHASE_FORM0 0
@@ -129,8 +157,8 @@ __device__ __forceinline__ LevelTables tables_at(const PhaseTables& L, const flo
             t + L.g,
             t + L.sinv,
             nullptr,
-            reinterpret_cast<const int(*)[4]>(t + L.bbox),
-            reinterpret_cast<const int(*)[4]>(t + L.ybox),
+            reinterpret_cast<const int(*)[BOX_INTS]>(t + L.bbox),
+            reinterpret_cast<const int(*)[BOX_INTS]>(t + L.ybox),
             reinterpret_cast<const int*>(t + L.bspan),
             reinterpret_cast<const int*>(t + L.yspan),
             reinterpret_cast<const int*>(t + L.rows)};
@@ -224,6 +252,13 @@ static const void* phase_kernel(int descend, int form) {
         case 7: return FORM_KERNEL(7);
         case 8: return FORM_KERNEL(8);
         case 9: return FORM_KERNEL(9);
+#elif VISIT_DIM == 3
+        case 10: return FORM_KERNEL(10);
+        case 11: return FORM_KERNEL(11);
+        case 12: return FORM_KERNEL(12);
+        case 13: return FORM_KERNEL(13);
+        case 14: return FORM_KERNEL(14);
+        case 15: return FORM_KERNEL(15);
 #else
         case 0: return FORM_KERNEL(0);
         case 1: return FORM_KERNEL(1);
@@ -249,6 +284,8 @@ extern "C" int mgmc_visit_stencil_forms() { return PHASE_FORMS; }
 extern "C" int mgmc_visit_first_form() { return PHASE_FORM0; }
 
 extern "C" int mgmc_visit_reach() { return VISIT_REACH; }
+
+extern "C" int mgmc_visit_dim() { return VISIT_DIM; }
 
 extern "C" int mgmc_visit_max_threads() { return PHASE_MAX_THREADS; }
 

@@ -17,8 +17,12 @@
 #include "philox.cuh"
 
 // The limits of one build's parameter block: the reach-1 default (every
-// kernel), or what the phase kernels' reach-2 build sets before it includes
-// this header (mgmc_visit.cu, VISIT_REACH 2: 25 offsets, 9 colours).
+// kernel), or what the phase kernels' reach-2 and 3d builds set before they
+// include this header (mgmc_visit.cu, VISIT_REACH 2: 25 offsets, 9 colours;
+// VISIT_DIM 3: 27 offsets).
+#ifndef VISIT_DIM
+#define VISIT_DIM 2
+#endif
 #ifndef MAX_OFFSETS
 #define MAX_OFFSETS 9
 #endif
@@ -27,7 +31,12 @@
 #endif
 #define MAX_LOWRANK 32
 #define MAX_THREADS 1024
+// ints of a box: (i0, i1, j0, j1) in 2d, (k0, k1, i0, i1, j0, j1) in 3d
+#define BOX_INTS (2 * VISIT_DIM)
 
+// A 3d level (VISIT_DIM 3) is Z planes of Y rows of W points, stored row major:
+// H = Z Y rows of W points, Hc = Zc Yc coarse rows of Wc points; the passes
+// take a row r = z Y + y where a 2d level takes row i.
 struct VisitParams {
     int C, H, W, Hc, Wc;
     int K, diag_index;
@@ -41,14 +50,19 @@ struct VisitParams {
     float omega;
     float gamma;
     int m;
-    int bbox[MAX_LOWRANK][4];  // i0, i1, j0, j1 (half open) of column B_k's support
-    int ybox[MAX_LOWRANK][4];  // the same for Y_k = M^-1 B_k of this sweep direction
+    int bbox[MAX_LOWRANK][BOX_INTS];  // the box (half open) of column B_k's support
+    int ybox[MAX_LOWRANK][BOX_INTS];  // the same for Y_k = M^-1 B_k of this sweep direction
     int noise_mode;            // 0 off, 1 in-kernel Philox, 2 xi read from memory
     int ns_const;
     float ns_val;
     int f_batched;
     unsigned long long seed;
     unsigned long long counter;
+#if VISIT_DIM == 3
+    int Z, Y, Zc, Yc;
+    int dz[MAX_OFFSETS];
+    int wz;  // the colour weight of z: colour = (wz z + w0 y + w1 j) mod n_colors
+#endif
 };
 
 // ------------------------------------------------------------------- helpers

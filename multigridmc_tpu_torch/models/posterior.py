@@ -9,6 +9,14 @@ the vertex nearest to the measurement location; radius R is the indicator of
 the R-ball around x0, normalised by the sphere volume and integrated against
 the multilinear FEM basis with order-1 quadrature; optionally a global-average
 measurement appends a dense column of cell_volume.
+
+The exact moments (:func:`posterior_mean`, :func:`observed_mean_and_variance`)
+solve the prior's stencil in float64: densely up to 4096 unknowns, by a band
+Cholesky above that on 1d and 2d lattices, by CG that must converge on 3d
+lattices.  The JAX package solves every lattice above 4096 unknowns by CG and
+keeps the result where CG stops unconverged (the squared shifted-Laplace
+stencil at 255^2 does); there the port's moments are the exact ones and the
+JAX package's are not.
 """
 
 from __future__ import annotations
@@ -22,13 +30,18 @@ import scipy.linalg
 import torch
 
 from ..lattice import Lattice
+from ..ops.band import band_factor, band_solve
 from ..ops.quadrature import gauss_legendre
 from ..ops.stencil import LowRank, StencilOperator, _to_numpy
 from .prior import _phi
 
 #: largest lattice for which the exact-moment diagnostics densify the prior;
-#: above it they solve with CG
+#: above it they solve by a band Cholesky (1d, 2d) or by CG (3d)
 DENSE_SOLVE_MAX_N = 4096
+#: the exact moments' CG on 3d lattices: the relative residual it must reach
+#: and the iterations it may take before it raises
+CG_RTOL = 1e-12
+CG_MAXITER = 10_000
 
 
 @dataclasses.dataclass
@@ -104,9 +117,13 @@ def measurement_vector(lattice: Lattice, x0, radius: float) -> np.ndarray:
 def _default_stencil_solve(op: StencilOperator):
     """Solver for the *stencil* (prior) part, in float64 whatever the
     operator's dtype: dense Cholesky on the host up to
-    :data:`DENSE_SOLVE_MAX_N` unknowns, unpreconditioned CG on the operator's
-    device above.  The returned ``solve(v)`` takes a field or a stack of
-    fields ``(k, *vshape)`` and returns a numpy array of the same shape."""
+    :data:`DENSE_SOLVE_MAX_N` unknowns; above it, on 1d and 2d lattices a band
+    Cholesky on the host (``ops.band``: the stencil's band, factored once), on
+    3d lattices unpreconditioned CG on the operator's device, which raises
+    ``RuntimeError`` where it does not reach :data:`CG_RTOL` within
+    :data:`CG_MAXITER` iterations (a band at 63^3 would take 7.9 GB).  The
+    returned ``solve(v)`` takes a field or a stack of fields ``(k, *vshape)``
+    and returns a numpy array of the same shape."""
     n = op.lattice.nvertex
     vshape = op.lattice.vshape
     if n <= DENSE_SOLVE_MAX_N:
@@ -117,15 +134,33 @@ def _default_stencil_solve(op: StencilOperator):
             return scipy.linalg.cho_solve(factor, v.reshape(-1, n).T).T.reshape(v.shape)
 
         return solve_dense
+    if len(vshape) < 3:
+        cb, _ = band_factor(op)
+
+        def solve_band(v):
+            v = _to_numpy(v).astype(np.float64)
+            return band_solve(cb, v.reshape(-1, n).T).T.reshape(v.shape)
+
+        return solve_band
     from ..solvers.loop import CGSolver, IterativeSolverParameters
 
     stencil_only = dataclasses.replace(op, lowrank=None).to(dtype=torch.float64)
-    solver = CGSolver(
-        stencil_only, params=IterativeSolverParameters(rtol=1e-12, atol=1e-30, maxiter=10000))
+    solver = CGSolver(stencil_only, params=IterativeSolverParameters(
+        rtol=CG_RTOL, atol=1e-30, maxiter=CG_MAXITER))
 
     def solve_cg(v):
         v = torch.as_tensor(_to_numpy(v), dtype=torch.float64, device=stencil_only.device)
-        return _to_numpy(solver.solve(v, batched=v.ndim > len(vshape)).x)
+        result = solver.solve(v, batched=v.ndim > len(vshape))
+        if not result.converged:
+            k = v.reshape(-1, n).shape[0]
+            r = (v - stencil_only.apply(result.x)).reshape(k, n)
+            rel = torch.linalg.vector_norm(r, dim=1) / torch.linalg.vector_norm(
+                v.reshape(k, n), dim=1)
+            raise RuntimeError(
+                f"exact moments: CG on the {vshape} stencil stopped after {result.niter} "
+                f"iterations with a largest relative residual of {float(rel.max()):.3e}, "
+                f"above its rtol {CG_RTOL}")
+        return _to_numpy(result.x)
 
     return solve_cg
 

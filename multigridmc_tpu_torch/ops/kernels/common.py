@@ -63,16 +63,20 @@ SWEEP_STAMPS_FLAGS = ("-DSWEEP_STAMPS_BUILD=1",)
 #: ``csrc/mgmc_visit.cu``: a parameter block of 25 offsets and 9 colours and
 #: the reach-2 stencil forms (the squared shifted-Laplace prior's levels)
 PHASE_REACH2_FLAGS = ("-DVISIT_REACH=2",)
+#: the flags of the phase visit kernels' 3d build, a fourth library of
+#: ``csrc/mgmc_visit.cu``: a parameter block of 27 offsets with the z extents,
+#: and the 3d passes and stencil forms (7-point and 27-point levels)
+PHASE_DIM3_FLAGS = ("-DVISIT_DIM=3",)
 
 #: every library the port builds: each source of :data:`SOURCES`, the stamps
 #: builds of ``mgmc_visit``, ``sor_sweep_passes`` and ``sor_sweep``, and the
-#: reach-2 build of ``mgmc_visit`` (:data:`VARIANT_BUILDS`);
+#: reach-2 and 3d builds of ``mgmc_visit`` (:data:`VARIANT_BUILDS`);
 #: :func:`build_libraries` compiles them in parallel (``chip_smoke.py`` checks
 #: the stamps by default, and beside the production libraries their builds
 #: add no wall time)
 STAMPS_BUILDS = (("mgmc_visit", PHASE_STAMPS_FLAGS), ("sor_sweep_passes", SWEEP_STAMPS_FLAGS),
                  ("sor_sweep", SWEEP_STAMPS_FLAGS))
-VARIANT_BUILDS = (("mgmc_visit", PHASE_REACH2_FLAGS),)
+VARIANT_BUILDS = (("mgmc_visit", PHASE_REACH2_FLAGS), ("mgmc_visit", PHASE_DIM3_FLAGS))
 BUILDS = SOURCES + STAMPS_BUILDS + VARIANT_BUILDS
 
 
@@ -224,10 +228,9 @@ def compress_plan(op: StencilOperator, omega: float):
       Galerkin-coarsened levels generally do not.
     * ``ns_const`` - the constant Gibbs noise scale ``sqrt(D (2-omega)/omega)``
       when the stencil diagonal is constant (computed in float32), else None.
-    * ``bbox`` - per measurement column of a 2d operator its support's bounding
-      box ``(i0, i1, j0, j1)``, half open; the visit kernels read ``B_k`` only
-      there.  Empty for 3d operators, whose low-rank terms stay outside the
-      kernels.
+    * ``bbox`` - per measurement column its support's bounding box
+      (:func:`support_boxes`: ``(i0, i1, j0, j1)`` in 2d, ``(k0, k1, i0, i1,
+      j0, j1)`` in 3d, half open); the visit kernels read ``B_k`` only there.
 
     Of the TPU kernel's ``compress_plan`` this keeps the two devices that save
     L2 traffic here; one-hot columns become bounding boxes (which also cover
@@ -246,22 +249,20 @@ def compress_plan(op: StencilOperator, omega: float):
     if dval is not None:
         ns_const = float(np.sqrt(np.float32(dval) * np.float32((2.0 - omega) / omega)))
     bbox = ()
-    if op.lowrank is not None and len(op.vshape) == 2:
+    if op.lowrank is not None:
         bbox = support_boxes(op.lowrank.B)
     return tuple(cc), ns_const, bbox
 
 
-def support_boxes(fields: torch.Tensor) -> Tuple[Tuple[int, int, int, int], ...]:
-    """Per 2d field of ``(m, H, W)`` the bounding box ``(i0, i1, j0, j1)`` (half
-    open) of its nonzeros; an all-zero field gets the empty box."""
+def support_boxes(fields: torch.Tensor) -> Tuple[Tuple[int, ...], ...]:
+    """Per field of ``(m, *vshape)`` the bounding box of its nonzeros, half
+    open, axis after axis: ``(i0, i1, j0, j1)`` of a 2d field, ``(k0, k1, i0,
+    i1, j0, j1)`` of a 3d one; an all-zero field gets the empty box."""
     boxes = []
     for col in fields.detach().cpu().numpy():
         nz = np.nonzero(col)
-        if len(nz[0]) == 0:
-            boxes.append((0, 0, 0, 0))
-        else:
-            boxes.append((int(nz[0].min()), int(nz[0].max()) + 1,
-                          int(nz[1].min()), int(nz[1].max()) + 1))
+        boxes.append(tuple(v for axis in nz for v in (
+            (int(axis.min()), int(axis.max()) + 1) if axis.size else (0, 0))))
     return tuple(boxes)
 
 

@@ -90,17 +90,23 @@ on or off, any ``coarse_scaling``.  Reach-2 stencils (the squared
 shifted-Laplace prior's 13-point diamond, up to 13 offsets, and the 5x5 box of
 its Galerkin levels, up to 9 colours) take the phase kernels alone, at every
 chain count, from a third build of ``csrc/mgmc_visit.cu``
-(``common.PHASE_REACH2_FLAGS``, :class:`WideVisitParams`, stencil forms 6-9); the split
-and stream kernels take reach 1 only.  Two sweeps per visit (SSOR), 3d, reach
-3 and reduced-precision transfers belong to later slices; the wrapper raises on
-them.  SSOR levels run the composed visit, whose sweeps are the kernels of
-:mod:`.sor_sweep`.
+(``common.PHASE_REACH2_FLAGS``, :class:`WideVisitParams`, stencil forms 6-9).
+3d levels (reach-1 stencils of up to 27 offsets, up to 8 colours: the FD
+prior's 7-point level and its 27-point Galerkin levels) take the phase kernels
+alone too, from a fourth build (``common.PHASE_DIM3_FLAGS``,
+:class:`VolumeVisitParams`, stencil forms 10-15): the fields ``(C, Z, Y, X)``
+row major as they are, a row ``(z, y)``, 3d measurement boxes and 3d
+transfers.  The split and stream kernels take 2d reach-1 levels only.  Two
+sweeps per visit (SSOR), reach 3 and reduced-precision transfers belong to
+later slices; the wrapper raises on them.  SSOR levels run the composed visit,
+whose sweeps are the kernels of :mod:`.sor_sweep`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -111,7 +117,7 @@ from ...smoothers import sor_sweep, woodbury_factors
 from ..intergrid import prolongate_add, restrict
 from ..stencil import StencilOperator
 from . import sor_sweep as ss
-from .common import (PHASE_REACH2_FLAGS, PHASE_STAMPS_FLAGS,  # noqa: F401
+from .common import (PHASE_DIM3_FLAGS, PHASE_REACH2_FLAGS, PHASE_STAMPS_FLAGS,  # noqa: F401
                      compress_plan, default_threads, dynamic_smem_limit, open_library,
                      philox_normals_reference, sm_count, stamp_breakdown, support_boxes)
 from .common import tensor_ptr as _ptr
@@ -125,6 +131,10 @@ MAX_LOWRANK = 32
 WIDE_MAX_OFFSETS = 25
 WIDE_MAX_COLORS = 9
 WIDE_MAX_THREADS = 512
+#: the limits of the phase kernels' 3d build (``VISIT_DIM 3``): the 3x3x3 box,
+#: 8 colours, 512 threads a block
+DIM3_MAX_OFFSETS = 27
+DIM3_MAX_THREADS = 512
 
 #: threads per block of the stream kernels (``MAX_STREAM_THREADS`` in the source)
 MAX_STREAM_THREADS = 256
@@ -249,7 +259,9 @@ launch_counts: Dict[str, int] = {"descend_visit": 0, "ascend_visit": 0,
                                  "descend_visit_stream": 0, "ascend_visit_stream": 0,
                                  "descend_visit_split": 0, "ascend_visit_split": 0,
                                  "descend_visit_reach2_13pt": 0, "ascend_visit_reach2_13pt": 0,
-                                 "descend_visit_reach2_25pt": 0, "ascend_visit_reach2_25pt": 0}
+                                 "descend_visit_reach2_25pt": 0, "ascend_visit_reach2_25pt": 0,
+                                 "descend_visit_3d_7pt": 0, "ascend_visit_3d_7pt": 0,
+                                 "descend_visit_3d_27pt": 0, "ascend_visit_3d_27pt": 0}
 
 #: the kernel counted by each launch, by route and kind
 KERNEL_NAMES = {(route, kind): f"{kind}_visit" + ("" if route == "phase" else f"_{route}")
@@ -258,6 +270,10 @@ KERNEL_NAMES = {(route, kind): f"{kind}_visit" + ("" if route == "phase" else f"
 #: whether the stencil is the 5x5 box (forms 8, 9) or of at most 13 offsets
 REACH2_NAMES = {(kind, box): f"{kind}_visit_reach2_{'25' if box else '13'}pt"
                 for kind in ("descend", "ascend") for box in (False, True)}
+#: the kernel counted by a launch on a 3d level, by kind and whether the
+#: stencil has more than 7 offsets (forms 12-15)
+DIM3_NAMES = {(kind, wide): f"{kind}_visit_3d_{'27' if wide else '7'}pt"
+              for kind in ("descend", "ascend") for wide in (False, True)}
 
 
 def reset_launch_counts() -> None:
@@ -265,7 +281,7 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def _visit_params_fields(max_offsets: int, max_colors: int):
+def _visit_params_fields(max_offsets: int, max_colors: int, box_ints: int = 4):
     return [
         ("C", ctypes.c_int), ("H", ctypes.c_int), ("W", ctypes.c_int),
         ("Hc", ctypes.c_int), ("Wc", ctypes.c_int),
@@ -281,8 +297,8 @@ def _visit_params_fields(max_offsets: int, max_colors: int):
         ("omega", ctypes.c_float),
         ("gamma", ctypes.c_float),
         ("m", ctypes.c_int),
-        ("bbox", (ctypes.c_int * 4) * MAX_LOWRANK),
-        ("ybox", (ctypes.c_int * 4) * MAX_LOWRANK),
+        ("bbox", (ctypes.c_int * box_ints) * MAX_LOWRANK),
+        ("ybox", (ctypes.c_int * box_ints) * MAX_LOWRANK),
         ("noise_mode", ctypes.c_int),
         ("ns_const", ctypes.c_int),
         ("ns_val", ctypes.c_float),
@@ -303,6 +319,18 @@ class WideVisitParams(ctypes.Structure):
     (:data:`WIDE_MAX_OFFSETS` offsets, :data:`WIDE_MAX_COLORS` colours)."""
 
     _fields_ = _visit_params_fields(WIDE_MAX_OFFSETS, WIDE_MAX_COLORS)
+
+
+class VolumeVisitParams(ctypes.Structure):
+    """Mirror of ``struct VisitParams`` in the phase kernels' 3d build: 27
+    offsets, 8 colours, boxes ``(k0, k1, i0, i1, j0, j1)``, and after the
+    2d fields the z extents ``Z``, ``Zc``, the rows' extent ``Y``, ``Yc``
+    (``H = Z Y``, ``Hc = Zc Yc``), the offsets ``dz`` and the colour weight
+    ``wz`` of z (``w0`` is y's, ``w1`` x's)."""
+
+    _fields_ = _visit_params_fields(DIM3_MAX_OFFSETS, MAX_COLORS, 6) + [
+        ("Z", ctypes.c_int), ("Y", ctypes.c_int), ("Zc", ctypes.c_int), ("Yc", ctypes.c_int),
+        ("dz", ctypes.c_int * DIM3_MAX_OFFSETS), ("wz", ctypes.c_int)]
 
 
 class StreamParams(ctypes.Structure):
@@ -326,24 +354,27 @@ class PhaseTables(ctypes.Structure):
                  "yspan", "rows", "words", "shared")]
 
 
-def phase_threads(C: int, n: int, sms: int, reach: int = 1) -> int:
+def phase_threads(C: int, n: int, sms: int, reach: int = 1, dim: int = 2) -> int:
     """Threads per block of a phase launch of ``C`` chains on a level of ``n``
     points, on a card of ``sms`` SMs: ``default_threads(n)`` (1024 from 16,000
     points) while the chains fit one wave of one block per SM, at most
     :data:`PHASE_WAVE_THREADS` (two blocks per SM) above that; at most
-    :data:`WIDE_MAX_THREADS` for a reach-2 level, whose kernels are bounded
-    to it."""
+    :data:`WIDE_MAX_THREADS` for a reach-2 or a 3d level, whose kernels are
+    bounded to it."""
     threads = default_threads(n)
     threads = threads if C <= sms else min(threads, PHASE_WAVE_THREADS)
-    return threads if reach < 2 else min(threads, WIDE_MAX_THREADS)
+    return threads if reach < 2 and dim < 3 else min(threads, WIDE_MAX_THREADS)
 
 
 #: the stencil forms the phase kernels are compiled for, one kernel each
 #: (``STENCIL_FORMS`` in ``csrc/level_passes.cuh``): :func:`stencil_form`;
-#: the reach-2 build's forms follow them (``WIDE_FORM0``, ``WIDE_FORMS``)
+#: the reach-2 build's forms follow them (``WIDE_FORM0``, ``WIDE_FORMS``),
+#: then the 3d build's (``DIM3_FORM0``, ``DIM3_FORMS``)
 STENCIL_FORMS = 6
 WIDE_FORM0 = 6
 WIDE_FORMS = 4
+DIM3_FORM0 = 10
+DIM3_FORMS = 6
 
 
 def stencil_reach(offsets) -> int:
@@ -352,20 +383,23 @@ def stencil_reach(offsets) -> int:
 
 
 def raster_box(offsets, reach: int) -> bool:
-    """Whether ``offsets`` are the ``(2 reach + 1)^2`` box in raster order."""
-    side = 2 * reach + 1
+    """Whether ``offsets`` are the ``(2 reach + 1)^d`` box in raster order."""
+    dim = len(offsets[0])
     return tuple(tuple(int(v) for v in off) for off in offsets) == tuple(
-        (k // side - reach, k % side - reach) for k in range(side * side))
+        itertools.product(range(-reach, reach + 1), repeat=dim))
 
 
 def stencil_form(offsets, const_coeffs) -> int:
     """The phase kernel a level's stencil takes (``stencil_form`` and the
-    reach-2 forms of ``csrc/level_passes.cuh``): reach 1, 0 up to 5 offsets, 2
-    the 3x3 box in raster order, 4 any other of up to 9; reach 2, 6 up to 13
-    offsets, 8 the 5x5 box in raster order; one more where a coefficient
-    varies in space (``const_coeffs`` holds ``None`` for it,
+    reach-2 and 3d forms of ``csrc/level_passes.cuh``): reach 1, 0 up to 5
+    offsets, 2 the 3x3 box in raster order, 4 any other of up to 9; reach 2, 6
+    up to 13 offsets, 8 the 5x5 box in raster order; 3d, 10 up to 7 offsets,
+    12 the 3x3x3 box in raster order, 14 any other of up to 27; one more where
+    a coefficient varies in space (``const_coeffs`` holds ``None`` for it,
     :func:`~.common.compress_plan`)."""
-    if stencil_reach(offsets) > 1:
+    if len(offsets[0]) == 3:
+        base = 10 if len(offsets) <= 7 else (12 if raster_box(offsets, 1) else 14)
+    elif stencil_reach(offsets) > 1:
         base = 8 if raster_box(offsets, 2) else WIDE_FORM0
     else:
         base = 0 if len(offsets) <= 5 else (2 if raster_box(offsets, 1) else 4)
@@ -404,13 +438,19 @@ class TableWords:
         return np.concatenate(self.parts)
 
 
+def box_slices(box) -> Tuple[slice, ...]:
+    """The slices of a box ``(i0, i1, j0, j1)`` or ``(k0, k1, i0, i1, j0, j1)``."""
+    return tuple(slice(box[a], box[a + 1]) for a in range(0, len(box), 2))
+
+
 def staged_boxes(fields, boxes) -> Tuple[np.ndarray, np.ndarray]:
-    """The values of each 2d field ``fields[k]`` inside ``boxes[k]`` (row major,
-    column after column) as float32, and the ``m + 1`` starts of the columns."""
+    """The values of each 2d or 3d field ``fields[k]`` inside ``boxes[k]`` (row
+    major, column after column) as float32, and the ``m + 1`` starts of the
+    columns."""
     vals = [np.zeros(0, np.float32)]
     if fields is not None:
         F = fields.detach().cpu().to(torch.float32).numpy()
-        vals += [F[k, i0:i1, j0:j1].reshape(-1) for k, (i0, i1, j0, j1) in enumerate(boxes)]
+        vals += [F[k][box_slices(box)].reshape(-1) for k, box in enumerate(boxes)]
     starts = np.cumsum([0] + [v.size for v in vals[1:]]).astype(np.int32)
     return np.concatenate(vals), starts
 
@@ -426,8 +466,23 @@ def colour_rows(P: "VisitParams") -> np.ndarray:
     2 n_colors`` int32 words, the number ``R`` of row residues ``rho`` mod
     ``n_colors`` whose rows hold it, then ``R`` pairs ``(rho, first column of
     the colour in such a row)``, residues ascending.  The colour of ``(i, j)``
-    is ``(w0 i + w1 j) mod n_colors``, as in the kernels' sweeps."""
+    is ``(w0 i + w1 j) mod n_colors``, as in the kernels' sweeps.  A 3d level
+    (:class:`VolumeVisitParams`): ``1 + 3 n_colors^2`` words, ``R`` triples
+    ``(z residue, y residue, first column)`` of the rows ``(z, y)`` whose
+    residues mod ``n_colors`` are those, the colour of ``(z, y, j)`` being
+    ``(wz z + w0 y + w1 j) mod n_colors``."""
     K, s = P.n_colors, P.jstride
+    if isinstance(P, VolumeVisitParams):
+        out = np.zeros((P.n_order, 1 + 3 * K * K), np.int32)
+        for o in range(P.n_order):
+            triples = []
+            for zr, yr in itertools.product(range(K), repeat=2):
+                first = [jj for jj in range(s) if (P.wz * zr + P.w0 * yr + P.w1 * jj) % K
+                         == P.order[o]]
+                triples += [(zr, yr, first[0])] if first else []
+            out[o, 0] = len(triples)
+            out[o, 1:1 + 3 * len(triples)] = np.asarray(triples, np.int32).reshape(-1)
+        return out
     out = np.zeros((P.n_order, 1 + 2 * K), np.int32)
     for o in range(P.n_order):
         pairs = [(rho, next(jj for jj in range(s) if (P.w0 * rho + P.w1 * jj) % K == P.order[o]))
@@ -463,14 +518,17 @@ def stage_level(words: TableWords, level: "FusedVisitLevel", orders, residual: b
     return off
 
 
-def row_spans(boxes, H: int) -> np.ndarray:
-    """Per row ``i < H`` of a level the columns ``(lo, hi)`` that the boxes
-    holding the row span, ``(2^30, 0)`` where none does (``row_span`` in
-    ``csrc/level_passes.cuh`` finds the same from the boxes), as int32."""
-    out = np.tile(np.array([1 << 30, 0], np.int32), (H, 1))
-    for i0, i1, j0, j1 in boxes:
-        out[i0:i1, 0] = np.minimum(out[i0:i1, 0], j0)
-        out[i0:i1, 1] = np.maximum(out[i0:i1, 1], j1)
+def row_spans(boxes, vshape) -> np.ndarray:
+    """Per row of a level of shape ``vshape`` (row ``i < H`` in 2d, ``z Y + y``
+    in 3d) the columns ``(lo, hi)`` that the boxes holding the row span,
+    ``(2^30, 0)`` where none does (``row_span`` in ``csrc/level_passes.cuh``
+    finds the same from a 2d level's boxes), as int32."""
+    rows = tuple(vshape[:-1])
+    out = np.tile(np.array([1 << 30, 0], np.int32), rows + (1,))
+    for box in boxes:
+        sl, (j0, j1) = box_slices(box[:-2]), box[-2:]
+        out[sl + (0,)] = np.minimum(out[sl + (0,)], j0)
+        out[sl + (1,)] = np.maximum(out[sl + (1,)], j1)
     return out.reshape(-1)
 
 
@@ -484,10 +542,9 @@ def phase_tables(level: "FusedVisitLevel", order, descend: bool):
     words = TableWords()
     off = stage_level(words, level, (tuple(order),), residual=descend, lrscale=False)
     T = PhaseTables()
-    H = level.op.vshape[0]
     for name, boxes in (("b", level.bbox), ("y", level._woodbury[tuple(order)][2])):
         setattr(T, f"{name}box", words.put(np.asarray(boxes, np.int32).reshape(-1)))
-        setattr(T, f"{name}span", words.put(row_spans(boxes, H)))
+        setattr(T, f"{name}span", words.put(row_spans(boxes, level.op.vshape)))
     for name in ("rows", "yval", "yoff", "wm"):
         setattr(T, name, off[name][0])
     for name in ("bval", "boff", "g", "sinv"):
@@ -519,8 +576,8 @@ def visit_route(C: int, stream_bytes: int = 0, device=None,
                 smem_limit: Optional[int] = None, vshape=None,
                 form: Optional[int] = None) -> str:
     """The kernel a visit of ``C`` chains launches: ``"phase"`` for a reach-2
-    stencil form (``form >= WIDE_FORM0``: the split and stream kernels are
-    reach-1); ``"stream"`` from the threshold of the level's shape ``vshape``
+    or 3d stencil form (``form >= WIDE_FORM0``: the split and stream kernels
+    take 2d reach-1 levels); ``"stream"`` from the threshold of the level's shape ``vshape``
     and stencil form ``form`` on
     (:func:`stream_min_chains`; without both, never) where the stream kernels'
     shared memory (``stream_bytes``, :func:`stream_smem_bytes`) fits a block;
@@ -686,42 +743,55 @@ def wavefront_lags(offsets, weights, n_colors: int, order) -> Tuple[int, ...]:
 
 
 # ------------------------------------------------------------------- the build
+#: per build of the phase kernels, ``(reach, dim)``: the flags, the parameter
+#: block, the first stencil form and the number of forms, the block bound and
+#: the stamps' width
+PHASE_BUILDS = {
+    (1, 2): ((), VisitParams, 0, STENCIL_FORMS, 1024, PHASE_STAMP_WIDTH),
+    (2, 2): (PHASE_REACH2_FLAGS, WideVisitParams, WIDE_FORM0, WIDE_FORMS, WIDE_MAX_THREADS,
+             WIDE_STAMP_WIDTH),
+    (1, 3): (PHASE_DIM3_FLAGS, VolumeVisitParams, DIM3_FORM0, DIM3_FORMS, DIM3_MAX_THREADS,
+             PHASE_STAMP_WIDTH),
+}
+
+
 @functools.lru_cache(maxsize=None)
-def load_library(stamps: bool = False, reach: int = 1) -> ctypes.CDLL:
+def load_library(stamps: bool = False, reach: int = 1, dim: int = 2) -> ctypes.CDLL:
     """Build (at first use) and load the phase kernels' shared library, or
     with ``stamps`` their stamps build (``common.PHASE_STAMPS_FLAGS``), or
-    with ``reach=2`` their reach-2 build (``common.PHASE_REACH2_FLAGS``; it has no
-    stamps build)."""
-    if reach not in (1, 2) or (reach == 2 and stamps):
-        raise ValueError("the phase kernels have a reach-1 build, its stamps build and a "
-                         f"reach-2 build; asked for reach {reach}, stamps {stamps}")
-    wide = reach == 2
-    lib = open_library(SOURCE_NAME, PHASE_REACH2_FLAGS if wide else
-                       (PHASE_STAMPS_FLAGS if stamps else ()))
+    with ``reach=2`` their reach-2 build (``common.PHASE_REACH2_FLAGS``), or
+    with ``dim=3`` their 3d build (``common.PHASE_DIM3_FLAGS``); the last two
+    have no stamps build."""
+    if (reach, dim) not in PHASE_BUILDS or (stamps and (reach, dim) != (1, 2)):
+        raise ValueError("the phase kernels have a reach-1 build, its stamps build, a "
+                         f"reach-2 build and a 3d build; asked for reach {reach}, dim {dim}, "
+                         f"stamps {stamps}")
+    flags, params, form0, nforms, most, width = PHASE_BUILDS[(reach, dim)]
+    lib = open_library(SOURCE_NAME, PHASE_STAMPS_FLAGS if stamps else flags)
     i32 = ctypes.c_int
-    for fn in (lib.mgmc_visit_stamps_build, lib.mgmc_visit_reach, lib.mgmc_visit_params_size,
-               lib.mgmc_visit_tables_size, lib.mgmc_visit_stamp_width, lib.mgmc_visit_static_smem,
+    for fn in (lib.mgmc_visit_stamps_build, lib.mgmc_visit_reach, lib.mgmc_visit_dim,
+               lib.mgmc_visit_params_size, lib.mgmc_visit_tables_size,
+               lib.mgmc_visit_stamp_width, lib.mgmc_visit_static_smem,
                lib.mgmc_visit_stencil_forms, lib.mgmc_visit_first_form,
                lib.mgmc_visit_max_threads):
         fn.argtypes = []
         fn.restype = i32
-    if lib.mgmc_visit_stamps_build() != int(stamps) or lib.mgmc_visit_reach() != reach:
+    if (lib.mgmc_visit_stamps_build(), lib.mgmc_visit_reach(), lib.mgmc_visit_dim()) != (
+            int(stamps), reach, dim):
         raise RuntimeError("the phase kernels' library is not the build asked for")
-    params = WideVisitParams if wide else VisitParams
     if lib.mgmc_visit_params_size() != ctypes.sizeof(params):
         raise RuntimeError(f"{params.__name__} layout differs between Python and CUDA")
     if lib.mgmc_visit_tables_size() != ctypes.sizeof(PhaseTables):
         raise RuntimeError("PhaseTables layout differs between Python and CUDA")
-    if lib.mgmc_visit_stamp_width() != (WIDE_STAMP_WIDTH if wide else PHASE_STAMP_WIDTH):
+    if lib.mgmc_visit_stamp_width() != width:
         raise RuntimeError("the phase kernels' stamps differ in width between Python and CUDA")
     static = lib.mgmc_visit_static_smem()
     if not 0 <= static <= PHASE_STATIC_SMEM:
         raise RuntimeError(f"the phase kernels declare {static} bytes of static shared memory, "
                            f"more than the {PHASE_STATIC_SMEM} the table placement keeps")
-    forms = (WIDE_FORM0, WIDE_FORMS) if wide else (0, STENCIL_FORMS)
-    if (lib.mgmc_visit_first_form(), lib.mgmc_visit_stencil_forms()) != forms:
+    if (lib.mgmc_visit_first_form(), lib.mgmc_visit_stencil_forms()) != (form0, nforms):
         raise RuntimeError("the phase kernels' stencil forms differ between Python and CUDA")
-    if lib.mgmc_visit_max_threads() != (WIDE_MAX_THREADS if wide else 1024):
+    if lib.mgmc_visit_max_threads() != most:
         raise RuntimeError("the phase kernels' block bound differs between Python and CUDA")
     lib.mgmc_visit_kernel_attributes.argtypes = [i32, i32, ctypes.POINTER(i32)]
     lib.mgmc_visit_kernel_attributes.restype = i32
@@ -790,15 +860,19 @@ def kernel_support_error(op: StencilOperator, n_colors: int) -> Optional[str]:
     """Why the CUDA kernels cannot take this level, or None if they can: 2d,
     reach 1 (at most :data:`MAX_OFFSETS` offsets, :data:`MAX_COLORS` colours)
     or reach 2 (at most 13 offsets or the 5x5 box in raster order, at most
-    :data:`WIDE_MAX_COLORS` colours; the phase kernels alone), at most
-    :data:`MAX_LOWRANK` measurements."""
-    if len(op.vshape) != 2:
-        return "the fused level-visit kernels are 2d only (3d: later slice)"
+    :data:`WIDE_MAX_COLORS` colours; the phase kernels alone); 3d, reach 1
+    (at most :data:`DIM3_MAX_OFFSETS` offsets, :data:`MAX_COLORS` colours; the
+    phase kernels alone); at most :data:`MAX_LOWRANK` measurements."""
+    dim = len(op.vshape)
+    if dim not in (2, 3):
+        return f"the fused level-visit kernels take 2d and 3d levels ({dim}d)"
     reach = stencil_reach(op.offsets)
-    if reach > 2:
-        return ("the fused level-visit kernels take reach-1 and reach-2 stencils only "
-                f"(reach {reach})")
-    if reach == 1 and len(op.offsets) > MAX_OFFSETS:
+    if reach > 4 - dim:
+        return (f"the fused level-visit kernels take {dim}d stencils of reach up to "
+                f"{4 - dim} only (reach {reach})")
+    if dim == 3 and len(op.offsets) > DIM3_MAX_OFFSETS:
+        return f"a 3d stencil of more than {DIM3_MAX_OFFSETS} offsets"
+    if dim == 2 and reach == 1 and len(op.offsets) > MAX_OFFSETS:
         return f"a reach-1 stencil of more than {MAX_OFFSETS} offsets"
     if reach == 2 and len(op.offsets) > 13 and not raster_box(op.offsets, 2):
         return "a reach-2 stencil of more than 13 offsets that is not the 5x5 box in raster order"
@@ -812,11 +886,14 @@ def kernel_support_error(op: StencilOperator, n_colors: int) -> Optional[str]:
 
 def route_support_error(level: "FusedVisitLevel", route: str) -> Optional[str]:
     """Why the kernels of ``route`` cannot take ``level``, or None: the split
-    and stream kernels take reach-1 stencils only.  :func:`visit_route` never
-    gives them a reach-2 level; this holds a route a caller names to it."""
+    and stream kernels take 2d reach-1 stencils only.  :func:`visit_route`
+    never gives them a reach-2 or a 3d level; this holds a route a caller
+    names to it."""
     if route != "phase" and level.reach > 1:
         return (f"the {route} kernels take reach-1 stencils only: a reach-2 level takes "
                 "the phase kernels")
+    if route != "phase" and level.dim == 3:
+        return f"the {route} kernels take 2d levels only: a 3d level takes the phase kernels"
     return None
 
 
@@ -830,10 +907,8 @@ class FusedVisitLevel:
 
     def __init__(self, op: StencilOperator, coloring, omega: float, pre_order, post_order,
                  Bbar_pre, Bbar_post, coarse_scaling: float):
-        if len(op.vshape) != 2:
-            raise NotImplementedError(
-                "fused level visits are 2d only; the 3d (flat-storage) kernels "
-                "belong to a later slice of the port")
+        if len(op.vshape) not in (2, 3):
+            raise NotImplementedError("fused level visits take 2d and 3d levels")
         if pre_order and isinstance(pre_order[0], (tuple, list)):
             raise NotImplementedError(
                 "two sweeps per visit (SSOR) are not ported yet (later slice)")
@@ -874,6 +949,8 @@ class FusedVisitLevel:
         self.const_coeffs, self.ns_const, self.bbox = compress_plan(op, self.omega)
         #: the stencil's reach: 2 takes the phase kernels' reach-2 build
         self.reach = stencil_reach(op.offsets)
+        #: the level's dimension: 3 takes the phase kernels' 3d build
+        self.dim = len(op.vshape)
         #: the phase kernel of this level's stencil (:func:`stencil_form`)
         self.stencil_form = stencil_form(op.offsets, self.const_coeffs)
         self.stream_threads = stream_threads(op.vshape[-1])
@@ -940,7 +1017,9 @@ class FusedVisitLevel:
 
     def _route(self, C: int) -> Tuple[str, Optional[int]]:
         if C not in self._routes:
-            route = visit_route(C, self.stream_bytes, self.op.device, vshape=self.op.vshape,
+            # a reach-2 or 3d level takes the phase kernels alone: no stream layout to size
+            stream_bytes = 0 if self.stencil_form >= WIDE_FORM0 else self.stream_bytes
+            route = visit_route(C, stream_bytes, self.op.device, vshape=self.op.vshape,
                                 form=self.stencil_form)
             S = split_cluster(C, self.op.vshape, self.op.device) if route == "split" else None
             self._routes[C] = (route, S)
@@ -952,7 +1031,7 @@ class FusedVisitLevel:
         count."""
         if C not in self._phase_threads:
             self._phase_threads[C] = phase_threads(C, int(np.prod(self.op.vshape)),
-                                                   sm_count(self.op.device), self.reach)
+                                                   sm_count(self.op.device), self.reach, self.dim)
         return self._phase_threads[C]
 
     def phase_launch(self, order, descend: bool, threads: int):
@@ -1013,18 +1092,25 @@ class FusedVisitLevel:
         err = kernel_support_error(op, self.coloring.n_colors)
         if err is not None:
             raise NotImplementedError(err)
-        P = WideVisitParams() if self.reach > 1 else VisitParams()
+        P = PHASE_BUILDS[(self.reach, self.dim)][1]()
         P.C = C
-        P.H, P.W = op.vshape
-        P.Hc, P.Wc = self.vc
+        # a 3d level's rows are (z, y): H = Z Y rows of W points
+        P.H, P.W = int(np.prod(op.vshape[:-1])), op.vshape[-1]
+        P.Hc, P.Wc = int(np.prod(self.vc[:-1])), self.vc[-1]
         P.K, P.diag_index = len(op.offsets), op.diag_index
         for k, (off, cval) in enumerate(zip(op.offsets, self.const_coeffs)):
-            P.dy[k], P.dx[k] = off
+            P.dy[k], P.dx[k] = off[-2:]
+            if self.dim == 3:
+                P.dz[k] = off[0]
             P.coeff_const[k] = int(cval is not None)
             P.coeff_val[k] = 0.0 if cval is None else cval
         K = self.coloring.n_colors
         P.n_colors = K
-        P.w0, P.w1 = (int(w) for w in self.coloring.weights)
+        P.w0, P.w1 = (int(w) for w in self.coloring.weights[-2:])
+        if self.dim == 3:
+            P.Z, P.Y = op.vshape[:2]
+            P.Zc, P.Yc = self.vc[:2]
+            P.wz = int(self.coloring.weights[0])
         P.jstride = K // math.gcd(P.w1, K)
         P.n_order = len(order)
         for o, c in enumerate(order):
@@ -1032,7 +1118,7 @@ class FusedVisitLevel:
         P.omega, P.gamma = self.omega, self.coarse_scaling
         P.m = op.m_lowrank
         for k, (box, ybox) in enumerate(zip(self.bbox, self._woodbury[tuple(order)][2])):
-            for q in range(4):
+            for q in range(2 * self.dim):
                 P.bbox[k][q] = box[q]
                 P.ybox[k][q] = ybox[q]
         P.noise_mode = noise_mode
@@ -1067,13 +1153,13 @@ def descend_visit_plain(level: FusedVisitLevel, f, x, xi=None, xi_lr=None):
     if level.B is not None:
         x = _woodbury_plain(level, level.Bbar_pre, x)
     r = f - op.apply(x)
-    return x, restrict(r, dim=2)
+    return x, restrict(r, dim=level.dim)
 
 
 def ascend_visit_plain(level: FusedVisitLevel, f, x, x_coarse, xi=None, xi_lr=None):
     """Plain PyTorch version of the ascend kernel: ``prolongate_add``, noisy
     rhs, ``sor_sweep`` in the post direction, Woodbury.  Returns a new ``x``."""
-    x = prolongate_add(level.coarse_scaling, x_coarse, x, dim=2)
+    x = prolongate_add(level.coarse_scaling, x_coarse, x, dim=level.dim)
     c = f if xi is None else _noisy_rhs_plain(level, f, xi, xi_lr)
     x = sor_sweep(level.op, level.masks, level.omega, level.post_order, c, x)
     if level.B is not None:
@@ -1086,10 +1172,10 @@ def _check_visit_args(level: FusedVisitLevel, f, x, xi, xi_lr, philox, x_coarse=
     """Validate what goes to the kernel by pointer; returns (C, f_batched,
     noise_mode)."""
     vshape = level.op.vshape
-    if x.ndim != 3 or tuple(x.shape[1:]) != vshape:
-        raise ValueError(f"x must be (C, {vshape[0]}, {vshape[1]}), got {tuple(x.shape)}")
+    if x.ndim != 1 + len(vshape) or tuple(x.shape[1:]) != vshape:
+        raise ValueError(f"x must be (C, {', '.join(map(str, vshape))}), got {tuple(x.shape)}")
     C = x.shape[0]
-    f_batched = f.ndim == 3
+    f_batched = f.ndim == x.ndim
     if tuple(f.shape) not in (vshape, (C,) + vshape):
         raise ValueError(f"f must be {vshape} or {(C,) + vshape}, got {tuple(f.shape)}")
     tensors = {"x": x, "f": f}
@@ -1129,7 +1215,8 @@ def descend_visit(level: FusedVisitLevel, f, x, xi=None, xi_lr=None,
                   philox: Optional[Tuple[int, int]] = None):
     """One fused descend visit; returns ``(x, f_coarse)``.
 
-    ``f`` is ``(H, W)`` (shared) or ``(C, H, W)``; ``x`` is ``(C, H, W)``.  Field
+    ``f`` is ``(H, W)`` (shared) or ``(C, H, W)``; ``x`` is ``(C, H, W)`` (a 3d
+    level: ``(Z, Y, X)`` or ``(C, Z, Y, X)``, and ``(C, Z, Y, X)``).  Field
     noise: ``philox=(seed, counter)`` for the in-kernel generator (CUDA only) or
     ``xi`` as a tensor; ``xi_lr`` is ``(C, m)`` pre-scaled by ``Sigma^{-1/2}``.
     No noise argument runs the deterministic data path.
@@ -1147,7 +1234,8 @@ def ascend_visit(level: FusedVisitLevel, f, x, x_coarse, xi=None, xi_lr=None,
                  philox: Optional[Tuple[int, int]] = None):
     """One fused ascend visit: ``x += gamma P x_c`` then the post Gibbs sweep
     and its Woodbury correction; returns ``x``.  Arguments as in
-    :func:`descend_visit`; ``x_coarse`` is ``(C, H // 2, W // 2)``.
+    :func:`descend_visit`; ``x_coarse`` is ``(C, H // 2, W // 2)`` (3d: every
+    extent halved).
 
     CPU tensors go to :func:`ascend_visit_plain`.  CUDA tensors launch the
     kernel of ``level.route(C)``, which updates ``x`` in place, or raise."""
@@ -1184,8 +1272,8 @@ def _check_stamps(level: FusedVisitLevel, route: str, stamps, x) -> None:
     if stamps is None:
         return
     C = x.shape[0]
-    if route != "phase" or level.reach > 1:
-        raise ValueError("only the phase kernels of reach-1 levels have a stamps build")
+    if route != "phase" or level.reach > 1 or level.dim == 3:
+        raise ValueError("only the phase kernels of 2d reach-1 levels have a stamps build")
     if (stamps.dtype != torch.int64 or stamps.device != x.device
             or tuple(stamps.shape) != (C, PHASE_STAMP_WIDTH) or not stamps.is_contiguous()):
         raise ValueError(f"stamps must be a contiguous int64 ({C}, {PHASE_STAMP_WIDTH}) "
@@ -1194,7 +1282,10 @@ def _check_stamps(level: FusedVisitLevel, route: str, stamps, x) -> None:
 
 def kernel_name(level: FusedVisitLevel, route: str, kind: str) -> str:
     """The kernel a launch of ``kind`` through ``route`` on ``level`` counts
-    (:data:`KERNEL_NAMES`; a reach-2 level's :data:`REACH2_NAMES`)."""
+    (:data:`KERNEL_NAMES`; a reach-2 level's :data:`REACH2_NAMES`, a 3d
+    level's :data:`DIM3_NAMES`)."""
+    if level.dim == 3:
+        return DIM3_NAMES[(kind, level.stencil_form >= 12)]
     if level.reach > 1:
         return REACH2_NAMES[(kind, level.stencil_form >= 8)]
     return KERNEL_NAMES[(route, kind)]
@@ -1228,7 +1319,7 @@ def launch_descend(level: FusedVisitLevel, route: str, f, x, xi=None, xi_lr=None
             threads = level.phase_threads(C) if threads is None else int(threads)
             tables, L, smem = level.phase_launch(level.pre_order, True, threads)
             scratch = torch.empty_like(x)
-            err = load_library(stamps is not None, level.reach).mgmc_descend_visit(
+            err = load_library(stamps is not None, level.reach, level.dim).mgmc_descend_visit(
                 ctypes.byref(P), ctypes.byref(L), tables.data_ptr(), x.data_ptr(), f.data_ptr(),
                 scratch.data_ptr(), fc.data_ptr(), level.coeffs.data_ptr(),
                 level.noise_scale.data_ptr(), _ptr(xi_lr), _ptr(xi), level.stencil_form,
@@ -1267,7 +1358,7 @@ def launch_ascend(level: FusedVisitLevel, route: str, f, x, x_coarse, xi=None, x
             threads = level.phase_threads(C) if threads is None else int(threads)
             tables, L, smem = level.phase_launch(level.post_order, False, threads)
             scratch = torch.empty_like(x) if noise_mode else x  # unused without noise
-            err = load_library(stamps is not None, level.reach).mgmc_ascend_visit(
+            err = load_library(stamps is not None, level.reach, level.dim).mgmc_ascend_visit(
                 ctypes.byref(P), ctypes.byref(L), tables.data_ptr(), x.data_ptr(), f.data_ptr(),
                 scratch.data_ptr(), x_coarse.data_ptr(), level.coeffs.data_ptr(),
                 level.noise_scale.data_ptr(), _ptr(xi_lr), _ptr(xi), level.stencil_form,
@@ -1336,10 +1427,10 @@ def fused_levels_for(operators, presmoothers, postsmoothers, coarse_scaling,
 
     ``force=None`` (auto): on when the operators lie on a CUDA device - the
     kernels then serve batched chains - and off on the CPU.  In auto mode only
-    two kinds of level are left to the composed path on the card: 3d levels
-    (their kernels belong to a later slice) and levels in a dtype other than
-    float32, which the caller chose.  A 2d float32 level that exceeds the
-    kernels' own limits (measurements, colours, offsets, reach) raises
+    levels in a dtype other than float32, which the caller chose, are left to
+    the composed path on the card (and SSOR levels, which are no single
+    directed sweep).  A float32 level, 2d or 3d, that exceeds the kernels' own
+    limits (dimension, measurements, colours, offsets, reach) raises
     ``NotImplementedError``: it never runs through the plain path unasked.
     ``force=True`` builds the levels on any device (on the CPU their plain
     versions run; the tests use this) and raises on every level the kernels
@@ -1360,7 +1451,7 @@ def fused_levels_for(operators, presmoothers, postsmoothers, coarse_scaling,
         if err is None and on_card and op.dtype != torch.float32:
             err = "the fused level-visit kernels are float32 only"
         if err is not None:
-            if force or (on_card and len(op.vshape) == 2 and op.dtype == torch.float32):
+            if force or (on_card and op.dtype == torch.float32):
                 raise NotImplementedError(err)
             continue
         levels[level] = FusedVisitLevel(op, pre[2], pre[3], pre[0], post[0],

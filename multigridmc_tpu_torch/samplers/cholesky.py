@@ -34,10 +34,10 @@ import os
 from typing import Optional
 
 import numpy as np
-import scipy.linalg
 import torch
 
-from ..ops.stencil import StencilOperator, _to_numpy, interior_mask
+from ..ops.band import band_factor, band_solve
+from ..ops.stencil import StencilOperator, _to_numpy
 from ..utils import runtime  # noqa: F401  (sets the matmul precision policy)
 from .base import NoiseSource, Sampler
 
@@ -74,41 +74,6 @@ class DenseCholeskySampler(Sampler):
         g = self._solve_L(f.reshape(fbatch + (n,)))
         y = self._solve_LT(xi + g)  # g broadcasts over the chain batch
         return y.reshape(x.shape)
-
-
-# ------------------------------------------------------------ band storage
-def _band_matrix_stencil(op: StencilOperator):
-    """Lower band storage ``ab[k, j] = A[j + k, j]`` of the *stencil part* of
-    ``op`` in float64, and its bandwidth ``b``: the largest lexicographic
-    distance of an offset (the product of the minor extents for a reach-1
-    stencil), whatever the measurements.
-
-    Built from the offsets and coefficients, ``O(n b)`` memory: the entry
-    ``A[i, i + d]`` of an offset with lexicographic distance ``d <= 0`` is its
-    coefficient at vertex ``i`` where ``i + offset`` lies inside the grid, so
-    it lands at ``ab[-d, i + d]``.  No two offsets meet at one entry, and every
-    entry of the band no offset reaches stays zero - the same array that the
-    JAX package reads off the dense matrix."""
-    vshape = tuple(op.vshape)
-    n = int(np.prod(vshape))
-    strides = np.cumprod([1] + list(reversed(vshape)))[:-1][::-1]  # array order
-    dists = [int(np.dot(off, strides)) for off in op.offsets]
-    b = max(abs(d) for d in dists)
-    coeffs = _to_numpy(op.coeffs).astype(np.float64).reshape(len(op.offsets), n)
-    ab = np.zeros((b + 1, n))
-    rows = np.arange(n)
-    for k, (off, d) in enumerate(zip(op.offsets, dists)):
-        if d > 0:
-            continue  # the upper triangle: the band stores the lower one
-        valid = interior_mask(vshape, off).reshape(n) > 0
-        ab[-d, rows[valid] + d] += coeffs[k][valid]
-    return ab, b
-
-
-def _np_band_solve(cb: np.ndarray, v: np.ndarray) -> np.ndarray:
-    """Host float64 solve of ``L L^T x = v`` from the lower band factor
-    ``cb[k, j] = L[j + k, j]`` (``O(n b)`` per right-hand side)."""
-    return scipy.linalg.cho_solve_banded((cb, True), v)
 
 
 #: device-memory budget (bytes) of the recursive-doubling level tensors; above
@@ -304,15 +269,13 @@ class BandWoodbury:
     sampling error (on a 32^2 posterior by 2%, 15 standard errors)."""
 
     def __init__(self, op: StencilOperator):
-        ab, self.bandwidth = _band_matrix_stencil(op)
-        self.cb = scipy.linalg.cholesky_banded(ab, lower=True)
-        del ab
+        self.cb, self.bandwidth = band_factor(op)
         self.n = self.cb.shape[1]
         self.W = self.B = self.Sigma = None
         if op.lowrank is not None:
             m = op.m_lowrank
             self.B = _to_numpy(op.lowrank.B).astype(np.float64).reshape(m, -1).T.copy()
-            Ainv_B = _np_band_solve(self.cb, self.B)  # (n, m)
+            Ainv_B = band_solve(self.cb, self.B)  # (n, m)
             self.Sigma = _to_numpy(op.lowrank.Sigma_diag).astype(np.float64)
             S = np.diag(self.Sigma) + self.B.T @ Ainv_B
             self.W = Ainv_B @ np.linalg.inv(S)
@@ -321,7 +284,7 @@ class BandWoodbury:
         """``Q^-1 f`` for ``f`` of shape ``(..., n)``, solved in float64 on the
         host and returned in ``dtype`` on ``device``."""
         f64 = _to_numpy(f).astype(np.float64)
-        t = _np_band_solve(self.cb, f64.reshape(-1, self.n).T).T
+        t = band_solve(self.cb, f64.reshape(-1, self.n).T).T
         if self.W is not None:
             t = t - (t @ self.B) @ self.W.T
         return torch.as_tensor(t.reshape(f64.shape), dtype=dtype, device=device)

@@ -22,11 +22,11 @@ Chain-state semantics: the fine-level x is carried across calls (NOT zeroed),
 coarse-level states are zero-initialised at each visit.
 
 The cycle batches over leading chain dimensions, so many independent chains
-run in lockstep on one GPU.  On a CUDA device each visit of an SOR level is ONE
-launch of a hand-written fused CUDA kernel
+run in lockstep on one GPU.  On a CUDA device each visit of a float32 SOR
+level, 2d or 3d, is ONE launch of a hand-written fused CUDA kernel
 (:mod:`multigridmc_tpu_torch.ops.kernels.mgmc_visit`; a single chain is a batch
-of one).  The remaining levels (SSOR, 3d) run the composed visit, whose Gibbs
-sweeps are launches of the sweep kernel
+of one).  Only SSOR levels and levels in another dtype than float32 run the
+composed visit, whose Gibbs sweeps are launches of the sweep kernel
 (:mod:`multigridmc_tpu_torch.ops.kernels.sor_sweep`) with the residual and the
 transfers in plain PyTorch.  ``apply`` may update the chain state it is given
 in place.
@@ -47,7 +47,8 @@ step: odd steps run the same hierarchy with the pre- and post-samplers swapped
 and their own distilled map); ``apply(..., parity=1)``, ``apply_pair`` and
 ``apply_indexed`` select it.  It excludes ``subtree=True``.
 
-Not ported yet (``NotImplementedError``): fused 3d and two-sweep (SSOR) visits.
+Not ported yet (``NotImplementedError``): fused two-sweep (SSOR) visits and the
+subtree kernel on 3d levels (the TPU kernel is 2d only too).
 """
 
 from __future__ import annotations
@@ -82,9 +83,9 @@ class MultigridMCSampler(Sampler):
     ``fused``: ``"auto"`` fuses level visits when the operator lies on a CUDA
     device, ``True`` builds the fused levels on any device (on the CPU they run
     their plain versions), ``False`` runs the composed recursion everywhere.
-    Under ``"auto"`` on a CUDA device only SSOR levels, 3d levels and levels in
-    a dtype other than float32 run the composed recursion (in float32 on the
-    sweep kernels); a 2d float32 SOR level beyond the visit kernels' limits
+    Under ``"auto"`` on a CUDA device only SSOR levels and levels in a dtype
+    other than float32 run the composed recursion (in float32 on the sweep
+    kernels); a float32 SOR level, 2d or 3d, beyond the visit kernels' limits
     raises ``NotImplementedError`` (see
     :func:`~multigridmc_tpu_torch.ops.kernels.mgmc_visit.fused_levels_for`).
 

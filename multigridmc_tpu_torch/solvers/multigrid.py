@@ -6,7 +6,7 @@ and the deterministic V/W-cycle: per level a forward pre-smoother and a
 backward post-smoother (SSOR: a forward-backward pair for both), a dense
 Cholesky solve on the coarsest level.
 
-On a CUDA device in float32 an SOR level's visit is one launch of the fused
+On a CUDA device in float32 an SOR level's visit (2d or 3d) is one launch of the fused
 level-visit kernels with the noise off
 (:mod:`multigridmc_tpu_torch.ops.kernels.mgmc_visit`); an SSOR level smooths
 through the deterministic sweep kernel

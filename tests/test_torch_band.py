@@ -1,6 +1,6 @@
 """The port's exact band samplers against the JAX package, on the CPU.
 
-* Band storage: ``_band_matrix_stencil`` builds the lower band straight from the
+* Band storage: ``ops.band.band_matrix_stencil`` builds the lower band straight from the
   stencil's offsets and coefficients; it must equal the JAX package's, which
   reads it off the dense matrix, bitwise (1d, 2d and 3d; prior and posterior).
 * ``BandFactor``: the three solves, sequential scan and recursive doubling,
@@ -34,6 +34,7 @@ from multigridmc_tpu.models.prior import shiftedlaplace_fd as jshiftedlaplace_fd
 from multigridmc_tpu.samplers import cholesky as jchol
 from multigridmc_tpu.solvers.cholesky import BandCholeskySolver as JBandCholeskySolver
 
+from multigridmc_tpu_torch.ops.band import band_matrix_stencil, band_solve
 from multigridmc_tpu_torch.samplers import cholesky as pchol
 from multigridmc_tpu_torch.samplers.base import GeneratorNoise, ReplayNoise
 from multigridmc_tpu_torch.solvers.cholesky import BandCholeskySolver
@@ -58,11 +59,11 @@ def _jax_op(vshape, lowrank):
 def test_band_storage_bitwise(vshape, lowrank):
     a = _jax_op(vshape, lowrank)
     want, b_want = jchol._band_matrix_stencil(a)
-    got, b_got = pchol._band_matrix_stencil(to_port(a))
+    got, b_got = band_matrix_stencil(to_port(a))
     assert b_got == b_want
     np.testing.assert_array_equal(got, want)
     # float32 coefficients too: read as float64, as the JAX package reads them
-    got32, _ = pchol._band_matrix_stencil(to_port(a, torch.float32))
+    got32, _ = band_matrix_stencil(to_port(a, torch.float32))
     want32, _ = jchol._band_matrix_stencil(
         dataclasses.replace(a, coeffs=jnp.asarray(np.asarray(a.coeffs), jnp.float32)))
     np.testing.assert_array_equal(got32, want32)
@@ -122,7 +123,7 @@ def test_band_factor_doubling_f32_residual():
     doubling at most 50x the scan."""
     lattice = JLattice((32, 32))
     a = jshiftedlaplace_fd(lattice, JConstant(0.2))
-    ab, b = pchol._band_matrix_stencil(to_port(a))
+    ab, b = band_matrix_stencil(to_port(a))
     cb = scipy.linalg.cholesky_banded(ab, lower=True)
     n = ab.shape[1]
     rng = np.random.default_rng(7)
@@ -237,10 +238,10 @@ def test_band_solver_matches_jax(lowrank, batched):
 
 def test_np_band_solve_matches_jax():
     a = _jax_op((9, 8), False)
-    ab, b = pchol._band_matrix_stencil(to_port(a))
+    ab, b = band_matrix_stencil(to_port(a))
     cb = scipy.linalg.cholesky_banded(ab, lower=True)
     v = np.random.default_rng(5).normal(size=(ab.shape[1], 4))
-    np.testing.assert_allclose(pchol._np_band_solve(cb, v), jchol._np_band_solve(cb, b, v),
+    np.testing.assert_allclose(band_solve(cb, v), jchol._np_band_solve(cb, b, v),
                                **SOLVE)
 
 

@@ -162,12 +162,15 @@ def test_residual_shortcut_of_the_descend_kernel_matches_jax_residual(level, var
     assert_close(t, a.lowrank.bt(jxp) / a.lowrank.Sigma_diag, **tol)
 
 
-def test_auto_gate_raises_on_the_card_where_the_kernels_cannot_go():
-    """On a CUDA device the automatic gate never hands a 2d float32 level to the
-    composed path because of the kernels' own limits; it only leaves 3d levels
-    and other dtypes there.  Stand-in operators carry the device, since none is
-    present where these tests run."""
+def test_auto_gate_raises_on_the_card_where_the_kernels_cannot_go(monkeypatch):
+    """On a CUDA device the automatic gate never hands a float32 level, 2d or
+    3d, to the composed path because of the kernels' own limits; it only
+    leaves other dtypes there.  Stand-in operators carry the device, since
+    none is present where these tests run; a level the gate admits is
+    recorded, not built."""
     from types import SimpleNamespace as NS
+
+    monkeypatch.setattr(mv, "FusedVisitLevel", lambda op, *args: ("fused", op.vshape))
 
     def stub(vshape, m=0, dtype=torch.float32, reach=1):
         offs = tuple((a * reach, b * reach) + (0,) * (len(vshape) - 2)
@@ -187,7 +190,15 @@ def test_auto_gate_raises_on_the_card_where_the_kernels_cannot_go():
     assert mv.kernel_support_error(stub((31, 31), reach=2), 5) is None
     with pytest.raises(NotImplementedError, match="reach 3"):
         gate(stub((31, 31), reach=3))
-    assert gate(stub((15, 15, 15))) == {}
+    # a 3d float32 level takes the kernels' 3d build; one beyond its limits raises
+    assert gate(stub((15, 15, 15))) == {0: ("fused", (15, 15, 15))}
+    with pytest.raises(NotImplementedError, match="reach up to 1 only"):
+        gate(stub((15, 15, 15), reach=2))
+    with pytest.raises(NotImplementedError, match="measurements"):
+        gate(stub((15, 15, 15), m=mv.MAX_LOWRANK + 1))
+    with pytest.raises(NotImplementedError, match="colours"):
+        gate(stub((15, 15, 15)), n_colors=mv.MAX_COLORS + 1)
+    assert gate(stub((15, 15, 15), dtype=torch.float64)) == {}
     assert gate(stub((31, 31), dtype=torch.float64)) == {}
     with pytest.raises(NotImplementedError, match="float32 only"):
         gate(stub((31, 31), dtype=torch.float64), force=True)
@@ -283,20 +294,25 @@ def test_wrapper_rejects_what_the_kernels_do_not_take():
 
 
 def test_unported_kernel_variants_raise():
+    """Two sweeps per visit (SSOR) and 1d levels raise; 3d levels are admitted
+    (the kernels' 3d build) and left to the composed path only where the gate
+    is off, as on the CPU by default."""
     from multigridmc_tpu_torch.lattice import Lattice
     from multigridmc_tpu_torch.models.correlation import ConstantCorrelationLengthModel
     from multigridmc_tpu_torch.models.prior import shiftedlaplace_fd
 
-    op3 = shiftedlaplace_fd(Lattice((8, 8, 8)), ConstantCorrelationLengthModel(0.3), device="cpu")
+    model = ConstantCorrelationLengthModel(0.3)
+    op3 = shiftedlaplace_fd(Lattice((8, 8, 8)), model, device="cpu")
     sm = SORSmoother(op3)
-    with pytest.raises(NotImplementedError, match="2d only"):
-        mv.FusedVisitLevel(op3, sm.coloring, 1.0, sm.order, sm.order, None, None, 1.0)
-    assert "2d only" in mv.kernel_support_error(op3, 2)
+    assert mv.kernel_support_error(op3, 2) is None
+    assert mv.FusedVisitLevel(op3, sm.coloring, 1.0, sm.order, sm.order, None, None,
+                              1.0).stencil_form == mv.DIM3_FORM0
     _, _, _, port = _levels(False, 0, torch.float32)
     with pytest.raises(NotImplementedError, match="SSOR"):
         mv.FusedVisitLevel(port.op, port.coloring, 1.0, (port.pre_order, port.post_order),
                            (port.pre_order, port.post_order), None, None, 1.0)
-    # forcing fused visits on a 3d hierarchy raises; leaving it to the gate does not
+    op1 = shiftedlaplace_fd(Lattice((16,)), model, device="cpu")
+    assert "2d and 3d" in mv.kernel_support_error(op1, 2)
+    # the gate: off on the CPU unless forced; forced, a 3d hierarchy is fused
     assert mv.fused_levels_for([op3, op3], [sm, sm], [sm, sm], 1.0, 0, force=None) == {}
-    with pytest.raises(NotImplementedError, match="2d only"):
-        mv.fused_levels_for([op3, op3], [sm, sm], [sm, sm], 1.0, 0, force=True)
+    assert list(mv.fused_levels_for([op3, op3], [sm, sm], [sm, sm], 1.0, 0, force=True)) == [0]

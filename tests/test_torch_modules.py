@@ -148,8 +148,8 @@ def test_exact_posterior_moments_match():
 
 
 def test_exact_moments_above_dense_limit_wait_for_cg():
-    """Above 4096 unknowns the moments come from the CG solver (they waited for
-    it in the first slice): float64 whatever the operator's dtype."""
+    """Above 4096 unknowns the moments of a 2d lattice come from a band
+    Cholesky of the stencil: float64 whatever the operator's dtype."""
     big = prior.shiftedlaplace_fd(Lattice((80, 80)), ConstantCorrelationLengthModel(0.3),
                                   device=CPU, dtype=torch.float64)
     assert big.lattice.nvertex > posterior.DENSE_SOLVE_MAX_N

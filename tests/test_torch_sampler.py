@@ -282,12 +282,19 @@ def test_unported_models_and_smoothers_raise():
 
 
 def test_3d_lattice_runs_through_the_composed_path():
+    """On the CPU a 3d hierarchy runs composed unless fused levels are asked
+    for; asked for, its levels take the 3d kernels' plain versions, and a step
+    draws the same normals and computes the same sample."""
     op = shiftedlaplace_fd(Lattice((8, 8, 8)), ConstantCorrelationLengthModel(0.3),
                            device=CPU, dtype=torch.float64)
     sampler = MultigridMCSampler(op, nlevel=2, cycle=1)
     assert sampler.fused_levels == {}
-    x = sampler.apply(GeneratorNoise(1, CPU), torch.zeros(op.vshape, dtype=torch.float64),
-                      torch.zeros((3,) + op.vshape, dtype=torch.float64))
+    f = torch.zeros(op.vshape, dtype=torch.float64)
+    x = sampler.apply(GeneratorNoise(1, CPU), f, torch.zeros((3,) + op.vshape,
+                                                             dtype=torch.float64))
     assert x.shape == (3, 7, 7, 7) and bool(torch.isfinite(x).all())
-    with pytest.raises(NotImplementedError, match="2d only"):
-        MultigridMCSampler(op, nlevel=2, fused=True)
+    fused = MultigridMCSampler(op, nlevel=2, cycle=1, fused=True)
+    assert list(fused.fused_levels) == [0] and fused.fused_levels[0].dim == 3
+    got = fused.apply(GeneratorNoise(1, CPU), f, torch.zeros((3,) + op.vshape,
+                                                             dtype=torch.float64))
+    torch.testing.assert_close(got, x, rtol=1e-12, atol=1e-12)

@@ -462,4 +462,4 @@ def test_every_route_rejects_what_the_kernels_do_not_take():
             mv.launch_ascend(fine, route, x[0], x, xc, cluster=8)
     assert all(v == 0 for v in mv.launch_counts.values())
     assert ({mv.KERNEL_NAMES[(r, k)] for r in mv.ROUTES for k in ("descend", "ascend")}
-            | set(mv.REACH2_NAMES.values())) == set(mv.launch_counts)
+            | set(mv.REACH2_NAMES.values()) | set(mv.DIM3_NAMES.values())) == set(mv.launch_counts)
