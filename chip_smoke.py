@@ -8,9 +8,10 @@ shifted-Laplace prior, 8 near-exact point measurements, 5-level W-cycle) - the
 batched float32 MGMC sampler (SOR, dense Cholesky on the coarsest level, 256
 chains) with every level's visit fused, with its coarse subtree distilled,
 with the subtree in one kernel launch and on the alternating sweep schedule,
-the exact band-Cholesky sampler, and the two config-file drivers - and the
-same sampler on the squared shifted-Laplace (biharmonic) and the FEM priors,
-on the card and checks, one phase after the other:
+with SSOR levels (two sweeps per visit), the exact band-Cholesky sampler, and
+the two config-file drivers - and the same sampler on the squared
+shifted-Laplace (biharmonic) and the FEM priors and on a 64^3 posterior, on
+the card and checks, one phase after the other:
 
 1. ``device``      the card (``nvidia-smi`` name and power limit);
 2. ``build``       ``nvcc`` builds the kernel sources of ``csrc/`` (one process
@@ -106,25 +107,30 @@ on the card and checks, one phase after the other:
                    tables over 256 replica chains, posterior statistics), the
                    same with the band sampler (the factorisation unset) and
                    MGMC on the alternating schedule, and ``drivers.mg``
-                   (SSOR-smoothed multigrid Richardson) from config files
-                   written to a temporary directory, at the flagship's size:
-                   output files, launch counters, the distill level
-                   ``"auto"`` chose, the Richardson contraction rate and the
-                   time series' means against the exact one; one step of the
-                   one-chain SSOR and MGMC samplers, host ms against kernel ms
-                   and launches;
+                   (SSOR-smoothed multigrid Richardson, its levels on the
+                   two-sweep split visit kernels) from config files written
+                   to a temporary directory, at the flagship's size: output
+                   files, launch counters, the distill level ``"auto"``
+                   chose, the Richardson contraction rate and the time
+                   series' means against the exact one; the same solve with
+                   its levels composed (the split sweep kernel); one step of
+                   the one-chain SSOR and MGMC samplers, host ms against
+                   kernel ms and launches;
 8. ``statistics``  a 64x64 posterior whose exact moments are known: one step
                    under replayed noise agrees between kernels and composed
-                   path; the sample mean and variance of an observable agree
-                   with the exact ones within 4 standard errors, through the
-                   visit kernels (1 and 16 chains: the split route; 128 and
-                   256 chains: the phase route; the alternating schedule at
-                   omega = 1.4 on the phase route at 256 chains and the split
-                   route at one chain), the plain path, the distilled subtree,
-                   the subtree kernel with its in-kernel noise and the SSOR
-                   sampler on the Gibbs sweep kernel (256 chains on the
-                   one-block route, 32 on the split route); and a batched
-                   deterministic solve agrees with the float64 dense solve;
+                   path; the sample mean and variance of an observable, and of
+                   the first measurement's functional ``B_0^T x`` (variance
+                   about 1e-6), agree with the exact ones within 4 standard
+                   errors, through the visit kernels (1 and 8 chains: the
+                   split route; 128 and 256 chains: the phase route; the
+                   alternating schedule at omega = 1.4 on the phase route at
+                   256 chains and the split route at one chain; SSOR levels on
+                   the two-sweep visits at 256 chains and at one chain), the
+                   plain path, the distilled subtree, the subtree kernel with
+                   its in-kernel noise and the SSOR sampler on the Gibbs sweep
+                   kernel (256 chains on the one-block route, 32 on the split
+                   route); and a batched deterministic solve, its levels
+                   composed and fused, agrees with the float64 dense solve;
 9. ``biharmonic``  the squared shifted-Laplace prior of
                    ``native/bench_biharmonic_tpu.py`` (255^2, 8 near-exact
                    measurements, 5 levels, 256 chains): the phase kernels'
@@ -159,8 +165,24 @@ on the card and checks, one phase after the other:
                    stream, their device times, registers and spills; the
                    statistical gate of ``native/validate_mgmc3d_tpu.py`` (32
                    chains, zero-mean protocol, 30 + 300 steps, 4 standard
-                   errors against the exact variance by converged float64 CG);
-                   ``drivers.mgmc`` and ``drivers.mg`` on a 32^3 config.
+                   errors against the exact variance by converged float64 CG)
+                   at the centre and on ``B_0^T x``; the descend's ``f_c`` on
+                   every fused level against a float64 visit (1e-4 of its
+                   scale); ``drivers.mgmc`` and ``drivers.mg`` on a 32^3
+                   config;
+11. ``ssor``       two sweeps per visit (SSOR): the flagship posterior with
+                   SSOR levels through ``MultigridMCSampler.apply`` at 256
+                   chains (level 0 on the phase kernels) and at one chain (the
+                   split kernels), the biharmonic (256 chains) and 64^3 (32
+                   chains) posteriors with SSOR levels, a few steps each; the
+                   two-sweep visits on each one's level 0 against their plain
+                   versions (noise off, tensors, in-kernel against the host's
+                   reference normals; the split kernels at one chain, clusters
+                   of 16, and against the phase kernels under one Philox
+                   stream), their device ms, plain ms and bounds, the 2d
+                   launch by pass from the stamps build (barriers against the
+                   source's count); the descend's ``f_c`` on every fused level
+                   of the flagship, SOR and SSOR, against a float64 visit.
 
 Device times come from ``torch.profiler``: the kernel matched by its full name
 (:func:`names_kernel`), the median of three windows, each of which must have
@@ -183,7 +205,8 @@ alone; ``sweeps``: the sweep kernels of both routes alone; ``sweep_check``:
 the one-block sweeps against their plain versions alone; ``sweep_stamps``: the
 generic one-block sweeps by pass, with ``sweep_passes`` the passes body too;
 ``sweep_threads``: the passes body's block-size table; ``volume``: the 3d
-posterior alone) and prints no result line.
+posterior alone; ``ssor``: the two-sweep visits alone) and prints no result
+line.
 """
 
 from __future__ import annotations
@@ -191,6 +214,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import io
+import itertools
 import json
 import os
 import re
@@ -209,7 +233,7 @@ PEAK_FP32_FLOPS = 67e12
 TOL = 2e-5
 FLAGSHIP_SEED = 20260816
 ALL_PHASES = {"kernels", "main_path", "band", "alternating", "drivers", "statistics",
-              "biharmonic", "volume"}
+              "biharmonic", "volume", "ssor"}
 
 
 def emit(obj) -> None:
@@ -446,7 +470,8 @@ def visit_bound(level, C, f_batched, kind):
     n = int(np.prod(op.vshape))
     nc = int(np.prod(level.vc))
     K, m = len(op.offsets), op.m_lowrank
-    order = level.pre_order if kind == "descend" else level.post_order
+    orders = level.orders(kind)
+    nd = len(orders)
 
     def area(boxes):
         return sum(int(np.prod([b[a + 1] - b[a] for a in range(0, len(b), 2)])) for b in boxes)
@@ -454,16 +479,16 @@ def visit_bound(level, C, f_batched, kind):
     shared = 0 if f_batched else n
     shared += n * sum(c is None for c in level.const_coeffs)
     shared += n if level.ns_const is None else 0
-    shared += area(level.bbox) + area(level._woodbury[order][2]) + m * m  # B, Y, W
-    if kind == "descend":
-        shared += m + m * m  # Sigma^-1 and the Gram matrix of the residual shortcut
-    chain = 2 * n + nc + (n if f_batched else 0) + m  # x in and out, f_c or x_c, f, xi_lr
+    shared += area(level.bbox) + m  # B, Sigma^1/2
+    shared += sum(area(level._woodbury[order][2]) + m * m for order in orders)  # Y, W
+    # x in and out, f_c or x_c, f, the low-rank normals of each sweep
+    chain = 2 * n + nc + (n if f_batched else 0) + nd * m
     words = shared + C * chain
-    # per point: noisy rhs (Philox + Box-Muller about 40, 2 + 2m), sweep 2K + 4,
-    # Woodbury 4m; descend adds the residual 2K + 1 + 2m and 2 3^d per coarse
-    # point, ascend the interpolation (about 4 d)
+    # per point and sweep: noisy rhs (Philox + Box-Muller about 40, 2), sweep
+    # 2K + 4, Woodbury 4m; descend adds the residual 2K + 1 + 2m and 2 3^d per
+    # coarse point, ascend the interpolation (about 4 d)
     dim = len(op.vshape)
-    flops = 42 + 2 * m + 2 * K + 4 + 4 * m
+    flops = nd * (42 + 2 * K + 4 + 4 * m)
     flops_total = C * (n * (flops + (2 * K + 1 + 2 * m if kind == "descend" else 4 * dim))
                        + (2 * 3 ** dim * nc if kind == "descend" else 0))
     t_bytes = 4 * words / PEAK_BYTES_PER_S * 1e3
@@ -514,7 +539,7 @@ def check_level(level, li, C, f_batched, gen, routes=("phase", "stream"), cluste
     errs = {name: 0.0 for route in routes for name in VISIT_KERNELS[route]}
     for noisy in (False, True):
         xi = rand(C, *vshape) if noisy else None
-        xi_lr = rand(C, m) * level.lr_scale if (noisy and m) else None
+        xi_lr = rand(C, m) if (noisy and m) else None
         tag = f"L{li} C={C} {'shared noise' if noisy else 'noise off'}"
         want_x, want_fc = mv.descend_visit_plain(level, f, x, xi, xi_lr)
         want = mv.ascend_visit_plain(level, f, x, xc, xi, xi_lr)
@@ -532,7 +557,7 @@ def check_level(level, li, C, f_batched, gen, routes=("phase", "stream"), cluste
         torch.cuda.synchronize()
         return errs, {}
     # one Philox stream through every route's kernels
-    xi_lr = rand(C, m) * level.lr_scale if m else None
+    xi_lr = rand(C, m) if m else None
     stream = (0x5EED_0000 + li, 7)
     out = {}
     for route in routes:
@@ -568,7 +593,7 @@ def visit_fns(level, route, noise, f, x, xc, cluster=None, threads=None):
         return mv.launch_descend(level, route, f, x, xi, xi_lr, philox, cluster, **kw)
 
     def ascend():
-        xi, xi_lr, philox = level._draw(noise, x)
+        xi, xi_lr, philox = level._draw(noise, x, "ascend")
         return mv.launch_ascend(level, route, f, x, xc, xi, xi_lr, philox, cluster, **kw)
 
     return descend, ascend
@@ -664,8 +689,8 @@ def time_level(level, C, f_batched, noise, plain=True, routes=("phase", "stream"
     x = torch.zeros((C,) + vshape, device=dev)
     xc = torch.randn((C,) + level.vc, device=dev)
 
-    def plain_noise():
-        xi, xi_lr, _ = level._draw(_TensorNoise(noise), x)
+    def plain_noise(kind="descend"):
+        xi, xi_lr, _ = level._draw(_TensorNoise(noise), x, kind)
         return xi, xi_lr
 
     out = {}
@@ -684,7 +709,7 @@ def time_level(level, C, f_batched, noise, plain=True, routes=("phase", "stream"
     out["descend_plain_ms"] = cuda_ms(
         lambda: mv.descend_visit_plain(level, f, x, *plain_noise()), 3, 3)
     out["ascend_plain_ms"] = cuda_ms(
-        lambda: mv.ascend_visit_plain(level, f, x, xc, *plain_noise()), 3, 3)
+        lambda: mv.ascend_visit_plain(level, f, x, xc, *plain_noise("ascend")), 3, 3)
     return out
 
 
@@ -920,6 +945,9 @@ class _TensorNoise:
         return t
 
     def philox_stream(self):
+        return None
+
+    def philox_streams(self, n):
         return None
 
 
@@ -2254,7 +2282,8 @@ def phase_new_kernels(device, nx, nlevel, C, n_meas, gen, noise):
 
 #: chain counts at which the split kernels are checked against the plain
 #: versions and the phase kernels: one chain (the drivers' time series) and 16
-#: (where the rule takes smaller clusters at 255^2)
+#: (where the rule takes smaller clusters at 255^2; above ``SPLIT_MAX_CHAINS``
+#: the rule's size uncapped)
 SPLIT_CHECK_VISIT_CHAINS = (1, 16)
 #: chains of the main-path variant that takes the phase kernels (above
 #: ``SPLIT_MAX_CHAINS``; the 256-chain variants take them too, as the route
@@ -2307,7 +2336,7 @@ def time_phase_passes(levels, noise):
                 device_ms = device_ms_median(fn, PROFILER_NAMES[name])
                 stamps = torch.zeros((C, mv.PHASE_STAMP_WIDTH), dtype=torch.int64, device=dev)
                 for _ in range(3):
-                    xi, xi_lr, philox = level._draw(noise, x)
+                    xi, xi_lr, philox = level._draw(noise, x, kind)
                     if kind == "descend":
                         mv.launch_descend(level, "phase", f, x, xi, xi_lr, philox, stamps=stamps)
                     else:
@@ -2319,11 +2348,11 @@ def time_phase_passes(levels, noise):
                 pt["sum_over_device_ms"] = pt["sum_us"] / 1e3 / device_ms
                 pt["span_over_device_ms"] = pt["launch_span_us"] / 1e3 / device_ms
                 pt["barriers_from_source"] = mv.phase_barrier_count(level, kind)
-                smem = level.phase_launch(level.pre_order if kind == "descend"
-                                          else level.post_order, kind == "descend", threads)[2]
+                smem = level.phase_launch(level.orders(kind), threads)[2]
                 pt["tables_in_shared_memory"] = smem > 0
                 pt["blocks_per_sm_occupancy_api"] = lib.mgmc_visit_blocks_per_sm(
-                    int(kind == "descend"), level.stencil_form, threads, smem)
+                    int(kind == "descend"), level.stencil_form, len(level.orders(kind)), threads,
+                    smem)
                 if pt["barriers_per_block"] != [pt["barriers_from_source"]]:
                     raise AssertionError(f"phase L{li} C={C} {kind}: the blocks passed "
                                          f"{pt['barriers_per_block']} barriers, the source places "
@@ -2351,13 +2380,13 @@ def phase_kernel_attributes():
     lib = mv.load_library()
     out = {}
     for form in range(mv.STENCIL_FORMS):
-        for kind, descend in (("descend", 1), ("ascend", 0)):
+        for (kind, descend), ndir in itertools.product((("descend", 1), ("ascend", 0)), (1, 2)):
             vals = (ctypes.c_int * 3)()
-            err = lib.mgmc_visit_kernel_attributes(descend, form, vals)
+            err = lib.mgmc_visit_kernel_attributes(descend, form, ndir, vals)
             if err:
                 raise AssertionError(f"phase {kind} kernel attributes: CUDA error {err}")
-            out[f"{kind} form {form}"] = {"registers": vals[0], "local_bytes": vals[1],
-                                          "static_shared_bytes": vals[2]}
+            out[f"{kind}{' ssor' if ndir == 2 else ''} form {form}"] = {
+                "registers": vals[0], "local_bytes": vals[1], "static_shared_bytes": vals[2]}
     return out
 
 
@@ -2374,7 +2403,7 @@ def check_phase_level(level, name, C, f_batched, gen):
     f = torch.randn((C,) + vshape if f_batched else vshape, device=dev, generator=gen)
     x = torch.randn((C,) + vshape, device=dev, generator=gen)
     xc = torch.randn((C,) + level.vc, device=dev, generator=gen)
-    xi_lr = torch.randn((C, m), device=dev, generator=gen) * level.lr_scale if m else None
+    xi_lr = torch.randn((C, m), device=dev, generator=gen) if m else None
     seed = 0x5EED_0009
 
     def reference(counter):
@@ -2390,8 +2419,8 @@ def check_phase_level(level, name, C, f_batched, gen):
     want = mv.ascend_visit_plain(level, f, x, xc, reference(12), xi_lr)
     errs["ascend_visit_philox"] = compare(f"ascend_visit x {tag}", got, want)
     torch.cuda.synchronize()
-    T = {kind: level.phase_launch(order, kind == "descend", level.phase_threads(C))[1]
-         for kind, order in (("descend", level.pre_order), ("ascend", level.post_order))}
+    T = {kind: level.phase_launch(level.orders(kind), level.phase_threads(C))[1]
+         for kind in ("descend", "ascend")}
     return {"level": name, "vshape": list(vshape), "chains": C, "m": m,
             "threads": level.phase_threads(C),
             "table_bytes": {k: 4 * t.words for k, t in T.items()},
@@ -2497,9 +2526,9 @@ def phase_visits(device, nx, nlevel, C, n_meas, gen, smi):
               for li, level in sorted(small.fused_levels.items()) for cluster in (None, 4)]
     for name, level, chains, f_batched, routes, cluster in cases:
         li = int(name[-1])
+        if "split" in routes and cluster is None:
+            cluster = mv.split_cluster(chains, level.op.vshape, capped=False)
         e, route_errs = check_level(level, li, chains, f_batched, gen, routes, cluster)
-        if "split" in routes:
-            cluster = level.split_cluster(chains) if cluster is None else cluster
         by_level.append({"level": name, "vshape": list(level.op.vshape), "chains": chains,
                          "f_batched": f_batched, "cluster": cluster, **e,
                          "against_phase_one_philox_stream": route_errs})
@@ -3060,6 +3089,44 @@ def time_one_chain_mgmc(device, nx, nlevel, n_meas, steps=200):
             "route_by_level": {li: level.route(1) for li, level in sampler.fused_levels.items()}}
 
 
+def composed_mg_solve(device, b):
+    """``params_mg.cfg``'s Richardson solve of ``b`` with every level composed
+    (``MultigridPreconditioner(..., fused=False)``: the SSOR sweeps on the
+    sweep kernels, the residual and transfers in plain PyTorch); its
+    iterations, contraction rates and solve seconds, and the launches it made
+    (the split sweep kernel's and no visit's)."""
+    from multigridmc_tpu_torch.drivers import mg as driver_mg
+    from multigridmc_tpu_torch.drivers.common import build_operators
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+    from multigridmc_tpu_torch.solvers.loop import IterativeSolverParameters, LoopSolver
+    from multigridmc_tpu_torch.solvers.multigrid import MultigridPreconditioner
+
+    config = driver_mg.load_config("params_mg.cfg")
+    _, op, _ = build_operators(config, torch.device(device), torch.float32)
+    mg, it = config.multigrid, config.iterative_solver
+    precond = MultigridPreconditioner(
+        op, nlevel=mg.nlevel, smoother=mg.smoother, npresmooth=mg.npresmooth,
+        npostsmooth=mg.npostsmooth, omega=mg.omega, cycle=mg.cycle,
+        coarse_scaling=mg.coarse_scaling, fused=False)
+    solver = LoopSolver(op, precond, IterativeSolverParameters(
+        rtol=it.rtol, atol=it.atol, maxiter=it.maxiter, verbose=0))
+    mv.reset_launch_counts()
+    ss.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = solver.solve_jit(b)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {**mv.launch_counts, **ss.launch_counts}
+    if (not result.converged or counts["sweep_batched_split"] <= 0
+            or any(mv.launch_counts.values())):
+        raise AssertionError(f"drivers.mg (composed): converged {result.converged}, launches "
+                             f"{counts}")
+    return {"solve_seconds": seconds, "iterations": result.niter,
+            "launches": {k: v for k, v in counts.items() if v}}, counts
+
+
 def phase_drivers(device, nx, nlevel, n_meas, nchains, nsamples, nwarmup, smi):
     from multigridmc_tpu_torch.drivers import mg as driver_mg
     from multigridmc_tpu_torch.drivers import mgmc as driver_mgmc
@@ -3143,7 +3210,8 @@ def phase_drivers(device, nx, nlevel, n_meas, nchains, nsamples, nwarmup, smi):
                                      f"{bar} from the exact mean {exact_mean}")
             out["mgmc"] = res
 
-            # ---- drivers.mg: Richardson, SSOR multigrid (the deterministic sweeps)
+            # ---- drivers.mg: Richardson, SSOR multigrid (the fused two-sweep
+            # visits: one right-hand side takes the split kernels)
             mv.reset_launch_counts()
             ss.reset_launch_counts()
             t0 = time.perf_counter()
@@ -3180,12 +3248,15 @@ def phase_drivers(device, nx, nlevel, n_meas, nchains, nsamples, nwarmup, smi):
             solution = read_vtk_scalars("solution.vtk")["solution"]
             if solution.shape != (n_vertices,) or not np.isfinite(solution).all():
                 raise AssertionError("drivers.mg: solution.vtk is not finite")
-            # one right-hand side: every sweep of the solve takes the split route
-            if counts_mg["sweep_batched_split"] <= 0:
-                raise AssertionError(f"drivers.mg: the split sweep kernel was not launched: "
-                                     f"{counts_mg}")
+            # one right-hand side: every fused SSOR visit takes the split kernels
+            ssor_split = [n + mv.SSOR_SUFFIX for n in VISIT_KERNELS["split"]]
+            if (min(counts_mg[n] for n in ssor_split) <= 0
+                    or any(counts_mg[n] for n in mv.launch_counts if n not in ssor_split)):
+                raise AssertionError(f"drivers.mg: the SSOR split visits were not the visits "
+                                     f"launched: {counts_mg}")
             out["mg"] = {
-                "seconds": seconds, "launches": counts_mg, "iterations": len(rows) - 1,
+                "seconds": seconds, "launches": {k: v for k, v in counts_mg.items() if v},
+                "iterations": len(rows) - 1,
                 "relative_residual": rows[-1][2], "contraction_rates": rates,
                 "contraction_rates_float64_plain": rates64,
                 "setup_seconds": float(re.search(r"multigrid setup time = (\S+) s", text).group(1)),
@@ -3194,6 +3265,12 @@ def phase_drivers(device, nx, nlevel, n_meas, nchains, nsamples, nwarmup, smi):
             out["mg"]["distill_level"] = None if chosen is None else int(chosen.group(1))
             if out["mg"]["distill_level"] != 2:
                 raise AssertionError("drivers.mg: distill='auto' did not choose level 2")
+            # the same solve with the levels composed (fused=False), the "before"
+            # of the fused SSOR visits: every sweep a launch of the split sweep
+            # kernel (one right-hand side)
+            out["mg_composed"], composed_counts = composed_mg_solve(device, b)
+            for name, count in composed_counts.items():
+                counts_mg[name] += count
 
             # ---- drivers.mgmc: the band sampler (factorisation unset) and MGMC
             # on the alternating schedule
@@ -3636,12 +3713,16 @@ SSOR_GATE = {"warmup": 2000, "steps": 4000, "thin": 10}
 SSOR_SPLIT_CHAINS = 32
 #: chains of the MGMC gate through the split visit kernels beside the one-chain
 #: gate: the most the route splits (``mgmc_visit.SPLIT_MAX_CHAINS``; 32 before
-#: the phase kernels ran the passes of ``csrc/level_passes.cuh``)
-SPLIT_GATE_CHAINS = 16
+#: the phase kernels ran the passes of ``csrc/level_passes.cuh``, 16 before they
+#: took the low-rank noise into the Woodbury correction)
+SPLIT_GATE_CHAINS = 8
 #: the MGMC gate through the split visit kernels at one chain: steps, and the
 #: batches whose means stand in for independent chains (the W-cycle's
 #: autocorrelation time on the 64x64 posterior is a few steps)
 SPLIT_GATE = {"steps": 3000, "batches": 30}
+#: the same for the two-sweep visits at one chain (a step takes twice the
+#: sweeps, and the run's time is bounded): half the steps, 30 batches of 50
+SSOR_SPLIT_GATE_STEPS = 1500
 #: the alternating schedule's statistical gates: over-relaxed, as the reference's
 #: own warm-up diagnostic runs it
 ALTERNATING = {"sweep_schedule": "alternating", "omega": 1.4}
@@ -3708,6 +3789,18 @@ def phase_statistics(device, nx, C, warmup, steps):
     z_mean, z_var = observed_mean_and_variance(op, xbar, params.y(), w)
     wt = torch.as_tensor(w, dtype=torch.float32, device=device).reshape(-1)
     out["exact"] = {"mean": z_mean, "variance": z_var}
+    # beside w, the first measurement's own functional B_0^T x (variance about
+    # its Sigma, 1e-6), gated the same way on every variant
+    b0 = op.lowrank.B[0].double().cpu().numpy()
+    b0_mean, b0_var = observed_mean_and_variance(op, xbar, params.y(), b0)
+    out["exact_B0"] = {"mean": b0_mean, "variance": b0_var}
+    wb = torch.stack([wt, op.lowrank.B[0].reshape(-1).float()]).T.double()  # (n, 2)
+
+    def gate_both(name, z, Cz):
+        """``z`` (steps, chains, 2): the gate on w and, beside it, on B_0^T x."""
+        res = moments_gate(name, z[..., 0], z_mean, z_var, Cz)
+        res["B0"] = moments_gate(f"{name} B_0^T x", z[..., 1], b0_mean, b0_var, Cz)
+        return res
     # through the visit kernels, the plain path, the distilled subtree (31^2
     # and 15^2 as one affine map) and the subtree kernel with its in-kernel noise
     # and through the split visit kernels at one chain (batch means over its
@@ -3729,7 +3822,13 @@ def phase_statistics(device, nx, C, warmup, steps):
                  steps),
                 ("kernels_split_one_chain_alternating", dict(ALTERNATING, fused=True,
                                                              distill=False), 1008, 1,
-                 SPLIT_GATE["steps"]))
+                 SPLIT_GATE["steps"]),
+                # SSOR levels on the two-sweep visit kernels: the phase kernels
+                # at C chains, the split kernels at one chain (the JAX package's
+                # gate 3c, "SSOR fused MGMC")
+                ("kernels_ssor", dict(smoother="SSOR", fused=True, distill=False), 1009, C, steps),
+                ("kernels_ssor_split_one_chain", dict(smoother="SSOR", fused=True, distill=False),
+                 1010, 1, SSOR_SPLIT_GATE_STEPS))
     for name, kwargs, seed, Cv, nsteps in variants:
         inner = MultigridMCSampler(op, 3, cycle=2, fused_min_vertices=0, **kwargs)
         if (name == "distilled") != (inner.distilled is not None and inner.distill_level == 1):
@@ -3744,26 +3843,26 @@ def phase_statistics(device, nx, C, warmup, steps):
         zs = []
         for k in range(warmup, warmup + nsteps):
             x = sampler.apply_indexed(noise, None, x, k)
-            zs.append((x.reshape(Cv, -1) @ wt).double())
-        z = torch.stack(zs).cpu().numpy()  # (steps, Cv)
+            zs.append(x.reshape(Cv, -1).double() @ wb)
+        z = torch.stack(zs).cpu().numpy()  # (steps, Cv, 2)
         if Cv == 1:  # one chain: its series in batches, whose means are nearly independent
-            z = z[:, 0].reshape(SPLIT_GATE["batches"], -1).T
-        out[name] = moments_gate(name, z, z_mean, z_var, z.shape[1])
+            z = z[:, 0].reshape(SPLIT_GATE["batches"], -1, 2).transpose(1, 0, 2)
+        out[name] = gate_both(name, z, z.shape[1])
         out[name]["chains"] = Cv
         if name.startswith("kernels"):  # the visit kernels of this chain count's route
             routes = {level.route(Cv) for engine in (0, 1)
                       for level in inner._engine(engine)[2].values()}
             route = routes.pop()
-            want = ("split" if name.startswith("kernels_split") else
+            want = ("split" if "split" in name else
                     "phase" if name == "kernels_phase" else mv.visit_route(Cv))
+            suffix = mv.SSOR_SUFFIX if kwargs.get("smoother") == "SSOR" else ""
+            names = [n + suffix for n in VISIT_KERNELS[route]]
             out[name]["route"] = route
-            out[name]["launches"] = dict(mv.launch_counts)
-            other = [n for r, names in VISIT_KERNELS.items() if r != route for n in names]
-            if (routes or route != want
-                    or min(mv.launch_counts[n] for n in VISIT_KERNELS[route]) <= 0
-                    or any(mv.launch_counts[n] for n in other)):
+            out[name]["launches"] = {n: c for n, c in mv.launch_counts.items() if c}
+            if (routes or route != want or min(mv.launch_counts[n] for n in names) <= 0
+                    or any(c for n, c in mv.launch_counts.items() if n not in names)):
                 raise AssertionError(f"statistics ({name}): visit launches {mv.launch_counts}, "
-                                     f"expected the {want} kernels only")
+                                     f"expected {names} only")
         if name == "subtree_kernel":
             out[name]["launches"] = st.launch_counts["subtree_sample"]
             if st.launch_counts["subtree_sample"] != warmup + nsteps:
@@ -3779,13 +3878,12 @@ def phase_statistics(device, nx, C, warmup, steps):
     for k in range(SSOR_GATE["warmup"] + SSOR_GATE["steps"]):
         x = sampler.apply(noise, None, x)
         if k >= SSOR_GATE["warmup"] and (k - SSOR_GATE["warmup"]) % SSOR_GATE["thin"] == 0:
-            zs.append((x.reshape(C, -1) @ wt).double())
+            zs.append(x.reshape(C, -1).double() @ wb)
     z = torch.stack(zs).cpu().numpy()
     launches = ss.launch_counts["gibbs_sweep_batched"]
     if launches != 2 * (SSOR_GATE["warmup"] + SSOR_GATE["steps"]):
         raise AssertionError(f"statistics (ssor): {launches} Gibbs sweep launches")
-    out["ssor_kernel"] = {**SSOR_GATE, "launches": launches,
-                          **moments_gate("ssor_kernel", z, z_mean, z_var, C)}
+    out["ssor_kernel"] = {**SSOR_GATE, "launches": launches, **gate_both("ssor_kernel", z, C)}
     # the same gate through the split route, at a chain count that takes it
     Cs = SSOR_SPLIT_CHAINS
     route = sampler.inner.forward.smoother.plan.route(Cs, 1)
@@ -3798,7 +3896,7 @@ def phase_statistics(device, nx, C, warmup, steps):
     for k in range(SSOR_GATE["warmup"] + SSOR_GATE["steps"]):
         x = sampler.apply(noise, None, x)
         if k >= SSOR_GATE["warmup"] and (k - SSOR_GATE["warmup"]) % SSOR_GATE["thin"] == 0:
-            zs.append((x.reshape(Cs, -1) @ wt).double())
+            zs.append(x.reshape(Cs, -1).double() @ wb)
     z = torch.stack(zs).cpu().numpy()
     launches = ss.launch_counts["gibbs_sweep_batched_split"]
     if launches != 2 * (SSOR_GATE["warmup"] + SSOR_GATE["steps"]) or ss.launch_counts[
@@ -3806,28 +3904,34 @@ def phase_statistics(device, nx, C, warmup, steps):
         raise AssertionError(f"statistics (ssor, split): launches {ss.launch_counts}")
     out["ssor_kernel_split"] = {**SSOR_GATE, "chains": Cs, "route": list(route),
                                 "launches": launches,
-                                **moments_gate("ssor_kernel_split", z, z_mean, z_var, Cs)}
+                                **gate_both("ssor_kernel_split", z, Cs)}
 
-    # (4) a batched deterministic solve through the sweep kernels: Richardson
-    # with the SSOR-smoothed W-cycle, 64 right-hand sides as one system (the
-    # route of 64 chains), against the float64 dense solve
+    # (4) a batched deterministic solve: Richardson with the SSOR-smoothed
+    # W-cycle, 64 right-hand sides as one system (the route of 64 chains),
+    # against the float64 dense solve; with its levels fused (the two-sweep
+    # visits on the phase kernels) and composed (every sweep a launch of the
+    # sweep kernels)
     op, _ = build_posterior(nx, 4, 77, "order_one", device)
     gen = torch.Generator(device=device)
     gen.manual_seed(21)
     b = torch.randn((64,) + op.vshape, device=device, generator=gen)
-    precond = MultigridPreconditioner(op, 3, smoother="SSOR", cycle=2)
-    ss.reset_launch_counts()
-    result = LoopSolver(op, precond, IterativeSolverParameters(
-        rtol=1e-5, atol=1.0, maxiter=30)).solve_jit(b)
     dense = torch.as_tensor(op.to(dtype=torch.float64).to_dense(), device=device)
     want = torch.linalg.solve(dense, b.double().reshape(64, -1).T).T.reshape(b.shape)
-    rel = float((result.x.double() - want).norm() / want.norm())
-    sweeps = ss.launch_counts["sweep_batched"] + ss.launch_counts["sweep_batched_split"]
-    out["batched_solve"] = {"rhs": 64, "iterations": result.niter, "converged": result.converged,
-                            "relative_error": rel, "sweep_launches": sweeps,
-                            "split_launches": ss.launch_counts["sweep_batched_split"]}
-    if not result.converged or rel > 1e-4 or sweeps <= 0:
-        raise AssertionError(f"statistics (batched solve): {out['batched_solve']}")
+    for key, fused in (("batched_solve", False), ("batched_solve_fused", True)):
+        precond = MultigridPreconditioner(op, 3, smoother="SSOR", cycle=2, fused=fused)
+        ss.reset_launch_counts()
+        mv.reset_launch_counts()
+        result = LoopSolver(op, precond, IterativeSolverParameters(
+            rtol=1e-5, atol=1.0, maxiter=30)).solve_jit(b)
+        rel = float((result.x.double() - want).norm() / want.norm())
+        sweeps = ss.launch_counts["sweep_batched"] + ss.launch_counts["sweep_batched_split"]
+        visits = sum(mv.launch_counts[n + mv.SSOR_SUFFIX] for n in VISIT_KERNELS["phase"])
+        out[key] = {"rhs": 64, "iterations": result.niter, "converged": result.converged,
+                    "relative_error": rel, "sweep_launches": sweeps,
+                    "split_launches": ss.launch_counts["sweep_batched_split"],
+                    "ssor_phase_visit_launches": visits}
+        if not result.converged or rel > 1e-4 or (visits <= 0 if fused else sweeps <= 0):
+            raise AssertionError(f"statistics ({key}): {out[key]}")
     emit(out)
 
 
@@ -3909,7 +4013,7 @@ def check_phase_only_level(level, name, C, gen, label="biharmonic"):
     errs = {"x": 0.0, "f_c_over_scale": 0.0, "ascend_x": 0.0}
     for noisy in (False, True):
         xi = rand(C, *vshape) if noisy else None
-        xi_lr = rand(C, m) * level.lr_scale if (noisy and m) else None
+        xi_lr = rand(C, m) if (noisy and m) else None
         tag = f"{label} {name} C={C} {'shared noise' if noisy else 'noise off'}"
         want_x, want_fc = mv.descend_visit_plain(level, f, x, xi, xi_lr)
         got_x, got_fc = mv.launch_descend(level, "phase", f, x.clone(), xi=xi, xi_lr=xi_lr)
@@ -3920,7 +4024,7 @@ def check_phase_only_level(level, name, C, gen, label="biharmonic"):
         got = mv.launch_ascend(level, "phase", f, x.clone(), xc, xi=xi, xi_lr=xi_lr)
         errs["ascend_x"] = max(errs["ascend_x"], compare(f"ascend x {tag}", got, want))
         del want_x, want_fc, got_x, got_fc, want, got
-    xi_lr = rand(C, m) * level.lr_scale if m else None
+    xi_lr = rand(C, m) if m else None
     seed = 0x5EED_0012
     got_x, got_fc = mv.launch_descend(level, "phase", f, x.clone(), xi_lr=xi_lr, philox=(seed, 11))
     got = mv.launch_ascend(level, "phase", f, x.clone(), xc, xi_lr=xi_lr, philox=(seed, 12))
@@ -3971,14 +4075,14 @@ def time_phase_only_level(level, C, noise):
         out[f"{kind}_bound_ms"], out[f"{kind}_bound_by"], out[f"{kind}_bytes"] = bound, by, nbytes
     x.zero_()
 
-    def plain_noise():
-        xi, xi_lr, _ = level._draw(_TensorNoise(noise), x)
+    def plain_noise(kind="descend"):
+        xi, xi_lr, _ = level._draw(_TensorNoise(noise), x, kind)
         return xi, xi_lr
 
     out["descend_plain_ms"] = cuda_ms(
         lambda: mv.descend_visit_plain(level, f, x, *plain_noise()), 3, 3)
     out["ascend_plain_ms"] = cuda_ms(
-        lambda: mv.ascend_visit_plain(level, f, x, xc, *plain_noise()), 3, 3)
+        lambda: mv.ascend_visit_plain(level, f, x, xc, *plain_noise("ascend")), 3, 3)
     return out
 
 
@@ -3993,13 +4097,13 @@ def build_kernel_attributes(reach=2, dim=2):
     _, _, form0, nforms, _, _ = mv.PHASE_BUILDS[(reach, dim)]
     out = {}
     for form in range(form0, form0 + nforms):
-        for kind, descend in (("descend", 1), ("ascend", 0)):
+        for (kind, descend), ndir in itertools.product((("descend", 1), ("ascend", 0)), (1, 2)):
             vals = (ctypes.c_int * 3)()
-            err = lib.mgmc_visit_kernel_attributes(descend, form, vals)
+            err = lib.mgmc_visit_kernel_attributes(descend, form, ndir, vals)
             if err:
                 raise AssertionError(f"form {form} {kind} kernel attributes: CUDA error {err}")
-            out[f"{kind} form {form}"] = {"registers": vals[0], "local_bytes": vals[1],
-                                          "static_shared_bytes": vals[2]}
+            out[f"{kind}{' ssor' if ndir == 2 else ''} form {form}"] = {
+                "registers": vals[0], "local_bytes": vals[1], "static_shared_bytes": vals[2]}
     return out
 
 
@@ -4554,14 +4658,10 @@ def volume_posterior(nx, device, dtype=torch.float32, near_exact=True):
     """The 3d posterior of the bench on an ``nx^3`` lattice, its measurements
     and the bench's rhs ``f`` (uniform, drawn after the measurements); with
     ``near_exact=False`` the variances are ``0.5 + u``, for the elementwise
-    checks.  With near-exact variances neither the kernel nor its plain version
-    holds ``f_c`` to float32 rounding, and each cancels its own way: the
-    residual's low-rank term ``Sigma^-1 B^T x'`` (``Sigma^-1`` about 1e6) is
-    formed by the kernel as ``Sigma^-1 (I - G) B^T x`` with ``G`` in float32
-    (the TPU kernel's shortcut, ``mgmc_visit_pallas.py:372``) and by the plain
-    version from ``B^T x'`` on the corrected field, where ``x'`` keeps a few
-    bits at a measured vertex; :func:`volume_near_exact_fc` reads both against
-    a float64 visit on the main path's levels."""
+    checks.  With near-exact variances the kernel and its plain version take
+    the residual's low-rank term ``Sigma^-1 B^T x'`` (``Sigma^-1`` about 1e6) as
+    ``t = u + Sigma^-1/2 n``, exact; :func:`near_exact_fc` holds both to a
+    float64 visit on the main path's levels."""
     from multigridmc_tpu_torch.lattice import Lattice
     from multigridmc_tpu_torch.models.correlation import ConstantCorrelationLengthModel
     from multigridmc_tpu_torch.models.posterior import MeasurementParameters, measured_operator
@@ -4611,11 +4711,11 @@ def check_volume_composed(sampler, li, C, gen):
             return z.clone()
 
     before = dict(ss.launch_counts)
-    got_x, got_fc = mv.launch_descend(level, "phase", f, x.clone(), xi_lr=z * level.lr_scale,
+    got_x, got_fc = mv.launch_descend(level, "phase", f, x.clone(), xi_lr=z,
                                       philox=OneStream(5).philox_stream())
     want_x = sampler.presamplers[li].apply(OneStream(5), f, x.clone())
     want_fc = restrict(f - op.apply(want_x), dim=3)
-    got = mv.launch_ascend(level, "phase", f, x.clone(), xc, xi_lr=z * level.lr_scale,
+    got = mv.launch_ascend(level, "phase", f, x.clone(), xc, xi_lr=z,
                            philox=OneStream(6).philox_stream())
     want = sampler.postsamplers[li].apply(OneStream(6), f,
                                           prolongate_add(level.coarse_scaling, xc, x, dim=3))
@@ -4629,46 +4729,63 @@ def check_volume_composed(sampler, li, C, gen):
             "ascend_x": compare(f"ascend x {tag}", got, want)}
 
 
-def volume_near_exact_fc(level, name, C, gen):
-    """A reading, not a check: the descend's ``f_c`` on a main-path 3d level
-    (the near-exact posterior, noise off, ``C`` chains) from the kernel, from
-    its float32 plain version and from the plain version with the residual's
-    low-rank term taken as ``t = u = W B^T x``, which equals the kernel's
-    ``Sigma^-1 (I - G) B^T x`` in exact arithmetic (``I - G = Sigma W``) and
-    needs no ``G``; each against the plain version of the same level in
-    float64, over that ``f_c``'s scale ``max(|f_c|, 1)``."""
-    from multigridmc_tpu_torch.ops.intergrid import restrict
+#: the descend's f_c of a float32 visit (kernel and plain version) off a
+#: float64 visit on a near-exact level, over its scale max(|f_c|, 1)
+NEAR_EXACT_FC_TOL = 1e-4
+
+
+def near_exact_fc(level, name, C, gen):
+    """A check: the descend's ``f_c`` on a main-path level of a near-exact
+    posterior (2d or 3d, one sweep or two, ``C`` chains), noise off and with
+    the same noise tensors, from the kernel of the level's route and from its
+    float32 plain version, each against the plain version of the same level in
+    float64 within :data:`NEAR_EXACT_FC_TOL` of that ``f_c``'s scale
+    ``max(|f_c|, 1)``.  With the low-rank noise in the rhs and the residual's
+    term as ``Sigma^-1 (I - G) B^T x`` (the TPU kernel's form) the kernel read
+    1.0% / 19.7% off on the 64^3 posterior's 63^3 / 31^3 levels and the plain
+    version 4.7% / 35.9% (PERF.md section 6)."""
     from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
-    from multigridmc_tpu_torch.smoothers import compute_B_bar, sor_sweep
+    from multigridmc_tpu_torch.smoothers import compute_B_bar
 
     op, dev = level.op, level.coeffs.device
+    nd = level.ndir
     f = torch.randn(op.vshape, device=dev, generator=gen)
     x = torch.randn((C,) + op.vshape, device=dev, generator=gen)
+    xi = torch.randn(((nd,) if nd > 1 else ()) + (C,) + op.vshape, device=dev, generator=gen)
+    xi_lr = torch.randn((C, nd * op.m_lowrank), device=dev, generator=gen)
     op64, masks64 = op.to(dtype=torch.float64), level.masks.double()
-    exact = mv.FusedVisitLevel(op64, level.coloring, level.omega, level.pre_order,
-                               level.post_order,
-                               *(compute_B_bar(op64, masks64, level.omega, order)
-                                 for order in (level.pre_order, level.post_order)),
+    bbar = {kind: torch.cat([compute_B_bar(op64, masks64, level.omega, order)
+                             for order in level.orders(kind)])
+            for kind in ("descend", "ascend")}
+    exact = mv.FusedVisitLevel(op64, level.coloring, level.omega, level.pre_orders,
+                               level.post_orders, bbar["descend"], bbar["ascend"],
                                level.coarse_scaling)
-    _, want = mv.descend_visit_plain(exact, f.double(), x.double())
+    route = level.route(C)
+    out = {"level": name, "vshape": list(op.vshape), "chains": C, "sweeps": nd, "route": route}
+    for tag, noise in (("noise_off", (None, None)), ("noise", (xi, xi_lr))):
+        _, want = mv.descend_visit_plain(exact, f.double(), x.double(),
+                                         *(None if t is None else t.double() for t in noise))
+        _, kernel = mv.launch_descend(level, route, f, x.clone(), *noise)
+        _, plain = mv.descend_visit_plain(level, f, x, *noise)
+        torch.cuda.synchronize()
+        scale = max(float(want.abs().max()), 1.0)
+        res = {"f_c_scale": scale,
+               "kernel_against_float64": float((kernel.double() - want).abs().max()) / scale,
+               "plain_against_float64": float((plain.double() - want).abs().max()) / scale}
+        out[tag] = res
+        if max(res["kernel_against_float64"], res["plain_against_float64"]) > NEAR_EXACT_FC_TOL:
+            raise AssertionError(f"near-exact f_c {name} C={C} {tag}: {res}, more than "
+                                 f"{NEAR_EXACT_FC_TOL} of its scale off float64")
     del exact
-    _, kernel = mv.launch_descend(level, "phase", f, x.clone())
-    _, plain = mv.descend_visit_plain(level, f, x)
-    Y, W, _ = level._woodbury[level.pre_order]
-    xs = sor_sweep(op, level.masks, level.omega, level.pre_order, f, x)
-    u = op.lowrank.bt(xs) @ W.T
-    xs = xs - torch.einsum("cl,l...->c...", u, Y)
-    with_u = restrict(f - op.apply_stencil(xs) - op.lowrank.expand(u), dim=3)
-    scale = max(float(want.abs().max()), 1.0)
+    return out
 
-    def off(got):
-        return float((got.double() - want).abs().max()) / scale
 
-    torch.cuda.synchronize()
-    return {"level": name, "vshape": list(op.vshape), "chains": C, "f_c_scale": scale,
-            "kernel_against_float64": off(kernel), "plain_against_float64": off(plain),
-            "t_equals_u_against_float64": off(with_u),
-            "kernel_against_plain": float((kernel - plain).abs().max()) / scale}
+#: the gate's reading of B_0^T x with the sweep's low-rank noise in the rhs
+#: (the TPU kernel's arithmetic; PERF.md section 6, NVIDIA H100 80GB HBM3,
+#: 700.00 W): then read, not gated
+B0_BEFORE = {"variance": 1.4481989855943245e-06, "exact": 1.192402027783146e-06,
+             "variance_sigmas": 8.954234938796553,
+             "source": "PERF.md section 6 (the low-rank noise in the rhs)"}
 
 
 def volume_gate(sampler, op, device):
@@ -4676,13 +4793,11 @@ def volume_gate(sampler, op, device):
     main path: the zero-mean protocol (f = 0 from x = 0) at 32 chains, 30
     warm-up and 300 steps; the mean and variance of the point observation at
     the centre within 4 standard errors of 0 and of the exact float64 variance
-    (``observed_mean_and_variance``: CG on the card, which must converge).
-    Beside it a reading, not gated: the same moments of the first
-    measurement's own functional ``B_0^T x``, whose variance (about its
-    Sigma, 1e-6) float32 does not resolve: the Gibbs rhs carries
-    ``Sigma^-1/2`` (1e3) times a normal at the measured vertex, and the
-    Woodbury correction cancels it down to 1e-3 in float32 (float64 holds
-    it)."""
+    (``observed_mean_and_variance``: CG on the card, which must converge); and
+    gated the same way, the first measurement's own functional ``B_0^T x``
+    (variance about its Sigma, 1e-6), which float32 resolves since the sweep's
+    low-rank noise enters the Woodbury correction and not the rhs (before: the
+    variance 21% high, :data:`B0_BEFORE`)."""
     from multigridmc_tpu_torch.models.posterior import (measurement_vector,
                                                         observed_mean_and_variance)
     from multigridmc_tpu_torch.samplers.base import GeneratorNoise
@@ -4713,8 +4828,7 @@ def volume_gate(sampler, op, device):
     z = torch.stack(zs).cpu().numpy()  # (steps, chains, observations)
     out = {"chains": C, "warmup": g["warmup"], "steps": g["steps"]}
     for k, name in enumerate(observations):
-        res = moments_gate(f"volume 64^3 {name}", z[:, :, k], 0.0, exact[name], C,
-                           gated=name == "centre")
+        res = moments_gate(f"volume 64^3 {name}", z[:, :, k], 0.0, exact[name], C)
         res.update({"exact_variance": exact[name], "exact_variance_seconds": exact_seconds[name]})
         out[name] = res
     out["centre"]["observation"] = [0.5, 0.5, 0.5]
@@ -4830,8 +4944,8 @@ def phase_volume(device, smi):
       its scale) and against the composed visit under one Philox stream
       (:func:`check_volume_composed`), on the same lattice with order-one
       measurement variances; the descend's ``f_c`` on the main path's
-      near-exact levels against a float64 visit (:func:`volume_near_exact_fc`,
-      a reading); their device ms on the main path's levels (the median of
+      near-exact levels against a float64 visit (:func:`near_exact_fc`, a
+      check at :data:`NEAR_EXACT_FC_TOL`); their device ms on the main path's levels (the median of
       three profiler windows, held to the events), registers and spills;
     * every sweep the distillation set-up launches (the generic body on
       15^3, 27-point, 8 colours), at its shapes, against the plain sweep
@@ -4914,14 +5028,20 @@ def _volume_parts(out, device):
                                for li in (0, 1) for C in VOLUME_CHAINS]
     del checked
     # and the reading of f_c on the main path's own near-exact levels
-    out["near_exact_f_c"] = [volume_near_exact_fc(levels[li], f"L{li}", VOLUME_CHAINS[0], gen)
-                             for li in (0, 1)]
+    out["near_exact_f_c"] = [near_exact_fc(levels[li], f"L{li}", VOLUME_CHAINS[0], gen)
+                             for li in sorted(levels)]
     parts["checks"] = time.perf_counter() - t0 - sum(parts.values())
     noise = GeneratorNoise(VOLUME_SEED + 2, device)
     out["timings"] = [time_phase_only_level(levels[li], C, noise)
                       for li in (0, 1) for C in VOLUME_CHAINS]
     parts["timings"] = time.perf_counter() - t0 - sum(parts.values())
     out["statistics"] = volume_gate(sampler, op, device)
+    b0 = out["statistics"]["measurement_0"]
+    emit({"volume_B0": {"before": B0_BEFORE,
+                        "after": {"variance": b0["variance"], "exact": b0["exact_variance"],
+                                  "variance_sigmas": b0["variance_sigmas"],
+                                  "mean_sigmas": b0["mean_sigmas"],
+                                  "source": "this run, chip_smoke.py volume_gate"}}})
     parts["statistics"] = time.perf_counter() - t0 - sum(parts.values())
     del sampler, samplers, levels
     out["drivers"] = volume_drivers(VOLUME_NLEVEL - 1, VOLUME_CHAINS[0])
@@ -4929,11 +5049,245 @@ def _volume_parts(out, device):
     out["seconds"] = time.perf_counter() - t0
 
 
+# -------------------------------------------------------------- phase: ssor
+#: the SSOR flagship: chains of the phase route's path (level 0 on the phase
+#: kernels) and of the one-chain path (level 0 on the split kernels), steps
+#: of each; the 3d SSOR posterior's chains; steps of the reach-2 and 3d SSOR
+#: samplers (their levels' visits are the point)
+SSOR_CHAINS = (256, 1)
+SSOR_STEPS = 10
+SSOR_VOLUME_CHAINS = 32
+SSOR_OTHER_STEPS = 3
+#: the split route's cluster size at one chain on the 255^2 level
+SSOR_SPLIT_CLUSTER = 16
+#: chains at the start and at the end of a two-sweep launch whose in-kernel
+#: normals are held against the host's reference (its recomputation on the
+#: host takes most of a check's time)
+SSOR_NOISE_CHECK = 8
+
+
+def check_ssor_level(level, name, C, gen, route, cluster=None):
+    """A two-sweep (SSOR) level's visit kernels of ``route`` against their
+    plain versions at ``C`` chains: noise off and the same noise tensors (two
+    fields, ``(C, 2 m)`` low-rank normals), then the in-kernel generator
+    (direction ``d`` on the counter ``+ d``) against the plain versions fed
+    the host's reference normals of both counters (the first and the last
+    :data:`SSOR_NOISE_CHECK` chains); ``x`` elementwise within TOL, ``f_c`` by
+    :func:`compare_fc`.  The level's own route at ``C`` must be ``route``, and
+    the stream kernels (and for a reach-2 or 3d level the split kernels too)
+    must refuse it before they launch.  With ``route`` split, the split
+    kernels are held against the phase kernels under one Philox stream."""
+    from multigridmc_tpu_torch.ops.kernels import common
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+
+    if level.ndir != 2 or level.route(C) != route:
+        raise AssertionError(f"ssor {name}: {level.ndir} sweeps, route {level.route(C)} at "
+                             f"{C} chains, expected two sweeps and {route}")
+    dev = level.coeffs.device
+    vshape, m = level.op.vshape, level.op.m_lowrank
+
+    def rand(*shape):
+        return torch.randn(*shape, device=dev, dtype=torch.float32, generator=gen)
+
+    f, x, xc = rand(*vshape), rand(C, *vshape), rand(C, *level.vc)
+    before = dict(mv.launch_counts)
+    refused = ("stream",) if level.reach == 1 and level.dim == 2 else ("split", "stream")
+    for other in refused:
+        try:
+            mv.launch_descend(level, other, f, x.clone())
+        except NotImplementedError:
+            continue
+        raise AssertionError(f"ssor {name}: the {other} route took the level")
+    if mv.launch_counts != before:
+        raise AssertionError(f"ssor {name}: a refused launch was counted")
+    kw = {"cluster": cluster} if route == "split" else {}
+    errs = {"x": 0.0, "f_c_over_scale": 0.0, "ascend_x": 0.0}
+    for noisy in (False, True):
+        xi = rand(2, C, *vshape) if noisy else None
+        xi_lr = rand(C, 2 * m) if (noisy and m) else None
+        tag = f"ssor {name} C={C} {route} {'shared noise' if noisy else 'noise off'}"
+        want_x, want_fc = mv.descend_visit_plain(level, f, x, xi, xi_lr)
+        got_x, got_fc = mv.launch_descend(level, route, f, x.clone(), xi, xi_lr, **kw)
+        errs["x"] = max(errs["x"], compare(f"descend x {tag}", got_x, want_x))
+        errs["f_c_over_scale"] = max(errs["f_c_over_scale"],
+                                     compare_fc(f"descend f_c {tag}", got_fc, want_fc))
+        want = mv.ascend_visit_plain(level, f, x, xc, xi, xi_lr)
+        got = mv.launch_ascend(level, route, f, x.clone(), xc, xi, xi_lr, **kw)
+        errs["ascend_x"] = max(errs["ascend_x"], compare(f"ascend x {tag}", got, want))
+        del want_x, want_fc, got_x, got_fc, want, got
+    xi_lr = rand(C, 2 * m) if m else None
+    seed = 0x5EED_0014
+    got_x, got_fc = mv.launch_descend(level, route, f, x.clone(), xi_lr=xi_lr, philox=(seed, 11),
+                                      **kw)
+    got = mv.launch_ascend(level, route, f, x.clone(), xc, xi_lr=xi_lr, philox=(seed, 13), **kw)
+    for first, n in ((0, min(C, SSOR_NOISE_CHECK)), (max(C - SSOR_NOISE_CHECK, 0),
+                                                   min(C, SSOR_NOISE_CHECK))):
+        part = slice(first, first + n)
+        tag = f"ssor {name} C={C} {route} in-kernel noise, chains {first}..{first + n - 1}"
+
+        def ref(counter):
+            return torch.stack([torch.as_tensor(common.philox_normals_reference(
+                seed, counter + d, n, vshape, first_chain=first), device=dev) for d in (0, 1)])
+
+        lr = xi_lr[part] if m else None
+        want_x, want_fc = mv.descend_visit_plain(level, f, x[part], ref(11), lr)
+        errs["x"] = max(errs["x"], compare(f"descend x {tag}", got_x[part], want_x))
+        errs["f_c_over_scale"] = max(errs["f_c_over_scale"], compare_fc(
+            f"descend f_c {tag}", got_fc[part], want_fc))
+        want = mv.ascend_visit_plain(level, f, x[part], xc[part], ref(13), lr)
+        errs["ascend_x"] = max(errs["ascend_x"], compare(f"ascend x {tag}", got[part], want))
+    if route == "split":  # one Philox stream through the split and the phase kernels
+        stream = {"xi_lr": xi_lr, "philox": (seed, 31)}
+        phase_x, phase_fc = mv.launch_descend(level, "phase", f, x.clone(), **stream)
+        phase_a = mv.launch_ascend(level, "phase", f, x.clone(), xc, **stream)
+        split_x, split_fc = mv.launch_descend(level, "split", f, x.clone(), **stream, **kw)
+        split_a = mv.launch_ascend(level, "split", f, x.clone(), xc, **stream, **kw)
+        tag = f"ssor {name} C={C} one Philox stream, split against phase kernel"
+        errs["split_against_phase"] = {
+            "descend_x": compare(f"descend x {tag}", split_x, phase_x),
+            "descend_f_c_over_scale": compare_fc(f"descend f_c {tag}", split_fc, phase_fc),
+            "ascend_x": compare(f"ascend x {tag}", split_a, phase_a)}
+    torch.cuda.synchronize()
+    return {"level": name, "vshape": list(vshape), "offsets": len(level.op.offsets),
+            "colours": level.coloring.n_colors, "stencil_form": level.stencil_form,
+            "chains": C, "route": route, "cluster": cluster,
+            "threads": level.phase_threads(C) if route == "phase" else None,
+            "barriers_from_source": {k: mv.phase_barrier_count(level, k)
+                                     for k in ("descend", "ascend")}, **errs}
+
+
+def ssor_stamps(level, C, noise):
+    """The two-sweep phase launch by pass from the stamps build (in-kernel
+    noise), at ``C`` chains on a 2d reach-1 level: the barriers each block
+    passed must be ``mgmc_visit.phase_barrier_count``'s."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+
+    dev = level.coeffs.device
+    f = torch.rand(level.op.vshape, device=dev)
+    x = torch.zeros((C,) + level.op.vshape, device=dev)
+    xc = torch.randn((C,) + level.vc, device=dev)
+    out = {}
+    for kind in ("descend", "ascend"):
+        stamps = torch.zeros((C, mv.PHASE_STAMP_WIDTH), dtype=torch.int64, device=dev)
+        for _ in range(3):
+            xi, xi_lr, philox = level._draw(noise, x, kind)
+            if kind == "descend":
+                mv.launch_descend(level, "phase", f, x, xi, xi_lr, philox, stamps=stamps)
+            else:
+                mv.launch_ascend(level, "phase", f, x, xc, xi, xi_lr, philox, stamps=stamps)
+        torch.cuda.synchronize()
+        pt = mv.pass_times(level, kind, stamps)
+        pt["barriers_from_source"] = mv.phase_barrier_count(level, kind)
+        if pt["barriers_per_block"] != [pt["barriers_from_source"]]:
+            raise AssertionError(f"ssor stamps {kind} C={C}: the blocks passed "
+                                 f"{pt['barriers_per_block']} barriers, the source places "
+                                 f"{pt['barriers_from_source']}")
+        out[kind] = pt
+    return out
+
+
+def phase_ssor(device, smi):
+    """Two sweeps per visit (SSOR) on the visit kernels, through
+    ``MultigridMCSampler.apply`` in float32:
+
+    * path 1, the flagship posterior with ``smoother="SSOR"`` (255^2, 8
+      near-exact measurements, 5 levels, W-cycle, omega 1, the default
+      distillation) at 256 chains (level 0 on the phase kernels) and at one
+      chain (the split kernels), ms per step, kernel ms, launches by name,
+      routes;
+    * path 3, the biharmonic posterior (255^2 13-point, 256 chains) and the
+      64^3 posterior (63^3 7-point, 32 chains) with SSOR levels, a few steps;
+    * each level-0 form against its plain version (:func:`check_ssor_level`:
+      phase at 256 chains in 2d, reach 2 and 3d at their chains, split at one
+      chain with clusters of 16, split against phase under one Philox stream),
+      their device ms, plain ms and bounds, the 2d launch by pass from the
+      stamps build (barriers against the source's count);
+    * the descend's ``f_c`` on every fused level of the flagship, SOR and SSOR,
+      against a float64 visit (:func:`near_exact_fc`);
+    * ``drivers.mg``'s SSOR config runs in the ``drivers`` phase, the JAX
+      package's gate 3c in ``statistics`` (``kernels_ssor``)."""
+    out = {"phase": "ssor", "card": smi}
+    try:
+        _ssor_parts(out, device)
+    except BaseException:
+        out["failed"] = True
+        raise
+    finally:
+        emit(out)
+    return out
+
+
+def _ssor_parts(out, device):
+    """The parts of :func:`phase_ssor`, each filling its key of ``out``."""
+    from multigridmc_tpu_torch.samplers.base import GeneratorNoise
+    from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
+
+    t0 = time.perf_counter()
+    parts = out["part_seconds"] = {}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(14)
+    noise = GeneratorNoise(FLAGSHIP_SEED + 14, device)
+    kwargs = dict(nlevel=5, smoother="SSOR", coarse_solver="Cholesky", omega=1.0, cycle=2)
+    # path 1: the flagship with SSOR levels, 256 chains and one chain
+    op, _ = build_posterior(256, 8, FLAGSHIP_SEED, "near_exact", device)
+    f = torch.as_tensor(np.random.default_rng(0).uniform(size=op.vshape), dtype=torch.float32,
+                        device=device)
+    out["main_path"] = {}
+    sampler = None
+    for C in SSOR_CHAINS:
+        sampler, res = drive_sampler(op, f, C, SSOR_STEPS, kwargs, sampler=sampler,
+                                     levels_are=lambda lv: lv.ndir == 2)
+        out["main_path"][f"flagship_{C}"] = res
+    big, one = (out["main_path"][f"flagship_{C}"] for C in SSOR_CHAINS)
+    if (big["route_by_level"].get(0) != "phase" or one["route_by_level"].get(0) != "split"
+            or big["distill_level"] is None or 0 not in big["visited_levels"]):
+        raise AssertionError(f"ssor: the flagship's paths {big}, {one}")
+    parts["main_path"] = time.perf_counter() - t0
+    level = sampler.fused_levels[0]
+    out["checks"] = [check_ssor_level(level, "flagship L0", SSOR_CHAINS[0], gen, "phase"),
+                     check_ssor_level(level, "flagship L0", 1, gen, "split",
+                                      cluster=SSOR_SPLIT_CLUSTER),
+                     check_ssor_level(sampler.fused_levels[1], "flagship L1", 1, gen, "split",
+                                      cluster=sampler.fused_levels[1].split_cluster(1))]
+    out["stamps"] = ssor_stamps(level, SSOR_CHAINS[0], noise)
+    out["timings"] = {"phase": timed_visits(level, SSOR_CHAINS[0], False, noise, ("phase",)),
+                      "split": timed_visits(level, 1, False, noise, ("split",))}
+    parts["flagship_checks"] = time.perf_counter() - t0 - sum(parts.values())
+    # the descend's f_c on every fused level of the flagship, SSOR and SOR
+    sor = MultigridMCSampler(op, 5, cycle=2, distill=False)
+    out["near_exact_f_c"] = (
+        [near_exact_fc(lv, f"SSOR L{li}", SSOR_CHAINS[0], gen)
+         for li, lv in sorted(sampler.fused_levels.items())]
+        + [near_exact_fc(lv, f"SOR L{li}", SSOR_CHAINS[0], gen)
+           for li, lv in sorted(sor.fused_levels.items())])
+    del sampler, sor, level
+    parts["near_exact_f_c"] = time.perf_counter() - t0 - sum(parts.values())
+    # path 3: the reach-2 and the 3d posteriors with SSOR levels
+    bih, _ = build_posterior(256, 8, BIHARMONIC_SEED, "near_exact", device, **BIHARMONIC)
+    vol, _, fv = volume_posterior(VOLUME_NX, device)
+    others = (("biharmonic", bih, f, SSOR_CHAINS[0], dict(kwargs), lambda lv: lv.reach == 2),
+              ("volume", vol, fv, SSOR_VOLUME_CHAINS, dict(kwargs, nlevel=VOLUME_NLEVEL),
+               lambda lv: lv.dim == 3))
+    out["other_checks"], out["other_timings"] = [], []
+    for name, other, fo, C, kw, kind in others:
+        s_other, res = drive_sampler(other, fo, C, SSOR_OTHER_STEPS, kw, levels_are=kind,
+                                     busy_steps=1)
+        out["main_path"][name] = res
+        lv = s_other.fused_levels[0]
+        out["other_checks"].append(check_ssor_level(lv, f"{name} L0", C, gen, "phase"))
+        t = time_phase_only_level(lv, C, noise)
+        t["name"] = name
+        out["other_timings"].append(t)
+        del s_other, lv
+    parts["other_posteriors"] = time.perf_counter() - t0 - sum(parts.values())
+    out["seconds"] = time.perf_counter() - t0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(sorted(ALL_PHASES)),
                         help="comma-separated subset of kernels,main_path,band,alternating,"
-                             "drivers,statistics,biharmonic,volume "
+                             "drivers,statistics,biharmonic,volume,ssor "
                              "to run (device and build always run; 'threads' adds a "
                              "block-size table, 'passes' the phase kernels' checks and "
                              "breakdown by pass, 'compare' the phase kernels' times and "
@@ -4944,7 +5298,7 @@ def main(argv=None) -> int:
                              "'sweep_check', 'sweep_stamps' (with 'sweep_passes') and "
                              "'sweep_threads' the one-block sweeps' checks, breakdown by "
                              "pass and block-size table alone); "
-                             "the ok line needs exactly the default eight")
+                             "the ok line needs exactly the default nine")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -5033,6 +5387,9 @@ def main(argv=None) -> int:
     if "volume" in phases:
         volume = phase_volume(device, smi)
         lap("volume")
+    if "ssor" in phases:
+        ssor = phase_ssor(device, smi)
+        lap("ssor")
     emit({"phase": "total", "seconds": time.perf_counter() - t_start, "phase_seconds": laps})
     if phases != ALL_PHASES:
         print("partial run: no result line")
@@ -5108,7 +5465,8 @@ def main(argv=None) -> int:
     # the sweep kernels of both routes at the drivers' shape, one chain of
     # 255^2, with the one-block route's 256-chain figures beside; their
     # launches are those of the two driver runs (the split route: the
-    # one-chain SSOR series and the solve; the one-block route's passes body:
+    # one-chain SSOR series and drivers.mg's solve with its levels composed;
+    # the one-block route's passes body:
     # the replica chains of the convergence tables and the distillation's
     # set-up).  The one-block route's generic body (3d fields, wider
     # stencils): its rows give its times at 32 x 63^3; the deterministic
@@ -5272,6 +5630,67 @@ def main(argv=None) -> int:
                           "major, a row (z, y), the colour rows as (z, y) residue pairs, the "
                           "stencil in registers with z edge bits, 3d measurement boxes, the "
                           "3d transfers as passes; one block per chain, 512 threads at most"})
+    # the two-sweep (SSOR) forms, phase ssor: the phase kernels on the
+    # flagship's 255^2 level at 256 chains and the split kernels at one chain
+    # (clusters of 16), launched by its SSOR flagship paths (the split ones by
+    # drivers.mg's SSOR solve too); the reach-2 and 3d builds on their
+    # posteriors' level 0, launched by their SSOR samplers' steps
+    for route, source in (("phase", "mgmc_visit.cu"), ("split", "mgmc_visit_split.cu")):
+        t = ssor["timings"][route]
+        chks = [c for c in ssor["checks"] if c["route"] == route]
+        variant = f"flagship_{SSOR_CHAINS[0] if route == 'phase' else 1}"
+        for base, kind, line in zip(VISIT_KERNELS[route], ("descend", "ascend"), (700, 847)):
+            name = base + mv.SSOR_SUFFIX
+            launches = ssor["main_path"][variant]["launches"].get(name, 0)
+            path = f"ssor main_path {variant}"
+            if route == "split":
+                launches += driver_counts.get(name, 0)
+                path += " and drivers.mg (SSOR)"
+            err = max(max(c["x"], c["f_c_over_scale"]) if kind == "descend" else c["ascend_x"]
+                      for c in chks)
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": f"multigridmc_tpu_torch/csrc/{source}",
+                "replaces": f"multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py:{line}",
+                "launches": launches, "path": path, "max_abs_err": err,
+                "ms": t[f"{base}_ms"], "device_ms": t[f"{base}_device_ms"],
+                "events_over_device": t[f"{base}_events_over_device"],
+                "plain_ms": t[f"{kind}_plain_ms"],
+                "bound_ms": t[f"{kind}_bound_ms"], "bound_by": t[f"{kind}_bound_by"],
+                "bound_bytes": t[f"{kind}_bytes"], "library_ms": None,
+                "shape": {"chains": t["chains"], "vshape": t["vshape"],
+                          "cluster": t["split_cluster"] if route == "split" else 1},
+                "design": "two directed sweeps in one launch, each with its own colour rows, "
+                          "Y boxes and W and its own Philox counter, the residual after the "
+                          "last" + (" (the launch's tables of both directions)" if route == "phase"
+                                    else " (each band kept in shared memory across both)")})
+            if route == "phase":
+                kernels[-1].update({
+                    "threads": t["threads"],
+                    "barriers_per_launch": ssor["stamps"][kind]["barriers_per_block"][0],
+                    "per_pass_us": ssor["stamps"][kind]["passes"]})
+    for t, chk in zip(ssor["other_timings"], ssor["other_checks"]):
+        reach2 = t["name"] == "biharmonic"
+        for kind, line in (("descend", 700), ("ascend", 847)):
+            name = (f"{kind}_visit_reach2_13pt" if reach2 else f"{kind}_visit_3d_7pt") + \
+                mv.SSOR_SUFFIX
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": "multigridmc_tpu_torch/csrc/mgmc_visit.cu",
+                "build": " ".join(mv.PHASE_REACH2_FLAGS if reach2 else mv.PHASE_DIM3_FLAGS),
+                "replaces": f"multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py:{line}",
+                "launches": ssor["main_path"][t["name"]]["launches"].get(name, 0),
+                "path": f"ssor main_path {t['name']}",
+                "max_abs_err": max(chk["x"], chk["f_c_over_scale"]) if kind == "descend"
+                else chk["ascend_x"],
+                "ms": t[f"{kind}_ms"], "device_ms": t[f"{kind}_device_ms"],
+                "events_over_device": t[f"{kind}_events_over_device"],
+                "plain_ms": t[f"{kind}_plain_ms"],
+                "bound_ms": t[f"{kind}_bound_ms"], "bound_by": t[f"{kind}_bound_by"],
+                "bound_bytes": t[f"{kind}_bytes"], "library_ms": None,
+                "shape": {"chains": t["chains"], "vshape": t["vshape"],
+                          "offsets": chk["offsets"], "colours": chk["colours"]},
+                "stencil_form": t["stencil_form"], "threads": t["threads"]})
     nine = biharmonic["nine_colour_sweeps"]
     setup = biharmonic["main_path"]["setup_sweep_launches"]
     for name, key, kernel_line in (("sweep_batched", "sweep", 194),

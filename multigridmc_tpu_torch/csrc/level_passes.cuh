@@ -3,29 +3,38 @@
 // kernels of the phase route (mgmc_visit.cu) and by the subtree kernel
 // (mgmc_subtree.cu).  One definition of each pass serves both.
 //
-//   descend: c  = f + sqrt(D(2-w)/w) xi + sum_k s_k B_k     (Gibbs rhs)
+//   descend: per sweep direction d (one: SOR; forward then backward: SSOR)
+//            c  = f + sqrt(D(2-w)/w) xi_d                  (Gibbs rhs)
 //            x <- colour-ordered SOR sweep(c, x)
-//            x <- x - sum_l u_l Y_l,  u = W B^T x           (Woodbury:
+//            x <- x - sum_l u_l Y_l,  u = W (B^T x - Sigma^1/2 n_d)   (Woodbury:
 //                 B_bar = Y W with Y = M^-1 B, W = (Sigma + B^T Y)^-1)
-//            r  = f - A x - sum_k t_k B_k,  t = Sigma^-1 (I - G) B^T x
+//            then, after the last direction,
+//            r  = f - A x - sum_k t_k B_k,  t = u + Sigma^-1/2 n_d
 //            f_c = R r                                     (full weighting)
-//   ascend:  x <- x + gamma P x_c, then c, sweep, Woodbury as above
+//   ascend:  x <- x + gamma P x_c, then per direction c, sweep, Woodbury as above
+//
+// The low-rank normals n_d of a sweep enter its Woodbury correction, not its
+// rhs: the sweep is linear and Y = M^-1 B, so the x' is the one of a rhs that
+// holds B Sigma^-1/2 n_d (Y (I - W B^T Y) = Y W Sigma), and t = Sigma^-1 B^T x'
+// exactly (B^T x' = Sigma u + Sigma^1/2 n_d).  In float32 neither the rhs term
+// (about 1e3 at a measured vertex with Sigma about 1e-6, which the correction
+// would have to cancel to about 1e-3) nor a Gram matrix of the correction is
+// formed.
 //
 // What the passes rely on:
 //
-// * One level's tables for one sweep direction (struct LevelTables: B_k
+// * One level's tables for each sweep direction (struct LevelTables: B_k
 //   inside its bounding box and Y_k inside its own, each box row major,
-//   column after column, and the boxes; W, G, 1/Sigma, Sigma^-1/2; the rows
-//   of each colour), made by the host.  Where they lie is a pointer: a
-//   block's shared memory where they fit, else the device tensor they were
-//   uploaded to.
-// * Each low-rank term is one pass: sum_k s_k B_k joins the rhs pass, sum_k
-//   t_k B_k the residual pass, and the Woodbury correction is one pass.  Every
+//   column after column, and the boxes; W, Sigma^1/2; the rows of each
+//   colour), made by the host.  Where they lie is a pointer: a block's shared
+//   memory where they fit, else the device tensor they were uploaded to.
+// * Each low-rank term is one pass: sum_k t_k B_k joins the residual pass,
+//   and the Woodbury correction is one pass.  Every
 //   point has one owner thread, which adds the columns whose box holds it in
 //   column order; the boxes overlap, so that order, not atomics, makes each
 //   point's sum the same as a loop over the columns.  B^T x is one warp per
 //   column (lanes along its box, a fixed shuffle tree).  The m scalars a pass
-//   needs (s, u or t) each warp computes for itself into its own slot.
+//   needs (n, u or t) each warp computes for itself into its own slot.
 // * The sweep's warps take the rows that hold the colour in turn (T.rows), so
 //   every warp has rows in every colour phase; within a colour no point reads
 //   another, so the order of the rows does not change the result.
@@ -51,12 +60,12 @@
 //   prolong_rows3).
 //
 // Barriers (block_sync; COUNT, a kernel's stamps build, counts them and, where
-// pass_stamp_row is set, stamps the timer after each): a descend has
-// n_order + 5 (rhs, colours, B^T x, Woodbury, residual, restriction), an
-// ascend n_order + 3, each without the two low-rank ones where m = 0.  A
-// descend that neither draws noise nor zeroes x has no rhs pass and no
-// barrier for it unless the caller asks for one (the phase kernels do: it
-// publishes their table copy).
+// pass_stamp_row is set, stamps the timer after each): per sweep direction
+// n_order + 3 (rhs, colours, B^T x, Woodbury), without the two low-rank ones
+// where m = 0, and a descend 2 more (residual, restriction).  A descend's
+// first direction that neither draws noise nor zeroes x has no rhs pass and
+// no barrier for it unless the caller asks for one (the phase kernels do: it
+// publishes their table copy); a later direction has its rhs barrier always.
 
 #pragma once
 
@@ -77,9 +86,7 @@ struct LevelTables {
     const float* yval;     // Y_k = M^-1 B_k of this direction inside ybox_k, likewise
     const int* yoff;       // m + 1 starts in yval
     const float* wm;       // W of this direction, m x m row major
-    const float* g;        // G[k, l] = <B_k, (Y W)_l> of the pre direction, m x m
-    const float* sinv;     // 1 / Sigma
-    const float* lrscale;  // Sigma^-1/2 (the subtree kernel's draws)
+    const float* sroot;    // Sigma^1/2
     const int (*bbox)[BOX_INTS];  // B_k's box (half open), as VisitParams::bbox
     const int (*ybox)[BOX_INTS];  // the same for Y_k of this direction
     // per row i, (lo, hi): the columns that the boxes holding the row span
@@ -478,11 +485,11 @@ __device__ __forceinline__ float add_columns(const int (*box)[BOX_INTS], int m, 
     return v;
 }
 
-// This warp's s = Sigma^-1/2 z: the m low-rank normals of a sweep (mode 1:
-// the generator under `counter`, point groups 0 .. ceil(m / 4) - 1; mode 2:
-// read from xi), recorded by warp 0 where xi_rec is set.  m <= 32.  (The
-// subtree kernel draws them; the phase kernels are handed s.)
-__device__ __forceinline__ void lowrank_normals(const LevelTables& T, int m, int chain, int noise_mode,
+// This warp's n: the m low-rank normals of a sweep (mode 1: the generator
+// under `counter`, point groups 0 .. ceil(m / 4) - 1; mode 2: read from xi),
+// recorded by warp 0 where xi_rec is set.  m <= 32.  (The subtree kernel
+// draws them; the phase kernels are handed them.)
+__device__ __forceinline__ void lowrank_normals(int m, int chain, int noise_mode,
                                                 unsigned long long seed,
                                                 unsigned long long counter, const float* xi,
                                                 float* xi_rec, float* wv) {
@@ -498,8 +505,18 @@ __device__ __forceinline__ void lowrank_normals(const LevelTables& T, int m, int
         } else {
             z = xi[lane];
         }
-        wv[lane] = T.lrscale[lane] * z;
+        wv[lane] = z;
     }
+    __syncwarp();
+}
+
+// This warp's n of a later sweep direction, from the chain's normals in
+// memory (noise on and m > 0; else nothing).  The warp has read its slot's
+// last values before (the barrier after the Woodbury pass).
+__device__ __forceinline__ void next_normals(const VisitParams& P, int noise_mode,
+                                             const float* __restrict__ nlr, float* wv) {
+    const int lane = threadIdx.x & 31;
+    if (noise_mode && lane < P.m) wv[lane] = nlr[lane];
     __syncwarp();
 }
 
@@ -524,8 +541,8 @@ __device__ __forceinline__ void store_span(float* stage, float* __restrict__ dst
 }
 
 // The pass before the sweep: x = 0 (zero), x += gamma P x_c (xc not null: an
-// ascend) and, with noise, the Gibbs rhs c = f + ns xi + sum_k s_k B_k into
-// scr (wv: this warp's s).  Noise group g of row i holds the points
+// ascend) and, with noise, the Gibbs rhs c = f + ns xi into scr (the sweep's
+// low-rank noise enters its Woodbury correction).  Noise group g of row i holds the points
 // (i, 4g .. 4g+3) and has the Philox counter (i * ceil(W / 4) + g, chain,
 // counter); the block's threads take the groups of the whole field in turn (a
 // row of a small level has fewer groups than a warp has lanes), each group's
@@ -534,13 +551,13 @@ __device__ __forceinline__ void store_span(float* stage, float* __restrict__ dst
 // warp stores x and scr lane-contiguous (store_span); null: each lane stores
 // its group's points itself (the subtree kernel, whose shared memory holds
 // its fields).  No barrier.
-__device__ void rhs_pass(const VisitParams& P, const LevelTables& T, int chain, int noise_mode,
+__device__ void rhs_pass(const VisitParams& P, int chain, int noise_mode,
                          unsigned long long seed, unsigned long long counter,
                          const float* __restrict__ f, const float* __restrict__ ns,
                          const float* __restrict__ xi, float* __restrict__ xi_rec,
-                         const float* wv, float* __restrict__ scr, float* __restrict__ x,
+                         float* __restrict__ scr, float* __restrict__ x,
                          const float* __restrict__ xc, bool zero, float* stage) {
-    const int H = P.H, W = P.W, Hc = P.Hc, Wc = P.Wc, m = P.m;
+    const int H = P.H, W = P.W, Hc = P.Hc, Wc = P.Wc;
     const int G = (W + 3) >> 2, NG = H * G;
     const bool ns_const = P.ns_const;
     const float ns_val = P.ns_val, gamma = P.gamma;
@@ -553,8 +570,6 @@ __device__ void rhs_pass(const VisitParams& P, const LevelTables& T, int chain, 
     int i = threadIdx.x / G, g = threadIdx.x - i * G;
     for (int q4 = threadIdx.x; q4 < end; q4 += blockDim.x) {
         const bool live = q4 < NG;
-        int lo = 0, hi = 0;  // the columns that B's boxes span in this row
-        if (noise_mode && live) row_span(T.bbox, T.bspan, m, i, lo, hi);
         // (P x_c)[i, j]: an odd fine index 2I+1 takes coarse I with weight 1,
         // an even one its two coarse neighbours with 0.5 each.  The group's
         // points read the coarse rows Ia, Ia + 1 (odd i: Ia alone) and the
@@ -620,9 +635,7 @@ __device__ void rhs_pass(const VisitParams& P, const LevelTables& T, int chain, 
             if (noise_mode) {
                 float zq = (noise_mode == 2) ? xi[p] : z[q];
                 if (xi_rec != nullptr) xi_rec[p] = zq;
-                float c = fv[q] + (ns_const ? ns_val : ns[p]) * zq;
-                if (j >= lo && j < hi)
-                    c = add_columns(T.bbox, m, T.bval, T.boff, wv, 1.0f, i, j, c, ROW_NY(P));
+                const float c = fv[q] + (ns_const ? ns_val : ns[p]) * zq;
                 co[q] = c;
                 if (stage == nullptr) scr[p] = c;
             }
@@ -709,17 +722,27 @@ __device__ void btx_pass(const VisitParams& P, const LevelTables& T, const float
     block_sync<COUNT>();
 }
 
-// x -= sum_l u_l Y_l with u = W B^T x (this warp's copy in wv), one warp per
-// row over the columns that Y's boxes span.  Ends with a barrier.
+// x -= sum_l u_l Y_l with u = W (B^T x - Sigma^1/2 n), one warp per row over
+// the columns that Y's boxes span: wv holds this warp's n, the sweep's
+// low-rank normals (read only with `noise`: else n = 0), and receives its
+// copy of u.  With `residual` it then receives t = u + Sigma^-1/2 n = Sigma^-1
+// B^T x of the corrected x, the descend's residual term.  Ends with a barrier.
 template <bool COUNT>
 __device__ void woodbury_pass(const VisitParams& P, const LevelTables& T, const float* s_btx,
-                              float* wv, float* x) {
+                              bool noise, bool residual, float* wv, float* x) {
     const int lane = threadIdx.x & 31;
+    float nk = 0.0f, sk = 1.0f, u = 0.0f;
     if (lane < P.m) {
-        float u = 0.0f;
-        for (int k = 0; k < P.m; ++k) u += T.wm[lane * P.m + k] * s_btx[k];
-        wv[lane] = u;
+        sk = T.sroot[lane];
+        if (noise) nk = wv[lane];
     }
+    __syncwarp();
+    if (lane < P.m) wv[lane] = s_btx[lane] - sk * nk;
+    __syncwarp();
+    if (lane < P.m)
+        for (int k = 0; k < P.m; ++k) u += T.wm[lane * P.m + k] * wv[k];
+    __syncwarp();
+    if (lane < P.m) wv[lane] = u;
     __syncwarp();
     WARP_ROWS(i, P.H) {
         int lo, hi;
@@ -728,6 +751,11 @@ __device__ void woodbury_pass(const VisitParams& P, const LevelTables& T, const 
             const int p = i * P.W + j;
             x[p] = add_columns(T.ybox, P.m, T.yval, T.yoff, wv, -1.0f, i, j, x[p], ROW_NY(P));
         }
+    }
+    if (residual) {
+        __syncwarp();
+        if (lane < P.m) wv[lane] = u + nk / sk;
+        __syncwarp();
     }
     block_sync<COUNT>();
 }
@@ -941,73 +969,86 @@ __device__ void restrict_pass(const VisitParams& P, const float* __restrict__ r,
 
 // --------------------------------------------------------------- whole visits
 // One descend visit of one chain: x, f, scr and fc are this chain's fields
-// (f_c the coarse rhs it writes), T the level's tables in the pre direction,
-// wv this warp's m scalars (holding s where noise is on), s_btx shared.  The
-// rhs pass reads B from Trhs (the phase kernels: the tables' tensor, while
-// the block copies them into shared memory; else T).  `zero` sets x = 0
-// first; `sync_first` places the first barrier even where there is no rhs
-// pass.  Noise: mode 0 off, 1 the generator under (seed, counter), 2 the
-// field normals read from xi; xi_rec, where set, receives those used; stage:
-// this warp's staging buffer of the rhs pass, or null.  Ends with a barrier.
-// FORM: the stencil's form (see STENCIL_DISPATCH).
-template <int FORM, bool COUNT>
-__device__ void level_descend(const VisitParams& P, const LevelTables& Trhs, const LevelTables& T,
-                              int chain, int noise_mode, unsigned long long seed,
+// (f_c the coarse rhs it writes), tables(d) the level's tables in the pre
+// direction d < ndir (one: SOR; two: SSOR, forward then backward), NDIR the
+// count compiled in (one direction compiles to the straight-line passes, two
+// to a loop that is not unrolled: unrolled, the two-sweep reach-2 visits took
+// 1.3-1.5x as long) or 0 for the count ndir at run time, wv this
+// warp's m scalars (holding the first direction's low-rank normals where
+// noise is on; those of direction d >= 1 at nlr + (d - 1) m), s_btx shared.
+// `zero` sets x = 0 first; `sync_first` places the first barrier even where
+// there is no rhs pass.  Noise: mode 0 off, 1 the generator under (seed,
+// counter + d) for direction d, 2 the field normals read from xi + d xi_step;
+// xi_rec, where set, receives those used (one direction); stage: this warp's
+// staging buffer of the rhs pass, or null.  The residual and the restriction
+// follow the last direction.  Ends with a barrier.  FORM: the stencil's form
+// (see STENCIL_DISPATCH).
+template <int FORM, bool COUNT, int NDIR, class Tables>
+__device__ void level_descend(const VisitParams& P, const Tables& tables, int ndir, int chain,
+                              int noise_mode, unsigned long long seed,
                               unsigned long long counter, bool zero, bool sync_first, float* x,
                               const float* f, float* scr, float* fc,
                               const float* __restrict__ coeffs, const float* __restrict__ ns,
-                              const float* __restrict__ xi, float* xi_rec, float* wv,
+                              const float* __restrict__ xi, size_t xi_step,
+                              const float* __restrict__ nlr, float* xi_rec, float* wv,
                               float* s_btx, float* stage) {
-    const float* c = f;
-    if (noise_mode || zero || sync_first) {
-        if (noise_mode || zero)
-            rhs_pass(P, Trhs, chain, noise_mode, seed, counter, f, ns, xi, xi_rec, wv, scr, x,
-                     nullptr, zero, stage);
-        block_sync<COUNT>();
-        if (noise_mode) c = scr;
-    }
-    level_sweep<FORM, COUNT>(P, T, coeffs, c, x);
-    if (P.m) {
-        btx_pass<COUNT>(P, T, x, s_btx);
-        woodbury_pass<COUNT>(P, T, s_btx, wv, x);
-        // t = Sigma^-1 (I - G) B^T x: B^T x after the correction without a
-        // second reduction, from the one before it
-        const int k = threadIdx.x & 31;
-        if (k < P.m) {
-            float v = s_btx[k];
-            for (int l = 0; l < P.m; ++l) v -= T.g[k * P.m + l] * s_btx[l];
-            wv[k] = v * T.sinv[k];
+    const int nd = NDIR > 0 ? NDIR : ndir;
+#pragma unroll 1
+    for (int d = 0; d < nd; ++d) {
+        const LevelTables T = tables(d);
+        const float* c = f;
+        if (d > 0 || noise_mode || zero || sync_first) {
+            if (d > 0) next_normals(P, noise_mode, nlr + (size_t)(d - 1) * P.m, wv);
+            if (noise_mode || (zero && d == 0))
+                rhs_pass(P, chain, noise_mode, seed, counter + d, f, ns,
+                         xi ? xi + d * xi_step : nullptr, xi_rec, scr, x, nullptr,
+                         zero && d == 0, stage);
+            block_sync<COUNT>();
+            if (noise_mode) c = scr;
         }
-        __syncwarp();
+        level_sweep<FORM, COUNT>(P, T, coeffs, c, x);
+        if (P.m) {
+            btx_pass<COUNT>(P, T, x, s_btx);
+            woodbury_pass<COUNT>(P, T, s_btx, noise_mode != 0, d == nd - 1, wv, x);
+        }
     }
-    residual_pass<FORM, COUNT>(P, T, coeffs, wv, f, x, scr);
+    residual_pass<FORM, COUNT>(P, tables(nd - 1), coeffs, wv, f, x, scr);
     restrict_pass<COUNT>(P, scr, fc);
 }
 
-// One ascend visit of one chain; T in the post direction, xc the coarse
+// One ascend visit of one chain; tables(d) in the post direction d, xc the coarse
 // state, the rest as level_descend (3d: the prolongation in a loop of its own
-// before the rhs, in the same pass: the two write different fields).  Ends
-// with a barrier.
-template <int FORM, bool COUNT>
-__device__ void level_ascend(const VisitParams& P, const LevelTables& Trhs, const LevelTables& T,
-                             int chain, int noise_mode, unsigned long long seed,
+// before the first rhs, in the same pass: the two write different fields).
+// Ends with a barrier.
+template <int FORM, bool COUNT, int NDIR, class Tables>
+__device__ void level_ascend(const VisitParams& P, const Tables& tables, int ndir, int chain,
+                             int noise_mode, unsigned long long seed,
                              unsigned long long counter, float* x, const float* f, float* scr,
                              const float* xc, const float* __restrict__ coeffs,
                              const float* __restrict__ ns, const float* __restrict__ xi,
-                             float* xi_rec, float* wv, float* s_btx, float* stage) {
+                             size_t xi_step, const float* __restrict__ nlr, float* xi_rec,
+                             float* wv, float* s_btx, float* stage) {
+    const int nd = NDIR > 0 ? NDIR : ndir;
+#pragma unroll 1
+    for (int d = 0; d < nd; ++d) {
+        const LevelTables T = tables(d);
+        const float* xid = xi ? xi + d * xi_step : nullptr;
+        if (d > 0) next_normals(P, noise_mode, nlr + (size_t)(d - 1) * P.m, wv);
 #if VISIT_DIM == 3
-    prolong_rows3(P, x, xc);
-    if (noise_mode)
-        rhs_pass(P, Trhs, chain, noise_mode, seed, counter, f, ns, xi, xi_rec, wv, scr, x, nullptr,
-                 false, stage);
+        if (d == 0) prolong_rows3(P, x, xc);
+        if (noise_mode)
+            rhs_pass(P, chain, noise_mode, seed, counter + d, f, ns, xid, xi_rec, scr, x,
+                     nullptr, false, stage);
 #else
-    rhs_pass(P, Trhs, chain, noise_mode, seed, counter, f, ns, xi, xi_rec, wv, scr, x, xc, false,
-             stage);
+        if (d == 0 || noise_mode)
+            rhs_pass(P, chain, noise_mode, seed, counter + d, f, ns, xid, xi_rec, scr, x,
+                     d == 0 ? xc : nullptr, false, stage);
 #endif
-    block_sync<COUNT>();
-    level_sweep<FORM, COUNT>(P, T, coeffs, noise_mode ? scr : f, x);
-    if (P.m) {
-        btx_pass<COUNT>(P, T, x, s_btx);
-        woodbury_pass<COUNT>(P, T, s_btx, wv, x);
+        block_sync<COUNT>();
+        level_sweep<FORM, COUNT>(P, T, coeffs, noise_mode ? scr : f, x);
+        if (P.m) {
+            btx_pass<COUNT>(P, T, x, s_btx);
+            woodbury_pass<COUNT>(P, T, s_btx, noise_mode != 0, false, wv, x);
+        }
     }
 }

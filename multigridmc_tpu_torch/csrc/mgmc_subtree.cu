@@ -8,7 +8,8 @@
 //   sample(l):                               # sub-levels l = 0 .. NL-1
 //       x_l = 0
 //       repeat `cycle` times:
-//           descend visit of level l         (forward Gibbs sweep, Woodbury,
+//           descend visit of level l         (forward Gibbs sweep, Woodbury
+//                                             with the sweep's low-rank noise,
 //                                             residual, restriction -> f_{l+1})
 //           sample(l + 1)
 //           ascend visit of level l          (x_l += gamma P x_{l+1}, backward
@@ -30,7 +31,7 @@
 // Tables.  At launch start the block copies the host-made tables
 // (mgmc_subtree.py::launch_tables) into the front of its dynamic shared
 // memory: every sub-level's VisitParams of both directions, B and both
-// directions' Y inside their bounding boxes, W, G, 1/Sigma and Sigma^-1/2,
+// directions' Y inside their bounding boxes, W and Sigma^1/2,
 // the rows that hold each colour of each sweep, and one slot of m floats per
 // warp.  No operation reads a parameter or a low-rank value from device
 // memory after that.
@@ -92,7 +93,7 @@ struct SubLevel {
     int bval, boff;
     int yval[2], yoff[2];
     int wm[2];
-    int g, sinv, lrscale;
+    int sroot;    // Sigma^1/2
     int rows[2];  // the colours' rows of each direction's sweep
 };
 
@@ -140,8 +141,8 @@ __device__ __forceinline__ LevelTables level_tables(const SubLevel& L, int dir) 
     const float* t = dyn_smem;
     const VisitParams& P = *reinterpret_cast<const VisitParams*>(t + L.plan[dir]);
     return {t + L.bval, reinterpret_cast<const int*>(t + L.boff), t + L.yval[dir],
-            reinterpret_cast<const int*>(t + L.yoff[dir]), t + L.wm[dir], t + L.g, t + L.sinv,
-            t + L.lrscale, P.bbox, P.ybox, nullptr, nullptr,
+            reinterpret_cast<const int*>(t + L.yoff[dir]), t + L.wm[dir], t + L.sroot,
+            P.bbox, P.ybox, nullptr, nullptr,
             reinterpret_cast<const int*>(t + L.rows[dir])};
 }
 
@@ -258,18 +259,21 @@ mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const int4* __restr
         const float* xi_in = (S.noise_mode == 2) ? xi + cur : nullptr;
         float* xi_rec = (S.noise_mode == 1 && S.record) ? xi + cur : nullptr;
         if (S.noise_mode && m)  // the m low-rank normals of this sweep, after its field
-            lowrank_normals(T, m, chain, S.noise_mode, S.seed, S.counter + draw + 1,
+            lowrank_normals(m, chain, S.noise_mode, S.seed, S.counter + draw + 1,
                             xi_in ? xi_in + n : nullptr, xi_rec ? xi_rec + n : nullptr, wv);
         const bool last = li + 1 == S.NL;
+        const auto one_direction = [&](int) { return T; };
         if (dir == 0) {
             float* fc = locate(S, last ? S.cf : S.lv[li + 1].f, ws, nullptr);
-            level_descend<-1, STAMPS>(P, T, T, chain, S.noise_mode, S.seed, S.counter + draw,
-                                  op == OP_DESCEND_ZERO, false, x, f, scr, fc, L.coeffs, L.ns,
-                                  xi_in, xi_rec, wv, s_btx, nullptr);
+            level_descend<-1, STAMPS, 1>(P, one_direction, 1, chain, S.noise_mode, S.seed,
+                                      S.counter + draw, op == OP_DESCEND_ZERO, false, x, f, scr,
+                                      fc, L.coeffs, L.ns, xi_in, 0, nullptr, xi_rec, wv, s_btx,
+                                      nullptr);
         } else {
             const float* xc = locate(S, last ? S.cx : S.lv[li + 1].x, ws, nullptr);
-            level_ascend<-1, STAMPS>(P, T, T, chain, S.noise_mode, S.seed, S.counter + draw, x, f,
-                                 scr, xc, L.coeffs, L.ns, xi_in, xi_rec, wv, s_btx, nullptr);
+            level_ascend<-1, STAMPS, 1>(P, one_direction, 1, chain, S.noise_mode, S.seed,
+                                     S.counter + draw, x, f, scr, xc, L.coeffs, L.ns, xi_in, 0,
+                                     nullptr, xi_rec, wv, s_btx, nullptr);
         }
         if (S.noise_mode) { cur += n + m; draw += m ? 2 : 1; }
         if (STAMPS) stamp(S, chain, s + 1);

@@ -3,16 +3,22 @@
 //
 // Replaces the Pallas kernels descend_visit / ascend_visit of
 // multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py.  One launch is one visit
-// of one multigrid level for all chains:
+// of one multigrid level for all chains, with one directed sweep (SOR) or two,
+// forward then backward (SSOR), each d with fresh noise xi_d, n_d:
 //
-//   descend:  c   = f + sqrt(D(2-w)/w) xi + sum_k xi'_k B_k     (Gibbs rhs)
+//   descend:  c   = f + sqrt(D(2-w)/w) xi_d                      (Gibbs rhs)
 //             x  <- colour-ordered SOR sweep(c, x)
-//             x  <- x - sum_l u_l Y_l,  u = W B^T x              (Woodbury:
+//             x  <- x - sum_l u_l Y_l,  u = W (B^T x - Sigma^1/2 n_d)   (Woodbury:
 //                   B_bar = Y W with Y = M^-1 B, W = (Sigma + B^T Y)^-1)
-//             r   = f - A_stencil x - sum_k t_k B_k,  t = Sigma^-1 (I - G) B^T x
-//             f_c = R r                                (full weighting)
+//             r   = f - A_stencil x - sum_k t_k B_k,  t = u + Sigma^-1/2 n_d
+//             f_c = R r                                (full weighting; after
+//                                                       the last direction)
 //   ascend:   x  <- x + gamma P x_c                    (d-linear interpolation)
-//             c, sweep, Woodbury as above (post direction)
+//             per direction c, sweep, Woodbury as above (post directions)
+//
+// The low-rank noise enters the correction, not the rhs (level_passes.cuh):
+// the same x' as the TPU kernel's rhs term B Sigma^-1/2 n, and t is Sigma^-1
+// B^T x' exactly, where the TPU kernel's Gram form (I - G) B^T x is not.
 //
 // Design.  The colour phases are Gauss-Seidel: phase c must see what phase
 // c-1 wrote everywhere in that chain's field, so a field cannot be tiled over
@@ -24,14 +30,14 @@
 // all warps, and a lane has several points' loads in flight.
 //
 // Tables.  The host makes one level's tables for one sweep direction
-// (mgmc_visit.py::phase_tables: B inside its boxes, this direction's Y inside
-// its boxes, both sets of boxes and the columns they span in each row, W, G
-// and 1/Sigma for the descend, the colour rows) and uploads
-// them once.  Where they and the kernel's static share fit the block's share
-// of shared memory, each block copies them into its dynamic shared memory at
-// entry; the first pass (the rhs, which reads only B and its boxes) reads them from the
-// tensor meanwhile, and its barrier publishes the copy.  Otherwise (a level
-// with dense B columns, say) every pass reads them from the tensor.
+// (mgmc_visit.py::phase_tables: B inside its boxes, each direction's Y inside
+// its boxes, the boxes and the columns they span in each row, each
+// direction's W and colour rows, Sigma^1/2) and uploads them once.  Where they
+// and the kernel's static share fit the block's share of shared memory, each
+// block copies them into its dynamic shared memory at entry; the first pass
+// (the rhs, which reads no table) runs meanwhile, and its barrier publishes
+// the copy.  Otherwise (a level with dense B columns, say) every pass reads
+// them from the tensor.  A two-sweep launch holds both directions' tables.
 //
 // Block size.  Chosen by the host from the chain count
 // (mgmc_visit.py::phase_threads): 1024 threads while the chains fit one wave
@@ -53,8 +59,9 @@
 // has the number i * ceil(W / 4) + g), the stream and the split kernels'
 // addressing, so the three routes agree under one stream.  noise_mode 2 reads
 // xi from a tensor instead, so that a kernel and its plain PyTorch version can
-// be fed the same noise.  The m low-rank normals come in pre-scaled by
-// Sigma^-1/2 (xilr).  No atomics and a fixed reduction tree, so two launches
+// be fed the same noise; direction d of a two-sweep launch takes the counter
+// + d (its xi at xi + d C n).  The m low-rank normals per direction come in
+// as drawn (xilr, (C, ndir m)).  No atomics and a fixed reduction tree, so two launches
 // with the same seed and counter are bitwise equal.
 //
 // STAMPS: the measurement build, a library of its own (PHASE_STAMPS_BUILD),
@@ -129,7 +136,10 @@
 #define PHASE_MAX_THREADS MAX_THREADS
 #endif
 
-#define PHASE_STAMP_WIDTH (1 + MAX_COLORS + 5 + 3)
+// the timer at entry, after each barrier of up to two directions (the rhs,
+// each colour, B^T x, Woodbury) and the descend's residual and restriction,
+// at exit, the barriers passed, the SM
+#define PHASE_STAMP_WIDTH (1 + 2 * (MAX_COLORS + 3) + 2 + 3)
 
 // 1: this library is the stamps build (mgmc_visit.py builds the source a
 // second time with -DPHASE_STAMPS_BUILD=1, beside the production library, so
@@ -138,50 +148,57 @@
 #define PHASE_STAMPS_BUILD 0
 #endif
 
-// Word offsets of one level's tables for one sweep direction
-// (mgmc_visit.py::phase_tables).
+// the sweep directions a launch may hold: one (SOR) or two (SSOR)
+#define MAX_DIRS 2
+
+// Word offsets of one level's tables for the launch's sweep directions
+// (mgmc_visit.py::phase_tables): B's and Sigma^1/2 shared, the rest per
+// direction.
 struct PhaseTables {
-    int bval, boff, yval, yoff, wm, g, sinv, bbox, ybox, bspan, yspan, rows;
+    int bval, boff, sroot, bbox, bspan;
+    int ndir;  // 1 or 2
+    int yval[MAX_DIRS], yoff[MAX_DIRS], wm[MAX_DIRS], ybox[MAX_DIRS], yspan[MAX_DIRS];
+    int rows[MAX_DIRS];
     int words;   // a multiple of 4
     int shared;  // 1: each block copies them into its dynamic shared memory
 };
 
 extern __shared__ __align__(16) float phase_smem[];
 
-__device__ __forceinline__ LevelTables tables_at(const PhaseTables& L, const float* t) {
+// direction d's tables at t
+__device__ __forceinline__ LevelTables tables_at(const PhaseTables& L, const float* t, int d) {
     return {t + L.bval,
             reinterpret_cast<const int*>(t + L.boff),
-            t + L.yval,
-            reinterpret_cast<const int*>(t + L.yoff),
-            t + L.wm,
-            t + L.g,
-            t + L.sinv,
-            nullptr,
+            t + L.yval[d],
+            reinterpret_cast<const int*>(t + L.yoff[d]),
+            t + L.wm[d],
+            t + L.sroot,
             reinterpret_cast<const int(*)[BOX_INTS]>(t + L.bbox),
-            reinterpret_cast<const int(*)[BOX_INTS]>(t + L.ybox),
+            reinterpret_cast<const int(*)[BOX_INTS]>(t + L.ybox[d]),
             reinterpret_cast<const int*>(t + L.bspan),
-            reinterpret_cast<const int*>(t + L.yspan),
-            reinterpret_cast<const int*>(t + L.rows)};
+            reinterpret_cast<const int*>(t + L.yspan[d]),
+            reinterpret_cast<const int*>(t + L.rows[d])};
 }
 
 // The block's start: the stamps opened (STAMPS), the tables copied into shared
-// memory where they lie there (no barrier: the first pass reads them from the
-// tensor), this warp's m low-rank scalars into its slot.  Returns the tables
-// as the passes after the first read them.
+// memory where they lie there (no barrier: the first pass reads no table),
+// this warp's first m low-rank normals into its slot.  Returns the chain's
+// normals of the later directions.
 template <bool STAMPS>
-__device__ __forceinline__ LevelTables phase_start(const VisitParams& P, const PhaseTables& L,
-                                                   const int4* __restrict__ tables, int chain,
-                                                   const float* __restrict__ xilr, float* wv,
-                                                   unsigned long long* srow) {
+__device__ __forceinline__ const float* phase_start(const VisitParams& P, const PhaseTables& L,
+                                                    const int4* __restrict__ tables, int chain,
+                                                    const float* __restrict__ xilr, float* wv,
+                                                    unsigned long long* srow) {
     stamps_open<STAMPS>(srow);
     if (L.shared) {
         int4* dst = reinterpret_cast<int4*>(phase_smem);
         for (int q = threadIdx.x; q < L.words / 4; q += blockDim.x) dst[q] = tables[q];
     }
     const int lane = threadIdx.x & 31;
-    if (P.noise_mode && lane < P.m) wv[lane] = xilr[(size_t)chain * P.m + lane];
+    const float* nlr = P.noise_mode ? xilr + (size_t)chain * L.ndir * P.m : nullptr;
+    if (P.noise_mode && lane < P.m) wv[lane] = nlr[lane];
     __syncwarp();
-    return tables_at(L, L.shared ? phase_smem : reinterpret_cast<const float*>(tables));
+    return nlr ? nlr + P.m : nullptr;
 }
 
 template <bool STAMPS>
@@ -189,9 +206,21 @@ __device__ __forceinline__ void phase_exit(unsigned long long* srow) {
     stamps_close<STAMPS>(srow, PHASE_STAMP_WIDTH);
 }
 
+// The sweeps a visit makes (1 SOR, 2 SSOR): a kernel each (NDIR 1, 2), so that
+// a one-sweep visit runs the straight-line passes (a loop over a run-time count
+// cost the 31^3 27-point visit 20-25% on an H100), except in the reach-2 build,
+// whose forms spill either way and whose 13-point descend took 1.36x as long
+// compiled per count: one kernel there (NDIR 0, the count at run time; PERF.md
+// section 6).
+#if VISIT_REACH == 2
+#define PHASE_NDIR_RUNTIME 1
+#else
+#define PHASE_NDIR_RUNTIME 0
+#endif
+
 // FORM: the stencil's form (level_passes.cuh, STENCIL_DISPATCH), one kernel
 // each, so that the registers of one form's passes are allocated for it alone.
-template <int FORM, bool STAMPS>
+template <int FORM, bool STAMPS, int NDIR>
 __global__ void __launch_bounds__(PHASE_MAX_THREADS)
 descend_kernel(const __grid_constant__ VisitParams P, const __grid_constant__ PhaseTables L,
                const int4* __restrict__ tables, float* x_all, const float* __restrict__ f_all,
@@ -205,18 +234,22 @@ descend_kernel(const __grid_constant__ VisitParams P, const __grid_constant__ Ph
     const int n = P.H * P.W, nc = P.Hc * P.Wc;
     unsigned long long* srow = STAMPS ? stamps + (size_t)chain * PHASE_STAMP_WIDTH : nullptr;
     float* wv = s_wv + (threadIdx.x >> 5) * MAX_LOWRANK;
-    const LevelTables T = phase_start<STAMPS>(P, L, tables, chain, xilr, wv, srow);
-    level_descend<FORM, STAMPS>(P, tables_at(L, reinterpret_cast<const float*>(tables)), T,
-                                chain, P.noise_mode, P.seed, P.counter, false, true,
-                                x_all + (size_t)chain * n,
-                                f_all + (P.f_batched ? (size_t)chain * n : 0),
-                                scr_all + (size_t)chain * n, fc_all + (size_t)chain * nc,
-                                coeffs, ns, xi_all ? xi_all + (size_t)chain * n : nullptr,
-                                nullptr, wv, s_btx, s_stage + (threadIdx.x >> 5) * 128);
+    const float* nlr = phase_start<STAMPS>(P, L, tables, chain, xilr, wv, srow);
+    // where the passes after the first read the tables
+    const float* t = L.shared ? phase_smem : reinterpret_cast<const float*>(tables);
+    const auto dir_tables = [&](int d) { return tables_at(L, t, d); };
+    level_descend<FORM, STAMPS, NDIR>(P, dir_tables, L.ndir, chain, P.noise_mode, P.seed,
+                                      P.counter, false, true, x_all + (size_t)chain * n,
+                                      f_all + (P.f_batched ? (size_t)chain * n : 0),
+                                      scr_all + (size_t)chain * n, fc_all + (size_t)chain * nc,
+                                      coeffs, ns,
+                                      xi_all ? xi_all + (size_t)chain * n : nullptr,
+                                      (size_t)P.C * n, nlr, nullptr, wv, s_btx,
+                                      s_stage + (threadIdx.x >> 5) * 128);
     phase_exit<STAMPS>(srow);
 }
 
-template <int FORM, bool STAMPS>
+template <int FORM, bool STAMPS, int NDIR>
 __global__ void __launch_bounds__(PHASE_MAX_THREADS)
 ascend_kernel(const __grid_constant__ VisitParams P, const __grid_constant__ PhaseTables L,
               const int4* __restrict__ tables, float* x_all, const float* __restrict__ f_all,
@@ -230,22 +263,36 @@ ascend_kernel(const __grid_constant__ VisitParams P, const __grid_constant__ Pha
     const int n = P.H * P.W, nc = P.Hc * P.Wc;
     unsigned long long* srow = STAMPS ? stamps + (size_t)chain * PHASE_STAMP_WIDTH : nullptr;
     float* wv = s_wv + (threadIdx.x >> 5) * MAX_LOWRANK;
-    const LevelTables T = phase_start<STAMPS>(P, L, tables, chain, xilr, wv, srow);
-    level_ascend<FORM, STAMPS>(P, tables_at(L, reinterpret_cast<const float*>(tables)), T, chain,
-                               P.noise_mode, P.seed, P.counter, x_all + (size_t)chain * n,
-                               f_all + (P.f_batched ? (size_t)chain * n : 0),
-                               scr_all + (size_t)chain * n, xc_all + (size_t)chain * nc, coeffs,
-                               ns, xi_all ? xi_all + (size_t)chain * n : nullptr, nullptr, wv,
-                               s_btx, s_stage + (threadIdx.x >> 5) * 128);
+    const float* nlr = phase_start<STAMPS>(P, L, tables, chain, xilr, wv, srow);
+    // where the passes after the first read the tables
+    const float* t = L.shared ? phase_smem : reinterpret_cast<const float*>(tables);
+    const auto dir_tables = [&](int d) { return tables_at(L, t, d); };
+    level_ascend<FORM, STAMPS, NDIR>(P, dir_tables, L.ndir, chain, P.noise_mode, P.seed,
+                                     P.counter, x_all + (size_t)chain * n,
+                                     f_all + (P.f_batched ? (size_t)chain * n : 0),
+                                     scr_all + (size_t)chain * n, xc_all + (size_t)chain * nc,
+                                     coeffs, ns,
+                                     xi_all ? xi_all + (size_t)chain * n : nullptr,
+                                     (size_t)P.C * n, nlr, nullptr, wv, s_btx,
+                                     s_stage + (threadIdx.x >> 5) * 128);
     phase_exit<STAMPS>(srow);
 }
 
-// the kernel of a direction and a stencil form in this library's build; null
-// for another form
-static const void* phase_kernel(int descend, int form) {
+// the kernel of a direction, a stencil form and a sweep count (1 or 2) in this
+// library's build; null for another form or count
+static const void* phase_kernel(int descend, int form, int ndir) {
     constexpr bool S = PHASE_STAMPS_BUILD;
+    if (ndir < 1 || ndir > MAX_DIRS) return nullptr;
+#if PHASE_NDIR_RUNTIME
 #define FORM_KERNEL(F) \
-    (descend ? (const void*)descend_kernel<F, S> : (const void*)ascend_kernel<F, S>)
+    (descend ? (const void*)descend_kernel<F, S, 0> : (const void*)ascend_kernel<F, S, 0>)
+#else
+#define FORM_KERNEL(F)                                                                  \
+    (ndir == 1 ? (descend ? (const void*)descend_kernel<F, S, 1>                       \
+                          : (const void*)ascend_kernel<F, S, 1>)                       \
+               : (descend ? (const void*)descend_kernel<F, S, 2>                       \
+                          : (const void*)ascend_kernel<F, S, 2>))
+#endif
     switch (form) {
 #if VISIT_REACH == 2
         case 6: return FORM_KERNEL(6);
@@ -295,22 +342,24 @@ extern "C" int mgmc_visit_stamps_build() { return PHASE_STAMPS_BUILD; }
 extern "C" int mgmc_visit_static_smem() {
     size_t most = 0;
     for (int form = PHASE_FORM0; form < PHASE_FORM0 + PHASE_FORMS; ++form)
-        for (int descend = 0; descend < 2; ++descend) {
-            cudaFuncAttributes a;
-            if (cudaFuncGetAttributes(&a, phase_kernel(descend, form)) != cudaSuccess) {
-                cudaGetLastError();
-                return -1;
+        for (int descend = 0; descend < 2; ++descend)
+            for (int ndir = 1; ndir <= MAX_DIRS; ++ndir) {
+                cudaFuncAttributes a;
+                if (cudaFuncGetAttributes(&a, phase_kernel(descend, form, ndir)) !=
+                    cudaSuccess) {
+                    cudaGetLastError();
+                    return -1;
+                }
+                most = a.sharedSizeBytes > most ? a.sharedSizeBytes : most;
             }
-            most = a.sharedSizeBytes > most ? a.sharedSizeBytes : most;
-        }
     return (int)most;
 }
 
 // registers per thread, local (spill) bytes per thread and static shared bytes
-// of the kernel of `descend` (1) or the ascend (0) and a stencil form; 0 or an
-// error
-extern "C" int mgmc_visit_kernel_attributes(int descend, int form, int* out) {
-    const void* fn = phase_kernel(descend, form);
+// of the kernel of `descend` (1) or the ascend (0), a stencil form and a sweep
+// count; 0 or an error
+extern "C" int mgmc_visit_kernel_attributes(int descend, int form, int ndir, int* out) {
+    const void* fn = phase_kernel(descend, form, ndir);
     if (fn == nullptr) return (int)cudaErrorInvalidValue;
     cudaFuncAttributes a;
     cudaError_t e = cudaFuncGetAttributes(&a, fn);
@@ -325,9 +374,10 @@ extern "C" int mgmc_visit_kernel_attributes(int descend, int form, int* out) {
 }
 
 // blocks of `threads` with `smem_bytes` of dynamic shared memory that one SM
-// holds at once (the kernel of a direction and a form), or -1
-extern "C" int mgmc_visit_blocks_per_sm(int descend, int form, int threads, int smem_bytes) {
-    const void* fn = phase_kernel(descend, form);
+// holds at once (the kernel of a direction, a form and a sweep count), or -1
+extern "C" int mgmc_visit_blocks_per_sm(int descend, int form, int ndir, int threads,
+                                        int smem_bytes) {
+    const void* fn = phase_kernel(descend, form, ndir);
     if (fn == nullptr) return -1;
     if (smem_bytes > 48 * 1024 &&
         cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes) !=
@@ -346,9 +396,9 @@ extern "C" int mgmc_visit_blocks_per_sm(int descend, int form, int threads, int 
 
 // one launch of the kernel of (descend, form) with the arguments args; a
 // stamps tensor goes to the stamps build only
-static int launch(int descend, int form, bool stamps, int C, int threads, int smem_bytes,
-                  void** args, void* stream) {
-    const void* fn = phase_kernel(descend, form);
+static int launch(int descend, int form, bool stamps, int C, int ndir, int threads,
+                  int smem_bytes, void** args, void* stream) {
+    const void* fn = phase_kernel(descend, form, ndir);
     if (fn == nullptr || stamps != (bool)PHASE_STAMPS_BUILD || threads > PHASE_MAX_THREADS)
         return (int)cudaErrorInvalidValue;
     if (smem_bytes > 48 * 1024) {  // above what needs no opt-in
@@ -374,7 +424,7 @@ extern "C" int mgmc_descend_visit(const VisitParams* P, const PhaseTables* L, co
     unsigned long long* st = static_cast<unsigned long long*>(stamps);
     void* args[] = {(void*)P, (void*)L, &tab, &x, &f, &scratch, &fc, &coeffs, &ns, &xilr, &xi,
                     &st};
-    return launch(1, form, st != nullptr, P->C, threads, smem_bytes, args, stream);
+    return launch(1, form, st != nullptr, P->C, L->ndir, threads, smem_bytes, args, stream);
 }
 
 extern "C" int mgmc_ascend_visit(const VisitParams* P, const PhaseTables* L, const void* tables,
@@ -386,5 +436,5 @@ extern "C" int mgmc_ascend_visit(const VisitParams* P, const PhaseTables* L, con
     unsigned long long* st = static_cast<unsigned long long*>(stamps);
     void* args[] = {(void*)P, (void*)L, &tab, &x, &f, &scratch, &xc, &coeffs, &ns, &xilr, &xi,
                     &st};
-    return launch(0, form, st != nullptr, P->C, threads, smem_bytes, args, stream);
+    return launch(0, form, st != nullptr, P->C, L->ndir, threads, smem_bytes, args, stream);
 }

@@ -6,15 +6,17 @@
 // descend_visit and ascend_visit of
 // multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py, and compute what
 // level_descend / level_ascend of level_passes.cuh compute, from the same
-// parameter block (VisitParams) and the same noise modes (0 off, 1 in-kernel
-// Philox, 2 xi read from memory):
+// parameter block (VisitParams, one per sweep direction: SplitParams) and the
+// same noise modes (0 off, 1 in-kernel Philox, 2 xi read from memory), with one
+// directed sweep (SOR) or two, forward then backward (SSOR), each d with fresh
+// noise xi_d, n_d:
 //
-//   descend:  c   = f + sqrt(D(2-w)/w) xi + sum_k xi'_k B_k     (Gibbs rhs)
+//   descend:  c   = f + sqrt(D(2-w)/w) xi_d                       (Gibbs rhs)
 //             x  <- colour-ordered SOR sweep(c, x)
-//             x  <- x - sum_l u_l Y_l,  u = W B^T x              (Woodbury)
-//             r   = f - A_stencil x - sum_k t_k B_k,  t = Sigma^-1 (I - G) B^T x
-//             f_c = R r                                          (full weighting)
-//   ascend:   x  <- x + gamma P x_c,  then c, sweep, Woodbury (post direction)
+//             x  <- x - sum_l u_l Y_l,  u = W (B^T x - Sigma^1/2 n_d)   (Woodbury)
+//             r   = f - A_stencil x - sum_k t_k B_k,  t = u + Sigma^-1/2 n_d
+//             f_c = R r                          (full weighting; after the last d)
+//   ascend:   x  <- x + gamma P x_c,  then per direction c, sweep, Woodbury
 //
 // Why a third design.  The phase kernels run one block per chain: at one
 // chain (the drivers' time series) 131 of the 132 SMs are idle, and the block
@@ -36,28 +38,32 @@
 //      launch counter, key seed ^ PHILOX_KEY_MIX; a group lies in one row, so
 //      in one band: the same normals as the other two routes); the ascend
 //      adds gamma P x_c to its band first (x_c read from global memory); the
-//      low-rank term is added over band and bbox[k], column after column;
+//      low-rank noise enters the Woodbury correction (level_passes.cuh);
 //   2. it runs every colour phase on its band: a neighbour row outside the
 //      band (the reach is 1) is read from the neighbouring rank's shared
 //      memory (cluster.map_shared_rank); cluster.sync() stands between the
 //      phases and is the only synchronisation between blocks;
 //   3. Woodbury: one warp per column k sums <B_k, x> over band and bbox[k];
 //      after a cluster.sync() every block reads the S partial vectors in rank
-//      order and sums them in that order, then forms u = W B^T x itself, so
-//      every block holds the same u bit for bit, without atomics; it patches
-//      x -= u_l Y_l over band and ybox[l], column after column as
-//      woodbury_pass (each point has one owner, so the order of its updates
-//      is kept), and writes its band back to global memory once, coalesced;
+//      order and sums them in that order, then forms u = W (B^T x - Sigma^1/2
+//      n) itself, so every block holds the same u bit for bit, without
+//      atomics; it patches x -= u_l Y_l over band and ybox[l], column after
+//      column as woodbury_pass (each point has one owner, so the order of its
+//      updates is kept).  A second direction repeats 1-3 on the band in
+//      shared memory (its rhs, a cluster.sync(), its colour phases and its
+//      correction); after the last the band goes back to global memory once,
+//      coalesced;
 //   4. descend: after a cluster.sync() the residual r = f - A x (halo rows of
 //      x from the neighbours) replaces c in the scratch band, with its
-//      low-rank term t = Sigma^-1 (I - G) B^T x; after another, the
+//      low-rank term t = u + Sigma^-1/2 n of the last direction; after another, the
 //      restriction: coarse row I belongs to the block that owns fine row
 //      2I + 1, whose rows 2I and 2I + 2 may lie in the neighbouring bands and
 //      are read there;
 //   5. a last cluster.sync() before any block exits: no block leaves while
 //      another still reads its shared memory.
-// Cluster barriers per visit: descend n_order + 4, ascend n_order + 2 (one
-// fewer each without measurements).  Each point does the arithmetic of
+// Cluster barriers per visit: per direction n_order + 1 (one fewer without
+// measurements), a descend 2 more, and the last: descend n_order + 4, ascend
+// n_order + 2 with one direction, 2 n_order + 5 and 2 n_order + 3 with two.  Each point does the arithmetic of
 // level_passes.cuh on the same values, in the same order; only B^T x is summed
 // in another order (per band, then over the bands), so under one Philox stream
 // the routes agree to float32 rounding.
@@ -81,8 +87,18 @@
 namespace cg = cooperative_groups;
 
 #define MAX_CLUSTER 16
-// the first-point table before the bands: j0 of (order index, row colour base)
-#define SPLIT_TABLE_INTS (MAX_COLORS * MAX_COLORS)
+// the sweep directions of a launch: one (SOR) or two (SSOR)
+#define MAX_DIRS 2
+// the first-point table before the bands: j0 of (direction, order index, row
+// colour base)
+#define SPLIT_TABLE_INTS (MAX_DIRS * MAX_COLORS * MAX_COLORS)
+
+// A launch's parameter blocks, one per sweep direction: the same level, each
+// with its colour order, its Y boxes and its Philox counter.
+struct SplitParams {
+    VisitParams v[MAX_DIRS];
+    int ndir;
+};
 
 // rows of the widest band of an H-row field over S blocks
 __host__ __device__ inline int split_band_rows(int H, int S) { return (H + S - 1) / S; }
@@ -148,15 +164,18 @@ __device__ void band_lowrank(const VisitParams& P, const int (*box)[4],
 }
 
 // ------------------------------------------------------------------- kernel
-template <bool DESCEND>
+// NDIR: the sweeps of a visit (1 SOR, 2 SSOR), a kernel each, so that a
+// one-sweep visit compiles to straight-line phases.
+template <bool DESCEND, int NDIR>
 __global__ void __launch_bounds__(MAX_THREADS)
-split_visit_kernel(const __grid_constant__ VisitParams P, float* x_all,
+split_visit_kernel(const __grid_constant__ SplitParams SP, float* x_all,
                    const float* __restrict__ f_all, float* fc_all,
                    const float* __restrict__ xc_all, const float* __restrict__ coeffs,
                    const float* __restrict__ ns, const float* __restrict__ B,
-                   const float* __restrict__ Y, const float* __restrict__ Wm,
-                   const float* __restrict__ xilr, const float* __restrict__ sinv,
-                   const float* __restrict__ G, const float* __restrict__ xi_all) {
+                   const float* __restrict__ Y0, const float* __restrict__ W0,
+                   const float* __restrict__ Y1, const float* __restrict__ W1,
+                   const float* __restrict__ xilr, const float* __restrict__ sroot,
+                   const float* __restrict__ xi_all) {
     extern __shared__ __align__(16) float smem[];
     __shared__ float s_part[MAX_LOWRANK];               // this band's share of B^T x
     __shared__ float s_all[MAX_CLUSTER * MAX_LOWRANK];  // every rank's share, rank by rank
@@ -164,6 +183,8 @@ split_visit_kernel(const __grid_constant__ VisitParams P, float* x_all,
     __shared__ float s_lr[MAX_LOWRANK];
     __shared__ float s_u[MAX_LOWRANK];
     cg::cluster_group cluster = cg::this_cluster();
+    const VisitParams& P = SP.v[0];  // what the directions share
+    constexpr int ndir = NDIR;
     const int S = (int)cluster.num_blocks();
     const int rank = (int)cluster.block_rank();
     const int chain = blockIdx.x / S;
@@ -182,135 +203,142 @@ split_visit_kernel(const __grid_constant__ VisitParams P, float* x_all,
 
     float* x = x_all + (size_t)chain * n;
     const float* f = f_all + (P.f_batched ? (size_t)chain * n : 0);
-    const float* xi = P.noise_mode == 2 ? xi_all + (size_t)chain * n : nullptr;
+    const float* nlr = P.noise_mode ? xilr + (size_t)chain * ndir * m : nullptr;
 
-    // 1. the band of x into shared memory; the table of first points; the
-    //    low-rank normals
+    // 1. the band of x into shared memory; the table of first points
     for (int i = tid; i < count; i += nthreads) cp_async4(xs + i, x + first + i);
     cp_async_commit();
-    if (tid < P.n_order * P.n_colors) {
-        const int o = tid / P.n_colors, base = tid - o * P.n_colors;
-        const int ci = P.order[o];
+    if (tid < ndir * P.n_order * P.n_colors) {
+        const int d = tid / (P.n_order * P.n_colors), q = tid - d * P.n_order * P.n_colors;
+        const int o = q / P.n_colors, base = q - o * P.n_colors;
+        const int ci = SP.v[d].order[o];
         int j0 = -1;
         for (int jj = 0; jj < P.jstride; ++jj)
             if ((base + P.w1 * jj) % P.n_colors == ci) { j0 = jj; break; }
-        j0tab[o * MAX_COLORS + base] = j0;
+        j0tab[(d * MAX_COLORS + o) * MAX_COLORS + base] = j0;
     }
-    if (P.noise_mode && tid < m) s_lr[tid] = xilr[(size_t)chain * m + tid];
     cp_async_wait_all();
-    __syncthreads();
-
-    //    the rhs (rhs_pass): ascend x += gamma P x_c, then c = f + ns xi
-    const int G4 = (W + 3) >> 2;
-    const float* xc = DESCEND ? nullptr : xc_all + (size_t)chain * P.Hc * P.Wc;
-    for (int t = tid; t < nb * G4; t += nthreads) {
-        const int lr = t / G4, g = t - lr * G4;
-        const int i = u0 + lr;
-        float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        if (P.noise_mode == 1)
-            philox_normals4((uint32_t)(i * G4 + g), (uint32_t)chain, P.seed, P.counter, z);
-        // (P x_c)[i, j]: an odd fine index 2I+1 takes coarse I with weight 1, an
-        // even one its two coarse neighbours with 0.5 each
-        const int nI = (i & 1) ? 1 : 2, Ia = (i >> 1) - (nI - 1);
-        const float wi = (i & 1) ? 1.0f : 0.5f;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            const int j = 4 * g + q;
-            if (j >= W) break;
-            const int p = i * W + j;
-            if (!DESCEND) {
-                const int nJ = (j & 1) ? 1 : 2, Ja = (j >> 1) - (nJ - 1);
-                const float wj = (j & 1) ? 1.0f : 0.5f;
-                float px = 0.0f;
-                for (int a = 0; a < nI; ++a) {
-                    const int I = Ia + a;
-                    if (I < 0 || I >= P.Hc) continue;
-                    float row = 0.0f;
-                    for (int b = 0; b < nJ; ++b) {
-                        const int J = Ja + b;
-                        if (J < 0 || J >= P.Wc) continue;
-                        row += wj * xc[I * P.Wc + J];
-                    }
-                    px += wi * row;
-                }
-                xs[p - first] = xs[p - first] + P.gamma * px;
-            }
-            float c = f[p];
-            if (P.noise_mode) {
-                const float zq = (P.noise_mode == 2) ? xi[p] : z[q];
-                c = f[p] + (P.ns_const ? P.ns_val : ns[p]) * zq;
-            }
-            cs[p - first] = c;
-        }
-    }
-    if (P.noise_mode) band_lowrank(P, P.bbox, B, s_lr, 1.0f, cs, u0, u1);
-    // every band formed, and every block of the cluster running, before any
-    // block reads a neighbour's shared memory
-    cluster.sync();
 
     const float* xlo = cluster.map_shared_rank(xs, rank > 0 ? rank - 1 : rank);
     const float* xhi = cluster.map_shared_rank(xs, rank + 1 < S ? rank + 1 : rank);
-
-    // 2. the colour phases on the band (sweep_colours)
+    const int G4 = (W + 3) >> 2;
     const int s = P.jstride;
     const int Gs = (W + s - 1) / s;  // candidate points of a colour per row
-    for (int o = 0; o < P.n_order; ++o) {
-        if (o) cluster.sync();  // the phase before done on every band
-        for (int t = tid; t < nb * Gs; t += nthreads) {
-            const int lr = t / Gs, kk = t - lr * Gs;
-            const int i = u0 + lr;
-            const int j0 = j0tab[o * MAX_COLORS + (P.w0 * i) % P.n_colors];
-            const int j = j0 + s * kk;
-            if (j0 < 0 || j >= W) continue;  // no point of the colour here
-            const int p = i * W + j;
-            const float ax = band_stencil(P, coeffs, i, j, n, p, u0, u1, lo0, xs, xlo, xhi);
-            const float diag = coeff_at(P, coeffs, P.diag_index, n, p);
-            xs[p - first] = xs[p - first] + P.omega * (cs[p - first] - ax) / diag;
-        }
-    }
-    __syncthreads();  // this band's last phase done
+#pragma unroll 1
+    for (int d = 0; d < ndir; ++d) {
+        const VisitParams& Pd = SP.v[d];
+        const float* xi = P.noise_mode == 2 ? xi_all + ((size_t)d * P.C + chain) * n : nullptr;
+        // the direction's low-rank normals (the last direction's s_lr and s_u
+        // were read before the previous barrier)
+        if (P.noise_mode && tid < m) s_lr[tid] = nlr[(size_t)d * m + tid];
+        __syncthreads();
 
-    // 3. Woodbury
-    if (m) {
-        const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
-        for (int k = warp; k < m; k += nwarps) {
-            const int i0 = max(P.bbox[k][0], u0), i1 = min(P.bbox[k][1], u1);
-            const int j0 = P.bbox[k][2], bw = P.bbox[k][3] - j0;
-            float acc = 0.0f;
-            if (i0 < i1 && bw > 0) {
-                for (int q = lane; q < (i1 - i0) * bw; q += 32) {
-                    const int p = (i0 + q / bw) * W + j0 + q % bw;
-                    acc += xs[p - first] * B[(size_t)k * n + p];
-                }
-            }
+        //    the rhs (rhs_pass): ascend x += gamma P x_c (first direction), then
+        //    c = f + ns xi
+        const float* xc = (DESCEND || d > 0) ? nullptr : xc_all + (size_t)chain * P.Hc * P.Wc;
+        for (int t = tid; t < nb * G4; t += nthreads) {
+            const int lr = t / G4, g = t - lr * G4;
+            const int i = u0 + lr;
+            float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            if (P.noise_mode == 1)
+                philox_normals4((uint32_t)(i * G4 + g), (uint32_t)chain, Pd.seed, Pd.counter, z);
+            // (P x_c)[i, j]: an odd fine index 2I+1 takes coarse I with weight 1,
+            // an even one its two coarse neighbours with 0.5 each
+            const int nI = (i & 1) ? 1 : 2, Ia = (i >> 1) - (nI - 1);
+            const float wi = (i & 1) ? 1.0f : 0.5f;
 #pragma unroll
-            for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
-            if (lane == 0) s_part[k] = acc;
+            for (int q = 0; q < 4; ++q) {
+                const int j = 4 * g + q;
+                if (j >= W) break;
+                const int p = i * W + j;
+                if (xc != nullptr) {
+                    const int nJ = (j & 1) ? 1 : 2, Ja = (j >> 1) - (nJ - 1);
+                    const float wj = (j & 1) ? 1.0f : 0.5f;
+                    float px = 0.0f;
+                    for (int a = 0; a < nI; ++a) {
+                        const int I = Ia + a;
+                        if (I < 0 || I >= P.Hc) continue;
+                        float row = 0.0f;
+                        for (int b = 0; b < nJ; ++b) {
+                            const int J = Ja + b;
+                            if (J < 0 || J >= P.Wc) continue;
+                            row += wj * xc[I * P.Wc + J];
+                        }
+                        px += wi * row;
+                    }
+                    xs[p - first] = xs[p - first] + P.gamma * px;
+                }
+                float c = f[p];
+                if (P.noise_mode) {
+                    const float zq = (P.noise_mode == 2) ? xi[p] : z[q];
+                    c = f[p] + (P.ns_const ? P.ns_val : ns[p]) * zq;
+                }
+                cs[p - first] = c;
+            }
         }
-        cluster.sync();  // every band's share of B^T x
-        for (int t = tid; t < S * m; t += nthreads) {
-            const int r = t / m;
-            s_all[t] = cluster.map_shared_rank(s_part, r)[t - r * m];
+        // every band formed (and corrected by the previous direction), and every
+        // block of the cluster running, before any block reads a neighbour's
+        // shared memory
+        cluster.sync();
+
+        // 2. the colour phases on the band (sweep_colours)
+        for (int o = 0; o < P.n_order; ++o) {
+            if (o) cluster.sync();  // the phase before done on every band
+            for (int t = tid; t < nb * Gs; t += nthreads) {
+                const int lr = t / Gs, kk = t - lr * Gs;
+                const int i = u0 + lr;
+                const int j0 = j0tab[(d * MAX_COLORS + o) * MAX_COLORS + (P.w0 * i) % P.n_colors];
+                const int j = j0 + s * kk;
+                if (j0 < 0 || j >= W) continue;  // no point of the colour here
+                const int p = i * W + j;
+                const float ax = band_stencil(P, coeffs, i, j, n, p, u0, u1, lo0, xs, xlo, xhi);
+                const float diag = coeff_at(P, coeffs, P.diag_index, n, p);
+                xs[p - first] = xs[p - first] + P.omega * (cs[p - first] - ax) / diag;
+            }
         }
-        __syncthreads();
-        if (tid < m) {  // the shares in rank order: the same sum in every block
-            float v = 0.0f;
-            for (int r = 0; r < S; ++r) v += s_all[r * m + tid];
-            s_btx[tid] = v;
-        }
-        __syncthreads();
-        if (tid < m) {
-            float u = 0.0f;
-            for (int k = 0; k < m; ++k) u += Wm[tid * m + k] * s_btx[k];
-            s_u[tid] = u;
-        }
-        band_lowrank(P, P.ybox, Y, s_u, -1.0f, xs, u0, u1);
-        if (DESCEND && tid < m) {
-            // B^T x after the correction without a second reduction: (I - G) B^T x,
-            // scaled by Sigma^-1 for the residual
-            float v = s_btx[tid];
-            for (int l = 0; l < m; ++l) v -= G[tid * m + l] * s_btx[l];
-            s_lr[tid] = v * sinv[tid];
+        __syncthreads();  // this band's last phase done
+
+        // 3. Woodbury
+        if (m) {
+            const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
+            for (int k = warp; k < m; k += nwarps) {
+                const int i0 = max(P.bbox[k][0], u0), i1 = min(P.bbox[k][1], u1);
+                const int j0 = P.bbox[k][2], bw = P.bbox[k][3] - j0;
+                float acc = 0.0f;
+                if (i0 < i1 && bw > 0) {
+                    for (int q = lane; q < (i1 - i0) * bw; q += 32) {
+                        const int p = (i0 + q / bw) * W + j0 + q % bw;
+                        acc += xs[p - first] * B[(size_t)k * n + p];
+                    }
+                }
+#pragma unroll
+                for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
+                if (lane == 0) s_part[k] = acc;
+            }
+            cluster.sync();  // every band's share of B^T x
+            for (int t = tid; t < S * m; t += nthreads) {
+                const int r = t / m;
+                s_all[t] = cluster.map_shared_rank(s_part, r)[t - r * m];
+            }
+            __syncthreads();
+            if (tid < m) {  // the shares in rank order: the same sum in every block
+                float v = 0.0f;
+                for (int r = 0; r < S; ++r) v += s_all[r * m + tid];
+                // B^T x - Sigma^1/2 n (woodbury_pass)
+                s_btx[tid] = v - sroot[tid] * (P.noise_mode ? s_lr[tid] : 0.0f);
+            }
+            __syncthreads();
+            const float* Wd = d ? W1 : W0;
+            if (tid < m) {
+                float u = 0.0f;
+                for (int k = 0; k < m; ++k) u += Wd[tid * m + k] * s_btx[k];
+                s_u[tid] = u;
+            }
+            band_lowrank(Pd, Pd.ybox, d ? Y1 : Y0, s_u, -1.0f, xs, u0, u1);
+            if (DESCEND && d == ndir - 1 && tid < m)
+                // t = u + Sigma^-1/2 n = Sigma^-1 B^T x of the corrected x, for the
+                // residual
+                s_lr[tid] = s_u[tid] + (P.noise_mode ? s_lr[tid] : 0.0f) / sroot[tid];
         }
     }
     //    the band back to global memory, once
@@ -355,9 +383,9 @@ split_visit_kernel(const __grid_constant__ VisitParams P, float* x_all,
 }
 
 // ------------------------------------------------------------ host helpers
-template <bool DESCEND>
+template <bool DESCEND, int NDIR>
 static cudaError_t configure(int bytes) {
-    auto kernel = split_visit_kernel<DESCEND>;
+    auto kernel = split_visit_kernel<DESCEND, NDIR>;
     static int granted = 0;
     if (granted == 0) {
         cudaError_t e =
@@ -390,7 +418,7 @@ static void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, i
 }
 
 // ------------------------------------------------------------ C entry points
-extern "C" int mgmc_split_params_size() { return (int)sizeof(VisitParams); }
+extern "C" int mgmc_split_params_size() { return (int)sizeof(SplitParams); }
 
 // Dynamic shared memory of one block of a split launch (bytes): the
 // first-point table, then the widest band of x, then the scratch band of c
@@ -402,11 +430,13 @@ extern "C" int mgmc_split_smem_bytes(int H, int W, int S) {
     return floats * 4 > 0x7FFFFFFF ? -1 : (int)(floats * 4);
 }
 
-// The larger static shared memory of the two kernels (bytes), or -1 if the
+// The largest static shared memory of the kernels (bytes), or -1 if the
 // runtime cannot say.
 extern "C" int mgmc_split_static_smem_bytes() {
-    const void* kernels[] = {(const void*)split_visit_kernel<true>,
-                             (const void*)split_visit_kernel<false>};
+    const void* kernels[] = {(const void*)split_visit_kernel<true, 1>,
+                             (const void*)split_visit_kernel<false, 1>,
+                             (const void*)split_visit_kernel<true, 2>,
+                             (const void*)split_visit_kernel<false, 2>};
     int most = 0;
     for (const void* k : kernels) {
         cudaFuncAttributes a;
@@ -419,50 +449,68 @@ extern "C" int mgmc_split_static_smem_bytes() {
     return most;
 }
 
-// How many clusters of S blocks of `threads` threads and `bytes` of dynamic
-// shared memory the card can hold at once (cudaOccupancyMaxActiveClusters) for
-// the descend (descend != 0) or the ascend kernel: 0 means such a cluster
-// never schedules.  Returns the CUDA error.
-extern "C" int mgmc_split_max_active(int descend, int S, int threads, int bytes, int* clusters) {
-    *clusters = 0;
-    cudaError_t e = descend ? configure<true>(bytes) : configure<false>(bytes);
+template <bool DESCEND, int NDIR>
+static cudaError_t max_active(int S, int threads, int bytes, int* clusters) {
+    cudaError_t e = configure<DESCEND, NDIR>(bytes);
     if (e == cudaSuccess) {
         cudaLaunchConfig_t cfg;
         cudaLaunchAttribute attr[1];
         cluster_config(&cfg, attr, S, S, threads, bytes, 0);
-        const void* kernel = descend ? (const void*)split_visit_kernel<true>
-                                     : (const void*)split_visit_kernel<false>;
-        e = cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+        e = cudaOccupancyMaxActiveClusters(clusters, split_visit_kernel<DESCEND, NDIR>, &cfg);
     }
+    return e;
+}
+
+// How many clusters of S blocks of `threads` threads and `bytes` of dynamic
+// shared memory the card can hold at once (cudaOccupancyMaxActiveClusters) for
+// the descend (descend != 0) or the ascend kernel, the fewer of its one- and
+// two-sweep forms: 0 means such a cluster never schedules.  Returns the CUDA
+// error.
+extern "C" int mgmc_split_max_active(int descend, int S, int threads, int bytes, int* clusters) {
+    *clusters = 0;
+    int one = 0, two = 0;
+    cudaError_t e = descend ? max_active<true, 1>(S, threads, bytes, &one)
+                            : max_active<false, 1>(S, threads, bytes, &one);
+    if (e == cudaSuccess)
+        e = descend ? max_active<true, 2>(S, threads, bytes, &two)
+                    : max_active<false, 2>(S, threads, bytes, &two);
     if (e != cudaSuccess) {
         cudaGetLastError();
-        *clusters = 0;
+        return (int)e;
     }
+    *clusters = one < two ? one : two;
     return (int)e;
 }
 
 template <bool DESCEND>
-static int launch(const VisitParams* P, float* x, const float* f, float* fc, const float* xc,
-                  const float* coeffs, const float* ns, const float* B, const float* Y,
-                  const float* Wm, const float* xilr, const float* sinv, const float* G,
-                  const float* xi, int S, int threads, cudaStream_t stream) {
+static int launch(const SplitParams* SP, float* x, const float* f, float* fc, const float* xc,
+                  const float* coeffs, const float* ns, const float* B, const float* Y0,
+                  const float* W0, const float* Y1, const float* W1, const float* xilr,
+                  const float* sroot, const float* xi, int S, int threads, cudaStream_t stream) {
+    const VisitParams* P = &SP->v[0];
     const int bytes = mgmc_split_smem_bytes(P->H, P->W, S);
     bool reach1 = true;
     for (int k = 0; k < P->K && k < MAX_OFFSETS; ++k)
         reach1 = reach1 && P->dy[k] >= -1 && P->dy[k] <= 1 && P->dx[k] >= -1 && P->dx[k] <= 1;
-    if (bytes < 0 || threads < 64 || threads > MAX_THREADS || threads % 32 ||
-        P->n_order * P->n_colors > threads || P->n_colors > MAX_COLORS || P->C < 1 ||
-        P->K < 1 || P->K > MAX_OFFSETS || !reach1 || P->m < 0 || P->m > MAX_LOWRANK ||
-        P->Hc != P->H / 2 || P->Wc != P->W / 2)
+    const bool two = SP->ndir == 2;
+    if (bytes < 0 || threads < 64 || threads > MAX_THREADS || threads % 32 || SP->ndir < 1 ||
+        SP->ndir > MAX_DIRS || SP->ndir * P->n_order * P->n_colors > threads ||
+        P->n_colors > MAX_COLORS || P->C < 1 || P->K < 1 || P->K > MAX_OFFSETS || !reach1 ||
+        P->m < 0 || P->m > MAX_LOWRANK || P->Hc != P->H / 2 || P->Wc != P->W / 2 ||
+        (P->m && (sroot == nullptr || (two && (Y1 == nullptr || W1 == nullptr)))) ||
+        (two && SP->v[1].n_order != P->n_order))
         return (int)cudaErrorInvalidValue;
-    cudaError_t e = configure<DESCEND>(bytes);
+    cudaError_t e = two ? configure<DESCEND, 2>(bytes) : configure<DESCEND, 1>(bytes);
     if (e == cudaSuccess) {
         cudaLaunchConfig_t cfg;
         cudaLaunchAttribute attr[1];
         cluster_config(&cfg, attr, P->C * S, S, threads, bytes, stream);
-        VisitParams Pc = *P;
-        void* args[] = {&Pc, &x, &f, &fc, &xc, &coeffs, &ns, &B, &Y, &Wm, &xilr, &sinv, &G, &xi};
-        e = cudaLaunchKernelExC(&cfg, (const void*)split_visit_kernel<DESCEND>, args);
+        SplitParams Pc = *SP;
+        void* args[] = {&Pc, &x, &f, &fc, &xc, &coeffs, &ns, &B, &Y0, &W0, &Y1, &W1, &xilr,
+                        &sroot, &xi};
+        const void* kernel = two ? (const void*)split_visit_kernel<DESCEND, 2>
+                                 : (const void*)split_visit_kernel<DESCEND, 1>;
+        e = cudaLaunchKernelExC(&cfg, kernel, args);
     }
     if (e != cudaSuccess) {
         cudaGetLastError();
@@ -471,20 +519,24 @@ static int launch(const VisitParams* P, float* x, const float* f, float* fc, con
     return (int)cudaGetLastError();
 }
 
-extern "C" int mgmc_split_descend(const VisitParams* P, float* x, const float* f, float* fc,
+// Y0, W0: the first direction's Woodbury factors, Y1, W1 the second's (null
+// with one direction); xilr (C, ndir m) the low-rank normals as drawn, sroot
+// Sigma^1/2; xi (ndir, C, H, W) where noise_mode is 2.
+extern "C" int mgmc_split_descend(const SplitParams* P, float* x, const float* f, float* fc,
                                   const float* coeffs, const float* ns, const float* B,
-                                  const float* Y, const float* Wm, const float* xilr,
-                                  const float* sinv, const float* G, const float* xi, int S,
-                                  int threads, void* stream) {
-    return launch<true>(P, x, f, fc, nullptr, coeffs, ns, B, Y, Wm, xilr, sinv, G, xi, S,
+                                  const float* Y0, const float* W0, const float* Y1,
+                                  const float* W1, const float* xilr, const float* sroot,
+                                  const float* xi, int S, int threads, void* stream) {
+    return launch<true>(P, x, f, fc, nullptr, coeffs, ns, B, Y0, W0, Y1, W1, xilr, sroot, xi, S,
                         threads, (cudaStream_t)stream);
 }
 
-extern "C" int mgmc_split_ascend(const VisitParams* P, float* x, const float* f,
+extern "C" int mgmc_split_ascend(const SplitParams* P, float* x, const float* f,
                                  const float* xc, const float* coeffs, const float* ns,
-                                 const float* B, const float* Y, const float* Wm,
-                                 const float* xilr, const float* xi, int S, int threads,
+                                 const float* B, const float* Y0, const float* W0,
+                                 const float* Y1, const float* W1, const float* xilr,
+                                 const float* sroot, const float* xi, int S, int threads,
                                  void* stream) {
-    return launch<false>(P, x, f, nullptr, xc, coeffs, ns, B, Y, Wm, xilr, nullptr, nullptr, xi,
+    return launch<false>(P, x, f, nullptr, xc, coeffs, ns, B, Y0, W0, Y1, W1, xilr, sroot, xi,
                          S, threads, (cudaStream_t)stream);
 }

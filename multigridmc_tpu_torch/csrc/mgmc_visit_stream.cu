@@ -6,12 +6,16 @@
 // computes what the phase kernels of mgmc_visit.cu compute (the passes of
 // level_passes.cuh):
 //
-//   descend:  c   = f + sqrt(D(2-w)/w) xi + sum_k xi'_k B_k     (Gibbs rhs)
+//   descend:  c   = f + sqrt(D(2-w)/w) xi                        (Gibbs rhs)
 //             x  <- colour-ordered SOR sweep(c, x)
-//             x  <- x - sum_l u_l Y_l,  u = W B^T x              (Woodbury)
-//             r   = f - A_stencil x - sum_k t_k B_k,  t = Sigma^-1 (I - G) B^T x
+//             x  <- x - sum_l u_l Y_l,  u = W (B^T x - Sigma^1/2 n)   (Woodbury)
+//             r   = f - A_stencil x - sum_k t_k B_k,  t = u + Sigma^-1/2 n
 //             f_c = R r                                          (full weighting)
 //   ascend:   x  <- x + gamma P x_c,  then c, sweep, Woodbury (post direction)
+//
+// with n the sweep's low-rank normals, which enter the correction and not the
+// rhs (level_passes.cuh).  One directed sweep per visit (SOR): a two-sweep
+// level takes the phase or the split kernels.
 //
 // Why another design.  The phase kernels keep the field in global memory and
 // run whole-field passes between barriers: about ten passes over a 260 KB
@@ -37,7 +41,7 @@
 // step the block's two halves work side by side: the first half sweeps (each
 // thread a point in each row of its colour phase's row block, all loads
 // before the divisions); the second half forms row block s + 2, one Philox
-// point group per thread (c = f + ns xi + sum_k s_lr[k] B_k; ascend:
+// point group per thread (c = f + ns xi; ascend:
 // x += gamma P x_c first), four points read and written as one vector.  All
 // threads write back row block s - max_lag - 1, final since the step before,
 // coalesced (adding its share of B^T x, inside the bounding boxes, to per-warp
@@ -47,7 +51,7 @@
 // field), which the step waits for before its barrier STREAM_PREFETCH steps
 // later.  c is never written to memory.
 // Woodbury.  After the last row: B^T x from the partial sums in a fixed order,
-// u = W B^T x, x -= u_l Y_l on the Y bounding boxes in global memory, one
+// u = W (B^T x - Sigma^1/2 n), x -= u_l Y_l on the Y bounding boxes in global memory, one
 // column after the other: each point's columns in column order, as
 // woodbury_pass (level_passes.cuh).
 // Pass 2 (descend only).  The corrected x streams through the block again in
@@ -179,8 +183,8 @@ stream_visit_kernel(const __grid_constant__ StreamParams S, float* x_all,
                     const float* __restrict__ xc_all, const float* __restrict__ coeffs,
                     const float* __restrict__ ns, const float* __restrict__ B,
                     const float* __restrict__ Y, const float* __restrict__ Wm,
-                    const float* __restrict__ xilr, const float* __restrict__ sinv,
-                    const float* __restrict__ G, const float* __restrict__ xi_all) {
+                    const float* __restrict__ xilr, const float* __restrict__ sroot,
+                    const float* __restrict__ xi_all) {
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
     __shared__ float s_btx[MAX_LOWRANK];
@@ -283,7 +287,6 @@ stream_visit_kernel(const __grid_constant__ StreamParams S, float* x_all,
             xs[0] = a.x; xs[1] = a.y; xs[2] = a.z; xs[3] = a.w;
             cs[0] = c.x; cs[1] = c.y; cs[2] = c.z; cs[3] = c.w;
         }
-        const int mk = P.noise_mode ? s_mask[i] : 0;
         float ca[3], cb[3];  // coarse columns 2g-1 .. 2g+1 of the rows P x_c reads
         if (!DESCEND) {
             // odd fine i takes coarse row (i-1)/2 with weight 1, even i the
@@ -329,13 +332,7 @@ stream_visit_kernel(const __grid_constant__ StreamParams S, float* x_all,
             }
             if (P.noise_mode) {
                 const float zq = (P.noise_mode == 2) ? xi[p] : z[q4];
-                float c = cs[q4] + (P.ns_const ? P.ns_val : ns[p]) * zq;
-                for (int bits = mk; bits; bits &= bits - 1) {
-                    const int k = __ffs(bits) - 1;
-                    if (j >= P.bbox[k][2] && j < P.bbox[k][3])
-                        c += 1.0f * s_lr[k] * B[(size_t)k * n + p];
-                }
-                cs[q4] = c;
+                cs[q4] = cs[q4] + (P.ns_const ? P.ns_val : ns[p]) * zq;
             }
         }
         if (!DESCEND) *xv = make_float4(xs[0], xs[1], xs[2], xs[3]);
@@ -478,7 +475,8 @@ stream_visit_kernel(const __grid_constant__ StreamParams S, float* x_all,
         if (tid < P.m) {
             float v = 0.0f;
             for (int w = 0; w < L.nwarps; ++w) v += part[tid * L.nwarps + w];
-            s_btx[tid] = v;
+            // B^T x - Sigma^1/2 n (woodbury_pass)
+            s_btx[tid] = v - sroot[tid] * (P.noise_mode ? s_lr[tid] : 0.0f);
         }
         __syncthreads();
         if (tid < P.m) {
@@ -497,13 +495,9 @@ stream_visit_kernel(const __grid_constant__ StreamParams S, float* x_all,
             }
             __syncthreads();
         }
-        if (DESCEND) {  // t = Sigma^-1 (I - G) B^T x, as level_descend
-            if (tid < P.m) {
-                const int k = tid;
-                float v = s_btx[k];
-                for (int l = 0; l < P.m; ++l) v -= G[k * P.m + l] * s_btx[l];
-                s_lr[k] = v * sinv[k];
-            }
+        if (DESCEND) {  // t = u + Sigma^-1/2 n = Sigma^-1 B^T x, as level_descend
+            if (tid < P.m)
+                s_lr[tid] = s_u[tid] + (P.noise_mode ? s_lr[tid] : 0.0f) / sroot[tid];
             __syncthreads();
         }
     }
@@ -635,7 +629,7 @@ template <bool DESCEND, int KMAX, bool CONST>
 static int launch_stream(const StreamParams* S, int threads, int bytes, cudaStream_t stream,
                          float* x, const float* f, float* fc, const float* xc,
                          const float* coeffs, const float* ns, const float* B, const float* Y,
-                         const float* Wm, const float* xilr, const float* sinv, const float* G,
+                         const float* Wm, const float* xilr, const float* sroot,
                          const float* xi) {
     auto kernel = stream_visit_kernel<DESCEND, KMAX, CONST>;
     static int granted = 48 * 1024;  // per instantiation: what the kernel may use
@@ -649,7 +643,7 @@ static int launch_stream(const StreamParams* S, int threads, int bytes, cudaStre
         granted = bytes;
     }
     kernel<<<S->v.C, threads, bytes, stream>>>(*S, x, f, fc, xc, coeffs, ns, B, Y, Wm, xilr,
-                                               sinv, G, xi);
+                                               sroot, xi);
     return (int)cudaGetLastError();
 }
 
@@ -659,7 +653,7 @@ template <bool DESCEND>
 static int dispatch(const StreamParams* S, int threads, cudaStream_t stream, float* x,
                     const float* f, float* fc, const float* xc, const float* coeffs,
                     const float* ns, const float* B, const float* Y, const float* Wm,
-                    const float* xilr, const float* sinv, const float* G, const float* xi) {
+                    const float* xilr, const float* sroot, const float* xi) {
     const VisitParams& P = S->v;
     if (threads < 64 || threads > MAX_STREAM_THREADS || threads % 64 || threads / 2 < P.n_order ||
         P.K < 1 || P.K > MAX_OFFSETS)
@@ -669,7 +663,7 @@ static int dispatch(const StreamParams* S, int threads, cudaStream_t stream, flo
     const int bytes = (int)sizeof(float) * stream_layout(*S, !DESCEND, threads).floats;
 #define STREAM_LAUNCH(KM, CO)                                                              \
     return launch_stream<DESCEND, KM, CO>(S, threads, bytes, stream, x, f, fc, xc, coeffs, \
-                                          ns, B, Y, Wm, xilr, sinv, G, xi)
+                                          ns, B, Y, Wm, xilr, sroot, xi)
     if (P.K <= 5) {
         if (all_const) STREAM_LAUNCH(5, true);
         STREAM_LAUNCH(5, false);
@@ -682,17 +676,17 @@ static int dispatch(const StreamParams* S, int threads, cudaStream_t stream, flo
 extern "C" int mgmc_stream_descend(const StreamParams* S, float* x, const float* f, float* fc,
                                    const float* coeffs, const float* ns, const float* B,
                                    const float* Y, const float* Wm, const float* xilr,
-                                   const float* sinv, const float* G, const float* xi,
-                                   int threads, void* stream) {
+                                   const float* sroot, const float* xi, int threads,
+                                   void* stream) {
     return dispatch<true>(S, threads, (cudaStream_t)stream, x, f, fc, nullptr, coeffs, ns, B, Y,
-                          Wm, xilr, sinv, G, xi);
+                          Wm, xilr, sroot, xi);
 }
 
 extern "C" int mgmc_stream_ascend(const StreamParams* S, float* x, const float* f,
                                   const float* xc, const float* coeffs, const float* ns,
                                   const float* B, const float* Y, const float* Wm,
-                                  const float* xilr, const float* xi, int threads,
-                                  void* stream) {
+                                  const float* xilr, const float* sroot, const float* xi,
+                                  int threads, void* stream) {
     return dispatch<false>(S, threads, (cudaStream_t)stream, x, f, nullptr, xc, coeffs, ns, B,
-                           Y, Wm, xilr, nullptr, nullptr, xi);
+                           Y, Wm, xilr, sroot, xi);
 }

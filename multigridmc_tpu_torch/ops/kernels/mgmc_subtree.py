@@ -13,9 +13,9 @@ coarsest level ``NL``,
                      ascend visit of level l    (x_l += gamma P x_{l+1}, ...)
     sample(NL):  x = Linv^T (xi + Linv f)       (Linv the inverse Cholesky factor)
 
-where the visits are those of :mod:`.mgmc_visit` (forward Gibbs sweep, Woodbury,
-residual with the ``(I - G)`` shortcut, restriction; prolongate-add, backward
-Gibbs sweep, Woodbury).  The coarse sample by the inverse factor has the same
+where the visits are those of :mod:`.mgmc_visit` (forward Gibbs sweep, Woodbury
+with the sweep's low-rank noise, residual, restriction; prolongate-add,
+backward Gibbs sweep, Woodbury).  The coarse sample by the inverse factor has the same
 law as the triangular solves of ``DenseCholeskySampler`` and, fed the same
 normals, the same value up to rounding; the factor is inverted in float64.
 
@@ -24,8 +24,8 @@ The CUDA source is ``csrc/mgmc_subtree.cu`` with the visits of
 schedule; the header comments state the design), the passes the phase visit
 kernels run too.  At launch start the block
 copies the tables of :func:`launch_tables` (the levels' parameter blocks, ``B``
-and both directions' ``Y`` inside their bounding boxes, ``W``, ``G``,
-``1/Sigma``, ``Sigma^-1/2``, the sweeps' :func:`colour_rows`) into its shared
+and both directions' ``Y`` inside their bounding boxes, ``W``,
+``Sigma^{1/2}``, the sweeps' :func:`colour_rows`) into its shared
 memory; each low-rank term is one pass in which the owner of a point adds the
 columns that hold it, in column order, the stencil (any reach-1 stencil) is
 read with its coefficients in registers, and the warps take the rows of each
@@ -49,10 +49,10 @@ ran on.
 
 **Shared memory.**  The tables stay in shared memory whatever the placement of
 the fields, so the tables and the kernel's static share must fit a block's
-limit: 20,160 B on the flagship's sub-levels (m = 8); at m = 32 (the most the
-kernel takes) 26-28 KB a sub-level, most of it the part that does not depend
-on the level's size (two ``W``, ``G``, the two parameter blocks), so some
-206 KB at 8 sub-levels (205,840 B for a 1024^2 lattice of 10 levels with 32
+limit: 19,296 B on the flagship's sub-levels (m = 8); at m = 32 (the most the
+kernel takes) some 21.5 KB a sub-level, most of it the part that does not
+depend on the level's size (two ``W``, the two parameter blocks), so some
+172 KB at 8 sub-levels (172,048 B for a 1024^2 lattice of 10 levels with 32
 point measurements, the case of ``tests/test_torch_subtree_tables.py``), under
 the H100's 232,448 B with the 4,096 B static share.  A
 card with less raises at construction; on the CPU nothing is launched and the
@@ -146,8 +146,7 @@ class SubLevel(ctypes.Structure):
         ("x", FieldLoc), ("scr", FieldLoc), ("f", FieldLoc),
         ("n", ctypes.c_int), ("plan", ctypes.c_int * 2), ("bval", ctypes.c_int),
         ("boff", ctypes.c_int), ("yval", ctypes.c_int * 2), ("yoff", ctypes.c_int * 2),
-        ("wm", ctypes.c_int * 2), ("g", ctypes.c_int), ("sinv", ctypes.c_int),
-        ("lrscale", ctypes.c_int), ("rows", ctypes.c_int * 2),
+        ("wm", ctypes.c_int * 2), ("sroot", ctypes.c_int), ("rows", ctypes.c_int * 2),
     ]
 
 
@@ -260,9 +259,8 @@ def launch_tables(levels: Sequence[FusedVisitLevel]):
     visit kernels stage one (``mgmc_visit.stage_level``): both directions'
     ``colour_rows``, ``B_k`` inside ``bbox_k`` and ``Y_k`` of both directions
     inside their ``ybox_k`` (each box row major, column after column, with the
-    ``m + 1`` starts of the columns), ``W`` of both directions, ``G``, ``1 /
-    Sigma`` and ``Sigma^-1/2``; then 32 warps' slots of the largest ``m`` words
-    each.
+    ``m + 1`` starts of the columns), ``W`` of both directions and
+    ``Sigma^{1/2}``; then 32 warps' slots of the largest ``m`` words each.
 
     Returns ``(words, offsets, warp_vec, warp_stride)``: ``words`` an int32
     array whose length is a multiple of 4, ``offsets`` per level a dict of the
@@ -296,7 +294,7 @@ class SubtreeKernel:
     factor of the coarsest level's full precision.  Per sub-level a
     :class:`~.mgmc_visit.FusedVisitLevel` holds what the visits need: the
     coefficient plan, the noise scale, ``B``, both directions' Woodbury factors
-    in factored form, ``G`` and ``1/Sigma``; :func:`launch_tables` stages them.
+    in factored form and ``Sigma^{1/2}``; :func:`launch_tables` stages them.
     ``smem_budget`` (bytes; default: what the card grants, less the kernel's
     static share and the tables) bounds the fields placed in shared memory."""
 
@@ -575,7 +573,7 @@ def subtree_sample_plain(kernel: SubtreeKernel, f: torch.Tensor,
         z = None if z is None else z.reshape((C,) + tuple(level.op.vshape))
         z_lr = None
         if xi is not None and level.op.m_lowrank:
-            z_lr = take(level.op.m_lowrank) * level.lr_scale
+            z_lr = take(level.op.m_lowrank)
         if op == OP_DESCEND_ZERO:
             xs[li] = torch.zeros_like(fs[li])
         if op in (OP_DESCEND, OP_DESCEND_ZERO):

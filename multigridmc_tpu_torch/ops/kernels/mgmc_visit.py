@@ -3,20 +3,33 @@ one CUDA kernel launch.
 
 Replaces ``descend_visit`` / ``ascend_visit`` / ``FusedVisitLevel`` of
 ``multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py``.  One **descend visit** of
-level l is
+level l is, per directed sweep ``d`` of the pre visit (one: SOR; forward then
+backward: SSOR), with fresh normals ``xi_d``, ``n_d``,
 
-    c   = f + sqrt(D (2-omega)/omega) xi + B Sigma^{-1/2} xi'   (Gibbs noise)
-    x  <- colour-ordered SOR sweep(c, x)                        (pre direction)
-    x  <- x - B_bar (B^T x)                                     (Woodbury)
-    r   = f - A x            (A = stencil + B Sigma^{-1} B^T)
-    f_c = R r                (full-weighting restriction)
+    c   = f + sqrt(D (2-omega)/omega) xi_d                      (Gibbs noise)
+    x  <- colour-ordered SOR sweep(c, x)                        (direction d)
+    x  <- x - Y_d u,  u = W_d (B^T x - Sigma^{1/2} n_d)         (Woodbury)
+
+then, after the last,
+
+    r   = f - A_stencil x - B t,  t = u + Sigma^{-1/2} n_d      (= f - A x)
+    f_c = R r                                                   (full weighting)
 
 and one **ascend visit** is
 
     x  <- x + gamma * P x_c                                     (prolongate_add)
-    c   = f + noise                                             (as above)
-    x  <- colour-ordered SOR sweep(c, x)                        (post direction)
-    x  <- x - B_bar_post (B^T x)
+    per directed sweep of the post visit, as above
+
+with ``Y_d = M_d^{-1} B``, ``W_d = (Sigma + B^T Y_d)^{-1}`` and ``B_bar_d = Y_d
+W_d``.  The TPU kernel adds ``B Sigma^{-1/2} n_d`` to the rhs and corrects with
+``B_bar_d (B^T x)``, and forms ``t`` as ``Sigma^{-1} (I - G) B^T x`` with a
+Gram matrix ``G``.  The sweep is linear, so the port's form gives the same
+``x`` (``Y (I - W B^T Y) = Y W Sigma``) and ``t = Sigma^{-1} B^T x`` exactly
+(``B^T x = Sigma u + Sigma^{1/2} n_d``).  The port's float32 visits and sweeps
+no longer follow the TPU kernel's arithmetic at measured vertices; they compute
+the same function, and in float64 they agree with the JAX package to rounding.
+In float32 the TPU form cancels a term of about ``Sigma^{-1/2}`` (1e3 where
+``Sigma`` is 1e-6) down to the size of ``x``.
 
 Three hand-written CUDA kernels compute each visit, and the launch takes one
 of them by the number of chains (:data:`SPLIT_MAX_CHAINS`, and
@@ -36,10 +49,11 @@ shared memory fits a block and its cluster schedules (:func:`visit_route`,
   between them: the passes of ``csrc/level_passes.cuh``, which the subtree
   kernel runs too - each low-rank term in one pass, the stencil in registers,
   each colour's rows over all warps; the level's tables of the launch's
-  direction, :func:`phase_tables`, in each block's shared memory where they
+  directions, :func:`phase_tables`, in each block's shared memory where they
   fit (:func:`phase_tables_fit`), else read from the device; the block size
   by the chain count, :func:`phase_threads`) - for the chain counts between
-  the two thresholds, and for levels the other two do not fit;
+  the two thresholds, for levels the other two do not fit, and for two-sweep
+  (SSOR) levels at every chain count the split kernels do not take;
 * the **stream kernels** of ``csrc/mgmc_visit_stream.cu`` (one thread block per
   chain, the sweep as a wavefront of row blocks through a ring of rows in
   shared memory, every colour phase of a step at once; :func:`wavefront_lags`
@@ -80,10 +94,13 @@ The field noise of the kernels is an in-kernel Philox4x32-10 stream addressed
 by ``(seed, launch counter, chain, point group)`` (see
 :func:`philox_normals_reference`); alternatively the wrappers accept the field
 noise ``xi`` as a tensor, so kernel and plain version can be fed the same
-normals.  The ``m`` low-rank normals per chain are always drawn outside and
-passed in pre-scaled by ``Sigma^{-1/2}``.
+normals.  The ``m`` low-rank normals per chain and sweep are always drawn
+outside and passed in as drawn, ``(C, ndir m)``; a two-sweep launch takes two
+Philox launch counters, one per direction (``NoiseSource.philox_streams(2)``),
+and its field noise as a tensor is ``(2, C, ...)``.
 
-Supported by the kernels: 2d, float32, one directed sweep per visit (SOR), any
+Supported by the kernels: 2d, float32, one directed sweep per visit (SOR) or
+two, forward then backward (SSOR; the phase and the split kernels), any
 reach-1 stencil (up to 9 offsets, per-point coefficient planes, up to 8
 colours), ``0 <= m <= 32`` with dense ``B``, ``f`` shared or per chain, noise
 on or off, any ``coarse_scaling``.  Reach-2 stencils (the squared
@@ -96,10 +113,9 @@ prior's 7-point level and its 27-point Galerkin levels) take the phase kernels
 alone too, from a fourth build (``common.PHASE_DIM3_FLAGS``,
 :class:`VolumeVisitParams`, stencil forms 10-15): the fields ``(C, Z, Y, X)``
 row major as they are, a row ``(z, y)``, 3d measurement boxes and 3d
-transfers.  The split and stream kernels take 2d reach-1 levels only.  Two
-sweeps per visit (SSOR), reach 3 and reduced-precision transfers belong to
-later slices; the wrapper raises on them.  SSOR levels run the composed visit,
-whose sweeps are the kernels of :mod:`.sor_sweep`.
+transfers.  The split and stream kernels take 2d reach-1 levels only, the
+stream kernels one sweep per visit.  Reach 3 and reduced-precision transfers
+belong to later slices; the wrapper raises on them.
 """
 
 from __future__ import annotations
@@ -125,6 +141,8 @@ from .common import tensor_ptr as _ptr
 MAX_OFFSETS = 9
 MAX_COLORS = 8
 MAX_LOWRANK = 32
+#: directed sweeps per visit: one (SOR) or two, forward then backward (SSOR)
+MAX_DIRS = 2
 #: the limits of the phase kernels' reach-2 build (``VISIT_REACH 2`` in
 #: ``csrc/mgmc_visit.cu``): the 5x5 box and the 9 colours ``coloring_for``
 #: gives it, 512 threads a block
@@ -162,9 +180,9 @@ SPLIT_SOURCE_NAME = "mgmc_visit_split"
 #: ``mgmc_visit_split.cu``
 ROUTES = ("phase", "stream", "split")
 
-#: ints of the split kernels' first-point table before the bands
-#: (``SPLIT_TABLE_INTS`` in the source)
-SPLIT_TABLE_INTS = MAX_COLORS * MAX_COLORS
+#: ints of the split kernels' first-point table before the bands, per
+#: direction, order index and row colour (``SPLIT_TABLE_INTS`` in the source)
+SPLIT_TABLE_INTS = MAX_DIRS * MAX_COLORS * MAX_COLORS
 #: the split kernels' static shared memory (``s_part``, ``s_all``, ``s_btx``,
 #: ``s_lr``, ``s_u``; ``MAX_CLUSTER`` = 16 in the source)
 SPLIT_STATIC_SMEM = 4 * (MAX_LOWRANK + 16 * MAX_LOWRANK + 3 * MAX_LOWRANK)
@@ -225,12 +243,15 @@ STREAM_MIN_CHAINS: Dict[Tuple[int, int, int], int] = {(255, 255, 0): 256}
 #: if the table supports another value: device time per descend plus ascend of
 #: all three routes at 1, 4, 8, 16, 32, 64 and 132 chains on the flagship's 255^2
 #: and 127^2 levels, the split kernels at every cluster size that fits, NVIDIA
-#: H100 80GB HBM3, 700.00 W.  With the phase kernels on the passes of
-#: ``csrc/level_passes.cuh`` the split kernels at the rule's cluster size take
-#: less than 0.90 of their time up to 16 chains on both levels (127^2 at 16:
-#: 0.0658 against 0.0832 ms) and not from 32 (127^2: 0.1102 against 0.0836; at
-#: 64 they lose on both).  PERF.md section 6 holds the table.
-SPLIT_MAX_CHAINS = 16
+#: H100 80GB HBM3, 700.00 W.  The split kernels at the rule's cluster size take
+#: less than 0.90 of the phase kernels' time up to 8 chains on both levels (127^2
+#: at 8: 0.0622 against 0.0718 ms) and not at 16 on 127^2 (0.0652 against 0.0722,
+#: 0.903-0.908 in three runs), since the phase kernels take the low-rank noise
+#: into the Woodbury correction (4.5-7.5% faster than with it in the rhs; 16
+#: before, when 127^2 at 16 read 0.0664 against 0.0784).  On 255^2 they would win
+#: up to 32 chains (0.30 of the phase kernels' time at 8, 0.51 at 16, 0.88 at
+#: 32): one count for every level.  PERF.md section 6 holds the table.
+SPLIT_MAX_CHAINS = 8
 
 #: The fixed part of a wave of split visit clusters (the load, the cluster
 #: barriers, the launch) lasts about as long as a band of this many points takes
@@ -247,21 +268,11 @@ SPLIT_WAVE_POINTS = 3300
 
 #: int64 words per block of the phase kernels' stamps (``PHASE_STAMP_WIDTH``
 #: in ``csrc/mgmc_visit.cu``): the timer at entry, after each of up to
-#: ``MAX_COLORS + 5`` passes and at exit, the barriers passed, the SM
-PHASE_STAMP_WIDTH = 1 + MAX_COLORS + 5 + 3
+#: ``MAX_COLORS + 3`` passes of each of two directions and the descend's two
+#: and at exit, the barriers passed, the SM
+PHASE_STAMP_WIDTH = 1 + MAX_DIRS * (MAX_COLORS + 3) + 2 + 3
 #: the same in the reach-2 build (which has no stamps build of its own)
-WIDE_STAMP_WIDTH = 1 + WIDE_MAX_COLORS + 5 + 3
-
-#: kernel launches made by the wrappers (and only where they launch); the
-#: phase kernels' reach-2 forms count apart, by the size of their stencil
-#: (:data:`REACH2_NAMES`)
-launch_counts: Dict[str, int] = {"descend_visit": 0, "ascend_visit": 0,
-                                 "descend_visit_stream": 0, "ascend_visit_stream": 0,
-                                 "descend_visit_split": 0, "ascend_visit_split": 0,
-                                 "descend_visit_reach2_13pt": 0, "ascend_visit_reach2_13pt": 0,
-                                 "descend_visit_reach2_25pt": 0, "ascend_visit_reach2_25pt": 0,
-                                 "descend_visit_3d_7pt": 0, "ascend_visit_3d_7pt": 0,
-                                 "descend_visit_3d_27pt": 0, "ascend_visit_3d_27pt": 0}
+WIDE_STAMP_WIDTH = 1 + MAX_DIRS * (WIDE_MAX_COLORS + 3) + 2 + 3
 
 #: the kernel counted by each launch, by route and kind
 KERNEL_NAMES = {(route, kind): f"{kind}_visit" + ("" if route == "phase" else f"_{route}")
@@ -274,6 +285,19 @@ REACH2_NAMES = {(kind, box): f"{kind}_visit_reach2_{'25' if box else '13'}pt"
 #: stencil has more than 7 offsets (forms 12-15)
 DIM3_NAMES = {(kind, wide): f"{kind}_visit_3d_{'27' if wide else '7'}pt"
               for kind in ("descend", "ascend") for wide in (False, True)}
+#: a launch of two sweeps (SSOR) counts as its one-sweep name with this ending
+#: (the stream kernels take no such launch)
+SSOR_SUFFIX = "_ssor"
+
+#: kernel launches made by the wrappers (and only where they launch); the
+#: phase kernels' reach-2 and 3d forms count apart, by the size of their
+#: stencil (:data:`REACH2_NAMES`, :data:`DIM3_NAMES`), and each two-sweep
+#: (SSOR) form apart from its one-sweep form (:data:`SSOR_SUFFIX`)
+launch_counts: Dict[str, int] = {
+    name + suffix: 0
+    for name in (list(KERNEL_NAMES.values()) + list(REACH2_NAMES.values())
+                 + list(DIM3_NAMES.values()))
+    for suffix in (("",) if "stream" in name else ("", SSOR_SUFFIX))}
 
 
 def reset_launch_counts() -> None:
@@ -346,12 +370,23 @@ class StreamParams(ctypes.Structure):
 
 class PhaseTables(ctypes.Structure):
     """Mirror of ``struct PhaseTables`` in ``csrc/mgmc_visit.cu``: the word
-    offsets of one level's tables for one sweep direction (:func:`phase_tables`)
-    and whether each block copies them into its shared memory."""
+    offsets of one level's tables for a launch's ``ndir`` sweep directions
+    (:func:`phase_tables`; ``B``'s and ``Sigma^{1/2}`` shared, the rest per
+    direction) and whether each block copies them into its shared memory."""
 
-    _fields_ = [(name, ctypes.c_int) for name in
-                ("bval", "boff", "yval", "yoff", "wm", "g", "sinv", "bbox", "ybox", "bspan",
-                 "yspan", "rows", "words", "shared")]
+    _fields_ = ([(name, ctypes.c_int) for name in ("bval", "boff", "sroot", "bbox", "bspan",
+                                                    "ndir")]
+                + [(name, ctypes.c_int * MAX_DIRS) for name in
+                   ("yval", "yoff", "wm", "ybox", "yspan", "rows")]
+                + [(name, ctypes.c_int) for name in ("words", "shared")])
+
+
+class SplitParams(ctypes.Structure):
+    """Mirror of ``struct SplitParams`` in ``csrc/mgmc_visit_split.cu``: one
+    ``VisitParams`` per sweep direction (its order, its ``Y`` boxes, its Philox
+    counter) and their number."""
+
+    _fields_ = [("v", VisitParams * MAX_DIRS), ("ndir", ctypes.c_int)]
 
 
 def phase_threads(C: int, n: int, sms: int, reach: int = 1, dim: int = 2) -> int:
@@ -493,14 +528,11 @@ def colour_rows(P: "VisitParams") -> np.ndarray:
     return out
 
 
-def stage_level(words: TableWords, level: "FusedVisitLevel", orders, residual: bool = True,
-                lrscale: bool = True) -> dict:
+def stage_level(words: TableWords, level: "FusedVisitLevel", orders) -> dict:
     """Put one level's tables into ``words``: per sweep order of ``orders``
     its :func:`colour_rows`, ``Y`` inside its boxes and ``W``; ``B`` inside its
-    boxes; with ``residual`` the descend's ``G`` and ``1 / Sigma``, with
-    ``lrscale`` ``Sigma^-1/2``.  Returns the word offsets: ``rows``, ``yval``,
-    ``yoff`` and ``wm`` as lists by order, ``bval``, ``boff``, ``g``, ``sinv``
-    and ``lrscale`` (0 where not put)."""
+    boxes; ``Sigma^{1/2}``.  Returns the word offsets: ``rows``, ``yval``,
+    ``yoff`` and ``wm`` as lists by order, ``bval``, ``boff`` and ``sroot``."""
     off = {"rows": [], "yval": [], "yoff": [], "wm": []}
     for order in orders:
         off["rows"].append(words.put(colour_rows(level._build_params(1, order, True, 0))))
@@ -512,9 +544,7 @@ def stage_level(words: TableWords, level: "FusedVisitLevel", orders, residual: b
         off["yval"].append(words.put(yval))
         off["yoff"].append(words.put(yoff))
         off["wm"].append(words.put(small_table(W)))
-    off["g"] = words.put(small_table(level.G_pre)) if residual else 0
-    off["sinv"] = words.put(small_table(level.sigma_inv)) if residual else 0
-    off["lrscale"] = words.put(small_table(level.lr_scale)) if lrscale else 0
+    off["sroot"] = words.put(small_table(level.sigma_sqrt))
     return off
 
 
@@ -532,22 +562,29 @@ def row_spans(boxes, vshape) -> np.ndarray:
     return out.reshape(-1)
 
 
-def phase_tables(level: "FusedVisitLevel", order, descend: bool):
-    """What a phase launch of ``level`` in the sweep ``order`` reads besides its
-    fields: :func:`stage_level` for that one order (``G`` and ``1 / Sigma`` for
-    the descend only), then ``B``'s and this order's ``Y`` boxes (``m x 4``
-    int32 each, as ``VisitParams.bbox`` / ``ybox``) and per row the columns
-    each set spans (:func:`row_spans`).  Returns ``(words, PhaseTables)``, the
-    offsets filled in and ``shared`` left 0."""
+def phase_tables(level: "FusedVisitLevel", orders):
+    """What a phase launch of ``level`` with the sweep ``orders`` (one order:
+    SOR; forward and backward: SSOR) reads besides its fields:
+    :func:`stage_level` for those orders, then ``B``'s and each order's ``Y``
+    boxes (``m x 4`` int32 each, as ``VisitParams.bbox`` / ``ybox``) and per row
+    the columns each set spans (:func:`row_spans`).  Returns ``(words,
+    PhaseTables)``, the offsets filled in and ``shared`` left 0."""
+    orders = tuple(tuple(o) for o in orders)
+    if not 1 <= len(orders) <= MAX_DIRS:
+        raise ValueError(f"a visit sweeps once or twice, got {len(orders)} orders")
     words = TableWords()
-    off = stage_level(words, level, (tuple(order),), residual=descend, lrscale=False)
+    off = stage_level(words, level, orders)
     T = PhaseTables()
-    for name, boxes in (("b", level.bbox), ("y", level._woodbury[tuple(order)][2])):
-        setattr(T, f"{name}box", words.put(np.asarray(boxes, np.int32).reshape(-1)))
-        setattr(T, f"{name}span", words.put(row_spans(boxes, level.op.vshape)))
-    for name in ("rows", "yval", "yoff", "wm"):
-        setattr(T, name, off[name][0])
-    for name in ("bval", "boff", "g", "sinv"):
+    T.ndir = len(orders)
+    T.bbox = words.put(np.asarray(level.bbox, np.int32).reshape(-1))
+    T.bspan = words.put(row_spans(level.bbox, level.op.vshape))
+    for d, order in enumerate(orders):
+        ybox = level._woodbury[order][2]
+        T.ybox[d] = words.put(np.asarray(ybox, np.int32).reshape(-1))
+        T.yspan[d] = words.put(row_spans(ybox, level.op.vshape))
+        for name in ("rows", "yval", "yoff", "wm"):
+            getattr(T, name)[d] = off[name][d]
+    for name in ("bval", "boff", "sroot"):
         setattr(T, name, off[name])
     out = words.words()
     T.words = out.size
@@ -555,13 +592,15 @@ def phase_tables(level: "FusedVisitLevel", order, descend: bool):
 
 
 def phase_barrier_count(level: "FusedVisitLevel", kind: str) -> int:
-    """Barriers of one phase launch as ``csrc/level_passes.cuh`` places them (a
-    descend's first is there with or without noise: it publishes the table
-    copy): a descend ``n_order + 5``, an ascend ``n_order + 3``, each 2 fewer
-    where ``m = 0``; the stamps build counts them on the card."""
-    order = level.pre_order if kind == "descend" else level.post_order
+    """Barriers of one phase launch as ``csrc/level_passes.cuh`` places them:
+    per sweep direction ``n_order + 3`` (the rhs - a descend's first is there
+    with or without noise: it publishes the table copy -, the colours, ``B^T
+    x``, the Woodbury correction), 2 fewer where ``m = 0``, and a descend 2
+    more (the residual, the restriction); the stamps build counts them on the
+    card."""
     lowrank = 2 if level.op.m_lowrank else 0
-    return len(order) + lowrank + (3 if kind == "descend" else 1)
+    return (sum(1 + len(order) + lowrank for order in level.orders(kind))
+            + (2 if kind == "descend" else 0))
 
 
 def stream_min_chains(vshape, form: int) -> Optional[int]:
@@ -574,11 +613,12 @@ def stream_min_chains(vshape, form: int) -> Optional[int]:
 
 def visit_route(C: int, stream_bytes: int = 0, device=None,
                 smem_limit: Optional[int] = None, vshape=None,
-                form: Optional[int] = None) -> str:
+                form: Optional[int] = None, ndir: int = 1) -> str:
     """The kernel a visit of ``C`` chains launches: ``"phase"`` for a reach-2
     or 3d stencil form (``form >= WIDE_FORM0``: the split and stream kernels
-    take 2d reach-1 levels); ``"stream"`` from the threshold of the level's shape ``vshape``
-    and stencil form ``form`` on
+    take 2d reach-1 levels); ``"stream"`` for a visit of one sweep (``ndir``
+    1: the stream kernels do not take two) from the threshold of the level's
+    shape ``vshape`` and stencil form ``form`` on
     (:func:`stream_min_chains`; without both, never) where the stream kernels'
     shared memory (``stream_bytes``, :func:`stream_smem_bytes`) fits a block;
     ``"split"`` for a level of shape ``vshape`` where :func:`split_cluster`
@@ -591,7 +631,7 @@ def visit_route(C: int, stream_bytes: int = 0, device=None,
     if smem_limit is None:
         smem_limit = dynamic_smem_limit(device)
     threshold = None if vshape is None or form is None else stream_min_chains(vshape, form)
-    if (threshold is not None and C >= threshold
+    if (ndir == 1 and threshold is not None and C >= threshold
             and stream_bytes + STREAM_STATIC_SMEM <= smem_limit):
         return "stream"
     if vshape is not None and split_cluster(C, vshape, device, smem_limit) is not None:
@@ -793,9 +833,11 @@ def load_library(stamps: bool = False, reach: int = 1, dim: int = 2) -> ctypes.C
         raise RuntimeError("the phase kernels' stencil forms differ between Python and CUDA")
     if lib.mgmc_visit_max_threads() != most:
         raise RuntimeError("the phase kernels' block bound differs between Python and CUDA")
-    lib.mgmc_visit_kernel_attributes.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    # descend, form, sweeps per visit (1 or 2), out
+    lib.mgmc_visit_kernel_attributes.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
     lib.mgmc_visit_kernel_attributes.restype = i32
-    lib.mgmc_visit_blocks_per_sm.argtypes = [i32] * 4
+    # descend, form, sweeps per visit, threads, dynamic shared bytes
+    lib.mgmc_visit_blocks_per_sm.argtypes = [i32] * 5
     lib.mgmc_visit_blocks_per_sm.restype = i32
     ptr = ctypes.c_void_p
     # P, L, tables, x, f, scratch, fc, coeffs, ns, xilr, xi, form, threads, smem, stamps, stream
@@ -822,11 +864,11 @@ def load_stream_library() -> ctypes.CDLL:
     lib.mgmc_stream_smem_bytes.restype = i32
     lib.mgmc_stream_static_smem_bytes.argtypes = []
     lib.mgmc_stream_static_smem_bytes.restype = i32
-    # P, x, f, fc, coeffs, ns, B, Y, W, xilr, sinv, G, xi, threads, stream
-    lib.mgmc_stream_descend.argtypes = [ctypes.POINTER(StreamParams)] + [ptr] * 12 + [i32, ptr]
+    # P, x, f, fc (descend) or xc (ascend), coeffs, ns, B, Y, W, xilr, sroot, xi, threads,
+    # stream
+    lib.mgmc_stream_descend.argtypes = [ctypes.POINTER(StreamParams)] + [ptr] * 11 + [i32, ptr]
     lib.mgmc_stream_descend.restype = i32
-    # P, x, f, xc, coeffs, ns, B, Y, W, xilr, xi, threads, stream
-    lib.mgmc_stream_ascend.argtypes = [ctypes.POINTER(StreamParams)] + [ptr] * 10 + [i32, ptr]
+    lib.mgmc_stream_ascend.argtypes = [ctypes.POINTER(StreamParams)] + [ptr] * 11 + [i32, ptr]
     lib.mgmc_stream_ascend.restype = i32
     return lib
 
@@ -838,8 +880,8 @@ def load_split_library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mgmc_split_params_size.argtypes = []
     lib.mgmc_split_params_size.restype = i32
-    if lib.mgmc_split_params_size() != ctypes.sizeof(VisitParams):
-        raise RuntimeError("VisitParams layout differs between Python and CUDA")
+    if lib.mgmc_split_params_size() != ctypes.sizeof(SplitParams):
+        raise RuntimeError("SplitParams layout differs between Python and CUDA")
     lib.mgmc_split_smem_bytes.argtypes = [i32] * 3  # H, W, S
     lib.mgmc_split_smem_bytes.restype = i32
     lib.mgmc_split_static_smem_bytes.argtypes = []
@@ -847,11 +889,11 @@ def load_split_library() -> ctypes.CDLL:
     # descend, S, threads, bytes, out clusters
     lib.mgmc_split_max_active.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
     lib.mgmc_split_max_active.restype = i32
-    # P, x, f, fc, coeffs, ns, B, Y, W, xilr, sinv, G, xi, S, threads, stream
-    lib.mgmc_split_descend.argtypes = [ctypes.POINTER(VisitParams)] + [ptr] * 12 + [i32, i32, ptr]
+    # P, x, f, fc (descend) or xc (ascend), coeffs, ns, B, Y0, W0, Y1, W1, xilr, sroot, xi,
+    # S, threads, stream
+    lib.mgmc_split_descend.argtypes = [ctypes.POINTER(SplitParams)] + [ptr] * 13 + [i32, i32, ptr]
     lib.mgmc_split_descend.restype = i32
-    # P, x, f, xc, coeffs, ns, B, Y, W, xilr, xi, S, threads, stream
-    lib.mgmc_split_ascend.argtypes = [ctypes.POINTER(VisitParams)] + [ptr] * 10 + [i32, i32, ptr]
+    lib.mgmc_split_ascend.argtypes = [ctypes.POINTER(SplitParams)] + [ptr] * 13 + [i32, i32, ptr]
     lib.mgmc_split_ascend.restype = i32
     return lib
 
@@ -884,11 +926,14 @@ def kernel_support_error(op: StencilOperator, n_colors: int) -> Optional[str]:
     return None
 
 
-def route_support_error(level: "FusedVisitLevel", route: str) -> Optional[str]:
-    """Why the kernels of ``route`` cannot take ``level``, or None: the split
-    and stream kernels take 2d reach-1 stencils only.  :func:`visit_route`
-    never gives them a reach-2 or a 3d level; this holds a route a caller
-    names to it."""
+def route_support_error(level: "FusedVisitLevel", route: str, ndir: int = 1) -> Optional[str]:
+    """Why the kernels of ``route`` cannot take a visit of ``ndir`` sweeps on
+    ``level``, or None: the split and stream kernels take 2d reach-1 stencils
+    only, the stream kernels one sweep.  :func:`visit_route` never gives them
+    such a visit; this holds a route a caller names to it."""
+    if route == "stream" and ndir > 1:
+        return ("the stream kernels take one sweep per visit: a two-sweep (SSOR) level takes "
+                "the phase or the split kernels")
     if route != "phase" and level.reach > 1:
         return (f"the {route} kernels take reach-1 stencils only: a reach-2 level takes "
                 "the phase kernels")
@@ -897,27 +942,40 @@ def route_support_error(level: "FusedVisitLevel", route: str) -> Optional[str]:
     return None
 
 
+def _as_orders(orders) -> Tuple[Tuple[int, ...], ...]:
+    """A visit's sweep orders as a tuple of orders; one order is wrapped, as
+    the JAX package wraps it."""
+    if orders and not isinstance(orders[0], (tuple, list)):
+        orders = (orders,)
+    return tuple(tuple(int(c) for c in order) for order in orders)
+
+
 class FusedVisitLevel:
     """Per-level bundle of buffers and static configuration for the fused
-    visit kernels: ``coeffs``, ``noise_scale``, ``B``, ``B_bar`` (pre and post
-    direction - the Woodbury factor is direction dependent), ``lr_scale``,
-    ``sigma_inv`` and the Gram matrix ``G_pre`` of the residual shortcut.  The
-    plain versions apply ``B_bar``; the CUDA kernels its factors ``Y = M^{-1} B``
-    (compact support, ``ybox``) and ``W`` with ``B_bar_k = sum_l W[l, k] Y_l``."""
+    visit kernels: ``coeffs``, ``noise_scale``, ``B``, ``B_bar`` of the pre and
+    the post visit (one directed sweep each: SOR; two, forward then backward:
+    SSOR; ``len(orders) * m`` fields stacked, the Woodbury factor is direction
+    dependent) and ``sigma_sqrt`` (``Sigma^{1/2}``).  The CUDA kernels and the
+    plain versions apply ``B_bar`` of each direction as its factors ``Y =
+    M^{-1} B`` (compact support, ``ybox``) and ``W``, ``B_bar_k = sum_l W[l, k]
+    Y_l``.
 
-    def __init__(self, op: StencilOperator, coloring, omega: float, pre_order, post_order,
+    ``pre_orders`` / ``post_orders``: the colour order of each directed sweep
+    of a descend / ascend visit, a tuple of orders (one order is wrapped)."""
+
+    def __init__(self, op: StencilOperator, coloring, omega: float, pre_orders, post_orders,
                  Bbar_pre, Bbar_post, coarse_scaling: float):
         if len(op.vshape) not in (2, 3):
             raise NotImplementedError("fused level visits take 2d and 3d levels")
-        if pre_order and isinstance(pre_order[0], (tuple, list)):
-            raise NotImplementedError(
-                "two sweeps per visit (SSOR) are not ported yet (later slice)")
         self.op = op
         self.omega = float(omega)
         self.coarse_scaling = float(coarse_scaling)
         self.coloring = coloring
-        self.pre_order = tuple(int(c) for c in pre_order)
-        self.post_order = tuple(int(c) for c in post_order)
+        self.pre_orders = _as_orders(pre_orders)
+        self.post_orders = _as_orders(post_orders)
+        for orders in (self.pre_orders, self.post_orders):
+            if not 1 <= len(orders) <= MAX_DIRS:
+                raise ValueError(f"a visit sweeps once or twice, got {len(orders)} orders")
         dt, dev = op.dtype, op.device
         self.masks = torch.as_tensor(coloring.masks(), dtype=dt, device=dev)
         self.coeffs = op.coeffs.contiguous()
@@ -926,26 +984,24 @@ class FusedVisitLevel:
         self.vc = tuple(n // 2 for n in op.vshape)
         m = op.m_lowrank
         if m:
-            for name, bb in (("pre", Bbar_pre), ("post", Bbar_post)):
-                if bb is None or bb.shape[0] != m:
+            for name, bb, orders in (("pre", Bbar_pre, self.pre_orders),
+                                     ("post", Bbar_post, self.post_orders)):
+                if bb is None or bb.shape[0] != len(orders) * m:
                     raise ValueError(
-                        f"B_bar ({name}) must hold {m} fields, one direction's "
-                        "factor cannot stand in for the other's")
+                        f"B_bar ({name}) must stack {len(orders)} x {m} fields, one per "
+                        "sweep: one direction's factor cannot stand in for the other's")
             self.B = op.lowrank.B.contiguous()
             self.Bbar_pre = Bbar_pre.to(device=dev, dtype=dt).contiguous()
             self.Bbar_post = Bbar_post.to(device=dev, dtype=dt).contiguous()
-            self.lr_scale = 1.0 / torch.sqrt(op.lowrank.Sigma_diag)
-            self.sigma_inv = (1.0 / op.lowrank.Sigma_diag).contiguous()
-            # Gram matrix of the kernel's (I - G) B^T x residual shortcut
-            self.G_pre = (self.B.reshape(m, -1) @ self.Bbar_pre.reshape(m, -1).T).contiguous()
+            self.sigma_sqrt = torch.sqrt(op.lowrank.Sigma_diag).contiguous()
             self._woodbury = {}
-            for order in {self.pre_order, self.post_order}:
+            for order in set(self.pre_orders + self.post_orders):
                 Y, W = woodbury_factors(op, self.masks, self.omega, order)
                 self._woodbury[order] = (Y.contiguous(), W.contiguous(), support_boxes(Y))
         else:
-            self.B = self.Bbar_pre = self.Bbar_post = None
-            self.lr_scale = self.sigma_inv = self.G_pre = None
-            self._woodbury = {self.pre_order: (None, None, ()), self.post_order: (None, None, ())}
+            self.B = self.Bbar_pre = self.Bbar_post = self.sigma_sqrt = None
+            self._woodbury = {order: (None, None, ())
+                              for order in self.pre_orders + self.post_orders}
         self.const_coeffs, self.ns_const, self.bbox = compress_plan(op, self.omega)
         #: the stencil's reach: 2 takes the phase kernels' reach-2 build
         self.reach = stencil_reach(op.offsets)
@@ -961,38 +1017,83 @@ class FusedVisitLevel:
         self._routes = {}
         self._split_launches = {}
 
+    @property
+    def ndir(self) -> int:
+        """Directed sweeps per visit: 1 (SOR) or 2 (SSOR), the larger of the
+        pre and the post visit's."""
+        return max(len(self.pre_orders), len(self.post_orders))
+
+    @property
+    def pre_order(self) -> Tuple[int, ...]:
+        """The colour order of a one-sweep (SOR) level's descend."""
+        return self._one_order(self.pre_orders)
+
+    @property
+    def post_order(self) -> Tuple[int, ...]:
+        """The colour order of a one-sweep (SOR) level's ascend."""
+        return self._one_order(self.post_orders)
+
+    @staticmethod
+    def _one_order(orders):
+        if len(orders) != 1:
+            raise ValueError(f"a visit of {len(orders)} sweeps has no single order: "
+                             "pre_orders / post_orders hold them")
+        return orders[0]
+
+    def orders(self, kind: str) -> Tuple[Tuple[int, ...], ...]:
+        """The sweep orders of a ``"descend"`` or an ``"ascend"`` visit."""
+        return self.pre_orders if kind == "descend" else self.post_orders
+
+    def woodbury_u(self, order, bt_x: torch.Tensor) -> torch.Tensor:
+        """``u = W (B^T x - Sigma^{1/2} n)`` of the sweep ``order`` from its
+        argument ``bt_x`` (``(C, m)``), as the kernels form it."""
+        return bt_x @ self._woodbury[tuple(order)][1].T
+
     # ------------------------------------------------------------ noise
-    def _draw(self, noise, x):
-        """(xi, xi_lr, philox) for one visit.  Draw order of the tensor path:
-        the field, then the low-rank scalars (as the composed sampler)."""
+    def _draw(self, noise, x, kind: str = "descend"):
+        """(xi, xi_lr, philox) for one visit of ``kind``: per directed sweep
+        the field, then the ``m`` low-rank scalars (as the composed sampler
+        draws them; :meth:`SSORSampler.apply` draws forward then backward).
+        ``xi`` is ``x.shape`` for one sweep and ``(ndir,) + x.shape`` for two,
+        ``xi_lr`` ``(C, ndir m)`` as drawn; on a CUDA device the field comes
+        from ``ndir`` Philox launch counters where the source has them."""
         if noise is None:
             return None, None, None
-        philox = noise.philox_stream() if x.is_cuda else None
-        xi = None if philox is not None else noise.normal(x.shape, x.dtype, x.device)
-        xi_lr = None
-        if self.B is not None:
-            m = self.B.shape[0]
-            xi_lr = noise.normal((x.shape[0], m), x.dtype, x.device) * self.lr_scale
+        nd = len(self.orders(kind))
+        philox = None
+        if x.is_cuda:
+            philox = noise.philox_stream() if nd == 1 else noise.philox_streams(nd)
+        fields, lowrank = [], []
+        for _ in range(nd):
+            if philox is None:
+                fields.append(noise.normal(x.shape, x.dtype, x.device))
+            if self.B is not None:
+                lowrank.append(noise.normal((x.shape[0], self.B.shape[0]), x.dtype, x.device))
+        xi = None
+        if fields:
+            xi = fields[0] if nd == 1 else torch.stack(fields)
+        xi_lr = torch.cat(lowrank, dim=1).contiguous() if lowrank else None
         return xi, xi_lr, philox
 
     def descend(self, noise, f, x):
         """One descend visit; returns ``(x, f_coarse)``.  ``noise`` is a noise
         source or ``None`` for the deterministic data path.  On a CUDA device
         ``x`` is updated in place."""
-        xi, xi_lr, philox = self._draw(noise, x)
+        xi, xi_lr, philox = self._draw(noise, x, "descend")
         return descend_visit(self, f, x, xi=xi, xi_lr=xi_lr, philox=philox)
 
     def ascend(self, noise, f, x, x_coarse):
         """One ascend visit; returns ``x``.  On a CUDA device ``x`` is updated
         in place."""
-        xi, xi_lr, philox = self._draw(noise, x)
+        xi, xi_lr, philox = self._draw(noise, x, "ascend")
         return ascend_visit(self, f, x, x_coarse, xi=xi, xi_lr=xi_lr, philox=philox)
 
     # -------------------------------------------------- kernel parameters
     @property
     def stream_bytes(self) -> int:
         """Dynamic shared memory of this level's larger stream launch (the
-        descend in the pre order or the ascend in the post order)."""
+        descend in the pre order or the ascend in the post order; one-sweep
+        levels only)."""
         if self._stream_bytes is None:
             err = kernel_support_error(self.op, self.coloring.n_colors)
             if err is not None:
@@ -1006,8 +1107,8 @@ class FusedVisitLevel:
 
     def route(self, C: int) -> str:
         """The kernel a visit of ``C`` chains on this level launches
-        (:func:`visit_route`): from the chain count and the level's shape,
-        decided once per chain count."""
+        (:func:`visit_route`): from the chain count, the level's shape and its
+        sweeps per visit, decided once per chain count."""
         return self._route(C)[0]
 
     def split_cluster(self, C: int) -> Optional[int]:
@@ -1017,10 +1118,11 @@ class FusedVisitLevel:
 
     def _route(self, C: int) -> Tuple[str, Optional[int]]:
         if C not in self._routes:
-            # a reach-2 or 3d level takes the phase kernels alone: no stream layout to size
-            stream_bytes = 0 if self.stencil_form >= WIDE_FORM0 else self.stream_bytes
-            route = visit_route(C, stream_bytes, self.op.device, vshape=self.op.vshape,
-                                form=self.stencil_form)
+            # a reach-2 or 3d level takes the phase kernels alone, a two-sweep
+            # level never the stream kernels: no stream layout to size
+            one = self.stencil_form < WIDE_FORM0 and self.ndir == 1
+            route = visit_route(C, self.stream_bytes if one else 0, self.op.device,
+                                vshape=self.op.vshape, form=self.stencil_form, ndir=self.ndir)
             S = split_cluster(C, self.op.vshape, self.op.device) if route == "split" else None
             self._routes[C] = (route, S)
         return self._routes[C]
@@ -1034,16 +1136,17 @@ class FusedVisitLevel:
                                                    sm_count(self.op.device), self.reach, self.dim)
         return self._phase_threads[C]
 
-    def phase_launch(self, order, descend: bool, threads: int):
-        """``(tables, PhaseTables, dynamic shared bytes)`` of a phase launch in
-        the sweep ``order`` with ``threads`` per block: the tables of
+    def phase_launch(self, orders, threads: int):
+        """``(tables, PhaseTables, dynamic shared bytes)`` of a phase launch with
+        the sweep ``orders`` and ``threads`` per block: the tables of
         :func:`phase_tables` as a device tensor, uploaded once, and whether
         each block copies them into its shared memory
         (:func:`phase_tables_fit` against what the card grants a block); all
         decided before the launch and kept per launch configuration."""
-        key = (tuple(order), bool(descend), int(threads))
+        orders = _as_orders(orders)
+        key = (orders, int(threads))
         if key not in self._phase_cache:
-            words, T = phase_tables(self, order, descend)
+            words, T = phase_tables(self, orders)
             tensor = torch.from_numpy(words).to(self.op.device)
             T.shared = int(phase_tables_fit(4 * T.words, threads,
                                              dynamic_smem_limit(self.op.device)))
@@ -1054,27 +1157,43 @@ class FusedVisitLevel:
         return wavefront_lags(self.op.offsets, self.coloring.weights,
                               self.coloring.n_colors, order)
 
-    def _params(self, C: int, order, f_batched: bool, noise_mode: int, philox,
+    def _params(self, C: int, orders, f_batched: bool, noise_mode: int, philox,
                 route: Optional[str] = None):
-        """The kernel's parameter block: a ``VisitParams`` for the phase and the
-        split kernels, a ``StreamParams`` for the stream kernels.  ``route`` defaults to
+        """The kernel's parameter block: a ``VisitParams`` (of the first order)
+        for the phase kernels, a ``SplitParams`` for the split kernels, a
+        ``StreamParams`` for the stream kernels.  ``route`` defaults to
         :meth:`route` of ``C``, so the kernel is chosen here, before the launch,
         once per launch configuration (the host's share of a launch matters on
         the small levels); only the Philox stream changes from launch to
-        launch."""
+        launch (direction ``d`` of the split kernels takes the counter ``+
+        d``; the phase kernels add it themselves)."""
         route = self.route(C) if route is None else route
         if route not in ROUTES:
             raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
-        key = (route, C, tuple(order), bool(f_batched), noise_mode)
+        orders = _as_orders(orders)
+        key = (route, C, orders, bool(f_batched), noise_mode)
         P = self._params_cache.get(key)
         if P is None:
-            err = route_support_error(self, route)
+            err = route_support_error(self, route, len(orders))
             if err is not None:
                 raise NotImplementedError(err)
-            build = self._build_stream_params if route == "stream" else self._build_params
-            P = self._params_cache[key] = build(*key[1:])
-        visit = P.v if route == "stream" else P
-        visit.seed, visit.counter = philox if philox is not None else (0, 0)
+            if route == "stream":
+                P = self._build_stream_params(C, orders[0], f_batched, noise_mode)
+            elif route == "split":
+                P = SplitParams()
+                P.ndir = len(orders)
+                for d, order in enumerate(orders):
+                    P.v[d] = self._build_params(C, order, f_batched, noise_mode)
+            else:
+                P = self._build_params(C, orders[0], f_batched, noise_mode)
+            self._params_cache[key] = P
+        seed, counter = philox if philox is not None else (0, 0)
+        if route == "split":
+            for d in range(P.ndir):
+                P.v[d].seed, P.v[d].counter = seed, counter + (d if philox is not None else 0)
+        else:
+            visit = P.v if route == "stream" else P
+            visit.seed, visit.counter = seed, counter
         return P
 
     def _build_stream_params(self, C: int, order, f_batched: bool,
@@ -1129,48 +1248,58 @@ class FusedVisitLevel:
 
 
 # ------------------------------------------------------------- plain versions
-def _noisy_rhs_plain(level: FusedVisitLevel, f, xi, xi_lr):
-    c = f + level.noise_scale * xi
-    if xi_lr is not None:
-        c = c + level.op.lowrank.expand(xi_lr)
-    return c
-
-
-def _woodbury_plain(level: FusedVisitLevel, Bbar, x):
-    bt_x = level.op.lowrank.bt(x)
-    m = bt_x.shape[-1]
-    return x - (bt_x @ Bbar.reshape(m, -1)).reshape(x.shape)
+def _sweeps_plain(level: FusedVisitLevel, orders, Bbar, f, x, xi, xi_lr):
+    """The directed sweeps of one visit, each with its noise and its Woodbury
+    correction ``x - Y_d u``, ``u = W_d (B^T x - Sigma^{1/2} n_d)`` (applied as
+    ``B_bar_d`` to ``B^T x - Sigma^{1/2} n_d``).  Returns ``(x, t)``: ``t = u +
+    Sigma^{-1/2} n_d`` of the last sweep, ``Sigma^{-1} B^T x`` of the returned
+    ``x`` (``None`` without measurements)."""
+    op, m, t = level.op, level.op.m_lowrank, None
+    for d, order in enumerate(orders):
+        c = f
+        if xi is not None:
+            c = f + level.noise_scale * (xi if len(orders) == 1 else xi[d])
+        x = sor_sweep(op, level.masks, level.omega, order, c, x)
+        if m:
+            n = None if xi_lr is None else xi_lr[:, d * m:(d + 1) * m]
+            bt_x = op.lowrank.bt(x)
+            if n is not None:
+                bt_x = bt_x - level.sigma_sqrt * n
+            x = x - (bt_x @ Bbar[d * m:(d + 1) * m].reshape(m, -1)).reshape(x.shape)
+            t = level.woodbury_u(order, bt_x)
+            if n is not None:
+                t = t + n / level.sigma_sqrt
+    return x, t
 
 
 def descend_visit_plain(level: FusedVisitLevel, f, x, xi=None, xi_lr=None):
-    """Plain PyTorch version of the descend kernel: noisy rhs, ``sor_sweep``,
-    Woodbury, residual, ``restrict``.  ``xi`` (shape of ``x``) and ``xi_lr``
-    (``(C, m)``, pre-scaled by ``Sigma^{-1/2}``) are the normals; both ``None``
-    runs the deterministic data path.  Returns new tensors ``(x, f_coarse)``."""
+    """Plain PyTorch version of the descend kernel: per directed sweep the
+    noisy rhs, ``sor_sweep`` and the Woodbury correction, then the residual
+    ``f - A_stencil x - B t`` and ``restrict``.  ``xi`` (the shape of ``x``;
+    ``(2,) + x.shape`` for two sweeps) and ``xi_lr`` (``(C, ndir m)``, as
+    drawn) are the normals; both ``None`` runs the deterministic data path.
+    Returns new tensors ``(x, f_coarse)``."""
     op = level.op
-    c = f if xi is None else _noisy_rhs_plain(level, f, xi, xi_lr)
-    x = sor_sweep(op, level.masks, level.omega, level.pre_order, c, x)
-    if level.B is not None:
-        x = _woodbury_plain(level, level.Bbar_pre, x)
-    r = f - op.apply(x)
+    x, t = _sweeps_plain(level, level.pre_orders, level.Bbar_pre, f, x, xi, xi_lr)
+    r = f - op.apply_stencil(x)
+    if t is not None:
+        r = r - op.lowrank.expand(t)
     return x, restrict(r, dim=level.dim)
 
 
 def ascend_visit_plain(level: FusedVisitLevel, f, x, x_coarse, xi=None, xi_lr=None):
-    """Plain PyTorch version of the ascend kernel: ``prolongate_add``, noisy
-    rhs, ``sor_sweep`` in the post direction, Woodbury.  Returns a new ``x``."""
+    """Plain PyTorch version of the ascend kernel: ``prolongate_add``, then per
+    directed sweep of the post visit the noisy rhs, ``sor_sweep`` and the
+    Woodbury correction.  Returns a new ``x``."""
     x = prolongate_add(level.coarse_scaling, x_coarse, x, dim=level.dim)
-    c = f if xi is None else _noisy_rhs_plain(level, f, xi, xi_lr)
-    x = sor_sweep(level.op, level.masks, level.omega, level.post_order, c, x)
-    if level.B is not None:
-        x = _woodbury_plain(level, level.Bbar_post, x)
-    return x
+    return _sweeps_plain(level, level.post_orders, level.Bbar_post, f, x, xi, xi_lr)[0]
 
 
 # ------------------------------------------------------------------ wrappers
-def _check_visit_args(level: FusedVisitLevel, f, x, xi, xi_lr, philox, x_coarse=None):
-    """Validate what goes to the kernel by pointer; returns (C, f_batched,
-    noise_mode)."""
+def _check_visit_args(level: FusedVisitLevel, f, x, xi, xi_lr, philox, x_coarse=None,
+                      nd: int = 1):
+    """Validate what goes to the kernel by pointer for a visit of ``nd``
+    directed sweeps; returns (C, f_batched, noise_mode)."""
     vshape = level.op.vshape
     if x.ndim != 1 + len(vshape) or tuple(x.shape[1:]) != vshape:
         raise ValueError(f"x must be (C, {', '.join(map(str, vshape))}), got {tuple(x.shape)}")
@@ -1190,13 +1319,14 @@ def _check_visit_args(level: FusedVisitLevel, f, x, xi, xi_lr, philox, x_coarse=
         noise_mode = 1
     elif xi is not None:
         noise_mode = 2
-        if xi.shape != x.shape:
-            raise ValueError(f"xi must have the shape of x, got {tuple(xi.shape)}")
+        want = tuple(x.shape) if nd == 1 else (nd,) + tuple(x.shape)
+        if tuple(xi.shape) != want:
+            raise ValueError(f"xi must be {want} (one field per sweep), got {tuple(xi.shape)}")
         tensors["xi"] = xi
     m = level.op.m_lowrank
     if noise_mode and m:
-        if xi_lr is None or tuple(xi_lr.shape) != (C, m):
-            raise ValueError(f"xi_lr must be ({C}, {m}) when noise is on")
+        if xi_lr is None or tuple(xi_lr.shape) != (C, nd * m):
+            raise ValueError(f"xi_lr must be ({C}, {nd * m}) when noise is on")
         tensors["xi_lr"] = xi_lr
     elif xi_lr is not None and not noise_mode:
         raise ValueError("xi_lr given without field noise")
@@ -1217,9 +1347,11 @@ def descend_visit(level: FusedVisitLevel, f, x, xi=None, xi_lr=None,
 
     ``f`` is ``(H, W)`` (shared) or ``(C, H, W)``; ``x`` is ``(C, H, W)`` (a 3d
     level: ``(Z, Y, X)`` or ``(C, Z, Y, X)``, and ``(C, Z, Y, X)``).  Field
-    noise: ``philox=(seed, counter)`` for the in-kernel generator (CUDA only) or
-    ``xi`` as a tensor; ``xi_lr`` is ``(C, m)`` pre-scaled by ``Sigma^{-1/2}``.
-    No noise argument runs the deterministic data path.
+    noise: ``philox=(seed, counter)`` for the in-kernel generator (CUDA only;
+    direction ``d`` of a two-sweep visit takes the counter ``+ d``) or ``xi``
+    as a tensor (two sweeps: ``(2, C, ...)``); ``xi_lr`` is ``(C, ndir m)``, the
+    low-rank normals as drawn.  No noise argument runs the deterministic data
+    path.
 
     CPU tensors go to :func:`descend_visit_plain`.  CUDA tensors launch the
     kernel of ``level.route(C)``, which updates ``x`` in place, or raise."""
@@ -1283,12 +1415,14 @@ def _check_stamps(level: FusedVisitLevel, route: str, stamps, x) -> None:
 def kernel_name(level: FusedVisitLevel, route: str, kind: str) -> str:
     """The kernel a launch of ``kind`` through ``route`` on ``level`` counts
     (:data:`KERNEL_NAMES`; a reach-2 level's :data:`REACH2_NAMES`, a 3d
-    level's :data:`DIM3_NAMES`)."""
+    level's :data:`DIM3_NAMES`; with :data:`SSOR_SUFFIX` for two sweeps)."""
     if level.dim == 3:
-        return DIM3_NAMES[(kind, level.stencil_form >= 12)]
-    if level.reach > 1:
-        return REACH2_NAMES[(kind, level.stencil_form >= 8)]
-    return KERNEL_NAMES[(route, kind)]
+        name = DIM3_NAMES[(kind, level.stencil_form >= 12)]
+    elif level.reach > 1:
+        name = REACH2_NAMES[(kind, level.stencil_form >= 8)]
+    else:
+        name = KERNEL_NAMES[(route, kind)]
+    return name + (SSOR_SUFFIX if len(level.orders(kind)) > 1 else "")
 
 
 def launch_descend(level: FusedVisitLevel, route: str, f, x, xi=None, xi_lr=None,
@@ -1305,39 +1439,8 @@ def launch_descend(level: FusedVisitLevel, route: str, f, x, xi=None, xi_lr=None
     PHASE_STAMP_WIDTH)`` that receives per chain the timer at entry, after
     each pass and at exit, the barriers passed and the SM
     (:func:`pass_times`).  Updates ``x`` in place; returns ``(x, f_coarse)``."""
-    _on_card(x)
-    _check_stamps(level, route, stamps, x)
-    C, f_batched, noise_mode = _check_visit_args(level, f, x, xi, xi_lr, philox)
-    P = level._params(C, level.pre_order, f_batched, noise_mode, philox, route)
-    Y, W, _ = level._woodbury[level.pre_order]
-    fc = torch.empty((C,) + level.vc, dtype=x.dtype, device=x.device)
-    common = (level.coeffs.data_ptr(), level.noise_scale.data_ptr(), _ptr(level.B), _ptr(Y),
-              _ptr(W), _ptr(xi_lr), _ptr(level.sigma_inv), _ptr(level.G_pre), _ptr(xi))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if route == "phase":
-            threads = level.phase_threads(C) if threads is None else int(threads)
-            tables, L, smem = level.phase_launch(level.pre_order, True, threads)
-            scratch = torch.empty_like(x)
-            err = load_library(stamps is not None, level.reach, level.dim).mgmc_descend_visit(
-                ctypes.byref(P), ctypes.byref(L), tables.data_ptr(), x.data_ptr(), f.data_ptr(),
-                scratch.data_ptr(), fc.data_ptr(), level.coeffs.data_ptr(),
-                level.noise_scale.data_ptr(), _ptr(xi_lr), _ptr(xi), level.stencil_form,
-                threads, smem, _ptr(stamps), stream)
-        elif route == "stream":
-            lib = load_stream_library()
-            err = lib.mgmc_stream_descend(ctypes.byref(P), x.data_ptr(), f.data_ptr(),
-                                          fc.data_ptr(), *common, level.stream_threads, stream)
-        else:
-            S, nthreads = _split_launch(level, C, cluster)
-            err = load_split_library().mgmc_split_descend(
-                ctypes.byref(P), x.data_ptr(), f.data_ptr(), fc.data_ptr(), *common, S, nthreads,
-                stream)
-    name = kernel_name(level, route, "descend")
-    launch_counts[name] += 1
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    return x, fc
+    return _launch(level, route, "descend", f, x, None, xi, xi_lr, philox, cluster, stamps,
+                   threads)
 
 
 def launch_ascend(level: FusedVisitLevel, route: str, f, x, x_coarse, xi=None, xi_lr=None,
@@ -1345,49 +1448,69 @@ def launch_ascend(level: FusedVisitLevel, route: str, f, x, x_coarse, xi=None, x
                   stamps: Optional[torch.Tensor] = None, threads: Optional[int] = None):
     """One ascend visit through the kernel of ``route``, as
     :func:`launch_descend`.  Updates ``x`` in place and returns it."""
+    return _launch(level, route, "ascend", f, x, x_coarse, xi, xi_lr, philox, cluster, stamps,
+                   threads)
+
+
+def _launch(level: FusedVisitLevel, route: str, kind: str, f, x, x_coarse, xi, xi_lr, philox,
+            cluster, stamps, threads):
     _on_card(x)
     _check_stamps(level, route, stamps, x)
-    C, f_batched, noise_mode = _check_visit_args(level, f, x, xi, xi_lr, philox, x_coarse)
-    P = level._params(C, level.post_order, f_batched, noise_mode, philox, route)
-    Y, W, _ = level._woodbury[level.post_order]
-    common = (level.coeffs.data_ptr(), level.noise_scale.data_ptr(), _ptr(level.B), _ptr(Y),
-              _ptr(W), _ptr(xi_lr))
+    descend = kind == "descend"
+    orders = level.orders(kind)
+    C, f_batched, noise_mode = _check_visit_args(level, f, x, xi, xi_lr, philox,
+                                                 None if descend else x_coarse, len(orders))
+    P = level._params(C, orders, f_batched, noise_mode, philox, route)
+    out = torch.empty((C,) + level.vc, dtype=x.dtype, device=x.device) if descend else x_coarse
+    coarse = out.data_ptr()  # f_c written by a descend, x_c read by an ascend
+    ns, sroot = level.noise_scale.data_ptr(), _ptr(level.sigma_sqrt)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if route == "phase":
             threads = level.phase_threads(C) if threads is None else int(threads)
-            tables, L, smem = level.phase_launch(level.post_order, False, threads)
-            scratch = torch.empty_like(x) if noise_mode else x  # unused without noise
-            err = load_library(stamps is not None, level.reach, level.dim).mgmc_ascend_visit(
-                ctypes.byref(P), ctypes.byref(L), tables.data_ptr(), x.data_ptr(), f.data_ptr(),
-                scratch.data_ptr(), x_coarse.data_ptr(), level.coeffs.data_ptr(),
-                level.noise_scale.data_ptr(), _ptr(xi_lr), _ptr(xi), level.stencil_form,
-                threads, smem, _ptr(stamps), stream)
+            tables, L, smem = level.phase_launch(orders, threads)
+            scratch = torch.empty_like(x) if (descend or noise_mode) else x  # unused otherwise
+            lib = load_library(stamps is not None, level.reach, level.dim)
+            fn = lib.mgmc_descend_visit if descend else lib.mgmc_ascend_visit
+            err = fn(ctypes.byref(P), ctypes.byref(L), tables.data_ptr(), x.data_ptr(),
+                     f.data_ptr(), scratch.data_ptr(), coarse, level.coeffs.data_ptr(), ns,
+                     _ptr(xi_lr), _ptr(xi), level.stencil_form, threads, smem, _ptr(stamps),
+                     stream)
         elif route == "stream":
+            Y, W, _ = level._woodbury[orders[0]]
             lib = load_stream_library()
-            err = lib.mgmc_stream_ascend(ctypes.byref(P), x.data_ptr(), f.data_ptr(),
-                                         x_coarse.data_ptr(), *common, _ptr(xi),
-                                         level.stream_threads, stream)
+            fn = lib.mgmc_stream_descend if descend else lib.mgmc_stream_ascend
+            err = fn(ctypes.byref(P), x.data_ptr(), f.data_ptr(), coarse,
+                     level.coeffs.data_ptr(), ns, _ptr(level.B), _ptr(Y), _ptr(W), _ptr(xi_lr),
+                     sroot, _ptr(xi), level.stream_threads, stream)
         else:
             S, nthreads = _split_launch(level, C, cluster)
-            err = load_split_library().mgmc_split_ascend(
-                ctypes.byref(P), x.data_ptr(), f.data_ptr(), x_coarse.data_ptr(), *common,
-                _ptr(xi), S, nthreads, stream)
-    name = kernel_name(level, route, "ascend")
+            factors = [level._woodbury[order][:2] for order in orders] + [(None, None)]
+            lib = load_split_library()
+            fn = lib.mgmc_split_descend if descend else lib.mgmc_split_ascend
+            err = fn(ctypes.byref(P), x.data_ptr(), f.data_ptr(), coarse,
+                     level.coeffs.data_ptr(), ns, _ptr(level.B), _ptr(factors[0][0]),
+                     _ptr(factors[0][1]), _ptr(factors[1][0]), _ptr(factors[1][1]),
+                     _ptr(xi_lr), sroot, _ptr(xi), S, nthreads, stream)
+    name = kernel_name(level, route, kind)
     launch_counts[name] += 1
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    return x
+    return (x, out) if descend else x
 
 
 def pass_names(level: FusedVisitLevel, kind: str):
     """The passes of a phase visit with noise on, in the order the kernel's
-    stamps time them (each ends with a barrier)."""
-    order = level.pre_order if kind == "descend" else level.post_order
-    names = ["rhs" if kind == "descend" else "prolongation + rhs"]
-    names += [f"colour {c}" for c in order]
-    if level.op.m_lowrank:
-        names += ["B^T x", "Woodbury"]
+    stamps time them (each ends with a barrier); a two-sweep visit names its
+    directions' passes ``d0: ...`` and ``d1: ...``."""
+    orders = level.orders(kind)
+    names = []
+    for d, order in enumerate(orders):
+        first = "prolongation + rhs" if kind == "ascend" and d == 0 else "rhs"
+        own = [first] + [f"colour {c}" for c in order]
+        if level.op.m_lowrank:
+            own += ["B^T x", "Woodbury"]
+        names += own if len(orders) == 1 else [f"d{d}: {name}" for name in own]
     if kind == "descend":
         names += ["residual", "restriction"]
     return names
@@ -1408,14 +1531,23 @@ def pass_times(level: FusedVisitLevel, kind: str, stamps) -> dict:
 # ---------------------------------------------------------------- the gating
 def _sweep_spec(obj):
     """Normalise a smoother / sampler object into the fused-visit sweep spec
-    ``(order, B_bar, coloring, omega)``, or None if a visit of it is not one
-    directed SOR sweep."""
+    ``(orders, B_bar, coloring, omega)`` - one directed sweep (SOR) or two,
+    forward then backward (SSOR), with the directions' ``B_bar`` stacked - or
+    None if a visit of it is neither."""
     if hasattr(obj, "smoother"):  # SORSampler
         return _sweep_spec(obj.smoother) if obj.nsmooth == 1 else None
     if hasattr(obj, "order"):  # SORSmoother
         if obj.nsmooth != 1:
             return None
-        return obj.order, obj.B_bar, obj.coloring, obj.omega
+        return (obj.order,), obj.B_bar, obj.coloring, obj.omega
+    if hasattr(obj, "forward"):  # SSORSmoother / SSORSampler
+        if obj.nsmooth != 1:
+            return None
+        fw, bw = _sweep_spec(obj.forward), _sweep_spec(obj.backward)
+        if fw is None or bw is None:
+            return None
+        Bbar = None if fw[1] is None else torch.cat([fw[1], bw[1]], dim=0)
+        return fw[0] + bw[0], Bbar, fw[2], fw[3]
     return None
 
 
@@ -1425,11 +1557,13 @@ def fused_levels_for(operators, presmoothers, postsmoothers, coarse_scaling,
     ``{level: FusedVisitLevel}`` for every non-coarsest level with at least
     ``min_vertices`` unknowns.
 
+    A level's visits are one directed sweep (SOR) or two, forward then
+    backward (SSOR), as :func:`_sweep_spec` finds them.
+
     ``force=None`` (auto): on when the operators lie on a CUDA device - the
     kernels then serve batched chains - and off on the CPU.  In auto mode only
     levels in a dtype other than float32, which the caller chose, are left to
-    the composed path on the card (and SSOR levels, which are no single
-    directed sweep).  A float32 level, 2d or 3d, that exceeds the kernels' own
+    the composed path on the card.  A float32 level, 2d or 3d, that exceeds the kernels' own
     limits (dimension, measurements, colours, offsets, reach) raises
     ``NotImplementedError``: it never runs through the plain path unasked.
     ``force=True`` builds the levels on any device (on the CPU their plain

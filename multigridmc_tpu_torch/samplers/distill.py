@@ -108,18 +108,21 @@ class _Cursor:
             C[off:off + nb].reshape(nb, nb).diagonal().add_(scale.reshape(-1))
         return C
 
-    def lowrank_noise(self, C, lowrank):
-        """``c += B Sigma^{-1/2} xi'`` in basis form."""
+    def lowrank_noise(self, X, lowrank):
+        """The sweep's low-rank draw in basis form, as the Woodbury
+        correction takes it (``Sigma^{1/2} n``, :meth:`SORSampler.lowrank_shift`):
+        ``(rows of X, m)``, ``Sigma^{1/2}`` on the draw's rows and zero
+        elsewhere; ``None`` where noise is off or nothing is built."""
         if not self.noise:
-            return C
+            return None
         m = lowrank.m
         off = self.off
         self.off += m
-        if not self.counting:
-            scale = (1.0 / torch.sqrt(lowrank.Sigma_diag)).reshape(
-                (m,) + (1,) * (lowrank.B.ndim - 1))
-            C[off:off + m] += scale * lowrank.B
-        return C
+        if self.counting:
+            return None
+        shift = torch.zeros((X.shape[0], m), dtype=X.dtype, device=X.device)
+        shift[off:off + m].diagonal().copy_(torch.sqrt(lowrank.Sigma_diag))
+        return shift
 
     def coarse_noise(self, g, nc: int):
         """``xi + g`` of the coarse Cholesky sample."""
@@ -151,17 +154,17 @@ class _SubtreeSpec:
     def _visit(self, li: int, sweeps, F, X, cursor: _Cursor):
         op = self.operators[li]
         for sm in sweeps:
-            C = F
+            C, shift = F, None
             if cursor.noise:
                 C = F if cursor.counting else F.clone()
                 C = cursor.field_noise(
                     C, torch.sqrt(op.diag_stencil() * (2.0 - sm.omega) / sm.omega))
                 if op.lowrank is not None:
-                    C = cursor.lowrank_noise(C, op.lowrank)
+                    shift = cursor.lowrank_noise(C, op.lowrank)
             if not cursor.counting:
                 X = sm.sweep_stencil(C, X)  # the sweep kernel where it serves
                 if sm.B_bar is not None:
-                    X = sm._lowrank_correct(X)
+                    X = sm._lowrank_correct(X, shift)
         return X
 
     def _coarse(self, F, cursor: _Cursor):

@@ -22,14 +22,15 @@ Chain-state semantics: the fine-level x is carried across calls (NOT zeroed),
 coarse-level states are zero-initialised at each visit.
 
 The cycle batches over leading chain dimensions, so many independent chains
-run in lockstep on one GPU.  On a CUDA device each visit of a float32 SOR
-level, 2d or 3d, is ONE launch of a hand-written fused CUDA kernel
+run in lockstep on one GPU.  On a CUDA device each visit of a float32 level,
+2d or 3d, SOR (one directed sweep) or SSOR (a forward and a backward sweep), is
+ONE launch of a hand-written fused CUDA kernel
 (:mod:`multigridmc_tpu_torch.ops.kernels.mgmc_visit`; a single chain is a batch
-of one).  Only SSOR levels and levels in another dtype than float32 run the
-composed visit, whose Gibbs sweeps are launches of the sweep kernel
-(:mod:`multigridmc_tpu_torch.ops.kernels.sor_sweep`) with the residual and the
-transfers in plain PyTorch.  ``apply`` may update the chain state it is given
-in place.
+of one).  Only levels of more than one smoothing step per visit and levels in
+another dtype than float32 run the composed visit, whose Gibbs sweeps are
+launches of the sweep kernel (:mod:`multigridmc_tpu_torch.ops.kernels.sor_sweep`)
+with the residual and the transfers in plain PyTorch.  ``apply`` may update the
+chain state it is given in place.
 
 Two ways to replace the recursion below a level by one call:
 
@@ -47,8 +48,8 @@ step: odd steps run the same hierarchy with the pre- and post-samplers swapped
 and their own distilled map); ``apply(..., parity=1)``, ``apply_pair`` and
 ``apply_indexed`` select it.  It excludes ``subtree=True``.
 
-Not ported yet (``NotImplementedError``): fused two-sweep (SSOR) visits and the
-subtree kernel on 3d levels (the TPU kernel is 2d only too).
+Not ported (``NotImplementedError``): the subtree kernel on SSOR levels and on
+3d levels (the TPU kernel is SOR-only and 2d only too).
 """
 
 from __future__ import annotations
@@ -83,10 +84,10 @@ class MultigridMCSampler(Sampler):
     ``fused``: ``"auto"`` fuses level visits when the operator lies on a CUDA
     device, ``True`` builds the fused levels on any device (on the CPU they run
     their plain versions), ``False`` runs the composed recursion everywhere.
-    Under ``"auto"`` on a CUDA device only SSOR levels and levels in a dtype
-    other than float32 run the composed recursion (in float32 on the sweep
-    kernels); a float32 SOR level, 2d or 3d, beyond the visit kernels' limits
-    raises ``NotImplementedError`` (see
+    SOR and SSOR levels fuse alike where ``npresmooth`` and ``npostsmooth`` are
+    1.  Under ``"auto"`` on a CUDA device only levels in a dtype other than
+    float32 run the composed recursion; a float32 level, 2d or 3d, beyond the
+    visit kernels' limits raises ``NotImplementedError`` (see
     :func:`~multigridmc_tpu_torch.ops.kernels.mgmc_visit.fused_levels_for`).
 
     ``distill``: ``False`` never; ``True`` distils the subtree rooted at
@@ -172,9 +173,9 @@ class MultigridMCSampler(Sampler):
             for level, level_op in enumerate(self.hierarchy.operators):
                 print(f"  level {level} lattice : {level_op.lattice.get_info()}")
 
-        # one fused kernel call = one visit = one directed sweep (SOR); SSOR
-        # levels run the composed visit on the sweep kernels
-        self._visits_fusable = smoother == "SOR" and npresmooth == 1 and npostsmooth == 1
+        # one fused kernel call = one visit: one directed sweep (SOR) or a
+        # forward and a backward sweep (SSOR)
+        self._visits_fusable = npresmooth == 1 and npostsmooth == 1
         self._fused_opts = dict(
             min_vertices=(DEFAULT_FUSED_MIN_VERTICES if fused_min_vertices is None
                           else int(fused_min_vertices)),
@@ -202,8 +203,8 @@ class MultigridMCSampler(Sampler):
         sub_ops = self.hierarchy.operators[1:]
         if smoother != "SOR" or npresmooth != 1 or npostsmooth != 1:
             raise NotImplementedError(
-                "subtree=True needs SOR with one pre- and one post-sweep per visit "
-                "(two-sweep visits belong to a later slice)")
+                "subtree=True needs SOR with one pre- and one post-sweep per visit: "
+                "the subtree kernel runs no two-sweep (SSOR) visit, as the TPU kernel")
         if not isinstance(self.coarse_sampler, DenseCholeskySampler):
             raise NotImplementedError("subtree=True needs the dense Cholesky coarse sampler")
         if self.nlevel < 3:

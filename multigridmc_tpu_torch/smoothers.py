@@ -13,7 +13,7 @@ block-lower part of ``A_stencil`` under the colour order.
 Low-rank operators (posterior precision ``A = A_s + B Sigma^{-1} B^T``) use the
 Woodbury-corrected splitting: the sweep runs on the stencil part only, then
 
-    x <- x - B_bar (B^T x),
+    x <- x - B_bar (B^T x - s),        s = 0 (smoother), Sigma^{1/2} n (Gibbs sweep)
     B_bar = M^{-1} B (Sigma + B^T M^{-1} B)^{-1}
 
 with ``M = L_c + D/omega`` (forward) or its transpose (backward) - ``B_bar``
@@ -138,8 +138,18 @@ class SORSmoother:
             return sweep_batched(self.plan, bf, xf).reshape(batch + self.op.vshape)
         return sor_sweep(self.op, self.masks, self.omega, self.order, b, x)
 
-    def _lowrank_correct(self, x: torch.Tensor) -> torch.Tensor:
+    def _lowrank_correct(self, x: torch.Tensor,
+                         shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``x - Y u`` with ``u = W (B^T x - shift)``, as ``B_bar`` applied to
+        ``B^T x - shift``.  A Gibbs sweep hands its low-rank noise over as
+        ``shift = Sigma^{1/2} n`` (``(*batch, m)``) instead of adding ``B
+        Sigma^{-1/2} n`` to its rhs: the sweep is linear and ``Y = M^{-1} B``,
+        so both give the same ``x'`` (``Y (I - W B^T Y) = Y W Sigma``), and in
+        float32 this form does not cancel a term of the size of ``Sigma^{-1/2}``
+        at a measured vertex."""
         bt_x = self.op.lowrank.bt(x)  # (*batch, m)
+        if shift is not None:
+            bt_x = bt_x - shift
         m = bt_x.shape[-1]
         corr = bt_x @ self.B_bar.reshape(m, -1)
         return x - corr.reshape(x.shape)

@@ -6,10 +6,10 @@ and the deterministic V/W-cycle: per level a forward pre-smoother and a
 backward post-smoother (SSOR: a forward-backward pair for both), a dense
 Cholesky solve on the coarsest level.
 
-On a CUDA device in float32 an SOR level's visit (2d or 3d) is one launch of the fused
-level-visit kernels with the noise off
-(:mod:`multigridmc_tpu_torch.ops.kernels.mgmc_visit`); an SSOR level smooths
-through the deterministic sweep kernel
+On a CUDA device in float32 a level's visit (2d or 3d, SOR or SSOR with one
+smoothing step) is one launch of the fused level-visit kernels with the noise
+off (:mod:`multigridmc_tpu_torch.ops.kernels.mgmc_visit`); with more steps a
+level smooths through the deterministic sweep kernel
 (:mod:`multigridmc_tpu_torch.ops.kernels.sor_sweep`) and computes the residual
 and the transfers in plain PyTorch.  A single right-hand side is a batch of one.
 With ``distill`` the deterministic subtree below the distill level is one matrix
@@ -104,10 +104,11 @@ class MultigridPreconditioner:
                 raise ValueError(f"unknown smoother '{smoother}'")
         self.coarse_solver = DenseCholeskySolver(self.hierarchy.operators[-1])
 
-        # SOR levels reuse the fused level-visit kernels with the noise off
-        # (same gating as the MGMC sampler); SSOR levels stay composed
+        # the levels reuse the fused level-visit kernels with the noise off
+        # (same gating as the MGMC sampler: one visit is one SOR sweep or one
+        # SSOR pair)
         self.fused_levels = {}
-        if smoother == "SOR" and npresmooth == 1 and npostsmooth == 1:
+        if npresmooth == 1 and npostsmooth == 1:
             self.fused_levels = fused_levels_for(
                 self.hierarchy.operators, self.presmoothers, self.postsmoothers,
                 self.coarse_scaling,

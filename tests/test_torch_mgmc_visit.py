@@ -145,15 +145,16 @@ def test_factored_woodbury_of_the_kernels_matches_jax_B_bar(level, variance):
 @pytest.mark.parametrize("level", [0, 1], ids=["5point", "galerkin9point"])
 def test_residual_shortcut_of_the_descend_kernel_matches_jax_residual(level, variance):
     """The descend kernel forms the low-rank part of the residual without a
-    second reduction, ``t = Sigma^-1 (I - G) B^T x``; the JAX package computes
-    ``Sigma^-1 B^T x'`` on the corrected field.  ``I - G = Sigma W`` is a
-    cancellation that costs ``Sigma^-1`` (about 1e6 when near exact) in
-    relative accuracy on either route, hence the absolute tolerance 1e-8 in
-    float64 on values of order one."""
+    second reduction: ``t = u``, the Woodbury correction's ``W B^T x`` (noise
+    off; with noise ``u + Sigma^-1/2 n``, ``tests/test_torch_lowrank_float32.py``),
+    exactly ``Sigma^-1 B^T x'`` (``B^T x' = Sigma u``); the JAX package computes
+    ``Sigma^-1 B^T x'`` on the corrected field, which cancels and costs
+    ``Sigma^-1`` (about 1e6 when near exact) in relative accuracy, hence the
+    absolute tolerance 1e-8 in float64 on values of order one."""
     a, jpre, _, port = _levels(True, level, torch.float64, variance=variance)
     f, x, _ = _inputs(a.vshape, False, seed=7)
     btx, xp = _kernel_woodbury(port, port.pre_order, tt(x))
-    t = (btx - btx @ port.G_pre.T) * port.sigma_inv
+    t = port.woodbury_u(port.pre_order, btx)
     got = tt(f) - port.op.apply_stencil(xp) - port.op.lowrank.expand(t)
     jxp = jpre._lowrank_correct(jnp.asarray(x))
     want = jnp.asarray(f) - a.apply(jxp)
@@ -232,7 +233,10 @@ def test_compress_plan_detects_constants_and_supports():
 
 def test_kernel_parameters_describe_the_level():
     _, _, _, port = _levels(True, 1, torch.float32)
-    P = port._params(6, port.post_order, True, 2, None)
+    P = port._params(6, port.post_order, True, 2, None, route="phase")
+    # the split kernels take one such block per sweep direction
+    split = port._params(6, port.post_order, True, 2, None, route="split")
+    assert split.ndir == 1 and bytes(split.v[0]) == bytes(P)
     assert (P.C, P.H, P.W, P.Hc, P.Wc) == (6, 15, 15, 7, 7)
     assert P.K == 9 and (P.dy[P.diag_index], P.dx[P.diag_index]) == (0, 0)
     assert P.n_colors == 4 and [P.order[i] for i in range(4)] == [3, 2, 1, 0]
@@ -294,9 +298,9 @@ def test_wrapper_rejects_what_the_kernels_do_not_take():
 
 
 def test_unported_kernel_variants_raise():
-    """Two sweeps per visit (SSOR) and 1d levels raise; 3d levels are admitted
-    (the kernels' 3d build) and left to the composed path only where the gate
-    is off, as on the CPU by default."""
+    """Three sweeps per visit and 1d levels raise; two sweeps per visit (SSOR)
+    and 3d levels are admitted (the kernels' 3d build) and left to the composed
+    path only where the gate is off, as on the CPU by default."""
     from multigridmc_tpu_torch.lattice import Lattice
     from multigridmc_tpu_torch.models.correlation import ConstantCorrelationLengthModel
     from multigridmc_tpu_torch.models.prior import shiftedlaplace_fd
@@ -308,9 +312,11 @@ def test_unported_kernel_variants_raise():
     assert mv.FusedVisitLevel(op3, sm.coloring, 1.0, sm.order, sm.order, None, None,
                               1.0).stencil_form == mv.DIM3_FORM0
     _, _, _, port = _levels(False, 0, torch.float32)
-    with pytest.raises(NotImplementedError, match="SSOR"):
-        mv.FusedVisitLevel(port.op, port.coloring, 1.0, (port.pre_order, port.post_order),
-                           (port.pre_order, port.post_order), None, None, 1.0)
+    two = (port.pre_order, port.post_order)
+    assert mv.FusedVisitLevel(port.op, port.coloring, 1.0, two, two, None, None,
+                              1.0).ndir == 2
+    with pytest.raises(ValueError, match="once or twice"):
+        mv.FusedVisitLevel(port.op, port.coloring, 1.0, two + two[:1], two, None, None, 1.0)
     op1 = shiftedlaplace_fd(Lattice((16,)), model, device="cpu")
     assert "2d and 3d" in mv.kernel_support_error(op1, 2)
     # the gate: off on the CPU unless forced; forced, a 3d hierarchy is fused

@@ -153,12 +153,21 @@ def test_mgmc_with_ssor_replays_jax_draws(recorded_normals, kwargs, nsteps):  # 
 
 
 def test_mgmc_with_ssor_levels_never_builds_fused_visits():
-    """The fused visit kernels are SOR-only: with SSOR levels even
-    ``fused=True`` leaves every level to the composed visit."""
+    """Once SSOR-only-composed (the name is kept from then); the fused visit
+    kernels now take two sweeps per visit: with SSOR levels ``fused=True``
+    builds a fused level of two directions and ``fused=False`` none, and
+    ``npresmooth > 1`` leaves the level to the composed visit."""
     a = to_port(jax_operator(16, True))
     sampler = MultigridMCSampler(a, nlevel=2, smoother="SSOR", fused=True)
-    assert sampler.fused_levels == {}
-    assert isinstance(sampler.presamplers[0], SSORSampler)
+    assert sorted(sampler.fused_levels) == [0]
+    fused = sampler.fused_levels[0]
+    ssor = sampler.presamplers[0]
+    assert fused.ndir == 2 and isinstance(ssor, SSORSampler)
+    assert fused.pre_orders == (ssor.forward.smoother.order, ssor.backward.smoother.order)
+    assert fused.post_orders == fused.pre_orders
+    assert MultigridMCSampler(a, nlevel=2, smoother="SSOR", fused=False).fused_levels == {}
+    assert MultigridMCSampler(a, nlevel=2, smoother="SSOR", npresmooth=2,
+                              fused=True).fused_levels == {}
     sampler = MultigridMCSampler(a, nlevel=2, coarse_solver="SSOR", fused=True)
     assert sorted(sampler.fused_levels) == [0] and isinstance(sampler.coarse_sampler, SSORSampler)
 

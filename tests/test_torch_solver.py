@@ -72,15 +72,14 @@ def test_preconditioner_apply_matches_jax(smoother, cycle, batch):
                                               dtype=torch.float64, **kwargs)):
         assert precond.fused_levels == {}
         assert_close(precond.apply(tt(b)), want, **F64)
-    if smoother == "SOR":
-        # SOR levels through the fused visits (their plain versions here), noise off
-        fused = MultigridPreconditioner(to_port(a), 3, fused=True, **kwargs)
-        assert sorted(fused.fused_levels) == [0, 1]
-        got = fused.apply(tt(b))
-        assert got.shape == b.shape
-        assert_close(got, want, **F64)
-    else:
-        assert MultigridPreconditioner(to_port(a), 3, fused=True, **kwargs).fused_levels == {}
+    # the levels through the fused visits (their plain versions here), noise
+    # off: one sweep per visit (SOR) or a forward and a backward one (SSOR)
+    fused = MultigridPreconditioner(to_port(a), 3, fused=True, **kwargs)
+    assert sorted(fused.fused_levels) == [0, 1]
+    assert fused.fused_levels[0].ndir == (2 if smoother == "SSOR" else 1)
+    got = fused.apply(tt(b))
+    assert got.shape == b.shape
+    assert_close(got, want, **F64)
 
 
 def test_preconditioner_options():

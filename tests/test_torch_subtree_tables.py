@@ -2,7 +2,7 @@
 
 The kernel (``csrc/mgmc_subtree.cu`` with ``csrc/level_passes.cuh``) copies
 per sub-level the visit parameter blocks, ``B`` and both directions' ``Y``
-inside their bounding boxes, ``W``, ``G``, ``1/Sigma`` and ``Sigma^-1/2`` into
+inside their bounding boxes, ``W`` and ``Sigma^1/2`` into
 shared memory once per launch (:func:`launch_tables`), and does each low-rank
 term in one pass: the thread that owns a point adds the columns whose box
 holds it, in column order, and ``B^T x`` is one warp per column.  Here:
@@ -14,7 +14,8 @@ holds it, in column order, and ``B^T x`` is one warp per column.  Here:
 * a replay of the kernel's per-point order (rows, the columns that the boxes
   span in a row, the columns holding a point in column order) reading the
   staged values: bitwise equal to the column-after-column loops for the
-  rhs and residual terms and the Woodbury correction (float32, as on the card);
+  residual term (and a term added over B's boxes) and the Woodbury correction
+  (float32, as on the card);
   the warp-per-column ``B^T x`` (lanes along the box, a shuffle tree) within
   ``1e-12`` of the plain sum in float64;
 * the sweep over each colour's rows with the stencil's terms in offset order,
@@ -116,9 +117,7 @@ def decode(kernel):
         boff = words[off["boff"]:off["boff"] + m + 1]
         level = {"plans": plans, "bval": floats[off["bval"]:off["bval"] + boff[-1]], "boff": boff,
                  "yval": [], "yoff": [], "wm": [],
-                 "g": floats[off["g"]:off["g"] + m * m].reshape(m, m),
-                 "sinv": floats[off["sinv"]:off["sinv"] + m],
-                 "lrscale": floats[off["lrscale"]:off["lrscale"] + m]}
+                 "sroot": floats[off["sroot"]:off["sroot"] + m]}
         for d in range(2):
             yoff = words[off["yoff"][d]:off["yoff"][d] + m + 1]
             level["yoff"].append(yoff)
@@ -157,9 +156,10 @@ def test_tables_against_the_levels(sampler):
         for k, (i0, i1, j0, j1) in enumerate(lv.bbox):
             staged = tab["bval"][tab["boff"][k]:tab["boff"][k + 1]]
             assert np.array_equal(staged, lv.B[k, i0:i1, j0:j1].numpy().reshape(-1))
-        assert np.array_equal(tab["g"], lv.G_pre.numpy())
-        assert np.array_equal(tab["sinv"], lv.sigma_inv.numpy())
-        assert np.array_equal(tab["lrscale"], lv.lr_scale.numpy())
+        # Sigma^1/2 alone: no Gram matrix, no 1 / Sigma, no Sigma^-1/2
+        assert np.array_equal(tab["sroot"], lv.sigma_sqrt.numpy())
+        assert set(kernel._table_offsets[0]) == {"plan", "rows", "yval", "yoff", "wm", "bval",
+                                                 "boff", "sroot"}
     # the warps' slots after the levels' tables, inside the staged words
     assert kernel._warp_stride == max(lv.op.m_lowrank for lv in kernel.levels)
     assert kernel._warp_vec + 32 * kernel._warp_stride <= kernel._tables.size
@@ -232,7 +232,7 @@ def test_one_pass_lowrank_terms_equal_the_column_loops_bitwise(sampler):
         m = lv.op.m_lowrank
         dst = rng.normal(size=lv.op.vshape).astype(np.float32)
         coef = rng.normal(size=m).astype(np.float32)
-        # the rhs (+ s B) and residual (- t B) terms over B's boxes
+        # a term added over B's boxes (+) and the residual term (- t B)
         for sign in (1.0, -1.0):
             got = add_columns_replay(lv.bbox, tab["bval"], tab["boff"], coef, sign, dst)
             want = column_after_column(lv.bbox, lv.B, coef, sign, dst)
@@ -412,8 +412,9 @@ def test_tables_fit_the_card_at_the_most_lowrank_columns():
     assert all(lv.op.m_lowrank == 32 for lv in kernel.levels)
     table_bytes = kernel.placement["table_bytes"]
     assert table_bytes + st.STATIC_SMEM_RESERVE <= H100_BLOCK_LIMIT, table_bytes
-    # more than the CPU's nominal 48 KB, and the plain version runs all the same
-    small = MultigridMCSampler(posterior(64, 32, 12), 4, cycle=2, subtree=True).subtree
+    # more than the CPU's nominal 48 KB (three sub-levels), and the plain
+    # version runs all the same
+    small = MultigridMCSampler(posterior(64, 32, 12), 5, cycle=2, subtree=True).subtree
     assert small.placement["table_bytes"] > 48 * 1024
     f = torch.randn((2,) + small.vshape, generator=torch.Generator().manual_seed(0))
     x = st.subtree_sample(small, f, xi=torch.randn(2, small.count_noise()))

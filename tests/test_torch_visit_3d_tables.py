@@ -66,23 +66,25 @@ def float64_values(level, order, tab):
     return tab
 
 
-def decode(level, order, descend):
-    """The tables of one phase launch of a 3d level as the kernel reads them."""
-    words, T = mv.phase_tables(level, order, descend)
+def decode(level, order):
+    """The tables of one phase launch of a 3d level (one sweep) as the kernel
+    reads them."""
+    words, T = mv.phase_tables(level, (order,))
     floats = words.view(np.float32)
     m, K = level.op.m_lowrank, level.coloring.n_colors
     rows = int(np.prod(level.op.vshape[:-1]))
     boff = words[T.boff:T.boff + m + 1]
-    yoff = words[T.yoff:T.yoff + m + 1]
+    yoff = words[T.yoff[0]:T.yoff[0] + m + 1]
     return {"bval": floats[T.bval:T.bval + boff[-1]], "boff": boff,
-            "yval": floats[T.yval:T.yval + yoff[-1]], "yoff": yoff,
-            "wm": floats[T.wm:T.wm + m * m].reshape(m, m),
-            "g": floats[T.g:T.g + m * m].reshape(m, m), "sinv": floats[T.sinv:T.sinv + m],
+            "yval": floats[T.yval[0]:T.yval[0] + yoff[-1]], "yoff": yoff,
+            "wm": floats[T.wm[0]:T.wm[0] + m * m].reshape(m, m),
+            "sroot": floats[T.sroot:T.sroot + m],
             "bbox": [tuple(b) for b in words[T.bbox:T.bbox + 6 * m].reshape(m, 6)],
-            "ybox": [tuple(b) for b in words[T.ybox:T.ybox + 6 * m].reshape(m, 6)],
+            "ybox": [tuple(b) for b in words[T.ybox[0]:T.ybox[0] + 6 * m].reshape(m, 6)],
             "bspan": words[T.bspan:T.bspan + 2 * rows].reshape(rows, 2),
-            "yspan": words[T.yspan:T.yspan + 2 * rows].reshape(rows, 2),
-            "rows": words[T.rows:T.rows + len(order) * (1 + 3 * K * K)].reshape(len(order), -1)}
+            "yspan": words[T.yspan[0]:T.yspan[0] + 2 * rows].reshape(rows, 2),
+            "rows": words[T.rows[0]:T.rows[0] + len(order) * (1 + 3 * K * K)].reshape(
+                len(order), -1)}
 
 
 def spans_brute_force(boxes, vshape):
@@ -118,7 +120,7 @@ def colour_slots(level, rows, o):
 def test_3d_tables_against_a_brute_force_reading(level, descend):
     _, _, _, port = levels((10, 12, 14), level, True, torch.float32)
     order = port.pre_order if descend else port.post_order
-    tab = decode(port, order, descend)
+    tab = decode(port, order)
     Y, W, ybox = port._woodbury[order]
     assert tab["bbox"] == list(port.bbox) and tab["ybox"] == list(ybox)
     assert np.array_equal(tab["bspan"], spans_brute_force(port.bbox, port.op.vshape))
@@ -133,6 +135,7 @@ def test_3d_tables_against_a_brute_force_reading(level, descend):
         assert np.array_equal(tab["yval"][tab["yoff"][k]:tab["yoff"][k + 1]],
                               Y[k][mv.box_slices(box)].numpy().reshape(-1))
     assert np.array_equal(tab["wm"], W.numpy())
+    assert np.array_equal(tab["sroot"], port.sigma_sqrt.numpy())
     # the colour rows: every point of each colour once, read slot by slot
     K, s = port.coloring.n_colors, port._build_params(1, order, True, 0).jstride
     masks = port.masks.numpy()
@@ -207,13 +210,15 @@ def points(shape):
     return itertools.product(*(range(n) for n in shape))
 
 
-def replay_woodbury(level, tab, x):
-    btx = replay_btx(tab, x)
-    u = tab["wm"] @ btx
+def replay_woodbury(level, tab, x, n):
+    """``btx_pass`` and ``woodbury_pass``: u = W (B^T x - Sigma^1/2 n); returns
+    (t = u + Sigma^-1/2 n, x - sum_l u_l Y_l)."""
+    sroot = level.sigma_sqrt.numpy()
+    u = tab["wm"] @ (replay_btx(tab, x) - sroot * n)
     x = x.copy()
     for z, y, j in points(x.shape):
         x[z, y, j] = add_columns(tab, "y", u, -1.0, z, y, j, x[z, y, j])
-    return btx, x
+    return u + n / sroot, x
 
 
 def replay_restrict(level, r):
@@ -250,20 +255,17 @@ def replay_prolong(level, x, xc):
     return out
 
 
-def replay_rhs(level, tab, f, xi, xi_lr):
-    """``rhs_pass``: c = f + ns xi + sum_k s_k B_k, point by point."""
-    c = f + level.noise_scale.numpy() * xi
-    for z, y, j in points(f.shape):
-        c[z, y, j] = add_columns(tab, "b", xi_lr, 1.0, z, y, j, c[z, y, j])
-    return c
+def replay_rhs(level, f, xi):
+    """``rhs_pass``: c = f + ns xi (the low-rank noise enters the Woodbury
+    correction)."""
+    return f + level.noise_scale.numpy() * xi
 
 
 def replay_descend(level, f, x, xi, xi_lr):
-    tab = float64_values(level, level.pre_order, decode(level, level.pre_order, True))
-    c = replay_rhs(level, tab, f, xi, xi_lr)
+    tab = float64_values(level, level.pre_order, decode(level, level.pre_order))
+    c = replay_rhs(level, f, xi)
     x = replay_sweep(level, tab, level.pre_order, c, x)
-    btx, x = replay_woodbury(level, tab, x)
-    t = (btx - level.G_pre.numpy() @ btx) * level.sigma_inv.numpy()
+    t, x = replay_woodbury(level, tab, x, xi_lr)
     r = np.zeros_like(f)
     for z, y, j in points(f.shape):
         r[z, y, j] = add_columns(tab, "b", t, -1.0, z, y, j,
@@ -272,10 +274,10 @@ def replay_descend(level, f, x, xi, xi_lr):
 
 
 def replay_ascend(level, f, x, xc, xi, xi_lr):
-    tab = float64_values(level, level.post_order, decode(level, level.post_order, False))
+    tab = float64_values(level, level.post_order, decode(level, level.post_order))
     x = replay_prolong(level, x, xc)
-    x = replay_sweep(level, tab, level.post_order, replay_rhs(level, tab, f, xi, xi_lr), x)
-    return replay_woodbury(level, tab, x)[1]
+    x = replay_sweep(level, tab, level.post_order, replay_rhs(level, f, xi), x)
+    return replay_woodbury(level, tab, x, xi_lr)[1]
 
 
 @pytest.mark.parametrize("level", [0, 1], ids=["7pt", "27pt"])
@@ -289,7 +291,7 @@ def test_float64_replay_of_the_3d_passes_is_the_plain_visit(level):
     shape = port.op.vshape
     f, x, xi = rng.normal(size=(3,) + shape)
     xc = rng.normal(size=port.vc)
-    xi_lr = rng.normal(size=port.op.m_lowrank) * port.lr_scale.numpy()
+    xi_lr = rng.normal(size=port.op.m_lowrank)
     got_x, got_fc = replay_descend(port, f, x, xi, xi_lr)
     one = lambda v: torch.as_tensor(v)[None]  # noqa: E731
     want_x, want_fc = mv.descend_visit_plain(port, torch.as_tensor(f), one(x), one(xi),

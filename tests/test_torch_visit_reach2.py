@@ -195,7 +195,8 @@ def test_the_reach2_build_is_a_library_of_its_own():
     for name in ("dy", "dx", "coeff_const", "coeff_val"):
         assert (getattr(narrow, name).size, getattr(widep, name).size) == (4 * 9, 4 * 25)
     assert (narrow.order.size, widep.order.size) == (4 * 8, 4 * 9)
-    assert mv.WIDE_STAMP_WIDTH == mv.PHASE_STAMP_WIDTH + 1
+    # one more colour in each of the two sweep directions a launch may hold
+    assert mv.WIDE_STAMP_WIDTH == mv.PHASE_STAMP_WIDTH + mv.MAX_DIRS
     with pytest.raises(ValueError, match="reach-2 build"):
         mv.load_library(stamps=True, reach=2)
 

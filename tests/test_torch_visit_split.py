@@ -94,44 +94,54 @@ def split_visit_replay(level, kind, S, f, x, x_coarse=None, xi=None, xi_lr=None,
     block and barrier by barrier; ``kind`` is ``"descend"`` (returns
     ``(x, f_c)``) or ``"ascend"``.  All blocks of a step read the bands as the
     last cluster barrier left them; ``halo=False`` drops the neighbours' rows
-    (a schedule that is not the visit)."""
+    (a schedule that is not the visit).  Each directed sweep of the visit (one:
+    SOR; two: SSOR, ``xi`` then ``(2, C, H, W)``, ``xi_lr`` ``(C, 2 m)``) runs
+    1-3 on the bands in shared memory."""
     op = level.op
     H, W = op.vshape
     mv.split_smem_bytes(H, W, S)  # raises where the level does not split so
     bounds = mv.split_bands(H, S)
-    order = level.pre_order if kind == "descend" else level.post_order
+    orders = level.orders(kind)
     shape = x.shape
     f = torch.broadcast_to(f, shape)
-    # 1. the load: x, the ascend's prolongation, the rhs with its low-rank term
+    m = op.m_lowrank
+    # 1. the load: x and the ascend's prolongation
     if kind == "ascend":
         x = x + level.coarse_scaling * prolongate(x_coarse, op.vshape)
-    c = f
-    if xi is not None:
-        c = f + level.noise_scale * xi
-        if xi_lr is not None:
-            c = c + torch.einsum("ck,khw->chw", xi_lr, _boxed(level.B, level.bbox))
     xb = [x[:, u0:u1].clone() for u0, u1 in bounds]
-    cb = [c[:, u0:u1].clone() for u0, u1 in bounds]
-    # 2. the colour phases, a cluster barrier between them
     diag = op.diag_stencil()
-    for colour in order:
-        new = []
-        for k, (u0, u1) in enumerate(bounds):
-            ax = op.apply_stencil(_visible(xb, bounds, k, shape, halo))[:, u0:u1]
-            new.append(xb[k] + level.masks[colour][u0:u1]
-                       * (level.omega * (cb[k] - ax) / diag[u0:u1]))
-        xb = new
-    # 3. Woodbury: each band's share of B^T x, summed over the ranks in order
-    if level.B is not None:
-        Bbox = _boxed(level.B, level.bbox)
-        shares = [torch.einsum("chw,khw->ck", xb[k], Bbox[:, u0:u1])
-                  for k, (u0, u1) in enumerate(bounds)]
-        btx = shares[0]
-        for share in shares[1:]:
-            btx = btx + share
-        Y, Wm, ybox = level._woodbury[order]
-        patch = torch.einsum("cl,lhw->chw", btx @ Wm.T, _boxed(Y, ybox))
-        xb = [xb[k] - patch[:, u0:u1] for k, (u0, u1) in enumerate(bounds)]
+    t = None
+    for d, order in enumerate(orders):
+        # the rhs of this direction (its low-rank noise enters the correction)
+        c = f
+        if xi is not None:
+            c = f + level.noise_scale * (xi if len(orders) == 1 else xi[d])
+        cb = [c[:, u0:u1].clone() for u0, u1 in bounds]
+        # 2. the colour phases, a cluster barrier between them
+        for colour in order:
+            new = []
+            for k, (u0, u1) in enumerate(bounds):
+                ax = op.apply_stencil(_visible(xb, bounds, k, shape, halo))[:, u0:u1]
+                new.append(xb[k] + level.masks[colour][u0:u1]
+                           * (level.omega * (cb[k] - ax) / diag[u0:u1]))
+            xb = new
+        # 3. Woodbury: each band's share of B^T x, summed over the ranks in
+        #    order, less Sigma^1/2 n; u = W (B^T x - Sigma^1/2 n)
+        if level.B is not None:
+            Bbox = _boxed(level.B, level.bbox)
+            shares = [torch.einsum("chw,khw->ck", xb[k], Bbox[:, u0:u1])
+                      for k, (u0, u1) in enumerate(bounds)]
+            btx = shares[0]
+            for share in shares[1:]:
+                btx = btx + share
+            n = None if xi_lr is None else xi_lr[:, d * m:(d + 1) * m]
+            if n is not None:
+                btx = btx - level.sigma_sqrt * n
+            Y, Wm, ybox = level._woodbury[order]
+            u = btx @ Wm.T
+            patch = torch.einsum("cl,lhw->chw", u, _boxed(Y, ybox))
+            xb = [xb[k] - patch[:, u0:u1] for k, (u0, u1) in enumerate(bounds)]
+            t = u if n is None else u + n / level.sigma_sqrt
     x_out = torch.cat(xb, dim=1)  # written back once
     if kind == "ascend":
         return x_out
@@ -140,8 +150,7 @@ def split_visit_replay(level, kind, S, f, x, x_coarse=None, xi=None, xi_lr=None,
     rb = []
     for k, (u0, u1) in enumerate(bounds):
         r = f[:, u0:u1] - op.apply_stencil(_visible(xb, bounds, k, shape))[:, u0:u1]
-        if level.B is not None:
-            t = (btx - btx @ level.G_pre.T) * level.sigma_inv
+        if t is not None:
             r = r - torch.einsum("ck,khw->chw", t, Bbox[:, u0:u1])
         rb.append(r)
     Hc, Wc = level.vc
@@ -203,7 +212,7 @@ def _inputs(level, C, seed, f_batched=True):
     x = tt(rng.normal(size=(C,) + vshape))
     xc = tt(rng.normal(size=(C,) + level.vc))
     xi = tt(rng.normal(size=(C,) + vshape))
-    xi_lr = tt(rng.normal(size=(C, level.op.m_lowrank))) * level.lr_scale
+    xi_lr = tt(rng.normal(size=(C, level.op.m_lowrank)))
     return f, x, xc, xi, xi_lr
 
 
@@ -346,7 +355,8 @@ def test_drivers_levels_take_the_split_route(monkeypatch, limit):
     assert fine.route(1) == "split" and fine.split_cluster(1) == 16
     assert fine._routes[1] == ("split", 16)
     P = fine._params(1, fine.pre_order, False, 1, (3, 4))
-    assert isinstance(P, mv.VisitParams) and (P.C, P.seed, P.counter) == (1, 3, 4)
+    assert isinstance(P, mv.SplitParams) and P.ndir == 1
+    assert (P.v[0].C, P.v[0].seed, P.v[0].counter) == (1, 3, 4)
 
 
 #: clusters of split visits an H100 holds at once, by level and cluster size
@@ -387,13 +397,13 @@ def test_cluster_size_minimises_the_waves(monkeypatch, vshape, C, want):
 
 def test_route_takes_the_phase_kernels_where_the_bands_do_not_fit():
     # 1023^2: 64 rows of x and of the scratch band at S = 16 exceed a block
-    assert mv.split_smem_bytes(1023, 1023, 16) == 4 * (64 + 2 * 64 * 1023)
+    assert mv.split_smem_bytes(1023, 1023, 16) == 4 * (128 + 2 * 64 * 1023)
     assert mv.split_cluster(1, (1023, 1023), CPU, H100_SMEM) is None
     assert mv.visit_route(1, 0, CPU, H100_SMEM, (1023, 1023)) == "phase"
     # the flagship's 255^2 level: S = 2 needs 261 KB, S = 4 fits the H100
     assert mv.split_smem_bytes(255, 255, 2) + mv.SPLIT_STATIC_SMEM > H100_SMEM
-    assert mv.split_smem_bytes(255, 255, 4) == 4 * (64 + 2 * 64 * 255) == 130816
-    assert mv.split_smem_bytes(255, 255, 16) == 32896
+    assert mv.split_smem_bytes(255, 255, 4) == 4 * (128 + 2 * 64 * 255) == 131072
+    assert mv.split_smem_bytes(255, 255, 16) == 33152
     # what a block is granted decides: just enough, or four bytes short
     need = mv.split_smem_bytes(511, 511, 16) + mv.SPLIT_STATIC_SMEM
     assert mv.split_cluster(1, (511, 511), CPU, need) == 16
@@ -429,7 +439,8 @@ def test_band_layout_mirror():
 def test_layout_mirror_constants_match_the_kernel_source():
     src = (CSRC / "mgmc_visit_split.cu").read_text()
     assert int(re.search(r"#define MAX_CLUSTER (\d+)", src).group(1)) == ss.SPLIT_SIZES[0]
-    assert "#define SPLIT_TABLE_INTS (MAX_COLORS * MAX_COLORS)" in src
+    assert "#define SPLIT_TABLE_INTS (MAX_DIRS * MAX_COLORS * MAX_COLORS)" in src
+    assert int(re.search(r"#define MAX_DIRS (\d+)", src).group(1)) == mv.MAX_DIRS
     sizes = {"MAX_LOWRANK": mv.MAX_LOWRANK, "MAX_CLUSTER": ss.SPLIT_SIZES[0]}
     statics = re.findall(r"__shared__ float s_\w+\[(\w+)(?: \* (\w+))?\];", src)
     assert mv.SPLIT_STATIC_SMEM == sum(4 * sizes[a] * (sizes[b] if b else 1) for a, b in statics)
@@ -461,5 +472,8 @@ def test_every_route_rejects_what_the_kernels_do_not_take():
         with pytest.raises(ValueError, match="CUDA device"):
             mv.launch_ascend(fine, route, x[0], x, xc, cluster=8)
     assert all(v == 0 for v in mv.launch_counts.values())
-    assert ({mv.KERNEL_NAMES[(r, k)] for r in mv.ROUTES for k in ("descend", "ascend")}
-            | set(mv.REACH2_NAMES.values()) | set(mv.DIM3_NAMES.values())) == set(mv.launch_counts)
+    one = ({mv.KERNEL_NAMES[(r, k)] for r in mv.ROUTES for k in ("descend", "ascend")}
+           | set(mv.REACH2_NAMES.values()) | set(mv.DIM3_NAMES.values()))
+    # each form apart from its two-sweep (SSOR) form, which the stream kernels lack
+    assert one | {name + mv.SSOR_SUFFIX for name in one if "stream" not in name} == set(
+        mv.launch_counts)

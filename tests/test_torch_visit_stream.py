@@ -116,21 +116,21 @@ def stream_visit_emulation(level, kind, f, x, x_coarse=None, xi=None, xi_lr=None
     assert P.max_lag == max(lags)
     if kind == "ascend":  # formed as each row enters the ring
         x = x + level.coarse_scaling * prolongate(x_coarse, level.op.vshape)
-    c = f
-    if xi is not None:
-        c = f + level.noise_scale * xi
-        if xi_lr is not None:
-            c = c + torch.einsum("ck,khw->chw", xi_lr, _boxed(level.B, level.bbox))
+    c = f if xi is None else f + level.noise_scale * xi  # the low-rank noise: below
     x = wavefront_sweep(level, order, lags, c, x)
     if level.B is not None:
+        # u = W (B^T x - Sigma^1/2 n), x -= u_l Y_l
         btx = _rowchunk_btx(level, x)
+        if xi_lr is not None:
+            btx = btx - level.sigma_sqrt * xi_lr
         Y, Wm, ybox = level._woodbury[order]
-        x = x - torch.einsum("cl,lhw->chw", btx @ Wm.T, _boxed(Y, ybox))
+        u = btx @ Wm.T
+        x = x - torch.einsum("cl,lhw->chw", u, _boxed(Y, ybox))
     if kind == "ascend":
         return x
     r = f - level.op.apply_stencil(x)
-    if level.B is not None:  # t = Sigma^-1 (I - G) B^T x, pass 2's low-rank term
-        t = (btx - btx @ level.G_pre.T) * level.sigma_inv
+    if level.B is not None:  # t = u + Sigma^-1/2 n, pass 2's low-rank term
+        t = u if xi_lr is None else u + xi_lr / level.sigma_sqrt
         r = r - torch.einsum("ck,khw->chw", t, _boxed(level.B, level.bbox))
     return x, _full_weighting(r)
 
@@ -246,7 +246,7 @@ def test_stream_visit_emulation_matches_plain_and_jax_float64(level_index, f_bat
         GAMMA, jnp.asarray(xc), jnp.asarray(x), dim=2)), **F64_TIGHT)
 
     # noise as tensors (the kernels' mode 2): the plain versions on the same draws
-    lr = tt(xi_lr) * port.lr_scale
+    lr = tt(xi_lr)
     got_x, got_fc = stream_visit_emulation(port, "descend", tt(f), tt(x), xi=tt(xi), xi_lr=lr)
     want_x, want_fc = mv.descend_visit_plain(port, tt(f), tt(x), tt(xi), lr)
     torch.testing.assert_close(got_x, want_x, **F64_TIGHT)
@@ -322,7 +322,8 @@ def test_route_is_chosen_from_the_chain_count_alone(monkeypatch):
                 for noise_mode in (0, 1, 2):
                     P = port._params(C, order, f_batched, noise_mode, (5, 6))
                     assert isinstance(P, mv.StreamParams) == (want == "stream")
-                    visit = P.v if want == "stream" else P
+                    assert isinstance(P, mv.SplitParams) == (want == "split")
+                    visit = P.v if want == "stream" else P.v[0] if want == "split" else P
                     assert (visit.C, visit.seed, visit.counter) == (C, 5, 6)
     with pytest.raises(ValueError, match="route must be"):
         port._params(4, port.pre_order, False, 0, None, route="cluster")

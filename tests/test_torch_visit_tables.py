@@ -2,10 +2,10 @@
 
 The phase route of the two level-visit kernels (``csrc/mgmc_visit.cu``) runs
 the passes of ``csrc/level_passes.cuh``, which the subtree kernel runs too.  A
-launch reads one level's tables for its sweep direction
-(``mgmc_visit.phase_tables``: ``B`` and this direction's ``Y`` inside their
-boxes, the boxes and the columns they span per row, ``W``, the descend's ``G``
-and ``1 / Sigma``, the colour rows) from each block's shared memory where they
+launch reads one level's tables for its sweep directions
+(``mgmc_visit.phase_tables``: ``B`` and each direction's ``Y`` inside their
+boxes, the boxes and the columns they span per row, each direction's ``W``
+and colour rows, ``Sigma^1/2``) from each block's shared memory where they
 fit, else from device memory.  Here, on the flagship's levels 0 (255^2,
 5-point, red-black) and 1 (127^2, 9-point, 4 colours) and on a 64x64 case:
 
@@ -75,24 +75,27 @@ def level(request):
     return CASES[request.param]()
 
 
-def decode(level, order, descend):
-    """The tables of one phase launch as the kernel reads them."""
-    words, T = mv.phase_tables(level, order, descend)
+def decode(level, orders, d=0):
+    """The tables of one phase launch with the sweep ``orders`` (one order is
+    wrapped) as the kernel reads them for direction ``d``."""
+    orders = mv._as_orders(orders)
+    words, T = mv.phase_tables(level, orders)
     floats = words.view(np.float32)
     m, H = level.op.m_lowrank, level.op.vshape[0]
     K = level.coloring.n_colors
+    order = orders[d]
     boff = words[T.boff:T.boff + m + 1]
-    yoff = words[T.yoff:T.yoff + m + 1]
+    yoff = words[T.yoff[d]:T.yoff[d] + m + 1]
     return {"words": words, "T": T,
             "bval": floats[T.bval:T.bval + boff[-1]], "boff": boff,
-            "yval": floats[T.yval:T.yval + yoff[-1]], "yoff": yoff,
-            "wm": floats[T.wm:T.wm + m * m].reshape(m, m),
-            "g": floats[T.g:T.g + m * m].reshape(m, m), "sinv": floats[T.sinv:T.sinv + m],
+            "yval": floats[T.yval[d]:T.yval[d] + yoff[-1]], "yoff": yoff,
+            "wm": floats[T.wm[d]:T.wm[d] + m * m].reshape(m, m),
+            "sroot": floats[T.sroot:T.sroot + m],
             "bbox": [tuple(b) for b in words[T.bbox:T.bbox + 4 * m].reshape(m, 4)],
-            "ybox": [tuple(b) for b in words[T.ybox:T.ybox + 4 * m].reshape(m, 4)],
+            "ybox": [tuple(b) for b in words[T.ybox[d]:T.ybox[d] + 4 * m].reshape(m, 4)],
             "bspan": words[T.bspan:T.bspan + 2 * H].reshape(H, 2),
-            "yspan": words[T.yspan:T.yspan + 2 * H].reshape(H, 2),
-            "rows": words[T.rows:T.rows + len(order) * (1 + 2 * K)].reshape(len(order), -1)}
+            "yspan": words[T.yspan[d]:T.yspan[d] + 2 * H].reshape(H, 2),
+            "rows": words[T.rows[d]:T.rows[d] + len(order) * (1 + 2 * K)].reshape(len(order), -1)}
 
 
 def spans_brute_force(boxes, H):
@@ -110,9 +113,9 @@ DIRECTIONS = [("descend", True), ("ascend", False)]
 @pytest.mark.parametrize("kind,descend", DIRECTIONS)
 def test_phase_tables_against_the_level(level, kind, descend):
     order = level.pre_order if descend else level.post_order
-    tab = decode(level, order, descend)
+    tab = decode(level, order)
     assert tab["words"].dtype == np.int32 and tab["words"].size % 4 == 0
-    assert tab["T"].words == tab["words"].size and tab["T"].shared == 0
+    assert tab["T"].words == tab["words"].size and tab["T"].shared == 0 and tab["T"].ndir == 1
     m, H = level.op.m_lowrank, level.op.vshape[0]
     assert m in (4, 8)
     Y, W, ybox = level._woodbury[order]
@@ -129,14 +132,20 @@ def test_phase_tables_against_the_level(level, kind, descend):
         outside[i0:i1, j0:j1] = 0
         assert not outside.any()
     assert np.array_equal(tab["wm"], W.numpy())
-    if descend:
-        assert np.array_equal(tab["g"], level.G_pre.numpy())
-        assert np.array_equal(tab["sinv"], level.sigma_inv.numpy())
+    # Sigma^1/2 for both kinds: the descend's residual term needs no other table
+    assert np.array_equal(tab["sroot"], level.sigma_sqrt.numpy())
     # the other direction's factor is another table: neither stands in for the other
-    other = decode(level, level.post_order if descend else level.pre_order, not descend)
+    other = decode(level, level.post_order if descend else level.pre_order)
     assert not np.array_equal(tab["yval"], other["yval"])
-    # the ascend stages no residual terms
-    assert (tab["words"].size > other["words"].size) == descend
+    # a two-sweep launch holds both directions' tables, each as its own launch has it
+    both = (order, other_order := level.post_order if descend else level.pre_order)
+    for d, alone in enumerate((tab, other)):
+        two = decode(level, both, d)
+        assert two["T"].ndir == 2
+        for name in ("bval", "boff", "yval", "yoff", "wm", "sroot", "bbox", "ybox", "bspan",
+                     "yspan", "rows"):
+            assert np.array_equal(np.asarray(two[name]), np.asarray(alone[name])), (d, name)
+    assert other_order != order
 
 
 def subtree_decode(kernel, li, d):
@@ -150,8 +159,7 @@ def subtree_decode(kernel, li, d):
     return {"bval": floats[off["bval"]:off["bval"] + boff[-1]], "boff": boff,
             "yval": floats[off["yval"][d]:off["yval"][d] + yoff[-1]], "yoff": yoff,
             "wm": floats[off["wm"][d]:off["wm"][d] + m * m].reshape(m, m),
-            "g": floats[off["g"]:off["g"] + m * m].reshape(m, m),
-            "sinv": floats[off["sinv"]:off["sinv"] + m],
+            "sroot": floats[off["sroot"]:off["sroot"] + m],
             "rows": words[off["rows"][d]:off["rows"][d] + len(order) * (1 + 2 * K)].reshape(
                 len(order), -1)}
 
@@ -165,18 +173,16 @@ def test_phase_tables_equal_the_subtree_tables(case):
     kernel = MultigridMCSampler(op, 4 if case == "flagship" else 3, cycle=2,
                                 subtree=True).subtree
     for li, lv in enumerate(kernel.levels):
-        for d, (order, descend) in enumerate(((lv.pre_order, True), (lv.post_order, False))):
-            got, want = decode(lv, order, descend), subtree_decode(kernel, li, d)
-            names = ("bval", "boff", "yval", "yoff", "wm", "rows") + (
-                ("g", "sinv") if descend else ())
-            for name in names:
+        for d, order in enumerate((lv.pre_order, lv.post_order)):
+            got, want = decode(lv, order), subtree_decode(kernel, li, d)
+            for name in ("bval", "boff", "yval", "yoff", "wm", "rows", "sroot"):
                 assert np.array_equal(got[name], want[name]), (li, d, name)
 
 
 @pytest.mark.parametrize("kind,descend", DIRECTIONS)
 def test_colour_rows_cover_each_colour_once(level, kind, descend):
     order = level.pre_order if descend else level.post_order
-    rows = decode(level, order, descend)["rows"]
+    rows = decode(level, order)["rows"]
     H, W = level.op.vshape
     K = level.coloring.n_colors
     s = level._build_params(1, order, True, 0).jstride
@@ -303,23 +309,25 @@ def replay_sweep(level, tab, order, c, x):
     return x
 
 
-def replay_woodbury(level, tab, Y, W, x):
+def replay_woodbury(level, tab, Y, W, x, n):
     """``btx_pass`` and ``woodbury_pass``: B^T x per column over its box, u =
-    W B^T x, x -= u_l Y_l over Y's boxes; returns (B^T x, x)."""
+    W (B^T x - Sigma^1/2 n) with the sweep's low-rank normals n, x -= u_l Y_l
+    over Y's boxes; returns (t = u + Sigma^-1/2 n, x)."""
     B = level.B.numpy()
     btx = np.array([(B[k, i0:i1, j0:j1] * x[i0:i1, j0:j1]).sum()
                     for k, (i0, i1, j0, j1) in enumerate(tab["bbox"])])
-    return btx, columns(tab["ybox"], Y.numpy(), W.numpy() @ btx, -1.0, x)
+    sroot = level.sigma_sqrt.numpy()
+    u = W.numpy() @ (btx - sroot * n)
+    return u + n / sroot, columns(tab["ybox"], Y.numpy(), u, -1.0, x)
 
 
 def replay_descend(level, f, x, xi, xi_lr):
-    tab = decode(level, level.pre_order, True)
+    tab = decode(level, level.pre_order)
     Y, W, _ = level._woodbury[level.pre_order]
     B = level.B.numpy()
-    c = columns(tab["bbox"], B, xi_lr, 1.0, f + level.noise_scale.numpy() * xi)
+    c = f + level.noise_scale.numpy() * xi
     x = replay_sweep(level, tab, level.pre_order, c, x)
-    btx, x = replay_woodbury(level, tab, Y, W, x)
-    t = (btx - level.G_pre.numpy() @ btx) * level.sigma_inv.numpy()
+    t, x = replay_woodbury(level, tab, Y, W, x, xi_lr)
     r = columns(tab["bbox"], B, t, -1.0, f - replay_stencil(level, x))
     H, Wd = r.shape
     pad = np.zeros((H + 1, Wd + 1))
@@ -331,7 +339,7 @@ def replay_descend(level, f, x, xi, xi_lr):
 
 
 def replay_ascend(level, f, x, xc, xi, xi_lr):
-    tab = decode(level, level.post_order, False)
+    tab = decode(level, level.post_order)
     Y, W, _ = level._woodbury[level.post_order]
     H, Wd = x.shape
     # x += gamma P x_c: the coarse point I sits at fine 2I+1; the weights
@@ -341,9 +349,9 @@ def replay_ascend(level, f, x, xc, xi, xi_lr):
     w = (0.5, 1.0, 0.5)
     px = sum(w[a] * w[b] * up[a:a + H, b:b + Wd] for a in range(3) for b in range(3))
     x = x + level.coarse_scaling * px
-    c = columns(tab["bbox"], level.B.numpy(), xi_lr, 1.0, f + level.noise_scale.numpy() * xi)
+    c = f + level.noise_scale.numpy() * xi
     x = replay_sweep(level, tab, level.post_order, c, x)
-    return replay_woodbury(level, tab, Y, W, x)[1]
+    return replay_woodbury(level, tab, Y, W, x, xi_lr)[1]
 
 
 F64_CASES = {"flagship L0": lambda: flagship(torch.float64, near_exact=False)[0],
@@ -354,17 +362,16 @@ F64_CASES = {"flagship L0": lambda: flagship(torch.float64, near_exact=False)[0]
 @pytest.mark.parametrize("case", list(F64_CASES))
 def test_float64_replay_of_the_passes_is_the_plain_visit(case):
     """A descend and an ascend built from the passes (one-pass low-rank
-    terms over the tables' boxes, the ``(I - G)`` shortcut, the colour rows)
-    agree with ``descend_visit_plain`` / ``ascend_visit_plain`` in float64 on
-    one chain (order-one measurement variances: the shortcut's cancellation
-    costs ``Sigma^-1`` in relative accuracy, see
-    ``tests/test_torch_mgmc_visit.py``)."""
+    terms over the tables' boxes, the low-rank normals in the Woodbury
+    correction, ``t = u + Sigma^-1/2 n``, the colour rows) agree with
+    ``descend_visit_plain`` / ``ascend_visit_plain`` in float64 on one chain
+    (order-one measurement variances)."""
     level = F64_CASES[case]()
     H, W = level.op.vshape
     rng = np.random.default_rng(21)
     f, x, xi = rng.normal(size=(3, H, W))
     xc = rng.normal(size=level.vc)
-    xi_lr = rng.normal(size=level.op.m_lowrank) * level.lr_scale.numpy()
+    xi_lr = rng.normal(size=level.op.m_lowrank)
     got_x, got_fc = replay_descend(level, f, x, xi, xi_lr)
     want_x, want_fc = mv.descend_visit_plain(
         level, torch.as_tensor(f), torch.as_tensor(x)[None], torch.as_tensor(xi)[None],
@@ -415,17 +422,17 @@ def test_dense_b_tables_lie_in_device_memory():
     dense = dense_b_level(128, 8)
     assert all(box == (0, 127, 0, 127) for box in dense.bbox)
     for threads in (512, 1024):
-        for order, descend in ((dense.pre_order, True), (dense.post_order, False)):
-            words, _ = mv.phase_tables(dense, order, descend)
+        for order in (dense.pre_order, dense.post_order):
+            words, _ = mv.phase_tables(dense, (order,))
             assert 4 * words.size > H100_BLOCK_LIMIT
             assert not mv.phase_tables_fit(4 * words.size, threads, H100_BLOCK_LIMIT)
-            _, T, smem = dense.phase_launch(order, descend, threads)
+            _, T, smem = dense.phase_launch((order,), threads)
             assert T.shared == 0 and smem == 0
         for lv in flagship().values():
-            for order, descend in ((lv.pre_order, True), (lv.post_order, False)):
-                words, _ = mv.phase_tables(lv, order, descend)
+            for order in (lv.pre_order, lv.post_order):
+                words, _ = mv.phase_tables(lv, (order,))
                 assert mv.phase_tables_fit(4 * words.size, threads, H100_BLOCK_LIMIT)
-                _, T, smem = lv.phase_launch(order, descend, threads)
+                _, T, smem = lv.phase_launch((order,), threads)
                 assert T.shared == 1 and smem == 4 * words.size
     # two blocks of 512 per SM leave each about half an SM's shared memory,
     # less the kernels' static share
