@@ -103,7 +103,15 @@ the card and checks, one phase after the other:
                    default (distilled) sampler at 256 chains: ms per step and
                    kernel ms of parity 0, parity 1 and ``apply_pair``, each
                    parity's routes, both distilled maps' set-up and bytes;
-7. ``drivers``     ``drivers.mgmc`` (SSOR and MGMC time series, convergence
+7. ``drivers``     the port's other entry points: ``drivers.spectrum`` on the
+                   flagship's 32^2 config (eigenvalues against the float64
+                   host inverse), ``drivers.generate_measurements``, a
+                   checkpoint of the default flagship sampler at 256 chains
+                   resumed (5 steps, save, load, 5 steps: bitwise the 10
+                   uninterrupted steps), ``lowrank_approx.pivoted_cholesky``
+                   of the 64x64 posterior covariance (the trace error it
+                   reports against the one it reaches); then
+                   ``drivers.mgmc`` (SSOR and MGMC time series, convergence
                    tables over 256 replica chains, posterior statistics), the
                    same with the band sampler (the factorisation unset) and
                    MGMC on the alternating schedule, and ``drivers.mg``
@@ -145,9 +153,19 @@ the card and checks, one phase after the other:
                    sampler through ``MultigridMCSampler.apply`` (30 steps, the
                    default distillation at 63^2, levels 0 and 1 on the reach-2
                    kernels); the FEM prior under the flagship's measurements
-                   (10 steps); the 64x64 statistical gate of
+                   (10 steps); the subtree kernel's reach-2 build (its
+                   sub-levels 127^2, 63^2 and 31^2 25-point, 9 colours; coarse
+                   15^2): the sampler with ``subtree=True`` (30 steps, level 0
+                   on the reach-2 phase kernels, one subtree launch a step),
+                   the kernel against its plain version on the same hierarchy
+                   as the flagship's subtree cases (``1e-4``), the barriers
+                   each block passed against the source's count, its time by
+                   operation from the stamps and at 256, 512 and 1024 threads
+                   and four placements; the 64x64 statistical gate of
                    ``native/validate_biharmonic_tpu.py`` (zero-mean protocol,
-                   4 standard errors against the dense float64 inverse); and
+                   4 standard errors against the dense float64 inverse, a
+                   point observation and ``B_0^T x``), once on the reach-2
+                   phase kernels and once with the subtree kernel; and
                    ``drivers.mgmc`` on a biharmonic and a FEM configuration at
                    256^2 (the biharmonic one's exact moments by the band
                    Cholesky, its residual held to ``BAND_SOLVE_RESIDUAL``),
@@ -451,6 +469,9 @@ def phase_build():
         sor_sweep.load_passes_library()
         sor_sweep.load_passes_library(stamps=True)
     mgmc_subtree.load_library()
+    if hasattr(mgmc_subtree, "REACH_BUILDS"):  # (a parent tree of --phases compare lacks it)
+        for part in mgmc_subtree.REACH_BUILDS[2][1]:
+            mgmc_subtree.load_library(2, part)
     common.load_probe_library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {(f"multigridmc_tpu_torch/csrc/{item}.cu" if isinstance(item, str) else
@@ -1914,29 +1935,39 @@ def rediscretised_sampler(nx, nlevel, n_meas, device):
                               hierarchy=MultigridHierarchy(ops[0], nlevel, operators=ops))
 
 
-def check_subtree(device, nx, nlevel, C, n_meas, gen):
-    """The subtree kernel against ``subtree_sample_plain``: the flagship's
-    levels 1 .. coarsest at ``C`` chains and a 3-level 64x64 case; noise off,
-    all normals from one tensor, and the in-kernel generator (its recorded
-    normals fed to the plain version, known answers of one field, one low-rank
-    and one coarse draw, equal seeds bitwise equal, and a placement with every
-    field in the global workspace bitwise equal to the one in shared memory)."""
+def flagship_subtree_cases(device, nx, nlevel, n_meas):
+    """The subtree kernel's cases on the flagship's hierarchy: ``(name, builder
+    of the sampler, stencil points of every sub-level)``.  O(1) measurement
+    variances, as for the visits' elementwise checks: the flagship's levels 1
+    .. coarsest (3x3 Galerkin boxes), a 3-level 64x64 case, and a 4-level one
+    whose sub-levels are 5-point stencils (not the 3x3 box)."""
+    from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
+
+    def galerkin(cx, cl, cm):
+        op, _ = build_posterior(cx, cm, FLAGSHIP_SEED, "order_one", device)
+        return MultigridMCSampler(op, cl, cycle=2, subtree=True)
+
+    return (("flagship_levels_1_to_4", lambda: galerkin(nx, nlevel, n_meas), 9),
+            ("64x64_3_levels", lambda: galerkin(64, 3, 4), 9),
+            ("64x64_4_levels_5_point", lambda: rediscretised_sampler(64, 4, 4, device), 5))
+
+
+def check_subtree(device, C, gen, cases):
+    """The subtree kernel against ``subtree_sample_plain`` on each of
+    ``cases`` (``(name, sampler builder, stencil points of every sub-level)``:
+    :func:`flagship_subtree_cases`, the biharmonic phase's own) at ``C`` chains: the sub-levels' stencils as the case expects them (and the build
+    of their reach); noise off, all normals from one tensor, and the in-kernel
+    generator (its recorded normals fed to the plain version, known answers of
+    one field, one low-rank and one coarse draw, equal seeds bitwise equal,
+    another counter another result, and a placement with every field in the
+    global workspace bitwise equal to the one in shared memory)."""
     from multigridmc_tpu_torch.ops.kernels import common
     from multigridmc_tpu_torch.ops.kernels import mgmc_subtree as st
-    from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
 
     rows, max_err = [], 0.0
     seed = 0x5EED_0F_7E57
-    # O(1) measurement variances, as for the visits' elementwise checks; the
-    # last case's sub-levels are 5-point stencils (not the 3x3 box)
-    cases = (("flagship_levels_1_to_4", (nx, nlevel, n_meas)), ("64x64_3_levels", (64, 3, 4)),
-             ("64x64_4_levels_5_point", (64, 4, 4)))
-    for name, (cx, cl, cm) in cases:
-        if name.endswith("5_point"):
-            sampler = rediscretised_sampler(cx, cl, cm, device)
-        else:
-            op, _ = build_posterior(cx, cm, FLAGSHIP_SEED, "order_one", device)
-            sampler = MultigridMCSampler(op, cl, cycle=2, subtree=True)
+    for name, build, points in cases:
+        sampler = build()
         kernel = sampler.subtree
         vshape = kernel.vshape
         f = torch.randn((C,) + tuple(vshape), device=device, generator=gen)
@@ -1945,12 +1976,17 @@ def check_subtree(device, nx, nlevel, C, n_meas, gen):
         row = {"case": name, "chains": C, "vshape": list(vshape), "normals_per_chain": K,
                "draws": kernel.count_draws(), "schedule_ops": len(kernel.schedule),
                "stencil_points": [len(lv.op.offsets) for lv in kernel.levels],
-               "placement": kernel.placement}
-        if name.endswith("5_point") and any(len(lv.op.offsets) != 5 for lv in kernel.levels):
-            raise AssertionError(f"subtree {name}: a sub-level is not a 5-point stencil")
-        row["err_noise_off"] = compare(
-            f"subtree {name} noise off", st.subtree_sample(kernel, f),
-            st.subtree_sample_plain(kernel, f), SUBTREE_TOL)
+               "colours": [lv.coloring.n_colors for lv in kernel.levels],
+               "reach": kernel.reach, "placement": kernel.placement,
+               "barriers_per_launch_from_source": st.barrier_count(kernel)}
+        if row["stencil_points"] != [points] * len(kernel.levels) or kernel.reach != (
+                2 if points == 25 else 1):
+            raise AssertionError(f"subtree {name}: sub-levels of {row['stencil_points']} points "
+                                 f"(reach {kernel.reach}), expected {points} points each")
+        want = st.subtree_sample_plain(kernel, f)
+        row["err_noise_off"] = compare(f"subtree {name} noise off", st.subtree_sample(kernel, f),
+                                       want, SUBTREE_TOL)
+        row["scale_noise_off"] = float(want.abs().max())
         row["err_shared_noise"] = compare(
             f"subtree {name} shared noise", st.subtree_sample(kernel, f, xi=xi),
             st.subtree_sample_plain(kernel, f, xi), SUBTREE_TOL)
@@ -1990,15 +2026,23 @@ def check_subtree(device, nx, nlevel, C, n_meas, gen):
                 and abs(mom["m4"] - 3) < 5 * np.sqrt(96 / N)):
             raise AssertionError(f"subtree {name}: moments of the in-kernel normals {mom}")
         # every field in the global workspace: the same arithmetic, bitwise
-        flat = st.SubtreeKernel(
-            sampler.hierarchy.operators[1:],
-            [p.smoother for p in sampler.presamplers[1:cl - 1]],
-            [p.smoother for p in sampler.postsamplers[1:cl - 1]],
-            sampler.coarse_sampler.L, 1.0, 2, 1.0, smem_budget=0)
+        flat = subtree_variant(sampler, 0)
         if flat.placement["shared_bytes"] != 0:
             raise AssertionError("subtree: smem_budget=0 still placed fields in shared memory")
         if not torch.equal(st.subtree_sample(flat, f, xi=xi), st.subtree_sample(kernel, f, xi=xi)):
             raise AssertionError(f"subtree {name}: the placement changed the result")
+        # the barriers each block passed, from the stamps build, against the
+        # count from the source (both noise modes)
+        width = len(kernel.schedule) + 1 + st.STAMP_EXTRA
+        for noisy in (True, False):
+            stamps = torch.zeros((C, width), dtype=torch.int64, device=device)
+            st.subtree_sample(kernel, f, philox=(seed, 100) if noisy else None, stamps=stamps)
+            passed = sorted(int(v) for v in stamps[:, -2].unique())
+            want_barriers = st.barrier_count(kernel, noise=noisy)
+            row[f"barriers_passed_{'noise' if noisy else 'no_noise'}"] = passed
+            if passed != [want_barriers]:
+                raise AssertionError(f"subtree {name}: the blocks passed {passed} barriers, the "
+                                     f"source places {want_barriers}")
         torch.cuda.synchronize()
         max_err = max(max_err, row["err_noise_off"], row["err_shared_noise"],
                       row["err_philox_vs_plain_on_recorded_normals"])
@@ -2006,20 +2050,55 @@ def check_subtree(device, nx, nlevel, C, n_meas, gen):
     return max_err, rows
 
 
-def time_subtree(device, nx, nlevel, C, n_meas, noise):
-    """ms per launch of the subtree kernel at the flagship's shape (in-kernel
-    noise, the production operator), its device time, its plain version (the
-    normals drawn inside the timed region) and its bound."""
+def subtree_variant(sampler, budget, threads=None):
+    """The sampler's subtree kernel built anew with the shared-memory budget
+    ``budget`` (bytes; None: the default) and ``threads`` a block (None: the
+    default)."""
     from multigridmc_tpu_torch.ops.kernels import mgmc_subtree as st
-    from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
 
-    op, _ = build_posterior(nx, n_meas, FLAGSHIP_SEED, "near_exact", device)
-    sampler = MultigridMCSampler(op, nlevel, cycle=2, subtree=True)
+    nl = sampler.nlevel
+    k = st.SubtreeKernel(sampler.hierarchy.operators[1:],
+                         [p.smoother for p in sampler.presamplers[1:nl - 1]],
+                         [p.smoother for p in sampler.postsamplers[1:nl - 1]],
+                         sampler.coarse_sampler.L, sampler.presamplers[0].omega, sampler.cycle,
+                         sampler.coarse_scaling, smem_budget=budget)
+    if threads is not None:
+        k.threads = threads
+    return k
+
+
+def two_block_budget(kernel, lib, threads):
+    """The largest field budget of :func:`~mgmc_subtree.place_fields` (the
+    fields of the coarsest levels up) under which one SM holds two blocks of
+    ``threads`` at once (the occupancy calculator's answer)."""
+    best = 0
+    sizes = [kernel.nc] + kernel.level_sizes[::-1]
+    for k in range(1, len(sizes) + 1):
+        budget = 4 * 3 * sum(sizes[:k])
+        smem = 4 * kernel._tables.size + budget
+        if lib.mgmc_subtree_blocks_per_sm(threads, smem) >= 2:
+            best = budget
+    return best
+
+
+#: the flagship subtree's other block sizes and placements: (threads, field
+#: budget in bytes; None the default)
+FLAGSHIP_SUBTREE_VARIANTS = ((256, None), (512, None), (1024, None), (512, 0), (1024, 0))
+
+
+def time_subtree(sampler, C, noise, variants=FLAGSHIP_SUBTREE_VARIANTS, plain_repeats=(3, 2)):
+    """ms per launch of ``sampler``'s subtree kernel at ``C`` chains (in-kernel
+    noise), its device time, its plain version (the normals drawn inside the
+    timed region), its bound, where the launch's time goes by operation (the
+    stamps build), and the device ms of ``variants`` (threads a block and
+    field budget; a budget ``"two_blocks"``: :func:`two_block_budget`); the
+    plain version's time over ``plain_repeats`` (repeats, calls each)."""
+    import ctypes
+
+    from multigridmc_tpu_torch.ops.kernels import mgmc_subtree as st
+
     kernel = sampler.subtree
-    sub_ops = sampler.hierarchy.operators[1:]
-    pre = [p.smoother for p in sampler.presamplers[1:nlevel - 1]]
-    post = [p.smoother for p in sampler.postsamplers[1:nlevel - 1]]
-    L = sampler.coarse_sampler.L
+    device = kernel.Linv.device
     f = torch.rand((C,) + tuple(kernel.vshape), device=device)
     K = kernel.count_noise()
     bound, by, nbytes = subtree_bound(kernel, C)
@@ -2033,7 +2112,7 @@ def time_subtree(device, nx, nlevel, C, n_meas, noise):
     out["events_over_device"] = check_events_against_device("subtree_sample", out["ms"],
                                                             out["device_ms"], host["ms"])
     out["plain_ms"] = cuda_ms(lambda: st.subtree_sample_plain(
-        kernel, f, torch.randn((C, K), device=device)), 3, 2)
+        kernel, f, torch.randn((C, K), device=device)), *plain_repeats)
     # where the launch's time goes: thread 0 of each block stamps the card's
     # global timer at entry, after the table copy, after each operation of the
     # schedule and at exit, and counts the barriers it passes (the last of
@@ -2049,9 +2128,13 @@ def time_subtree(device, nx, nlevel, C, n_meas, noise):
         st.subtree_sample(kernel, f, philox=noise.philox_streams(kernel.count_draws()),
                           stamps=stamps)
     po = out["per_operation"] = st.operation_times(kernel, stamps)
+    # where the chains take more than one wave of blocks (the reach-2 build
+    # at 256 chains: one block an SM), a block's breakdown is a wave's share
+    waves = po["waves"] = -(-C // (po["blocks_per_sm"] * po["sms"]))
     ratio = po["sum_over_device_ms"] = po["sum_us"] / 1e3 / out["device_ms"]
-    if not 0.8 <= ratio <= 1.05:
-        raise AssertionError(f"subtree stamps: the operations sum to {ratio} of the device time")
+    if not 0.8 <= ratio * waves <= 1.05:
+        raise AssertionError(f"subtree stamps: the operations sum to {ratio} of the device time "
+                             f"({waves} waves of blocks)")
     ratio = po["span_over_device_ms"] = po["launch_span_us"] / 1e3 / out["device_ms"]
     if not 0.9 <= ratio <= 1.1:
         raise AssertionError(f"subtree stamps: the launch spans {ratio} of the device time")
@@ -2062,23 +2145,34 @@ def time_subtree(device, nx, nlevel, C, n_meas, noise):
     if po["barriers_per_block"] != [out["barriers_per_launch_from_source"]]:
         raise AssertionError(f"subtree: the blocks passed {po['barriers_per_block']} barriers, "
                              f"the source places {out['barriers_per_launch_from_source']}")
-    lib = st.load_library()
+    lib = st.load_library(kernel.reach)
     out["blocks_per_sm_occupancy_api"] = lib.mgmc_subtree_blocks_per_sm(kernel.threads,
                                                                         kernel.smem_bytes)
     if not 1 <= po["blocks_per_sm"] <= out["blocks_per_sm_occupancy_api"]:
         raise AssertionError(f"subtree: {po['blocks_per_sm']} blocks ran on one SM at once, "
                              f"the occupancy calculator allows "
                              f"{out['blocks_per_sm_occupancy_api']}")
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    out["kernel_attributes"] = {}
+    for which, (label, stamped, threads) in enumerate((("production", False, kernel.threads),
+                                                       ("stamps", True, kernel.threads),
+                                                       ("1024_threads", False, 1024))):
+        held = st.launch_library(kernel.reach, stamped, threads)
+        if held.mgmc_subtree_attributes(which, ctypes.byref(regs), ctypes.byref(local)) == 0:
+            out["kernel_attributes"][label] = {"registers": regs.value,
+                                               "local_bytes": local.value}
     # other block sizes and placements, the default among them
     default_budget = kernel.smem_budget
     out["variants"] = []
-    for threads, budget in ((256, None), (512, None), (1024, None), (512, 0), (1024, 0)):
-        k = st.SubtreeKernel(sub_ops, pre, post, L, 1.0, 2, 1.0, smem_budget=budget)
-        k.threads = threads
+    for threads, budget in variants:
+        if budget == "two_blocks":
+            budget = two_block_budget(kernel, lib, threads)
+        k = subtree_variant(sampler, budget, threads)
         out["variants"].append({
             "threads": threads, "shared_bytes": k.placement["shared_bytes"],
             "dynamic_shared_bytes": k.smem_bytes,
-            "blocks_per_sm_occupancy_api": lib.mgmc_subtree_blocks_per_sm(threads, k.smem_bytes),
+            "blocks_per_sm_occupancy_api": st.launch_library(
+                k.reach, False, threads).mgmc_subtree_blocks_per_sm(threads, k.smem_bytes),
             "default": threads == kernel.threads and k.smem_budget == default_budget,
             "device_ms": device_ms_median(lambda: k.sample(noise, f), "mgmc_subtree_kernel",
                                               launches=10)})
@@ -2268,8 +2362,13 @@ def drive_v1_path(device, nx, C):
 
 def phase_new_kernels(device, nx, nlevel, C, n_meas, gen, noise):
     """The kernels of the third slice: checks, times, and the v1 path."""
-    subtree_err, subtree_checks = check_subtree(device, nx, nlevel, C, n_meas, gen)
-    subtree_timing = time_subtree(device, nx, nlevel, C, n_meas, noise)
+    from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
+
+    subtree_err, subtree_checks = check_subtree(
+        device, C, gen, flagship_subtree_cases(device, nx, nlevel, n_meas))
+    op, _ = build_posterior(nx, n_meas, FLAGSHIP_SEED, "near_exact", device)
+    subtree_timing = time_subtree(MultigridMCSampler(op, nlevel, cycle=2, subtree=True), C, noise)
+    del op
     probe = check_probe(device)
     v1_errs, v1_timings = check_v1_sweeps(device, nx, C, gen, noise)
     v1_counts, v1_path = drive_v1_path(device, nx, C)
@@ -3310,9 +3409,139 @@ def phase_drivers(device, nx, nlevel, n_meas, nchains, nsamples, nwarmup, smi):
             os.chdir(cwd)
     out["one_chain_ssor_step"] = time_one_chain_ssor(device, nx, n_meas)
     out["one_chain_mgmc_step"] = time_one_chain_mgmc(device, nx, nlevel, n_meas)
+    out["other_entry_points"] = other_entry_points(device, nlevel, n_meas, nchains)
     emit(out)
     counts = {name: counts_mgmc[name] + counts_mg[name] for name in counts_mgmc}
     return counts, out
+
+
+#: the spectrum driver's lattice: the flagship's configuration at 32^2 (961
+#: unknowns, a dense covariance)
+SPECTRUM_NX = 32
+#: the checkpoint check: steps before the save and after the load
+CHECKPOINT_STEPS = 5
+#: the pivoted Cholesky check: the 64x64 flagship-like posterior's covariance
+#: (3969 unknowns), at most this many pivots, stopped at this relative trace error
+PIVOTED = {"nx": 64, "max_rank": 256, "tolerance": 1e-3}
+
+
+def other_entry_points(device, nlevel, n_meas, C):
+    """The port's other entry points on the card, each failing the run on
+    error: ``drivers.spectrum`` on the flagship configuration at
+    :data:`SPECTRUM_NX` (its ``spectrum.csv`` against the eigenvalues of the
+    float64 host inverse of the same operator, to the file's 7 digits);
+    ``drivers.generate_measurements`` (read back by the config parser, the
+    points in the unit square and ``dmin`` apart); a checkpoint of the default
+    flagship sampler at ``C`` chains (:data:`CHECKPOINT_STEPS` steps, save,
+    load, as many more: bitwise the uninterrupted chain, its in-kernel and its
+    tensor draws alike); ``lowrank_approx.pivoted_cholesky`` of a 64x64
+    posterior covariance (:data:`PIVOTED`; the trace error it reports against
+    the one its factor reaches)."""
+    from multigridmc_tpu_torch.drivers import generate_measurements, spectrum
+    from multigridmc_tpu_torch.drivers.common import (build_correlation_model, build_lattice,
+                                                      measurement_params)
+    from multigridmc_tpu_torch.models.posterior import measured_operator
+    from multigridmc_tpu_torch.models.prior import shiftedlaplace_fem
+    from multigridmc_tpu_torch.ops import lowrank_approx
+    from multigridmc_tpu_torch.samplers.base import GeneratorNoise
+    from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
+    from multigridmc_tpu_torch.utils.checkpoint import ChainState
+    from multigridmc_tpu_torch.utils.config import load_config, read_config
+
+    out = {}
+    t_start = time.perf_counter()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        os.chdir(work)
+        try:
+            # ---- drivers.spectrum
+            write_driver_configs(work, SPECTRUM_NX, nlevel, n_meas, C, 10, 1)
+            t0 = time.perf_counter()
+            run_driver(spectrum.main, ["params_mgmc.cfg"])
+            seconds = time.perf_counter() - t0
+            got = np.loadtxt("spectrum.csv", delimiter=",")
+            config = load_config("params_mgmc.cfg")
+            prior = shiftedlaplace_fem(build_lattice(config), build_correlation_model(config),
+                                       device="cpu", dtype=torch.float64)
+            Q = measured_operator(prior, measurement_params(config)).to_dense()
+            want = np.sort(np.linalg.eigvalsh(np.linalg.inv(Q)))[::-1]
+            n = (SPECTRUM_NX - 1) ** 2
+            rel = float(np.max(np.abs(got[:, 1] - want) / np.abs(want)))
+            out["spectrum"] = {"lattice": [SPECTRUM_NX, SPECTRUM_NX], "eigenvalues": len(got),
+                               "seconds": seconds, "largest": float(got[0, 1]),
+                               "smallest": float(got[-1, 1]), "max_rel_err": rel}
+            if (got.shape != (n, 2) or not np.array_equal(got[:, 0], np.arange(n))
+                    or rel > 1e-6):
+                raise AssertionError(f"drivers.spectrum: spectrum.csv {got.shape}, against the "
+                                     f"host inverse {rel}")
+            # ---- drivers.generate_measurements
+            run_driver(generate_measurements.main, ["--nmeas", "8", "--output", "gen.cfg"])
+            gen = read_config("gen.cfg")
+            points = np.asarray(gen["measurement_locations"], dtype=np.float64).reshape(-1, 2)
+            allp = np.vstack([points, np.asarray(gen["sample_location"]).reshape(1, 2)])
+            gaps = [np.linalg.norm(a - b) for a, b in itertools.combinations(allp, 2)]
+            out["generate_measurements"] = {"n": gen["n"], "min_distance": float(min(gaps))}
+            if (gen["n"] != 8 or points.shape != (8, 2) or len(gen["variance"]) != 8
+                    or not ((allp > 0) & (allp < 1)).all() or min(gaps) < 0.2):
+                raise AssertionError(f"drivers.generate_measurements: {gen}")
+        finally:
+            os.chdir(cwd)
+
+        # ---- a checkpoint of the default flagship sampler
+        op, _ = build_posterior(256, n_meas, FLAGSHIP_SEED, "near_exact", device)
+        sampler = MultigridMCSampler(op, nlevel, smoother="SOR", coarse_solver="Cholesky",
+                                     omega=1.0, cycle=2)
+        f = torch.as_tensor(np.random.default_rng(0).uniform(size=op.vshape),
+                            dtype=torch.float32, device=device)
+        x0 = torch.zeros((C,) + op.vshape, dtype=torch.float32, device=device)
+        noise = GeneratorNoise(FLAGSHIP_SEED, device)
+        whole = x0.clone()
+        for _ in range(2 * CHECKPOINT_STEPS):
+            whole = sampler.apply(noise, f, whole)
+        noise = GeneratorNoise(FLAGSHIP_SEED, device)
+        x = x0.clone()
+        for _ in range(CHECKPOINT_STEPS):
+            x = sampler.apply(noise, f, x)
+        path = os.path.join(work, "chains.npz")
+        t0 = time.perf_counter()
+        ChainState(x, noise, CHECKPOINT_STEPS).save(path)
+        state = ChainState.load(path, device)
+        seconds = time.perf_counter() - t0
+        x = state.x
+        for _ in range(CHECKPOINT_STEPS):
+            x = sampler.apply(state.noise, f, x)
+        out["checkpoint"] = {"chains": C, "steps": [CHECKPOINT_STEPS, CHECKPOINT_STEPS],
+                             "distill_level": sampler.distill_level,
+                             "bytes": os.path.getsize(path), "save_load_seconds": seconds,
+                             "philox_launches": state.noise.launches,
+                             "max_abs_diff": float((x - whole).abs().max())}
+        if state.step != CHECKPOINT_STEPS or not torch.equal(x, whole):
+            raise AssertionError(f"checkpoint: the resumed chain differs from the "
+                                 f"uninterrupted one: {out['checkpoint']}")
+        del sampler, op
+
+    # ---- the pivoted Cholesky of a posterior covariance
+    g = PIVOTED
+    op, _ = build_posterior(g["nx"], n_meas, FLAGSHIP_SEED, "near_exact", "cpu",
+                            dtype=torch.float64)
+    cov = torch.linalg.inv(torch.as_tensor(op.to_dense(), dtype=torch.float64, device=device))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    L, rel = lowrank_approx.pivoted_cholesky(cov, g["tolerance"], g["max_rank"])
+    seconds = time.perf_counter() - t0
+    trace = float(torch.diagonal(cov).sum())
+    reached = float((torch.diagonal(cov) - (L * L).sum(1)).sum()) / trace
+    out["pivoted_cholesky"] = {"n": cov.shape[0], "rank": L.shape[1], "seconds": seconds,
+                               "reported_rel_trace_error": float(rel[-1]),
+                               "reached_rel_trace_error": reached,
+                               "frobenius_rel_err": float(torch.linalg.norm(cov - L @ L.T)
+                                                          / torch.linalg.norm(cov))}
+    stopped = rel[-1] < g["tolerance"] or L.shape[1] == g["max_rank"]
+    if (not L.is_cuda or L.shape[1] > g["max_rank"] or not np.isfinite(rel).all()
+            or abs(reached - rel[-1]) > 1e-9 or not stopped):
+        raise AssertionError(f"pivoted_cholesky: {out['pivoted_cholesky']}")
+    out["seconds"] = time.perf_counter() - t_start
+    return out
 
 
 # ----------------------------------------------------------------- phase: band
@@ -3951,6 +4180,11 @@ BIHARMONIC_GATE_SEED = 20260821
 BIHARMONIC_GATE = {"nx": 64, "nlevel": 3, "warmup": 80, "steps": 300}
 #: steps of the full-width biharmonic sampler and of the FEM flagship variant
 BIHARMONIC_STEPS = 30
+#: the reach-2 subtree kernel's block sizes and placements (threads, field
+#: budget in bytes: None the default, 0 every field in the workspace,
+#: "two_blocks" the most that two blocks of an SM hold, :func:`two_block_budget`)
+BIHARMONIC_SUBTREE_VARIANTS = ((256, None), (512, None), (1024, None), (256, "two_blocks"),
+                               (512, 0), (1024, 0))
 FEM_STEPS = 10
 #: chain counts at which a reach-2 or 3d level's route must be the phase kernels
 PHASE_ONLY_CHAINS = (1, 16, 256)
@@ -4278,8 +4512,9 @@ def drive_sampler(op, f, C, steps, kwargs, levels_are=None, sampler=None, busy_s
     ``busy_steps`` steps more: the median of three that recorded every visit
     launch).
     The counts must show every visit of a visited level under its kernel's name
-    and no other visit kernel a launch; ``levels_are``, where given, must hold
-    for every visited level (the reach-2 or the 3d kernels took them)."""
+    and no other visit kernel a launch, and with ``subtree=True`` one subtree
+    launch a step; ``levels_are``, where given, must hold for every visited
+    level (the reach-2 or the 3d kernels took them)."""
     from multigridmc_tpu_torch.ops.kernels import common
     from multigridmc_tpu_torch.ops.kernels import mgmc_subtree as st
     from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
@@ -4304,15 +4539,20 @@ def drive_sampler(op, f, C, steps, kwargs, levels_are=None, sampler=None, busy_s
         x = sampler.apply(noise, f, x)
     torch.cuda.synchronize()
     mv.reset_launch_counts()
+    st.reset_launch_counts()
     t0 = time.perf_counter()
     for _ in range(steps):
         x = sampler.apply(noise, f, x)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(mv.launch_counts)
+    subtree_launches = {k: v for k, v in st.launch_counts.items() if v}
     if tuple(x.shape) != (C,) + op.vshape or not bool(torch.isfinite(x).all()):
         raise AssertionError(f"{kwargs}: samples not finite or of wrong shape")
-    below = sampler.distill_level if sampler.distilled is not None else sampler.nlevel
+    if sum(subtree_launches.values()) != (steps if sampler.subtree is not None else 0):
+        raise AssertionError(f"{kwargs}: subtree launches {subtree_launches} in {steps} steps")
+    below = (sampler.distill_level if sampler.distilled is not None else
+             1 if sampler.subtree is not None else sampler.nlevel)
     visited = [li for li in sorted(sampler.fused_levels) if li < below]
     routes = {li: sampler.fused_levels[li].route(C) for li in visited}
     names = {li: {kind: mv.kernel_name(sampler.fused_levels[li], routes[li], kind)
@@ -4330,7 +4570,8 @@ def drive_sampler(op, f, C, steps, kwargs, levels_are=None, sampler=None, busy_s
     windows, complete = [], []
     while len(windows) < BUSY_WINDOWS and len(complete) < 3:
         busy = device_busy(lambda: sampler.apply(noise, f, x), busy_steps,
-                           pattern=r"trsm|triang|visit_kernel|descend_kernel|ascend_kernel")
+                           pattern=r"trsm|triang|visit_kernel|descend_kernel|ascend_kernel"
+                                   r"|mgmc_subtree_kernel")
         if busy is None:
             break
         busy["visit_calls_per_step"] = sum(r["calls_per_step"] for r in busy["matching"]
@@ -4359,52 +4600,69 @@ def drive_sampler(op, f, C, steps, kwargs, levels_are=None, sampler=None, busy_s
         "kernel_ms_per_step": None if busy is None else busy["kernel_ms_per_step"],
         "launches_per_step": None if busy is None else busy["kernels_per_step"],
         "device_busy": busy, "launches": {k: v for k, v in counts.items() if v},
-        "sample_std": float(x.std())}
+        "subtree_launches": subtree_launches, "sample_std": float(x.std())}
 
 
 def biharmonic_gate(device):
-    """The statistical gate of ``native/validate_biharmonic_tpu.py`` on the
-    reach-2 phase kernels: the 64x64 biharmonic posterior (3 levels, variances
-    1e-2 (1 + u)), every non-coarsest level fused, 256 chains, the zero-mean
-    protocol (f = 0 from x = 0: the fluctuation about the posterior mean), the
-    mean and the variance of ``z = <w, x>`` within 4 standard errors of 0 and
-    of ``w^T Q^-1 w`` from the dense float64 inverse."""
+    """The statistical gate of ``native/validate_biharmonic_tpu.py``: the 64x64
+    biharmonic posterior (3 levels, variances 1e-2 (1 + u)), 256 chains, the
+    zero-mean protocol (f = 0 from x = 0: the fluctuation about the posterior
+    mean), twice: every non-coarsest level fused on the reach-2 phase kernels
+    (``"phase_kernels"``), and level 0 fused with everything below it in one
+    launch of the subtree kernel's reach-2 build (``"subtree_kernel"``).  The
+    mean and the variance of ``z = <w, x>`` (a point observation) and of the
+    first measurement's own functional ``B_0^T x`` within 4 standard errors of
+    0 and of ``w^T Q^-1 w`` from the dense float64 solve."""
     from multigridmc_tpu_torch.models.posterior import measurement_vector
+    from multigridmc_tpu_torch.ops.kernels import mgmc_subtree as st
     from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
     from multigridmc_tpu_torch.samplers.base import GeneratorNoise
     from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
 
     g = BIHARMONIC_GATE
     op, _ = build_posterior(g["nx"], 8, BIHARMONIC_GATE_SEED, 1e-2, device, **BIHARMONIC)
-    sampler = MultigridMCSampler(op, g["nlevel"], smoother="SOR", cycle=2, fused=True,
-                                 fused_min_vertices=0, distill=False)
-    if sorted(sampler.fused_levels) != list(range(g["nlevel"] - 1)):
-        raise AssertionError(f"biharmonic gate: fused levels {sorted(sampler.fused_levels)}")
-    w = measurement_vector(op.lattice, np.array([0.45, 0.55]), 0.1)
-    z_var = float(w.reshape(-1) @ np.linalg.solve(op.to_dense(), w.reshape(-1)))
-    wt = torch.as_tensor(w, dtype=torch.float32, device=device).reshape(-1)
+    observations = {"point": measurement_vector(op.lattice, np.array([0.45, 0.55]), 0.1),
+                    "measurement_0": op.lowrank.B[0].double().cpu().numpy()}
+    Wt = np.stack([w.reshape(-1) for w in observations.values()], axis=1)
+    exact = np.einsum("nk,nk->k", Wt, np.linalg.solve(op.to_dense(), Wt))
+    W = torch.as_tensor(Wt.T, dtype=torch.float64, device=device)
     C = 256
-    mv.reset_launch_counts()
-    noise = GeneratorNoise(BIHARMONIC_GATE_SEED, device)
-    fz = torch.zeros(op.vshape, device=device)
-    x = torch.zeros((C,) + op.vshape, device=device)
-    for _ in range(g["warmup"]):
-        x = sampler.apply(noise, fz, x)
-    zs = []
-    for _ in range(g["steps"]):
-        x = sampler.apply(noise, fz, x)
-        zs.append((x.reshape(C, -1) @ wt).double())
-    z = torch.stack(zs).cpu().numpy()
-    res = moments_gate("biharmonic 64x64", z, 0.0, z_var, C)
-    res.update({"lattice": [g["nx"], g["nx"]], "nlevel": g["nlevel"], "chains": C,
-                "warmup": g["warmup"], "steps": g["steps"], "exact_variance": z_var,
-                "launches": {k: v for k, v in mv.launch_counts.items() if v},
-                "colours_by_level": {li: lv.coloring.n_colors
-                                     for li, lv in sampler.fused_levels.items()}})
-    if not all(res["launches"].get(n, 0) > 0 for n in
-               ("descend_visit_reach2_13pt", "descend_visit_reach2_25pt")):
-        raise AssertionError(f"biharmonic gate: launches {res['launches']}")
-    return res
+    out = {}
+    for name, subtree in (("phase_kernels", False), ("subtree_kernel", True)):
+        sampler = MultigridMCSampler(op, g["nlevel"], smoother="SOR", cycle=2, fused=True,
+                                     fused_min_vertices=0, distill=False, subtree=subtree)
+        if sorted(sampler.fused_levels) != list(range(g["nlevel"] - 1)) or (
+                subtree and sampler.subtree.reach != 2):
+            raise AssertionError(f"biharmonic gate: fused levels {sorted(sampler.fused_levels)}")
+        mv.reset_launch_counts()
+        st.reset_launch_counts()
+        noise = GeneratorNoise(BIHARMONIC_GATE_SEED, device)
+        fz = torch.zeros(op.vshape, device=device)
+        x = torch.zeros((C,) + op.vshape, device=device)
+        for _ in range(g["warmup"]):
+            x = sampler.apply(noise, fz, x)
+        zs = []
+        for _ in range(g["steps"]):
+            x = sampler.apply(noise, fz, x)
+            zs.append(x.reshape(C, -1).double() @ W.T)
+        z = torch.stack(zs).cpu().numpy()  # (steps, chains, observations)
+        label = f"biharmonic 64x64 {name}"
+        res = out[name] = moments_gate(label, z[:, :, 0], 0.0, float(exact[0]), C)
+        res.update({"lattice": [g["nx"], g["nx"]], "nlevel": g["nlevel"], "chains": C,
+                    "warmup": g["warmup"], "steps": g["steps"], "exact_variance": float(exact[0]),
+                    "launches": {k: v for k, v in mv.launch_counts.items() if v},
+                    "subtree_launches": {k: v for k, v in st.launch_counts.items() if v},
+                    "colours_by_level": {li: lv.coloring.n_colors
+                                         for li, lv in sampler.fused_levels.items()}})
+        res["measurement_0"] = moments_gate(f"{label} B_0^T x", z[:, :, 1], 0.0,
+                                            float(exact[1]), C)
+        res["measurement_0"]["exact_variance"] = float(exact[1])
+        want = ("descend_visit_reach2_13pt",) + (() if subtree else ("descend_visit_reach2_25pt",))
+        if not all(res["launches"].get(n, 0) > 0 for n in want) or res["subtree_launches"] != (
+                {"subtree_sample_reach2": g["warmup"] + g["steps"]} if subtree else {}):
+            raise AssertionError(f"{label} gate: launches {res['launches']}, subtree launches "
+                                 f"{res['subtree_launches']}")
+    return out
 
 
 def write_prior_configs(directory, nx_bih, nx_fem, nlevel, nchains, nsamples, nwarmup):
@@ -4571,7 +4829,14 @@ def phase_biharmonic(device, nlevel, C, n_meas, smi):
       launches per step, set-up seconds;
     * the FEM prior under the flagship's measurements at ``C`` chains,
       :data:`FEM_STEPS` steps;
-    * the 64x64 statistical gate (:func:`biharmonic_gate`);
+    * the same biharmonic sampler with ``subtree=True`` (:func:`drive_sampler`):
+      level 0 on the reach-2 phase kernels, the rest in one launch of the
+      subtree kernel's reach-2 build a step; the kernel against its plain
+      version (:func:`check_subtree`), its times by operation and by block
+      size and placement (:func:`time_subtree`,
+      :data:`BIHARMONIC_SUBTREE_VARIANTS`);
+    * the 64x64 statistical gate (:func:`biharmonic_gate`), on the phase
+      kernels and with the subtree kernel;
     * the drivers on both priors (:func:`prior_drivers`).
 
     Returns the errors and the times the ``kernels`` line reports, and the
@@ -4630,7 +4895,26 @@ def _biharmonic_parts(out, device, nlevel, C, n_meas):
     fem, _ = build_posterior(256, n_meas, FLAGSHIP_SEED, "near_exact", device,
                              pdemodel="shiftedlaplace_fem")
     _, out["fem_main_path"] = drive_sampler(fem, f, C, FEM_STEPS, kwargs)
+    del fem
+    # the subtree kernel's reach-2 build: everything below level 0 in one
+    # launch, driven as the main path, checked against its plain version on
+    # the same hierarchy, timed
+    seconds = out["subtree_part_seconds"] = {}
+    t1 = time.perf_counter()
+    sampler, out["subtree_main_path"] = drive_sampler(
+        op, f, C, BIHARMONIC_STEPS, dict(kwargs, subtree=True),
+        levels_are=lambda lv: lv.reach == 2)
+    if out["subtree_main_path"]["visited_levels"] != [0]:
+        raise AssertionError(f"biharmonic subtree: {out['subtree_main_path']}")
+    seconds["main_path"] = time.perf_counter() - t1
+    out["subtree_max_abs_err"], out["subtree_checks"] = check_subtree(
+        device, C, gen, (("biharmonic_levels_1_to_4", lambda: sampler, 25),))
+    seconds["checks"] = time.perf_counter() - t1 - sum(seconds.values())
+    out["subtree_timing"] = time_subtree(sampler, C, noise, BIHARMONIC_SUBTREE_VARIANTS, (2, 1))
+    seconds["timing"] = time.perf_counter() - t1 - sum(seconds.values())
+    del sampler
     out["statistics"] = biharmonic_gate(device)
+    seconds["gates"] = time.perf_counter() - t1 - sum(seconds.values())
     out["drivers"] = prior_drivers(device, nlevel, C)
     out["seconds"] = time.perf_counter() - t0
 
@@ -5395,6 +5679,7 @@ def main(argv=None) -> int:
         print("partial run: no result line")
         return 0
 
+    from multigridmc_tpu_torch.ops.kernels import common
     from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
 
     kernels = []
@@ -5591,6 +5876,33 @@ def main(argv=None) -> int:
                           "offsets and 9 colours in a build of its own, the stencil in "
                           "registers with edge terms dropped two rows and columns deep, one "
                           "point per lane, 512 threads a block at most"})
+    # the subtree kernel's reach-2 build (mgmc_subtree.cu -DVISIT_REACH=2) on
+    # the biharmonic posterior's sub-levels (127^2, 63^2, 31^2 25-point, 9
+    # colours; coarse 15^2) at C chains, launched once per step of the
+    # biharmonic sampler with subtree=True
+    t = biharmonic["subtree_timing"]
+    kernels.append({
+        "name": "subtree_sample_reach2", "route": "cuda",
+        "source": "multigridmc_tpu_torch/csrc/mgmc_subtree.cu",
+        "build": " ".join(common.SUBTREE_REACH2_FLAGS),
+        "replaces": "multigridmc_tpu/ops/kernels/mgmc_subtree_pallas.py:326",
+        "launches": biharmonic["subtree_main_path"]["subtree_launches"].get(
+            "subtree_sample_reach2", 0),
+        "path": "biharmonic subtree_main_path",
+        "max_abs_err": biharmonic["subtree_max_abs_err"],
+        "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+        "events_over_device": t["events_over_device"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "bound_bytes": t["bound_bytes"],
+        "library_ms": None, "shape": {"chains": t["chains"], "vshape": t["vshape"],
+                                      "threads": t["threads"]},
+        "design": "the reach-1 kernel's schedule, tables and placement with a parameter block "
+                  "of 25 offsets and 9 colours, the reach-2 passes of level_passes.cuh (the "
+                  "level's form found at run time), 512 threads a block at most",
+        "barriers_per_launch": t["per_operation"]["barriers_per_block"][0],
+        "blocks_per_sm": t["per_operation"]["blocks_per_sm"],
+        "per_operation_us": {key: v["total_us"]
+                             for key, v in t["per_operation"]["operations"].items()},
+    })
     # the 3d forms of the phase kernels (their own build of mgmc_visit.cu) on
     # the 64^3 posterior's levels 0 (63^3, 7-point) and 1 (31^3, 27-point
     # Galerkin) at 32 chains, launched by its main path (distilled at level 2)

@@ -58,11 +58,59 @@
 // normals are read from xi_all, (C, K) with K normals per chain laid out in
 // draw order (per sweep the field then the m scalars, per coarse sample nc),
 // which is the order in which the plain version consumes them.
+//
+// Reach 2: the squared shifted-Laplace prior's sub-levels (the 25-point 5x5
+// box of its Galerkin levels, or a reach-2 stencil of at most 13 offsets, up
+// to 9 colours) take a library of their own, this source built with
+// -DVISIT_REACH=2 as the phase kernels' reach-2 build is: the parameter block
+// of 25 offsets and 9 colours in the tables, and the reach-2 forms of
+// level_passes.cuh (WIDE_FORM0 ..), the level's form found at run time
+// (wide_form), so the reach-1 build keeps its kernel as it is.  A thread
+// holds the box's 25 operands and coefficients: the production kernel is
+// bounded to SUBTREE_THREADS = 512 threads a block (128 registers a thread);
+// an instance bounded to 1024 (64 registers) serves launches of 1024 threads,
+// which only the block-size measurement makes.  Each reach-2 instance is a
+// library of its own (SUBTREE_PART: 0 the production kernel, 1 its stamps
+// build, 2 the 1024-thread instance), so that the three compile in parallel;
+// the reach-1 library holds all of its instances.
+
+#ifndef VISIT_REACH
+#define VISIT_REACH 1
+#endif
+#if VISIT_REACH == 2
+#define MAX_OFFSETS 25
+#define MAX_COLORS 9
+#elif VISIT_REACH != 1
+#error "VISIT_REACH is 1 or 2"
+#endif
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "level_passes.cuh"
+
+// the block size the production kernel is bounded to
+#if VISIT_REACH == 2
+#define SUBTREE_THREADS 512
+#else
+#define SUBTREE_THREADS MAX_THREADS
+#endif
+
+// the instances this library holds (see the head of the file)
+#ifndef SUBTREE_PART
+#define SUBTREE_PART 0
+#endif
+#if VISIT_REACH == 2
+#define HAS_PRODUCTION (SUBTREE_PART == 0)
+#define HAS_STAMPED (SUBTREE_PART == 1)
+#define HAS_WIDE_BLOCK (SUBTREE_PART == 2)
+#elif SUBTREE_PART != 0
+#error "the reach-1 build is one library"
+#else
+#define HAS_PRODUCTION 1
+#define HAS_STAMPED 1
+#define HAS_WIDE_BLOCK 0  // its production kernel takes 1024 threads
+#endif
 
 #define MAX_SUB_LEVELS 8
 
@@ -202,10 +250,35 @@ __device__ void coarse_sample(const SubtreeParams& S, int chain, const float* __
     block_sync<COUNT>();
 }
 
+#if VISIT_REACH == 2
+// the level's reach-2 form (level_passes.cuh): 6 / 7 a stencil of at most 13
+// offsets, 8 / 9 the 5x5 box in raster order; the odd ones read a coefficient
+// plane per point (mgmc_visit.py::stencil_form finds the same on the host)
+__device__ __forceinline__ int wide_form(const VisitParams& P) {
+    bool box = P.K == 25;
+    for (int k = 0; k < 25; ++k) box = box && P.dy[k] == k / 5 - 2 && P.dx[k] == k % 5 - 2;
+    return (box ? WIDE_FORM0 + 2 : WIDE_FORM0) + (any_plane(P) ? 1 : 0);
+}
+
+// CALL(FORM) for the level's form, each form compiled in
+#define LEVEL_FORM(P, CALL)                        \
+    switch (wide_form(P)) {                        \
+        case WIDE_FORM0: CALL(WIDE_FORM0); break;  \
+        case WIDE_FORM0 + 1: CALL(WIDE_FORM0 + 1); break; \
+        case WIDE_FORM0 + 2: CALL(WIDE_FORM0 + 2); break; \
+        default: CALL(WIDE_FORM0 + 3); break;      \
+    }
+#else
+// the reach-1 passes find the level's form themselves (STENCIL_DISPATCH)
+#define LEVEL_FORM(P, CALL) CALL(-1)
+#endif
+
 // STAMPS: the measurement build, which writes the stamps (S.stamps not null)
-// and counts the barriers; production launches take the other one.
-template <bool STAMPS>
-__global__ void __launch_bounds__(MAX_THREADS)
+// and counts the barriers; production launches take the other one.  BOUND:
+// the block size the instance is compiled for (SUBTREE_THREADS; at reach 2
+// also 1024).
+template <bool STAMPS, int BOUND>
+__global__ void __launch_bounds__(BOUND)
 mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const int4* __restrict__ tables,
                     const int* __restrict__ sched, const float* __restrict__ Linv,
                     const float* __restrict__ LinvT, const float* f_all, float* x_all,
@@ -265,15 +338,21 @@ mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const int4* __restr
         const auto one_direction = [&](int) { return T; };
         if (dir == 0) {
             float* fc = locate(S, last ? S.cf : S.lv[li + 1].f, ws, nullptr);
-            level_descend<-1, STAMPS, 1>(P, one_direction, 1, chain, S.noise_mode, S.seed,
-                                      S.counter + draw, op == OP_DESCEND_ZERO, false, x, f, scr,
-                                      fc, L.coeffs, L.ns, xi_in, 0, nullptr, xi_rec, wv, s_btx,
-                                      nullptr);
+#define DESCEND(FORM)                                                                         \
+    level_descend<FORM, STAMPS, 1>(P, one_direction, 1, chain, S.noise_mode, S.seed,          \
+                                   S.counter + draw, op == OP_DESCEND_ZERO, false, x, f, scr, \
+                                   fc, L.coeffs, L.ns, xi_in, 0, nullptr, xi_rec, wv, s_btx,  \
+                                   nullptr)
+            LEVEL_FORM(P, DESCEND);
+#undef DESCEND
         } else {
             const float* xc = locate(S, last ? S.cx : S.lv[li + 1].x, ws, nullptr);
-            level_ascend<-1, STAMPS, 1>(P, one_direction, 1, chain, S.noise_mode, S.seed,
-                                     S.counter + draw, x, f, scr, xc, L.coeffs, L.ns, xi_in, 0,
-                                     nullptr, xi_rec, wv, s_btx, nullptr);
+#define ASCEND(FORM)                                                                          \
+    level_ascend<FORM, STAMPS, 1>(P, one_direction, 1, chain, S.noise_mode, S.seed,           \
+                                  S.counter + draw, x, f, scr, xc, L.coeffs, L.ns, xi_in, 0,  \
+                                  nullptr, xi_rec, wv, s_btx, nullptr)
+            LEVEL_FORM(P, ASCEND);
+#undef ASCEND
         }
         if (S.noise_mode) { cur += n + m; draw += m ? 2 : 1; }
         if (STAMPS) stamp(S, chain, s + 1);
@@ -293,34 +372,91 @@ mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const int4* __restr
 }
 
 // ------------------------------------------------------------ C entry points
+// the production instance, its stamps build, and at reach 2 the instance for
+// 1024 threads, each null where this library does not hold it
+#if HAS_PRODUCTION
+#define PRODUCTION mgmc_subtree_kernel<false, SUBTREE_THREADS>
+#else
+#define PRODUCTION nullptr
+#endif
+#if HAS_STAMPED
+#define STAMPED mgmc_subtree_kernel<true, SUBTREE_THREADS>
+#else
+#define STAMPED nullptr
+#endif
+#if HAS_WIDE_BLOCK
+#define WIDE_BLOCK mgmc_subtree_kernel<false, MAX_THREADS>
+#else
+#define WIDE_BLOCK nullptr
+#endif
+
+typedef void (*SubtreeKernelFn)(const SubtreeParams, const int4*, const int*, const float*,
+                                const float*, const float*, float*, float*, float*);
+
+// the instance a launch of `threads` takes, or null where this library does
+// not hold it (the stamps build only at up to SUBTREE_THREADS)
+static SubtreeKernelFn instance(bool stamps, int threads) {
+    if (threads < 1 || threads > MAX_THREADS) return nullptr;
+    if (threads <= SUBTREE_THREADS) return stamps ? STAMPED : PRODUCTION;
+    return stamps ? nullptr : WIDE_BLOCK;
+}
+
 extern "C" int mgmc_subtree_params_size() { return (int)sizeof(SubtreeParams); }
 
 extern "C" int mgmc_subtree_visit_params_size() { return (int)sizeof(VisitParams); }
 
-// the static shared memory in bytes of the larger of the two builds, or -1
+extern "C" int mgmc_subtree_reach() { return VISIT_REACH; }
+
+extern "C" int mgmc_subtree_part() { return SUBTREE_PART; }
+
+// the block size the production kernel is bounded to
+extern "C" int mgmc_subtree_max_threads() { return SUBTREE_THREADS; }
+
+// the static shared memory in bytes of the largest instance held, or -1
 extern "C" int mgmc_subtree_static_smem() {
-    cudaFuncAttributes a, b;
-    if (cudaFuncGetAttributes(&a, mgmc_subtree_kernel<false>) != cudaSuccess ||
-        cudaFuncGetAttributes(&b, mgmc_subtree_kernel<true>) != cudaSuccess) {
+    int most = 0;
+    const SubtreeKernelFn held[] = {PRODUCTION, STAMPED, WIDE_BLOCK};
+    for (SubtreeKernelFn fn : held) {
+        if (fn == nullptr) continue;
+        cudaFuncAttributes a;
+        if (cudaFuncGetAttributes(&a, fn) != cudaSuccess) {
+            cudaGetLastError();
+            return -1;
+        }
+        most = a.sharedSizeBytes > (size_t)most ? (int)a.sharedSizeBytes : most;
+    }
+    return most;
+}
+
+// registers per thread and local (spilled) bytes per thread of the production
+// instance (which 0), the stamps build (1) or the 1024-thread instance (2);
+// -1 where this library does not hold it or the query fails
+extern "C" int mgmc_subtree_attributes(int which, int* regs, int* local_bytes) {
+    SubtreeKernelFn fn = which == 0 ? PRODUCTION : (which == 1 ? STAMPED : WIDE_BLOCK);
+    cudaFuncAttributes a;
+    if (fn == nullptr || cudaFuncGetAttributes(&a, fn) != cudaSuccess) {
         cudaGetLastError();
         return -1;
     }
-    return (int)(a.sharedSizeBytes > b.sharedSizeBytes ? a.sharedSizeBytes : b.sharedSizeBytes);
+    *regs = a.numRegs;
+    *local_bytes = (int)a.localSizeBytes;
+    return 0;
 }
 
 // blocks of `threads` with `smem_bytes` of dynamic shared memory that one SM
 // holds at once in the production build, or -1
 extern "C" int mgmc_subtree_blocks_per_sm(int threads, int smem_bytes) {
+    SubtreeKernelFn fn = instance(false, threads);
+    if (fn == nullptr) return -1;
     if (smem_bytes > 48 * 1024 &&
-        cudaFuncSetAttribute(mgmc_subtree_kernel<false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes) != cudaSuccess) {
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes) !=
+            cudaSuccess) {
         cudaGetLastError();
         return -1;
     }
     int blocks = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mgmc_subtree_kernel<false>,
-                                                      threads, smem_bytes) != cudaSuccess) {
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, smem_bytes) !=
+        cudaSuccess) {
         cudaGetLastError();
         return -1;
     }
@@ -331,24 +467,17 @@ extern "C" int mgmc_subtree_sample(const SubtreeParams* S, const void* tables, c
                                    const float* Linv, const float* LinvT, const float* f, float* x,
                                    float* ws, float* xi, int threads, int smem_bytes,
                                    void* stream) {
-    const bool stamps = S->stamps != nullptr;
+    SubtreeKernelFn fn = instance(S->stamps != nullptr, threads);
+    if (fn == nullptr) return (int)cudaErrorInvalidConfiguration;
     if (smem_bytes > 48 * 1024) {  // above what needs no opt-in
         cudaError_t e =
-            stamps ? cudaFuncSetAttribute(mgmc_subtree_kernel<true>,
-                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes)
-                   : cudaFuncSetAttribute(mgmc_subtree_kernel<false>,
-                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+            cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
         if (e != cudaSuccess) {
             cudaGetLastError();
             return (int)e;
         }
     }
-    const int4* tab = static_cast<const int4*>(tables);
-    if (stamps)
-        mgmc_subtree_kernel<true><<<S->C, threads, smem_bytes, (cudaStream_t)stream>>>(
-            *S, tab, sched, Linv, LinvT, f, x, ws, xi);
-    else
-        mgmc_subtree_kernel<false><<<S->C, threads, smem_bytes, (cudaStream_t)stream>>>(
-            *S, tab, sched, Linv, LinvT, f, x, ws, xi);
+    fn<<<S->C, threads, smem_bytes, (cudaStream_t)stream>>>(
+        *S, static_cast<const int4*>(tables), sched, Linv, LinvT, f, x, ws, xi);
     return (int)cudaGetLastError();
 }

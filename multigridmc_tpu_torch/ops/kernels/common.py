@@ -67,16 +67,29 @@ PHASE_REACH2_FLAGS = ("-DVISIT_REACH=2",)
 #: ``csrc/mgmc_visit.cu``: a parameter block of 27 offsets with the z extents,
 #: and the 3d passes and stencil forms (7-point and 27-point levels)
 PHASE_DIM3_FLAGS = ("-DVISIT_DIM=3",)
+#: the flags of the subtree kernel's reach-2 build, a second library of
+#: ``csrc/mgmc_subtree.cu``: the same parameter block and forms as
+#: :data:`PHASE_REACH2_FLAGS`
+SUBTREE_REACH2_FLAGS = ("-DVISIT_REACH=2",)
+#: the reach-2 build's three libraries, one instance of the kernel each so that
+#: they compile in parallel: the production kernel, its stamps build (a
+#: measurement aid) and the kernel bounded to 1024 threads (the block-size
+#: measurement's)
+SUBTREE_REACH2_PARTS = {"production": SUBTREE_REACH2_FLAGS,
+                        "stamps": SUBTREE_REACH2_FLAGS + ("-DSUBTREE_PART=1",),
+                        "block1024": SUBTREE_REACH2_FLAGS + ("-DSUBTREE_PART=2",)}
 
 #: every library the port builds: each source of :data:`SOURCES`, the stamps
-#: builds of ``mgmc_visit``, ``sor_sweep_passes`` and ``sor_sweep``, and the
-#: reach-2 and 3d builds of ``mgmc_visit`` (:data:`VARIANT_BUILDS`);
+#: builds of ``mgmc_visit``, ``sor_sweep_passes`` and ``sor_sweep``, the
+#: reach-2 and 3d builds of ``mgmc_visit`` and the reach-2 build of
+#: ``mgmc_subtree`` in its three libraries (:data:`VARIANT_BUILDS`);
 #: :func:`build_libraries` compiles them in parallel (``chip_smoke.py`` checks
 #: the stamps by default, and beside the production libraries their builds
 #: add no wall time)
 STAMPS_BUILDS = (("mgmc_visit", PHASE_STAMPS_FLAGS), ("sor_sweep_passes", SWEEP_STAMPS_FLAGS),
                  ("sor_sweep", SWEEP_STAMPS_FLAGS))
-VARIANT_BUILDS = (("mgmc_visit", PHASE_REACH2_FLAGS), ("mgmc_visit", PHASE_DIM3_FLAGS))
+VARIANT_BUILDS = (("mgmc_visit", PHASE_REACH2_FLAGS), ("mgmc_visit", PHASE_DIM3_FLAGS)) + tuple(
+    ("mgmc_subtree", flags) for flags in SUBTREE_REACH2_PARTS.values())
 BUILDS = SOURCES + STAMPS_BUILDS + VARIANT_BUILDS
 
 

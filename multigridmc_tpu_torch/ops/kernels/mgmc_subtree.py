@@ -27,9 +27,17 @@ copies the tables of :func:`launch_tables` (the levels' parameter blocks, ``B``
 and both directions' ``Y`` inside their bounding boxes, ``W``,
 ``Sigma^{1/2}``, the sweeps' :func:`colour_rows`) into its shared
 memory; each low-rank term is one pass in which the owner of a point adds the
-columns that hold it, in column order, the stencil (any reach-1 stencil) is
-read with its coefficients in registers, and the warps take the rows of each
-colour in turn.  The host decides where each level's three fields (``x``,
+columns that hold it, in column order, the stencil is read with its
+coefficients in registers, and the warps take the rows of each colour in turn.
+Sub-levels of reach 2 (the squared shifted-Laplace prior's 25-point Galerkin
+levels, 9 colours) take a build of their own, the source compiled with
+``-DVISIT_REACH=2`` (``common.SUBTREE_REACH2_PARTS``: the production kernel,
+its stamps build and a 1024-thread instance, a library each):
+parameter blocks of 25 offsets and 9 colours
+(:class:`~.mgmc_visit.WideVisitParams`) in the tables, the reach-2 passes of
+``level_passes.cuh`` (forms 6-9, the level's form found at run time), at most
+:data:`REACH2_MAX_THREADS` threads a block; the reach-1 library stays as it
+is.  The host decides where each level's three fields (``x``,
 the rhs scratch, ``f``) lie (:func:`place_fields`): in dynamic shared memory
 after the tables, from the coarsest level upwards while the granted size
 (:func:`~.common.dynamic_smem_limit`, less :func:`field_budget`'s shares)
@@ -54,9 +62,14 @@ kernel takes) some 21.5 KB a sub-level, most of it the part that does not
 depend on the level's size (two ``W``, the two parameter blocks), so some
 172 KB at 8 sub-levels (172,048 B for a 1024^2 lattice of 10 levels with 32
 point measurements, the case of ``tests/test_torch_subtree_tables.py``), under
-the H100's 232,448 B with the 4,096 B static share.  A
-card with less raises at construction; on the CPU nothing is launched and the
-placement is not probed.
+the H100's 232,448 B with the 4,096 B static share.  At reach 2 a parameter
+block is 1,552 B (not 1,296 B) and the Woodbury factors' boxes are wider (9
+colours of reach 2): the biharmonic posterior's three sub-levels of the 255^2
+bench (m = 8) take 61,904 B of tables, which leaves the fields of 63^2 and
+below room beside them in one block of an SM; the 4,096 B static share holds
+for both builds (``mgmc_subtree_static_smem``, checked at load).  A card with
+less raises at construction; on the CPU nothing is launched and the placement
+is not probed.
 
 Beside the kernel stands its **plain PyTorch version**
 (:func:`subtree_sample_plain`), the same schedule walked with
@@ -73,8 +86,10 @@ scalars, per coarse sample ``n_c``.  That is the order in which the composed
 recursion draws, so the same draws give the same step.
 
 Supported: 2d, float32 on the card (the plain version runs in any dtype), SOR
-with one pre- and one post-sweep per visit, reach-1 stencils, ``m <= 32``, up
-to 8 sub-levels, a dense Cholesky factor of the coarsest level.
+with one pre- and one post-sweep per visit, sub-levels of one reach, 1 (up to 9
+offsets, 8 colours) or 2 (at most 13 offsets or the 5x5 box in raster order, 9
+colours), ``m <= 32``, up to 8 sub-levels, a dense Cholesky factor of the
+coarsest level.  Reach 3 and above raise before any launch.
 """
 
 from __future__ import annotations
@@ -87,11 +102,12 @@ import numpy as np
 import scipy.linalg
 import torch
 
-from .common import (DEFAULT_SMEM_BYTES, default_threads, dynamic_smem_limit, open_library,
-                     probe_dynamic_smem)
+from .common import (DEFAULT_SMEM_BYTES, SUBTREE_REACH2_PARTS, default_threads,
+                     dynamic_smem_limit, open_library, probe_dynamic_smem)
 from .common import tensor_ptr as _ptr
 from .mgmc_visit import (FusedVisitLevel, TableWords, VisitParams,  # noqa: F401
-                         ascend_visit_plain, colour_rows, descend_visit_plain, stage_level)
+                         WideVisitParams, ascend_visit_plain, colour_rows, descend_visit_plain,
+                         stage_level)
 
 MAX_SUB_LEVELS = 8
 
@@ -118,13 +134,34 @@ STATIC_SMEM_RESERVE = 4096
 #: ``csrc/visit_phases.cuh``), which caps a thread at 64 registers, as two
 #: blocks of 512 do.
 MAX_THREADS = 512
+#: largest block size of the reach-2 build, whose production kernel is
+#: bounded to 512 threads (128 registers a thread: ``SUBTREE_THREADS`` of
+#: ``csrc/mgmc_subtree.cu``; 1024 threads take an instance bounded to 1024, 64
+#: registers, which only the measurement launches).  Measured as MAX_THREADS
+#: was, on an NVIDIA H100 80GB HBM3 (700 W) with ``chip_smoke.py``
+#: (``biharmonic.subtree_timing.variants``) on the biharmonic bench's
+#: sub-levels at 256 chains: 512 threads 4.218 device ms a launch, 1024
+#: threads 4.258 (160 B spilled a thread), 256 threads 6.495, or 4.320 with
+#: the 63^2 fields in the workspace so that two blocks share an SM.
+REACH2_MAX_THREADS = 512
+
+#: per reach: the parameter block in the launch tables, and the build's
+#: libraries by part (the reach-1 build: one library of every instance; the
+#: reach-2 build: ``common.SUBTREE_REACH2_PARTS``)
+REACH_BUILDS = {1: (VisitParams, {"production": ()}),
+                2: (WideVisitParams, SUBTREE_REACH2_PARTS)}
+#: the library part of each reach-2 instance, by its number in the source
+PART_NUMBERS = {"production": 0, "stamps": 1, "block1024": 2}
 
 #: words the kernel's stamps hold per block after the schedule's times: the
 #: timer at kernel entry and at exit, the barriers passed, the SM
 STAMP_EXTRA = 4
 
+#: the name a launch counts under, by the build's reach
+KERNEL_NAMES = {1: "subtree_sample", 2: "subtree_sample_reach2"}
+
 #: kernel launches made by the wrapper (and only where it launches)
-launch_counts: Dict[str, int] = {"subtree_sample": 0}
+launch_counts: Dict[str, int] = {name: 0 for name in KERNEL_NAMES.values()}
 
 
 def reset_launch_counts() -> None:
@@ -167,29 +204,59 @@ class SubtreeParams(ctypes.Structure):
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel's shared library."""
-    lib = open_library(SOURCE_NAME)
+def load_library(reach: int = 1, part: str = "production") -> ctypes.CDLL:
+    """Build (at first use) and load one of the kernel's shared libraries: the
+    reach-1 build, or with ``reach=2`` the reach-2 build's library ``part``
+    (:data:`REACH_BUILDS`; :func:`launch_library` picks the one a launch
+    takes)."""
+    if reach not in REACH_BUILDS:
+        raise ValueError(f"the subtree kernel has a reach-1 and a reach-2 build, not {reach}")
+    params, parts = REACH_BUILDS[reach]
+    if part not in parts:
+        raise ValueError(f"the reach-{reach} build has the libraries {sorted(parts)}, not {part}")
+    lib = open_library(SOURCE_NAME, parts[part])
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.mgmc_subtree_params_size, lib.mgmc_subtree_visit_params_size,
-               lib.mgmc_subtree_static_smem):
+               lib.mgmc_subtree_static_smem, lib.mgmc_subtree_reach,
+               lib.mgmc_subtree_max_threads, lib.mgmc_subtree_part):
         fn.argtypes = []
         fn.restype = i32
+    most = REACH2_MAX_THREADS if reach == 2 else 1024
+    number = PART_NUMBERS[part] if reach == 2 else 0
+    if (lib.mgmc_subtree_reach(), lib.mgmc_subtree_max_threads(),
+            lib.mgmc_subtree_part()) != (reach, most, number):
+        raise RuntimeError(f"the library of reach {reach}, part {part} reports reach "
+                           f"{lib.mgmc_subtree_reach()}, {lib.mgmc_subtree_max_threads()} "
+                           f"threads, part {lib.mgmc_subtree_part()}")
     if lib.mgmc_subtree_params_size() != ctypes.sizeof(SubtreeParams):
         raise RuntimeError("SubtreeParams layout differs between Python and CUDA")
-    if lib.mgmc_subtree_visit_params_size() != ctypes.sizeof(VisitParams):
-        raise RuntimeError("VisitParams layout differs between Python and CUDA")
+    if lib.mgmc_subtree_visit_params_size() != ctypes.sizeof(params):
+        raise RuntimeError(f"{params.__name__} layout differs between Python and CUDA")
     static = lib.mgmc_subtree_static_smem()
     if not 0 <= static <= STATIC_SMEM_RESERVE:
         raise RuntimeError(f"the subtree kernel declares {static} bytes of static shared "
                            f"memory, more than the {STATIC_SMEM_RESERVE} kept for it")
     lib.mgmc_subtree_blocks_per_sm.argtypes = [i32, i32]
     lib.mgmc_subtree_blocks_per_sm.restype = i32
+    lib.mgmc_subtree_attributes.argtypes = [i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
+    lib.mgmc_subtree_attributes.restype = i32
     # S, tables, sched, Linv, LinvT, f, x, ws, xi, threads, smem_bytes, stream
     lib.mgmc_subtree_sample.argtypes = (
         [ctypes.POINTER(SubtreeParams)] + [ptr] * 8 + [i32, i32, ptr])
     lib.mgmc_subtree_sample.restype = i32
     return lib
+
+
+def launch_library(reach: int, stamps: bool, threads: int) -> ctypes.CDLL:
+    """The library that holds the instance a launch takes: at reach 2 the
+    stamps build for a launch with stamps, the 1024-thread instance above
+    :data:`REACH2_MAX_THREADS` threads, else the production kernel."""
+    if reach != 2:
+        return load_library(reach)
+    if stamps and threads > REACH2_MAX_THREADS:
+        raise ValueError(f"the reach-2 stamps build takes at most {REACH2_MAX_THREADS} threads")
+    return load_library(2, "stamps" if stamps else
+                        "block1024" if threads > REACH2_MAX_THREADS else "production")
 
 
 # ------------------------------------------------------------ host-side plans
@@ -311,10 +378,16 @@ class SubtreeKernel:
             FusedVisitLevel(op, pre.coloring, omega, pre.order, post.order,
                             pre.B_bar, post.B_bar, coarse_scaling)
             for op, pre, post in zip(operators[:-1], presmoothers, postsmoothers)]
-        reach = max(level.reach for level in self.levels)
-        if reach > 1:
+        reaches = sorted({level.reach for level in self.levels})
+        if reaches[-1] > 2:
             raise NotImplementedError(
-                f"the subtree kernel takes reach-1 stencils only, a sub-level has reach {reach}")
+                f"the subtree kernel takes stencils of reach 1 or 2, a sub-level has reach "
+                f"{reaches[-1]}")
+        if len(reaches) > 1:
+            raise NotImplementedError("the subtree kernel takes sub-levels of one reach, "
+                                      f"these have reaches {reaches}")
+        #: the stencils' reach: 2 takes the reach-2 build
+        self.reach = reaches[0]
         top = operators[0]
         self.vshape = top.vshape
         self.device, self.dtype = top.device, top.dtype
@@ -332,7 +405,8 @@ class SubtreeKernel:
         self.schedule = subtree_schedule(len(self.levels), self.cycle)
         self.level_sizes = [int(np.prod(lv.op.vshape)) for lv in self.levels]
         #: threads per block: by the finest sub-level's size, as the visit kernels
-        self.threads = min(default_threads(self.level_sizes[0]), MAX_THREADS)
+        self.threads = min(default_threads(self.level_sizes[0]),
+                           REACH2_MAX_THREADS if self.reach == 2 else MAX_THREADS)
         self._tables, self._table_offsets, self._warp_vec, self._warp_stride = (
             launch_tables(self.levels))
         # the placement under the card's limit; if the probe is refused the
@@ -637,7 +711,7 @@ def subtree_sample(kernel: SubtreeKernel, f: torch.Tensor, xi: Optional[torch.Te
     S = kernel._params(C, noise_mode, record, philox)
     S.stamps = _ptr(stamps)
     tables, sched = kernel._device_tables()
-    lib = load_library()
+    lib = launch_library(kernel.reach, stamps is not None, kernel.threads)
     x = torch.empty_like(f)
     ws = torch.empty((C, max(kernel._ws_floats, 1)), dtype=torch.float32, device=f.device)
     if record:
@@ -648,7 +722,7 @@ def subtree_sample(kernel: SubtreeKernel, f: torch.Tensor, xi: Optional[torch.Te
             ctypes.byref(S), tables.data_ptr(), sched.data_ptr(), kernel.Linv.data_ptr(),
             kernel.LinvT.data_ptr(), f.data_ptr(), x.data_ptr(), ws.data_ptr(), _ptr(xi),
             kernel.threads, kernel.smem_bytes, stream)
-    launch_counts["subtree_sample"] += 1
+    launch_counts[KERNEL_NAMES[kernel.reach]] += 1
     if err != 0:
         raise RuntimeError(f"subtree kernel launch failed: CUDA error {err}")
     return (x, xi) if record else x

@@ -39,8 +39,9 @@ Two ways to replace the recursion below a level by one call:
   :mod:`multigridmc_tpu_torch.samplers.distill`, two matrix products per
   invocation.  The default ``"auto"`` distils on a CUDA device.
 * ``subtree=True`` - everything below level 0 is one launch of the subtree
-  kernel (:mod:`multigridmc_tpu_torch.ops.kernels.mgmc_subtree`).  It excludes
-  distillation.
+  kernel (:mod:`multigridmc_tpu_torch.ops.kernels.mgmc_subtree`; its reach-2
+  build for the squared shifted-Laplace prior's 25-point sub-levels).  It
+  excludes distillation.
 
 ``sweep_schedule="alternating"`` alternates the sweep directions from step to
 step: odd steps run the same hierarchy with the pre- and post-samplers swapped

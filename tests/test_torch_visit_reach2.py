@@ -154,10 +154,36 @@ def test_reach3_and_other_wide_stencils_raise():
 
 
 def test_subtree_kernel_refuses_reach2_before_any_launch():
+    """Since the subtree kernel's reach-2 build, reach 2 builds (its plain
+    version on the CPU) and what the kernel does not take - a reach-3
+    sub-level, sub-levels of two reaches - raises at construction, before any
+    launch."""
+    from multigridmc_tpu_torch.convert import operator_from_numpy
+    from multigridmc_tpu_torch.ops.kernels import mgmc_subtree as st
+
     prior = squared_shiftedlaplace_fd(Lattice((32, 32)), ConstantCorrelationLengthModel(0.2),
                                       device="cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="reach-1 stencils only"):
-        MultigridMCSampler(prior, 4, cycle=2, subtree=True)
+    kernel = MultigridMCSampler(prior, 4, cycle=2, subtree=True).subtree
+    assert kernel.reach == 2 and [len(lv.op.offsets) for lv in kernel.levels] == [25, 25]
+    f = torch.randn((2,) + kernel.vshape, generator=torch.Generator().manual_seed(1))
+    assert torch.isfinite(st.subtree_sample(kernel, f)).all()
+    axis3 = ((0, 0), (-3, 0), (3, 0), (0, -3), (0, 3))
+    five = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1))
+
+    def level(offsets, n):
+        coeffs = np.full((len(offsets), n, n), -1.0)
+        coeffs[0] = 10.0
+        return operator_from_numpy(coeffs, offsets, (n + 1, n + 1), device="cpu",
+                                   dtype=torch.float32)
+
+    for ops, match in (([level(axis3, 15), level(axis3, 7), level(five, 3)], "reach 3"),
+                       ([level(five, 15), kernel.levels[1].op, level(five, 3)], "one reach")):
+        pre = [SORSmoother(o, 1.0, 1, "forward") for o in ops[:-1]]
+        post = [SORSmoother(o, 1.0, 1, "backward") for o in ops[:-1]]
+        L = np.linalg.cholesky(ops[-1].to_dense())
+        with pytest.raises(NotImplementedError, match=match):
+            st.SubtreeKernel(ops, pre, post, L, 1.0, 2, 1.0)
+    assert not any(st.launch_counts.values())
 
 
 def test_stencil_forms_of_both_builds():
