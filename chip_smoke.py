@@ -46,8 +46,10 @@ the card and checks, one phase after the other:
                    each chain split over a thread-block cluster) in both
                    directions on 2d 5- and 9-point, 3d 7- and 27-point,
                    space-varying and reach-2 operators (the one-block route's
-                   passes body also with in-kernel noise against the host's
-                   reference normals, and against its generic body, ``1e-6``),
+                   passes body - its reach-1, reach-2 and 3d builds - and its
+                   shared-memory body also with in-kernel noise against the
+                   host's reference normals, and against its generic body,
+                   ``1e-6``),
                    the split route at one
                    chain and at a few and against the one-block route under one
                    Philox stream (``1e-6``), the one-block kernels' launch by
@@ -468,6 +470,11 @@ def phase_build():
         sor_sweep.load_library(stamps=True)
         sor_sweep.load_passes_library()
         sor_sweep.load_passes_library(stamps=True)
+    if hasattr(sor_sweep, "load_smem_library"):  # (nor these)
+        sor_sweep.load_smem_library()
+        sor_sweep.load_smem_library(stamps=True)
+        sor_sweep.load_passes_library(reach=2)
+        sor_sweep.load_passes_library(dim=3)
     mgmc_subtree.load_library()
     if hasattr(mgmc_subtree, "REACH_BUILDS"):  # (a parent tree of --phases compare lacks it)
         for part in mgmc_subtree.REACH_BUILDS[2][1]:
@@ -1091,6 +1098,7 @@ def sweep_cases(device):
         ("3d_63_7pt", fine3, 32, 1.0),
         ("3d_31_27pt_galerkin", galerkin_coarsen(fine3), 32, 1.3),
         ("2d_63_13pt_reach2", reach2_operator(64, device), 64, 1.3),
+        ("2d_127_25pt_reach2", galerkin_coarsen(reach2_operator(256, device)), 64, 1.0),
     ]
 
 
@@ -1134,18 +1142,19 @@ def check_sweeps(device, gen, nx, nlevel, n_meas):
     :func:`sweep_cases` and :func:`distill_cases`: noise off, then the same
     ``xi`` fed to both, then (2d) the in-kernel generator against the plain
     version fed the host's reference normals (TOL; at many chains on the chains
-    of :func:`noise_check_chains`).  On 2d fields, whose one-block route takes
-    the passes body, the generic body of ``sor_sweep.cu`` beside it on the same
-    inputs and under one Philox stream (ROUTE_TOL: the same terms in the same
-    order).  Each row gives the passes body's block sizes; the run fails unless
-    the checks launched it at every size :func:`sor_sweep.sweep_threads`
-    gives."""
+    of :func:`noise_check_chains`).  Where the one-block route takes the passes
+    body (any of its builds) or the shared-memory body, the generic body of
+    ``sor_sweep.cu`` beside it on the same inputs and under one Philox stream
+    (ROUTE_TOL: the same terms in the same order).  Each row gives the passes
+    body's block sizes; the run fails unless the checks launched it at every
+    size :func:`sor_sweep.sweep_threads` gives."""
     from multigridmc_tpu_torch.ops.kernels import common
     from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
     from multigridmc_tpu_torch.smoothers import BACKWARD, FORWARD, SORSmoother
 
     errs = {"sweep_batched": 0.0, "gibbs_sweep_batched": 0.0, "sweep_batched_generic": 0.0,
-            "gibbs_sweep_batched_generic": 0.0}
+            "gibbs_sweep_batched_generic": 0.0, "sweep_batched_smem": 0.0,
+            "gibbs_sweep_batched_smem": 0.0}
     body_err = 0.0
     rows = []
     threads_checked = set()
@@ -1154,7 +1163,7 @@ def check_sweeps(device, gen, nx, nlevel, n_meas):
             plan = SORSmoother(op, omega, 1, direction).plan
             x = torch.randn((C,) + op.vshape, device=device, generator=gen)
             xi = torch.randn((C,) + op.vshape, device=device, generator=gen)
-            suffix = "" if plan.body == "passes" else "_generic"
+            suffix = "" if plan.body == "passes" else "_" + plan.body
             row = {"case": name, "chains": C, "vshape": list(op.vshape), "omega": omega,
                    "offsets": len(op.offsets), "colours": plan.coloring.n_colors,
                    "direction": direction, "body": plan.body, "sweep_err": 0.0,
@@ -1163,21 +1172,30 @@ def check_sweeps(device, gen, nx, nlevel, n_meas):
                 launches = [plan.pass_launch(plan.params(C, True, mode, (0, 0)))
                             for mode in (0, 1)]
                 row["stencil_form"] = launches[0].form
+                row["build"] = list(launches[0].build)
                 row["threads"] = {"sweep": launches[0].threads, "gibbs": launches[1].threads}
                 threads_checked.update(row["threads"].values())
+            elif plan.body == "smem":
+                launch = plan.smem_launch(plan.params(C, True, 0, None))
+                row.update({"kmax": launch.kmax, "threads": launch.threads,
+                            "smem_bytes": launch.nbytes,
+                            "interior_points": int(sum(launch.params.plain[o] for o in
+                                                       range(launch.params.n_order)))})
+            if plan.body != "generic":
                 row["against_generic"] = 0.0
             for b_batched in (False, True):
                 b = torch.randn(((C,) if b_batched else ()) + op.vshape, device=device,
                                 generator=gen)
                 tag = f"{name} {direction} {'b per chain' if b_batched else 'b shared'}"
-                want = ss.sweep_batched_plain(op, plan.masks, omega, plan.order, b, x)
+                want_det = ss.sweep_batched_plain(op, plan.masks, omega, plan.order, b, x)
                 got_det = ss.launch_sweep(plan, ss.BLOCK_ROUTE, b, x.clone())
-                row["sweep_err"] = max(row["sweep_err"], compare(f"sweep {tag}", got_det, want))
+                row["sweep_err"] = max(row["sweep_err"],
+                                       compare(f"sweep {tag}", got_det, want_det))
                 want = ss.gibbs_sweep_batched_plain(op, plan.masks, omega, plan.order, b, x, xi)
                 got = ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, b, x.clone(), xi=xi)
                 row["gibbs_err"] = max(row["gibbs_err"], compare(f"gibbs sweep {tag}", got, want))
-                del want
-                if plan.body != "passes":
+                if plan.body == "generic":
+                    del want, want_det
                     continue
                 against = [(got_det, ss.launch_sweep(plan, ss.BLOCK_ROUTE, b, x.clone(),
                                                      body="generic")),
@@ -1185,7 +1203,13 @@ def check_sweeps(device, gen, nx, nlevel, n_meas):
                                                        body="generic"))]
                 row["against_generic"] = max([row["against_generic"]] + [
                     float((new - old).abs().max()) for new, old in against])
-                del against, got_det
+                # the generic body's own error, beside the body it is held to
+                errs["sweep_batched_generic"] = max(errs["sweep_batched_generic"], compare(
+                    f"generic sweep {tag}", against[0][1], want_det))
+                errs["gibbs_sweep_batched_generic"] = max(
+                    errs["gibbs_sweep_batched_generic"],
+                    compare(f"generic gibbs sweep {tag}", against[1][1], want))
+                del against, got_det, want, want_det
                 # the in-kernel generator against the reference normals
                 seed, counter = 0x5EED_0010 + C, 5 + b_batched
                 got = ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, b, x.clone(),
@@ -1206,8 +1230,8 @@ def check_sweeps(device, gen, nx, nlevel, n_meas):
                         got[part], want))
                 del got
             if row.get("against_generic", 0.0) > ROUTE_TOL:
-                raise AssertionError(f"sweeps: {name} {direction}: the passes and the generic "
-                                     f"body differ by {row['against_generic']}")
+                raise AssertionError(f"sweeps: {name} {direction}: the {plan.body} and the "
+                                     f"generic body differ by {row['against_generic']}")
             body_err = max(body_err, row.get("against_generic", 0.0))
             errs["sweep_batched" + suffix] = max(errs["sweep_batched" + suffix], row["sweep_err"])
             errs["gibbs_sweep_batched" + suffix] = max(errs["gibbs_sweep_batched" + suffix],
@@ -1366,6 +1390,8 @@ def sweep_bound(plan, C, b_batched):
 #: the sweep kernels as torch.profiler names them, by route or one-block body
 SWEEP_KERNELS = {("passes", "sweep"): "passes_sweep_kernel",
                  ("passes", "gibbs"): "passes_gibbs_kernel",
+                 ("smem", "sweep"): "smem_sweep_kernel",
+                 ("smem", "gibbs"): "smem_gibbs_kernel",
                  ("generic", "sweep"): "sor_sweep_kernel",
                  ("generic", "gibbs"): "gibbs_sweep_kernel",
                  ("split", "sweep"): "cluster_sweep_kernel<false",
@@ -1397,11 +1423,13 @@ def time_sweeps(device, noise):
         inner = 10 if C > 1 else 50
         row = {"case": name, "chains": C, "vshape": list(op.vshape), "body": plan.body,
                "threads": (plan.pass_launch(plan.params(C, True, 0, None)).threads
-                           if plan.body == "passes" else plan.threads),
+                           if plan.body == "passes" else
+                           plan.smem_launch(plan.params(C, True, 0, None)).threads
+                           if plan.body == "smem" else plan.threads),
                "generic_threads": plan.threads,
                "bound_ms": bound, "bound_by": by, "bound_bytes": nbytes}
         routes = {"": (ss.BLOCK_ROUTE, plan.body)}
-        if plan.body == "passes":
+        if plan.body != "generic":
             routes["generic_"] = (ss.BLOCK_ROUTE, "generic")
         if plan.route(C, 0)[0] == "split":
             routes["split_"] = (plan.route(C, 0), None)
@@ -1494,7 +1522,7 @@ def time_sweep_passes(device, noise, bodies, nx, nlevel, n_meas):
     """The one-block sweep kernels' launches by pass, from the stamps builds
     of the bodies ``bodies`` (``"generic"``: ``sor_sweep.cu``, the kernels before
     the passes; ``"passes"``: ``sor_sweep_passes.cu``), on the 256-chain 2d
-    cases of :func:`sweep_cases` (both kernels, the Gibbs kernel with its
+    reach-1 cases of :func:`sweep_cases` (both kernels, the Gibbs kernel with its
     in-kernel noise, ``b`` per chain) and on the shapes the flagship's
     distillation set-up hands the deterministic kernel: per pass the median
     over the blocks, their sum and span against the profiler's device ms of
@@ -1506,7 +1534,8 @@ def time_sweep_passes(device, noise, bodies, nx, nlevel, n_meas):
     from multigridmc_tpu_torch.smoothers import SORSmoother
 
     cases = [(name, SORSmoother(op, omega, 1).plan, C, ("sweep", "gibbs"))
-             for name, op, C, omega in sweep_cases(device) if C == 256 and len(op.vshape) == 2]
+             for name, op, C, omega in sweep_cases(device)
+             if C == 256 and ss.passes_build(op.vshape, op.offsets) == (1, 2)]
     level, seconds, shapes = distill_sweep_shapes(flagship_posterior(device, nx, n_meas), nlevel)
     cases += [(f"distill {'x'.join(map(str, d['vshape']))}", d["plan"], d["chains"], ("sweep",))
               for d in shapes if d["b_batched"]]
@@ -1576,7 +1605,7 @@ def time_sweep_threads(device, noise, nx, nlevel, n_meas):
     _, _, shapes = distill_sweep_shapes(flagship_posterior(device, nx, n_meas), nlevel)
     distill = {tuple(d["vshape"]): d for d in shapes if d["order"][0] == 0}
     cases = [(name, op, omega) for name, op, C, omega in sweep_cases(device)
-             if len(op.vshape) == 2 and C > 1 and ss.sweep_body(op.vshape, op.offsets) == "passes"]
+             if C > 1 and ss.passes_build(op.vshape, op.offsets) == (1, 2)]
     cases += [(f"{'x'.join(map(str, v))} 9-point Galerkin (distillation)", d["plan"].op, 1.0)
               for v, d in sorted(distill.items(), reverse=True)]
     rows, faults = [], []
@@ -1754,12 +1783,13 @@ def time_sweep_routes(device, noise, smi):
     """The ``sweep_routes`` line: device ms per launch (torch.profiler) of both
     sweep kernels through the one-block route and through the split route at
     every cluster size that fits and schedules, at every chain count of
-    :data:`SWEEP_ROUTE_CHAINS` on two fields of each stencil class of
+    :data:`SWEEP_ROUTE_CHAINS` on the fields of each stencil class of
     ``sor_sweep.SPLIT_MAX_CHAINS`` (``sor_sweep.split_stencil``): a 255^2
     5-point field and a 127^2 5-point field whose coefficients vary in space
     (read per point); the 255^2 and 127^2 9-point Galerkin levels of a 511^2
-    and a 255^2 field; a 63^3 7-point field and a 63^2 13-point field of reach
-    2 (the generic body).
+    and a 255^2 field; a 63^3 7-point field (class "3d", the generic body) and
+    a 63^2 13-point field of reach 2 (class "reach-2", the shared-memory
+    body).
 
     The table supports the code's constants when (1) wherever the route takes
     the split route it beats one block per chain, (2) its cluster size (the
@@ -2067,20 +2097,6 @@ def subtree_variant(sampler, budget, threads=None):
     return k
 
 
-def two_block_budget(kernel, lib, threads):
-    """The largest field budget of :func:`~mgmc_subtree.place_fields` (the
-    fields of the coarsest levels up) under which one SM holds two blocks of
-    ``threads`` at once (the occupancy calculator's answer)."""
-    best = 0
-    sizes = [kernel.nc] + kernel.level_sizes[::-1]
-    for k in range(1, len(sizes) + 1):
-        budget = 4 * 3 * sum(sizes[:k])
-        smem = 4 * kernel._tables.size + budget
-        if lib.mgmc_subtree_blocks_per_sm(threads, smem) >= 2:
-            best = budget
-    return best
-
-
 #: the flagship subtree's other block sizes and placements: (threads, field
 #: budget in bytes; None the default)
 FLAGSHIP_SUBTREE_VARIANTS = ((256, None), (512, None), (1024, None), (512, 0), (1024, 0))
@@ -2091,10 +2107,11 @@ def time_subtree(sampler, C, noise, variants=FLAGSHIP_SUBTREE_VARIANTS, plain_re
     noise), its device time, its plain version (the normals drawn inside the
     timed region), its bound, where the launch's time goes by operation (the
     stamps build), and the device ms of ``variants`` (threads a block and
-    field budget; a budget ``"two_blocks"``: :func:`two_block_budget`); the
+    field budget; a budget ``"one_block"``: the whole block grant); the
     plain version's time over ``plain_repeats`` (repeats, calls each)."""
     import ctypes
 
+    from multigridmc_tpu_torch.ops.kernels import common
     from multigridmc_tpu_torch.ops.kernels import mgmc_subtree as st
 
     kernel = sampler.subtree
@@ -2128,6 +2145,16 @@ def time_subtree(sampler, C, noise, variants=FLAGSHIP_SUBTREE_VARIANTS, plain_re
         st.subtree_sample(kernel, f, philox=noise.philox_streams(kernel.count_draws()),
                           stamps=stamps)
     po = out["per_operation"] = st.operation_times(kernel, stamps)
+    # and by pass inside each operation (the timer after every barrier), from
+    # launches of their own: each pass's median over the blocks, per operation
+    # and level the median over the schedule's operations
+    if hasattr(st, "pass_times"):  # (a parent tree of --phases compare lacks it)
+        per_op = torch.zeros_like(stamps)
+        passes = torch.zeros((C, st.barrier_count(kernel) + 1), dtype=torch.int64, device=device)
+        for _ in range(3):
+            st.subtree_sample(kernel, f, philox=noise.philox_streams(kernel.count_draws()),
+                              stamps=per_op, pass_stamps=passes)
+        out["per_pass"] = st.pass_times(kernel, passes)
     # where the chains take more than one wave of blocks (the reach-2 build
     # at 256 chains: one block an SM), a block's breakdown is a wave's share
     waves = po["waves"] = -(-C // (po["blocks_per_sm"] * po["sms"]))
@@ -2165,8 +2192,8 @@ def time_subtree(sampler, C, noise, variants=FLAGSHIP_SUBTREE_VARIANTS, plain_re
     default_budget = kernel.smem_budget
     out["variants"] = []
     for threads, budget in variants:
-        if budget == "two_blocks":
-            budget = two_block_budget(kernel, lib, threads)
+        if budget == "one_block":  # every field the block's whole grant holds
+            budget = st.field_budget(common.dynamic_smem_limit(device), kernel._tables.size)
         k = subtree_variant(sampler, budget, threads)
         out["variants"].append({
             "threads": threads, "shared_bytes": k.placement["shared_bytes"],
@@ -2678,7 +2705,7 @@ def phase_visits(device, nx, nlevel, C, n_meas, gen, smi):
 
 def phase_sweeps(device, gen, noise, smi, nx, nlevel, n_meas):
     """The sweep kernels of both routes: against their plain versions and
-    against each other (the one-block route's two bodies, the two routes),
+    against each other (the one-block route's bodies, the two routes),
     the generator through both and against torch's own, the split layout's
     host mirror, their times, the one-block kernels' launches by pass before
     (the generic body) and after (the passes body) with their registers, the
@@ -4181,9 +4208,10 @@ BIHARMONIC_GATE = {"nx": 64, "nlevel": 3, "warmup": 80, "steps": 300}
 #: steps of the full-width biharmonic sampler and of the FEM flagship variant
 BIHARMONIC_STEPS = 30
 #: the reach-2 subtree kernel's block sizes and placements (threads, field
-#: budget in bytes: None the default, 0 every field in the workspace,
-#: "two_blocks" the most that two blocks of an SM hold, :func:`two_block_budget`)
-BIHARMONIC_SUBTREE_VARIANTS = ((256, None), (512, None), (1024, None), (256, "two_blocks"),
+#: budget in bytes: None the default, two blocks an SM; 0 every field in the
+#: workspace; "one_block" every field the block's whole grant holds, one block
+#: an SM, the rule before the sweeps took the colours' point lists)
+BIHARMONIC_SUBTREE_VARIANTS = ((256, None), (512, None), (1024, None), (512, "one_block"),
                                (512, 0), (1024, 0))
 FEM_STEPS = 10
 #: chain counts at which a reach-2 or 3d level's route must be the phase kernels
@@ -4345,7 +4373,9 @@ def check_setup_sweeps(shapes, gen):
     """Every deterministic sweep a distillation set-up launched
     (:func:`distill_sweep_shapes`), at its own shape, chain count, colour
     order, route and ``b`` (shared or per chain), against the plain sweep with
-    the noise off, as the set-up runs it (TOL).  One row per shape."""
+    the noise off, as the set-up runs it (TOL), and, where its body is not the
+    generic one, against the generic body of ``sor_sweep.cu`` on the same
+    inputs (ROUTE_TOL).  One row per shape."""
     from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
 
     rows = []
@@ -4359,11 +4389,20 @@ def check_setup_sweeps(shapes, gen):
         got = ss.launch_sweep(plan, d["route"], b, x.clone())
         tag = (f"set-up sweep {tuple(op.vshape)} C={C} order {d['order']} "
                f"b_batched={d['b_batched']}")
-        rows.append({"vshape": d["vshape"], "chains": C, "b_batched": d["b_batched"],
-                     "order": d["order"], "route": list(d["route"]), "body": plan.body,
-                     "offsets": len(op.offsets), "colours": plan.coloring.n_colors,
-                     "launches": d["launches"], "max_abs_err": compare(tag, got, want)})
-        del x, b, want, got
+        row = {"vshape": d["vshape"], "chains": C, "b_batched": d["b_batched"],
+               "order": d["order"], "route": list(d["route"]), "body": plan.body,
+               "offsets": len(op.offsets), "colours": plan.coloring.n_colors,
+               "launches": d["launches"], "max_abs_err": compare(tag, got, want)}
+        del want
+        if plan.body != "generic" and d["route"][0] == "block":
+            old = ss.launch_sweep(plan, d["route"], b, x.clone(), body="generic")
+            row["against_generic"] = float((got - old).abs().max())
+            del old
+            if row["against_generic"] > ROUTE_TOL:
+                raise AssertionError(f"{tag}: the {plan.body} and the generic body differ by "
+                                     f"{row['against_generic']}")
+        rows.append(row)
+        del x, b, got
     torch.cuda.synchronize()
     return rows
 
@@ -4372,9 +4411,9 @@ def check_distill_setup(op, nlevel, sampler, main, gen, label):
     """The distillation set-up's sweeps of ``op``'s default sampler
     (``sampler``, whose main path ``main`` is :func:`drive_sampler`'s record)
     at their own shapes (:func:`check_setup_sweeps`).  They must run on the
-    generic body, on the levels below the distilled one down to the coarsest
-    (exclusive), and their launches must be those of the main path's set-up.
-    Returns the rows."""
+    shared-memory body, on the levels below the distilled one down to the
+    coarsest (exclusive), and their launches must be those of the main path's
+    set-up.  Returns the rows."""
     ops = sampler.hierarchy.operators
     below = {tuple(o.vshape) for o in ops[main["distill_level"]:nlevel - 1]}
     del ops
@@ -4383,7 +4422,7 @@ def check_distill_setup(op, nlevel, sampler, main, gen, label):
     del setup
     counted = sum(v for k, v in main["setup_sweep_launches"].items()
                   if k.startswith("sweep_batched"))
-    if (level != main["distill_level"] or {r["body"] for r in rows} != {"generic"}
+    if (level != main["distill_level"] or {r["body"] for r in rows} != {"smem"}
             or {tuple(r["vshape"]) for r in rows} != below
             or sum(r["launches"] for r in rows) != counted):
         raise AssertionError(f"{label} set-up sweeps: distilled at {level}, {rows}, the main "
@@ -4395,21 +4434,24 @@ def check_nine_colour_sweeps(op, C, gen):
     """Both sweep kernels on a 9-colour level (the 25-point Galerkin level of
     the biharmonic hierarchy) against their plain versions, forward and
     backward, ``b`` shared and per chain, noise off and the same ``xi``: the
-    one-block route's generic body at ``C`` chains (and its in-kernel normals
-    against the host's reference), the split route at one chain and at
-    :data:`SPLIT_CHECK_CHAINS` (TOL), and the split against the one-block route
-    under one Philox stream (ROUTE_TOL)."""
+    one-block route's shared-memory body at ``C`` chains (and its in-kernel
+    normals against the host's reference) and the generic body beside it
+    (against the plain versions, TOL, and the shared-memory body against it
+    on the same inputs and under one Philox stream, ROUTE_TOL), the split
+    route at one chain and at :data:`SPLIT_CHECK_CHAINS` (TOL), and the split
+    against the one-block route under one Philox stream (ROUTE_TOL)."""
     from multigridmc_tpu_torch.ops.kernels import common
     from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
     from multigridmc_tpu_torch.smoothers import BACKWARD, FORWARD, SORSmoother
 
     device = op.coeffs.device
-    errs = {"sweep_batched_generic": 0.0, "gibbs_sweep_batched_generic": 0.0,
+    errs = {"sweep_batched_smem": 0.0, "gibbs_sweep_batched_smem": 0.0,
+            "sweep_batched_generic": 0.0, "gibbs_sweep_batched_generic": 0.0,
             "sweep_batched_split": 0.0, "gibbs_sweep_batched_split": 0.0}
-    route_err = 0.0
+    route_err = body_err = 0.0
     for direction in (FORWARD, BACKWARD):
         plan = SORSmoother(op, 1.0, 1, direction).plan
-        if plan.coloring.n_colors != 9 or plan.body != "generic":
+        if plan.coloring.n_colors != 9 or plan.body != "smem":
             raise AssertionError(f"nine-colour sweeps: {plan.coloring.n_colors} colours, "
                                  f"body {plan.body}")
         for Cs, routes in ((C, (ss.BLOCK_ROUTE,)), (1, None), (SPLIT_CHECK_CHAINS, None)):
@@ -4419,77 +4461,154 @@ def check_nine_colour_sweeps(op, C, gen):
                     raise AssertionError(f"nine-colour sweeps: {Cs} chains do not split")
                 routes = (("split", sizes[0]), ("split", sizes[1]))
             det_route, gibbs_route = routes[0], routes[-1]
-            suffix = "_generic" if det_route[0] == "block" else "_split"
+            bodies = ("smem", "generic") if det_route[0] == "block" else (None,)
             x = torch.randn((Cs,) + op.vshape, device=device, generator=gen)
             xi = torch.randn((Cs,) + op.vshape, device=device, generator=gen)
             for b_batched in (False, True):
                 b = torch.randn(((Cs,) if b_batched else ()) + op.vshape, device=device,
                                 generator=gen)
                 tag = f"nine colours {direction} C={Cs} {det_route[0]} b_batched={b_batched}"
-                want = ss.sweep_batched_plain(op, plan.masks, 1.0, plan.order, b, x)
-                got = ss.launch_sweep(plan, det_route, b, x.clone())
-                errs["sweep_batched" + suffix] = max(errs["sweep_batched" + suffix],
-                                                     compare(f"sweep {tag}", got, want))
-                want = ss.gibbs_sweep_batched_plain(op, plan.masks, 1.0, plan.order, b, x, xi)
-                got = ss.launch_gibbs_sweep(plan, gibbs_route, b, x.clone(), xi=xi)
-                errs["gibbs_sweep_batched" + suffix] = max(
-                    errs["gibbs_sweep_batched" + suffix], compare(f"gibbs sweep {tag}", got, want))
                 stream = (0x5EED_0013 + Cs, 3 + b_batched)
-                got = ss.launch_gibbs_sweep(plan, gibbs_route, b, x.clone(), philox=stream)
+                got = {}
+                want = {"sweep": ss.sweep_batched_plain(op, plan.masks, 1.0, plan.order, b, x),
+                        "gibbs": ss.gibbs_sweep_batched_plain(op, plan.masks, 1.0, plan.order,
+                                                              b, x, xi)}
+                for body in bodies:
+                    suffix = "_split" if body is None else "_" + body
+                    got["sweep", body] = ss.launch_sweep(plan, det_route, b, x.clone(), body=body)
+                    errs["sweep_batched" + suffix] = max(
+                        errs["sweep_batched" + suffix],
+                        compare(f"sweep {tag} {body}", got["sweep", body], want["sweep"]))
+                    got["gibbs", body] = ss.launch_gibbs_sweep(plan, gibbs_route, b, x.clone(),
+                                                               xi=xi, body=body)
+                    errs["gibbs_sweep_batched" + suffix] = max(
+                        errs["gibbs_sweep_batched" + suffix],
+                        compare(f"gibbs sweep {tag} {body}", got["gibbs", body], want["gibbs"]))
+                    got["philox", body] = ss.launch_gibbs_sweep(plan, gibbs_route, b, x.clone(),
+                                                                philox=stream, body=body)
+                del want
                 if det_route[0] == "split":
                     block = ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, b, x.clone(),
                                                   philox=stream)
-                    route_err = max(route_err, float((got - block).abs().max()))
+                    route_err = max(route_err, float((got["philox", None] - block).abs().max()))
                     continue
+                body_err = max([body_err] + [float((got[k, "smem"] - got[k, "generic"])
+                                                   .abs().max())
+                                             for k in ("sweep", "gibbs", "philox")])
                 for first, n in noise_check_chains(Cs):
                     part = slice(first, first + n)
                     ref = torch.as_tensor(common.philox_normals_reference(
                         *stream, n, op.vshape, first_chain=first), device=device)
                     want = ss.gibbs_sweep_batched_plain(op, plan.masks, 1.0, plan.order,
                                                         b[part] if b_batched else b, x[part], ref)
-                    errs["gibbs_sweep_batched_generic"] = max(
-                        errs["gibbs_sweep_batched_generic"],
-                        compare(f"gibbs sweep {tag} in-kernel noise", got[part], want))
+                    errs["gibbs_sweep_batched_smem"] = max(
+                        errs["gibbs_sweep_batched_smem"],
+                        compare(f"gibbs sweep {tag} in-kernel noise", got["philox", "smem"][part],
+                                want))
+                del got
     torch.cuda.synchronize()
-    if route_err > ROUTE_TOL:
+    if route_err > ROUTE_TOL or body_err > ROUTE_TOL:
         raise AssertionError(f"nine-colour sweeps: the split and one-block routes differ by "
-                             f"{route_err}")
-    return errs, route_err
+                             f"{route_err}, the shared-memory and generic bodies by {body_err}")
+    return errs, route_err, body_err
 
 
-def time_nine_colour_sweeps(op, C, b_batched, noise):
-    """ms per launch of both sweep kernels on a 9-colour level: at ``C``
-    chains with ``b`` per chain or shared (``b_batched``; the distillation
-    set-up's shape: the one-block route's generic body) and at one chain (the
-    split route, the rule's cluster size), events and device time (held to
-    each other), the plain versions and the bound."""
+def smem_sweep_stamps(plan, C, b_batched, noise):
+    """One launch of each kernel of the shared-memory body's stamps build at
+    ``C`` chains (the Gibbs kernel with its in-kernel noise), by pass: the
+    copy-in (with the Gibbs rhs) and each colour, the median over the blocks
+    (:func:`sor_sweep.sweep_pass_times`), the barriers each block passed
+    against :func:`sor_sweep.barrier_count`, the blocks one SM ran at once; the
+    kernels' registers and the blocks per SM the occupancy API gives."""
+    import ctypes
+
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+
+    device = plan.op.coeffs.device
+    b = torch.rand(((C,) if b_batched else ()) + plan.op.vshape, device=device)
+    x = torch.zeros((C,) + plan.op.vshape, device=device)
+    out = {}
+    for kind, gibbs in (("sweep", False), ("gibbs", True)):
+        runs = []
+        for _ in range(3):
+            stamps = torch.zeros((C, ss.SWEEP_STAMP_WIDTH), dtype=torch.int64, device=device)
+            if gibbs:
+                ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, b, x, philox=noise.philox_stream(),
+                                      body="smem", stamps=stamps)
+            else:
+                ss.launch_sweep(plan, ss.BLOCK_ROUTE, b, x, body="smem", stamps=stamps)
+            torch.cuda.synchronize()
+            runs.append(ss.sweep_pass_times(plan.order, gibbs, stamps, body="smem"))
+        pt = sorted(runs, key=lambda r: r["launch_span_us"])[1]
+        pt["barriers_from_source"] = ss.barrier_count(plan.order, gibbs, body="smem")
+        if pt["barriers_per_block"] != [pt["barriers_from_source"]]:
+            raise AssertionError(f"shared-memory sweep {kind}: barriers {pt['barriers_per_block']}"
+                                 f" against {pt['barriers_from_source']} from the source")
+        launch = plan.smem_launch(plan.params(C, b_batched, 1 if gibbs else 0, None))
+        lib = ss.load_smem_library()
+        vals = (ctypes.c_int * 3)()
+        if lib.sor_smem_kernel_attributes(int(gibbs), launch.kmax, vals):
+            raise AssertionError(f"shared-memory sweep {kind}: kernel attributes")
+        pt.update({"threads": launch.threads, "smem_bytes": launch.nbytes, "kmax": launch.kmax,
+                   "registers": vals[0], "local_bytes": vals[1],
+                   "blocks_per_sm_occupancy_api": lib.sor_smem_blocks_per_sm(
+                       int(gibbs), launch.kmax, launch.threads, launch.nbytes)})
+        out[kind] = pt
+    del b, x
+    return out
+
+
+def time_block_sweeps(op, C, b_batched, noise, one_chain=True):
+    """ms per launch of both sweep kernels on a level of the distillation
+    set-up (the biharmonic hierarchy's 9-colour 63^2 and 31^2, the 3d one's
+    15^3): at ``C`` chains with ``b`` per chain or shared (``b_batched``; the distillation
+    set-up's shape) the one-block route's shared-memory body and its generic
+    body in the same windows, and (``one_chain``) at one chain (the split
+    route, the rule's cluster size), events and device time (held to each
+    other), the plain versions and the bound; the shared-memory body's launch
+    by pass from its stamps build (:func:`smem_sweep_stamps`)."""
     from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
     from multigridmc_tpu_torch.smoothers import SORSmoother
 
     device = op.coeffs.device
     plan = SORSmoother(op, 1.0, 1).plan
     rows = []
-    for Cs, bb in ((C, b_batched), (1, True)):
+    for Cs, bb in ((C, b_batched),) + (((1, True),) if one_chain else ()):
         b = torch.rand(((Cs,) if bb else ()) + op.vshape, device=device)
         x = torch.zeros((Cs,) + op.vshape, device=device)
         bound, by, nbytes = sweep_bound(plan, Cs, bb)
         routes = {"sweep": plan.route(Cs, 0), "gibbs": plan.route(Cs, 1)}
+        if Cs == 1:  # the split route at its rule's cluster size, whatever the route
+            routes = {kind: ("split", ss.split_size(1, op.vshape, op.offsets, mode, device))
+                      for kind, mode in (("sweep", 0), ("gibbs", 1))}
         row = {"chains": Cs, "b_batched": bb, "vshape": list(op.vshape),
                "offsets": len(op.offsets), "colours": plan.coloring.n_colors, "routes": routes,
+               "body": plan.body if routes["sweep"][0] == "block" else None,
                "bound_ms": bound, "bound_by": by, "bound_bytes": nbytes}
-        fns = {"sweep": lambda: ss.launch_sweep(plan, routes["sweep"], b, x),
-               "gibbs": lambda: ss.launch_gibbs_sweep(plan, routes["gibbs"], b, x,
-                                                      philox=noise.philox_stream())}
-        # the set-up's tens of thousands of chains take tens of ms a launch
+        # the set-up's tens of thousands of chains take ms a launch
         big = Cs > BIG_SWEEP_CHAINS
-        for kind, fn in fns.items():
-            host = {}
-            row[f"{kind}_ms"] = cuda_ms(fn, 5, 50 if Cs == 1 else (2 if big else 10), host)
-            row[f"{kind}_device_ms"] = device_ms_median(
-                fn, sweep_kernel(routes[kind], "generic", kind), 4 if big else 20)
-            row[f"{kind}_events_over_device"] = check_events_against_device(
-                f"nine-colour {kind} C={Cs}", row[f"{kind}_ms"], row[f"{kind}_device_ms"],
-                host["ms"])
+        bodies = ((plan.body, ""), ("generic", "generic_")) if routes["sweep"][0] == "block" \
+            else ((None, ""),)
+        for kind in ("sweep", "gibbs"):
+            fns = {}
+            for body, prefix in bodies:
+                if kind == "sweep":
+                    fns[prefix] = (lambda body=body: ss.launch_sweep(plan, routes["sweep"], b, x,
+                                                                      body=body))
+                else:
+                    fns[prefix] = (lambda body=body: ss.launch_gibbs_sweep(
+                        plan, routes["gibbs"], b, x, philox=noise.philox_stream(), body=body))
+            device_ms = device_ms_medians(
+                {prefix: (fn, sweep_kernel(routes[kind], body or "generic", kind))
+                 for (body, prefix), fn in zip(bodies, fns.values())}, 4 if big else 20)
+            for (body, prefix), fn in zip(bodies, fns.values()):
+                host = {}
+                row[f"{prefix}{kind}_ms"] = cuda_ms(fn, 5, 50 if Cs == 1 else (2 if big else 10),
+                                                    host)
+                row[f"{prefix}{kind}_device_ms"] = device_ms[prefix]
+                row[f"{prefix}{kind}_events_over_device"] = check_events_against_device(
+                    f"{tuple(op.vshape)} {prefix}{kind} C={Cs}", row[f"{prefix}{kind}_ms"],
+                    row[f"{prefix}{kind}_device_ms"], host["ms"])
         x.zero_()
         row["sweep_plain_ms"] = cuda_ms(
             lambda: ss.sweep_batched_plain(op, plan.masks, 1.0, plan.order, b, x), 3,
@@ -4497,6 +4616,8 @@ def time_nine_colour_sweeps(op, C, b_batched, noise):
         row["gibbs_plain_ms"] = cuda_ms(
             lambda: ss.gibbs_sweep_batched_plain(op, plan.masks, 1.0, plan.order, b, x,
                                                  torch.randn_like(x)), 3, 1 if big else 3)
+        if row["body"] == "smem":
+            row["stamps"] = smem_sweep_stamps(plan, Cs, bb, noise)
         rows.append(row)
         del b, x
     return rows
@@ -4540,12 +4661,14 @@ def drive_sampler(op, f, C, steps, kwargs, levels_are=None, sampler=None, busy_s
     torch.cuda.synchronize()
     mv.reset_launch_counts()
     st.reset_launch_counts()
+    ss.reset_launch_counts()
     t0 = time.perf_counter()
     for _ in range(steps):
         x = sampler.apply(noise, f, x)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(mv.launch_counts)
+    sweep_launches = {k: v for k, v in ss.launch_counts.items() if v}
     subtree_launches = {k: v for k, v in st.launch_counts.items() if v}
     if tuple(x.shape) != (C,) + op.vshape or not bool(torch.isfinite(x).all()):
         raise AssertionError(f"{kwargs}: samples not finite or of wrong shape")
@@ -4600,6 +4723,7 @@ def drive_sampler(op, f, C, steps, kwargs, levels_are=None, sampler=None, busy_s
         "kernel_ms_per_step": None if busy is None else busy["kernel_ms_per_step"],
         "launches_per_step": None if busy is None else busy["kernels_per_step"],
         "device_busy": busy, "launches": {k: v for k, v in counts.items() if v},
+        "sweep_launches": sweep_launches,
         "subtree_launches": subtree_launches, "sample_std": float(x.std())}
 
 
@@ -4821,7 +4945,7 @@ def phase_biharmonic(device, nlevel, C, n_meas, smi):
     * every sweep its distillation set-up launches, at the set-up's shapes
       (:func:`check_setup_sweeps`: both 9-colour levels, 63^2 and 31^2), and
       both sweep kernels on the 9-colour 63^2 level at the set-up's chain
-      count (:func:`check_nine_colour_sweeps`, :func:`time_nine_colour_sweeps`);
+      count (:func:`check_nine_colour_sweeps`, :func:`time_block_sweeps`, also on the set-up's 31^2 level);
     * the full-width sampler (5 levels, W-cycle, SOR, the default ``distill``,
       ``C`` chains, :data:`BIHARMONIC_STEPS` steps) through
       ``MultigridMCSampler.apply``: levels 0 and 1 on the reach-2 phase
@@ -4880,18 +5004,25 @@ def _biharmonic_parts(out, device, nlevel, C, n_meas):
     # 9-colour levels below the distilled level, at the set-up's chain counts
     out["setup_sweeps"] = check_distill_setup(op, nlevel, sampler, main, gen, "biharmonic")
     nine = sampler.hierarchy.operators[main["distill_level"]]
+    sampler_ops = list(sampler.hierarchy.operators)
     del sampler, levels
     at = max((r for r in out["setup_sweeps"] if tuple(r["vshape"]) == tuple(nine.vshape)),
              key=lambda r: r["launches"])
     out["nine_colour_sweeps"] = {"vshape": list(nine.vshape), "offsets": len(nine.offsets),
                                  "chains": at["chains"], "b_batched": at["b_batched"]}
-    errs, route_err = check_nine_colour_sweeps(nine, at["chains"], gen)
-    errs["sweep_batched_generic"] = max([errs["sweep_batched_generic"]] + [
+    errs, route_err, body_err = check_nine_colour_sweeps(nine, at["chains"], gen)
+    errs["sweep_batched_smem"] = max([errs["sweep_batched_smem"]] + [
         r["max_abs_err"] for r in out["setup_sweeps"] if r["colours"] == 9])
+    # the set-up's 31^2 level beside, at its own chain count (one block per chain)
+    small = min((r for r in out["setup_sweeps"] if r["colours"] == 9),
+                key=lambda r: r["vshape"][0])
+    small_op = next(o for o in sampler_ops if tuple(o.vshape) == tuple(small["vshape"]))
     out["nine_colour_sweeps"].update({
-        "max_abs_err": errs, "split_against_block": route_err,
-        "timings": time_nine_colour_sweeps(nine, at["chains"], at["b_batched"], noise)})
-    del nine
+        "max_abs_err": errs, "split_against_block": route_err, "smem_against_generic": body_err,
+        "timings": time_block_sweeps(nine, at["chains"], at["b_batched"], noise),
+        "timings_31": time_block_sweeps(small_op, small["chains"], small["b_batched"],
+                                              noise, one_chain=False)})
+    del nine, small_op, sampler_ops
     fem, _ = build_posterior(256, n_meas, FLAGSHIP_SEED, "near_exact", device,
                              pdemodel="shiftedlaplace_fem")
     _, out["fem_main_path"] = drive_sampler(fem, f, C, FEM_STEPS, kwargs)
@@ -5231,10 +5362,11 @@ def phase_volume(device, smi):
       near-exact levels against a float64 visit (:func:`near_exact_fc`, a
       check at :data:`NEAR_EXACT_FC_TOL`); their device ms on the main path's levels (the median of
       three profiler windows, held to the events), registers and spills;
-    * every sweep the distillation set-up launches (the generic body on
-      15^3, 27-point, 8 colours), at its shapes, against the plain sweep
-      (:func:`check_setup_sweeps`), their launches those of the main path's
-      set-up;
+    * every sweep the distillation set-up launches (the shared-memory body
+      on 15^3, 27-point, 8 colours), at its shapes, against the plain sweep
+      and the generic body (:func:`check_setup_sweeps`), their launches those
+      of the main path's set-up, and both kernels' times there beside the
+      generic body's (:func:`time_block_sweeps`);
     * the statistical gate of ``native/validate_mgmc3d_tpu.py`` at the centre
       and on the first measurement's functional (:func:`volume_gate`);
     * ``drivers.mgmc`` and ``drivers.mg`` on a 32^3 config
@@ -5301,6 +5433,12 @@ def _volume_parts(out, device):
     # the distillation set-up's sweeps: every shape it launched (15^3), at
     # the set-up's chain counts
     out["setup_sweeps"] = check_distill_setup(op, VOLUME_NLEVEL, sampler, main, gen, "volume")
+    at = max(out["setup_sweeps"], key=lambda r: r["launches"])
+    level = next(o for o in sampler.hierarchy.operators if list(o.vshape) == at["vshape"])
+    out["setup_sweep_timings"] = time_block_sweeps(level, at["chains"], at["b_batched"],
+                                                   GeneratorNoise(VOLUME_SEED + 3, device),
+                                                   one_chain=False)
+    del level
     parts["setup_sweeps"] = time.perf_counter() - t0 - sum(parts.values())
     # the elementwise checks on the same lattice with order-one variances
     checked = MultigridMCSampler(volume_posterior(VOLUME_NX, device, near_exact=False)[0],
@@ -5681,6 +5819,7 @@ def main(argv=None) -> int:
 
     from multigridmc_tpu_torch.ops.kernels import common
     from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss_module
 
     kernels = []
     # the visits at level 0, the shape that dominates each path, and their
@@ -5751,34 +5890,33 @@ def main(argv=None) -> int:
     # 255^2, with the one-block route's 256-chain figures beside; their
     # launches are those of the two driver runs (the split route: the
     # one-chain SSOR series and drivers.mg's solve with its levels composed;
-    # the one-block route's passes body:
-    # the replica chains of the convergence tables and the distillation's
-    # set-up).  The one-block route's generic body (3d fields, wider
-    # stencils): its rows give its times at 32 x 63^3; the deterministic
-    # sweep's launches are those of the 64^3 main path's distillation set-up
-    # (15^3, checked at its shapes: setup_sweeps), the Gibbs sweep's run on
-    # no path of this script (the composed "before" variant only)
+    # the one-block route's passes body: the replica chains of the convergence
+    # tables and the distillation's set-up).  The passes body's 3d build at
+    # 32 x 31^3 27-point and its reach-2 build at 256 x 127^2 25-point (no
+    # path of this script: the composed 3d step splits its 32 chains, the
+    # composed biharmonic step is not driven).  The generic body of
+    # sor_sweep.cu at 32 x 63^3 7-point, the body that shape takes (the
+    # composed 3d step splits it too: no path)
     vol_main = volume["main_path"][f"distilled_{VOLUME_CHAINS[0]}"]
-    vol_setup = [{k: r[k] for k in ("vshape", "chains", "b_batched", "offsets", "colours",
-                                    "launches", "max_abs_err")} for r in volume["setup_sweeps"]]
     st = next(t for t in sweep_timings if t["case"] == "2d_255_5pt_one_chain")
     wide = next(t for t in sweep_timings if t["case"] == "2d_255_5pt")
     galerkin = next(t for t in sweep_timings if t["case"] == "2d_127_9pt_galerkin")
     generic = next(t for t in sweep_timings if t["case"] == "3d_63_7pt")
+    dim3 = next(t for t in sweep_timings if t["case"] == "3d_31_27pt_galerkin")
+    reach2 = next(t for t in sweep_timings if t["case"] == "2d_127_25pt_reach2")
     for name, key, kernel_line in (("sweep_batched", "sweep", 194),
                                    ("gibbs_sweep_batched", "gibbs", 246)):
         for route, source in (("", "sor_sweep_passes.cu"), ("split_", "sor_sweep_cluster.cu"),
-                              ("generic_", "sor_sweep.cu")):
+                              ("generic_", "sor_sweep.cu"), ("passes_3d_", "sor_sweep_passes.cu"),
+                              ("passes_reach2_", "sor_sweep_passes.cu")):
             entry = name + ("_" + route[:-1] if route else "")
-            t = generic if route == "generic_" else st
-            prefix = "" if route == "generic_" else route
-            launches, path, err = driver_counts[entry], "drivers", errs[entry]
-            if route == "generic_":
+            t = {"generic_": generic, "passes_3d_": dim3, "passes_reach2_": reach2}.get(route, st)
+            prefix = route if route == "split_" else ""
+            launches, path, err = driver_counts.get(entry, 0), "drivers", errs.get(entry)
+            if route in ("generic_", "passes_3d_", "passes_reach2_"):
                 launches, path = 0, None
-                if key == "sweep":
-                    launches = vol_main["setup_sweep_launches"].get(entry, 0)
-                    path = "volume main_path set-up"
-                    err = max([err] + [r["max_abs_err"] for r in vol_setup])
+            if route in ("passes_3d_", "passes_reach2_"):
+                err = errs[name]
             kernels.append({
                 "name": entry, "route": "cuda",
                 "source": f"multigridmc_tpu_torch/csrc/{source}",
@@ -5793,8 +5931,14 @@ def main(argv=None) -> int:
                                               "cluster": t.get("split_cluster") if route == "split_"
                                               else 1},
             })
-            if route == "generic_" and key == "sweep":
-                kernels[-1]["at_volume_setup"] = vol_setup
+            if route in ("passes_3d_", "passes_reach2_"):
+                kernels[-1].update({
+                    "build": " ".join(ss_module.passes_flags(*(
+                        (1, 3) if route == "passes_3d_" else (2, 2)))),
+                    "generic_device_ms": t[f"generic_{key}_device_ms"],
+                    "design": "the passes of level_passes.cuh in the reach-2 / 3d build: the "
+                              "phase kernels' stencil forms and colour rows with no low-rank "
+                              "term, the fields in device memory, 512 threads a block at most"})
             if not route:
                 kernels[-1]["design"] = (
                     "the passes of level_passes.cuh with no low-rank term: the stencil in "
@@ -5895,13 +6039,16 @@ def main(argv=None) -> int:
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "bound_bytes": t["bound_bytes"],
         "library_ms": None, "shape": {"chains": t["chains"], "vshape": t["vshape"],
                                       "threads": t["threads"]},
-        "design": "the reach-1 kernel's schedule, tables and placement with a parameter block "
-                  "of 25 offsets and 9 colours, the reach-2 passes of level_passes.cuh (the "
-                  "level's form found at run time), 512 threads a block at most",
+        "design": "the reach-1 kernel's schedule and tables with a parameter block of 25 "
+                  "offsets and 9 colours, the reach-2 passes of level_passes.cuh (the level's "
+                  "form found by the host), the sweeps from the colours' point lists (every "
+                  "thread on a colour's points, interior points with their coefficients as "
+                  "scalars), two blocks of 256 threads an SM",
         "barriers_per_launch": t["per_operation"]["barriers_per_block"][0],
         "blocks_per_sm": t["per_operation"]["blocks_per_sm"],
         "per_operation_us": {key: v["total_us"]
                              for key, v in t["per_operation"]["operations"].items()},
+        "per_visit_us": {key: v["visit_us"] for key, v in t["per_pass"].items()},
     })
     # the 3d forms of the phase kernels (their own build of mgmc_visit.cu) on
     # the 64^3 posterior's levels 0 (63^3, 7-point) and 1 (31^3, 27-point
@@ -6003,24 +6150,65 @@ def main(argv=None) -> int:
                 "shape": {"chains": t["chains"], "vshape": t["vshape"],
                           "offsets": chk["offsets"], "colours": chk["colours"]},
                 "stencil_form": t["stencil_form"], "threads": t["threads"]})
+    # the shared-memory body on the distillation set-ups' shapes (the
+    # biharmonic hierarchy's 9-colour 63^2 and 31^2 at 28,529 chains, the 3d
+    # one's 27-point 15^3 at 17,593), launched by those set-ups (the
+    # deterministic sweep; the Gibbs sweep on no path); on 63^2 the generic
+    # body (the A/B reference, no path now) and the split route at one chain
+    # beside
     nine = biharmonic["nine_colour_sweeps"]
-    setup = biharmonic["main_path"]["setup_sweep_launches"]
+    bih_setup = biharmonic["setup_sweeps"]
+    vol_setup = volume["setup_sweeps"]
+    shapes = (("_9_colours", nine["timings"][0], bih_setup, "biharmonic main_path set-up"),
+              ("_9_colours_31", nine["timings_31"][0], bih_setup, "biharmonic main_path set-up"),
+              ("_27pt_15_cube", volume["setup_sweep_timings"][0], vol_setup,
+               "volume main_path set-up"))
     for name, key, kernel_line in (("sweep_batched", "sweep", 194),
                                    ("gibbs_sweep_batched", "gibbs", 246)):
+        for suffix, t, setup, setup_path in shapes:
+            on_path = key == "sweep"
+            launches = sum(r["launches"] for r in setup if r["vshape"] == t["vshape"]
+                           and r["chains"] == t["chains"]) if on_path else 0
+            err = max([r["max_abs_err"] for r in setup if r["vshape"] == t["vshape"]]
+                      + ([nine["max_abs_err"][f"{name}_smem"]] if suffix == "_9_colours" else []))
+            kernels.append({
+                "name": f"{name}_smem{suffix}", "route": "cuda",
+                "source": "multigridmc_tpu_torch/csrc/sor_sweep_smem.cu",
+                "replaces": f"multigridmc_tpu/ops/kernels/sor_pallas_v2.py:{kernel_line}",
+                "launches": launches, "path": setup_path if on_path else None,
+                "max_abs_err": err,
+                "against_generic_max_abs_err": max(
+                    [r.get("against_generic", 0.0) for r in setup if r["vshape"] == t["vshape"]]
+                    + ([nine["smem_against_generic"]] if suffix == "_9_colours" else [])),
+                "ms": t[f"{key}_ms"], "device_ms": t[f"{key}_device_ms"],
+                "events_over_device": t[f"{key}_events_over_device"],
+                "generic_ms": t[f"generic_{key}_ms"],
+                "generic_device_ms": t[f"generic_{key}_device_ms"],
+                "plain_ms": t[f"{key}_plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "bound_bytes": t["bound_bytes"], "library_ms": None,
+                "shape": {"chains": t["chains"], "b_batched": t["b_batched"],
+                          "vshape": t["vshape"], "offsets": t["offsets"],
+                          "colours": t["colours"]},
+                "per_pass_us": t["stamps"][key]["passes"],
+                "stamps": {k: v for k, v in t["stamps"][key].items() if k != "passes"},
+                "design": "one block per chain with x (zero halo) and the rhs in shared memory, "
+                          "copied in once by cp.async and written back once; each colour's "
+                          "points over all threads from a host-made table, interior points "
+                          "with the coefficients as scalars, the diagonal's reciprocal"})
+        # the generic body and the split route on the 9-colour 63^2 level
         for t in nine["timings"]:
-            route = t["routes"][key][0]
-            entry = f"{name}_{'generic' if route == 'block' else 'split'}"
-            on_path = route == "block" and key == "sweep"
+            split = t["routes"][key][0] == "split"
+            prefix = "" if split else "generic_"
+            entry = f"{name}_{'split' if split else 'generic'}"
             kernels.append({
                 "name": f"{entry}_9_colours", "route": "cuda",
                 "source": "multigridmc_tpu_torch/csrc/" + (
-                    "sor_sweep.cu" if route == "block" else "sor_sweep_cluster.cu"),
+                    "sor_sweep_cluster.cu" if split else "sor_sweep.cu"),
                 "replaces": f"multigridmc_tpu/ops/kernels/sor_pallas_v2.py:{kernel_line}",
-                "launches": setup.get(entry, 0) if on_path else 0,
-                "path": "biharmonic main_path set-up" if on_path else None,
+                "launches": 0, "path": None,
                 "max_abs_err": nine["max_abs_err"][entry],
-                "ms": t[f"{key}_ms"], "device_ms": t[f"{key}_device_ms"],
-                "events_over_device": t[f"{key}_events_over_device"],
+                "ms": t[f"{prefix}{key}_ms"], "device_ms": t[f"{prefix}{key}_device_ms"],
+                "events_over_device": t[f"{prefix}{key}_events_over_device"],
                 "plain_ms": t[f"{key}_plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "bound_bytes": t["bound_bytes"], "library_ms": None,
                 "shape": {"chains": t["chains"], "b_batched": t["b_batched"],

@@ -440,6 +440,76 @@ __device__ void level_sweep(const VisitParams& P, const LevelTables& T,
 #undef SWEEP
 }
 
+// ------------------------------------------------- the sweep by colour points
+// A sweep direction's colours as lists of points, for the subtree kernel's
+// reach-2 build, whose levels' 9 colours leave a row 3 or 4 points of a
+// colour (a warp per row would keep 28 of 32 lanes idle): per colour o of the
+// order its points (i << 16) | j, entries[start[o] .. start[o + 1]), the first
+// plain[o] of them interior (every coefficient whose neighbour lies in the
+// field equals the level's interior value, which the parameter block's
+// coeff_val holds for every offset: they read no coefficient plane), the rest
+// after them, each part in storage order; the block's threads take a colour's
+// points in turn.  The host builds them (mgmc_subtree.py::point_tables).
+struct PointTables {
+    const int* entries;
+    const int* start;  // n_order + 1
+    const int* plain;  // n_order
+};
+
+// One colour-ordered SOR sweep from the colours' point lists: the stencil in
+// registers as sweep_colours holds it, a point's loads before its arithmetic,
+// the terms in offset order with out-of-field terms skipped (the values
+// sweep_colours computes).  A barrier after each colour.
+template <int KMAX, bool BOX, bool COUNT, int REACH>
+__device__ __forceinline__ void sweep_points(const VisitParams& P, const PointTables& Q,
+                                             const float* __restrict__ coeffs,
+                                             const float* __restrict__ c, float* x) {
+    const Stencil<KMAX, BOX, REACH> st = stencil_regs<KMAX, BOX, REACH>(P);
+    const int H = P.H, W = P.W, n = H * W, d = P.diag_index;
+    const float omega = P.omega, dval = P.coeff_val[d];
+    const bool dplane = !P.coeff_const[d];
+    for (int o = 0; o < P.n_order; ++o) {
+        const int first = Q.start[o], count = Q.start[o + 1] - first, plain = Q.plain[o];
+        for (int t = threadIdx.x; t < count; t += blockDim.x) {
+            const int e = __ldg(Q.entries + first + t);
+            const int i = e >> 16, j = e & 0xffff, p = i * W + j;
+            const unsigned in = point_terms(st, row_terms(st, i, H), j, W);
+            float v[KMAX];
+#pragma unroll
+            for (int k = 0; k < KMAX; ++k) v[k] = ((in >> k) & 1u) ? x[p + st.off[k]] : 0.0f;
+            const float cv = c[p], xv = x[p];
+            float ax = 0.0f, dv;
+            if (t < plain) {
+#pragma unroll
+                for (int k = 0; k < KMAX; ++k)
+                    if ((in >> k) & 1u) ax += st.c[k] * v[k];
+                dv = dval;
+            } else {
+                float a[KMAX];
+#pragma unroll
+                for (int k = 0; k < KMAX; ++k)
+                    a[k] = ((in >> k) & (st.planes >> k) & 1u) ? coeffs[(size_t)k * n + p] : st.c[k];
+                dv = dplane ? coeffs[(size_t)d * n + p] : dval;
+#pragma unroll
+                for (int k = 0; k < KMAX; ++k)
+                    if ((in >> k) & 1u) ax += a[k] * v[k];
+            }
+            x[p] = xv + omega * (cv - ax) / dv;
+        }
+        block_sync<COUNT>();
+    }
+}
+
+// The reach-2 forms' sweep from point lists (FORM >= WIDE_FORM0).  Ends with a
+// barrier.
+template <int FORM, bool COUNT>
+__device__ void level_sweep_points(const VisitParams& P, const PointTables& Q,
+                                   const float* __restrict__ coeffs, const float* __restrict__ c,
+                                   float* x) {
+    static_assert(FORM >= WIDE_FORM0 && FORM < WIDE_FORM0 + WIDE_FORMS, "a reach-2 form");
+    sweep_points<WIDE_KMAX(FORM), WIDE_BOX(FORM), COUNT, 2>(P, Q, coeffs, c, x);
+}
+
 // --------------------------------------------------------- the low-rank terms
 // [lo, hi): the columns that the boxes holding row i span (lo >= hi: none),
 // from the host's table of spans where there is one (the 3d build has one
@@ -659,7 +729,8 @@ __device__ void rhs_pass(const VisitParams& P, int chain, int noise_mode,
 // g, chain, counter), as rhs_pass).  The block's threads take the groups in
 // turn, each group's f loaded before its draw; a lane's points of a colour
 // are contiguous in the scratch, and so are the lanes' (a warp's stores of a
-// colour cover whole sectors without staging).  Ends with a barrier.
+// colour cover whole sectors without staging).  3d: row i is (z, y), its
+// colours (wz z + w0 y + w1 j) mod n_colors.  Ends with a barrier.
 template <bool COUNT>
 __device__ void rhs_packed(const VisitParams& P, int chain, const float* __restrict__ f,
                            const float* __restrict__ ns, const float* __restrict__ xi,
@@ -673,12 +744,17 @@ __device__ void rhs_packed(const VisitParams& P, int chain, const float* __restr
         for (int q = 0; q < 4; ++q) fv[q] = 4 * g + q < W ? f[i * W + 4 * g + q] : 0.0f;
         float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
         if (P.noise_mode == 1) philox_normals4((uint32_t)q4, (uint32_t)chain, P.seed, P.counter, z);
+#if VISIT_DIM == 3
+        const int zr = i / P.Y, rowc = P.wz * zr + P.w0 * (i - zr * P.Y);
+#else
+        const int rowc = P.w0 * i;
+#endif
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
             const int j = 4 * g + q, p = i * W + j;
             if (j >= W) break;
             const float zq = P.noise_mode == 2 ? xi[p] : z[q];
-            cpk[packed_index(P, (P.w0 * i + P.w1 * j) % K, i, j)] =
+            cpk[packed_index(P, (rowc + P.w1 * j) % K, i, j)] =
                 fv[q] + (P.ns_const ? P.ns_val : ns[p]) * zq;
         }
         i += di;
@@ -983,7 +1059,10 @@ __device__ void restrict_pass(const VisitParams& P, const float* __restrict__ r,
 // staging buffer of the rhs pass, or null.  The residual and the restriction
 // follow the last direction.  Ends with a barrier.  FORM: the stencil's form
 // (see STENCIL_DISPATCH).
-template <int FORM, bool COUNT, int NDIR, class Tables>
+//
+// POINTS (the subtree kernel's reach-2 build, one direction): the sweep from
+// the colours' point lists *pts (sweep_points).
+template <int FORM, bool COUNT, int NDIR, class Tables, bool POINTS = false>
 __device__ void level_descend(const VisitParams& P, const Tables& tables, int ndir, int chain,
                               int noise_mode, unsigned long long seed,
                               unsigned long long counter, bool zero, bool sync_first, float* x,
@@ -991,7 +1070,7 @@ __device__ void level_descend(const VisitParams& P, const Tables& tables, int nd
                               const float* __restrict__ coeffs, const float* __restrict__ ns,
                               const float* __restrict__ xi, size_t xi_step,
                               const float* __restrict__ nlr, float* xi_rec, float* wv,
-                              float* s_btx, float* stage) {
+                              float* s_btx, float* stage, const PointTables* pts = nullptr) {
     const int nd = NDIR > 0 ? NDIR : ndir;
 #pragma unroll 1
     for (int d = 0; d < nd; ++d) {
@@ -1006,7 +1085,10 @@ __device__ void level_descend(const VisitParams& P, const Tables& tables, int nd
             block_sync<COUNT>();
             if (noise_mode) c = scr;
         }
-        level_sweep<FORM, COUNT>(P, T, coeffs, c, x);
+        if constexpr (POINTS)
+            level_sweep_points<FORM, COUNT>(P, *pts, coeffs, c, x);
+        else
+            level_sweep<FORM, COUNT>(P, T, coeffs, c, x);
         if (P.m) {
             btx_pass<COUNT>(P, T, x, s_btx);
             woodbury_pass<COUNT>(P, T, s_btx, noise_mode != 0, d == nd - 1, wv, x);
@@ -1020,14 +1102,15 @@ __device__ void level_descend(const VisitParams& P, const Tables& tables, int nd
 // state, the rest as level_descend (3d: the prolongation in a loop of its own
 // before the first rhs, in the same pass: the two write different fields).
 // Ends with a barrier.
-template <int FORM, bool COUNT, int NDIR, class Tables>
+template <int FORM, bool COUNT, int NDIR, class Tables, bool POINTS = false>
 __device__ void level_ascend(const VisitParams& P, const Tables& tables, int ndir, int chain,
                              int noise_mode, unsigned long long seed,
                              unsigned long long counter, float* x, const float* f, float* scr,
                              const float* xc, const float* __restrict__ coeffs,
                              const float* __restrict__ ns, const float* __restrict__ xi,
                              size_t xi_step, const float* __restrict__ nlr, float* xi_rec,
-                             float* wv, float* s_btx, float* stage) {
+                             float* wv, float* s_btx, float* stage,
+                             const PointTables* pts = nullptr) {
     const int nd = NDIR > 0 ? NDIR : ndir;
 #pragma unroll 1
     for (int d = 0; d < nd; ++d) {
@@ -1045,7 +1128,10 @@ __device__ void level_ascend(const VisitParams& P, const Tables& tables, int ndi
                      d == 0 ? xc : nullptr, false, stage);
 #endif
         block_sync<COUNT>();
-        level_sweep<FORM, COUNT>(P, T, coeffs, noise_mode ? scr : f, x);
+        if constexpr (POINTS)
+            level_sweep_points<FORM, COUNT>(P, *pts, coeffs, noise_mode ? scr : f, x);
+        else
+            level_sweep<FORM, COUNT>(P, T, coeffs, noise_mode ? scr : f, x);
         if (P.m) {
             btx_pass<COUNT>(P, T, x, s_btx);
             woodbury_pass<COUNT>(P, T, s_btx, noise_mode != 0, false, wv, x);

@@ -38,8 +38,9 @@
 //
 // The coarse sample is two nc x nc matrix-vector products per chain against
 // the inverse Cholesky factor (Linv and its transpose, both row major, shared
-// by all chains and resident in L2): one warp per output, lanes along the
-// row, a shuffle tree, only the triangle that is nonzero.
+// by all chains and resident in L2): a thread per output, only the triangle
+// that is nonzero, each product reading the layout in which a warp's loads
+// are consecutive.
 //
 // Bound: by bytes the launch must read f and write x of the finest sub-level
 // once per chain; everything else is meant to stay on the chip.  What the
@@ -64,8 +65,17 @@
 // to 9 colours) take a library of their own, this source built with
 // -DVISIT_REACH=2 as the phase kernels' reach-2 build is: the parameter block
 // of 25 offsets and 9 colours in the tables, and the reach-2 forms of
-// level_passes.cuh (WIDE_FORM0 ..), the level's form found at run time
-// (wide_form), so the reach-1 build keeps its kernel as it is.  A thread
+// level_passes.cuh (WIDE_FORM0 ..), the level's form found by the host
+// (SubLevel::form), so the reach-1 build keeps its kernel as it is.  Its
+// sweeps take the colours' point lists (sweep_points of level_passes.cuh):
+// at 9 colours a row holds 3 or 4 points of a colour, so a warp per row kept
+// 28 of its 32 lanes idle, and every point read its 25 coefficient planes;
+// from the lists all threads take a colour's points, and the interior points
+// (all but the edge) take the level's interior values held as coeff_val (on
+// an H100 at 256 chains the launch took 4.27 ms with the row sweeps and one
+// block of 512 threads an SM, 2.37 with the lists, 1.82 with the lists and
+// two blocks of 256 an SM, which the host launches at reach 2
+// (mgmc_subtree.py::REACH2_THREADS; PERF.md).  A thread
 // holds the box's 25 operands and coefficients: the production kernel is
 // bounded to SUBTREE_THREADS = 512 threads a block (128 registers a thread);
 // an instance bounded to 1024 (64 registers) serves launches of 1024 threads,
@@ -132,6 +142,10 @@ struct FieldLoc {
 // Per sub-level: the planes read per point, where its fields lie, and where
 // its tables lie in shared memory (word offsets from the start of the staged
 // tables; direction 0 the pre / descend sweep, 1 the post / ascend sweep).
+// At reach 2 also the colours' point lists of each direction (PointTables:
+// the entries at pts[dir] of the launch's point table in device memory; their
+// starts and interior counts at phead[dir] of the staged tables) and the
+// stencil form (level_passes.cuh).
 struct SubLevel {
     const float* coeffs;
     const float* ns;
@@ -143,6 +157,9 @@ struct SubLevel {
     int wm[2];
     int sroot;    // Sigma^1/2
     int rows[2];  // the colours' rows of each direction's sweep
+    long long pts[2];
+    int phead[2];
+    int form, pad;
 };
 
 struct SubtreeParams {
@@ -156,12 +173,15 @@ struct SubtreeParams {
     int table_words;        // staged tables at the start of dynamic shared memory (a multiple of 4)
     int warp_vec;           // word offset of the warps' slots (32 of warp_stride words)
     int warp_stride;
-    int pad;
+    int pass_width;         // words a block of pass_stamps
     // null, or (C, n_sched + 1 + STAMP_EXTRA), written by thread 0 of each
     // block: the %globaltimer (ns) before the first operation and after each,
     // then at kernel entry (before the table copy), at exit, the barriers the
     // block passed and the SM it ran on
     unsigned long long* stamps;
+    // null, or (C, pass_width) in the stamps build: the timer at kernel entry,
+    // then after each barrier the block passes (every pass of every operation)
+    unsigned long long* pass_stamps;
 };
 
 #define STAMP_EXTRA 4
@@ -194,75 +214,54 @@ __device__ __forceinline__ LevelTables level_tables(const SubLevel& L, int dir) 
             reinterpret_cast<const int*>(t + L.rows[dir])};
 }
 
-// x = Linv^T (xi + Linv f) for one chain; g takes xi + Linv f.  One warp per
-// output row, lanes along the row, only the triangle that is nonzero (the
-// second product two rows of a warp at a time, their L2 reads interleaved);
-// the normal of row i is drawn by lane t of the warp that owns it (its t-th
-// row) and handed to lane 0 by a shuffle.  Two barriers.
+// x = Linv^T (xi + Linv f) for one chain; g takes xi + Linv f.  A thread per
+// output, its loop along the other index reading the factor where the lanes'
+// outputs lie side by side: g[i] from the transpose's row j (Linv[i, j] for
+// consecutive i), x[j] from the factor's row i, only the triangle that is
+// nonzero, loads unrolled ahead of their sums (a warp per output row with a
+// shuffle tree waited on the L2 once per row: 18-21 us a sample on an H100,
+// PERF.md).  The normal of row i is the generator's group i / 4, element
+// i % 4, drawn by the thread of row i.  Two barriers.
 template <bool COUNT>
 __device__ void coarse_sample(const SubtreeParams& S, int chain, const float* __restrict__ Linv,
                               const float* __restrict__ LinvT, const float* f, float* g,
                               float* x, float* xi, long long cur, unsigned long long draw) {
     const int nc = S.nc;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-    for (int i0 = warp; i0 < nc; i0 += 32 * nwarps) {
-        float z = 0.0f;  // the normal of row i0 + lane * nwarps
-        const int iz = i0 + lane * nwarps;
-        if (iz < nc) {
-            if (S.noise_mode == 1) {
-                float z4[4];
-                philox_normals4((uint32_t)(iz >> 2), (uint32_t)chain, S.seed, S.counter + draw, z4);
-                const int q = iz & 3;
-                z = q == 0 ? z4[0] : (q == 1 ? z4[1] : (q == 2 ? z4[2] : z4[3]));
-                if (S.record) xi[cur + iz] = z;
-            } else if (S.noise_mode == 2) {
-                z = xi[cur + iz];
-            }
+    for (int i = threadIdx.x; i < nc; i += blockDim.x) {
+        float z = 0.0f;
+        if (S.noise_mode == 1) {
+            float z4[4];
+            philox_normals4((uint32_t)(i >> 2), (uint32_t)chain, S.seed, S.counter + draw, z4);
+            const int q = i & 3;
+            z = q == 0 ? z4[0] : (q == 1 ? z4[1] : (q == 2 ? z4[2] : z4[3]));
+            if (S.record) xi[cur + i] = z;
+        } else if (S.noise_mode == 2) {
+            z = xi[cur + i];
         }
-        for (int t = 0; t < 32; ++t) {
-            const int i = i0 + t * nwarps;
-            if (i >= nc) break;  // the same for the whole warp
-            // g[i] = z_i + sum_{j <= i} Linv[i, j] f[j]
-            float acc = 0.0f;
-            for (int j = lane; j <= i; j += 32) acc += Linv[(size_t)i * nc + j] * f[j];
-            acc = warp_total(acc);
-            const float zi = __shfl_sync(0xffffffffu, z, t);
-            if (lane == 0) g[i] = zi + acc;
-        }
+        // g[i] = z_i + sum_{j <= i} Linv[i, j] f[j]
+        float acc = 0.0f;
+#pragma unroll 8
+        for (int j = 0; j <= i; ++j) acc += LinvT[(size_t)j * nc + i] * f[j];
+        g[i] = z + acc;
     }
     block_sync<COUNT>();
-    // x[j] = sum_{i >= j} Linv[i, j] g[i], read from the transpose's row j;
-    // two rows at a time
-    for (int j = warp; j < nc; j += 2 * nwarps) {
-        const int j2 = j + nwarps;
-        float acc = 0.0f, acc2 = 0.0f;
-        for (int k = lane; j + k < nc; k += 32) {
-            acc += LinvT[(size_t)j * nc + j + k] * g[j + k];
-            if (j2 + k < nc) acc2 += LinvT[(size_t)j2 * nc + j2 + k] * g[j2 + k];
-        }
-        acc = warp_total(acc);
-        acc2 = warp_total(acc2);
-        if (lane == 0) {
-            x[j] = acc;
-            if (j2 < nc) x[j2] = acc2;
-        }
+    // x[j] = sum_{i >= j} Linv[i, j] g[i]
+    for (int j = threadIdx.x; j < nc; j += blockDim.x) {
+        float acc = 0.0f;
+#pragma unroll 8
+        for (int i = j; i < nc; ++i) acc += Linv[(size_t)i * nc + j] * g[i];
+        x[j] = acc;
     }
     block_sync<COUNT>();
 }
 
 #if VISIT_REACH == 2
-// the level's reach-2 form (level_passes.cuh): 6 / 7 a stencil of at most 13
-// offsets, 8 / 9 the 5x5 box in raster order; the odd ones read a coefficient
-// plane per point (mgmc_visit.py::stencil_form finds the same on the host)
-__device__ __forceinline__ int wide_form(const VisitParams& P) {
-    bool box = P.K == 25;
-    for (int k = 0; k < 25; ++k) box = box && P.dy[k] == k / 5 - 2 && P.dx[k] == k % 5 - 2;
-    return (box ? WIDE_FORM0 + 2 : WIDE_FORM0) + (any_plane(P) ? 1 : 0);
-}
-
-// CALL(FORM) for the level's form, each form compiled in
-#define LEVEL_FORM(P, CALL)                        \
-    switch (wide_form(P)) {                        \
+// CALL(FORM) for the level's reach-2 form (level_passes.cuh: 6 / 7 a stencil
+// of at most 13 offsets, 8 / 9 the 5x5 box in raster order; the odd ones read
+// a coefficient plane per point), which the host found
+// (mgmc_visit.py::stencil_form), each form compiled in
+#define LEVEL_FORM(L, CALL)                        \
+    switch ((L).form) {                            \
         case WIDE_FORM0: CALL(WIDE_FORM0); break;  \
         case WIDE_FORM0 + 1: CALL(WIDE_FORM0 + 1); break; \
         case WIDE_FORM0 + 2: CALL(WIDE_FORM0 + 2); break; \
@@ -270,7 +269,7 @@ __device__ __forceinline__ int wide_form(const VisitParams& P) {
     }
 #else
 // the reach-1 passes find the level's form themselves (STENCIL_DISPATCH)
-#define LEVEL_FORM(P, CALL) CALL(-1)
+#define LEVEL_FORM(L, CALL) CALL(-1)
 #endif
 
 // STAMPS: the measurement build, which writes the stamps (S.stamps not null)
@@ -282,7 +281,7 @@ __global__ void __launch_bounds__(BOUND)
 mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const int4* __restrict__ tables,
                     const int* __restrict__ sched, const float* __restrict__ Linv,
                     const float* __restrict__ LinvT, const float* f_all, float* x_all,
-                    float* ws_all, float* xi_all) {
+                    float* ws_all, float* xi_all, const int* __restrict__ points) {
     __shared__ float s_btx[MAX_LOWRANK];
     const int chain = blockIdx.x;
     const int n0 = S.lv[0].n;
@@ -297,7 +296,10 @@ mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const int4* __restr
         stamp(S, chain, S.n_sched + 1);
         if (threadIdx.x == 0) {
             pass_sync_count = 0;
-            pass_stamp_row = nullptr;  // the stamps of this kernel are per operation
+            // per operation in S.stamps; per pass where S.pass_stamps is set
+            pass_stamp_row = S.pass_stamps ? S.pass_stamps + (size_t)chain * S.pass_width
+                                           : nullptr;
+            if (pass_stamp_row != nullptr) pass_stamp_row[0] = global_timer();
         }
     }
 
@@ -336,24 +338,35 @@ mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const int4* __restr
                             xi_in ? xi_in + n : nullptr, xi_rec ? xi_rec + n : nullptr, wv);
         const bool last = li + 1 == S.NL;
         const auto one_direction = [&](int) { return T; };
+        using OneDirection = decltype(one_direction);
+#if VISIT_REACH == 2
+        // the sweep from the colours' point lists
+        const int* head = reinterpret_cast<const int*>(dyn_smem + L.phead[dir]);
+        const PointTables Q = {points + L.pts[dir], head, head + P.n_order + 1};
+#define POINT_SWEEP true
+#else
+        const PointTables Q = {};
+#define POINT_SWEEP false
+#endif
         if (dir == 0) {
             float* fc = locate(S, last ? S.cf : S.lv[li + 1].f, ws, nullptr);
 #define DESCEND(FORM)                                                                         \
-    level_descend<FORM, STAMPS, 1>(P, one_direction, 1, chain, S.noise_mode, S.seed,          \
-                                   S.counter + draw, op == OP_DESCEND_ZERO, false, x, f, scr, \
-                                   fc, L.coeffs, L.ns, xi_in, 0, nullptr, xi_rec, wv, s_btx,  \
-                                   nullptr)
-            LEVEL_FORM(P, DESCEND);
+    level_descend<FORM, STAMPS, 1, OneDirection, POINT_SWEEP>(                                \
+        P, one_direction, 1, chain, S.noise_mode, S.seed, S.counter + draw,                   \
+        op == OP_DESCEND_ZERO, false, x, f, scr, fc, L.coeffs, L.ns, xi_in, 0, nullptr,       \
+        xi_rec, wv, s_btx, nullptr, &Q)
+            LEVEL_FORM(L, DESCEND);
 #undef DESCEND
         } else {
             const float* xc = locate(S, last ? S.cx : S.lv[li + 1].x, ws, nullptr);
 #define ASCEND(FORM)                                                                          \
-    level_ascend<FORM, STAMPS, 1>(P, one_direction, 1, chain, S.noise_mode, S.seed,           \
-                                  S.counter + draw, x, f, scr, xc, L.coeffs, L.ns, xi_in, 0,  \
-                                  nullptr, xi_rec, wv, s_btx, nullptr)
-            LEVEL_FORM(P, ASCEND);
+    level_ascend<FORM, STAMPS, 1, OneDirection, POINT_SWEEP>(                                 \
+        P, one_direction, 1, chain, S.noise_mode, S.seed, S.counter + draw, x, f, scr, xc,    \
+        L.coeffs, L.ns, xi_in, 0, nullptr, xi_rec, wv, s_btx, nullptr, &Q)
+            LEVEL_FORM(L, ASCEND);
 #undef ASCEND
         }
+#undef POINT_SWEEP
         if (S.noise_mode) { cur += n + m; draw += m ? 2 : 1; }
         if (STAMPS) stamp(S, chain, s + 1);
     }
@@ -391,7 +404,7 @@ mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const int4* __restr
 #endif
 
 typedef void (*SubtreeKernelFn)(const SubtreeParams, const int4*, const int*, const float*,
-                                const float*, const float*, float*, float*, float*);
+                                const float*, const float*, float*, float*, float*, const int*);
 
 // the instance a launch of `threads` takes, or null where this library does
 // not hold it (the stamps build only at up to SUBTREE_THREADS)
@@ -463,10 +476,12 @@ extern "C" int mgmc_subtree_blocks_per_sm(int threads, int smem_bytes) {
     return blocks;
 }
 
+// points: the colours' point lists of the reach-2 sub-levels (null where
+// none has them)
 extern "C" int mgmc_subtree_sample(const SubtreeParams* S, const void* tables, const int* sched,
                                    const float* Linv, const float* LinvT, const float* f, float* x,
-                                   float* ws, float* xi, int threads, int smem_bytes,
-                                   void* stream) {
+                                   float* ws, float* xi, const int* points, int threads,
+                                   int smem_bytes, void* stream) {
     SubtreeKernelFn fn = instance(S->stamps != nullptr, threads);
     if (fn == nullptr) return (int)cudaErrorInvalidConfiguration;
     if (smem_bytes > 48 * 1024) {  // above what needs no opt-in
@@ -478,6 +493,6 @@ extern "C" int mgmc_subtree_sample(const SubtreeParams* S, const void* tables, c
         }
     }
     fn<<<S->C, threads, smem_bytes, (cudaStream_t)stream>>>(
-        *S, static_cast<const int4*>(tables), sched, Linv, LinvT, f, x, ws, xi);
+        *S, static_cast<const int4*>(tables), sched, Linv, LinvT, f, x, ws, xi, points);
     return (int)cudaGetLastError();
 }

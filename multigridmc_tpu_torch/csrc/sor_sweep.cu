@@ -41,10 +41,12 @@
 // PyTorch version can be fed the same normals.  No atomics: two launches with
 // the same seed and counter are bitwise equal.
 //
-// Since the sweeps of 2d reach-1 stencils of at most 9 offsets run on the
-// passes of level_passes.cuh (sor_sweep_passes.cu), these kernels take what
-// those do not: 3d fields, reach-2 and wider stencils.  The host launches them
-// on 2d fields only to hold the two against each other.
+// Since the sweeps of 2d reach-1 stencils run on the passes of
+// level_passes.cuh (sor_sweep_passes.cu), and the reach-2 and 3d stencils on
+// sor_sweep_smem.cu (a chain in shared memory) or on sor_sweep_passes.cu's
+// reach-2 and 3d builds, these kernels take what none of those does (2d
+// stencils of reach 3 and more, 3d reach 2); the host launches them on the
+// other shapes only to hold the bodies against each other.
 //
 // SWEEP_STAMPS_BUILD: the measurement build, a library of its own, taken only
 // where the host passes a stamps tensor, (C, SWEEP_STAMP_WIDTH) int64: per

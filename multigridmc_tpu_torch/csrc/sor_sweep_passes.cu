@@ -1,6 +1,9 @@
 // Colour-ordered SOR and Gibbs sweep kernels for NVIDIA Hopper (sm_90a),
-// float32, 2d, stencils of reach 1 with at most 9 offsets: the one-block route
-// built on the passes of level_passes.cuh.
+// float32, the one-block route built on the passes of level_passes.cuh: 2d
+// stencils of reach 1 with at most 9 offsets, and, in this source's reach-2
+// (-DVISIT_REACH=2) and 3d (-DVISIT_DIM=3) builds, the reach-2 and 3d
+// 27-point fields too large for sor_sweep_smem.cu (255^2 and 127^2 reach 2,
+// 31^3 27-point).
 //
 // Replace the Pallas kernels sweep_batched_v2 / gibbs_sweep_batched_v2 of
 // multigridmc_tpu/ops/kernels/sor_pallas_v2.py (and, through the raw-array
@@ -47,15 +50,64 @@
 // other point) from device memory, near the card's memory rate for that
 // traffic.
 //
+// The reach-2 and 3d builds take the stencil forms the phase kernels' builds
+// of the same flags take (level_passes.cuh: 6-9 at reach 2, 10-15 in 3d, one
+// kernel each), the parameter block of those builds (25 offsets and 9
+// colours; 27 offsets and the z extents) and their colour rows (3d: (z, y)
+// residue pairs); their kernels are bounded to 512 threads (a reach-2 or
+// 27-offset stencil's operands fill a thread's registers), and they have no
+// stamps build.  The host launches the 3d build for stencils of more than 7
+// offsets only (a 7-point 63^3 sweep at 32 chains took 0.74 ms a launch here
+// at 1024 threads, 0.86 at 512, against sor_sweep.cu's 0.64, on an H100:
+// PERF.md).
+//
 // SWEEP_STAMPS_BUILD: the measurement build, a library of its own, taken only
 // where the host passes a stamps tensor, (C, SWEEP_STAMP_WIDTH) int64, laid out
 // as sor_sweep.cu's (both in block_stamps.cuh): the timer at entry, after the rhs
 // pass and after each colour, at exit, the barriers passed, the SM.
 
+#ifndef VISIT_REACH
+#define VISIT_REACH 1
+#endif
+#ifndef VISIT_DIM
+#define VISIT_DIM 2
+#endif
+#if VISIT_DIM == 3
+#if VISIT_REACH != 1
+#error "the 3d build takes reach-1 stencils"
+#endif
+#define MAX_OFFSETS 27
+#elif VISIT_DIM != 2
+#error "VISIT_DIM is 2 or 3"
+#endif
+#if VISIT_REACH == 2
+#define MAX_OFFSETS 25
+#define MAX_COLORS 9
+#elif VISIT_REACH != 1
+#error "VISIT_REACH is 1 or 2"
+#endif
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "level_passes.cuh"
+
+#if VISIT_REACH == 2
+#define PASSES_FORM0 WIDE_FORM0
+#define PASSES_FORMS WIDE_FORMS
+#define PASSES_MAX_THREADS 512
+#elif VISIT_DIM == 3
+#define PASSES_FORM0 DIM3_FORM0
+#define PASSES_FORMS DIM3_FORMS
+#define PASSES_MAX_THREADS 512
+#else
+#define PASSES_FORM0 0
+#define PASSES_FORMS STENCIL_FORMS
+#define PASSES_MAX_THREADS MAX_THREADS
+#endif
+#if SWEEP_STAMPS_BUILD && (VISIT_REACH != 1 || VISIT_DIM != 2)
+#error "only the reach-1 2d build has a stamps build"
+#endif
 
 // the rows table is all a sweep reads of a level's tables
 __device__ __forceinline__ LevelTables rows_only(const int* rows) {
@@ -65,7 +117,7 @@ __device__ __forceinline__ LevelTables rows_only(const int* rows) {
 }
 
 template <int FORM, bool STAMPS>
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(PASSES_MAX_THREADS)
 passes_sweep_kernel(const __grid_constant__ VisitParams P, const int* __restrict__ rows,
                     float* x_all, const float* __restrict__ b_all,
                     const float* __restrict__ coeffs, unsigned long long* stamps) {
@@ -79,7 +131,7 @@ passes_sweep_kernel(const __grid_constant__ VisitParams P, const int* __restrict
 }
 
 template <int FORM, bool STAMPS>
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(PASSES_MAX_THREADS)
 passes_gibbs_kernel(const __grid_constant__ VisitParams P, const int* __restrict__ rows,
                     float* x_all, const float* __restrict__ f_all, float* scr_all,
                     const float* __restrict__ coeffs, const float* __restrict__ ns,
@@ -102,12 +154,26 @@ static const void* passes_kernel(int gibbs, int form) {
 #define FORM_KERNEL(F) \
     (gibbs ? (const void*)passes_gibbs_kernel<F, S> : (const void*)passes_sweep_kernel<F, S>)
     switch (form) {
+#if VISIT_REACH == 2
+        case 6: return FORM_KERNEL(6);
+        case 7: return FORM_KERNEL(7);
+        case 8: return FORM_KERNEL(8);
+        case 9: return FORM_KERNEL(9);
+#elif VISIT_DIM == 3
+        case 10: return FORM_KERNEL(10);
+        case 11: return FORM_KERNEL(11);
+        case 12: return FORM_KERNEL(12);
+        case 13: return FORM_KERNEL(13);
+        case 14: return FORM_KERNEL(14);
+        case 15: return FORM_KERNEL(15);
+#else
         case 0: return FORM_KERNEL(0);
         case 1: return FORM_KERNEL(1);
         case 2: return FORM_KERNEL(2);
         case 3: return FORM_KERNEL(3);
         case 4: return FORM_KERNEL(4);
         case 5: return FORM_KERNEL(5);
+#endif
         default: return nullptr;
     }
 #undef FORM_KERNEL
@@ -118,7 +184,15 @@ extern "C" int sor_passes_params_size() { return (int)sizeof(VisitParams); }
 
 extern "C" int sor_passes_stamp_width() { return SWEEP_STAMP_WIDTH; }
 
-extern "C" int sor_passes_stencil_forms() { return STENCIL_FORMS; }
+extern "C" int sor_passes_stencil_forms() { return PASSES_FORMS; }
+
+extern "C" int sor_passes_first_form() { return PASSES_FORM0; }
+
+extern "C" int sor_passes_reach() { return VISIT_REACH; }
+
+extern "C" int sor_passes_dim() { return VISIT_DIM; }
+
+extern "C" int sor_passes_max_threads() { return PASSES_MAX_THREADS; }
 
 extern "C" int sor_passes_stamps_build() { return SWEEP_STAMPS_BUILD; }
 
@@ -157,7 +231,8 @@ extern "C" int sor_passes_blocks_per_sm(int gibbs, int form, int threads) {
 static int launch(int gibbs, int form, bool stamps, int C, int threads, void** args,
                   void* stream) {
     const void* fn = passes_kernel(gibbs, form);
-    if (fn == nullptr || stamps != (bool)SWEEP_STAMPS_BUILD) return (int)cudaErrorInvalidValue;
+    if (fn == nullptr || stamps != (bool)SWEEP_STAMPS_BUILD || threads > PASSES_MAX_THREADS)
+        return (int)cudaErrorInvalidValue;
     cudaError_t e = cudaLaunchKernel(fn, dim3(C), dim3(threads), args, 0, (cudaStream_t)stream);
     if (e != cudaSuccess) cudaGetLastError();
     return (int)e;

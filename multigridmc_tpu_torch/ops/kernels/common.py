@@ -46,7 +46,8 @@ HEADERS = ("philox.cuh", "visit_phases.cuh", "level_passes.cuh", "sor_sweep.cuh"
 
 #: every kernel source under ``csrc/`` (``<name>.cu``)
 SOURCES = ("mgmc_visit", "mgmc_visit_stream", "mgmc_visit_split", "sor_sweep",
-           "sor_sweep_passes", "sor_sweep_cluster", "mgmc_subtree", "smem_probe")
+           "sor_sweep_passes", "sor_sweep_smem", "sor_sweep_cluster", "mgmc_subtree",
+           "smem_probe")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -56,7 +57,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: first)
 PHASE_STAMPS_FLAGS = ("-DPHASE_STAMPS_BUILD=1",)
 #: the flags of the sweep kernels' stamps builds, second libraries of
-#: ``csrc/sor_sweep_passes.cu`` and ``csrc/sor_sweep.cu``
+#: ``csrc/sor_sweep_passes.cu``, ``csrc/sor_sweep_smem.cu`` and
+#: ``csrc/sor_sweep.cu``
 SWEEP_STAMPS_FLAGS = ("-DSWEEP_STAMPS_BUILD=1",)
 
 #: the flags of the phase visit kernels' reach-2 build, a third library of
@@ -80,15 +82,18 @@ SUBTREE_REACH2_PARTS = {"production": SUBTREE_REACH2_FLAGS,
                         "block1024": SUBTREE_REACH2_FLAGS + ("-DSUBTREE_PART=2",)}
 
 #: every library the port builds: each source of :data:`SOURCES`, the stamps
-#: builds of ``mgmc_visit``, ``sor_sweep_passes`` and ``sor_sweep``, the
-#: reach-2 and 3d builds of ``mgmc_visit`` and the reach-2 build of
-#: ``mgmc_subtree`` in its three libraries (:data:`VARIANT_BUILDS`);
+#: builds of ``mgmc_visit``, ``sor_sweep_passes``, ``sor_sweep_smem`` and
+#: ``sor_sweep``, the reach-2 and 3d builds of ``mgmc_visit`` and of
+#: ``sor_sweep_passes`` and the reach-2 build of ``mgmc_subtree`` in its three
+#: libraries (:data:`VARIANT_BUILDS`);
 #: :func:`build_libraries` compiles them in parallel (``chip_smoke.py`` checks
 #: the stamps by default, and beside the production libraries their builds
 #: add no wall time)
 STAMPS_BUILDS = (("mgmc_visit", PHASE_STAMPS_FLAGS), ("sor_sweep_passes", SWEEP_STAMPS_FLAGS),
-                 ("sor_sweep", SWEEP_STAMPS_FLAGS))
-VARIANT_BUILDS = (("mgmc_visit", PHASE_REACH2_FLAGS), ("mgmc_visit", PHASE_DIM3_FLAGS)) + tuple(
+                 ("sor_sweep_smem", SWEEP_STAMPS_FLAGS), ("sor_sweep", SWEEP_STAMPS_FLAGS))
+VARIANT_BUILDS = (("mgmc_visit", PHASE_REACH2_FLAGS), ("mgmc_visit", PHASE_DIM3_FLAGS),
+                  ("sor_sweep_passes", PHASE_REACH2_FLAGS),
+                  ("sor_sweep_passes", PHASE_DIM3_FLAGS)) + tuple(
     ("mgmc_subtree", flags) for flags in SUBTREE_REACH2_PARTS.values())
 BUILDS = SOURCES + STAMPS_BUILDS + VARIANT_BUILDS
 

@@ -35,9 +35,10 @@ levels, 9 colours) take a build of their own, the source compiled with
 its stamps build and a 1024-thread instance, a library each):
 parameter blocks of 25 offsets and 9 colours
 (:class:`~.mgmc_visit.WideVisitParams`) in the tables, the reach-2 passes of
-``level_passes.cuh`` (forms 6-9, the level's form found at run time), at most
-:data:`REACH2_MAX_THREADS` threads a block; the reach-1 library stays as it
-is.  The host decides where each level's three fields (``x``,
+``level_passes.cuh`` (forms 6-9, the level's form found by the host), the
+sweeps from the colours' point lists (:func:`point_tables`), two blocks of
+:data:`REACH2_THREADS` an SM (:func:`reach2_limit`); the reach-1 library
+stays as it is.  The host decides where each level's three fields (``x``,
 the rhs scratch, ``f``) lie (:func:`place_fields`): in dynamic shared memory
 after the tables, from the coarsest level upwards while the granted size
 (:func:`~.common.dynamic_smem_limit`, less :func:`field_budget`'s shares)
@@ -144,6 +145,17 @@ MAX_THREADS = 512
 #: threads 4.258 (160 B spilled a thread), 256 threads 6.495, or 4.320 with
 #: the 63^2 fields in the workspace so that two blocks share an SM.
 REACH2_MAX_THREADS = 512
+#: Block size and placement of a reach-2 launch: two blocks of
+#: :data:`REACH2_THREADS` an SM, the fields placed under the share of an SM's
+#: shared memory that two blocks leave each (:func:`reach2_limit`; the
+#: bench's 63^2 fields go to the workspace).  Since the sweeps take the
+#: colours' point lists, measured on an NVIDIA H100 80GB HBM3 (700 W) by
+#: ``chip_smoke.py`` (``biharmonic.subtree_timing.variants``) at 256 chains:
+#: 1.816 device ms a launch, against 2.156 with one block of 512 threads and
+#: every field of 63^2 and below in shared memory (the rule that measured best
+#: with the row sweeps), 2.747 with one block of 256.
+REACH2_THREADS = 256
+REACH2_BLOCKS_PER_SM = 2
 
 #: per reach: the parameter block in the launch tables, and the build's
 #: libraries by part (the reach-1 build: one library of every instance; the
@@ -184,6 +196,8 @@ class SubLevel(ctypes.Structure):
         ("n", ctypes.c_int), ("plan", ctypes.c_int * 2), ("bval", ctypes.c_int),
         ("boff", ctypes.c_int), ("yval", ctypes.c_int * 2), ("yoff", ctypes.c_int * 2),
         ("wm", ctypes.c_int * 2), ("sroot", ctypes.c_int), ("rows", ctypes.c_int * 2),
+        ("pts", ctypes.c_longlong * 2), ("phead", ctypes.c_int * 2),
+        ("form", ctypes.c_int), ("pad", ctypes.c_int),
     ]
 
 
@@ -198,8 +212,8 @@ class SubtreeParams(ctypes.Structure):
         ("lv", SubLevel * MAX_SUB_LEVELS),
         ("cx", FieldLoc), ("cscr", FieldLoc), ("cf", FieldLoc),
         ("table_words", ctypes.c_int), ("warp_vec", ctypes.c_int),
-        ("warp_stride", ctypes.c_int), ("pad", ctypes.c_int),
-        ("stamps", ctypes.c_void_p),
+        ("warp_stride", ctypes.c_int), ("pass_width", ctypes.c_int),
+        ("stamps", ctypes.c_void_p), ("pass_stamps", ctypes.c_void_p),
     ]
 
 
@@ -240,9 +254,9 @@ def load_library(reach: int = 1, part: str = "production") -> ctypes.CDLL:
     lib.mgmc_subtree_blocks_per_sm.restype = i32
     lib.mgmc_subtree_attributes.argtypes = [i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
     lib.mgmc_subtree_attributes.restype = i32
-    # S, tables, sched, Linv, LinvT, f, x, ws, xi, threads, smem_bytes, stream
+    # S, tables, sched, Linv, LinvT, f, x, ws, xi, points, threads, smem_bytes, stream
     lib.mgmc_subtree_sample.argtypes = (
-        [ctypes.POINTER(SubtreeParams)] + [ptr] * 8 + [i32, i32, ptr])
+        [ctypes.POINTER(SubtreeParams)] + [ptr] * 9 + [i32, i32, ptr])
     lib.mgmc_subtree_sample.restype = i32
     return lib
 
@@ -318,6 +332,45 @@ def place_fields(level_sizes: Sequence[int], nc: int, budget_bytes: int):
     return levels, coarse, smem, ws
 
 
+def point_tables(level: FusedVisitLevel, order) -> dict:
+    """The colours' point lists of one sweep direction of a reach-2
+    sub-level (``PointTables`` of ``csrc/level_passes.cuh``), from the level's
+    float32 coefficient planes:
+
+    * ``entries``: int32, every point once, colour after colour of ``order``:
+      ``(i << 16) | j``; within a colour first the *interior* points, whose
+      every coefficient whose neighbour lies in the field equals the level's
+      interior value (the centre point's), then the others, each part in
+      storage order;
+    * ``head``: int32, the ``n_order + 1`` starts of the colours in
+      ``entries``, then per colour its number of interior points;
+    * ``cval``: float32, the interior values, which the launch's parameter
+      blocks hold as ``coeff_val`` of every offset."""
+    op = level.op
+    H, W = (int(v) for v in op.vshape)
+    K, n = len(op.offsets), H * W
+    if H >= 1 << 15 or W >= 1 << 16:
+        raise ValueError(f"a level of {op.vshape} does not fit the point lists' 16-bit indices")
+    c = level.coeffs.detach().cpu().to(torch.float32).numpy().reshape(K, n)
+    cval = c[:, (H // 2) * W + W // 2].copy()
+    ii, jj = (g.reshape(-1) for g in np.meshgrid(np.arange(H), np.arange(W), indexing="ij"))
+    inside = np.stack([(ii + dy >= 0) & (ii + dy < H) & (jj + dx >= 0) & (jj + dx < W)
+                       for dy, dx in ((int(a), int(b)) for a, b in op.offsets)])
+    plain = np.all((c == cval[:, None]) | ~inside, axis=0)
+    w0, w1 = (int(w) for w in level.coloring.weights[-2:])
+    colour = (w0 * ii + w1 * jj) % level.coloring.n_colors
+    p = np.arange(n)
+    entries, start, nplain = [], [0], []
+    for col in order:
+        sel = colour == int(col)
+        part = np.concatenate([p[sel & plain], p[sel & ~plain]])
+        entries.append((ii[part] << 16) | jj[part])
+        nplain.append(int(np.count_nonzero(sel & plain)))
+        start.append(start[-1] + part.size)
+    return {"entries": np.concatenate(entries).astype(np.int32),
+            "head": np.asarray(start + nplain, np.int32), "cval": cval}
+
+
 def launch_tables(levels: Sequence[FusedVisitLevel]):
     """What the kernel copies into shared memory once per launch, as 32-bit
     words: per sub-level the ``VisitParams`` of both directions (the pre sweep
@@ -329,21 +382,54 @@ def launch_tables(levels: Sequence[FusedVisitLevel]):
     ``m + 1`` starts of the columns), ``W`` of both directions and
     ``Sigma^{1/2}``; then 32 warps' slots of the largest ``m`` words each.
 
-    Returns ``(words, offsets, warp_vec, warp_stride)``: ``words`` an int32
-    array whose length is a multiple of 4, ``offsets`` per level a dict of the
-    word offsets that ``SubLevel`` holds (``plan``, ``yval``, ``yoff``, ``wm``
-    and ``rows`` per direction)."""
+    Reach-2 sub-levels also get their colours' point lists (:func:`point_tables`):
+    the parameter blocks hold the interior values as ``coeff_val`` of every
+    offset (a plane's ``coeff_val`` is read nowhere else), the tables each
+    direction's ``head``, and the entries go to a table of their own in device
+    memory.
+
+    Returns ``(words, offsets, warp_vec, warp_stride, points)``: ``words`` an
+    int32 array whose length is a multiple of 4, ``offsets`` per level a dict
+    of the word offsets that ``SubLevel`` holds (``plan``, ``yval``, ``yoff``,
+    ``wm``, ``rows`` and ``phead`` per direction; ``pts`` per direction the
+    offset of its entries in ``points``, -1 for none),
+    ``points`` the int32 entries of every reach-2 sub-level, one direction
+    after the other."""
     words = TableWords()
     plans = [[lv._build_params(1, order, True, 0) for order in (lv.pre_order, lv.post_order)]
              for lv in levels]
+    lists = [[point_tables(lv, order) for order in (lv.pre_order, lv.post_order)]
+             if lv.reach == 2 else None for lv in levels]
+    for P2, L2 in zip(plans, lists):
+        for P, pl in zip(P2, L2 or ()):
+            for k, v in enumerate(pl["cval"]):
+                P.coeff_val[k] = float(v)
     # first the parameter blocks: 8-byte aligned
     offsets = [{"plan": [words.put(np.frombuffer(bytes(P), np.int32)) for P in P2]}
                for P2 in plans]
-    for lv, off in zip(levels, offsets):
+    points, used = [], 0
+    for lv, off, L2 in zip(levels, offsets, lists):
         off.update(stage_level(words, lv, (lv.pre_order, lv.post_order)))
+        off["pts"], off["phead"] = [-1, -1], [0, 0]
+        for d, pl in enumerate(L2 or ()):
+            off["phead"][d] = words.put(pl["head"])
+            off["pts"][d] = used
+            points.append(pl["entries"])
+            used += pl["entries"].size
     warp_stride = max([lv.op.m_lowrank for lv in levels] + [1])
     warp_vec = words.put(np.zeros(32 * warp_stride, np.float32))
-    return words.words(), offsets, warp_vec, warp_stride
+    points = np.concatenate(points) if points else np.zeros(0, np.int32)
+    return words.words(), offsets, warp_vec, warp_stride, points
+
+
+def reach2_limit(limit_bytes: int) -> int:
+    """The dynamic shared memory a reach-2 block may take: what the card
+    grants a block (``limit_bytes``), at most the share of an SM that leaves
+    room for :data:`REACH2_BLOCKS_PER_SM` blocks (``mgmc_visit.SM_SHARED_BYTES``
+    less ``BLOCK_RESERVED_BYTES`` a block)."""
+    from .mgmc_visit import BLOCK_RESERVED_BYTES, SM_SHARED_BYTES
+
+    return min(int(limit_bytes), SM_SHARED_BYTES // REACH2_BLOCKS_PER_SM - BLOCK_RESERVED_BYTES)
 
 
 def field_budget(limit_bytes: int, table_words: int) -> int:
@@ -405,15 +491,16 @@ class SubtreeKernel:
         self.schedule = subtree_schedule(len(self.levels), self.cycle)
         self.level_sizes = [int(np.prod(lv.op.vshape)) for lv in self.levels]
         #: threads per block: by the finest sub-level's size, as the visit kernels
-        self.threads = min(default_threads(self.level_sizes[0]),
-                           REACH2_MAX_THREADS if self.reach == 2 else MAX_THREADS)
-        self._tables, self._table_offsets, self._warp_vec, self._warp_stride = (
-            launch_tables(self.levels))
+        self.threads = (REACH2_THREADS if self.reach == 2 else
+                        min(default_threads(self.level_sizes[0]), MAX_THREADS))
+        (self._tables, self._table_offsets, self._warp_vec, self._warp_stride,
+         self._points) = launch_tables(self.levels)
         # the placement under the card's limit; if the probe is refused the
         # shared memory this placement needs, the one that needs no opt-in
         table_words = self._tables.size
+        limit = dynamic_smem_limit(self.device)
         budgets = [smem_budget] if smem_budget is not None else [
-            field_budget(dynamic_smem_limit(self.device), table_words),
+            field_budget(reach2_limit(limit) if self.reach == 2 else limit, table_words),
             field_budget(DEFAULT_SMEM_BYTES, table_words)]
         for budget in budgets:
             self.smem_budget = max(int(budget), 0)
@@ -497,11 +584,13 @@ class SubtreeKernel:
 
     # -------------------------------------------------- kernel parameters
     def _device_tables(self):
-        """The launch tables and the schedule as device tensors."""
+        """The launch tables, the schedule and the reach-2 point lists (None
+        for none) as device tensors."""
         if "tables" not in self._device_cache:
             self._device_cache["tables"] = (
                 torch.from_numpy(self._tables).to(self.device),
-                torch.tensor(self.schedule, dtype=torch.int32).reshape(-1).to(self.device))
+                torch.tensor(self.schedule, dtype=torch.int32).reshape(-1).to(self.device),
+                torch.from_numpy(self._points).to(self.device) if self._points.size else None)
         return self._device_cache["tables"]
 
     def _params(self, C: int, noise_mode: int, record: bool, philox) -> SubtreeParams:
@@ -519,6 +608,7 @@ class SubtreeKernel:
         S.ws_stride, S.xi_stride = self._ws_floats, self.count_noise()
         S.table_words, S.warp_vec, S.warp_stride = (
             self._tables.size, self._warp_vec, self._warp_stride)
+        S.pass_width = barrier_count(self) + 1
         for li, (lv, locs, offs) in enumerate(zip(self.levels, self._level_locs,
                                                   self._table_offsets)):
             D = S.lv[li]
@@ -532,6 +622,7 @@ class SubtreeKernel:
                 loc = getattr(D, name)
                 loc.where, loc.off = where, off
             D.n = self.level_sizes[li]
+            D.form = lv.stencil_form
         for name, (where, off) in zip(("cx", "cscr", "cf"), self._coarse_locs):
             loc = getattr(S, name)
             loc.where, loc.off = where, off
@@ -559,6 +650,61 @@ def barrier_count(kernel: "SubtreeKernel", noise: bool = True) -> int:
         else:
             count += int(noise or op == OP_DESCEND_ZERO) + colours + lowrank + 2
     return count
+
+
+def pass_names(kernel: "SubtreeKernel", noise: bool = True) -> List[Tuple[int, str]]:
+    """The passes of one launch in the order the blocks pass their barriers
+    (:func:`barrier_count` of them): ``(s, name)``, ``s`` the operation's index
+    in the schedule (-1 for the table copy), ``name`` the pass that ends at the
+    barrier: a descend's ``rhs`` (where noise is on or x is zeroed), ``colour
+    o`` per colour of its order (by position), ``B^T x`` and ``Woodbury``
+    (where m > 0), ``residual`` and ``restriction``; an ascend's
+    ``prolongation and rhs``, its colours and the two low-rank passes; a coarse
+    sample's two products."""
+    names = [(-1, "table copy")]
+    for s, (op, li) in enumerate(kernel.schedule):
+        if op == OP_COARSE:
+            names += [(s, "coarse g = xi + Linv f"), (s, "coarse x = Linv^T g")]
+            continue
+        lv = kernel.levels[li]
+        colours = [f"colour {o}" for o in range(len(lv.post_order if op == OP_ASCEND
+                                                    else lv.pre_order))]
+        lowrank = ["B^T x", "Woodbury"] if lv.op.m_lowrank else []
+        if op == OP_ASCEND:
+            passes = ["prolongation and rhs"] + colours + lowrank
+        else:
+            passes = (["rhs"] if noise or op == OP_DESCEND_ZERO else []) + colours + lowrank + [
+                "residual", "restriction"]
+        names += [(s, name) for name in passes]
+    return names
+
+
+def pass_times(kernel: "SubtreeKernel", pass_stamps, noise: bool = True) -> dict:
+    """Where one launch's time went by pass, from the ``pass_stamps`` it
+    wrote (:func:`subtree_sample`; the timer at entry and after each barrier),
+    in microseconds: per (operation, level shape) of the schedule and per pass
+    of :func:`pass_names` the median over the operations of the pass's time
+    (each the median over the blocks), their number and their sum; per
+    (operation, level shape) ``visit_us``, the sum of those medians (one
+    operation's time)."""
+    raw = np.asarray(torch.as_tensor(pass_stamps).cpu().numpy()).astype(np.float64)
+    names = pass_names(kernel, noise)
+    per = np.median(np.diff(raw[:, :len(names) + 1], axis=1), axis=0) / 1e3
+    groups: Dict[str, Dict[str, List[float]]] = {}
+    for (s, name), us in zip(names, per):
+        if s < 0:
+            key = "table copy"
+        else:
+            op, li = kernel.schedule[s]
+            shape = kernel.coarse_vshape if op == OP_COARSE else kernel.levels[li].op.vshape
+            key = f"{OP_NAMES[op]} {'x'.join(map(str, shape))}"
+        groups.setdefault(key, {}).setdefault(name, []).append(float(us))
+    out = {}
+    for key, passes in groups.items():
+        rows = {name: {"count": len(v), "median_us": float(np.median(v)),
+                       "total_us": float(np.sum(v))} for name, v in passes.items()}
+        out[key] = {"passes": rows, "visit_us": sum(r["median_us"] for r in rows.values())}
+    return out
 
 
 def operation_times(kernel: "SubtreeKernel", stamps) -> dict:
@@ -660,7 +806,8 @@ def subtree_sample_plain(kernel: SubtreeKernel, f: torch.Tensor,
 # ------------------------------------------------------------------ wrapper
 def subtree_sample(kernel: SubtreeKernel, f: torch.Tensor, xi: Optional[torch.Tensor] = None,
                    philox: Optional[Tuple[int, int]] = None, record: bool = False,
-                   stamps: Optional[torch.Tensor] = None):
+                   stamps: Optional[torch.Tensor] = None,
+                   pass_stamps: Optional[torch.Tensor] = None):
     """One subtree sample of all chains; ``f`` is ``(C, *kernel.vshape)``.
 
     Noise: ``philox=(seed, first counter)`` for the in-kernel generator (CUDA
@@ -674,7 +821,9 @@ def subtree_sample(kernel: SubtreeKernel, f: torch.Tensor, xi: Optional[torch.Te
     the card's global timer in ns before the first operation of the schedule
     and after each, then at kernel entry and at exit, the barriers the block
     passed and the SM it ran on (:func:`operation_times`); ``None`` on every
-    production call.
+    production call.  ``pass_stamps`` (with ``stamps`` only): an int64 tensor
+    of shape ``(C, barrier_count(kernel) + 1)`` that receives per chain the
+    timer at entry and after each barrier (:func:`pass_times`).
 
     CPU tensors go to :func:`subtree_sample_plain`.  CUDA tensors launch the
     kernel or raise."""
@@ -697,6 +846,13 @@ def subtree_sample(kernel: SubtreeKernel, f: torch.Tensor, xi: Optional[torch.Te
                                or tuple(stamps.shape) != (C, width)
                                or not stamps.is_contiguous()):
         raise ValueError(f"stamps must be a contiguous int64 ({C}, {width}) tensor on {f.device}")
+    pass_width = barrier_count(kernel) + 1
+    if pass_stamps is not None and (stamps is None or pass_stamps.dtype != torch.int64
+                                    or pass_stamps.device != f.device
+                                    or tuple(pass_stamps.shape) != (C, pass_width)
+                                    or not pass_stamps.is_contiguous()):
+        raise ValueError(f"pass_stamps (with stamps) must be a contiguous int64 ({C}, "
+                         f"{pass_width}) tensor on {f.device}")
     tensors = {"f": f} if xi is None else {"f": f, "xi": xi}
     for name, t in tensors.items():
         if t.device != kernel.Linv.device:
@@ -709,8 +865,8 @@ def subtree_sample(kernel: SubtreeKernel, f: torch.Tensor, xi: Optional[torch.Te
             raise ValueError(f"{name} must be contiguous")
     noise_mode = 1 if philox is not None else (2 if xi is not None else 0)
     S = kernel._params(C, noise_mode, record, philox)
-    S.stamps = _ptr(stamps)
-    tables, sched = kernel._device_tables()
+    S.stamps, S.pass_stamps = _ptr(stamps), _ptr(pass_stamps)
+    tables, sched, points = kernel._device_tables()
     lib = launch_library(kernel.reach, stamps is not None, kernel.threads)
     x = torch.empty_like(f)
     ws = torch.empty((C, max(kernel._ws_floats, 1)), dtype=torch.float32, device=f.device)
@@ -721,7 +877,7 @@ def subtree_sample(kernel: SubtreeKernel, f: torch.Tensor, xi: Optional[torch.Te
         err = lib.mgmc_subtree_sample(
             ctypes.byref(S), tables.data_ptr(), sched.data_ptr(), kernel.Linv.data_ptr(),
             kernel.LinvT.data_ptr(), f.data_ptr(), x.data_ptr(), ws.data_ptr(), _ptr(xi),
-            kernel.threads, kernel.smem_bytes, stream)
+            _ptr(points), kernel.threads, kernel.smem_bytes, stream)
     launch_counts[KERNEL_NAMES[kernel.reach]] += 1
     if err != 0:
         raise RuntimeError(f"subtree kernel launch failed: CUDA error {err}")

@@ -22,15 +22,29 @@ posterior operator stay outside the kernel, in the callers
 Two hand-written CUDA implementations compute the same sweep, and the launch
 takes one of them by its **route** (:func:`sweep_route`):
 
-* ``"block"``: one thread block per chain, the field in global memory, a
-  block barrier between colour phases - for many chains, where one block per
-  chain fills the card.  Its kernels have two bodies (:func:`sweep_body`): for
-  2d stencils of reach 1 with at most 9 offsets the passes of
-  ``csrc/level_passes.cuh`` (``csrc/sor_sweep_passes.cu``: the stencil in
-  registers, several points per lane in flight, each colour's rows over all
-  warps from a rows table, one kernel per stencil form, the block size by
-  chain count, :func:`sweep_threads`), for 3d fields and wider stencils the
-  generic body of ``csrc/sor_sweep.cu``;
+* ``"block"``: one thread block per chain, a block barrier between colour
+  phases - for many chains, where one block per chain fills the card.  Its
+  kernels have three bodies (:func:`sweep_body`):
+
+  - ``"passes"``, the passes of ``csrc/level_passes.cuh``
+    (``csrc/sor_sweep_passes.cu``: the fields in device memory, the stencil in
+    registers, several points per lane in flight, each colour's rows over all
+    warps from a rows table, one kernel per stencil form, the block size by
+    chain count, :func:`sweep_threads`) for 2d stencils of reach 1 with at
+    most 9 offsets, and, in that source's reach-2 and 3d builds
+    (:func:`passes_build`), for the reach-2 fields and the 3d fields of more
+    than 7 offsets that do not fit shared memory (255^2 and 127^2 reach 2,
+    31^3 27-point);
+  - ``"smem"``, ``csrc/sor_sweep_smem.cu`` for the reach-2 and 3d fields whose
+    chain fits a block's shared memory (:func:`smem_fits`: the distillation
+    set-up's 63^2, 31^2 and 15^3): ``x`` with a zero halo and the rhs copied in
+    once, every colour phase on shared memory, each colour's points over all
+    threads from a table the host builds (:func:`smem_tables`), ``x`` written
+    back once;
+  - ``"generic"``, ``csrc/sor_sweep.cu``: every stencil the two others do not
+    take (2d reach 3 and more, 3d reach 2, 3d fields of at most 7 offsets too
+    large for shared memory: 63^3), and the reference that ``chip_smoke.py``
+    holds the two others against (``1e-6``);
 * ``"split"``: ``csrc/sor_sweep_cluster.cu``, each chain split over a
   thread-block cluster of ``S`` blocks, each block's band of rows (2d) or
   planes (3d) in shared memory, the halo read from the neighbouring blocks'
@@ -54,8 +68,9 @@ shared) and ``x`` and write ``x`` once - three passes over the field,
 vary in space once.  The Gibbs kernel's scratch field for ``c`` and whatever
 the colour phases read again are traffic to L2 on top of that.
 
-Both one-block sources have a stamps build, a library of its own
-(``common.SWEEP_STAMPS_FLAGS``), that times the Gibbs rhs pass and each colour
+The one-block sources have a stamps build, a library of its own
+(``common.SWEEP_STAMPS_FLAGS``; the passes body's reach-1 build only), that
+times the Gibbs rhs pass (the shared-memory body: the copy-in) and each colour
 phase of a launch (:func:`sweep_pass_times`).
 
 Beside each kernel stands its **plain PyTorch version**
@@ -98,15 +113,48 @@ MAX_COLORS = 9
 #: thread block per chain, and each chain split over a thread-block cluster
 SOURCE_NAME = "sor_sweep"
 PASSES_SOURCE_NAME = "sor_sweep_passes"
+SMEM_SOURCE_NAME = "sor_sweep_smem"
 SPLIT_SOURCE_NAME = "sor_sweep_cluster"
 
-#: the two bodies of the one-block route: the passes of ``level_passes.cuh``
-#: (``sor_sweep_passes.cu``) and the generic body (``sor_sweep.cu``)
-BODIES = ("passes", "generic")
-#: the most offsets and colours the passes take (``MAX_OFFSETS``,
-#: ``MAX_COLORS`` of ``visit_phases.cuh``)
+#: the three bodies of the one-block route: the passes of ``level_passes.cuh``
+#: (``sor_sweep_passes.cu``), the shared-memory body (``sor_sweep_smem.cu``)
+#: and the generic body (``sor_sweep.cu``)
+BODIES = ("passes", "smem", "generic")
+#: the most offsets and colours the passes' reach-1 build takes
+#: (``MAX_OFFSETS``, ``MAX_COLORS`` of ``visit_phases.cuh``)
 PASSES_MAX_OFFSETS = 9
 PASSES_MAX_COLORS = 8
+#: the most offsets of a reach-2 stencil that is not the 5x5 box (the reach-2
+#: forms 6 / 7 of ``level_passes.cuh``)
+WIDE_MAX_OFFSETS = 13
+#: the block bound of the passes' reach-2 and 3d builds (``PASSES_MAX_THREADS``)
+PASSES_WIDE_MAX_THREADS = 512
+#: the fewest offsets of a 3d stencil the passes' 3d build takes where the field
+#: does not fit shared memory: a 7-point 63^3 sweep at 32 chains took 0.74 ms a
+#: launch on it (1024 threads; 0.86 at 512) against the generic body's 0.64 on
+#: an H100 (PERF.md), the 27-point 31^3 0.115 against 0.481
+PASSES_DIM3_MIN_OFFSETS = 8
+
+#: The shared-memory body takes a field whose block needs at most
+#: ``1 / SMEM_BLOCKS_PER_SM`` of the dynamic shared memory the card grants a
+#: block (:func:`smem_fits`), so that at least that many blocks share an SM;
+#: on an H100, 58,112 bytes: the 63^2 (51,852 bytes with its halo of 2, the
+#: widest padding and the table), 31^2 and 15^3 (55,900) fields of the
+#: distillation set-ups fit, 127^2 at reach 2 and 31^3 do not.
+SMEM_BLOCKS_PER_SM = 4
+#: the largest block of the shared-memory body (``SMEM_MAX_THREADS``), and the
+#: largest the host takes where the chains take more than one wave
+#: (:func:`smem_threads`)
+SMEM_MAX_THREADS = 512
+SMEM_WAVES_THREADS = 256
+#: the most columns of zeros the shared-memory body's padded ``x`` may add on
+#: the right beyond its halo, so that a warp's points of a colour fall on
+#: distinct banks (:func:`smem_tables` picks the width); the fit rule counts
+#: them all
+SMEM_PITCH_SLACK = 8
+#: what a plan on the CPU, where nothing is launched, takes as the card's
+#: grant: an H100's (232,448 bytes), so that it names the body the card takes
+CPU_SMEM_LIMIT = 232448
 #: int64 words per block of the one-block kernels' stamps (``SWEEP_STAMP_WIDTH``
 #: of ``block_stamps.cuh``): the timer at entry, after the rhs pass and up to
 #: ``MAX_COLORS`` colour phases and at exit, the barriers passed, the SM; the
@@ -114,8 +162,10 @@ PASSES_MAX_COLORS = 8
 #: (``visit_phases.cuh``: 8)
 SWEEP_STAMP_WIDTH = 2 + MAX_COLORS + 3
 PASSES_STAMP_WIDTH = 2 + PASSES_MAX_COLORS + 3
-#: the stamps width of each one-block body
-STAMP_WIDTHS = {"generic": SWEEP_STAMP_WIDTH, "passes": PASSES_STAMP_WIDTH}
+#: the stamps width of each one-block body (the shared-memory body's is the
+#: generic body's: ``sor_sweep.cuh``, 9 colours)
+STAMP_WIDTHS = {"generic": SWEEP_STAMP_WIDTH, "smem": SWEEP_STAMP_WIDTH,
+                "passes": PASSES_STAMP_WIDTH}
 
 #: Block sizes of the passes body (:func:`sweep_threads`), from ``chip_smoke.py
 #: --phases sweep_threads`` (device ms per launch at 256 / 512 / 1024 threads,
@@ -168,8 +218,8 @@ SPLIT_TABLE_INTS = MAX_COLORS * MAX_COLORS
 #: Launches of at most this many chains take the split route where its bands
 #: fit and its cluster schedules, more take one block per chain, by kernel and
 #: by the stencil's class (:func:`split_stencil`: the passes body's stencils of
-#: at most 5 offsets, its stencils of 6-9 offsets, and the generic body's 3d
-#: fields and wider stencils; :func:`split_max_chains`).  Of the cluster
+#: at most 5 offsets, its stencils of 6-9 offsets, 3d fields, and 2d stencils
+#: of reach 2 and wider; :func:`split_max_chains`).  Of the cluster
 #: sizes that fit, the route takes the one of least
 #: ``waves * (1 / S + SPLIT_WAVE_FIXED)``: a launch of ``C`` chains runs in
 #: ``waves = ceil(C / active)`` waves of clusters (``active``: the clusters of
@@ -190,22 +240,29 @@ SPLIT_TABLE_INTS = MAX_COLORS * MAX_COLORS
 #: 32: 0.0707 against 0.0829), up to 16 for the 9-point Gibbs sweep (127^2:
 #: 0.0218 against 0.0261), and at no count for the 9-point sweep (127^2, one
 #: chain: 0.0194 against 0.0159, where 255^2 takes 0.0244 against 0.0440: a
-#: class's threshold is the least of its fields'); against the generic body up
-#: to 64 chains for both kernels (63^3 at 64: 0.458 against 0.650 ms, at 132
-#: 0.829 against 0.664; 63^2 reach 2 at 132: 0.062 against 0.053); PERF.md
-#: section 6 holds the table.
+#: class's threshold is the least of its fields'); on 3d fields (the 63^3
+#: 7-point field, against the generic body) up to 64 chains for both kernels
+#: (63^3 at 64: 0.458 against 0.650 ms, at 132 0.829 against 0.664); on 2d
+#: stencils of reach 2 (the 63^2 13-point field, against the shared-memory
+#: body) at no count.  (The two were one class, measured on the generic body,
+#: up to 64 chains both, until the shared-memory body took the reach-2 field:
+#: on it the field's sweep took the split route within 0.90 of one block's
+#: time at 32 chains and 0.898-0.902 at 64, a threshold no table decides.)
+#: PERF.md section 6 holds the table.
 SPLIT_MAX_CHAINS: Dict[Tuple[str, str], int] = {
     ("sweep", "5-point"): 16, ("gibbs", "5-point"): 32,
     ("sweep", "9-point"): 0, ("gibbs", "9-point"): 16,
-    ("sweep", "generic"): 64, ("gibbs", "generic"): 64}
+    ("sweep", "3d"): 64, ("gibbs", "3d"): 64,
+    ("sweep", "reach-2"): 0, ("gibbs", "reach-2"): 0}
 SPLIT_WAVE_FIXED = 0.025
 
 #: kernel launches made by the wrappers (and only where they launch); the
-#: ``_split`` entries count the split route, the ``_generic`` entries the
-#: one-block route's generic body (3d fields, wider stencils), the entries
-#: without a suffix its passes body
+#: ``_split`` entries count the split route, the ``_smem`` entries the
+#: one-block route's shared-memory body, the ``_generic`` entries its generic
+#: body, the entries without a suffix its passes body (every build)
 launch_counts: Dict[str, int] = {
     "sweep_batched": 0, "gibbs_sweep_batched": 0,
+    "sweep_batched_smem": 0, "gibbs_sweep_batched_smem": 0,
     "sweep_batched_generic": 0, "gibbs_sweep_batched_generic": 0,
     "sweep_batched_split": 0, "gibbs_sweep_batched_split": 0,
     "fused_sor_sweep": 0, "fused_sor_sweep_batched": 0,
@@ -233,6 +290,31 @@ class SweepParams(ctypes.Structure):
         ("wx", ctypes.c_int), ("jstride", ctypes.c_int),
         ("n_order", ctypes.c_int),
         ("order", ctypes.c_int * MAX_COLORS),
+        ("omega", ctypes.c_float),
+        ("noise_mode", ctypes.c_int),
+        ("ns_const", ctypes.c_int),
+        ("ns_val", ctypes.c_float),
+        ("b_batched", ctypes.c_int),
+        ("seed", ctypes.c_ulonglong),
+        ("counter", ctypes.c_ulonglong),
+    ]
+
+
+class SmemSweepParams(ctypes.Structure):
+    """Mirror of ``struct SmemSweepParams`` in ``csrc/sor_sweep_smem.cu``."""
+
+    _fields_ = [
+        ("C", ctypes.c_int), ("Z", ctypes.c_int), ("Y", ctypes.c_int), ("X", ctypes.c_int),
+        ("RZ", ctypes.c_int), ("R", ctypes.c_int),
+        ("PZ", ctypes.c_int), ("PY", ctypes.c_int), ("PX", ctypes.c_int),
+        ("K", ctypes.c_int), ("diag_index", ctypes.c_int),
+        ("soff", ctypes.c_int * MAX_OFFSETS),
+        ("cval", ctypes.c_float * MAX_OFFSETS),
+        ("rdiag", ctypes.c_float),
+        ("planes", ctypes.c_uint),
+        ("n_order", ctypes.c_int),
+        ("start", ctypes.c_int * (MAX_COLORS + 1)),
+        ("plain", ctypes.c_int * MAX_COLORS),
         ("omega", ctypes.c_float),
         ("noise_mode", ctypes.c_int),
         ("ns_const", ctypes.c_int),
@@ -276,34 +358,87 @@ def load_library(stamps: bool = False) -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def load_passes_library(stamps: bool = False) -> ctypes.CDLL:
-    """Build (at first use) and load the one-block sweep kernels on the passes
-    of ``level_passes.cuh``, or with ``stamps`` their stamps build."""
-    from .mgmc_visit import STENCIL_FORMS, VisitParams
+def passes_flags(reach: int = 1, dim: int = 2) -> Tuple[str, ...]:
+    """The compiler flags of the passes body's build of ``(reach, dim)``: the
+    phase kernels' flags of the same build (``mgmc_visit.PHASE_BUILDS``)."""
+    from .mgmc_visit import PHASE_BUILDS
 
-    lib = open_library(PASSES_SOURCE_NAME, SWEEP_STAMPS_FLAGS if stamps else ())
-    _check_stamps_library(lib, "sor_passes", stamps, PASSES_STAMP_WIDTH)
+    return PHASE_BUILDS[(reach, dim)][0]
+
+
+@functools.lru_cache(maxsize=None)
+def load_passes_library(stamps: bool = False, reach: int = 1, dim: int = 2) -> ctypes.CDLL:
+    """Build (at first use) and load the one-block sweep kernels on the passes
+    of ``level_passes.cuh``, or with ``stamps`` their stamps build; with
+    ``reach=2`` or ``dim=3`` the source's reach-2 or 3d build (no stamps
+    build), whose parameter block and stencil forms are the phase kernels' of
+    the same build."""
+    from .mgmc_visit import PHASE_BUILDS
+
+    if (reach, dim) not in PHASE_BUILDS or (stamps and (reach, dim) != (1, 2)):
+        raise ValueError("the passes body has a reach-1 build, its stamps build, a reach-2 "
+                         f"build and a 3d build; asked for reach {reach}, dim {dim}, "
+                         f"stamps {stamps}")
+    flags, params, form0, nforms, _, _ = PHASE_BUILDS[(reach, dim)]
+    lib = open_library(PASSES_SOURCE_NAME, SWEEP_STAMPS_FLAGS if stamps else flags)
+    _check_stamps_library(lib, "sor_passes", stamps,
+                          PASSES_STAMP_WIDTH if (reach, dim) == (1, 2) else
+                          2 + (MAX_COLORS if reach == 2 else PASSES_MAX_COLORS) + 3)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.sor_passes_params_size, lib.sor_passes_stencil_forms):
+    for fn in (lib.sor_passes_params_size, lib.sor_passes_stencil_forms,
+               lib.sor_passes_first_form, lib.sor_passes_reach, lib.sor_passes_dim,
+               lib.sor_passes_max_threads):
         fn.argtypes = []
         fn.restype = i32
-    if lib.sor_passes_params_size() != ctypes.sizeof(VisitParams):
-        raise RuntimeError("VisitParams layout differs between Python and CUDA")
-    if lib.sor_passes_stencil_forms() != STENCIL_FORMS:
+    if (lib.sor_passes_reach(), lib.sor_passes_dim()) != (reach, dim):
+        raise RuntimeError("the passes sweep library is not the build asked for")
+    if lib.sor_passes_params_size() != ctypes.sizeof(params):
+        raise RuntimeError(f"{params.__name__} layout differs between Python and CUDA")
+    if (lib.sor_passes_first_form(), lib.sor_passes_stencil_forms()) != (form0, nforms):
         raise RuntimeError("the sweep kernels' stencil forms differ between Python and CUDA")
+    if lib.sor_passes_max_threads() != passes_max_threads((reach, dim)):
+        raise RuntimeError("the sweep kernels' block bound differs between Python and CUDA")
     lib.sor_passes_kernel_attributes.argtypes = [i32, i32, ctypes.POINTER(i32)]
     lib.sor_passes_kernel_attributes.restype = i32
     lib.sor_passes_blocks_per_sm.argtypes = [i32] * 3
     lib.sor_passes_blocks_per_sm.restype = i32
     # P, rows, x, b, coeffs, form, threads, stamps, stream
-    lib.sor_passes_sweep.argtypes = ([ctypes.POINTER(VisitParams)] + [ptr] * 4
+    lib.sor_passes_sweep.argtypes = ([ctypes.POINTER(params)] + [ptr] * 4
                                      + [i32, i32, ptr, ptr])
     lib.sor_passes_sweep.restype = i32
     # P, rows, x, f, scratch, coeffs, ns, xi, form, threads, stamps, stream
-    lib.sor_passes_gibbs_sweep.argtypes = ([ctypes.POINTER(VisitParams)] + [ptr] * 7
+    lib.sor_passes_gibbs_sweep.argtypes = ([ctypes.POINTER(params)] + [ptr] * 7
                                            + [i32, i32, ptr, ptr])
     lib.sor_passes_gibbs_sweep.restype = i32
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_smem_library(stamps: bool = False) -> ctypes.CDLL:
+    """Build (at first use) and load the shared-memory one-block sweep
+    kernels' library, or with ``stamps`` their stamps build."""
+    lib = open_library(SMEM_SOURCE_NAME, SWEEP_STAMPS_FLAGS if stamps else ())
+    _check_stamps_library(lib, "sor_smem", stamps, SWEEP_STAMP_WIDTH)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.sor_smem_params_size, lib.sor_smem_max_threads):
+        fn.argtypes = []
+        fn.restype = i32
+    if lib.sor_smem_params_size() != ctypes.sizeof(SmemSweepParams):
+        raise RuntimeError("SmemSweepParams layout differs between Python and CUDA")
+    if lib.sor_smem_max_threads() != SMEM_MAX_THREADS:
+        raise RuntimeError("the shared-memory sweep's block bound differs between Python and CUDA")
+    lib.sor_smem_kernel_attributes.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.sor_smem_kernel_attributes.restype = i32
+    lib.sor_smem_blocks_per_sm.argtypes = [i32] * 4
+    lib.sor_smem_blocks_per_sm.restype = i32
+    # P, table, x, b, coeffs, rdiag, kmax, threads, bytes, stamps, stream
+    lib.sor_smem_sweep.argtypes = ([ctypes.POINTER(SmemSweepParams)] + [ptr] * 5
+                                   + [i32, i32, i32, ptr, ptr])
+    lib.sor_smem_sweep.restype = i32
+    # P, table, x, f, coeffs, rdiag, ns, xi, kmax, threads, bytes, stamps, stream
+    lib.sor_smem_gibbs_sweep.argtypes = ([ctypes.POINTER(SmemSweepParams)] + [ptr] * 7
+                                         + [i32, i32, i32, ptr, ptr])
+    lib.sor_smem_gibbs_sweep.restype = i32
     return lib
 
 
@@ -444,11 +579,14 @@ def split_size(C: int, vshape, offsets, noise_mode: int, device,
 
 
 def split_stencil(vshape, offsets) -> str:
-    """The stencil's class in :data:`SPLIT_MAX_CHAINS`: ``"generic"`` where
-    the one-block route takes the generic body (:func:`sweep_body`), else
-    ``"5-point"`` for at most 5 offsets and ``"9-point"`` for more."""
-    if sweep_body(vshape, offsets) == "generic":
-        return "generic"
+    """The stencil's class in :data:`SPLIT_MAX_CHAINS`: ``"3d"`` for 3d
+    fields, ``"reach-2"`` for the 2d stencils the passes' reach-1 build does
+    not take (reach 2 and wider), else ``"5-point"`` for at most 5 offsets and
+    ``"9-point"`` for more."""
+    if len(vshape) == 3:
+        return "3d"
+    if passes_build(vshape, offsets) != (1, 2):
+        return "reach-2"
     return "5-point" if len(offsets) <= 5 else "9-point"
 
 
@@ -479,47 +617,147 @@ def sweep_route(C: int, plan: "SweepPlan", noise_mode: int = 0,
                        smem_limit)
 
 
-def sweep_body(vshape, offsets) -> str:
+def passes_build(vshape, offsets) -> Optional[Tuple[int, int]]:
+    """``(reach, dim)`` of the passes body's build that takes fields
+    ``vshape`` with a stencil of ``offsets`` (the phase kernels' forms of the
+    same build, ``mgmc_visit.stencil_form``): ``(1, 2)`` 2d stencils of reach 1
+    with at most :data:`PASSES_MAX_OFFSETS` offsets; ``(2, 2)`` 2d stencils of
+    reach 2 with at most :data:`WIDE_MAX_OFFSETS` offsets or the 5x5 box in
+    raster order; ``(1, 3)`` 3d stencils of reach 1; ``None`` for anything
+    else.  (The passes' 3d build is launched for stencils of at least
+    :data:`PASSES_DIM3_MIN_OFFSETS` only, :func:`sweep_body`.)"""
+    from .mgmc_visit import raster_box, stencil_reach
+
+    reach, K = stencil_reach(offsets), len(offsets)
+    if len(vshape) == 2 and reach <= 1 and K <= PASSES_MAX_OFFSETS:
+        return (1, 2)
+    if len(vshape) == 2 and reach == 2 and (K <= WIDE_MAX_OFFSETS or raster_box(offsets, 2)):
+        return (2, 2)
+    if len(vshape) == 3 and reach <= 1 and K <= MAX_OFFSETS:
+        return (1, 3)
+    return None
+
+
+def smem_halo(vshape, offsets) -> Tuple[int, int]:
+    """The zero halo of the shared-memory body's padded ``x``: ``(RZ, R)``,
+    along z (0 for a 2d field) and along y and x, the stencil's reach."""
+    from .mgmc_visit import stencil_reach
+
+    R = stencil_reach(offsets)
+    return (R if len(vshape) == 3 else 0), R
+
+
+def smem_padded(vshape, offsets, extra: int = 0) -> Tuple[int, int, int]:
+    """``(PZ, PY, PX)``: the padded ``x``'s extents (``PZ`` = 1 in 2d), with
+    ``extra`` columns of zeros beyond the halo on the right."""
+    RZ, R = smem_halo(vshape, offsets)
+    Z, Y, X = (1,) * (3 - len(vshape)) + tuple(int(v) for v in vshape)
+    return Z + 2 * RZ, Y + 2 * R, X + 2 * R + int(extra)
+
+
+def smem_sweep_bytes(vshape, offsets, extra: int = SMEM_PITCH_SLACK) -> int:
+    """Dynamic shared memory of one block of the shared-memory body: the
+    padded ``x`` (``extra`` columns beyond the halo; the fit rule counts the
+    most, :data:`SMEM_PITCH_SLACK`), the rhs and the block's copy of the table,
+    4 bytes a word (the host's mirror of the launch's ``smem_bytes``)."""
+    return 4 * (int(np.prod(smem_padded(vshape, offsets, extra))) + 2 * int(np.prod(vshape)))
+
+
+def smem_fits(vshape, offsets, smem_limit: int) -> bool:
+    """The rule of the shared-memory body: a chain's block takes at most
+    ``smem_limit // SMEM_BLOCKS_PER_SM`` bytes (``smem_limit``: what the card
+    grants a block, :func:`~.common.dynamic_smem_limit`), so that
+    :data:`SMEM_BLOCKS_PER_SM` blocks share an SM."""
+    return smem_sweep_bytes(vshape, offsets) <= int(smem_limit) // SMEM_BLOCKS_PER_SM
+
+
+def smem_limit_of(device) -> int:
+    """The grant :func:`smem_fits` holds a plan on ``device`` to: the probe's
+    answer on a CUDA device, :data:`CPU_SMEM_LIMIT` on the CPU."""
+    device = torch.device(device)
+    return dynamic_smem_limit(device) if device.type == "cuda" else CPU_SMEM_LIMIT
+
+
+def sweep_body(vshape, offsets, smem_limit: Optional[int] = None) -> str:
     """The body of the one-block route's kernels for fields ``vshape`` and a
     stencil of ``offsets``: ``"passes"`` (``csrc/sor_sweep_passes.cu``) for 2d
     stencils of reach 1 with at most :data:`PASSES_MAX_OFFSETS` offsets, every
-    level of the flagship and of the drivers; ``"generic"``
-    (``csrc/sor_sweep.cu``) for 3d fields and wider stencils."""
-    if (len(vshape) == 2 and len(offsets) <= PASSES_MAX_OFFSETS
-            and all(abs(int(v)) <= 1 for off in offsets for v in off)):
+    level of the flagship and of the drivers; for the reach-2 and 3d stencils
+    of :func:`passes_build`, ``"smem"`` (``csrc/sor_sweep_smem.cu``) where a
+    chain fits shared memory (:func:`smem_fits` under ``smem_limit``, default
+    :data:`CPU_SMEM_LIMIT`) and ``"passes"`` (that source's reach-2 or 3d
+    build) where it does not, but for 3d stencils of fewer than
+    :data:`PASSES_DIM3_MIN_OFFSETS`, which take the generic body there;
+    ``"generic"`` (``csrc/sor_sweep.cu``) for every other stencil."""
+    build = passes_build(vshape, offsets)
+    if build is None:
+        return "generic"
+    if build == (1, 2):
         return "passes"
-    return "generic"
+    limit = CPU_SMEM_LIMIT if smem_limit is None else smem_limit
+    if smem_fits(vshape, offsets, limit):
+        return "smem"
+    return "generic" if build == (1, 3) and len(offsets) < PASSES_DIM3_MIN_OFFSETS else "passes"
 
 
-def sweep_threads(C: int, n: int, sms: int) -> int:
+def passes_max_threads(build: Tuple[int, int]) -> int:
+    """The block bound of the passes body's kernels in ``build``: 1024 in the
+    reach-1 build, :data:`PASSES_WIDE_MAX_THREADS` in the reach-2 and 3d
+    builds."""
+    return 1024 if tuple(build) == (1, 2) else PASSES_WIDE_MAX_THREADS
+
+
+def sweep_threads(C: int, n: int, sms: int, most_threads: int = 1024) -> int:
     """Threads per block of a launch of the passes body of ``C`` chains of
     ``n`` points, on a card of ``sms`` SMs: the largest of
     :data:`SWEEP_WAVE_THREADS` whose blocks run all chains in one wave (the
     smallest where none does), bounded by the field's
-    :data:`SWEEP_MOST_THREADS` and :data:`SWEEP_LEAST_THREADS`."""
+    :data:`SWEEP_MOST_THREADS` and :data:`SWEEP_LEAST_THREADS`, and by the
+    kernel's bound ``most_threads`` (:func:`passes_max_threads`)."""
     wave = next((t for t in SWEEP_WAVE_THREADS if C <= sms * (1024 // t)), SWEEP_WAVE_THREADS[-1])
     most = next(t for points, t in SWEEP_MOST_THREADS if n >= points)
     least = next(t for points, t in SWEEP_LEAST_THREADS if n >= points)
-    return max(least, min(most, wave))
+    return min(max(least, min(most, wave)), most_threads)
+
+
+def _sweep_offsets(P: SweepParams):
+    """The stencil's offsets of a parameter block, ``(dy, dx)`` of a 2d field
+    (``Z`` = 1) and ``(dz, dy, dx)`` of a 3d one."""
+    if P.Z == 1:
+        return tuple((P.dy[k], P.dx[k]) for k in range(P.K))
+    return tuple((P.dz[k], P.dy[k], P.dx[k]) for k in range(P.K))
+
+
+def _sweep_vshape(P: SweepParams) -> Tuple[int, ...]:
+    return (P.Y, P.X) if P.Z == 1 else (P.Z, P.Y, P.X)
 
 
 def pass_params(P: SweepParams):
-    """The passes' parameter block (``VisitParams`` of ``visit_phases.cuh``)
-    of a 2d sweep: the sweep's own parameter block with no low-rank term
-    (``m = 0``) and no coarse level; ``f_batched`` says whether ``b`` is per
-    chain.  The Philox stream is set per launch."""
-    from .mgmc_visit import VisitParams
+    """The passes' parameter block (``VisitParams`` of ``visit_phases.cuh``
+    in the build of :func:`passes_build`: ``mgmc_visit.VisitParams``,
+    ``WideVisitParams`` or ``VolumeVisitParams``) of a sweep: the sweep's own
+    parameter block with no low-rank term (``m = 0``) and no coarse level
+    (a 3d field's rows are ``(z, y)``, ``H = Z Y``); ``f_batched`` says whether
+    ``b`` is per chain.  The Philox stream is set per launch."""
+    from .mgmc_visit import PHASE_BUILDS
 
-    if P.Z != 1 or P.K > PASSES_MAX_OFFSETS or P.n_order > PASSES_MAX_COLORS:
+    build = passes_build(_sweep_vshape(P), _sweep_offsets(P))
+    if build is None or (build == (1, 2) and P.n_order > PASSES_MAX_COLORS):
         raise ValueError("the passes take 2d stencils of reach 1 with at most "
-                         f"{PASSES_MAX_OFFSETS} offsets and {PASSES_MAX_COLORS} colours")
-    V = VisitParams()
-    V.C, V.H, V.W = P.C, P.Y, P.X
+                         f"{PASSES_MAX_OFFSETS} offsets and {PASSES_MAX_COLORS} colours, 2d "
+                         f"stencils of reach 2 with at most {WIDE_MAX_OFFSETS} offsets or the "
+                         "5x5 box, and 3d stencils of reach 1")
+    V = PHASE_BUILDS[build][1]()
+    V.C, V.H, V.W = P.C, P.Z * P.Y, P.X
     V.K, V.diag_index = P.K, P.diag_index
     for k in range(P.K):
         V.dy[k], V.dx[k] = P.dy[k], P.dx[k]
         V.coeff_const[k], V.coeff_val[k] = P.coeff_const[k], P.coeff_val[k]
     V.n_colors, V.w0, V.w1, V.jstride = P.n_colors, P.wy, P.wx, P.jstride
+    if build[1] == 3:
+        V.Z, V.Y, V.wz = P.Z, P.Y, P.wz
+        for k in range(P.K):
+            V.dz[k] = P.dz[k]
     V.n_order = P.n_order
     for o in range(P.n_order):
         V.order[o] = P.order[o]
@@ -530,18 +768,19 @@ def pass_params(P: SweepParams):
 
 
 class PassLaunch:
-    """What a launch of the passes body takes besides the fields: the
-    parameter block (:func:`pass_params`), the rows table of the sweep's order
-    (``mgmc_visit.colour_rows``) on the device, the stencil form (one kernel
-    each) and the block size."""
+    """What a launch of the passes body takes besides the fields: the build
+    (:func:`passes_build`), the parameter block (:func:`pass_params`), the rows
+    table of the sweep's order (``mgmc_visit.colour_rows``) on the device, the
+    stencil form (one kernel each) and the block size."""
 
     def __init__(self, P: SweepParams, const_coeffs, device, threads: int):
         from .mgmc_visit import colour_rows, stencil_form
 
+        offsets = _sweep_offsets(P)
+        self.build = passes_build(_sweep_vshape(P), offsets)
         self.params = pass_params(P)
         # per colour of the order the row residues that hold it and its first column
         self.rows = torch.from_numpy(colour_rows(self.params)).to(device)
-        offsets = [(P.dy[k], P.dx[k]) for k in range(P.K)]
         self.form = stencil_form(offsets, const_coeffs)
         self.threads = int(threads)
 
@@ -553,6 +792,162 @@ class PassLaunch:
         return V.n_colors * V.H * -(-V.W // V.jstride)
 
     def at(self, P: SweepParams) -> "PassLaunch":
+        """This launch under ``P``'s Philox stream."""
+        self.params.seed, self.params.counter = P.seed, P.counter
+        return self
+
+
+def smem_kmax(vshape, offsets) -> int:
+    """The stencil size the shared-memory body's kernel is compiled for (one
+    kernel each): 13 or 25 in 2d (the reach-2 forms 6 / 7 and 8 / 9), 7 or 27
+    in 3d (the forms 10 / 11 and 12-15)."""
+    K = len(offsets)
+    if len(vshape) == 3:
+        return 7 if K <= 7 else 27
+    return WIDE_MAX_OFFSETS if K <= WIDE_MAX_OFFSETS else 25
+
+
+#: banks of an SM's shared memory (4 bytes each)
+SMEM_BANKS = 32
+
+
+def bank_order(q: np.ndarray) -> np.ndarray:
+    """The positions of the padded indices ``q`` dealt round the banks: one
+    of each bank in turn (each bank's in storage order), so that a warp's 32
+    consecutive entries fall on as many banks as there are."""
+    bank = q % SMEM_BANKS
+    rank = np.zeros(q.size, np.int64)
+    for b in np.unique(bank):
+        at = np.flatnonzero(bank == b)
+        rank[at] = np.arange(at.size)
+    return np.lexsort((bank, rank))
+
+
+def bank_conflicts(q: np.ndarray, start) -> int:
+    """Shared-memory wavefronts of one stencil term over a sweep: per warp
+    of 32 consecutive entries of a colour the most that fall on one bank,
+    summed (the ideal is the number of warps)."""
+    total = 0
+    for a, b in zip(start[:-1], start[1:]):
+        for w in range(a, b, 32):
+            total += int(np.bincount(q[w:min(w + 32, b)] % SMEM_BANKS).max())
+    return total
+
+
+def smem_tables(vshape, offsets, color_weights, n_colors: int, order, coeffs) -> dict:
+    """The shared-memory body's tables of one sweep direction, from the
+    coefficient planes ``coeffs`` (``(K, *vshape)``, as the kernel reads them):
+
+    * ``table``: int32, every point once, colour after colour of ``order``:
+      ``(q << 16) | p``, ``q`` its index in the padded ``x``
+      (:func:`smem_padded`), ``p`` its index in the field; within a colour
+      first the *interior* points, whose every coefficient whose neighbour lies
+      in the field equals the level's interior value (the centre point's),
+      then the others, each part dealt round the banks (:func:`bank_order`);
+    * ``extra``: the columns of zeros beyond the halo, of ``0 ..
+      SMEM_PITCH_SLACK`` the width whose table has the fewest bank conflicts
+      (:func:`bank_conflicts`; the narrowest of equals);
+    * ``start``: colour ``o`` of the order holds ``table[start[o] :
+      start[o + 1]]``; ``plain[o]``: of which the first ``plain[o]`` are
+      interior;
+    * ``cval``: the interior coefficients (float32), ``rdiag``: ``1 /
+      cval[diag]`` in float32, as the kernel's reciprocal plane holds it for
+      the other points; ``planes``: bit ``k`` where coefficient ``k`` varies
+      over the field (the other points read those planes, the rest are
+      ``cval``)."""
+    vshape = tuple(int(v) for v in vshape)
+    dim, K = len(vshape), len(offsets)
+    RZ, R = smem_halo(vshape, offsets)
+    n = int(np.prod(vshape))
+    if int(np.prod(smem_padded(vshape, offsets, SMEM_PITCH_SLACK))) >= 1 << 15 or n >= 1 << 16:
+        raise ValueError(f"a field of {vshape} does not fit the table's 16-bit indices")
+    coords = [g.reshape(-1) for g in np.meshgrid(*[np.arange(v) for v in vshape], indexing="ij")]
+    z3 = coords[0] if dim == 3 else np.zeros(n, np.int64)
+    colour = sum(int(w) * c for w, c in zip(color_weights, coords)) % n_colors
+    c = np.asarray(coeffs, np.float32).reshape(K, n)
+    cval = c[:, int(np.ravel_multi_index(tuple(v // 2 for v in vshape), vshape))].copy()
+    inside = np.stack([np.all([(0 <= x + int(d)) & (x + int(d) < v) for x, d, v in
+                               zip(coords, off, vshape)], axis=0) for off in offsets])
+    plain = np.all((c == cval[:, None]) | ~inside, axis=0)
+    p = np.arange(n)
+    parts, start, nplain = [], [0], []
+    for col in order:
+        sel = colour == int(col)
+        parts += [p[sel & plain], p[sel & ~plain]]
+        nplain.append(int(np.count_nonzero(sel & plain)))
+        start.append(start[-1] + int(np.count_nonzero(sel)))
+    best = None
+    for extra in range(SMEM_PITCH_SLACK + 1):
+        _, PY, PX = smem_padded(vshape, offsets, extra)
+        q = ((z3 + RZ) * PY + coords[-2] + R) * PX + coords[-1] + R
+        table = np.concatenate([part[bank_order(q[part])] for part in parts])
+        conflicts = bank_conflicts(q[table], start)
+        if best is None or conflicts < best[0]:
+            best = (conflicts, extra, (q[table] << 16) | table)
+    diag = cval[[k for k, off in enumerate(offsets) if all(int(v) == 0 for v in off)][0]]
+    varies = ~np.all(c == c[:, :1], axis=1)
+    return {"table": best[2].astype(np.int32), "extra": best[1], "conflicts": best[0],
+            "start": start, "plain": nplain, "cval": cval,
+            "rdiag": np.float32(1.0) / np.float32(diag),
+            "planes": int(sum(1 << k for k in np.flatnonzero(varies)))}
+
+
+def smem_threads(start, C: int, sms: int) -> int:
+    """Threads per block of the shared-memory body for ``C`` chains on a card
+    of ``sms`` SMs: the largest colour's points in whole warps, at least 64,
+    at most :data:`SMEM_WAVES_THREADS` where the chains take more than one
+    wave of one block an SM (several blocks then share an SM and hide each
+    other's latency), else at most :data:`SMEM_MAX_THREADS` (a block alone on
+    its SM: a colour in one turn)."""
+    most = max(b - a for a, b in zip(start[:-1], start[1:]))
+    cap = SMEM_MAX_THREADS if C <= sms else SMEM_WAVES_THREADS
+    return min(cap, max(64, 32 * -(-most // 32)))
+
+
+def smem_params(P: SweepParams, tables: dict) -> SmemSweepParams:
+    """The shared-memory body's parameter block of a sweep: its extents, the
+    padded offsets, the interior coefficients and the colours' parts of the
+    table (:func:`smem_tables`), and the sweep's own parameters.  The Philox
+    stream is set per launch."""
+    vshape, offsets = _sweep_vshape(P), _sweep_offsets(P)
+    S = SmemSweepParams()
+    S.C, S.Z, S.Y, S.X = P.C, P.Z, P.Y, P.X
+    S.RZ, S.R = smem_halo(vshape, offsets)
+    S.PZ, S.PY, S.PX = smem_padded(vshape, offsets, tables["extra"])
+    S.K, S.diag_index = P.K, P.diag_index
+    for k in range(P.K):
+        S.soff[k] = (P.dz[k] * S.PY + P.dy[k]) * S.PX + P.dx[k]
+        S.cval[k] = float(tables["cval"][k])
+    S.rdiag = float(tables["rdiag"])
+    S.planes = tables["planes"]
+    S.n_order = P.n_order
+    for o in range(P.n_order + 1):
+        S.start[o] = tables["start"][o]
+    for o in range(P.n_order):
+        S.plain[o] = tables["plain"][o]
+    S.omega = P.omega
+    S.noise_mode, S.ns_const, S.ns_val = P.noise_mode, P.ns_const, P.ns_val
+    S.b_batched = P.b_batched
+    return S
+
+
+class SmemLaunch:
+    """What a launch of the shared-memory body takes besides the fields: the
+    parameter block (:func:`smem_params`), the table on the device, the
+    reciprocal of the diagonal plane, the compiled stencil size
+    (:func:`smem_kmax`), the block size (:func:`smem_threads` on ``sms`` SMs)
+    and the dynamic shared memory (:func:`smem_sweep_bytes`)."""
+
+    def __init__(self, P: SweepParams, tables: dict, table: torch.Tensor, rdiag: torch.Tensor,
+                 sms: int):
+        vshape, offsets = _sweep_vshape(P), _sweep_offsets(P)
+        self.params = smem_params(P, tables)
+        self.table, self.rdiag = table, rdiag
+        self.kmax = smem_kmax(vshape, offsets)
+        self.threads = smem_threads(tables["start"], P.C, sms)
+        self.nbytes = smem_sweep_bytes(vshape, offsets, tables["extra"])
+
+    def at(self, P: SweepParams) -> "SmemLaunch":
         """This launch under ``P``'s Philox stream."""
         self.params.seed, self.params.counter = P.seed, P.counter
         return self
@@ -584,13 +979,16 @@ class SweepPlan:
             coloring.masks(), dtype=op.dtype, device=op.device)
         self.coeffs = op.coeffs.contiguous()
         self.noise_scale = noise_scale(op, self.omega).contiguous()
-        #: the one-block route's body (:func:`sweep_body`)
-        self.body = sweep_body(op.vshape, op.offsets)
+        #: the one-block route's body (:func:`sweep_body`, the card's grant
+        #: on a CUDA device)
+        self.body = sweep_body(op.vshape, op.offsets, smem_limit_of(op.device))
         #: threads per block of the generic body
         self.threads = default_threads(int(np.prod(op.vshape)))
         self._compressed = None
         self._params_cache = {}
         self._pass_cache = {}
+        self._smem_cache = {}
+        self._smem_tables = None
         self._routes = {}
 
     def on_kernel_device(self) -> bool:
@@ -627,9 +1025,29 @@ class SweepPlan:
         :func:`sweep_threads` on the card's SM count."""
         key = (P.C, bool(P.b_batched), P.noise_mode)
         if key not in self._pass_cache:
-            threads = sweep_threads(P.C, int(np.prod(self.op.vshape)), sm_count(self.op.device))
-            self._pass_cache[key] = PassLaunch(P, self._compressed[0], self.op.device, threads)
+            launch = PassLaunch(P, self._compressed[0], self.op.device, 0)
+            launch.threads = sweep_threads(P.C, int(np.prod(self.op.vshape)),
+                                           sm_count(self.op.device),
+                                           passes_max_threads(launch.build))
+            self._pass_cache[key] = launch
         return self._pass_cache[key].at(P)
+
+    def smem_launch(self, P: SweepParams) -> SmemLaunch:
+        """The shared-memory body's launch of the configuration of ``P``
+        (built by :meth:`params`), kept per configuration; the table
+        (:func:`smem_tables`) and the reciprocal diagonal plane are built once
+        per plan."""
+        if self._smem_tables is None:
+            op = self.op
+            tables = smem_tables(op.vshape, op.offsets, self.coloring.weights,
+                                 self.coloring.n_colors, self.order,
+                                 self.coeffs.detach().cpu().numpy())
+            self._smem_tables = (tables, torch.from_numpy(tables["table"]).to(op.device),
+                                 torch.reciprocal(self.coeffs[op.diag_index]).contiguous())
+        key = (P.C, bool(P.b_batched), P.noise_mode)
+        if key not in self._smem_cache:
+            self._smem_cache[key] = SmemLaunch(P, *self._smem_tables, sm_count(self.op.device))
+        return self._smem_cache[key].at(P)
 
     def _build_params(self, C: int, b_batched: bool, noise_mode: int) -> SweepParams:
         op = self.op
@@ -789,13 +1207,21 @@ def _check_body(body: str, vshape, offsets, route, stamps, x) -> None:
     against the launch (the one-block route only)."""
     if body not in BODIES:
         raise ValueError(f"body must be one of {BODIES}, got {body!r}")
-    if body == "passes" and sweep_body(vshape, offsets) != "passes":
+    build = passes_build(vshape, offsets)
+    if body == "passes" and build is None:
         raise ValueError("the passes body takes 2d stencils of reach 1 with at most "
-                         f"{PASSES_MAX_OFFSETS} offsets")
+                         f"{PASSES_MAX_OFFSETS} offsets, 2d stencils of reach 2 with at most "
+                         f"{WIDE_MAX_OFFSETS} offsets or the 5x5 box, and 3d stencils of reach 1")
+    if body == "smem" and (build in (None, (1, 2))
+                           or not smem_fits(vshape, offsets, smem_limit_of(x.device))):
+        raise ValueError("the shared-memory body takes the reach-2 and 3d stencils of the "
+                         "passes' builds on fields that fit shared memory (smem_fits)")
     if stamps is None:
         return
     if route[0] != "block":
         raise ValueError("only the one-block route has a stamps build")
+    if body == "passes" and build != (1, 2):
+        raise ValueError("the passes body's reach-2 and 3d builds have no stamps build")
     width = STAMP_WIDTHS[body]
     if (stamps.dtype != torch.int64 or stamps.device != x.device or not stamps.is_contiguous()
             or tuple(stamps.shape) != (x.shape[0], width)):
@@ -806,12 +1232,12 @@ def _check_body(body: str, vshape, offsets, route, stamps, x) -> None:
 def _launch(P: SweepParams, route: Tuple[str, int], vshape, threads: int, x: torch.Tensor,
             b: torch.Tensor, coeffs: torch.Tensor, ns: Optional[torch.Tensor] = None,
             xi: Optional[torch.Tensor] = None, passes: Optional[PassLaunch] = None,
-            stamps: Optional[torch.Tensor] = None) -> int:
+            stamps: Optional[torch.Tensor] = None, smem: Optional[SmemLaunch] = None) -> int:
     """Launch the deterministic kernel (``P.noise_mode == 0``) or the Gibbs
     kernel of ``route`` on the current stream of ``x``'s device; returns the
-    CUDA error.  On the one-block route ``passes`` takes the passes body
-    (else the generic body, with ``threads`` per block); ``stamps`` takes the
-    body's stamps build."""
+    CUDA error.  On the one-block route ``passes`` takes the passes body,
+    ``smem`` the shared-memory body (neither: the generic body, with
+    ``threads`` per block); ``stamps`` takes the body's stamps build."""
     kind, S = route
     gibbs = P.noise_mode != 0
     with torch.cuda.device(x.device):
@@ -824,8 +1250,19 @@ def _launch(P: SweepParams, route: Tuple[str, int], vshape, threads: int, x: tor
                     ns.data_ptr(), tensor_ptr(xi), S, t, stream)
             return lib.sor_sweep_cluster(ctypes.byref(P), x.data_ptr(), b.data_ptr(),
                                          coeffs.data_ptr(), S, t, stream)
+        if smem is not None:
+            lib = load_smem_library(stamps is not None)
+            M, table, rdiag = ctypes.byref(smem.params), smem.table.data_ptr(), smem.rdiag
+            if gibbs:
+                return lib.sor_smem_gibbs_sweep(
+                    M, table, x.data_ptr(), b.data_ptr(), coeffs.data_ptr(), rdiag.data_ptr(),
+                    ns.data_ptr(), tensor_ptr(xi), smem.kmax, smem.threads, smem.nbytes,
+                    tensor_ptr(stamps), stream)
+            return lib.sor_smem_sweep(M, table, x.data_ptr(), b.data_ptr(), coeffs.data_ptr(),
+                                      rdiag.data_ptr(), smem.kmax, smem.threads, smem.nbytes,
+                                      tensor_ptr(stamps), stream)
         if passes is not None:
-            lib = load_passes_library(stamps is not None)
+            lib = load_passes_library(stamps is not None, *passes.build)
             V, rows = ctypes.byref(passes.params), passes.rows.data_ptr()
             if gibbs:
                 scratch = torch.empty((x.shape[0], passes.scratch_floats()), dtype=x.dtype,
@@ -851,7 +1288,7 @@ def _count_name(base: str, route, body: str) -> str:
     """The launch count of ``base`` through ``route`` and ``body``."""
     if route[0] == "split":
         return base + "_split"
-    return base if body == "passes" else base + "_generic"
+    return base if body == "passes" else f"{base}_{body}"
 
 
 def _passes_of(plan: SweepPlan, P: SweepParams, route, body: str,
@@ -867,6 +1304,12 @@ def _passes_of(plan: SweepPlan, P: SweepParams, route, body: str,
     return passes
 
 
+def _smem_of(plan: SweepPlan, P: SweepParams, route, body: str) -> Optional[SmemLaunch]:
+    """The shared-memory body's launch where the one-block route takes that
+    body."""
+    return plan.smem_launch(P) if body == "smem" and route[0] == "block" else None
+
+
 def launch_sweep(plan: SweepPlan, route: Tuple[str, int], b: torch.Tensor,
                  x: torch.Tensor, body: Optional[str] = None,
                  stamps: Optional[torch.Tensor] = None,
@@ -879,7 +1322,8 @@ def launch_sweep(plan: SweepPlan, route: Tuple[str, int], b: torch.Tensor,
     ``stamps`` takes its stamps build, an int64 tensor of shape ``(C,
     STAMP_WIDTHS[body])`` that the launch fills (:func:`sweep_pass_times`);
     ``threads`` sets the passes body's block size (default:
-    :func:`sweep_threads`).  Updates ``x`` in place and returns it, or
+    :func:`sweep_threads`; the shared-memory body's is
+    :func:`smem_threads`).  Updates ``x`` in place and returns it, or
     raises."""
     route = _check_route(route, x)
     body = plan.body if body is None else body
@@ -888,7 +1332,7 @@ def launch_sweep(plan: SweepPlan, route: Tuple[str, int], b: torch.Tensor,
     P = plan.params(C, b_batched, 0, None)
     passes = _passes_of(plan, P, route, body, threads)
     err = _launch(P, route, plan.op.vshape, plan.threads, x, b, plan.coeffs, passes=passes,
-                  stamps=stamps)
+                  stamps=stamps, smem=_smem_of(plan, P, route, body))
     name = _count_name("sweep_batched", route, body)
     launch_counts[name] += 1
     if err != 0:
@@ -914,7 +1358,7 @@ def launch_gibbs_sweep(plan: SweepPlan, route: Tuple[str, int], f: torch.Tensor,
     P = plan.params(C, f_batched, 1 if philox is not None else 2, philox)
     passes = _passes_of(plan, P, route, body, threads)
     err = _launch(P, route, plan.op.vshape, plan.threads, x, f, plan.coeffs,
-                  plan.noise_scale, xi, passes, stamps)
+                  plan.noise_scale, xi, passes, stamps, _smem_of(plan, P, route, body))
     name = _count_name("gibbs_sweep_batched", route, body)
     launch_counts[name] += 1
     if err != 0:
@@ -922,25 +1366,29 @@ def launch_gibbs_sweep(plan: SweepPlan, route: Tuple[str, int], f: torch.Tensor,
     return x
 
 
-def sweep_pass_names(order, gibbs: bool):
+def sweep_pass_names(order, gibbs: bool, body: str = "passes"):
     """The passes of a one-block sweep in the order its stamps time them (each
-    ends with a barrier): the Gibbs rhs, then one per colour of ``order``."""
+    ends with a barrier): the Gibbs rhs (the shared-memory body: the copy-in,
+    with the Gibbs rhs), then one per colour of ``order``."""
+    if body == "smem":
+        return ["copy-in and rhs" if gibbs else "copy-in"] + [f"colour {c}" for c in order]
     return (["rhs"] if gibbs else []) + [f"colour {c}" for c in order]
 
 
-def barrier_count(order, gibbs: bool) -> int:
-    """Barriers of one one-block sweep launch, as both bodies place them: one
-    after the Gibbs rhs pass, one after each colour of ``order``; the stamps
-    builds count them on the card."""
-    return len(order) + int(gibbs)
+def barrier_count(order, gibbs: bool, body: str = "passes") -> int:
+    """Barriers of one one-block sweep launch: the passes and generic bodies
+    place one after the Gibbs rhs pass, the shared-memory body one after the
+    copy-in (and rhs) of both kernels; then one after each colour of
+    ``order``.  The stamps builds count them on the card."""
+    return len(order) + int(gibbs or body == "smem")
 
 
-def sweep_pass_times(order, gibbs: bool, stamps) -> dict:
+def sweep_pass_times(order, gibbs: bool, stamps, body: str = "passes") -> dict:
     """Where one one-block sweep launch went, from the ``stamps`` it wrote
-    (``common.stamp_breakdown``; either body's, by the width of its rows): us
+    (``common.stamp_breakdown``; any body's, by the width of its rows): us
     per pass, their sum, the spans, the barriers each block passed and the
     blocks one SM ran at once."""
-    return stamp_breakdown(stamps, sweep_pass_names(order, gibbs), int(stamps.shape[1]))
+    return stamp_breakdown(stamps, sweep_pass_names(order, gibbs, body), int(stamps.shape[1]))
 
 
 # ------------------------------------------- entry points on raw arrays (v1)
@@ -1056,7 +1504,9 @@ def _launch_raw(name, coeffs, b, x, xi, philox, *, offsets, diag_index, omega, o
     ns = _raw_noise_scale(coeffs, diag_index, omega).contiguous() if noise_mode else None
     n = int(np.prod(vshape))
     passes = None
-    if route[0] == "block" and sweep_body(vshape, offsets) == "passes":
+    # raw arrays read every coefficient plane: the passes' reach-1 build where
+    # it takes the stencil, else the generic body
+    if route[0] == "block" and passes_build(vshape, offsets) == (1, 2):
         # every coefficient plane is read from the tensor
         passes = PassLaunch(P, (None,) * len(offsets), x.device,
                             sweep_threads(C, n, sm_count(x.device))).at(P)

@@ -205,13 +205,15 @@ def test_kernel_parameter_blocks(samplers):
 
     kernel = samplers[(True, False)].subtree
     assert ctypes.sizeof(st.FieldLoc) == 16
-    assert ctypes.sizeof(st.SubLevel) == 2 * 8 + 3 * 16 + 14 * 4
-    assert ctypes.sizeof(st.SubtreeParams) == 56 + 8 * ctypes.sizeof(st.SubLevel) + 48 + 16 + 8
+    # the reach-2 point lists' offsets (2 int64), heads (2 int), form and band
+    assert ctypes.sizeof(st.SubLevel) == 2 * 8 + 3 * 16 + 14 * 4 + 2 * 8 + 4 * 4
+    assert ctypes.sizeof(st.SubtreeParams) == 56 + 8 * ctypes.sizeof(st.SubLevel) + 48 + 16 + 16
     S = kernel._build_params(3, 2, False)
     assert (S.C, S.NL, S.n_sched, S.noise_mode, S.nc) == (3, 2, len(kernel.schedule), 2, 9)
     assert S.xi_stride == kernel.count_noise() and S.lv[0].n == 225 and S.lv[1].n == 49
     assert S.lv[0].x.where == st.LOC_SHARED  # 45 KB budget on the CPU: everything fits
-    tables, sched = kernel._device_tables()
+    tables, sched, points = kernel._device_tables()
+    assert points is None  # reach 1: no point lists
     assert tables.numel() == S.table_words and S.table_words % 4 == 0
     assert sched.numel() == 2 * S.n_sched
     # the parameter blocks come first, one per level and direction, 8-byte aligned
@@ -285,9 +287,8 @@ def test_shared_memory_probe_on_the_cpu():
     assert not common.probe_dynamic_smem(48 * 1024 + 4, CPU)
     assert common.launch_counts["smem_probe"] == 0  # no kernel was launched here
     assert set(common.SOURCES) == {"mgmc_visit", "mgmc_visit_stream", "mgmc_visit_split",
-                                   "sor_sweep", "sor_sweep_passes", "sor_sweep_cluster",
-                                   "mgmc_subtree",
-                                   "smem_probe"}
+                                   "sor_sweep", "sor_sweep_passes", "sor_sweep_smem",
+                                   "sor_sweep_cluster", "mgmc_subtree", "smem_probe"}
     for name in common.SOURCES:
         assert common.source_path(name).exists()
     for header in common.HEADERS:

@@ -215,9 +215,10 @@ def test_wide_mirrors_against_the_source():
     assert [n for n, _ in st.SubLevel._fields_] == _struct_fields(src, "SubLevel")
     assert [n for n, _ in st.SubtreeParams._fields_] == _struct_fields(src, "SubtreeParams")
     assert [n for n, _ in st.FieldLoc._fields_] == _struct_fields(src, "FieldLoc")
-    assert (ctypes.sizeof(st.FieldLoc), ctypes.sizeof(st.SubLevel)) == (16, 120)
-    assert ctypes.sizeof(st.SubtreeParams) == 56 + 8 * 120 + 3 * 16 + 16 + 8
-    assert st.SubtreeParams.lv.offset == 56 and st.SubtreeParams.stamps.offset == 1080
+    # a sub-level's reach-2 point lists: 2 int64 offsets, 2 heads, form, band
+    assert (ctypes.sizeof(st.FieldLoc), ctypes.sizeof(st.SubLevel)) == (16, 152)
+    assert ctypes.sizeof(st.SubtreeParams) == 56 + 8 * 152 + 3 * 16 + 16 + 16
+    assert st.SubtreeParams.lv.offset == 56 and st.SubtreeParams.stamps.offset == 1336
     assert (ctypes.sizeof(mv.VisitParams), ctypes.sizeof(mv.WideVisitParams)) == (1296, 1552)
     for name in ("dy", "dx", "coeff_const", "coeff_val"):
         assert getattr(mv.WideVisitParams, name).size == 4 * mv.WIDE_MAX_OFFSETS
@@ -278,16 +279,19 @@ def test_barrier_count_at_nine_colours(small):
 
 def test_place_fields_under_the_larger_tables():
     """The biharmonic bench's subtree (sub-levels 127^2, 63^2, 31^2 at 25
-    points, 9 colours, 8 measurements; coarse 15^2): 61,904 B of tables, 512
-    threads; under the H100's limit the fields of 63^2 and below lie in shared
-    memory beside them, 127^2's x and f are the launch's tensors; the static
-    reserve holds; under a budget of 0 every field is in the workspace."""
+    points, 9 colours, 8 measurements; coarse 15^2): 62,352 B of tables (61,904
+    and, per level and direction, the 19 words of its point lists' head), 512
+    threads bound (256 launched, two blocks an SM); under the H100's limit the
+    fields of 63^2 and below lie in shared memory beside them, 127^2's x and f
+    are the launch's tensors; the static reserve holds; under a budget of 0
+    every field is in the workspace."""
     kernel = bench_biharmonic_subtree()
-    assert kernel.reach == 2 and kernel.threads == st.REACH2_MAX_THREADS == 512
+    assert kernel.reach == 2 and st.REACH2_MAX_THREADS == 512
+    assert kernel.threads == st.REACH2_THREADS == 256
     assert [lv.op.vshape for lv in kernel.levels] == [(127, 127), (63, 63), (31, 31)]
     assert [lv.coloring.n_colors for lv in kernel.levels] == [9, 9, 9]
     table_bytes = 4 * kernel._tables.size
-    assert table_bytes == 61904
+    assert table_bytes == 61904 + 4 * 3 * 2 * (10 + 9) - 8  # (4-word padding)
     budget = st.field_budget(H100_BLOCK_LIMIT, kernel._tables.size)
     assert budget == H100_BLOCK_LIMIT - st.STATIC_SMEM_RESERVE - table_bytes
     levels, coarse, smem, ws = st.place_fields(kernel.level_sizes, kernel.nc, budget)

@@ -158,8 +158,10 @@ def test_tables_against_the_levels(sampler):
             assert np.array_equal(staged, lv.B[k, i0:i1, j0:j1].numpy().reshape(-1))
         # Sigma^1/2 alone: no Gram matrix, no 1 / Sigma, no Sigma^-1/2
         assert np.array_equal(tab["sroot"], lv.sigma_sqrt.numpy())
+        # and the reach-2 point lists' places, none at reach 1
         assert set(kernel._table_offsets[0]) == {"plan", "rows", "yval", "yoff", "wm", "bval",
-                                                 "boff", "sroot"}
+                                                 "boff", "sroot", "pts", "phead"}
+        assert kernel._table_offsets[0]["pts"] == [-1, -1] and kernel._points.size == 0
     # the warps' slots after the levels' tables, inside the staged words
     assert kernel._warp_stride == max(lv.op.m_lowrank for lv in kernel.levels)
     assert kernel._warp_vec + 32 * kernel._warp_stride <= kernel._tables.size

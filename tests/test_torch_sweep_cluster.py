@@ -168,7 +168,10 @@ def test_emulation_sees_a_halo_that_is_too_narrow():
     assert ss.slow_reach(plan.op.offsets, plan.op.vshape) == 2
     with pytest.raises(ValueError, match="does not split"):
         ss.split_smem_bytes(plan.op.vshape, 8, 2, 0)
-    assert ss.sweep_route(1, plan, 0) == ("split", 4)
+    # the cluster size the split route takes (reach-2 sweeps themselves take
+    # one block per chain at every chain count: SPLIT_MAX_CHAINS)
+    assert ss.split_size(1, plan.op.vshape, plan.op.offsets, 0, plan.op.device) == 4
+    assert ss.sweep_route(1, plan, 0) == ss.BLOCK_ROUTE
 
 
 # ----------------------------------- (b) against the interpreted Pallas kernel
@@ -225,7 +228,8 @@ def test_drivers_shapes_take_the_split_route(limit):
     # taken to run at once: the largest size that fits)
     assert ss.SPLIT_MAX_CHAINS == {("sweep", "5-point"): 16, ("gibbs", "5-point"): 32,
                                    ("sweep", "9-point"): 0, ("gibbs", "9-point"): 16,
-                                   ("sweep", "generic"): 64, ("gibbs", "generic"): 64}
+                                   ("sweep", "3d"): 64, ("gibbs", "3d"): 64,
+                                   ("sweep", "reach-2"): 0, ("gibbs", "reach-2"): 0}
     for plan in (fine, coarse):
         for noise_mode in (0, 1, 2):
             most = ss.split_max_chains(plan.op.vshape, plan.op.offsets, noise_mode)
@@ -234,14 +238,14 @@ def test_drivers_shapes_take_the_split_route(limit):
             for C in range(1, most + 1):
                 assert ss.sweep_route(C, plan, noise_mode, limit) == ("split", 16)
             assert ss.sweep_route(most + 1, plan, noise_mode, limit) == ss.BLOCK_ROUTE
-    # the generic body (3d, reach 2) has thresholds of its own
+    # 3d fields and 2d stencils of reach 2 have thresholds of their own
     offsets3 = ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1))
     reach2 = ((0, 0), (0, 1), (0, -1), (1, 0), (-1, 0), (0, 2), (0, -2), (2, 0), (-2, 0))
-    for vshape, offsets in (((63, 63, 63), offsets3), ((63, 63), reach2)):
-        assert ss.split_stencil(vshape, offsets) == "generic"
+    for vshape, offsets, cls in (((63, 63, 63), offsets3, "3d"), ((63, 63), reach2, "reach-2")):
+        assert ss.split_stencil(vshape, offsets) == cls
         for noise_mode, kernel in ((0, "sweep"), (1, "gibbs"), (2, "gibbs")):
             assert (ss.split_max_chains(vshape, offsets, noise_mode)
-                    == ss.SPLIT_MAX_CHAINS[(kernel, "generic")])
+                    == ss.SPLIT_MAX_CHAINS[(kernel, cls)])
 
 
 #: clusters of a 255^2 sweep that an H100 holds at once, by cluster size (the

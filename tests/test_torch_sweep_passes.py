@@ -264,8 +264,11 @@ def test_lane_points_mirror_the_source():
 def test_body_and_stencil_form_of_each_launch():
     """2d stencils of reach 1 with at most 9 offsets take the passes body, one
     kernel per stencil form (the phase kernels' forms); 3d fields and reach-2
-    stencils the generic body; the raw-array entry points read every
-    coefficient plane, so their launches take the odd forms."""
+    stencils the shared-memory body where a chain fits a quarter of the card's
+    grant, else the passes' 3d or reach-2 build (the phase kernels' forms of
+    that build); a stencil none of those takes (reach 3) the generic body; the
+    raw-array entry points read every coefficient plane, so their launches
+    take the odd forms."""
     forms = {}
     for kind in KINDS:
         plan = plan_of(kind, "forward", dtype=torch.float32)
@@ -279,13 +282,28 @@ def test_body_and_stencil_form_of_each_launch():
                             CPU, 256)
         assert raw.form == launch.form | 1
     assert forms == {"fd5pt": 0, "galerkin9pt": 2, "periodic5pt": 1}
-    for kind in ("3d7pt", "3d27pt", "reach2_13pt"):
+    for kind, build in (("3d7pt", (1, 3)), ("3d27pt", (1, 3)), ("reach2_13pt", (2, 2))):
         plan = plan_of(kind, "forward", dtype=torch.float32)
-        assert plan.body == "generic" == ss.sweep_body(plan.op.vshape, plan.op.offsets)
-        with pytest.raises(ValueError, match="2d stencils of reach 1"):
-            ss.pass_params(plan.params(4, False, 0, None))
+        vshape, offsets = plan.op.vshape, plan.op.offsets
+        assert plan.body == "smem" == ss.sweep_body(vshape, offsets)
+        assert ss.sweep_body(vshape, offsets, ss.smem_sweep_bytes(vshape, offsets) * 4 - 4) \
+            == ("generic" if kind == "3d7pt" else "passes")
+        assert ss.passes_build(vshape, offsets) == build
+        launch = plan.pass_launch(plan.params(4, False, 1, (5, 6)))
+        assert launch.build == build
+        const = common.compress_plan(plan.op, plan.omega)[0]
+        assert launch.form == mv.stencil_form(offsets, const)
+        assert type(launch.params) is mv.PHASE_BUILDS[build][1]
+        assert launch.params.H * launch.params.W == int(np.prod(vshape))
     box11 = tuple((a, b) for a in (-1, 0, 1) for b in (-1, 0, 1)) + ((0, 2), (2, 0))
-    assert ss.sweep_body((9, 9), box11) == "generic"
+    assert ss.sweep_body((9, 9), box11) == "smem"
+    reach3 = ((0, 0), (0, 3), (3, 0), (0, -3), (-3, 0))
+    assert ss.sweep_body((9, 9), reach3) == "generic"
+    assert ss.passes_build((9, 9), reach3) is None
+    with pytest.raises(ValueError, match="2d stencils of reach 1"):
+        P = ss.build_sweep_params((9, 9), reach3, 0, 2, (1, 1), (0, 1), 1.0, (None,) * 5, None,
+                                  4, False, 0)
+        ss.pass_params(P)
 
 
 @pytest.mark.parametrize("n", [255 * 255, 127 * 127, 63 * 63, 31 * 31, 15 * 15])
@@ -417,8 +435,16 @@ def test_launch_checks_on_the_cpu():
     with pytest.raises(ValueError, match="CUDA device"):
         ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, x[0], x, xi=x)
     deep = plan_of("3d7pt", "forward", dtype=torch.float32)
+    reach3 = ((0, 0), (0, 3), (3, 0), (0, -3), (-3, 0))
     with pytest.raises(ValueError, match="passes body takes"):
-        ss._check_body("passes", deep.op.vshape, deep.op.offsets, ss.BLOCK_ROUTE, None, x)
+        ss._check_body("passes", (9, 9), reach3, ss.BLOCK_ROUTE, None, x)
+    with pytest.raises(ValueError, match="shared-memory body takes"):
+        ss._check_body("smem", plan.op.vshape, plan.op.offsets, ss.BLOCK_ROUTE, None, x)
+    with pytest.raises(ValueError, match="no stamps build"):
+        ss._check_body("passes", deep.op.vshape, deep.op.offsets, ss.BLOCK_ROUTE,
+                       torch.zeros((2, ss.PASSES_STAMP_WIDTH), dtype=torch.int64), x)
+    ss._check_body("smem", deep.op.vshape, deep.op.offsets, ss.BLOCK_ROUTE,
+                   torch.zeros((2, ss.SWEEP_STAMP_WIDTH), dtype=torch.int64), x)
     with pytest.raises(ValueError, match="body must be"):
         ss._check_body("fast", plan.op.vshape, plan.op.offsets, ss.BLOCK_ROUTE, None, x)
     stamps = torch.zeros((2, ss.SWEEP_STAMP_WIDTH), dtype=torch.int64)
