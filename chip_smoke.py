@@ -462,6 +462,12 @@ def phase_build():
         mgmc_visit.load_library(reach=2)
     if hasattr(mgmc_visit, "VolumeVisitParams"):  # (nor this)
         mgmc_visit.load_library(dim=3)
+    if hasattr(mgmc_visit, "SMEM_ROUTE"):  # (nor these)
+        from multigridmc_tpu_torch.ops.kernels import mgmc_visit_smem
+
+        mgmc_visit.load_library(stamps=True, reach=2)
+        mgmc_visit_smem.load_library()
+        mgmc_visit_smem.load_library(stamps=True)
     mgmc_visit.load_stream_library()
     mgmc_visit.load_split_library()
     sor_sweep.load_library()
@@ -4241,20 +4247,24 @@ def compare_fc(name, got, want, tol=TOL):
     return err / scale
 
 
-def check_phase_only_level(level, name, C, gen, label="biharmonic"):
-    """The phase kernels' build for a level they take alone (the reach-2 and
-    the 3d forms) against their plain versions on one level at ``C`` chains:
-    noise off and the same noise tensors, then the in-kernel generator against
-    the plain versions fed the host's reference normals (the first and the
-    last :data:`NOISE_CHECK_WAVE`); ``x`` elementwise within TOL, ``f_c`` by
-    :func:`compare_fc`.  The route must be the phase kernels at every count of
-    :data:`PHASE_ONLY_CHAINS`, and the split and stream routes must refuse the
-    level before they launch.  ``label`` names the phase in messages."""
+def check_phase_only_level(level, name, C, gen, label="biharmonic", route="phase"):
+    """The kernels of ``route`` on a level the reach-1 routes do not take (the
+    reach-2 forms: the phase kernels' build or the smem kernels; the 3d forms:
+    the phase kernels') against their plain versions on one level at ``C``
+    chains: noise off and the same noise tensors, then the in-kernel generator
+    against the plain versions fed the host's reference normals (the first
+    and the last :data:`NOISE_CHECK_WAVE`); ``x`` elementwise within TOL,
+    ``f_c`` by :func:`compare_fc`; the smem kernels also against the phase
+    kernels under one Philox stream (the same tolerances).  A 3d level's route
+    must be the phase kernels at every count of :data:`PHASE_ONLY_CHAINS` (a
+    reach-2 level's routes are recorded), and the split and stream routes
+    must refuse the level before they launch.  ``label`` names the phase in
+    messages."""
     from multigridmc_tpu_torch.ops.kernels import common
     from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
 
     routes = {c: level.route(c) for c in PHASE_ONLY_CHAINS}
-    if set(routes.values()) != {"phase"}:
+    if level.dim == 3 and set(routes.values()) != {"phase"}:
         raise AssertionError(f"{label} {name}: the level takes the routes {routes}")
     dev = level.coeffs.device
     vshape, m = level.op.vshape, level.op.m_lowrank
@@ -4264,36 +4274,36 @@ def check_phase_only_level(level, name, C, gen, label="biharmonic"):
 
     f, x, xc = rand(*vshape), rand(C, *vshape), rand(C, *level.vc)
     before = dict(mv.launch_counts)
-    for route in ("split", "stream"):
+    for refused in ("split", "stream"):
         try:
-            mv.launch_descend(level, route, f, x.clone())
+            mv.launch_descend(level, refused, f, x.clone())
         except NotImplementedError:
             continue
-        raise AssertionError(f"{label} {name}: the {route} route took the level")
+        raise AssertionError(f"{label} {name}: the {refused} route took the level")
     if mv.launch_counts != before:
         raise AssertionError(f"{label} {name}: a refused launch was counted")
     errs = {"x": 0.0, "f_c_over_scale": 0.0, "ascend_x": 0.0}
     for noisy in (False, True):
         xi = rand(C, *vshape) if noisy else None
         xi_lr = rand(C, m) if (noisy and m) else None
-        tag = f"{label} {name} C={C} {'shared noise' if noisy else 'noise off'}"
+        tag = f"{label} {name} C={C} {route} {'shared noise' if noisy else 'noise off'}"
         want_x, want_fc = mv.descend_visit_plain(level, f, x, xi, xi_lr)
-        got_x, got_fc = mv.launch_descend(level, "phase", f, x.clone(), xi=xi, xi_lr=xi_lr)
+        got_x, got_fc = mv.launch_descend(level, route, f, x.clone(), xi=xi, xi_lr=xi_lr)
         errs["x"] = max(errs["x"], compare(f"descend x {tag}", got_x, want_x))
         errs["f_c_over_scale"] = max(errs["f_c_over_scale"],
                                      compare_fc(f"descend f_c {tag}", got_fc, want_fc))
         want = mv.ascend_visit_plain(level, f, x, xc, xi, xi_lr)
-        got = mv.launch_ascend(level, "phase", f, x.clone(), xc, xi=xi, xi_lr=xi_lr)
+        got = mv.launch_ascend(level, route, f, x.clone(), xc, xi=xi, xi_lr=xi_lr)
         errs["ascend_x"] = max(errs["ascend_x"], compare(f"ascend x {tag}", got, want))
         del want_x, want_fc, got_x, got_fc, want, got
     xi_lr = rand(C, m) if m else None
     seed = 0x5EED_0012
-    got_x, got_fc = mv.launch_descend(level, "phase", f, x.clone(), xi_lr=xi_lr, philox=(seed, 11))
-    got = mv.launch_ascend(level, "phase", f, x.clone(), xc, xi_lr=xi_lr, philox=(seed, 12))
+    got_x, got_fc = mv.launch_descend(level, route, f, x.clone(), xi_lr=xi_lr, philox=(seed, 11))
+    got = mv.launch_ascend(level, route, f, x.clone(), xc, xi_lr=xi_lr, philox=(seed, 12))
     for first, n in ((0, min(C, NOISE_CHECK_WAVE)), (max(C - NOISE_CHECK_WAVE, 0),
                                                    min(C, NOISE_CHECK_WAVE))):
         part = slice(first, first + n)
-        tag = f"{label} {name} C={C} in-kernel noise, chains {first}..{first + n - 1}"
+        tag = f"{label} {name} C={C} {route} in-kernel noise, chains {first}..{first + n - 1}"
         ref = [torch.as_tensor(common.philox_normals_reference(seed, counter, n, vshape,
                                                                first_chain=first), device=dev)
                for counter in (11, 12)]
@@ -4304,34 +4314,78 @@ def check_phase_only_level(level, name, C, gen, label="biharmonic"):
             f"descend f_c {tag}", got_fc[part], want_fc))
         want = mv.ascend_visit_plain(level, f, x[part], xc[part], ref[1], lr)
         errs["ascend_x"] = max(errs["ascend_x"], compare(f"ascend x {tag}", got[part], want))
+    if route == "smem":  # one Philox stream through the smem and the phase kernels
+        stream = {"xi_lr": xi_lr, "philox": (seed, 21)}
+        got = [(*mv.launch_descend(level, r, f, x.clone(), **stream),
+                mv.launch_ascend(level, r, f, x.clone(), xc, **stream)) for r in ("phase", route)]
+        tag = f"{label} {name} C={C} one Philox stream, smem against phase kernel"
+        errs["smem_against_phase"] = {
+            "descend_x": compare(f"descend x {tag}", got[1][0], got[0][0]),
+            "descend_f_c_over_scale": compare_fc(f"descend f_c {tag}", got[1][1], got[0][1]),
+            "ascend_x": compare(f"ascend x {tag}", got[1][2], got[0][2])}
+        del got
     torch.cuda.synchronize()
     return {"level": name, "vshape": list(vshape), "offsets": len(level.op.offsets),
             "colours": level.coloring.n_colors, "stencil_form": level.stencil_form,
-            "chains": C, "threads": level.phase_threads(C), "routes": routes,
+            "chains": C, "route": route, "routes": routes,
+            "threads": level.phase_threads(C) if route == "phase" else smem_launch_of(
+                level, C)["threads"],
+            "cluster": smem_launch_of(level, C)["cluster"] if route == "smem" else None,
             "coefficient_planes": sum(c is None for c in level.const_coeffs), **errs}
 
 
-def time_phase_only_level(level, C, noise):
-    """ms per launch of the phase kernels' reach-2 or 3d build at ``C`` chains
-    with in-kernel noise, as the main path runs them: CUDA events around
-    back-to-back launches and the profiler's device time (the kernel of this
-    level's stencil form by its full name, the median of three windows, held
-    to the events), the plain versions' ms and the bound."""
+def reach2_kernel(level, route, kind):
+    """The profiler's name of the kernel a launch of ``kind`` through ``route``
+    (the phase kernels' reach-2 or 3d build, or the smem kernels) runs on
+    ``level``."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit_smem as vsm
+
+    if route == "smem":
+        return (f"smem_visit_kernel<{vsm.kmax(level.stencil_form)}, "
+                f"{'true' if kind == 'descend' else 'false'}")
+    return f"{kind}_kernel<{level.stencil_form}"
+
+
+def smem_launch_of(level, C):
+    """The smem route's launch configuration of ``C`` chains on ``level`` by
+    its rules: the cluster size, ``c`` in shared memory, threads, bytes."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit_smem as vsm
+
+    L = vsm.layout(level, level.pre_orders, C=C)
+    H, W = level.op.vshape
+    card = vsm.load_library().mgmc_smem_visit_smem_bytes(H, W, L.S, vsm.pitch(W),
+                                                          int(L.c_shared))
+    if card != L.nbytes:
+        raise AssertionError(f"smem {tuple(level.op.vshape)} S={L.S}: the library lays out "
+                             f"{card} bytes a block, mgmc_visit_smem.smem_bytes {L.nbytes}")
+    return {"cluster": L.S, "c_shared": L.c_shared, "threads": L.threads,
+            "dynamic_shared_bytes": L.nbytes}
+
+
+def time_phase_only_level(level, C, noise, route="phase"):
+    """ms per launch of the kernels of ``route`` (the phase kernels' reach-2 or
+    3d build, or the smem kernels) at ``C`` chains with in-kernel noise, as
+    the main path runs them: CUDA events around back-to-back launches and the
+    profiler's device time (the kernel of this level's stencil form by its
+    full name, the median of three windows, held to the events), the plain
+    versions' ms and the bound."""
     from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
 
     dev = level.coeffs.device
     f = torch.rand(level.op.vshape, device=dev)
     x = torch.zeros((C,) + level.op.vshape, device=dev)
     xc = torch.randn((C,) + level.vc, device=dev)
-    out = {"vshape": list(level.op.vshape), "chains": C, "threads": level.phase_threads(C),
-           "stencil_form": level.stencil_form}
-    for kind, fn in zip(("descend", "ascend"), visit_fns(level, "phase", noise, f, x, xc)):
+    out = {"vshape": list(level.op.vshape), "chains": C, "route": route,
+           "threads": level.phase_threads(C), "stencil_form": level.stencil_form}
+    if route == "smem":
+        out.update(smem_launch_of(level, C))
+    for kind, fn in zip(("descend", "ascend"), visit_fns(level, route, noise, f, x, xc)):
         host = {}
         out[f"{kind}_ms"] = cuda_ms(fn, 5, 10, host)
-        out[f"{kind}_device_ms"] = device_ms_median(
-            fn, f"{kind}_kernel<{level.stencil_form}", 20)
+        out[f"{kind}_device_ms"] = device_ms_median(fn, reach2_kernel(level, route, kind), 20)
         out[f"{kind}_events_over_device"] = check_events_against_device(
-            f"{kind} {tuple(level.op.vshape)} form {level.stencil_form} C={C}", out[f"{kind}_ms"],
+            f"{kind} {route} {tuple(level.op.vshape)} form {level.stencil_form} C={C}",
+            out[f"{kind}_ms"],
             out[f"{kind}_device_ms"], host["ms"])
         bound, by, nbytes = visit_bound(level, C, False, kind)
         out[f"{kind}_bound_ms"], out[f"{kind}_bound_by"], out[f"{kind}_bytes"] = bound, by, nbytes
@@ -4346,6 +4400,262 @@ def time_phase_only_level(level, C, noise):
     out["ascend_plain_ms"] = cuda_ms(
         lambda: mv.ascend_visit_plain(level, f, x, xc, *plain_noise("ascend")), 3, 3)
     return out
+
+
+#: chain counts of the ``smem_routes`` table (phase ``biharmonic``)
+SMEM_ROUTE_CHAINS = (1, 16, 256)
+#: the rule's route may take up to this multiple of the other route's device
+#: ms before the table fails (two profiler medians of one card differ by a few
+#: percent from call to call)
+SMEM_ROUTE_SLACK = 1.10
+
+
+def biharmonic_ssor_levels(sampler):
+    """Two-sweep (SSOR, forward then backward) fused levels of the biharmonic
+    sampler's levels 0 and 1, from their operators and ``SSORSmoother``s as
+    the sampler would build them with ``smoother="SSOR"``."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+    from multigridmc_tpu_torch.smoothers import SSORSmoother
+
+    out = {}
+    for li in (0, 1):
+        lv = sampler.fused_levels[li]
+        orders, Bbar, coloring, _ = mv._sweep_spec(SSORSmoother(lv.op, lv.omega, 1))
+        out[li] = mv.FusedVisitLevel(lv.op, coloring, lv.omega, orders, orders, Bbar, Bbar,
+                                     lv.coarse_scaling)
+    return out
+
+
+def time_reach2_routes(levels, noise, chains=SMEM_ROUTE_CHAINS):
+    """The ``smem_routes`` table: device ms per launch (torch.profiler, the
+    median of three interleaved windows) of both reach-2 routes, the phase
+    kernels' build and the smem kernels at the rule's cluster size, descend
+    plus ascend, at each count of ``chains`` on each of ``levels`` (``{name:
+    level}``, one and two sweeps), beside the route the rule takes.  Returns
+    the rows and the faults: a count where the rule's route takes more than
+    :data:`SMEM_ROUTE_SLACK` times the other's."""
+    rows, faults = [], []
+    for name, level in levels.items():
+        dev = level.coeffs.device
+        for C in chains:
+            f = torch.rand(level.op.vshape, device=dev)
+            x = torch.zeros((C,) + level.op.vshape, device=dev)
+            xc = torch.randn((C,) + level.vc, device=dev)
+            cands = {}
+            for route in ("phase", "smem"):
+                for kind, fn in zip(("descend", "ascend"),
+                                    visit_fns(level, route, noise, f, x, xc)):
+                    cands[(route, kind)] = (fn, reach2_kernel(level, route, kind))
+            ms = device_ms_medians(cands, 10, 3)
+            row = {"level": name, "vshape": list(level.op.vshape), "sweeps": level.ndir,
+                   "stencil_form": level.stencil_form, "chains": C, "rule": level.route(C),
+                   **{f"smem_{k}": v for k, v in smem_launch_of(level, C).items()},
+                   "phase_threads": level.phase_threads(C)}
+            for route in ("phase", "smem"):
+                for kind in ("descend", "ascend"):
+                    row[f"{route}_{kind}_ms"] = ms[(route, kind)]
+                row[f"{route}_ms"] = ms[(route, "descend")] + ms[(route, "ascend")]
+            row["smem_over_phase"] = row["smem_ms"] / row["phase_ms"]
+            other = "phase" if row["rule"] == "smem" else "smem"
+            if row[f"{row['rule']}_ms"] > SMEM_ROUTE_SLACK * row[f"{other}_ms"]:
+                faults.append(f"{name} C={C}: the rule takes {row['rule']} "
+                              f"({row[row['rule'] + '_ms']} ms), {other} takes {row[other + '_ms']}")
+            rows.append(row)
+            del x, xc
+    return rows, faults
+
+
+def reach2_pass_stamps(level, li, C, noise, route):
+    """One reach-2 launch of each kind by pass from the stamps build of
+    ``route`` (the phase kernels' reach-2 build or the smem kernels), in-kernel
+    noise, at ``C`` chains: per pass the median over the blocks, the barriers
+    each block passed against the count from the source
+    (``mgmc_visit.phase_barrier_count``, ``mgmc_visit_smem.barrier_count``),
+    the blocks one SM ran at once against the occupancy calculator, the span
+    against the profiler's device ms of the production build; the last of
+    three launches."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit_smem as vsm
+
+    dev = level.coeffs.device
+    f = torch.rand(level.op.vshape, device=dev)
+    x = torch.zeros((C,) + level.op.vshape, device=dev)
+    xc = torch.randn((C,) + level.vc, device=dev)
+    row = {"level": li, "vshape": list(level.op.vshape), "chains": C, "route": route,
+           "stencil_form": level.stencil_form}
+    S = 1
+    if route == "smem":
+        row.update(smem_launch_of(level, C))
+        S = row["cluster"]
+    else:
+        row["threads"] = level.phase_threads(C)
+    fns = visit_fns(level, route, noise, f, x, xc)
+    for kind, fn in zip(("descend", "ascend"), fns):
+        device_ms = device_ms_median(fn, reach2_kernel(level, route, kind))
+        stamps = torch.zeros(mv.stamp_shape(level, route, C, S), dtype=torch.int64, device=dev)
+        for _ in range(3):
+            xi, xi_lr, philox = level._draw(noise, x, kind)
+            if kind == "descend":
+                mv.launch_descend(level, route, f, x, xi, xi_lr, philox, stamps=stamps)
+            else:
+                mv.launch_ascend(level, route, f, x, xc, xi, xi_lr, philox, stamps=stamps)
+        torch.cuda.synchronize()
+        if route == "smem":
+            pt = vsm.pass_times(level, kind, stamps)
+            pt["barriers_from_source"] = vsm.barrier_count(level, kind)
+            L = vsm.layout(level, level.orders(kind), C=C)
+            pt["blocks_per_sm_occupancy_api"] = vsm.load_library().mgmc_smem_visit_blocks_per_sm(
+                int(kind == "descend"), L.kmax, L.threads, L.nbytes)
+        else:
+            pt = mv.pass_times(level, kind, stamps)
+            pt["barriers_from_source"] = mv.phase_barrier_count(level, kind)
+            smem = level.phase_launch(level.orders(kind), row["threads"])[2]
+            pt["tables_in_shared_memory"] = smem > 0
+            pt["blocks_per_sm_occupancy_api"] = mv.load_library(
+                reach=2).mgmc_visit_blocks_per_sm(int(kind == "descend"), level.stencil_form,
+                                                  len(level.orders(kind)), row["threads"], smem)
+        pt["device_ms"] = device_ms
+        pt["span_over_device_ms"] = pt["launch_span_us"] / 1e3 / device_ms
+        tag = f"biharmonic {route} L{li} C={C} {kind}"
+        if pt["barriers_per_block"] != [pt["barriers_from_source"]]:
+            raise AssertionError(f"{tag}: the blocks passed {pt['barriers_per_block']} "
+                                 f"barriers, the source places {pt['barriers_from_source']}")
+        if not 1 <= pt["blocks_per_sm"] <= pt["blocks_per_sm_occupancy_api"]:
+            raise AssertionError(f"{tag}: {pt['blocks_per_sm']} blocks on one SM at once, the "
+                                 f"occupancy calculator allows {pt['blocks_per_sm_occupancy_api']}")
+        row[kind] = pt
+    del x, xc
+    return row
+
+
+def smem_kernel_attributes():
+    """Registers, local (spill) bytes and static shared bytes per thread of
+    the smem kernels (the 13- and 25-point kernels, both kinds)."""
+    import ctypes
+
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit_smem as vsm
+
+    lib = vsm.load_library()
+    out = {}
+    for (kind, descend), km in itertools.product((("descend", 1), ("ascend", 0)), (13, 25)):
+        vals = (ctypes.c_int * 3)()
+        err = lib.mgmc_smem_visit_kernel_attributes(descend, km, vals)
+        if err:
+            raise AssertionError(f"smem {kind} {km}-point kernel attributes: CUDA error {err}")
+        out[f"{kind} {km}-point"] = {"registers": vals[0], "local_bytes": vals[1],
+                                     "static_shared_bytes": vals[2]}
+    return out
+
+
+#: the smem kernels' block-size and placement table (``--phases smem_table``):
+#: threads per block tried at every cluster size that fits, with ``c`` in
+#: shared memory where it fits and without
+SMEM_TABLE_THREADS = (256, 512, 1024)
+SMEM_TABLE_CHAINS = (1, 16, 256)
+
+
+def time_smem_variants(levels, noise):
+    """The smem kernels' device ms per descend plus ascend on each of
+    ``levels`` at the chain counts of :data:`SMEM_TABLE_CHAINS`: every cluster
+    size of ``mgmc_visit_smem.candidates`` (and the size that fits without
+    ``c``), ``c`` in shared memory or not, :data:`SMEM_TABLE_THREADS`; the
+    rule's choice beside."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit_smem as vsm
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+
+    rows = []
+    for name, level in levels.items():
+        dev = level.coeffs.device
+        H, W = level.op.vshape
+        limit = ss.smem_limit_of(dev)
+        for C in SMEM_TABLE_CHAINS:
+            f = torch.rand(level.op.vshape, device=dev)
+            x = torch.zeros((C,) + level.op.vshape, device=dev)
+            xc = torch.randn((C,) + level.vc, device=dev)
+            cands = {}
+            for S in vsm.CLUSTER_SIZES:
+                if H // S < vsm.HALO or not vsm.fits_indices(H, W, S):
+                    continue
+                for c_sh in (True, False):
+                    if vsm.smem_bytes(H, W, S, c_sh) + vsm.STATIC_SMEM > limit:
+                        continue
+                    for threads in SMEM_TABLE_THREADS:
+                        if vsm.active_clusters(level, S, c_sh, threads) < 1:
+                            continue
+                        kw = dict(cluster=S, c_shared=c_sh, threads=threads)
+                        for kind in ("descend", "ascend"):
+                            def fn(kind=kind, kw=kw):
+                                xi, xi_lr, philox = level._draw(noise, x, kind)
+                                if kind == "descend":
+                                    return mv_launch("descend", level, f, x, xi, xi_lr, philox,
+                                                     None, kw)
+                                return mv_launch("ascend", level, f, x, xi, xi_lr, philox, xc,
+                                                 kw)
+                            cands[(S, c_sh, threads, kind)] = (
+                                fn, reach2_kernel(level, "smem", kind))
+            ms = device_ms_medians(cands, 10, 3)
+            rule = smem_launch_of(level, C)
+            for (S, c_sh, threads) in sorted({k[:3] for k in cands}):
+                d, a = ms[(S, c_sh, threads, "descend")], ms[(S, c_sh, threads, "ascend")]
+                rows.append({"level": name, "vshape": [H, W], "sweeps": level.ndir, "chains": C,
+                             "cluster": S, "c_shared": c_sh, "threads": threads,
+                             "descend_ms": d, "ascend_ms": a,
+                             "ms": None if None in (d, a) else d + a,
+                             "rule": (S, c_sh, threads) == (rule["cluster"], rule["c_shared"],
+                                                            rule["threads"])})
+            del x, xc
+    return rows
+
+
+def mv_launch(kind, level, f, x, xi, xi_lr, philox, xc, kw):
+    """One smem launch of ``kind`` with the configuration ``kw`` (cluster,
+    c_shared, threads)."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+
+    if kind == "descend":
+        return mv.launch_descend(level, "smem", f, x, xi, xi_lr, philox, **kw)
+    return mv.launch_ascend(level, "smem", f, x, xc, xi, xi_lr, philox, **kw)
+
+
+def phase_reach2(device, nlevel, C, smi, table):
+    """The reach-2 visits alone on the biharmonic posterior's levels 0 and 1 at
+    ``C`` chains: both designs' registers and spills, the phase kernels'
+    reach-2 build by pass (its stamps build), the smem kernels and their
+    two-sweep form against the plain versions and the phase kernels; with
+    ``table`` the smem kernels by pass and their block-size and placement
+    table (:func:`time_smem_variants`, one and two sweeps).  No result line."""
+    from multigridmc_tpu_torch.samplers.base import GeneratorNoise
+    from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
+
+    out = {"phase": "reach2_check", "card": smi}
+    try:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(12)
+        op, _ = build_posterior(256, 8, BIHARMONIC_SEED, "near_exact", device, **BIHARMONIC)
+        sampler = MultigridMCSampler(op, nlevel, smoother="SOR", coarse_solver="Cholesky",
+                                     omega=1.0, cycle=2)
+        levels = sampler.fused_levels
+        noise = GeneratorNoise(BIHARMONIC_SEED + 1, device)
+        out["kernel_attributes"] = build_kernel_attributes(reach=2)
+        out["smem_kernel_attributes"] = smem_kernel_attributes()
+        out["routes"] = {li: {c: levels[li].route(c) for c in SMEM_ROUTE_CHAINS} for li in (0, 1)}
+        out["pass_stamps"] = [reach2_pass_stamps(levels[li], li, C, noise, "phase")
+                              for li in (0, 1)]
+        emit(dict(out, partial=True))
+        out["smem_checks"] = [check_phase_only_level(levels[li], f"L{li}", c, gen, route="smem")
+                              for li in (0, 1) for c in (C, 1)]
+        two = biharmonic_ssor_levels(sampler)
+        out["smem_ssor_checks"] = [check_ssor_level(two[li], f"biharmonic L{li}", C, gen, "smem",
+                                                    own_route=False) for li in (0, 1)]
+        if table:
+            out["smem_pass_stamps"] = [reach2_pass_stamps(levels[li], li, c, noise, "smem")
+                                       for c in (C, 1) for li in (0, 1)]
+            out["smem_table"] = time_smem_variants({"L0": levels[0], "L1": levels[1]}, noise)
+    except BaseException:
+        out["failed"] = True
+        raise
+    finally:
+        emit(out)
 
 
 def build_kernel_attributes(reach=2, dim=2):
@@ -4687,16 +4997,18 @@ def drive_sampler(op, f, C, steps, kwargs, levels_are=None, sampler=None, busy_s
     wrong = {name: n for name, n in counts.items() if n != expected.get(name, 0)}
     if wrong or (levels_are and not all(levels_are(sampler.fused_levels[li]) for li in visited)):
         raise AssertionError(f"{kwargs}: visit launches {counts}, expected {expected}")
-    # a profiler window can record a part of its launches: only windows that
-    # show every visit launch of their steps count, the median of three
+    # a profiler window can record a part of its launches, or none at all:
+    # only windows that show every visit launch of their steps count, the
+    # median of three, out of at most BUSY_WINDOWS
     per_step = sum(expected.values()) / steps
-    windows, complete = [], []
-    while len(windows) < BUSY_WINDOWS and len(complete) < 3:
+    windows, complete, empty = [], [], 0
+    while len(windows) + empty < BUSY_WINDOWS and len(complete) < 3:
         busy = device_busy(lambda: sampler.apply(noise, f, x), busy_steps,
                            pattern=r"trsm|triang|visit_kernel|descend_kernel|ascend_kernel"
                                    r"|mgmc_subtree_kernel")
         if busy is None:
-            break
+            empty += 1
+            continue
         busy["visit_calls_per_step"] = sum(r["calls_per_step"] for r in busy["matching"]
                                            if re.search(r"visit_kernel|descend_kernel|"
                                                         r"ascend_kernel", r["name"]))
@@ -4706,11 +5018,13 @@ def drive_sampler(op, f, C, steps, kwargs, levels_are=None, sampler=None, busy_s
     if windows and not complete:
         raise AssertionError(f"{kwargs}: no profiler window of {len(windows)} recorded the "
                              f"{per_step} visit launches a step: "
-                             f"{[w['visit_calls_per_step'] for w in windows]}")
+                             f"{[w['visit_calls_per_step'] for w in windows]} "
+                             f"({empty} windows recorded nothing)")
     busy = None
     if complete:
         busy = sorted(complete, key=lambda w: w["kernel_ms_per_step"])[len(complete) // 2]
         busy.update({"windows": len(windows), "complete_windows": len(complete),
+                     "empty_windows": empty,
                      "kernel_ms_per_step_windows": [w["kernel_ms_per_step"] for w in windows]})
     return sampler, {
         "chains": C, "steps": steps, "setup_seconds": setup_seconds,
@@ -4781,7 +5095,10 @@ def biharmonic_gate(device):
         res["measurement_0"] = moments_gate(f"{label} B_0^T x", z[:, :, 1], 0.0,
                                             float(exact[1]), C)
         res["measurement_0"]["exact_variance"] = float(exact[1])
-        want = ("descend_visit_reach2_13pt",) + (() if subtree else ("descend_visit_reach2_25pt",))
+        gated = (0,) if subtree else (0, 1)
+        want = tuple(mv.kernel_name(sampler.fused_levels[li], sampler.fused_levels[li].route(C),
+                                    "descend") for li in gated)
+        res["routes_by_level"] = {li: sampler.fused_levels[li].route(C) for li in gated}
         if not all(res["launches"].get(n, 0) > 0 for n in want) or res["subtree_launches"] != (
                 {"subtree_sample_reach2": g["warmup"] + g["steps"]} if subtree else {}):
             raise AssertionError(f"{label} gate: launches {res['launches']}, subtree launches "
@@ -4881,12 +5198,15 @@ def prior_drivers(device, nlevel, nchains):
         os.chdir(work)
         try:
             # the one-chain series: the 13-point level 0 and the 25-point level
-            # 1 on the reach-2 phase kernels, the FEM prior's on the split
-            # kernels; the replica chains of the FEM convergence table the
-            # phase kernels
-            for name, visits in (("biharmonic", ("descend_visit_reach2_13pt",
-                                                 "descend_visit_reach2_25pt")),
-                                 ("fem", ("descend_visit_split", "descend_visit"))):
+            # 1 on the reach-2 kernels of the route the rule takes (the smem
+            # kernels where their table lists the level, else the phase
+            # kernels' build), the FEM prior's on the split kernels; the
+            # replica chains of the FEM convergence table the phase kernels.
+            # Each level's visits launched on one of its routes.
+            reach2 = [tuple(mv.REACH2_NAMES[("descend", box, route)] for route in
+                            ("phase", mv.SMEM_ROUTE)) for box in (False, True)]
+            for name, visits in (("biharmonic", reach2),
+                                 ("fem", (("descend_visit_split",), ("descend_visit",)))):
                 mv.reset_launch_counts()
                 ss.reset_launch_counts()
                 t0 = time.perf_counter()
@@ -4913,7 +5233,7 @@ def prior_drivers(device, nlevel, nchains):
                 if abs(res["mean"] - exact) > res["mean_bar"]:
                     raise AssertionError(f"drivers ({name}): MGMC mean {res['mean']} is further "
                                          f"than {res['mean_bar']} from the exact mean {exact}")
-                if not all(mv.launch_counts[v] > 0 for v in visits):
+                if not all(any(mv.launch_counts[v] > 0 for v in names) for names in visits):
                     raise AssertionError(f"drivers ({name}): visit launches {mv.launch_counts}")
                 if name == "biharmonic":
                     res["exact_moments_band_solve"] = band_solve_residual(BIHARMONIC_DRIVER_NX)
@@ -4991,15 +5311,28 @@ def _biharmonic_parts(out, device, nlevel, C, n_meas):
     kwargs = dict(nlevel=nlevel, smoother="SOR", coarse_solver="Cholesky", omega=1.0, cycle=2)
     sampler, main = drive_sampler(op, f, C, BIHARMONIC_STEPS, kwargs,
                                   levels_are=lambda lv: lv.reach == 2)
-    if main["distill_level"] != 2 or main["visited_levels"] != [0, 1] or set(
-            main["route_by_level"].values()) != {"phase"}:
+    if main["distill_level"] != 2 or main["visited_levels"] != [0, 1]:
         raise AssertionError(f"biharmonic: {main}")
     out["main_path"] = main
     levels = sampler.fused_levels
-    out["kernel_attributes"] = build_kernel_attributes(reach=2)
-    out["checks"] = [check_phase_only_level(levels[li], f"L{li}", C, gen) for li in (0, 1)]
     noise = GeneratorNoise(BIHARMONIC_SEED + 1, device)
+    out["kernel_attributes"] = build_kernel_attributes(reach=2)
+    out["smem_kernel_attributes"] = smem_kernel_attributes()
+    # both designs by pass at C chains: the phase kernels' reach-2 stamps build
+    # (the parent's design), the smem kernels' stamps build
+    out["pass_stamps"] = [reach2_pass_stamps(levels[li], li, C, noise, route)
+                          for route in ("phase", "smem") for li in (0, 1)]
+    out["checks"] = [check_phase_only_level(levels[li], f"L{li}", C, gen) for li in (0, 1)]
+    out["smem_checks"] = [check_phase_only_level(levels[li], f"L{li}", C, gen, route="smem")
+                          for li in (0, 1)]
+    two = biharmonic_ssor_levels(sampler)
+    out["smem_ssor_checks"] = [check_ssor_level(two[li], f"biharmonic L{li}", C, gen, "smem",
+                                                own_route=False) for li in (0, 1)]
     out["timings"] = [time_phase_only_level(levels[li], C, noise) for li in (0, 1)]
+    out["smem_timings"] = [time_phase_only_level(levels[li], C, noise, "smem") for li in (0, 1)]
+    out["smem_routes"], route_faults = time_reach2_routes(
+        {"L0": levels[0], "L1": levels[1], "L0 ssor": two[0], "L1 ssor": two[1]}, noise)
+    del two
     # the distillation set-up's sweeps: every shape it launched, on both
     # 9-colour levels below the distilled level, at the set-up's chain counts
     out["setup_sweeps"] = check_distill_setup(op, nlevel, sampler, main, gen, "biharmonic")
@@ -5048,6 +5381,9 @@ def _biharmonic_parts(out, device, nlevel, C, n_meas):
     seconds["gates"] = time.perf_counter() - t1 - sum(seconds.values())
     out["drivers"] = prior_drivers(device, nlevel, C)
     out["seconds"] = time.perf_counter() - t0
+    if route_faults:
+        raise AssertionError("smem_routes: the rule's route is more than "
+                             f"{SMEM_ROUTE_SLACK} times the other's: " + "; ".join(route_faults))
 
 
 # --------------------------------------------------------------- phase: volume
@@ -5488,7 +5824,7 @@ SSOR_SPLIT_CLUSTER = 16
 SSOR_NOISE_CHECK = 8
 
 
-def check_ssor_level(level, name, C, gen, route, cluster=None):
+def check_ssor_level(level, name, C, gen, route, cluster=None, own_route=True):
     """A two-sweep (SSOR) level's visit kernels of ``route`` against their
     plain versions at ``C`` chains: noise off and the same noise tensors (two
     fields, ``(C, 2 m)`` low-rank normals), then the in-kernel generator
@@ -5497,12 +5833,14 @@ def check_ssor_level(level, name, C, gen, route, cluster=None):
     :data:`SSOR_NOISE_CHECK` chains); ``x`` elementwise within TOL, ``f_c`` by
     :func:`compare_fc`.  The level's own route at ``C`` must be ``route``, and
     the stream kernels (and for a reach-2 or 3d level the split kernels too)
-    must refuse it before they launch.  With ``route`` split, the split
-    kernels are held against the phase kernels under one Philox stream."""
+    must refuse it before they launch (``own_route=False``: ``route`` is
+    held to the plain versions where the rule takes another).  With ``route``
+    split or smem, those kernels are held against the phase kernels under one
+    Philox stream."""
     from multigridmc_tpu_torch.ops.kernels import common
     from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
 
-    if level.ndir != 2 or level.route(C) != route:
+    if level.ndir != 2 or (own_route and level.route(C) != route):
         raise AssertionError(f"ssor {name}: {level.ndir} sweeps, route {level.route(C)} at "
                              f"{C} chains, expected two sweeps and {route}")
     dev = level.coeffs.device
@@ -5558,21 +5896,22 @@ def check_ssor_level(level, name, C, gen, route, cluster=None):
             f"descend f_c {tag}", got_fc[part], want_fc))
         want = mv.ascend_visit_plain(level, f, x[part], xc[part], ref(13), lr)
         errs["ascend_x"] = max(errs["ascend_x"], compare(f"ascend x {tag}", got[part], want))
-    if route == "split":  # one Philox stream through the split and the phase kernels
+    if route in ("split", "smem"):  # one Philox stream through these and the phase kernels
         stream = {"xi_lr": xi_lr, "philox": (seed, 31)}
         phase_x, phase_fc = mv.launch_descend(level, "phase", f, x.clone(), **stream)
         phase_a = mv.launch_ascend(level, "phase", f, x.clone(), xc, **stream)
-        split_x, split_fc = mv.launch_descend(level, "split", f, x.clone(), **stream, **kw)
-        split_a = mv.launch_ascend(level, "split", f, x.clone(), xc, **stream, **kw)
-        tag = f"ssor {name} C={C} one Philox stream, split against phase kernel"
-        errs["split_against_phase"] = {
+        split_x, split_fc = mv.launch_descend(level, route, f, x.clone(), **stream, **kw)
+        split_a = mv.launch_ascend(level, route, f, x.clone(), xc, **stream, **kw)
+        tag = f"ssor {name} C={C} one Philox stream, {route} against phase kernel"
+        errs[f"{route}_against_phase"] = {
             "descend_x": compare(f"descend x {tag}", split_x, phase_x),
             "descend_f_c_over_scale": compare_fc(f"descend f_c {tag}", split_fc, phase_fc),
             "ascend_x": compare(f"ascend x {tag}", split_a, phase_a)}
     torch.cuda.synchronize()
     return {"level": name, "vshape": list(vshape), "offsets": len(level.op.offsets),
             "colours": level.coloring.n_colors, "stencil_form": level.stencil_form,
-            "chains": C, "route": route, "cluster": cluster,
+            "chains": C, "route": route,
+            "cluster": level.split_cluster(C) if route == "smem" else cluster,
             "threads": level.phase_threads(C) if route == "phase" else None,
             "barriers_from_source": {k: mv.phase_barrier_count(level, k)
                                      for k in ("descend", "ascend")}, **errs}
@@ -5696,8 +6035,13 @@ def _ssor_parts(out, device):
                                      busy_steps=1)
         out["main_path"][name] = res
         lv = s_other.fused_levels[0]
-        out["other_checks"].append(check_ssor_level(lv, f"{name} L0", C, gen, "phase"))
-        t = time_phase_only_level(lv, C, noise)
+        route = lv.route(C)
+        out["other_checks"].append(check_ssor_level(lv, f"{name} L0", C, gen, route))
+        t = time_phase_only_level(lv, C, noise, route)
+        if route != "phase":  # the phase kernels' build beside
+            phase = time_phase_only_level(lv, C, noise)
+            t.update({f"phase_{k}": phase[k] for k in ("descend_ms", "descend_device_ms",
+                                                       "ascend_ms", "ascend_device_ms")})
         t["name"] = name
         out["other_timings"].append(t)
         del s_other, lv
@@ -5719,7 +6063,9 @@ def main(argv=None) -> int:
                              "'sweeps' the sweep kernels of both routes alone, "
                              "'sweep_check', 'sweep_stamps' (with 'sweep_passes') and "
                              "'sweep_threads' the one-block sweeps' checks, breakdown by "
-                             "pass and block-size table alone); "
+                             "pass and block-size table alone, 'reach2_check' the reach-2 "
+                             "visits' stamps and checks alone, 'smem_table' with the smem "
+                             "kernels' block-size and placement table); "
                              "the ok line needs exactly the default nine")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -5756,6 +6102,8 @@ def main(argv=None) -> int:
         gen = torch.Generator(device=device)
         gen.manual_seed(11)
         phase_visits(device, nx, nlevel, C, n_meas, gen, smi)
+    if phases & {"reach2_check", "smem_table"}:  # the reach-2 visits alone (no result line)
+        phase_reach2(device, nlevel, C, smi, "smem_table" in phases)
     if "sweep_check" in phases:  # the one-block sweeps against their plain versions alone
         gen = torch.Generator(device=device)
         gen.manual_seed(11)
@@ -5987,39 +6335,70 @@ def main(argv=None) -> int:
         "per_operation_us": {key: v["total_us"]
                              for key, v in t["per_operation"]["operations"].items()},
     })
-    # the reach-2 forms of the phase kernels (their own build of mgmc_visit.cu)
-    # on the biharmonic posterior's levels 0 (13-point) and 1 (25-point
-    # Galerkin) at C chains, launched by its full-width main path; and the
-    # sweep kernels on its 9-colour 63^2 level at the distillation set-up's
-    # shape: the deterministic sweep's generic body is launched by that
-    # set-up (on 63^2 and 31^2), the Gibbs sweep and the split route run on
-    # no path here
+    # the reach-2 levels (rows 1b / 2b): on the biharmonic posterior's levels 0
+    # (255^2 13-point) and 1 (127^2 25-point Galerkin) at C chains, launched
+    # by its full-width main path on the route the rule takes there (the smem
+    # kernels, mgmc_visit_smem.cu, where SMEM_CHAINS lists the level), the
+    # other route's device ms beside; the phase kernels' reach-2 build also on
+    # the 64x64 gate's levels (63^2, 31^2), which it takes.  And the sweep
+    # kernels on its 9-colour 63^2 level at the distillation set-up's shape:
+    # the deterministic sweep's generic body is launched by that set-up (on
+    # 63^2 and 31^2), the Gibbs sweep and the split route run on no path here
+    gate_launches = biharmonic["statistics"]["phase_kernels"]["launches"]
     for li, size in ((0, "13pt"), (1, "25pt")):
-        t, chk = biharmonic["timings"][li], biharmonic["checks"][li]
+        phase_t, smem_t = biharmonic["timings"][li], biharmonic["smem_timings"][li]
+        phase_chk, smem_chk = biharmonic["checks"][li], biharmonic["smem_checks"][li]
+        routed = biharmonic["main_path"]["route_by_level"][li]
+        route_row = next(r for r in biharmonic["smem_routes"]
+                         if r["level"] == f"L{li}" and r["chains"] == smem_t["chains"])
         for kind, line in (("descend", 700), ("ascend", 847)):
-            name = f"{kind}_visit_reach2_{size}"
-            kernels.append({
-                "name": name, "route": "cuda",
-                "source": "multigridmc_tpu_torch/csrc/mgmc_visit.cu",
-                "build": " ".join(mv.PHASE_REACH2_FLAGS),
-                "replaces": f"multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py:{line}",
-                "launches": biharmonic["main_path"]["launches"].get(name, 0),
-                "path": "biharmonic main_path",
-                "max_abs_err": chk["x"] if kind == "descend" else chk["ascend_x"],
-                "f_c_max_abs_err_over_scale": chk["f_c_over_scale"] if kind == "descend"
-                else None,
-                "ms": t[f"{kind}_ms"], "device_ms": t[f"{kind}_device_ms"],
-                "events_over_device": t[f"{kind}_events_over_device"],
-                "plain_ms": t[f"{kind}_plain_ms"],
-                "bound_ms": t[f"{kind}_bound_ms"], "bound_by": t[f"{kind}_bound_by"],
-                "bound_bytes": t[f"{kind}_bytes"], "library_ms": None,
-                "shape": {"chains": t["chains"], "vshape": t["vshape"],
-                          "offsets": chk["offsets"], "colours": chk["colours"]},
-                "stencil_form": t["stencil_form"], "threads": t["threads"],
-                "design": "the passes of level_passes.cuh at reach 2: a parameter block of 25 "
-                          "offsets and 9 colours in a build of its own, the stencil in "
-                          "registers with edge terms dropped two rows and columns deep, one "
-                          "point per lane, 512 threads a block at most"})
+            for route, t, chk in (("smem", smem_t, smem_chk), ("phase", phase_t, phase_chk)):
+                name = f"{kind}_visit_reach2_{size}" + ("_smem" if route == "smem" else "")
+                on_path = route == routed
+                other = "phase" if route == "smem" else "smem"
+                entry = {
+                    "name": name, "route": "cuda",
+                    "source": "multigridmc_tpu_torch/csrc/" + (
+                        "mgmc_visit_smem.cu" if route == "smem" else "mgmc_visit.cu"),
+                    "build": "" if route == "smem" else " ".join(mv.PHASE_REACH2_FLAGS),
+                    "replaces": f"multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py:{line}",
+                    "launches": (biharmonic["main_path"]["launches"].get(name, 0) if on_path
+                                 else gate_launches.get(name, 0)),
+                    "path": ("biharmonic main_path" if on_path else
+                             "biharmonic statistics (64x64 gate)" if gate_launches.get(name)
+                             else None),
+                    "max_abs_err": chk["x"] if kind == "descend" else chk["ascend_x"],
+                    "f_c_max_abs_err_over_scale": chk["f_c_over_scale"] if kind == "descend"
+                    else None,
+                    "ms": t[f"{kind}_ms"], "device_ms": t[f"{kind}_device_ms"],
+                    "events_over_device": t[f"{kind}_events_over_device"],
+                    "plain_ms": t[f"{kind}_plain_ms"],
+                    "bound_ms": t[f"{kind}_bound_ms"], "bound_by": t[f"{kind}_bound_by"],
+                    "bound_bytes": t[f"{kind}_bytes"], "library_ms": None,
+                    f"{other}_device_ms": route_row[f"{other}_{kind}_ms"],
+                    "shape": {"chains": t["chains"], "vshape": t["vshape"],
+                              "offsets": chk["offsets"], "colours": chk["colours"]},
+                    "stencil_form": t["stencil_form"], "threads": t["threads"],
+                    "per_pass_us": next(r[kind]["passes"] for r in biharmonic["pass_stamps"]
+                                        if r["route"] == route and r["level"] == li)}
+                if route == "smem":
+                    entry.update({
+                        "cluster": t["cluster"], "c_shared": t["c_shared"],
+                        "against_phase_one_philox_stream": chk["smem_against_phase"],
+                        "two_sweeps_max_abs_err": biharmonic["smem_ssor_checks"][li],
+                        "design": "each chain's field in shared memory, in bands over a cluster "
+                                  "where one block cannot hold it (rows beyond a cut read from "
+                                  "the neighbour's shared memory), copied in once by cp.async; "
+                                  "each colour's points over all threads from host tables, "
+                                  "interior points with their coefficients as scalars; B^T x "
+                                  "per band, summed in rank order"})
+                else:
+                    entry["design"] = (
+                        "the passes of level_passes.cuh at reach 2: a parameter block of 25 "
+                        "offsets and 9 colours in a build of its own, the stencil in registers "
+                        "with edge terms dropped two rows and columns deep, one point per "
+                        "lane, 512 threads a block at most")
+                kernels.append(entry)
     # the subtree kernel's reach-2 build (mgmc_subtree.cu -DVISIT_REACH=2) on
     # the biharmonic posterior's sub-levels (127^2, 63^2, 31^2 25-point, 9
     # colours; coarse 15^2) at C chains, launched once per step of the
@@ -6130,13 +6509,18 @@ def main(argv=None) -> int:
                     "per_pass_us": ssor["stamps"][kind]["passes"]})
     for t, chk in zip(ssor["other_timings"], ssor["other_checks"]):
         reach2 = t["name"] == "biharmonic"
+        smem = t["route"] == "smem"
         for kind, line in (("descend", 700), ("ascend", 847)):
-            name = (f"{kind}_visit_reach2_13pt" if reach2 else f"{kind}_visit_3d_7pt") + \
-                mv.SSOR_SUFFIX
+            name = (f"{kind}_visit_reach2_13pt" if reach2 else f"{kind}_visit_3d_7pt") + (
+                "_smem" if smem else "") + mv.SSOR_SUFFIX
             kernels.append({
                 "name": name, "route": "cuda",
-                "source": "multigridmc_tpu_torch/csrc/mgmc_visit.cu",
-                "build": " ".join(mv.PHASE_REACH2_FLAGS if reach2 else mv.PHASE_DIM3_FLAGS),
+                "source": "multigridmc_tpu_torch/csrc/" + (
+                    "mgmc_visit_smem.cu" if smem else "mgmc_visit.cu"),
+                "build": "" if smem else " ".join(
+                    mv.PHASE_REACH2_FLAGS if reach2 else mv.PHASE_DIM3_FLAGS),
+                **({"phase_ms": t["phase_" + kind + "_ms"],
+                    "phase_device_ms": t["phase_" + kind + "_device_ms"]} if smem else {}),
                 "replaces": f"multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py:{line}",
                 "launches": ssor["main_path"][t["name"]]["launches"].get(name, 0),
                 "path": f"ssor main_path {t['name']}",

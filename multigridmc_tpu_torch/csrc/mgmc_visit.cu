@@ -78,8 +78,8 @@
 // their parameter block, registers and stamps as they are.  A thread holds
 // the box's 25 operands and coefficients, so its kernels are bounded to 512
 // threads a block (128 registers a thread).  The split and stream kernels
-// take reach-1 stencils only; the host sends a reach-2 level here at every
-// chain count.
+// take reach-1 stencils only; the host sends a reach-2 level here where the
+// smem kernels (mgmc_visit_smem.cu) do not take it.
 //
 // 3d: the 7-point and 27-point levels of a 3d lattice take a library of their
 // own, this source built with -DVISIT_DIM=3 (common.py::PHASE_DIM3_FLAGS): a

@@ -45,7 +45,7 @@ HEADERS = ("philox.cuh", "visit_phases.cuh", "level_passes.cuh", "sor_sweep.cuh"
            "block_stamps.cuh")
 
 #: every kernel source under ``csrc/`` (``<name>.cu``)
-SOURCES = ("mgmc_visit", "mgmc_visit_stream", "mgmc_visit_split", "sor_sweep",
+SOURCES = ("mgmc_visit", "mgmc_visit_stream", "mgmc_visit_split", "mgmc_visit_smem", "sor_sweep",
            "sor_sweep_passes", "sor_sweep_smem", "sor_sweep_cluster", "mgmc_subtree",
            "smem_probe")
 
@@ -65,6 +65,11 @@ SWEEP_STAMPS_FLAGS = ("-DSWEEP_STAMPS_BUILD=1",)
 #: ``csrc/mgmc_visit.cu``: a parameter block of 25 offsets and 9 colours and
 #: the reach-2 stencil forms (the squared shifted-Laplace prior's levels)
 PHASE_REACH2_FLAGS = ("-DVISIT_REACH=2",)
+#: the flags of the reach-2 build's stamps build (a measurement aid)
+PHASE_REACH2_STAMPS_FLAGS = PHASE_REACH2_FLAGS + PHASE_STAMPS_FLAGS
+#: the flags of the smem visit kernels' stamps build, a second library of
+#: ``csrc/mgmc_visit_smem.cu``
+SMEM_VISIT_STAMPS_FLAGS = ("-DSMEM_VISIT_STAMPS_BUILD=1",)
 #: the flags of the phase visit kernels' 3d build, a fourth library of
 #: ``csrc/mgmc_visit.cu``: a parameter block of 27 offsets with the z extents,
 #: and the 3d passes and stencil forms (7-point and 27-point levels)
@@ -82,7 +87,8 @@ SUBTREE_REACH2_PARTS = {"production": SUBTREE_REACH2_FLAGS,
                         "block1024": SUBTREE_REACH2_FLAGS + ("-DSUBTREE_PART=2",)}
 
 #: every library the port builds: each source of :data:`SOURCES`, the stamps
-#: builds of ``mgmc_visit``, ``sor_sweep_passes``, ``sor_sweep_smem`` and
+#: builds of ``mgmc_visit`` (reach 1 and reach 2), ``mgmc_visit_smem``,
+#: ``sor_sweep_passes``, ``sor_sweep_smem`` and
 #: ``sor_sweep``, the reach-2 and 3d builds of ``mgmc_visit`` and of
 #: ``sor_sweep_passes`` and the reach-2 build of ``mgmc_subtree`` in its three
 #: libraries (:data:`VARIANT_BUILDS`);
@@ -90,7 +96,9 @@ SUBTREE_REACH2_PARTS = {"production": SUBTREE_REACH2_FLAGS,
 #: the stamps by default, and beside the production libraries their builds
 #: add no wall time)
 STAMPS_BUILDS = (("mgmc_visit", PHASE_STAMPS_FLAGS), ("sor_sweep_passes", SWEEP_STAMPS_FLAGS),
-                 ("sor_sweep_smem", SWEEP_STAMPS_FLAGS), ("sor_sweep", SWEEP_STAMPS_FLAGS))
+                 ("sor_sweep_smem", SWEEP_STAMPS_FLAGS), ("sor_sweep", SWEEP_STAMPS_FLAGS),
+                 ("mgmc_visit", PHASE_REACH2_STAMPS_FLAGS),
+                 ("mgmc_visit_smem", SMEM_VISIT_STAMPS_FLAGS))
 VARIANT_BUILDS = (("mgmc_visit", PHASE_REACH2_FLAGS), ("mgmc_visit", PHASE_DIM3_FLAGS),
                   ("sor_sweep_passes", PHASE_REACH2_FLAGS),
                   ("sor_sweep_passes", PHASE_DIM3_FLAGS)) + tuple(

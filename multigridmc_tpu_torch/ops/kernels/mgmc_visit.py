@@ -33,7 +33,7 @@ In float32 the TPU form cancels a term of about ``Sigma^{-1/2}`` (1e3 where
 
 Three hand-written CUDA kernels compute each visit, and the launch takes one
 of them by the number of chains (:data:`SPLIT_MAX_CHAINS`, and
-:data:`STREAM_MIN_CHAINS` per level shape), by the level's shape and by whether the kernel's
+:data:`STREAM_MIN_CHAINS` per level shape), by the level's shape and stencil and by whether the kernel's
 shared memory fits a block and its cluster schedules (:func:`visit_route`,
 :func:`split_smem_bytes`, :func:`stream_smem_bytes`):
 
@@ -105,8 +105,11 @@ reach-1 stencil (up to 9 offsets, per-point coefficient planes, up to 8
 colours), ``0 <= m <= 32`` with dense ``B``, ``f`` shared or per chain, noise
 on or off, any ``coarse_scaling``.  Reach-2 stencils (the squared
 shifted-Laplace prior's 13-point diamond, up to 13 offsets, and the 5x5 box of
-its Galerkin levels, up to 9 colours) take the phase kernels alone, at every
-chain count, from a third build of ``csrc/mgmc_visit.cu``
+its Galerkin levels, up to 9 colours) take a route of their own,
+:data:`SMEM_ROUTE` (``csrc/mgmc_visit_smem.cu``, :mod:`.mgmc_visit_smem`: each
+chain's field in shared memory, in bands over a cluster where one block cannot
+hold it), where its table lists the level's shape, form and sweeps, and
+elsewhere the phase kernels of a third build of ``csrc/mgmc_visit.cu``
 (``common.PHASE_REACH2_FLAGS``, :class:`WideVisitParams`, stencil forms 6-9).
 3d levels (reach-1 stencils of up to 27 offsets, up to 8 colours: the FD
 prior's 7-point level and its 27-point Galerkin levels) take the phase kernels
@@ -195,6 +198,8 @@ PHASE_STATIC_SMEM = 4 * (MAX_LOWRANK + 32 * MAX_LOWRANK + 32 * 128) + 16
 #: an H100 SM's shared memory and what the card keeps of it per block
 SM_SHARED_BYTES = 233472
 BLOCK_RESERVED_BYTES = 1024
+#: an H100 SM's 32-bit registers
+SM_REGISTERS = 65536
 
 #: Threads per block of the phase kernels above one wave of one block per SM:
 #: two blocks per SM, so that up to twice the SMs' chains run in one wave (264
@@ -271,16 +276,24 @@ SPLIT_WAVE_POINTS = 3300
 #: ``MAX_COLORS + 3`` passes of each of two directions and the descend's two
 #: and at exit, the barriers passed, the SM
 PHASE_STAMP_WIDTH = 1 + MAX_DIRS * (MAX_COLORS + 3) + 2 + 3
-#: the same in the reach-2 build (which has no stamps build of its own)
+#: the same in the reach-2 build and its stamps build
 WIDE_STAMP_WIDTH = 1 + MAX_DIRS * (WIDE_MAX_COLORS + 3) + 2 + 3
 
 #: the kernel counted by each launch, by route and kind
 KERNEL_NAMES = {(route, kind): f"{kind}_visit" + ("" if route == "phase" else f"_{route}")
                 for route in ROUTES for kind in ("descend", "ascend")}
-#: the kernel counted by a phase launch of a reach-2 level, by kind and
-#: whether the stencil is the 5x5 box (forms 8, 9) or of at most 13 offsets
-REACH2_NAMES = {(kind, box): f"{kind}_visit_reach2_{'25' if box else '13'}pt"
-                for kind in ("descend", "ascend") for box in (False, True)}
+#: the route of the reach-2 levels' kernels with each chain's field in shared
+#: memory (``csrc/mgmc_visit_smem.cu``, :mod:`.mgmc_visit_smem`), beside the
+#: phase kernels' reach-2 build; the reach-1 routes of :data:`ROUTES` do not
+#: take a reach-2 level, nor this route a reach-1 one
+SMEM_ROUTE = "smem"
+#: the kernel counted by a launch on a reach-2 level, by kind, whether the
+#: stencil is the 5x5 box (forms 8, 9) or of at most 13 offsets, and route
+#: (the phase kernels' reach-2 build or :data:`SMEM_ROUTE`)
+REACH2_NAMES = {(kind, box, route): f"{kind}_visit_reach2_{'25' if box else '13'}pt"
+                + ("_smem" if route == SMEM_ROUTE else "")
+                for kind in ("descend", "ascend") for box in (False, True)
+                for route in ("phase", SMEM_ROUTE)}
 #: the kernel counted by a launch on a 3d level, by kind and whether the
 #: stencil has more than 7 offsets (forms 12-15)
 DIM3_NAMES = {(kind, wide): f"{kind}_visit_3d_{'27' if wide else '7'}pt"
@@ -614,9 +627,13 @@ def stream_min_chains(vshape, form: int) -> Optional[int]:
 def visit_route(C: int, stream_bytes: int = 0, device=None,
                 smem_limit: Optional[int] = None, vshape=None,
                 form: Optional[int] = None, ndir: int = 1) -> str:
-    """The kernel a visit of ``C`` chains launches: ``"phase"`` for a reach-2
-    or 3d stencil form (``form >= WIDE_FORM0``: the split and stream kernels
-    take 2d reach-1 levels); ``"stream"`` for a visit of one sweep (``ndir``
+    """The kernel a visit of ``C`` chains launches: for a reach-2 stencil form
+    (forms 6-9) :data:`SMEM_ROUTE` where the level's shape ``vshape``, form and
+    sweeps per visit ``ndir`` are listed in ``mgmc_visit_smem.SMEM_CHAINS``
+    with ``C`` in their range (the level checks that a cluster fits:
+    :meth:`FusedVisitLevel.route`), else ``"phase"``; ``"phase"`` for a 3d form
+    (the split and stream kernels take 2d reach-1 levels); ``"stream"`` for a
+    visit of one sweep (``ndir``
     1: the stream kernels do not take two) from the threshold of the level's
     shape ``vshape`` and stencil form ``form`` on
     (:func:`stream_min_chains`; without both, never) where the stream kernels'
@@ -626,7 +643,15 @@ def visit_route(C: int, stream_bytes: int = 0, device=None,
     otherwise.  A block is granted ``smem_limit`` bytes, by default what the
     probe finds on ``device`` (:func:`~.common.dynamic_smem_limit`; on the CPU
     its default).  All of it is known before any launch."""
+    if form is not None and form >= DIM3_FORM0:
+        return "phase"
     if form is not None and form >= WIDE_FORM0:
+        from .mgmc_visit_smem import SMEM_CHAINS
+
+        span = None if vshape is None else SMEM_CHAINS.get(
+            tuple(int(v) for v in vshape) + (int(form), int(ndir)))
+        if span is not None and C >= span[0] and (span[1] is None or C <= span[1]):
+            return SMEM_ROUTE
         return "phase"
     if smem_limit is None:
         smem_limit = dynamic_smem_limit(device)
@@ -798,16 +823,16 @@ PHASE_BUILDS = {
 @functools.lru_cache(maxsize=None)
 def load_library(stamps: bool = False, reach: int = 1, dim: int = 2) -> ctypes.CDLL:
     """Build (at first use) and load the phase kernels' shared library, or
-    with ``stamps`` their stamps build (``common.PHASE_STAMPS_FLAGS``), or
     with ``reach=2`` their reach-2 build (``common.PHASE_REACH2_FLAGS``), or
-    with ``dim=3`` their 3d build (``common.PHASE_DIM3_FLAGS``); the last two
-    have no stamps build."""
-    if (reach, dim) not in PHASE_BUILDS or (stamps and (reach, dim) != (1, 2)):
-        raise ValueError("the phase kernels have a reach-1 build, its stamps build, a "
-                         f"reach-2 build and a 3d build; asked for reach {reach}, dim {dim}, "
+    with ``dim=3`` their 3d build (``common.PHASE_DIM3_FLAGS``); with
+    ``stamps`` the stamps build (``common.PHASE_STAMPS_FLAGS`` beside the
+    build's flags) of the reach-1 or the reach-2 build."""
+    if (reach, dim) not in PHASE_BUILDS or (stamps and dim != 2):
+        raise ValueError("the phase kernels have a reach-1 and a reach-2 build, each with "
+                         f"its stamps build, and a 3d build; asked for reach {reach}, dim {dim}, "
                          f"stamps {stamps}")
     flags, params, form0, nforms, most, width = PHASE_BUILDS[(reach, dim)]
-    lib = open_library(SOURCE_NAME, PHASE_STAMPS_FLAGS if stamps else flags)
+    lib = open_library(SOURCE_NAME, flags + PHASE_STAMPS_FLAGS if stamps else flags)
     i32 = ctypes.c_int
     for fn in (lib.mgmc_visit_stamps_build, lib.mgmc_visit_reach, lib.mgmc_visit_dim,
                lib.mgmc_visit_params_size, lib.mgmc_visit_tables_size,
@@ -931,12 +956,15 @@ def route_support_error(level: "FusedVisitLevel", route: str, ndir: int = 1) -> 
     ``level``, or None: the split and stream kernels take 2d reach-1 stencils
     only, the stream kernels one sweep.  :func:`visit_route` never gives them
     such a visit; this holds a route a caller names to it."""
+    if route == SMEM_ROUTE and (level.reach != 2 or level.dim != 2):
+        return (f"the {route} kernels take 2d reach-2 stencils only: a reach-1 level takes "
+                "the phase, split or stream kernels, a 3d level the phase kernels")
     if route == "stream" and ndir > 1:
         return ("the stream kernels take one sweep per visit: a two-sweep (SSOR) level takes "
                 "the phase or the split kernels")
-    if route != "phase" and level.reach > 1:
+    if route not in ("phase", SMEM_ROUTE) and level.reach > 1:
         return (f"the {route} kernels take reach-1 stencils only: a reach-2 level takes "
-                "the phase kernels")
+                "the phase or the smem kernels")
     if route != "phase" and level.dim == 3:
         return f"the {route} kernels take 2d levels only: a 3d level takes the phase kernels"
     return None
@@ -1016,6 +1044,7 @@ class FusedVisitLevel:
         self._stream_bytes = None
         self._routes = {}
         self._split_launches = {}
+        self._smem_layouts = {}
 
     @property
     def ndir(self) -> int:
@@ -1112,18 +1141,27 @@ class FusedVisitLevel:
         return self._route(C)[0]
 
     def split_cluster(self, C: int) -> Optional[int]:
-        """The cluster size of this level's split launches of ``C`` chains
-        (:func:`split_cluster`); ``None`` where the route is not split."""
+        """The cluster size of this level's split (reach 1) or smem (reach 2)
+        launches of ``C`` chains (:func:`split_cluster`,
+        ``mgmc_visit_smem.smem_cluster``); ``None`` on another route."""
         return self._route(C)[1]
 
     def _route(self, C: int) -> Tuple[str, Optional[int]]:
         if C not in self._routes:
-            # a reach-2 or 3d level takes the phase kernels alone, a two-sweep
-            # level never the stream kernels: no stream layout to size
+            # a reach-2 or 3d level takes neither the split nor the stream
+            # kernels, a two-sweep level never the stream kernels: no stream
+            # layout to size
             one = self.stencil_form < WIDE_FORM0 and self.ndir == 1
             route = visit_route(C, self.stream_bytes if one else 0, self.op.device,
                                 vshape=self.op.vshape, form=self.stencil_form, ndir=self.ndir)
-            S = split_cluster(C, self.op.vshape, self.op.device) if route == "split" else None
+            S = None
+            if route == "split":
+                S = split_cluster(C, self.op.vshape, self.op.device)
+            elif route == SMEM_ROUTE:
+                from .mgmc_visit_smem import smem_cluster
+
+                S = smem_cluster(self, C)
+                route = "phase" if S is None else route
             self._routes[C] = (route, S)
         return self._routes[C]
 
@@ -1158,26 +1196,34 @@ class FusedVisitLevel:
                               self.coloring.n_colors, order)
 
     def _params(self, C: int, orders, f_batched: bool, noise_mode: int, philox,
-                route: Optional[str] = None):
+                route: Optional[str] = None, smem=None):
         """The kernel's parameter block: a ``VisitParams`` (of the first order)
         for the phase kernels, a ``SplitParams`` for the split kernels, a
-        ``StreamParams`` for the stream kernels.  ``route`` defaults to
-        :meth:`route` of ``C``, so the kernel is chosen here, before the launch,
-        once per launch configuration (the host's share of a launch matters on
-        the small levels); only the Philox stream changes from launch to
-        launch (direction ``d`` of the split kernels takes the counter ``+
-        d``; the phase kernels add it themselves)."""
+        ``StreamParams`` for the stream kernels, a ``SmemVisitParams`` for the
+        smem kernels (the launch configuration ``smem``, a
+        ``mgmc_visit_smem.SmemLayout``; default: the rules' for ``C``).
+        ``route`` defaults to :meth:`route` of ``C``, so the kernel is chosen
+        here, before the launch, once per launch configuration (the host's
+        share of a launch matters on the small levels); only the Philox stream
+        changes from launch to launch (direction ``d`` of the split and smem
+        kernels takes the counter ``+ d``; the phase kernels add it
+        themselves)."""
         route = self.route(C) if route is None else route
-        if route not in ROUTES:
-            raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+        if route not in ROUTES + (SMEM_ROUTE,):
+            raise ValueError(f"route must be one of {ROUTES + (SMEM_ROUTE,)}, got {route!r}")
         orders = _as_orders(orders)
-        key = (route, C, orders, bool(f_batched), noise_mode)
+        key = (route, C, orders, bool(f_batched), noise_mode, smem)
         P = self._params_cache.get(key)
         if P is None:
             err = route_support_error(self, route, len(orders))
             if err is not None:
                 raise NotImplementedError(err)
-            if route == "stream":
+            if route == SMEM_ROUTE:
+                from .mgmc_visit_smem import layout
+
+                smem = layout(self, orders, C=C) if smem is None else smem
+                P = smem.params(self, C, orders, f_batched, noise_mode)
+            elif route == "stream":
                 P = self._build_stream_params(C, orders[0], f_batched, noise_mode)
             elif route == "split":
                 P = SplitParams()
@@ -1188,7 +1234,7 @@ class FusedVisitLevel:
                 P = self._build_params(C, orders[0], f_batched, noise_mode)
             self._params_cache[key] = P
         seed, counter = philox if philox is not None else (0, 0)
-        if route == "split":
+        if route in ("split", SMEM_ROUTE):
             for d in range(P.ndir):
                 P.v[d].seed, P.v[d].counter = seed, counter + (d if philox is not None else 0)
         else:
@@ -1400,16 +1446,29 @@ def _split_launch(level: FusedVisitLevel, C: int, cluster: Optional[int]) -> Tup
     return level._split_launches[key]
 
 
-def _check_stamps(level: FusedVisitLevel, route: str, stamps, x) -> None:
+def stamp_shape(level: FusedVisitLevel, route: str, C: int, S: int = 1) -> Tuple[int, int]:
+    """The stamps tensor of a launch of ``C`` chains: a row per block, of the
+    width of its build (the phase kernels' reach-1 and reach-2 builds, the
+    smem kernels with clusters of ``S``).  ``ValueError`` where the kernels
+    have no stamps build (the split and stream kernels, the 3d build)."""
+    if route == SMEM_ROUTE:
+        from .mgmc_visit_smem import STAMP_WIDTH
+
+        return C * S, STAMP_WIDTH
+    if route != "phase" or level.dim == 3:
+        raise ValueError("no stamps build for this launch: the phase kernels of 2d reach-1 "
+                         "levels have a stamps build, as have those of reach-2 levels and the "
+                         "smem kernels")
+    return C, (WIDE_STAMP_WIDTH if level.reach > 1 else PHASE_STAMP_WIDTH)
+
+
+def _check_stamps(level: FusedVisitLevel, route: str, stamps, x, S: int = 1) -> None:
     if stamps is None:
         return
-    C = x.shape[0]
-    if route != "phase" or level.reach > 1 or level.dim == 3:
-        raise ValueError("only the phase kernels of 2d reach-1 levels have a stamps build")
+    want = stamp_shape(level, route, x.shape[0], S)
     if (stamps.dtype != torch.int64 or stamps.device != x.device
-            or tuple(stamps.shape) != (C, PHASE_STAMP_WIDTH) or not stamps.is_contiguous()):
-        raise ValueError(f"stamps must be a contiguous int64 ({C}, {PHASE_STAMP_WIDTH}) "
-                         f"tensor on {x.device}")
+            or tuple(stamps.shape) != want or not stamps.is_contiguous()):
+        raise ValueError(f"stamps must be a contiguous int64 {want} tensor on {x.device}")
 
 
 def kernel_name(level: FusedVisitLevel, route: str, kind: str) -> str:
@@ -1419,7 +1478,8 @@ def kernel_name(level: FusedVisitLevel, route: str, kind: str) -> str:
     if level.dim == 3:
         name = DIM3_NAMES[(kind, level.stencil_form >= 12)]
     elif level.reach > 1:
-        name = REACH2_NAMES[(kind, level.stencil_form >= 8)]
+        name = REACH2_NAMES[(kind, level.stencil_form >= 8,
+                             SMEM_ROUTE if route == SMEM_ROUTE else "phase")]
     else:
         name = KERNEL_NAMES[(route, kind)]
     return name + (SSOR_SUFFIX if len(level.orders(kind)) > 1 else "")
@@ -1427,46 +1487,64 @@ def kernel_name(level: FusedVisitLevel, route: str, kind: str) -> str:
 
 def launch_descend(level: FusedVisitLevel, route: str, f, x, xi=None, xi_lr=None,
                    philox: Optional[Tuple[int, int]] = None, cluster: Optional[int] = None,
-                   stamps: Optional[torch.Tensor] = None, threads: Optional[int] = None):
+                   stamps: Optional[torch.Tensor] = None, threads: Optional[int] = None,
+                   c_shared: Optional[bool] = None):
     """One descend visit through the kernel of ``route`` (one of
-    :data:`ROUTES`), on CUDA tensors only; :func:`descend_visit` takes
-    ``level.route(C)``, ``chip_smoke.py`` names it to hold the kernels against
-    each other.  ``cluster`` sets the split route's cluster size (default: the
-    level's rule, :meth:`FusedVisitLevel.split_cluster`).  The phase route
-    only, measurement aids that production calls leave ``None``: ``threads``
-    sets the block size (default: :meth:`FusedVisitLevel.phase_threads`);
-    ``stamps`` takes the kernel's stamps build, an int64 tensor of shape ``(C,
-    PHASE_STAMP_WIDTH)`` that receives per chain the timer at entry, after
-    each pass and at exit, the barriers passed and the SM
-    (:func:`pass_times`).  Updates ``x`` in place; returns ``(x, f_coarse)``."""
+    :data:`ROUTES`, or :data:`SMEM_ROUTE`), on CUDA tensors only;
+    :func:`descend_visit` takes ``level.route(C)``, ``chip_smoke.py`` names it
+    to hold the kernels against each other.  ``cluster`` sets the split and
+    smem routes' cluster size (default: the level's rule,
+    :meth:`FusedVisitLevel.split_cluster`).  Measurement aids that production
+    calls leave ``None``: ``threads`` sets the block size of the phase and
+    smem routes (default: their rules); ``c_shared`` whether the smem route
+    keeps ``c`` in shared memory (default: ``mgmc_visit_smem.rhs_shared``);
+    ``stamps`` takes the phase or smem kernels' stamps build, an int64 tensor
+    of :func:`stamp_shape` that receives per block the timer at entry, after
+    each pass and at exit, the barriers passed and the SM (:func:`pass_times`).
+    Updates ``x`` in place; returns ``(x, f_coarse)``."""
     return _launch(level, route, "descend", f, x, None, xi, xi_lr, philox, cluster, stamps,
-                   threads)
+                   threads, c_shared)
 
 
 def launch_ascend(level: FusedVisitLevel, route: str, f, x, x_coarse, xi=None, xi_lr=None,
                   philox: Optional[Tuple[int, int]] = None, cluster: Optional[int] = None,
-                  stamps: Optional[torch.Tensor] = None, threads: Optional[int] = None):
+                  stamps: Optional[torch.Tensor] = None, threads: Optional[int] = None,
+                  c_shared: Optional[bool] = None):
     """One ascend visit through the kernel of ``route``, as
     :func:`launch_descend`.  Updates ``x`` in place and returns it."""
     return _launch(level, route, "ascend", f, x, x_coarse, xi, xi_lr, philox, cluster, stamps,
-                   threads)
+                   threads, c_shared)
 
 
 def _launch(level: FusedVisitLevel, route: str, kind: str, f, x, x_coarse, xi, xi_lr, philox,
-            cluster, stamps, threads):
+            cluster, stamps, threads, c_shared=None):
     _on_card(x)
-    _check_stamps(level, route, stamps, x)
     descend = kind == "descend"
     orders = level.orders(kind)
+    smem = None
+    if route == SMEM_ROUTE:
+        err = route_support_error(level, route, len(orders))
+        if err is not None:
+            raise NotImplementedError(err)
+        from .mgmc_visit_smem import layout
+
+        S = level.split_cluster(x.shape[0]) if cluster is None and level.route(
+            x.shape[0]) == SMEM_ROUTE else cluster
+        smem = layout(level, orders, S, c_shared, threads, x.shape[0])
+    _check_stamps(level, route, stamps, x, smem.S if smem is not None else 1)
     C, f_batched, noise_mode = _check_visit_args(level, f, x, xi, xi_lr, philox,
                                                  None if descend else x_coarse, len(orders))
-    P = level._params(C, orders, f_batched, noise_mode, philox, route)
+    P = level._params(C, orders, f_batched, noise_mode, philox, route, smem)
     out = torch.empty((C,) + level.vc, dtype=x.dtype, device=x.device) if descend else x_coarse
     coarse = out.data_ptr()  # f_c written by a descend, x_c read by an ascend
     ns, sroot = level.noise_scale.data_ptr(), _ptr(level.sigma_sqrt)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if route == "phase":
+        if route == SMEM_ROUTE:
+            from .mgmc_visit_smem import launch as smem_launch
+
+            err = smem_launch(level, kind, P, smem, f, x, out, xi, xi_lr, stamps, stream)
+        elif route == "phase":
             threads = level.phase_threads(C) if threads is None else int(threads)
             tables, L, smem = level.phase_launch(orders, threads)
             scratch = torch.empty_like(x) if (descend or noise_mode) else x  # unused otherwise
@@ -1525,7 +1603,8 @@ def pass_times(level: FusedVisitLevel, kind: str, stamps) -> dict:
     entry to the last exit; measured on the card, not modelled: the barriers
     each block passed (``barriers_per_block``, the distinct counts), the most
     blocks one SM ran at once and the SMs used."""
-    return stamp_breakdown(stamps, pass_names(level, kind), PHASE_STAMP_WIDTH)
+    return stamp_breakdown(stamps, pass_names(level, kind),
+                           stamp_shape(level, "phase", 1)[1])
 
 
 # ---------------------------------------------------------------- the gating

@@ -91,13 +91,17 @@ def test_reach2_plain_visits_match_interpreted_pallas_kernels(level, offsets, co
 
 @pytest.mark.parametrize("level", [0, 1], ids=["13pt", "25pt"])
 def test_reach2_levels_take_the_phase_kernels_at_every_chain_count(level):
-    """Decided on the host before any launch: the phase route at 1, 16 and 256
-    chains (the split and stream kernels are reach-1), the reach-2 build's
-    parameter block, its launch count, at most 512 threads a block; the split
-    and stream routes refuse the level, the stamps build too."""
+    """Decided on the host before any launch: the route of the rule at 1, 16
+    and 256 chains (a 23^2 or 11^2 level is not in the smem kernels' table:
+    the phase kernels; the split and stream kernels are reach-1), the
+    reach-2 build's parameter block, its launch count, at most 512 threads a
+    block; the split and stream routes refuse the level; the stamps build
+    takes a tensor of its own width (30 words a block at 9 colours)."""
     _, port = _levels(level)
     for C in (1, 16, 256):
-        assert port.route(C) == "phase" and port.split_cluster(C) is None
+        want = mv.visit_route(C, 0, port.op.device, vshape=port.op.vshape,
+                              form=port.stencil_form, ndir=port.ndir)
+        assert port.route(C) == want == "phase" and port.split_cluster(C) is None
         assert port.phase_threads(C) <= mv.WIDE_MAX_THREADS
     P = port._params(256, port.pre_order, False, 1, (3, 4))
     assert isinstance(P, mv.WideVisitParams) and (P.seed, P.counter) == (3, 4)
@@ -115,19 +119,28 @@ def test_reach2_levels_take_the_phase_kernels_at_every_chain_count(level):
     x = torch.zeros((2,) + port.op.vshape)
     with pytest.raises(ValueError, match="CUDA device"):
         mv.launch_descend(port, "phase", x[0], x)
-    with pytest.raises(ValueError, match="reach-1 levels have a stamps build"):
+    with pytest.raises(ValueError, match=r"\(2, 30\) tensor"):
         mv._check_stamps(port, "phase", torch.zeros((2, mv.PHASE_STAMP_WIDTH),
                                                    dtype=torch.int64), x)
+    mv._check_stamps(port, "phase", torch.zeros((2, mv.WIDE_STAMP_WIDTH), dtype=torch.int64), x)
 
 
 @pytest.mark.parametrize("form", range(mv.WIDE_FORM0, mv.WIDE_FORM0 + mv.WIDE_FORMS))
 def test_visit_route_sends_every_reach2_form_to_the_phase_kernels(form):
     """The rule itself, before any level is built: a reach-2 form takes the
-    phase kernels at any chain count, on the shape where a reach-1 form of
-    as many colours takes the stream kernels (255^2, 256 chains) and where it
-    splits (one chain)."""
-    for C in (1, 16, 256, 1024):
-        assert mv.visit_route(C, 0, torch.device("cpu"), vshape=(255, 255), form=form) == "phase"
+    smem kernels where their table lists its shape, form and sweeps with the
+    chain count in range, else the phase kernels, at any chain count, on the
+    shape where a reach-1 form of as many colours takes the stream kernels
+    (255^2, 256 chains) and where it splits (one chain); never the split or
+    the stream kernels."""
+    from multigridmc_tpu_torch.ops.kernels.mgmc_visit_smem import SMEM_CHAINS
+
+    for shape in ((255, 255), (127, 127), (63, 63)):
+        for C in (1, 16, 256, 1024):
+            span = SMEM_CHAINS.get(shape + (form, 1))
+            want = "smem" if span and C >= span[0] and (span[1] is None or C <= span[1]) else (
+                "phase")
+            assert mv.visit_route(C, 0, torch.device("cpu"), vshape=shape, form=form) == want
     assert mv.visit_route(256, 0, torch.device("cpu"), vshape=(255, 255), form=0) == "stream"
     assert mv.visit_route(1, 0, torch.device("cpu"), vshape=(255, 255), form=0) == "split"
 
@@ -221,10 +234,14 @@ def test_the_reach2_build_is_a_library_of_its_own():
     for name in ("dy", "dx", "coeff_const", "coeff_val"):
         assert (getattr(narrow, name).size, getattr(widep, name).size) == (4 * 9, 4 * 25)
     assert (narrow.order.size, widep.order.size) == (4 * 8, 4 * 9)
-    # one more colour in each of the two sweep directions a launch may hold
+    # one more colour in each of the two sweep directions a launch may hold;
+    # the reach-2 build's stamps build is a library of its own too
     assert mv.WIDE_STAMP_WIDTH == mv.PHASE_STAMP_WIDTH + mv.MAX_DIRS
+    assert ("mgmc_visit", common.PHASE_REACH2_STAMPS_FLAGS) in common.STAMPS_BUILDS
+    assert common.library_path("mgmc_visit", common.PHASE_REACH2_STAMPS_FLAGS) not in (
+        wide, common.library_path("mgmc_visit", common.PHASE_STAMPS_FLAGS))
     with pytest.raises(ValueError, match="reach-2 build"):
-        mv.load_library(stamps=True, reach=2)
+        mv.load_library(stamps=True, dim=3)
 
 
 def _edge_bits(offsets, box):
