@@ -176,13 +176,19 @@ the card and checks, one phase after the other:
                    lattice, 63^3 unknowns, 8 near-exact measurements, 4
                    levels, W-cycle, SOR): the sampler at 32 chains and one
                    chain, distilled (the default) and with every level fused,
-                   levels 0 (7-point) and 1 (27-point Galerkin) on the phase
-                   kernels' 3d build, and composed (``fused=False``, the
-                   visits on the sweep kernels) as the "before"; the 3d
-                   kernels on both levels against their plain versions (noise
-                   off, a tensor, in-kernel against the host's reference
-                   normals) and against the composed visit under one Philox
-                   stream, their device times, registers and spills; the
+                   levels 0 (7-point) and 1 (27-point Galerkin) on the route
+                   ``mgmc_visit_smem3d.SMEM3D_ROUTES`` gives them (the smem
+                   kernels of ``csrc/mgmc_visit_smem3d.cu``: each chain's
+                   field in shared memory, slabs of planes over a cluster),
+                   and composed (``fused=False``, the visits on the sweep
+                   kernels) as the "before"; both 3d routes (the smem kernels
+                   and the phase kernels' 3d build) on both levels against
+                   their plain versions (noise off, a tensor, in-kernel
+                   against the host's reference normals), against each other
+                   under one Philox stream and against the composed visit
+                   under one Philox stream, their device times (the route
+                   taken within ``SMEM_ROUTE_SLACK`` of the other), registers
+                   and spills, both by pass (stamps builds); the
                    statistical gate of ``native/validate_mgmc3d_tpu.py`` (32
                    chains, zero-mean protocol, 30 + 300 steps, 4 standard
                    errors against the exact variance by converged float64 CG)
@@ -225,8 +231,9 @@ alone; ``sweeps``: the sweep kernels of both routes alone; ``sweep_check``:
 the one-block sweeps against their plain versions alone; ``sweep_stamps``: the
 generic one-block sweeps by pass, with ``sweep_passes`` the passes body too;
 ``sweep_threads``: the passes body's block-size table; ``volume``: the 3d
-posterior alone; ``ssor``: the two-sweep visits alone) and prints no result
-line.
+posterior alone; ``volume_check``: the 3d visits' checks and stamps alone,
+``volume_table`` with the 3d smem kernels' route and placement table;
+``ssor``: the two-sweep visits alone) and prints no result line.
 """
 
 from __future__ import annotations
@@ -468,6 +475,12 @@ def phase_build():
         mgmc_visit.load_library(stamps=True, reach=2)
         mgmc_visit_smem.load_library()
         mgmc_visit_smem.load_library(stamps=True)
+    if hasattr(mgmc_visit, "smem_module"):  # (nor these)
+        from multigridmc_tpu_torch.ops.kernels import mgmc_visit_smem3d
+
+        mgmc_visit.load_library(stamps=True, dim=3)
+        mgmc_visit_smem3d.load_library()
+        mgmc_visit_smem3d.load_library(stamps=True)
     mgmc_visit.load_stream_library()
     mgmc_visit.load_split_library()
     sor_sweep.load_library()
@@ -4256,15 +4269,18 @@ def check_phase_only_level(level, name, C, gen, label="biharmonic", route="phase
     and the last :data:`NOISE_CHECK_WAVE`); ``x`` elementwise within TOL,
     ``f_c`` by :func:`compare_fc`; the smem kernels also against the phase
     kernels under one Philox stream (the same tolerances).  A 3d level's route
-    must be the phase kernels at every count of :data:`PHASE_ONLY_CHAINS` (a
-    reach-2 level's routes are recorded), and the split and stream routes
-    must refuse the level before they launch.  ``label`` names the phase in
-    messages."""
+    at every count of :data:`PHASE_ONLY_CHAINS` must be the one
+    ``mgmc_visit_smem3d.SMEM3D_ROUTES`` gives it (a reach-2 level's routes are
+    recorded), and the split and stream routes must refuse the level before
+    they launch.  ``label`` names the phase in messages."""
     from multigridmc_tpu_torch.ops.kernels import common
     from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit_smem3d as v3
 
     routes = {c: level.route(c) for c in PHASE_ONLY_CHAINS}
-    if level.dim == 3 and set(routes.values()) != {"phase"}:
+    if level.dim == 3 and routes != {c: "phase" if v3.route_config(
+            level.op.vshape, level.stencil_form, level.ndir, c) is None else "smem"
+            for c in PHASE_ONLY_CHAINS}:
         raise AssertionError(f"{label} {name}: the level takes the routes {routes}")
     dev = level.coeffs.device
     vshape, m = level.op.vshape, level.op.m_lowrank
@@ -4336,28 +4352,36 @@ def check_phase_only_level(level, name, C, gen, label="biharmonic", route="phase
 
 def reach2_kernel(level, route, kind):
     """The profiler's name of the kernel a launch of ``kind`` through ``route``
-    (the phase kernels' reach-2 or 3d build, or the smem kernels) runs on
-    ``level``."""
-    from multigridmc_tpu_torch.ops.kernels import mgmc_visit_smem as vsm
+    (the phase kernels' reach-2 or 3d build, or the smem kernels, 2d or 3d)
+    runs on ``level``."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
 
     if route == "smem":
-        return (f"smem_visit_kernel<{vsm.kmax(level.stencil_form)}, "
+        body = "smem_volume_kernel" if level.dim == 3 else "smem_visit_kernel"
+        return (f"{body}<{mv.smem_module(level).kmax(level.stencil_form)}, "
                 f"{'true' if kind == 'descend' else 'false'}")
     return f"{kind}_kernel<{level.stencil_form}"
 
 
 def smem_launch_of(level, C):
     """The smem route's launch configuration of ``C`` chains on ``level`` by
-    its rules: the cluster size, ``c`` in shared memory, threads, bytes."""
-    from multigridmc_tpu_torch.ops.kernels import mgmc_visit_smem as vsm
+    its rules (3d: its table where it lists the count): the cluster size,
+    ``c`` in shared memory, threads, bytes."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
 
+    vsm = mv.smem_module(level)
     L = vsm.layout(level, level.pre_orders, C=C)
-    H, W = level.op.vshape
-    card = vsm.load_library().mgmc_smem_visit_smem_bytes(H, W, L.S, vsm.pitch(W),
+    if level.dim == 3:
+        Z, Y, W = level.op.vshape
+        card = vsm.load_library().mgmc_smem3d_smem_bytes(Z, Y, W, L.S, vsm.plane(Y, W),
                                                           int(L.c_shared))
+    else:
+        H, W = level.op.vshape
+        card = vsm.load_library().mgmc_smem_visit_smem_bytes(H, W, L.S, vsm.pitch(W),
+                                                              int(L.c_shared))
     if card != L.nbytes:
         raise AssertionError(f"smem {tuple(level.op.vshape)} S={L.S}: the library lays out "
-                             f"{card} bytes a block, mgmc_visit_smem.smem_bytes {L.nbytes}")
+                             f"{card} bytes a block, {vsm.__name__}.smem_bytes {L.nbytes}")
     return {"cluster": L.S, "c_shared": L.c_shared, "threads": L.threads,
             "dynamic_shared_bytes": L.nbytes}
 
@@ -4411,9 +4435,10 @@ SMEM_ROUTE_SLACK = 1.10
 
 
 def biharmonic_ssor_levels(sampler):
-    """Two-sweep (SSOR, forward then backward) fused levels of the biharmonic
-    sampler's levels 0 and 1, from their operators and ``SSORSmoother``s as
-    the sampler would build them with ``smoother="SSOR"``."""
+    """Two-sweep (SSOR, forward then backward) fused levels of the sampler's
+    levels 0 and 1 (the biharmonic posterior's, the 64^3 posterior's), from
+    their operators and ``SSORSmoother``s as the sampler would build them with
+    ``smoother="SSOR"``."""
     from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
     from multigridmc_tpu_torch.smoothers import SSORSmoother
 
@@ -4465,17 +4490,21 @@ def time_reach2_routes(levels, noise, chains=SMEM_ROUTE_CHAINS):
     return rows, faults
 
 
-def reach2_pass_stamps(level, li, C, noise, route):
-    """One reach-2 launch of each kind by pass from the stamps build of
-    ``route`` (the phase kernels' reach-2 build or the smem kernels), in-kernel
-    noise, at ``C`` chains: per pass the median over the blocks, the barriers
-    each block passed against the count from the source
-    (``mgmc_visit.phase_barrier_count``, ``mgmc_visit_smem.barrier_count``),
-    the blocks one SM ran at once against the occupancy calculator, the span
-    against the profiler's device ms of the production build; the last of
-    three launches."""
+def reach2_pass_stamps(level, li, C, noise, route, label="biharmonic"):
+    """One reach-2 (or 3d) launch of each kind by pass from the stamps build
+    of ``route`` (the phase kernels' reach-2 or 3d build, or the smem
+    kernels), in-kernel noise, at ``C`` chains: per pass the median over the
+    blocks, the barriers each block passed against the count from the source
+    (``mgmc_visit.phase_barrier_count``, ``mgmc_visit_smem.barrier_count``,
+    ``mgmc_visit_smem3d.barrier_count``), the blocks one SM ran at once
+    against the occupancy calculator, the span against the profiler's device
+    ms of the production build, the registers and spills of the kernel; the
+    last of three launches."""
+    import ctypes
+
     from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
-    from multigridmc_tpu_torch.ops.kernels import mgmc_visit_smem as vsm
+
+    vsm = mv.smem_module(level)
 
     dev = level.coeffs.device
     f = torch.rand(level.op.vshape, device=dev)
@@ -4500,23 +4529,35 @@ def reach2_pass_stamps(level, li, C, noise, route):
             else:
                 mv.launch_ascend(level, route, f, x, xc, xi, xi_lr, philox, stamps=stamps)
         torch.cuda.synchronize()
+        vals = (ctypes.c_int * 3)()
         if route == "smem":
             pt = vsm.pass_times(level, kind, stamps)
             pt["barriers_from_source"] = vsm.barrier_count(level, kind)
             L = vsm.layout(level, level.orders(kind), C=C)
-            pt["blocks_per_sm_occupancy_api"] = vsm.load_library().mgmc_smem_visit_blocks_per_sm(
-                int(kind == "descend"), L.kmax, L.threads, L.nbytes)
+            lib = vsm.load_library()
+            if level.dim == 3:
+                pt["blocks_per_sm_occupancy_api"] = lib.mgmc_smem3d_blocks_per_sm(
+                    int(kind == "descend"), L.kmax, L.threads, L.nbytes)
+                lib.mgmc_smem3d_kernel_attributes(int(kind == "descend"), L.kmax, vals)
+            else:
+                pt["blocks_per_sm_occupancy_api"] = lib.mgmc_smem_visit_blocks_per_sm(
+                    int(kind == "descend"), L.kmax, L.threads, L.nbytes)
+                lib.mgmc_smem_visit_kernel_attributes(int(kind == "descend"), L.kmax, vals)
         else:
             pt = mv.pass_times(level, kind, stamps)
             pt["barriers_from_source"] = mv.phase_barrier_count(level, kind)
             smem = level.phase_launch(level.orders(kind), row["threads"])[2]
             pt["tables_in_shared_memory"] = smem > 0
-            pt["blocks_per_sm_occupancy_api"] = mv.load_library(
-                reach=2).mgmc_visit_blocks_per_sm(int(kind == "descend"), level.stencil_form,
-                                                  len(level.orders(kind)), row["threads"], smem)
+            lib = mv.load_library(reach=level.reach, dim=level.dim)
+            pt["blocks_per_sm_occupancy_api"] = lib.mgmc_visit_blocks_per_sm(
+                int(kind == "descend"), level.stencil_form, len(level.orders(kind)),
+                row["threads"], smem)
+            lib.mgmc_visit_kernel_attributes(int(kind == "descend"), level.stencil_form,
+                                             len(level.orders(kind)), vals)
+        pt["registers"], pt["local_bytes"] = vals[0], vals[1]
         pt["device_ms"] = device_ms
         pt["span_over_device_ms"] = pt["launch_span_us"] / 1e3 / device_ms
-        tag = f"biharmonic {route} L{li} C={C} {kind}"
+        tag = f"{label} {route} L{li} C={C} {kind}"
         if pt["barriers_per_block"] != [pt["barriers_from_source"]]:
             raise AssertionError(f"{tag}: the blocks passed {pt['barriers_per_block']} "
                                  f"barriers, the source places {pt['barriers_from_source']}")
@@ -4528,18 +4569,23 @@ def reach2_pass_stamps(level, li, C, noise, route):
     return row
 
 
-def smem_kernel_attributes():
+def smem_kernel_attributes(dim=2):
     """Registers, local (spill) bytes and static shared bytes per thread of
-    the smem kernels (the 13- and 25-point kernels, both kinds)."""
+    the smem kernels (2d: the 13- and 25-point kernels; 3d: the 7- and
+    27-point kernels; both kinds)."""
     import ctypes
 
     from multigridmc_tpu_torch.ops.kernels import mgmc_visit_smem as vsm
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit_smem3d as v3
 
-    lib = vsm.load_library()
+    lib = (v3 if dim == 3 else vsm).load_library()
+    query = (lib.mgmc_smem3d_kernel_attributes if dim == 3
+             else lib.mgmc_smem_visit_kernel_attributes)
     out = {}
-    for (kind, descend), km in itertools.product((("descend", 1), ("ascend", 0)), (13, 25)):
+    for (kind, descend), km in itertools.product((("descend", 1), ("ascend", 0)),
+                                                 (7, 27) if dim == 3 else (13, 25)):
         vals = (ctypes.c_int * 3)()
-        err = lib.mgmc_smem_visit_kernel_attributes(descend, km, vals)
+        err = query(descend, km, vals)
         if err:
             raise AssertionError(f"smem {kind} {km}-point kernel attributes: CUDA error {err}")
         out[f"{kind} {km}-point"] = {"registers": vals[0], "local_bytes": vals[1],
@@ -5004,14 +5050,15 @@ def drive_sampler(op, f, C, steps, kwargs, levels_are=None, sampler=None, busy_s
     windows, complete, empty = [], [], 0
     while len(windows) + empty < BUSY_WINDOWS and len(complete) < 3:
         busy = device_busy(lambda: sampler.apply(noise, f, x), busy_steps,
-                           pattern=r"trsm|triang|visit_kernel|descend_kernel|ascend_kernel"
-                                   r"|mgmc_subtree_kernel")
+                           pattern=r"trsm|triang|visit_kernel|volume_kernel|descend_kernel"
+                                   r"|ascend_kernel|mgmc_subtree_kernel")
         if busy is None:
             empty += 1
             continue
         busy["visit_calls_per_step"] = sum(r["calls_per_step"] for r in busy["matching"]
-                                           if re.search(r"visit_kernel|descend_kernel|"
-                                                        r"ascend_kernel", r["name"]))
+                                           if re.search(r"visit_kernel|volume_kernel|"
+                                                        r"descend_kernel|ascend_kernel",
+                                                        r["name"]))
         windows.append(busy)
         if busy["visit_calls_per_step"] == per_step:
             complete.append(busy)
@@ -5430,9 +5477,10 @@ def volume_posterior(nx, device, dtype=torch.float32, near_exact=True):
     return op, params, f
 
 
-def check_volume_composed(sampler, li, C, gen):
-    """A 3d level's visit kernels against the composed visit on the sweep
-    kernels under one Philox stream (``C`` chains): the descend against the
+def check_volume_composed(sampler, li, C, gen, route="phase"):
+    """A 3d level's visit kernels of ``route`` (the phase kernels' 3d build or
+    the smem kernels) against the composed visit on the sweep kernels under
+    one Philox stream (``C`` chains): the descend against the
     presampler's Gibbs sweep kernel with its Woodbury correction, then the
     residual and the restriction; the ascend against the prolongation and the
     postsampler's; the same low-rank normals.  ``x`` within TOL, ``f_c`` by
@@ -5462,19 +5510,19 @@ def check_volume_composed(sampler, li, C, gen):
             return z.clone()
 
     before = dict(ss.launch_counts)
-    got_x, got_fc = mv.launch_descend(level, "phase", f, x.clone(), xi_lr=z,
+    got_x, got_fc = mv.launch_descend(level, route, f, x.clone(), xi_lr=z,
                                       philox=OneStream(5).philox_stream())
     want_x = sampler.presamplers[li].apply(OneStream(5), f, x.clone())
     want_fc = restrict(f - op.apply(want_x), dim=3)
-    got = mv.launch_ascend(level, "phase", f, x.clone(), xc, xi_lr=z,
+    got = mv.launch_ascend(level, route, f, x.clone(), xc, xi_lr=z,
                            philox=OneStream(6).philox_stream())
     want = sampler.postsamplers[li].apply(OneStream(6), f,
                                           prolongate_add(level.coarse_scaling, xc, x, dim=3))
     sweeps = {k: v - before.get(k, 0) for k, v in ss.launch_counts.items() if v != before.get(k, 0)}
     if not any(k.startswith("gibbs_sweep_batched") for k in sweeps):
         raise AssertionError(f"volume L{li}: the composed visit launched no Gibbs sweep kernel")
-    tag = f"volume L{li} C={C} against the composed visit under one Philox stream"
-    return {"level": li, "chains": C, "composed_sweeps": sweeps,
+    tag = f"volume L{li} C={C} {route} against the composed visit under one Philox stream"
+    return {"level": li, "chains": C, "route": route, "composed_sweeps": sweeps,
             "descend_x": compare(f"descend x {tag}", got_x, want_x),
             "descend_f_c_over_scale": compare_fc(f"descend f_c {tag}", got_fc, want_fc),
             "ascend_x": compare(f"ascend x {tag}", got, want)}
@@ -5584,6 +5632,142 @@ def volume_gate(sampler, op, device):
         out[name] = res
     out["centre"]["observation"] = [0.5, 0.5, 0.5]
     return out
+
+
+#: the volume table (``--phases volume_table``): chain counts, and the block
+#: sizes tried at each cluster size that fits
+VOLUME_TABLE_CHAINS = (1, 4, 8, 32, 64, 128)
+VOLUME_TABLE_THREADS = (512, 1024)
+
+
+def time_volume_variants(levels, noise, chains=VOLUME_TABLE_CHAINS):
+    """The ``volume_table``: device ms per launch (torch.profiler, the median
+    of three interleaved windows) of the phase kernels' 3d build and of the
+    smem kernels at every cluster size whose slab fits a block (and the
+    tables' indices), ``c`` in shared memory or not,
+    :data:`VOLUME_TABLE_THREADS`, descend plus ascend, at
+    each count of ``chains`` on each of ``levels`` (``{name: level}``, one and
+    two sweeps); beside each row the configuration the route takes
+    (``mgmc_visit_smem3d.SMEM3D_ROUTES``) and the fastest.  Returns the rows
+    and the faults: a count where the route's choice takes more than
+    :data:`SMEM_ROUTE_SLACK` times the fastest configuration's."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit_smem3d as v3
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+
+    rows, faults = [], []
+    for name, level in levels.items():
+        dev = level.coeffs.device
+        Z, Y, W = level.op.vshape
+        limit = ss.smem_limit_of(dev)
+        for C in chains:
+            f = torch.rand(level.op.vshape, device=dev)
+            x = torch.zeros((C,) + level.op.vshape, device=dev)
+            xc = torch.randn((C,) + level.vc, device=dev)
+            cands = {}
+            for kind, fn in zip(("descend", "ascend"), visit_fns(level, "phase", noise, f, x, xc)):
+                cands[("phase", kind)] = (fn, reach2_kernel(level, "phase", kind))
+            configs = []
+            for S in v3.CLUSTER_SIZES:
+                if Z // S < 1 or not v3.fits_indices(Z, Y, W, S):
+                    continue
+                for c_sh in (True, False):
+                    if v3.smem_bytes(Z, Y, W, S, c_sh) + v3.STATIC_SMEM > limit:
+                        continue
+                    for threads in VOLUME_TABLE_THREADS:
+                        if v3.active_clusters(level, S, c_sh, threads) < 1:
+                            continue
+                        configs.append((S, c_sh, threads))
+            for conf in configs:
+                kw = dict(zip(("cluster", "c_shared", "threads"), conf))
+                for kind in ("descend", "ascend"):
+                    def fn(kind=kind, kw=kw):
+                        xi, xi_lr, philox = level._draw(noise, x, kind)
+                        return mv_launch(kind, level, f, x, xi, xi_lr, philox,
+                                         xc if kind == "ascend" else None, kw)
+                    cands[(conf, kind)] = (fn, reach2_kernel(level, "smem", kind))
+            ms = device_ms_medians(cands, 10, 3)
+            route = level.route(C)
+            chosen = v3.route_config(level.op.vshape, level.stencil_form, level.ndir, C)
+            group = []
+            for conf in ["phase"] + configs:
+                d, a = ms[(conf, "descend")], ms[(conf, "ascend")]
+                row = {"level": name, "vshape": [Z, Y, W], "sweeps": level.ndir,
+                       "stencil_form": level.stencil_form, "chains": C,
+                       "route": "phase" if conf == "phase" else "smem",
+                       "descend_ms": d, "ascend_ms": a, "ms": None if None in (d, a) else d + a,
+                       "taken": (conf == "phase" and route == "phase")
+                       or (route == "smem" and conf == chosen)}
+                if conf != "phase":
+                    row.update(dict(zip(("cluster", "c_shared", "threads"), conf)))
+                group.append(row)
+            timed = [r for r in group if r["ms"] is not None]
+            best = min(timed, key=lambda r: r["ms"])
+            best["fastest"] = True
+            taken = [r for r in group if r["taken"]]
+            if (not taken or taken[0]["ms"] is None
+                    or taken[0]["ms"] > SMEM_ROUTE_SLACK * best["ms"]):
+                faults.append(f"{name} sweeps={level.ndir} C={C}: the route takes "
+                              f"{taken[0] if taken else None}, the fastest is {best}")
+            rows += group
+            del x, xc
+    return rows, faults
+
+
+def phase_volume_check(device, smi, table):
+    """The 3d visits alone on the 64^3 posterior's levels 0 (63^3, 7-point)
+    and 1 (31^3, 27-point) at 32 and 1 chains: both designs' registers and
+    spills, the phase kernels' 3d build by pass (its stamps build), the smem
+    kernels and their two-sweep form against the plain versions and the
+    phase kernels under one Philox stream, and by pass; with ``table`` the
+    ``volume_table`` (:func:`time_volume_variants`, one and two sweeps), which
+    fails where the route's choice is more than :data:`SMEM_ROUTE_SLACK` times
+    the fastest.  No result line."""
+    from multigridmc_tpu_torch.samplers.base import GeneratorNoise
+    from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
+
+    out = {"phase": "volume_check", "card": smi}
+    try:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(15)
+        op, _, _ = volume_posterior(VOLUME_NX, device)
+        sampler = MultigridMCSampler(op, nlevel=VOLUME_NLEVEL, smoother="SOR",
+                                     coarse_solver="Cholesky", omega=1.0, cycle=2)
+        levels = sampler.fused_levels
+        noise = GeneratorNoise(VOLUME_SEED + 4, device)
+        out["kernel_attributes"] = build_kernel_attributes(reach=1, dim=3)
+        out["smem_kernel_attributes"] = smem_kernel_attributes(dim=3)
+        out["routes"] = {li: {c: levels[li].route(c) for c in VOLUME_TABLE_CHAINS}
+                         for li in (0, 1)}
+        out["pass_stamps"] = [reach2_pass_stamps(levels[li], li, c, noise, "phase", "volume")
+                              for c in VOLUME_CHAINS for li in (0, 1)]
+        emit(dict(out, partial=True))
+        checked = MultigridMCSampler(volume_posterior(VOLUME_NX, device, near_exact=False)[0],
+                                     nlevel=3, smoother="SOR", cycle=2, distill=False)
+        out["smem_checks"] = [check_phase_only_level(checked.fused_levels[li], f"L{li}", c, gen,
+                                                     label="volume", route="smem")
+                              for li in (0, 1) for c in VOLUME_CHAINS]
+        two = biharmonic_ssor_levels(checked)
+        out["smem_ssor_checks"] = [check_ssor_level(two[li], f"volume L{li}", c, gen, "smem",
+                                                    own_route=False)
+                                   for li in (0, 1) for c in VOLUME_CHAINS]
+        del checked, two
+        out["smem_pass_stamps"] = [reach2_pass_stamps(levels[li], li, c, noise, "smem", "volume")
+                                   for c in VOLUME_CHAINS for li in (0, 1)]
+        emit(dict(out, partial=True))
+        if table:
+            levels2 = biharmonic_ssor_levels(sampler)
+            out["volume_table"], faults = time_volume_variants(
+                {"L0": levels[0], "L1": levels[1], "L0 SSOR": levels2[0], "L1 SSOR": levels2[1]},
+                noise)
+            out["volume_table_faults"] = faults
+            if faults:
+                raise AssertionError("volume_table: the route's configuration is more than "
+                                     f"{SMEM_ROUTE_SLACK} times the fastest: " + "; ".join(faults))
+    except BaseException:
+        out["failed"] = True
+        raise
+    finally:
+        emit(out)
 
 
 def write_volume_configs(directory, nx, nlevel, nchains, nsamples, nwarmup):
@@ -5753,13 +5937,22 @@ def _volume_parts(out, device):
             out["main_path"][f"{name}_{C}"] = res
         samplers[name] = sampler
     parts["main_path"] = time.perf_counter() - t0
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit_smem3d as v3
+
+    for C in VOLUME_CHAINS:
+        main = out["main_path"][f"distilled_{C}"]
+        # each level's route as the table gives it, every visit through it
+        want = {li: "phase" if v3.route_config((n,) * 3, form, 1, C) is None else "smem"
+                for li, n, form in ((0, VOLUME_NX - 1, 10), (1, VOLUME_NX // 2 - 1, 12))}
+        names = {f"{k}_visit_3d_{s}pt" + ("_smem" if want[li] == "smem" else "")
+                 for k in ("descend", "ascend") for li, s in ((0, 7), (1, 27))}
+        if (main["distill_level"] != 2 or main["fused_levels"] != [0, 1, 2]
+                or main["visited_levels"] != [0, 1]
+                or {int(k): v for k, v in main["route_by_level"].items()} != want
+                or set(main["launches"]) != names):
+            raise AssertionError(f"volume: the main path at {C} chains {main}, expected the "
+                                 f"routes {want}")
     main = out["main_path"][f"distilled_{VOLUME_CHAINS[0]}"]
-    if (main["distill_level"] != 2 or main["fused_levels"] != [0, 1, 2]
-            or main["visited_levels"] != [0, 1]
-            or set(main["route_by_level"].values()) != {"phase"}
-            or set(main["launches"]) != {f"{k}_visit_3d_{s}pt" for k in ("descend", "ascend")
-                                         for s in (7, 27)}):
-        raise AssertionError(f"volume: the main path {main}")
     if out["main_path"][f"composed_{VOLUME_CHAINS[0]}"]["launches"]:
         raise AssertionError("volume: the composed variant launched visit kernels")
     del samplers["every_level_fused"], samplers["composed"]
@@ -5780,18 +5973,34 @@ def _volume_parts(out, device):
     checked = MultigridMCSampler(volume_posterior(VOLUME_NX, device, near_exact=False)[0],
                                  nlevel=3, smoother="SOR", cycle=2, distill=False)
     out["checks"] = [check_phase_only_level(checked.fused_levels[li], f"L{li}", C, gen,
-                                            label="volume")
-                     for li in (0, 1) for C in VOLUME_CHAINS]
-    out["against_composed"] = [check_volume_composed(checked, li, C, gen)
-                               for li in (0, 1) for C in VOLUME_CHAINS]
+                                            label="volume", route=route)
+                     for li in (0, 1) for C in VOLUME_CHAINS for route in ("smem", "phase")]
+    out["against_composed"] = [check_volume_composed(checked, li, C, gen, route)
+                               for li in (0, 1) for C in VOLUME_CHAINS
+                               for route in ("smem", "phase")]
     del checked
     # and the reading of f_c on the main path's own near-exact levels
     out["near_exact_f_c"] = [near_exact_fc(levels[li], f"L{li}", VOLUME_CHAINS[0], gen)
                              for li in sorted(levels)]
     parts["checks"] = time.perf_counter() - t0 - sum(parts.values())
     noise = GeneratorNoise(VOLUME_SEED + 2, device)
-    out["timings"] = [time_phase_only_level(levels[li], C, noise)
-                      for li in (0, 1) for C in VOLUME_CHAINS]
+    out["timings"] = [time_phase_only_level(levels[li], C, noise, route)
+                      for li in (0, 1) for C in VOLUME_CHAINS for route in ("smem", "phase")]
+    # the route each level takes at each count within SMEM_ROUTE_SLACK of the other's
+    for li in (0, 1):
+        for C in VOLUME_CHAINS:
+            ms = {t["route"]: t["descend_device_ms"] + t["ascend_device_ms"]
+                  for t in out["timings"] if t["chains"] == C
+                  and t["vshape"] == list(levels[li].op.vshape)}
+            taken = levels[li].route(C)
+            other = "phase" if taken == "smem" else "smem"
+            if ms[taken] > SMEM_ROUTE_SLACK * ms[other]:
+                raise AssertionError(f"volume L{li} C={C}: the route takes {taken} ({ms[taken]} "
+                                     f"device ms a descend and an ascend), {other} takes "
+                                     f"{ms[other]}")
+    out["smem_pass_stamps"] = [reach2_pass_stamps(levels[li], li, VOLUME_CHAINS[0], noise,
+                                                  "smem", "volume") for li in (0, 1)]
+    out["smem_kernel_attributes"] = smem_kernel_attributes(dim=3)
     parts["timings"] = time.perf_counter() - t0 - sum(parts.values())
     out["statistics"] = volume_gate(sampler, op, device)
     b0 = out["statistics"]["measurement_0"]
@@ -6065,7 +6274,9 @@ def main(argv=None) -> int:
                              "'sweep_threads' the one-block sweeps' checks, breakdown by "
                              "pass and block-size table alone, 'reach2_check' the reach-2 "
                              "visits' stamps and checks alone, 'smem_table' with the smem "
-                             "kernels' block-size and placement table); "
+                             "kernels' block-size and placement table, 'volume_check' the 3d "
+                             "visits' stamps and checks alone, 'volume_table' with the 3d "
+                             "smem kernels' route and placement table); "
                              "the ok line needs exactly the default nine")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -6104,6 +6315,8 @@ def main(argv=None) -> int:
         phase_visits(device, nx, nlevel, C, n_meas, gen, smi)
     if phases & {"reach2_check", "smem_table"}:  # the reach-2 visits alone (no result line)
         phase_reach2(device, nlevel, C, smi, "smem_table" in phases)
+    if phases & {"volume_check", "volume_table"}:  # the 3d visits alone (no result line)
+        phase_volume_check(device, smi, "volume_table" in phases)
     if "sweep_check" in phases:  # the one-block sweeps against their plain versions alone
         gen = torch.Generator(device=device)
         gen.manual_seed(11)
@@ -6429,27 +6642,36 @@ def main(argv=None) -> int:
                              for key, v in t["per_operation"]["operations"].items()},
         "per_visit_us": {key: v["visit_us"] for key, v in t["per_pass"].items()},
     })
-    # the 3d forms of the phase kernels (their own build of mgmc_visit.cu) on
-    # the 64^3 posterior's levels 0 (63^3, 7-point) and 1 (31^3, 27-point
-    # Galerkin) at 32 chains, launched by its main path (distilled at level 2)
+    # the 3d forms on the 64^3 posterior's levels 0 (63^3, 7-point) and 1 (31^3,
+    # 27-point Galerkin) at 32 chains, launched by its main path (distilled at
+    # level 2): the route the main path takes (the smem kernels of
+    # mgmc_visit_smem3d.cu where SMEM3D_ROUTES lists the level), the phase
+    # kernels' 3d build (mgmc_visit.cu -DVISIT_DIM=3) beside
     for li, size in ((0, "7pt"), (1, "27pt")):
         vshape = [VOLUME_NX // 2 ** li - 1] * 3
-        t, one = (next(r for r in volume["timings"] if r["chains"] == C and r["vshape"] == vshape)
-                  for C in VOLUME_CHAINS)
-        chk = [c for c in volume["checks"] if c["level"] == f"L{li}"]
-        comp = [c for c in volume["against_composed"] if c["level"] == li]
+        route = vol_main["route_by_level"].get(li, vol_main["route_by_level"].get(str(li)))
+        t, one, ph, ph_one = (next(r for r in volume["timings"] if r["chains"] == C
+                                   and r["vshape"] == vshape and r["route"] == rt)
+                              for rt in (route, "phase") for C in VOLUME_CHAINS)
+        chk = [c for c in volume["checks"] if c["level"] == f"L{li}" and c["route"] == route]
+        comp = [c for c in volume["against_composed"] if c["level"] == li
+                and c["route"] == route]
+        stamps = next(r for r in volume["smem_pass_stamps"] if r["level"] == li)
         for kind, line in (("descend", 700), ("ascend", 847)):
-            name = f"{kind}_visit_3d_{size}"
+            name = f"{kind}_visit_3d_{size}" + ("_smem" if route == "smem" else "")
             kernels.append({
                 "name": name, "route": "cuda",
-                "source": "multigridmc_tpu_torch/csrc/mgmc_visit.cu",
-                "build": " ".join(mv.PHASE_DIM3_FLAGS),
+                "source": "multigridmc_tpu_torch/csrc/" + (
+                    "mgmc_visit_smem3d.cu" if route == "smem" else "mgmc_visit.cu"),
+                "build": "" if route == "smem" else " ".join(mv.PHASE_DIM3_FLAGS),
                 "replaces": f"multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py:{line}",
                 "launches": vol_main["launches"].get(name, 0),
                 "path": f"volume main_path distilled_{VOLUME_CHAINS[0]}",
                 "max_abs_err": max(c["x"] if kind == "descend" else c["ascend_x"] for c in chk),
                 "f_c_max_abs_err_over_scale": max(c["f_c_over_scale"] for c in chk)
                 if kind == "descend" else None,
+                "against_phase_one_philox_stream": [c.get("smem_against_phase") for c in chk]
+                if route == "smem" else None,
                 "against_composed_max_abs_err": max(c[f"{kind}_x"] for c in comp),
                 "near_exact_f_c": next(r for r in volume["near_exact_f_c"]
                                        if r["level"] == f"L{li}") if kind == "descend" else None,
@@ -6460,14 +6682,29 @@ def main(argv=None) -> int:
                 "bound_bytes": t[f"{kind}_bytes"], "library_ms": None,
                 "shape": {"chains": t["chains"], "vshape": t["vshape"],
                           "offsets": chk[0]["offsets"], "colours": chk[0]["colours"]},
-                "one_chain": {"ms": one[f"{kind}_ms"], "device_ms": one[f"{kind}_device_ms"],
+                "one_chain": {"route": one["route"], "ms": one[f"{kind}_ms"],
+                              "device_ms": one[f"{kind}_device_ms"],
                               "plain_ms": one[f"{kind}_plain_ms"],
                               "bound_ms": one[f"{kind}_bound_ms"]},
+                "phase_build": {"ms": ph[f"{kind}_ms"], "device_ms": ph[f"{kind}_device_ms"],
+                                "one_chain_device_ms": ph_one[f"{kind}_device_ms"],
+                                "threads": ph["threads"],
+                                "launches": vol_main["launches"].get(
+                                    f"{kind}_visit_3d_{size}", 0)},
                 "stencil_form": t["stencil_form"], "threads": t["threads"],
-                "design": "the passes of level_passes.cuh in 3d: the (C, Z, Y, X) fields row "
-                          "major, a row (z, y), the colour rows as (z, y) residue pairs, the "
-                          "stencil in registers with z edge bits, 3d measurement boxes, the "
-                          "3d transfers as passes; one block per chain, 512 threads at most"})
+                **({"cluster": t["cluster"], "c_shared": t["c_shared"],
+                    "per_pass_us": stamps[kind]["passes"],
+                    "registers": stamps[kind]["registers"],
+                    "local_bytes": stamps[kind]["local_bytes"]} if route == "smem" else {}),
+                "design": ("each chain's field in shared memory, slabs of z-planes over a "
+                           "cluster, the neighbours' edge planes copied into ghost planes "
+                           "after each cluster barrier, host tables (interior points with scalar "
+                           "coefficients, several in flight), B^T x shares in rank order"
+                           if route == "smem" else
+                           "the passes of level_passes.cuh in 3d: the (C, Z, Y, X) fields row "
+                           "major, a row (z, y), the colour rows as (z, y) residue pairs, the "
+                           "stencil in registers with z edge bits, 3d measurement boxes, the "
+                           "3d transfers as passes; one block per chain, 512 threads at most")})
     # the two-sweep (SSOR) forms, phase ssor: the phase kernels on the
     # flagship's 255^2 level at 256 chains and the split kernels at one chain
     # (clusters of 16), launched by its SSOR flagship paths (the split ones by
@@ -6516,7 +6753,8 @@ def main(argv=None) -> int:
             kernels.append({
                 "name": name, "route": "cuda",
                 "source": "multigridmc_tpu_torch/csrc/" + (
-                    "mgmc_visit_smem.cu" if smem else "mgmc_visit.cu"),
+                    ("mgmc_visit_smem.cu" if reach2 else "mgmc_visit_smem3d.cu") if smem
+                    else "mgmc_visit.cu"),
                 "build": "" if smem else " ".join(
                     mv.PHASE_REACH2_FLAGS if reach2 else mv.PHASE_DIM3_FLAGS),
                 **({"phase_ms": t["phase_" + kind + "_ms"],

@@ -373,13 +373,25 @@ extern "C" int mgmc_visit_kernel_attributes(int descend, int form, int ndir, int
     return 0;
 }
 
+// the kernels' static shared memory at most (s_btx, s_wv, s_stage, the
+// barrier count and the stamps pointer; mgmc_visit.py::PHASE_STATIC_SMEM)
+#define PHASE_STATIC_BOUND (4 * (MAX_LOWRANK + 32 * MAX_LOWRANK + 32 * 128) + 16)
+
+// Whether a launch with `smem_bytes` of dynamic shared memory must opt in to
+// it: where the dynamic and the static share together exceed the 48 KiB a
+// block gets without asking (the tables of a 15^3 level, 46,400 bytes beside
+// the 3d build's 20,608 static, do).
+static bool needs_opt_in(int smem_bytes) {
+    return smem_bytes > 0 && smem_bytes + PHASE_STATIC_BOUND > 48 * 1024;
+}
+
 // blocks of `threads` with `smem_bytes` of dynamic shared memory that one SM
 // holds at once (the kernel of a direction, a form and a sweep count), or -1
 extern "C" int mgmc_visit_blocks_per_sm(int descend, int form, int ndir, int threads,
                                         int smem_bytes) {
     const void* fn = phase_kernel(descend, form, ndir);
     if (fn == nullptr) return -1;
-    if (smem_bytes > 48 * 1024 &&
+    if (needs_opt_in(smem_bytes) &&
         cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes) !=
             cudaSuccess) {
         cudaGetLastError();
@@ -401,7 +413,7 @@ static int launch(int descend, int form, bool stamps, int C, int ndir, int threa
     const void* fn = phase_kernel(descend, form, ndir);
     if (fn == nullptr || stamps != (bool)PHASE_STAMPS_BUILD || threads > PHASE_MAX_THREADS)
         return (int)cudaErrorInvalidValue;
-    if (smem_bytes > 48 * 1024) {  // above what needs no opt-in
+    if (needs_opt_in(smem_bytes)) {
         cudaError_t e =
             cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
         if (e != cudaSuccess) {

@@ -45,9 +45,9 @@ HEADERS = ("philox.cuh", "visit_phases.cuh", "level_passes.cuh", "sor_sweep.cuh"
            "block_stamps.cuh")
 
 #: every kernel source under ``csrc/`` (``<name>.cu``)
-SOURCES = ("mgmc_visit", "mgmc_visit_stream", "mgmc_visit_split", "mgmc_visit_smem", "sor_sweep",
-           "sor_sweep_passes", "sor_sweep_smem", "sor_sweep_cluster", "mgmc_subtree",
-           "smem_probe")
+SOURCES = ("mgmc_visit", "mgmc_visit_stream", "mgmc_visit_split", "mgmc_visit_smem",
+           "mgmc_visit_smem3d", "sor_sweep", "sor_sweep_passes", "sor_sweep_smem",
+           "sor_sweep_cluster", "mgmc_subtree", "smem_probe")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -67,13 +67,15 @@ SWEEP_STAMPS_FLAGS = ("-DSWEEP_STAMPS_BUILD=1",)
 PHASE_REACH2_FLAGS = ("-DVISIT_REACH=2",)
 #: the flags of the reach-2 build's stamps build (a measurement aid)
 PHASE_REACH2_STAMPS_FLAGS = PHASE_REACH2_FLAGS + PHASE_STAMPS_FLAGS
-#: the flags of the smem visit kernels' stamps build, a second library of
-#: ``csrc/mgmc_visit_smem.cu``
+#: the flags of the smem visit kernels' stamps builds, a second library of
+#: ``csrc/mgmc_visit_smem.cu`` and of ``csrc/mgmc_visit_smem3d.cu``
 SMEM_VISIT_STAMPS_FLAGS = ("-DSMEM_VISIT_STAMPS_BUILD=1",)
 #: the flags of the phase visit kernels' 3d build, a fourth library of
 #: ``csrc/mgmc_visit.cu``: a parameter block of 27 offsets with the z extents,
 #: and the 3d passes and stencil forms (7-point and 27-point levels)
 PHASE_DIM3_FLAGS = ("-DVISIT_DIM=3",)
+#: the flags of the 3d build's stamps build (a measurement aid)
+PHASE_DIM3_STAMPS_FLAGS = PHASE_DIM3_FLAGS + PHASE_STAMPS_FLAGS
 #: the flags of the subtree kernel's reach-2 build, a second library of
 #: ``csrc/mgmc_subtree.cu``: the same parameter block and forms as
 #: :data:`PHASE_REACH2_FLAGS`
@@ -87,7 +89,8 @@ SUBTREE_REACH2_PARTS = {"production": SUBTREE_REACH2_FLAGS,
                         "block1024": SUBTREE_REACH2_FLAGS + ("-DSUBTREE_PART=2",)}
 
 #: every library the port builds: each source of :data:`SOURCES`, the stamps
-#: builds of ``mgmc_visit`` (reach 1 and reach 2), ``mgmc_visit_smem``,
+#: builds of ``mgmc_visit`` (reach 1, reach 2 and 3d), ``mgmc_visit_smem``,
+#: ``mgmc_visit_smem3d``,
 #: ``sor_sweep_passes``, ``sor_sweep_smem`` and
 #: ``sor_sweep``, the reach-2 and 3d builds of ``mgmc_visit`` and of
 #: ``sor_sweep_passes`` and the reach-2 build of ``mgmc_subtree`` in its three
@@ -98,7 +101,9 @@ SUBTREE_REACH2_PARTS = {"production": SUBTREE_REACH2_FLAGS,
 STAMPS_BUILDS = (("mgmc_visit", PHASE_STAMPS_FLAGS), ("sor_sweep_passes", SWEEP_STAMPS_FLAGS),
                  ("sor_sweep_smem", SWEEP_STAMPS_FLAGS), ("sor_sweep", SWEEP_STAMPS_FLAGS),
                  ("mgmc_visit", PHASE_REACH2_STAMPS_FLAGS),
-                 ("mgmc_visit_smem", SMEM_VISIT_STAMPS_FLAGS))
+                 ("mgmc_visit_smem", SMEM_VISIT_STAMPS_FLAGS),
+                 ("mgmc_visit", PHASE_DIM3_STAMPS_FLAGS),
+                 ("mgmc_visit_smem3d", SMEM_VISIT_STAMPS_FLAGS))
 VARIANT_BUILDS = (("mgmc_visit", PHASE_REACH2_FLAGS), ("mgmc_visit", PHASE_DIM3_FLAGS),
                   ("sor_sweep_passes", PHASE_REACH2_FLAGS),
                   ("sor_sweep_passes", PHASE_DIM3_FLAGS)) + tuple(

@@ -112,13 +112,17 @@ hold it), where its table lists the level's shape, form and sweeps, and
 elsewhere the phase kernels of a third build of ``csrc/mgmc_visit.cu``
 (``common.PHASE_REACH2_FLAGS``, :class:`WideVisitParams`, stencil forms 6-9).
 3d levels (reach-1 stencils of up to 27 offsets, up to 8 colours: the FD
-prior's 7-point level and its 27-point Galerkin levels) take the phase kernels
-alone too, from a fourth build (``common.PHASE_DIM3_FLAGS``,
-:class:`VolumeVisitParams`, stencil forms 10-15): the fields ``(C, Z, Y, X)``
-row major as they are, a row ``(z, y)``, 3d measurement boxes and 3d
-transfers.  The split and stream kernels take 2d reach-1 levels only, the
-stream kernels one sweep per visit.  Reach 3 and reduced-precision transfers
-belong to later slices; the wrapper raises on them.
+prior's 7-point level and its 27-point Galerkin levels) take :data:`SMEM_ROUTE`
+too, from a source of their own (``csrc/mgmc_visit_smem3d.cu``,
+:mod:`.mgmc_visit_smem3d`: each chain's field in shared memory, in slabs of
+z-planes over a cluster) where its table lists the level's shape, form and
+sweeps at the chain count, and elsewhere the phase kernels of a fourth build
+(``common.PHASE_DIM3_FLAGS``, :class:`VolumeVisitParams`, stencil forms
+10-15): the fields ``(C, Z, Y, X)`` row major as they are, a row ``(z, y)``,
+3d measurement boxes and 3d transfers.  The split and stream kernels take 2d
+reach-1 levels only, the stream kernels one sweep per visit.  Reach 3 and
+reduced-precision transfers belong to later slices; the wrapper raises on
+them.
 """
 
 from __future__ import annotations
@@ -294,18 +298,21 @@ REACH2_NAMES = {(kind, box, route): f"{kind}_visit_reach2_{'25' if box else '13'
                 + ("_smem" if route == SMEM_ROUTE else "")
                 for kind in ("descend", "ascend") for box in (False, True)
                 for route in ("phase", SMEM_ROUTE)}
-#: the kernel counted by a launch on a 3d level, by kind and whether the
-#: stencil has more than 7 offsets (forms 12-15)
-DIM3_NAMES = {(kind, wide): f"{kind}_visit_3d_{'27' if wide else '7'}pt"
-              for kind in ("descend", "ascend") for wide in (False, True)}
+#: the kernel counted by a launch on a 3d level, by kind, whether the stencil
+#: has more than 7 offsets (forms 12-15) and route (the phase kernels' 3d
+#: build or :data:`SMEM_ROUTE`, ``csrc/mgmc_visit_smem3d.cu``)
+DIM3_NAMES = {(kind, wide, route): f"{kind}_visit_3d_{'27' if wide else '7'}pt"
+              + ("_smem" if route == SMEM_ROUTE else "")
+              for kind in ("descend", "ascend") for wide in (False, True)
+              for route in ("phase", SMEM_ROUTE)}
 #: a launch of two sweeps (SSOR) counts as its one-sweep name with this ending
 #: (the stream kernels take no such launch)
 SSOR_SUFFIX = "_ssor"
 
 #: kernel launches made by the wrappers (and only where they launch); the
-#: phase kernels' reach-2 and 3d forms count apart, by the size of their
-#: stencil (:data:`REACH2_NAMES`, :data:`DIM3_NAMES`), and each two-sweep
-#: (SSOR) form apart from its one-sweep form (:data:`SSOR_SUFFIX`)
+#: reach-2 and 3d forms count apart, by the size of their stencil and route
+#: (:data:`REACH2_NAMES`, :data:`DIM3_NAMES`), and each two-sweep (SSOR) form
+#: apart from its one-sweep form (:data:`SSOR_SUFFIX`)
 launch_counts: Dict[str, int] = {
     name + suffix: 0
     for name in (list(KERNEL_NAMES.values()) + list(REACH2_NAMES.values())
@@ -631,8 +638,11 @@ def visit_route(C: int, stream_bytes: int = 0, device=None,
     (forms 6-9) :data:`SMEM_ROUTE` where the level's shape ``vshape``, form and
     sweeps per visit ``ndir`` are listed in ``mgmc_visit_smem.SMEM_CHAINS``
     with ``C`` in their range (the level checks that a cluster fits:
-    :meth:`FusedVisitLevel.route`), else ``"phase"``; ``"phase"`` for a 3d form
-    (the split and stream kernels take 2d reach-1 levels); ``"stream"`` for a
+    :meth:`FusedVisitLevel.route`), else ``"phase"``; for a 3d form (10-15)
+    :data:`SMEM_ROUTE` where ``mgmc_visit_smem3d.SMEM3D_ROUTES`` lists the
+    shape, form and sweeps with ``C`` in a range
+    (``mgmc_visit_smem3d.route_config``), else ``"phase"`` (the split and
+    stream kernels take 2d reach-1 levels); ``"stream"`` for a
     visit of one sweep (``ndir``
     1: the stream kernels do not take two) from the threshold of the level's
     shape ``vshape`` and stencil form ``form`` on
@@ -644,6 +654,10 @@ def visit_route(C: int, stream_bytes: int = 0, device=None,
     probe finds on ``device`` (:func:`~.common.dynamic_smem_limit`; on the CPU
     its default).  All of it is known before any launch."""
     if form is not None and form >= DIM3_FORM0:
+        from .mgmc_visit_smem3d import route_config
+
+        if vshape is not None and route_config(vshape, form, ndir, C) is not None:
+            return SMEM_ROUTE
         return "phase"
     if form is not None and form >= WIDE_FORM0:
         from .mgmc_visit_smem import SMEM_CHAINS
@@ -826,10 +840,10 @@ def load_library(stamps: bool = False, reach: int = 1, dim: int = 2) -> ctypes.C
     with ``reach=2`` their reach-2 build (``common.PHASE_REACH2_FLAGS``), or
     with ``dim=3`` their 3d build (``common.PHASE_DIM3_FLAGS``); with
     ``stamps`` the stamps build (``common.PHASE_STAMPS_FLAGS`` beside the
-    build's flags) of the reach-1 or the reach-2 build."""
-    if (reach, dim) not in PHASE_BUILDS or (stamps and dim != 2):
-        raise ValueError("the phase kernels have a reach-1 and a reach-2 build, each with "
-                         f"its stamps build, and a 3d build; asked for reach {reach}, dim {dim}, "
+    build's flags) of any of the three."""
+    if (reach, dim) not in PHASE_BUILDS:
+        raise ValueError("the phase kernels have a reach-1 build, a reach-2 build and a 3d "
+                         f"build, each with its stamps build; asked for reach {reach}, dim {dim}, "
                          f"stamps {stamps}")
     flags, params, form0, nforms, most, width = PHASE_BUILDS[(reach, dim)]
     lib = open_library(SOURCE_NAME, flags + PHASE_STAMPS_FLAGS if stamps else flags)
@@ -954,20 +968,32 @@ def kernel_support_error(op: StencilOperator, n_colors: int) -> Optional[str]:
 def route_support_error(level: "FusedVisitLevel", route: str, ndir: int = 1) -> Optional[str]:
     """Why the kernels of ``route`` cannot take a visit of ``ndir`` sweeps on
     ``level``, or None: the split and stream kernels take 2d reach-1 stencils
-    only, the stream kernels one sweep.  :func:`visit_route` never gives them
-    such a visit; this holds a route a caller names to it."""
-    if route == SMEM_ROUTE and (level.reach != 2 or level.dim != 2):
-        return (f"the {route} kernels take 2d reach-2 stencils only: a reach-1 level takes "
-                "the phase, split or stream kernels, a 3d level the phase kernels")
+    only, the stream kernels one sweep; the smem kernels 2d reach-2 and 3d
+    stencils.  :func:`visit_route` never gives them such a visit; this holds a
+    route a caller names to it."""
+    if route == SMEM_ROUTE and level.reach != 2 and level.dim != 3:
+        return (f"the {route} kernels take 3d stencils and 2d reach-2 stencils only: a 2d "
+                "reach-1 level takes the phase, split or stream kernels")
     if route == "stream" and ndir > 1:
         return ("the stream kernels take one sweep per visit: a two-sweep (SSOR) level takes "
                 "the phase or the split kernels")
     if route not in ("phase", SMEM_ROUTE) and level.reach > 1:
         return (f"the {route} kernels take reach-1 stencils only: a reach-2 level takes "
                 "the phase or the smem kernels")
-    if route != "phase" and level.dim == 3:
-        return f"the {route} kernels take 2d levels only: a 3d level takes the phase kernels"
+    if route not in ("phase", SMEM_ROUTE) and level.dim == 3:
+        return (f"the {route} kernels take 2d levels only: a 3d level takes the phase or "
+                "the smem kernels")
     return None
+
+
+def smem_module(level: "FusedVisitLevel"):
+    """The host side of the smem route for ``level``: :mod:`.mgmc_visit_smem`
+    (2d reach 2) or :mod:`.mgmc_visit_smem3d` (3d)."""
+    if level.dim == 3:
+        from . import mgmc_visit_smem3d as module
+    else:
+        from . import mgmc_visit_smem as module
+    return module
 
 
 def _as_orders(orders) -> Tuple[Tuple[int, ...], ...]:
@@ -1141,9 +1167,10 @@ class FusedVisitLevel:
         return self._route(C)[0]
 
     def split_cluster(self, C: int) -> Optional[int]:
-        """The cluster size of this level's split (reach 1) or smem (reach 2)
-        launches of ``C`` chains (:func:`split_cluster`,
-        ``mgmc_visit_smem.smem_cluster``); ``None`` on another route."""
+        """The cluster size of this level's split (reach 1) or smem (reach 2,
+        3d) launches of ``C`` chains (:func:`split_cluster`,
+        ``mgmc_visit_smem.smem_cluster``, ``mgmc_visit_smem3d.smem_cluster``);
+        ``None`` on another route."""
         return self._route(C)[1]
 
     def _route(self, C: int) -> Tuple[str, Optional[int]]:
@@ -1158,9 +1185,7 @@ class FusedVisitLevel:
             if route == "split":
                 S = split_cluster(C, self.op.vshape, self.op.device)
             elif route == SMEM_ROUTE:
-                from .mgmc_visit_smem import smem_cluster
-
-                S = smem_cluster(self, C)
+                S = smem_module(self).smem_cluster(self, C)
                 route = "phase" if S is None else route
             self._routes[C] = (route, S)
         return self._routes[C]
@@ -1201,7 +1226,8 @@ class FusedVisitLevel:
         for the phase kernels, a ``SplitParams`` for the split kernels, a
         ``StreamParams`` for the stream kernels, a ``SmemVisitParams`` for the
         smem kernels (the launch configuration ``smem``, a
-        ``mgmc_visit_smem.SmemLayout``; default: the rules' for ``C``).
+        ``mgmc_visit_smem.SmemLayout`` or, 3d, a ``SmemVolumeParams`` from a
+        ``mgmc_visit_smem3d.SmemLayout``; default: the rules' for ``C``).
         ``route`` defaults to :meth:`route` of ``C``, so the kernel is chosen
         here, before the launch, once per launch configuration (the host's
         share of a launch matters on the small levels); only the Philox stream
@@ -1219,9 +1245,7 @@ class FusedVisitLevel:
             if err is not None:
                 raise NotImplementedError(err)
             if route == SMEM_ROUTE:
-                from .mgmc_visit_smem import layout
-
-                smem = layout(self, orders, C=C) if smem is None else smem
+                smem = smem_module(self).layout(self, orders, C=C) if smem is None else smem
                 P = smem.params(self, C, orders, f_batched, noise_mode)
             elif route == "stream":
                 P = self._build_stream_params(C, orders[0], f_batched, noise_mode)
@@ -1448,17 +1472,15 @@ def _split_launch(level: FusedVisitLevel, C: int, cluster: Optional[int]) -> Tup
 
 def stamp_shape(level: FusedVisitLevel, route: str, C: int, S: int = 1) -> Tuple[int, int]:
     """The stamps tensor of a launch of ``C`` chains: a row per block, of the
-    width of its build (the phase kernels' reach-1 and reach-2 builds, the
-    smem kernels with clusters of ``S``).  ``ValueError`` where the kernels
-    have no stamps build (the split and stream kernels, the 3d build)."""
+    width of its build (the phase kernels' reach-1, reach-2 and 3d builds,
+    the smem kernels with clusters of ``S``).  ``ValueError`` where the
+    kernels have no stamps build (the split and stream kernels)."""
     if route == SMEM_ROUTE:
-        from .mgmc_visit_smem import STAMP_WIDTH
-
-        return C * S, STAMP_WIDTH
-    if route != "phase" or level.dim == 3:
-        raise ValueError("no stamps build for this launch: the phase kernels of 2d reach-1 "
-                         "levels have a stamps build, as have those of reach-2 levels and the "
-                         "smem kernels")
+        return C * S, smem_module(level).STAMP_WIDTH
+    if route != "phase":
+        raise ValueError("no stamps build for this launch: the phase kernels (every build) "
+                         "and the smem kernels have a stamps build, the split and stream "
+                         "kernels none")
     return C, (WIDE_STAMP_WIDTH if level.reach > 1 else PHASE_STAMP_WIDTH)
 
 
@@ -1476,7 +1498,8 @@ def kernel_name(level: FusedVisitLevel, route: str, kind: str) -> str:
     (:data:`KERNEL_NAMES`; a reach-2 level's :data:`REACH2_NAMES`, a 3d
     level's :data:`DIM3_NAMES`; with :data:`SSOR_SUFFIX` for two sweeps)."""
     if level.dim == 3:
-        name = DIM3_NAMES[(kind, level.stencil_form >= 12)]
+        name = DIM3_NAMES[(kind, level.stencil_form >= 12,
+                           SMEM_ROUTE if route == SMEM_ROUTE else "phase")]
     elif level.reach > 1:
         name = REACH2_NAMES[(kind, level.stencil_form >= 8,
                              SMEM_ROUTE if route == SMEM_ROUTE else "phase")]
@@ -1497,7 +1520,7 @@ def launch_descend(level: FusedVisitLevel, route: str, f, x, xi=None, xi_lr=None
     :meth:`FusedVisitLevel.split_cluster`).  Measurement aids that production
     calls leave ``None``: ``threads`` sets the block size of the phase and
     smem routes (default: their rules); ``c_shared`` whether the smem route
-    keeps ``c`` in shared memory (default: ``mgmc_visit_smem.rhs_shared``);
+    keeps ``c`` in shared memory (default: the route's table or rules);
     ``stamps`` takes the phase or smem kernels' stamps build, an int64 tensor
     of :func:`stamp_shape` that receives per block the timer at entry, after
     each pass and at exit, the barriers passed and the SM (:func:`pass_times`).
@@ -1526,11 +1549,9 @@ def _launch(level: FusedVisitLevel, route: str, kind: str, f, x, x_coarse, xi, x
         err = route_support_error(level, route, len(orders))
         if err is not None:
             raise NotImplementedError(err)
-        from .mgmc_visit_smem import layout
-
         S = level.split_cluster(x.shape[0]) if cluster is None and level.route(
             x.shape[0]) == SMEM_ROUTE else cluster
-        smem = layout(level, orders, S, c_shared, threads, x.shape[0])
+        smem = smem_module(level).layout(level, orders, S, c_shared, threads, x.shape[0])
     _check_stamps(level, route, stamps, x, smem.S if smem is not None else 1)
     C, f_batched, noise_mode = _check_visit_args(level, f, x, xi, xi_lr, philox,
                                                  None if descend else x_coarse, len(orders))
@@ -1541,9 +1562,8 @@ def _launch(level: FusedVisitLevel, route: str, kind: str, f, x, x_coarse, xi, x
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if route == SMEM_ROUTE:
-            from .mgmc_visit_smem import launch as smem_launch
-
-            err = smem_launch(level, kind, P, smem, f, x, out, xi, xi_lr, stamps, stream)
+            err = smem_module(level).launch(level, kind, P, smem, f, x, out, xi, xi_lr, stamps,
+                                            stream)
         elif route == "phase":
             threads = level.phase_threads(C) if threads is None else int(threads)
             tables, L, smem = level.phase_launch(orders, threads)

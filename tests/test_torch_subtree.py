@@ -287,7 +287,7 @@ def test_shared_memory_probe_on_the_cpu():
     assert not common.probe_dynamic_smem(48 * 1024 + 4, CPU)
     assert common.launch_counts["smem_probe"] == 0  # no kernel was launched here
     assert set(common.SOURCES) == {"mgmc_visit", "mgmc_visit_stream", "mgmc_visit_split",
-                                   "mgmc_visit_smem", "sor_sweep", "sor_sweep_passes",
+                                   "mgmc_visit_smem", "mgmc_visit_smem3d", "sor_sweep", "sor_sweep_passes",
                                    "sor_sweep_smem",
                                    "sor_sweep_cluster", "mgmc_subtree", "smem_probe"}
     for name in common.SOURCES:

@@ -306,6 +306,12 @@ def test_float64_replay_of_the_3d_passes_is_the_plain_visit(level):
 
 # --------------------------------------------------- route, build and names
 def test_3d_levels_take_the_phase_kernels_3d_build():
+    """A 3d level the smem route's table (``mgmc_visit_smem3d.SMEM3D_ROUTES``)
+    does not list takes the phase kernels' 3d build at every chain count; a
+    shape it lists takes the smem kernels where the table says; split and
+    stream refuse 3d; both 3d builds have a stamps build."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit_smem3d as v3
+
     _, _, _, fine = levels((10, 12, 14), 0, True, torch.float32)
     _, _, _, coarse = levels((10, 12, 14), 1, True, torch.float32)
     for port, form, size in ((fine, 10, "7"), (coarse, 12, "27")):
@@ -315,6 +321,7 @@ def test_3d_levels_take_the_phase_kernels_3d_build():
         for route in ("split", "stream"):
             assert "2d levels only" in mv.route_support_error(port, route)
         assert mv.route_support_error(port, "phase") is None
+        assert mv.route_support_error(port, "smem") is None
         for kind in ("descend", "ascend"):
             assert mv.kernel_name(port, "phase", kind) == f"{kind}_visit_3d_{size}pt"
             assert mv.launch_counts[mv.kernel_name(port, "phase", kind)] == 0
@@ -322,14 +329,24 @@ def test_3d_levels_take_the_phase_kernels_3d_build():
         assert mv.phase_barrier_count(port, "descend") == len(port.pre_order) + 5
         assert mv.phase_barrier_count(port, "ascend") == len(port.post_order) + 3
         assert mv.pass_names(port, "ascend")[0] == "prolongation + rhs"
+    # the 64^3 posterior's levels: the table's route at each count
+    for (Z, Y, W, form, ndir), rows in v3.SMEM3D_ROUTES.items():
+        assert form in (10, 12) and ndir in (1, 2)
+        for C in (1, 32, 128):
+            listed = any(C >= a and (b is None or C <= b) for a, b, *_ in rows)
+            assert mv.visit_route(C, 0, torch.device("cpu"), vshape=(Z, Y, W), form=form,
+                                  ndir=ndir) == ("smem" if listed else "phase")
     # a stencil of 8..27 offsets that is not the raster box takes form 14
     cross = tuple(o for o in itertools.product((-1, 0, 1), repeat=3) if sum(map(abs, o)) <= 2)
     assert mv.stencil_form(cross, [1.0] * len(cross)) == 14
     assert mv.stencil_form(cross, [None] + [1.0] * (len(cross) - 1)) == 15
     x = torch.zeros((1,) + fine.op.vshape, dtype=torch.float32)
-    with pytest.raises(ValueError, match="2d reach-1 levels have a stamps build"):
-        mv._check_stamps(fine, "phase", torch.zeros((1, mv.PHASE_STAMP_WIDTH),
+    mv._check_stamps(fine, "phase", torch.zeros((1, mv.PHASE_STAMP_WIDTH), dtype=torch.int64), x)
+    with pytest.raises(ValueError, match="stamps must be"):
+        mv._check_stamps(fine, "phase", torch.zeros((1, mv.PHASE_STAMP_WIDTH - 1),
                                                     dtype=torch.int64), x)
+    assert ("mgmc_visit", common.PHASE_DIM3_STAMPS_FLAGS) in common.STAMPS_BUILDS
+    assert ("mgmc_visit_smem3d", common.SMEM_VISIT_STAMPS_FLAGS) in common.STAMPS_BUILDS
 
 
 def test_3d_build_flags_forms_and_source_agree():
@@ -341,8 +358,8 @@ def test_3d_build_flags_forms_and_source_agree():
     visit = (CSRC / "mgmc_visit.cu").read_text()
     cases = {int(v) for v in re.findall(r"case (\d+): return FORM_KERNEL", visit)}
     assert set(range(mv.DIM3_FORM0, mv.DIM3_FORM0 + mv.DIM3_FORMS)) <= cases
-    with pytest.raises(ValueError, match="3d build"):
-        mv.load_library(stamps=True, dim=3)
+    with pytest.raises(ValueError, match="a 3d build"):
+        mv.load_library(stamps=True, reach=2, dim=3)
 
 
 def test_3d_philox_groups_number_rows_z_y():

@@ -240,8 +240,8 @@ def test_the_reach2_build_is_a_library_of_its_own():
     assert ("mgmc_visit", common.PHASE_REACH2_STAMPS_FLAGS) in common.STAMPS_BUILDS
     assert common.library_path("mgmc_visit", common.PHASE_REACH2_STAMPS_FLAGS) not in (
         wide, common.library_path("mgmc_visit", common.PHASE_STAMPS_FLAGS))
-    with pytest.raises(ValueError, match="reach-2 build"):
-        mv.load_library(stamps=True, dim=3)
+    with pytest.raises(ValueError, match="reach-2 build"):  # no reach-2 3d build
+        mv.load_library(stamps=True, reach=2, dim=3)
 
 
 def _edge_bits(offsets, box):

@@ -36,6 +36,7 @@ from multigridmc_tpu_torch.ops.intergrid import prolongate_add
 from multigridmc_tpu_torch.ops.kernels import common
 from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
 from multigridmc_tpu_torch.ops.kernels import mgmc_visit_smem as vsm
+from multigridmc_tpu_torch.ops.kernels import mgmc_visit_smem3d as v3
 from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
 from multigridmc_tpu_torch.smoothers import SORSmoother, SSORSmoother
 
@@ -493,7 +494,9 @@ def test_route_at_1_16_and_256_chains(levels):
             assert mv.visit_route(C, 0, cpu, vshape=(H, W), form=form, ndir=ndir) == want
     for C in (1, 16, 256):
         assert mv.visit_route(C, 0, cpu, vshape=(63, 63), form=7) == "phase"
-        assert mv.visit_route(C, 0, cpu, vshape=(31, 31, 31), form=12) == "phase"
+        # a 3d form takes its own table (mgmc_visit_smem3d.SMEM3D_ROUTES)
+        assert mv.visit_route(C, 0, cpu, vshape=(31, 31, 31), form=12) == (
+            "phase" if v3.route_config((31, 31, 31), 12, 1, C) is None else "smem")
     for level in levels.values():  # shapes the table does not list
         assert {level.route(C) for C in (1, 16, 256)} == {"phase"}
     level = levels["31_13pt"]
