@@ -198,17 +198,23 @@ the card and checks, one phase after the other:
                    config;
 11. ``ssor``       two sweeps per visit (SSOR): the flagship posterior with
                    SSOR levels through ``MultigridMCSampler.apply`` at 256
-                   chains (level 0 on the phase kernels) and at one chain (the
-                   split kernels), the biharmonic (256 chains) and 64^3 (32
+                   chains (levels 0 and 1 on the smem kernels of
+                   ``csrc/mgmc_visit_smem.cu``, each chain's field in shared
+                   memory through both sweeps) and at one chain (the route the
+                   rule takes), the biharmonic (256 chains) and 64^3 (32
                    chains) posteriors with SSOR levels, a few steps each; the
-                   two-sweep visits on each one's level 0 against their plain
-                   versions (noise off, tensors, in-kernel against the host's
-                   reference normals; the split kernels at one chain, clusters
-                   of 16, and against the phase kernels under one Philox
-                   stream), their device ms, plain ms and bounds, the 2d
-                   launch by pass from the stamps build (barriers against the
-                   source's count); the descend's ``f_c`` on every fused level
-                   of the flagship, SOR and SSOR, against a float64 visit.
+                   two-sweep visits against their plain versions (noise off,
+                   tensors, in-kernel against the host's reference normals):
+                   the smem kernels on the flagship's levels 0 and 1 at 256
+                   chains and one chain, the phase kernels at 256 chains, the
+                   split kernels at one chain (clusters of 16), each other
+                   one's level 0; smem and split against the phase kernels
+                   under one Philox stream; their device ms, plain ms and
+                   bounds (smem and phase side by side on both levels), the
+                   launches by pass from the stamps builds (barriers against
+                   the source's count); the descend's ``f_c`` on every fused
+                   level of the flagship, SOR and SSOR, against a float64
+                   visit.
 
 Device times come from ``torch.profiler``: the kernel matched by its full name
 (:func:`names_kernel`), the median of three windows, each of which must have
@@ -233,7 +239,10 @@ generic one-block sweeps by pass, with ``sweep_passes`` the passes body too;
 ``sweep_threads``: the passes body's block-size table; ``volume``: the 3d
 posterior alone; ``volume_check``: the 3d visits' checks and stamps alone,
 ``volume_table`` with the 3d smem kernels' route and placement table;
-``ssor``: the two-sweep visits alone) and prints no result line.
+``ssor``: the two-sweep visits alone; ``ssor_check``: the 2d two-sweep smem
+visits' checks and stamps alone, ``ssor_table`` with the route table of every
+route on the flagship's levels 0 and 1 at 1-256 chains, two sweeps and one,
+and the smem kernels' placement table) and prints no result line.
 """
 
 from __future__ import annotations
@@ -3356,7 +3365,7 @@ def phase_drivers(device, nx, nlevel, n_meas, nchains, nsamples, nwarmup, smi):
             out["mgmc"] = res
 
             # ---- drivers.mg: Richardson, SSOR multigrid (the fused two-sweep
-            # visits: one right-hand side takes the split kernels)
+            # visits: one right-hand side takes the route of one chain)
             mv.reset_launch_counts()
             ss.reset_launch_counts()
             t0 = time.perf_counter()
@@ -3393,12 +3402,18 @@ def phase_drivers(device, nx, nlevel, n_meas, nchains, nsamples, nwarmup, smi):
             solution = read_vtk_scalars("solution.vtk")["solution"]
             if solution.shape != (n_vertices,) or not np.isfinite(solution).all():
                 raise AssertionError("drivers.mg: solution.vtk is not finite")
-            # one right-hand side: every fused SSOR visit takes the split kernels
-            ssor_split = [n + mv.SSOR_SUFFIX for n in VISIT_KERNELS["split"]]
-            if (min(counts_mg[n] for n in ssor_split) <= 0
-                    or any(counts_mg[n] for n in mv.launch_counts if n not in ssor_split)):
-                raise AssertionError(f"drivers.mg: the SSOR split visits were not the visits "
-                                     f"launched: {counts_mg}")
+            # one right-hand side: every fused SSOR visit (levels 0 and 1, 255^2
+            # 5-point and 127^2 3x3 box) takes the route of one chain, the split
+            # kernels or the smem kernels where mgmc_visit_smem.SMEM_CHAINS
+            # lists the level at one chain
+            ssor_one = {mv.KERNEL_NAMES[(mv.visit_route(1, vshape=(h, h), form=form, ndir=2),
+                                         kind)] + mv.SSOR_SUFFIX
+                        for h, form in ((nx - 1, 0), (nx // 2 - 1, 2))
+                        for kind in ("descend", "ascend")}
+            if (min(counts_mg[n] for n in ssor_one) <= 0
+                    or any(counts_mg[n] for n in mv.launch_counts if n not in ssor_one)):
+                raise AssertionError(f"drivers.mg: the one-chain SSOR visits {sorted(ssor_one)} "
+                                     f"were not the visits launched: {counts_mg}")
             out["mg"] = {
                 "seconds": seconds, "launches": {k: v for k, v in counts_mg.items() if v},
                 "iterations": len(rows) - 1,
@@ -4208,6 +4223,7 @@ def phase_statistics(device, nx, C, warmup, steps):
         if not result.converged or rel > 1e-4 or (visits <= 0 if fused else sweeps <= 0):
             raise AssertionError(f"statistics ({key}): {out[key]}")
     emit(out)
+    return out
 
 
 # ------------------------------------------------------------------------ main
@@ -4571,7 +4587,7 @@ def reach2_pass_stamps(level, li, C, noise, route, label="biharmonic"):
 
 def smem_kernel_attributes(dim=2):
     """Registers, local (spill) bytes and static shared bytes per thread of
-    the smem kernels (2d: the 13- and 25-point kernels; 3d: the 7- and
+    the smem kernels (2d: the 5-, 9-, 13- and 25-point kernels; 3d: the 7- and
     27-point kernels; both kinds)."""
     import ctypes
 
@@ -4583,7 +4599,7 @@ def smem_kernel_attributes(dim=2):
              else lib.mgmc_smem_visit_kernel_attributes)
     out = {}
     for (kind, descend), km in itertools.product((("descend", 1), ("ascend", 0)),
-                                                 (7, 27) if dim == 3 else (13, 25)):
+                                                 (7, 27) if dim == 3 else (5, 9, 13, 25)):
         vals = (ctypes.c_int * 3)()
         err = query(descend, km, vals)
         if err:
@@ -6031,6 +6047,8 @@ SSOR_SPLIT_CLUSTER = 16
 #: normals are held against the host's reference (its recomputation on the
 #: host takes most of a check's time)
 SSOR_NOISE_CHECK = 8
+#: chain counts of the ``ssor_table`` route table (``--phases ssor_table``)
+SSOR_TABLE_CHAINS = (1, 4, 8, 16, 32, 64, 128, 256)
 
 
 def check_ssor_level(level, name, C, gen, route, cluster=None, own_route=True):
@@ -6117,13 +6135,14 @@ def check_ssor_level(level, name, C, gen, route, cluster=None, own_route=True):
             "descend_f_c_over_scale": compare_fc(f"descend f_c {tag}", split_fc, phase_fc),
             "ascend_x": compare(f"ascend x {tag}", split_a, phase_a)}
     torch.cuda.synchronize()
+    smem = smem_launch_of(level, C) if route == "smem" else {}
+    barriers = mv.smem_module(level).barrier_count if route == "smem" else mv.phase_barrier_count
     return {"level": name, "vshape": list(vshape), "offsets": len(level.op.offsets),
             "colours": level.coloring.n_colors, "stencil_form": level.stencil_form,
-            "chains": C, "route": route,
-            "cluster": level.split_cluster(C) if route == "smem" else cluster,
-            "threads": level.phase_threads(C) if route == "phase" else None,
-            "barriers_from_source": {k: mv.phase_barrier_count(level, k)
-                                     for k in ("descend", "ascend")}, **errs}
+            "chains": C, "route": route, "cluster": smem.get("cluster", cluster),
+            "threads": level.phase_threads(C) if route == "phase" else smem.get("threads"),
+            "barriers_from_source": {k: barriers(level, k) for k in ("descend", "ascend")},
+            **errs}
 
 
 def ssor_stamps(level, C, noise):
@@ -6156,22 +6175,144 @@ def ssor_stamps(level, C, noise):
     return out
 
 
+def ssor_route_kernel(level, route, kind):
+    """The profiler's name of the kernel a launch of ``kind`` through ``route``
+    runs on a 2d reach-1 level of one or two sweeps."""
+    if route in ("smem", "phase"):
+        return reach2_kernel(level, route, kind)
+    return PROFILER_NAMES[VISIT_KERNELS[route][0 if kind == "descend" else 1]]
+
+
+def ssor_levels(device):
+    """The fused levels 0 (255^2 5-point) and 1 (127^2 3x3 box) of the
+    flagship posterior's SSOR sampler (two sweeps a visit, the default
+    distillation) and of its SOR sampler."""
+    from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
+
+    op, _ = build_posterior(256, 8, FLAGSHIP_SEED, "near_exact", device)
+    sampler = MultigridMCSampler(op, 5, smoother="SSOR", coarse_solver="Cholesky", omega=1.0,
+                                 cycle=2)
+    sor = MultigridMCSampler(op, 5, cycle=2, distill=False)
+    return {"L0": sampler.fused_levels[0], "L1": sampler.fused_levels[1],
+            "L0 one sweep": sor.fused_levels[0], "L1 one sweep": sor.fused_levels[1]}
+
+
+def time_ssor_routes(levels, noise, chains=SSOR_TABLE_CHAINS):
+    """The ``ssor_table``: device ms per launch (torch.profiler, the median of
+    three interleaved windows), descend plus ascend, of every route that takes
+    a 2d reach-1 level, at each count of ``chains`` on each of ``levels``
+    (``{name: level}``: the flagship's 255^2 5-point and 127^2 3x3-box levels
+    with two sweeps a visit and with one): the phase kernels at their rule's
+    block size, the split kernels at the rule's cluster size at every count
+    (``split_cluster(capped=False)``), the smem kernels at the rule's cluster
+    size, placement and block size, and for one sweep the stream kernels where
+    their rings fit; beside the route the rule takes.  Returns the rows and
+    the faults: a two-sweep count where the rule's route takes more than
+    :data:`SMEM_ROUTE_SLACK` times the fastest (one sweep keeps its routes:
+    its rows are readings)."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+
+    rows, faults = [], []
+    limit = mv.dynamic_smem_limit()
+    for name, level in levels.items():
+        dev = level.coeffs.device
+        for C in chains:
+            f = torch.rand(level.op.vshape, device=dev)
+            x = torch.zeros((C,) + level.op.vshape, device=dev)
+            xc = torch.randn((C,) + level.vc, device=dev)
+            S_split = mv.split_cluster(C, level.op.vshape, dev, capped=False)
+            routes = ["phase", "smem"] + (["split"] if S_split is not None else [])
+            if level.ndir == 1 and level.stream_bytes + mv.STREAM_STATIC_SMEM <= limit:
+                routes.append("stream")
+            cands = {}
+            for route in routes:
+                fns = visit_fns(level, route, noise, f, x, xc,
+                                cluster=S_split if route == "split" else None)
+                for kind, fn in zip(("descend", "ascend"), fns):
+                    cands[(route, kind)] = (fn, ssor_route_kernel(level, route, kind))
+            ms = device_ms_medians(cands, 10, 3)
+            row = {"level": name, "vshape": list(level.op.vshape), "sweeps": level.ndir,
+                   "stencil_form": level.stencil_form, "chains": C, "rule": level.route(C),
+                   "split_cluster": S_split, "phase_threads": level.phase_threads(C),
+                   **{f"smem_{k}": v for k, v in smem_launch_of(level, C).items()}}
+            for route in routes:
+                for kind in ("descend", "ascend"):
+                    row[f"{route}_{kind}_ms"] = ms[(route, kind)]
+                row[f"{route}_ms"] = ms[(route, "descend")] + ms[(route, "ascend")]
+            best = min(routes, key=lambda r: row[f"{r}_ms"])
+            row["fastest"] = best
+            row["smem_over_rule"] = row["smem_ms"] / row[f"{row['rule']}_ms"]
+            if level.ndir == 2 and row[f"{row['rule']}_ms"] > SMEM_ROUTE_SLACK * row[f"{best}_ms"]:
+                faults.append(f"{name} C={C}: the rule takes {row['rule']} "
+                              f"({row[row['rule'] + '_ms']} ms), {best} takes {row[best + '_ms']}")
+            rows.append(row)
+            del x, xc
+    return rows, faults
+
+
+def phase_ssor_check(device, smi, table):
+    """The 2d two-sweep visits alone on the flagship's levels 0 (255^2
+    5-point) and 1 (127^2 3x3 box): the smem kernels' registers and spills,
+    both levels by pass from their stamps build and against the plain
+    versions and the phase kernels at 256 chains and one chain; with
+    ``table`` the route table (:func:`time_ssor_routes`, two sweeps and one)
+    and the smem kernels' block-size and placement table
+    (:func:`time_smem_variants`, two sweeps).  No result line; fails where a
+    two-sweep route of the rule takes more than :data:`SMEM_ROUTE_SLACK` times
+    the fastest."""
+    from multigridmc_tpu_torch.samplers.base import GeneratorNoise
+
+    out = {"phase": "ssor_check", "card": smi}
+    try:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(19)
+        noise = GeneratorNoise(FLAGSHIP_SEED + 19, device)
+        levels = ssor_levels(device)
+        two = {"L0": levels["L0"], "L1": levels["L1"]}
+        out["smem_kernel_attributes"] = smem_kernel_attributes()
+        out["routes"] = {name: {c: lv.route(c) for c in SSOR_TABLE_CHAINS}
+                         for name, lv in two.items()}
+        out["smem_checks"] = [check_ssor_level(lv, f"flagship {name}", c, gen, "smem",
+                                               own_route=False)
+                              for name, lv in two.items() for c in (SSOR_CHAINS[0], 1)]
+        out["smem_pass_stamps"] = [reach2_pass_stamps(lv, int(name[1]), c, noise, "smem",
+                                                      label="ssor")
+                                   for name, lv in two.items() for c in (SSOR_CHAINS[0], 1)]
+        emit(dict(out, partial=True))
+        if table:
+            out["ssor_table"], faults = time_ssor_routes(levels, noise)
+            out["ssor_table_faults"] = faults
+            emit(dict(out, partial=True))
+            out["smem_table"] = time_smem_variants(two, noise)
+            if faults:
+                raise AssertionError("ssor_table: the rule's route is more than "
+                                     f"{SMEM_ROUTE_SLACK} times the fastest: " + "; ".join(faults))
+    except BaseException:
+        out["failed"] = True
+        raise
+    finally:
+        emit(out)
+
+
 def phase_ssor(device, smi):
     """Two sweeps per visit (SSOR) on the visit kernels, through
     ``MultigridMCSampler.apply`` in float32:
 
     * path 1, the flagship posterior with ``smoother="SSOR"`` (255^2, 8
       near-exact measurements, 5 levels, W-cycle, omega 1, the default
-      distillation) at 256 chains (level 0 on the phase kernels) and at one
-      chain (the split kernels), ms per step, kernel ms, launches by name,
-      routes;
+      distillation) at 256 chains (levels 0 and 1 on the smem kernels where
+      ``mgmc_visit_smem.SMEM_CHAINS`` lists them) and at one chain (the route
+      the rule takes: split or smem), ms per step, kernel ms, launches by
+      name, routes;
     * path 3, the biharmonic posterior (255^2 13-point, 256 chains) and the
       64^3 posterior (63^3 7-point, 32 chains) with SSOR levels, a few steps;
     * each level-0 form against its plain version (:func:`check_ssor_level`:
-      phase at 256 chains in 2d, reach 2 and 3d at their chains, split at one
-      chain with clusters of 16, split against phase under one Philox stream),
-      their device ms, plain ms and bounds, the 2d launch by pass from the
-      stamps build (barriers against the source's count);
+      the smem kernels on the flagship's levels 0 and 1 at 256 chains and one
+      chain, the phase kernels at 256 chains, the split kernels at one chain
+      with clusters of 16, reach 2 and 3d at their chains; smem and split
+      against phase under one Philox stream), their device ms, plain ms and
+      bounds (smem and phase side by side on both levels), the launches by pass
+      from the stamps builds (barriers against the source's count);
     * the descend's ``f_c`` on every fused level of the flagship, SOR and SSOR,
       against a float64 visit (:func:`near_exact_fc`);
     * ``drivers.mg``'s SSOR config runs in the ``drivers`` phase, the JAX
@@ -6189,6 +6330,7 @@ def phase_ssor(device, smi):
 
 def _ssor_parts(out, device):
     """The parts of :func:`phase_ssor`, each filling its key of ``out``."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
     from multigridmc_tpu_torch.samplers.base import GeneratorNoise
     from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
 
@@ -6209,19 +6351,34 @@ def _ssor_parts(out, device):
                                      levels_are=lambda lv: lv.ndir == 2)
         out["main_path"][f"flagship_{C}"] = res
     big, one = (out["main_path"][f"flagship_{C}"] for C in SSOR_CHAINS)
-    if (big["route_by_level"].get(0) != "phase" or one["route_by_level"].get(0) != "split"
-            or big["distill_level"] is None or 0 not in big["visited_levels"]):
+    level, level1 = sampler.fused_levels[0], sampler.fused_levels[1]
+    if (big["route_by_level"].get(0) != "smem" or one["route_by_level"].get(0) not in (
+            "split", "smem") or big["distill_level"] is None or 0 not in big["visited_levels"]):
         raise AssertionError(f"ssor: the flagship's paths {big}, {one}")
     parts["main_path"] = time.perf_counter() - t0
-    level = sampler.fused_levels[0]
-    out["checks"] = [check_ssor_level(level, "flagship L0", SSOR_CHAINS[0], gen, "phase"),
-                     check_ssor_level(level, "flagship L0", 1, gen, "split",
-                                      cluster=SSOR_SPLIT_CLUSTER),
-                     check_ssor_level(sampler.fused_levels[1], "flagship L1", 1, gen, "split",
-                                      cluster=sampler.fused_levels[1].split_cluster(1))]
-    out["stamps"] = ssor_stamps(level, SSOR_CHAINS[0], noise)
-    out["timings"] = {"phase": timed_visits(level, SSOR_CHAINS[0], False, noise, ("phase",)),
-                      "split": timed_visits(level, 1, False, noise, ("split",))}
+    C = SSOR_CHAINS[0]
+    out["checks"] = [
+        check_ssor_level(level, "flagship L0", C, gen, "smem"),
+        check_ssor_level(level, "flagship L0", 1, gen, "smem", own_route=level.route(1) == "smem"),
+        check_ssor_level(level1, "flagship L1", C, gen, "smem",
+                         own_route=level1.route(C) == "smem"),
+        check_ssor_level(level1, "flagship L1", 1, gen, "smem",
+                         own_route=level1.route(1) == "smem"),
+        check_ssor_level(level, "flagship L0", C, gen, "phase", own_route=False),
+        check_ssor_level(level, "flagship L0", 1, gen, "split", cluster=SSOR_SPLIT_CLUSTER,
+                         own_route=level.route(1) == "split"),
+        check_ssor_level(level1, "flagship L1", 1, gen, "split",
+                         cluster=mv.split_cluster(1, level1.op.vshape),
+                         own_route=level1.route(1) == "split")]
+    out["stamps"] = ssor_stamps(level, C, noise)
+    out["smem_stamps"] = [reach2_pass_stamps(lv, li, C, noise, "smem", label="ssor")
+                          for li, lv in ((0, level), (1, level1))]
+    out["timings"] = {"phase": timed_visits(level, C, False, noise, ("phase",)),
+                      "split": timed_visits(level, 1, False, noise, ("split",)),
+                      "smem": time_phase_only_level(level, C, noise, "smem"),
+                      "smem_one_chain": time_phase_only_level(level, 1, noise, "smem"),
+                      "smem_L1": time_phase_only_level(level1, C, noise, "smem"),
+                      "phase_L1": time_phase_only_level(level1, C, noise, "phase")}
     parts["flagship_checks"] = time.perf_counter() - t0 - sum(parts.values())
     # the descend's f_c on every fused level of the flagship, SSOR and SOR
     sor = MultigridMCSampler(op, 5, cycle=2, distill=False)
@@ -6230,7 +6387,7 @@ def _ssor_parts(out, device):
          for li, lv in sorted(sampler.fused_levels.items())]
         + [near_exact_fc(lv, f"SOR L{li}", SSOR_CHAINS[0], gen)
            for li, lv in sorted(sor.fused_levels.items())])
-    del sampler, sor, level
+    del sampler, sor, level, level1
     parts["near_exact_f_c"] = time.perf_counter() - t0 - sum(parts.values())
     # path 3: the reach-2 and the 3d posteriors with SSOR levels
     bih, _ = build_posterior(256, 8, BIHARMONIC_SEED, "near_exact", device, **BIHARMONIC)
@@ -6276,7 +6433,9 @@ def main(argv=None) -> int:
                              "visits' stamps and checks alone, 'smem_table' with the smem "
                              "kernels' block-size and placement table, 'volume_check' the 3d "
                              "visits' stamps and checks alone, 'volume_table' with the 3d "
-                             "smem kernels' route and placement table); "
+                             "smem kernels' route and placement table, 'ssor_check' the 2d "
+                             "two-sweep smem visits' stamps and checks alone, 'ssor_table' "
+                             "with their route and placement table); "
                              "the ok line needs exactly the default nine")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -6317,6 +6476,8 @@ def main(argv=None) -> int:
         phase_reach2(device, nlevel, C, smi, "smem_table" in phases)
     if phases & {"volume_check", "volume_table"}:  # the 3d visits alone (no result line)
         phase_volume_check(device, smi, "volume_table" in phases)
+    if phases & {"ssor_check", "ssor_table"}:  # the 2d two-sweep visits alone (no result line)
+        phase_ssor_check(device, smi, "ssor_table" in phases)
     if "sweep_check" in phases:  # the one-block sweeps against their plain versions alone
         gen = torch.Generator(device=device)
         gen.manual_seed(11)
@@ -6362,7 +6523,7 @@ def main(argv=None) -> int:
                                          smi=smi)
         lap("drivers")
     if "statistics" in phases:
-        phase_statistics(device, 64, C, warmup=50, steps=300)
+        statistics = phase_statistics(device, 64, C, warmup=50, steps=300)
         lap("statistics")
     if "biharmonic" in phases:
         biharmonic = phase_biharmonic(device, nlevel, C, n_meas, smi)
@@ -6705,22 +6866,86 @@ def main(argv=None) -> int:
                            "major, a row (z, y), the colour rows as (z, y) residue pairs, the "
                            "stencil in registers with z edge bits, 3d measurement boxes, the "
                            "3d transfers as passes; one block per chain, 512 threads at most")})
-    # the two-sweep (SSOR) forms, phase ssor: the phase kernels on the
-    # flagship's 255^2 level at 256 chains and the split kernels at one chain
-    # (clusters of 16), launched by its SSOR flagship paths (the split ones by
-    # drivers.mg's SSOR solve too); the reach-2 and 3d builds on their
-    # posteriors' level 0, launched by their SSOR samplers' steps
+    # the two-sweep (SSOR) forms, phase ssor: the smem kernels on the
+    # flagship's 255^2 level at 256 chains (127^2 and one chain beside),
+    # launched by its SSOR flagship paths, the phase kernels' device ms beside;
+    # the phase kernels on the flagship's 255^2 level at 256 chains, launched
+    # by the 64x64 gate's SSOR levels (statistics kernels_ssor) and by any SSOR
+    # flagship level the smem kernels do not take; the split kernels at one
+    # chain (clusters of 16), launched by the one-chain SSOR flagship path and
+    # drivers.mg's SSOR solve where the rule gives them the level; the reach-2
+    # and 3d builds on their posteriors' level 0, launched by their SSOR
+    # samplers' steps
+    smem_t, smem_one, smem_l1, phase_l1 = (ssor["timings"][k] for k in (
+        "smem", "smem_one_chain", "smem_L1", "phase_L1"))
+    smem_chks = [c for c in ssor["checks"] if c["route"] == "smem"]
+    for kind, line in (("descend", 700), ("ascend", 847)):
+        name = mv.KERNEL_NAMES[(mv.SMEM_ROUTE, kind)] + mv.SSOR_SUFFIX
+        launches = sum(ssor["main_path"][v]["launches"].get(name, 0)
+                       for v in ssor["main_path"] if v.startswith("flagship"))
+        stamps = {r["level"]: r[kind] for r in ssor["smem_stamps"]}
+        err = max(max(c["x"], c["f_c_over_scale"]) if kind == "descend" else c["ascend_x"]
+                  for c in smem_chks)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "multigridmc_tpu_torch/csrc/mgmc_visit_smem.cu",
+            "replaces": f"multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py:{line}",
+            "launches": launches + driver_counts.get(name, 0),
+            "path": "ssor main_path flagship_256" + (
+                " and flagship_1" if "smem" in ssor["main_path"]["flagship_1"][
+                    "route_by_level"].values() else ""),
+            "max_abs_err": err,
+            "against_phase_one_philox_stream": [c["smem_against_phase"] for c in smem_chks],
+            "ms": smem_t[f"{kind}_ms"], "device_ms": smem_t[f"{kind}_device_ms"],
+            "events_over_device": smem_t[f"{kind}_events_over_device"],
+            "plain_ms": smem_t[f"{kind}_plain_ms"],
+            "bound_ms": smem_t[f"{kind}_bound_ms"], "bound_by": smem_t[f"{kind}_bound_by"],
+            "bound_bytes": smem_t[f"{kind}_bytes"], "library_ms": None,
+            "phase_device_ms": ssor["timings"]["phase"][f"{kind}_visit_device_ms"],
+            "shape": {"chains": smem_t["chains"], "vshape": smem_t["vshape"],
+                      "cluster": smem_t["cluster"], "c_shared": smem_t["c_shared"],
+                      "threads": smem_t["threads"]},
+            "stencil_form": smem_t["stencil_form"],
+            "per_pass_us": stamps[0]["passes"], "registers": stamps[0]["registers"],
+            "local_bytes": stamps[0]["local_bytes"],
+            "barriers_per_launch": stamps[0]["barriers_per_block"][0],
+            "at_level_1": {"vshape": smem_l1["vshape"], "chains": smem_l1["chains"],
+                           "cluster": smem_l1["cluster"], "threads": smem_l1["threads"],
+                           "device_ms": smem_l1[f"{kind}_device_ms"],
+                           "phase_device_ms": phase_l1[f"{kind}_device_ms"],
+                           "plain_ms": smem_l1[f"{kind}_plain_ms"],
+                           "bound_ms": smem_l1[f"{kind}_bound_ms"],
+                           "bound_by": smem_l1[f"{kind}_bound_by"],
+                           "per_pass_us": stamps[1]["passes"]},
+            "one_chain": {"cluster": smem_one["cluster"], "ms": smem_one[f"{kind}_ms"],
+                          "device_ms": smem_one[f"{kind}_device_ms"],
+                          "split_device_ms": ssor["timings"]["split"][
+                              f"{kind}_visit_split_device_ms"],
+                          "bound_ms": smem_one[f"{kind}_bound_ms"]},
+            "design": "each chain's field in shared memory through both sweeps, in bands over "
+                      "a cluster (rows beyond a cut read from the neighbour's shared memory), "
+                      "copied in once by cp.async and written back once; each colour's points "
+                      "over all threads from host tables, interior points with their "
+                      "coefficients as scalars; B^T x per band, summed in rank order, both "
+                      "Woodbury patches, the residual and the restriction on the bands"})
     for route, source in (("phase", "mgmc_visit.cu"), ("split", "mgmc_visit_split.cu")):
         t = ssor["timings"][route]
         chks = [c for c in ssor["checks"] if c["route"] == route]
         variant = f"flagship_{SSOR_CHAINS[0] if route == 'phase' else 1}"
         for base, kind, line in zip(VISIT_KERNELS[route], ("descend", "ascend"), (700, 847)):
             name = base + mv.SSOR_SUFFIX
-            launches = ssor["main_path"][variant]["launches"].get(name, 0)
-            path = f"ssor main_path {variant}"
-            if route == "split":
-                launches += driver_counts.get(name, 0)
-                path += " and drivers.mg (SSOR)"
+            # the SSOR flagship path (and drivers.mg's one right-hand side) where
+            # the rule gives these kernels a level there, the 64x64 gate's SSOR
+            # levels (63^2, 31^2: not in SMEM_CHAINS) at its chain counts
+            on_path = ssor["main_path"][variant]["launches"].get(name, 0) + (
+                driver_counts.get(name, 0) if route == "split" else 0)
+            gate_name = "kernels_ssor" if route == "phase" else "kernels_ssor_split_one_chain"
+            gate = statistics[gate_name]["launches"].get(name, 0)
+            launches = on_path + gate
+            path = " and ".join(part for part, n in (
+                (f"ssor main_path {variant}" + (" and drivers.mg (SSOR)" if route == "split"
+                                                else ""), on_path),
+                (f"statistics {gate_name} (64x64)", gate)) if n) or None
             err = max(max(c["x"], c["f_c_over_scale"]) if kind == "descend" else c["ascend_x"]
                       for c in chks)
             kernels.append({

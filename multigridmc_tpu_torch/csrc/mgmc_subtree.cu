@@ -456,12 +456,24 @@ extern "C" int mgmc_subtree_attributes(int which, int* regs, int* local_bytes) {
     return 0;
 }
 
+// the static shared memory the host keeps for the kernels at most
+// (mgmc_subtree.py::STATIC_SMEM_RESERVE; mgmc_subtree_static_smem reports
+// what they declare)
+#define SUBTREE_STATIC_BOUND 4096
+
+// Whether a launch with `smem_bytes` of dynamic shared memory must opt in to
+// it: where the dynamic and the static share together exceed the 48 KiB a
+// block gets without asking.
+static bool needs_opt_in(int smem_bytes) {
+    return smem_bytes > 0 && smem_bytes + SUBTREE_STATIC_BOUND > 48 * 1024;
+}
+
 // blocks of `threads` with `smem_bytes` of dynamic shared memory that one SM
 // holds at once in the production build, or -1
 extern "C" int mgmc_subtree_blocks_per_sm(int threads, int smem_bytes) {
     SubtreeKernelFn fn = instance(false, threads);
     if (fn == nullptr) return -1;
-    if (smem_bytes > 48 * 1024 &&
+    if (needs_opt_in(smem_bytes) &&
         cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes) !=
             cudaSuccess) {
         cudaGetLastError();
@@ -484,7 +496,7 @@ extern "C" int mgmc_subtree_sample(const SubtreeParams* S, const void* tables, c
                                    int smem_bytes, void* stream) {
     SubtreeKernelFn fn = instance(S->stamps != nullptr, threads);
     if (fn == nullptr) return (int)cudaErrorInvalidConfiguration;
-    if (smem_bytes > 48 * 1024) {  // above what needs no opt-in
+    if (needs_opt_in(smem_bytes)) {
         cudaError_t e =
             cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
         if (e != cudaSuccess) {

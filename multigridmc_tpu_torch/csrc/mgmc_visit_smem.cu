@@ -1,17 +1,20 @@
-// Fused MGMC level-visit kernels for the reach-2 levels, NVIDIA Hopper
-// (sm_90a), float32, 2d: each chain's field in shared memory, in one block
-// where it fits and split in bands over a thread-block cluster where it does
-// not (the "smem" route).
+// Fused MGMC level-visit kernels for 2d levels, NVIDIA Hopper (sm_90a),
+// float32: each chain's field in shared memory, in one block where it fits
+// and split in bands over a thread-block cluster where it does not (the
+// "smem" route).
 //
 // Replace, for the squared shifted-Laplace prior's 13-point levels and the 5x5
-// box of its Galerkin levels, the Pallas kernels descend_visit and
-// ascend_visit of multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py, and
-// compute what level_descend / level_ascend of level_passes.cuh compute (the
-// phase kernels' reach-2 build, mgmc_visit.cu -DVISIT_REACH=2), from the same
-// parameter block (VisitParams of 25 offsets and 9 colours, one per sweep
-// direction) and the same noise modes (0 off, 1 in-kernel Philox, 2 xi read
-// from memory), with one directed sweep (SOR) or two, forward then backward
-// (SSOR):
+// box of its Galerkin levels, and for the reach-1 levels of two sweeps a visit
+// (SSOR: the FD prior's 5-point level, the 3x3 box of its Galerkin levels),
+// the Pallas kernels descend_visit and ascend_visit of
+// multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py, and compute what
+// level_descend / level_ascend of level_passes.cuh compute (the phase
+// kernels' reach-2 build, mgmc_visit.cu -DVISIT_REACH=2, and their reach-1
+// build), from the same parameter block (VisitParams of 25 offsets and 9
+// colours, one per sweep direction; the host widens a reach-1 level's block
+// of 9 offsets and 8 colours to it) and the same noise modes (0 off, 1
+// in-kernel Philox, 2 xi read from memory), with one directed sweep (SOR) or
+// two, forward then backward (SSOR):
 //
 //   descend:  c   = f + sqrt(D(2-w)/w) xi_d                       (Gibbs rhs)
 //             x  <- colour-ordered SOR sweep(c, x)
@@ -24,13 +27,19 @@
 // device memory: one point per lane with 25 operands and coefficients in
 // registers (the forms spill), every term tested against the field's edge
 // two deep, every colour pass and the residual reading x again from L1/L2,
-// and at 9 colours a warp per row leaves 18 of 32 lanes idle.  Here:
+// and at 9 colours a warp per row leaves 18 of 32 lanes idle.  At reach 1 a
+// two-sweep visit of 256 chains of 255^2 holds 67 MB of x alone, more than
+// the 50 MB L2, so each of its four colour passes and the residual read x
+// back from HBM (they took 62% of the phase descend); the stream kernels
+// cannot take two sweeps, because the Woodbury patch between them needs the
+// whole chain's B^T x.  Here:
 //
 // * Residency.  A cluster of S blocks holds one chain (S = 1 where the chain
 //   fits one block: the 127^2 level).  Block k holds its band of rows
 //   (band_of, as the split kernels cut them) in dynamic shared memory with
-//   two zero columns a side and two rows a side, zero on the field's top and
-//   bottom edge; x is copied in once with cp.async (4 bytes a thread: rows of
+//   two zero columns a side and two rows a side (a reach-1 stencil reads one
+//   of them), zero on the field's top and bottom edge; x is copied in once
+//   with cp.async (4 bytes a thread: rows of
 //   255 or 127 floats start only 4-byte aligned, below the 16-byte alignment
 //   a TMA tensor map asks of its row stride, so no TMA) and written back once,
 //   coalesced.  The rhs c (and the descend's residual r) sits beside it in
@@ -46,9 +55,10 @@
 //   are the scalars cval, their neighbours at the padded offsets soff), then
 //   the edge points (the coefficient planes that vary read from device
 //   memory, a row beyond a cut from the neighbour), each part dealt round the
-//   32 banks.  9 colours keep every lane busy.  The terms are added in offset
-//   order, as stencil_at adds them; a neighbour in the zero halo adds +-0, so
-//   the two routes agree to float32 rounding.
+//   32 banks.  Every lane is busy at any number of colours (9 at reach 2, 2
+//   or 4 at reach 1).  The terms are added in offset order, as stencil_at
+//   adds them; a neighbour in the zero halo adds +-0, so the two routes agree
+//   to float32 rounding.
 // * Low-rank and coarse terms.  The rhs takes the Philox numbering of
 //   rhs_pass (group i ceil(W / 4) + g, chain, launch counter; direction d the
 //   counter + d), so all routes agree under one stream.  B^T x is summed per
@@ -62,15 +72,19 @@
 //   bands.
 //
 // Barriers (smem_sync; the stamps build counts and stamps each): an ascend's
-// copy-in (a descend's lands during its first rhs, behind that barrier), per
-// direction the rhs, each colour and (m > 0) the bands' shares of B^T x, then a
-// descend 3 (the corrected x, the residual, the end) and an ascend 1 (the
-// corrected x): mgmc_visit_smem.py::barrier_count.  Between blocks of a cluster
-// each is a cluster barrier (the copy-in's is the block's).
+// copy-in (after its first rhs, which is drawn while the copy lands: the
+// prolongation that follows reads x; a descend's copy lands behind its first
+// rhs barrier), per direction the rhs, each colour and (m > 0) the bands'
+// shares of B^T x, then a descend 3 (the corrected x, the residual, the end)
+// and an ascend 1 (the corrected x): mgmc_visit_smem.py::barrier_count.
+// Between blocks of a cluster each is a cluster barrier (the copy-in's is the
+// block's).
 //
 // Bound: by bytes, per chain x read and written, f (unless shared), f_c
-// written or x_c read: 0.045 ms at 256 chains of 255^2 on an H100; the planes,
-// B, Y and the tables stay in the L2 for all chains.
+// written or x_c read: 0.045 ms at 256 chains of 255^2 on an H100 (a 13-point
+// visit of one sweep); by operations at reach 1 with two sweeps, the Philox
+// normals of both sweeps (0.052 ms a descend at 256 chains of 255^2); the
+// planes, B, Y and the tables stay in the L2 for all chains.
 //
 // SMEM_VISIT_STAMPS_BUILD: the measurement build, a library of its own, taken
 // only where the host passes a stamps tensor, (C S, SMEM_STAMP_WIDTH) int64,
@@ -201,9 +215,77 @@ __device__ __forceinline__ float lowrank_term(const VisitParams& P, const float*
     return r;
 }
 
+// One point group of the rhs (rhs_pass): group g of band row lr, its four
+// points' f, noise scale and (noise mode 2) xi loaded first, so that they are
+// in flight during the draw; then the ascend's first direction adds gamma P
+// x_c to x (shared memory) and c = f + ns xi goes to the band's place of c.
+// One point group of the rhs (rhs_pass): its four points' f, noise scale and
+// (noise mode 2) xi are loaded first, so that they are in flight during the
+// draw; then c = f + ns xi goes to c's place (c[q] for point q of the group).
+struct RhsGroup {
+    float fv[4], sv[4], z[4];
+
+    __device__ __forceinline__ void load(const VisitParams& P, int p0, int j0,
+                                         const float* __restrict__ f,
+                                         const float* __restrict__ ns, const float* xi) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const bool live = j0 + q < P.W;
+            fv[q] = live ? f[p0 + q] : 0.0f;
+            sv[q] = live && !P.ns_const ? ns[p0 + q] : P.ns_val;
+            z[q] = live && P.noise_mode == 2 ? xi[p0 + q] : 0.0f;
+        }
+    }
+
+    __device__ __forceinline__ void store(const VisitParams& P, int g, float* c) const {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+            if (4 * g + q < P.W) c[q] = fv[q] + sv[q] * z[q];
+    }
+};
+
+// x += gamma (P x_c) on point group g of row i (xrow: the row's first point in
+// shared memory).  (P x_c)[i, j]: an odd fine index 2I+1 takes coarse I with
+// weight 1, an even one its two coarse neighbours with 0.5 each; the group
+// reads coarse rows Ia, Ia + 1 (odd i: Ia) and columns 2g - 1 + t, t = 0, 1,
+// 2, once (rhs_pass: a value outside the coarse field is 0 and adds +0).
+__device__ __forceinline__ void prolongate_group(const VisitParams& P, int i, int g, float* xrow,
+                                                 const float* __restrict__ xc) {
+    const int nI = (i & 1) ? 1 : 2, Ia = (i >> 1) - (nI - 1);
+    const float wi = (i & 1) ? 1.0f : 0.5f;
+    float cv[2][3];
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int t3 = 0; t3 < 3; ++t3) {
+            const int I = Ia + a, J = 2 * g - 1 + t3;
+            cv[a][t3] = (a < nI && I >= 0 && I < P.Hc && J >= 0 && J < P.Wc)
+                            ? xc[I * P.Wc + J] : 0.0f;
+        }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        const int j = 4 * g + q;
+        if (j >= P.W) break;
+        // j = 4g + q: an even q reads columns t0, t0 + 1 (weight 0.5 each), an
+        // odd q column t0 (weight 1); t0 = 0, 1, 1, 2
+        const int t0 = (q + 1) >> 1;
+        const float wj = (q & 1) ? 1.0f : 0.5f;
+        float px = 0.0f;
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+            float row = 0.0f;
+            row += wj * cv[a][t0];
+            if (!(q & 1)) row += wj * cv[a][t0 + 1];
+            px += wi * row;
+        }
+        xrow[j] = xrow[j] + P.gamma * px;
+    }
+}
+
 // ------------------------------------------------------------------- kernel
-// KMAX: the stencil's size, 13 (forms 6 / 7) or 25 (the 5x5 box, 8 / 9); a
-// kernel each.  The sweep count (1 or 2) is read at run time.
+// KMAX: the stencil's size, 5 (reach-1 forms 0 / 1), 9 (the 3x3 box and any
+// other reach-1 stencil, forms 2-5), 13 (forms 6 / 7) or 25 (the 5x5 box, 8 /
+// 9); a kernel each.  The sweep count (1 or 2) is read at run time.
 template <int KMAX, bool DESCEND, bool STAMPS>
 __global__ void __launch_bounds__(SMEM_VISIT_MAX_THREADS)
 smem_visit_kernel(const __grid_constant__ SmemVisitParams SP, const int* __restrict__ tables,
@@ -257,76 +339,47 @@ smem_visit_kernel(const __grid_constant__ SmemVisitParams SP, const int* __restr
     }
     if (csh && !P.noise_mode)
         for (int t = tid; t < nb * W; t += nthreads) cp_async4(cs + t, f + first + t);
-    if (!DESCEND) {  // the prolongation reads x; a descend's rhs does not: its copy
-        cp_async_wait_all();  // lands while the rhs is drawn
-        smem_sync<STAMPS>(cluster, S, true);
-    }
 
     const int G4 = (W + 3) >> 2;
 #pragma unroll 1
     for (int d = 0; d < SP.ndir; ++d) {
         const VisitParams& Pd = SP.v[d];
-        // 2. the rhs (rhs_pass): ascend x += gamma P x_c (first direction), then
-        //    c = f + ns xi
-        const float* xc = (DESCEND || d > 0) ? nullptr : xc_all + (size_t)chain * P.Hc * P.Wc;
-        if (P.noise_mode || xc != nullptr) {
+        // 2. the rhs (rhs_pass): c = f + ns xi; the block's threads take the
+        //    band's point groups (group g of band row lr) the block's size
+        //    apart, stepped with a carry (no division in the loop)
+        const int dl = nthreads / G4, dg = nthreads - dl * G4;
+        if (P.noise_mode) {
             const float* xi = P.noise_mode == 2 ? xi_all + ((size_t)d * P.C + chain) * n : nullptr;
-            for (int t = tid; t < nb * G4; t += nthreads) {
-                const int lr = t / G4, g = t - lr * G4;
-                const int i = u0 + lr;
-                float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            for (int lr = tid / G4, g = tid % G4; lr < nb; lr += dl, g += dg) {
+                if (g >= G4) {
+                    g -= G4;
+                    if (++lr >= nb) break;
+                }
+                const int i = u0 + lr, p0 = i * W + 4 * g;
+                RhsGroup a;
+                a.load(P, p0, 4 * g, f, ns, xi);
                 if (P.noise_mode == 1)
                     philox_normals4((uint32_t)(i * G4 + g), (uint32_t)chain, Pd.seed, Pd.counter,
-                                    z);
-                // (P x_c)[i, j]: an odd fine index 2I+1 takes coarse I with weight
-                // 1, an even one its two coarse neighbours with 0.5 each; the
-                // group reads coarse rows Ia, Ia + 1 (odd i: Ia) and columns
-                // 2g - 1 + t, t = 0, 1, 2, once (rhs_pass: a value outside the
-                // coarse field is 0 and adds +0)
-                const int nI = (i & 1) ? 1 : 2, Ia = (i >> 1) - (nI - 1);
-                const float wi = (i & 1) ? 1.0f : 0.5f;
-                float cv[2][3];
-#pragma unroll
-                for (int a = 0; a < 2; ++a)
-#pragma unroll
-                    for (int t3 = 0; t3 < 3; ++t3) {
-                        const int I = Ia + a, J = 2 * g - 1 + t3;
-                        cv[a][t3] = (xc != nullptr && a < nI && I >= 0 && I < P.Hc && J >= 0 &&
-                                     J < P.Wc) ? xc[I * P.Wc + J] : 0.0f;
+                                    a.z);
+                a.store(P, g, csh ? cs + (p0 - first) : scr + p0);
+            }
+        }
+        if (d == 0) {
+            cp_async_wait_all();  // the band's copy, landed while the rhs was drawn
+            if (!DESCEND) {
+                // the ascend's x += gamma P x_c, which reads the copy: every
+                // thread's copy first
+                smem_sync<STAMPS>(cluster, S, true);
+                const float* xc = xc_all + (size_t)chain * P.Hc * P.Wc;
+                for (int lr = tid / G4, g = tid % G4; lr < nb; lr += dl, g += dg) {
+                    if (g >= G4) {
+                        g -= G4;
+                        if (++lr >= nb) break;
                     }
-#pragma unroll
-                for (int q = 0; q < 4; ++q) {
-                    const int j = 4 * g + q;
-                    if (j >= W) break;
-                    const int p = i * W + j;
-                    if (xc != nullptr) {
-                        // j = 4g + q: an even q reads columns t0, t0 + 1 (weight
-                        // 0.5 each), an odd q column t0 (weight 1); t0 = 0, 1, 1, 2
-                        const int t0 = (q + 1) >> 1;
-                        const float wj = (q & 1) ? 1.0f : 0.5f;
-                        float px = 0.0f;
-#pragma unroll
-                        for (int a = 0; a < 2; ++a) {
-                            float row = 0.0f;
-                            row += wj * cv[a][t0];
-                            if (!(q & 1)) row += wj * cv[a][t0 + 1];
-                            px += wi * row;
-                        }
-                        float* xq = xs + (lr + SMEM_HALO) * PX + j + SMEM_HALO;
-                        *xq = *xq + P.gamma * px;
-                    }
-                    if (P.noise_mode) {
-                        const float zq = (P.noise_mode == 2) ? xi[p] : z[q];
-                        const float c = f[p] + (P.ns_const ? P.ns_val : ns[p]) * zq;
-                        if (csh)
-                            cs[p - first] = c;
-                        else
-                            scr[p] = c;
-                    }
+                    prolongate_group(P, u0 + lr, g, xs + (lr + SMEM_HALO) * PX + SMEM_HALO, xc);
                 }
             }
         }
-        if (DESCEND && d == 0) cp_async_wait_all();
         // every band formed (and corrected by the previous direction) before
         // any block reads a neighbour's rows
         smem_sync<STAMPS>(cluster, S);
@@ -433,10 +486,21 @@ smem_visit_kernel(const __grid_constant__ SmemVisitParams SP, const int* __restr
                 for (int j = lo + lane; j < hi; j += 32) {
                     float* xq = xs + (lr + SMEM_HALO) * PX + j + SMEM_HALO;
                     float v = *xq;
-                    for (int k = 0; k < m; ++k)
-                        if (Pd.ybox[k][0] <= i && i < Pd.ybox[k][1] && Pd.ybox[k][2] <= j &&
-                            j < Pd.ybox[k][3])
-                            v += -1.0f * wv[k] * Yd[(size_t)k * n + i * W + j];
+                    // eight columns' values at once (a column whose box misses
+                    // the point adds -0 or +0), then their terms in order
+                    for (int k0 = 0; k0 < m; k0 += 8) {
+                        float y[8];
+#pragma unroll
+                        for (int u = 0; u < 8; ++u) {
+                            const int k = k0 + u;
+                            y[u] = (k < m && Pd.ybox[k][0] <= i && i < Pd.ybox[k][1] &&
+                                    Pd.ybox[k][2] <= j && j < Pd.ybox[k][3])
+                                       ? Yd[(size_t)k * n + i * W + j] : 0.0f;
+                        }
+#pragma unroll
+                        for (int u = 0; u < 8; ++u)
+                            if (k0 + u < m) v += -1.0f * wv[k0 + u] * y[u];
+                    }
                     *xq = v;
                 }
             }
@@ -540,20 +604,26 @@ smem_visit_kernel(const __grid_constant__ SmemVisitParams SP, const int* __restr
         for (int t = tid; t < (I1 - I0) * P.Wc; t += nthreads) {
             const int dI = t / P.Wc, J = t - dI * P.Wc, I = I0 + dI;
             float acc = 0.0f;
-            for (int a = -1; a <= 1; ++a) {
-                const int i = 2 * I + 1 + a;
-                if (i < 0 || i >= H) continue;
+            // the nine values first (row 2I + 2 lies outside the field only
+            // where H is even; a value outside adds +0), then the sums in order
+            float v[3][3];
+#pragma unroll
+            for (int a = 0; a < 3; ++a) {
+                const int i = 2 * I + a;
                 const float* rrow = !csh ? scr + i * W
                                     : i < u0 ? rlo + (i - lo0) * W
                                     : i >= u1 ? rhi + (i - u1) * W
                                               : cs + (i - u0) * W;
+#pragma unroll
+                for (int b = 0; b < 3; ++b)
+                    v[a][b] = (i < H && 2 * J + b < W) ? rrow[2 * J + b] : 0.0f;
+            }
+#pragma unroll
+            for (int a = 0; a < 3; ++a) {
                 float row = 0.0f;
-                for (int b = -1; b <= 1; ++b) {
-                    const int j = 2 * J + 1 + b;
-                    if (j < 0 || j >= W) continue;
-                    row += (b ? 0.5f : 1.0f) * rrow[j];
-                }
-                acc += (a ? 0.5f : 1.0f) * row;
+#pragma unroll
+                for (int b = 0; b < 3; ++b) row += (b == 1 ? 1.0f : 0.5f) * v[a][b];
+                acc += (a == 1 ? 1.0f : 0.5f) * row;
             }
             fc[I * P.Wc + J] = acc;
         }
@@ -566,6 +636,12 @@ smem_visit_kernel(const __grid_constant__ SmemVisitParams SP, const int* __restr
 // the kernel of (descend, kmax) in this library's build, or null
 static const void* smem_kernel(int descend, int kmax) {
     constexpr bool ST = SMEM_VISIT_STAMPS_BUILD;
+    if (kmax == 5)
+        return descend ? (const void*)smem_visit_kernel<5, true, ST>
+                       : (const void*)smem_visit_kernel<5, false, ST>;
+    if (kmax == 9)
+        return descend ? (const void*)smem_visit_kernel<9, true, ST>
+                       : (const void*)smem_visit_kernel<9, false, ST>;
     if (kmax == 13)
         return descend ? (const void*)smem_visit_kernel<13, true, ST>
                        : (const void*)smem_visit_kernel<13, false, ST>;
@@ -578,9 +654,18 @@ static const void* smem_kernel(int descend, int kmax) {
 // ------------------------------------------------------------ host helpers
 static int rows_of_widest(int H, int S) { return (H + S - 1) / S; }
 
+// the kernels' static shared memory at most (s_part, s_wv, the barrier count
+// and the stamps pointer; mgmc_visit_smem.py::STATIC_SMEM)
+#define SMEM_STATIC_BOUND (4 * (MAX_LOWRANK + 32 * MAX_LOWRANK) + 16)
+
+// Whether a launch with `bytes` of dynamic shared memory must opt in to it:
+// where the dynamic and the static share together exceed the 48 KiB a block
+// gets without asking.
+static bool needs_opt_in(int bytes) { return bytes > 0 && bytes + SMEM_STATIC_BOUND > 48 * 1024; }
+
 static cudaError_t configure(const void* fn, int bytes) {
     cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e == cudaSuccess && bytes > 48 * 1024)
+    if (e == cudaSuccess && needs_opt_in(bytes))
         e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     return e;
 }
@@ -627,7 +712,7 @@ extern "C" int mgmc_smem_visit_smem_bytes(int H, int W, int S, int PX, int c_sha
 // the largest static shared memory of the library's kernels (bytes), or -1
 extern "C" int mgmc_smem_visit_static_smem() {
     int most = 0;
-    const int sizes[2] = {13, 25};
+    const int sizes[4] = {5, 9, 13, 25};
     for (int kmax : sizes)
         for (int descend = 0; descend < 2; ++descend) {
             cudaFuncAttributes a;

@@ -332,8 +332,36 @@ extern "C" int sor_smem_kernel_attributes(int gibbs, int kmax, int* out) {
     return 0;
 }
 
+// the kernels' static shared memory at most (the stamps build's barrier count
+// and stamps pointer; sor_sweep.py::SMEM_STATIC_SMEM, sor_smem_static_smem
+// reports what they declare)
+#define SMEM_STATIC_BOUND 16
+
+// Whether a launch with `smem_bytes` of dynamic shared memory must opt in to
+// it: where the dynamic and the static share together exceed the 48 KiB a
+// block gets without asking.
+static bool needs_opt_in(int smem_bytes) {
+    return smem_bytes > 0 && smem_bytes + SMEM_STATIC_BOUND > 48 * 1024;
+}
+
+// the largest static shared memory of the library's kernels (bytes), or -1
+extern "C" int sor_smem_static_smem() {
+    int most = 0;
+    const int sizes[4] = {7, 13, 25, 27};
+    for (int gibbs = 0; gibbs < 2; ++gibbs)
+        for (int kmax : sizes) {
+            cudaFuncAttributes a;
+            if (cudaFuncGetAttributes(&a, smem_kernel(gibbs, kmax)) != cudaSuccess) {
+                cudaGetLastError();
+                return -1;
+            }
+            most = a.sharedSizeBytes > (size_t)most ? (int)a.sharedSizeBytes : most;
+        }
+    return most;
+}
+
 static cudaError_t allow_bytes(const void* fn, int smem_bytes) {
-    if (smem_bytes <= 48 * 1024) return cudaSuccess;
+    if (!needs_opt_in(smem_bytes)) return cudaSuccess;
     return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
 }
 

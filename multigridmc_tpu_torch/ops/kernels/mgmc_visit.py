@@ -100,10 +100,12 @@ Philox launch counters, one per direction (``NoiseSource.philox_streams(2)``),
 and its field noise as a tensor is ``(2, C, ...)``.
 
 Supported by the kernels: 2d, float32, one directed sweep per visit (SOR) or
-two, forward then backward (SSOR; the phase and the split kernels), any
-reach-1 stencil (up to 9 offsets, per-point coefficient planes, up to 8
-colours), ``0 <= m <= 32`` with dense ``B``, ``f`` shared or per chain, noise
-on or off, any ``coarse_scaling``.  Reach-2 stencils (the squared
+two, forward then backward (SSOR; the phase and the split kernels, and the
+smem kernels of :data:`SMEM_ROUTE` on the reach-1 levels of two sweeps that
+``mgmc_visit_smem.SMEM_CHAINS`` lists: each chain's field in shared memory
+through both sweeps), any reach-1 stencil (up to 9 offsets, per-point
+coefficient planes, up to 8 colours), ``0 <= m <= 32`` with dense ``B``, ``f``
+shared or per chain, noise on or off, any ``coarse_scaling``.  Reach-2 stencils (the squared
 shifted-Laplace prior's 13-point diamond, up to 13 offsets, and the 5x5 box of
 its Galerkin levels, up to 9 colours) take a route of their own,
 :data:`SMEM_ROUTE` (``csrc/mgmc_visit_smem.cu``, :mod:`.mgmc_visit_smem`: each
@@ -283,14 +285,17 @@ PHASE_STAMP_WIDTH = 1 + MAX_DIRS * (MAX_COLORS + 3) + 2 + 3
 #: the same in the reach-2 build and its stamps build
 WIDE_STAMP_WIDTH = 1 + MAX_DIRS * (WIDE_MAX_COLORS + 3) + 2 + 3
 
-#: the kernel counted by each launch, by route and kind
-KERNEL_NAMES = {(route, kind): f"{kind}_visit" + ("" if route == "phase" else f"_{route}")
-                for route in ROUTES for kind in ("descend", "ascend")}
-#: the route of the reach-2 levels' kernels with each chain's field in shared
-#: memory (``csrc/mgmc_visit_smem.cu``, :mod:`.mgmc_visit_smem`), beside the
-#: phase kernels' reach-2 build; the reach-1 routes of :data:`ROUTES` do not
-#: take a reach-2 level, nor this route a reach-1 one
+#: the route of the kernels with each chain's field in shared memory: 2d
+#: (``csrc/mgmc_visit_smem.cu``, :mod:`.mgmc_visit_smem`) for the reach-2
+#: levels, beside the phase kernels' reach-2 build, and for the reach-1 levels
+#: of two sweeps a visit (SSOR) that its table lists, beside the phase and
+#: split kernels; 3d (``csrc/mgmc_visit_smem3d.cu``, :mod:`.mgmc_visit_smem3d`).
+#: The reach-1 routes of :data:`ROUTES` do not take a reach-2 or 3d level
 SMEM_ROUTE = "smem"
+#: the kernel counted by each launch on a 2d reach-1 level, by route (of
+#: :data:`ROUTES` and :data:`SMEM_ROUTE`) and kind
+KERNEL_NAMES = {(route, kind): f"{kind}_visit" + ("" if route == "phase" else f"_{route}")
+                for route in ROUTES + (SMEM_ROUTE,) for kind in ("descend", "ascend")}
 #: the kernel counted by a launch on a reach-2 level, by kind, whether the
 #: stencil is the 5x5 box (forms 8, 9) or of at most 13 offsets, and route
 #: (the phase kernels' reach-2 build or :data:`SMEM_ROUTE`)
@@ -638,7 +643,9 @@ def visit_route(C: int, stream_bytes: int = 0, device=None,
     (forms 6-9) :data:`SMEM_ROUTE` where the level's shape ``vshape``, form and
     sweeps per visit ``ndir`` are listed in ``mgmc_visit_smem.SMEM_CHAINS``
     with ``C`` in their range (the level checks that a cluster fits:
-    :meth:`FusedVisitLevel.route`), else ``"phase"``; for a 3d form (10-15)
+    :meth:`FusedVisitLevel.route`), else ``"phase"``; for a reach-1 form
+    (0-5) of two sweeps (``ndir`` 2) :data:`SMEM_ROUTE` where the same table
+    lists it with ``C`` in range (one sweep: never), else as below; for a 3d form (10-15)
     :data:`SMEM_ROUTE` where ``mgmc_visit_smem3d.SMEM3D_ROUTES`` lists the
     shape, form and sweeps with ``C`` in a range
     (``mgmc_visit_smem3d.route_config``), else ``"phase"`` (the split and
@@ -659,14 +666,15 @@ def visit_route(C: int, stream_bytes: int = 0, device=None,
         if vshape is not None and route_config(vshape, form, ndir, C) is not None:
             return SMEM_ROUTE
         return "phase"
-    if form is not None and form >= WIDE_FORM0:
+    if form is not None and (form >= WIDE_FORM0 or ndir == 2):
         from .mgmc_visit_smem import SMEM_CHAINS
 
         span = None if vshape is None else SMEM_CHAINS.get(
             tuple(int(v) for v in vshape) + (int(form), int(ndir)))
         if span is not None and C >= span[0] and (span[1] is None or C <= span[1]):
             return SMEM_ROUTE
-        return "phase"
+        if form >= WIDE_FORM0:
+            return "phase"
     if smem_limit is None:
         smem_limit = dynamic_smem_limit(device)
     threshold = None if vshape is None or form is None else stream_min_chains(vshape, form)
@@ -968,12 +976,11 @@ def kernel_support_error(op: StencilOperator, n_colors: int) -> Optional[str]:
 def route_support_error(level: "FusedVisitLevel", route: str, ndir: int = 1) -> Optional[str]:
     """Why the kernels of ``route`` cannot take a visit of ``ndir`` sweeps on
     ``level``, or None: the split and stream kernels take 2d reach-1 stencils
-    only, the stream kernels one sweep; the smem kernels 2d reach-2 and 3d
-    stencils.  :func:`visit_route` never gives them such a visit; this holds a
-    route a caller names to it."""
-    if route == SMEM_ROUTE and level.reach != 2 and level.dim != 3:
-        return (f"the {route} kernels take 3d stencils and 2d reach-2 stencils only: a 2d "
-                "reach-1 level takes the phase, split or stream kernels")
+    only, the stream kernels one sweep; the smem kernels every level the
+    kernels take (:func:`visit_route` gives them the levels their tables
+    list: a 2d reach-1 level only with two sweeps, but a caller may name the
+    route for one).  :func:`visit_route` never gives a route a visit it
+    cannot take; this holds a route a caller names to it."""
     if route == "stream" and ndir > 1:
         return ("the stream kernels take one sweep per visit: a two-sweep (SSOR) level takes "
                 "the phase or the split kernels")
@@ -1167,8 +1174,8 @@ class FusedVisitLevel:
         return self._route(C)[0]
 
     def split_cluster(self, C: int) -> Optional[int]:
-        """The cluster size of this level's split (reach 1) or smem (reach 2,
-        3d) launches of ``C`` chains (:func:`split_cluster`,
+        """The cluster size of this level's split or smem launches of ``C``
+        chains (:func:`split_cluster`,
         ``mgmc_visit_smem.smem_cluster``, ``mgmc_visit_smem3d.smem_cluster``);
         ``None`` on another route."""
         return self._route(C)[1]

@@ -1,13 +1,16 @@
-"""The reach-2 level visits with each chain's field in shared memory: the
+"""The 2d level visits with each chain's field in shared memory: the
 ``"smem"`` route of :func:`~.mgmc_visit.visit_route`
 (``csrc/mgmc_visit_smem.cu``).
 
 Replace, for the squared shifted-Laplace prior's 13-point levels and the 5x5
-box of its Galerkin levels (stencil forms 6-9), ``descend_visit`` /
+box of its Galerkin levels (stencil forms 6-9), and for the reach-1 levels of
+two sweeps a visit (SSOR; forms 0-5: the FD prior's 5-point level, the 3x3 box
+of its Galerkin levels) that :data:`SMEM_CHAINS` lists, ``descend_visit`` /
 ``ascend_visit`` of ``multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py``, and
-compute what the phase kernels' reach-2 build computes (the same
-``WideVisitParams`` per sweep direction, the same noise modes, one or two
-sweeps).  A cluster of ``S`` blocks holds one chain: block ``k`` its band of
+compute what the phase kernels' reach-2 and reach-1 builds compute (the same
+parameter block per sweep direction - a reach-1 level's ``VisitParams``
+widened to the ``WideVisitParams`` the kernels take, :func:`widen` -, the
+same noise modes, one or two sweeps).  A cluster of ``S`` blocks holds one chain: block ``k`` its band of
 rows (:func:`~.mgmc_visit.split_bands`) with a zero halo two deep, the rows
 beyond a cut read from the neighbour's shared memory; ``S = 1`` where the
 chain fits one block.  The rhs ``c`` and the residual sit in shared memory
@@ -68,15 +71,24 @@ INDEX_LIMIT = 1 << 16
 
 #: Per level shape, stencil form and sweeps per visit ``(H, W, form, ndir)``
 #: the chain counts ``(least, most)`` (``most`` None: no upper bound) at which
-#: a visit takes these kernels; a level not listed takes the phase kernels.
-#: Set from the ``smem_routes`` table of ``chip_smoke.py`` (phase
-#: ``biharmonic``): device ms per descend plus ascend of both routes at 1, 16
-#: and 256 chains on the biharmonic posterior's 255^2 13-point and 127^2
-#: 25-point levels, one and two sweeps, NVIDIA H100 80GB HBM3, 700.00 W;
-#: ``PERF.md`` section 6 holds the table.
+#: a visit takes these kernels; a level not listed takes the phase kernels
+#: (reach 2) or the reach-1 routes (split, stream, phase; a reach-1 level of
+#: one sweep is never listed).  The reach-2 entries are set from the
+#: ``smem_routes`` table of ``chip_smoke.py`` (phase ``biharmonic``): device ms
+#: per descend plus ascend of both routes at 1, 16 and 256 chains on the
+#: biharmonic posterior's 255^2 13-point and 127^2 25-point levels, one and two
+#: sweeps.  The reach-1 entries, two sweeps, from its ``ssor_table``
+#: (``--phases ssor_table``): device ms per descend plus ascend of the phase,
+#: split and smem routes at 1, 4, 8, 16, 32, 64, 128 and 256 chains on the
+#: flagship's 255^2 5-point and 127^2 3x3-box levels; the smem kernels took
+#: the least at every count on both (255^2: 0.0661 against split 0.0746 at one
+#: chain, 0.7913 against phase 1.1002 at 256; 127^2: 0.0788 against 0.0995,
+#: 0.1246 against phase 0.1270 at 128, 0.1932 against 0.2432 at 256).  NVIDIA
+#: H100 80GB HBM3, 700.00 W; ``PERF.md`` section 6 holds both tables.
 SMEM_CHAINS: Dict[Tuple[int, int, int, int], Tuple[int, Optional[int]]] = {
     (255, 255, 7, 1): (1, None), (255, 255, 7, 2): (1, None),
-    (127, 127, 9, 1): (1, None), (127, 127, 9, 2): (1, None)}
+    (127, 127, 9, 1): (1, None), (127, 127, 9, 2): (1, None),
+    (255, 255, 0, 2): (1, None), (127, 127, 2, 2): (1, None)}
 
 #: Threads per block: this many where a block's band leaves no room for a
 #: second on its SM, else half as many, two blocks an SM (the block-size and
@@ -126,11 +138,37 @@ def fits_indices(H: int, W: int, S: int) -> bool:
 
 
 def kmax(form: int) -> int:
-    """The stencil size a form's kernel is compiled for: 13 (forms 6, 7), 25
-    (the 5x5 box, 8, 9)."""
-    if not mv.WIDE_FORM0 <= form < mv.WIDE_FORM0 + mv.WIDE_FORMS:
-        raise ValueError(f"the smem route takes the reach-2 forms, not form {form}")
+    """The stencil size a form's kernel is compiled for: 5 (reach 1 up to 5
+    offsets, forms 0, 1), 9 (the 3x3 box and any other reach-1 stencil, forms
+    2-5), 13 (forms 6, 7), 25 (the 5x5 box, 8, 9)."""
+    if not 0 <= form < mv.WIDE_FORM0 + mv.WIDE_FORMS:
+        raise ValueError(f"the 2d smem kernels take the forms 0-9, not form {form}")
+    if form < mv.WIDE_FORM0:
+        return 5 if form < 2 else 9
     return 13 if form < 8 else 25
+
+
+def widen(P) -> "mv.WideVisitParams":
+    """A level's parameter block as the kernels take it: a reach-2 level's
+    ``WideVisitParams`` as it is, a reach-1 level's ``VisitParams`` (9 offsets,
+    8 colours) copied field by field into one (the offsets and colours beyond
+    stay 0: a kernel reads ``K`` offsets and ``n_order`` colours)."""
+    if isinstance(P, mv.WideVisitParams):
+        return P
+    Q = mv.WideVisitParams()
+    for name, _ in mv.VisitParams._fields_:
+        value = getattr(P, name)
+        if isinstance(value, ctypes.Array):
+            target = getattr(Q, name)
+            for k, item in enumerate(value):
+                if isinstance(item, ctypes.Array):
+                    for q, v in enumerate(item):
+                        target[k][q] = v
+                else:
+                    target[k] = item
+        else:
+            setattr(Q, name, value)
+    return Q
 
 
 def interior_plan(level) -> dict:
@@ -189,9 +227,8 @@ def visit_tables(level, orders, S: int) -> dict:
     parts, pos = [], len(orders) * S * HEAD_INTS
     out = {"entries": [], "starts": [], "interior": []}
     for d, order in enumerate(orders):
-        out["entries"].append([])
-        out["starts"].append([])
-        out["interior"].append([])
+        for key in out:
+            out[key].append([])
         for k, (u0, u1) in enumerate(mv.split_bands(H, S)):
             band = (ii >= u0) & (ii < u1)
             cut = np.zeros(n, bool)
@@ -225,11 +262,11 @@ def visit_tables(level, orders, S: int) -> dict:
 # ------------------------------------------------------------ barriers, stamps
 def barrier_count(level, kind: str) -> int:
     """Barriers of one launch as ``csrc/mgmc_visit_smem.cu`` places them: an
-    ascend's copy-in (a descend's copy lands behind its first rhs barrier);
-    per sweep direction the rhs, each colour and (``m > 0``) the bands' shares
-    of ``B^T x``; then a descend 3 (the corrected ``x``, the residual, the
-    end) and an ascend 1 (the corrected ``x``).  The stamps build counts them
-    on the card."""
+    ascend's copy-in (after its first rhs, drawn while the copy lands; a
+    descend's copy lands behind its first rhs barrier); per sweep direction
+    the rhs, each colour and (``m > 0``) the bands' shares of ``B^T x``; then
+    a descend 3 (the corrected ``x``, the residual, the end) and an ascend 1
+    (the corrected ``x``).  The stamps build counts them on the card."""
     share = 1 if level.op.m_lowrank else 0
     return (sum(1 + len(order) + share for order in level.orders(kind))
             + (3 if kind == "descend" else 2))
@@ -241,12 +278,12 @@ def pass_names(level, kind: str):
     ...`` and ``d1: ...`` (a later direction's rhs pass holds the previous
     one's Woodbury patch)."""
     orders, m = level.orders(kind), level.op.m_lowrank
-    names = ["copy-in"] if kind == "ascend" else []
+    names = []
     for d, order in enumerate(orders):
-        first = ("prolongation + rhs" if kind == "ascend" and d == 0
-                 else "copy-in + rhs" if d == 0
-                 else "Woodbury + rhs" if m else "rhs")
-        own = [first] + [f"colour {c}" for c in order] + (["B^T x shares"] if m else [])
+        first = (["rhs + copy-in", "prolongation"] if kind == "ascend" and d == 0
+                 else ["copy-in + rhs"] if d == 0
+                 else ["Woodbury + rhs"] if m else ["rhs"])
+        own = first + [f"colour {c}" for c in order] + (["B^T x shares"] if m else [])
         names += own if len(orders) == 1 else [f"d{d}: {name}" for name in own]
     names.append("Woodbury" if m else "last colour")
     if kind == "descend":
@@ -404,7 +441,7 @@ class SmemLayout:
     def params(self, level, C: int, orders, f_batched: bool, noise_mode: int):
         P = SmemVisitParams()
         for d, order in enumerate(orders):
-            P.v[d] = level._build_params(C, order, f_batched, noise_mode)
+            P.v[d] = widen(level._build_params(C, order, f_batched, noise_mode))
         for name, value in self.fields.items():
             setattr(P, name, value)
         # offsets from K to the kernel's size stay (0, 0) with coefficient 0 and

@@ -147,6 +147,11 @@ SMEM_BLOCKS_PER_SM = 4
 #: (:func:`smem_threads`)
 SMEM_MAX_THREADS = 512
 SMEM_WAVES_THREADS = 256
+#: the shared-memory body's static shared memory at most (``SMEM_STATIC_BOUND``:
+#: the stamps build's barrier count and stamps pointer); the launcher opts in
+#: to dynamic shared memory where that and the dynamic bytes pass 48 KiB, and
+#: the library refuses to load where the kernels declare more
+SMEM_STATIC_SMEM = 16
 #: the most columns of zeros the shared-memory body's padded ``x`` may add on
 #: the right beyond its halo, so that a warp's points of a colour fall on
 #: distinct banks (:func:`smem_tables` picks the width); the fit rule counts
@@ -420,13 +425,17 @@ def load_smem_library(stamps: bool = False) -> ctypes.CDLL:
     lib = open_library(SMEM_SOURCE_NAME, SWEEP_STAMPS_FLAGS if stamps else ())
     _check_stamps_library(lib, "sor_smem", stamps, SWEEP_STAMP_WIDTH)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.sor_smem_params_size, lib.sor_smem_max_threads):
+    for fn in (lib.sor_smem_params_size, lib.sor_smem_max_threads, lib.sor_smem_static_smem):
         fn.argtypes = []
         fn.restype = i32
     if lib.sor_smem_params_size() != ctypes.sizeof(SmemSweepParams):
         raise RuntimeError("SmemSweepParams layout differs between Python and CUDA")
     if lib.sor_smem_max_threads() != SMEM_MAX_THREADS:
         raise RuntimeError("the shared-memory sweep's block bound differs between Python and CUDA")
+    static = lib.sor_smem_static_smem()
+    if not 0 <= static <= SMEM_STATIC_SMEM:
+        raise RuntimeError(f"the shared-memory sweep declares {static} bytes of static shared "
+                           f"memory, more than the {SMEM_STATIC_SMEM} its launcher counts")
     lib.sor_smem_kernel_attributes.argtypes = [i32, i32, ctypes.POINTER(i32)]
     lib.sor_smem_kernel_attributes.restype = i32
     lib.sor_smem_blocks_per_sm.argtypes = [i32] * 4

@@ -21,6 +21,15 @@ SIGNATURES = {
     "stream_descend": "void stream_visit_kernel<true, 5, true>(StreamParams, float*)",
     "phase_descend": "void descend_kernel<0, false>(VisitParams, PhaseTables, int4 const*)",
     "memcpy": "Memcpy DtoD (Device -> Device)",
+    "smem_descend_5pt": "void smem_visit_kernel<5, true, false>(SmemVisitParams, int const*, "
+                        "float*, float const*, float*, float*, float const*, float const*, "
+                        "float const*, float const*, float const*, float const*, float const*, "
+                        "float const*, float const*, float const*, float const*, "
+                        "unsigned long long*)",
+    "smem_ascend_25pt": "void smem_visit_kernel<25, false, false>(SmemVisitParams, int const*, "
+                        "float*)",
+    "phase_descend_ssor": "void descend_kernel<0, false, 2>(VisitParams, PhaseTables, "
+                          "int4 const*)",
 }
 
 
@@ -40,6 +49,16 @@ SIGNATURES = {
     ("phase_descend", "descend_kernel<1", False),
     ("memcpy", "Memcpy DtoD", True),
     ("memcpy", "copy", False),
+    # the 2d smem kernels by stencil size: the reach-1 5-point kernel is not the
+    # reach-2 25-point one, nor a visit kernel of another route
+    ("smem_descend_5pt", "smem_visit_kernel<5, true", True),
+    ("smem_descend_5pt", "smem_visit_kernel<25, true", False),
+    ("smem_descend_5pt", "smem_visit_kernel<5, false", False),
+    ("smem_descend_5pt", "visit_kernel", False),
+    ("smem_ascend_25pt", "smem_visit_kernel<25, false", True),
+    ("smem_ascend_25pt", "smem_visit_kernel<5", False),
+    ("phase_descend_ssor", "descend_kernel<0", True),
+    ("phase_descend_ssor", "smem_visit_kernel<5, true", False),
 ])
 def test_kernels_match_by_full_name(key, kernel, match):
     assert chip_smoke.names_kernel(SIGNATURES[key], kernel) is match

@@ -404,7 +404,8 @@ def test_route_at_1_32_and_128_chains_follows_the_table(levels, chains):
     sweeps: the 64^3 posterior's levels take the smem kernels where
     SMEM3D_ROUTES lists the count, with its launch configuration; every other
     3d shape the phase kernels); a level the table does not list takes the
-    phase kernels; the smem route takes 3d levels and refuses 2d reach 1."""
+    phase kernels; the smem route takes 3d levels, and a 2d reach-1 level takes
+    the 2d smem kernels where a caller names them."""
     cpu = torch.device("cpu")
     for (Z, Y, W, form, ndir), rows in v3.SMEM3D_ROUTES.items():
         conf = v3.route_config((Z, Y, W), form, ndir, chains)
@@ -435,8 +436,9 @@ def test_route_at_1_32_and_128_chains_follows_the_table(levels, chains):
         assert L.nbytes == v3.smem_bytes(*level.op.vshape, 2, L.c_shared)
     from test_torch_visit_split import _small_level
 
-    err = mv.route_support_error(_small_level(), "smem")
-    assert "3d stencils and 2d reach-2 stencils only" in err
+    # a 2d reach-1 level takes the 2d smem kernels where a caller names them
+    assert mv.route_support_error(_small_level(), "smem") is None
+    assert mv.smem_module(_small_level()).__name__.endswith(".mgmc_visit_smem")
 
 
 def test_phase_launch_opts_in_where_static_and_dynamic_pass_48k():

@@ -425,9 +425,10 @@ def test_shared_memory_bytes_mirror_the_source():
 
 def test_barriers_from_the_source(levels):
     """The kernel's barriers, counted from the source's smem_sync calls by
-    where they stand, against barrier_count: an ascend's copy-in (a descend's
-    copy lands behind its first rhs barrier); per direction the rhs, each
-    colour, the shares of B^T x (m > 0); a descend 3, an ascend 1."""
+    where they stand, against barrier_count: an ascend's copy-in (a block
+    barrier after its first rhs, which is drawn while the copy lands; a
+    descend's copy lands behind its first rhs barrier); per direction the rhs,
+    each colour, the shares of B^T x (m > 0); a descend 3, an ascend 1."""
     src = (CSRC / "mgmc_visit_smem.cu").read_text()
     body = src[src.index("smem_visit_kernel(const"):src.index("stamps_close<STAMPS>(srow, SMEM")]
     loop = body[body.index("for (int d = 0; d < SP.ndir; ++d)"):body.index(
@@ -435,9 +436,12 @@ def test_barriers_from_the_source(levels):
     colours = loop[loop.index("for (int o = 0; o < P.n_order; ++o)"):loop.index("// 4. Woodbury")]
     descend = body[body.index("if (DESCEND) {\n        // 5."):]
     calls = lambda s: s.count("smem_sync<STAMPS>(")  # noqa: E731
-    assert calls(body) == 7 and calls(loop) == 3 and calls(colours) == 1 and calls(descend) == 2
-    copy_in = body[:body.index("for (int d = 0; d < SP.ndir; ++d)")]
+    assert calls(body) == 7 and calls(loop) == 4 and calls(colours) == 1 and calls(descend) == 2
+    assert calls(body[:body.index("for (int d = 0; d < SP.ndir; ++d)")]) == 0
+    rhs = loop[:loop.index("// every band formed")]
+    copy_in = rhs[rhs.index("if (d == 0) {"):]
     assert "if (!DESCEND) {" in copy_in and calls(copy_in) == 1
+    assert "smem_sync<STAMPS>(cluster, S, true);" in copy_in  # the block's own barrier
     for level in levels.values():
         m = level.op.m_lowrank
         assert m > 0
@@ -472,7 +476,7 @@ def test_stamps_of_both_reach2_builds(levels):
     assert vsm.pass_names(level, "descend") == (
         ["copy-in + rhs"] + [f"colour {c}" for c in order]
         + ["B^T x shares", "Woodbury", "write-back + residual", "restriction"])
-    assert vsm.pass_names(level, "ascend")[:2] == ["copy-in", "prolongation + rhs"]
+    assert vsm.pass_names(level, "ascend")[:2] == ["rhs + copy-in", "prolongation"]
     assert mv.stamp_shape(level, "phase", 256) == (256, 30)
     assert mv.stamp_shape(level, "smem", 256, 2) == (512, 30)
     with pytest.raises(ValueError, match="stamps build"):
@@ -486,9 +490,12 @@ def test_route_at_1_16_and_256_chains(levels):
     levels take the smem kernels where SMEM_CHAINS says, every other reach-2
     shape the phase kernels, a 3d form the phase kernels); a level's route
     and cluster size (on the CPU every cluster schedules: the largest that
-    fits wins at one chain); the smem route refuses reach-1 levels."""
+    fits wins at one chain); the smem route takes a reach-1 level where a
+    caller names it."""
     cpu = torch.device("cpu")
     for (H, W, form, ndir), (least, most) in vsm.SMEM_CHAINS.items():
+        if form < mv.WIDE_FORM0:  # the reach-1 two-sweep shapes: test_torch_visit_ssor_smem.py
+            continue
         for C in (1, 16, 256):
             want = "smem" if C >= least and (most is None or C <= most) else "phase"
             assert mv.visit_route(C, 0, cpu, vshape=(H, W), form=form, ndir=ndir) == want
@@ -507,9 +514,13 @@ def test_route_at_1_16_and_256_chains(levels):
     assert all(cands[S] == (True, 512) for S in cands)  # small bands: two blocks an SM
     from test_torch_visit_split import _small_level
 
-    assert "reach-2 stencils only" in mv.route_support_error(_small_level(), "smem")
-    with pytest.raises(NotImplementedError, match="reach-2 stencils only"):
-        _small_level()._params(1, _small_level().pre_order, False, 0, None, route="smem")
+    # a reach-1 level: the 2d smem kernels take it where a caller names the
+    # route (their table lists reach-1 shapes of two sweeps only), its
+    # parameter block widened to the kernels' 25 offsets and 9 colours
+    small = _small_level()
+    assert mv.route_support_error(small, "smem") is None
+    P = small._params(1, small.pre_order, False, 0, None, route="smem")
+    assert isinstance(P.v[0], mv.WideVisitParams) and P.v[0].K == len(small.op.offsets)
     assert mv.route_support_error(level, "smem") is None
     for kind in ("descend", "ascend"):
         assert mv.kernel_name(level, "smem", kind) == f"{kind}_visit_reach2_13pt_smem"

@@ -472,7 +472,8 @@ def test_every_route_rejects_what_the_kernels_do_not_take():
         with pytest.raises(ValueError, match="CUDA device"):
             mv.launch_ascend(fine, route, x[0], x, xc, cluster=8)
     assert all(v == 0 for v in mv.launch_counts.values())
-    one = ({mv.KERNEL_NAMES[(r, k)] for r in mv.ROUTES for k in ("descend", "ascend")}
+    one = ({mv.KERNEL_NAMES[(r, k)] for r in mv.ROUTES + (mv.SMEM_ROUTE,)
+            for k in ("descend", "ascend")}
            | set(mv.REACH2_NAMES.values()) | set(mv.DIM3_NAMES.values()))
     # each form apart from its two-sweep (SSOR) form, which the stream kernels lack
     assert one | {name + mv.SSOR_SUFFIX for name in one if "stream" not in name} == set(

@@ -303,14 +303,18 @@ def test_split_replay_of_two_sweeps_is_the_plain_visit(S):
 def test_ssor_route_never_takes_the_stream_kernels():
     """SSOR is decided on the host before any launch: never the stream
     kernels (where a one-sweep visit of the flagship's 255^2 level takes them
-    from 256 chains), the split kernels for 2d reach-1 levels up to
+    from 256 chains); the smem kernels where ``mgmc_visit_smem.SMEM_CHAINS``
+    lists the level's shape and form (the flagship's 255^2 5-point level, at
+    every count), else the split kernels for 2d reach-1 levels up to
     ``SPLIT_MAX_CHAINS`` chains, the phase kernels otherwise; reach 2 and 3d
-    take the phase kernels at every count; a stream launch named by the
-    caller raises."""
+    take the phase kernels at every count where their tables do not list
+    them; a stream launch named by the caller raises."""
     limit = mv.SMEM_PER_BLOCK_OPTIN
     assert mv.visit_route(256, 0, CPU, limit, (255, 255), 0) == "stream"
-    assert mv.visit_route(256, 0, CPU, limit, (255, 255), 0, ndir=2) == "phase"
-    assert mv.visit_route(1, 0, CPU, limit, (255, 255), 0, ndir=2) == "split"
+    assert mv.visit_route(256, 0, CPU, limit, (255, 255), 0, ndir=2) == "smem"
+    assert mv.visit_route(1, 0, CPU, limit, (255, 255), 0, ndir=2) == "smem"
+    assert mv.visit_route(256, 0, CPU, limit, (253, 253), 0, ndir=2) == "phase"
+    assert mv.visit_route(1, 0, CPU, limit, (253, 253), 0, ndir=2) == "split"
     level = ssor_level(_small_level().op, 1.0)
     for C in (1, 4, mv.SPLIT_MAX_CHAINS):
         assert level.route(C) == "split"
