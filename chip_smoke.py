@@ -215,6 +215,29 @@ the card and checks, one phase after the other:
                    the source's count); the descend's ``f_c`` on every fused
                    level of the flagship, SOR and SSOR, against a float64
                    visit.
+12. ``parallel``   the multi-device paths (``multigridmc_tpu_torch/parallel``)
+                   on this card, a world of one over NCCL: the chains path
+                   (``DataParallelMGMCSampler``) at the flagship's width (256
+                   chains, distilled) - one step bitwise the single-device
+                   sampler's under rank 0's noise (``fold_seed(seed, 0)``),
+                   the routes of ``main_path``'s distilled variant, the visit
+                   launches of 30 steps (the counts set to 0 just before),
+                   ms per step and samples/s beside ``main_path``'s - and the
+                   lattice-decomposed cycle (``ShardedMGMCSampler``) on a 1x1
+                   mesh at 255^2 (padded 256^2), W-cycle, 4 chains: noise off
+                   against ``MultigridPreconditioner`` (float32,
+                   ``PARALLEL_SOLVER_TOL`` of its scale), ``"sharded"`` noise
+                   finite with the padding exactly zero, ms per step.
+
+``--phases multichip`` (not in the default run; four cards) starts four ranks
+over NCCL, one card each, through ``multigridmc_tpu_torch.parallel.dryrun``:
+the chains path at 4 x 256 chains of the flagship (each rank's step bitwise
+the single-device sampler's under its own noise, the ranks' chains pairwise
+different, samples/s summed over the world) and the lattice cycle on a 2x2
+mesh at 255^2 (``"global"`` noise against the world of one on rank 0 within
+``FLOAT32_MESH_TOL`` of the output's scale; ``"sharded"`` noise: ms per step,
+the NCCL kernels' device ms, the replicated levels bitwise equal across the
+lattice shards).  It raises with fewer than four cards.
 
 Device times come from ``torch.profiler``: the kernel matched by its full name
 (:func:`names_kernel`), the median of three windows, each of which must have
@@ -242,7 +265,9 @@ posterior alone; ``volume_check``: the 3d visits' checks and stamps alone,
 ``ssor``: the two-sweep visits alone; ``ssor_check``: the 2d two-sweep smem
 visits' checks and stamps alone, ``ssor_table`` with the route table of every
 route on the flagship's levels 0 and 1 at 1-256 chains, two sweeps and one,
-and the smem kernels' placement table) and prints no result line.
+and the smem kernels' placement table; ``parallel``: the multi-device paths
+on one card alone; ``multichip``: the four-card check above) and prints no
+result line.
 """
 
 from __future__ import annotations
@@ -269,7 +294,7 @@ PEAK_FP32_FLOPS = 67e12
 TOL = 2e-5
 FLAGSHIP_SEED = 20260816
 ALL_PHASES = {"kernels", "main_path", "band", "alternating", "drivers", "statistics",
-              "biharmonic", "volume", "ssor"}
+              "biharmonic", "volume", "ssor", "parallel"}
 
 
 def emit(obj) -> None:
@@ -6415,11 +6440,245 @@ def _ssor_parts(out, device):
     out["seconds"] = time.perf_counter() - t0
 
 
+# ------------------------------------------------------------- phase: parallel
+#: the lattice cycle of phase ``parallel``: chains, steps timed, the
+#: agglomeration threshold (the JAX package's default)
+PARALLEL_LATTICE = {"chains": 4, "steps": 5, "agglomerate_below": 8}
+#: the deterministic lattice cycle against ``MultigridPreconditioner`` in
+#: float32, of the solver's output scale: the same cycle, but the
+#: preconditioner's levels are the fused kernels (noise off) and its subtree
+#: below 63^2 the distilled matrix, each with its own order of summation
+PARALLEL_SOLVER_TOL = 1e-3
+
+
+def _parallel_counts():
+    from multigridmc_tpu_torch.ops.kernels import common
+    from multigridmc_tpu_torch.ops.kernels import mgmc_subtree as st
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+
+    return {**mv.launch_counts, **ss.launch_counts, **st.launch_counts, **common.launch_counts}
+
+
+def _reset_counts():
+    from multigridmc_tpu_torch.ops.kernels import common
+    from multigridmc_tpu_torch.ops.kernels import mgmc_subtree as st
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+
+    for module in (mv, ss, st, common):
+        module.reset_launch_counts()
+
+
+def phase_parallel(device, nx, nlevel, C, n_meas, steps, smi, main):
+    """The multi-device paths on one card, a world of one over NCCL: the
+    chains path (:func:`parallel_chains_path`) and the lattice cycle
+    (:func:`parallel_lattice_cycle`) on the flagship posterior."""
+    import torch.distributed as dist
+
+    from multigridmc_tpu_torch.parallel.dryrun import free_port
+    from multigridmc_tpu_torch.parallel.mesh import init_distributed
+
+    init_distributed(f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0, device=device)
+    try:
+        out = {"phase": "parallel", "card": smi, "backend": dist.get_backend(), "world": 1}
+        op, _ = build_posterior(nx, n_meas, FLAGSHIP_SEED, "near_exact", device)
+        f = torch.as_tensor(np.random.default_rng(0).uniform(size=op.vshape),
+                            dtype=torch.float32, device=device)
+        out["chains_path"] = parallel_chains_path(op, f, nlevel, C, steps, main, device)
+        out["lattice_cycle"] = parallel_lattice_cycle(op, f, nlevel, device)
+    finally:
+        dist.destroy_process_group()
+    emit(out)
+    return out
+
+
+def parallel_chains_path(op, f, nlevel, C, steps, main, device):
+    """``DataParallelMGMCSampler`` on a chains mesh of one rank at ``C``
+    chains: a step bitwise the single-device sampler's under rank 0's noise,
+    the routes of ``main_path``'s distilled variant (or, without it, the
+    single-device sampler's), the visit launches of ``steps`` steps driven
+    with the counts set to 0 just before, ms per step beside ``main_path``'s
+    and beside the single-device sampler's, timed after it in this phase."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+    from multigridmc_tpu_torch.parallel.data_parallel import DataParallelMGMCSampler
+    from multigridmc_tpu_torch.parallel.mesh import chains_mesh, fold_seed
+    from multigridmc_tpu_torch.samplers.base import GeneratorNoise
+    from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
+
+    kw = dict(smoother="SOR", coarse_solver="Cholesky", omega=1.0, cycle=2)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dp = DataParallelMGMCSampler(op, nlevel, chains_mesh(device), **kw)
+    torch.cuda.synchronize()
+    setup_seconds = time.perf_counter() - t0
+    setup_counts = {k: v for k, v in _parallel_counts().items() if v}
+    single = MultigridMCSampler(op, nlevel, fused=True, distill=True, **kw)
+    zeros = torch.zeros((C,) + op.vshape, dtype=torch.float32, device=device)
+    noise = GeneratorNoise(FLAGSHIP_SEED, device)
+    x = dp.apply(noise, f, zeros.clone())
+    ref = single.apply(GeneratorNoise(fold_seed(FLAGSHIP_SEED, 0), device), f, zeros.clone())
+    if not torch.equal(x, ref):
+        raise AssertionError("parallel: the chains path's step is not bitwise the "
+                             "single-device sampler's under rank 0's noise (max "
+                             f"{float((x - ref).abs().max())})")
+    sampler = dp.sampler
+    visited = [li for li in sorted(sampler.fused_levels) if li < sampler.distill_level]
+    routes = {li: sampler.fused_levels[li].route(C) for li in visited}
+    want = ({li: single.fused_levels[li].route(C) for li in visited} if main is None
+            else main["distilled"]["route_by_level"])
+    if routes != want:
+        raise AssertionError(f"parallel: the chains path's routes {routes} are not "
+                             f"main_path's {want}")
+    x = dp.apply(noise, f, x)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        x = dp.apply(noise, f, x)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {k: v for k, v in _parallel_counts().items() if v}
+    expected = steps * sum(2 ** li for li in visited)
+    visits = {kind: sum(counts.get(mv.KERNEL_NAMES[(route, kind)], 0) for route in mv.ROUTES)
+              for kind in ("descend", "ascend")}
+    if visits["descend"] != expected or visits["ascend"] != expected:
+        raise AssertionError(f"parallel: chains path launches {counts}, expected "
+                             f"{expected} visits each")
+    if tuple(x.shape) != (C,) + op.vshape or not bool(torch.isfinite(x).all()):
+        raise AssertionError("parallel: chains path samples not finite or of wrong shape")
+    # the single-device sampler's steps, then the chains path's once more, in
+    # this phase: the two ms/step compared on one card at one point of the run
+    single_noise = GeneratorNoise(fold_seed(FLAGSHIP_SEED, 0), device)
+    xs = single.apply(single_noise, f, x.clone())
+    turns = {}
+    for name, fn in (("single_device", lambda x: single.apply(single_noise, f, x)),
+                     ("chains_path_again", lambda x: dp.apply(noise, f, x))):
+        xs = fn(xs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            xs = fn(xs)
+        torch.cuda.synchronize()
+        turns[name] = 1e3 * (time.perf_counter() - t0) / steps
+    return {"chains": C, "steps": steps, "bitwise_single_device": True,
+            "single_device_ms_per_step": turns["single_device"],
+            "ms_per_step_again": turns["chains_path_again"],
+            "route_by_level": routes, "distill_level": sampler.distill_level,
+            "setup_seconds": setup_seconds, "setup_launches": setup_counts,
+            "launches": counts, "ms_per_step": 1e3 * dt / steps,
+            "samples_per_s": C * steps / dt,
+            "main_path_distilled_ms_per_step": main and main["distilled"]["ms_per_step"],
+            "main_path_distilled_samples_per_s": main and main["distilled"]["samples_per_s"]}
+
+
+def parallel_lattice_cycle(op, f, nlevel, device):
+    """``ShardedMGMCSampler`` on a 1x1 lattice mesh, W-cycle,
+    :data:`PARALLEL_LATTICE` chains: noise off against
+    ``MultigridPreconditioner`` (float32, :data:`PARALLEL_SOLVER_TOL` of its
+    scale), ``"sharded"`` noise finite with the padding exactly zero, ms per
+    step."""
+    from multigridmc_tpu_torch.parallel.cycle import ShardedMGMCSampler, pad_field
+    from multigridmc_tpu_torch.parallel.mesh import multihost_lattice_mesh
+    from multigridmc_tpu_torch.samplers.base import GeneratorNoise
+    from multigridmc_tpu_torch.solvers.multigrid import MultigridPreconditioner
+
+    cfg = PARALLEL_LATTICE
+    mesh = multihost_lattice_mesh(2, chains=1, mesh_shape=(1, 1), device=device)
+    lkw = dict(smoother="SOR", cycle=2, agglomerate_below=cfg["agglomerate_below"])
+    t0 = time.perf_counter()
+    det = ShardedMGMCSampler(op, nlevel, mesh, deterministic=True, **lkw)
+    setup_seconds = time.perf_counter() - t0
+    pre = MultigridPreconditioner(op, nlevel, smoother="SOR", cycle=2)
+    b = torch.randn((cfg["chains"],) + op.vshape, dtype=op.dtype, device=device,
+                    generator=torch.Generator(device=device).manual_seed(3))
+    pn = tuple(m + 1 for m in op.vshape)
+    got = det.apply(None, pad_field(b, op.vshape),
+                    torch.zeros((cfg["chains"],) + pn, dtype=op.dtype, device=device))
+    want = pre.apply(b)
+    scale = float(want.abs().max())
+    err = float((got[..., :op.vshape[0], :op.vshape[1]] - want).abs().max())
+    if not err <= PARALLEL_SOLVER_TOL * scale:
+        raise AssertionError(f"parallel: the deterministic lattice cycle is {err} from "
+                             f"MultigridPreconditioner (limit {PARALLEL_SOLVER_TOL} x {scale})")
+    prod = ShardedMGMCSampler(op, nlevel, mesh, noise_mode="sharded", **lkw)
+    fp = pad_field(f, op.vshape)
+    xl = torch.zeros((cfg["chains"],) + pn, dtype=op.dtype, device=device)
+    noise = GeneratorNoise(FLAGSHIP_SEED, device)
+    xl = prod.apply(noise, fp, xl)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(cfg["steps"]):
+        xl = prod.apply(noise, fp, xl)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    padding = max(float(xl[..., -1, :].abs().max()), float(xl[..., :, -1].abs().max()))
+    if not bool(torch.isfinite(xl).all()) or padding != 0.0:
+        raise AssertionError(f"parallel: sharded-noise lattice cycle not finite or its "
+                             f"padding not zero ({padding})")
+    return {"mesh": mesh.shape, "vshape": list(op.vshape), "padded": list(pn),
+            "chains": cfg["chains"], "steps": cfg["steps"], "nlevel": nlevel, "cycle": 2,
+            "sharded_levels": [lv.sharded for lv in prod.levels],
+            "distill_level": prod.distill_level, "setup_seconds": setup_seconds,
+            "deterministic_against_preconditioner": {"max_abs_err": err, "scale": scale,
+                                                     "limit": PARALLEL_SOLVER_TOL * scale},
+            "sharded_ms_per_step": 1e3 * dt / cfg["steps"],
+            "sharded_samples_per_s": cfg["chains"] * cfg["steps"] / dt,
+            "padding_max_abs": padding, "sample_std": float(xl.std())}
+
+
+def phase_multichip(smi):
+    """Four ranks over NCCL, one card each (``--phases multichip``): the
+    chains path at 4 x 256 chains of the flagship and the lattice cycle on a
+    2x2 mesh at 255^2, through the port's launcher
+    (``multigridmc_tpu_torch.parallel.dryrun.task_multichip``).  Raises with
+    fewer than four cards."""
+    from multigridmc_tpu_torch.parallel import dryrun
+
+    world = 4
+    if torch.cuda.device_count() < world:
+        raise RuntimeError(f"multichip: needs {world} CUDA devices, found "
+                           f"{torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    res = dryrun.launch("multichip", world, device="cuda", timeout=1500)
+    seconds = time.perf_counter() - t0
+    ranks = []
+    for r in range(world):
+        row = {k.split("/", 1)[1]: res[k].tolist() for k in res if k.startswith(f"{r}/")
+               and not k.endswith("/log")}
+        for key in ("chains_route_by_level", "lattice_profile"):
+            row[key] = json.loads(row[key])
+        ranks.append(row)
+    r0 = ranks[0]
+    faults = []
+    for r, row in enumerate(ranks):
+        if not (row["chains_bitwise_single_device"] and row["chains_finite"]
+                and row["lattice_finite"]):
+            faults.append(f"rank {r}: chains path not bitwise the single-device sampler or "
+                          "output not finite")
+        if row["lattice_replicated_spread"] != 0.0:
+            faults.append(f"rank {r}: replicated levels differ across the lattice shards by "
+                          f"{row['lattice_replicated_spread']}")
+    if not r0["chains_pairwise_distinct"]:
+        faults.append("two ranks drew the same chains")
+    if not r0["lattice_global_err"] <= r0["lattice_global_limit"]:
+        faults.append(f"global-noise 2x2 cycle {r0['lattice_global_err']} from the world of "
+                      f"one (limit {r0['lattice_global_limit']})")
+    emit({"phase": "multichip", "card": smi, "world": world, "seconds": seconds,
+          "chains_samples_per_s_world": r0["chains_samples_per_s_world"],
+          "lattice_global_err": r0["lattice_global_err"],
+          "lattice_global_limit": r0["lattice_global_limit"], "ranks": ranks,
+          "faults": faults})
+    if faults:
+        raise AssertionError("multichip: " + "; ".join(faults))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(sorted(ALL_PHASES)),
                         help="comma-separated subset of kernels,main_path,band,alternating,"
-                             "drivers,statistics,biharmonic,volume,ssor "
+                             "drivers,statistics,biharmonic,volume,ssor,parallel "
                              "to run (device and build always run; 'threads' adds a "
                              "block-size table, 'passes' the phase kernels' checks and "
                              "breakdown by pass, 'compare' the phase kernels' times and "
@@ -6435,8 +6694,9 @@ def main(argv=None) -> int:
                              "visits' stamps and checks alone, 'volume_table' with the 3d "
                              "smem kernels' route and placement table, 'ssor_check' the 2d "
                              "two-sweep smem visits' stamps and checks alone, 'ssor_table' "
-                             "with their route and placement table); "
-                             "the ok line needs exactly the default nine")
+                             "with their route and placement table; 'multichip' four ranks "
+                             "over NCCL, one card each: the chains path and the 2x2 lattice "
+                             "cycle); the ok line needs exactly the default ten")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -6506,6 +6766,9 @@ def main(argv=None) -> int:
               "passes_kernel_attributes": sweep_kernel_attributes(),
               "stamps": time_sweep_passes(device, GeneratorNoise(5, device), bodies, nx, nlevel,
                                           n_meas)})
+    if "multichip" in phases:  # four ranks over NCCL, one card each (no result line)
+        phase_multichip(smi)
+        lap("multichip")
     if "kernels" in phases:
         errs, timings, sweep_timings, third = phase_kernels(device, nx, nlevel, C, n_meas, smi)
         lap("kernels")
@@ -6534,6 +6797,10 @@ def main(argv=None) -> int:
     if "ssor" in phases:
         ssor = phase_ssor(device, smi)
         lap("ssor")
+    if "parallel" in phases:
+        parallel = phase_parallel(device, nx, nlevel, C, n_meas, steps, smi,
+                                  main if "main_path" in phases else None)
+        lap("parallel")
     emit({"phase": "total", "seconds": time.perf_counter() - t_start, "phase_seconds": laps})
     if phases != ALL_PHASES:
         print("partial run: no result line")
@@ -6567,6 +6834,7 @@ def main(argv=None) -> int:
                 "replaces": f"multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py:{line}",
                 "launches": launches[name], "path": path,
                 "launches_by_variant": {v: c[name] for v, c in counts.items()},
+                "launches_parallel_chains_path": parallel["chains_path"]["launches"].get(name, 0),
                 "max_abs_err": errs[name],
                 "swapped_order_max_abs_err": alternating["max_abs_err"][name],
                 "ms": t[f"{name}_ms"], "device_ms": t[f"{name}_device_ms"],
