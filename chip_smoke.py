@@ -194,8 +194,18 @@ the card and checks, one phase after the other:
                    errors against the exact variance by converged float64 CG)
                    at the centre and on ``B_0^T x``; the descend's ``f_c`` on
                    every fused level against a float64 visit (1e-4 of its
-                   scale); ``drivers.mgmc`` and ``drivers.mg`` on a 32^3
-                   config;
+                   scale); the 3d 7-point sweeps of the smem3d body
+                   (``csrc/sor_sweep_smem3d.cu``: each chain's 63^3 field in
+                   slabs of planes over a cluster) at 32 and 128 chains
+                   against their plain versions (noise off, a tensor, in-kernel
+                   against the host's reference normals) and the generic body
+                   (``1e-6``, one Philox stream), their device ms beside the
+                   generic body's, by pass (stamps build), and the paths at
+                   full width: the 64^3 SSOR Gibbs sampler at 128 chains (ms
+                   per step, device ms per sweep, and the same steps on the
+                   generic body) and the multigrid solve of 128 right-hand
+                   sides (the deterministic kernel); ``drivers.mgmc`` and
+                   ``drivers.mg`` on a 32^3 config;
 11. ``ssor``       two sweeps per visit (SSOR): the flagship posterior with
                    SSOR levels through ``MultigridMCSampler.apply`` at 256
                    chains (levels 0 and 1 on the smem kernels of
@@ -265,9 +275,14 @@ posterior alone; ``volume_check``: the 3d visits' checks and stamps alone,
 ``ssor``: the two-sweep visits alone; ``ssor_check``: the 2d two-sweep smem
 visits' checks and stamps alone, ``ssor_table`` with the route table of every
 route on the flagship's levels 0 and 1 at 1-256 chains, two sweeps and one,
-and the smem kernels' placement table; ``parallel``: the multi-device paths
-on one card alone; ``multichip``: the four-card check above) and prints no
-result line.
+and the smem kernels' placement table; ``sweep3d_check``: the smem3d sweeps'
+checks, times and paths alone, ``sweep3d_table`` with their configuration and
+route table - the smem3d body at every cluster size, ``c`` placement and block
+size, the generic body, the passes' 3d build and the split route at 1-256
+chains on 63^3 and 31^3 7-point fields, which must support
+``SMEM3D_SWEEPS``, ``SPLIT_MAX_CHAINS``'s 3d class and
+``PASSES_DIM3_MIN_OFFSETS``; ``parallel``: the multi-device paths on one card
+alone; ``multichip``: the four-card check above) and prints no result line.
 """
 
 from __future__ import annotations
@@ -528,6 +543,9 @@ def phase_build():
         sor_sweep.load_smem_library(stamps=True)
         sor_sweep.load_passes_library(reach=2)
         sor_sweep.load_passes_library(dim=3)
+    if hasattr(sor_sweep, "load_smem3d_library"):  # (nor these)
+        sor_sweep.load_smem3d_library()
+        sor_sweep.load_smem3d_library(stamps=True)
     mgmc_subtree.load_library()
     if hasattr(mgmc_subtree, "REACH_BUILDS"):  # (a parent tree of --phases compare lacks it)
         for part in mgmc_subtree.REACH_BUILDS[2][1]:
@@ -1196,7 +1214,7 @@ def check_sweeps(device, gen, nx, nlevel, n_meas):
     ``xi`` fed to both, then (2d) the in-kernel generator against the plain
     version fed the host's reference normals (TOL; at many chains on the chains
     of :func:`noise_check_chains`).  Where the one-block route takes the passes
-    body (any of its builds) or the shared-memory body, the generic body of
+    body (any of its builds) or a shared-memory body, the generic body of
     ``sor_sweep.cu`` beside it on the same inputs and under one Philox stream
     (ROUTE_TOL: the same terms in the same order).  Each row gives the passes
     body's block sizes; the run fails unless the checks launched it at every
@@ -1207,7 +1225,8 @@ def check_sweeps(device, gen, nx, nlevel, n_meas):
 
     errs = {"sweep_batched": 0.0, "gibbs_sweep_batched": 0.0, "sweep_batched_generic": 0.0,
             "gibbs_sweep_batched_generic": 0.0, "sweep_batched_smem": 0.0,
-            "gibbs_sweep_batched_smem": 0.0}
+            "gibbs_sweep_batched_smem": 0.0, "sweep_batched_smem3d": 0.0,
+            "gibbs_sweep_batched_smem3d": 0.0}
     body_err = 0.0
     rows = []
     threads_checked = set()
@@ -1234,6 +1253,10 @@ def check_sweeps(device, gen, nx, nlevel, n_meas):
                             "smem_bytes": launch.nbytes,
                             "interior_points": int(sum(launch.params.plain[o] for o in
                                                        range(launch.params.n_order)))})
+            elif plan.body == "smem3d":
+                launch = plan.smem3d_launch(plan.params(C, True, 1, (0, 0)))
+                row.update({"cluster": launch.S, "c_shared": launch.c_shared,
+                            "threads": launch.threads, "smem_bytes": launch.nbytes})
             if plan.body != "generic":
                 row["against_generic"] = 0.0
             for b_batched in (False, True):
@@ -1302,9 +1325,9 @@ def check_sweeps(device, gen, nx, nlevel, n_meas):
 def check_sweep_philox(device):
     """The Gibbs kernels' in-kernel normals, read out through the kernels of
     both routes: on an identity operator with f = 0, x = 0, omega = 1 the sweep
-    returns x = xi.  Known answer (2d and 3d, counters above 2^32) and moments;
-    the split route at its one-chain cluster size, bitwise equal to the
-    one-block route."""
+    returns x = xi.  Known answer (2d and 3d, counters above 2^32; the 3d
+    field's one-block route is the smem3d body) and moments; the split route
+    at its one-chain cluster size, bitwise equal to the one-block route."""
     from multigridmc_tpu_torch.lattice import Lattice
     from multigridmc_tpu_torch.ops.kernels import common
     from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
@@ -1326,9 +1349,14 @@ def check_sweep_philox(device):
         plan = SORSmoother(op, 1.0, 1).plan
         f = torch.zeros(lattice.vshape, device=device)
 
-        split = plan.route(1, 1)
-        if split[0] != "split":
-            raise AssertionError(f"gibbs sweep: one chain of {shape} takes {split}")
+        # the split route at its one-chain cluster size: the route of a 2d
+        # field's one chain; a 3d 7-point field's sweeps take the smem3d body
+        # at every chain count (SPLIT_MAX_CHAINS), so the one-block route
+        # there is that body and the split route is named
+        split = ("split", ss.split_size(1, lattice.vshape, op.offsets, 1, device))
+        if split[1] is None or (dim == 2 and plan.route(1, 1) != split):
+            raise AssertionError(f"gibbs sweep: one chain of {shape} takes {plan.route(1, 1)}, "
+                                 f"the split route {split}")
 
         def draw(counter, route=ss.BLOCK_ROUTE):
             x = torch.zeros((C,) + lattice.vshape, device=device)
@@ -1445,6 +1473,8 @@ SWEEP_KERNELS = {("passes", "sweep"): "passes_sweep_kernel",
                  ("passes", "gibbs"): "passes_gibbs_kernel",
                  ("smem", "sweep"): "smem_sweep_kernel",
                  ("smem", "gibbs"): "smem_gibbs_kernel",
+                 ("smem3d", "sweep"): "smem3d_sweep_kernel<false",
+                 ("smem3d", "gibbs"): "smem3d_sweep_kernel<true",
                  ("generic", "sweep"): "sor_sweep_kernel",
                  ("generic", "gibbs"): "gibbs_sweep_kernel",
                  ("split", "sweep"): "cluster_sweep_kernel<false",
@@ -1478,7 +1508,9 @@ def time_sweeps(device, noise):
                "threads": (plan.pass_launch(plan.params(C, True, 0, None)).threads
                            if plan.body == "passes" else
                            plan.smem_launch(plan.params(C, True, 0, None)).threads
-                           if plan.body == "smem" else plan.threads),
+                           if plan.body == "smem" else
+                           plan.smem3d_launch(plan.params(C, True, 0, None)).threads
+                           if plan.body == "smem3d" else plan.threads),
                "generic_threads": plan.threads,
                "bound_ms": bound, "bound_by": by, "bound_bytes": nbytes}
         routes = {"": (ss.BLOCK_ROUTE, plan.body)}
@@ -1840,9 +1872,12 @@ def time_sweep_routes(device, noise, smi):
     ``sor_sweep.SPLIT_MAX_CHAINS`` (``sor_sweep.split_stencil``): a 255^2
     5-point field and a 127^2 5-point field whose coefficients vary in space
     (read per point); the 255^2 and 127^2 9-point Galerkin levels of a 511^2
-    and a 255^2 field; a 63^3 7-point field (class "3d", the generic body) and
-    a 63^2 13-point field of reach 2 (class "reach-2", the shared-memory
-    body).
+    and a 255^2 field; a 63^3 7-point field (class "3d", the smem3d body:
+    slabs over a cluster), the 31^3 27-point Galerkin level of a 64^3 lattice
+    (class "3d 27-point", the passes' 3d build) and a 63^2 13-point field of
+    reach 2 (class "reach-2", the shared-memory body).  A field's counts end
+    after the first at which both kernels' split route failed to win (by
+    :data:`SPLIT_CLEAR_WIN`): no threshold depends on a larger count.
 
     The table supports the code's constants when (1) wherever the route takes
     the split route it beats one block per chain, (2) its cluster size (the
@@ -1871,6 +1906,8 @@ def time_sweep_routes(device, noise, smi):
               ("255^2 9-point Galerkin", galerkin_coarsen(wide)),
               ("127^2 9-point Galerkin", galerkin_coarsen(fine)),
               ("63^3 7-point", shiftedlaplace_fd(Lattice((64, 64, 64)), const, device=device)),
+              ("31^3 27-point Galerkin",
+               galerkin_coarsen(shiftedlaplace_fd(Lattice((64, 64, 64)), const, device=device))),
               ("63^2 13-point reach 2", reach2_operator(64, device))]
     limit = ss.dynamic_smem_limit(device)
     rows = []
@@ -1878,7 +1915,10 @@ def time_sweep_routes(device, noise, smi):
         plan = SORSmoother(op, 1.0, 1).plan
         reach = ss.slow_reach(op.offsets, op.vshape)
         L = ss.split_layout(op.vshape)[0]
+        lost = {}
         for C in SWEEP_ROUTE_CHAINS:
+            if len(lost) == 2:  # both kernels' split route lost at a smaller count
+                break
             b = torch.rand((C,) + op.vshape, device=device)
             x = torch.zeros((C,) + op.vshape, device=device)
             for kernel, noise_mode in (("sweep", 0), ("gibbs", 1)):
@@ -1917,6 +1957,9 @@ def time_sweep_routes(device, noise, smi):
                 # the threshold that decides this row (sor_sweep.split_max_chains)
                 row["key"] = (kernel, ss.split_stencil(op.vshape, op.offsets))
                 rows.append(row)
+                if not (row["rule_ms"] is not None and row["block_ms"] is not None
+                        and row["rule_ms"] < SPLIT_CLEAR_WIN * row["block_ms"]):
+                    lost[kernel] = C
     # what the table supports
     faults = []
     wins = {}
@@ -5811,6 +5854,490 @@ def phase_volume_check(device, smi, table):
         emit(out)
 
 
+# ------------------------------- phase volume: the 3d 7-point sweeps (smem3d)
+#: the chain counts at which the smem3d body's sweeps are held against their
+#: plain versions and the generic body and timed: the 32 of the sweep tables
+#: and the 128 of the SSOR sampler's path
+SWEEP3D_CHAINS = (32, 128)
+#: the path at full width: the 64^3 posterior's SSOR Gibbs sampler at 128
+#: chains (steps timed, steps profiled), and the multigrid solve of that many
+#: right-hand sides with its levels composed (cycles)
+SWEEP3D_PATH = {"chains": 128, "steps": 10, "profile_steps": 3, "cycles": 3}
+#: the ``sweep3d_table``: chain counts, and the cluster sizes tried on each
+#: field (every one that fits, the rest of 1-16 being near neighbours)
+SWEEP3D_TABLE_CHAINS = (1, 4, 8, 16, 32, 64, 128, 256)
+SWEEP3D_TABLE_SIZES = {63: (16, 12, 8, 6), 31: (16, 8, 4, 2, 1)}
+SWEEP3D_TABLE_THREADS = (512, 1024)
+#: the smem3d kernels as torch.profiler names them
+SMEM3D_KERNELS = {"sweep": "smem3d_sweep_kernel<false", "gibbs": "smem3d_sweep_kernel<true"}
+
+
+def check_sweep3d(op, gen):
+    """Both kernels of the smem3d body (``csrc/sor_sweep_smem3d.cu``) on the
+    64^3 posterior's 63^3 7-point level ``op`` at each count of
+    :data:`SWEEP3D_CHAINS`, forward and backward, ``b`` shared (the samplers')
+    and per chain (the solver's), at the configuration the table gives
+    (``sor_sweep.smem3d_config``): against the plain versions (TOL) with the
+    noise off and with ``xi`` as a tensor (``noise_mode`` 2), the in-kernel
+    generator against the plain version fed the host's reference normals
+    (forward, ``b`` shared, the chains of :func:`noise_check_chains`), and
+    against the generic body of ``sor_sweep.cu`` on the same inputs and under
+    one Philox stream (ROUTE_TOL).  Returns the errors by kernel and the
+    rows."""
+    from multigridmc_tpu_torch.ops.kernels import common
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+    from multigridmc_tpu_torch.smoothers import BACKWARD, FORWARD, SORSmoother
+
+    dev = op.coeffs.device
+    errs = {"sweep_batched_smem3d": 0.0, "gibbs_sweep_batched_smem3d": 0.0,
+            "sweep_batched_generic": 0.0, "gibbs_sweep_batched_generic": 0.0}
+    rows = []
+    for direction in (FORWARD, BACKWARD):
+        plan = SORSmoother(op, 1.0, 1, direction).plan
+        if plan.body != "smem3d":
+            raise AssertionError(f"sweep3d: the 63^3 7-point level takes the {plan.body} body")
+        for C in SWEEP3D_CHAINS:
+            x = torch.randn((C,) + op.vshape, device=dev, generator=gen)
+            xi = torch.randn((C,) + op.vshape, device=dev, generator=gen)
+            conf = {kind: plan.smem3d_launch(plan.params(C, False, mode, (0, 0)))
+                    for kind, mode in (("sweep", 0), ("gibbs", 1))}
+            row = {"chains": C, "direction": direction, "sweep_err": 0.0, "gibbs_err": 0.0,
+                   "against_generic": 0.0,
+                   "config": {k: [v.S, v.c_shared, v.threads] for k, v in conf.items()},
+                   "smem_bytes": {k: v.nbytes for k, v in conf.items()}}
+            for b_batched in (False, True):
+                b = torch.randn(((C,) if b_batched else ()) + op.vshape, device=dev,
+                                generator=gen)
+                tag = f"sweep3d {direction} C={C} {'b per chain' if b_batched else 'b shared'}"
+                want = ss.sweep_batched_plain(op, plan.masks, 1.0, plan.order, b, x)
+                got = ss.launch_sweep(plan, ss.BLOCK_ROUTE, b, x.clone())
+                old = ss.launch_sweep(plan, ss.BLOCK_ROUTE, b, x.clone(), body="generic")
+                row["sweep_err"] = max(row["sweep_err"], compare(f"{tag} sweep", got, want))
+                errs["sweep_batched_generic"] = max(errs["sweep_batched_generic"], compare(
+                    f"{tag} generic sweep", old, want))
+                row["against_generic"] = max(row["against_generic"],
+                                             float((got - old).abs().max()))
+                want = ss.gibbs_sweep_batched_plain(op, plan.masks, 1.0, plan.order, b, x, xi)
+                got = ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, b, x.clone(), xi=xi)
+                old = ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, b, x.clone(), xi=xi,
+                                            body="generic")
+                row["gibbs_err"] = max(row["gibbs_err"], compare(f"{tag} gibbs", got, want))
+                errs["gibbs_sweep_batched_generic"] = max(
+                    errs["gibbs_sweep_batched_generic"],
+                    compare(f"{tag} generic gibbs", old, want))
+                row["against_generic"] = max(row["against_generic"],
+                                             float((got - old).abs().max()))
+                del want, old
+                stream = (0x5EED_3D00 + C, 7 + b_batched)
+                got = ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, b, x.clone(), philox=stream)
+                old = ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, b, x.clone(), philox=stream,
+                                            body="generic")
+                row["against_generic"] = max(row["against_generic"],
+                                             float((got - old).abs().max()))
+                del old
+                if direction == FORWARD and not b_batched:
+                    for first, n in noise_check_chains(C):
+                        part = slice(first, first + n)
+                        ref = torch.as_tensor(common.philox_normals_reference(
+                            *stream, n, op.vshape, first_chain=first), device=dev)
+                        want = ss.gibbs_sweep_batched_plain(op, plan.masks, 1.0, plan.order, b,
+                                                            x[part], ref)
+                        row["gibbs_err"] = max(row["gibbs_err"], compare(
+                            f"{tag} in-kernel noise, chains {first}..{first + n - 1}",
+                            got[part], want))
+                        del ref, want
+                del got, b
+            if row["against_generic"] > ROUTE_TOL:
+                raise AssertionError(f"sweep3d {direction} C={C}: the smem3d and the generic "
+                                     f"body differ by {row['against_generic']}")
+            errs["sweep_batched_smem3d"] = max(errs["sweep_batched_smem3d"], row["sweep_err"])
+            errs["gibbs_sweep_batched_smem3d"] = max(errs["gibbs_sweep_batched_smem3d"],
+                                                     row["gibbs_err"])
+            rows.append(row)
+            del x, xi
+    torch.cuda.synchronize()
+    return errs, rows
+
+
+def smem3d_sweep_stamps(plan, C, noise, config=None):
+    """One launch of each kernel of the smem3d body's stamps build at ``C``
+    chains (``b`` shared, the Gibbs kernel with its in-kernel noise; the
+    configuration ``config`` or the rule's), by pass: the copy-in (with the
+    Gibbs rhs) and each colour, the median over the blocks (a row per block,
+    ``C S``; :func:`sor_sweep.sweep_pass_times`), the barriers each block
+    passed against :func:`sor_sweep.barrier_count`, the blocks one SM ran at
+    once; the kernels' registers and the blocks per SM the occupancy API
+    gives."""
+    import ctypes
+
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+
+    device = plan.op.coeffs.device
+    b = torch.rand(plan.op.vshape, device=device)
+    x = torch.zeros((C,) + plan.op.vshape, device=device)
+    out = {}
+    for kind, gibbs in (("sweep", False), ("gibbs", True)):
+        launch = plan.smem3d_launch(plan.params(C, False, int(gibbs), (0, 0)), config)
+        runs = []
+        for _ in range(3):
+            stamps = torch.zeros((C * launch.S, ss.SMEM3D_STAMP_WIDTH), dtype=torch.int64,
+                                 device=device)
+            conf = (launch.S, launch.c_shared, launch.threads)
+            if gibbs:
+                ss.launch_gibbs_sweep(plan, ss.BLOCK_ROUTE, b, x, philox=noise.philox_stream(),
+                                      stamps=stamps, smem3d=conf)
+            else:
+                ss.launch_sweep(plan, ss.BLOCK_ROUTE, b, x, stamps=stamps, smem3d=conf)
+            torch.cuda.synchronize()
+            runs.append(ss.sweep_pass_times(plan.order, gibbs, stamps, body="smem3d"))
+        pt = sorted(runs, key=lambda r: r["launch_span_us"])[1]
+        pt["barriers_from_source"] = ss.barrier_count(plan.order, gibbs, body="smem3d")
+        if pt["barriers_per_block"] != [pt["barriers_from_source"]]:
+            raise AssertionError(f"smem3d sweep {kind}: barriers {pt['barriers_per_block']} "
+                                 f"against {pt['barriers_from_source']} from the source")
+        lib = ss.load_smem3d_library()
+        vals = (ctypes.c_int * 3)()
+        if lib.sor_smem3d_kernel_attributes(int(gibbs), vals):
+            raise AssertionError(f"smem3d sweep {kind}: kernel attributes")
+        pt.update({"chains": C, "cluster": launch.S, "c_shared": launch.c_shared,
+                   "threads": launch.threads, "smem_bytes": launch.nbytes,
+                   "registers": vals[0], "local_bytes": vals[1],
+                   "blocks_per_sm_occupancy_api": lib.sor_smem3d_blocks_per_sm(
+                       int(gibbs), launch.threads, launch.nbytes)})
+        out[kind] = pt
+    del b, x
+    return out
+
+
+def time_sweep3d(op, noise):
+    """Both kernels of the smem3d body on the 63^3 7-point level ``op`` at each
+    count of :data:`SWEEP3D_CHAINS` (``b`` shared, as the SSOR sampler gives
+    it; the Gibbs kernel with its in-kernel noise) at the rule's
+    configuration, and the generic body beside it in interleaved profiler
+    windows: device ms (median of three windows) and event ms per launch
+    (held to each other), the plain versions' ms and the bound; at 128
+    chains the launch by pass (:func:`smem3d_sweep_stamps`)."""
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+    from multigridmc_tpu_torch.smoothers import SORSmoother
+
+    dev = op.coeffs.device
+    plan = SORSmoother(op, 1.0, 1).plan
+    rows = []
+    for C in SWEEP3D_CHAINS:
+        b = torch.rand(op.vshape, device=dev)
+        x = torch.zeros((C,) + op.vshape, device=dev)
+        bound, by, nbytes = sweep_bound(plan, C, False)
+        row = {"chains": C, "vshape": list(op.vshape), "b_batched": False,
+               "offsets": len(op.offsets), "colours": plan.coloring.n_colors,
+               "bound_ms": bound, "bound_by": by, "bound_bytes": nbytes}
+        for kind, mode in (("sweep", 0), ("gibbs", 1)):
+            launch = plan.smem3d_launch(plan.params(C, False, mode, (0, 0)))
+            row[f"{kind}_config"] = {"cluster": launch.S, "c_shared": launch.c_shared,
+                                     "threads": launch.threads, "smem_bytes": launch.nbytes}
+            fns = {}
+            for body, prefix in (("smem3d", ""), ("generic", "generic_")):
+                if mode:
+                    fns[prefix] = (lambda body=body: ss.launch_gibbs_sweep(
+                        plan, ss.BLOCK_ROUTE, b, x, philox=noise.philox_stream(), body=body))
+                else:
+                    fns[prefix] = (lambda body=body: ss.launch_sweep(plan, ss.BLOCK_ROUTE, b, x,
+                                                                      body=body))
+            device_ms = device_ms_medians(
+                {"": (fns[""], SMEM3D_KERNELS[kind]),
+                 "generic_": (fns["generic_"], sweep_kernel(ss.BLOCK_ROUTE, "generic", kind))},
+                20)
+            for prefix, fn in fns.items():
+                host = {}
+                row[f"{prefix}{kind}_ms"] = cuda_ms(fn, 5, 10, host)
+                row[f"{prefix}{kind}_device_ms"] = device_ms[prefix]
+                row[f"{prefix}{kind}_events_over_device"] = check_events_against_device(
+                    f"sweep3d {prefix}{kind} C={C}", row[f"{prefix}{kind}_ms"],
+                    row[f"{prefix}{kind}_device_ms"], host["ms"])
+            row[f"{kind}_over_generic"] = (row[f"{kind}_device_ms"]
+                                           / row[f"generic_{kind}_device_ms"])
+        x.zero_()
+        row["sweep_plain_ms"] = cuda_ms(
+            lambda: ss.sweep_batched_plain(op, plan.masks, 1.0, plan.order, b, x), 3, 3)
+        row["gibbs_plain_ms"] = cuda_ms(
+            lambda: ss.gibbs_sweep_batched_plain(op, plan.masks, 1.0, plan.order, b, x,
+                                                 torch.randn_like(x)), 3, 3)
+        if C == SWEEP3D_PATH["chains"]:
+            row["stamps"] = smem3d_sweep_stamps(plan, C, noise)
+        rows.append(row)
+        del b, x
+    return rows
+
+
+def sweep3d_path(op, f, device):
+    """The smem3d body on the paths at full width: the 64^3 posterior's SSOR
+    Gibbs sampler (``samplers/sor.py::SSORSampler``) at 128 chains, whose
+    steps sweep the 63^3 level twice (forward, backward) above the split
+    threshold, and the multigrid solve of 128 right-hand sides with its levels
+    composed (``MultigridPreconditioner(fused=False)``, the deterministic
+    sweeps).  Per path the launch counts, set to 0 just before it is driven
+    and read just after (the smem3d kernels must run, the generic body not);
+    the sampler's ms per step and samples/s (host clock) and its device ms per
+    step and per sweep (torch.profiler), then the same steps with both plans'
+    body set to the generic one (the A/B in one run); the solve's residual
+    contraction per cycle and its seconds."""
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+    from multigridmc_tpu_torch.samplers.base import GeneratorNoise
+    from multigridmc_tpu_torch.samplers.sor import SSORSampler
+    from multigridmc_tpu_torch.solvers.multigrid import MultigridPreconditioner
+
+    C, steps = SWEEP3D_PATH["chains"], SWEEP3D_PATH["steps"]
+    sampler = SSORSampler(op, 1.0, 1)
+    plans = (sampler.forward.smoother.plan, sampler.backward.smoother.plan)
+    out = {"chains": C, "steps": steps}
+    for body in ("smem3d", "generic"):
+        for plan in plans:
+            plan.body = body
+        noise = GeneratorNoise(VOLUME_SEED + 5, device)
+        x = torch.zeros((C,) + op.vshape, device=device)
+        for _ in range(2):
+            x = sampler.apply(noise, f, x)
+        torch.cuda.synchronize()
+        ss.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            x = sampler.apply(noise, f, x)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        counts = {k: v for k, v in ss.launch_counts.items() if v}
+        name = "gibbs_sweep_batched_" + body
+        if counts != {name: 2 * steps} or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"sweep3d: the SSOR sampler with the {body} body launched "
+                                 f"{counts}")
+        pattern = (r"smem3d_sweep_kernel<true" if body == "smem3d"
+                   else r"(?<!passes_)gibbs_sweep_kernel<")
+        busy = device_busy(lambda: sampler.apply(noise, f, x), SWEEP3D_PATH["profile_steps"],
+                           pattern)
+        sweeps = busy["matching"] if busy else []
+        per_step = sum(r["ms_per_step"] for r in sweeps)
+        calls = sum(r["calls_per_step"] for r in sweeps)
+        out[body] = {"ms_per_step": ms, "samples_per_s": C / ms * 1e3,
+                     "kernel_ms_per_step": busy["kernel_ms_per_step"] if busy else None,
+                     "kernels_per_step": busy["kernels_per_step"] if busy else None,
+                     "sweep_device_ms": per_step / calls if calls else None,
+                     "sweeps_per_step": calls, "launches": counts,
+                     "top": busy["top"] if busy else None}
+        del x
+    for plan in plans:
+        plan.body = "smem3d"
+    out["sweep_device_ms_over_generic"] = (
+        out["smem3d"]["sweep_device_ms"] / out["generic"]["sweep_device_ms"]
+        if out["smem3d"]["sweep_device_ms"] and out["generic"]["sweep_device_ms"] else None)
+    # the deterministic sweeps: the solve of 128 right-hand sides
+    precond = MultigridPreconditioner(op, nlevel=VOLUME_NLEVEL, smoother="SOR", omega=1.0,
+                                      cycle=2, fused=False, distill=False)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(VOLUME_SEED + 6)
+    b = torch.rand((C,) + op.vshape, device=device, generator=gen)
+    x = torch.zeros_like(b)
+    norms = [float(b.norm())]
+    torch.cuda.synchronize()
+    ss.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(SWEEP3D_PATH["cycles"]):
+        x = x + precond.apply(b - op.apply(x))
+        norms.append(float((b - op.apply(x)).norm()))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ss.launch_counts.items() if v}
+    rates = [n1 / n0 for n0, n1 in zip(norms[:-1], norms[1:])]
+    if (counts.get("sweep_batched_smem3d", 0) < 1 or counts.get("sweep_batched_generic")
+            or not max(rates) < 1.0):
+        raise AssertionError(f"sweep3d: the solve of {C} right-hand sides launched {counts}, "
+                             f"residual rates {rates}")
+    out["solve"] = {"right_hand_sides": C, "cycles": SWEEP3D_PATH["cycles"],
+                    "seconds": time.perf_counter() - t0, "residual_rates": rates,
+                    "launches": counts}
+    del precond, b, x
+    return out
+
+
+def time_sweep3d_table(device):
+    """The ``sweep3d_table``: device ms per launch (torch.profiler, the median
+    of three interleaved windows) of both sweep kernels, ``b`` per chain as in
+    ``sweep_routes``, at each count of :data:`SWEEP3D_TABLE_CHAINS` on the
+    64^3 posterior's 63^3 and a 32^3 lattice's 31^3 7-point fields: the
+    smem3d body at every cluster size of :data:`SWEEP3D_TABLE_SIZES` that fits
+    (and the tables' indices, and schedules), ``c`` in shared memory or not,
+    :data:`SWEEP3D_TABLE_THREADS`; the generic body; on 63^3 the passes' 3d
+    build (``PASSES_DIM3_MIN_OFFSETS``); the split route at every cluster size
+    that fits and schedules.  Returns the rows and the faults: a count where
+    the configuration ``sor_sweep.smem3d_config`` gives takes more than
+    :data:`SMEM_ROUTE_SLACK` times the fastest one; a threshold of
+    ``SPLIT_MAX_CHAINS`` (class ``"3d"``, the 63^3 field) other than the
+    largest count up to which the split route at the rule's cluster size takes
+    less than :data:`SPLIT_CLEAR_WIN` of the smem3d body's time at every
+    count; the passes' 3d build faster than the smem3d body on 63^3.  Beside
+    them, the other field of the class ``"3d"``: the 31^3 27-point Galerkin
+    level of a 64^3 lattice on the passes' 3d build and the split route (rows
+    only, no fault)."""
+    import ctypes
+
+    from multigridmc_tpu_torch.lattice import Lattice
+    from multigridmc_tpu_torch.models.correlation import ConstantCorrelationLengthModel
+    from multigridmc_tpu_torch.models.prior import shiftedlaplace_fd
+    from multigridmc_tpu_torch.ops.coarsen import galerkin_coarsen
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit_smem3d as v3
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+    from multigridmc_tpu_torch.samplers.base import GeneratorNoise
+    from multigridmc_tpu_torch.smoothers import SORSmoother
+
+    noise = GeneratorNoise(VOLUME_SEED + 7, device)
+    limit = ss.smem_limit_of(device)
+    lib = ss.load_smem3d_library()
+    rows, faults, wins = [], [], {}
+    const = ConstantCorrelationLengthModel(0.2)
+    for nx, label in ((63, "7-point"), (31, "7-point"), (31, "27-point Galerkin")):
+        op = shiftedlaplace_fd(Lattice((nx + 1,) * 3), const, device=device)
+        if label != "7-point":
+            op = galerkin_coarsen(shiftedlaplace_fd(Lattice((2 * nx + 2,) * 3), const,
+                                                    device=device))
+        plan = SORSmoother(op, 1.0, 1).plan
+        reach = ss.slow_reach(op.offsets, op.vshape)
+        fits = ss.smem3d_sizes(op.vshape, limit)
+        for C in SWEEP3D_TABLE_CHAINS:
+            b = torch.rand((C,) + op.vshape, device=device)
+            x = torch.zeros((C,) + op.vshape, device=device)
+            for kernel, mode in (("sweep", 0), ("gibbs", 1)):
+                def run(route, **kw):
+                    if mode:
+                        return lambda: ss.launch_gibbs_sweep(plan, route, b, x,
+                                                             philox=noise.philox_stream(), **kw)
+                    return lambda: ss.launch_sweep(plan, route, b, x, **kw)
+
+                if label != "7-point":  # the passes' 3d build and the split route
+                    cands = {"passes": (run(ss.BLOCK_ROUTE, body="passes"),
+                                        sweep_kernel(ss.BLOCK_ROUTE, "passes", kernel))}
+                    for S in ss.SPLIT_SIZES:
+                        nbytes = ss.split_smem_bytes(op.vshape, S, reach, mode)
+                        if nbytes <= limit and ss.active_clusters(
+                                device, mode, S, ss.split_threads(op.vshape, S), nbytes) > 0:
+                            cands[("split", S)] = (run(("split", S)),
+                                                   sweep_kernel(("split", S), None, kernel))
+                    ms = device_ms_medians(cands, 10, 3)
+                    rule_split = ss.split_size(C, op.vshape, op.offsets, mode, device)
+                    rows.append({"field": f"{nx}^3 {label}", "chains": C, "kernel": kernel,
+                                 "passes_ms": ms["passes"],
+                                 "split_ms": {str(k[1]): v for k, v in ms.items()
+                                              if isinstance(k, tuple)},
+                                 "rule_split": rule_split,
+                                 "rule_split_ms": ms.get(("split", rule_split)),
+                                 "route": list(ss.sweep_route(C, plan, mode))})
+                    continue
+                cands = {"generic": (run(ss.BLOCK_ROUTE, body="generic"),
+                                     sweep_kernel(ss.BLOCK_ROUTE, "generic", kernel))}
+                if nx == 63:
+                    cands["passes"] = (run(ss.BLOCK_ROUTE, body="passes"),
+                                       sweep_kernel(ss.BLOCK_ROUTE, "passes", kernel))
+                configs = []
+                for S in SWEEP3D_TABLE_SIZES[nx]:
+                    if S not in fits:
+                        continue
+                    for c_sh in (True, False):
+                        nbytes = v3.smem_bytes(nx, nx, nx, S, c_sh)
+                        if nbytes + ss.SMEM3D_STATIC_SMEM > limit:
+                            continue
+                        for threads in SWEEP3D_TABLE_THREADS:
+                            active = ctypes.c_int(0)
+                            if (lib.sor_smem3d_max_active(mode, S, threads, nbytes,
+                                                          ctypes.byref(active)) or
+                                    active.value < 1):
+                                continue
+                            configs.append((S, c_sh, threads))
+                chosen = ss.smem3d_config(op.vshape, C, mode)
+                if chosen not in configs:
+                    configs.append(chosen)
+                for conf in configs:
+                    cands[conf] = (run(ss.BLOCK_ROUTE, body="smem3d", smem3d=conf),
+                                   SMEM3D_KERNELS[kernel])
+                active = {}
+                for S in ss.SPLIT_SIZES:
+                    if S > nx or nx // S < reach:
+                        continue
+                    nbytes = ss.split_smem_bytes(op.vshape, S, reach, mode)
+                    if nbytes > limit:
+                        continue
+                    active[S] = ss.active_clusters(device, mode, S,
+                                                   ss.split_threads(op.vshape, S), nbytes)
+                    if active[S] > 0:
+                        cands[("split", S)] = (run(("split", S)),
+                                               sweep_kernel(("split", S), None, kernel))
+                ms = device_ms_medians(cands, 10, 3)
+                smem = {c: ms[c] for c in configs if ms[c] is not None}
+                best = min(smem, key=smem.get)
+                rule_split = ss.split_size(C, op.vshape, op.offsets, mode, device)
+                row = {"field": f"{nx}^3 {label}", "chains": C, "kernel": kernel,
+                       "generic_ms": ms["generic"], "passes_ms": ms.get("passes"),
+                       "smem3d_ms": {"/".join(map(str, c)): ms[c] for c in configs},
+                       "split_ms": {str(k[1]): v for k, v in ms.items()
+                                    if isinstance(k, tuple) and k[0] == "split"},
+                       "active_split_clusters": {str(S): a for S, a in active.items()},
+                       "config": list(chosen), "config_ms": ms[chosen],
+                       "fastest": list(best), "fastest_ms": smem[best],
+                       "rule_split": rule_split,
+                       "rule_split_ms": ms.get(("split", rule_split)),
+                       "route": list(ss.sweep_route(C, plan, mode))}
+                row["over_generic"] = (row["config_ms"] / row["generic_ms"]
+                                       if row["config_ms"] and row["generic_ms"] else None)
+                rows.append(row)
+                tag = f"{nx}^3 {kernel} C={C}"
+                if ms[chosen] is None or ms[chosen] > SMEM_ROUTE_SLACK * smem[best]:
+                    faults.append(f"{tag}: the configuration {chosen} takes {ms[chosen]}, "
+                                  f"{best} {smem[best]}")
+                if nx == 63:
+                    if ms["passes"] is not None and ms["passes"] < smem[best]:
+                        faults.append(f"{tag}: the passes' 3d build ({ms['passes']}) beats the "
+                                      f"smem3d body ({smem[best]})")
+                    wins.setdefault((kernel, "3d"), {})[C] = (
+                        row["rule_split_ms"] is not None and ms[chosen] is not None
+                        and row["rule_split_ms"] < SPLIT_CLEAR_WIN * ms[chosen])
+            del b, x
+    thresholds = {}
+    for key, by_count in wins.items():
+        measured = 0
+        for C in sorted(by_count):
+            if not by_count[C]:
+                break
+            measured = C
+        thresholds[str(key)] = {"measured": measured, "constant": ss.SPLIT_MAX_CHAINS[key]}
+        if measured != ss.SPLIT_MAX_CHAINS[key]:
+            faults.append(f"the table supports a split threshold of {measured} chains for "
+                          f"{key}, the constant is {ss.SPLIT_MAX_CHAINS[key]}")
+    return rows, thresholds, faults
+
+
+def phase_sweep3d(device, smi, table):
+    """The smem3d sweeps alone (no result line): their checks
+    (:func:`check_sweep3d`), times (:func:`time_sweep3d`) and paths
+    (:func:`sweep3d_path`) as the volume phase runs them, the kernels'
+    registers; with ``table`` the ``sweep3d_table`` (:func:`time_sweep3d_table`),
+    which fails where a constant is not the one it supports."""
+    from multigridmc_tpu_torch.samplers.base import GeneratorNoise
+
+    out = {"phase": "sweep3d_check", "card": smi}
+    try:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(17)
+        op, _, f = volume_posterior(VOLUME_NX, device)
+        out["max_abs_err"], out["checks"] = check_sweep3d(op, gen)
+        out["timings"] = time_sweep3d(op, GeneratorNoise(VOLUME_SEED + 2, device))
+        out["path"] = sweep3d_path(op, f, device)
+        emit(dict(out, partial=True))
+        if table:
+            out["sweep3d_table"], out["thresholds"], faults = time_sweep3d_table(device)
+            out["sweep3d_table_faults"] = faults
+            if faults:
+                raise AssertionError("sweep3d_table: " + "; ".join(faults))
+    except BaseException:
+        out["failed"] = True
+        raise
+    finally:
+        emit(out)
+
+
 def write_volume_configs(directory, nx, nlevel, nchains, nsamples, nwarmup):
     """``params_volume.cfg`` (the 3d posterior of the bench on an ``nx^3``
     lattice, SOR multigrid, MGMC alone) and ``measurements_volume.cfg``."""
@@ -5996,6 +6523,20 @@ def _volume_parts(out, device):
     main = out["main_path"][f"distilled_{VOLUME_CHAINS[0]}"]
     if out["main_path"][f"composed_{VOLUME_CHAINS[0]}"]["launches"]:
         raise AssertionError("volume: the composed variant launched visit kernels")
+    # the composed step's Gibbs sweeps: every smoothed level (all but the
+    # coarsest, which Cholesky samples) through the route and body it takes
+    from multigridmc_tpu_torch.ops.kernels import sor_sweep as ss
+
+    for C in VOLUME_CHAINS:
+        want = set()
+        for lop in samplers["composed"].hierarchy.operators[:-1]:
+            route = ss.split_route(C, lop.vshape, lop.offsets, 1, device)
+            body = ss.sweep_body(lop.vshape, lop.offsets, ss.smem_limit_of(device))
+            want.add(ss._count_name("gibbs_sweep_batched", route, body))
+        got = out["main_path"][f"composed_{C}"]["sweep_launches"]
+        if set(got) != want:
+            raise AssertionError(f"volume: the composed step at {C} chains launched the sweeps "
+                                 f"{got}, its levels' routes give {sorted(want)}")
     del samplers["every_level_fused"], samplers["composed"]
     sampler = samplers["distilled"]
     levels = sampler.fused_levels
@@ -6043,6 +6584,11 @@ def _volume_parts(out, device):
                                                   "smem", "volume") for li in (0, 1)]
     out["smem_kernel_attributes"] = smem_kernel_attributes(dim=3)
     parts["timings"] = time.perf_counter() - t0 - sum(parts.values())
+    # the 3d 7-point sweeps on the smem3d body: checks, times, the paths at 128 chains
+    out["sweep3d_errs"], out["sweep3d_checks"] = check_sweep3d(op, gen)
+    out["sweep3d_timings"] = time_sweep3d(op, GeneratorNoise(VOLUME_SEED + 2, device))
+    out["sweep3d_path"] = sweep3d_path(op, f, device)
+    parts["sweep3d"] = time.perf_counter() - t0 - sum(parts.values())
     out["statistics"] = volume_gate(sampler, op, device)
     b0 = out["statistics"]["measurement_0"]
     emit({"volume_B0": {"before": B0_BEFORE,
@@ -6694,7 +7240,9 @@ def main(argv=None) -> int:
                              "visits' stamps and checks alone, 'volume_table' with the 3d "
                              "smem kernels' route and placement table, 'ssor_check' the 2d "
                              "two-sweep smem visits' stamps and checks alone, 'ssor_table' "
-                             "with their route and placement table; 'multichip' four ranks "
+                             "with their route and placement table, 'sweep3d_check' the "
+                             "smem3d sweeps' checks, times and paths alone, 'sweep3d_table' "
+                             "with their configuration and route table; 'multichip' four ranks "
                              "over NCCL, one card each: the chains path and the 2x2 lattice "
                              "cycle); the ok line needs exactly the default ten")
     args = parser.parse_args(argv)
@@ -6738,6 +7286,8 @@ def main(argv=None) -> int:
         phase_volume_check(device, smi, "volume_table" in phases)
     if phases & {"ssor_check", "ssor_table"}:  # the 2d two-sweep visits alone (no result line)
         phase_ssor_check(device, smi, "ssor_table" in phases)
+    if phases & {"sweep3d_check", "sweep3d_table"}:  # the smem3d sweeps alone (no result line)
+        phase_sweep3d(device, smi, "sweep3d_table" in phases)
     if "sweep_check" in phases:  # the one-block sweeps against their plain versions alone
         gen = torch.Generator(device=device)
         gen.manual_seed(11)
@@ -6882,12 +7432,16 @@ def main(argv=None) -> int:
     # one-chain SSOR series and drivers.mg's solve with its levels composed;
     # the one-block route's passes body: the replica chains of the convergence
     # tables and the distillation's set-up).  The passes body's 3d build at
-    # 32 x 31^3 27-point and its reach-2 build at 256 x 127^2 25-point (no
-    # path of this script: the composed 3d step splits its 32 chains, the
-    # composed biharmonic step is not driven).  The generic body of
-    # sor_sweep.cu at 32 x 63^3 7-point, the body that shape takes (the
-    # composed 3d step splits it too: no path)
+    # 32 x 31^3 27-point, its launches those of the volume phase's composed
+    # step at 32 chains (its 31^3 27-point level; every sweep of that run is
+    # 3d, so the passes body's count is the 3d build's), and its reach-2
+    # build at 256 x 127^2 25-point (no path: the composed biharmonic step is
+    # not driven).  The generic body of sor_sweep.cu at 32 x 63^3 7-point,
+    # beside the smem3d body that shape takes now, its launches too those of
+    # the composed step (none: the reference the bodies are held to)
     vol_main = volume["main_path"][f"distilled_{VOLUME_CHAINS[0]}"]
+    composed_name = f"composed_{VOLUME_CHAINS[0]}"
+    composed = volume["main_path"][composed_name]["sweep_launches"]
     st = next(t for t in sweep_timings if t["case"] == "2d_255_5pt_one_chain")
     wide = next(t for t in sweep_timings if t["case"] == "2d_255_5pt")
     galerkin = next(t for t in sweep_timings if t["case"] == "2d_127_9pt_galerkin")
@@ -6901,9 +7455,12 @@ def main(argv=None) -> int:
                               ("passes_reach2_", "sor_sweep_passes.cu")):
             entry = name + ("_" + route[:-1] if route else "")
             t = {"generic_": generic, "passes_3d_": dim3, "passes_reach2_": reach2}.get(route, st)
-            prefix = route if route == "split_" else ""
+            prefix = route if route in ("split_", "generic_") else ""
             launches, path, err = driver_counts.get(entry, 0), "drivers", errs.get(entry)
-            if route in ("generic_", "passes_3d_", "passes_reach2_"):
+            if route in ("generic_", "passes_3d_"):
+                launches = composed.get(name + ("_generic" if route == "generic_" else ""), 0)
+                path = f"volume {composed_name}" if launches else None
+            elif route == "passes_reach2_":
                 launches, path = 0, None
             if route in ("passes_3d_", "passes_reach2_"):
                 err = errs[name]
@@ -6942,6 +7499,54 @@ def main(argv=None) -> int:
                         "generic_device_ms": w[f"generic_{key}_device_ms"],
                         "plain_ms": w[f"{key}_plain_ms"], "bound_ms": w["bound_ms"],
                         "bound_by": w["bound_by"], "bound_bytes": w["bound_bytes"]}
+    # the smem3d body (sor_sweep_smem3d.cu: the 3d 7-point form of rows 4 /
+    # 5 on fields too large for one block) at 128 x 63^3 on the paths at full
+    # width (phase volume's sweep3d_path): the 64^3 SSOR Gibbs sampler (the
+    # Gibbs kernel, twice a step) and the solve of 128 right-hand sides (the
+    # deterministic kernel); 32 chains and the generic body beside
+    s3 = volume["sweep3d_path"]
+    for name, key, kernel_line in (("sweep_batched", "sweep", 194),
+                                   ("gibbs_sweep_batched", "gibbs", 246)):
+        entry = f"{name}_smem3d"
+        t, t32 = (next(r for r in volume["sweep3d_timings"] if r["chains"] == c)
+                  for c in (SWEEP3D_PATH["chains"], SWEEP3D_CHAINS[0]))
+        on = s3["smem3d"] if key == "gibbs" else s3["solve"]
+        kernels.append({
+            "name": entry, "route": "cuda",
+            "source": "multigridmc_tpu_torch/csrc/sor_sweep_smem3d.cu",
+            "replaces": f"multigridmc_tpu/ops/kernels/sor_pallas_v2.py:{kernel_line}",
+            "launches": on["launches"].get(entry, 0),
+            "path": "volume sweep3d_path " + ("ssor_sampler" if key == "gibbs" else "solve"),
+            "max_abs_err": max(volume["sweep3d_errs"][entry], errs.get(entry, 0.0)),
+            "against_generic_max_abs_err": max(r["against_generic"]
+                                               for r in volume["sweep3d_checks"]),
+            "ms": t[f"{key}_ms"], "device_ms": t[f"{key}_device_ms"],
+            "events_over_device": t[f"{key}_events_over_device"],
+            "plain_ms": t[f"{key}_plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "bound_bytes": t["bound_bytes"], "library_ms": None,
+            "generic_ms": t[f"generic_{key}_ms"],
+            "generic_device_ms": t[f"generic_{key}_device_ms"],
+            "over_generic": t[f"{key}_over_generic"],
+            "shape": {"chains": t["chains"], "vshape": t["vshape"], "b_batched": False,
+                      **t[f"{key}_config"]},
+            "at_32_chains": {"device_ms": t32[f"{key}_device_ms"],
+                             "generic_device_ms": t32[f"generic_{key}_device_ms"],
+                             "bound_ms": t32["bound_ms"], "plain_ms": t32[f"{key}_plain_ms"],
+                             **t32[f"{key}_config"]},
+            "per_pass_us": t["stamps"][key]["passes"],
+            "registers": t["stamps"][key]["registers"],
+            "local_bytes": t["stamps"][key]["local_bytes"],
+            "barriers_per_launch": t["stamps"][key]["barriers_per_block"][0],
+            **({"path_sweep_device_ms": s3["smem3d"]["sweep_device_ms"],
+                "path_generic_sweep_device_ms": s3["generic"]["sweep_device_ms"],
+                "path_ms_per_step": s3["smem3d"]["ms_per_step"],
+                "path_generic_ms_per_step": s3["generic"]["ms_per_step"]}
+               if key == "gibbs" else {}),
+            "design": "each chain's field in slabs of z-planes over a cluster of up to 16 "
+                      "blocks (the 3d visits' slab helpers and tables), the neighbours' edge "
+                      "planes copied into ghost planes after each cluster barrier, interior "
+                      "points with scalar coefficients and no bounds test, the diagonal's "
+                      "reciprocal, x copied in and written back once"})
     # the four raw-array entry points share those kernels (one chain: the
     # split route, many: the passes body); their launches are those of their
     # own path (drive_v1_path)

@@ -65,6 +65,10 @@
 //   block that owns fine plane 2I + 1, whose planes 2I and 2I + 2 may lie in
 //   the neighbours' slabs; the prolongation reads x_c from device memory.
 //
+// The slab helpers (slab_of, the copy-in and write-back, the ghost copy, the
+// cluster barrier, the launch's cluster attributes) live in slab3d.cuh, which
+// the 3d 7-point sweeps of sor_sweep_smem3d.cu share.
+//
 // Barriers (smem_sync; the stamps build counts and stamps each): an ascend's
 // copy-in (a descend's lands during its first rhs, behind that barrier), per
 // direction the rhs, each colour and (m > 0) the slabs' shares of B^T x, then a
@@ -84,14 +88,12 @@
 #define VISIT_DIM 3
 #define MAX_OFFSETS 27
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "block_stamps.cuh"
+#include "slab3d.cuh"
 #include "visit_phases.cuh"
-
-namespace cg = cooperative_groups;
 
 #define SMEM_MAX_CLUSTER 16
 // the sweep directions a launch may hold: one (SOR) or two (SSOR)
@@ -129,59 +131,6 @@ struct SmemVolumeParams {
 };
 
 extern __shared__ __align__(16) float smem_slab[];
-
-// first plane and number of planes of rank k of S over Z planes: the first
-// Z % S ranks take one more
-__device__ __forceinline__ void slab_of(int Z, int S, int k, int* z0, int* nz) {
-    const int base = Z / S, rem = Z % S;
-    *nz = base + (k < rem ? 1 : 0);
-    *z0 = k * base + (k < rem ? k : rem);
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// A barrier of the cluster (of the block where S is 1 or `block` is set),
-// counted and stamped by thread 0 in the stamps build.
-template <bool STAMPS>
-__device__ __forceinline__ void smem_sync(cg::cluster_group& cluster, int S, bool block = false) {
-    if (S > 1 && !block)
-        cluster.sync();
-    else
-        __syncthreads();
-    if (STAMPS && threadIdx.x == 0) {
-        ++pass_sync_count;
-        pass_stamp_row[pass_sync_count] = global_timer();
-    }
-}
-
-// The ghost copy: the neighbours' edge planes (rank - 1's last, rank + 1's
-// first) into this block's ghost planes, every point of the plane, then a
-// block barrier.  Called after a cluster barrier, before a pass that reads
-// across a cut.
-__device__ __forceinline__ void ghost_copy(const SmemVolumeParams& SP, float* xs, const float* xlo,
-                                           const float* xhi, int rank, int nz, int lo_nz, int Y,
-                                           int W) {
-    const int PX = SP.PX, PP = SP.PP, n2 = Y * W;
-    const bool lo = rank > 0, hi = rank + 1 < SP.S;
-    for (int t = threadIdx.x; t < (lo + hi) * n2; t += blockDim.x) {
-        const bool up = !lo || t >= n2;
-        const int e = up && lo ? t - n2 : t;
-        const int y = e / W, j = e - y * W;
-        const int off = (y + 1) * PX + j + 1;
-        if (up)
-            xs[(nz + 1) * PP + off] = xhi[PP + off];
-        else
-            xs[off] = xlo[lo_nz * PP + off];
-    }
-    __syncthreads();
-}
 
 // (A_stencil x) at an edge point (slab plane lz, row y, column j, field index
 // p): the planes that vary read from device memory, the terms in offset order
@@ -280,18 +229,7 @@ smem_volume_kernel(const __grid_constant__ SmemVolumeParams SP, const int* __res
     // 1. the slab of x into its padded planes, the halo and the ghost planes
     //    zeroed; f's slab into c where c is in shared memory and no noise is
     //    drawn
-    WARP_ROWS(r, (nz + 2) * (Y + 2)) {
-        const int pl = r / (Y + 2), yy = r - pl * (Y + 2);
-        const int lz = pl - 1, y = yy - 1;
-        const bool live = lz >= 0 && lz < nz && y >= 0 && y < Y;
-        for (int jq = lane; jq < PX; jq += 32) {
-            const int j = jq - 1;
-            if (live && j >= 0 && j < W)
-                cp_async4(xs + r * PX + jq, x + first + (lz * Y + y) * W + j);
-            else
-                xs[r * PX + jq] = 0.0f;
-        }
-    }
+    slab_load(xs, x + first, nz, Y, W, PX);
     if (csh && !P.noise_mode)
         for (int t = tid; t < nz * n2; t += nthreads) cp_async4(cs + t, f + first + t);
     if (!DESCEND) {  // the prolongation reads x; a descend's rhs does not: its copy
@@ -372,7 +310,7 @@ smem_volume_kernel(const __grid_constant__ SmemVolumeParams SP, const int* __res
         const float omega = P.omega;
         const float dval = SP.cval[P.diag_index];
         for (int o = 0; o < P.n_order; ++o) {
-            if (S > 1) ghost_copy(SP, xs, xlo, xhi, rank, nz, lo_nz, Y, W);
+            if (S > 1) ghost_copy(S, PX, PP, xs, xlo, xhi, rank, nz, lo_nz, Y, W);
             const int e0 = __ldg(head + o), count = __ldg(head + o + 1) - e0;
             const int plain = __ldg(head + MAX_COLORS + 1 + o);
             //    the interior points, SMEM_POINTS a thread at once: their entries
@@ -486,11 +424,7 @@ smem_volume_kernel(const __grid_constant__ SmemVolumeParams SP, const int* __res
     // residual reads the neighbours' planes or a block leaves
     smem_sync<STAMPS>(cluster, S);
     //    the slab back to device memory, once
-    WARP_ROWS(lr, nrows) {
-        const int lz = lr / Y, y = lr - lz * Y;
-        for (int j = lane; j < W; j += 32)
-            x[first + lr * W + j] = xs[((lz + 1) * (Y + 2) + y + 1) * PX + j + 1];
-    }
+    slab_store(xs, x + first, nz, Y, W, PX);
 
     if (DESCEND) {
         // 5. r = f - A x - sum_k t_k B_k over the slab (c's place), the slab's
@@ -498,7 +432,7 @@ smem_volume_kernel(const __grid_constant__ SmemVolumeParams SP, const int* __res
         //    per row of 31 or 63 points left most of its chains idle); a point
         //    within the margin of a face takes edge_ax, one inside the
         //    columns' boxes the low-rank term
-        if (S > 1) ghost_copy(SP, xs, xlo, xhi, rank, nz, lo_nz, Y, W);
+        if (S > 1) ghost_copy(S, PX, PP, xs, xlo, xhi, rank, nz, lo_nz, Y, W);
         float* rs = csh ? cs - first : scr;  // r[p] for p in the slab
         const int mg = SP.margin, npts = nz * n2;
         int ub[BOX_INTS] = {1 << 30, 0, 1 << 30, 0, 1 << 30, 0};  // the boxes' union
@@ -604,33 +538,6 @@ static const void* smem_kernel(int descend, int kmax) {
         return descend ? (const void*)smem_volume_kernel<27, true, ST>
                        : (const void*)smem_volume_kernel<27, false, ST>;
     return nullptr;
-}
-
-// ------------------------------------------------------------ host helpers
-static int planes_of_widest(int Z, int S) { return (Z + S - 1) / S; }
-
-// the cluster sizes up to 16, and the dynamic shared memory asked for (every
-// launch: below 48 KiB the static share may still take the sum over it)
-static cudaError_t configure(const void* fn, int bytes) {
-    cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e == cudaSuccess)
-        e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    return e;
-}
-
-static void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int blocks, int S,
-                           int threads, int bytes, cudaStream_t stream) {
-    *cfg = cudaLaunchConfig_t{};
-    cfg->gridDim = dim3(blocks, 1, 1);
-    cfg->blockDim = dim3(threads, 1, 1);
-    cfg->dynamicSmemBytes = bytes;
-    cfg->stream = stream;
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = S;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg->attrs = attr;
-    cfg->numAttrs = 1;
 }
 
 // ------------------------------------------------------------ C entry points

@@ -42,12 +42,12 @@ BUILD_DIR = _PACKAGE_DIR / "build"
 
 #: headers under ``csrc/`` that the kernel sources include
 HEADERS = ("philox.cuh", "visit_phases.cuh", "level_passes.cuh", "sor_sweep.cuh",
-           "block_stamps.cuh")
+           "block_stamps.cuh", "slab3d.cuh")
 
 #: every kernel source under ``csrc/`` (``<name>.cu``)
 SOURCES = ("mgmc_visit", "mgmc_visit_stream", "mgmc_visit_split", "mgmc_visit_smem",
            "mgmc_visit_smem3d", "sor_sweep", "sor_sweep_passes", "sor_sweep_smem",
-           "sor_sweep_cluster", "mgmc_subtree", "smem_probe")
+           "sor_sweep_smem3d", "sor_sweep_cluster", "mgmc_subtree", "smem_probe")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -57,8 +57,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: first)
 PHASE_STAMPS_FLAGS = ("-DPHASE_STAMPS_BUILD=1",)
 #: the flags of the sweep kernels' stamps builds, second libraries of
-#: ``csrc/sor_sweep_passes.cu``, ``csrc/sor_sweep_smem.cu`` and
-#: ``csrc/sor_sweep.cu``
+#: ``csrc/sor_sweep_passes.cu``, ``csrc/sor_sweep_smem.cu``,
+#: ``csrc/sor_sweep_smem3d.cu`` and ``csrc/sor_sweep.cu``
 SWEEP_STAMPS_FLAGS = ("-DSWEEP_STAMPS_BUILD=1",)
 
 #: the flags of the phase visit kernels' reach-2 build, a third library of
@@ -91,7 +91,7 @@ SUBTREE_REACH2_PARTS = {"production": SUBTREE_REACH2_FLAGS,
 #: every library the port builds: each source of :data:`SOURCES`, the stamps
 #: builds of ``mgmc_visit`` (reach 1, reach 2 and 3d), ``mgmc_visit_smem``,
 #: ``mgmc_visit_smem3d``,
-#: ``sor_sweep_passes``, ``sor_sweep_smem`` and
+#: ``sor_sweep_passes``, ``sor_sweep_smem``, ``sor_sweep_smem3d`` and
 #: ``sor_sweep``, the reach-2 and 3d builds of ``mgmc_visit`` and of
 #: ``sor_sweep_passes`` and the reach-2 build of ``mgmc_subtree`` in its three
 #: libraries (:data:`VARIANT_BUILDS`);
@@ -103,7 +103,8 @@ STAMPS_BUILDS = (("mgmc_visit", PHASE_STAMPS_FLAGS), ("sor_sweep_passes", SWEEP_
                  ("mgmc_visit", PHASE_REACH2_STAMPS_FLAGS),
                  ("mgmc_visit_smem", SMEM_VISIT_STAMPS_FLAGS),
                  ("mgmc_visit", PHASE_DIM3_STAMPS_FLAGS),
-                 ("mgmc_visit_smem3d", SMEM_VISIT_STAMPS_FLAGS))
+                 ("mgmc_visit_smem3d", SMEM_VISIT_STAMPS_FLAGS),
+                 ("sor_sweep_smem3d", SWEEP_STAMPS_FLAGS))
 VARIANT_BUILDS = (("mgmc_visit", PHASE_REACH2_FLAGS), ("mgmc_visit", PHASE_DIM3_FLAGS),
                   ("sor_sweep_passes", PHASE_REACH2_FLAGS),
                   ("sor_sweep_passes", PHASE_DIM3_FLAGS)) + tuple(

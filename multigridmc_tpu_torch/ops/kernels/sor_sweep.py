@@ -41,10 +41,20 @@ takes one of them by its **route** (:func:`sweep_route`):
     once, every colour phase on shared memory, each colour's points over all
     threads from a table the host builds (:func:`smem_tables`), ``x`` written
     back once;
-  - ``"generic"``, ``csrc/sor_sweep.cu``: every stencil the two others do not
-    take (2d reach 3 and more, 3d reach 2, 3d fields of at most 7 offsets too
-    large for shared memory: 63^3), and the reference that ``chip_smoke.py``
-    holds the two others against (``1e-6``);
+  - ``"smem3d"``, ``csrc/sor_sweep_smem3d.cu`` for the 3d fields of at most 7
+    offsets (reach 1) that do not fit one block's shared memory but whose
+    chain fits a cluster of at most 16 blocks (:func:`smem3d_fits`) and whose
+    launch configurations were measured (:data:`SMEM3D_SWEEPS`: the 64^3
+    posterior's 63^3, a 32^3 lattice's 31^3): each chain's field in slabs of
+    z-planes over a thread-block cluster, the neighbours' edge planes copied
+    into ghost planes after each cluster barrier, each colour's points from
+    the 3d visits' tables (``mgmc_visit_smem3d.visit_tables``), the cluster
+    size, the rhs's place and the block size by chain count
+    (:func:`smem3d_config`);
+  - ``"generic"``, ``csrc/sor_sweep.cu``: every stencil the others do not
+    take (2d reach 3 and more, 3d reach 2, 3d 7-point fields too large for a
+    cluster or not in :data:`SMEM3D_SWEEPS`), and the reference that ``chip_smoke.py`` holds the others
+    against (``1e-6``);
 * ``"split"``: ``csrc/sor_sweep_cluster.cu``, each chain split over a
   thread-block cluster of ``S`` blocks, each block's band of rows (2d) or
   planes (3d) in shared memory, the halo read from the neighbouring blocks'
@@ -70,8 +80,8 @@ the colour phases read again are traffic to L2 on top of that.
 
 The one-block sources have a stamps build, a library of its own
 (``common.SWEEP_STAMPS_FLAGS``; the passes body's reach-1 build only), that
-times the Gibbs rhs pass (the shared-memory body: the copy-in) and each colour
-phase of a launch (:func:`sweep_pass_times`).
+times the Gibbs rhs pass (the shared-memory bodies: the copy-in) and each
+colour phase of a launch (:func:`sweep_pass_times`).
 
 Beside each kernel stands its **plain PyTorch version**
 (:func:`sweep_batched_plain`, which is ``smoothers.sor_sweep``, and
@@ -114,12 +124,14 @@ MAX_COLORS = 9
 SOURCE_NAME = "sor_sweep"
 PASSES_SOURCE_NAME = "sor_sweep_passes"
 SMEM_SOURCE_NAME = "sor_sweep_smem"
+SMEM3D_SOURCE_NAME = "sor_sweep_smem3d"
 SPLIT_SOURCE_NAME = "sor_sweep_cluster"
 
-#: the three bodies of the one-block route: the passes of ``level_passes.cuh``
-#: (``sor_sweep_passes.cu``), the shared-memory body (``sor_sweep_smem.cu``)
-#: and the generic body (``sor_sweep.cu``)
-BODIES = ("passes", "smem", "generic")
+#: the four bodies of the one-block route: the passes of ``level_passes.cuh``
+#: (``sor_sweep_passes.cu``), the shared-memory body (``sor_sweep_smem.cu``),
+#: its 3d slabs over a cluster (``sor_sweep_smem3d.cu``) and the generic body
+#: (``sor_sweep.cu``)
+BODIES = ("passes", "smem", "smem3d", "generic")
 #: the most offsets and colours the passes' reach-1 build takes
 #: (``MAX_OFFSETS``, ``MAX_COLORS`` of ``visit_phases.cuh``)
 PASSES_MAX_OFFSETS = 9
@@ -130,9 +142,13 @@ WIDE_MAX_OFFSETS = 13
 #: the block bound of the passes' reach-2 and 3d builds (``PASSES_MAX_THREADS``)
 PASSES_WIDE_MAX_THREADS = 512
 #: the fewest offsets of a 3d stencil the passes' 3d build takes where the field
-#: does not fit shared memory: a 7-point 63^3 sweep at 32 chains took 0.74 ms a
-#: launch on it (1024 threads; 0.86 at 512) against the generic body's 0.64 on
-#: an H100 (PERF.md), the 27-point 31^3 0.115 against 0.481
+#: does not fit shared memory (fewer take the smem3d body where a cluster
+#: holds the chain, else the generic body): a 7-point 63^3 sweep at 32 chains
+#: took 0.74 ms a launch on it (1024 threads; 0.86 at 512) against the
+#: generic body's 0.64, and 0.869 against the smem3d body's 0.112 (at 128
+#: chains 0.896 against 0.382), the 27-point 31^3 0.115 against the generic
+#: body's 0.481, on an H100 80GB HBM3, 700.00 W (PERF.md; the
+#: ``sweep3d_table`` of ``chip_smoke.py``)
 PASSES_DIM3_MIN_OFFSETS = 8
 
 #: The shared-memory body takes a field whose block needs at most
@@ -169,8 +185,53 @@ SWEEP_STAMP_WIDTH = 2 + MAX_COLORS + 3
 PASSES_STAMP_WIDTH = 2 + PASSES_MAX_COLORS + 3
 #: the stamps width of each one-block body (the shared-memory body's is the
 #: generic body's: ``sor_sweep.cuh``, 9 colours)
+#: int64 words per block of the smem3d body's stamps (``SWEEP3D_STAMP_WIDTH``
+#: of ``sor_sweep_smem3d.cu``): the timer at entry, after the copy-in and up
+#: to 8 colours, at exit, the barriers passed, the SM; one row per block,
+#: ``C S`` rows
+SMEM3D_STAMP_WIDTH = 2 + 8 + 3
 STAMP_WIDTHS = {"generic": SWEEP_STAMP_WIDTH, "smem": SWEEP_STAMP_WIDTH,
-                "passes": PASSES_STAMP_WIDTH}
+                "passes": PASSES_STAMP_WIDTH, "smem3d": SMEM3D_STAMP_WIDTH}
+
+#: The smem3d body (``sor_sweep_smem3d.cu``): the stencil size its kernels
+#: are compiled for, the largest cluster and block, and its kernels' static
+#: shared memory at most (the stamps build's barrier count and stamps
+#: pointer)
+SMEM3D_KMAX = 7
+SMEM3D_MAX_CLUSTER = 16
+SMEM3D_MAX_THREADS = 1024
+SMEM3D_STATIC_SMEM = 16
+
+#: Per field shape and kernel ``(Z, Y, X, kernel)``: the chain counts
+#: ``(least, most)`` (``most`` None: no upper bound) of each launch
+#: configuration ``(S, c_shared, threads)`` of the smem3d body
+#: (:func:`smem3d_config`), every count from one chain on.  A shape not listed
+#: takes the generic body (:func:`sweep_body`) until its rows are measured, as
+#: a 3d level that ``mgmc_visit_smem3d.SMEM3D_ROUTES`` does not list takes the
+#: phase kernels.  From the ``sweep3d_table`` of ``chip_smoke.py``
+#: (``--phases sweep3d_table``): device ms per launch at 1 .. 256 chains of
+#: every cluster size that fits, the rhs in shared memory or not, 512 or 1024
+#: threads, ``b`` per chain, on the 64^3 posterior's 63^3 and a 32^3
+#: lattice's 31^3 7-point fields, NVIDIA H100 80GB HBM3, 700.00 W (PERF.md
+#: section 6 holds the table).  A range runs from a measured count to the next
+#: one's predecessor and takes the configuration that was fastest at its first
+#: count.  Few chains take clusters of 16 (63^3 at one chain: 0.0266 ms a
+#: deterministic sweep, the generic body 0.5505), many take the fewest blocks a
+#: chain that fill the card, the rhs in device memory (63^3 at 128 chains:
+#: clusters of 8, one block an SM, 0.3819 ms against 0.6629; 31^3 at 128: one
+#: block a chain, 0.0440 against 0.1359).
+SMEM3D_SWEEPS: Dict[Tuple[int, int, int, str],
+                    Tuple[Tuple[int, Optional[int], int, bool, int], ...]] = {
+    (63, 63, 63, "sweep"): ((1, 7, 16, False, 1024), (8, 15, 8, False, 1024),
+                            (16, 63, 6, False, 1024), (64, None, 8, False, 1024)),
+    (63, 63, 63, "gibbs"): ((1, 7, 16, True, 1024), (8, 15, 8, False, 1024),
+                            (16, 63, 6, False, 1024), (64, None, 16, False, 512)),
+    (31, 31, 31, "sweep"): ((1, 7, 16, False, 512), (8, 15, 8, False, 512),
+                            (16, 31, 4, False, 1024), (32, 127, 2, False, 1024),
+                            (128, None, 1, False, 1024)),
+    (31, 31, 31, "gibbs"): ((1, 7, 16, True, 512), (8, 15, 8, True, 1024),
+                            (16, 31, 4, True, 1024), (32, 127, 2, True, 1024),
+                            (128, None, 2, False, 512))}
 
 #: Block sizes of the passes body (:func:`sweep_threads`), from ``chip_smoke.py
 #: --phases sweep_threads`` (device ms per launch at 256 / 512 / 1024 threads,
@@ -223,8 +284,9 @@ SPLIT_TABLE_INTS = MAX_COLORS * MAX_COLORS
 #: Launches of at most this many chains take the split route where its bands
 #: fit and its cluster schedules, more take one block per chain, by kernel and
 #: by the stencil's class (:func:`split_stencil`: the passes body's stencils of
-#: at most 5 offsets, its stencils of 6-9 offsets, 3d fields, and 2d stencils
-#: of reach 2 and wider; :func:`split_max_chains`).  Of the cluster
+#: at most 5 offsets, its stencils of 6-9 offsets, 3d stencils of fewer than
+#: :data:`PASSES_DIM3_MIN_OFFSETS` offsets, the other 3d stencils, and 2d
+#: stencils of reach 2 and wider; :func:`split_max_chains`).  Of the cluster
 #: sizes that fit, the route takes the one of least
 #: ``waves * (1 / S + SPLIT_WAVE_FIXED)``: a launch of ``C`` chains runs in
 #: ``waves = ceil(C / active)`` waves of clusters (``active``: the clusters of
@@ -238,36 +300,46 @@ SPLIT_TABLE_INTS = MAX_COLORS * MAX_COLORS
 #: time per sweep of both routes (the split route at every cluster size that
 #: fits) at 1 .. 256 chains on two fields of each class (255^2 5-point and
 #: 127^2 5-point space-varying; 255^2 and 127^2 9-point Galerkin; 63^3
-#: 7-point and 63^2 13-point of reach 2), NVIDIA H100 80GB HBM3, 700.00 W.
+#: 7-point, 31^3 27-point Galerkin and 63^2 13-point of reach 2; a field's
+#: counts end where both kernels' split route has lost), NVIDIA H100 80GB
+#: HBM3, 700.00 W.
 #: Against the passes body the split route takes less than 0.9 of its time up
 #: to 16 chains for the 5-point sweep (255^2 at 16: 0.0382 against 0.0445 ms;
 #: at 32 0.0630 against 0.0447), up to 32 for the 5-point Gibbs sweep (255^2 at
 #: 32: 0.0707 against 0.0829), up to 16 for the 9-point Gibbs sweep (127^2:
 #: 0.0218 against 0.0261), and at no count for the 9-point sweep (127^2, one
 #: chain: 0.0194 against 0.0159, where 255^2 takes 0.0244 against 0.0440: a
-#: class's threshold is the least of its fields'); on 3d fields (the 63^3
-#: 7-point field, against the generic body) up to 64 chains for both kernels
-#: (63^3 at 64: 0.458 against 0.650 ms, at 132 0.829 against 0.664); on 2d
-#: stencils of reach 2 (the 63^2 13-point field, against the shared-memory
-#: body) at no count.  (The two were one class, measured on the generic body,
-#: up to 64 chains both, until the shared-memory body took the reach-2 field:
-#: on it the field's sweep took the split route within 0.90 of one block's
-#: time at 32 chains and 0.898-0.902 at 64, a threshold no table decides.)
-#: PERF.md section 6 holds the table.
+#: class's threshold is the least of its fields'); on 3d 7-point fields (the
+#: 63^3 field, against the smem3d body; the generic body, which it
+#: replaced, gave 64 chains) at no count (one chain: 0.0462 against 0.0266
+#: ms); on the other 3d stencils (the 31^3 27-point Galerkin level, against the
+#: passes' 3d build; once one class "3d" with the 7-point fields)
+#: up to 8 chains for the sweep (8: 0.0761 against 0.1126, 16: 0.1217 against
+#: 0.1132) and up to 16 for the Gibbs sweep (16: 0.1145 against 0.1580, 32:
+#: 0.1799 against 0.1591); on 2d stencils of reach 2 (the 63^2 13-point field,
+#: against the shared-memory body) at no count.  (The reach-2 and 3d fields
+#: were one class, measured on the generic body, up to 64 chains both, until
+#: the shared-memory body took the reach-2 field: on it the field's sweep took
+#: the split route within 0.90 of one block's time at 32 chains and
+#: 0.898-0.902 at 64, a threshold no table decides.)  PERF.md section 6 holds
+#: the table.
 SPLIT_MAX_CHAINS: Dict[Tuple[str, str], int] = {
     ("sweep", "5-point"): 16, ("gibbs", "5-point"): 32,
     ("sweep", "9-point"): 0, ("gibbs", "9-point"): 16,
-    ("sweep", "3d"): 64, ("gibbs", "3d"): 64,
+    ("sweep", "3d"): 0, ("gibbs", "3d"): 0,
+    ("sweep", "3d 27-point"): 8, ("gibbs", "3d 27-point"): 16,
     ("sweep", "reach-2"): 0, ("gibbs", "reach-2"): 0}
 SPLIT_WAVE_FIXED = 0.025
 
 #: kernel launches made by the wrappers (and only where they launch); the
 #: ``_split`` entries count the split route, the ``_smem`` entries the
-#: one-block route's shared-memory body, the ``_generic`` entries its generic
-#: body, the entries without a suffix its passes body (every build)
+#: one-block route's shared-memory body, the ``_smem3d`` entries its 3d
+#: slabs over a cluster, the ``_generic`` entries its generic body, the
+#: entries without a suffix its passes body (every build)
 launch_counts: Dict[str, int] = {
     "sweep_batched": 0, "gibbs_sweep_batched": 0,
     "sweep_batched_smem": 0, "gibbs_sweep_batched_smem": 0,
+    "sweep_batched_smem3d": 0, "gibbs_sweep_batched_smem3d": 0,
     "sweep_batched_generic": 0, "gibbs_sweep_batched_generic": 0,
     "sweep_batched_split": 0, "gibbs_sweep_batched_split": 0,
     "fused_sor_sweep": 0, "fused_sor_sweep_batched": 0,
@@ -320,6 +392,29 @@ class SmemSweepParams(ctypes.Structure):
         ("n_order", ctypes.c_int),
         ("start", ctypes.c_int * (MAX_COLORS + 1)),
         ("plain", ctypes.c_int * MAX_COLORS),
+        ("omega", ctypes.c_float),
+        ("noise_mode", ctypes.c_int),
+        ("ns_const", ctypes.c_int),
+        ("ns_val", ctypes.c_float),
+        ("b_batched", ctypes.c_int),
+        ("seed", ctypes.c_ulonglong),
+        ("counter", ctypes.c_ulonglong),
+    ]
+
+
+class Smem3dSweepParams(ctypes.Structure):
+    """Mirror of ``struct Smem3dSweepParams`` in ``csrc/sor_sweep_smem3d.cu``."""
+
+    _fields_ = [
+        ("C", ctypes.c_int), ("Z", ctypes.c_int), ("Y", ctypes.c_int), ("X", ctypes.c_int),
+        ("S", ctypes.c_int), ("PX", ctypes.c_int), ("PP", ctypes.c_int),
+        ("nz_max", ctypes.c_int), ("c_shared", ctypes.c_int),
+        ("K", ctypes.c_int), ("diag_index", ctypes.c_int),
+        ("soff", ctypes.c_int * SMEM3D_KMAX),
+        ("cval", ctypes.c_float * SMEM3D_KMAX),
+        ("rdiag", ctypes.c_float),
+        ("planes", ctypes.c_uint),
+        ("n_order", ctypes.c_int),
         ("omega", ctypes.c_float),
         ("noise_mode", ctypes.c_int),
         ("ns_const", ctypes.c_int),
@@ -448,6 +543,49 @@ def load_smem_library(stamps: bool = False) -> ctypes.CDLL:
     lib.sor_smem_gibbs_sweep.argtypes = ([ctypes.POINTER(SmemSweepParams)] + [ptr] * 7
                                          + [i32, i32, i32, ptr, ptr])
     lib.sor_smem_gibbs_sweep.restype = i32
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_smem3d_library(stamps: bool = False) -> ctypes.CDLL:
+    """Build (at first use) and load the smem3d body's library (the 3d 7-point
+    sweeps in slabs over a cluster), or with ``stamps`` its stamps build."""
+    from . import mgmc_visit_smem3d as v3
+
+    lib = open_library(SMEM3D_SOURCE_NAME, SWEEP_STAMPS_FLAGS if stamps else ())
+    _check_stamps_library(lib, "sor_smem3d", stamps, SMEM3D_STAMP_WIDTH)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.sor_smem3d_params_size, lib.sor_smem3d_head_ints, lib.sor_smem3d_max_threads,
+               lib.sor_smem3d_kmax, lib.sor_smem3d_static_smem):
+        fn.argtypes = []
+        fn.restype = i32
+    if lib.sor_smem3d_params_size() != ctypes.sizeof(Smem3dSweepParams):
+        raise RuntimeError("Smem3dSweepParams layout differs between Python and CUDA")
+    if (lib.sor_smem3d_head_ints(), lib.sor_smem3d_max_threads(), lib.sor_smem3d_kmax()) != (
+            v3.HEAD_INTS, SMEM3D_MAX_THREADS, SMEM3D_KMAX):
+        raise RuntimeError("the smem3d sweep's table heads, block bound or stencil size differ "
+                           "between Python and CUDA")
+    static = lib.sor_smem3d_static_smem()
+    if not 0 <= static <= SMEM3D_STATIC_SMEM:
+        raise RuntimeError(f"the smem3d sweep declares {static} bytes of static shared memory, "
+                           f"more than the {SMEM3D_STATIC_SMEM} its layout keeps")
+    lib.sor_smem3d_smem_bytes.argtypes = [i32] * 6  # Z, Y, X, S, PP, c_shared
+    lib.sor_smem3d_smem_bytes.restype = i32
+    lib.sor_smem3d_kernel_attributes.argtypes = [i32, ctypes.POINTER(i32)]
+    lib.sor_smem3d_kernel_attributes.restype = i32
+    lib.sor_smem3d_blocks_per_sm.argtypes = [i32] * 3  # gibbs, threads, bytes
+    lib.sor_smem3d_blocks_per_sm.restype = i32
+    # gibbs, S, threads, bytes, out clusters
+    lib.sor_smem3d_max_active.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
+    lib.sor_smem3d_max_active.restype = i32
+    # P, tables, x, b, coeffs, rdiag, threads, bytes, stamps, stream
+    lib.sor_smem3d_sweep.argtypes = ([ctypes.POINTER(Smem3dSweepParams)] + [ptr] * 5
+                                     + [i32, i32, ptr, ptr])
+    lib.sor_smem3d_sweep.restype = i32
+    # P, tables, x, f, scratch, coeffs, rdiag, ns, xi, threads, bytes, stamps, stream
+    lib.sor_smem3d_gibbs_sweep.argtypes = ([ctypes.POINTER(Smem3dSweepParams)] + [ptr] * 8
+                                           + [i32, i32, ptr, ptr])
+    lib.sor_smem3d_gibbs_sweep.restype = i32
     return lib
 
 
@@ -589,11 +727,13 @@ def split_size(C: int, vshape, offsets, noise_mode: int, device,
 
 def split_stencil(vshape, offsets) -> str:
     """The stencil's class in :data:`SPLIT_MAX_CHAINS`: ``"3d"`` for 3d
-    fields, ``"reach-2"`` for the 2d stencils the passes' reach-1 build does
-    not take (reach 2 and wider), else ``"5-point"`` for at most 5 offsets and
-    ``"9-point"`` for more."""
+    stencils of fewer than :data:`PASSES_DIM3_MIN_OFFSETS` offsets (the
+    7-point stencil: the smem3d body's), ``"3d 27-point"`` for the other 3d
+    stencils (up to the 3x3x3 box), ``"reach-2"`` for the 2d stencils the
+    passes' reach-1 build does not take (reach 2 and wider), else
+    ``"5-point"`` for at most 5 offsets and ``"9-point"`` for more."""
     if len(vshape) == 3:
-        return "3d"
+        return "3d" if len(offsets) < PASSES_DIM3_MIN_OFFSETS else "3d 27-point"
     if passes_build(vshape, offsets) != (1, 2):
         return "reach-2"
     return "5-point" if len(offsets) <= 5 else "9-point"
@@ -687,6 +827,32 @@ def smem_limit_of(device) -> int:
     return dynamic_smem_limit(device) if device.type == "cuda" else CPU_SMEM_LIMIT
 
 
+def smem3d_sizes(vshape, smem_limit: int) -> Tuple[int, ...]:
+    """The cluster sizes ``S`` (1 .. :data:`SMEM3D_MAX_CLUSTER`) over which a
+    3d field ``vshape`` splits for the smem3d body: every slab at least one
+    plane, the widest slab's padded ``x`` (the rhs in device memory) and the
+    kernels' static share in ``smem_limit``, its indices within the tables'
+    16 bits (``mgmc_visit_smem3d.fits_indices``)."""
+    from . import mgmc_visit_smem3d as v3
+
+    Z, Y, X = (int(v) for v in vshape)
+    return tuple(S for S in range(1, SMEM3D_MAX_CLUSTER + 1)
+                 if Z // S >= 1 and v3.fits_indices(Z, Y, X, S)
+                 and v3.smem_bytes(Z, Y, X, S, False) + SMEM3D_STATIC_SMEM <= int(smem_limit))
+
+
+def smem3d_fits(vshape, offsets, smem_limit: int) -> bool:
+    """The rule of the smem3d body: a 3d stencil of reach 1 with fewer than
+    :data:`PASSES_DIM3_MIN_OFFSETS` offsets on a field whose chain fits a
+    cluster of at most :data:`SMEM3D_MAX_CLUSTER` blocks
+    (:func:`smem3d_sizes`)."""
+    from .mgmc_visit import stencil_reach
+
+    return (len(vshape) == 3 and stencil_reach(offsets) <= 1
+            and len(offsets) < PASSES_DIM3_MIN_OFFSETS
+            and bool(smem3d_sizes(vshape, smem_limit)))
+
+
 def sweep_body(vshape, offsets, smem_limit: Optional[int] = None) -> str:
     """The body of the one-block route's kernels for fields ``vshape`` and a
     stencil of ``offsets``: ``"passes"`` (``csrc/sor_sweep_passes.cu``) for 2d
@@ -696,7 +862,10 @@ def sweep_body(vshape, offsets, smem_limit: Optional[int] = None) -> str:
     chain fits shared memory (:func:`smem_fits` under ``smem_limit``, default
     :data:`CPU_SMEM_LIMIT`) and ``"passes"`` (that source's reach-2 or 3d
     build) where it does not, but for 3d stencils of fewer than
-    :data:`PASSES_DIM3_MIN_OFFSETS`, which take the generic body there;
+    :data:`PASSES_DIM3_MIN_OFFSETS`, which take ``"smem3d"``
+    (``csrc/sor_sweep_smem3d.cu``) where a cluster holds a chain
+    (:func:`smem3d_fits`) and :data:`SMEM3D_SWEEPS` lists the shape, and the
+    generic body where not;
     ``"generic"`` (``csrc/sor_sweep.cu``) for every other stencil."""
     build = passes_build(vshape, offsets)
     if build is None:
@@ -706,7 +875,38 @@ def sweep_body(vshape, offsets, smem_limit: Optional[int] = None) -> str:
     limit = CPU_SMEM_LIMIT if smem_limit is None else smem_limit
     if smem_fits(vshape, offsets, limit):
         return "smem"
-    return "generic" if build == (1, 3) and len(offsets) < PASSES_DIM3_MIN_OFFSETS else "passes"
+    if build == (1, 3) and len(offsets) < PASSES_DIM3_MIN_OFFSETS:
+        return ("smem3d" if smem3d_fits(vshape, offsets, limit)
+                and smem3d_listed(vshape, limit) else "generic")
+    return "passes"
+
+
+def smem3d_listed(vshape, smem_limit: int) -> bool:
+    """Whether :data:`SMEM3D_SWEEPS` gives the smem3d body's configurations of
+    both kernels on fields ``vshape``, each within ``smem_limit`` and the
+    cluster sizes the field splits over (:func:`smem3d_sizes`)."""
+    from . import mgmc_visit_smem3d as v3
+
+    shape = tuple(int(v) for v in vshape)
+    rows = [SMEM3D_SWEEPS.get(shape + (kernel,)) for kernel in ("sweep", "gibbs")]
+    if not all(rows):
+        return False
+    sizes = smem3d_sizes(shape, smem_limit)
+    return all(S in sizes and v3.smem_bytes(*shape, S, c_shared) + SMEM3D_STATIC_SMEM
+               <= int(smem_limit) for row in rows for _, _, S, c_shared, _ in row)
+
+
+def smem3d_config(vshape, C: int, noise_mode: int) -> Tuple[int, bool, int]:
+    """``(S, c_shared, threads)`` of the smem3d body for a sweep of ``C``
+    chains (``noise_mode`` 0: the deterministic kernel, else the Gibbs
+    kernel), as :data:`SMEM3D_SWEEPS` gives it; a shape it does not list
+    raises ``ValueError`` (a launch there names its configuration)."""
+    key = tuple(int(v) for v in vshape) + ("gibbs" if noise_mode else "sweep",)
+    for least, most, S, c_shared, threads in SMEM3D_SWEEPS.get(key, ()):
+        if C >= least and (most is None or C <= most):
+            return S, c_shared, threads
+    raise ValueError(f"no configuration of the smem3d body is measured for {C} chains of "
+                     f"{key[:3]} (SMEM3D_SWEEPS); name one (smem3d=)")
 
 
 def passes_max_threads(build: Tuple[int, int]) -> int:
@@ -962,6 +1162,54 @@ class SmemLaunch:
         return self
 
 
+def smem3d_params(P: SweepParams, tables: dict, S: int, c_shared: bool) -> Smem3dSweepParams:
+    """The smem3d body's parameter block of a sweep over clusters of ``S``:
+    its extents, the padded row and plane, the widest slab, the rhs's place,
+    the padded offsets and interior coefficients of ``tables``
+    (``mgmc_visit_smem3d.visit_tables`` of the sweep's order), and the sweep's
+    own parameters.  A stencil of fewer than :data:`SMEM3D_KMAX` offsets is
+    padded with zero coefficients at the centre.  The Philox stream is set per
+    launch."""
+    Z, Y, X = P.Z, P.Y, P.X
+    M = Smem3dSweepParams()
+    M.C, M.Z, M.Y, M.X = P.C, Z, Y, X
+    M.S, M.PX, M.PP = int(S), tables["PX"], tables["PP"]
+    M.nz_max, M.c_shared = -(-Z // int(S)), int(c_shared)
+    M.K, M.diag_index = P.K, P.diag_index
+    for k in range(P.K):
+        M.soff[k] = (P.dz[k] * M.PP + P.dy[k] * M.PX + P.dx[k])
+        M.cval[k] = float(tables["cval"][k])
+    M.rdiag = float(np.float32(1.0) / np.float32(tables["cval"][P.diag_index]))
+    M.planes = tables["planes"]
+    M.n_order = P.n_order
+    M.omega = P.omega
+    M.noise_mode, M.ns_const, M.ns_val = P.noise_mode, P.ns_const, P.ns_val
+    M.b_batched = P.b_batched
+    return M
+
+
+class Smem3dLaunch:
+    """What a launch of the smem3d body takes besides the fields: the
+    parameter block (:func:`smem3d_params`), the tables on the device, the
+    reciprocal of the diagonal plane, the cluster size, the rhs's place, the
+    block size and the dynamic shared memory
+    (``mgmc_visit_smem3d.smem_bytes``)."""
+
+    def __init__(self, P: SweepParams, tables: dict, words: torch.Tensor, rdiag: torch.Tensor,
+                 S: int, c_shared: bool, threads: int):
+        from . import mgmc_visit_smem3d as v3
+
+        self.params = smem3d_params(P, tables, S, c_shared)
+        self.tables, self.rdiag = words, rdiag
+        self.S, self.c_shared, self.threads = int(S), bool(c_shared), int(threads)
+        self.nbytes = v3.smem_bytes(P.Z, P.Y, P.X, self.S, self.c_shared)
+
+    def at(self, P: SweepParams) -> "Smem3dLaunch":
+        """This launch under ``P``'s Philox stream."""
+        self.params.seed, self.params.counter = P.seed, P.counter
+        return self
+
+
 def kernel_support_error(op: StencilOperator, n_colors: int) -> Optional[str]:
     """Why the sweep kernels cannot take this operator, or None if they can."""
     if len(op.vshape) not in (2, 3):
@@ -998,6 +1246,9 @@ class SweepPlan:
         self._pass_cache = {}
         self._smem_cache = {}
         self._smem_tables = None
+        self._smem3d_tables = {}
+        self._smem3d_cache = {}
+        self._rdiag = None
         self._routes = {}
 
     def on_kernel_device(self) -> bool:
@@ -1052,11 +1303,42 @@ class SweepPlan:
                                  self.coloring.n_colors, self.order,
                                  self.coeffs.detach().cpu().numpy())
             self._smem_tables = (tables, torch.from_numpy(tables["table"]).to(op.device),
-                                 torch.reciprocal(self.coeffs[op.diag_index]).contiguous())
+                                 self._reciprocal_diag())
         key = (P.C, bool(P.b_batched), P.noise_mode)
         if key not in self._smem_cache:
             self._smem_cache[key] = SmemLaunch(P, *self._smem_tables, sm_count(self.op.device))
         return self._smem_cache[key].at(P)
+
+    def smem3d_launch(self, P: SweepParams,
+                      config: Optional[Tuple[int, bool, int]] = None) -> Smem3dLaunch:
+        """The smem3d body's launch of the configuration of ``P`` (built by
+        :meth:`params`) as :func:`smem3d_config` gives it for the card, or
+        ``config`` ``(S, c_shared, threads)`` where named, kept per
+        configuration; the tables of a cluster size
+        (``mgmc_visit_smem3d.visit_tables``) and the reciprocal diagonal
+        plane are built once per plan."""
+        from . import mgmc_visit_smem3d as v3
+
+        op = self.op
+        if config is None:
+            config = smem3d_config(op.vshape, P.C, P.noise_mode)
+        S, c_shared, threads = int(config[0]), bool(config[1]), int(config[2])
+        if S not in self._smem3d_tables:
+            tables = v3.visit_tables(self, [self.order], S)
+            self._smem3d_tables[S] = (tables, torch.from_numpy(tables["words"]).to(op.device))
+        key = (P.C, bool(P.b_batched), P.noise_mode, S, c_shared, threads)
+        if key not in self._smem3d_cache:
+            tables, words = self._smem3d_tables[S]
+            self._smem3d_cache[key] = Smem3dLaunch(P, tables, words, self._reciprocal_diag(), S,
+                                                   c_shared, threads)
+        return self._smem3d_cache[key].at(P)
+
+    def _reciprocal_diag(self) -> torch.Tensor:
+        """``1 / diag``, the plane the shared-memory bodies read where the
+        diagonal varies; built once per plan."""
+        if self._rdiag is None:
+            self._rdiag = torch.reciprocal(self.coeffs[self.op.diag_index]).contiguous()
+        return self._rdiag
 
     def _build_params(self, C: int, b_batched: bool, noise_mode: int) -> SweepParams:
         op = self.op
@@ -1211,9 +1493,10 @@ def _check_route(route, x: torch.Tensor) -> Tuple[str, int]:
     return kind, int(S)
 
 
-def _check_body(body: str, vshape, offsets, route, stamps, x) -> None:
+def _check_body(body: str, vshape, offsets, route, stamps, x, blocks: int = 1) -> None:
     """The one-block body asked for against what it takes; the stamps tensor
-    against the launch (the one-block route only)."""
+    against the launch (the one-block route only; a row per block, ``blocks``
+    a chain for the smem3d body)."""
     if body not in BODIES:
         raise ValueError(f"body must be one of {BODIES}, got {body!r}")
     build = passes_build(vshape, offsets)
@@ -1225,6 +1508,10 @@ def _check_body(body: str, vshape, offsets, route, stamps, x) -> None:
                            or not smem_fits(vshape, offsets, smem_limit_of(x.device))):
         raise ValueError("the shared-memory body takes the reach-2 and 3d stencils of the "
                          "passes' builds on fields that fit shared memory (smem_fits)")
+    if body == "smem3d" and not smem3d_fits(vshape, offsets, smem_limit_of(x.device)):
+        raise ValueError("the smem3d body takes 3d stencils of reach 1 and fewer than "
+                         f"{PASSES_DIM3_MIN_OFFSETS} offsets on fields whose chain fits a "
+                         "cluster (smem3d_fits)")
     if stamps is None:
         return
     if route[0] != "block":
@@ -1232,21 +1519,24 @@ def _check_body(body: str, vshape, offsets, route, stamps, x) -> None:
     if body == "passes" and build != (1, 2):
         raise ValueError("the passes body's reach-2 and 3d builds have no stamps build")
     width = STAMP_WIDTHS[body]
+    rows = x.shape[0] * (blocks if body == "smem3d" else 1)
     if (stamps.dtype != torch.int64 or stamps.device != x.device or not stamps.is_contiguous()
-            or tuple(stamps.shape) != (x.shape[0], width)):
-        raise ValueError(f"stamps must be a contiguous int64 ({x.shape[0]}, "
-                         f"{width}) tensor on {x.device}")
+            or tuple(stamps.shape) != (rows, width)):
+        raise ValueError(f"stamps must be a contiguous int64 ({rows}, {width}) tensor on "
+                         f"{x.device}")
 
 
 def _launch(P: SweepParams, route: Tuple[str, int], vshape, threads: int, x: torch.Tensor,
             b: torch.Tensor, coeffs: torch.Tensor, ns: Optional[torch.Tensor] = None,
             xi: Optional[torch.Tensor] = None, passes: Optional[PassLaunch] = None,
-            stamps: Optional[torch.Tensor] = None, smem: Optional[SmemLaunch] = None) -> int:
+            stamps: Optional[torch.Tensor] = None, smem: Optional[SmemLaunch] = None,
+            smem3d: Optional[Smem3dLaunch] = None) -> int:
     """Launch the deterministic kernel (``P.noise_mode == 0``) or the Gibbs
     kernel of ``route`` on the current stream of ``x``'s device; returns the
     CUDA error.  On the one-block route ``passes`` takes the passes body,
-    ``smem`` the shared-memory body (neither: the generic body, with
-    ``threads`` per block); ``stamps`` takes the body's stamps build."""
+    ``smem`` the shared-memory body, ``smem3d`` its 3d slabs over a cluster
+    (none: the generic body, with ``threads`` per block); ``stamps`` takes the
+    body's stamps build."""
     kind, S = route
     gibbs = P.noise_mode != 0
     with torch.cuda.device(x.device):
@@ -1270,6 +1560,18 @@ def _launch(P: SweepParams, route: Tuple[str, int], vshape, threads: int, x: tor
             return lib.sor_smem_sweep(M, table, x.data_ptr(), b.data_ptr(), coeffs.data_ptr(),
                                       rdiag.data_ptr(), smem.kmax, smem.threads, smem.nbytes,
                                       tensor_ptr(stamps), stream)
+        if smem3d is not None:
+            lib = load_smem3d_library(stamps is not None)
+            M, words, rdiag = ctypes.byref(smem3d.params), smem3d.tables.data_ptr(), smem3d.rdiag
+            if gibbs:
+                scratch = None if smem3d.c_shared else torch.empty_like(x)
+                return lib.sor_smem3d_gibbs_sweep(
+                    M, words, x.data_ptr(), b.data_ptr(), tensor_ptr(scratch), coeffs.data_ptr(),
+                    rdiag.data_ptr(), ns.data_ptr(), tensor_ptr(xi), smem3d.threads,
+                    smem3d.nbytes, tensor_ptr(stamps), stream)
+            return lib.sor_smem3d_sweep(M, words, x.data_ptr(), b.data_ptr(), coeffs.data_ptr(),
+                                        rdiag.data_ptr(), smem3d.threads, smem3d.nbytes,
+                                        tensor_ptr(stamps), stream)
         if passes is not None:
             lib = load_passes_library(stamps is not None, *passes.build)
             V, rows = ctypes.byref(passes.params), passes.rows.data_ptr()
@@ -1319,10 +1621,20 @@ def _smem_of(plan: SweepPlan, P: SweepParams, route, body: str) -> Optional[Smem
     return plan.smem_launch(P) if body == "smem" and route[0] == "block" else None
 
 
+def _smem3d_of(plan: SweepPlan, P: SweepParams, route, body: str,
+               config: Optional[Tuple[int, bool, int]]) -> Optional[Smem3dLaunch]:
+    """The smem3d body's launch (its configuration ``config`` where named)
+    where the one-block route takes that body."""
+    if body != "smem3d" or route[0] != "block":
+        return None
+    return plan.smem3d_launch(P, config)
+
+
 def launch_sweep(plan: SweepPlan, route: Tuple[str, int], b: torch.Tensor,
                  x: torch.Tensor, body: Optional[str] = None,
                  stamps: Optional[torch.Tensor] = None,
-                 threads: Optional[int] = None) -> torch.Tensor:
+                 threads: Optional[int] = None,
+                 smem3d: Optional[Tuple[int, bool, int]] = None) -> torch.Tensor:
     """One deterministic sweep through the kernel of ``route``
     (:data:`BLOCK_ROUTE` or ``("split", S)``); :func:`sweep_batched` takes
     ``plan.route(C)``, ``chip_smoke.py`` names the route to hold the two
@@ -1332,16 +1644,21 @@ def launch_sweep(plan: SweepPlan, route: Tuple[str, int], b: torch.Tensor,
     STAMP_WIDTHS[body])`` that the launch fills (:func:`sweep_pass_times`);
     ``threads`` sets the passes body's block size (default:
     :func:`sweep_threads`; the shared-memory body's is
-    :func:`smem_threads`).  Updates ``x`` in place and returns it, or
-    raises."""
+    :func:`smem_threads`), ``smem3d`` the smem3d body's ``(S, c_shared,
+    threads)`` (default: :func:`smem3d_config`; its stamps have a row per
+    block, ``C S``).  Updates ``x`` in place and returns it, or raises."""
     route = _check_route(route, x)
     body = plan.body if body is None else body
-    _check_body(body, plan.op.vshape, plan.op.offsets, route, stamps, x)
+    _check_body(body, plan.op.vshape, plan.op.offsets, route, None, x)
     C, b_batched = _check_sweep_args(plan, b, x)
     P = plan.params(C, b_batched, 0, None)
+    cluster = _smem3d_of(plan, P, route, body, smem3d)
+    if stamps is not None:
+        _check_body(body, plan.op.vshape, plan.op.offsets, route, stamps, x,
+                    cluster.S if cluster is not None else 1)
     passes = _passes_of(plan, P, route, body, threads)
     err = _launch(P, route, plan.op.vshape, plan.threads, x, b, plan.coeffs, passes=passes,
-                  stamps=stamps, smem=_smem_of(plan, P, route, body))
+                  stamps=stamps, smem=_smem_of(plan, P, route, body), smem3d=cluster)
     name = _count_name("sweep_batched", route, body)
     launch_counts[name] += 1
     if err != 0:
@@ -1353,21 +1670,28 @@ def launch_gibbs_sweep(plan: SweepPlan, route: Tuple[str, int], f: torch.Tensor,
                        x: torch.Tensor, xi: Optional[torch.Tensor] = None,
                        philox: Optional[Tuple[int, int]] = None, body: Optional[str] = None,
                        stamps: Optional[torch.Tensor] = None,
-                       threads: Optional[int] = None) -> torch.Tensor:
+                       threads: Optional[int] = None,
+                       smem3d: Optional[Tuple[int, bool, int]] = None) -> torch.Tensor:
     """One Gibbs sweep through the kernel of ``route``, as :func:`launch_sweep`;
-    the normals as :func:`gibbs_sweep_batched` takes them.  The one-block
-    kernels write ``c`` to a scratch field, the split kernel forms it in shared
-    memory (the passes body packs it by colour)."""
+    the normals as :func:`gibbs_sweep_batched` takes them.  The generic and
+    passes bodies write ``c`` to a scratch field (the passes body packs it by
+    colour), the split kernel and the shared-memory bodies form it in shared
+    memory (the smem3d body in a scratch field where its configuration keeps
+    the rhs in device memory)."""
     if (xi is None) == (philox is None):
         raise ValueError("give the field noise as a tensor or as a Philox stream, one of the two")
     route = _check_route(route, x)
     body = plan.body if body is None else body
-    _check_body(body, plan.op.vshape, plan.op.offsets, route, stamps, x)
+    _check_body(body, plan.op.vshape, plan.op.offsets, route, None, x)
     C, f_batched = _check_sweep_args(plan, f, x, xi)
     P = plan.params(C, f_batched, 1 if philox is not None else 2, philox)
+    cluster = _smem3d_of(plan, P, route, body, smem3d)
+    if stamps is not None:
+        _check_body(body, plan.op.vshape, plan.op.offsets, route, stamps, x,
+                    cluster.S if cluster is not None else 1)
     passes = _passes_of(plan, P, route, body, threads)
     err = _launch(P, route, plan.op.vshape, plan.threads, x, f, plan.coeffs,
-                  plan.noise_scale, xi, passes, stamps, _smem_of(plan, P, route, body))
+                  plan.noise_scale, xi, passes, stamps, _smem_of(plan, P, route, body), cluster)
     name = _count_name("gibbs_sweep_batched", route, body)
     launch_counts[name] += 1
     if err != 0:
@@ -1377,19 +1701,20 @@ def launch_gibbs_sweep(plan: SweepPlan, route: Tuple[str, int], f: torch.Tensor,
 
 def sweep_pass_names(order, gibbs: bool, body: str = "passes"):
     """The passes of a one-block sweep in the order its stamps time them (each
-    ends with a barrier): the Gibbs rhs (the shared-memory body: the copy-in,
-    with the Gibbs rhs), then one per colour of ``order``."""
-    if body == "smem":
+    ends with a barrier): the Gibbs rhs (the shared-memory bodies: the
+    copy-in, with the Gibbs rhs), then one per colour of ``order``."""
+    if body in ("smem", "smem3d"):
         return ["copy-in and rhs" if gibbs else "copy-in"] + [f"colour {c}" for c in order]
     return (["rhs"] if gibbs else []) + [f"colour {c}" for c in order]
 
 
 def barrier_count(order, gibbs: bool, body: str = "passes") -> int:
     """Barriers of one one-block sweep launch: the passes and generic bodies
-    place one after the Gibbs rhs pass, the shared-memory body one after the
-    copy-in (and rhs) of both kernels; then one after each colour of
-    ``order``.  The stamps builds count them on the card."""
-    return len(order) + int(gibbs or body == "smem")
+    place one after the Gibbs rhs pass, the shared-memory bodies one after the
+    copy-in (and rhs) of both kernels (the smem3d body's a cluster barrier);
+    then one after each colour of ``order``.  The stamps builds count them on
+    the card."""
+    return len(order) + int(gibbs or body in ("smem", "smem3d"))
 
 
 def sweep_pass_times(order, gibbs: bool, stamps, body: str = "passes") -> dict:

@@ -56,6 +56,13 @@ same seed on every rank (``None`` when ``deterministic``).
   given generator, in the same order of calls, and slices its block - the same
   trajectory on every mesh shape, used to hold a mesh against a world of one.
 
+In ``"sharded"`` mode the rank's two streams are kept on the shared source
+(``GeneratorNoise.stream``), so that a checkpoint of the rank
+(:class:`~multigridmc_tpu_torch.utils.checkpoint.ChainState`: its block of
+``x`` and the shared source) saves them, and a run loaded from it draws on from
+where the saved one stopped; ``"global"`` noise resumes through the shared
+source itself.
+
 A sweep's low-rank noise enters its Woodbury correction (``x -= B_bar (B^T x -
 Sigma^{1/2} n)``), as in the single-device port; it gives the same ``x'`` as
 the JAX package's ``B Sigma^{-1/2} n`` in the right-hand side.
@@ -429,8 +436,9 @@ class ShardedMGMCSampler:
         """The noise sources of one ``apply``: in ``"global"`` mode ``noise``
         itself; in ``"sharded"`` mode this rank's lattice-block stream and its
         chains index's replicated stream, derived from ``noise``'s seed once
-        and kept for as long as ``noise`` lives, so that they run on from call
-        to call as ``noise`` itself would."""
+        and kept on ``noise`` (``GeneratorNoise.stream``: a loaded checkpoint's
+        source carries the saved ones), so that they run on from call to call
+        as ``noise`` itself would."""
         if self.deterministic:
             return {}
         if not isinstance(noise, GeneratorNoise):
@@ -440,13 +448,10 @@ class ShardedMGMCSampler:
             return {"global": noise}
         streams = self._streams.get(noise)
         if streams is None:
-            dev = self.mesh.device
-            streams = {
-                "lattice": GeneratorNoise(fold_seed(noise.seed, LATTICE_STREAM, self.mesh.rank),
-                                          dev),
-                "chains": GeneratorNoise(
-                    fold_seed(noise.seed, CHAINS_STREAM, self.mesh.chains_index), dev)}
-            self._streams[noise] = streams
+            seeds = {"lattice": fold_seed(noise.seed, LATTICE_STREAM, self.mesh.rank),
+                     "chains": fold_seed(noise.seed, CHAINS_STREAM, self.mesh.chains_index)}
+            streams = self._streams[noise] = {
+                name: noise.stream(name, seed, self.mesh.device) for name, seed in seeds.items()}
         return streams
 
     def _chains_total(self, batch) -> Tuple[int, ...]:

@@ -19,13 +19,16 @@ rank therefore draws from ``GeneratorNoise(fold_seed(seed, rank))``
 ``jax.random.fold_in(key, axis_index)``): rank ``r``'s chains are exactly the
 single-device sampler's chains under that source.
 
+A rank's stream is kept on the shared source (``GeneratorNoise.stream``), so
+that a checkpoint of the rank (:class:`~multigridmc_tpu_torch.utils.checkpoint.ChainState`:
+its block of chains and the shared source) saves it, and a run loaded from it
+draws on from where the saved one stopped.
+
 Lattice-sharded execution (for problems larger than one device) is the
 explicit-halo :class:`~multigridmc_tpu_torch.parallel.cycle.ShardedMGMCSampler`.
 """
 
 from __future__ import annotations
-
-import weakref
 
 import torch
 
@@ -33,6 +36,9 @@ from ..ops.stencil import StencilOperator
 from ..samplers.base import GeneratorNoise
 from ..samplers.mgmc import MultigridMCSampler
 from .mesh import Mesh, fold_seed, gather_field, scatter_field
+
+#: the name of a rank's stream on the shared source (``GeneratorNoise.stream``)
+RANK_STREAM = "rank"
 
 
 def rank_noise(noise: GeneratorNoise, mesh: Mesh) -> GeneratorNoise:
@@ -62,17 +68,16 @@ class DataParallelMGMCSampler:
         self.op = op
         self.sampler = MultigridMCSampler(op, nlevel, fused=fused, distill=distill,
                                           device=mesh.device, **sampler_kwargs)
-        self._noise = weakref.WeakKeyDictionary()
 
     def rank_noise(self, noise: GeneratorNoise) -> GeneratorNoise:
-        """This rank's stream of ``noise`` (made at its first use)."""
+        """This rank's stream of ``noise`` (:func:`rank_noise`'s seed), kept on
+        ``noise`` as its stream :data:`RANK_STREAM`: made at its first use, or
+        the one a loaded checkpoint of this rank restored there."""
         if not isinstance(noise, GeneratorNoise):
             raise TypeError("DataParallelMGMCSampler derives each rank's stream from a "
                             f"GeneratorNoise's seed, not from {type(noise).__name__}")
-        mine = self._noise.get(noise)
-        if mine is None:
-            mine = self._noise[noise] = rank_noise(noise, self.mesh)
-        return mine
+        return noise.stream(RANK_STREAM, fold_seed(noise.seed, self.mesh.chains_index),
+                            self.mesh.device)
 
     def scatter(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's block of ``(C, *vshape)`` global chains; a chain count

@@ -244,6 +244,39 @@ def _moments(gather, step, x, nwarmup, nsteps, vshape):
     return mean, sxx / total - np.outer(mean, mean)
 
 
+def _resumed(make, noise_of, f, x, steps: int, rank: int, device) -> Dict[str, np.ndarray]:
+    """A checkpoint's resume, against the uninterrupted run: ``2 steps``
+    steps of a sampler ``make()`` from ``x`` under ``noise_of()``; ``steps``
+    steps of a fresh one, a save of this rank's
+    :class:`~multigridmc_tpu_torch.utils.checkpoint.ChainState` (its block and
+    the shared source, which carries the rank's streams) and a load, then
+    ``steps`` more of a third sampler under the loaded source and, as the
+    fault the streams repair, of a fourth under the loaded source with its
+    streams dropped (this rank's arrays ``whole``, ``resumed``,
+    ``unrepaired``, and the names of the saved streams)."""
+    from ..utils.checkpoint import ChainState
+
+    def run(sampler, noise, x):
+        for _ in range(steps):
+            x = sampler.apply(noise, f, x)
+        return x
+
+    noise = noise_of()
+    sampler = make()
+    whole = run(sampler, noise, run(sampler, noise, x.clone()))
+    noise = noise_of()
+    half = run(make(), noise, x.clone())
+    with tempfile.TemporaryDirectory(prefix="mgmc_resume_") as tmp:
+        path = os.path.join(tmp, f"rank{rank}.npz")
+        ChainState(half, noise, steps).save(path)
+        state, fresh = ChainState.load(path, device), ChainState.load(path, device)
+    streams = sorted(state.noise.streams)
+    fresh.noise.streams.clear()
+    return {"whole": _np(whole), "resumed": _np(run(make(), state.noise, state.x)),
+            "unrepaired": _np(run(make(), fresh.noise, fresh.x)),
+            "streams": np.array(streams)}
+
+
 def task_dryrun(rank: int, world: int, device: torch.device, options, arrays) -> dict:
     """The dry run (module docstring): both lattice noise modes and the chains
     path, checked on every rank (raises where a check fails)."""
@@ -344,9 +377,12 @@ def task_halo(rank, world, device, options, arrays) -> dict:
 def task_cycle(rank, world, device, options, arrays) -> dict:
     """The spec's cases of :class:`~.cycle.ShardedMGMCSampler` (float64), each
     on its mesh: ``"deterministic"`` one cycle of ``b``; ``"global"`` steps
-    from ``x`` under ``GeneratorNoise(seed)``; ``"moments"`` the mean and
-    covariance of ``nsteps`` steps after ``nwarmup`` under ``"sharded"`` noise.
-    Rank 0 returns the gathered global outputs."""
+    from ``x`` under ``GeneratorNoise(seed)``; ``"resume"`` ``steps`` steps,
+    a checkpoint of each rank and ``steps`` more against ``2 steps``
+    uninterrupted ones (:func:`_resumed`, each rank's own blocks);
+    ``"moments"`` the mean and covariance of ``nsteps`` steps after
+    ``nwarmup`` under ``"sharded"`` noise.  Rank 0 returns the gathered global
+    outputs."""
     from ..samplers.base import GeneratorNoise
     from .cycle import ShardedMGMCSampler, pad_field
     from .mesh import multihost_lattice_mesh
@@ -386,6 +422,15 @@ def task_cycle(rank, world, device, options, arrays) -> dict:
             for _ in range(case["steps"]):
                 x = sampler.apply(noise, fl, x)
             res[f"{name}/out"] = _np(sampler.gather(x))
+        elif kind == "resume":
+            f = sampler.scatter(pad_field(torch.as_tensor(arrays[case["f"]], device=device),
+                                          op.vshape))
+            x = sampler.scatter(pad_field(torch.as_tensor(arrays[case["x"]], device=device),
+                                          op.vshape))
+            got = _resumed(lambda: ShardedMGMCSampler(op, mesh=mesh, **case["sampler"]),
+                           lambda: GeneratorNoise(case["seed"], device), f, x, case["steps"],
+                           rank, device)
+            res.update({f"{name}/{k}": v for k, v in got.items()})
         elif kind == "moments":
             f = sampler.scatter(pad_field(torch.as_tensor(arrays[case["f"]], device=device),
                                           op.vshape))
@@ -412,8 +457,10 @@ def task_cycle(rank, world, device, options, arrays) -> dict:
 def task_chains(rank, world, device, options, arrays) -> dict:
     """The chains path on a chains mesh of the world (float64): one step of
     this rank's block of ``options["nchains"]`` chains from ``x`` under
-    ``GeneratorNoise(seed)``, repeated from a fresh source; and the moments
-    gate's mean and covariance (``options["moments"]``)."""
+    ``GeneratorNoise(seed)``, repeated from a fresh source; with
+    ``resume_steps`` a checkpoint's resume against the uninterrupted run
+    (:func:`_resumed`); and the moments gate's mean and covariance
+    (``options["moments"]``)."""
     from ..samplers.base import GeneratorNoise
     from .data_parallel import DataParallelMGMCSampler
     from .mesh import chains_mesh
@@ -429,6 +476,11 @@ def task_chains(rank, world, device, options, arrays) -> dict:
     res["step/out"] = _np(dp.apply(GeneratorNoise(det["seed"], device), f, x.clone()))
     res["step/again"] = _np(dp.apply(GeneratorNoise(det["seed"], device), f, x.clone()))
     res["step/distilled"] = np.array(dp.sampler.distilled is not None)
+    if det.get("resume_steps"):
+        got = _resumed(lambda: DataParallelMGMCSampler(op, det["nlevel"], mesh, **det["sampler"]),
+                       lambda: GeneratorNoise(det["seed"], device), f, x, det["resume_steps"],
+                       rank, device)
+        res.update({f"resume/{k}": v for k, v in got.items()})
     try:
         dp.scatter(torch.zeros((world * 2 + 1,) + op.vshape, dtype=op.dtype, device=device))
         res["step/odd_chains_raised"] = np.array(False)

@@ -29,7 +29,7 @@ do); callers use the returned tensor and clone an input they want to keep.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -67,6 +67,8 @@ class GeneratorNoise(NoiseSource):
         self.seed = int(seed) & 0xFFFFFFFFFFFFFFFF
         self.generator = make_generator(seed, self.device)
         self.launches = 0
+        #: the streams derived from this source, by name (:meth:`stream`)
+        self.streams: Dict[str, "GeneratorNoise"] = {}
 
     def normal(self, shape, dtype, device) -> torch.Tensor:
         return torch.randn(tuple(shape), dtype=dtype, device=device,
@@ -81,6 +83,24 @@ class GeneratorNoise(NoiseSource):
         counter = self.launches
         self.launches += int(n)
         return self.seed, counter
+
+    def stream(self, name: str, seed: int, device=None) -> "GeneratorNoise":
+        """The stream ``name`` derived from this source, of ``seed`` (on
+        ``device``, default this source's): made at its first use and kept
+        here, so that it runs on from call to call and a checkpoint of this
+        source (``utils.checkpoint.ChainState``) saves and resumes it with
+        the source.  A kept stream of that name and another seed (a
+        checkpoint of another rank, or of another seed) raises
+        ``ValueError``."""
+        mine = self.streams.get(name)
+        if mine is None:
+            mine = self.streams[name] = GeneratorNoise(seed, self.device if device is None
+                                                       else device)
+        elif mine.seed != int(seed) & 0xFFFFFFFFFFFFFFFF:
+            raise ValueError(f"the source's stream {name!r} has the seed {mine.seed}, not "
+                             f"{int(seed) & 0xFFFFFFFFFFFFFFFF}: it belongs to another rank "
+                             "or seed")
+        return mine
 
 
 class ReplayNoise(NoiseSource):

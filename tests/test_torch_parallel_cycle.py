@@ -12,7 +12,10 @@ world runs.  Float64 throughout:
 2. ``"global"`` noise: a 2x2 world and a 2 (chains) x 1x2 world against a
    world of one run here (1e-10), and the replicated-finest fallback;
 3. ``"sharded"`` noise: the statistical gates against the dense ``Q^-1``,
-   with and without the distilled subtree (``tests/test_cycle.py``).
+   with and without the distilled subtree (``tests/test_cycle.py``);
+4. a checkpoint of each rank in both noise modes on a 2x2 world: ``k``
+   steps, a save and a load, ``k`` more are bitwise ``2 k`` uninterrupted
+   steps on every rank.
 """
 
 import concurrent.futures
@@ -42,6 +45,10 @@ GLOBAL_MESHES = {"2x2": (1, [2, 2]), "2x1x2": (2, [1, 2])}
 GLOBAL = dict(nlevel=3, smoother="SOR", cycle=2, agglomerate_below=4, noise_mode="global")
 GLOBAL_STEPS, GLOBAL_SEED, GLOBAL_CHAINS = 3, 7, 4
 REPLICATED = dict(nlevel=2, smoother="SOR", cycle=1, noise_mode="global")
+#: the resume cases: noise mode -> the rank streams a checkpoint keeps; the
+#: steps before and after the save
+RESUME_STREAMS = {"sharded": ["chains", "lattice"], "global": []}
+RESUME_STEPS = 2
 #: the statistical gates of tests/test_cycle.py: posterior, sampler, mesh,
 #: chains, warm-up, steps, tolerance on the mean and the covariance.  The
 #: warm-ups and tolerances are the JAX tests'; the samples are at least theirs
@@ -114,6 +121,10 @@ def world(tmp_path_factory):
             cases.append(dict(name=f"global/{k}/{mname}", kind="global", op=k, f="f", x="x",
                               chains=chains, mesh_shape=shape, seed=GLOBAL_SEED,
                               steps=GLOBAL_STEPS, sampler=GLOBAL))
+    for mode in RESUME_STREAMS:
+        cases.append(dict(name=f"resume/{mode}", kind="resume", op="fd", f="f", x="x",
+                          chains=1, mesh_shape=[2, 2], seed=GLOBAL_SEED, steps=RESUME_STEPS,
+                          sampler=dict(GLOBAL, noise_mode=mode)))
     cases.append(dict(name="replicated", kind="global", op="fd", f="f", x="x", chains=1,
                       mesh_shape=[2, 2], seed=3, steps=1,
                       sampler=dict(REPLICATED, agglomerate_below=64)))
@@ -243,6 +254,59 @@ def test_sharded_sampler_statistics(world, gname):
         assert float(res[f"0/gate/{gname}/distill_spread"]) == 0.0
     else:
         assert int(res[f"0/gate/{gname}/distill_level"]) == -1
+
+
+@pytest.mark.parametrize("rank", range(4))
+@pytest.mark.parametrize("mode", list(RESUME_STREAMS))
+def test_resumed_cycle_is_the_uninterrupted_cycle(world, mode, rank):
+    """A checkpoint of each rank of a 2x2 world - its blocks, the shared
+    source and, in ``"sharded"`` mode, its lattice and chains streams -
+    resumes the run: 2 W-cycle steps, a save and a load into fresh samplers,
+    2 more are bitwise the 4 uninterrupted steps.  In ``"sharded"`` mode the
+    loaded source with its streams dropped redraws the first noise, and the
+    blocks differ; in ``"global"`` mode the shared source alone resumes it."""
+    res = world["res"]
+    key = f"{rank}/resume/{mode}"
+    whole = res[f"{key}/whole"]
+    np.testing.assert_array_equal(res[f"{key}/resumed"], whole)
+    assert list(res[f"{key}/streams"]) == RESUME_STREAMS[mode]
+    if mode == "sharded":
+        assert np.abs(res[f"{key}/unrepaired"] - whole).max() > 1e-3
+    else:
+        np.testing.assert_array_equal(res[f"{key}/unrepaired"], whole)
+
+
+def test_sharded_resume_refuses_other_streams(tmp_path):
+    """The ``"sharded"`` streams live on the shared source: a checkpoint of it
+    saves them and a fresh sampler draws on from the loaded ones; a source
+    that carries another rank's or seed's stream is refused; ``"global"`` noise
+    and the deterministic cycle keep none."""
+    from multigridmc_tpu_torch.utils.checkpoint import ChainState
+
+    op = _port_op(make_posterior(nx=8))
+    kw = dict(nlevel=2, agglomerate_below=2)
+    s = cycle.ShardedMGMCSampler(op, mesh=single_mesh(2, "cpu"), **kw)
+    noise = GeneratorNoise(5, "cpu")
+    streams = s._rank_streams(noise)
+    assert set(streams) == {"lattice", "chains"} and noise.streams == streams
+    streams["lattice"].normal((3,), torch.float64, "cpu")
+    ChainState(torch.zeros(2), noise, 1).save(tmp_path / "r0.npz")
+    state = ChainState.load(tmp_path / "r0.npz", "cpu")
+    assert set(state.noise.streams) == {"lattice", "chains"}
+    fresh = cycle.ShardedMGMCSampler(op, mesh=single_mesh(2, "cpu"), **kw)
+    assert fresh._rank_streams(state.noise)["lattice"] is state.noise.streams["lattice"]
+    torch.testing.assert_close(state.noise.streams["lattice"].normal((5,), torch.float64, "cpu"),
+                               streams["lattice"].normal((5,), torch.float64, "cpu"),
+                               rtol=0, atol=0)
+    other = GeneratorNoise(6, "cpu")
+    other.streams["lattice"] = streams["lattice"]
+    with pytest.raises(ValueError, match="another rank or seed"):
+        fresh._rank_streams(other)
+    glob = cycle.ShardedMGMCSampler(op, mesh=single_mesh(2, "cpu"), noise_mode="global", **kw)
+    plain = GeneratorNoise(5, "cpu")
+    assert glob._rank_streams(plain) == {"global": plain} and plain.streams == {}
+    det = cycle.ShardedMGMCSampler(op, mesh=single_mesh(2, "cpu"), deterministic=True, **kw)
+    assert det._rank_streams(None) == {}
 
 
 def test_distillation_only_in_sharded_mode():

@@ -7,7 +7,9 @@ the world must repeat bitwise from the same seed, the ranks' chains must
 differ, and each rank's chains must be bitwise the single-device
 ``MultigridMCSampler`` under that rank's noise (``fold_seed(seed, rank)``),
 run here.  The mean / covariance gate of ``tests/test_data_parallel.py`` is
-held against the dense ``Q^-1`` of the JAX package's operator.
+held against the dense ``Q^-1`` of the JAX package's operator.  A checkpoint
+of each rank resumes its stream: ``k`` steps, a save and a load, ``k`` more
+are bitwise ``2 k`` uninterrupted steps on every rank.
 """
 
 import numpy as np
@@ -25,7 +27,7 @@ from test_data_parallel import _posterior_f32
 from test_sampler import make_posterior_2d
 
 WORLD = 4
-STEP = dict(nlevel=3, seed=0, nchains=16,
+STEP = dict(nlevel=3, seed=0, nchains=16, resume_steps=2,
             sampler=dict(smoother="SOR", cycle=2, fused=True, distill=True))
 #: the gate of tests/test_data_parallel.py (8x8 posterior, SSOR W-cycle,
 #: distilled): tolerance and warm-up as there, its 1024 x 400 samples taken
@@ -94,6 +96,46 @@ def test_each_rank_is_the_single_device_sampler(world, rank):
     finally:
         torch.set_num_threads(threads)
     np.testing.assert_array_equal(out.numpy(), res[f"{rank}/step/out"])
+
+
+@pytest.mark.parametrize("rank", range(WORLD))
+def test_chains_path_resumes_its_stream_bitwise(world, rank):
+    """Each rank's checkpoint (its chains, the shared source and its stream)
+    resumes the run: 2 steps, a save and a load into fresh samplers, 2 more
+    are bitwise the 4 uninterrupted steps; with the loaded source's stream
+    dropped, the rank redraws its first noise and the chains differ."""
+    res = world["res"]
+    whole = res[f"{rank}/resume/whole"]
+    np.testing.assert_array_equal(res[f"{rank}/resume/resumed"], whole)
+    assert np.abs(res[f"{rank}/resume/unrepaired"] - whole).max() > 1e-3
+    assert list(res[f"{rank}/resume/streams"]) == ["rank"]
+
+
+def test_chains_path_resume_refuses_another_ranks_stream(tmp_path):
+    """A world of one: the checkpoint holds the rank's stream with the shared
+    source (one file, loaded as saved), a fresh sampler draws on from the
+    loaded stream, and a source that carries another seed's stream is
+    refused."""
+    from multigridmc_tpu_torch.utils.checkpoint import ChainState
+
+    op = dryrun._op_from_spec(_op_arrays("", make_posterior_2d(8)), "", "cpu")
+    dp = DataParallelMGMCSampler(op, 2, chains_mesh("cpu"), fused=False, distill=False)
+    noise = GeneratorNoise(9, "cpu")
+    f = torch.zeros(op.vshape, dtype=torch.float64)
+    x = dp.apply(noise, f, torch.zeros((3,) + op.vshape, dtype=torch.float64))
+    ChainState(x, noise, 1).save(tmp_path / "r0.npz")
+    state = ChainState.load(tmp_path / "r0.npz", "cpu")
+    assert set(state.noise.streams) == {"rank"}
+    assert state.noise.streams["rank"].seed == fold_seed(9, 0) and state.noise.seed == 9
+    mine = dp.rank_noise(noise)
+    torch.testing.assert_close(state.noise.streams["rank"].normal((5,), torch.float64, "cpu"),
+                               mine.normal((5,), torch.float64, "cpu"), rtol=0, atol=0)
+    fresh = DataParallelMGMCSampler(op, 2, chains_mesh("cpu"), fused=False, distill=False)
+    assert fresh.rank_noise(state.noise) is state.noise.streams["rank"]
+    other = GeneratorNoise(10, "cpu")
+    other.streams["rank"] = state.noise.streams["rank"]
+    with pytest.raises(ValueError, match="another rank or seed"):
+        fresh.rank_noise(other)
 
 
 def test_chain_count_the_world_does_not_divide_raises(world):

@@ -288,7 +288,7 @@ def test_shared_memory_probe_on_the_cpu():
     assert common.launch_counts["smem_probe"] == 0  # no kernel was launched here
     assert set(common.SOURCES) == {"mgmc_visit", "mgmc_visit_stream", "mgmc_visit_split",
                                    "mgmc_visit_smem", "mgmc_visit_smem3d", "sor_sweep", "sor_sweep_passes",
-                                   "sor_sweep_smem",
+                                   "sor_sweep_smem", "sor_sweep_smem3d",
                                    "sor_sweep_cluster", "mgmc_subtree", "smem_probe"}
     for name in common.SOURCES:
         assert common.source_path(name).exists()

@@ -228,7 +228,8 @@ def test_drivers_shapes_take_the_split_route(limit):
     # taken to run at once: the largest size that fits)
     assert ss.SPLIT_MAX_CHAINS == {("sweep", "5-point"): 16, ("gibbs", "5-point"): 32,
                                    ("sweep", "9-point"): 0, ("gibbs", "9-point"): 16,
-                                   ("sweep", "3d"): 64, ("gibbs", "3d"): 64,
+                                   ("sweep", "3d"): 0, ("gibbs", "3d"): 0,
+                                   ("sweep", "3d 27-point"): 8, ("gibbs", "3d 27-point"): 16,
                                    ("sweep", "reach-2"): 0, ("gibbs", "reach-2"): 0}
     for plan in (fine, coarse):
         for noise_mode in (0, 1, 2):
@@ -238,10 +239,14 @@ def test_drivers_shapes_take_the_split_route(limit):
             for C in range(1, most + 1):
                 assert ss.sweep_route(C, plan, noise_mode, limit) == ("split", 16)
             assert ss.sweep_route(most + 1, plan, noise_mode, limit) == ss.BLOCK_ROUTE
-    # 3d fields and 2d stencils of reach 2 have thresholds of their own
+    # 3d 7-point and other 3d stencils and 2d stencils of reach 2 have
+    # thresholds of their own
     offsets3 = ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1))
+    box27 = tuple((a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1) for c in (-1, 0, 1))
     reach2 = ((0, 0), (0, 1), (0, -1), (1, 0), (-1, 0), (0, 2), (0, -2), (2, 0), (-2, 0))
-    for vshape, offsets, cls in (((63, 63, 63), offsets3, "3d"), ((63, 63), reach2, "reach-2")):
+    for vshape, offsets, cls in (((63, 63, 63), offsets3, "3d"),
+                                 ((31, 31, 31), box27, "3d 27-point"),
+                                 ((63, 63), reach2, "reach-2")):
         assert ss.split_stencil(vshape, offsets) == cls
         for noise_mode, kernel in ((0, "sweep"), (1, "gibbs"), (2, "gibbs")):
             assert (ss.split_max_chains(vshape, offsets, noise_mode)
@@ -281,8 +286,11 @@ def test_wide_and_deep_fields_take_the_route_their_bands_allow():
     # 63^3, 7-point: four planes of 63^2 per block, x and c: 127,332 B
     offsets3 = ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1))
     assert ss.split_smem_bytes((63, 63, 63), 16, 1, 1) == 127332
-    assert ss.split_route(1, (63, 63, 63), offsets3, 1, CPU, H100_SMEM) == ("split", 16)
-    assert ss.split_route(1, (63, 63, 63), offsets3, 1, CPU) == ss.BLOCK_ROUTE  # 48 KiB
+    assert ss.split_size(1, (63, 63, 63), offsets3, 1, CPU, H100_SMEM) == 16
+    assert ss.split_size(1, (63, 63, 63), offsets3, 1, CPU) is None  # 48 KiB
+    # (the field's sweeps take one block per chain at every count: the smem3d
+    # body, SPLIT_MAX_CHAINS[(kernel, "3d")] = 0)
+    assert ss.split_route(1, (63, 63, 63), offsets3, 1, CPU, H100_SMEM) == ss.BLOCK_ROUTE
     # the shared memory a block is granted decides where the route allows it
     need = ss.split_smem_bytes((255, 255), 16, 1, 1)
     assert need == 4 * (81 + 16 * 255 * 2) == 32964

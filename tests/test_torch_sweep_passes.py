@@ -266,7 +266,9 @@ def test_body_and_stencil_form_of_each_launch():
     kernel per stencil form (the phase kernels' forms); 3d fields and reach-2
     stencils the shared-memory body where a chain fits a quarter of the card's
     grant, else the passes' 3d or reach-2 build (the phase kernels' forms of
-    that build); a stencil none of those takes (reach 3) the generic body; the
+    that build), a 3d stencil of 7 offsets the smem3d body where its table
+    lists the shape, else (these small fields) the generic body, as a stencil
+    none of those takes (reach 3); the
     raw-array entry points read every coefficient plane, so their launches
     take the odd forms."""
     forms = {}

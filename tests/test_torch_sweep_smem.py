@@ -170,7 +170,7 @@ STAR7 = ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0
     ((63, 63), DIAMOND13, 4 * (67 * 75 + 2 * 63 * 63), "smem", (2, 2)),
     ((127, 127), BOX25, 4 * (131 * 139 + 2 * 127 * 127), "passes", (2, 2)),
     ((255, 255), DIAMOND13, 4 * (259 * 267 + 2 * 255 * 255), "passes", (2, 2)),
-    ((63, 63, 63), STAR7, 4 * (65 * 65 * 73 + 2 * 63 ** 3), "generic", (1, 3)),
+    ((63, 63, 63), STAR7, 4 * (65 * 65 * 73 + 2 * 63 ** 3), "smem3d", (1, 3)),
     ((31, 31, 31), BOX27, 4 * (33 * 33 * 41 + 2 * 31 ** 3), "passes", (1, 3)),
 ])
 def test_fit_rule_and_body(vshape, offsets, nbytes, body, build):
@@ -179,8 +179,9 @@ def test_fit_rule_and_body(vshape, offsets, nbytes, body, build):
     quarter of the grant (58,112 bytes on an H100, so that four blocks share an SM), else the
     passes' reach-2 or 3d build; the rule is the same on the CPU, which takes
     the H100's grant; a 3d stencil of 7 offsets that does not fit takes the
-    generic body, whose warp per row measured faster than the passes' 3d
-    build there."""
+    smem3d body (its slabs over a cluster), where a cluster holds the chain,
+    which the generic body's warp per row and the passes' 3d build measured
+    slower than."""
     assert ss.smem_sweep_bytes(vshape, offsets) == nbytes
     assert ss.smem_fits(vshape, offsets, H100_GRANT) == (nbytes <= H100_GRANT // 4)
     assert ss.sweep_body(vshape, offsets) == body == ss.sweep_body(vshape, offsets, H100_GRANT)
@@ -189,7 +190,7 @@ def test_fit_rule_and_body(vshape, offsets, nbytes, body, build):
     # the rule's edge: a grant four times the bytes fits, four bytes less not
     assert ss.sweep_body(vshape, offsets, 4 * nbytes) == "smem"
     assert ss.sweep_body(vshape, offsets, 4 * nbytes - 4) == (
-        "generic" if len(offsets) < ss.PASSES_DIM3_MIN_OFFSETS and len(vshape) == 3 else "passes")
+        "smem3d" if len(offsets) < ss.PASSES_DIM3_MIN_OFFSETS and len(vshape) == 3 else "passes")
     assert ss.smem_kmax(vshape, offsets) == {13: 13, 25: 25, 7: 7, 27: 27}[len(offsets)]
 
 
