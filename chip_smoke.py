@@ -225,7 +225,24 @@ the card and checks, one phase after the other:
                    the source's count); the descend's ``f_c`` on every fused
                    level of the flagship, SOR and SSOR, against a float64
                    visit.
-12. ``parallel``   the multi-device paths (``multigridmc_tpu_torch/parallel``)
+12. ``lowrank``    levels of more than 32 measurements (the low-rank scratch
+                   in dynamic shared memory sized by m): every visit kernel
+                   (phase 2d / reach-2 / 3d, split, smem 5-, 9-, 13-,
+                   25-point, smem3d) against its plain version at 33, 64 and
+                   256 measurements (3d: 33, 64; 2e-5, f_c by its scale), the
+                   split and smem kernels against the phase kernels under one
+                   Philox stream, the stream kernels refusing such a level,
+                   the subtree kernel (reach 1 and 2; 1e-4, the low-rank
+                   draws' known answers past 32 normals); the flagship with
+                   the 64 measurements of ``generate_measurements --nmeas 64
+                   --dmin 0.05``: distilled at 256, 128 and one chain, SSOR at
+                   256 and one chain, ``subtree=True`` at 256, the 64^3
+                   posterior (64 measurements) at 32 chains - routes by level,
+                   ms and kernel ms per step, the 4-standard-error gates on
+                   the centre point and B_0^T x -; ``drivers.mgmc`` on a
+                   64-measurement config; the new forms' times at 64 and 256
+                   measurements;
+13. ``parallel``   the multi-device paths (``multigridmc_tpu_torch/parallel``)
                    on this card, a world of one over NCCL: the chains path
                    (``DataParallelMGMCSampler``) at the flagship's width (256
                    chains, distilled) - one step bitwise the single-device
@@ -282,7 +299,11 @@ size, the generic body, the passes' 3d build and the split route at 1-256
 chains on 63^3 and 31^3 7-point fields, which must support
 ``SMEM3D_SWEEPS``, ``SPLIT_MAX_CHAINS``'s 3d class and
 ``PASSES_DIM3_MIN_OFFSETS``; ``parallel``: the multi-device paths on one card
-alone; ``multichip``: the four-card check above) and prints no result line.
+alone; ``lowrank``: the many-measurement levels alone; ``lowrank_check``:
+their kernels' checks alone; ``lowrank_table``: device ms of a descend plus an
+ascend of each route on the flagship's 255^2 and 127^2 levels at 8, 32, 64, 128
+and 256 measurements and 1, 32 and 256 chains; ``multichip``: the four-card
+check above) and prints no result line.
 """
 
 from __future__ import annotations
@@ -309,7 +330,7 @@ PEAK_FP32_FLOPS = 67e12
 TOL = 2e-5
 FLAGSHIP_SEED = 20260816
 ALL_PHASES = {"kernels", "main_path", "band", "alternating", "drivers", "statistics",
-              "biharmonic", "volume", "ssor", "parallel"}
+              "biharmonic", "volume", "ssor", "lowrank", "parallel"}
 
 
 def emit(obj) -> None:
@@ -969,14 +990,16 @@ def check_split_visit_layout(levels):
     cases = 0
     for H, W in ((255, 255), (127, 127), (23, 23), (15, 15), (9, 1031), (1023, 1023)):
         for S in (1,) + ss.SPLIT_SIZES + (17, 32):
-            got = lib.mgmc_split_smem_bytes(H, W, S)
-            try:
-                want = mv.split_smem_bytes(H, W, S)
-            except ValueError:
-                want = -1
-            if got != want:
-                raise AssertionError(f"split layout {H}x{W} S={S}: kernel {got} B, host {want} B")
-            cases += 1
+            for m in (0, 8, mv.LANE_SLOTS, mv.LANE_SLOTS + 1, 256):
+                got = lib.mgmc_split_smem_bytes(H, W, S, m)
+                try:
+                    want = mv.split_smem_bytes(H, W, S, m)
+                except ValueError:
+                    want = -1
+                if got != want:
+                    raise AssertionError(f"split layout {H}x{W} S={S} m={m}: kernel {got} B, "
+                                         f"host {want} B")
+                cases += 1
     active = {f"L{li} S={S}": mv.split_active_clusters(S, level.op.vshape)
               for li, level in sorted(levels.items()) if li < 2 for S in ss.SPLIT_SIZES
               if mv.split_smem_bytes(*level.op.vshape, S) + mv.SPLIT_STATIC_SMEM
@@ -4463,6 +4486,7 @@ def smem_launch_of(level, C):
         H, W = level.op.vshape
         card = vsm.load_library().mgmc_smem_visit_smem_bytes(H, W, L.S, vsm.pitch(W),
                                                               int(L.c_shared))
+    card += mv.lowrank_scratch_bytes(level.op.m_lowrank, L.threads)  # more than 32 measurements
     if card != L.nbytes:
         raise AssertionError(f"smem {tuple(level.op.vshape)} S={L.S}: the library lays out "
                              f"{card} bytes a block, {vsm.__name__}.smem_bytes {L.nbytes}")
@@ -6986,6 +7010,505 @@ def _ssor_parts(out, device):
     out["seconds"] = time.perf_counter() - t0
 
 
+# -------------------------------------------------------------- phase: lowrank
+#: measurement counts of the many-measurement checks: one past the kernels'
+#: lane slots, the flagship's path count and the largest 2d count the port
+#: promises (the JAX kernels admit about 278 on the flagship's 255^2 level at
+#: one sweep); 3d up to 64
+LOWRANK_COUNTS = (33, 64, 256)
+LOWRANK_COUNTS_3D = (33, 64)
+#: the separation of ``generate_measurements --dmin``: 0.05 in 2d as the
+#: reference's script is run for the flagship, 0.04 at 256 points (257 points
+#: 0.05 apart do not place in the unit square within the script's attempts),
+#: 0.1 in 3d
+LOWRANK_DMIN = {33: 0.05, 64: 0.05, 256: 0.04}
+LOWRANK_DMIN_3D = 0.1
+#: ``generate_measurements --seed``
+LOWRANK_SEED = 2154157
+#: chains of the elementwise checks (the split kernels at one chain)
+LOWRANK_CHECK_CHAINS = 8
+#: the measurements of the many-measurement path
+LOWRANK_PATH_M = 64
+#: steps a variant of the path takes (timed), and the moment gates' protocol
+LOWRANK_STEPS = 10
+LOWRANK_GATE = {"warmup": 30, "steps": 300}
+#: the lowrank table (``--phases lowrank_table``): measurement counts and chains
+LOWRANK_TABLE_COUNTS = (8, 32, 64, 128, 256)
+LOWRANK_TABLE_CHAINS = (1, 32, 256)
+
+
+def generated_measurements(dim, nmeas, dmin, seed=LOWRANK_SEED):
+    """Locations, means and variances as ``python -m
+    multigridmc_tpu_torch.drivers.generate_measurements --dim dim --nmeas nmeas
+    --dmin dmin --seed seed`` writes them: pairwise ``dmin`` apart, means
+    uniform in [1, 4], variances uniform in [1e-6, 2e-6]."""
+    from multigridmc_tpu_torch.drivers import generate_measurements as gm
+
+    points = gm.sample_points(nmeas + 1, dim, dmin, seed)
+    return points[:-1], gm.average(nmeas, 1.0, 4.0), gm.variance(nmeas, 1e-6, 2e-6)
+
+
+def lowrank_posterior(nx, nmeas, device, dim=2, pdemodel="shiftedlaplace_fd", order_one=False):
+    """The prior ``pdemodel`` (Lambda 0.2) on an ``nx^dim`` lattice and
+    ``nmeas`` measurements of :func:`generated_measurements`; with
+    ``order_one`` each variance ``v`` becomes ``0.5 + 1e6 (v - 1e-6)`` (in [0.5,
+    1.5]) for the elementwise checks, as :func:`phase_visits` takes them."""
+    from multigridmc_tpu_torch.lattice import Lattice
+    from multigridmc_tpu_torch.models.correlation import ConstantCorrelationLengthModel
+    from multigridmc_tpu_torch.models.posterior import MeasurementParameters, measured_operator
+    from multigridmc_tpu_torch.models.prior import prior_operator
+
+    dmin = LOWRANK_DMIN.get(nmeas, 0.05) if dim == 2 else LOWRANK_DMIN_3D
+    locations, mean, var = generated_measurements(dim, nmeas, dmin)
+    if order_one:
+        var = 0.5 + 1e6 * (var - 1e-6)
+    prior = prior_operator(pdemodel, Lattice((nx,) * dim), ConstantCorrelationLengthModel(0.2),
+                           device=device, dtype=torch.float32)
+    params = MeasurementParameters(measurement_locations=locations, mean=mean, variance=var)
+    return measured_operator(prior, params), params
+
+
+def lowrank_kernel(level, route, kind):
+    """The profiler's name of the kernel a launch of ``kind`` through ``route``
+    runs on ``level`` (any dimension, reach and route)."""
+    if level.dim == 3 or level.reach > 1:
+        return reach2_kernel(level, route, kind)
+    return ssor_route_kernel(level, route, kind)
+
+
+def check_lowrank_level(level, name, C, gen, route):
+    """One level's visit kernels of ``route`` against their plain versions at
+    ``C`` chains, noise off and the same noise tensors (``x`` within TOL,
+    ``f_c`` by :func:`compare_fc`), then, for a route other than the phase
+    kernels, against the phase kernels under one in-kernel Philox stream (the
+    same tolerances; the split kernels at the cluster size of their rule).
+    The stream kernels must refuse a level of more than their cap before they
+    launch."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+
+    dev, vshape, m, nd = level.coeffs.device, level.op.vshape, level.op.m_lowrank, level.ndir
+
+    def rand(*shape):
+        return torch.randn(*shape, device=dev, dtype=torch.float32, generator=gen)
+
+    f, x, xc = rand(*vshape), rand(C, *vshape), rand(C, *level.vc)
+    kw = {"cluster": mv.split_cluster(C, vshape, capped=False, m=m)} if route == "split" else {}
+    if m > mv.STREAM_MAX_LOWRANK:
+        before = dict(mv.launch_counts)
+        try:
+            mv.launch_descend(level, "stream", f, x.clone())
+            raise AssertionError(f"lowrank {name}: the stream kernels took {m} measurements")
+        except NotImplementedError:
+            pass
+        if mv.launch_counts != before:
+            raise AssertionError(f"lowrank {name}: a refused launch was counted")
+    errs = {"x": 0.0, "f_c_over_scale": 0.0, "ascend_x": 0.0}
+    for noisy in (False, True):
+        xi = (rand(C, *vshape) if nd == 1 else rand(2, C, *vshape)) if noisy else None
+        xi_lr = rand(C, nd * m) if noisy else None
+        tag = f"lowrank {name} m={m} C={C} {route} {'shared noise' if noisy else 'noise off'}"
+        want_x, want_fc = mv.descend_visit_plain(level, f, x, xi, xi_lr)
+        got_x, got_fc = mv.launch_descend(level, route, f, x.clone(), xi, xi_lr, **kw)
+        errs["x"] = max(errs["x"], compare(f"descend x {tag}", got_x, want_x))
+        errs["f_c_over_scale"] = max(errs["f_c_over_scale"],
+                                     compare_fc(f"descend f_c {tag}", got_fc, want_fc))
+        want = mv.ascend_visit_plain(level, f, x, xc, xi, xi_lr)
+        got = mv.launch_ascend(level, route, f, x.clone(), xc, xi, xi_lr, **kw)
+        errs["ascend_x"] = max(errs["ascend_x"], compare(f"ascend x {tag}", got, want))
+        del want_x, want_fc, got_x, got_fc, want, got
+    if route != "phase":
+        stream = {"xi_lr": rand(C, nd * m), "philox": (0x5EED_0022, 7)}
+        got = [(*mv.launch_descend(level, r, f, x.clone(), **stream, **k),
+                mv.launch_ascend(level, r, f, x.clone(), xc, **stream, **k))
+               for r, k in (("phase", {}), (route, kw))]
+        tag = f"lowrank {name} m={m} C={C} one Philox stream, {route} against phase kernel"
+        errs[f"{route}_against_phase"] = {
+            "descend_x": compare(f"descend x {tag}", got[1][0], got[0][0]),
+            "descend_f_c_over_scale": compare_fc(f"descend f_c {tag}", got[1][1], got[0][1]),
+            "ascend_x": compare(f"ascend x {tag}", got[1][2], got[0][2])}
+        del got
+    torch.cuda.synchronize()
+    return {"level": name, "m": m, "vshape": list(vshape), "sweeps": nd,
+            "stencil_form": level.stencil_form, "chains": C, "route": route,
+            "cluster": kw.get("cluster"),
+            "names": [mv.kernel_name(level, route, k) for k in ("descend", "ascend")], **errs}
+
+
+def lowrank_levels(device, m):
+    """The fused levels the many-measurement checks take, each ``(name, level,
+    [(chains, route), ...])``: the flagship's 255^2 and 127^2 levels with one
+    sweep (phase at :data:`LOWRANK_CHECK_CHAINS`, split at one chain) and two
+    (phase, split; the smem kernels where their table and the scratch fit),
+    the biharmonic posterior's 255^2 13-point and 127^2 25-point levels (phase
+    and smem), and for ``m`` up to 64 the 64^3 posterior's 63^3 7-point and
+    31^3 27-point levels (phase and smem); O(1) variances.  Also the samplers,
+    for the subtree checks."""
+    from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
+
+    C = LOWRANK_CHECK_CHAINS
+    out, samplers = [], {}
+    op, _ = lowrank_posterior(256, m, device, order_one=True)
+    for smoother in ("SOR", "SSOR"):
+        sampler = MultigridMCSampler(op, 5, smoother=smoother, cycle=2, fused=True,
+                                     fused_min_vertices=0, distill=False)
+        for li in (0, 1):
+            level = sampler.fused_levels[li]
+            runs = [(C, "phase"), (1, "split")]
+            if smoother == "SSOR" and level.route(C) == "smem":
+                runs.append((C, "smem"))
+            out.append((f"{smoother} L{li}", level, runs))
+    op_bih, _ = lowrank_posterior(256, m, device, pdemodel="squared_shiftedlaplace_fd",
+                                  order_one=True)
+    bih = MultigridMCSampler(op_bih, 5, smoother="SOR", cycle=2, fused=True,
+                             fused_min_vertices=0, distill=False)
+    for li in (0, 1):
+        level = bih.fused_levels[li]
+        runs = [(C, "phase")] + ([(C, "smem")] if level.route(C) == "smem" else [])
+        out.append((f"biharmonic L{li}", level, runs))
+    samplers["flagship"] = lambda: MultigridMCSampler(op, 5, cycle=2, subtree=True)
+    samplers["biharmonic"] = lambda: MultigridMCSampler(op_bih, 5, cycle=2, subtree=True)
+    if m in LOWRANK_COUNTS_3D:
+        op3, _ = lowrank_posterior(64, m, device, dim=3, order_one=True)
+        vol = MultigridMCSampler(op3, 4, smoother="SOR", cycle=2, fused=True,
+                                 fused_min_vertices=0, distill=False)
+        for li in (0, 1):
+            level = vol.fused_levels[li]
+            runs = [(C, "phase")] + ([(C, "smem")] if level.route(C) == "smem" else [])
+            out.append((f"3d L{li}", level, runs))
+    return out, samplers
+
+
+def lowrank_checks(device, gen):
+    """Every visit kernel against its plain version at each count of
+    :data:`LOWRANK_COUNTS` (3d :data:`LOWRANK_COUNTS_3D`): the levels of
+    :func:`lowrank_levels` through each of their routes, and the subtree kernel
+    (reach 1 on the flagship's levels 1-4, reach 2 on the biharmonic ones;
+    :func:`check_subtree`, ``SUBTREE_TOL``: noise off, shared noise, the
+    in-kernel generator with the low-rank draws' known answers past 32
+    normals).  Returns the rows and the largest error by kernel name."""
+    rows, worst, subtree = [], {}, []
+    for m in LOWRANK_COUNTS:
+        levels, samplers = lowrank_levels(device, m)
+        for name, level, runs in levels:
+            for C, route in runs:
+                row = check_lowrank_level(level, name, C, gen, route)
+                rows.append(row)
+                for kname in row["names"]:
+                    key = f"{kname}@m{m}"
+                    worst[key] = max(worst.get(key, 0.0), row["x"], row["ascend_x"],
+                                     row["f_c_over_scale"])
+        cases = (("flagship_levels_1_to_4", samplers["flagship"], 9),
+                 ("biharmonic_levels_1_to_3", samplers["biharmonic"], 25))
+        err, srows = check_subtree(device, LOWRANK_CHECK_CHAINS, gen, cases)
+        for r in srows:
+            r["m"] = m
+        subtree += srows
+        worst[f"subtree@m{m}"] = err
+        torch.cuda.empty_cache()
+    return rows, subtree, worst
+
+
+def lowrank_gate(name, sampler, op, C, device, exact):
+    """The zero-mean protocol of :func:`volume_gate` (f = 0 from x = 0,
+    :data:`LOWRANK_GATE` warm-up and steps at ``C`` chains) on ``sampler``:
+    the mean and variance of the point observation at the centre and of the
+    first measurement's functional ``B_0^T x`` within 4 standard errors of 0
+    and of ``exact`` (float64 variances, ``observed_mean_and_variance``)."""
+    from multigridmc_tpu_torch.models.posterior import measurement_vector
+    from multigridmc_tpu_torch.samplers.base import GeneratorNoise
+
+    dim = len(op.vshape)
+    W = torch.stack([torch.as_tensor(measurement_vector(op.lattice, np.full(dim, 0.5), 0.0),
+                                     dtype=torch.float32, device=device).reshape(-1),
+                     op.lowrank.B[0].float().reshape(-1)]).double()
+    noise = GeneratorNoise(LOWRANK_SEED + 1, device)
+    fz = torch.zeros(op.vshape, device=device)
+    x = torch.zeros((C,) + op.vshape, device=device)
+    for _ in range(LOWRANK_GATE["warmup"]):
+        x = sampler.apply(noise, fz, x)
+    zs = []
+    for _ in range(LOWRANK_GATE["steps"]):
+        x = sampler.apply(noise, fz, x)
+        zs.append(x.reshape(C, -1).double() @ W.T)
+    z = torch.stack(zs).cpu().numpy()
+    out = {"chains": C, **LOWRANK_GATE}
+    for k, obs in enumerate(("centre", "B0")):
+        out[obs] = moments_gate(f"lowrank {name} {obs}", z[:, :, k], 0.0, exact[obs], C)
+        out[obs]["exact_variance"] = exact[obs]
+    return out
+
+
+def lowrank_exact(op):
+    """The exact float64 variances of the centre point and of ``B_0^T x``
+    under ``op`` (:func:`lowrank_gate`'s observations)."""
+    from multigridmc_tpu_torch.models.posterior import (measurement_vector,
+                                                        observed_mean_and_variance)
+
+    dim = len(op.vshape)
+    op64 = op.to(dtype=torch.float64)
+    zeros, zm = np.zeros(op.vshape), np.zeros(op.m_lowrank)
+    return {"centre": observed_mean_and_variance(
+                op64, zeros, zm, measurement_vector(op.lattice, np.full(dim, 0.5), 0.0))[1],
+            "B0": observed_mean_and_variance(
+                op64, zeros, zm, op.lowrank.B[0].double().cpu().numpy())[1]}
+
+
+def lowrank_path(device):
+    """The many-measurement path through the normal entry points: the
+    flagship's posterior (255^2, FD prior, Lambda 0.2, 5-level W-cycle,
+    Cholesky, float32) with the :data:`LOWRANK_PATH_M` measurements of
+    ``generate_measurements --nmeas 64 --dmin 0.05 --seed 2154157``:
+    ``MultigridMCSampler.apply`` distilled at 256 and 128 chains and at one
+    chain, with SOR and with SSOR levels, and ``subtree=True`` at 256; the 64^3
+    posterior (``--dim 3 --nmeas 64 --dmin 0.1``) distilled at 32 chains;
+    each with its routes by level, ms and kernel ms per step
+    (:func:`drive_sampler`), the 256-chain SOR, SSOR and subtree steps and the
+    3d step through :func:`lowrank_gate`.  The launch counts are set to 0
+    before and read after (``launches``, summed over the variants)."""
+    m = LOWRANK_PATH_M
+    op, _ = lowrank_posterior(256, m, device)
+    f = torch.as_tensor(np.random.default_rng(0).uniform(size=op.vshape), dtype=torch.float32,
+                        device=device)
+    base = dict(nlevel=5, coarse_solver="Cholesky", omega=1.0, cycle=2)
+    variants = (("distilled_256", dict(smoother="SOR", distill=True), 256, True),
+                ("distilled_128", dict(smoother="SOR", distill=True), 128, False),
+                ("distilled_1", dict(smoother="SOR", distill=True), 1, False),
+                ("ssor_256", dict(smoother="SSOR", distill=True), 256, True),
+                ("ssor_1", dict(smoother="SSOR", distill=True), 1, False),
+                ("subtree_256", dict(smoother="SOR", subtree=True), 256, True))
+    exact = lowrank_exact(op)
+    out = {"measurements": m, "dmin": LOWRANK_DMIN[m], "lattice": [256, 256],
+           "exact": exact, "steps": {}, "gates": {}}
+    launches = {}
+    samplers = {}
+    for name, kwargs, C, gated in variants:
+        key = tuple(sorted(kwargs.items()))
+        sampler, res = drive_sampler(op, f, C, LOWRANK_STEPS, {**base, **kwargs},
+                                     sampler=samplers.get(key))
+        samplers[key] = sampler
+        out["steps"][name] = res
+        for k, v in {**res["launches"], **res["subtree_launches"]}.items():
+            launches[k] = launches.get(k, 0) + v
+        if gated:
+            out["gates"][name] = lowrank_gate(name, sampler, op, C, device, exact)
+    del samplers, sampler
+    op3, _ = lowrank_posterior(64, m, device, dim=3)
+    f3 = torch.as_tensor(np.random.default_rng(0).uniform(size=op3.vshape),
+                         dtype=torch.float32, device=device)
+    sampler3, res3 = drive_sampler(op3, f3, 32, LOWRANK_STEPS,
+                                   dict(nlevel=4, smoother="SOR", coarse_solver="Cholesky",
+                                        omega=1.0, cycle=2, distill=True),
+                                   levels_are=lambda lv: lv.dim == 3)
+    out["steps"]["volume_distilled_32"] = res3
+    for k, v in res3["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    out["gates"]["volume_distilled_32"] = lowrank_gate("volume", sampler3, op3, 32, device,
+                                                       lowrank_exact(op3))
+    out["launches"] = launches
+    del sampler3
+    torch.cuda.empty_cache()
+    return out
+
+
+def lowrank_driver(device):
+    """``python -m multigridmc_tpu_torch.drivers.mgmc`` once on a 255^2
+    configuration (SOR multigrid, 5 levels, the MGMC time series alone) whose
+    measurement file ``generate_measurements --nmeas 64 --dmin 0.05`` wrote:
+    the fused visits' launches, the samples' mean and variance finite."""
+    from multigridmc_tpu_torch.drivers import generate_measurements as gm
+    from multigridmc_tpu_torch.drivers import mgmc as driver_mgmc
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        os.chdir(work)
+        try:
+            gm.main(["--dim", "2", "--nmeas", str(LOWRANK_PATH_M), "--dmin",
+                     str(LOWRANK_DMIN[LOWRANK_PATH_M]), "--seed", str(LOWRANK_SEED),
+                     "--output", "measurements.cfg"])
+            with open("params_mgmc.cfg", "w") as out:
+                out.write(DRIVER_CONFIG.format(
+                    nx=256, nlevel=5, smoother="SOR", nchains=32, nsamples=200, nwarmup=20,
+                    do_cholesky="false", do_ssor="false", schedule="",
+                    cholesky='cholesky = { factorisation = "dense"; }'))
+            mv.reset_launch_counts()
+            t0 = time.perf_counter()
+            text = run_driver(driver_mgmc.main, ["params_mgmc.cfg"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = {k: v for k, v in mv.launch_counts.items() if v}
+        finally:
+            os.chdir(cwd)
+    ms = re.search(r"multigridmc time per sample =\s+(\S+) ms", text)
+    mean = re.search(r"multigridmc mean\s+=\s+(\S+) \+/-\s+(\S+)", text)
+    var = re.search(r"multigridmc variance =\s+(\S+)", text)
+    if ms is None or mean is None or var is None or not counts or not np.isfinite(
+            [float(mean.group(1)), float(var.group(1))]).all():
+        raise AssertionError("lowrank driver: no finite MGMC statistics or no visit launch:\n"
+                             + text[-1500:])
+    return {"measurements": LOWRANK_PATH_M, "seconds": seconds,
+            "ms_per_sample": float(ms.group(1)), "mean": float(mean.group(1)),
+            "mean_error": float(mean.group(2)), "variance": float(var.group(1)),
+            "launches": counts}
+
+
+def lowrank_times(level, route, C, noise, label):
+    """Device ms of one descend and one ascend through ``route`` at ``C``
+    chains on ``level`` (in-kernel noise, as the path draws it), the plain
+    versions' ms, and the bound of each (:func:`visit_bound`)."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+
+    dev, vshape = level.coeffs.device, level.op.vshape
+    f = torch.rand(vshape, device=dev)
+    x = torch.zeros((C,) + vshape, device=dev)
+    xc = torch.randn((C,) + level.vc, device=dev)
+    fns = dict(zip(("descend", "ascend"), visit_fns(level, route, noise, f, x, xc)))
+    dev_ms = device_ms_medians({k: (fn, lowrank_kernel(level, route, k))
+                                for k, fn in fns.items()})
+    out = {"label": label, "m": level.op.m_lowrank, "vshape": list(vshape), "chains": C,
+           "route": route}
+    for kind, fn in fns.items():
+        name = mv.kernel_name(level, route, kind)
+        out[f"{kind}_name"] = name
+        out[f"{kind}_ms"] = cuda_ms(fn, 3, 5 if C > 1 else 20)
+        out[f"{kind}_device_ms"] = dev_ms[kind]
+        bound, by, nbytes = visit_bound(level, C, False, kind)
+        out.update({f"{kind}_bound_ms": bound, f"{kind}_bound_by": by,
+                    f"{kind}_bound_bytes": nbytes})
+
+    def plain_noise(kind):
+        xi, xi_lr, _ = level._draw(_TensorNoise(noise), x, kind)
+        return xi, xi_lr
+
+    out["descend_plain_ms"] = cuda_ms(
+        lambda: mv.descend_visit_plain(level, f, x, *plain_noise("descend")), 3, 2)
+    out["ascend_plain_ms"] = cuda_ms(
+        lambda: mv.ascend_visit_plain(level, f, x, xc, *plain_noise("ascend")), 3, 2)
+    return out
+
+
+def lowrank_kernel_times(device):
+    """The many-measurement forms' times at 64 and 256 measurements (3d: 64)
+    at the shapes their path gives them: the phase kernels on 255^2 at
+    :data:`PHASE_CHAINS`, the split kernels on 255^2 at one chain, the smem
+    kernels on the SSOR 255^2 level at 256 chains and on the biharmonic 255^2
+    13-point and 127^2 25-point levels at 256, the phase kernels' reach-2 build
+    on the biharmonic 255^2 level at 256, the 3d phase and smem kernels on
+    63^3 and 31^3 at 32 chains, the subtree kernel at 256 chains."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_subtree as st
+    from multigridmc_tpu_torch.samplers.base import GeneratorNoise
+    from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
+
+    noise = GeneratorNoise(LOWRANK_SEED + 2, device)
+    rows = []
+    for m in (64, 256):
+        op, _ = lowrank_posterior(256, m, device)
+        sor = MultigridMCSampler(op, 5, smoother="SOR", cycle=2, fused=True, fused_min_vertices=0,
+                                 distill=False)
+        L0 = sor.fused_levels[0]
+        rows.append(lowrank_times(L0, "phase", PHASE_CHAINS, noise, "flagship SOR 255^2"))
+        rows.append(lowrank_times(L0, "split", 1, noise, "flagship SOR 255^2"))
+        ssor = MultigridMCSampler(op, 5, smoother="SSOR", cycle=2, fused=True,
+                                  fused_min_vertices=0, distill=False)
+        S0 = ssor.fused_levels[0]
+        rows.append(lowrank_times(S0, S0.route(256), 256, noise, "flagship SSOR 255^2"))
+        op_b, _ = lowrank_posterior(256, m, device, pdemodel="squared_shiftedlaplace_fd")
+        bih = MultigridMCSampler(op_b, 5, smoother="SOR", cycle=2, fused=True,
+                                 fused_min_vertices=0, distill=False)
+        for li in (0, 1):
+            B = bih.fused_levels[li]
+            rows.append(lowrank_times(B, B.route(256), 256, noise, f"biharmonic L{li}"))
+        rows.append(lowrank_times(bih.fused_levels[0], "phase", 256, noise, "biharmonic L0"))
+        sub = MultigridMCSampler(op, 5, cycle=2, subtree=True)
+        kernel = sub.subtree
+        f = torch.rand((256,) + tuple(kernel.vshape), device=device)
+        xi = torch.randn((256, kernel.count_noise()), device=device)
+        run = lambda: kernel.sample(noise, f)  # noqa: E731
+        bound, by, nbytes = subtree_bound(kernel, 256)
+        rows.append({"label": "flagship subtree", "m": m, "vshape": list(kernel.vshape),
+                     "chains": 256, "route": "subtree", "subtree_name": "subtree_sample",
+                     "subtree_ms": cuda_ms(run, 3, 3),
+                     "subtree_device_ms": device_ms_median(run, "mgmc_subtree_kernel", 5),
+                     "subtree_plain_ms": cuda_ms(lambda: st.subtree_sample_plain(kernel, f, xi),
+                                                 2, 1),
+                     "subtree_bound_ms": bound, "subtree_bound_by": by,
+                     "subtree_bound_bytes": nbytes, "tables_shared": kernel.tables_shared})
+        del sor, ssor, bih, sub, kernel, xi
+        torch.cuda.empty_cache()
+    op3, _ = lowrank_posterior(64, 64, device, dim=3)
+    vol = MultigridMCSampler(op3, 4, smoother="SOR", cycle=2, fused=True, fused_min_vertices=0,
+                             distill=False)
+    for li in (0, 1):
+        V = vol.fused_levels[li]
+        rows.append(lowrank_times(V, V.route(32), 32, noise, f"64^3 L{li}"))
+        if V.route(32) != "phase":
+            rows.append(lowrank_times(V, "phase", 32, noise, f"64^3 L{li}"))
+    return rows
+
+
+def phase_lowrank(device, smi):
+    """Levels of more than 32 measurements on the card: every kernel against
+    its plain version and the routes against each other (:func:`lowrank_checks`),
+    the many-measurement path with its moment gates (:func:`lowrank_path`), the
+    driver (:func:`lowrank_driver`) and the new forms' times
+    (:func:`lowrank_kernel_times`)."""
+    from multigridmc_tpu_torch.ops.kernels import mgmc_visit as mv
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(22)
+    t0 = time.perf_counter()
+    out = {"phase": "lowrank", "card": smi, "counts_2d": list(LOWRANK_COUNTS),
+           "counts_3d": list(LOWRANK_COUNTS_3D), "tol": TOL, "subtree_tol": SUBTREE_TOL,
+           "max_lowrank": {"2d": mv.max_lowrank(1024), "reach2_3d": mv.max_lowrank(512)}}
+    out["checks"], out["subtree_checks"], out["max_abs_err"] = lowrank_checks(device, gen)
+    out["checks_seconds"] = time.perf_counter() - t0
+    out["path"] = lowrank_path(device)
+    out["driver"] = lowrank_driver(device)
+    out["times"] = lowrank_kernel_times(device)
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
+def phase_lowrank_table(device, smi):
+    """Device ms of a descend plus an ascend of every route a visit can take
+    on the flagship's 255^2 and 127^2 levels (one sweep) at each count of
+    :data:`LOWRANK_TABLE_COUNTS` and :data:`LOWRANK_TABLE_CHAINS`: the level's
+    own route and the phase kernels (and the split kernels at one chain)."""
+    from multigridmc_tpu_torch.samplers.base import GeneratorNoise
+    from multigridmc_tpu_torch.samplers.mgmc import MultigridMCSampler
+
+    noise = GeneratorNoise(LOWRANK_SEED + 3, device)
+    rows = []
+    for m in LOWRANK_TABLE_COUNTS:
+        op, _ = lowrank_posterior(256, m, device)
+        sampler = MultigridMCSampler(op, 5, smoother="SOR", cycle=2, fused=True,
+                                     fused_min_vertices=0, distill=False)
+        for li in (0, 1):
+            level = sampler.fused_levels[li]
+            for C in LOWRANK_TABLE_CHAINS:
+                routes = sorted({level.route(C), "phase"} | ({"split"} if C == 1 else set()))
+                for route in routes:
+                    dev, vshape = level.coeffs.device, level.op.vshape
+                    f = torch.rand(vshape, device=dev)
+                    x = torch.zeros((C,) + vshape, device=dev)
+                    xc = torch.randn((C,) + level.vc, device=dev)
+                    fns = dict(zip(("descend", "ascend"),
+                                   visit_fns(level, route, noise, f, x, xc)))
+                    ms = device_ms_medians({k: (fn, lowrank_kernel(level, route, k))
+                                            for k, fn in fns.items()})
+                    rows.append({"m": m, "level": li, "vshape": list(vshape), "chains": C,
+                                 "route": route, "rule": route == level.route(C),
+                                 "descend_ms": ms["descend"], "ascend_ms": ms["ascend"],
+                                 "device_ms": None if None in ms.values() else sum(ms.values())})
+        del sampler
+        torch.cuda.empty_cache()
+    emit({"phase": "lowrank_table", "card": smi, "rows": rows})
+    return rows
+
+
+
+
 # ------------------------------------------------------------- phase: parallel
 #: the lattice cycle of phase ``parallel``: chains, steps timed, the
 #: agglomeration threshold (the JAX package's default)
@@ -7224,7 +7747,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(sorted(ALL_PHASES)),
                         help="comma-separated subset of kernels,main_path,band,alternating,"
-                             "drivers,statistics,biharmonic,volume,ssor,parallel "
+                             "drivers,statistics,biharmonic,volume,ssor,lowrank,parallel "
                              "to run (device and build always run; 'threads' adds a "
                              "block-size table, 'passes' the phase kernels' checks and "
                              "breakdown by pass, 'compare' the phase kernels' times and "
@@ -7244,7 +7767,9 @@ def main(argv=None) -> int:
                              "smem3d sweeps' checks, times and paths alone, 'sweep3d_table' "
                              "with their configuration and route table; 'multichip' four ranks "
                              "over NCCL, one card each: the chains path and the 2x2 lattice "
-                             "cycle); the ok line needs exactly the default ten")
+                             "cycle); 'lowrank_check' the many-measurement checks alone, "
+                             "'lowrank_table' the many-measurement routes' table; the ok line "
+                             "needs exactly the default eleven")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -7316,6 +7841,14 @@ def main(argv=None) -> int:
               "passes_kernel_attributes": sweep_kernel_attributes(),
               "stamps": time_sweep_passes(device, GeneratorNoise(5, device), bodies, nx, nlevel,
                                           n_meas)})
+    if "lowrank_check" in phases:  # the many-measurement checks alone (no result line)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(22)
+        rows, subtree_rows, worst = lowrank_checks(device, gen)
+        emit({"phase": "lowrank_check", "checks": rows, "subtree_checks": subtree_rows,
+              "max_abs_err": worst})
+    if "lowrank_table" in phases:  # the many-measurement routes' table (no result line)
+        phase_lowrank_table(device, smi)
     if "multichip" in phases:  # four ranks over NCCL, one card each (no result line)
         phase_multichip(smi)
         lap("multichip")
@@ -7347,6 +7880,9 @@ def main(argv=None) -> int:
     if "ssor" in phases:
         ssor = phase_ssor(device, smi)
         lap("ssor")
+    if "lowrank" in phases:
+        lowrank = phase_lowrank(device, smi)
+        lap("lowrank")
     if "parallel" in phases:
         parallel = phase_parallel(device, nx, nlevel, C, n_meas, steps, smi,
                                   main if "main_path" in phases else None)
@@ -7934,6 +8470,46 @@ def main(argv=None) -> int:
                 "shape": {"chains": t["chains"], "b_batched": t["b_batched"],
                           "vshape": t["vshape"], "offsets": t["offsets"],
                           "colours": t["colours"], "cluster": t["routes"][key][1]}})
+    # the many-measurement forms (more than mv.LANE_SLOTS measurements: the
+    # low-rank scratch in dynamic shared memory): device ms at 64 measurements,
+    # at 256 beside it (3d: 64 alone), and the launches of the lowrank path
+    # (64 measurements; each variant's counts set to 0 before it and read
+    # after, summed)
+    path_launches = lowrank["path"]["launches"]
+    forms = {}
+    for t in lowrank["times"]:
+        for kind in (("subtree",) if t["route"] == "subtree" else ("descend", "ascend")):
+            forms.setdefault(t[f"{kind}_name"], {})[t["m"]] = (t, kind)
+    for base, by_m in forms.items():
+        t, kind = by_m[min(by_m)]
+        errs = [v for key, v in lowrank["max_abs_err"].items()
+                if key.split("@")[0] == ("subtree" if kind == "subtree" else base)]
+        if not errs:
+            raise AssertionError(f"lowrank: the form {base} was timed but not checked")
+        launches = path_launches.get(base, 0)
+        source = {"phase": "mgmc_visit.cu", "split": "mgmc_visit_split.cu",
+                  "smem": "mgmc_visit_smem3d.cu" if "_3d_" in base else "mgmc_visit_smem.cu",
+                  "subtree": "mgmc_subtree.cu"}[t["route"]]
+        kernels.append({
+            "name": f"{base}_many_measurements", "route": "cuda",
+            "source": f"multigridmc_tpu_torch/csrc/{source}",
+            "replaces": ("multigridmc_tpu/ops/kernels/mgmc_subtree_pallas.py:326"
+                         if kind == "subtree" else
+                         f"multigridmc_tpu/ops/kernels/mgmc_visit_pallas.py:"
+                         f"{700 if kind == 'descend' else 847}"),
+            "launches": launches, "path": "lowrank path" if launches else None,
+            "max_abs_err": max(errs), "measurements": t["m"],
+            "ms": t[f"{kind}_ms"], "device_ms": t[f"{kind}_device_ms"],
+            "plain_ms": t[f"{kind}_plain_ms"], "bound_ms": t[f"{kind}_bound_ms"],
+            "bound_by": t[f"{kind}_bound_by"], "bound_bytes": t[f"{kind}_bound_bytes"],
+            "library_ms": None,
+            "shape": {"chains": t["chains"], "vshape": t["vshape"], "level": t["label"]},
+            "at_256_measurements": None if 256 not in by_m else {
+                key: by_m[256][0][f"{kind}_{key}"] for key in
+                ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+            "design": "the low-rank vectors in dynamic shared memory sized by m, each lane "
+                      "holding entries lane, lane + 32, ..., u = W v one row at a time with "
+                      "the lanes along it (csrc/visit_phases.cuh)"})
     for k in kernels:
         if k.get("path", "") is not None and k["launches"] < 1:
             raise AssertionError(f"kernel {k['name']} was launched no time on its path")

@@ -34,7 +34,14 @@
 //   column order; the boxes overlap, so that order, not atomics, makes each
 //   point's sum the same as a loop over the columns.  B^T x is one warp per
 //   column (lanes along its box, a fixed shuffle tree).  The m scalars a pass
-//   needs (n, u or t) each warp computes for itself into its own slot.
+//   needs (n, u or t) each warp computes for itself into its own slot: up
+//   to LANE_SLOTS of them one a lane.  A kernel compiled for more (LR,
+//   m > LANE_SLOTS, visit_phases.cuh) holds entries lane, lane + 32, ... in
+//   a lane, the warp's slot two m-vectors (u, then t; and n), B^T x -
+//   Sigma^1/2 n formed by the B^T x pass in the block's vector, all in
+//   dynamic shared memory sized by m (lowrank_scratch_floats), W v a row at a
+//   time (warp_matvec); the kernels of up to LANE_SLOTS keep the code they
+//   had, the LR code compiled out of them.
 // * The sweep's warps take the rows that hold the colour in turn (T.rows), so
 //   every warp has rows in every colour phase; within a colour no point reads
 //   another, so the order of the rows does not change the result.
@@ -71,13 +78,6 @@
 
 #include "block_stamps.cuh"
 #include "visit_phases.cuh"
-
-// sum over the warp, the total in lane 0 (a fixed shuffle tree)
-__device__ __forceinline__ float warp_total(float v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    return v;
-}
 
 // One level's tables for one sweep direction.
 struct LevelTables {
@@ -555,27 +555,52 @@ __device__ __forceinline__ float add_columns(const int (*box)[BOX_INTS], int m, 
     return v;
 }
 
+// Where a warp's slot wv (m floats up to LANE_SLOTS, 2 m in an LR kernel)
+// holds its n: the slot itself (n, then u, then t), or past its u.
+template <bool LR>
+__device__ __forceinline__ float* normals_of(float* wv, int m) {
+    return LR ? wv + m : wv;
+}
+
 // This warp's n: the m low-rank normals of a sweep (mode 1: the generator
-// under `counter`, point groups 0 .. ceil(m / 4) - 1; mode 2: read from xi),
-// recorded by warp 0 where xi_rec is set.  m <= 32.  (The subtree kernel
+// under `counter`, normal k element k % 4 of point group k / 4; mode 2: read
+// from xi), recorded by warp 0 where xi_rec is set.  (The subtree kernel
 // draws them; the phase kernels are handed them.)
+template <bool LR>
 __device__ __forceinline__ void lowrank_normals(int m, int chain, int noise_mode,
                                                 unsigned long long seed,
                                                 unsigned long long counter, const float* xi,
                                                 float* xi_rec, float* wv) {
-    const int lane = threadIdx.x & 31;
-    if (lane < m) {
-        float z;
-        if (noise_mode == 1) {
-            float z4[4];
-            philox_normals4((uint32_t)(lane >> 2), (uint32_t)chain, seed, counter, z4);
-            const int q = lane & 3;
-            z = q == 0 ? z4[0] : (q == 1 ? z4[1] : (q == 2 ? z4[2] : z4[3]));
-            if (xi_rec != nullptr && threadIdx.x < 32) xi_rec[lane] = z;
-        } else {
-            z = xi[lane];
+    if constexpr (LR) {
+        float* nv = normals_of<LR>(wv, m);
+        for (int k = threadIdx.x & 31; k < m; k += 32) {
+            float z;
+            if (noise_mode == 1) {
+                float z4[4];
+                philox_normals4((uint32_t)(k >> 2), (uint32_t)chain, seed, counter, z4);
+                const int q = k & 3;
+                z = q == 0 ? z4[0] : (q == 1 ? z4[1] : (q == 2 ? z4[2] : z4[3]));
+                if (xi_rec != nullptr && threadIdx.x < 32) xi_rec[k] = z;
+            } else {
+                z = xi[k];
+            }
+            nv[k] = z;
         }
-        wv[lane] = z;
+    } else {
+        const int lane = threadIdx.x & 31;
+        if (lane < m) {
+            float z;
+            if (noise_mode == 1) {
+                float z4[4];
+                philox_normals4((uint32_t)(lane >> 2), (uint32_t)chain, seed, counter, z4);
+                const int q = lane & 3;
+                z = q == 0 ? z4[0] : (q == 1 ? z4[1] : (q == 2 ? z4[2] : z4[3]));
+                if (xi_rec != nullptr && threadIdx.x < 32) xi_rec[lane] = z;
+            } else {
+                z = xi[lane];
+            }
+            wv[lane] = z;
+        }
     }
     __syncwarp();
 }
@@ -583,10 +608,17 @@ __device__ __forceinline__ void lowrank_normals(int m, int chain, int noise_mode
 // This warp's n of a later sweep direction, from the chain's normals in
 // memory (noise on and m > 0; else nothing).  The warp has read its slot's
 // last values before (the barrier after the Woodbury pass).
+template <bool LR>
 __device__ __forceinline__ void next_normals(const VisitParams& P, int noise_mode,
                                              const float* __restrict__ nlr, float* wv) {
-    const int lane = threadIdx.x & 31;
-    if (noise_mode && lane < P.m) wv[lane] = nlr[lane];
+    if constexpr (LR) {
+        float* nv = normals_of<LR>(wv, P.m);
+        if (noise_mode)
+            for (int k = threadIdx.x & 31; k < P.m; k += 32) nv[k] = nlr[k];
+    } else {
+        const int lane = threadIdx.x & 31;
+        if (noise_mode && lane < P.m) wv[lane] = nlr[lane];
+    }
     __syncwarp();
 }
 
@@ -769,9 +801,12 @@ __device__ void rhs_packed(const VisitParams& P, int chain, const float* __restr
 
 // ------------------------------------------------------------ B^T x, Woodbury
 // s_btx[k] = <B_k, x> over column k's box: one warp per column, lanes along
-// the box, a shuffle tree.  Ends with a barrier.
-template <bool COUNT>
-__device__ void btx_pass(const VisitParams& P, const LevelTables& T, const float* x, float* s_btx) {
+// the box, a shuffle tree; in an LR kernel the Woodbury argument <B_k, x> -
+// Sigma^1/2_k n_k (n from the warp's slot wv where `noise` is on, else 0),
+// which every warp reads there.  Ends with a barrier.
+template <bool COUNT, bool LR = false>
+__device__ void btx_pass(const VisitParams& P, const LevelTables& T, const float* x, float* s_btx,
+                         const float* wv, bool noise) {
     const int lane = threadIdx.x & 31;
     for (int k = threadIdx.x >> 5; k < P.m; k += blockDim.x >> 5) {
 #if VISIT_DIM == 3
@@ -793,6 +828,7 @@ __device__ void btx_pass(const VisitParams& P, const LevelTables& T, const float
         for (int q = lane; q < area; q += 32) acc += x[(i0 + q / bw) * P.W + j0 + q % bw] * v[q];
 #endif
         acc = warp_total(acc);
+        if constexpr (LR) acc -= T.sroot[k] * (noise ? wv[P.m + k] : 0.0f);
         if (lane == 0) s_btx[k] = acc;
     }
     block_sync<COUNT>();
@@ -802,24 +838,30 @@ __device__ void btx_pass(const VisitParams& P, const LevelTables& T, const float
 // the columns that Y's boxes span: wv holds this warp's n, the sweep's
 // low-rank normals (read only with `noise`: else n = 0), and receives its
 // copy of u.  With `residual` it then receives t = u + Sigma^-1/2 n = Sigma^-1
-// B^T x of the corrected x, the descend's residual term.  Ends with a barrier.
-template <bool COUNT>
+// B^T x of the corrected x, the descend's residual term.  In an LR kernel
+// s_btx holds B^T x - Sigma^1/2 n already (btx_pass) and n lies past u in the
+// slot (normals_of).  Ends with a barrier.
+template <bool COUNT, bool LR = false>
 __device__ void woodbury_pass(const VisitParams& P, const LevelTables& T, const float* s_btx,
                               bool noise, bool residual, float* wv, float* x) {
     const int lane = threadIdx.x & 31;
     float nk = 0.0f, sk = 1.0f, u = 0.0f;
-    if (lane < P.m) {
-        sk = T.sroot[lane];
-        if (noise) nk = wv[lane];
+    if constexpr (LR) {
+        warp_matvec(T.wm, s_btx, P.m, wv);
+    } else {
+        if (lane < P.m) {
+            sk = T.sroot[lane];
+            if (noise) nk = wv[lane];
+        }
+        __syncwarp();
+        if (lane < P.m) wv[lane] = s_btx[lane] - sk * nk;
+        __syncwarp();
+        if (lane < P.m)
+            for (int k = 0; k < P.m; ++k) u += T.wm[lane * P.m + k] * wv[k];
+        __syncwarp();
+        if (lane < P.m) wv[lane] = u;
+        __syncwarp();
     }
-    __syncwarp();
-    if (lane < P.m) wv[lane] = s_btx[lane] - sk * nk;
-    __syncwarp();
-    if (lane < P.m)
-        for (int k = 0; k < P.m; ++k) u += T.wm[lane * P.m + k] * wv[k];
-    __syncwarp();
-    if (lane < P.m) wv[lane] = u;
-    __syncwarp();
     WARP_ROWS(i, P.H) {
         int lo, hi;
         row_span(T.ybox, T.yspan, P.m, i, lo, hi);
@@ -830,7 +872,13 @@ __device__ void woodbury_pass(const VisitParams& P, const LevelTables& T, const 
     }
     if (residual) {
         __syncwarp();
-        if (lane < P.m) wv[lane] = u + nk / sk;
+        if constexpr (LR) {
+            const float* nv = wv + P.m;
+            for (int k = lane; k < P.m; k += 32)
+                wv[k] = wv[k] + (noise ? nv[k] : 0.0f) / T.sroot[k];
+        } else if (lane < P.m) {
+            wv[lane] = u + nk / sk;
+        }
         __syncwarp();
     }
     block_sync<COUNT>();
@@ -1050,8 +1098,9 @@ __device__ void restrict_pass(const VisitParams& P, const float* __restrict__ r,
 // count compiled in (one direction compiles to the straight-line passes, two
 // to a loop that is not unrolled: unrolled, the two-sweep reach-2 visits took
 // 1.3-1.5x as long) or 0 for the count ndir at run time, wv this
-// warp's m scalars (holding the first direction's low-rank normals where
-// noise is on; those of direction d >= 1 at nlr + (d - 1) m), s_btx shared.
+// warp's slot (holding the first direction's low-rank normals where noise is
+// on, normals_of; those of direction d >= 1 at nlr + (d - 1) m), s_btx the
+// block's m floats.  LR: compiled for more than LANE_SLOTS measurements.
 // `zero` sets x = 0 first; `sync_first` places the first barrier even where
 // there is no rhs pass.  Noise: mode 0 off, 1 the generator under (seed,
 // counter + d) for direction d, 2 the field normals read from xi + d xi_step;
@@ -1062,7 +1111,7 @@ __device__ void restrict_pass(const VisitParams& P, const float* __restrict__ r,
 //
 // POINTS (the subtree kernel's reach-2 build, one direction): the sweep from
 // the colours' point lists *pts (sweep_points).
-template <int FORM, bool COUNT, int NDIR, class Tables, bool POINTS = false>
+template <int FORM, bool COUNT, int NDIR, class Tables, bool POINTS = false, bool LR = false>
 __device__ void level_descend(const VisitParams& P, const Tables& tables, int ndir, int chain,
                               int noise_mode, unsigned long long seed,
                               unsigned long long counter, bool zero, bool sync_first, float* x,
@@ -1077,7 +1126,7 @@ __device__ void level_descend(const VisitParams& P, const Tables& tables, int nd
         const LevelTables T = tables(d);
         const float* c = f;
         if (d > 0 || noise_mode || zero || sync_first) {
-            if (d > 0) next_normals(P, noise_mode, nlr + (size_t)(d - 1) * P.m, wv);
+            if (d > 0) next_normals<LR>(P, noise_mode, nlr + (size_t)(d - 1) * P.m, wv);
             if (noise_mode || (zero && d == 0))
                 rhs_pass(P, chain, noise_mode, seed, counter + d, f, ns,
                          xi ? xi + d * xi_step : nullptr, xi_rec, scr, x, nullptr,
@@ -1090,8 +1139,8 @@ __device__ void level_descend(const VisitParams& P, const Tables& tables, int nd
         else
             level_sweep<FORM, COUNT>(P, T, coeffs, c, x);
         if (P.m) {
-            btx_pass<COUNT>(P, T, x, s_btx);
-            woodbury_pass<COUNT>(P, T, s_btx, noise_mode != 0, d == nd - 1, wv, x);
+            btx_pass<COUNT, LR>(P, T, x, s_btx, wv, noise_mode != 0);
+            woodbury_pass<COUNT, LR>(P, T, s_btx, noise_mode != 0, d == nd - 1, wv, x);
         }
     }
     residual_pass<FORM, COUNT>(P, tables(nd - 1), coeffs, wv, f, x, scr);
@@ -1102,7 +1151,7 @@ __device__ void level_descend(const VisitParams& P, const Tables& tables, int nd
 // state, the rest as level_descend (3d: the prolongation in a loop of its own
 // before the first rhs, in the same pass: the two write different fields).
 // Ends with a barrier.
-template <int FORM, bool COUNT, int NDIR, class Tables, bool POINTS = false>
+template <int FORM, bool COUNT, int NDIR, class Tables, bool POINTS = false, bool LR = false>
 __device__ void level_ascend(const VisitParams& P, const Tables& tables, int ndir, int chain,
                              int noise_mode, unsigned long long seed,
                              unsigned long long counter, float* x, const float* f, float* scr,
@@ -1116,7 +1165,7 @@ __device__ void level_ascend(const VisitParams& P, const Tables& tables, int ndi
     for (int d = 0; d < nd; ++d) {
         const LevelTables T = tables(d);
         const float* xid = xi ? xi + d * xi_step : nullptr;
-        if (d > 0) next_normals(P, noise_mode, nlr + (size_t)(d - 1) * P.m, wv);
+        if (d > 0) next_normals<LR>(P, noise_mode, nlr + (size_t)(d - 1) * P.m, wv);
 #if VISIT_DIM == 3
         if (d == 0) prolong_rows3(P, x, xc);
         if (noise_mode)
@@ -1133,8 +1182,8 @@ __device__ void level_ascend(const VisitParams& P, const Tables& tables, int ndi
         else
             level_sweep<FORM, COUNT>(P, T, coeffs, noise_mode ? scr : f, x);
         if (P.m) {
-            btx_pass<COUNT>(P, T, x, s_btx);
-            woodbury_pass<COUNT>(P, T, s_btx, noise_mode != 0, false, wv, x);
+            btx_pass<COUNT, LR>(P, T, x, s_btx, wv, noise_mode != 0);
+            woodbury_pass<COUNT, LR>(P, T, s_btx, noise_mode != 0, false, wv, x);
         }
     }
 }

@@ -36,6 +36,17 @@
 // warp.  No operation reads a parameter or a low-rank value from device
 // memory after that.
 //
+// Measurements.  Sub-levels of up to LANE_SLOTS (32) take the kernel above.
+// Sub-levels of more take an instance of their own (WIDE): each warp's slot
+// is 2 m floats and the block's m-vector follows the slots
+// (visit_phases.cuh: each lane holds entries lane, lane + 32, ...); each
+// level's boxes (m x BOX_INTS: B's, then each direction's Y's) are staged
+// right after its Sigma^1/2; and where the tables do not fit a block's shared
+// memory (each sub-level's two W are m^2 floats, 256 KiB each at m = 256)
+// they stay in the launch's table tensor, read there by every pass, and only
+// the slots and the vector lie at the front of shared memory (the host says
+// so with warp_vec = 0: in shared memory the slots follow the tables).
+//
 // The coarse sample is two nc x nc matrix-vector products per chain against
 // the inverse Cholesky factor (Linv and its transpose, both row major, shared
 // by all chains and resident in L2): a thread per output, only the triangle
@@ -205,12 +216,22 @@ __device__ __forceinline__ void stamp(const SubtreeParams& S, int chain, int slo
     if (threadIdx.x == 0) stamp_value(S, chain, slot, global_timer());
 }
 
-__device__ __forceinline__ LevelTables level_tables(const SubLevel& L, int dir) {
-    const float* t = dyn_smem;
+// The level's tables of direction dir, staged at t (the WIDE instance: in
+// shared or device memory; the boxes after Sigma^1/2), else in shared memory
+// with the boxes in the parameter block.
+template <bool WIDE>
+__device__ __forceinline__ LevelTables level_tables(const float* t, const SubLevel& L, int dir) {
     const VisitParams& P = *reinterpret_cast<const VisitParams*>(t + L.plan[dir]);
+    const int(*bbox)[BOX_INTS] = P.bbox;
+    const int(*ybox)[BOX_INTS] = P.ybox;
+    if constexpr (WIDE) {
+        const int* boxes = reinterpret_cast<const int*>(t + L.sroot + P.m);
+        bbox = reinterpret_cast<const int(*)[BOX_INTS]>(boxes);
+        ybox = reinterpret_cast<const int(*)[BOX_INTS]>(boxes + (1 + dir) * P.m * BOX_INTS);
+    }
     return {t + L.bval, reinterpret_cast<const int*>(t + L.boff), t + L.yval[dir],
             reinterpret_cast<const int*>(t + L.yoff[dir]), t + L.wm[dir], t + L.sroot,
-            P.bbox, P.ybox, nullptr, nullptr,
+            bbox, ybox, nullptr, nullptr,
             reinterpret_cast<const int*>(t + L.rows[dir])};
 }
 
@@ -275,14 +296,14 @@ __device__ void coarse_sample(const SubtreeParams& S, int chain, const float* __
 // STAMPS: the measurement build, which writes the stamps (S.stamps not null)
 // and counts the barriers; production launches take the other one.  BOUND:
 // the block size the instance is compiled for (SUBTREE_THREADS; at reach 2
-// also 1024).
-template <bool STAMPS, int BOUND>
+// also 1024).  WIDE: sub-levels of more than LANE_SLOTS measurements.
+template <bool STAMPS, int BOUND, bool WIDE>
 __global__ void __launch_bounds__(BOUND)
 mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const int4* __restrict__ tables,
                     const int* __restrict__ sched, const float* __restrict__ Linv,
                     const float* __restrict__ LinvT, const float* f_all, float* x_all,
                     float* ws_all, float* xi_all, const int* __restrict__ points) {
-    __shared__ float s_btx[MAX_LOWRANK];
+    __shared__ float s_btx[LANE_SLOTS];
     const int chain = blockIdx.x;
     const int n0 = S.lv[0].n;
     float* ws = ws_all + (size_t)chain * S.ws_stride;
@@ -290,6 +311,10 @@ mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const int4* __restr
     float* x_launch = x_all + (size_t)chain * n0;
     float* xi = xi_all ? xi_all + (size_t)chain * S.xi_stride : nullptr;
     float* wv = dyn_smem + S.warp_vec + (threadIdx.x >> 5) * S.warp_stride;  // this warp's slot
+    // the block's m-vector, and where the passes read the tables
+    float* btx = WIDE ? dyn_smem + S.warp_vec + 32 * S.warp_stride : s_btx;
+    const bool copied = !WIDE || S.warp_vec > 0;
+    const float* t = copied ? dyn_smem : reinterpret_cast<const float*>(tables);
     long long cur = 0;            // normals this chain has consumed
     unsigned long long draw = 0;  // draws of the launch so far
     if (STAMPS) {
@@ -305,7 +330,7 @@ mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const int4* __restr
 
     // the launch's tables, once
     int4* tab = reinterpret_cast<int4*>(dyn_smem);
-    for (int q = threadIdx.x; q < S.table_words / 4; q += blockDim.x) tab[q] = tables[q];
+    for (int q = threadIdx.x; copied && q < S.table_words / 4; q += blockDim.x) tab[q] = tables[q];
     if (S.lv[0].f.where != LOC_LAUNCH) {
         float* f0 = locate(S, S.lv[0].f, ws, nullptr);
         for (int p = threadIdx.x; p < n0; p += blockDim.x) f0[p] = f_launch[p];
@@ -325,8 +350,8 @@ mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const int4* __restr
         }
         const SubLevel& L = S.lv[li];
         const int dir = (op == OP_ASCEND) ? 1 : 0;
-        const VisitParams& P = *reinterpret_cast<const VisitParams*>(dyn_smem + L.plan[dir]);
-        const LevelTables T = level_tables(L, dir);
+        const VisitParams& P = *reinterpret_cast<const VisitParams*>(t + L.plan[dir]);
+        const LevelTables T = level_tables<WIDE>(t, L, dir);
         const int n = L.n, m = P.m;
         float* x = locate(S, L.x, ws, x_launch);
         float* scr = locate(S, L.scr, ws, nullptr);
@@ -334,14 +359,14 @@ mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const int4* __restr
         const float* xi_in = (S.noise_mode == 2) ? xi + cur : nullptr;
         float* xi_rec = (S.noise_mode == 1 && S.record) ? xi + cur : nullptr;
         if (S.noise_mode && m)  // the m low-rank normals of this sweep, after its field
-            lowrank_normals(m, chain, S.noise_mode, S.seed, S.counter + draw + 1,
+            lowrank_normals<WIDE>(m, chain, S.noise_mode, S.seed, S.counter + draw + 1,
                             xi_in ? xi_in + n : nullptr, xi_rec ? xi_rec + n : nullptr, wv);
         const bool last = li + 1 == S.NL;
         const auto one_direction = [&](int) { return T; };
         using OneDirection = decltype(one_direction);
 #if VISIT_REACH == 2
         // the sweep from the colours' point lists
-        const int* head = reinterpret_cast<const int*>(dyn_smem + L.phead[dir]);
+        const int* head = reinterpret_cast<const int*>(t + L.phead[dir]);
         const PointTables Q = {points + L.pts[dir], head, head + P.n_order + 1};
 #define POINT_SWEEP true
 #else
@@ -351,18 +376,18 @@ mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const int4* __restr
         if (dir == 0) {
             float* fc = locate(S, last ? S.cf : S.lv[li + 1].f, ws, nullptr);
 #define DESCEND(FORM)                                                                         \
-    level_descend<FORM, STAMPS, 1, OneDirection, POINT_SWEEP>(                                \
+    level_descend<FORM, STAMPS, 1, OneDirection, POINT_SWEEP, WIDE>(                          \
         P, one_direction, 1, chain, S.noise_mode, S.seed, S.counter + draw,                   \
         op == OP_DESCEND_ZERO, false, x, f, scr, fc, L.coeffs, L.ns, xi_in, 0, nullptr,       \
-        xi_rec, wv, s_btx, nullptr, &Q)
+        xi_rec, wv, btx, nullptr, &Q)
             LEVEL_FORM(L, DESCEND);
 #undef DESCEND
         } else {
             const float* xc = locate(S, last ? S.cx : S.lv[li + 1].x, ws, nullptr);
 #define ASCEND(FORM)                                                                          \
-    level_ascend<FORM, STAMPS, 1, OneDirection, POINT_SWEEP>(                                 \
+    level_ascend<FORM, STAMPS, 1, OneDirection, POINT_SWEEP, WIDE>(                           \
         P, one_direction, 1, chain, S.noise_mode, S.seed, S.counter + draw, x, f, scr, xc,    \
-        L.coeffs, L.ns, xi_in, 0, nullptr, xi_rec, wv, s_btx, nullptr, &Q)
+        L.coeffs, L.ns, xi_in, 0, nullptr, xi_rec, wv, btx, nullptr, &Q)
             LEVEL_FORM(L, ASCEND);
 #undef ASCEND
         }
@@ -387,31 +412,35 @@ mgmc_subtree_kernel(const __grid_constant__ SubtreeParams S, const int4* __restr
 // ------------------------------------------------------------ C entry points
 // the production instance, its stamps build, and at reach 2 the instance for
 // 1024 threads, each null where this library does not hold it
+// each of up to LANE_SLOTS measurements (m32) and of more (wide)
 #if HAS_PRODUCTION
-#define PRODUCTION mgmc_subtree_kernel<false, SUBTREE_THREADS>
+#define PRODUCTION(W) mgmc_subtree_kernel<false, SUBTREE_THREADS, W>
 #else
-#define PRODUCTION nullptr
+#define PRODUCTION(W) nullptr
 #endif
 #if HAS_STAMPED
-#define STAMPED mgmc_subtree_kernel<true, SUBTREE_THREADS>
+#define STAMPED(W) mgmc_subtree_kernel<true, SUBTREE_THREADS, W>
 #else
-#define STAMPED nullptr
+#define STAMPED(W) nullptr
 #endif
 #if HAS_WIDE_BLOCK
-#define WIDE_BLOCK mgmc_subtree_kernel<false, MAX_THREADS>
+#define WIDE_BLOCK(W) mgmc_subtree_kernel<false, MAX_THREADS, W>
 #else
-#define WIDE_BLOCK nullptr
+#define WIDE_BLOCK(W) nullptr
 #endif
 
 typedef void (*SubtreeKernelFn)(const SubtreeParams, const int4*, const int*, const float*,
                                 const float*, const float*, float*, float*, float*, const int*);
 
-// the instance a launch of `threads` takes, or null where this library does
-// not hold it (the stamps build only at up to SUBTREE_THREADS)
-static SubtreeKernelFn instance(bool stamps, int threads) {
+// the instance a launch of `threads` takes, of sub-levels of more than
+// LANE_SLOTS measurements (wide) or not, or null where this library does not
+// hold it (the stamps build only at up to SUBTREE_THREADS)
+static SubtreeKernelFn instance(bool stamps, int threads, bool wide) {
     if (threads < 1 || threads > MAX_THREADS) return nullptr;
-    if (threads <= SUBTREE_THREADS) return stamps ? STAMPED : PRODUCTION;
-    return stamps ? nullptr : WIDE_BLOCK;
+    if (threads <= SUBTREE_THREADS)
+        return stamps ? (wide ? STAMPED(true) : STAMPED(false))
+                      : (wide ? PRODUCTION(true) : PRODUCTION(false));
+    return stamps ? nullptr : (wide ? WIDE_BLOCK(true) : WIDE_BLOCK(false));
 }
 
 extern "C" int mgmc_subtree_params_size() { return (int)sizeof(SubtreeParams); }
@@ -428,7 +457,8 @@ extern "C" int mgmc_subtree_max_threads() { return SUBTREE_THREADS; }
 // the static shared memory in bytes of the largest instance held, or -1
 extern "C" int mgmc_subtree_static_smem() {
     int most = 0;
-    const SubtreeKernelFn held[] = {PRODUCTION, STAMPED, WIDE_BLOCK};
+    const SubtreeKernelFn held[] = {PRODUCTION(false), STAMPED(false), WIDE_BLOCK(false),
+                                    PRODUCTION(true), STAMPED(true), WIDE_BLOCK(true)};
     for (SubtreeKernelFn fn : held) {
         if (fn == nullptr) continue;
         cudaFuncAttributes a;
@@ -442,10 +472,12 @@ extern "C" int mgmc_subtree_static_smem() {
 }
 
 // registers per thread and local (spilled) bytes per thread of the production
-// instance (which 0), the stamps build (1) or the 1024-thread instance (2);
-// -1 where this library does not hold it or the query fails
+// instance (which 0), the stamps build (1) or the 1024-thread instance (2), of
+// up to LANE_SLOTS measurements; -1 where this library does not hold it or
+// the query fails
 extern "C" int mgmc_subtree_attributes(int which, int* regs, int* local_bytes) {
-    SubtreeKernelFn fn = which == 0 ? PRODUCTION : (which == 1 ? STAMPED : WIDE_BLOCK);
+    SubtreeKernelFn fn =
+        which == 0 ? PRODUCTION(false) : (which == 1 ? STAMPED(false) : WIDE_BLOCK(false));
     cudaFuncAttributes a;
     if (fn == nullptr || cudaFuncGetAttributes(&a, fn) != cudaSuccess) {
         cudaGetLastError();
@@ -469,9 +501,10 @@ static bool needs_opt_in(int smem_bytes) {
 }
 
 // blocks of `threads` with `smem_bytes` of dynamic shared memory that one SM
-// holds at once in the production build, or -1
+// holds at once in the production build (of up to LANE_SLOTS measurements),
+// or -1
 extern "C" int mgmc_subtree_blocks_per_sm(int threads, int smem_bytes) {
-    SubtreeKernelFn fn = instance(false, threads);
+    SubtreeKernelFn fn = instance(false, threads, false);
     if (fn == nullptr) return -1;
     if (needs_opt_in(smem_bytes) &&
         cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes) !=
@@ -489,12 +522,12 @@ extern "C" int mgmc_subtree_blocks_per_sm(int threads, int smem_bytes) {
 }
 
 // points: the colours' point lists of the reach-2 sub-levels (null where
-// none has them)
+// none has them); wide: a sub-level has more than LANE_SLOTS measurements
 extern "C" int mgmc_subtree_sample(const SubtreeParams* S, const void* tables, const int* sched,
                                    const float* Linv, const float* LinvT, const float* f, float* x,
                                    float* ws, float* xi, const int* points, int threads,
-                                   int smem_bytes, void* stream) {
-    SubtreeKernelFn fn = instance(S->stamps != nullptr, threads);
+                                   int smem_bytes, int wide, void* stream) {
+    SubtreeKernelFn fn = instance(S->stamps != nullptr, threads, wide != 0);
     if (fn == nullptr) return (int)cudaErrorInvalidConfiguration;
     if (needs_opt_in(smem_bytes)) {
         cudaError_t e =

@@ -39,6 +39,17 @@
 // the copy.  Otherwise (a level with dense B columns, say) every pass reads
 // them from the tensor.  A two-sweep launch holds both directions' tables.
 //
+// Measurements.  A level of up to LANE_SLOTS (32) keeps its low-rank
+// vectors in the static shared memory below, one entry a lane; a level of
+// more takes the kernels compiled with LR, which keep them in dynamic shared
+// memory after the tables (or at its start, where the tables stay in device
+// memory), lowrank_scratch_floats of visit_phases.cuh: the block's B^T x -
+// Sigma^1/2 n, then per warp its u (then t) and its n, each lane holding
+// entries lane, lane + 32, ...  Each warp forms u = W v itself (m^2 / 32
+// multiply-adds a lane) and the correction adds m columns' terms where the
+// boxes meet a point, so a visit's time grows with m.  A kernel each (LR or
+// not), so that the kernels of up to 32 keep their code and registers.
+//
 // Block size.  Chosen by the host from the chain count
 // (mgmc_visit.py::phase_threads): 1024 threads while the chains fit one wave
 // of one block per SM, 512 (two blocks per SM) above.  __launch_bounds__(1024)
@@ -180,11 +191,17 @@ __device__ __forceinline__ LevelTables tables_at(const PhaseTables& L, const flo
             reinterpret_cast<const int*>(t + L.rows[d])};
 }
 
+// An LR kernel's low-rank scratch: the dynamic shared memory after the tables
+// (visit_phases.cuh), the block's vector, then two m-vectors a warp.
+__device__ __forceinline__ float* phase_scratch(const VisitParams& P, const PhaseTables& L) {
+    return phase_smem + (L.shared ? L.words : 0);
+}
+
 // The block's start: the stamps opened (STAMPS), the tables copied into shared
 // memory where they lie there (no barrier: the first pass reads no table),
 // this warp's first m low-rank normals into its slot.  Returns the chain's
 // normals of the later directions.
-template <bool STAMPS>
+template <bool STAMPS, bool LR>
 __device__ __forceinline__ const float* phase_start(const VisitParams& P, const PhaseTables& L,
                                                     const int4* __restrict__ tables, int chain,
                                                     const float* __restrict__ xilr, float* wv,
@@ -194,9 +211,15 @@ __device__ __forceinline__ const float* phase_start(const VisitParams& P, const 
         int4* dst = reinterpret_cast<int4*>(phase_smem);
         for (int q = threadIdx.x; q < L.words / 4; q += blockDim.x) dst[q] = tables[q];
     }
-    const int lane = threadIdx.x & 31;
     const float* nlr = P.noise_mode ? xilr + (size_t)chain * L.ndir * P.m : nullptr;
-    if (P.noise_mode && lane < P.m) wv[lane] = nlr[lane];
+    if constexpr (LR) {
+        float* nv = normals_of<LR>(wv, P.m);
+        if (P.noise_mode)
+            for (int k = threadIdx.x & 31; k < P.m; k += 32) nv[k] = nlr[k];
+    } else {
+        const int lane = threadIdx.x & 31;
+        if (P.noise_mode && lane < P.m) wv[lane] = nlr[lane];
+    }
     __syncwarp();
     return nlr ? nlr + P.m : nullptr;
 }
@@ -220,78 +243,87 @@ __device__ __forceinline__ void phase_exit(unsigned long long* srow) {
 
 // FORM: the stencil's form (level_passes.cuh, STENCIL_DISPATCH), one kernel
 // each, so that the registers of one form's passes are allocated for it alone.
-template <int FORM, bool STAMPS, int NDIR>
+// LR: a level of more than LANE_SLOTS measurements.
+template <int FORM, bool STAMPS, int NDIR, bool LR>
 __global__ void __launch_bounds__(PHASE_MAX_THREADS)
 descend_kernel(const __grid_constant__ VisitParams P, const __grid_constant__ PhaseTables L,
                const int4* __restrict__ tables, float* x_all, const float* __restrict__ f_all,
                float* scr_all, float* fc_all, const float* __restrict__ coeffs,
                const float* __restrict__ ns, const float* __restrict__ xilr,
                const float* __restrict__ xi_all, unsigned long long* stamps) {
-    __shared__ float s_btx[MAX_LOWRANK];
-    __shared__ float s_wv[32 * MAX_LOWRANK];  // one slot of m scalars per warp
-    __shared__ float s_stage[32 * 128];       // each warp's rhs stores, staged
+    __shared__ float s_btx[LANE_SLOTS];
+    __shared__ float s_wv[32 * LANE_SLOTS];  // one slot of m scalars per warp
+    __shared__ float s_stage[32 * 128];      // each warp's rhs stores, staged
     const int chain = blockIdx.x;
     const int n = P.H * P.W, nc = P.Hc * P.Wc;
     unsigned long long* srow = STAMPS ? stamps + (size_t)chain * PHASE_STAMP_WIDTH : nullptr;
-    float* wv = s_wv + (threadIdx.x >> 5) * MAX_LOWRANK;
-    const float* nlr = phase_start<STAMPS>(P, L, tables, chain, xilr, wv, srow);
+    float* lr = LR ? phase_scratch(P, L) : nullptr;
+    float* btx = LR ? lr : s_btx;
+    float* wv = LR ? lr + P.m + (size_t)(threadIdx.x >> 5) * 2 * P.m
+                   : s_wv + (threadIdx.x >> 5) * LANE_SLOTS;
+    const float* nlr = phase_start<STAMPS, LR>(P, L, tables, chain, xilr, wv, srow);
     // where the passes after the first read the tables
     const float* t = L.shared ? phase_smem : reinterpret_cast<const float*>(tables);
     const auto dir_tables = [&](int d) { return tables_at(L, t, d); };
-    level_descend<FORM, STAMPS, NDIR>(P, dir_tables, L.ndir, chain, P.noise_mode, P.seed,
+    level_descend<FORM, STAMPS, NDIR, decltype(dir_tables), false, LR>(P, dir_tables, L.ndir, chain, P.noise_mode, P.seed,
                                       P.counter, false, true, x_all + (size_t)chain * n,
                                       f_all + (P.f_batched ? (size_t)chain * n : 0),
                                       scr_all + (size_t)chain * n, fc_all + (size_t)chain * nc,
                                       coeffs, ns,
                                       xi_all ? xi_all + (size_t)chain * n : nullptr,
-                                      (size_t)P.C * n, nlr, nullptr, wv, s_btx,
+                                      (size_t)P.C * n, nlr, nullptr, wv, btx,
                                       s_stage + (threadIdx.x >> 5) * 128);
     phase_exit<STAMPS>(srow);
 }
 
-template <int FORM, bool STAMPS, int NDIR>
+template <int FORM, bool STAMPS, int NDIR, bool LR>
 __global__ void __launch_bounds__(PHASE_MAX_THREADS)
 ascend_kernel(const __grid_constant__ VisitParams P, const __grid_constant__ PhaseTables L,
               const int4* __restrict__ tables, float* x_all, const float* __restrict__ f_all,
               float* scr_all, const float* __restrict__ xc_all, const float* __restrict__ coeffs,
               const float* __restrict__ ns, const float* __restrict__ xilr,
               const float* __restrict__ xi_all, unsigned long long* stamps) {
-    __shared__ float s_btx[MAX_LOWRANK];
-    __shared__ float s_wv[32 * MAX_LOWRANK];
+    __shared__ float s_btx[LANE_SLOTS];
+    __shared__ float s_wv[32 * LANE_SLOTS];
     __shared__ float s_stage[32 * 128];
     const int chain = blockIdx.x;
     const int n = P.H * P.W, nc = P.Hc * P.Wc;
     unsigned long long* srow = STAMPS ? stamps + (size_t)chain * PHASE_STAMP_WIDTH : nullptr;
-    float* wv = s_wv + (threadIdx.x >> 5) * MAX_LOWRANK;
-    const float* nlr = phase_start<STAMPS>(P, L, tables, chain, xilr, wv, srow);
+    float* lr = LR ? phase_scratch(P, L) : nullptr;
+    float* btx = LR ? lr : s_btx;
+    float* wv = LR ? lr + P.m + (size_t)(threadIdx.x >> 5) * 2 * P.m
+                   : s_wv + (threadIdx.x >> 5) * LANE_SLOTS;
+    const float* nlr = phase_start<STAMPS, LR>(P, L, tables, chain, xilr, wv, srow);
     // where the passes after the first read the tables
     const float* t = L.shared ? phase_smem : reinterpret_cast<const float*>(tables);
     const auto dir_tables = [&](int d) { return tables_at(L, t, d); };
-    level_ascend<FORM, STAMPS, NDIR>(P, dir_tables, L.ndir, chain, P.noise_mode, P.seed,
+    level_ascend<FORM, STAMPS, NDIR, decltype(dir_tables), false, LR>(P, dir_tables, L.ndir, chain, P.noise_mode, P.seed,
                                      P.counter, x_all + (size_t)chain * n,
                                      f_all + (P.f_batched ? (size_t)chain * n : 0),
                                      scr_all + (size_t)chain * n, xc_all + (size_t)chain * nc,
                                      coeffs, ns,
                                      xi_all ? xi_all + (size_t)chain * n : nullptr,
-                                     (size_t)P.C * n, nlr, nullptr, wv, s_btx,
+                                     (size_t)P.C * n, nlr, nullptr, wv, btx,
                                      s_stage + (threadIdx.x >> 5) * 128);
     phase_exit<STAMPS>(srow);
 }
 
-// the kernel of a direction, a stencil form and a sweep count (1 or 2) in this
+// the kernel of a direction, a stencil form, a sweep count (1 or 2) and
+// whether the level has more than LANE_SLOTS measurements (lr) in this
 // library's build; null for another form or count
-static const void* phase_kernel(int descend, int form, int ndir) {
+static const void* phase_kernel(int descend, int form, int ndir, bool lr) {
     constexpr bool S = PHASE_STAMPS_BUILD;
     if (ndir < 1 || ndir > MAX_DIRS) return nullptr;
 #if PHASE_NDIR_RUNTIME
-#define FORM_KERNEL(F) \
-    (descend ? (const void*)descend_kernel<F, S, 0> : (const void*)ascend_kernel<F, S, 0>)
+#define DIR_KERNEL(F, N, LR) \
+    (descend ? (const void*)descend_kernel<F, S, N, LR> : (const void*)ascend_kernel<F, S, N, LR>)
+#define FORM_KERNEL(F) (lr ? DIR_KERNEL(F, 0, true) : DIR_KERNEL(F, 0, false))
 #else
+#define DIR_KERNEL(F, N, LR) \
+    (descend ? (const void*)descend_kernel<F, S, N, LR> : (const void*)ascend_kernel<F, S, N, LR>)
 #define FORM_KERNEL(F)                                                                  \
-    (ndir == 1 ? (descend ? (const void*)descend_kernel<F, S, 1>                       \
-                          : (const void*)ascend_kernel<F, S, 1>)                       \
-               : (descend ? (const void*)descend_kernel<F, S, 2>                       \
-                          : (const void*)ascend_kernel<F, S, 2>))
+    (ndir == 1 ? (lr ? DIR_KERNEL(F, 1, true) : DIR_KERNEL(F, 1, false))               \
+               : (lr ? DIR_KERNEL(F, 2, true) : DIR_KERNEL(F, 2, false)))
 #endif
     switch (form) {
 #if VISIT_REACH == 2
@@ -317,6 +349,7 @@ static const void* phase_kernel(int descend, int form, int ndir) {
         default: return nullptr;
     }
 #undef FORM_KERNEL
+#undef DIR_KERNEL
 }
 
 // ------------------------------------------------------------ C entry points
@@ -343,23 +376,24 @@ extern "C" int mgmc_visit_static_smem() {
     size_t most = 0;
     for (int form = PHASE_FORM0; form < PHASE_FORM0 + PHASE_FORMS; ++form)
         for (int descend = 0; descend < 2; ++descend)
-            for (int ndir = 1; ndir <= MAX_DIRS; ++ndir) {
-                cudaFuncAttributes a;
-                if (cudaFuncGetAttributes(&a, phase_kernel(descend, form, ndir)) !=
-                    cudaSuccess) {
-                    cudaGetLastError();
-                    return -1;
+            for (int ndir = 1; ndir <= MAX_DIRS; ++ndir)
+                for (int lr = 0; lr < 2; ++lr) {
+                    cudaFuncAttributes a;
+                    if (cudaFuncGetAttributes(&a, phase_kernel(descend, form, ndir, lr)) !=
+                        cudaSuccess) {
+                        cudaGetLastError();
+                        return -1;
+                    }
+                    most = a.sharedSizeBytes > most ? a.sharedSizeBytes : most;
                 }
-                most = a.sharedSizeBytes > most ? a.sharedSizeBytes : most;
-            }
     return (int)most;
 }
 
 // registers per thread, local (spill) bytes per thread and static shared bytes
 // of the kernel of `descend` (1) or the ascend (0), a stencil form and a sweep
-// count; 0 or an error
+// count, of up to LANE_SLOTS measurements; 0 or an error
 extern "C" int mgmc_visit_kernel_attributes(int descend, int form, int ndir, int* out) {
-    const void* fn = phase_kernel(descend, form, ndir);
+    const void* fn = phase_kernel(descend, form, ndir, false);
     if (fn == nullptr) return (int)cudaErrorInvalidValue;
     cudaFuncAttributes a;
     cudaError_t e = cudaFuncGetAttributes(&a, fn);
@@ -375,7 +409,7 @@ extern "C" int mgmc_visit_kernel_attributes(int descend, int form, int ndir, int
 
 // the kernels' static shared memory at most (s_btx, s_wv, s_stage, the
 // barrier count and the stamps pointer; mgmc_visit.py::PHASE_STATIC_SMEM)
-#define PHASE_STATIC_BOUND (4 * (MAX_LOWRANK + 32 * MAX_LOWRANK + 32 * 128) + 16)
+#define PHASE_STATIC_BOUND (4 * (LANE_SLOTS + 32 * LANE_SLOTS + 32 * 128) + 16)
 
 // Whether a launch with `smem_bytes` of dynamic shared memory must opt in to
 // it: where the dynamic and the static share together exceed the 48 KiB a
@@ -386,10 +420,11 @@ static bool needs_opt_in(int smem_bytes) {
 }
 
 // blocks of `threads` with `smem_bytes` of dynamic shared memory that one SM
-// holds at once (the kernel of a direction, a form and a sweep count), or -1
+// holds at once (the kernel of a direction, a form and a sweep count, of up
+// to LANE_SLOTS measurements), or -1
 extern "C" int mgmc_visit_blocks_per_sm(int descend, int form, int ndir, int threads,
                                         int smem_bytes) {
-    const void* fn = phase_kernel(descend, form, ndir);
+    const void* fn = phase_kernel(descend, form, ndir, false);
     if (fn == nullptr) return -1;
     if (needs_opt_in(smem_bytes) &&
         cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes) !=
@@ -407,11 +442,16 @@ extern "C" int mgmc_visit_blocks_per_sm(int descend, int form, int ndir, int thr
 }
 
 // one launch of the kernel of (descend, form) with the arguments args; a
-// stamps tensor goes to the stamps build only
-static int launch(int descend, int form, bool stamps, int C, int ndir, int threads,
-                  int smem_bytes, void** args, void* stream) {
-    const void* fn = phase_kernel(descend, form, ndir);
-    if (fn == nullptr || stamps != (bool)PHASE_STAMPS_BUILD || threads > PHASE_MAX_THREADS)
+// stamps tensor goes to the stamps build only.  The dynamic shared memory must
+// hold the tables where they are copied there and the low-rank scratch of a
+// level of more than LANE_SLOTS measurements (visit_phases.cuh).
+static int launch(int descend, int form, bool stamps, const VisitParams* P, const PhaseTables* L,
+                  int threads, int smem_bytes, void** args, void* stream) {
+    const void* fn = phase_kernel(descend, form, L->ndir, P->m > LANE_SLOTS);
+    const long long need = 4LL * ((L->shared ? L->words : 0) +
+                                  (long long)lowrank_scratch_floats(P->m, threads));
+    if (fn == nullptr || stamps != (bool)PHASE_STAMPS_BUILD || threads > PHASE_MAX_THREADS ||
+        P->m < 0 || smem_bytes < need)
         return (int)cudaErrorInvalidValue;
     if (needs_opt_in(smem_bytes)) {
         cudaError_t e =
@@ -421,7 +461,7 @@ static int launch(int descend, int form, bool stamps, int C, int ndir, int threa
             return (int)e;
         }
     }
-    cudaError_t e = cudaLaunchKernel(fn, dim3(C), dim3(threads), args, (size_t)smem_bytes,
+    cudaError_t e = cudaLaunchKernel(fn, dim3(P->C), dim3(threads), args, (size_t)smem_bytes,
                                      (cudaStream_t)stream);
     if (e != cudaSuccess) cudaGetLastError();
     return (int)e;
@@ -436,7 +476,7 @@ extern "C" int mgmc_descend_visit(const VisitParams* P, const PhaseTables* L, co
     unsigned long long* st = static_cast<unsigned long long*>(stamps);
     void* args[] = {(void*)P, (void*)L, &tab, &x, &f, &scratch, &fc, &coeffs, &ns, &xilr, &xi,
                     &st};
-    return launch(1, form, st != nullptr, P->C, L->ndir, threads, smem_bytes, args, stream);
+    return launch(1, form, st != nullptr, P, L, threads, smem_bytes, args, stream);
 }
 
 extern "C" int mgmc_ascend_visit(const VisitParams* P, const PhaseTables* L, const void* tables,
@@ -448,5 +488,5 @@ extern "C" int mgmc_ascend_visit(const VisitParams* P, const PhaseTables* L, con
     unsigned long long* st = static_cast<unsigned long long*>(stamps);
     void* args[] = {(void*)P, (void*)L, &tab, &x, &f, &scratch, &xc, &coeffs, &ns, &xilr, &xi,
                     &st};
-    return launch(0, form, st != nullptr, P->C, L->ndir, threads, smem_bytes, args, stream);
+    return launch(0, form, st != nullptr, P, L, threads, smem_bytes, args, stream);
 }

@@ -69,7 +69,15 @@
 //   the correction (level_passes.cuh).  The residual reads x from shared
 //   memory; the restriction's coarse row I belongs to the block that owns
 //   fine row 2I + 1, whose rows 2I and 2I + 2 may lie in the neighbours'
-//   bands.
+//   bands.  Up to LANE_SLOTS (32) measurements the band's share and each
+//   warp's slot are static arrays, one entry a lane, and the boxes lie in the
+//   parameter block.  A level of more takes the kernels compiled with LR:
+//   the share and the slots after the band (and its rows of c) in dynamic
+//   shared memory, lowrank_scratch_floats of visit_phases.cuh (per warp v,
+//   then u and t), each lane holding entries lane, lane + 32, ..., u = W v a
+//   row at a time (warp_matvec), the boxes from the level's device tables -
+//   bytes the band loses, so the host's rule (mgmc_visit_smem.py::candidates)
+//   counts them before it takes the route.
 //
 // Barriers (smem_sync; the stamps build counts and stamps each): an ascend's
 // copy-in (after its first rhs, which is drawn while the copy lands: the
@@ -206,11 +214,13 @@ __device__ __forceinline__ float edge_ax(const SmemVisitParams& SP, const VisitP
 
 // r - sum_k t_k B_k[p] over the columns whose box holds (i, j), in column
 // order (residual_rows' add_columns); wv: this warp's t
-__device__ __forceinline__ float lowrank_term(const VisitParams& P, const float* __restrict__ B,
-                                              const float* wv, int m, int i, int j, int p, int n,
-                                              float r) {
+template <bool LR>
+__device__ __forceinline__ float lowrank_term(const VisitParams& P, const int (*bt)[BOX_INTS],
+                                              const float* __restrict__ B, const float* wv, int m,
+                                              int i, int j, int p, int n, float r) {
     for (int k = 0; k < m; ++k)
-        if (P.bbox[k][0] <= i && i < P.bbox[k][1] && P.bbox[k][2] <= j && j < P.bbox[k][3])
+        if (BOX_OF(LR, bt, P.bbox, k)[0] <= i && i < BOX_OF(LR, bt, P.bbox, k)[1] &&
+            BOX_OF(LR, bt, P.bbox, k)[2] <= j && j < BOX_OF(LR, bt, P.bbox, k)[3])
             r += -1.0f * wv[k] * B[(size_t)k * n + p];
     return r;
 }
@@ -286,7 +296,7 @@ __device__ __forceinline__ void prolongate_group(const VisitParams& P, int i, in
 // KMAX: the stencil's size, 5 (reach-1 forms 0 / 1), 9 (the 3x3 box and any
 // other reach-1 stencil, forms 2-5), 13 (forms 6 / 7) or 25 (the 5x5 box, 8 /
 // 9); a kernel each.  The sweep count (1 or 2) is read at run time.
-template <int KMAX, bool DESCEND, bool STAMPS>
+template <int KMAX, bool DESCEND, bool STAMPS, bool LR = false>
 __global__ void __launch_bounds__(SMEM_VISIT_MAX_THREADS)
 smem_visit_kernel(const __grid_constant__ SmemVisitParams SP, const int* __restrict__ tables,
                   float* x_all, const float* __restrict__ f_all, float* scr_all, float* fc_all,
@@ -295,9 +305,10 @@ smem_visit_kernel(const __grid_constant__ SmemVisitParams SP, const int* __restr
                   const float* __restrict__ Y0, const float* __restrict__ W0,
                   const float* __restrict__ Y1, const float* __restrict__ W1,
                   const float* __restrict__ xilr, const float* __restrict__ sroot,
-                  const float* __restrict__ xi_all, unsigned long long* stamps) {
-    __shared__ float s_part[MAX_LOWRANK];              // this band's share of B^T x
-    __shared__ float s_wv[32 * MAX_LOWRANK];           // per warp: u, then t
+                  const float* __restrict__ xi_all, unsigned long long* stamps,
+                  const int* __restrict__ boxes0, const int* __restrict__ boxes1) {
+    __shared__ float s_part[LANE_SLOTS];              // this band's share of B^T x
+    __shared__ float s_wv[32 * LANE_SLOTS];           // per warp: u, then t
     cg::cluster_group cluster = cg::this_cluster();
     const VisitParams& P = SP.v[0];  // what the directions share
     const int S = SP.S, PX = SP.PX;
@@ -322,7 +333,13 @@ smem_visit_kernel(const __grid_constant__ SmemVisitParams SP, const int* __restr
     const float* nlr = P.noise_mode ? xilr + (size_t)chain * SP.ndir * m : nullptr;
     const float* xlo = S > 1 ? cluster.map_shared_rank(xs, rank > 0 ? rank - 1 : rank) : xs;
     const float* xhi = S > 1 ? cluster.map_shared_rank(xs, rank + 1 < S ? rank + 1 : rank) : xs;
-    float* wv = s_wv + warp * MAX_LOWRANK;
+    // the low-rank scratch (LR: after the band and c's rows: the band's share,
+    // then per warp 2 m floats) and the boxes (LR: the device tables, B's then
+    // each direction's Y's)
+    float* lrs = cs + (csh ? SP.nb_max * W : 0);
+    float* spart = LR ? lrs : s_part;
+    float* wv = LR ? lrs + m + (size_t)warp * 2 * m : s_wv + warp * LANE_SLOTS;
+    const int(*bbx)[BOX_INTS] = reinterpret_cast<const int(*)[BOX_INTS]>(boxes0);
 
     // 1. the band of x into its padded rows, the halo zeroed; f's band into c
     //    where c is in shared memory and no noise is drawn
@@ -344,6 +361,8 @@ smem_visit_kernel(const __grid_constant__ SmemVisitParams SP, const int* __restr
 #pragma unroll 1
     for (int d = 0; d < SP.ndir; ++d) {
         const VisitParams& Pd = SP.v[d];
+        const int(*ybx)[BOX_INTS] =
+            reinterpret_cast<const int(*)[BOX_INTS]>(d ? boxes1 : boxes0) + m;
         // 2. the rhs (rhs_pass): c = f + ns xi; the block's threads take the
         //    band's point groups (group g of band row lr) the block's size
         //    apart, stepped with a carry (no division in the loop)
@@ -438,8 +457,10 @@ smem_visit_kernel(const __grid_constant__ SmemVisitParams SP, const int* __restr
         if (m) {
             const int nwarps = nthreads >> 5;
             for (int k = warp; k < m; k += nwarps) {
-                const int i0 = max(P.bbox[k][0], u0), i1 = min(P.bbox[k][1], u1);
-                const int j0 = P.bbox[k][2], bw = P.bbox[k][3] - j0;
+                const int i0 = max(BOX_OF(LR, bbx, P.bbox, k)[0], u0);
+                const int i1 = min(BOX_OF(LR, bbx, P.bbox, k)[1], u1);
+                const int j0 = BOX_OF(LR, bbx, P.bbox, k)[2];
+                const int bw = BOX_OF(LR, bbx, P.bbox, k)[3] - j0;
                 float acc = 0.0f;
                 if (i0 < i1 && bw > 0)
                     for (int qq = lane; qq < (i1 - i0) * bw; qq += 32) {
@@ -449,29 +470,42 @@ smem_visit_kernel(const __grid_constant__ SmemVisitParams SP, const int* __restr
                     }
 #pragma unroll
                 for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
-                if (lane == 0) s_part[k] = acc;
+                if (lane == 0) spart[k] = acc;
             }
             smem_sync<STAMPS>(cluster, S);  // every band's share
             //    every warp: the shares in rank order (the same sum in every
             //    block), B^T x - Sigma^1/2 n, u = W (...) into its slot
             const float* Wd = d ? W1 : W0;
             float sk = 1.0f, nk = 0.0f, u = 0.0f;
-            if (lane < m) {
-                float bt = 0.0f;
-                for (int r = 0; r < S; ++r) {
-                    const float* part = S > 1 ? cluster.map_shared_rank(&s_part[0], r) : s_part;
-                    bt += part[lane];
+            if constexpr (LR) {
+                float* vv = wv + m;
+                for (int k = lane; k < m; k += 32) {
+                    float bt = 0.0f;
+                    for (int r = 0; r < S; ++r)
+                        bt += (S > 1 ? cluster.map_shared_rank(spart, r) : spart)[k];
+                    vv[k] = bt - sroot[k] * (P.noise_mode ? nlr[(size_t)d * m + k] : 0.0f);
                 }
-                sk = sroot[lane];
-                if (P.noise_mode) nk = nlr[(size_t)d * m + lane];
-                wv[lane] = bt - sk * nk;
+                __syncwarp();
+                warp_matvec(Wd, vv, m, wv);
+            } else {
+                if (lane < m) {
+                    float bt = 0.0f;
+                    for (int r = 0; r < S; ++r) {
+                        const float* part =
+                            S > 1 ? cluster.map_shared_rank(&s_part[0], r) : s_part;
+                        bt += part[lane];
+                    }
+                    sk = sroot[lane];
+                    if (P.noise_mode) nk = nlr[(size_t)d * m + lane];
+                    wv[lane] = bt - sk * nk;
+                }
+                __syncwarp();
+                if (lane < m)
+                    for (int k = 0; k < m; ++k) u += Wd[lane * m + k] * wv[k];
+                __syncwarp();
+                if (lane < m) wv[lane] = u;
+                __syncwarp();
             }
-            __syncwarp();
-            if (lane < m)
-                for (int k = 0; k < m; ++k) u += Wd[lane * m + k] * wv[k];
-            __syncwarp();
-            if (lane < m) wv[lane] = u;
-            __syncwarp();
             //    x -= sum_l u_l Y_l over the band's rows, each point by its owner,
             //    the columns in order (the boxes overlap)
             const float* Yd = d ? Y1 : Y0;
@@ -479,9 +513,10 @@ smem_visit_kernel(const __grid_constant__ SmemVisitParams SP, const int* __restr
                 const int i = u0 + lr;
                 int lo = 1 << 30, hi = 0;
                 for (int k = 0; k < m; ++k)
-                    if (Pd.ybox[k][0] <= i && i < Pd.ybox[k][1]) {
-                        lo = min(lo, Pd.ybox[k][2]);
-                        hi = max(hi, Pd.ybox[k][3]);
+                    if (BOX_OF(LR, ybx, Pd.ybox, k)[0] <= i &&
+                        i < BOX_OF(LR, ybx, Pd.ybox, k)[1]) {
+                        lo = min(lo, BOX_OF(LR, ybx, Pd.ybox, k)[2]);
+                        hi = max(hi, BOX_OF(LR, ybx, Pd.ybox, k)[3]);
                     }
                 for (int j = lo + lane; j < hi; j += 32) {
                     float* xq = xs + (lr + SMEM_HALO) * PX + j + SMEM_HALO;
@@ -493,8 +528,10 @@ smem_visit_kernel(const __grid_constant__ SmemVisitParams SP, const int* __restr
 #pragma unroll
                         for (int u = 0; u < 8; ++u) {
                             const int k = k0 + u;
-                            y[u] = (k < m && Pd.ybox[k][0] <= i && i < Pd.ybox[k][1] &&
-                                    Pd.ybox[k][2] <= j && j < Pd.ybox[k][3])
+                            y[u] = (k < m && BOX_OF(LR, ybx, Pd.ybox, k)[0] <= i &&
+                                    i < BOX_OF(LR, ybx, Pd.ybox, k)[1] &&
+                                    BOX_OF(LR, ybx, Pd.ybox, k)[2] <= j &&
+                                    j < BOX_OF(LR, ybx, Pd.ybox, k)[3])
                                        ? Yd[(size_t)k * n + i * W + j] : 0.0f;
                         }
 #pragma unroll
@@ -508,7 +545,12 @@ smem_visit_kernel(const __grid_constant__ SmemVisitParams SP, const int* __restr
                 // t = u + Sigma^-1/2 n = Sigma^-1 B^T x of the corrected x, for
                 // the residual
                 __syncwarp();
-                if (lane < m) wv[lane] = u + nk / sk;
+                if constexpr (LR) {
+                    for (int k = lane; k < m; k += 32)
+                        wv[k] = wv[k] + (P.noise_mode ? nlr[(size_t)d * m + k] : 0.0f) / sroot[k];
+                } else if (lane < m) {
+                    wv[lane] = u + nk / sk;
+                }
                 __syncwarp();
             }
         }
@@ -539,9 +581,9 @@ smem_visit_kernel(const __grid_constant__ SmemVisitParams SP, const int* __restr
             const int i = u0 + lr;
             int lo = 1 << 30, hi = 0;
             for (int k = 0; k < m; ++k)
-                if (P.bbox[k][0] <= i && i < P.bbox[k][1]) {
-                    lo = min(lo, P.bbox[k][2]);
-                    hi = max(hi, P.bbox[k][3]);
+                if (BOX_OF(LR, bbx, P.bbox, k)[0] <= i && i < BOX_OF(LR, bbx, P.bbox, k)[1]) {
+                    lo = min(lo, BOX_OF(LR, bbx, P.bbox, k)[2]);
+                    hi = max(hi, BOX_OF(LR, bbx, P.bbox, k)[3]);
                 }
             const float* xrow = xs + (lr + SMEM_HALO) * PX + SMEM_HALO;
             for (int j0 = ja + lane; j0 < jb; j0 += lanes) {
@@ -563,7 +605,7 @@ smem_visit_kernel(const __grid_constant__ SmemVisitParams SP, const int* __restr
                     const int j = j0 + 32 * u, p = i * W + j;
                     if (j >= jb) break;
                     float r = fv[u] - ax[u];
-                    if (j >= lo && j < hi) r = lowrank_term(P, B, wv, m, i, j, p, n, r);
+                    if (j >= lo && j < hi) r = lowrank_term<LR>(P, bbx, B, wv, m, i, j, p, n, r);
                     rs[p] = r;
                 }
             }
@@ -589,7 +631,7 @@ smem_visit_kernel(const __grid_constant__ SmemVisitParams SP, const int* __restr
             const int i = u0 + lr, p = i * W + j;
             float r = f[p] - edge_ax<KMAX>(SP, P, coeffs, xs, xlo, xhi, rank, nb, lo_nb, lr, j, p,
                                            n);
-            r = lowrank_term(P, B, wv, m, i, j, p, n, r);
+            r = lowrank_term<LR>(P, bbx, B, wv, m, i, j, p, n, r);
             rs[p] = r;
         }
         smem_sync<STAMPS>(cluster, S);  // every band's residual
@@ -633,21 +675,30 @@ smem_visit_kernel(const __grid_constant__ SmemVisitParams SP, const int* __restr
     stamps_close<STAMPS>(srow, SMEM_STAMP_WIDTH);
 }
 
-// the kernel of (descend, kmax) in this library's build, or null
-static const void* smem_kernel(int descend, int kmax) {
+// the kernel of (descend, kmax) of up to LANE_SLOTS measurements or of more
+// (lr) in this library's build, or null
+static const void* smem_kernel(int descend, int kmax, bool lr = false) {
     constexpr bool ST = SMEM_VISIT_STAMPS_BUILD;
     if (kmax == 5)
-        return descend ? (const void*)smem_visit_kernel<5, true, ST>
-                       : (const void*)smem_visit_kernel<5, false, ST>;
+        return lr ? (descend ? (const void*)smem_visit_kernel<5, true, ST, true>
+                             : (const void*)smem_visit_kernel<5, false, ST, true>)
+                  : (descend ? (const void*)smem_visit_kernel<5, true, ST>
+                             : (const void*)smem_visit_kernel<5, false, ST>);
     if (kmax == 9)
-        return descend ? (const void*)smem_visit_kernel<9, true, ST>
-                       : (const void*)smem_visit_kernel<9, false, ST>;
+        return lr ? (descend ? (const void*)smem_visit_kernel<9, true, ST, true>
+                             : (const void*)smem_visit_kernel<9, false, ST, true>)
+                  : (descend ? (const void*)smem_visit_kernel<9, true, ST>
+                             : (const void*)smem_visit_kernel<9, false, ST>);
     if (kmax == 13)
-        return descend ? (const void*)smem_visit_kernel<13, true, ST>
-                       : (const void*)smem_visit_kernel<13, false, ST>;
+        return lr ? (descend ? (const void*)smem_visit_kernel<13, true, ST, true>
+                             : (const void*)smem_visit_kernel<13, false, ST, true>)
+                  : (descend ? (const void*)smem_visit_kernel<13, true, ST>
+                             : (const void*)smem_visit_kernel<13, false, ST>);
     if (kmax == 25)
-        return descend ? (const void*)smem_visit_kernel<25, true, ST>
-                       : (const void*)smem_visit_kernel<25, false, ST>;
+        return lr ? (descend ? (const void*)smem_visit_kernel<25, true, ST, true>
+                             : (const void*)smem_visit_kernel<25, false, ST, true>)
+                  : (descend ? (const void*)smem_visit_kernel<25, true, ST>
+                             : (const void*)smem_visit_kernel<25, false, ST>);
     return nullptr;
 }
 
@@ -656,7 +707,7 @@ static int rows_of_widest(int H, int S) { return (H + S - 1) / S; }
 
 // the kernels' static shared memory at most (s_part, s_wv, the barrier count
 // and the stamps pointer; mgmc_visit_smem.py::STATIC_SMEM)
-#define SMEM_STATIC_BOUND (4 * (MAX_LOWRANK + 32 * MAX_LOWRANK) + 16)
+#define SMEM_STATIC_BOUND (4 * (LANE_SLOTS + 32 * LANE_SLOTS) + 16)
 
 // Whether a launch with `bytes` of dynamic shared memory must opt in to it:
 // where the dynamic and the static share together exceed the 48 KiB a block
@@ -714,14 +765,15 @@ extern "C" int mgmc_smem_visit_static_smem() {
     int most = 0;
     const int sizes[4] = {5, 9, 13, 25};
     for (int kmax : sizes)
-        for (int descend = 0; descend < 2; ++descend) {
-            cudaFuncAttributes a;
-            if (cudaFuncGetAttributes(&a, smem_kernel(descend, kmax)) != cudaSuccess) {
-                cudaGetLastError();
-                return -1;
+        for (int descend = 0; descend < 2; ++descend)
+            for (int lr = 0; lr < 2; ++lr) {
+                cudaFuncAttributes a;
+                if (cudaFuncGetAttributes(&a, smem_kernel(descend, kmax, lr)) != cudaSuccess) {
+                    cudaGetLastError();
+                    return -1;
+                }
+                most = a.sharedSizeBytes > (size_t)most ? (int)a.sharedSizeBytes : most;
             }
-            most = a.sharedSizeBytes > (size_t)most ? (int)a.sharedSizeBytes : most;
-        }
     return most;
 }
 
@@ -777,16 +829,20 @@ extern "C" int mgmc_smem_visit_max_active(int descend, int kmax, int S, int thre
 }
 
 static int launch(int descend, const SmemVisitParams* SP, void** args, int kmax, int threads,
-                  int bytes, bool stamps, cudaStream_t stream) {
+                  int bytes, bool stamps, const int* boxes0, const int* boxes1,
+                  cudaStream_t stream) {
     const VisitParams* P = &SP->v[0];
-    const void* fn = smem_kernel(descend, kmax);
+    const bool lr = P->m > LANE_SLOTS;
+    const void* fn = smem_kernel(descend, kmax, lr);
     const bool two = SP->ndir == 2;
     if (fn == nullptr || stamps != (bool)SMEM_VISIT_STAMPS_BUILD || threads < 32 ||
         threads > SMEM_VISIT_MAX_THREADS || threads % 32 || SP->ndir < 1 ||
         SP->ndir > MAX_DIRS || P->K < 1 || P->K > kmax || P->n_colors > MAX_COLORS ||
-        P->n_order > MAX_COLORS || P->C < 1 || P->m < 0 || P->m > MAX_LOWRANK ||
+        P->n_order > MAX_COLORS || P->C < 1 || P->m < 0 ||
+        (lr && (boxes0 == nullptr || (two && boxes1 == nullptr))) ||
         P->Hc != P->H / 2 || P->Wc != P->W / 2 || (two && SP->v[1].n_order != P->n_order) ||
-        bytes != mgmc_smem_visit_smem_bytes(P->H, P->W, SP->S, SP->PX, SP->c_shared) ||
+        bytes != mgmc_smem_visit_smem_bytes(P->H, P->W, SP->S, SP->PX, SP->c_shared) +
+                     4 * lowrank_scratch_floats(P->m, threads) ||
         SP->nb_max != rows_of_widest(P->H, SP->S))
         return (int)cudaErrorInvalidValue;
     cudaError_t e = configure(fn, bytes);
@@ -808,19 +864,22 @@ static int launch(int descend, const SmemVisitParams* SP, void** args, int kmax,
 // Y0, W0 the first direction's Woodbury factors, Y1, W1 the second's (null
 // with one direction); xilr (C, ndir m) the low-rank normals as drawn, sroot
 // Sigma^1/2; xi (ndir, C, H, W) where noise_mode is 2; stamps (C S,
-// SMEM_STAMP_WIDTH) in the stamps build, else null.
+// SMEM_STAMP_WIDTH) in the stamps build, else null; boxes0, boxes1 each
+// direction's box table (B's boxes, then its Y's; read where m > LANE_SLOTS).
 extern "C" int mgmc_smem_descend(const SmemVisitParams* SP, const int* tables, float* x,
                                  const float* f, float* scratch, float* fc, const float* coeffs,
                                  const float* ns, const float* B, const float* Y0,
                                  const float* W0, const float* Y1, const float* W1,
                                  const float* xilr, const float* sroot, const float* xi,
-                                 int kmax, int threads, int bytes, void* stamps, void* stream) {
+                                 int kmax, int threads, int bytes, void* stamps,
+                                 const int* boxes0, const int* boxes1, void* stream) {
     SmemVisitParams Pc = *SP;
     const float* xc = nullptr;
     unsigned long long* st = static_cast<unsigned long long*>(stamps);
     void* args[] = {&Pc, &tables, &x, &f, &scratch, &fc, &xc, &coeffs, &ns, &B, &Y0, &W0,
-                    &Y1, &W1, &xilr, &sroot, &xi, &st};
-    return launch(1, SP, args, kmax, threads, bytes, st != nullptr, (cudaStream_t)stream);
+                    &Y1, &W1, &xilr, &sroot, &xi, &st, &boxes0, &boxes1};
+    return launch(1, SP, args, kmax, threads, bytes, st != nullptr, boxes0, boxes1,
+                  (cudaStream_t)stream);
 }
 
 extern "C" int mgmc_smem_ascend(const SmemVisitParams* SP, const int* tables, float* x,
@@ -829,11 +888,12 @@ extern "C" int mgmc_smem_ascend(const SmemVisitParams* SP, const int* tables, fl
                                 const float* Y0, const float* W0, const float* Y1,
                                 const float* W1, const float* xilr, const float* sroot,
                                 const float* xi, int kmax, int threads, int bytes, void* stamps,
-                                void* stream) {
+                                const int* boxes0, const int* boxes1, void* stream) {
     SmemVisitParams Pc = *SP;
     float* fc = nullptr;
     unsigned long long* st = static_cast<unsigned long long*>(stamps);
     void* args[] = {&Pc, &tables, &x, &f, &scratch, &fc, &xc, &coeffs, &ns, &B, &Y0, &W0,
-                    &Y1, &W1, &xilr, &sroot, &xi, &st};
-    return launch(0, SP, args, kmax, threads, bytes, st != nullptr, (cudaStream_t)stream);
+                    &Y1, &W1, &xilr, &sroot, &xi, &st, &boxes0, &boxes1};
+    return launch(0, SP, args, kmax, threads, bytes, st != nullptr, boxes0, boxes1,
+                  (cudaStream_t)stream);
 }

@@ -64,6 +64,15 @@
 //   (level_passes.cuh).  The restriction's coarse plane I belongs to the
 //   block that owns fine plane 2I + 1, whose planes 2I and 2I + 2 may lie in
 //   the neighbours' slabs; the prolongation reads x_c from device memory.
+//   Up to LANE_SLOTS (32) measurements the slab's share and each warp's slot
+//   are static arrays, one entry a lane, and the boxes lie in the parameter
+//   block.  A level of more takes the kernels compiled with LR: the share and
+//   the slots after the slab (and its planes of c) in dynamic shared memory,
+//   lowrank_scratch_floats of visit_phases.cuh (per warp v, then u and t),
+//   each lane holding entries lane, lane + 32, ..., u = W v a row at a time
+//   (warp_matvec), the boxes from the level's device tables - bytes the slab
+//   loses, so the host's route (mgmc_visit_smem3d.py::smem_cluster) counts
+//   them before it takes it.
 //
 // The slab helpers (slab_of, the copy-in and write-back, the ghost copy, the
 // cluster barrier, the launch's cluster attributes) live in slab3d.cuh, which
@@ -164,11 +173,13 @@ __device__ __forceinline__ bool in_box(const int* b, int z, int y, int j) {
 
 // r - sum_k t_k B_k[p] over the columns whose box holds (z, y, j), in column
 // order (residual_rows' add_columns); wv: this warp's t
-__device__ __forceinline__ float lowrank_term(const VisitParams& P, const float* __restrict__ B,
-                                              const float* wv, int m, int z, int y, int j, int p,
-                                              int n, float r) {
+template <bool LR>
+__device__ __forceinline__ float lowrank_term(const VisitParams& P, const int (*bt)[BOX_INTS],
+                                              const float* __restrict__ B, const float* wv, int m,
+                                              int z, int y, int j, int p, int n, float r) {
     for (int k = 0; k < m; ++k)
-        if (in_box(P.bbox[k], z, y, j)) r += -1.0f * wv[k] * B[(size_t)k * n + p];
+        if (in_box(BOX_OF(LR, bt, P.bbox, k), z, y, j))
+            r += -1.0f * wv[k] * B[(size_t)k * n + p];
     return r;
 }
 
@@ -188,7 +199,7 @@ __device__ __forceinline__ void box_span(const int (*box)[BOX_INTS], int m, int 
 // KMAX: the stencil's size, 7 (forms 10 / 11) or 27 (the 3x3x3 box and any
 // other of up to 27 offsets, 12-15); a kernel each.  The sweep count (1 or 2)
 // is read at run time.
-template <int KMAX, bool DESCEND, bool STAMPS>
+template <int KMAX, bool DESCEND, bool STAMPS, bool LR = false>
 __global__ void __launch_bounds__(SMEM_VISIT_MAX_THREADS)
 smem_volume_kernel(const __grid_constant__ SmemVolumeParams SP, const int* __restrict__ tables,
                    float* x_all, const float* __restrict__ f_all, float* scr_all, float* fc_all,
@@ -197,9 +208,10 @@ smem_volume_kernel(const __grid_constant__ SmemVolumeParams SP, const int* __res
                    const float* __restrict__ Y0, const float* __restrict__ W0,
                    const float* __restrict__ Y1, const float* __restrict__ W1,
                    const float* __restrict__ xilr, const float* __restrict__ sroot,
-                   const float* __restrict__ xi_all, unsigned long long* stamps) {
-    __shared__ float s_part[MAX_LOWRANK];              // this slab's share of B^T x
-    __shared__ float s_wv[32 * MAX_LOWRANK];           // per warp: u, then t
+                   const float* __restrict__ xi_all, unsigned long long* stamps,
+                   const int* __restrict__ boxes0, const int* __restrict__ boxes1) {
+    __shared__ float s_part[LANE_SLOTS];              // this slab's share of B^T x
+    __shared__ float s_wv[32 * LANE_SLOTS];           // per warp: u, then t
     cg::cluster_group cluster = cg::this_cluster();
     const VisitParams& P = SP.v[0];  // what the directions share
     const int S = SP.S, PX = SP.PX, PP = SP.PP;
@@ -224,7 +236,13 @@ smem_volume_kernel(const __grid_constant__ SmemVolumeParams SP, const int* __res
     const float* nlr = P.noise_mode ? xilr + (size_t)chain * SP.ndir * m : nullptr;
     const float* xlo = S > 1 ? cluster.map_shared_rank(xs, rank > 0 ? rank - 1 : rank) : xs;
     const float* xhi = S > 1 ? cluster.map_shared_rank(xs, rank + 1 < S ? rank + 1 : rank) : xs;
-    float* wv = s_wv + warp * MAX_LOWRANK;
+    // the low-rank scratch (LR: after the slab and c's planes: the slab's
+    // share, then per warp 2 m floats) and the boxes (LR: the device tables,
+    // B's then each direction's Y's)
+    float* lrs = cs + (csh ? (size_t)SP.nz_max * n2 : 0);
+    float* spart = LR ? lrs : s_part;
+    float* wv = LR ? lrs + m + (size_t)warp * 2 * m : s_wv + warp * LANE_SLOTS;
+    const int(*bbx)[BOX_INTS] = reinterpret_cast<const int(*)[BOX_INTS]>(boxes0);
 
     // 1. the slab of x into its padded planes, the halo and the ghost planes
     //    zeroed; f's slab into c where c is in shared memory and no noise is
@@ -241,6 +259,8 @@ smem_volume_kernel(const __grid_constant__ SmemVolumeParams SP, const int* __res
 #pragma unroll 1
     for (int d = 0; d < SP.ndir; ++d) {
         const VisitParams& Pd = SP.v[d];
+        const int(*ybx)[BOX_INTS] =
+            reinterpret_cast<const int(*)[BOX_INTS]>(d ? boxes1 : boxes0) + m;
         // 2. the rhs (rhs_pass): ascend x += gamma P x_c (first direction,
         //    prolong_rows3's sum), then c = f + ns xi
         if (!DESCEND && d == 0) {
@@ -359,9 +379,10 @@ smem_volume_kernel(const __grid_constant__ SmemVolumeParams SP, const int* __res
         if (m) {
             const int nwarps = nthreads >> 5;
             for (int k = warp; k < m; k += nwarps) {
-                const int bz0 = max(P.bbox[k][0], z0), bz1 = min(P.bbox[k][1], z1);
-                const int y0 = P.bbox[k][2], bh = P.bbox[k][3] - y0;
-                const int j0 = P.bbox[k][4], bw = P.bbox[k][5] - j0;
+                const int* bk = BOX_OF(LR, bbx, P.bbox, k);
+                const int bz0 = max(bk[0], z0), bz1 = min(bk[1], z1);
+                const int y0 = bk[2], bh = bk[3] - y0;
+                const int j0 = bk[4], bw = bk[5] - j0;
                 float acc = 0.0f;
                 if (bz0 < bz1 && bh > 0 && bw > 0)
                     for (int qq = lane; qq < (bz1 - bz0) * bh * bw; qq += 32) {
@@ -372,41 +393,54 @@ smem_volume_kernel(const __grid_constant__ SmemVolumeParams SP, const int* __res
                     }
 #pragma unroll
                 for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
-                if (lane == 0) s_part[k] = acc;
+                if (lane == 0) spart[k] = acc;
             }
             smem_sync<STAMPS>(cluster, S);  // every slab's share
             //    every warp: the shares in rank order (the same sum in every
             //    block), B^T x - Sigma^1/2 n, u = W (...) into its slot
             const float* Wd = d ? W1 : W0;
             float sk = 1.0f, nk = 0.0f, u = 0.0f;
-            if (lane < m) {
-                float bt = 0.0f;
-                for (int r = 0; r < S; ++r) {
-                    const float* part = S > 1 ? cluster.map_shared_rank(&s_part[0], r) : s_part;
-                    bt += part[lane];
+            if constexpr (LR) {
+                float* vv = wv + m;
+                for (int k = lane; k < m; k += 32) {
+                    float bt = 0.0f;
+                    for (int r = 0; r < S; ++r)
+                        bt += (S > 1 ? cluster.map_shared_rank(spart, r) : spart)[k];
+                    vv[k] = bt - sroot[k] * (P.noise_mode ? nlr[(size_t)d * m + k] : 0.0f);
                 }
-                sk = sroot[lane];
-                if (P.noise_mode) nk = nlr[(size_t)d * m + lane];
-                wv[lane] = bt - sk * nk;
+                __syncwarp();
+                warp_matvec(Wd, vv, m, wv);
+            } else {
+                if (lane < m) {
+                    float bt = 0.0f;
+                    for (int r = 0; r < S; ++r) {
+                        const float* part =
+                            S > 1 ? cluster.map_shared_rank(&s_part[0], r) : s_part;
+                        bt += part[lane];
+                    }
+                    sk = sroot[lane];
+                    if (P.noise_mode) nk = nlr[(size_t)d * m + lane];
+                    wv[lane] = bt - sk * nk;
+                }
+                __syncwarp();
+                if (lane < m)
+                    for (int k = 0; k < m; ++k) u += Wd[lane * m + k] * wv[k];
+                __syncwarp();
+                if (lane < m) wv[lane] = u;
+                __syncwarp();
             }
-            __syncwarp();
-            if (lane < m)
-                for (int k = 0; k < m; ++k) u += Wd[lane * m + k] * wv[k];
-            __syncwarp();
-            if (lane < m) wv[lane] = u;
-            __syncwarp();
             //    x -= sum_l u_l Y_l over the slab's rows, each point by its owner,
             //    the columns in order (the boxes overlap)
             const float* Yd = d ? Y1 : Y0;
             WARP_ROWS(lr, nrows) {
                 const int lz = lr / Y, y = lr - lz * Y, z = z0 + lz;
                 int lo, hi;
-                box_span(Pd.ybox, m, z, y, &lo, &hi);
+                box_span(LR ? ybx : Pd.ybox, m, z, y, &lo, &hi);
                 for (int j = lo + lane; j < hi; j += 32) {
                     float* xq = xs + ((lz + 1) * (Y + 2) + y + 1) * PX + j + 1;
                     float v = *xq;
                     for (int k = 0; k < m; ++k)
-                        if (in_box(Pd.ybox[k], z, y, j))
+                        if (in_box(BOX_OF(LR, ybx, Pd.ybox, k), z, y, j))
                             v += -1.0f * wv[k] * Yd[(size_t)k * n + (z * Y + y) * W + j];
                     *xq = v;
                 }
@@ -415,7 +449,12 @@ smem_volume_kernel(const __grid_constant__ SmemVolumeParams SP, const int* __res
                 // t = u + Sigma^-1/2 n = Sigma^-1 B^T x of the corrected x, for
                 // the residual
                 __syncwarp();
-                if (lane < m) wv[lane] = u + nk / sk;
+                if constexpr (LR) {
+                    for (int k = lane; k < m; k += 32)
+                        wv[k] = wv[k] + (P.noise_mode ? nlr[(size_t)d * m + k] : 0.0f) / sroot[k];
+                } else if (lane < m) {
+                    wv[lane] = u + nk / sk;
+                }
                 __syncwarp();
             }
         }
@@ -438,8 +477,8 @@ smem_volume_kernel(const __grid_constant__ SmemVolumeParams SP, const int* __res
         int ub[BOX_INTS] = {1 << 30, 0, 1 << 30, 0, 1 << 30, 0};  // the boxes' union
         for (int k = 0; k < m; ++k)
             for (int a = 0; a < BOX_INTS; a += 2) {
-                ub[a] = min(ub[a], P.bbox[k][a]);
-                ub[a + 1] = max(ub[a + 1], P.bbox[k][a + 1]);
+                ub[a] = min(ub[a], BOX_OF(LR, bbx, P.bbox, k)[a]);
+                ub[a + 1] = max(ub[a + 1], BOX_OF(LR, bbx, P.bbox, k)[a + 1]);
             }
         for (int t = tid; t < npts; t += SMEM_POINTS * nthreads) {
             int e[SMEM_POINTS], q[SMEM_POINTS];
@@ -467,7 +506,7 @@ smem_volume_kernel(const __grid_constant__ SmemVolumeParams SP, const int* __res
                                    j < W - mg;
                 float r = fv[u] - (plain ? ax[u]
                                          : edge_ax<KMAX>(SP, P, coeffs, xs, lz, y, j, p, n));
-                if (in_box(ub, z, y, j)) r = lowrank_term(P, B, wv, m, z, y, j, p, n, r);
+                if (in_box(ub, z, y, j)) r = lowrank_term<LR>(P, bbx, B, wv, m, z, y, j, p, n, r);
                 rs[p] = r;
             }
         }
@@ -528,15 +567,20 @@ smem_volume_kernel(const __grid_constant__ SmemVolumeParams SP, const int* __res
     stamps_close<STAMPS>(srow, SMEM_STAMP_WIDTH);
 }
 
-// the kernel of (descend, kmax) in this library's build, or null
-static const void* smem_kernel(int descend, int kmax) {
+// the kernel of (descend, kmax) of up to LANE_SLOTS measurements or of more
+// (lr) in this library's build, or null
+static const void* smem_kernel(int descend, int kmax, bool lr = false) {
     constexpr bool ST = SMEM_VISIT_STAMPS_BUILD;
     if (kmax == 7)
-        return descend ? (const void*)smem_volume_kernel<7, true, ST>
-                       : (const void*)smem_volume_kernel<7, false, ST>;
+        return lr ? (descend ? (const void*)smem_volume_kernel<7, true, ST, true>
+                             : (const void*)smem_volume_kernel<7, false, ST, true>)
+                  : (descend ? (const void*)smem_volume_kernel<7, true, ST>
+                             : (const void*)smem_volume_kernel<7, false, ST>);
     if (kmax == 27)
-        return descend ? (const void*)smem_volume_kernel<27, true, ST>
-                       : (const void*)smem_volume_kernel<27, false, ST>;
+        return lr ? (descend ? (const void*)smem_volume_kernel<27, true, ST, true>
+                             : (const void*)smem_volume_kernel<27, false, ST, true>)
+                  : (descend ? (const void*)smem_volume_kernel<27, true, ST>
+                             : (const void*)smem_volume_kernel<27, false, ST>);
     return nullptr;
 }
 
@@ -570,14 +614,15 @@ extern "C" int mgmc_smem3d_static_smem() {
     int most = 0;
     const int sizes[2] = {7, 27};
     for (int kmax : sizes)
-        for (int descend = 0; descend < 2; ++descend) {
-            cudaFuncAttributes a;
-            if (cudaFuncGetAttributes(&a, smem_kernel(descend, kmax)) != cudaSuccess) {
-                cudaGetLastError();
-                return -1;
+        for (int descend = 0; descend < 2; ++descend)
+            for (int lr = 0; lr < 2; ++lr) {
+                cudaFuncAttributes a;
+                if (cudaFuncGetAttributes(&a, smem_kernel(descend, kmax, lr)) != cudaSuccess) {
+                    cudaGetLastError();
+                    return -1;
+                }
+                most = a.sharedSizeBytes > (size_t)most ? (int)a.sharedSizeBytes : most;
             }
-            most = a.sharedSizeBytes > (size_t)most ? (int)a.sharedSizeBytes : most;
-        }
     return most;
 }
 
@@ -633,18 +678,22 @@ extern "C" int mgmc_smem3d_max_active(int descend, int kmax, int S, int threads,
 }
 
 static int launch(int descend, const SmemVolumeParams* SP, void** args, int kmax, int threads,
-                  int bytes, bool stamps, cudaStream_t stream) {
+                  int bytes, bool stamps, const int* boxes0, const int* boxes1,
+                  cudaStream_t stream) {
     const VisitParams* P = &SP->v[0];
-    const void* fn = smem_kernel(descend, kmax);
+    const bool lr = P->m > LANE_SLOTS;
+    const void* fn = smem_kernel(descend, kmax, lr);
     const bool two = SP->ndir == 2;
     if (fn == nullptr || stamps != (bool)SMEM_VISIT_STAMPS_BUILD || threads < 32 ||
         threads > SMEM_VISIT_MAX_THREADS || threads % 32 || SP->ndir < 1 ||
         SP->ndir > MAX_DIRS || P->K < 1 || P->K > kmax || P->n_colors > MAX_COLORS ||
-        P->n_order > MAX_COLORS || P->C < 1 || P->m < 0 || P->m > MAX_LOWRANK ||
+        P->n_order > MAX_COLORS || P->C < 1 || P->m < 0 ||
+        (lr && (boxes0 == nullptr || (two && boxes1 == nullptr))) ||
         P->H != P->Z * P->Y || P->Zc != P->Z / 2 || P->Yc != P->Y / 2 || P->Wc != P->W / 2 ||
         (two && SP->v[1].n_order != P->n_order) || SP->PX != P->W + 2 ||
         SP->PP != (P->Y + 2) * SP->PX ||
-        bytes != mgmc_smem3d_smem_bytes(P->Z, P->Y, P->W, SP->S, SP->PP, SP->c_shared) ||
+        bytes != mgmc_smem3d_smem_bytes(P->Z, P->Y, P->W, SP->S, SP->PP, SP->c_shared) +
+                     4 * lowrank_scratch_floats(P->m, threads) ||
         SP->nz_max != planes_of_widest(P->Z, SP->S))
         return (int)cudaErrorInvalidValue;
     cudaError_t e = configure(fn, bytes);
@@ -666,19 +715,22 @@ static int launch(int descend, const SmemVolumeParams* SP, void** args, int kmax
 // Y0, W0 the first direction's Woodbury factors, Y1, W1 the second's (null
 // with one direction); xilr (C, ndir m) the low-rank normals as drawn, sroot
 // Sigma^1/2; xi (ndir, C, Z, Y, W) where noise_mode is 2; stamps (C S,
-// SMEM_STAMP_WIDTH) in the stamps build, else null.
+// SMEM_STAMP_WIDTH) in the stamps build, else null; boxes0, boxes1 each
+// direction's box table (B's boxes, then its Y's; read where m > LANE_SLOTS).
 extern "C" int mgmc_smem3d_descend(const SmemVolumeParams* SP, const int* tables, float* x,
                                    const float* f, float* scratch, float* fc, const float* coeffs,
                                    const float* ns, const float* B, const float* Y0,
                                    const float* W0, const float* Y1, const float* W1,
                                    const float* xilr, const float* sroot, const float* xi,
-                                   int kmax, int threads, int bytes, void* stamps, void* stream) {
+                                   int kmax, int threads, int bytes, void* stamps,
+                                   const int* boxes0, const int* boxes1, void* stream) {
     SmemVolumeParams Pc = *SP;
     const float* xc = nullptr;
     unsigned long long* st = static_cast<unsigned long long*>(stamps);
     void* args[] = {&Pc, &tables, &x, &f, &scratch, &fc, &xc, &coeffs, &ns, &B, &Y0, &W0,
-                    &Y1, &W1, &xilr, &sroot, &xi, &st};
-    return launch(1, SP, args, kmax, threads, bytes, st != nullptr, (cudaStream_t)stream);
+                    &Y1, &W1, &xilr, &sroot, &xi, &st, &boxes0, &boxes1};
+    return launch(1, SP, args, kmax, threads, bytes, st != nullptr, boxes0, boxes1,
+                  (cudaStream_t)stream);
 }
 
 extern "C" int mgmc_smem3d_ascend(const SmemVolumeParams* SP, const int* tables, float* x,
@@ -687,11 +739,12 @@ extern "C" int mgmc_smem3d_ascend(const SmemVolumeParams* SP, const int* tables,
                                   const float* Y0, const float* W0, const float* Y1,
                                   const float* W1, const float* xilr, const float* sroot,
                                   const float* xi, int kmax, int threads, int bytes, void* stamps,
-                                  void* stream) {
+                                  const int* boxes0, const int* boxes1, void* stream) {
     SmemVolumeParams Pc = *SP;
     float* fc = nullptr;
     unsigned long long* st = static_cast<unsigned long long*>(stamps);
     void* args[] = {&Pc, &tables, &x, &f, &scratch, &fc, &xc, &coeffs, &ns, &B, &Y0, &W0,
-                    &Y1, &W1, &xilr, &sroot, &xi, &st};
-    return launch(0, SP, args, kmax, threads, bytes, st != nullptr, (cudaStream_t)stream);
+                    &Y1, &W1, &xilr, &sroot, &xi, &st, &boxes0, &boxes1};
+    return launch(0, SP, args, kmax, threads, bytes, st != nullptr, boxes0, boxes1,
+                  (cudaStream_t)stream);
 }

@@ -68,6 +68,15 @@
 // in another order (per band, then over the bands), so under one Philox stream
 // the routes agree to float32 rounding.
 //
+// Measurements.  The low-rank vectors (each band's share of B^T x, every
+// rank's, B^T x - Sigma^1/2 n, the normals, u and t) are the block's: up to
+// LANE_SLOTS (32) entries in static shared memory, a thread an entry, the
+// boxes in the parameter block.  A level of more takes the kernels compiled
+// with LR: the vectors after the bands in dynamic shared memory, (S + 4) m
+// floats (mgmc_split_smem_bytes), the block's threads taking the entries in
+// turn and its warps the rows of u = W v, lanes along a row; the boxes from
+// the level's device tables (boxes0, boxes1: B's, then the direction's Y's).
+//
 // The host (ops/kernels/mgmc_visit.py, visit_route) takes this route for few
 // chains where the bands fit a block's shared memory (mgmc_split_smem_bytes;
 // split_smem_bytes is the host's mirror) and the cluster schedules
@@ -165,8 +174,9 @@ __device__ void band_lowrank(const VisitParams& P, const int (*box)[4],
 
 // ------------------------------------------------------------------- kernel
 // NDIR: the sweeps of a visit (1 SOR, 2 SSOR), a kernel each, so that a
-// one-sweep visit compiles to straight-line phases.
-template <bool DESCEND, int NDIR>
+// one-sweep visit compiles to straight-line phases.  LR: a level of more than
+// LANE_SLOTS measurements.
+template <bool DESCEND, int NDIR, bool LR>
 __global__ void __launch_bounds__(MAX_THREADS)
 split_visit_kernel(const __grid_constant__ SplitParams SP, float* x_all,
                    const float* __restrict__ f_all, float* fc_all,
@@ -175,13 +185,14 @@ split_visit_kernel(const __grid_constant__ SplitParams SP, float* x_all,
                    const float* __restrict__ Y0, const float* __restrict__ W0,
                    const float* __restrict__ Y1, const float* __restrict__ W1,
                    const float* __restrict__ xilr, const float* __restrict__ sroot,
-                   const float* __restrict__ xi_all) {
+                   const float* __restrict__ xi_all, const int* __restrict__ boxes0,
+                   const int* __restrict__ boxes1) {
     extern __shared__ __align__(16) float smem[];
-    __shared__ float s_part[MAX_LOWRANK];               // this band's share of B^T x
-    __shared__ float s_all[MAX_CLUSTER * MAX_LOWRANK];  // every rank's share, rank by rank
-    __shared__ float s_btx[MAX_LOWRANK];
-    __shared__ float s_lr[MAX_LOWRANK];
-    __shared__ float s_u[MAX_LOWRANK];
+    __shared__ float s_part[LANE_SLOTS];               // this band's share of B^T x
+    __shared__ float s_all[MAX_CLUSTER * LANE_SLOTS];  // every rank's share, rank by rank
+    __shared__ float s_btx[LANE_SLOTS];
+    __shared__ float s_lr[LANE_SLOTS];
+    __shared__ float s_u[LANE_SLOTS];
     cg::cluster_group cluster = cg::this_cluster();
     const VisitParams& P = SP.v[0];  // what the directions share
     constexpr int ndir = NDIR;
@@ -200,6 +211,15 @@ split_visit_kernel(const __grid_constant__ SplitParams SP, float* x_all,
     int* j0tab = reinterpret_cast<int*>(smem);
     float* xs = smem + SPLIT_TABLE_INTS;
     float* cs = xs + split_band_rows(H, S) * W;  // c, then (descend) r
+    // the low-rank vectors (LR: after the bands) and the boxes (LR: the
+    // device tables, B's then each direction's Y's)
+    float* lrs = cs + split_band_rows(H, S) * W;
+    float* part = LR ? lrs : s_part;
+    float* all = LR ? lrs + m : s_all;
+    float* btx = LR ? lrs + (S + 1) * m : s_btx;
+    float* lrv = LR ? lrs + (S + 2) * m : s_lr;
+    float* uv = LR ? lrs + (S + 3) * m : s_u;
+    const int(*bbx)[BOX_INTS] = reinterpret_cast<const int(*)[BOX_INTS]>(boxes0);
 
     float* x = x_all + (size_t)chain * n;
     const float* f = f_all + (P.f_batched ? (size_t)chain * n : 0);
@@ -228,9 +248,14 @@ split_visit_kernel(const __grid_constant__ SplitParams SP, float* x_all,
     for (int d = 0; d < ndir; ++d) {
         const VisitParams& Pd = SP.v[d];
         const float* xi = P.noise_mode == 2 ? xi_all + ((size_t)d * P.C + chain) * n : nullptr;
-        // the direction's low-rank normals (the last direction's s_lr and s_u
+        // the direction's low-rank normals (the last direction's lrv and uv
         // were read before the previous barrier)
-        if (P.noise_mode && tid < m) s_lr[tid] = nlr[(size_t)d * m + tid];
+        if constexpr (LR) {
+            if (P.noise_mode)
+                for (int t = tid; t < m; t += nthreads) lrv[t] = nlr[(size_t)d * m + t];
+        } else if (P.noise_mode && tid < m) {
+            s_lr[tid] = nlr[(size_t)d * m + tid];
+        }
         __syncthreads();
 
         //    the rhs (rhs_pass): ascend x += gamma P x_c (first direction), then
@@ -302,8 +327,10 @@ split_visit_kernel(const __grid_constant__ SplitParams SP, float* x_all,
         if (m) {
             const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
             for (int k = warp; k < m; k += nwarps) {
-                const int i0 = max(P.bbox[k][0], u0), i1 = min(P.bbox[k][1], u1);
-                const int j0 = P.bbox[k][2], bw = P.bbox[k][3] - j0;
+                const int i0 = max(BOX_OF(LR, bbx, P.bbox, k)[0], u0);
+                const int i1 = min(BOX_OF(LR, bbx, P.bbox, k)[1], u1);
+                const int j0 = BOX_OF(LR, bbx, P.bbox, k)[2];
+                const int bw = BOX_OF(LR, bbx, P.bbox, k)[3] - j0;
                 float acc = 0.0f;
                 if (i0 < i1 && bw > 0) {
                     for (int q = lane; q < (i1 - i0) * bw; q += 32) {
@@ -313,32 +340,58 @@ split_visit_kernel(const __grid_constant__ SplitParams SP, float* x_all,
                 }
 #pragma unroll
                 for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
-                if (lane == 0) s_part[k] = acc;
+                if (lane == 0) part[k] = acc;
             }
             cluster.sync();  // every band's share of B^T x
             for (int t = tid; t < S * m; t += nthreads) {
                 const int r = t / m;
-                s_all[t] = cluster.map_shared_rank(s_part, r)[t - r * m];
-            }
-            __syncthreads();
-            if (tid < m) {  // the shares in rank order: the same sum in every block
-                float v = 0.0f;
-                for (int r = 0; r < S; ++r) v += s_all[r * m + tid];
-                // B^T x - Sigma^1/2 n (woodbury_pass)
-                s_btx[tid] = v - sroot[tid] * (P.noise_mode ? s_lr[tid] : 0.0f);
+                all[t] = cluster.map_shared_rank(part, r)[t - r * m];
             }
             __syncthreads();
             const float* Wd = d ? W1 : W0;
-            if (tid < m) {
-                float u = 0.0f;
-                for (int k = 0; k < m; ++k) u += Wd[tid * m + k] * s_btx[k];
-                s_u[tid] = u;
+            if constexpr (LR) {
+                for (int t = tid; t < m; t += nthreads) {
+                    // the shares in rank order: the same sum in every block
+                    float v = 0.0f;
+                    for (int r = 0; r < S; ++r) v += all[r * m + t];
+                    // B^T x - Sigma^1/2 n (woodbury_pass)
+                    btx[t] = v - sroot[t] * (P.noise_mode ? lrv[t] : 0.0f);
+                }
+                __syncthreads();
+                // u = W (...), a warp a row in turn (band_lowrank's first
+                // barrier publishes it)
+                for (int r = warp; r < m; r += nwarps) {
+                    float acc = 0.0f;
+                    for (int k = lane; k < m; k += 32) acc += Wd[(size_t)r * m + k] * btx[k];
+                    acc = warp_total(acc);
+                    if (lane == 0) uv[r] = acc;
+                }
+            } else {
+                if (tid < m) {  // the shares in rank order: the same sum in every block
+                    float v = 0.0f;
+                    for (int r = 0; r < S; ++r) v += s_all[r * m + tid];
+                    // B^T x - Sigma^1/2 n (woodbury_pass)
+                    s_btx[tid] = v - sroot[tid] * (P.noise_mode ? s_lr[tid] : 0.0f);
+                }
+                __syncthreads();
+                if (tid < m) {
+                    float u = 0.0f;
+                    for (int k = 0; k < m; ++k) u += Wd[tid * m + k] * s_btx[k];
+                    s_u[tid] = u;
+                }
             }
-            band_lowrank(Pd, Pd.ybox, d ? Y1 : Y0, s_u, -1.0f, xs, u0, u1);
-            if (DESCEND && d == ndir - 1 && tid < m)
+            const int(*ybx)[BOX_INTS] =
+                reinterpret_cast<const int(*)[BOX_INTS]>(d ? boxes1 : boxes0) + m;
+            band_lowrank(Pd, LR ? ybx : Pd.ybox, d ? Y1 : Y0, uv, -1.0f, xs, u0, u1);
+            if constexpr (LR) {
+                if (DESCEND && d == ndir - 1)
+                    for (int t = tid; t < m; t += nthreads)
+                        lrv[t] = uv[t] + (P.noise_mode ? lrv[t] : 0.0f) / sroot[t];
+            } else if (DESCEND && d == ndir - 1 && tid < m) {
                 // t = u + Sigma^-1/2 n = Sigma^-1 B^T x of the corrected x, for the
                 // residual
                 s_lr[tid] = s_u[tid] + (P.noise_mode ? s_lr[tid] : 0.0f) / sroot[tid];
+            }
         }
     }
     //    the band back to global memory, once
@@ -352,7 +405,7 @@ split_visit_kernel(const __grid_constant__ SplitParams SP, float* x_all,
             const int i = u0 + lr, p = first + t;
             cs[t] = f[p] - band_stencil(P, coeffs, i, j, n, p, u0, u1, lo0, xs, xlo, xhi);
         }
-        if (m) band_lowrank(P, P.bbox, B, s_lr, -1.0f, cs, u0, u1);
+        if (m) band_lowrank(P, LR ? bbx : P.bbox, B, lrv, -1.0f, cs, u0, u1);
         cluster.sync();  // every band's residual
         const float* rlo = cluster.map_shared_rank(cs, rank > 0 ? rank - 1 : rank);
         const float* rhi = cluster.map_shared_rank(cs, rank + 1 < S ? rank + 1 : rank);
@@ -383,9 +436,9 @@ split_visit_kernel(const __grid_constant__ SplitParams SP, float* x_all,
 }
 
 // ------------------------------------------------------------ host helpers
-template <bool DESCEND, int NDIR>
+template <bool DESCEND, int NDIR, bool LR>
 static cudaError_t configure(int bytes) {
-    auto kernel = split_visit_kernel<DESCEND, NDIR>;
+    auto kernel = split_visit_kernel<DESCEND, NDIR, LR>;
     static int granted = 0;
     if (granted == 0) {
         cudaError_t e =
@@ -422,21 +475,27 @@ extern "C" int mgmc_split_params_size() { return (int)sizeof(SplitParams); }
 
 // Dynamic shared memory of one block of a split launch (bytes): the
 // first-point table, then the widest band of x, then the scratch band of c
-// and r.  -1 where the level cannot be split so: S outside 2 .. 16 or more
-// ranks than rows.
-extern "C" int mgmc_split_smem_bytes(int H, int W, int S) {
-    if (S < 2 || S > MAX_CLUSTER || H < 1 || W < 1 || S > H) return -1;
-    const long long floats = SPLIT_TABLE_INTS + 2LL * split_band_rows(H, S) * W;
+// and r, then for m > LANE_SLOTS measurements the (S + 4) m floats of the
+// low-rank vectors.  -1 where the level cannot be split so: S outside 2 .. 16
+// or more ranks than rows.
+extern "C" int mgmc_split_smem_bytes(int H, int W, int S, int m) {
+    if (S < 2 || S > MAX_CLUSTER || H < 1 || W < 1 || S > H || m < 0) return -1;
+    const long long floats = SPLIT_TABLE_INTS + 2LL * split_band_rows(H, S) * W +
+                             (m > LANE_SLOTS ? (long long)(S + 4) * m : 0);
     return floats * 4 > 0x7FFFFFFF ? -1 : (int)(floats * 4);
 }
 
 // The largest static shared memory of the kernels (bytes), or -1 if the
 // runtime cannot say.
 extern "C" int mgmc_split_static_smem_bytes() {
-    const void* kernels[] = {(const void*)split_visit_kernel<true, 1>,
-                             (const void*)split_visit_kernel<false, 1>,
-                             (const void*)split_visit_kernel<true, 2>,
-                             (const void*)split_visit_kernel<false, 2>};
+    const void* kernels[] = {(const void*)split_visit_kernel<true, 1, false>,
+                             (const void*)split_visit_kernel<false, 1, false>,
+                             (const void*)split_visit_kernel<true, 2, false>,
+                             (const void*)split_visit_kernel<false, 2, false>,
+                             (const void*)split_visit_kernel<true, 1, true>,
+                             (const void*)split_visit_kernel<false, 1, true>,
+                             (const void*)split_visit_kernel<true, 2, true>,
+                             (const void*)split_visit_kernel<false, 2, true>};
     int most = 0;
     for (const void* k : kernels) {
         cudaFuncAttributes a;
@@ -451,12 +510,13 @@ extern "C" int mgmc_split_static_smem_bytes() {
 
 template <bool DESCEND, int NDIR>
 static cudaError_t max_active(int S, int threads, int bytes, int* clusters) {
-    cudaError_t e = configure<DESCEND, NDIR>(bytes);
+    cudaError_t e = configure<DESCEND, NDIR, false>(bytes);
     if (e == cudaSuccess) {
         cudaLaunchConfig_t cfg;
         cudaLaunchAttribute attr[1];
         cluster_config(&cfg, attr, S, S, threads, bytes, 0);
-        e = cudaOccupancyMaxActiveClusters(clusters, split_visit_kernel<DESCEND, NDIR>, &cfg);
+        e = cudaOccupancyMaxActiveClusters(clusters, split_visit_kernel<DESCEND, NDIR, false>,
+                                           &cfg);
     }
     return e;
 }
@@ -486,9 +546,11 @@ template <bool DESCEND>
 static int launch(const SplitParams* SP, float* x, const float* f, float* fc, const float* xc,
                   const float* coeffs, const float* ns, const float* B, const float* Y0,
                   const float* W0, const float* Y1, const float* W1, const float* xilr,
-                  const float* sroot, const float* xi, int S, int threads, cudaStream_t stream) {
+                  const float* sroot, const float* xi, const int* boxes0, const int* boxes1,
+                  int S, int threads, cudaStream_t stream) {
     const VisitParams* P = &SP->v[0];
-    const int bytes = mgmc_split_smem_bytes(P->H, P->W, S);
+    const int bytes = mgmc_split_smem_bytes(P->H, P->W, S, P->m);
+    const bool lr = P->m > LANE_SLOTS;
     bool reach1 = true;
     for (int k = 0; k < P->K && k < MAX_OFFSETS; ++k)
         reach1 = reach1 && P->dy[k] >= -1 && P->dy[k] <= 1 && P->dx[k] >= -1 && P->dx[k] <= 1;
@@ -496,20 +558,27 @@ static int launch(const SplitParams* SP, float* x, const float* f, float* fc, co
     if (bytes < 0 || threads < 64 || threads > MAX_THREADS || threads % 32 || SP->ndir < 1 ||
         SP->ndir > MAX_DIRS || SP->ndir * P->n_order * P->n_colors > threads ||
         P->n_colors > MAX_COLORS || P->C < 1 || P->K < 1 || P->K > MAX_OFFSETS || !reach1 ||
-        P->m < 0 || P->m > MAX_LOWRANK || P->Hc != P->H / 2 || P->Wc != P->W / 2 ||
+        P->m < 0 || P->Hc != P->H / 2 || P->Wc != P->W / 2 ||
         (P->m && (sroot == nullptr || (two && (Y1 == nullptr || W1 == nullptr)))) ||
+        (lr && (boxes0 == nullptr || (two && boxes1 == nullptr))) ||
         (two && SP->v[1].n_order != P->n_order))
         return (int)cudaErrorInvalidValue;
-    cudaError_t e = two ? configure<DESCEND, 2>(bytes) : configure<DESCEND, 1>(bytes);
+    cudaError_t e = lr ? (two ? configure<DESCEND, 2, true>(bytes)
+                              : configure<DESCEND, 1, true>(bytes))
+                       : (two ? configure<DESCEND, 2, false>(bytes)
+                              : configure<DESCEND, 1, false>(bytes));
     if (e == cudaSuccess) {
         cudaLaunchConfig_t cfg;
         cudaLaunchAttribute attr[1];
         cluster_config(&cfg, attr, P->C * S, S, threads, bytes, stream);
         SplitParams Pc = *SP;
         void* args[] = {&Pc, &x, &f, &fc, &xc, &coeffs, &ns, &B, &Y0, &W0, &Y1, &W1, &xilr,
-                        &sroot, &xi};
-        const void* kernel = two ? (const void*)split_visit_kernel<DESCEND, 2>
-                                 : (const void*)split_visit_kernel<DESCEND, 1>;
+                        &sroot, &xi, &boxes0, &boxes1};
+        const void* kernel =
+            lr ? (two ? (const void*)split_visit_kernel<DESCEND, 2, true>
+                      : (const void*)split_visit_kernel<DESCEND, 1, true>)
+               : (two ? (const void*)split_visit_kernel<DESCEND, 2, false>
+                      : (const void*)split_visit_kernel<DESCEND, 1, false>);
         e = cudaLaunchKernelExC(&cfg, kernel, args);
     }
     if (e != cudaSuccess) {
@@ -521,22 +590,24 @@ static int launch(const SplitParams* SP, float* x, const float* f, float* fc, co
 
 // Y0, W0: the first direction's Woodbury factors, Y1, W1 the second's (null
 // with one direction); xilr (C, ndir m) the low-rank normals as drawn, sroot
-// Sigma^1/2; xi (ndir, C, H, W) where noise_mode is 2.
+// Sigma^1/2; xi (ndir, C, H, W) where noise_mode is 2; boxes0, boxes1 each
+// direction's box table (B's boxes, then its Y's; read where m > LANE_SLOTS).
 extern "C" int mgmc_split_descend(const SplitParams* P, float* x, const float* f, float* fc,
                                   const float* coeffs, const float* ns, const float* B,
                                   const float* Y0, const float* W0, const float* Y1,
                                   const float* W1, const float* xilr, const float* sroot,
-                                  const float* xi, int S, int threads, void* stream) {
-    return launch<true>(P, x, f, fc, nullptr, coeffs, ns, B, Y0, W0, Y1, W1, xilr, sroot, xi, S,
-                        threads, (cudaStream_t)stream);
+                                  const float* xi, const int* boxes0, const int* boxes1, int S,
+                                  int threads, void* stream) {
+    return launch<true>(P, x, f, fc, nullptr, coeffs, ns, B, Y0, W0, Y1, W1, xilr, sroot, xi,
+                        boxes0, boxes1, S, threads, (cudaStream_t)stream);
 }
 
 extern "C" int mgmc_split_ascend(const SplitParams* P, float* x, const float* f,
                                  const float* xc, const float* coeffs, const float* ns,
                                  const float* B, const float* Y0, const float* W0,
                                  const float* Y1, const float* W1, const float* xilr,
-                                 const float* sroot, const float* xi, int S, int threads,
-                                 void* stream) {
+                                 const float* sroot, const float* xi, const int* boxes0,
+                                 const int* boxes1, int S, int threads, void* stream) {
     return launch<false>(P, x, f, nullptr, xc, coeffs, ns, B, Y0, W0, Y1, W1, xilr, sroot, xi,
-                         S, threads, (cudaStream_t)stream);
+                         boxes0, boxes1, S, threads, (cudaStream_t)stream);
 }

@@ -68,6 +68,11 @@
 // atomics, fixed reduction orders: equal seeds and counters give bitwise
 // equal fields.  Noise addressing is that of rhs_pass: group g of row i has
 // the Philox counter word i * ceil(W / 4) + g.
+//
+// Measurements: at most STREAM_MAX_LOWRANK (32), a thread per entry of the
+// low-rank vectors and a bit per column in each row's mask; the host
+// (mgmc_visit.py::visit_route) sends a level of more to the phase kernels, and
+// the launch refuses one.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,6 +84,8 @@
 #define STREAM_TILE 4        // coarse rows per tile of pass 2
 #define STREAM_COL0 4        // column of point j = 0 in a row of shared memory
 #define MAX_STREAM_THREADS 256
+// the most measurements the kernels take: one bit of a row's column mask each
+#define STREAM_MAX_LOWRANK LANE_SLOTS
 
 struct StreamParams {
     VisitParams v;
@@ -187,9 +194,9 @@ stream_visit_kernel(const __grid_constant__ StreamParams S, float* x_all,
                     const float* __restrict__ xi_all) {
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
-    __shared__ float s_btx[MAX_LOWRANK];
-    __shared__ float s_lr[MAX_LOWRANK];
-    __shared__ float s_u[MAX_LOWRANK];
+    __shared__ float s_btx[STREAM_MAX_LOWRANK];
+    __shared__ float s_lr[STREAM_MAX_LOWRANK];
+    __shared__ float s_u[STREAM_MAX_LOWRANK];
     __shared__ int s_j0[MAX_COLORS * MAX_COLORS];
 
     const VisitParams& P = S.v;
@@ -656,7 +663,7 @@ static int dispatch(const StreamParams* S, int threads, cudaStream_t stream, flo
                     const float* xilr, const float* sroot, const float* xi) {
     const VisitParams& P = S->v;
     if (threads < 64 || threads > MAX_STREAM_THREADS || threads % 64 || threads / 2 < P.n_order ||
-        P.K < 1 || P.K > MAX_OFFSETS)
+        P.K < 1 || P.K > MAX_OFFSETS || P.m < 0 || P.m > STREAM_MAX_LOWRANK)
         return (int)cudaErrorInvalidValue;
     bool all_const = true;
     for (int k = 0; k < P.K; ++k) all_const = all_const && P.coeff_const[k];

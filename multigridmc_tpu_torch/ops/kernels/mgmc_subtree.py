@@ -57,8 +57,8 @@ went from its ``stamps``, with the barriers each block passed and the SM it
 ran on.
 
 **Shared memory.**  The tables stay in shared memory whatever the placement of
-the fields, so the tables and the kernel's static share must fit a block's
-limit: 19,296 B on the flagship's sub-levels (m = 8); at m = 32 (the most the
+the fields (up to ``LANE_SLOTS`` measurements; more below), so the tables and
+the kernel's static share must fit a block's limit: 19,296 B on the flagship's sub-levels (m = 8); at m = 32 (the most the
 kernel takes) some 21.5 KB a sub-level, most of it the part that does not
 depend on the level's size (two ``W``, the two parameter blocks), so some
 172 KB at 8 sub-levels (172,048 B for a 1024^2 lattice of 10 levels with 32
@@ -70,7 +70,14 @@ bench (m = 8) take 61,904 B of tables, which leaves the fields of 63^2 and
 below room beside them in one block of an SM; the 4,096 B static share holds
 for both builds (``mgmc_subtree_static_smem``, checked at load).  A card with
 less raises at construction; on the CPU nothing is launched and the placement
-is not probed.
+is not probed.  Sub-levels of more than ``LANE_SLOTS`` (32) measurements take
+an instance of their own (``wide``): each warp's slot holds ``2 m`` floats
+and the block's ``m``-vector follows the slots (:func:`slot_words`,
+``csrc/visit_phases.cuh``), each level's boxes are staged after its
+``Sigma^{1/2}``, and where the tables do not fit a block (each sub-level's two
+``W`` are ``m^2`` floats: 256 KiB each at m = 256) they stay in the table
+tensor, read there by every pass, and only the slots and the vector lie at
+the front of shared memory (:attr:`SubtreeKernel.tables_shared`).
 
 Beside the kernel stands its **plain PyTorch version**
 (:func:`subtree_sample_plain`), the same schedule walked with
@@ -89,7 +96,7 @@ recursion draws, so the same draws give the same step.
 Supported: 2d, float32 on the card (the plain version runs in any dtype), SOR
 with one pre- and one post-sweep per visit, sub-levels of one reach, 1 (up to 9
 offsets, 8 colours) or 2 (at most 13 offsets or the 5x5 box in raster order, 9
-colours), ``m <= 32``, up to 8 sub-levels, a dense Cholesky factor of the
+colours), any ``m`` whose slots a block holds, up to 8 sub-levels, a dense Cholesky factor of the
 coarsest level.  Reach 3 and above raise before any launch.
 """
 
@@ -106,7 +113,7 @@ import torch
 from .common import (DEFAULT_SMEM_BYTES, SUBTREE_REACH2_PARTS, default_threads,
                      dynamic_smem_limit, open_library, probe_dynamic_smem)
 from .common import tensor_ptr as _ptr
-from .mgmc_visit import (FusedVisitLevel, TableWords, VisitParams,  # noqa: F401
+from .mgmc_visit import (LANE_SLOTS, FusedVisitLevel, TableWords, VisitParams,  # noqa: F401
                          WideVisitParams, ascend_visit_plain, colour_rows, descend_visit_plain,
                          stage_level)
 
@@ -255,8 +262,9 @@ def load_library(reach: int = 1, part: str = "production") -> ctypes.CDLL:
     lib.mgmc_subtree_attributes.argtypes = [i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
     lib.mgmc_subtree_attributes.restype = i32
     # S, tables, sched, Linv, LinvT, f, x, ws, xi, points, threads, smem_bytes, stream
+    # S, tables, sched, Linv, LinvT, f, x, ws, xi, points, threads, smem bytes, wide, stream
     lib.mgmc_subtree_sample.argtypes = (
-        [ctypes.POINTER(SubtreeParams)] + [ptr] * 9 + [i32, i32, ptr])
+        [ctypes.POINTER(SubtreeParams)] + [ptr] * 9 + [i32, i32, i32, ptr])
     lib.mgmc_subtree_sample.restype = i32
     return lib
 
@@ -380,7 +388,12 @@ def launch_tables(levels: Sequence[FusedVisitLevel]):
     ``colour_rows``, ``B_k`` inside ``bbox_k`` and ``Y_k`` of both directions
     inside their ``ybox_k`` (each box row major, column after column, with the
     ``m + 1`` starts of the columns), ``W`` of both directions and
-    ``Sigma^{1/2}``; then 32 warps' slots of the largest ``m`` words each.
+    ``Sigma^{1/2}``, and where the level has more than ``LANE_SLOTS``
+    measurements its boxes right after (``m x 4`` int32: ``B``'s, then each
+    direction's ``Y``'s; the wide kernel reads them there); then 32 warps'
+    slots of :func:`slot_words` words each and, where a level has more than
+    ``LANE_SLOTS``, the block's vector of the largest ``m`` words right after
+    them.
 
     Reach-2 sub-levels also get their colours' point lists (:func:`point_tables`):
     the parameter blocks hold the interior values as ``coeff_val`` of every
@@ -409,17 +422,30 @@ def launch_tables(levels: Sequence[FusedVisitLevel]):
                for P2 in plans]
     points, used = [], 0
     for lv, off, L2 in zip(levels, offsets, lists):
-        off.update(stage_level(words, lv, (lv.pre_order, lv.post_order)))
+        orders = (lv.pre_order, lv.post_order)
+        off.update(stage_level(words, lv, orders))
+        if lv.op.m_lowrank > LANE_SLOTS:  # at sroot + m, where the wide kernel reads them
+            for boxes in [lv.bbox] + [lv._woodbury[o][2] for o in orders]:
+                words.put(np.asarray(boxes, np.int32).reshape(-1))
         off["pts"], off["phead"] = [-1, -1], [0, 0]
         for d, pl in enumerate(L2 or ()):
             off["phead"][d] = words.put(pl["head"])
             off["pts"][d] = used
             points.append(pl["entries"])
             used += pl["entries"].size
-    warp_stride = max([lv.op.m_lowrank for lv in levels] + [1])
+    warp_stride = max([slot_words(lv.op.m_lowrank) for lv in levels] + [1])
     warp_vec = words.put(np.zeros(32 * warp_stride, np.float32))
+    most = max(lv.op.m_lowrank for lv in levels)
+    if most > LANE_SLOTS:
+        words.put(np.zeros(most, np.float32))  # the block's vector
     points = np.concatenate(points) if points else np.zeros(0, np.int32)
     return words.words(), offsets, warp_vec, warp_stride, points
+
+
+def slot_words(m: int) -> int:
+    """Words of one warp's slot for a level of ``m`` measurements: ``m`` (n,
+    then u, then t) up to ``LANE_SLOTS``, else ``2 m`` (u and t, n)."""
+    return 2 * m if m > LANE_SLOTS else m
 
 
 def reach2_limit(limit_bytes: int) -> int:
@@ -495,13 +521,27 @@ class SubtreeKernel:
                         min(default_threads(self.level_sizes[0]), MAX_THREADS))
         (self._tables, self._table_offsets, self._warp_vec, self._warp_stride,
          self._points) = launch_tables(self.levels)
+        limit = dynamic_smem_limit(self.device)
+        block = reach2_limit(limit) if self.reach == 2 else limit
+        #: sub-levels of more than ``LANE_SLOTS`` measurements: the kernel's
+        #: wide instance
+        self.wide = max(lv.op.m_lowrank for lv in self.levels) > LANE_SLOTS
+        #: whether each block copies the tables into its shared memory (always
+        #: up to ``LANE_SLOTS`` measurements); else they stay in the table
+        #: tensor and only the warps' slots and the block's vector lie at the
+        #: front of shared memory, ``warp_vec`` 0 telling the kernel so
+        self.tables_shared = (not self.wide
+                              or 4 * self._tables.size + STATIC_SMEM_RESERVE <= block)
+        #: words of shared memory before the fields, the slots' offset there
+        self._front = (self._tables.size, self._warp_vec)
+        if not self.tables_shared:
+            words = 32 * self._warp_stride + max(lv.op.m_lowrank for lv in self.levels)
+            self._front = (words + (-words % 4), 0)
         # the placement under the card's limit; if the probe is refused the
         # shared memory this placement needs, the one that needs no opt-in
-        table_words = self._tables.size
-        limit = dynamic_smem_limit(self.device)
+        table_words = self._front[0]
         budgets = [smem_budget] if smem_budget is not None else [
-            field_budget(reach2_limit(limit) if self.reach == 2 else limit, table_words),
-            field_budget(DEFAULT_SMEM_BYTES, table_words)]
+            field_budget(block, table_words), field_budget(DEFAULT_SMEM_BYTES, table_words)]
         for budget in budgets:
             self.smem_budget = max(int(budget), 0)
             (self._level_locs, self._coarse_locs, self._smem_floats,
@@ -546,9 +586,10 @@ class SubtreeKernel:
 
     @property
     def smem_bytes(self) -> int:
-        """Dynamic shared memory of a launch: the tables, then the fields
-        placed there."""
-        return 4 * (self._tables.size + self._smem_floats)
+        """Dynamic shared memory of a launch: the tables (where they are
+        copied there; else the warps' slots and the block's vector), then the
+        fields placed there."""
+        return 4 * (self._front[0] + self._smem_floats)
 
     @property
     def placement(self) -> dict:
@@ -561,7 +602,8 @@ class SubtreeKernel:
                      **{name: LOC_NAMES[loc[0]]
                         for name, loc in zip(("x", "scratch", "f"), self._coarse_locs)}})
         return {"levels": rows, "shared_bytes": 4 * self._smem_floats,
-                "table_bytes": 4 * self._tables.size, "dynamic_shared_bytes": self.smem_bytes,
+                "table_bytes": 4 * self._tables.size, "tables_shared": self.tables_shared,
+                "dynamic_shared_bytes": self.smem_bytes,
                 "workspace_bytes_per_chain": 4 * self._ws_floats,
                 "shared_budget_bytes": self.smem_budget, "threads": self.threads}
 
@@ -606,8 +648,8 @@ class SubtreeKernel:
         S.C, S.NL, S.n_sched = C, len(self.levels), len(self.schedule)
         S.noise_mode, S.nc, S.record = noise_mode, self.nc, int(record)
         S.ws_stride, S.xi_stride = self._ws_floats, self.count_noise()
-        S.table_words, S.warp_vec, S.warp_stride = (
-            self._tables.size, self._warp_vec, self._warp_stride)
+        S.table_words, S.warp_vec = self._front
+        S.warp_stride = self._warp_stride
         S.pass_width = barrier_count(self) + 1
         for li, (lv, locs, offs) in enumerate(zip(self.levels, self._level_locs,
                                                   self._table_offsets)):
@@ -877,7 +919,7 @@ def subtree_sample(kernel: SubtreeKernel, f: torch.Tensor, xi: Optional[torch.Te
         err = lib.mgmc_subtree_sample(
             ctypes.byref(S), tables.data_ptr(), sched.data_ptr(), kernel.Linv.data_ptr(),
             kernel.LinvT.data_ptr(), f.data_ptr(), x.data_ptr(), ws.data_ptr(), _ptr(xi),
-            _ptr(points), kernel.threads, kernel.smem_bytes, stream)
+            _ptr(points), kernel.threads, kernel.smem_bytes, int(kernel.wide), stream)
     launch_counts[KERNEL_NAMES[kernel.reach]] += 1
     if err != 0:
         raise RuntimeError(f"subtree kernel launch failed: CUDA error {err}")

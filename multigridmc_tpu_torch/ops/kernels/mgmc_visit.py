@@ -104,8 +104,20 @@ two, forward then backward (SSOR; the phase and the split kernels, and the
 smem kernels of :data:`SMEM_ROUTE` on the reach-1 levels of two sweeps that
 ``mgmc_visit_smem.SMEM_CHAINS`` lists: each chain's field in shared memory
 through both sweeps), any reach-1 stencil (up to 9 offsets, per-point
-coefficient planes, up to 8 colours), ``0 <= m <= 32`` with dense ``B``, ``f``
-shared or per chain, noise on or off, any ``coarse_scaling``.  Reach-2 stencils (the squared
+coefficient planes, up to 8 colours), any number ``m`` of measurements whose
+low-rank scratch a block can hold (:func:`max_lowrank`: 814 on a 2d reach-1
+level, 1,604 on a reach-2 or 3d level) with dense ``B``, ``f`` shared or per
+chain, noise on or off, any ``coarse_scaling``.  Up to :data:`LANE_SLOTS`
+measurements the kernels keep the low-rank vectors one entry a lane in static
+shared memory and the boxes in the parameter block; a level of more takes
+an instance of each kernel compiled for it, with scratch in dynamic shared
+memory sized by its ``m`` (:func:`lowrank_scratch_bytes`), which the phase
+kernels place after their tables, the split and smem kernels after their
+bands (so that their rules fit it before they take the route), and every box
+read from the level's device tables (:meth:`FusedVisitLevel.box_table`; the
+phase kernels' own tables hold them).  The stream kernels have no such
+instance: they keep their cap, :data:`STREAM_MAX_LOWRANK`, and
+:func:`visit_route` never hands them a level above it.  Reach-2 stencils (the squared
 shifted-Laplace prior's 13-point diamond, up to 13 offsets, and the 5x5 box of
 its Galerkin levels, up to 9 colours) take a route of their own,
 :data:`SMEM_ROUTE` (``csrc/mgmc_visit_smem.cu``, :mod:`.mgmc_visit_smem`: each
@@ -149,7 +161,14 @@ from .common import tensor_ptr as _ptr
 
 MAX_OFFSETS = 9
 MAX_COLORS = 8
-MAX_LOWRANK = 32
+#: measurements whose low-rank vectors the kernels keep one entry a lane in
+#: static shared memory (``LANE_SLOTS`` in ``csrc/visit_phases.cuh``); a level
+#: of more takes scratch in dynamic shared memory (:func:`lowrank_scratch_bytes`)
+LANE_SLOTS = 32
+#: the most measurements the stream kernels take (``STREAM_MAX_LOWRANK``: a bit
+#: of a row's column mask each); :func:`visit_route` sends a level of more
+#: to the phase kernels
+STREAM_MAX_LOWRANK = LANE_SLOTS
 #: directed sweeps per visit: one (SOR) or two, forward then backward (SSOR)
 MAX_DIRS = 2
 #: the limits of the phase kernels' reach-2 build (``VISIT_REACH 2`` in
@@ -194,13 +213,13 @@ ROUTES = ("phase", "stream", "split")
 SPLIT_TABLE_INTS = MAX_DIRS * MAX_COLORS * MAX_COLORS
 #: the split kernels' static shared memory (``s_part``, ``s_all``, ``s_btx``,
 #: ``s_lr``, ``s_u``; ``MAX_CLUSTER`` = 16 in the source)
-SPLIT_STATIC_SMEM = 4 * (MAX_LOWRANK + 16 * MAX_LOWRANK + 3 * MAX_LOWRANK)
+SPLIT_STATIC_SMEM = 4 * (LANE_SLOTS + 16 * LANE_SLOTS + 3 * LANE_SLOTS)
 
 #: the phase kernels' static shared memory (``s_btx``, per warp a slot of
-#: ``MAX_LOWRANK`` floats and 128 floats that stage the rhs pass's stores, the
+#: ``LANE_SLOTS`` floats and 128 floats that stage the rhs pass's stores, the
 #: barrier count and the stamps pointer); the library refuses to load where
 #: the kernels declare more
-PHASE_STATIC_SMEM = 4 * (MAX_LOWRANK + 32 * MAX_LOWRANK + 32 * 128) + 16
+PHASE_STATIC_SMEM = 4 * (LANE_SLOTS + 32 * LANE_SLOTS + 32 * 128) + 16
 #: an H100 SM's shared memory and what the card keeps of it per block
 SM_SHARED_BYTES = 233472
 BLOCK_RESERVED_BYTES = 1024
@@ -330,6 +349,24 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
+def lowrank_scratch_bytes(m: int, threads: int) -> int:
+    """Dynamic shared memory the low-rank scratch of a level of ``m``
+    measurements takes in a block of ``threads`` (``lowrank_scratch_floats``
+    in ``csrc/visit_phases.cuh``): none up to :data:`LANE_SLOTS`, else the
+    block's ``m``-vector and two per warp, each lane holding the entries
+    ``lane, lane + 32, ...`` (the phase, smem and subtree kernels; the split
+    kernels size theirs in :func:`split_smem_bytes`)."""
+    return 4 * m * (1 + 2 * (int(threads) // 32)) if m > LANE_SLOTS else 0
+
+
+def max_lowrank(threads: int) -> int:
+    """The most measurements whose low-rank scratch (:func:`lowrank_scratch_bytes`)
+    a phase block of ``threads`` holds beside the kernels' static share
+    (:data:`PHASE_STATIC_SMEM`) under the shared memory a block may opt in to
+    on an H100 (:data:`SMEM_PER_BLOCK_OPTIN`)."""
+    return (SMEM_PER_BLOCK_OPTIN - PHASE_STATIC_SMEM) // (4 * (1 + 2 * (int(threads) // 32)))
+
+
 def _visit_params_fields(max_offsets: int, max_colors: int, box_ints: int = 4):
     return [
         ("C", ctypes.c_int), ("H", ctypes.c_int), ("W", ctypes.c_int),
@@ -346,8 +383,9 @@ def _visit_params_fields(max_offsets: int, max_colors: int, box_ints: int = 4):
         ("omega", ctypes.c_float),
         ("gamma", ctypes.c_float),
         ("m", ctypes.c_int),
-        ("bbox", (ctypes.c_int * box_ints) * MAX_LOWRANK),
-        ("ybox", (ctypes.c_int * box_ints) * MAX_LOWRANK),
+        # the first LANE_SLOTS boxes (a level of more: FusedVisitLevel.box_table)
+        ("bbox", (ctypes.c_int * box_ints) * LANE_SLOTS),
+        ("ybox", (ctypes.c_int * box_ints) * LANE_SLOTS),
         ("noise_mode", ctypes.c_int),
         ("ns_const", ctypes.c_int),
         ("ns_val", ctypes.c_float),
@@ -638,7 +676,7 @@ def stream_min_chains(vshape, form: int) -> Optional[int]:
 
 def visit_route(C: int, stream_bytes: int = 0, device=None,
                 smem_limit: Optional[int] = None, vshape=None,
-                form: Optional[int] = None, ndir: int = 1) -> str:
+                form: Optional[int] = None, ndir: int = 1, m: int = 0) -> str:
     """The kernel a visit of ``C`` chains launches: for a reach-2 stencil form
     (forms 6-9) :data:`SMEM_ROUTE` where the level's shape ``vshape``, form and
     sweeps per visit ``ndir`` are listed in ``mgmc_visit_smem.SMEM_CHAINS``
@@ -657,9 +695,13 @@ def visit_route(C: int, stream_bytes: int = 0, device=None,
     shared memory (``stream_bytes``, :func:`stream_smem_bytes`) fits a block;
     ``"split"`` for a level of shape ``vshape`` where :func:`split_cluster`
     finds a cluster size (at most :data:`SPLIT_MAX_CHAINS` chains); ``"phase"``
-    otherwise.  A block is granted ``smem_limit`` bytes, by default what the
-    probe finds on ``device`` (:func:`~.common.dynamic_smem_limit`; on the CPU
-    its default).  All of it is known before any launch."""
+    otherwise.  A level of ``m`` measurements takes the stream kernels only up
+    to their cap, :data:`STREAM_MAX_LOWRANK` (above it the phase kernels at
+    those chain counts), and the split kernels where their bands and the
+    low-rank vectors of ``m`` fit (:func:`split_smem_bytes`).  A block is
+    granted ``smem_limit`` bytes, by default what the probe finds on ``device``
+    (:func:`~.common.dynamic_smem_limit`; on the CPU its default).  All of it
+    is known before any launch."""
     if form is not None and form >= DIM3_FORM0:
         from .mgmc_visit_smem3d import route_config
 
@@ -678,25 +720,29 @@ def visit_route(C: int, stream_bytes: int = 0, device=None,
     if smem_limit is None:
         smem_limit = dynamic_smem_limit(device)
     threshold = None if vshape is None or form is None else stream_min_chains(vshape, form)
-    if (ndir == 1 and threshold is not None and C >= threshold
+    if (ndir == 1 and threshold is not None and C >= threshold and m <= STREAM_MAX_LOWRANK
             and stream_bytes + STREAM_STATIC_SMEM <= smem_limit):
         return "stream"
-    if vshape is not None and split_cluster(C, vshape, device, smem_limit) is not None:
+    if vshape is not None and split_cluster(C, vshape, device, smem_limit, m=m) is not None:
         return "split"
     return "phase"
 
 
-def split_smem_bytes(H: int, W: int, S: int) -> int:
+def split_smem_bytes(H: int, W: int, S: int, m: int = 0) -> int:
     """Dynamic shared memory of one block of a split launch with clusters of
-    ``S`` blocks on an ``H x W`` level: the first-point table, the widest band
-    of ``x`` and the scratch band of the rhs and the residual.  The host's
-    mirror of ``mgmc_split_smem_bytes`` in ``csrc/mgmc_visit_split.cu``;
-    ``ValueError`` where the level cannot be split so (``S`` outside 2 .. 16,
-    more blocks than rows)."""
+    ``S`` blocks on an ``H x W`` level of ``m`` measurements: the first-point
+    table, the widest band of ``x``, the scratch band of the rhs and the
+    residual and, above :data:`LANE_SLOTS` measurements, the ``(S + 4) m``
+    floats of the low-rank vectors (the band's share of ``B^T x``, every
+    rank's, ``B^T x - Sigma^1/2 n``, the normals, ``u``).  The host's mirror of
+    ``mgmc_split_smem_bytes`` in ``csrc/mgmc_visit_split.cu``; ``ValueError``
+    where the level cannot be split so (``S`` outside 2 .. 16, more blocks than
+    rows)."""
     if not 2 <= S <= ss.SPLIT_SIZES[0] or S > H:
         raise ValueError(f"a level of {H} rows does not split over {S} blocks")
     widest = max(u1 - u0 for u0, u1 in split_bands(H, S))
-    return 4 * (SPLIT_TABLE_INTS + 2 * widest * W)
+    lowrank = (S + 4) * m if m > LANE_SLOTS else 0
+    return 4 * (SPLIT_TABLE_INTS + 2 * widest * W + lowrank)
 
 
 def split_bands(H: int, S: int) -> Tuple[Tuple[int, int], ...]:
@@ -718,15 +764,15 @@ def _split_occupancy_query():
     return load_split_library().mgmc_split_max_active
 
 
-def split_active_clusters(S: int, vshape, device=None) -> int:
+def split_active_clusters(S: int, vshape, device=None, m: int = 0) -> int:
     """How many clusters of ``S`` blocks of the split kernels on a level of
-    shape ``vshape`` the card holds at once, the fewer of the descend and the
-    ascend kernel's (``sor_sweep.active_clusters`` through the split kernels'
-    own ``cudaOccupancyMaxActiveClusters`` entry point; on the CPU every
-    cluster counts as running at once); 0 where such a cluster never
-    schedules."""
+    shape ``vshape`` and ``m`` measurements the card holds at once, the fewer
+    of the descend and the ascend kernel's (``sor_sweep.active_clusters``
+    through the split kernels' own ``cudaOccupancyMaxActiveClusters`` entry
+    point; on the CPU every cluster counts as running at once); 0 where such a
+    cluster never schedules."""
     H, W = (int(v) for v in vshape)
-    nbytes = split_smem_bytes(H, W, S)
+    nbytes = split_smem_bytes(H, W, S, m)
     threads = ss.split_threads((H, W), S)
     device = "cuda" if device is None else device
     # kind 1 asks for the descend kernel, 0 for the ascend kernel
@@ -735,7 +781,7 @@ def split_active_clusters(S: int, vshape, device=None) -> int:
 
 
 def split_cluster(C: int, vshape, device=None, smem_limit: Optional[int] = None,
-                  capped: bool = True) -> Optional[int]:
+                  capped: bool = True, m: int = 0) -> Optional[int]:
     """The cluster size of a split launch of ``C`` chains on a level of shape
     ``vshape``: for at most :data:`SPLIT_MAX_CHAINS` chains (any number with
     ``capped=False``), of the sizes of ``sor_sweep.SPLIT_SIZES`` whose bands
@@ -743,14 +789,16 @@ def split_cluster(C: int, vshape, device=None, smem_limit: Optional[int] = None,
     block on ``device``) and whose clusters schedule, the one of least
     wave-counted cost (``sor_sweep.cheapest_cluster`` over
     :func:`split_active_clusters`, the fixed share of a wave
-    :data:`SPLIT_WAVE_POINTS` over the level's points); ``None`` otherwise."""
+    :data:`SPLIT_WAVE_POINTS` over the level's points); ``None`` otherwise.
+    ``m``: the level's measurements, whose low-rank vectors take shared
+    memory above :data:`LANE_SLOTS` (:func:`split_smem_bytes`)."""
     if capped and C > SPLIT_MAX_CHAINS:
         return None
     H, W = (int(v) for v in vshape)
     if smem_limit is None:
         smem_limit = dynamic_smem_limit(device)
-    active = {S: split_active_clusters(S, vshape, device) for S in ss.SPLIT_SIZES
-              if S <= H and split_smem_bytes(H, W, S) + SPLIT_STATIC_SMEM <= smem_limit}
+    active = {S: split_active_clusters(S, vshape, device, m) for S in ss.SPLIT_SIZES
+              if S <= H and split_smem_bytes(H, W, S, m) + SPLIT_STATIC_SMEM <= smem_limit}
     return ss.cheapest_cluster(C, active, SPLIT_WAVE_POINTS / (H * W))
 
 
@@ -929,7 +977,7 @@ def load_split_library() -> ctypes.CDLL:
     lib.mgmc_split_params_size.restype = i32
     if lib.mgmc_split_params_size() != ctypes.sizeof(SplitParams):
         raise RuntimeError("SplitParams layout differs between Python and CUDA")
-    lib.mgmc_split_smem_bytes.argtypes = [i32] * 3  # H, W, S
+    lib.mgmc_split_smem_bytes.argtypes = [i32] * 4  # H, W, S, m
     lib.mgmc_split_smem_bytes.restype = i32
     lib.mgmc_split_static_smem_bytes.argtypes = []
     lib.mgmc_split_static_smem_bytes.restype = i32
@@ -937,10 +985,10 @@ def load_split_library() -> ctypes.CDLL:
     lib.mgmc_split_max_active.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
     lib.mgmc_split_max_active.restype = i32
     # P, x, f, fc (descend) or xc (ascend), coeffs, ns, B, Y0, W0, Y1, W1, xilr, sroot, xi,
-    # S, threads, stream
-    lib.mgmc_split_descend.argtypes = [ctypes.POINTER(SplitParams)] + [ptr] * 13 + [i32, i32, ptr]
+    # boxes0, boxes1, S, threads, stream
+    lib.mgmc_split_descend.argtypes = [ctypes.POINTER(SplitParams)] + [ptr] * 15 + [i32, i32, ptr]
     lib.mgmc_split_descend.restype = i32
-    lib.mgmc_split_ascend.argtypes = [ctypes.POINTER(SplitParams)] + [ptr] * 13 + [i32, i32, ptr]
+    lib.mgmc_split_ascend.argtypes = [ctypes.POINTER(SplitParams)] + [ptr] * 15 + [i32, i32, ptr]
     lib.mgmc_split_ascend.restype = i32
     return lib
 
@@ -951,7 +999,10 @@ def kernel_support_error(op: StencilOperator, n_colors: int) -> Optional[str]:
     or reach 2 (at most 13 offsets or the 5x5 box in raster order, at most
     :data:`WIDE_MAX_COLORS` colours; the phase kernels alone); 3d, reach 1
     (at most :data:`DIM3_MAX_OFFSETS` offsets, :data:`MAX_COLORS` colours; the
-    phase kernels alone); at most :data:`MAX_LOWRANK` measurements."""
+    phase kernels alone); at most as many measurements as the phase kernels'
+    low-rank scratch at their largest block holds (:func:`max_lowrank`: 814 at
+    1,024 threads, the reach-1 2d build's bound; 1,604 at 512, the reach-2 and
+    3d builds')."""
     dim = len(op.vshape)
     if dim not in (2, 3):
         return f"the fused level-visit kernels take 2d and 3d levels ({dim}d)"
@@ -968,19 +1019,29 @@ def kernel_support_error(op: StencilOperator, n_colors: int) -> Optional[str]:
     most = WIDE_MAX_COLORS if reach == 2 else MAX_COLORS
     if n_colors > most:
         return f"more than {most} colours at reach {reach}"
-    if op.m_lowrank > MAX_LOWRANK:
-        return f"more than {MAX_LOWRANK} measurements"
+    threads = 1024 if reach == 1 and dim == 2 else WIDE_MAX_THREADS
+    most = max_lowrank(threads)
+    if op.m_lowrank > most:
+        return (f"more than {most} measurements: the low-rank scratch of a block of {threads} "
+                f"threads ({lowrank_scratch_bytes(op.m_lowrank, threads)} bytes) and the kernels' "
+                f"static {PHASE_STATIC_SMEM} bytes exceed the {SMEM_PER_BLOCK_OPTIN} bytes of "
+                "shared memory a block may opt in to on an H100")
     return None
 
 
 def route_support_error(level: "FusedVisitLevel", route: str, ndir: int = 1) -> Optional[str]:
     """Why the kernels of ``route`` cannot take a visit of ``ndir`` sweeps on
     ``level``, or None: the split and stream kernels take 2d reach-1 stencils
-    only, the stream kernels one sweep; the smem kernels every level the
+    only, the stream kernels one sweep and at most
+    :data:`STREAM_MAX_LOWRANK` measurements; the smem kernels every level the
     kernels take (:func:`visit_route` gives them the levels their tables
     list: a 2d reach-1 level only with two sweeps, but a caller may name the
     route for one).  :func:`visit_route` never gives a route a visit it
     cannot take; this holds a route a caller names to it."""
+    if route == "stream" and level.op.m_lowrank > STREAM_MAX_LOWRANK:
+        return (f"the stream kernels take at most {STREAM_MAX_LOWRANK} measurements (a bit of "
+                f"a row's column mask each), this level has {level.op.m_lowrank}: it takes the "
+                "phase kernels")
     if route == "stream" and ndir > 1:
         return ("the stream kernels take one sweep per visit: a two-sweep (SSOR) level takes "
                 "the phase or the split kernels")
@@ -1078,6 +1139,7 @@ class FusedVisitLevel:
         self._routes = {}
         self._split_launches = {}
         self._smem_layouts = {}
+        self._box_tables = {}
 
     @property
     def ndir(self) -> int:
@@ -1187,10 +1249,11 @@ class FusedVisitLevel:
             # layout to size
             one = self.stencil_form < WIDE_FORM0 and self.ndir == 1
             route = visit_route(C, self.stream_bytes if one else 0, self.op.device,
-                                vshape=self.op.vshape, form=self.stencil_form, ndir=self.ndir)
+                                vshape=self.op.vshape, form=self.stencil_form, ndir=self.ndir,
+                                m=self.op.m_lowrank)
             S = None
             if route == "split":
-                S = split_cluster(C, self.op.vshape, self.op.device)
+                S = split_cluster(C, self.op.vshape, self.op.device, m=self.op.m_lowrank)
             elif route == SMEM_ROUTE:
                 S = smem_module(self).smem_cluster(self, C)
                 route = "phase" if S is None else route
@@ -1209,19 +1272,36 @@ class FusedVisitLevel:
     def phase_launch(self, orders, threads: int):
         """``(tables, PhaseTables, dynamic shared bytes)`` of a phase launch with
         the sweep ``orders`` and ``threads`` per block: the tables of
-        :func:`phase_tables` as a device tensor, uploaded once, and whether
-        each block copies them into its shared memory
-        (:func:`phase_tables_fit` against what the card grants a block); all
-        decided before the launch and kept per launch configuration."""
+        :func:`phase_tables` as a device tensor, uploaded once, whether each
+        block copies them into its shared memory (:func:`phase_tables_fit`,
+        with the low-rank scratch beside them, against what the card grants a
+        block) and the low-rank scratch of a level of more than
+        :data:`LANE_SLOTS` measurements (:func:`lowrank_scratch_bytes`), after
+        the tables; all decided before the launch and kept per launch
+        configuration."""
         orders = _as_orders(orders)
         key = (orders, int(threads))
         if key not in self._phase_cache:
             words, T = phase_tables(self, orders)
             tensor = torch.from_numpy(words).to(self.op.device)
-            T.shared = int(phase_tables_fit(4 * T.words, threads,
+            lowrank = lowrank_scratch_bytes(self.op.m_lowrank, threads)
+            T.shared = int(phase_tables_fit(4 * T.words + lowrank, threads,
                                              dynamic_smem_limit(self.op.device)))
-            self._phase_cache[key] = (tensor, T, 4 * T.words if T.shared else 0)
+            self._phase_cache[key] = (tensor, T, (4 * T.words if T.shared else 0) + lowrank)
         return self._phase_cache[key]
+
+    def box_table(self, order):
+        """The boxes of ``B``'s columns and of ``Y``'s of the sweep ``order``
+        (``m x 4`` int32 each, 3d ``m x 6``) as one tensor on the level's
+        device: the split and smem kernels of a level of more than
+        :data:`LANE_SLOTS` measurements read them there (the parameter block
+        holds the first :data:`LANE_SLOTS`); made once per order."""
+        order = tuple(order)
+        if order not in self._box_tables:
+            ybox = self._woodbury[order][2]
+            ints = np.asarray(list(self.bbox) + list(ybox), np.int32).reshape(-1)
+            self._box_tables[order] = torch.from_numpy(ints).to(self.op.device)
+        return self._box_tables[order]
 
     def _lags(self, order) -> Tuple[int, ...]:
         return wavefront_lags(self.op.offsets, self.coloring.weights,
@@ -1313,7 +1393,8 @@ class FusedVisitLevel:
             P.order[o] = c
         P.omega, P.gamma = self.omega, self.coarse_scaling
         P.m = op.m_lowrank
-        for k, (box, ybox) in enumerate(zip(self.bbox, self._woodbury[tuple(order)][2])):
+        boxes = zip(self.bbox, self._woodbury[tuple(order)][2])
+        for k, (box, ybox) in zip(range(LANE_SLOTS), boxes):
             for q in range(2 * self.dim):
                 P.bbox[k][q] = box[q]
                 P.ybox[k][q] = ybox[q]
@@ -1453,6 +1534,17 @@ def ascend_visit(level: FusedVisitLevel, f, x, x_coarse, xi=None, xi_lr=None,
             raise ValueError("the Philox stream exists in the CUDA kernel only")
         return ascend_visit_plain(level, f, x, x_coarse, xi, xi_lr)
     return launch_ascend(level, level.route(x.shape[0]), f, x, x_coarse, xi, xi_lr, philox)
+
+
+def box_pointers(level: FusedVisitLevel, orders) -> Tuple[int, int]:
+    """The device box tables of a launch's sweep orders (``box_table``; the
+    second 0 for one sweep) that the split and smem kernels of a level of more
+    than :data:`LANE_SLOTS` measurements read; 0, 0 for a level of fewer,
+    whose boxes the parameter blocks hold."""
+    if level.op.m_lowrank <= LANE_SLOTS:
+        return 0, 0
+    ptrs = [level.box_table(order).data_ptr() for order in orders]
+    return ptrs[0], (ptrs[1] if len(ptrs) > 1 else 0)
 
 
 def _on_card(x):
@@ -1596,7 +1688,8 @@ def _launch(level: FusedVisitLevel, route: str, kind: str, f, x, x_coarse, xi, x
             err = fn(ctypes.byref(P), x.data_ptr(), f.data_ptr(), coarse,
                      level.coeffs.data_ptr(), ns, _ptr(level.B), _ptr(factors[0][0]),
                      _ptr(factors[0][1]), _ptr(factors[1][0]), _ptr(factors[1][1]),
-                     _ptr(xi_lr), sroot, _ptr(xi), S, nthreads, stream)
+                     _ptr(xi_lr), sroot, _ptr(xi), *box_pointers(level, orders), S, nthreads,
+                     stream)
     name = kernel_name(level, route, kind)
     launch_counts[name] += 1
     if err != 0:

@@ -64,8 +64,10 @@ MAX_THREADS = 1024
 #: registers a thread under that bound
 REGISTERS = 64
 #: the kernels' static shared memory: a band's share of ``B^T x``, a slot of
-#: ``MAX_LOWRANK`` floats per warp, the barrier count and the stamps pointer
-STATIC_SMEM = 4 * (mv.MAX_LOWRANK + 32 * mv.MAX_LOWRANK) + 16
+#: ``LANE_SLOTS`` floats per warp, the barrier count and the stamps pointer (a
+#: level of more measurements takes its scratch after the band:
+#: ``mgmc_visit.lowrank_scratch_bytes``)
+STATIC_SMEM = 4 * (mv.LANE_SLOTS + 32 * mv.LANE_SLOTS) + 16
 #: entries pack (padded index << 16) | field index
 INDEX_LIMIT = 1 << 16
 
@@ -335,7 +337,8 @@ def load_library(stamps: bool = False) -> ctypes.CDLL:
     # P, tables, x, f, scratch, fc (descend) or xc (ascend), coeffs, ns, B, Y0, W0, Y1, W1,
     # xilr, sroot, xi, kmax, threads, bytes, stamps, stream
     for fn in (lib.mgmc_smem_descend, lib.mgmc_smem_ascend):
-        fn.argtypes = [ctypes.POINTER(SmemVisitParams)] + [ptr] * 15 + [i32] * 3 + [ptr, ptr]
+        # ..., kmax, threads, bytes, stamps, boxes0, boxes1, stream
+        fn.argtypes = [ctypes.POINTER(SmemVisitParams)] + [ptr] * 15 + [i32] * 3 + [ptr] * 4
         fn.restype = i32
     return lib
 
@@ -353,15 +356,18 @@ def placement(level, S: int) -> Tuple[bool, int]:
     one block an SM, else half as many (64 registers a thread: two blocks an
     SM), at most the kernel's bound; ``c`` (and ``r``) in shared memory where
     that keeps as many blocks an SM as the registers and the band of ``x``
-    allow."""
+    allow, the low-rank scratch of a level of more than ``LANE_SLOTS``
+    measurements counted with both (``mgmc_visit.lowrank_scratch_bytes``)."""
     H, W = (int(v) for v in level.op.vshape)
     alone = blocks_by_smem(smem_bytes(H, W, S, False)) <= 1
     threads = min(SMEM_ALONE_THREADS if alone else SMEM_ALONE_THREADS // 2, MAX_THREADS)
+    lowrank = mv.lowrank_scratch_bytes(level.op.m_lowrank, threads)
     by_regs = mv.SM_REGISTERS // (REGISTERS * threads)
-    keep = min(by_regs, blocks_by_smem(smem_bytes(H, W, S, False)))
-    with_c = smem_bytes(H, W, S, True)
+    keep = min(by_regs, blocks_by_smem(smem_bytes(H, W, S, False) + lowrank))
+    with_c = smem_bytes(H, W, S, True) + lowrank
     return (with_c + STATIC_SMEM <= ss.CPU_SMEM_LIMIT and blocks_by_smem(with_c) >= keep,
             threads)
+
 
 
 @functools.lru_cache(maxsize=None)
@@ -383,13 +389,17 @@ def active_clusters(level, S: int, c_shared: bool, threads: int) -> int:
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     H, W = (int(v) for v in level.op.vshape)
-    nbytes, km = smem_bytes(H, W, S, c_shared), kmax(level.stencil_form)
+    nbytes = smem_bytes(H, W, S, c_shared) + mv.lowrank_scratch_bytes(level.op.m_lowrank,
+                                                                       threads)
+    km = kmax(level.stencil_form)
     return min(_max_active(device, kind, km, S, threads, nbytes) for kind in (1, 0))
 
 
 def candidates(level, smem_limit: Optional[int] = None) -> Dict[int, Tuple[bool, int]]:
-    """``{S: (c_shared, threads)}`` of the cluster sizes whose bands fit a
-    block (:func:`placement`) and the tables' indices."""
+    """``{S: (c_shared, threads)}`` of the cluster sizes whose bands, with the
+    low-rank scratch of a level of more than ``LANE_SLOTS`` measurements
+    (``mgmc_visit.lowrank_scratch_bytes``), fit a block (:func:`placement`) and the tables'
+    indices; a level none fits takes the phase kernels."""
     H, W = (int(v) for v in level.op.vshape)
     limit = ss.smem_limit_of(level.op.device) if smem_limit is None else int(smem_limit)
     out = {}
@@ -397,7 +407,8 @@ def candidates(level, smem_limit: Optional[int] = None) -> Dict[int, Tuple[bool,
         if H // S < HALO or not fits_indices(H, W, S):
             continue
         c_sh, threads = placement(level, S)
-        if smem_bytes(H, W, S, c_sh) + STATIC_SMEM <= limit:
+        lowrank = mv.lowrank_scratch_bytes(level.op.m_lowrank, threads)
+        if smem_bytes(H, W, S, c_sh) + lowrank + STATIC_SMEM <= limit:
             out[S] = (c_sh, threads)
     return out
 
@@ -430,7 +441,8 @@ class SmemLayout:
         t = visit_tables(level, orders, S)
         self.tables = torch.from_numpy(t["words"]).to(level.op.device)
         self.S, self.c_shared, self.threads = int(S), bool(c_shared), int(threads)
-        self.nbytes = smem_bytes(H, W, S, c_shared)
+        self.nbytes = (smem_bytes(H, W, S, c_shared)
+                       + mv.lowrank_scratch_bytes(level.op.m_lowrank, threads))
         self.kmax = kmax(level.stencil_form)
         self.fields = {"ndir": len(orders), "S": int(S), "PX": t["PX"],
                        "nb_max": -(-H // S), "c_shared": int(c_shared), "margin": t["margin"],
@@ -490,4 +502,4 @@ def launch(level, kind: str, P, L: SmemLayout, f, x, coarse, xi, xi_lr, stamps, 
               level.noise_scale.data_ptr(), _ptr(level.B), _ptr(factors[0][0]),
               _ptr(factors[0][1]), _ptr(factors[1][0]), _ptr(factors[1][1]), _ptr(xi_lr),
               _ptr(level.sigma_sqrt), _ptr(xi), L.kmax, L.threads, L.nbytes, _ptr(stamps),
-              stream)
+              *mv.box_pointers(level, orders), stream)

@@ -62,8 +62,8 @@ MAX_THREADS = 1024
 #: registers a thread under that bound
 REGISTERS = 64
 #: the kernels' static shared memory: a slab's share of ``B^T x``, a slot of
-#: ``MAX_LOWRANK`` floats per warp, the barrier count and the stamps pointer
-STATIC_SMEM = 4 * (mv.MAX_LOWRANK + 32 * mv.MAX_LOWRANK) + 16
+#: ``LANE_SLOTS`` floats per warp, the barrier count and the stamps pointer
+STATIC_SMEM = 4 * (mv.LANE_SLOTS + 32 * mv.LANE_SLOTS) + 16
 #: entries pack (padded index << 16) | index in the slab
 INDEX_LIMIT = 1 << 16
 
@@ -326,7 +326,8 @@ def load_library(stamps: bool = False) -> ctypes.CDLL:
     # P, tables, x, f, scratch, fc (descend) or xc (ascend), coeffs, ns, B, Y0, W0, Y1, W1,
     # xilr, sroot, xi, kmax, threads, bytes, stamps, stream
     for fn in (lib.mgmc_smem3d_descend, lib.mgmc_smem3d_ascend):
-        fn.argtypes = [ctypes.POINTER(SmemVolumeParams)] + [ptr] * 15 + [i32] * 3 + [ptr, ptr]
+        # ..., kmax, threads, bytes, stamps, boxes0, boxes1, stream
+        fn.argtypes = [ctypes.POINTER(SmemVolumeParams)] + [ptr] * 15 + [i32] * 3 + [ptr] * 4
         fn.restype = i32
     return lib
 
@@ -356,15 +357,29 @@ def placement(level, S: int) -> Tuple[bool, int]:
     :data:`SMEM_ALONE_THREADS` where the slab of ``x`` alone leaves room for
     one block an SM, else half as many (64 registers a thread: two blocks an
     SM); ``c`` (and ``r``) in shared memory where that keeps as many blocks an
-    SM as the registers and the slab of ``x`` allow."""
+    SM as the registers and the slab of ``x`` allow, the low-rank scratch of a
+    level of more than ``LANE_SLOTS`` measurements counted with both
+    (``mgmc_visit.lowrank_scratch_bytes``)."""
     Z, Y, W = (int(v) for v in level.op.vshape)
     alone = blocks_by_smem(smem_bytes(Z, Y, W, S, False)) <= 1
     threads = min(SMEM_ALONE_THREADS if alone else SMEM_ALONE_THREADS // 2, MAX_THREADS)
+    lowrank = mv.lowrank_scratch_bytes(level.op.m_lowrank, threads)
     by_regs = mv.SM_REGISTERS // (REGISTERS * threads)
-    keep = min(by_regs, blocks_by_smem(smem_bytes(Z, Y, W, S, False)))
-    with_c = smem_bytes(Z, Y, W, S, True)
+    keep = min(by_regs, blocks_by_smem(smem_bytes(Z, Y, W, S, False) + lowrank))
+    with_c = smem_bytes(Z, Y, W, S, True) + lowrank
     return (with_c + STATIC_SMEM <= ss.CPU_SMEM_LIMIT and blocks_by_smem(with_c) >= keep,
             threads)
+
+
+
+def fits(level, S: int, c_shared: bool, threads: int) -> bool:
+    """Whether a block of clusters of ``S`` with ``threads`` (and ``c`` in
+    shared memory or not) holds its slab and the level's low-rank scratch
+    under the shared memory the card grants a block."""
+    Z, Y, W = (int(v) for v in level.op.vshape)
+    need = (smem_bytes(Z, Y, W, S, c_shared) + mv.lowrank_scratch_bytes(level.op.m_lowrank, threads)
+            + STATIC_SMEM)
+    return need <= ss.smem_limit_of(level.op.device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -386,15 +401,20 @@ def active_clusters(level, S: int, c_shared: bool, threads: int) -> int:
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     Z, Y, W = (int(v) for v in level.op.vshape)
-    nbytes, km = smem_bytes(Z, Y, W, S, c_shared), kmax(level.stencil_form)
+    nbytes = (smem_bytes(Z, Y, W, S, c_shared)
+              + mv.lowrank_scratch_bytes(level.op.m_lowrank, threads))
+    km = kmax(level.stencil_form)
     return min(_max_active(device, kind, km, S, threads, nbytes) for kind in (1, 0))
 
 
 def smem_cluster(level, C: int) -> Optional[int]:
     """The cluster size of a launch of ``C`` chains: the table's
-    (:func:`route_config`), ``None`` where it does not list the visit."""
+    (:func:`route_config`), ``None`` where it does not list the visit or
+    where its configuration's slab and the level's low-rank scratch do not
+    fit a block (:func:`fits`: a level of many measurements), so that the
+    visit takes the phase kernels."""
     conf = route_config(level.op.vshape, level.stencil_form, level.ndir, C)
-    return None if conf is None else conf[0]
+    return None if conf is None or not fits(level, *conf) else conf[0]
 
 
 # ------------------------------------------------------------------ the launch
@@ -408,7 +428,8 @@ class SmemLayout:
         t = visit_tables(level, orders, S)
         self.tables = torch.from_numpy(t["words"]).to(level.op.device)
         self.S, self.c_shared, self.threads = int(S), bool(c_shared), int(threads)
-        self.nbytes = smem_bytes(Z, Y, W, S, c_shared)
+        self.nbytes = (smem_bytes(Z, Y, W, S, c_shared)
+                       + mv.lowrank_scratch_bytes(level.op.m_lowrank, threads))
         self.kmax = kmax(level.stencil_form)
         self.fields = {"ndir": len(orders), "S": int(S), "PX": t["PX"], "PP": t["PP"],
                        "nz_max": -(-Z // S), "c_shared": int(c_shared), "margin": t["margin"],
@@ -470,4 +491,4 @@ def launch(level, kind: str, P, L: SmemLayout, f, x, coarse, xi, xi_lr, stamps, 
               level.noise_scale.data_ptr(), _ptr(level.B), _ptr(factors[0][0]),
               _ptr(factors[0][1]), _ptr(factors[1][0]), _ptr(factors[1][1]), _ptr(xi_lr),
               _ptr(level.sigma_sqrt), _ptr(xi), L.kmax, L.threads, L.nbytes, _ptr(stamps),
-              stream)
+              *mv.box_pointers(level, orders), stream)

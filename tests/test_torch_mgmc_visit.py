@@ -183,8 +183,13 @@ def test_auto_gate_raises_on_the_card_where_the_kernels_cannot_go(monkeypatch):
         sm = NS(order=(0, 1), B_bar=None, coloring=NS(n_colors=n_colors), omega=1.0, nsmooth=1)
         return mv.fused_levels_for([op, op], [sm, sm], [sm, sm], 1.0, 0, force=force)
 
+    # any measurement count whose low-rank scratch a block holds is admitted,
+    # one past the lane slots and the 256 of the flagship's largest posterior
+    # included; only the shared-memory limit beyond raises
+    for m in (mv.LANE_SLOTS + 1, 64, 256):
+        assert gate(stub((31, 31), m=m)) == {0: ("fused", (31, 31))}
     with pytest.raises(NotImplementedError, match="measurements"):
-        gate(stub((31, 31), m=mv.MAX_LOWRANK + 1))
+        gate(stub((31, 31), m=mv.max_lowrank(1024) + 1))
     with pytest.raises(NotImplementedError, match="colours"):
         gate(stub((31, 31)), n_colors=mv.MAX_COLORS + 1)
     # reach 2 is admitted (the phase kernels' reach-2 build), reach 3 refused
@@ -195,8 +200,10 @@ def test_auto_gate_raises_on_the_card_where_the_kernels_cannot_go(monkeypatch):
     assert gate(stub((15, 15, 15))) == {0: ("fused", (15, 15, 15))}
     with pytest.raises(NotImplementedError, match="reach up to 1 only"):
         gate(stub((15, 15, 15), reach=2))
+    for m in (mv.LANE_SLOTS + 1, 64):
+        assert gate(stub((15, 15, 15), m=m)) == {0: ("fused", (15, 15, 15))}
     with pytest.raises(NotImplementedError, match="measurements"):
-        gate(stub((15, 15, 15), m=mv.MAX_LOWRANK + 1))
+        gate(stub((15, 15, 15), m=mv.max_lowrank(mv.WIDE_MAX_THREADS) + 1))
     with pytest.raises(NotImplementedError, match="colours"):
         gate(stub((15, 15, 15)), n_colors=mv.MAX_COLORS + 1)
     assert gate(stub((15, 15, 15), dtype=torch.float64)) == {}

@@ -343,9 +343,12 @@ def test_shared_memory_bytes_mirror_the_source():
         v3.smem_bytes(3, 5, 5, 4, False)
     assert re.search(r"#define SMEM_HEAD_INTS \(2 \* MAX_COLORS \+ 1\)", src)
     assert v3.HEAD_INTS == 2 * 8 + 1
-    assert "__shared__ float s_part[MAX_LOWRANK];" in src
-    assert "__shared__ float s_wv[32 * MAX_LOWRANK];" in src
+    # the static part holds LANE_SLOTS measurements; a level of more keeps
+    # its low-rank scratch after the slab, sized by its m
+    assert "__shared__ float s_part[LANE_SLOTS];" in src
+    assert "__shared__ float s_wv[32 * LANE_SLOTS];" in src
     assert v3.STATIC_SMEM == 4 * (32 + 32 * 32) + 16
+    assert "4 * lowrank_scratch_floats(P->m, threads)" in src
     struct = src[src.index("struct SmemVolumeParams {"):src.index("};", src.index(
         "struct SmemVolumeParams {"))]
     names = re.findall(r"\b(\w+)(?:\[\w+\])?;", struct)
@@ -448,7 +451,7 @@ def test_phase_launch_opts_in_where_static_and_dynamic_pass_48k():
     beside 20,608 static failed to launch as the first launch of its kernel);
     the 3d smem kernels ask at every launch."""
     src = (CSRC / "mgmc_visit.cu").read_text()
-    assert ("#define PHASE_STATIC_BOUND (4 * (MAX_LOWRANK + 32 * MAX_LOWRANK + 32 * 128) + 16)"
+    assert ("#define PHASE_STATIC_BOUND (4 * (LANE_SLOTS + 32 * LANE_SLOTS + 32 * 128) + 16)"
             in src)
     assert mv.PHASE_STATIC_SMEM == 4 * (32 + 32 * 32 + 32 * 128) + 16
     assert "return smem_bytes > 0 && smem_bytes + PHASE_STATIC_BOUND > 48 * 1024;" in src

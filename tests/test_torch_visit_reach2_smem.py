@@ -372,7 +372,7 @@ class _Shape:
     def __init__(self, H, W, form):
         from types import SimpleNamespace as NS
 
-        self.op = NS(vshape=(H, W), device=torch.device("cpu"))
+        self.op = NS(vshape=(H, W), device=torch.device("cpu"), m_lowrank=8)
         self.stencil_form = form
 
 
@@ -414,8 +414,8 @@ def test_shared_memory_bytes_mirror_the_source():
     # the parameter block and the static part
     assert re.search(rf"#define SMEM_HEAD_INTS \(2 \* MAX_COLORS \+ 1\)", src)
     assert vsm.HEAD_INTS == 2 * 9 + 1
-    assert "__shared__ float s_part[MAX_LOWRANK];" in src
-    assert "__shared__ float s_wv[32 * MAX_LOWRANK];" in src
+    assert "__shared__ float s_part[LANE_SLOTS];" in src
+    assert "__shared__ float s_wv[32 * LANE_SLOTS];" in src
     assert vsm.STATIC_SMEM == 4 * (32 + 32 * 32) + 16
     struct = src[src.index("struct SmemVisitParams {"):src.index("};", src.index(
         "struct SmemVisitParams {"))]

@@ -441,7 +441,7 @@ def test_layout_mirror_constants_match_the_kernel_source():
     assert int(re.search(r"#define MAX_CLUSTER (\d+)", src).group(1)) == ss.SPLIT_SIZES[0]
     assert "#define SPLIT_TABLE_INTS (MAX_DIRS * MAX_COLORS * MAX_COLORS)" in src
     assert int(re.search(r"#define MAX_DIRS (\d+)", src).group(1)) == mv.MAX_DIRS
-    sizes = {"MAX_LOWRANK": mv.MAX_LOWRANK, "MAX_CLUSTER": ss.SPLIT_SIZES[0]}
+    sizes = {"LANE_SLOTS": mv.LANE_SLOTS, "MAX_CLUSTER": ss.SPLIT_SIZES[0]}
     statics = re.findall(r"__shared__ float s_\w+\[(\w+)(?: \* (\w+))?\];", src)
     assert mv.SPLIT_STATIC_SMEM == sum(4 * sizes[a] * (sizes[b] if b else 1) for a, b in statics)
     assert '#include "visit_phases.cuh"' in src and "mgmc_visit_split" in common.SOURCES

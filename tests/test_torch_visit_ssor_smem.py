@@ -234,7 +234,7 @@ def test_shared_memory_bytes_of_the_flagship_levels():
         def __init__(self, H, form):
             from types import SimpleNamespace as NS
 
-            self.op = NS(vshape=(H, H), device=torch.device("cpu"))
+            self.op = NS(vshape=(H, H), device=torch.device("cpu"), m_lowrank=8)
             self.stencil_form = form
 
     big, small = Shape(255, 0), Shape(127, 2)
@@ -266,12 +266,15 @@ def test_barriers_from_the_source(levels):
     assert vsm.barrier_count(prior, "descend") == 2 * (1 + 2) + 3
 
 
+# (the ids are the cases' first names, from when the smem bound read MAX_LOWRANK)
 @pytest.mark.parametrize("source,bound,mirror", [
-    ("mgmc_visit_smem.cu", "#define SMEM_STATIC_BOUND (4 * (MAX_LOWRANK + 32 * MAX_LOWRANK) + 16)",
+    ("mgmc_visit_smem.cu", "#define SMEM_STATIC_BOUND (4 * (LANE_SLOTS + 32 * LANE_SLOTS) + 16)",
      vsm.STATIC_SMEM),
     ("sor_sweep_smem.cu", "#define SMEM_STATIC_BOUND 16", ss.SMEM_STATIC_SMEM),
     ("mgmc_subtree.cu", "#define SUBTREE_STATIC_BOUND 4096", st.STATIC_SMEM_RESERVE),
-])
+], ids=["mgmc_visit_smem.cu-#define SMEM_STATIC_BOUND (4 * (MAX_LOWRANK + 32 * MAX_LOWRANK) + 16)"
+        "-4240", "sor_sweep_smem.cu-#define SMEM_STATIC_BOUND 16-16",
+        "mgmc_subtree.cu-#define SUBTREE_STATIC_BOUND 4096-4096"])
 def test_launchers_opt_in_where_static_and_dynamic_pass_48k(source, bound, mirror):
     """The smem visit, the shared-memory sweep and the subtree launchers ask
     for their dynamic shared memory where that and their kernels' static share
@@ -282,7 +285,7 @@ def test_launchers_opt_in_where_static_and_dynamic_pass_48k(source, bound, mirro
     src = (CSRC / source).read_text()
     assert bound in src
     name = re.search(r"#define (\w+_STATIC_BOUND) (.+)", src)
-    assert eval(name.group(2), {"MAX_LOWRANK": mv.MAX_LOWRANK}) == mirror
+    assert eval(name.group(2), {"LANE_SLOTS": mv.LANE_SLOTS}) == mirror
     assert f"return smem_bytes > 0 && smem_bytes + {name.group(1)} > 48 * 1024;" in src or (
         f"return bytes > 0 && bytes + {name.group(1)} > 48 * 1024;" in src)
     assert "> 48 * 1024)" not in src and "<= 48 * 1024)" not in src

@@ -427,6 +427,7 @@ def test_layout_mirror_constants_match_the_kernel_source():
         "STREAM_TILE": mv.STREAM_TILE, "STREAM_COL0": mv.STREAM_COL0,
         "MAX_STREAM_THREADS": mv.MAX_STREAM_THREADS}
     statics = re.findall(r"__shared__ (float|int) s_\w+\[(\w+)(?: \* (\w+))?\];", src)
-    sizes = {"MAX_LOWRANK": mv.MAX_LOWRANK, "MAX_COLORS": mv.MAX_COLORS}
+    sizes = {"STREAM_MAX_LOWRANK": mv.STREAM_MAX_LOWRANK, "MAX_COLORS": mv.MAX_COLORS}
+    assert "#define STREAM_MAX_LOWRANK LANE_SLOTS" in src
     assert mv.STREAM_STATIC_SMEM == sum(
         4 * sizes[a] * (sizes[b] if b else 1) for _, a, b in statics)
